@@ -28,15 +28,16 @@
 // packed f32 table, staged into shared memory once per block. The kernel
 // launches on the caller's stream and allocates nothing.
 //
-// What bounds it on this card. The arithmetic is ~3.4e5 flops per env per
-// call (counted in ops/cuda/engine.py::k1a_flops_per_env) against 0.65 KB of
-// inputs and outputs, so the floor is the fp32 rate. This simple design is
+// What bounds it on this card. Near contact a call needs ~1.6e5 fp32
+// operations per env (~3.3e5 with every row active, counted by
+// ops/cuda/engine.py::k1a_flops) against 0.65 KB of inputs and outputs,
+// so the floor is the fp32 rate. This simple design is
 // far from it: the workspace round-trips through L2 on every row of every
 // sweep, one thread per env leaves most of the SMs' warp slots empty at
 // B = 4096, and the serial chain has little instruction-level parallelism.
 // Left on the table: W and L in shared memory or registers, several threads
-// per env (a warp per env splitting the NV-long dot products), and the
-// structural zeros of the contact Jacobians.
+// per env (a warp per env splitting the NV-long dot products), the
+// structural zeros of the contact Jacobians, and skipping inactive rows.
 //
 // Compiled with the host compiler (K1A_HOST_CHECK defined, no CUDA), the
 // same per-env code runs as a plain loop: tests use that to check this

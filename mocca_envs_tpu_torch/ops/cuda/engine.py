@@ -6,9 +6,10 @@ EngineConfig). The kernel is CUDA C++ in ``csrc/engine_k1a.cu``, built with
 ``nvcc`` for ``sm_90a`` into ``build/`` at first use and called through a
 plain C interface with ``ctypes``.
 
-- :class:`K1a` wraps one (model, config): on a CPU tensor it runs the plain
-  version, on a CUDA tensor it launches the kernel or raises. There is no
-  fallback from one to the other.
+- :class:`K1a` wraps one (model, config): :meth:`K1a.launch` launches the
+  kernel on CUDA tensors and raises on anything else. The choice by device
+  is made once, in ``ops/step.py::_make_llc_unit``; there is no fallback
+  from one path to the other.
 - :meth:`K1a.plain` is the plain PyTorch version: the port's ``ops/step.py``
   path run for one llc frame, on any device.
 - ``LAUNCHES["k1a"]`` counts kernel launches (plain runs do not count).
@@ -29,7 +30,8 @@ import torch
 
 from mocca_envs_tpu_torch.models.schema import REVOLUTE, RobotModel
 from mocca_envs_tpu_torch.ops.integrate import LIMIT_SLOP, MAX_VEL
-from mocca_envs_tpu_torch.ops.step import limited_joints, make_plain_llc
+from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics, joint_q
+from mocca_envs_tpu_torch.ops.step import limited_joints, make_plain_llc, make_substep
 from mocca_envs_tpu_torch.terrain.scene import Scene
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
@@ -144,29 +146,27 @@ def pack_tables(model: RobotModel, config: EngineConfig) -> np.ndarray:
 
 
 class K1a:
-    """One llc frame of one (model, config) on a batch: the kernel on CUDA
-    tensors, the plain version on CPU tensors.
+    """One llc frame of one (model, config) on a batch:
 
-    ``__call__(q (B,nq), qd (B,nv), tau (B,nj), ground_z (B,), friction (B,))
-    → (q', qd', depth (B,ns), normal_impulse (B,ns))``, all f32.
+    ``launch`` / ``plain``: ``(q (B,nq), qd (B,nv), tau (B,nj), ground_z (B,),
+    friction (B,)) → (q', qd', depth (B,ns), normal_impulse (B,ns))``, all f32.
+    ``plain_unit`` is the plain llc frame to compare against (built here
+    when not given).
     """
 
-    def __init__(self, model: RobotModel, config: EngineConfig):
+    def __init__(self, model: RobotModel, config: EngineConfig, plain_unit=None):
         self.name = _check_supported(model, config)
         self.model = model
         self.config = config
         self.table_host = pack_tables(model, config)
-        self._plain_unit = make_plain_llc(model, config)
+        self._plain_unit = plain_unit
         self._table: torch.Tensor | None = None
         self._ws: torch.Tensor | None = None
 
-    def __call__(self, q, qd, tau, ground_z, friction):
-        if q.device.type == "cpu":
-            return self.plain(q, qd, tau, ground_z, friction)
-        return self.launch(q, qd, tau, ground_z, friction)
-
     def plain(self, q, qd, tau, ground_z, friction):
         """The plain PyTorch version on any device (never counted)."""
+        if self._plain_unit is None:
+            self._plain_unit = make_plain_llc(self.model, self.config)
         qq, dd, info = self._plain_unit(q, qd, tau, Scene(ground_z=ground_z, friction=friction))
         return qq, dd, info.contacts.depth, info.normal_impulse
 
@@ -220,17 +220,44 @@ class K1a:
         return q_out, qd_out, depth, nimp
 
 
-def k1a_flops_per_env(model: RobotModel, config: EngineConfig) -> int:
-    """fp32 operations of one K1a call for one env, counted from the
-    kernel's loops (a multiply-add counts 2). The per-link stages use the
-    written operation counts of their helpers; the row, factor and sweep
-    stages, which dominate, are counted term by term. Data-independent: the
-    kernel runs every row every sweep whether or not the row is active."""
+def k1a_activity(model: RobotModel, config: EngineConfig, q, qd, tau, ground_z, friction):
+    """Which rows each substep of one K1a call needs, on these inputs: limit
+    rows within the limit margin and spheres within the contact margin, at
+    each substep's start state, taken from the plain version's run of the
+    frame. Returns bool masks ``(limits (S,B,nlim), contacts (S,B,ns))``."""
+    substep = make_substep(model, config)
+    lim = torch.as_tensor(limited_joints(model), dtype=torch.long, device=q.device)
+    scene = Scene(ground_z=ground_z, friction=friction)
+    Minv0 = substep.minv_of(forward_kinematics(model, q, qd))
+    lam = q.new_zeros(q.shape[0], substep.num_rows)
+    lim_act, con_act = [], []
+    for _ in range(config.sim_substeps):
+        qj = joint_q(model, q)[:, lim]
+        gap = torch.minimum(qj - model.limit_lo[lim], model.limit_hi[lim] - qj)
+        lim_act.append(gap < config.limit_margin)
+        q, qd, info, lam = substep(q, qd, tau, scene, Minv_in=Minv0, lam_in=lam)
+        con_act.append(info.contacts.active > 0.5)
+    return torch.stack(lim_act), torch.stack(con_act)
+
+
+def k1a_flops(model: RobotModel, config: EngineConfig, lim_act, con_act) -> int:
+    """fp32 operations one K1a call needs, summed over the batch, given the
+    activity masks of :func:`k1a_activity` (a multiply-add counts 2).
+
+    Every substep needs FK, the narrowphase, RNEA, the free velocity and the
+    integration; the frame needs CRBA and the Cholesky factor once. Only an
+    active row needs its W = L⁻¹Jᵀ row, its diagonal and its sweeps; only a
+    row active in the substep before as well carries a warm-start λ; the
+    impulse map runs only where some row is active. A contact's Jacobian
+    takes a cross product per ancestor joint of its sphere's link. The
+    kernel today runs every row whether or not it is active, so it does
+    more work than this count, even with masks of all ones."""
     nl, nj, nv, ns = model.nl, model.nj, model.nv, model.ns
     lim = limited_joints(model)
     nlim = len(lim)
-    nr = nlim + 3 * ns
+    iters = config.solver_iters
     anc = model.anc.cpu().numpy() > 0.5
+    S, B = con_act.shape[:2]
     # FK: 2 qmul (28 each) + 2 qrot (30 each) + sincos (~20) + 9 per joint;
     # per link qmat (24) + COM (18) + R I Rᵀ (90)
     fk = (nl - 1) * (2 * 28 + 2 * 30 + 20 + 9) + nl * (24 + 18 + 90)
@@ -238,25 +265,36 @@ def k1a_flops_per_env(model: RobotModel, config: EngineConfig) -> int:
     # RNEA: forward (3 crosses + 6 adds) , per-link wrench (4 crosses, 2
     # matvecs, 12 mul/adds), backward (1 cross + 9 adds), joint dots
     rnea = (nl - 1) * (4 * 9 + 9) + nl * (4 * 9 + 2 * 15 + 12) + (nl - 1) * (9 + 6) + nj * 5
+    free_vel = 2 * nv * nv + nj * 6 + nv * 2
+    # every row's gap / sign / depth test and target, the velocity clamp and
+    # the integration
+    rows = nlim * 12 + ns * 10
+    integ = 2 * nv + 40 + nj * 6
+    per_sub = fk + collide + rnea + free_vel + rows + integ
     # CRBA: per-link composite (~40), up-sweep (13), momentum per base axis
     # and joint (~39) plus one pair (11) per stored nonzero of M
     pairs = 21 + nj * 7 + int(sum(anc[j + 1, :j].sum() for j in range(nj)))
     crba = nl * 40 + (nl - 1) * 13 + (6 + nj) * 39 + pairs * 11
     chol = sum((nv - j) * 2 * j for j in range(nv)) + nv * 4
-    free_vel = 2 * nv * nv + nj * 6 + nv * 2
-    w_limits = sum((nv - (6 + j)) ** 2 for j in lim) + nlim * 12
-    jac = ns * (nj * (9 + 3) + 9)
-    w_contacts = 3 * ns * (nv * nv + 2 * nv) + ns * 10
-    starts = [6 + j for j in lim] + [0] * (3 * ns)
-    dots = sum(2 * (nv - s) for s in starts) + ns * (3 * 2 * nv + 8)
-    warm_z = sum(2 * (nv - s) for s in starts) + nr
-    sweep = sum(2 * 2 * (nv - s) + 6 for s in starts[:nlim]) + ns * (
-        2 * 2 * nv + 6 + 2 * 2 * nv + 4 * nv + 16
-    )
-    tail = nv * nv + 2 * nv + 40 + nj * 6
-    per_sub = fk + collide + rnea + free_vel + w_limits + jac + w_contacts + dots + warm_z \
-        + config.solver_iters * sweep + tail
-    return config.sim_substeps * per_sub + crba + chol
+    # per active limit row (its W row starts at its column): forward solve,
+    # diagonal, sweeps (residual + apply); its warm start
+    span = torch.tensor([nv - (6 + j) for j in lim], dtype=torch.float64)
+    lim_row = span * span + 2 * span + iters * (4 * span + 6)
+    lim_warm = 2 * span
+    # per active contact: Jacobian over the ancestor joints, three W rows
+    # (dense forward solve and c), the normal diagonal and the tangent 2×2
+    # (four dots + inverse), sweeps (normal, two tangent residuals, one
+    # joint apply, the 2×2 step); its warm start of three rows
+    n_anc = torch.tensor(anc[model.sph_link.cpu().numpy()].sum(axis=1), dtype=torch.float64)
+    con_row = n_anc * 12 + 9 + 3 * (nv * nv + 2 * nv) + 4 * 2 * nv + 8 + iters * (12 * nv + 22)
+    con_warm = torch.full((ns,), 3.0 * 2 * nv, dtype=torch.float64)
+    la, ca = lim_act.cpu().double(), con_act.cpu().double()
+    total = S * B * per_sub + B * (crba + chol)
+    total += float((la * lim_row).sum() + (ca * con_row).sum())
+    total += float((la[1:] * la[:-1] * lim_warm).sum() + (ca[1:] * ca[:-1] * con_warm).sum())
+    any_act = (lim_act.any(dim=2) | con_act.any(dim=2)).sum()
+    total += float(any_act) * (nv * nv)
+    return int(round(total))
 
 
 def k1a_bytes_per_env(model: RobotModel) -> int:

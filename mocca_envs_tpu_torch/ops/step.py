@@ -217,8 +217,8 @@ def _make_llc_unit(model: RobotModel, config: EngineConfig, substep):
         if kernel is None:
             from mocca_envs_tpu_torch.ops.cuda import engine as cuda_engine
 
-            kernel = cuda_engine.K1a(model, config)
-        qq, dd, depth, nimp = kernel(q, qd, tau_j, scene.ground_z, scene.friction)
+            kernel = cuda_engine.K1a(model, config, plain_unit)
+        qq, dd, depth, nimp = kernel.launch(q, qd, tau_j, scene.ground_z, scene.friction)
         return qq, dd, info_from_kernel(model, config, depth, nimp)
 
     return llc_unit

@@ -4,9 +4,9 @@
   no module of it (or chip_smoke.py) imports JAX or the JAX package;
 - ``make()`` / ``BatchedEnv`` with no device mean the CUDA card and raise
   where there is none;
-- the CPU path never launches the kernel; the wrapper takes its plain
-  version only for CPU tensors and refuses configurations it has no
-  instantiation for;
+- the CPU path never launches the kernel; the kernel's launch refuses CPU
+  tensors and configurations it has no instantiation for;
+- the bound's operation count follows the rows these inputs make active;
 - the kernel source's per-env arithmetic, compiled for the host, agrees
   with the plain version;
 - on a card: the kernel agrees with its plain version (skips elsewhere).
@@ -111,11 +111,13 @@ def test_cpu_path_never_launches_the_kernel():
     for _ in range(3):
         state = batch.step(state, torch.rand(3, env.act_dim) * 2 - 1).state
     assert engine.LAUNCHES["k1a"] == 0
-    # the wrapper itself takes the plain version on CPU tensors, uncounted
+    # the kernel's launch refuses CPU tensors (no silent CPU path); the
+    # plain version runs on them, uncounted
     k1a = engine.K1a(walker3d.make_model(), EngineConfig())
     args = [torch.as_tensor(x) for x in _near_contact(4, 0)]
-    for got, want in zip(k1a(*args), k1a.plain(*args)):
-        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        k1a.launch(*args)
+    assert all(bool(torch.isfinite(x).all()) for x in k1a.plain(*args))
     assert engine.LAUNCHES["k1a"] == 0
 
 
@@ -139,6 +141,28 @@ def test_k1a_refuses_other_model_sizes():
     b.add_sphere("leg", (0, 0, -0.5), 0.05, foot="foot")
     with pytest.raises(NotImplementedError, match="no K1a instantiation"):
         engine.K1a(b.build(), EngineConfig())
+
+
+def test_k1a_flops_counts_only_the_active_rows():
+    model, config = walker3d.make_model(), EngineConfig()
+    args = [torch.as_tensor(x) for x in _near_contact(16, 3)]
+    lim_act, con_act = engine.k1a_activity(model, config, *args)
+    S = config.sim_substeps
+    assert lim_act.shape == (S, 16, 21) and con_act.shape == (S, 16, 14)
+    # the last substep's contact mask is the one the plain frame reports
+    depth = engine.K1a(model, config).plain(*args)[2]
+    assert torch.equal(con_act[-1], depth > -config.contact_margin)
+    assert 0 < int(con_act.sum()) < con_act.numel()
+    none = engine.k1a_flops(model, config, torch.zeros_like(lim_act), torch.zeros_like(con_act))
+    need = engine.k1a_flops(model, config, lim_act, con_act)
+    full = engine.k1a_flops(model, config, torch.ones_like(lim_act), torch.ones_like(con_act))
+    assert none < need < full
+    # one more active contact in one substep adds that contact's work only
+    extra = con_act.clone()
+    s, b, k = (~extra).nonzero()[0].tolist()
+    extra[s, b, k] = True
+    grown = engine.k1a_flops(model, config, lim_act, extra)
+    assert 0 < grown - need < (full - none) / (S * 16)
 
 
 def test_k1a_source_arithmetic_on_host(tmp_path):
@@ -178,12 +202,12 @@ def test_k1a_kernel_matches_plain_on_cuda():
     k1a = engine.K1a(model, EngineConfig())
     args = [torch.as_tensor(x, device="cuda") for x in _near_contact(1024, 7)]
     before = engine.LAUNCHES["k1a"]
-    got = k1a(*args)
+    got = k1a.launch(*args)
     torch.cuda.synchronize()
     assert engine.LAUNCHES["k1a"] == before + 1
     want = k1a.plain(*args)
     _gate_medians([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want])
     with pytest.raises(ValueError, match="contiguous"):
-        k1a(args[0].t().contiguous().t(), *args[1:])
+        k1a.launch(args[0].t().contiguous().t(), *args[1:])
     with pytest.raises(ValueError, match="CUDA"):
-        k1a(args[0], args[1].cpu(), *args[2:])
+        k1a.launch(args[0], args[1].cpu(), *args[2:])
