@@ -6,17 +6,31 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 Phases, in order; any failure exits non-zero before the result lines:
 
-1. print the card's name and power limit; build the K1a kernel from
-   ``mocca_envs_tpu_torch/csrc/engine_k1a.cu``;
-2. K1a vs its plain PyTorch version on B = 4096 walker states near contact:
-   per-env median and p99 of |Δq|, |Δqd|, |Δdepth|, |Δimpulse|; the medians
-   must stay within q 2e-4, qd 5e-3, depth 2e-4, impulse 5e-3, and the
-   largest single-env error within ten times those;
-3. the main path: ``BatchedEnv(make("Walker3DCustomEnv-v0"), 4096)`` for 600
-   control steps of uniform random actions; the kernel must launch exactly
-   once per step, the state stay finite and auto-reset fire;
-4. per-call times of the kernel and the plain version (CUDA events), and
-   the bound from the operations these inputs need (their active rows);
+1. print the card's name and power limit; build every instantiation of the
+   engine kernel from ``mocca_envs_tpu_torch/csrc/engine_k1.cu`` (one nvcc
+   process each, side by side);
+2. each kernel vs its plain PyTorch version at B = 4096: K1a on walker
+   states near contact, K1c on stepper states (stones at stages 0–9, feet
+   in or near contact with tilted stone tops, some envs over a gap), K1b on
+   the K1a states with random joint targets, and the K1b instance for two
+   llc frames (no registered family runs it yet) on the same states.
+   Per-env median and p99 of
+   |Δq|, |Δqd|, |Δdepth|, |Δimpulse|; the medians must stay within q 2e-4,
+   qd 5e-3, depth 2e-4, impulse 5e-3, and the largest single-env error
+   within ten times those;
+3. the main paths through ``BatchedEnv(make(id), 4096).step`` with uniform
+   random actions, the launch counts set to 0 just before each and read
+   just after: ``Walker3DCustomEnv-v0`` for 600 control steps (K1a),
+   ``Walker3DStepperEnv-v0`` for 600 (K1c), ``Walker3DPDCustomEnv-v0`` for
+   200 (K1b), ``Child3DCustomEnv-v0`` for 100 (K1a). The path's kernel must
+   launch exactly once per step and no other kernel at all, the state stay
+   finite and auto-reset fire;
+4. per-call times of each kernel and its plain version (CUDA events), the
+   bound from the operations and bytes these inputs need, and the time of
+   the stepper's cull of 20 stones to the window plus their packing (env
+   layer, once per control step, outside the kernel's time), and the
+   stepper's step split into the step proper and the fresh episodes of
+   auto-reset;
 5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.
@@ -33,7 +47,6 @@ import numpy as np
 import torch
 
 B = 4096
-STEPS = 600
 SEED = 0
 # per-env median tolerances of tests/test_pallas_engine.py (kernel vs oracle)
 TOL = {"q": 2e-4, "qd": 5e-3, "depth": 2e-4, "nimp": 5e-3}
@@ -41,6 +54,8 @@ TOL = {"q": 2e-4, "qd": 5e-3, "depth": 2e-4, "nimp": 5e-3}
 # cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+SOURCE = "mocca_envs_tpu_torch/csrc/engine_k1.cu"
+REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -48,19 +63,115 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def near_contact_states(model, rng):
-    """Walker states with the base around 0.9 m: feet in or near contact."""
-    q = np.zeros((B, model.nq), np.float32)
-    q[:, 2] = 0.9 + 0.05 * rng.standard_normal(B)
-    q[:, 3:7] = np.array([1.0, 0.0, 0.0, 0.0]) + 0.03 * rng.standard_normal((B, 4))
+def near_contact_states(model, rng, batch=B):
+    """Walker states with the base around 0.9 m over the plane z = 0: feet
+    in or near contact. Numpy ``(q, qd, tau, ground_z, friction)``."""
+    q = np.zeros((batch, model.nq), np.float32)
+    q[:, 2] = 0.9 + 0.05 * rng.standard_normal(batch)
+    q[:, 3:7] = np.array([1.0, 0.0, 0.0, 0.0]) + 0.03 * rng.standard_normal((batch, 4))
     q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
-    q[:, 7:] = 0.1 * rng.standard_normal((B, model.nj))
-    qd = (0.3 * rng.standard_normal((B, model.nv))).astype(np.float32)
+    q[:, 7:] = 0.1 * rng.standard_normal((batch, model.nj))
+    qd = (0.3 * rng.standard_normal((batch, model.nv))).astype(np.float32)
     gain = model.power_coef.cpu().numpy()
-    tau = (rng.uniform(-1.0, 1.0, (B, model.nj)) * gain).astype(np.float32)
-    gz = np.zeros(B, np.float32)
-    fric = np.full(B, 0.8, np.float32)
-    return [torch.as_tensor(x, device="cuda") for x in (q, qd, tau, gz, fric)]
+    tau = (rng.uniform(-1.0, 1.0, (batch, model.nj)) * gain).astype(np.float32)
+    return q, qd, tau, np.zeros(batch, np.float32), np.full(batch, 0.8, np.float32)
+
+
+def pd_target_states(model, rng, batch=B):
+    """The near-contact states with uniform random joint targets inside the
+    limits in place of the torques."""
+    q, qd, _, gz, fric = near_contact_states(model, rng, batch)
+    lo, hi = model.limit_lo.cpu().numpy(), model.limit_hi.cpu().numpy()
+    targets = rng.uniform(lo, hi, (batch, model.nj)).astype(np.float32)
+    return q, qd, targets, gz, fric
+
+
+def stepper_states(model, rng, window: int, batch=B):
+    """Walker states over stepping stones: chains at stages 0–9 (one stage
+    per slot, in turn), the root about 0.9 m above the top of one of the
+    first stones with a horizontal scatter that puts feet on tops, edges and
+    neighbours, and one slot in ten moved sideways over the gap, where only
+    the plane at −20 m is below. Returns numpy ``(q, qd, tau, ground_z,
+    friction)`` and the culled stones, packed ``(window·11, batch)``."""
+    from mocca_envs_tpu_torch.ops.cuda.engine import pack_stones
+    from mocca_envs_tpu_torch.terrain import scene as scene_mod
+    from mocca_envs_tpu_torch.terrain.stones import (
+        StoneParams, stones_from_draws, stones_to_scene_boxes)
+
+    params = StoneParams()
+    stage = torch.as_tensor(np.arange(batch) % 10, dtype=torch.float32)
+    draws = torch.as_tensor(rng.random((batch, 5, params.num_steps)), dtype=torch.float32)
+    top, quat = stones_from_draws(params, stage, draws, torch.zeros(batch, 3))
+    center, half = stones_to_scene_boxes(params, top, quat)
+    q, qd, tau, _, fric = near_contact_states(model, rng, batch)
+    under = top.numpy()[np.arange(batch), rng.integers(0, 8, batch)]
+    q[:, 0:2] = under[:, :2] + 0.12 * rng.standard_normal((batch, 2))
+    q[:, 1] += np.where(rng.random(batch) < 0.1, 2.0, 0.0)
+    q[:, 2] += under[:, 2]
+    scene = scene_mod.with_stones(center, quat, half, ground_z=-20.0)
+    culled = scene_mod.cull_stones(scene, torch.as_tensor(q[:, 0:2]), window)
+    return q, qd, tau, culled.ground_z.numpy(), fric, pack_stones(culled).numpy()
+
+
+def compare(kernel, args, label: str | None = None) -> float:
+    """Launch ``kernel`` once on ``args`` and hold it against its plain
+    version; returns the largest absolute error over all outputs."""
+    label = label or kernel.variant
+    out = kernel.launch(*args)
+    torch.cuda.synchronize()
+    ref = kernel.plain(*args)
+    torch.cuda.synchronize()
+    max_abs = 0.0
+    for name, a, b in zip(("q", "qd", "depth", "nimp"), out, ref):
+        check(bool(torch.isfinite(a).all()), f"{label} output {name} not finite")
+        per_env = (a - b).abs().amax(dim=1).cpu().numpy()
+        med, p99 = float(np.median(per_env)), float(np.quantile(per_env, 0.99))
+        max_abs = max(max_abs, float(per_env.max()))
+        print(f"[compare] {label} {name}: per-env median {med:.3e} p99 {p99:.3e} "
+              f"max {per_env.max():.3e} (median tol {TOL[name]:g}, max tol {10 * TOL[name]:g})")
+        check(med <= TOL[name], f"{label} {name} median {med:.3e} > {TOL[name]:g}")
+        check(per_env.max() <= 10 * TOL[name],
+              f"{label} {name} max {per_env.max():.3e} > {10 * TOL[name]:g}")
+    check(float((ref[3] > 0).float().mean()) > 0.02, f"{label}: contacts carry no load")
+    return max_abs
+
+
+def drive(port, engine, card, env_id: str, steps: int, variant: str):
+    """One main path: ``steps`` control steps of uniform random actions
+    through the entry points. Returns (launches, final state, last
+    transition, the batched env)."""
+    env = port.make(env_id)
+    batch = port.BatchedEnv(env, B, seed=SEED)
+    state = batch.init()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    dones = torch.zeros((), dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    engine.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        actions = torch.rand((B, env.act_dim), generator=gen, device="cuda") * 2.0 - 1.0
+        tr = batch.step(state, actions)
+        state = tr.state
+        dones += tr.done.sum()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(engine.LAUNCHES)
+    launches, dones = counts.get(variant, 0), int(dones)
+    print(f"[main] {env_id}: {steps} steps × {B} envs in {wall:.3f} s "
+          f"({1e3 * wall / steps:.3f} ms/step): {steps * B / wall:.0f} env-steps/s on {card}; "
+          f"launches {counts}")
+    check(counts == {variant: steps},
+          f"{env_id}: expected {steps} {variant} launches and no other, got {counts}")
+    check(bool(torch.isfinite(state.q).all() and torch.isfinite(state.qd).all()),
+          f"{env_id}: final state not finite")
+    check(tr.obs.shape == (B, env.obs_dim) and bool(torch.isfinite(tr.obs).all()),
+          f"{env_id}: observations malformed")
+    check(dones > 0 and int(state.reset_count.sum()) > 0, f"{env_id}: auto-reset never fired")
+    print(f"[main] {env_id}: episodes ended {dones}, resets {int(state.reset_count.sum())}, "
+          f"blow-ups {int(state.blowup_count.sum())}, mean episode steps now "
+          f"{float(state.steps.float().mean()):.1f}")
+    return launches, state, tr, batch
 
 
 def time_call(fn, args, n: int) -> float:
@@ -75,6 +186,74 @@ def time_call(fn, args, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def time_and_bound(engine, card, kernel, args) -> dict:
+    """Per-call times of the kernel (50 calls) and its plain version (3),
+    and the bound from the operations and bytes these inputs need."""
+    ms = time_call(kernel.launch, args, 50)
+    plain_ms = time_call(kernel.plain, args, 3)
+    stones = args[5] if kernel.num_stones else None
+    lim_act, con_act = engine.k1_activity(kernel, *args)
+    flops = engine.k1_flops(kernel, lim_act, con_act, stones)
+    flops_all = engine.k1_flops(kernel, torch.ones_like(lim_act), torch.ones_like(con_act),
+                                stones)
+    nbytes = engine.k1_bytes_per_env(kernel) * B
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    v = kernel.variant
+    active_stones = ""
+    if stones is not None:
+        n_act = float((engine.unpack_stones(stones)["stone_active"] > 0.5).float().sum(1).mean())
+        active_stones = f", active stones {n_act:.3f} of {kernel.num_stones}"
+    print(f"[bound] {v} active per env and substep: limit rows "
+          f"{float(lim_act.float().sum(2).mean()):.3f} of {lim_act.shape[2]}, contacts "
+          f"{float(con_act.float().sum(2).mean()):.3f} of {con_act.shape[2]}{active_stones}; "
+          f"{flops} fp32 ops needed ({flops / B:.0f} per env), {flops_all} with every row "
+          f"active; {nbytes} bytes")
+    print(f"[time] {v} {ms:.4f} ms/call, plain {plain_ms:.3f} ms/call at B={B} on {card}; "
+          f"bound {bound_ms:.5f} ms by {bound_by} (ops {t_ops:.5f} ms, bytes {t_bytes:.5f} ms); "
+          f"kernel at {bound_ms / ms:.2%} of it")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def cull_and_pack_time(engine, card, model, config) -> None:
+    """The stepper's per-control-step pass in front of K1c: cull 20 stones
+    to the window nearest the root, pack them for the kernel."""
+    from mocca_envs_tpu_torch.terrain import scene as scene_mod
+    from mocca_envs_tpu_torch.terrain.stones import (
+        StoneParams, sample_stones, stones_to_scene_boxes)
+
+    params = StoneParams()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    stage = torch.arange(B, device="cuda", dtype=torch.float32) % 10
+    top, quat = sample_stones(params, gen, stage, torch.zeros(B, 3, device="cuda"))
+    center, half = stones_to_scene_boxes(params, top, quat)
+    scene = scene_mod.with_stones(center, quat, half, ground_z=-20.0)
+    root_xy = top[:, 3, :2].contiguous()
+    ms = time_call(
+        lambda: engine.pack_stones(scene_mod.cull_stones(scene, root_xy, config.stone_window)),
+        (), 50)
+    print(f"[time] stepper cull {params.num_steps} → {config.stone_window} stones + pack: "
+          f"{ms:.4f} ms/call at B={B} on {card}")
+
+
+def stepper_env_layer_times(card, batch, state) -> None:
+    """Where a stepper control step goes outside K1c: the step without
+    auto-reset (physics unit, state machine, reward, observation) and the
+    fresh episode that auto-reset builds for every slot every step (joint
+    noise, a 20-stone chain, its boxes), each timed alone on the main
+    path's final state."""
+    env, gen = batch.env, batch.generator
+    actions = torch.zeros((B, env.act_dim), device="cuda")
+    raw_ms = time_call(env.step_no_reset, (state, actions, gen), 20)
+    reset_ms = time_call(env.reset, (gen, state.reset_count, state), 20)
+    step_ms = time_call(env.step, (state, actions, gen), 20)
+    print(f"[time] stepper env layer at B={B} on {card}: step {step_ms:.3f} ms, of which the "
+          f"step without auto-reset {raw_ms:.3f} ms (K1c inside) and the fresh episodes "
+          f"{reset_ms:.3f} ms")
 
 
 def main() -> int:
@@ -98,95 +277,62 @@ def main() -> int:
     # ---- phase 1: build
     t0 = time.perf_counter()
     engine.build()
-    print(f"[build] K1a built in {time.perf_counter() - t0:.1f} s")
-    for line in engine._Library.log.splitlines():
-        if "registers" in line or "stack frame" in line:
-            print(f"[build] {line.strip()}")
+    print(f"[build] {len(engine.INSTANTIATIONS)} K1 instantiations built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for symbol, log in engine._Library.logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "stack frame" in line:
+                print(f"[build] {symbol}: {line.strip()}")
 
-    # ---- phase 2: kernel vs plain at the main path's shapes
+    # ---- phase 2: each kernel vs its plain version at the main paths' shapes
     config = EngineConfig()
     model = walker3d.make_model("cuda")
-    k1a = engine.K1a(model, config)
-    args = near_contact_states(model, np.random.default_rng(SEED))
-    out = k1a.launch(*args)
-    torch.cuda.synchronize()
-    ref = k1a.plain(*args)
-    torch.cuda.synchronize()
-    max_abs = 0.0
-    for name, a, b in zip(("q", "qd", "depth", "nimp"), out, ref):
-        check(bool(torch.isfinite(a).all()), f"kernel output {name} not finite")
-        per_env = (a - b).abs().amax(dim=1).cpu().numpy()
-        med, p99 = float(np.median(per_env)), float(np.quantile(per_env, 0.99))
-        max_abs = max(max_abs, float(per_env.max()))
-        print(f"[compare] {name}: per-env median {med:.3e} p99 {p99:.3e} "
-              f"max {per_env.max():.3e} (median tol {TOL[name]:g}, max tol {10 * TOL[name]:g})")
-        check(med <= TOL[name], f"K1a {name} median {med:.3e} > {TOL[name]:g}")
-        check(per_env.max() <= 10 * TOL[name],
-              f"K1a {name} max {per_env.max():.3e} > {10 * TOL[name]:g}")
+    kp = model.power_coef * (model.actuated > 0).to(torch.float32)
+    cuda = lambda arrays: [torch.as_tensor(x, device="cuda") for x in arrays]  # noqa: E731
+    rng = np.random.default_rng(SEED)
+    kernels = {
+        "k1a": (engine.K1a(model, config), cuda(near_contact_states(model, rng))),
+        "k1c": (engine.K1c(model, config),
+                cuda(stepper_states(model, rng, config.stone_window))),
+        "k1b": (engine.K1b(model.replace(kp=kp), config, extra_damping=kp / 20.0),
+                cuda(pd_target_states(model, rng))),
+    }
+    max_abs = {v: compare(kernel, args) for v, (kernel, args) in kernels.items()}
+    two_frames = engine.K1b(model.replace(kp=kp), EngineConfig(llc_frames=2),
+                            extra_damping=kp / 20.0)
+    compare(two_frames, kernels["k1b"][1], "k1b (2 llc frames)")
 
-    # ---- phase 3: the main path through the user entry points
-    env = port.make("Walker3DCustomEnv-v0")
-    batch = port.BatchedEnv(env, B, seed=SEED)
-    state = batch.init()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 1)
-    dones = torch.zeros((), dtype=torch.int64, device="cuda")
-    engine.LAUNCHES.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
-        actions = torch.rand((B, env.act_dim), generator=gen, device="cuda") * 2.0 - 1.0
-        tr = batch.step(state, actions)
-        state = tr.state
-        dones += tr.done.sum()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = engine.LAUNCHES["k1a"]
-    dones = int(dones)
-    print(f"[main] {STEPS} steps × {B} envs in {wall:.3f} s: "
-          f"{STEPS * B / wall:.0f} env-steps/s on {card}; K1a launches {launches}")
-    check(launches == STEPS, f"K1a launched {launches} times in {STEPS} control steps")
-    check(bool(torch.isfinite(state.q).all() and torch.isfinite(state.qd).all()),
-          "final state not finite")
-    check(tr.obs.shape == (B, env.obs_dim) and bool(torch.isfinite(tr.obs).all()),
-          "observations malformed")
-    check(dones > 0 and int(state.reset_count.sum()) > 0, "auto-reset never fired")
-    print(f"[main] episodes ended {dones}, resets {int(state.reset_count.sum())}, "
-          f"blow-ups {int(state.blowup_count.sum())}, mean episode steps now "
-          f"{float(state.steps.float().mean()):.1f}")
+    # ---- phase 3: the main paths through the user entry points
+    launches = {}
+    launches["k1a"], *_ = drive(port, engine, card, "Walker3DCustomEnv-v0", 600, "k1a")
+    launches["k1c"], state, tr, stepper = drive(
+        port, engine, card, "Walker3DStepperEnv-v0", 600, "k1c")
+    print(f"[main] Walker3DStepperEnv-v0: steps_reached mean "
+          f"{float(tr.metrics['steps_reached'].mean()):.3f} max "
+          f"{float(tr.metrics['steps_reached'].max()):.0f}, stone hits on the last step "
+          f"{int(tr.metrics['stone_hit'].sum())}, mean stage {float(state.task.stage.mean()):.4f}")
+    launches["k1b"], *_ = drive(port, engine, card, "Walker3DPDCustomEnv-v0", 200, "k1b")
+    drive(port, engine, card, "Child3DCustomEnv-v0", 100, "k1a")
 
     # ---- phase 4: per-call times at B = 4096
-    ms = time_call(k1a.launch, args, 50)
-    plain_ms = time_call(k1a.plain, args, 3)
-    lim_act, con_act = engine.k1a_activity(model, config, *args)
-    flops = engine.k1a_flops(model, config, lim_act, con_act)
-    flops_all = engine.k1a_flops(model, config, torch.ones_like(lim_act),
-                                 torch.ones_like(con_act))
-    nbytes = engine.k1a_bytes_per_env(model) * B
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    print(f"[bound] active per env and substep: limit rows "
-          f"{float(lim_act.float().sum(2).mean()):.3f} of {lim_act.shape[2]}, contacts "
-          f"{float(con_act.float().sum(2).mean()):.3f} of {con_act.shape[2]}; "
-          f"{flops} fp32 ops needed ({flops / B:.0f} per env), {flops_all} with every row "
-          f"active; {nbytes} bytes")
-    print(f"[time] K1a {ms:.4f} ms/call, plain {plain_ms:.3f} ms/call at B={B} on {card}; "
-          f"bound {bound_ms:.5f} ms by {'operations' if t_ops >= t_bytes else 'bytes'} "
-          f"(ops {t_ops:.5f} ms, bytes {t_bytes:.5f} ms); kernel at {bound_ms / ms:.2%} of it")
+    times = {v: time_and_bound(engine, card, kernel, args)
+             for v, (kernel, args) in kernels.items()}
 
+    cull_and_pack_time(engine, card, model, config)
+    stepper_env_layer_times(card, stepper, state)
+
+    names = {"k1a": "k1a_engine_frame", "k1c": "k1c_engine_frame_stones",
+             "k1b": "k1b_engine_step_pd"}
     print(json.dumps({"kernels": [{
-        "name": "k1a_engine_frame",
+        "name": names[v],
         "route": "cuda",
-        "source": "mocca_envs_tpu_torch/csrc/engine_k1a.cu",
-        "replaces": "mocca_envs_tpu/ops/pallas/engine.py:216",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "source": SOURCE,
+        "replaces": REPLACES,
+        "launches": launches[v],
+        "max_abs_err": max_abs[v],
+        **times[v],
         "library_ms": None,
-    }]}))
+    } for v in ("k1a", "k1c", "k1b")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,9 @@ import torch
 from mocca_envs_tpu_torch.envs.env import EnvState
 from mocca_envs_tpu_torch.models.schema import RobotModel, model_from_numpy
 from mocca_envs_tpu_torch.tasks.walker_custom import WalkerParams, WalkerTaskState
+from mocca_envs_tpu_torch.tasks.walker_stepper import StepperParams, StepperTaskState
 from mocca_envs_tpu_torch.terrain.scene import Scene
+from mocca_envs_tpu_torch.terrain.stones import StoneParams
 
 
 def robot_model_from_numpy(fields: dict, device="cpu") -> RobotModel:
@@ -24,46 +26,124 @@ def robot_model_from_numpy(fields: dict, device="cpu") -> RobotModel:
     return model_from_numpy(fields, device=device, dtype=torch.float32)
 
 
+def _f32(x, device):
+    return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+
+
+def _i32(x, device):
+    return torch.as_tensor(np.array(x, dtype=np.int32), device=device)
+
+
+def _n(x):
+    return x.detach().cpu().numpy()
+
+
+def scene_from_numpy(batch: int, ground_z=0.0, friction=0.8, stone_pos=None, stone_quat=None,
+                     stone_half=None, stone_active=None, device="cpu") -> Scene:
+    """Scene for ``batch`` envs: the plane (scalars or (B,)) and, when
+    ``stone_pos`` is given, the stone boxes (B, K, ·) of a JAX ``Scene``."""
+    scene = Scene(ground_z=_f32(np.broadcast_to(ground_z, (batch,)), device),
+                  friction=_f32(np.broadcast_to(friction, (batch,)), device))
+    if stone_pos is None:
+        return scene
+    return dataclasses.replace(
+        scene, stone_pos=_f32(stone_pos, device), stone_quat=_f32(stone_quat, device),
+        stone_half=_f32(stone_half, device), stone_active=_f32(stone_active, device))
+
+
+def scene_to_numpy(scene: Scene) -> dict:
+    """The fields :func:`scene_from_numpy` takes (absent stones left out)."""
+    return {f.name: _n(getattr(scene, f.name)) for f in dataclasses.fields(Scene)
+            if getattr(scene, f.name) is not None}
+
+
+def _env_state(task, scene, *, q, qd, steps, reset_count, done, blowup_count, device) -> EnvState:
+    return EnvState(
+        q=_f32(q, device), qd=_f32(qd, device), reset_count=_i32(reset_count, device),
+        steps=_i32(steps, device), task=task, scene=scene,
+        done=torch.as_tensor(np.array(done, dtype=bool), device=device),
+        blowup_count=_i32(blowup_count, device),
+    )
+
+
+def _core_to_numpy(state: EnvState) -> dict:
+    return dict(q=_n(state.q), qd=_n(state.qd), steps=_n(state.steps),
+                reset_count=_n(state.reset_count), done=_n(state.done),
+                blowup_count=_n(state.blowup_count))
+
+
 def env_state_from_numpy(*, q, qd, steps, reset_count, done, blowup_count, target,
                          potential, ground_z=0.0, friction=0.8, device="cpu") -> EnvState:
     """Batched walker EnvState from numpy arrays with a leading batch axis
     (q (B, nq), qd (B, nv), target (B, 3), the rest (B,)); the scene is the
     flat plane at ``ground_z`` with ``friction`` (scalars or (B,))."""
-    f32 = lambda x: torch.as_tensor(np.array(x, dtype=np.float32), device=device)  # noqa: E731
-    i32 = lambda x: torch.as_tensor(np.array(x, dtype=np.int32), device=device)  # noqa: E731
     B = np.asarray(q).shape[0]
-    return EnvState(
-        q=f32(q),
-        qd=f32(qd),
-        reset_count=i32(reset_count),
-        steps=i32(steps),
-        task=WalkerTaskState(target=f32(target), potential=f32(potential)),
-        scene=Scene(ground_z=f32(np.broadcast_to(ground_z, (B,))),
-                    friction=f32(np.broadcast_to(friction, (B,)))),
-        done=torch.as_tensor(np.array(done, dtype=bool), device=device),
-        blowup_count=i32(blowup_count),
-    )
+    return _env_state(
+        WalkerTaskState(target=_f32(target, device), potential=_f32(potential, device)),
+        scene_from_numpy(B, ground_z, friction, device=device),
+        q=q, qd=qd, steps=steps, reset_count=reset_count, done=done,
+        blowup_count=blowup_count, device=device)
 
 
 def env_state_to_numpy(state: EnvState) -> dict:
     """The fields :func:`env_state_from_numpy` takes, as numpy arrays."""
-    n = lambda x: x.detach().cpu().numpy()  # noqa: E731
-    return dict(
-        q=n(state.q), qd=n(state.qd), steps=n(state.steps),
-        reset_count=n(state.reset_count), done=n(state.done),
-        blowup_count=n(state.blowup_count), target=n(state.task.target),
-        potential=n(state.task.potential), ground_z=n(state.scene.ground_z),
-        friction=n(state.scene.friction),
-    )
+    return dict(**_core_to_numpy(state), target=_n(state.task.target),
+                potential=_n(state.task.potential), **scene_to_numpy(state.scene))
+
+
+def stepper_state_from_numpy(*, q, qd, steps, reset_count, done, blowup_count, stone_top,
+                             task_stone_quat, next_step, potential, foot_potential, stage,
+                             ground_z, friction, stone_pos, stone_quat, stone_half,
+                             stone_active, device="cpu") -> EnvState:
+    """Batched stepper EnvState: the task fields of a JAX ``StepperTaskState``
+    (``task_stone_quat`` is its ``stone_quat``) and the scene with its stones."""
+    B = np.asarray(q).shape[0]
+    task = StepperTaskState(
+        stone_top=_f32(stone_top, device), stone_quat=_f32(task_stone_quat, device),
+        next_step=_i32(next_step, device), potential=_f32(potential, device),
+        foot_potential=_f32(foot_potential, device), stage=_f32(stage, device))
+    scene = scene_from_numpy(B, ground_z, friction, stone_pos, stone_quat, stone_half,
+                             stone_active, device=device)
+    return _env_state(task, scene, q=q, qd=qd, steps=steps, reset_count=reset_count,
+                      done=done, blowup_count=blowup_count, device=device)
+
+
+def stepper_state_to_numpy(state: EnvState) -> dict:
+    """The fields :func:`stepper_state_from_numpy` takes, as numpy arrays."""
+    t = state.task
+    return dict(**_core_to_numpy(state), stone_top=_n(t.stone_top),
+                task_stone_quat=_n(t.stone_quat), next_step=_n(t.next_step),
+                potential=_n(t.potential), foot_potential=_n(t.foot_potential),
+                stage=_n(t.stage), **scene_to_numpy(state.scene))
+
+
+def _scalars_from_numpy(cls, fields: dict, ints=(), skip=()):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name in skip:
+            continue
+        v = np.asarray(fields[f.name])
+        if v.ndim:
+            raise ValueError(f"{cls.__name__}.{f.name}: one value per batch, got shape {v.shape}")
+        kw[f.name] = int(v) if f.name in ints else float(v)
+    return kw
 
 
 def walker_params_from_numpy(fields: dict) -> WalkerParams:
     """WalkerParams from a JAX ``WalkerParams``' fields (0-d arrays: the
     port holds one value for the whole batch)."""
-    kw = {}
-    for f in dataclasses.fields(WalkerParams):
-        v = np.asarray(fields[f.name])
-        if v.ndim:
-            raise ValueError(f"WalkerParams.{f.name}: one value per batch, got shape {v.shape}")
-        kw[f.name] = int(v) if f.name == "max_steps" else float(v)
-    return WalkerParams(**kw)
+    return WalkerParams(**_scalars_from_numpy(WalkerParams, fields, ints=("max_steps",)))
+
+
+def stone_params_from_numpy(fields: dict) -> StoneParams:
+    """StoneParams from a JAX ``StoneParams``' fields (0-d arrays)."""
+    return StoneParams(**_scalars_from_numpy(StoneParams, fields, ints=("num_steps",)))
+
+
+def stepper_params_from_numpy(fields: dict) -> StepperParams:
+    """StepperParams from a JAX ``StepperParams``' fields, with ``walker``
+    and ``stones`` given as dicts of their own fields."""
+    return StepperParams(
+        walker=walker_params_from_numpy(fields["walker"]),
+        stones=stone_params_from_numpy(fields["stones"]),
+        **_scalars_from_numpy(StepperParams, fields, skip=("walker", "stones")))

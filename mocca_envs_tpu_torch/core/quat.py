@@ -45,7 +45,7 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def conj(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -1,21 +1,49 @@
-// K1a: one llc frame of the rigid-body engine per env, for Hopper (sm_90a).
+// K1: the fused rigid-body engine kernel, one env per thread, for Hopper
+// (sm_90a), in the variants this file instantiates.
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
-// make_pallas_substep in its K1a variant: floating all-revolute model on a
-// plane, torque mode, no equality rows, the shipped EngineConfig (block PGS,
-// matrix-free PGS, warm start, frame-start factor reuse; split impulse off).
-// Each call runs NSUB substeps:
+// make_pallas_substep for floating all-revolute models without equality
+// rows at the shipped EngineConfig (block PGS, matrix-free PGS, warm start,
+// frame-start factor reuse; split impulse off):
 //
-//   FK (quaternion chain) → sphere-vs-plane narrowphase → passive torques
+//   K1a  plane, torque mode: one llc frame per call;
+//   K1c  K1a plus K oriented stone boxes per env (num_stones = K there);
+//   K1b  PD mode (pd_mode there): the whole control step per call, NLLC llc
+//        frames; the tau input holds joint targets and the torque
+//        gain·(target − q) is refreshed from the state at each frame's start.
+//
+// Each llc frame runs NSUB substeps:
+//
+//   FK (quaternion chain) → narrowphase: every sphere vs the plane and vs
+//   every active stone, the deepest feature per sphere → passive torques
 //   → Newton–Euler bias → [substep 0: CRBA about the base + Cholesky]
 //   → free velocity → rows [joint limits | contacts × (n, t1, t2)]
 //   → W = L⁻¹Jᵀ per row → matrix-free block PGS, λ warm-started
 //   → qd' = v_free + L⁻ᵀ(Wλ) → semi-implicit integrate + limit backstop.
 //
+// λ is zeroed once per call, so it is carried across the llc frames of a
+// K1b call; the factor is rebuilt at each frame's first substep.
+//
 // Interface (all f32, contiguous, row-major):
-//   q (B,NQ), qd (B,NV), tau (B,NJ), ground_z (B,), friction (B,)
+//   q (B,NQ), qd (B,NV), tau (B,NJ), ground_z (B,), friction (B,),
+//   stones (K·11, B) for K > 0 (else unused)
 //   → q' (B,NQ), qd' (B,NV), depth (B,NS), normal_impulse (B,NS)
-// depth and normal impulse are those of the LAST substep.
+// depth and normal impulse are those of the LAST substep. Row k·11 + c of
+// stones is component c of stone k: center (3), quaternion wxyz (4), half
+// extents (3), active (1). Component-major, so that neighbouring threads
+// read neighbouring addresses; the caller culls the stones to the K
+// nearest the root and packs them once per control step.
+//
+// Stone narrowphase. It follows the plain version (ops/collide.py,
+// terrain/scene.py::sphere_box_depth), not the TPU kernel, where the two
+// differ: the center counts as outside the box when its distance to it is
+// above 1e-9 (the TPU kernel: 1e-6, with 1e-18 under the root); inside, the
+// first of equally near faces wins; of equally deep stones the first wins
+// (the TPU kernel averages over ties); a stone replaces the plane only
+// where strictly deeper. A contact's rows are n·Jc, t1·Jc, t2·Jc with the
+// branchless tangent basis of ops/solver.py::tangent_basis; the K = 0
+// instances keep the constant-folded form for the plane's +z normal
+// (rows z, x, y of the point Jacobian).
 //
 // Design. One thread per env: the per-env work is a long serial chain of
 // small dense linear algebra (CRBA, Cholesky, triangular solves, Gauss–
@@ -23,27 +51,31 @@
 // tile. Any B is allowed; threads past B return. The factor L (packed lower
 // triangle), the reciprocal diagonal, W (NR×NV), λ and z = Wλ live in a
 // global workspace laid out component-major, (C, B), so neighbouring
-// threads touch neighbouring addresses. Small per-link state lives in
-// local memory. The model (sizes are template constants) comes as one
-// packed f32 table, staged into shared memory once per block. The kernel
-// launches on the caller's stream and allocates nothing.
+// threads touch neighbouring addresses. Small per-link state, the stones
+// and the per-sphere normals live in local memory. The model (sizes are
+// template constants) comes as one packed f32 table, staged into shared
+// memory once per block. The kernel launches on the caller's stream and
+// allocates nothing.
 //
-// What bounds it on this card. Near contact a call needs ~1.6e5 fp32
+// What bounds it on this card. Near contact a K1a call needs ~1.6e5 fp32
 // operations per env (~3.3e5 with every row active, counted by
-// ops/cuda/engine.py::k1a_flops) against 0.65 KB of inputs and outputs,
-// so the floor is the fp32 rate. This simple design is
-// far from it: the workspace round-trips through L2 on every row of every
-// sweep, one thread per env leaves most of the SMs' warp slots empty at
-// B = 4096, and the serial chain has little instruction-level parallelism.
-// Left on the table: W and L in shared memory or registers, several threads
-// per env (a warp per env splitting the NV-long dot products), the
-// structural zeros of the contact Jacobians, and skipping inactive rows.
+// ops/cuda/engine.py::k1_flops) against 0.65 KB of inputs and outputs
+// (0.9 KB with six stones), so the floor is the fp32 rate. This simple
+// design is far from it: the workspace round-trips through L2 on every row
+// of every sweep, one thread per env leaves most of the SMs' warp slots
+// empty at B = 4096, and the serial chain has little instruction-level
+// parallelism. Left on the table: W and L in shared memory or registers,
+// several threads per env (a warp per env splitting the NV-long dot
+// products), the structural zeros of the contact Jacobians, and skipping
+// inactive rows.
 //
-// Compiled with the host compiler (K1A_HOST_CHECK defined, no CUDA), the
+// Compiled with the host compiler (K1_HOST_CHECK defined, no CUDA), the
 // same per-env code runs as a plain loop: tests use that to check this
-// file's arithmetic on machines without a card.
+// file's arithmetic on machines without a card. With K1_ONLY=<n> defined
+// only the n-th instance is compiled, so that one compiler process per
+// instance can build them side by side.
 
-#ifdef K1A_HOST_CHECK
+#ifdef K1_HOST_CHECK
 #include <math.h>
 #define HD
 #define KERNEL_DEV inline
@@ -56,7 +88,7 @@ static inline void sincosf_(float x, float* s, float* c) { *s = sinf(x); *c = co
 static __device__ __forceinline__ void sincosf_(float x, float* s, float* c) { sincosf(x, s, c); }
 #endif
 
-namespace k1a {
+namespace k1 {
 
 // ---------------------------------------------------------------- layout
 // The packed model table. ops/cuda/engine.py::pack_tables writes exactly
@@ -89,7 +121,8 @@ struct Layout {
   static constexpr int LIMLO = JDIAG + NJ;        // NJ
   static constexpr int LIMHI = LIMLO + NJ;        // NJ
   static constexpr int LIMIDX = LIMHI + NJ;       // NLIM
-  static constexpr int ANC = LIMIDX + NLIM;       // NL × NJ (0/1)
+  static constexpr int PDGAIN = LIMIDX + NLIM;    // NJ: actuated · kp (PD mode)
+  static constexpr int ANC = PDGAIN + NJ;         // NL × NJ (0/1)
   static constexpr int SIZE = ANC + NL * NJ;
   // workspace components per env
   static constexpr int NLOW = NV * (NV + 1) / 2;
@@ -147,8 +180,12 @@ HD inline void matvec3(const float* R, const float* v, float* o) {
 
 HD inline float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
 
+HD inline float sgn0(float x) { return (float)(x > 0.0f) - (float)(x < 0.0f); }
+
+constexpr int STONE_C = 11;   // floats per stone: center, quaternion, half extents, active
+
 // Per-env state of one call, held in local memory.
-template <int NL, int NS, int NLIM>
+template <int NL, int NS, int NLIM, int K>
 struct Env {
   using L = Layout<NL, NS, NLIM>;
   float q[L::NQ], qd[L::NV], tau[L::NJ];
@@ -157,6 +194,8 @@ struct Env {
   float pos[NL][3], quat[NL][4], omega[NL][3], R[NL][9], comw[NL][3], Iw[NL][9];
   float ja[L::NJ][3];
   float depth[NS], cpt[NS][3];
+  float nrm[K > 0 ? NS : 1][3];          // contact normals (K = 0: always +z)
+  float stone[K > 0 ? K : 1][STONE_C];
   float bias[L::NV], vfree[L::NV];
   float c[L::NR], act[L::NR], diag[L::NR], finv[NS][3];
   int start[L::NR];
@@ -176,8 +215,8 @@ HD inline float& Lget(const WS& ws, int i, int j) {  // i >= j
 }
 
 // ------------------------------------------------------------- substep
-template <int NL, int NS, int NLIM, int ITERS>
-HD void substep(Env<NL, NS, NLIM>& e, const float* tab, const WS& ws, bool factorize) {
+template <int NL, int NS, int NLIM, int ITERS, int K>
+HD void substep(Env<NL, NS, NLIM, K>& e, const float* tab, const WS& ws, bool factorize) {
   using L = Layout<NL, NS, NLIM>;
   constexpr int NJ = L::NJ, NV = L::NV, NR = L::NR;
   const float dt = tab[L::DT];
@@ -221,14 +260,64 @@ HD void substep(Env<NL, NS, NLIM>& e, const float* tab, const WS& ws, bool facto
                              e.R[l][3 * a + 2] * IRt[6 + b];
   }
 
-  // ---------------- spheres vs the plane
+  // ---------------- spheres vs the plane, then vs the stones
   for (int s = 0; s < NS; ++s) {
     const int l = (int)tab[L::SPHLINK + s];
+    const float rad = tab[L::SPHR + s];
     float cw[3];
     matvec3(e.R[l], tab + L::SPHPOS + 3 * s, cw);
     const float cx = e.pos[l][0] + cw[0], cy = e.pos[l][1] + cw[1], cz = e.pos[l][2] + cw[2];
-    e.depth[s] = tab[L::SPHR + s] - (cz - e.ground);
+    e.depth[s] = rad - (cz - e.ground);
     e.cpt[s][0] = cx; e.cpt[s][1] = cy; e.cpt[s][2] = e.ground;
+    if constexpr (K > 0) {
+      // deepest active stone (the first of equals), kept in its box frame
+      float best = -1e9f, bn[3] = {0.0f, 0.0f, 1.0f}, bp[3] = {0.0f, 0.0f, 0.0f};
+      int bk = -1;
+      for (int k = 0; k < K; ++k) {
+        const float* st = e.stone[k];
+        if (!(st[10] > 0.5f)) continue;
+        const float rel[3] = {cx - st[0], cy - st[1], cz - st[2]};
+        const float qc[4] = {st[3], -st[4], -st[5], -st[6]};
+        float d[3], closest[3], delta[3];
+        qrot(qc, rel, d);                       // center in the box frame
+        for (int a = 0; a < 3; ++a) {
+          closest[a] = clampf(d[a], -st[7 + a], st[7 + a]);
+          delta[a] = d[a] - closest[a];
+        }
+        const float dist = sqrtf(dot3(delta, delta));
+        float dk, nl[3], sl[3];
+        if (dist > 1e-9f) {                     // outside: closest point
+          const float inv = 1.0f / fmaxf(dist, 1e-9f);
+          dk = rad - dist;
+          for (int a = 0; a < 3; ++a) { nl[a] = delta[a] * inv; sl[a] = closest[a]; }
+        } else {                                // inside: out through the nearest face
+          int kk = 0;
+          float fmin = st[7] - fabsf(d[0]);
+          for (int a = 1; a < 3; ++a) {
+            const float fa = st[7 + a] - fabsf(d[a]);
+            if (fa < fmin) { fmin = fa; kk = a; }
+          }
+          dk = rad + fmin;
+          for (int a = 0; a < 3; ++a) {
+            nl[a] = a == kk ? sgn0(d[a]) : 0.0f;
+            sl[a] = d[a] + nl[a] * fmin;
+          }
+        }
+        if (dk > best) {
+          best = dk; bk = k;
+          for (int a = 0; a < 3; ++a) { bn[a] = nl[a]; bp[a] = sl[a]; }
+        }
+      }
+      e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f;
+      if (bk >= 0 && best > e.depth[s]) {       // strictly deeper than the plane
+        const float* st = e.stone[bk];
+        float pw[3];
+        qrot(st + 3, bn, e.nrm[s]);
+        qrot(st + 3, bp, pw);
+        e.depth[s] = best;
+        for (int a = 0; a < 3; ++a) e.cpt[s][a] = st[a] + pw[a];
+      }
+    }
   }
 
   // ---------------- Newton–Euler bias (q̈ = 0, base acceleration −g)
@@ -413,8 +502,7 @@ HD void substep(Env<NL, NS, NLIM>& e, const float* tab, const WS& ws, bool facto
   }
   for (int s = 0; s < NS; ++s) {
     const int l = (int)tab[L::SPHLINK + s];
-    // point Jacobian at the contact point; rows n = z, t1 = x, t2 = y
-    // (the plane's normal is +z and its tangent basis is x, y)
+    // point Jacobian at the contact point
     float Jc[3][NV];
     float rel[3];
     for (int k = 0; k < 3; ++k) rel[k] = e.cpt[s][k] - e.pos[0][k];
@@ -437,13 +525,28 @@ HD void substep(Env<NL, NS, NLIM>& e, const float* tab, const WS& ws, bool facto
     const float b_n = fminf(beta * fmaxf(dep - tab[L::SLOP], 0.0f), maxpush);
     const float push = b_n - fmaxf(-dep, 0.0f) / dt;
     const float a = dep > -tab[L::MARGIN] ? 1.0f : 0.0f;
-    const int comp[3] = {2, 0, 1};   // n, t1, t2
+    // rows n, t1, t2. K = 0: the normal is +z and the tangent basis x, y,
+    // so the rows are z, x, y of Jc. With stones: the sphere's own normal
+    // and its branchless tangent basis, projected onto Jc.
+    const int comp[3] = {2, 0, 1};
+    float dirs[3][3];
+    if constexpr (K > 0) {
+      const float nx = e.nrm[s][0], ny = e.nrm[s][1], nz = e.nrm[s][2];
+      const float sg = nz >= 0.0f ? 1.0f : -1.0f;
+      const float ka = -1.0f / (sg + nz), kb = nx * ny * ka;
+      dirs[0][0] = nx; dirs[0][1] = ny; dirs[0][2] = nz;
+      dirs[1][0] = 1.0f + sg * nx * nx * ka; dirs[1][1] = sg * kb; dirs[1][2] = -sg * nx;
+      dirs[2][0] = kb; dirs[2][1] = sg + ny * ny * ka; dirs[2][2] = -ny;
+    }
     for (int m = 0; m < 3; ++m) {
       const int r = NLIM + 3 * s + m;
       float y[NV];
       float cv = 0.0f;
       for (int i = 0; i < NV; ++i) {
-        y[i] = Jc[comp[m]][i];
+        if constexpr (K > 0)
+          y[i] = dirs[m][0] * Jc[0][i] + dirs[m][1] * Jc[1][i] + dirs[m][2] * Jc[2][i];
+        else
+          y[i] = Jc[comp[m]][i];
         cv += y[i] * e.vfree[i];
       }
       fwd(y, 0);
@@ -544,21 +647,38 @@ HD void substep(Env<NL, NS, NLIM>& e, const float* tab, const WS& ws, bool facto
   for (int i = 0; i < NV; ++i) e.qd[i] = qdn[i];
 }
 
-// One llc frame for env t: NSUB substeps, λ zeroed at the frame start.
-template <int NL, int NS, int NLIM, int NSUB, int ITERS>
+// One call for env t: NLLC llc frames of NSUB substeps, λ zeroed once at
+// the start. PD: ``tau`` holds joint targets and each frame's torque is
+// gain·(target − q) at the frame's start; else the torques are held.
+template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC>
 KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const float* gz,
-                      const float* fric, float* q_out, float* qd_out, float* depth_out,
-                      float* nimp_out, const float* tab, float* ws_base, int B, int t) {
+                      const float* fric, const float* stones, float* q_out, float* qd_out,
+                      float* depth_out, float* nimp_out, const float* tab, float* ws_base,
+                      int B, int t) {
   using L = Layout<NL, NS, NLIM>;
-  Env<NL, NS, NLIM> e;
+  static_assert(PD || NLLC == 1, "torque mode is launched once per llc frame");
+  Env<NL, NS, NLIM, K> e;
   const WS ws{ws_base, B, t};
+  float target[PD ? L::NJ : 1];
   for (int i = 0; i < L::NQ; ++i) e.q[i] = q[(long long)t * L::NQ + i];
   for (int i = 0; i < L::NV; ++i) e.qd[i] = qd[(long long)t * L::NV + i];
-  for (int i = 0; i < L::NJ; ++i) e.tau[i] = tau[(long long)t * L::NJ + i];
+  for (int i = 0; i < L::NJ; ++i) {
+    if constexpr (PD) target[i] = tau[(long long)t * L::NJ + i];
+    else e.tau[i] = tau[(long long)t * L::NJ + i];
+  }
   e.ground = gz[t];
   e.fric = fric[t];
+  if constexpr (K > 0)
+    for (int k = 0; k < K; ++k)
+      for (int c = 0; c < STONE_C; ++c)
+        e.stone[k][c] = stones[(long long)(k * STONE_C + c) * B + t];
   for (int r = 0; r < L::NR; ++r) ws(L::WS_LAM + r) = 0.0f;
-  for (int sub = 0; sub < NSUB; ++sub) substep<NL, NS, NLIM, ITERS>(e, tab, ws, sub == 0);
+  for (int llc = 0; llc < NLLC; ++llc) {
+    if constexpr (PD)
+      for (int j = 0; j < L::NJ; ++j)
+        e.tau[j] = tab[L::PDGAIN + j] * (target[j] - e.q[7 + j]);
+    for (int sub = 0; sub < NSUB; ++sub) substep<NL, NS, NLIM, ITERS, K>(e, tab, ws, sub == 0);
+  }
   for (int i = 0; i < L::NQ; ++i) q_out[(long long)t * L::NQ + i] = e.q[i];
   for (int i = 0; i < L::NV; ++i) qd_out[(long long)t * L::NV + i] = e.qd[i];
   for (int s = 0; s < NS; ++s) {
@@ -567,79 +687,95 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
   }
 }
 
-#ifndef K1A_HOST_CHECK
+#ifndef K1_HOST_CHECK
 constexpr int kThreads = 32;   // one warp per block: B = 4096 spreads over 128 SMs
 
-template <int NL, int NS, int NLIM, int NSUB, int ITERS>
+template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC>
 __global__ void __launch_bounds__(kThreads)
-k1a_kernel(const float* __restrict__ q, const float* __restrict__ qd,
-           const float* __restrict__ tau, const float* __restrict__ gz,
-           const float* __restrict__ fric, float* __restrict__ q_out,
-           float* __restrict__ qd_out, float* __restrict__ depth_out,
-           float* __restrict__ nimp_out, const float* __restrict__ table,
-           float* __restrict__ ws, int B) {
+k1_kernel(const float* __restrict__ q, const float* __restrict__ qd,
+          const float* __restrict__ tau, const float* __restrict__ gz,
+          const float* __restrict__ fric, const float* __restrict__ stones,
+          float* __restrict__ q_out, float* __restrict__ qd_out,
+          float* __restrict__ depth_out, float* __restrict__ nimp_out,
+          const float* __restrict__ table, float* __restrict__ ws, int B) {
   using L = Layout<NL, NS, NLIM>;
   __shared__ float tab[L::SIZE];
   for (int i = threadIdx.x; i < L::SIZE; i += blockDim.x) tab[i] = table[i];
   __syncthreads();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= B) return;
-  frame<NL, NS, NLIM, NSUB, ITERS>(q, qd, tau, gz, fric, q_out, qd_out, depth_out, nimp_out,
-                                   tab, ws, B, t);
+  frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC>(q, qd, tau, gz, fric, stones, q_out, qd_out,
+                                                depth_out, nimp_out, tab, ws, B, t);
 }
 
-template <int NL, int NS, int NLIM, int NSUB, int ITERS>
+template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC>
 int launch(const float* q, const float* qd, const float* tau, const float* gz, const float* fric,
-           float* q_out, float* qd_out, float* depth, float* nimp, const float* table,
-           int table_size, float* ws, int B, void* stream) {
+           const float* stones, float* q_out, float* qd_out, float* depth, float* nimp,
+           const float* table, int table_size, float* ws, int B, void* stream) {
   using L = Layout<NL, NS, NLIM>;
-  if (table_size != L::SIZE || B <= 0) return (int)cudaErrorInvalidValue;
+  if (table_size != L::SIZE || B <= 0 || (K > 0 && stones == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int blocks = (B + kThreads - 1) / kThreads;
-  k1a_kernel<NL, NS, NLIM, NSUB, ITERS><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      q, qd, tau, gz, fric, q_out, qd_out, depth, nimp, table, ws, B);
+  k1_kernel<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      q, qd, tau, gz, fric, stones, q_out, qd_out, depth, nimp, table, ws, B);
   return (int)cudaGetLastError();
 }
 #endif
 
-}  // namespace k1a
+}  // namespace k1
 
 // ------------------------------------------------------------ C interface
-// One entry per instantiated model size: (NL, NS, NLIM, NSUB, ITERS).
-// ops/cuda/engine.py::INSTANTIATIONS lists the same names.
-#define K1A_INSTANCE(NAME, NL, NS, NLIM, NSUB, ITERS)                                       \
+// One entry per instance: (NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC).
+// ops/cuda/engine.py::INSTANTIATIONS lists the same names and numbers.
+#define K1_INSTANCE(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC)                           \
   extern "C" int NAME##_layout(int* table_size, int* ws_per_env) {                         \
-    *table_size = k1a::Layout<NL, NS, NLIM>::SIZE;                                          \
-    *ws_per_env = k1a::Layout<NL, NS, NLIM>::WS_SIZE;                                       \
+    *table_size = k1::Layout<NL, NS, NLIM>::SIZE;                                           \
+    *ws_per_env = k1::Layout<NL, NS, NLIM>::WS_SIZE;                                        \
     return 0;                                                                               \
   }                                                                                         \
-  K1A_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS)
+  K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC)
 
-#ifndef K1A_HOST_CHECK
-#define K1A_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS)                                          \
+#ifndef K1_HOST_CHECK
+#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC)                              \
   extern "C" int NAME##_launch(const float* q, const float* qd, const float* tau,          \
-                               const float* gz, const float* fric, float* q_out,           \
-                               float* qd_out, float* depth, float* nimp,                   \
+                               const float* gz, const float* fric, const float* stones,    \
+                               float* q_out, float* qd_out, float* depth, float* nimp,     \
                                const float* table, int table_size, float* ws, int B,       \
                                void* stream) {                                             \
-    return k1a::launch<NL, NS, NLIM, NSUB, ITERS>(q, qd, tau, gz, fric, q_out, qd_out,      \
-                                                  depth, nimp, table, table_size, ws, B,   \
-                                                  stream);                                 \
+    return k1::launch<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC>(                              \
+        q, qd, tau, gz, fric, stones, q_out, qd_out, depth, nimp, table, table_size, ws,   \
+        B, stream);                                                                        \
   }
 #else
 // host check: the same per-env code as a plain loop over envs
-#define K1A_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS)                                          \
+#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC)                              \
   extern "C" int NAME##_host(const float* q, const float* qd, const float* tau,            \
-                             const float* gz, const float* fric, float* q_out,             \
-                             float* qd_out, float* depth, float* nimp, const float* table, \
-                             int table_size, float* ws, int B) {                           \
-    if (table_size != k1a::Layout<NL, NS, NLIM>::SIZE || B <= 0) return 1;                  \
+                             const float* gz, const float* fric, const float* stones,      \
+                             float* q_out, float* qd_out, float* depth, float* nimp,       \
+                             const float* table, int table_size, float* ws, int B) {       \
+    if (table_size != k1::Layout<NL, NS, NLIM>::SIZE || B <= 0) return 1;                   \
     for (int t = 0; t < B; ++t)                                                             \
-      k1a::frame<NL, NS, NLIM, NSUB, ITERS>(q, qd, tau, gz, fric, q_out, qd_out, depth,     \
-                                            nimp, table, ws, B, t);                        \
+      k1::frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC>(q, qd, tau, gz, fric, stones,       \
+                                                        q_out, qd_out, depth, nimp, table, \
+                                                        ws, B, t);                         \
     return 0;                                                                               \
   }
 #endif
 
-// Walker3D at the shipped EngineConfig: 22 links, 14 spheres, 21 limit rows,
-// 4 substeps, 4 sweeps.
-K1A_INSTANCE(k1a_nl22_ns14_nlim21_sub4_it4, 22, 14, 21, 4, 4)
+// Walker3D / Child3D at the shipped EngineConfig: 22 links, 14 spheres, 21
+// limit rows, 4 substeps, 4 sweeps.
+#if !defined(K1_ONLY) || K1_ONLY == 0
+K1_INSTANCE(k1a_nl22_ns14_nlim21_sub4_it4, 22, 14, 21, 4, 4, 0, false, 1)
+#endif
+// ... over the 6 culled stones of the stepping-stone env
+#if !defined(K1_ONLY) || K1_ONLY == 1
+K1_INSTANCE(k1c_nl22_ns14_nlim21_sub4_it4_k6, 22, 14, 21, 4, 4, 6, false, 1)
+#endif
+// ... PD-servoed, one llc frame per control step (the PD walkers)
+#if !defined(K1_ONLY) || K1_ONLY == 2
+K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc1, 22, 14, 21, 4, 4, 0, true, 1)
+#endif
+// ... PD-servoed, two llc frames per control step (λ carried across them)
+#if !defined(K1_ONLY) || K1_ONLY == 3
+K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc2, 22, 14, 21, 4, 4, 0, true, 2)
+#endif

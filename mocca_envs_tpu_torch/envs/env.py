@@ -71,8 +71,11 @@ class FnEnv:
 
 
 def tree_where(mask: torch.Tensor, a, b):
-    """Per-slot select over a state tree (dataclasses of tensors): ``a``
-    where ``mask`` (B,) is true, else ``b``."""
+    """Per-slot select over a state tree (dataclasses of tensors, with
+    ``None`` for an absent field): ``a`` where ``mask`` (B,) is true, else
+    ``b``."""
+    if a is None and b is None:
+        return None
     if isinstance(a, torch.Tensor):
         m = mask.reshape(mask.shape + (1,) * (a.dim() - 1))
         return torch.where(m, a, b)

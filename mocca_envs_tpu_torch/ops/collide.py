@@ -1,7 +1,8 @@
-"""Narrowphase: robot collision spheres vs the scene — plane branch.
+"""Narrowphase: robot collision spheres vs the scene (plane and stones).
 
-Counterpart of ``mocca_envs_tpu/ops/collide.py`` for the flat scene. One
-candidate contact per sphere, so the contact count is static.
+Counterpart of ``mocca_envs_tpu/ops/collide.py`` for the plane and the
+oriented stone boxes. One candidate contact per sphere (the deepest across
+the scene's features), so the contact count is static.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 
 from mocca_envs_tpu_torch.models.schema import RobotModel
 from mocca_envs_tpu_torch.ops.kinematics import FrameData
-from mocca_envs_tpu_torch.terrain.scene import Scene
+from mocca_envs_tpu_torch.terrain.scene import Scene, sphere_box_depth
 
 
 @dataclasses.dataclass
@@ -41,6 +42,23 @@ def collide(model: RobotModel, fd: FrameData, scene: Scene, margin: float) -> Co
     normal[..., 2] = 1.0
     pos = centers.clone()
     pos[..., 2] = pos[..., 2] - (centers[..., 2] - gz)
+
+    if scene.has_stones:
+        # every sphere against every stone; the deepest active stone per
+        # sphere (the first of equals) replaces the plane where strictly deeper
+        d, n, p = sphere_box_depth(
+            centers[:, :, None, :], model.sph_radius[None, :, None],
+            scene.stone_pos[:, None], scene.stone_quat[:, None], scene.stone_half[:, None],
+        )                                                       # (B, ns, K[, 3])
+        d = torch.where(scene.stone_active[:, None, :] > 0.5, d, torch.full_like(d, -1e9))
+        k = torch.argmax(d, dim=2, keepdim=True)
+        k3 = k[..., None].expand(-1, -1, -1, 3)
+        d_k = torch.gather(d, 2, k)[..., 0]
+        take = d_k > depth
+        depth = torch.where(take, d_k, depth)
+        normal = torch.where(take[..., None], torch.gather(n, 2, k3)[:, :, 0], normal)
+        pos = torch.where(take[..., None], torch.gather(p, 2, k3)[:, :, 0], pos)
+
     return Contacts(
         pos=pos, normal=normal, depth=depth, link=model.sph_link,
         active=(depth > -margin).to(centers.dtype),

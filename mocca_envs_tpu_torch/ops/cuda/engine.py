@@ -1,24 +1,30 @@
-"""K1a: the fused engine kernel on Hopper, its wrapper and its plain version.
+"""K1: the fused engine kernel on Hopper, its wrappers and its plain version.
 
 Counterpart of ``mocca_envs_tpu/ops/pallas/engine.py::make_pallas_substep``
-in its K1a variant (plane, torque mode, no equality rows, the shipped
-EngineConfig). The kernel is CUDA C++ in ``csrc/engine_k1a.cu``, built with
-``nvcc`` for ``sm_90a`` into ``build/`` at first use and called through a
-plain C interface with ``ctypes``.
+for floating all-revolute models at the shipped EngineConfig, in three
+variants: K1a (plane, torque mode), K1c (K1a plus ``stone_window`` oriented
+stone boxes) and K1b (PD mode: the whole control step, joint targets in the
+``tau`` input). The kernel is CUDA C++ in ``csrc/engine_k1.cu``, one source
+for all variants. At first use every instantiation is built with ``nvcc``
+for ``sm_90a`` into ``build/``, one compiler process per instantiation, all
+started together, and called through a plain C interface with ``ctypes``.
 
-- :class:`K1a` wraps one (model, config): :meth:`K1a.launch` launches the
-  kernel on CUDA tensors and raises on anything else. The choice by device
-  is made once, in ``ops/step.py::_make_llc_unit``; there is no fallback
-  from one path to the other.
-- :meth:`K1a.plain` is the plain PyTorch version: the port's ``ops/step.py``
-  path run for one llc frame, on any device.
-- ``LAUNCHES["k1a"]`` counts kernel launches (plain runs do not count).
+- :class:`K1a`, :class:`K1c`, :class:`K1b` wrap one (model, config):
+  ``launch`` launches the kernel on CUDA tensors and raises on anything
+  else. The choice by device is made once, in
+  ``ops/step.py::_make_llc_unit``; there is no fallback from one path to
+  the other.
+- ``plain`` is the plain PyTorch version: the port's ``ops/step.py`` path
+  run for the same unit, on any device.
+- ``LAUNCHES["k1a" | "k1b" | "k1c"]`` counts kernel launches (plain runs do
+  not count).
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -32,19 +38,34 @@ from mocca_envs_tpu_torch.models.schema import REVOLUTE, RobotModel
 from mocca_envs_tpu_torch.ops.integrate import LIMIT_SLOP, MAX_VEL
 from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics, joint_q
 from mocca_envs_tpu_torch.ops.step import limited_joints, make_plain_llc, make_substep
-from mocca_envs_tpu_torch.terrain.scene import Scene
+from mocca_envs_tpu_torch.terrain.scene import STONE_FIELDS, Scene
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "engine_k1a.cu"
+SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "engine_k1.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-LIBRARY = BUILD_DIR / "libengine_k1a.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+STONE_FLOATS = 11   # center (3), quaternion (4), half extents (3), active (1)
 
-# (nl, ns, nlim, sim_substeps, solver_iters) → C symbol prefix in the source
-INSTANTIATIONS = {(22, 14, 21, 4, 4): "k1a_nl22_ns14_nlim21_sub4_it4"}
+
+@dataclasses.dataclass(frozen=True)
+class Instance:
+    """One instantiation of the kernel template in the source."""
+
+    symbol: str   # C symbol prefix
+    index: int    # its K1_ONLY number there
+
+
+# (nl, ns, nlim, sim_substeps, solver_iters, stones, pd_mode, llc frames per
+# launch) → instantiation; torque mode launches once per llc frame
+INSTANTIATIONS = {
+    (22, 14, 21, 4, 4, 0, False, 1): Instance("k1a_nl22_ns14_nlim21_sub4_it4", 0),
+    (22, 14, 21, 4, 4, 6, False, 1): Instance("k1c_nl22_ns14_nlim21_sub4_it4_k6", 1),
+    (22, 14, 21, 4, 4, 0, True, 1): Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc1", 2),
+    (22, 14, 21, 4, 4, 0, True, 2): Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc2", 3),
+}
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -59,43 +80,62 @@ def nvcc_path() -> str:
             return str(Path(cand, "bin", "nvcc"))
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the K1a kernel needs the CUDA toolkit")
+        raise RuntimeError("nvcc not found: the K1 kernel needs the CUDA toolkit")
     return found
 
 
 class _Library:
-    """The built shared library, loaded once per process."""
+    """The built shared libraries (one per instantiation), loaded once per
+    process, and nvcc's register / spill report of each."""
 
-    handle: ctypes.CDLL | None = None
-    log: str = ""
+    handles: dict = {}
+    logs: dict = {}
 
 
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/engine_k1a.cu`` (when the library is missing or older
-    than the source) and load it. A failed build raises with nvcc's output;
-    ``_Library.log`` keeps nvcc's register / spill report."""
-    if _Library.handle is not None:
-        return _Library.handle
+def library_path(inst: Instance) -> Path:
+    return BUILD_DIR / f"lib{inst.symbol}.so"
+
+
+def build() -> dict:
+    """Compile every instantiation of ``csrc/engine_k1.cu`` whose library is
+    missing or older than the source, all compilers started together, and
+    load them: ``{symbol: CDLL}``. A failed build raises with nvcc's output;
+    ``_Library.logs`` keeps nvcc's report per symbol."""
+    if _Library.handles:
+        return _Library.handles
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    if not LIBRARY.exists() or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime:
+    running = []
+    for inst in INSTANTIATIONS.values():
+        lib = library_path(inst)
+        if lib.exists() and lib.stat().st_mtime >= SOURCE.stat().st_mtime:
+            continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        _Library.log = proc.stdout + proc.stderr
+        cmd = [nvcc_path(), *NVCC_FLAGS, f"-DK1_ONLY={inst.index}", "-o", tmp, str(SOURCE)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((inst, tmp, proc))
+    failed = []
+    for inst, tmp, proc in running:
+        log = proc.communicate()[0]
+        _Library.logs[inst.symbol] = log
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{_Library.log}")
-        os.replace(tmp, LIBRARY)
-    lib = ctypes.CDLL(str(LIBRARY))
-    for name in INSTANTIATIONS.values():
-        getattr(lib, name + "_layout").argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
-        getattr(lib, name + "_layout").restype = _I
-        fn = getattr(lib, name + "_launch")
-        fn.argtypes = [_P] * 10 + [_I, _P, _I, _P]
+            failed.append(f"{inst.symbol}: nvcc failed ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, library_path(inst))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    handles = {}
+    for inst in INSTANTIATIONS.values():
+        lib = ctypes.CDLL(str(library_path(inst)))
+        getattr(lib, inst.symbol + "_layout").argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
+        getattr(lib, inst.symbol + "_layout").restype = _I
+        fn = getattr(lib, inst.symbol + "_launch")
+        fn.argtypes = [_P] * 11 + [_I, _P, _I, _P]
         fn.restype = _I
-    _Library.handle = lib
-    return lib
+        handles[inst.symbol] = lib
+    _Library.handles = handles
+    return handles
 
 
 def layout(lib, name: str) -> tuple[int, int]:
@@ -105,95 +145,142 @@ def layout(lib, name: str) -> tuple[int, int]:
     return table.value, ws.value
 
 
-def _check_supported(model: RobotModel, config: EngineConfig) -> str:
+def _check_supported(model: RobotModel, config: EngineConfig, num_stones: int,
+                     pd_mode: bool) -> Instance:
     if not model.floating or any(t != REVOLUTE for t in model.jtype):
-        raise NotImplementedError("K1a covers floating-base all-revolute models")
+        raise NotImplementedError("K1 covers floating-base all-revolute models")
     options = dict(block_pgs=True, matfree_pgs=True, warm_start=True,
                    reuse_factor=True, split_impulse=False)
     off = {k: getattr(config, k) for k, v in options.items() if getattr(config, k) != v}
     if off:
-        raise NotImplementedError(f"K1a runs the shipped solver options; got {off}")
+        raise NotImplementedError(f"K1 runs the shipped solver options; got {off}")
     key = (model.nl, model.ns, len(limited_joints(model)), config.sim_substeps,
-           config.solver_iters)
+           config.solver_iters, num_stones, pd_mode, config.llc_frames if pd_mode else 1)
     if key not in INSTANTIATIONS:
         raise NotImplementedError(
-            f"no K1a instantiation for (nl, ns, nlim, substeps, iters) = {key}; "
-            f"built: {sorted(INSTANTIATIONS)}"
+            "no K1 instantiation for (nl, ns, nlim, substeps, iters, stones, pd_mode, "
+            f"llc frames) = {key}; built: {sorted(INSTANTIATIONS)}"
         )
     return INSTANTIATIONS[key]
 
 
-def pack_tables(model: RobotModel, config: EngineConfig) -> np.ndarray:
-    """The packed f32 model table, in the order of ``Layout`` in the source."""
+def pack_tables(model: RobotModel, config: EngineConfig, extra_damping=None) -> np.ndarray:
+    """The packed f32 model table, in the order of ``Layout`` in the source.
+    ``extra_damping`` (nj,) joins the passive damping, and so the implicit
+    diagonal ``dt·(c + dt·k) + armature`` too."""
     m = {k: getattr(model, k).detach().cpu().numpy().astype(np.float64) for k in (
         "joint_quat", "joint_axis", "joint_pos", "com", "mass", "inertia",
         "sph_link", "sph_pos", "sph_radius", "damping", "stiffness",
-        "spring_ref", "armature", "limit_lo", "limit_hi", "anc")}
+        "spring_ref", "armature", "limit_lo", "limit_hi", "actuated", "kp", "anc")}
     dt = config.dt
     scalars = [dt, *config.gravity, config.baumgarte / dt, config.slop,
                config.max_push_vel, config.cfm, config.contact_margin,
                config.limit_margin, LIMIT_SLOP, MAX_VEL]
-    joint_diag = dt * (m["damping"] + dt * m["stiffness"]) + m["armature"]
+    damping = m["damping"]
+    if extra_damping is not None:
+        damping = damping + extra_damping.detach().cpu().numpy().astype(np.float64)
+    joint_diag = dt * (damping + dt * m["stiffness"]) + m["armature"]
     parts = [
         scalars, model.parent, m["joint_quat"], m["joint_axis"], m["joint_pos"],
         m["com"], m["mass"], m["inertia"], m["sph_link"], m["sph_pos"],
-        m["sph_radius"], m["damping"], m["stiffness"], m["spring_ref"], joint_diag,
-        m["limit_lo"], m["limit_hi"], limited_joints(model), m["anc"],
+        m["sph_radius"], damping, m["stiffness"], m["spring_ref"], joint_diag,
+        m["limit_lo"], m["limit_hi"], limited_joints(model), m["actuated"] * m["kp"],
+        m["anc"],
     ]
     return np.concatenate([np.asarray(p, dtype=np.float64).ravel() for p in parts]).astype(
         np.float32
     )
 
 
-class K1a:
-    """One llc frame of one (model, config) on a batch:
+def pack_stones(scene: Scene) -> torch.Tensor:
+    """The scene's (culled) stones in the kernel's layout, ``(K·11, B)``:
+    row ``k·11 + c`` is component c of stone k (center, quaternion, half
+    extents, active). One concatenation and one transposed copy."""
+    rows = torch.cat([scene.stone_pos, scene.stone_quat, scene.stone_half,
+                      scene.stone_active[..., None]], dim=2)            # (B, K, 11)
+    return rows.reshape(rows.shape[0], -1).t().contiguous()
+
+
+def unpack_stones(stones: torch.Tensor) -> dict:
+    """Inverse of :func:`pack_stones`: the four stone fields of a Scene."""
+    rows = stones.t().reshape(stones.shape[1], -1, STONE_FLOATS)
+    pos, quat, half, active = rows.split((3, 4, 3, 1), dim=2)
+    return dict(zip(STONE_FIELDS, (pos, quat, half, active[..., 0])))
+
+
+def make_scene(ground_z, friction, stones=None) -> Scene:
+    """The Scene a kernel call's scene arguments describe."""
+    scene = Scene(ground_z=ground_z, friction=friction)
+    return scene if stones is None else dataclasses.replace(scene, **unpack_stones(stones))
+
+
+class EngineKernel:
+    """One launch unit of one (model, config, variant) on a batch:
 
     ``launch`` / ``plain``: ``(q (B,nq), qd (B,nv), tau (B,nj), ground_z (B,),
-    friction (B,)) → (q', qd', depth (B,ns), normal_impulse (B,ns))``, all f32.
-    ``plain_unit`` is the plain llc frame to compare against (built here
-    when not given).
+    friction (B,)[, stones (K·11,B)]) → (q', qd', depth (B,ns),
+    normal_impulse (B,ns))``, all f32. In PD mode ``tau`` holds the joint
+    targets and the unit is the whole control step; else it is one llc frame.
+    ``plain_unit`` is the plain unit to compare against (built here when
+    not given).
     """
 
-    def __init__(self, model: RobotModel, config: EngineConfig, plain_unit=None):
-        self.name = _check_supported(model, config)
+    variant = "k1"
+
+    def __init__(self, model: RobotModel, config: EngineConfig, *, num_stones: int = 0,
+                 pd_mode: bool = False, extra_damping=None, plain_unit=None):
+        self.instance = _check_supported(model, config, num_stones, pd_mode)
+        self.name = self.instance.symbol
         self.model = model
         self.config = config
-        self.table_host = pack_tables(model, config)
+        self.num_stones = num_stones
+        self.pd_mode = pd_mode
+        self.extra_damping = extra_damping
+        self.table_host = pack_tables(model, config, extra_damping)
         self._plain_unit = plain_unit
         self._table: torch.Tensor | None = None
         self._ws: torch.Tensor | None = None
 
-    def plain(self, q, qd, tau, ground_z, friction):
+    def plain(self, q, qd, tau, ground_z, friction, stones=None):
         """The plain PyTorch version on any device (never counted)."""
         if self._plain_unit is None:
-            self._plain_unit = make_plain_llc(self.model, self.config)
-        qq, dd, info = self._plain_unit(q, qd, tau, Scene(ground_z=ground_z, friction=friction))
+            substep = make_substep(self.model, self.config, extra_damping=self.extra_damping)
+            self._plain_unit = make_plain_llc(self.model, self.config, substep, self.pd_mode)
+        qq, dd, info = self._plain_unit(q, qd, tau, make_scene(ground_z, friction, stones))
         return qq, dd, info.contacts.depth, info.normal_impulse
 
-    def _check_inputs(self, q, qd, tau, ground_z, friction) -> int:
+    def _check_inputs(self, q, qd, tau, ground_z, friction, stones) -> int:
         B = q.shape[0]
         m = self.model
         want = {"q": (q, (B, m.nq)), "qd": (qd, (B, m.nv)), "tau": (tau, (B, m.nj)),
                 "ground_z": (ground_z, (B,)), "friction": (friction, (B,))}
+        if self.num_stones:
+            if stones is None:
+                raise ValueError(f"{self.variant}: needs the packed stones of the scene")
+            want["stones"] = (stones, (self.num_stones * STONE_FLOATS, B))
+        elif stones is not None:
+            raise ValueError(f"{self.variant}: this variant takes no stones")
         for name, (x, shape) in want.items():
             if x.device.type != "cuda" or x.device != q.device:
-                raise ValueError(f"K1a: {name} must be on {q.device} (CUDA), got {x.device}")
+                raise ValueError(
+                    f"{self.variant}: {name} must be on {q.device} (CUDA), got {x.device}")
             if x.dtype != torch.float32:
-                raise TypeError(f"K1a: {name} must be float32, got {x.dtype}")
+                raise TypeError(f"{self.variant}: {name} must be float32, got {x.dtype}")
             if tuple(x.shape) != shape:
-                raise ValueError(f"K1a: {name} has shape {tuple(x.shape)}, want {shape}")
+                raise ValueError(
+                    f"{self.variant}: {name} has shape {tuple(x.shape)}, want {shape}")
             if not x.is_contiguous():
-                raise ValueError(f"K1a: {name} must be contiguous")
+                raise ValueError(f"{self.variant}: {name} must be contiguous")
         return B
 
-    def launch(self, q, qd, tau, ground_z, friction):
+    def launch(self, q, qd, tau, ground_z, friction, stones=None):
         """Launch the kernel on the current stream; raises on any failure."""
-        B = self._check_inputs(q, qd, tau, ground_z, friction)
-        lib = build()
+        B = self._check_inputs(q, qd, tau, ground_z, friction, stones)
+        lib = build()[self.name]
         table_size, ws_per_env = layout(lib, self.name)
         if table_size != self.table_host.size:
             raise RuntimeError(
-                f"K1a table layout mismatch: source wants {table_size}, "
+                f"{self.variant} table layout mismatch: source wants {table_size}, "
                 f"packed {self.table_host.size}"
             )
         dev = q.device
@@ -210,54 +297,112 @@ class K1a:
         with torch.cuda.device(dev):
             err = getattr(lib, self.name + "_launch")(
                 q.data_ptr(), qd.data_ptr(), tau.data_ptr(), ground_z.data_ptr(),
-                friction.data_ptr(), q_out.data_ptr(), qd_out.data_ptr(),
-                depth.data_ptr(), nimp.data_ptr(), self._table.data_ptr(),
-                table_size, self._ws.data_ptr(), B, stream,
+                friction.data_ptr(), stones.data_ptr() if self.num_stones else None,
+                q_out.data_ptr(), qd_out.data_ptr(), depth.data_ptr(), nimp.data_ptr(),
+                self._table.data_ptr(), table_size, self._ws.data_ptr(), B, stream,
             )
         if err != 0:
-            raise RuntimeError(f"K1a launch failed: cudaError {err}")
-        LAUNCHES["k1a"] += 1
+            raise RuntimeError(f"{self.variant} launch failed: cudaError {err}")
+        LAUNCHES[self.variant] += 1
         return q_out, qd_out, depth, nimp
 
 
-def k1a_activity(model: RobotModel, config: EngineConfig, q, qd, tau, ground_z, friction):
-    """Which rows each substep of one K1a call needs, on these inputs: limit
-    rows within the limit margin and spheres within the contact margin, at
-    each substep's start state, taken from the plain version's run of the
-    frame. Returns bool masks ``(limits (S,B,nlim), contacts (S,B,ns))``."""
-    substep = make_substep(model, config)
+class K1a(EngineKernel):
+    """One llc frame on the plane, torque mode."""
+
+    variant = "k1a"
+
+    def __init__(self, model, config, plain_unit=None):
+        super().__init__(model, config, plain_unit=plain_unit)
+
+
+class K1c(EngineKernel):
+    """One llc frame over ``config.stone_window`` stone boxes, torque mode."""
+
+    variant = "k1c"
+
+    def __init__(self, model, config, num_stones: int | None = None, plain_unit=None):
+        super().__init__(model, config, plain_unit=plain_unit,
+                         num_stones=config.stone_window if num_stones is None else num_stones)
+
+
+class K1b(EngineKernel):
+    """The whole control step on the plane, PD mode: ``model.kp`` holds the
+    proportional gains, ``extra_damping`` the implicit derivative gains."""
+
+    variant = "k1b"
+
+    def __init__(self, model, config, extra_damping=None, plain_unit=None):
+        super().__init__(model, config, pd_mode=True, extra_damping=extra_damping,
+                         plain_unit=plain_unit)
+
+
+def make_kernel(model, config, *, num_stones=0, pd_mode=False, extra_damping=None,
+                plain_unit=None) -> EngineKernel:
+    """The variant for a scene with ``num_stones`` (culled) stones and the
+    actuation mode; combinations without an instantiation raise."""
+    if pd_mode and num_stones:
+        raise NotImplementedError("no K1 instantiation for PD mode over stones")
+    if pd_mode:
+        return K1b(model, config, extra_damping, plain_unit)
+    if extra_damping is not None:
+        raise NotImplementedError("no K1 instantiation for extra damping in torque mode")
+    if num_stones:
+        return K1c(model, config, num_stones, plain_unit)
+    return K1a(model, config, plain_unit)
+
+
+def k1_activity(kernel: EngineKernel, q, qd, tau, ground_z, friction, stones=None):
+    """Which rows each substep of one call of ``kernel`` needs, on these
+    inputs: limit rows within the limit margin and spheres within the contact
+    margin, at each substep's start state, taken from the plain version's
+    run of the unit. Returns bool masks ``(limits (S,B,nlim), contacts
+    (S,B,ns))`` over the S = llc frames × substeps of the call."""
+    model, config = kernel.model, kernel.config
+    substep = make_substep(model, config, extra_damping=kernel.extra_damping)
     lim = torch.as_tensor(limited_joints(model), dtype=torch.long, device=q.device)
-    scene = Scene(ground_z=ground_z, friction=friction)
-    Minv0 = substep.minv_of(forward_kinematics(model, q, qd))
+    scene = make_scene(ground_z, friction, stones)
+    gain = model.actuated * model.kp
     lam = q.new_zeros(q.shape[0], substep.num_rows)
     lim_act, con_act = [], []
-    for _ in range(config.sim_substeps):
-        qj = joint_q(model, q)[:, lim]
-        gap = torch.minimum(qj - model.limit_lo[lim], model.limit_hi[lim] - qj)
-        lim_act.append(gap < config.limit_margin)
-        q, qd, info, lam = substep(q, qd, tau, scene, Minv_in=Minv0, lam_in=lam)
-        con_act.append(info.contacts.active > 0.5)
+    for _ in range(config.llc_frames if kernel.pd_mode else 1):
+        tau_j = gain * (tau - joint_q(model, q)) if kernel.pd_mode else tau
+        Minv0 = substep.minv_of(forward_kinematics(model, q, qd))
+        for _ in range(config.sim_substeps):
+            qj = joint_q(model, q)[:, lim]
+            gap = torch.minimum(qj - model.limit_lo[lim], model.limit_hi[lim] - qj)
+            lim_act.append(gap < config.limit_margin)
+            q, qd, info, lam = substep(q, qd, tau_j, scene, Minv_in=Minv0, lam_in=lam)
+            con_act.append(info.contacts.active > 0.5)
     return torch.stack(lim_act), torch.stack(con_act)
 
 
-def k1a_flops(model: RobotModel, config: EngineConfig, lim_act, con_act) -> int:
-    """fp32 operations one K1a call needs, summed over the batch, given the
-    activity masks of :func:`k1a_activity` (a multiply-add counts 2).
+def k1_flops(kernel: EngineKernel, lim_act, con_act, stones=None) -> int:
+    """fp32 operations one call of ``kernel`` needs, summed over the batch,
+    given the activity masks of :func:`k1_activity` and the call's packed
+    stones (a multiply-add counts 2).
 
     Every substep needs FK, the narrowphase, RNEA, the free velocity and the
-    integration; the frame needs CRBA and the Cholesky factor once. Only an
-    active row needs its W = L⁻¹Jᵀ row, its diagonal and its sweeps; only a
-    row active in the substep before as well carries a warm-start λ; the
-    impulse map runs only where some row is active. A contact's Jacobian
-    takes a cross product per ancestor joint of its sphere's link. The
-    kernel today runs every row whether or not it is active, so it does
-    more work than this count, even with masks of all ones."""
+    integration; each llc frame needs CRBA and the Cholesky factor once.
+    Only an active row needs its W = L⁻¹Jᵀ row, its diagonal and its sweeps;
+    only a row active in the substep before as well carries a warm-start λ;
+    the impulse map runs only where some row is active. A contact's Jacobian
+    takes a cross product per ancestor joint of its sphere's link. With
+    stones, every sphere is tested against every active stone of the window
+    each substep (a narrowphase has to test a pair to know its depth), each
+    sphere's deepest stone is carried to the world frame, and every active
+    contact projects its Jacobian onto its own normal and tangents. PD mode
+    adds the torque per llc frame. The kernel today runs every row whether
+    or not it is active, so it does more work than this count, even with
+    masks of all ones."""
+    model, config = kernel.model, kernel.config
     nl, nj, nv, ns = model.nl, model.nj, model.nv, model.ns
     lim = limited_joints(model)
     nlim = len(lim)
     iters = config.solver_iters
     anc = model.anc.cpu().numpy() > 0.5
     S, B = con_act.shape[:2]
+    frames = S // config.sim_substeps
     # FK: 2 qmul (28 each) + 2 qrot (30 each) + sincos (~20) + 9 per joint;
     # per link qmat (24) + COM (18) + R I Rᵀ (90)
     fk = (nl - 1) * (2 * 28 + 2 * 30 + 20 + 9) + nl * (24 + 18 + 90)
@@ -289,17 +434,30 @@ def k1a_flops(model: RobotModel, config: EngineConfig, lim_act, con_act) -> int:
     con_row = n_anc * 12 + 9 + 3 * (nv * nv + 2 * nv) + 4 * 2 * nv + 8 + iters * (12 * nv + 22)
     con_warm = torch.full((ns,), 3.0 * 2 * nv, dtype=torch.float64)
     la, ca = lim_act.cpu().double(), con_act.cpu().double()
-    total = S * B * per_sub + B * (crba + chol)
+    total = S * B * per_sub + frames * B * (crba + chol)
     total += float((la * lim_row).sum() + (ca * con_row).sum())
     total += float((la[1:] * la[:-1] * lim_warm).sum() + (ca[1:] * ca[:-1] * con_warm).sum())
     any_act = (lim_act.any(dim=2) | con_act.any(dim=2)).sum()
     total += float(any_act) * (nv * nv)
+    if stones is not None:
+        # per (sphere, active stone): into the box frame (33), clamp and
+        # distance (20), depth and compare (2); per sphere: its deepest
+        # stone's normal and point into the world frame (2 × 30 + 3) and the
+        # merge with the plane; per active contact: the tangent basis (15)
+        # and three projections of the 3 × nv point Jacobian (5 each)
+        n_active = (unpack_stones(stones)["stone_active"] > 0.5).double().sum()
+        total += S * ns * (55.0 * float(n_active) + B * 64.0)
+        total += float(ca.sum()) * (15 + 3 * nv * 5)
+    if kernel.pd_mode:
+        total += frames * B * nj * 3
     return int(round(total))
 
 
-def k1a_bytes_per_env(model: RobotModel) -> int:
+def k1_bytes_per_env(kernel: EngineKernel) -> int:
     """Bytes one env must move: each input read once, each output written
-    once (q, qd, tau, ground_z, friction in; q', qd', depth, impulse out)."""
-    inputs = model.nq + model.nv + model.nj + 2
+    once (q, qd, tau, ground_z, friction and the window's stones in; q', qd',
+    depth, impulse out)."""
+    model = kernel.model
+    inputs = model.nq + model.nv + model.nj + 2 + kernel.num_stones * STONE_FLOATS
     outputs = model.nq + model.nv + 2 * model.ns
     return 4 * (inputs + outputs)

@@ -1,17 +1,23 @@
 """The assembled physics step, batch-first.
 
-Counterpart of ``mocca_envs_tpu/ops/step.py`` for the main path: no equality
-rows, torque actuation, the plane scene.
+Counterpart of ``mocca_envs_tpu/ops/step.py`` for floating-base models
+without equality rows, over the plane and the stone boxes, with torque or
+PD actuation.
 
     control step
-      └─ llc frame × llc_frames:   actuation (torques, constant over the step)
+      └─ llc frame × llc_frames:   actuation (torques held over the frame,
+           │                       or PD torque kp·(target − q) refreshed)
            └─ substep × sim_substeps:
                 FK → collide → bias / mass matrix → impulse PGS
                 → semi-implicit integrate
 
-On CPU tensors an llc frame runs this plain PyTorch path. On CUDA tensors it
-runs as ONE launch of the hand-written K1a kernel (ops/cuda/engine.py),
-which computes the same frame; there is no fallback between the two.
+A launch unit is one llc frame in torque mode (λ starts at zero each frame)
+and the whole control step in PD mode (λ carried across its llc frames). On
+CPU tensors a unit runs this plain PyTorch path. On CUDA tensors it runs as
+ONE launch of the hand-written engine kernel (ops/cuda/engine.py: K1a on the
+plane, K1c over stones, K1b in PD mode), which computes the same unit; there
+is no fallback between the two. Stones are culled to ``config.stone_window``
+once per unit, before either path.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from mocca_envs_tpu_torch.ops.kinematics import (
     point_jacobian,
 )
 from mocca_envs_tpu_torch.ops.solver import delassus, pgs_solve, tangent_basis
-from mocca_envs_tpu_torch.terrain.scene import Scene
+from mocca_envs_tpu_torch.terrain.scene import Scene, cull_stones
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
 LIMIT_RANGE_CAP = 12.0  # joints with a wider range get no limit row [rad|m]
@@ -57,15 +63,13 @@ class StepInfo:
     link_contact: torch.Tensor     # (B, nl) binary flags
 
 
-def _joint_diag(model: RobotModel, config: EngineConfig) -> torch.Tensor:
-    """Implicit damper/spring diagonal ``dt·c + dt²·k`` on the joint block."""
-    dt = config.dt
-    return dt * (model.damping + dt * model.stiffness)
-
-
-def make_substep(model: RobotModel, config: EngineConfig):
+def make_substep(model: RobotModel, config: EngineConfig,
+                 extra_damping: torch.Tensor | None = None):
     """Build ``substep(q, qd, tau_joint, scene, Minv_in=None, lam_in=None)
-    → (q', qd', StepInfo, λ)`` over a batch (B, ·)."""
+    → (q', qd', StepInfo, λ)`` over a batch (B, ·).
+
+    ``extra_damping`` (nj,) adds per-joint viscous damping handled
+    implicitly every substep: the home of a PD servo's −k_d·q̇ term."""
     if config.split_impulse:
         raise NotImplementedError("split_impulse is not ported yet")
     dt = config.dt
@@ -76,14 +80,15 @@ def make_substep(model: RobotModel, config: EngineConfig):
     li = torch.as_tensor(lim_idx, dtype=torch.long, device=model.device)
     lim_cols = base_off + li
     beta = config.baumgarte / dt
+    damping = model.damping if extra_damping is None else model.damping + extra_damping
+    # implicit damper/spring diagonal dt·c + dt²·k on the joint block
+    joint_diag = dt * (damping + dt * model.stiffness)
 
     def minv_of(fd):
         """Explicit inverse inertia for a configuration — the factor that
         ``config.reuse_factor`` holds fixed across a frame's substeps."""
         M = mass_matrix(model, fd)
-        jd = _joint_diag(model, config)
-        if model.floating:
-            jd = torch.cat([jd.new_zeros(6), jd])
+        jd = torch.cat([joint_diag.new_zeros(6), joint_diag]) if model.floating else joint_diag
         return linalg.chol_inverse(linalg.chol_factor(M + torch.diag(jd)))
 
     def substep(q, qd, tau_joint, scene: Scene, Minv_in=None, lam_in=None):
@@ -93,12 +98,12 @@ def make_substep(model: RobotModel, config: EngineConfig):
 
         qj = joint_q(model, q)
         qdj = joint_qd(model, qd)
-        tau_j = tau_joint - model.damping * qdj - model.stiffness * (qj - model.spring_ref)
+        tau_j = tau_joint - damping * qdj - model.stiffness * (qj - model.spring_ref)
         tau = torch.cat([q.new_zeros(B, 6), tau_j], dim=1) if model.floating else tau_j
 
         if Minv_in is None:
             qdd_free, Minv = forward_dynamics(
-                model, fd, qd, tau, config.gravity, joint_diag=_joint_diag(model, config)
+                model, fd, qd, tau, config.gravity, joint_diag=joint_diag
             )
         else:
             Minv = Minv_in
@@ -167,19 +172,30 @@ def make_substep(model: RobotModel, config: EngineConfig):
     return substep
 
 
-def make_plain_llc(model: RobotModel, config: EngineConfig, substep=None):
-    """One llc frame on the plain path: ``sim_substeps`` substeps at fixed
-    torques, λ carried across substeps (zeros at the frame start) and the
-    frame-start factor held when ``reuse_factor`` is on."""
-    substep = substep or make_substep(model, config)
+def make_plain_llc(model: RobotModel, config: EngineConfig, substep=None,
+                   pd_mode: bool = False):
+    """One launch unit on the plain path, ``(q, qd, tau_or_targets, scene) →
+    (q', qd', StepInfo)``.
 
-    def plain_unit(q, qd, tau_j, scene: Scene):
+    Torque mode: one llc frame of ``sim_substeps`` substeps at fixed torques.
+    PD mode: the whole control step, ``llc_frames`` frames whose torque
+    ``actuated·kp·(target − q)`` is taken from the state at each frame's
+    start. λ is carried across the unit's substeps (zeros at its start) and
+    each frame's starting factor is held when ``reuse_factor`` is on. The
+    scene is taken as given: the caller culls."""
+    substep = substep or make_substep(model, config)
+    frames = config.llc_frames if pd_mode else 1
+    pd_gain = model.actuated * model.kp
+
+    def plain_unit(q, qd, tau_or_targets, scene: Scene):
         reuse = config.reuse_factor and config.sim_substeps > 1
-        Minv0 = substep.minv_of(forward_kinematics(model, q, qd)) if reuse else None
         lam = q.new_zeros(q.shape[0], substep.num_rows) if config.warm_start else None
-        for _ in range(config.sim_substeps):
-            q, qd, info, lam_out = substep(q, qd, tau_j, scene, Minv_in=Minv0, lam_in=lam)
-            lam = lam_out if config.warm_start else None
+        for _ in range(frames):
+            tau_j = pd_gain * (tau_or_targets - joint_q(model, q)) if pd_mode else tau_or_targets
+            Minv0 = substep.minv_of(forward_kinematics(model, q, qd)) if reuse else None
+            for _ in range(config.sim_substeps):
+                q, qd, info, lam_out = substep(q, qd, tau_j, scene, Minv_in=Minv0, lam_in=lam)
+                lam = lam_out if config.warm_start else None
         return q, qd, info
 
     return plain_unit
@@ -204,33 +220,56 @@ def info_from_kernel(model: RobotModel, config: EngineConfig,
     )
 
 
-def _make_llc_unit(model: RobotModel, config: EngineConfig, substep):
-    """One llc frame. CPU tensors take the plain path; any other device
-    launches the K1a kernel, which raises where it cannot run."""
-    plain_unit = make_plain_llc(model, config, substep)
-    kernel = None
+def _make_llc_unit(model: RobotModel, config: EngineConfig, substep,
+                   extra_damping=None, pd_mode: bool = False):
+    """One launch unit (see :func:`make_plain_llc`). Stones are culled to the
+    window first, on both paths. CPU tensors then take the plain path; any
+    other device launches the engine kernel of the scene's and the
+    actuation's variant, which raises where it cannot run."""
+    plain_unit = make_plain_llc(model, config, substep, pd_mode)
+    kernels: dict = {}
 
-    def llc_unit(q, qd, tau_j, scene: Scene):
-        nonlocal kernel
+    def llc_unit(q, qd, tau_or_targets, scene: Scene):
+        scene = cull_stones(scene, q[:, 0:2], config.stone_window)
         if q.device.type == "cpu":
-            return plain_unit(q, qd, tau_j, scene)
-        if kernel is None:
-            from mocca_envs_tpu_torch.ops.cuda import engine as cuda_engine
+            return plain_unit(q, qd, tau_or_targets, scene)
+        from mocca_envs_tpu_torch.ops.cuda import engine as cuda_engine
 
-            kernel = cuda_engine.K1a(model, config, plain_unit)
-        qq, dd, depth, nimp = kernel.launch(q, qd, tau_j, scene.ground_z, scene.friction)
+        num_stones = scene.stone_pos.shape[1] if scene.has_stones else 0
+        if num_stones not in kernels:
+            kernels[num_stones] = cuda_engine.make_kernel(
+                model, config, num_stones=num_stones, pd_mode=pd_mode,
+                extra_damping=extra_damping, plain_unit=plain_unit)
+        stones = (cuda_engine.pack_stones(scene),) if num_stones else ()
+        qq, dd, depth, nimp = kernels[num_stones].launch(
+            q, qd, tau_or_targets, scene.ground_z, scene.friction, *stones)
         return qq, dd, info_from_kernel(model, config, depth, nimp)
 
     return llc_unit
 
 
 def make_control_step(model: RobotModel, config: EngineConfig,
-                      actuation: Callable | None = None):
-    """Control-rate step ``(q, qd, action, scene) → (q', qd', StepInfo)``;
-    ``actuation(q, qd, action) → tau_joint`` runs once per llc frame."""
+                      actuation: Callable | None = None,
+                      extra_damping: torch.Tensor | None = None,
+                      pd_targets: Callable | None = None):
+    """Control-rate step ``(q, qd, action, scene) → (q', qd', StepInfo)``.
+
+    Torque families: ``actuation(q, qd, action) → tau_joint`` runs once per
+    llc frame. PD families give ``pd_targets(action) → joint targets``; the
+    whole control step is then one unit, with the derivative gain riding
+    ``extra_damping``."""
+    substep = make_substep(model, config, extra_damping=extra_damping)
+    if pd_targets is not None:
+        pd_unit = _make_llc_unit(model, config, substep, extra_damping, pd_mode=True)
+
+        def pd_control_step(q, qd, action, scene: Scene):
+            return pd_unit(q, qd, pd_targets(action), scene)
+
+        return pd_control_step
+
     if actuation is None:
         actuation = lambda q, qd, a: a  # noqa: E731 - raw joint torques
-    llc_unit = _make_llc_unit(model, config, make_substep(model, config))
+    llc_unit = _make_llc_unit(model, config, substep, extra_damping)
 
     def control_step(q, qd, action, scene: Scene):
         info = None
@@ -239,4 +278,3 @@ def make_control_step(model: RobotModel, config: EngineConfig,
         return q, qd, info
 
     return control_step
-

@@ -1,15 +1,18 @@
 """Walker3DCustomEnv — walk to a target on flat ground, batch-first.
 
-Counterpart of ``mocca_envs_tpu/tasks/walker_custom.py`` in its torque branch
-(``pd_control=False``), with ``reset_obs="zero"`` and the flat scene.
+Counterpart of ``mocca_envs_tpu/tasks/walker_custom.py`` with torque or PD
+actuation (``pd_control``), ``reset_obs="zero"`` and the flat scene; it also
+carries the scaled-model variants (``Child3DCustomEnv``).
 
 Episode flow:
 - reset: base at (0, 0, initial_z + 0.02), uniform joint-angle noise clipped
   to the limits, target on an annulus ahead of the start;
-- step: torques τ = power · power_coef · clip(a) → one control step of
-  physics → obs [body(8), scaled joints, 0.1·q̇, foot flags] → reward
-  (potential progress + alive bonus − electricity/stall/limit costs + target
-  bonus) → termination on a fall or the step cap; a reached target is
+- step: torques τ = power · power_coef · clip(a), or with ``pd_control``
+  joint targets mid + amp · clip(a) served by τ = kp · (target − q) with the
+  derivative gain kp / 20 handled implicitly → one control step of physics
+  → obs [body(8), scaled joints, 0.1·q̇, foot flags] → reward (potential
+  progress + alive bonus − electricity/stall/limit costs + target bonus)
+  → termination on a fall or the step cap; a reached target is
   resampled ahead of the walker.
 """
 
@@ -74,21 +77,54 @@ def make_walker3d_custom(
     device=None,
     name: str = "Walker3DCustomEnv",
     initial_z: float | None = None,
+    terminal_link_names: tuple | None = None,
+    pd_control: bool = False,
 ) -> FnEnv:
-    """Build the walk-to-target family on ``device`` (None = the CUDA card)."""
+    """Build the walk-to-target family on ``device`` (None = the CUDA card).
+    ``terminal_link_names`` overrides the links whose ground contact ends
+    the episode; ``pd_control`` makes actions joint-angle targets."""
     device = resolve_device(device)
     model = (model or walker3d.make_model()).to(device)
     config = config or EngineConfig()
     params = params or WalkerParams.default()
     initial_z = walker3d.INITIAL_Z if initial_z is None else initial_z
-    terminal_links = list(walker3d.terminal_links(model))
+    if terminal_link_names is None:
+        terminal_links = list(walker3d.terminal_links(model))
+    else:
+        terminal_links = [model.link_names.index(n) for n in terminal_link_names]
+    # an index tensor on the device: indexing with a list would copy it
+    # over, and wait for the device, every step
+    terminal_links = torch.as_tensor(terminal_links, dtype=torch.long, device=device)
     nfeet = len(model.foot_links)
-    gain = params.power * model.power_coef * model.actuated
 
-    def actuation(q, qd, a):
-        return gain * torch.clamp(a, -1.0, 1.0)
+    if pd_control:
+        # gains scale with the torque variant's power_coef so that both
+        # variants saturate comparably
+        mid = 0.5 * (model.limit_lo + model.limit_hi)
+        amp = 0.5 * (model.limit_hi - model.limit_lo)
+        kp = model.power_coef * (model.actuated > 0).to(model.power_coef.dtype)
+        model = model.replace(kp=kp)
 
-    control = make_control_step(model, config, actuation=actuation)
+        def pd_targets(a):
+            return mid + amp * torch.clamp(a, -1.0, 1.0)
+
+        control = make_control_step(model, config, pd_targets=pd_targets,
+                                    extra_damping=kp / 20.0)
+
+        def cost_action(q_new, a):
+            # the energy costs price the PD torque, not the target: one
+            # radian of tracking error saturates the normalised torque
+            return torch.clamp(pd_targets(a) - q_new[:, 7:], -1.0, 1.0)
+    else:
+        gain = params.power * model.power_coef * model.actuated
+
+        def actuation(q, qd, a):
+            return gain * torch.clamp(a, -1.0, 1.0)
+
+        control = make_control_step(model, config, actuation=actuation)
+
+        def cost_action(q_new, a):
+            return a
 
     def sample_target(gen, base_xy, yaw):
         B = base_xy.shape[0]
@@ -154,7 +190,8 @@ def make_walker3d_custom(
             fallen, torch.full_like(dist, -params.fall_penalty),
             torch.full_like(dist, params.tall_bonus),
         )
-        costs = T.energy_costs(model, action, qd, params.w_electricity, params.w_stall) \
+        costs = T.energy_costs(model, cost_action(q, action), qd, params.w_electricity,
+                               params.w_stall) \
             + T.joints_at_limit_cost(model, q, params.w_limit)
         reward = progress + alive - costs + params.target_bonus * reached.to(q.dtype)
 

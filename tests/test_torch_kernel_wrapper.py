@@ -8,8 +8,12 @@
   tensors and configurations it has no instantiation for;
 - the bound's operation count follows the rows these inputs make active;
 - the kernel source's per-env arithmetic, compiled for the host, agrees
-  with the plain version;
-- on a card: the kernel agrees with its plain version (skips elsewhere).
+  with the plain version, for every instantiation (K1a, K1c over stones,
+  K1b in PD mode at one and two llc frames);
+- on a card: each kernel agrees with its plain version (skips elsewhere).
+
+The kernel cases take their inputs from chip_smoke.py's state generators, at
+a small batch: the CPU run rehearses the comparison the card makes.
 """
 
 import ast
@@ -23,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import mocca_envs_tpu_torch
 from mocca_envs_tpu_torch.models import walker3d
 from mocca_envs_tpu_torch.ops.cuda import engine
@@ -34,15 +39,28 @@ TOL = {"q": 2e-4, "qd": 5e-3, "depth": 2e-4, "nimp": 5e-3}
 
 
 def _near_contact(B, seed):
+    return chip_smoke.near_contact_states(walker3d.make_model(), np.random.default_rng(seed), B)
+
+
+def _kernel_case(case, B, seed, device="cpu"):
+    """(kernel wrapper, numpy inputs) of one instantiation, on chip_smoke's
+    states: k1a, k1c (stepper states, 6 culled stones), k1b / k1b_llc2 (PD
+    targets, the walker's PD gains and implicit derivative gain)."""
+    model = walker3d.make_model(device)
     rng = np.random.default_rng(seed)
-    q = np.zeros((B, 28), np.float32)
-    q[:, 2] = 0.9 + 0.05 * rng.standard_normal(B)
-    q[:, 3:7] = np.array([1.0, 0.0, 0.0, 0.0]) + 0.03 * rng.standard_normal((B, 4))
-    q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
-    q[:, 7:] = 0.1 * rng.standard_normal((B, 21))
-    qd = (0.3 * rng.standard_normal((B, 27))).astype(np.float32)
-    tau = (rng.uniform(-1, 1, (B, 21)) * walker3d.model_fields()["power_coef"]).astype(np.float32)
-    return q, qd, tau, np.zeros(B, np.float32), np.full(B, 0.8, np.float32)
+    if case == "k1a":
+        return engine.K1a(model, EngineConfig()), chip_smoke.near_contact_states(model, rng, B)
+    if case == "k1c":
+        config = EngineConfig()
+        return (engine.K1c(model, config),
+                chip_smoke.stepper_states(model, rng, config.stone_window, B))
+    kp = model.power_coef * (model.actuated > 0).float()
+    config = EngineConfig(llc_frames=2 if case == "k1b_llc2" else 1)
+    return (engine.K1b(model.replace(kp=kp), config, extra_damping=kp / 20.0),
+            chip_smoke.pd_target_states(model, rng, B))
+
+
+KERNEL_CASES = ["k1a", "k1c", "k1b", "k1b_llc2"]
 
 
 def _gate_medians(got, want):
@@ -61,10 +79,12 @@ import torch
 import mocca_envs_tpu_torch as P
 from mocca_envs_tpu_torch import convert  # noqa: F401
 from mocca_envs_tpu_torch.ops.cuda import engine  # noqa: F401
-env = P.make("Walker3DCustomEnv-v0", device="cpu")
-batch = P.BatchedEnv(env, 2, seed=0, device="cpu")
-tr = batch.step(batch.init(), torch.zeros(2, env.act_dim))
-assert tr.obs.shape == (2, env.obs_dim) and bool(torch.isfinite(tr.obs).all())
+for name in P.registered_envs():
+    env = P.make(name + "-v0", device="cpu")
+    batch = P.BatchedEnv(env, 2, seed=0, device="cpu")
+    tr = batch.step(batch.init(), torch.zeros(2, env.act_dim))
+    assert tr.obs.shape == (2, env.obs_dim) and bool(torch.isfinite(tr.obs).all()), name
+assert len(P.registered_envs()) == 5
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "mocca_envs_tpu")]
 assert not loaded, loaded
@@ -90,35 +110,46 @@ def test_sources_import_no_jax():
                 assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
 
 
-def test_no_device_means_cuda():
-    cpu_env = mocca_envs_tpu_torch.make("Walker3DCustomEnv-v0", device="cpu")
+FAMILIES = ["Walker3DCustomEnv-v0", "Walker3DStepperEnv-v0", "Walker3DPDCustomEnv-v0",
+            "Child3DCustomEnv-v0", "Child3DPDCustomEnv-v0"]
+
+
+@pytest.mark.parametrize("env_id", FAMILIES)
+def test_no_device_means_cuda(env_id):
+    cpu_env = mocca_envs_tpu_torch.make(env_id, device="cpu")
     if torch.cuda.is_available():
-        assert mocca_envs_tpu_torch.make("Walker3DCustomEnv-v0").device.type == "cuda"
+        assert mocca_envs_tpu_torch.make(env_id).device.type == "cuda"
         with pytest.raises(ValueError):
             mocca_envs_tpu_torch.BatchedEnv(cpu_env, 2)
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        mocca_envs_tpu_torch.make("Walker3DCustomEnv-v0")
+        mocca_envs_tpu_torch.make(env_id)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mocca_envs_tpu_torch.BatchedEnv(cpu_env, 2)
 
 
-def test_cpu_path_never_launches_the_kernel():
-    env = mocca_envs_tpu_torch.make("Walker3DCustomEnv-v0", device="cpu")
+@pytest.mark.parametrize("env_id", FAMILIES)
+def test_cpu_path_never_launches_the_kernel(env_id):
+    env = mocca_envs_tpu_torch.make(env_id, device="cpu")
     batch = mocca_envs_tpu_torch.BatchedEnv(env, 3, seed=1, device="cpu")
     engine.LAUNCHES.clear()
     state = batch.init()
     for _ in range(3):
         state = batch.step(state, torch.rand(3, env.act_dim) * 2 - 1).state
-    assert engine.LAUNCHES["k1a"] == 0
-    # the kernel's launch refuses CPU tensors (no silent CPU path); the
-    # plain version runs on them, uncounted
-    k1a = engine.K1a(walker3d.make_model(), EngineConfig())
-    args = [torch.as_tensor(x) for x in _near_contact(4, 0)]
+    assert sum(engine.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES)
+def test_launch_refuses_cpu_tensors(case):
+    """No silent CPU path: the kernel's launch refuses CPU tensors; the
+    plain version runs on them, uncounted."""
+    kernel, arrays = _kernel_case(case, 4, 0)
+    args = [torch.as_tensor(x) for x in arrays]
+    engine.LAUNCHES.clear()
     with pytest.raises(ValueError, match="CUDA"):
-        k1a.launch(*args)
-    assert all(bool(torch.isfinite(x).all()) for x in k1a.plain(*args))
-    assert engine.LAUNCHES["k1a"] == 0
+        kernel.launch(*args)
+    assert all(bool(torch.isfinite(x).all()) for x in kernel.plain(*args))
+    assert sum(engine.LAUNCHES.values()) == 0
 
 
 @pytest.mark.parametrize("change", [
@@ -131,6 +162,18 @@ def test_k1a_refuses_what_it_has_no_instantiation_for(change):
         engine.K1a(walker3d.make_model(), EngineConfig(**change))
 
 
+@pytest.mark.parametrize("build", [
+    lambda m: engine.K1c(m, EngineConfig(stone_window=8)),
+    lambda m: engine.K1c(m, EngineConfig(), num_stones=20),
+    lambda m: engine.K1b(m, EngineConfig(llc_frames=3)),
+    lambda m: engine.make_kernel(m, EngineConfig(), num_stones=6, pd_mode=True),
+    lambda m: engine.make_kernel(m, EngineConfig(), extra_damping=m.kp),
+], ids=["window8", "unculled20", "llc3", "pd_over_stones", "damped_torque"])
+def test_k1_variants_refuse_what_they_have_no_instantiation_for(build):
+    with pytest.raises(NotImplementedError):
+        build(walker3d.make_model())
+
+
 def test_k1a_refuses_other_model_sizes():
     from mocca_envs_tpu_torch.models.schema import ModelBuilder
 
@@ -139,75 +182,154 @@ def test_k1a_refuses_other_model_sizes():
     b.add_link("leg", "base", joint_pos=(0, 0, -0.1), joint_axis=(0, 1, 0), mass=1.0,
                com=(0, 0, -0.25), inertia_diag=(0.02, 0.02, 0.002), limit=(-1.5, 1.5))
     b.add_sphere("leg", (0, 0, -0.5), 0.05, foot="foot")
-    with pytest.raises(NotImplementedError, match="no K1a instantiation"):
+    with pytest.raises(NotImplementedError, match="no K1 instantiation"):
         engine.K1a(b.build(), EngineConfig())
 
 
 def test_k1a_flops_counts_only_the_active_rows():
     model, config = walker3d.make_model(), EngineConfig()
+    k1a = engine.K1a(model, config)
     args = [torch.as_tensor(x) for x in _near_contact(16, 3)]
-    lim_act, con_act = engine.k1a_activity(model, config, *args)
+    lim_act, con_act = engine.k1_activity(k1a, *args)
     S = config.sim_substeps
     assert lim_act.shape == (S, 16, 21) and con_act.shape == (S, 16, 14)
     # the last substep's contact mask is the one the plain frame reports
-    depth = engine.K1a(model, config).plain(*args)[2]
+    depth = k1a.plain(*args)[2]
     assert torch.equal(con_act[-1], depth > -config.contact_margin)
     assert 0 < int(con_act.sum()) < con_act.numel()
-    none = engine.k1a_flops(model, config, torch.zeros_like(lim_act), torch.zeros_like(con_act))
-    need = engine.k1a_flops(model, config, lim_act, con_act)
-    full = engine.k1a_flops(model, config, torch.ones_like(lim_act), torch.ones_like(con_act))
+    none = engine.k1_flops(k1a, torch.zeros_like(lim_act), torch.zeros_like(con_act))
+    need = engine.k1_flops(k1a, lim_act, con_act)
+    full = engine.k1_flops(k1a, torch.ones_like(lim_act), torch.ones_like(con_act))
     assert none < need < full
     # one more active contact in one substep adds that contact's work only
     extra = con_act.clone()
     s, b, k = (~extra).nonzero()[0].tolist()
     extra[s, b, k] = True
-    grown = engine.k1a_flops(model, config, lim_act, extra)
+    grown = engine.k1_flops(k1a, lim_act, extra)
     assert 0 < grown - need < (full - none) / (S * 16)
 
 
-def test_k1a_source_arithmetic_on_host(tmp_path):
-    """The kernel's per-env code (csrc/engine_k1a.cu) built by the host C++
-    compiler, run as a loop over envs, against the plain version."""
+def test_variant_counts_add_their_own_work():
+    """K1c counts a box test per (sphere, active stone) and substep, the
+    general-normal projection per active contact and 6·11·4 more input
+    bytes; K1b counts the PD torque per llc frame and two factorisations at
+    two llc frames."""
+    B = 8
+    k1a, a_in = _kernel_case("k1a", B, 2)
+    k1c, c_in = _kernel_case("k1c", B, 2)
+    c_args = [torch.as_tensor(x) for x in c_in]
+    lim_act, con_act = engine.k1_activity(k1c, *c_args)
+    stones = c_args[5]
+    assert engine.k1_bytes_per_env(k1c) == engine.k1_bytes_per_env(k1a) + 6 * 11 * 4
+    with_stones = engine.k1_flops(k1c, lim_act, con_act, stones)
+    plane_only = engine.k1_flops(k1a, lim_act, con_act)
+    S, ns, nv = 4, 14, 27
+    active = float((engine.unpack_stones(stones)["stone_active"] > 0.5).sum())
+    want = S * ns * (55 * active + 64 * B) + float(con_act.sum()) * (15 + 15 * nv)
+    assert with_stones - plane_only == pytest.approx(want)
+    # an inactive stone is not tested
+    fewer = stones.clone()
+    fewer[10] = 0.0                                  # stone 0's active flag
+    assert engine.k1_flops(k1c, lim_act, con_act, fewer) == pytest.approx(
+        with_stones - S * ns * 55 * B)
+    # stones round-trip through the packed layout
+    scene = engine.make_scene(c_args[3], c_args[4], stones)
+    assert scene.stone_pos.shape == (B, 6, 3)
+    torch.testing.assert_close(engine.pack_stones(scene), stones, atol=0, rtol=0)
+
+    k1b, b_in = _kernel_case("k1b", B, 2)
+    k1b2, _ = _kernel_case("k1b_llc2", B, 2)
+    b_args = [torch.as_tensor(x) for x in b_in]
+    l1, c1 = engine.k1_activity(k1b, *b_args)
+    l2, c2 = engine.k1_activity(k1b2, *b_args)
+    assert l1.shape[0] == 4 and l2.shape[0] == 8
+    assert torch.equal(l2[:4], l1) and torch.equal(c2[:4], c1)
+    zeros = lambda x: torch.zeros_like(x)  # noqa: E731
+    assert engine.k1_flops(k1b, zeros(l1), zeros(c1)) \
+        == engine.k1_flops(k1a, zeros(l1), zeros(c1)) + B * 21 * 3
+    assert engine.k1_flops(k1b2, zeros(l2), zeros(c2)) \
+        == 2 * engine.k1_flops(k1b, zeros(l1), zeros(c1))
+
+
+@pytest.fixture(scope="module")
+def host_library(tmp_path_factory):
+    """The kernel source (csrc/engine_k1.cu) built by the host C++ compiler:
+    every instantiation's per-env code as a loop over envs."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel source's host check")
-    lib_path = tmp_path / "k1a_host.so"
-    subprocess.run([cxx, "-O2", "-std=c++17", "-x", "c++", "-DK1A_HOST_CHECK", "-shared",
-                    "-fPIC", "-o", str(lib_path), str(engine.SOURCE)], check=True, timeout=120)
-    lib = ctypes.CDLL(str(lib_path))
-    k1a = engine.K1a(walker3d.make_model(), EngineConfig())
-    table_size, ws_per_env = engine.layout(lib, k1a.name)
-    assert table_size == k1a.table_host.size
-    B = 32
-    inputs = [np.ascontiguousarray(x) for x in _near_contact(B, 5)]
+    lib_path = tmp_path_factory.mktemp("k1_host") / "k1_host.so"
+    subprocess.run([cxx, "-O2", "-std=c++17", "-x", "c++", "-DK1_HOST_CHECK", "-shared",
+                    "-fPIC", "-o", str(lib_path), str(engine.SOURCE)], check=True, timeout=300)
+    return ctypes.CDLL(str(lib_path))
+
+
+def _run_on_host(lib, kernel, inputs):
+    B = inputs[0].shape[0]
+    table_size, ws_per_env = engine.layout(lib, kernel.name)
+    assert table_size == kernel.table_host.size
     outs = [np.zeros((B, 28), np.float32), np.zeros((B, 27), np.float32),
             np.zeros((B, 14), np.float32), np.zeros((B, 14), np.float32)]
     ws = np.zeros(ws_per_env * B, np.float32)
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
-    fn = getattr(lib, k1a.name + "_host")
+    fn = getattr(lib, kernel.name + "_host")
     fn.restype = ctypes.c_int
-    err = fn(*map(ptr, inputs), *map(ptr, outs), ptr(k1a.table_host),
+    stones = ptr(inputs[5]) if kernel.num_stones else None
+    err = fn(*map(ptr, inputs[:5]), stones, *map(ptr, outs), ptr(kernel.table_host),
              ctypes.c_int(table_size), ptr(ws), ctypes.c_int(B))
     assert err == 0
+    return outs
+
+
+def test_k1a_source_arithmetic_on_host(host_library):
+    """The kernel's per-env code built by the host C++ compiler, run as a
+    loop over envs, against the plain version."""
+    k1a = engine.K1a(walker3d.make_model(), EngineConfig())
+    inputs = [np.ascontiguousarray(x) for x in _near_contact(32, 5)]
+    outs = _run_on_host(host_library, k1a, inputs)
     want = [t.numpy() for t in k1a.plain(*map(torch.as_tensor, inputs))]
     _gate_medians(outs, want)
     assert (want[3] > 0).mean() > 0.1   # contacts carry load
 
 
+@pytest.mark.parametrize("case", KERNEL_CASES[1:])
+def test_k1_variant_source_arithmetic_on_host(host_library, case):
+    """K1c (stone boxes, general normals), K1b (PD torque, extra damping)
+    and K1b at two llc frames (λ carried across them) against their plain
+    versions, at the same gates."""
+    kernel, arrays = _kernel_case(case, 32, 5)
+    inputs = [np.ascontiguousarray(x) for x in arrays]
+    outs = _run_on_host(host_library, kernel, inputs)
+    want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
+    _gate_medians(outs, want)
+    assert (want[3] > 0).mean() > 0.02   # contacts carry load
+    if case == "k1c":
+        # some spheres rest on stones: their depth is far above the plane's
+        plane_depth = 0.2 - (inputs[0][:, 2] + 20.0)
+        assert (want[2] > plane_depth[:, None] + 5.0).mean() > 0.3
+        assert (want[2].max(axis=1) < -1.0).any()    # ... and some envs are over the gap
+    if case == "k1b_llc2":
+        # the second frame's torque follows the state: one frame twice
+        # from the same targets is another trajectory than two frames
+        one, _ = _kernel_case("k1b", 32, 5)
+        half = one.plain(*map(torch.as_tensor, inputs))
+        assert not np.allclose(half[0].numpy(), want[0], atol=1e-4)
+
+
 @pytest.mark.cuda
-def test_k1a_kernel_matches_plain_on_cuda():
+@pytest.mark.parametrize("case", KERNEL_CASES)
+def test_k1a_kernel_matches_plain_on_cuda(case):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K1a kernel has no CPU mode")
-    model = walker3d.make_model("cuda")
-    k1a = engine.K1a(model, EngineConfig())
-    args = [torch.as_tensor(x, device="cuda") for x in _near_contact(1024, 7)]
-    before = engine.LAUNCHES["k1a"]
-    got = k1a.launch(*args)
+        pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
+    kernel, arrays = _kernel_case(case, 1024, 7, device="cuda")
+    args = [torch.as_tensor(x, device="cuda") for x in arrays]
+    before = engine.LAUNCHES[kernel.variant]
+    got = kernel.launch(*args)
     torch.cuda.synchronize()
-    assert engine.LAUNCHES["k1a"] == before + 1
-    want = k1a.plain(*args)
+    assert engine.LAUNCHES[kernel.variant] == before + 1
+    want = kernel.plain(*args)
     _gate_medians([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want])
     with pytest.raises(ValueError, match="contiguous"):
-        k1a.launch(args[0].t().contiguous().t(), *args[1:])
+        kernel.launch(args[0].t().contiguous().t(), *args[1:])
     with pytest.raises(ValueError, match="CUDA"):
-        k1a.launch(args[0], args[1].cpu(), *args[2:])
+        kernel.launch(args[0], args[1].cpu(), *args[2:])
