@@ -13,24 +13,37 @@ Phases, in order; any failure exits non-zero before the result lines:
    states near contact, K1c on stepper states (stones at stages 0–9, feet
    in or near contact with tilted stone tops, some envs over a gap), K1b on
    the K1a states with random joint targets, and the K1b instance for two
-   llc frames (no registered family runs it yet) on the same states.
-   Per-env median and p99 of
-   |Δq|, |Δqd|, |Δdepth|, |Δimpulse|; the medians must stay within q 2e-4,
-   qd 5e-3, depth 2e-4, impulse 5e-3, and the largest single-env error
-   within ten times those;
+   llc frames (no registered family runs it yet) on the same states; K1e on
+   Cassie and Cassie2D states near the stand pose (feet in or near contact,
+   rods slightly open, the planar variant a little out of its plane) and on
+   Walker2D states. Per-env median and p99 of |Δq|, |Δqd|, |Δdepth|,
+   |Δimpulse|; the medians must stay within q 2e-4, qd 5e-3, depth 2e-4,
+   impulse 5e-3 (K1e: q 5e-4, qd 2e-2, depth 5e-4, impulse 5e-3, the
+   tolerances the JAX package holds its own kernel to over equality rows),
+   and the largest single-env error within ten times those. For the two
+   Cassie instances the ten-times gate holds the 99th percentile instead of
+   the largest env, and the envs beyond it are counted and printed: over
+   the 20 stiff substeps of one call (a 0.15 kg toe under k_d = 5, springs
+   of 1500 N·m/rad) two roundings of one iteration part by more than any
+   pointwise tolerance in a few envs of a thousand, the plain path against
+   the JAX oracle on the CPU as well (tests/test_torch_cassie_step.py);
 3. the main paths through ``BatchedEnv(make(id), 4096).step`` with uniform
    random actions, the launch counts set to 0 just before each and read
    just after: ``Walker3DCustomEnv-v0`` for 600 control steps (K1a),
    ``Walker3DStepperEnv-v0`` for 600 (K1c), ``Walker3DPDCustomEnv-v0`` for
-   200 (K1b), ``Child3DCustomEnv-v0`` for 100 (K1a). The path's kernel must
-   launch exactly once per step and no other kernel at all, the state stay
-   finite and auto-reset fire;
+   200 (K1b), ``Child3DCustomEnv-v0`` for 100 (K1a), ``CassieEnv-v0`` for
+   300, ``Cassie2DEnv-v0`` for 100, ``Walker2DCustomEnv-v0`` for 200 and
+   ``Crab2DCustomEnv-v0`` for 100 (K1e). The path's kernel must launch
+   exactly once per step and no other kernel at all, the state stay finite
+   and auto-reset fire; resets forced by a non-finite state are counted and
+   printed; of the 2D families the median env must end in its plane (|y|
+   < 0.02 m, the lock's roll and yaw measures < 0.05), the worst is printed;
 4. per-call times of each kernel and its plain version (CUDA events), the
    bound from the operations and bytes these inputs need, and the time of
    the stepper's cull of 20 stones to the window plus their packing (env
    layer, once per control step, outside the kernel's time), and the
    stepper's step split into the step proper and the fresh episodes of
-   auto-reset;
+   auto-reset; Cassie's step time outside its kernel;
 5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.
@@ -38,6 +51,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -48,8 +62,10 @@ import torch
 
 B = 4096
 SEED = 0
-# per-env median tolerances of tests/test_pallas_engine.py (kernel vs oracle)
+# per-env median tolerances of tests/test_pallas_engine.py (kernel vs
+# oracle), and those of its equality-row case
 TOL = {"q": 2e-4, "qd": 5e-3, "depth": 2e-4, "nimp": 5e-3}
+TOL_EQ = {"q": 5e-4, "qd": 2e-2, "depth": 5e-4, "nimp": 5e-3}
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
@@ -113,9 +129,58 @@ def stepper_states(model, rng, window: int, batch=B):
     return q, qd, tau, culled.ground_z.numpy(), fric, pack_stones(culled).numpy()
 
 
-def compare(kernel, args, label: str | None = None) -> float:
+def cassie_states(model, stand, initial_z: float, rng, planar: bool, batch=B):
+    """Cassie states near the stand pose: the pelvis 3 mm under its standing
+    height, give or take 3 mm, so that the feet are in or near contact; a
+    small tilt; ±5 mrad of joint noise, which leaves the achilles rods a few
+    millimetres open; for the planar variant a small drift out of the plane
+    (y, roll, yaw). The ``tau`` slot holds PD targets: the stand pose plus
+    uniform ±0.05 rad on the motors. Numpy ``(q, qd, targets, ground_z,
+    friction)``."""
+    q = np.zeros((batch, model.nq), np.float32)
+    q[:, 2] = initial_z - 0.003 + 0.003 * rng.standard_normal(batch)
+    tilt = 0.005 * rng.standard_normal((batch, 4))
+    if planar:
+        q[:, 1] = 2e-3 * rng.standard_normal(batch)
+        tilt[:, [1, 3]] *= 0.1
+    q[:, 3:7] = np.array([1.0, 0.0, 0.0, 0.0]) + tilt
+    q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
+    q[:, 7:] = stand + rng.uniform(-0.005, 0.005, (batch, model.nj))
+    qd = (0.05 * rng.standard_normal((batch, model.nv))).astype(np.float32)
+    if planar:
+        qd[:, [1, 3, 5]] *= 0.05
+    motors = model.actuated.cpu().numpy()
+    targets = (stand + motors * rng.uniform(-0.05, 0.05, (batch, model.nj))).astype(np.float32)
+    return q, qd, targets, np.zeros(batch, np.float32), np.full(batch, 0.8, np.float32)
+
+
+def planar_walker_states(model, stand_z: float, rng, batch=B):
+    """Walker2D / Crab2D states with the feet in or near contact: the base
+    around ``stand_z``, pitched a little, joints near zero inside their
+    limits, a small drift out of the plane, uniform random torques. Numpy
+    ``(q, qd, tau, ground_z, friction)``."""
+    q = np.zeros((batch, model.nq), np.float32)
+    q[:, 1] = 2e-3 * rng.standard_normal(batch)
+    q[:, 2] = stand_z + 0.03 * rng.standard_normal(batch)
+    tilt = 0.03 * rng.standard_normal((batch, 4))
+    tilt[:, [1, 3]] *= 0.1
+    q[:, 3:7] = np.array([1.0, 0.0, 0.0, 0.0]) + tilt
+    q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
+    lo, hi = model.limit_lo.cpu().numpy(), model.limit_hi.cpu().numpy()
+    q[:, 7:] = np.clip(0.1 * rng.standard_normal((batch, model.nj)), lo, hi)
+    qd = (0.3 * rng.standard_normal((batch, model.nv))).astype(np.float32)
+    qd[:, [1, 3, 5]] *= 0.05
+    gain = model.power_coef.cpu().numpy()
+    tau = (rng.uniform(-1.0, 1.0, (batch, model.nj)) * gain).astype(np.float32)
+    return q, qd, tau, np.zeros(batch, np.float32), np.full(batch, 0.8, np.float32)
+
+
+def compare(kernel, args, label: str | None = None, tol=TOL, tail: str = "max") -> float:
     """Launch ``kernel`` once on ``args`` and hold it against its plain
-    version; returns the largest absolute error over all outputs."""
+    version: per-env medians within ``tol``, and ten times ``tol`` for the
+    largest env (``tail="max"``) or the 99th percentile (``tail="p99"``, with
+    the envs beyond counted). Returns the largest absolute error over all
+    outputs."""
     label = label or kernel.variant
     out = kernel.launch(*args)
     torch.cuda.synchronize()
@@ -127,11 +192,13 @@ def compare(kernel, args, label: str | None = None) -> float:
         per_env = (a - b).abs().amax(dim=1).cpu().numpy()
         med, p99 = float(np.median(per_env)), float(np.quantile(per_env, 0.99))
         max_abs = max(max_abs, float(per_env.max()))
+        beyond = int((per_env > 10 * tol[name]).sum())
         print(f"[compare] {label} {name}: per-env median {med:.3e} p99 {p99:.3e} "
-              f"max {per_env.max():.3e} (median tol {TOL[name]:g}, max tol {10 * TOL[name]:g})")
-        check(med <= TOL[name], f"{label} {name} median {med:.3e} > {TOL[name]:g}")
-        check(per_env.max() <= 10 * TOL[name],
-              f"{label} {name} max {per_env.max():.3e} > {10 * TOL[name]:g}")
+              f"max {per_env.max():.3e} (median tol {tol[name]:g}, {tail} tol "
+              f"{10 * tol[name]:g}, {beyond} of {len(per_env)} envs beyond it)")
+        check(med <= tol[name], f"{label} {name} median {med:.3e} > {tol[name]:g}")
+        worst = p99 if tail == "p99" else float(per_env.max())
+        check(worst <= 10 * tol[name], f"{label} {name} {tail} {worst:.3e} > {10 * tol[name]:g}")
     check(float((ref[3] > 0).float().mean()) > 0.02, f"{label}: contacts carry no load")
     return max_abs
 
@@ -171,7 +238,7 @@ def drive(port, engine, card, env_id: str, steps: int, variant: str):
     print(f"[main] {env_id}: episodes ended {dones}, resets {int(state.reset_count.sum())}, "
           f"blow-ups {int(state.blowup_count.sum())}, mean episode steps now "
           f"{float(state.steps.float().mean()):.1f}")
-    return launches, state, tr, batch
+    return launches, state, tr, batch, 1e3 * wall / steps
 
 
 def time_call(fn, args, n: int) -> float:
@@ -202,7 +269,7 @@ def time_and_bound(engine, card, kernel, args) -> dict:
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    v = kernel.variant
+    v = kernel.name
     active_stones = ""
     if stones is not None:
         n_act = float((engine.unpack_stones(stones)["stone_active"] > 0.5).float().sum(1).mean())
@@ -261,8 +328,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import mocca_envs_tpu_torch as port
-    from mocca_envs_tpu_torch.models import walker3d
+    from mocca_envs_tpu_torch.models import cassie, walker2d, walker3d
     from mocca_envs_tpu_torch.ops.cuda import engine
+    from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
     from mocca_envs_tpu_torch.utils.config import EngineConfig
     from mocca_envs_tpu_torch.utils.device import pin_fp32
 
@@ -302,27 +370,66 @@ def main() -> int:
                             extra_damping=kp / 20.0)
     compare(two_frames, kernels["k1b"][1], "k1b (2 llc frames)")
 
+    cmodel = cassie.make_model("cuda")
+    rods, stand, stand_z = cassie.constraints(), cassie.stand_q(cmodel), cassie.initial_z()
+    for v, spec in (("k1e_cassie", rods),
+                    ("k1e_cassie2d", dataclasses.replace(rods, planar=True))):
+        kernels[v] = (
+            engine.K1e(cmodel, CASSIE_CONFIG, spec, pd_mode=True,
+                       extra_damping=cmodel.actuated * cmodel.kd),
+            cuda(cassie_states(cmodel, stand, stand_z, rng, spec.planar)))
+        max_abs[v] = compare(*kernels[v], v, TOL_EQ, tail="p99")
+    wmodel = walker2d.make_walker2d("cuda")
+    kernels["k1e_planar"] = (engine.K1e(wmodel, config, walker2d.planar_spec()),
+                             cuda(planar_walker_states(wmodel, 1.22, rng)))
+    max_abs["k1e_planar"] = compare(*kernels["k1e_planar"], "k1e_planar", TOL_EQ)
+
     # ---- phase 3: the main paths through the user entry points
-    launches = {}
+    launches, step_ms = {}, {}
     launches["k1a"], *_ = drive(port, engine, card, "Walker3DCustomEnv-v0", 600, "k1a")
-    launches["k1c"], state, tr, stepper = drive(
+    launches["k1c"], stepper_state, tr, stepper, _ = drive(
         port, engine, card, "Walker3DStepperEnv-v0", 600, "k1c")
     print(f"[main] Walker3DStepperEnv-v0: steps_reached mean "
           f"{float(tr.metrics['steps_reached'].mean()):.3f} max "
           f"{float(tr.metrics['steps_reached'].max()):.0f}, stone hits on the last step "
-          f"{int(tr.metrics['stone_hit'].sum())}, mean stage {float(state.task.stage.mean()):.4f}")
+          f"{int(tr.metrics['stone_hit'].sum())}, mean stage "
+          f"{float(stepper_state.task.stage.mean()):.4f}")
     launches["k1b"], *_ = drive(port, engine, card, "Walker3DPDCustomEnv-v0", 200, "k1b")
     drive(port, engine, card, "Child3DCustomEnv-v0", 100, "k1a")
+    for v, env_id, steps in (("k1e_cassie", "CassieEnv-v0", 300),
+                             ("k1e_cassie2d", "Cassie2DEnv-v0", 100),
+                             ("k1e_planar", "Walker2DCustomEnv-v0", 200),
+                             ("k1e_crab", "Crab2DCustomEnv-v0", 100)):
+        launches[v], state, _, _, step_ms[v] = drive(port, engine, card, env_id, steps, "k1e")
+        if "2D" in env_id:
+            # the lock's own measures of roll and yaw (Euler angles jump to π
+            # when a toppled body pitches past 90°). The lock pulls back at
+            # no more than max_push_vel, so a toppled, thrashing body leaves
+            # the plane for a while: the median env is held, the worst shown
+            w, x, y, z = state.q[:, 3:7].unbind(dim=1)
+            drift = [v.abs() for v in (state.q[:, 1], 2 * (w * x + y * z), 2 * (w * z + x * y))]
+            med, worst = [float(v.median()) for v in drift], [float(v.max()) for v in drift]
+            print(f"[main] {env_id}: out of plane at the end, median / max over the envs: "
+                  f"|y| {med[0]:.3e} / {worst[0]:.3e} m, |2(wx+yz)| {med[1]:.3e} / "
+                  f"{worst[1]:.3e}, |2(wz+xy)| {med[2]:.3e} / {worst[2]:.3e}")
+            check(med[0] < 0.02 and med[1] < 0.05 and med[2] < 0.05,
+                  f"{env_id}: the median env left its plane: {med}")
 
     # ---- phase 4: per-call times at B = 4096
     times = {v: time_and_bound(engine, card, kernel, args)
              for v, (kernel, args) in kernels.items()}
 
     cull_and_pack_time(engine, card, model, config)
-    stepper_env_layer_times(card, stepper, state)
+    stepper_env_layer_times(card, stepper, stepper_state)
+    for v in ("k1e_cassie", "k1e_cassie2d", "k1e_planar"):
+        print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {times[v]['ms']:.4f} "
+              f"ms/call, so {step_ms[v] - times[v]['ms']:.3f} ms/step outside the kernel "
+              f"(env layer) at B={B} on {card}")
 
     names = {"k1a": "k1a_engine_frame", "k1c": "k1c_engine_frame_stones",
-             "k1b": "k1b_engine_step_pd"}
+             "k1b": "k1b_engine_step_pd", "k1e_cassie": "k1e_engine_step_pd_rods",
+             "k1e_cassie2d": "k1e_engine_step_pd_rods_planar",
+             "k1e_planar": "k1e_engine_frame_planar"}
     print(json.dumps({"kernels": [{
         "name": names[v],
         "route": "cuda",
@@ -332,7 +439,7 @@ def main() -> int:
         "max_abs_err": max_abs[v],
         **times[v],
         "library_ms": None,
-    } for v in ("k1a", "k1c", "k1b")]}))
+    } for v in names]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

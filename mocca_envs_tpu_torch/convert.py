@@ -13,7 +13,10 @@ import numpy as np
 import torch
 
 from mocca_envs_tpu_torch.envs.env import EnvState
+from mocca_envs_tpu_torch.models.cassie_gait import GaitTable
 from mocca_envs_tpu_torch.models.schema import RobotModel, model_from_numpy
+from mocca_envs_tpu_torch.ops.step import ConstraintSpec
+from mocca_envs_tpu_torch.tasks.cassie_task import CassieParams, CassieTaskState
 from mocca_envs_tpu_torch.tasks.walker_custom import WalkerParams, WalkerTaskState
 from mocca_envs_tpu_torch.tasks.walker_stepper import StepperParams, StepperTaskState
 from mocca_envs_tpu_torch.terrain.scene import Scene
@@ -117,6 +120,50 @@ def stepper_state_to_numpy(state: EnvState) -> dict:
                 stage=_n(t.stage), **scene_to_numpy(state.scene))
 
 
+def cassie_state_from_numpy(*, q, qd, steps, reset_count, done, blowup_count, prev_action,
+                            phase, ground_z=0.0, friction=0.8, device="cpu") -> EnvState:
+    """Batched Cassie EnvState: the task fields of a JAX ``CassieTaskState``
+    (``prev_action`` (B, 10), ``phase`` (B,)) over the flat plane."""
+    B = np.asarray(q).shape[0]
+    return _env_state(
+        CassieTaskState(prev_action=_f32(prev_action, device), phase=_f32(phase, device)),
+        scene_from_numpy(B, ground_z, friction, device=device),
+        q=q, qd=qd, steps=steps, reset_count=reset_count, done=done,
+        blowup_count=blowup_count, device=device)
+
+
+def cassie_state_to_numpy(state: EnvState) -> dict:
+    """The fields :func:`cassie_state_from_numpy` takes, as numpy arrays."""
+    return dict(**_core_to_numpy(state), prev_action=_n(state.task.prev_action),
+                phase=_n(state.task.phase), **scene_to_numpy(state.scene))
+
+
+def constraint_spec_from_numpy(fields: dict) -> ConstraintSpec:
+    """ConstraintSpec from the fields of a JAX ``ConstraintSpec`` (tuples or
+    arrays; anchors keep their full precision)."""
+    def points(x):
+        return tuple(tuple(float(v) for v in p) for p in np.asarray(x, np.float64).reshape(-1, 3))
+
+    def links(x):
+        return tuple(int(v) for v in np.asarray(x).reshape(-1))
+
+    return ConstraintSpec(
+        p2p_link_a=links(fields.get("p2p_link_a", ())),
+        p2p_link_b=links(fields.get("p2p_link_b", ())),
+        p2p_anchor_a=points(fields.get("p2p_anchor_a", ())),
+        p2p_anchor_b=points(fields.get("p2p_anchor_b", ())),
+        planar=bool(fields.get("planar", False)),
+        num_grabs=int(fields.get("num_grabs", 0)),
+        grab_links=links(fields.get("grab_links", ())),
+        grab_anchors=points(fields.get("grab_anchors", ())),
+    )
+
+
+def gait_table_from_numpy(q_motors, stance, period_steps, device="cpu") -> GaitTable:
+    """GaitTable from the arrays of a JAX ``GaitTable``."""
+    return GaitTable(_f32(q_motors, device), _f32(stance, device), float(period_steps))
+
+
 def _scalars_from_numpy(cls, fields: dict, ints=(), skip=()):
     kw = {}
     for f in dataclasses.fields(cls):
@@ -133,6 +180,11 @@ def walker_params_from_numpy(fields: dict) -> WalkerParams:
     """WalkerParams from a JAX ``WalkerParams``' fields (0-d arrays: the
     port holds one value for the whole batch)."""
     return WalkerParams(**_scalars_from_numpy(WalkerParams, fields, ints=("max_steps",)))
+
+
+def cassie_params_from_numpy(fields: dict) -> CassieParams:
+    """CassieParams from a JAX ``CassieParams``' fields (0-d arrays)."""
+    return CassieParams(**_scalars_from_numpy(CassieParams, fields, ints=("max_steps",)))
 
 
 def stone_params_from_numpy(fields: dict) -> StoneParams:

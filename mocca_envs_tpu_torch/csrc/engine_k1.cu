@@ -2,22 +2,27 @@
 // (sm_90a), in the variants this file instantiates.
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
-// make_pallas_substep for floating all-revolute models without equality
-// rows at the shipped EngineConfig (block PGS, matrix-free PGS, warm start,
-// frame-start factor reuse; split impulse off):
+// make_pallas_substep for floating all-revolute models at the shipped
+// EngineConfig (block PGS, matrix-free PGS, warm start, frame-start factor
+// reuse; split impulse off):
 //
 //   K1a  plane, torque mode: one llc frame per call;
 //   K1c  K1a plus K oriented stone boxes per env (num_stones = K there);
 //   K1b  PD mode (pd_mode there): the whole control step per call, NLLC llc
 //        frames; the tau input holds joint targets and the torque
-//        gain·(target − q) is refreshed from the state at each frame's start.
+//        gain·(target − q) is refreshed from the state at each frame's start;
+//   K1e  equality rows (constraints there) in front of the others: NP2P
+//        point-to-point rods between two links (Cassie's achilles rods) and
+//        the PLANAR lock of base y, roll and yaw (the 2D families), in
+//        torque or PD mode.
 //
 // Each llc frame runs NSUB substeps:
 //
 //   FK (quaternion chain) → narrowphase: every sphere vs the plane and vs
 //   every active stone, the deepest feature per sphere → passive torques
 //   → Newton–Euler bias → [substep 0: CRBA about the base + Cholesky]
-//   → free velocity → rows [joint limits | contacts × (n, t1, t2)]
+//   → free velocity → rows [rods × 3 | planar × 3 | joint limits |
+//   contacts × (n, t1, t2)]
 //   → W = L⁻¹Jᵀ per row → matrix-free block PGS, λ warm-started
 //   → qd' = v_free + L⁻ᵀ(Wλ) → semi-implicit integrate + limit backstop.
 //
@@ -45,6 +50,14 @@
 // instances keep the constant-folded form for the plane's +z normal
 // (rows z, x, y of the point Jacobian).
 //
+// Equality rows. A rod's three rows are the difference of the point
+// Jacobians of its two anchors, with the target −(baumgarte/dt)·(xa − xb)
+// clipped to ±max_push_vel; a planar row is a unit row on base column 1, 3
+// or 5 with the drift y, 2(wx+yz) or 2(wz+xy) (sine surrogates of roll and
+// yaw) under the same clipped target. They are always active, unbounded in
+// the sweep, and swept first. The rods come in the packed table behind the
+// ancestry: link a, link b, anchor a, anchor b per rod.
+//
 // Design. One thread per env: the per-env work is a long serial chain of
 // small dense linear algebra (CRBA, Cholesky, triangular solves, Gauss–
 // Seidel sweeps), the counterpart of the TPU kernel's one-env-per-lane
@@ -60,7 +73,8 @@
 // What bounds it on this card. Near contact a K1a call needs ~1.6e5 fp32
 // operations per env (~3.3e5 with every row active, counted by
 // ops/cuda/engine.py::k1_flops) against 0.65 KB of inputs and outputs
-// (0.9 KB with six stones), so the floor is the fp32 rate. This simple
+// (0.9 KB with six stones), and a K1e call on Cassie ~6.3e5 (its 20
+// substeps) against 0.47 KB, so the floor is the fp32 rate. This simple
 // design is far from it: the workspace round-trips through L2 on every row
 // of every sweep, one thread per env leaves most of the SMs' warp slots
 // empty at B = 4096, and the serial chain has little instruction-level
@@ -93,12 +107,13 @@ namespace k1 {
 // ---------------------------------------------------------------- layout
 // The packed model table. ops/cuda/engine.py::pack_tables writes exactly
 // this order; the launch checks the size.
-template <int NL, int NS, int NLIM>
+template <int NL, int NS, int NLIM, int NP2P, bool PLANAR>
 struct Layout {
   static constexpr int NJ = NL - 1;
   static constexpr int NV = NJ + 6;
   static constexpr int NQ = NJ + 7;
-  static constexpr int NR = NLIM + 3 * NS;
+  static constexpr int NE = 3 * NP2P + (PLANAR ? 3 : 0);   // equality rows
+  static constexpr int NR = NE + NLIM + 3 * NS;
   // scalars
   static constexpr int DT = 0, GX = 1, GY = 2, GZ = 3, BETA = 4, SLOP = 5,
                        MAXPUSH = 6, CFM = 7, MARGIN = 8, LIMMARGIN = 9,
@@ -123,7 +138,8 @@ struct Layout {
   static constexpr int LIMIDX = LIMHI + NJ;       // NLIM
   static constexpr int PDGAIN = LIMIDX + NLIM;    // NJ: actuated · kp (PD mode)
   static constexpr int ANC = PDGAIN + NJ;         // NL × NJ (0/1)
-  static constexpr int SIZE = ANC + NL * NJ;
+  static constexpr int P2P = ANC + NL * NJ;        // NP2P × 8: link a, link b, anchors a, b
+  static constexpr int SIZE = P2P + NP2P * 8;
   // workspace components per env
   static constexpr int NLOW = NV * (NV + 1) / 2;
   static constexpr int WS_L = 0;                  // packed lower factor
@@ -185,9 +201,9 @@ HD inline float sgn0(float x) { return (float)(x > 0.0f) - (float)(x < 0.0f); }
 constexpr int STONE_C = 11;   // floats per stone: center, quaternion, half extents, active
 
 // Per-env state of one call, held in local memory.
-template <int NL, int NS, int NLIM, int K>
+template <int NL, int NS, int NLIM, int K, int NP2P, bool PLANAR>
 struct Env {
-  using L = Layout<NL, NS, NLIM>;
+  using L = Layout<NL, NS, NLIM, NP2P, PLANAR>;
   float q[L::NQ], qd[L::NV], tau[L::NJ];
   float ground, fric;
   // kinematics of the current substep
@@ -209,16 +225,17 @@ struct WS {
   HD float& operator()(int c) const { return base[(long long)c * B + t]; }
 };
 
-template <int NL, int NS, int NLIM>
+template <class L>
 HD inline float& Lget(const WS& ws, int i, int j) {  // i >= j
-  return ws(Layout<NL, NS, NLIM>::WS_L + i * (i + 1) / 2 + j);
+  return ws(L::WS_L + i * (i + 1) / 2 + j);
 }
 
 // ------------------------------------------------------------- substep
-template <int NL, int NS, int NLIM, int ITERS, int K>
-HD void substep(Env<NL, NS, NLIM, K>& e, const float* tab, const WS& ws, bool factorize) {
-  using L = Layout<NL, NS, NLIM>;
-  constexpr int NJ = L::NJ, NV = L::NV, NR = L::NR;
+template <int NL, int NS, int NLIM, int ITERS, int K, int NP2P, bool PLANAR>
+HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR>& e, const float* tab, const WS& ws,
+                bool factorize) {
+  using L = Layout<NL, NS, NLIM, NP2P, PLANAR>;
+  constexpr int NJ = L::NJ, NV = L::NV, NR = L::NR, NE = L::NE;
   const float dt = tab[L::DT];
 
   // ---------------- FK along the quaternion chain
@@ -409,7 +426,7 @@ HD void substep(Env<NL, NS, NLIM, K>& e, const float* tab, const WS& ws, bool fa
       float Lm[3], P[3];
       if (a < 3) momentum(0, zero3, ea, Lm, P);
       else momentum(0, ea, zero3, Lm, P);
-      for (int b = 0; b <= a; ++b) Lget<NL, NS, NLIM>(ws, a, b) = b < 3 ? P[b] : Lm[b - 3];
+      for (int b = 0; b <= a; ++b) Lget<L>(ws, a, b) = b < 3 ? P[b] : Lm[b - 3];
     }
     for (int j = 0; j < NJ; ++j) {
       // motion axis of joint j about O, and the momentum of its composite
@@ -418,7 +435,7 @@ HD void substep(Env<NL, NS, NLIM, K>& e, const float* tab, const WS& ws, bool fa
       cross3(e.ja[j], r, sv);
       momentum(j + 1, e.ja[j], sv, Lm, P);
       const int row = 6 + j;
-      for (int b = 0; b < 6; ++b) Lget<NL, NS, NLIM>(ws, row, b) = b < 3 ? P[b] : Lm[b - 3];
+      for (int b = 0; b < 6; ++b) Lget<L>(ws, row, b) = b < 3 ? P[b] : Lm[b - 3];
       for (int k = 0; k < j; ++k) {
         float mk = 0.0f;
         if (tab[L::ANC + (j + 1) * NJ + k] > 0.5f) {
@@ -427,24 +444,24 @@ HD void substep(Env<NL, NS, NLIM, K>& e, const float* tab, const WS& ws, bool fa
           cross3(e.ja[k], rk, sk);
           mk = dot3(e.ja[k], Lm) + dot3(sk, P);
         }
-        Lget<NL, NS, NLIM>(ws, row, 6 + k) = mk;
+        Lget<L>(ws, row, 6 + k) = mk;
       }
-      Lget<NL, NS, NLIM>(ws, row, row) = dot3(e.ja[j], Lm) + dot3(sv, P) + tab[L::JDIAG + j];
+      Lget<L>(ws, row, row) = dot3(e.ja[j], Lm) + dot3(sv, P) + tab[L::JDIAG + j];
     }
     // left-looking Cholesky in place; the diagonal is clamped at 1e-9
     for (int j = 0; j < NV; ++j) {
-      float djj = Lget<NL, NS, NLIM>(ws, j, j);
+      float djj = Lget<L>(ws, j, j);
       for (int k = 0; k < j; ++k) {
-        const float ljk = Lget<NL, NS, NLIM>(ws, j, k);
+        const float ljk = Lget<L>(ws, j, k);
         djj -= ljk * ljk;
       }
       const float dinv = rsqrtf(fmaxf(djj, 1e-9f));
       ws(L::WS_DINV + j) = dinv;
-      Lget<NL, NS, NLIM>(ws, j, j) = djj * dinv;
+      Lget<L>(ws, j, j) = djj * dinv;
       for (int i = j + 1; i < NV; ++i) {
-        float s = Lget<NL, NS, NLIM>(ws, i, j);
-        for (int k = 0; k < j; ++k) s -= Lget<NL, NS, NLIM>(ws, i, k) * Lget<NL, NS, NLIM>(ws, j, k);
-        Lget<NL, NS, NLIM>(ws, i, j) = s * dinv;
+        float s = Lget<L>(ws, i, j);
+        for (int k = 0; k < j; ++k) s -= Lget<L>(ws, i, k) * Lget<L>(ws, j, k);
+        Lget<L>(ws, i, j) = s * dinv;
       }
     }
   }
@@ -453,7 +470,7 @@ HD void substep(Env<NL, NS, NLIM, K>& e, const float* tab, const WS& ws, bool fa
   auto fwd = [&](float* y, int from) {
     for (int i = from; i < NV; ++i) {
       float s = y[i];
-      for (int k = from; k < i; ++k) s -= Lget<NL, NS, NLIM>(ws, i, k) * y[k];
+      for (int k = from; k < i; ++k) s -= Lget<L>(ws, i, k) * y[k];
       y[i] = s * ws(L::WS_DINV + i);
     }
   };
@@ -461,7 +478,7 @@ HD void substep(Env<NL, NS, NLIM, K>& e, const float* tab, const WS& ws, bool fa
   auto bwd = [&](float* x) {
     for (int i = NV - 1; i >= 0; --i) {
       float s = x[i];
-      for (int k = i + 1; k < NV; ++k) s -= Lget<NL, NS, NLIM>(ws, k, i) * x[k];
+      for (int k = i + 1; k < NV; ++k) s -= Lget<L>(ws, k, i) * x[k];
       x[i] = s * ws(L::WS_DINV + i);
     }
   };
@@ -483,8 +500,71 @@ HD void substep(Env<NL, NS, NLIM, K>& e, const float* tab, const WS& ws, bool fa
 
   // ---------------- rows and W = L⁻¹Jᵀ, one row at a time
   const float beta = tab[L::BETA], maxpush = tab[L::MAXPUSH];
-  for (int r = 0; r < NLIM; ++r) {
-    const int j = (int)tab[L::LIMIDX + r];
+  // point Jacobian (3 × NV) of world point x fixed to link l
+  auto point_jacobian = [&](int l, const float* x, float (*Jc)[NV]) {
+    float rel[3];
+    for (int k = 0; k < 3; ++k) rel[k] = x[k] - e.pos[0][k];
+    for (int d = 0; d < 3; ++d)
+      for (int k = 0; k < 3; ++k) Jc[d][k] = d == k ? 1.0f : 0.0f;
+    // e_k × rel
+    Jc[0][3] = 0.0f;     Jc[1][3] = -rel[2]; Jc[2][3] = rel[1];
+    Jc[0][4] = rel[2];   Jc[1][4] = 0.0f;    Jc[2][4] = -rel[0];
+    Jc[0][5] = -rel[1];  Jc[1][5] = rel[0];  Jc[2][5] = 0.0f;
+    for (int j = 0; j < NJ; ++j) {
+      float col[3] = {0.0f, 0.0f, 0.0f};
+      if (tab[L::ANC + l * NJ + j] > 0.5f) {
+        float dx[3];
+        for (int k = 0; k < 3; ++k) dx[k] = x[k] - e.pos[j + 1][k];
+        cross3(e.ja[j], dx, col);
+      }
+      for (int d = 0; d < 3; ++d) Jc[d][6 + j] = col[d];
+    }
+  };
+  // equality rows: always active, drift pulled back at a clipped rate
+  auto eq_target = [&](float err) { return clampf(-beta * err, -maxpush, maxpush); };
+  for (int k = 0; k < NP2P; ++k) {
+    const float* rod = tab + L::P2P + 8 * k;
+    const int la = (int)rod[0], lb = (int)rod[1];
+    float xa[3], xb[3], Ja[3][NV], Jb[3][NV];
+    matvec3(e.R[la], rod + 2, xa);
+    matvec3(e.R[lb], rod + 5, xb);
+    for (int d = 0; d < 3; ++d) { xa[d] += e.pos[la][d]; xb[d] += e.pos[lb][d]; }
+    point_jacobian(la, xa, Ja);
+    point_jacobian(lb, xb, Jb);
+    for (int d = 0; d < 3; ++d) {
+      const int r = 3 * k + d;
+      float y[NV];
+      float cv = 0.0f;
+      for (int i = 0; i < NV; ++i) {
+        y[i] = Ja[d][i] - Jb[d][i];
+        cv += y[i] * e.vfree[i];
+      }
+      fwd(y, 0);
+      for (int i = 0; i < NV; ++i) ws(L::WS_W + r * NV + i) = y[i];
+      e.start[r] = 0;
+      e.c[r] = cv - eq_target(xa[d] - xb[d]);
+      e.act[r] = 1.0f;
+    }
+  }
+  if constexpr (PLANAR) {
+    const float w = e.q[3], x = e.q[4], yq = e.q[5], z = e.q[6];
+    const int cols[3] = {1, 3, 5};   // base linear y, angular x, angular z
+    const float errs[3] = {e.q[1], 2.0f * (w * x + yq * z), 2.0f * (w * z + x * yq)};
+    for (int m = 0; m < 3; ++m) {
+      const int r = 3 * NP2P + m, col = cols[m];
+      float y[NV];
+      for (int i = 0; i < NV; ++i) y[i] = 0.0f;
+      y[col] = 1.0f;
+      fwd(y, col);
+      for (int i = 0; i < NV; ++i) ws(L::WS_W + r * NV + i) = y[i];
+      e.start[r] = col;
+      e.c[r] = e.vfree[col] - eq_target(errs[m]);
+      e.act[r] = 1.0f;
+    }
+  }
+  for (int lr = 0; lr < NLIM; ++lr) {
+    const int r = NE + lr;
+    const int j = (int)tab[L::LIMIDX + lr];
     const float qj = e.q[7 + j];
     const float d_lo = qj - tab[L::LIMLO + j], d_hi = tab[L::LIMHI + j] - qj;
     const float sgn = d_lo <= d_hi ? 1.0f : -1.0f;
@@ -502,25 +582,8 @@ HD void substep(Env<NL, NS, NLIM, K>& e, const float* tab, const WS& ws, bool fa
   }
   for (int s = 0; s < NS; ++s) {
     const int l = (int)tab[L::SPHLINK + s];
-    // point Jacobian at the contact point
     float Jc[3][NV];
-    float rel[3];
-    for (int k = 0; k < 3; ++k) rel[k] = e.cpt[s][k] - e.pos[0][k];
-    for (int d = 0; d < 3; ++d)
-      for (int k = 0; k < 3; ++k) Jc[d][k] = d == k ? 1.0f : 0.0f;
-    // e_k × rel
-    Jc[0][3] = 0.0f;     Jc[1][3] = -rel[2]; Jc[2][3] = rel[1];
-    Jc[0][4] = rel[2];   Jc[1][4] = 0.0f;    Jc[2][4] = -rel[0];
-    Jc[0][5] = -rel[1];  Jc[1][5] = rel[0];  Jc[2][5] = 0.0f;
-    for (int j = 0; j < NJ; ++j) {
-      float col[3] = {0.0f, 0.0f, 0.0f};
-      if (tab[L::ANC + l * NJ + j] > 0.5f) {
-        float dx[3];
-        for (int k = 0; k < 3; ++k) dx[k] = e.cpt[s][k] - e.pos[j + 1][k];
-        cross3(e.ja[j], dx, col);
-      }
-      for (int d = 0; d < 3; ++d) Jc[d][6 + j] = col[d];
-    }
+    point_jacobian(l, e.cpt[s], Jc);
     const float dep = e.depth[s];
     const float b_n = fminf(beta * fmaxf(dep - tab[L::SLOP], 0.0f), maxpush);
     const float push = b_n - fmaxf(-dep, 0.0f) / dt;
@@ -539,7 +602,7 @@ HD void substep(Env<NL, NS, NLIM, K>& e, const float* tab, const WS& ws, bool fa
       dirs[2][0] = kb; dirs[2][1] = sg + ny * ny * ka; dirs[2][2] = -ny;
     }
     for (int m = 0; m < 3; ++m) {
-      const int r = NLIM + 3 * s + m;
+      const int r = NE + NLIM + 3 * s + m;
       float y[NV];
       float cv = 0.0f;
       for (int i = 0; i < NV; ++i) {
@@ -568,7 +631,7 @@ HD void substep(Env<NL, NS, NLIM, K>& e, const float* tab, const WS& ws, bool fa
   };
   for (int r = 0; r < NR; ++r) e.diag[r] = fmaxf(wdot(r, r) + cfm, 1e-9f);
   for (int s = 0; s < NS; ++s) {
-    const int t1 = NLIM + 3 * s + 1, t2 = t1 + 1;
+    const int t1 = NE + NLIM + 3 * s + 1, t2 = t1 + 1;
     const float a11 = fmaxf(wdot(t1, t1) + cfm, 1e-9f);
     const float a22 = fmaxf(wdot(t2, t2) + cfm, 1e-9f);
     const float a12 = wdot(t1, t2);
@@ -593,10 +656,11 @@ HD void substep(Env<NL, NS, NLIM, K>& e, const float* tab, const WS& ws, bool fa
     for (int i = e.start[r]; i < NV; ++i) ws(L::WS_Z + i) += ws(L::WS_W + r * NV + i) * d;
   };
   for (int it = 0; it < ITERS; ++it) {
-    for (int r = 0; r < NLIM; ++r)
+    for (int r = 0; r < NE; ++r) apply(r, ws(L::WS_LAM + r) - res(r) / e.diag[r]);
+    for (int r = NE; r < NE + NLIM; ++r)
       apply(r, fmaxf(0.0f, ws(L::WS_LAM + r) - res(r) / e.diag[r]) * e.act[r]);
     for (int s = 0; s < NS; ++s) {
-      const int b0 = NLIM + 3 * s;
+      const int b0 = NE + NLIM + 3 * s;
       apply(b0, fmaxf(0.0f, ws(L::WS_LAM + b0) - res(b0) / e.diag[b0]) * e.act[b0]);
       const float bound = e.fric * ws(L::WS_LAM + b0);
       const float r1 = res(b0 + 1), r2 = res(b0 + 2);
@@ -612,7 +676,7 @@ HD void substep(Env<NL, NS, NLIM, K>& e, const float* tab, const WS& ws, bool fa
         ws(L::WS_Z + i) += ws(L::WS_W + (b0 + 1) * NV + i) * e1 + ws(L::WS_W + (b0 + 2) * NV + i) * e2;
     }
   }
-  for (int s = 0; s < NS; ++s) e.nimp[s] = ws(L::WS_LAM + NLIM + 3 * s);
+  for (int s = 0; s < NS; ++s) e.nimp[s] = ws(L::WS_LAM + NE + NLIM + 3 * s);
 
   // ---------------- impulse map and integration
   float qdn[NV];
@@ -650,14 +714,15 @@ HD void substep(Env<NL, NS, NLIM, K>& e, const float* tab, const WS& ws, bool fa
 // One call for env t: NLLC llc frames of NSUB substeps, λ zeroed once at
 // the start. PD: ``tau`` holds joint targets and each frame's torque is
 // gain·(target − q) at the frame's start; else the torques are held.
-template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC>
+template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
+          bool PLANAR>
 KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const float* gz,
                       const float* fric, const float* stones, float* q_out, float* qd_out,
                       float* depth_out, float* nimp_out, const float* tab, float* ws_base,
                       int B, int t) {
-  using L = Layout<NL, NS, NLIM>;
+  using L = Layout<NL, NS, NLIM, NP2P, PLANAR>;
   static_assert(PD || NLLC == 1, "torque mode is launched once per llc frame");
-  Env<NL, NS, NLIM, K> e;
+  Env<NL, NS, NLIM, K, NP2P, PLANAR> e;
   const WS ws{ws_base, B, t};
   float target[PD ? L::NJ : 1];
   for (int i = 0; i < L::NQ; ++i) e.q[i] = q[(long long)t * L::NQ + i];
@@ -677,7 +742,8 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
     if constexpr (PD)
       for (int j = 0; j < L::NJ; ++j)
         e.tau[j] = tab[L::PDGAIN + j] * (target[j] - e.q[7 + j]);
-    for (int sub = 0; sub < NSUB; ++sub) substep<NL, NS, NLIM, ITERS, K>(e, tab, ws, sub == 0);
+    for (int sub = 0; sub < NSUB; ++sub)
+      substep<NL, NS, NLIM, ITERS, K, NP2P, PLANAR>(e, tab, ws, sub == 0);
   }
   for (int i = 0; i < L::NQ; ++i) q_out[(long long)t * L::NQ + i] = e.q[i];
   for (int i = 0; i < L::NV; ++i) qd_out[(long long)t * L::NV + i] = e.qd[i];
@@ -690,7 +756,8 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
 #ifndef K1_HOST_CHECK
 constexpr int kThreads = 32;   // one warp per block: B = 4096 spreads over 128 SMs
 
-template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC>
+template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
+          bool PLANAR>
 __global__ void __launch_bounds__(kThreads)
 k1_kernel(const float* __restrict__ q, const float* __restrict__ qd,
           const float* __restrict__ tau, const float* __restrict__ gz,
@@ -698,26 +765,28 @@ k1_kernel(const float* __restrict__ q, const float* __restrict__ qd,
           float* __restrict__ q_out, float* __restrict__ qd_out,
           float* __restrict__ depth_out, float* __restrict__ nimp_out,
           const float* __restrict__ table, float* __restrict__ ws, int B) {
-  using L = Layout<NL, NS, NLIM>;
+  using L = Layout<NL, NS, NLIM, NP2P, PLANAR>;
   __shared__ float tab[L::SIZE];
   for (int i = threadIdx.x; i < L::SIZE; i += blockDim.x) tab[i] = table[i];
   __syncthreads();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= B) return;
-  frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC>(q, qd, tau, gz, fric, stones, q_out, qd_out,
-                                                depth_out, nimp_out, tab, ws, B, t);
+  frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR>(
+      q, qd, tau, gz, fric, stones, q_out, qd_out, depth_out, nimp_out, tab, ws, B, t);
 }
 
-template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC>
+template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
+          bool PLANAR>
 int launch(const float* q, const float* qd, const float* tau, const float* gz, const float* fric,
            const float* stones, float* q_out, float* qd_out, float* depth, float* nimp,
            const float* table, int table_size, float* ws, int B, void* stream) {
-  using L = Layout<NL, NS, NLIM>;
+  using L = Layout<NL, NS, NLIM, NP2P, PLANAR>;
   if (table_size != L::SIZE || B <= 0 || (K > 0 && stones == nullptr))
     return (int)cudaErrorInvalidValue;
   const int blocks = (B + kThreads - 1) / kThreads;
-  k1_kernel<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      q, qd, tau, gz, fric, stones, q_out, qd_out, depth, nimp, table, ws, B);
+  k1_kernel<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR>
+      <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          q, qd, tau, gz, fric, stones, q_out, qd_out, depth, nimp, table, ws, B);
   return (int)cudaGetLastError();
 }
 #endif
@@ -725,39 +794,39 @@ int launch(const float* q, const float* qd, const float* tau, const float* gz, c
 }  // namespace k1
 
 // ------------------------------------------------------------ C interface
-// One entry per instance: (NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC).
-// ops/cuda/engine.py::INSTANTIATIONS lists the same names and numbers.
-#define K1_INSTANCE(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC)                           \
+// One entry per instance: (NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P,
+// PLANAR). ops/cuda/engine.py::INSTANTIATIONS lists the same names and
+// numbers.
+#define K1_INSTANCE(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR)             \
   extern "C" int NAME##_layout(int* table_size, int* ws_per_env) {                         \
-    *table_size = k1::Layout<NL, NS, NLIM>::SIZE;                                           \
-    *ws_per_env = k1::Layout<NL, NS, NLIM>::WS_SIZE;                                        \
+    *table_size = k1::Layout<NL, NS, NLIM, NP2P, PLANAR>::SIZE;                             \
+    *ws_per_env = k1::Layout<NL, NS, NLIM, NP2P, PLANAR>::WS_SIZE;                          \
     return 0;                                                                               \
   }                                                                                         \
-  K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC)
+  K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR)
 
 #ifndef K1_HOST_CHECK
-#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC)                              \
+#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR)                \
   extern "C" int NAME##_launch(const float* q, const float* qd, const float* tau,          \
                                const float* gz, const float* fric, const float* stones,    \
                                float* q_out, float* qd_out, float* depth, float* nimp,     \
                                const float* table, int table_size, float* ws, int B,       \
                                void* stream) {                                             \
-    return k1::launch<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC>(                              \
+    return k1::launch<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR>(                \
         q, qd, tau, gz, fric, stones, q_out, qd_out, depth, nimp, table, table_size, ws,   \
         B, stream);                                                                        \
   }
 #else
 // host check: the same per-env code as a plain loop over envs
-#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC)                              \
+#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR)                \
   extern "C" int NAME##_host(const float* q, const float* qd, const float* tau,            \
                              const float* gz, const float* fric, const float* stones,      \
                              float* q_out, float* qd_out, float* depth, float* nimp,       \
                              const float* table, int table_size, float* ws, int B) {       \
-    if (table_size != k1::Layout<NL, NS, NLIM>::SIZE || B <= 0) return 1;                   \
+    if (table_size != k1::Layout<NL, NS, NLIM, NP2P, PLANAR>::SIZE || B <= 0) return 1;     \
     for (int t = 0; t < B; ++t)                                                             \
-      k1::frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC>(q, qd, tau, gz, fric, stones,       \
-                                                        q_out, qd_out, depth, nimp, table, \
-                                                        ws, B, t);                         \
+      k1::frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR>(                      \
+          q, qd, tau, gz, fric, stones, q_out, qd_out, depth, nimp, table, ws, B, t);      \
     return 0;                                                                               \
   }
 #endif
@@ -765,17 +834,32 @@ int launch(const float* q, const float* qd, const float* tau, const float* gz, c
 // Walker3D / Child3D at the shipped EngineConfig: 22 links, 14 spheres, 21
 // limit rows, 4 substeps, 4 sweeps.
 #if !defined(K1_ONLY) || K1_ONLY == 0
-K1_INSTANCE(k1a_nl22_ns14_nlim21_sub4_it4, 22, 14, 21, 4, 4, 0, false, 1)
+K1_INSTANCE(k1a_nl22_ns14_nlim21_sub4_it4, 22, 14, 21, 4, 4, 0, false, 1, 0, false)
 #endif
 // ... over the 6 culled stones of the stepping-stone env
 #if !defined(K1_ONLY) || K1_ONLY == 1
-K1_INSTANCE(k1c_nl22_ns14_nlim21_sub4_it4_k6, 22, 14, 21, 4, 4, 6, false, 1)
+K1_INSTANCE(k1c_nl22_ns14_nlim21_sub4_it4_k6, 22, 14, 21, 4, 4, 6, false, 1, 0, false)
 #endif
 // ... PD-servoed, one llc frame per control step (the PD walkers)
 #if !defined(K1_ONLY) || K1_ONLY == 2
-K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc1, 22, 14, 21, 4, 4, 0, true, 1)
+K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc1, 22, 14, 21, 4, 4, 0, true, 1, 0, false)
 #endif
 // ... PD-servoed, two llc frames per control step (λ carried across them)
 #if !defined(K1_ONLY) || K1_ONLY == 3
-K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc2, 22, 14, 21, 4, 4, 0, true, 2)
+K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc2, 22, 14, 21, 4, 4, 0, true, 2, 0, false)
+#endif
+// Cassie at its three-rate configuration: 17 links, 5 spheres, 16 limit
+// rows, PD-servoed, 10 llc frames of 2 substeps at 600 Hz per control step,
+// the two achilles rods (37 rows)
+#if !defined(K1_ONLY) || K1_ONLY == 4
+K1_INSTANCE(k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2, 17, 5, 16, 2, 4, 0, true, 10, 2, false)
+#endif
+// ... locked to the sagittal plane (40 rows)
+#if !defined(K1_ONLY) || K1_ONLY == 5
+K1_INSTANCE(k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar, 17, 5, 16, 2, 4, 0, true, 10, 2, true)
+#endif
+// Walker2D / Crab2D at the shipped EngineConfig: 7 links, 5 spheres, 6 limit
+// rows, torque mode, the planar lock (24 rows)
+#if !defined(K1_ONLY) || K1_ONLY == 6
+K1_INSTANCE(k1e_nl7_ns5_nlim6_sub4_it4_planar, 7, 5, 6, 4, 4, 0, false, 1, 0, true)
 #endif

@@ -1,8 +1,9 @@
 """Env family registration: the families this port carries so far.
 
 Counterpart of ``mocca_envs_tpu/envs/families.py`` for the walk-to-target
-walkers (torque and PD, adult and child) and the stepping-stone walker; the
-other families come with later slices.
+walkers (torque and PD, adult and child, and the planar Walker2D / Crab2D),
+the stepping-stone walker and the Cassie families; the other families come
+with later slices.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import dataclasses
 import functools
 
 from mocca_envs_tpu_torch.envs.registry import register
+from mocca_envs_tpu_torch.tasks.cassie_task import make_cassie
 from mocca_envs_tpu_torch.tasks.walker_custom import WalkerParams, make_walker3d_custom
 from mocca_envs_tpu_torch.tasks.walker_stepper import make_walker3d_stepper
 
@@ -53,3 +55,58 @@ register(
     "Child3DPDCustomEnv",
     functools.partial(_make_child3d_custom, name="Child3DPDCustomEnv", pd_control=True),
 )
+
+
+register("CassieEnv", make_cassie)
+register("Cassie2DEnv", functools.partial(make_cassie, name="Cassie2DEnv", planar=True))
+
+
+def _make_cassie_phase(planar: bool = False, **kw):
+    # the phase variants track a reference motion; the default table is the
+    # synthesized parametric walk, to be swapped for a recorded one through
+    # models/cassie_gait.py::from_npz
+    from mocca_envs_tpu_torch.models.cassie_gait import synthesized_walk
+
+    name = "CassiePhase2DEnv" if planar else "CassiePhaseEnv"
+    return make_cassie(name=name, planar=planar, phase_obs=True,
+                       ref_gait=synthesized_walk(), **kw)
+
+
+register("CassiePhaseEnv", _make_cassie_phase)
+register("CassiePhase2DEnv", functools.partial(_make_cassie_phase, planar=True))
+
+
+def _make_walker2d_custom(**kw):
+    from mocca_envs_tpu_torch.models import walker2d
+
+    return make_walker3d_custom(
+        model=walker2d.make_walker2d(),
+        name="Walker2DCustomEnv",
+        initial_z=walker2d.WALKER2D_INITIAL_Z,
+        constraints=walker2d.planar_spec(),
+        terminal_link_names=("base",),
+        **kw,
+    )
+
+
+def _make_crab2d_custom(**kw):
+    from mocca_envs_tpu_torch.models import walker2d
+
+    # the crab is low-slung: its base spawns at z = 0.45, under the walkers'
+    # terminal height of 0.7, which would end every episode at its first
+    # step; 0.2 is about the same fraction of standing height (0.7 / 1.3)
+    params = kw.pop("params", None) or dataclasses.replace(
+        WalkerParams.default(), terminal_height=0.2)
+    return make_walker3d_custom(
+        model=walker2d.make_crab2d(),
+        name="Crab2DCustomEnv",
+        initial_z=walker2d.CRAB2D_INITIAL_Z,
+        params=params,
+        constraints=walker2d.planar_spec(),
+        terminal_link_names=("base",),
+        **kw,
+    )
+
+
+register("Walker2DCustomEnv", _make_walker2d_custom)
+register("Crab2DCustomEnv", _make_crab2d_custom)

@@ -1,23 +1,26 @@
 """K1: the fused engine kernel on Hopper, its wrappers and its plain version.
 
 Counterpart of ``mocca_envs_tpu/ops/pallas/engine.py::make_pallas_substep``
-for floating all-revolute models at the shipped EngineConfig, in three
+for floating all-revolute models at the shipped EngineConfig, in four
 variants: K1a (plane, torque mode), K1c (K1a plus ``stone_window`` oriented
-stone boxes) and K1b (PD mode: the whole control step, joint targets in the
-``tau`` input). The kernel is CUDA C++ in ``csrc/engine_k1.cu``, one source
-for all variants. At first use every instantiation is built with ``nvcc``
+stone boxes), K1b (PD mode: the whole control step, joint targets in the
+``tau`` input) and K1e (the equality rows of a ``ConstraintSpec`` in front
+of the others: point-to-point rods and the planar base lock, in torque or PD
+mode). The kernel is CUDA C++ in ``csrc/engine_k1.cu``, one source for all
+variants. At first use every instantiation is built with ``nvcc``
 for ``sm_90a`` into ``build/``, one compiler process per instantiation, all
 started together, and called through a plain C interface with ``ctypes``.
 
-- :class:`K1a`, :class:`K1c`, :class:`K1b` wrap one (model, config):
+- :class:`K1a`, :class:`K1c`, :class:`K1b`, :class:`K1e` wrap one (model,
+  config):
   ``launch`` launches the kernel on CUDA tensors and raises on anything
   else. The choice by device is made once, in
   ``ops/step.py::_make_llc_unit``; there is no fallback from one path to
   the other.
 - ``plain`` is the plain PyTorch version: the port's ``ops/step.py`` path
   run for the same unit, on any device.
-- ``LAUNCHES["k1a" | "k1b" | "k1c"]`` counts kernel launches (plain runs do
-  not count).
+- ``LAUNCHES["k1a" | "k1b" | "k1c" | "k1e"]`` counts kernel launches (plain
+  runs do not count).
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import torch
 from mocca_envs_tpu_torch.models.schema import REVOLUTE, RobotModel
 from mocca_envs_tpu_torch.ops.integrate import LIMIT_SLOP, MAX_VEL
 from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics, joint_q
-from mocca_envs_tpu_torch.ops.step import limited_joints, make_plain_llc, make_substep
+from mocca_envs_tpu_torch.ops.step import (
+    ConstraintSpec, limited_joints, make_plain_llc, make_substep)
 from mocca_envs_tpu_torch.terrain.scene import STONE_FIELDS, Scene
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
@@ -59,12 +63,20 @@ class Instance:
 
 
 # (nl, ns, nlim, sim_substeps, solver_iters, stones, pd_mode, llc frames per
-# launch) → instantiation; torque mode launches once per llc frame
+# launch, rods, planar lock) → instantiation; torque mode launches once per
+# llc frame
 INSTANTIATIONS = {
-    (22, 14, 21, 4, 4, 0, False, 1): Instance("k1a_nl22_ns14_nlim21_sub4_it4", 0),
-    (22, 14, 21, 4, 4, 6, False, 1): Instance("k1c_nl22_ns14_nlim21_sub4_it4_k6", 1),
-    (22, 14, 21, 4, 4, 0, True, 1): Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc1", 2),
-    (22, 14, 21, 4, 4, 0, True, 2): Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc2", 3),
+    (22, 14, 21, 4, 4, 0, False, 1, 0, False): Instance("k1a_nl22_ns14_nlim21_sub4_it4", 0),
+    (22, 14, 21, 4, 4, 6, False, 1, 0, False): Instance("k1c_nl22_ns14_nlim21_sub4_it4_k6", 1),
+    (22, 14, 21, 4, 4, 0, True, 1, 0, False): Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc1", 2),
+    (22, 14, 21, 4, 4, 0, True, 2, 0, False): Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc2", 3),
+    # Cassie and Cassie2D: the whole control step, 10 llc frames × 2 substeps
+    (17, 5, 16, 2, 4, 0, True, 10, 2, False):
+        Instance("k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 4),
+    (17, 5, 16, 2, 4, 0, True, 10, 2, True):
+        Instance("k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar", 5),
+    # Walker2D and Crab2D
+    (7, 5, 6, 4, 4, 0, False, 1, 0, True): Instance("k1e_nl7_ns5_nlim6_sub4_it4_planar", 6),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -146,7 +158,7 @@ def layout(lib, name: str) -> tuple[int, int]:
 
 
 def _check_supported(model: RobotModel, config: EngineConfig, num_stones: int,
-                     pd_mode: bool) -> Instance:
+                     pd_mode: bool, constraints: ConstraintSpec) -> Instance:
     if not model.floating or any(t != REVOLUTE for t in model.jtype):
         raise NotImplementedError("K1 covers floating-base all-revolute models")
     options = dict(block_pgs=True, matfree_pgs=True, warm_start=True,
@@ -154,20 +166,25 @@ def _check_supported(model: RobotModel, config: EngineConfig, num_stones: int,
     off = {k: getattr(config, k) for k, v in options.items() if getattr(config, k) != v}
     if off:
         raise NotImplementedError(f"K1 runs the shipped solver options; got {off}")
+    if constraints.num_grabs:
+        raise NotImplementedError("no K1 instantiation with grab rows (variant K1d) yet")
     key = (model.nl, model.ns, len(limited_joints(model)), config.sim_substeps,
-           config.solver_iters, num_stones, pd_mode, config.llc_frames if pd_mode else 1)
+           config.solver_iters, num_stones, pd_mode, config.llc_frames if pd_mode else 1,
+           constraints.num_p2p, constraints.planar)
     if key not in INSTANTIATIONS:
         raise NotImplementedError(
             "no K1 instantiation for (nl, ns, nlim, substeps, iters, stones, pd_mode, "
-            f"llc frames) = {key}; built: {sorted(INSTANTIATIONS)}"
+            f"llc frames, rods, planar) = {key}; built: {sorted(INSTANTIATIONS)}"
         )
     return INSTANTIATIONS[key]
 
 
-def pack_tables(model: RobotModel, config: EngineConfig, extra_damping=None) -> np.ndarray:
+def pack_tables(model: RobotModel, config: EngineConfig, extra_damping=None,
+                constraints: ConstraintSpec = ConstraintSpec()) -> np.ndarray:
     """The packed f32 model table, in the order of ``Layout`` in the source.
     ``extra_damping`` (nj,) joins the passive damping, and so the implicit
-    diagonal ``dt·(c + dt·k) + armature`` too."""
+    diagonal ``dt·(c + dt·k) + armature`` too. The rods of ``constraints``
+    come last: link a, link b, anchor a, anchor b each."""
     m = {k: getattr(model, k).detach().cpu().numpy().astype(np.float64) for k in (
         "joint_quat", "joint_axis", "joint_pos", "com", "mass", "inertia",
         "sph_link", "sph_pos", "sph_radius", "damping", "stiffness",
@@ -186,6 +203,9 @@ def pack_tables(model: RobotModel, config: EngineConfig, extra_damping=None) -> 
         m["sph_radius"], damping, m["stiffness"], m["spring_ref"], joint_diag,
         m["limit_lo"], m["limit_hi"], limited_joints(model), m["actuated"] * m["kp"],
         m["anc"],
+        *([la, lb, *aa, *ab] for la, lb, aa, ab in zip(
+            constraints.p2p_link_a, constraints.p2p_link_b,
+            constraints.p2p_anchor_a, constraints.p2p_anchor_b)),
     ]
     return np.concatenate([np.asarray(p, dtype=np.float64).ravel() for p in parts]).astype(
         np.float32
@@ -228,15 +248,17 @@ class EngineKernel:
     variant = "k1"
 
     def __init__(self, model: RobotModel, config: EngineConfig, *, num_stones: int = 0,
-                 pd_mode: bool = False, extra_damping=None, plain_unit=None):
-        self.instance = _check_supported(model, config, num_stones, pd_mode)
+                 pd_mode: bool = False, extra_damping=None, plain_unit=None,
+                 constraints: ConstraintSpec = ConstraintSpec()):
+        self.instance = _check_supported(model, config, num_stones, pd_mode, constraints)
         self.name = self.instance.symbol
         self.model = model
         self.config = config
         self.num_stones = num_stones
         self.pd_mode = pd_mode
         self.extra_damping = extra_damping
-        self.table_host = pack_tables(model, config, extra_damping)
+        self.constraints = constraints
+        self.table_host = pack_tables(model, config, extra_damping, constraints)
         self._plain_unit = plain_unit
         self._table: torch.Tensor | None = None
         self._ws: torch.Tensor | None = None
@@ -244,7 +266,8 @@ class EngineKernel:
     def plain(self, q, qd, tau, ground_z, friction, stones=None):
         """The plain PyTorch version on any device (never counted)."""
         if self._plain_unit is None:
-            substep = make_substep(self.model, self.config, extra_damping=self.extra_damping)
+            substep = make_substep(self.model, self.config, self.constraints,
+                                   extra_damping=self.extra_damping)
             self._plain_unit = make_plain_llc(self.model, self.config, substep, self.pd_mode)
         qq, dd, info = self._plain_unit(q, qd, tau, make_scene(ground_z, friction, stones))
         return qq, dd, info.contacts.depth, info.normal_impulse
@@ -337,16 +360,36 @@ class K1b(EngineKernel):
                          plain_unit=plain_unit)
 
 
+class K1e(EngineKernel):
+    """A unit with the equality rows of ``constraints`` (rods, planar lock)
+    on the plane: one llc frame in torque mode, the whole control step in PD
+    mode."""
+
+    variant = "k1e"
+
+    def __init__(self, model, config, constraints: ConstraintSpec, pd_mode: bool = False,
+                 extra_damping=None, plain_unit=None):
+        if constraints.ne == 0:
+            raise ValueError("K1e needs equality rows; without them the variant is K1a / K1b")
+        super().__init__(model, config, pd_mode=pd_mode, extra_damping=extra_damping,
+                         plain_unit=plain_unit, constraints=constraints)
+
+
 def make_kernel(model, config, *, num_stones=0, pd_mode=False, extra_damping=None,
-                plain_unit=None) -> EngineKernel:
-    """The variant for a scene with ``num_stones`` (culled) stones and the
-    actuation mode; combinations without an instantiation raise."""
+                plain_unit=None, constraints: ConstraintSpec = ConstraintSpec()) -> EngineKernel:
+    """The variant for a scene with ``num_stones`` (culled) stones, the
+    actuation mode and the equality rows; combinations without an
+    instantiation raise."""
     if pd_mode and num_stones:
         raise NotImplementedError("no K1 instantiation for PD mode over stones")
+    if constraints.ne and num_stones:
+        raise NotImplementedError("no K1 instantiation for equality rows over stones")
+    if extra_damping is not None and not pd_mode:
+        raise NotImplementedError("no K1 instantiation for extra damping in torque mode")
+    if constraints.ne:
+        return K1e(model, config, constraints, pd_mode, extra_damping, plain_unit)
     if pd_mode:
         return K1b(model, config, extra_damping, plain_unit)
-    if extra_damping is not None:
-        raise NotImplementedError("no K1 instantiation for extra damping in torque mode")
     if num_stones:
         return K1c(model, config, num_stones, plain_unit)
     return K1a(model, config, plain_unit)
@@ -356,10 +399,12 @@ def k1_activity(kernel: EngineKernel, q, qd, tau, ground_z, friction, stones=Non
     """Which rows each substep of one call of ``kernel`` needs, on these
     inputs: limit rows within the limit margin and spheres within the contact
     margin, at each substep's start state, taken from the plain version's
-    run of the unit. Returns bool masks ``(limits (S,B,nlim), contacts
-    (S,B,ns))`` over the S = llc frames × substeps of the call."""
+    run of the unit (equality rows are always active and have no mask).
+    Returns bool masks ``(limits (S,B,nlim), contacts (S,B,ns))`` over the
+    S = llc frames × substeps of the call."""
     model, config = kernel.model, kernel.config
-    substep = make_substep(model, config, extra_damping=kernel.extra_damping)
+    substep = make_substep(model, config, kernel.constraints,
+                           extra_damping=kernel.extra_damping)
     lim = torch.as_tensor(limited_joints(model), dtype=torch.long, device=q.device)
     scene = make_scene(ground_z, friction, stones)
     gain = model.actuated * model.kp
@@ -392,9 +437,13 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, stones=None) -> int:
     each substep (a narrowphase has to test a pair to know its depth), each
     sphere's deepest stone is carried to the world frame, and every active
     contact projects its Jacobian onto its own normal and tangents. PD mode
-    adds the torque per llc frame. The kernel today runs every row whether
-    or not it is active, so it does more work than this count, even with
-    masks of all ones."""
+    adds the torque per llc frame. Equality rows are needed every substep: a
+    rod takes its two anchors to the world frame, two point Jacobians over
+    the anchors' ancestor joints, their difference, three dense W rows with
+    their diagonals, targets, sweeps and (from the second substep of the
+    call on) warm starts; a planar row is a unit row like a limit row. The
+    kernel today runs every row whether or not it is active, so it does more
+    work than this count, even with masks of all ones."""
     model, config = kernel.model, kernel.config
     nl, nj, nv, ns = model.nl, model.nj, model.nv, model.ns
     lim = limited_joints(model)
@@ -450,6 +499,20 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, stones=None) -> int:
         total += float(ca.sum()) * (15 + 3 * nv * 5)
     if kernel.pd_mode:
         total += frames * B * nj * 3
+    spec = kernel.constraints
+    dense_row = nv * nv + 2 * nv + 2 * nv + iters * (4 * nv + 6)   # W row, c, diagonal, sweeps
+    eq_sub, eq_warm = 0.0, 0.0
+    for la, lb in zip(spec.p2p_link_a, spec.p2p_link_b):
+        eq_sub += 2 * 18 + (anc[la].sum() + anc[lb].sum()) * 12 + 2 * 9 + 3 * nv
+        eq_sub += 3 * (dense_row + 6)
+        eq_warm += 3 * 2 * nv
+    if spec.planar:
+        for col in (1, 3, 5):
+            span = nv - col
+            eq_sub += span * span + 2 * span + iters * (4 * span + 6) + 6
+            eq_warm += 2 * span
+        eq_sub += 6                                                # the two sine surrogates
+    total += B * (S * eq_sub + (S - 1) * eq_warm)
     return int(round(total))
 
 

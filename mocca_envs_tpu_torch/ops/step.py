@@ -1,23 +1,25 @@
 """The assembled physics step, batch-first.
 
-Counterpart of ``mocca_envs_tpu/ops/step.py`` for floating-base models
-without equality rows, over the plane and the stone boxes, with torque or
-PD actuation.
+Counterpart of ``mocca_envs_tpu/ops/step.py`` for floating-base models over
+the plane and the stone boxes, with torque or PD actuation and the
+permanent equality rows of a :class:`ConstraintSpec` (point-to-point rods,
+the planar base lock; grab rows are not ported yet).
 
     control step
       └─ llc frame × llc_frames:   actuation (torques held over the frame,
            │                       or PD torque kp·(target − q) refreshed)
            └─ substep × sim_substeps:
-                FK → collide → bias / mass matrix → impulse PGS
+                FK → collide → bias / mass matrix
+                → impulse PGS over [equality | limits | contacts]
                 → semi-implicit integrate
 
 A launch unit is one llc frame in torque mode (λ starts at zero each frame)
 and the whole control step in PD mode (λ carried across its llc frames). On
 CPU tensors a unit runs this plain PyTorch path. On CUDA tensors it runs as
 ONE launch of the hand-written engine kernel (ops/cuda/engine.py: K1a on the
-plane, K1c over stones, K1b in PD mode), which computes the same unit; there
-is no fallback between the two. Stones are culled to ``config.stone_window``
-once per unit, before either path.
+plane, K1c over stones, K1b in PD mode, K1e with equality rows), which
+computes the same unit; there is no fallback between the two. Stones are
+culled to ``config.stone_window`` once per unit, before either path.
 """
 
 from __future__ import annotations
@@ -42,12 +44,44 @@ from mocca_envs_tpu_torch.ops.solver import delassus, pgs_solve, tangent_basis
 from mocca_envs_tpu_torch.terrain.scene import Scene, cull_stones
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
+
+@dataclasses.dataclass(frozen=True)
+class ConstraintSpec:
+    """Static equality-constraint structure of an env family.
+
+    - ``p2p_*``: permanent point-to-point rods between two robot links
+      (Cassie's achilles rods closing the leg four-bars);
+    - ``planar``: locks base y-translation, roll and yaw (the 2D variants);
+    - ``num_grabs``: world-anchor constraints whose activation and anchor
+      are runtime data (monkey-bar grabs). The fields are carried, the rows
+      are not ported yet: a spec with grabs raises where a step is built.
+    """
+
+    p2p_link_a: tuple = ()
+    p2p_link_b: tuple = ()
+    p2p_anchor_a: tuple = ()   # local points on link_a, tuple of 3-tuples
+    p2p_anchor_b: tuple = ()
+    planar: bool = False
+    num_grabs: int = 0
+    grab_links: tuple = ()
+    grab_anchors: tuple = ()   # local palm point per grab
+
+    @property
+    def num_p2p(self) -> int:
+        return len(self.p2p_link_a)
+
+    @property
+    def ne(self) -> int:
+        return 3 * self.num_p2p + (3 if self.planar else 0) + 3 * self.num_grabs
+
+
 LIMIT_RANGE_CAP = 12.0  # joints with a wider range get no limit row [rad|m]
 
 
 def limited_joints(model: RobotModel) -> tuple:
     """Static indices of joints that get a solver limit row; shared by the
-    plain path and the kernel so both build ``[limits | contacts]``."""
+    plain path and the kernel so both build ``[equality | limits |
+    contacts]``."""
     lo = model.limit_lo.cpu().numpy()
     hi = model.limit_hi.cpu().numpy()
     return tuple(int(j) for j in range(model.nj) if hi[j] - lo[j] < LIMIT_RANGE_CAP)
@@ -64,25 +98,50 @@ class StepInfo:
 
 
 def make_substep(model: RobotModel, config: EngineConfig,
+                 constraints: ConstraintSpec = ConstraintSpec(),
                  extra_damping: torch.Tensor | None = None):
     """Build ``substep(q, qd, tau_joint, scene, Minv_in=None, lam_in=None)
     → (q', qd', StepInfo, λ)`` over a batch (B, ·).
 
     ``extra_damping`` (nj,) adds per-joint viscous damping handled
-    implicitly every substep: the home of a PD servo's −k_d·q̇ term."""
+    implicitly every substep: the home of a PD servo's −k_d·q̇ term. An
+    explicit k_d·q̇ held over a substep is unstable whenever ``dt >
+    2·I_joint / k_d``, which Cassie's toe (k_d = 5, I ≈ 5·10⁻⁴ kg·m²)
+    violates at any practical rate; in the system matrix it is stable."""
     if config.split_impulse:
         raise NotImplementedError("split_impulse is not ported yet")
+    if constraints.num_grabs > 0:
+        raise NotImplementedError(
+            "grab rows are not ported yet: they come with the bar-capsule kernel variant K1d")
     dt = config.dt
     ns = model.ns
+    ne = constraints.ne
+    num_p2p = constraints.num_p2p
     lim_idx = limited_joints(model)
     nlim = len(lim_idx)
     base_off = 6 if model.floating else 0
     li = torch.as_tensor(lim_idx, dtype=torch.long, device=model.device)
     lim_cols = base_off + li
     beta = config.baumgarte / dt
+    if num_p2p:
+        dev = model.device
+        p2p_la = torch.as_tensor(constraints.p2p_link_a, dtype=torch.long, device=dev)
+        p2p_lb = torch.as_tensor(constraints.p2p_link_b, dtype=torch.long, device=dev)
+        p2p_aa = torch.as_tensor(constraints.p2p_anchor_a, dtype=torch.float32, device=dev)
+        p2p_ab = torch.as_tensor(constraints.p2p_anchor_b, dtype=torch.float32, device=dev)
+    if constraints.planar:
+        # base linear y, angular x (roll rate), angular z (yaw rate)
+        planar_J = torch.zeros(3, model.nv, device=model.device)
+        planar_J[[0, 1, 2], [1, 3, 5]] = 1.0
     damping = model.damping if extra_damping is None else model.damping + extra_damping
     # implicit damper/spring diagonal dt·c + dt²·k on the joint block
     joint_diag = dt * (damping + dt * model.stiffness)
+
+    def eq_target(err):
+        # Baumgarte drift correction, velocity-capped like contact push-out:
+        # an uncapped β/dt (120 s⁻¹ at Cassie's 600 Hz) turns any residual
+        # closure error into solver-breaking impulse targets
+        return torch.clamp(-beta * err, -config.max_push_vel, config.max_push_vel)
 
     def minv_of(fd):
         """Explicit inverse inertia for a configuration — the factor that
@@ -113,6 +172,24 @@ def make_substep(model: RobotModel, config: EngineConfig,
         v_free = qd + dt * qdd_free
 
         rows_J, rows_tgt, rows_act = [], [], []
+        # rod rows: the two anchor points move together
+        if num_p2p:
+            xa = fd.pos[:, p2p_la] + torch.einsum("bkij,kj->bki", fd.rot[:, p2p_la], p2p_aa)
+            xb = fd.pos[:, p2p_lb] + torch.einsum("bkij,kj->bki", fd.rot[:, p2p_lb], p2p_ab)
+            Jk = point_jacobian(model, fd, p2p_la, xa) - point_jacobian(model, fd, p2p_lb, xb)
+            rows_J.append(Jk.reshape(B, 3 * num_p2p, -1))
+            rows_tgt.append(eq_target(xa - xb).reshape(B, -1))
+            rows_act.append(q.new_ones(B, 3 * num_p2p))
+        # planar lock: roll / yaw drift through the sine surrogates 2(wx+yz),
+        # 2(wz+xy), first-order exact on the locked manifold, as the JAX
+        # package's oracle and kernel take them (not atan2)
+        if constraints.planar:
+            w_, x_, y_, z_ = q[:, 3], q[:, 4], q[:, 5], q[:, 6]
+            err = torch.stack([q[:, 1], 2.0 * (w_ * x_ + y_ * z_), 2.0 * (w_ * z_ + x_ * y_)],
+                              dim=1)
+            rows_J.append(planar_J.expand(B, 3, -1))
+            rows_tgt.append(eq_target(err))
+            rows_act.append(q.new_ones(B, 3))
         # joint-limit rows: unilateral, signed toward the nearer bound
         if nlim:
             d_lo = qj[:, li] - model.limit_lo[li]
@@ -153,7 +230,7 @@ def make_substep(model: RobotModel, config: EngineConfig,
         c = torch.einsum("brk,bk->br", J, v_free) - target
         mu = scene.friction[:, None].expand(B, ns)
         lam = pgs_solve(
-            A, c, active, mu, 0, ns, config.solver_iters, nlim=nlim,
+            A, c, active, mu, ne, ns, config.solver_iters, nlim=nlim,
             block=config.block_pgs, lam0=lam_in if config.warm_start else None,
         )
         qd_new = v_free + torch.einsum("bkr,br->bk", MinvJT, lam)
@@ -161,14 +238,14 @@ def make_substep(model: RobotModel, config: EngineConfig,
 
         info = StepInfo(
             contacts=contacts,
-            normal_impulse=lam[:, nlim:].reshape(B, ns, 3)[..., 0],
+            normal_impulse=lam[:, ne + nlim:].reshape(B, ns, 3)[..., 0],
             foot_contact=collide_mod.foot_contact_flags(model, contacts),
             link_contact=collide_mod.link_contact_mask(model, contacts),
         )
         return q_new, qd_new, info, lam
 
     substep.minv_of = minv_of
-    substep.num_rows = nlim + 3 * ns
+    substep.num_rows = ne + nlim + 3 * ns
     return substep
 
 
@@ -221,11 +298,12 @@ def info_from_kernel(model: RobotModel, config: EngineConfig,
 
 
 def _make_llc_unit(model: RobotModel, config: EngineConfig, substep,
+                   constraints: ConstraintSpec = ConstraintSpec(),
                    extra_damping=None, pd_mode: bool = False):
     """One launch unit (see :func:`make_plain_llc`). Stones are culled to the
     window first, on both paths. CPU tensors then take the plain path; any
-    other device launches the engine kernel of the scene's and the
-    actuation's variant, which raises where it cannot run."""
+    other device launches the engine kernel of the scene's, the actuation's
+    and the constraints' variant, which raises where it cannot run."""
     plain_unit = make_plain_llc(model, config, substep, pd_mode)
     kernels: dict = {}
 
@@ -239,7 +317,8 @@ def _make_llc_unit(model: RobotModel, config: EngineConfig, substep,
         if num_stones not in kernels:
             kernels[num_stones] = cuda_engine.make_kernel(
                 model, config, num_stones=num_stones, pd_mode=pd_mode,
-                extra_damping=extra_damping, plain_unit=plain_unit)
+                extra_damping=extra_damping, plain_unit=plain_unit,
+                constraints=constraints)
         stones = (cuda_engine.pack_stones(scene),) if num_stones else ()
         qq, dd, depth, nimp = kernels[num_stones].launch(
             q, qd, tau_or_targets, scene.ground_z, scene.friction, *stones)
@@ -249,6 +328,7 @@ def _make_llc_unit(model: RobotModel, config: EngineConfig, substep,
 
 
 def make_control_step(model: RobotModel, config: EngineConfig,
+                      constraints: ConstraintSpec = ConstraintSpec(),
                       actuation: Callable | None = None,
                       extra_damping: torch.Tensor | None = None,
                       pd_targets: Callable | None = None):
@@ -258,9 +338,10 @@ def make_control_step(model: RobotModel, config: EngineConfig,
     llc frame. PD families give ``pd_targets(action) → joint targets``; the
     whole control step is then one unit, with the derivative gain riding
     ``extra_damping``."""
-    substep = make_substep(model, config, extra_damping=extra_damping)
+    substep = make_substep(model, config, constraints, extra_damping=extra_damping)
     if pd_targets is not None:
-        pd_unit = _make_llc_unit(model, config, substep, extra_damping, pd_mode=True)
+        pd_unit = _make_llc_unit(model, config, substep, constraints, extra_damping,
+                                 pd_mode=True)
 
         def pd_control_step(q, qd, action, scene: Scene):
             return pd_unit(q, qd, pd_targets(action), scene)
@@ -269,7 +350,7 @@ def make_control_step(model: RobotModel, config: EngineConfig,
 
     if actuation is None:
         actuation = lambda q, qd, a: a  # noqa: E731 - raw joint torques
-    llc_unit = _make_llc_unit(model, config, substep, extra_damping)
+    llc_unit = _make_llc_unit(model, config, substep, constraints, extra_damping)
 
     def control_step(q, qd, action, scene: Scene):
         info = None

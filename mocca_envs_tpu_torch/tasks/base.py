@@ -1,7 +1,7 @@
 """Shared task machinery: observation pieces and reward terms, batch-first.
 
 Counterpart of ``mocca_envs_tpu/tasks/base.py`` for the terms the walker
-task uses. ``q`` is (B, nq), ``qd`` (B, nv).
+and Cassie tasks use. ``q`` is (B, nq), ``qd`` (B, nv).
 """
 
 from __future__ import annotations
@@ -65,6 +65,18 @@ def joints_at_limit_cost(model: RobotModel, q: torch.Tensor, w: float) -> torch.
     """Weighted count of joints within 1% of their limits (B,)."""
     q_scaled, _ = joint_obs(model, q, torch.zeros_like(q))
     return w * torch.sum((torch.abs(q_scaled) > 0.99).to(q.dtype), dim=1)
+
+
+def reset_foot_flags(model: RobotModel, contact_margin: float, state) -> torch.Tensor:
+    """Foot-contact flags (B, nfeet) of a state outside a step, from the same
+    narrowphase predicate the in-step flags use, so that the observation of
+    frame 0 and of later frames share one contact semantics."""
+    from mocca_envs_tpu_torch.ops.collide import collide, foot_contact_flags
+    from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics
+
+    fd = forward_kinematics(model, state.q, state.qd)
+    contacts = collide(model, fd, state.scene, contact_margin)
+    return foot_contact_flags(model, contacts)
 
 
 def mirror_spec(model: RobotModel, extra_obs_perm=None, extra_obs_sign=None) -> dict:

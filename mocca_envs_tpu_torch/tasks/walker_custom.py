@@ -2,7 +2,9 @@
 
 Counterpart of ``mocca_envs_tpu/tasks/walker_custom.py`` with torque or PD
 actuation (``pd_control``), ``reset_obs="zero"`` and the flat scene; it also
-carries the scaled-model variants (``Child3DCustomEnv``).
+carries the scaled-model variants (``Child3DCustomEnv``) and, through a
+``constraints`` spec with the planar rows, the 2D variants
+(``Walker2DCustomEnv``, ``Crab2DCustomEnv``).
 
 Episode flow:
 - reset: base at (0, 0, initial_z + 0.02), uniform joint-angle noise clipped
@@ -27,7 +29,7 @@ from mocca_envs_tpu_torch.core import rng as rng_mod
 from mocca_envs_tpu_torch.envs.env import EnvState, FnEnv, Transition, make_fn_env
 from mocca_envs_tpu_torch.models import walker3d
 from mocca_envs_tpu_torch.models.schema import RobotModel
-from mocca_envs_tpu_torch.ops.step import make_control_step
+from mocca_envs_tpu_torch.ops.step import ConstraintSpec, make_control_step
 from mocca_envs_tpu_torch.tasks import base as T
 from mocca_envs_tpu_torch.terrain import scene as scene_mod
 from mocca_envs_tpu_torch.utils.config import EngineConfig
@@ -77,16 +79,19 @@ def make_walker3d_custom(
     device=None,
     name: str = "Walker3DCustomEnv",
     initial_z: float | None = None,
+    constraints: ConstraintSpec | None = None,
     terminal_link_names: tuple | None = None,
     pd_control: bool = False,
 ) -> FnEnv:
     """Build the walk-to-target family on ``device`` (None = the CUDA card).
-    ``terminal_link_names`` overrides the links whose ground contact ends
+    ``constraints`` adds equality rows to the physics (the planar lock of the
+    2D variants); ``terminal_link_names`` overrides the links whose ground contact ends
     the episode; ``pd_control`` makes actions joint-angle targets."""
     device = resolve_device(device)
     model = (model or walker3d.make_model()).to(device)
     config = config or EngineConfig()
     params = params or WalkerParams.default()
+    constraints = constraints or ConstraintSpec()
     initial_z = walker3d.INITIAL_Z if initial_z is None else initial_z
     if terminal_link_names is None:
         terminal_links = list(walker3d.terminal_links(model))
@@ -108,8 +113,8 @@ def make_walker3d_custom(
         def pd_targets(a):
             return mid + amp * torch.clamp(a, -1.0, 1.0)
 
-        control = make_control_step(model, config, pd_targets=pd_targets,
-                                    extra_damping=kp / 20.0)
+        control = make_control_step(model, config, constraints=constraints,
+                                    pd_targets=pd_targets, extra_damping=kp / 20.0)
 
         def cost_action(q_new, a):
             # the energy costs price the PD torque, not the target: one
@@ -121,7 +126,8 @@ def make_walker3d_custom(
         def actuation(q, qd, a):
             return gain * torch.clamp(a, -1.0, 1.0)
 
-        control = make_control_step(model, config, actuation=actuation)
+        control = make_control_step(model, config, constraints=constraints,
+                                    actuation=actuation)
 
         def cost_action(q_new, a):
             return a
@@ -213,12 +219,8 @@ def make_walker3d_custom(
 
     def obs_fn(state: EnvState) -> torch.Tensor:
         # exact frame-0 contact flags from the narrowphase predicate
-        from mocca_envs_tpu_torch.ops.collide import collide, foot_contact_flags
-        from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics
-
-        fd = forward_kinematics(model, state.q, state.qd)
-        contacts = collide(model, fd, state.scene, config.contact_margin)
-        return obs_with_contacts(state, foot_contact_flags(model, contacts))
+        return obs_with_contacts(
+            state, T.reset_foot_flags(model, config.contact_margin, state))
 
     return make_fn_env(
         name=name, obs_dim=_obs_dim(model), act_dim=model.nj, reset=reset,
