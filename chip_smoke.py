@@ -16,13 +16,18 @@ Phases, in order; any failure exits non-zero before the result lines:
    llc frames (no registered family runs it yet) on the same states; K1e on
    Cassie and Cassie2D states near the stand pose (feet in or near contact,
    rods slightly open, the planar variant a little out of its plane) and on
-   Walker2D states. Per-env median and p99 of |Δq|, |Δqd|, |Δdepth|,
-   |Δimpulse|; the medians must stay within q 2e-4, qd 5e-3, depth 2e-4,
-   impulse 5e-3 (K1e: q 5e-4, qd 2e-2, depth 5e-4, impulse 5e-3, the
-   tolerances the JAX package holds its own kernel to over equality rows),
-   and the largest single-env error within ten times those. For the two
-   Cassie instances the ten-times gate holds the 99th percentile instead of
-   the largest env, and the envs beyond it are counted and printed: over
+   Walker2D states; K1d on monkey states hanging from bars drawn by the
+   port's sampler at stages 0–9 (the right hand attached, the left in half
+   of the envs, anchors at the palms ±1 cm, bars moved next to the feet and
+   the torso in half of the envs, random torques). Per-env median and p99
+   of |Δq|, |Δqd|, |Δdepth|, |Δimpulse|; the medians must stay within q
+   2e-4, qd 5e-3, depth 2e-4, impulse 5e-3 (K1e: q 5e-4, qd 2e-2, depth
+   5e-4, impulse 5e-3, the tolerances the JAX package holds its own kernel
+   to over equality rows; K1d: the same with impulse 1e-2, the looser of
+   its gates for grab rows and for bars), and the largest single-env error
+   within ten times those. For the two Cassie instances and K1d the
+   ten-times gate holds the 99th percentile instead of the largest env,
+   and the envs beyond it are counted and printed: over
    the 20 stiff substeps of one call (a 0.15 kg toe under k_d = 5, springs
    of 1500 N·m/rad) two roundings of one iteration part by more than any
    pointwise tolerance in a few envs of a thousand, the plain path against
@@ -33,17 +38,24 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``Walker3DStepperEnv-v0`` for 600 (K1c), ``Walker3DPDCustomEnv-v0`` for
    200 (K1b), ``Child3DCustomEnv-v0`` for 100 (K1a), ``CassieEnv-v0`` for
    300, ``Cassie2DEnv-v0`` for 100, ``Walker2DCustomEnv-v0`` for 200 and
-   ``Crab2DCustomEnv-v0`` for 100 (K1e). The path's kernel must launch
-   exactly once per step and no other kernel at all, the state stay finite
-   and auto-reset fire; resets forced by a non-finite state are counted and
-   printed; of the 2D families the median env must end in its plane (|y|
-   < 0.02 m, the lock's roll and yaw measures < 0.05), the worst is printed;
+   ``Crab2DCustomEnv-v0`` for 100 (K1e), ``Monkey3DStepperEnv-v0`` for 300
+   (K1d, grab signals included in the random actions). The path's kernel
+   must launch exactly once per step and no other kernel at all, the state
+   stay finite and auto-reset fire; resets forced by a non-finite state are
+   counted and printed; of the 2D families the median env must end in its
+   plane (|y| < 0.02 m, the lock's roll and yaw measures < 0.05), the worst
+   is printed; of the monkey the bars reached, the share of envs holding on
+   and the falls are printed, and then 50 steps of zero torques with both
+   grab signals on from fresh episodes must hang the body: the median
+   palm-to-anchor distance under 2 cm, the median base height within 0.5 m
+   of its start, fewer than 1% of the envs falling;
 4. per-call times of each kernel and its plain version (CUDA events), the
    bound from the operations and bytes these inputs need, and the time of
    the stepper's cull of 20 stones to the window plus their packing (env
    layer, once per control step, outside the kernel's time), and the
    stepper's step split into the step proper and the fresh episodes of
-   auto-reset; Cassie's step time outside its kernel;
+   auto-reset; the step time outside the kernel of Cassie, the planar
+   walkers and the monkey;
 5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.
@@ -66,6 +78,9 @@ SEED = 0
 # oracle), and those of its equality-row case
 TOL = {"q": 2e-4, "qd": 5e-3, "depth": 2e-4, "nimp": 5e-3}
 TOL_EQ = {"q": 5e-4, "qd": 2e-2, "depth": 5e-4, "nimp": 5e-3}
+# over bars and grab rows: the looser of the JAX package's two gates for
+# what K1d combines (equality rows with grabs, and bars)
+TOL_GRAB = {"q": 5e-4, "qd": 2e-2, "depth": 5e-4, "nimp": 1e-2}
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
@@ -175,6 +190,65 @@ def planar_walker_states(model, stand_z: float, rng, batch=B):
     return q, qd, tau, np.zeros(batch, np.float32), np.full(batch, 0.8, np.float32)
 
 
+def monkey_states(model, rng, batch=B, left: float = 0.5, right: float = 1.0,
+                  near_bar: float = 0.5):
+    """Monkey states hanging from the bars: chains from the port's sampler at
+    stages 0–9 (one stage per slot, in turn), the hang pose with ±0.3 rad of
+    joint noise, the base placed so that the right palm is on one of the
+    first four bars. The right hand is attached in a ``right`` share of the
+    envs and the left in a ``left`` share, each anchored at its palm ±1 cm.
+    In a ``near_bar`` share of the envs each of the two feet and the torso in
+    turn gets one of the last bars moved to within −1 to +2 cm of its sphere
+    (the contact margin is 2 cm), on a random side. Random velocities and
+    uniform random torques. Returns numpy ``(q, qd, tau, ground_z,
+    friction, bars (16·8, batch), grabs (2·4, batch))``."""
+    from mocca_envs_tpu_torch.models import monkey
+    from mocca_envs_tpu_torch.ops.cuda.engine import pack_bars, pack_grabs
+    from mocca_envs_tpu_torch.ops.collide import sphere_centers
+    from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics
+    from mocca_envs_tpu_torch.tasks import monkey_stepper as ms
+
+    model = model.to("cpu")
+    spec = monkey.constraints()
+    params = ms.MonkeyParams()
+    K = params.num_bars
+    stage = torch.as_tensor(np.arange(batch) % 10, dtype=torch.float32)
+    pos, axis = ms.bars_from_draws(
+        params, stage, torch.as_tensor(rng.random((batch, 3, K)), dtype=torch.float32))
+    pos, axis = pos.numpy(), axis.numpy()
+    lo, hi = model.limit_lo.numpy(), model.limit_hi.numpy()
+    qj = np.clip(ms.hang_qj(model).numpy() + rng.uniform(-0.3, 0.3, (batch, model.nj)), lo, hi)
+    rows = np.arange(batch)
+    held = rng.integers(0, 4, batch)
+    palms_of = ms.make_palm_positions(model, spec)
+    q, _ = ms.hang_from(palms_of, torch.as_tensor(qj, dtype=torch.float32),
+                        torch.as_tensor(pos[rows, held]), torch.as_tensor(axis[rows, held]))
+    palms = palms_of(q).numpy()
+    q = q.numpy()
+    active = np.stack([rng.random(batch) < right, rng.random(batch) < left], axis=1)
+    target = palms + rng.uniform(-0.01, 0.01, palms.shape)
+    # bars moved next to the feet and the torso: the last three of the chain
+    fd = forward_kinematics(model, torch.as_tensor(q), torch.zeros(batch, model.nv))
+    centers = sphere_centers(model, fd).numpy()
+    radius = model.sph_radius.numpy()
+    for k, s in enumerate(np.flatnonzero(model.sph_no_bar.numpy() < 0.5)):
+        moved = rows[rng.random(batch) < near_bar]
+        side = rng.standard_normal((len(moved), 3))
+        side -= (side * axis[moved, K - 1 - k]).sum(1, keepdims=True) * axis[moved, K - 1 - k]
+        side /= np.linalg.norm(side, axis=1, keepdims=True)
+        gap = radius[s] + monkey.BAR_RADIUS + rng.uniform(-0.01, 0.02, len(moved))
+        along = rng.uniform(-0.3, 0.3, len(moved))[:, None] * axis[moved, K - 1 - k]
+        pos[moved, K - 1 - k] = centers[moved, s] - gap[:, None] * side - along
+    scene = ms.bar_scene(torch.as_tensor(pos), torch.as_tensor(axis))
+    qd = (0.3 * rng.standard_normal((batch, model.nv))).astype(np.float32)
+    gain = model.power_coef.numpy()
+    tau = (rng.uniform(-1.0, 1.0, (batch, model.nj)) * gain).astype(np.float32)
+    grabs = pack_grabs(torch.as_tensor(active, dtype=torch.float32),
+                       torch.as_tensor(target, dtype=torch.float32))
+    return (q, qd, tau, scene.ground_z.numpy(), scene.friction.numpy(),
+            pack_bars(scene).numpy(), grabs.numpy())
+
+
 def compare(kernel, args, label: str | None = None, tol=TOL, tail: str = "max") -> float:
     """Launch ``kernel`` once on ``args`` and hold it against its plain
     version: per-env medians within ``tol``, and ten times ``tol`` for the
@@ -199,20 +273,25 @@ def compare(kernel, args, label: str | None = None, tol=TOL, tail: str = "max") 
         check(med <= tol[name], f"{label} {name} median {med:.3e} > {tol[name]:g}")
         worst = p99 if tail == "p99" else float(per_env.max())
         check(worst <= 10 * tol[name], f"{label} {name} {tail} {worst:.3e} > {10 * tol[name]:g}")
+    active = float((ref[2] > -kernel.config.contact_margin).float().sum(1).mean())
+    print(f"[compare] {label}: {active:.3f} active contacts per env at the last substep, "
+          f"{float((ref[3] > 0).float().mean()):.3f} of the spheres loaded")
     check(float((ref[3] > 0).float().mean()) > 0.02, f"{label}: contacts carry no load")
     return max_abs
 
 
-def drive(port, engine, card, env_id: str, steps: int, variant: str):
+def drive(port, engine, card, env_id: str, steps: int, variant: str, sums=()):
     """One main path: ``steps`` control steps of uniform random actions
     through the entry points. Returns (launches, final state, last
-    transition, the batched env)."""
+    transition, the batched env, ms per step, the sums over the run of the
+    metrics named in ``sums``)."""
     env = port.make(env_id)
     batch = port.BatchedEnv(env, B, seed=SEED)
     state = batch.init()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
     dones = torch.zeros((), dtype=torch.int64, device="cuda")
+    totals = {k: torch.zeros((), device="cuda") for k in sums}
     torch.cuda.synchronize()
     engine.LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -221,6 +300,8 @@ def drive(port, engine, card, env_id: str, steps: int, variant: str):
         tr = batch.step(state, actions)
         state = tr.state
         dones += tr.done.sum()
+        for k in sums:
+            totals[k] += tr.metrics[k].sum()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(engine.LAUNCHES)
@@ -238,7 +319,34 @@ def drive(port, engine, card, env_id: str, steps: int, variant: str):
     print(f"[main] {env_id}: episodes ended {dones}, resets {int(state.reset_count.sum())}, "
           f"blow-ups {int(state.blowup_count.sum())}, mean episode steps now "
           f"{float(state.steps.float().mean()):.1f}")
-    return launches, state, tr, batch, 1e3 * wall / steps
+    return launches, state, tr, batch, 1e3 * wall / steps, {k: float(v) for k, v in totals.items()}
+
+
+def hang_check(batch, spec, card) -> None:
+    """50 control steps of zero torques with both grab signals on, from
+    fresh episodes, without auto-reset: the body must hang from its bar."""
+    from mocca_envs_tpu_torch.tasks.monkey_stepper import make_palm_positions
+
+    env = batch.env
+    state = env.init(batch.generator, B)
+    z0 = state.q[:, 2].clone()
+    actions = torch.zeros((B, env.act_dim), device="cuda")
+    actions[:, -2:] = 1.0
+    fell = torch.zeros(B, dtype=torch.bool, device="cuda")
+    for _ in range(50):
+        tr = env.step_no_reset(state, actions, batch.generator)
+        state = tr.state
+        fell |= tr.metrics["fell"] > 0.5
+    palms = make_palm_positions(env.model, spec)(state.q)
+    gap = torch.linalg.vector_norm(palms - state.task.anchor, dim=2)[state.task.attached > 0.5]
+    sag = (z0 - state.q[:, 2]).abs()
+    med_gap, med_sag, falls = float(gap.median()), float(sag.median()), float(fell.float().mean())
+    print(f"[main] Monkey3DStepperEnv-v0 hang, 50 steps of zero torques on {card}: palm to "
+          f"anchor median {med_gap:.4e} m (p99 {float(gap.quantile(0.99)):.4e}), base height "
+          f"change median {med_sag:.4e} m, fallen share {falls:.5f}")
+    check(med_gap < 0.02, f"hang: the palms left their anchors ({med_gap:.3e} m)")
+    check(med_sag < 0.5, f"hang: the body sank {med_sag:.3e} m")
+    check(falls < 0.01, f"hang: {falls:.2%} of the envs fell")
 
 
 def time_call(fn, args, n: int) -> float:
@@ -260,23 +368,27 @@ def time_and_bound(engine, card, kernel, args) -> dict:
     and the bound from the operations and bytes these inputs need."""
     ms = time_call(kernel.launch, args, 50)
     plain_ms = time_call(kernel.plain, args, 3)
+    scene_inputs = args[5:]
     stones = args[5] if kernel.num_stones else None
     lim_act, con_act = engine.k1_activity(kernel, *args)
-    flops = engine.k1_flops(kernel, lim_act, con_act, stones)
+    flops = engine.k1_flops(kernel, lim_act, con_act, *scene_inputs)
     flops_all = engine.k1_flops(kernel, torch.ones_like(lim_act), torch.ones_like(con_act),
-                                stones)
+                                *scene_inputs)
     nbytes = engine.k1_bytes_per_env(kernel) * B
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     v = kernel.name
-    active_stones = ""
+    scene_activity = ""
     if stones is not None:
         n_act = float((engine.unpack_stones(stones)["stone_active"] > 0.5).float().sum(1).mean())
-        active_stones = f", active stones {n_act:.3f} of {kernel.num_stones}"
+        scene_activity = f", active stones {n_act:.3f} of {kernel.num_stones}"
+    if kernel.num_bars:
+        held = float((engine.unpack_grabs(args[6])[0] > 0.5).float().sum(1).mean())
+        scene_activity = f", attached grabs {held:.3f} of {kernel.constraints.num_grabs}"
     print(f"[bound] {v} active per env and substep: limit rows "
           f"{float(lim_act.float().sum(2).mean()):.3f} of {lim_act.shape[2]}, contacts "
-          f"{float(con_act.float().sum(2).mean()):.3f} of {con_act.shape[2]}{active_stones}; "
+          f"{float(con_act.float().sum(2).mean()):.3f} of {con_act.shape[2]}{scene_activity}; "
           f"{flops} fp32 ops needed ({flops / B:.0f} per env), {flops_all} with every row "
           f"active; {nbytes} bytes")
     print(f"[time] {v} {ms:.4f} ms/call, plain {plain_ms:.3f} ms/call at B={B} on {card}; "
@@ -328,7 +440,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import mocca_envs_tpu_torch as port
-    from mocca_envs_tpu_torch.models import cassie, walker2d, walker3d
+    from mocca_envs_tpu_torch.models import cassie, monkey, walker2d, walker3d
     from mocca_envs_tpu_torch.ops.cuda import engine
     from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
     from mocca_envs_tpu_torch.utils.config import EngineConfig
@@ -383,11 +495,17 @@ def main() -> int:
     kernels["k1e_planar"] = (engine.K1e(wmodel, config, walker2d.planar_spec()),
                              cuda(planar_walker_states(wmodel, 1.22, rng)))
     max_abs["k1e_planar"] = compare(*kernels["k1e_planar"], "k1e_planar", TOL_EQ)
+    mmodel = monkey.make_model("cuda")
+    kernels["k1d"] = (engine.K1d(mmodel, config, monkey.constraints(), 16),
+                      cuda(monkey_states(mmodel, rng)))
+    held = (engine.unpack_grabs(kernels["k1d"][1][6])[0] > 0.5).sum(0).tolist()
+    print(f"[compare] k1d: grabs attached (right, left) {held} of {B} envs")
+    max_abs["k1d"] = compare(*kernels["k1d"], "k1d", TOL_GRAB, tail="p99")
 
     # ---- phase 3: the main paths through the user entry points
     launches, step_ms = {}, {}
     launches["k1a"], *_ = drive(port, engine, card, "Walker3DCustomEnv-v0", 600, "k1a")
-    launches["k1c"], stepper_state, tr, stepper, _ = drive(
+    launches["k1c"], stepper_state, tr, stepper, *_ = drive(
         port, engine, card, "Walker3DStepperEnv-v0", 600, "k1c")
     print(f"[main] Walker3DStepperEnv-v0: steps_reached mean "
           f"{float(tr.metrics['steps_reached'].mean()):.3f} max "
@@ -400,7 +518,7 @@ def main() -> int:
                              ("k1e_cassie2d", "Cassie2DEnv-v0", 100),
                              ("k1e_planar", "Walker2DCustomEnv-v0", 200),
                              ("k1e_crab", "Crab2DCustomEnv-v0", 100)):
-        launches[v], state, _, _, step_ms[v] = drive(port, engine, card, env_id, steps, "k1e")
+        launches[v], state, _, _, step_ms[v], _ = drive(port, engine, card, env_id, steps, "k1e")
         if "2D" in env_id:
             # the lock's own measures of roll and yaw (Euler angles jump to π
             # when a toppled body pitches past 90°). The lock pulls back at
@@ -414,6 +532,15 @@ def main() -> int:
                   f"{worst[1]:.3e}, |2(wz+xy)| {med[2]:.3e} / {worst[2]:.3e}")
             check(med[0] < 0.02 and med[1] < 0.05 and med[2] < 0.05,
                   f"{env_id}: the median env left its plane: {med}")
+    launches["k1d"], state, tr, monkey_batch, step_ms["k1d"], sums = drive(
+        port, engine, card, "Monkey3DStepperEnv-v0", 300, "k1d", sums=("fell", "bar_hit"))
+    print(f"[main] Monkey3DStepperEnv-v0: bars_reached mean "
+          f"{float(tr.metrics['bars_reached'].mean()):.4f} max "
+          f"{float(tr.metrics['bars_reached'].max()):.0f}; holding on at the end "
+          f"{float((tr.metrics['holding'] > 0).float().mean()):.4f} of the envs, both hands "
+          f"{float((tr.metrics['holding'] > 1).float().mean()):.4f}; over the run falls "
+          f"{sums['fell']:.0f}, bar hits {sums['bar_hit']:.0f}")
+    hang_check(monkey_batch, monkey.constraints(), card)
 
     # ---- phase 4: per-call times at B = 4096
     times = {v: time_and_bound(engine, card, kernel, args)
@@ -421,7 +548,7 @@ def main() -> int:
 
     cull_and_pack_time(engine, card, model, config)
     stepper_env_layer_times(card, stepper, stepper_state)
-    for v in ("k1e_cassie", "k1e_cassie2d", "k1e_planar"):
+    for v in ("k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d"):
         print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {times[v]['ms']:.4f} "
               f"ms/call, so {step_ms[v] - times[v]['ms']:.3f} ms/step outside the kernel "
               f"(env layer) at B={B} on {card}")
@@ -429,7 +556,7 @@ def main() -> int:
     names = {"k1a": "k1a_engine_frame", "k1c": "k1c_engine_frame_stones",
              "k1b": "k1b_engine_step_pd", "k1e_cassie": "k1e_engine_step_pd_rods",
              "k1e_cassie2d": "k1e_engine_step_pd_rods_planar",
-             "k1e_planar": "k1e_engine_frame_planar"}
+             "k1e_planar": "k1e_engine_frame_planar", "k1d": "k1d_engine_frame_bars_grabs"}
     print(json.dumps({"kernels": [{
         "name": names[v],
         "route": "cuda",

@@ -17,6 +17,7 @@ from mocca_envs_tpu_torch.models.cassie_gait import GaitTable
 from mocca_envs_tpu_torch.models.schema import RobotModel, model_from_numpy
 from mocca_envs_tpu_torch.ops.step import ConstraintSpec
 from mocca_envs_tpu_torch.tasks.cassie_task import CassieParams, CassieTaskState
+from mocca_envs_tpu_torch.tasks.monkey_stepper import MonkeyParams, MonkeyTaskState
 from mocca_envs_tpu_torch.tasks.walker_custom import WalkerParams, WalkerTaskState
 from mocca_envs_tpu_torch.tasks.walker_stepper import StepperParams, StepperTaskState
 from mocca_envs_tpu_torch.terrain.scene import Scene
@@ -42,16 +43,22 @@ def _n(x):
 
 
 def scene_from_numpy(batch: int, ground_z=0.0, friction=0.8, stone_pos=None, stone_quat=None,
-                     stone_half=None, stone_active=None, device="cpu") -> Scene:
+                     stone_half=None, stone_active=None, bar_a=None, bar_b=None, bar_r=None,
+                     bar_active=None, device="cpu") -> Scene:
     """Scene for ``batch`` envs: the plane (scalars or (B,)) and, when
-    ``stone_pos`` is given, the stone boxes (B, K, ·) of a JAX ``Scene``."""
+    ``stone_pos`` / ``bar_a`` is given, the stone boxes / bar capsules
+    (B, K, ·) of a JAX ``Scene``."""
     scene = Scene(ground_z=_f32(np.broadcast_to(ground_z, (batch,)), device),
                   friction=_f32(np.broadcast_to(friction, (batch,)), device))
-    if stone_pos is None:
-        return scene
-    return dataclasses.replace(
-        scene, stone_pos=_f32(stone_pos, device), stone_quat=_f32(stone_quat, device),
-        stone_half=_f32(stone_half, device), stone_active=_f32(stone_active, device))
+    if stone_pos is not None:
+        scene = dataclasses.replace(
+            scene, stone_pos=_f32(stone_pos, device), stone_quat=_f32(stone_quat, device),
+            stone_half=_f32(stone_half, device), stone_active=_f32(stone_active, device))
+    if bar_a is not None:
+        scene = dataclasses.replace(
+            scene, bar_a=_f32(bar_a, device), bar_b=_f32(bar_b, device),
+            bar_r=_f32(bar_r, device), bar_active=_f32(bar_active, device))
+    return scene
 
 
 def scene_to_numpy(scene: Scene) -> dict:
@@ -138,6 +145,31 @@ def cassie_state_to_numpy(state: EnvState) -> dict:
                 phase=_n(state.task.phase), **scene_to_numpy(state.scene))
 
 
+def monkey_state_from_numpy(*, q, qd, steps, reset_count, done, blowup_count, bar_pos, bar_dir,
+                            next_bar, attached, anchor, hold_bar, potential, stage, since_hit,
+                            ground_z, friction, bar_a, bar_b, bar_r, bar_active,
+                            device="cpu") -> EnvState:
+    """Batched monkey EnvState: the task fields of a JAX ``MonkeyTaskState``
+    and the scene with its bars."""
+    B = np.asarray(q).shape[0]
+    task = MonkeyTaskState(
+        bar_pos=_f32(bar_pos, device), bar_dir=_f32(bar_dir, device),
+        next_bar=_i32(next_bar, device), attached=_f32(attached, device),
+        anchor=_f32(anchor, device), hold_bar=_i32(hold_bar, device),
+        potential=_f32(potential, device), stage=_f32(stage, device),
+        since_hit=_i32(since_hit, device))
+    scene = scene_from_numpy(B, ground_z, friction, bar_a=bar_a, bar_b=bar_b, bar_r=bar_r,
+                             bar_active=bar_active, device=device)
+    return _env_state(task, scene, q=q, qd=qd, steps=steps, reset_count=reset_count,
+                      done=done, blowup_count=blowup_count, device=device)
+
+
+def monkey_state_to_numpy(state: EnvState) -> dict:
+    """The fields :func:`monkey_state_from_numpy` takes, as numpy arrays."""
+    task = {f.name: _n(getattr(state.task, f.name)) for f in dataclasses.fields(MonkeyTaskState)}
+    return dict(**_core_to_numpy(state), **task, **scene_to_numpy(state.scene))
+
+
 def constraint_spec_from_numpy(fields: dict) -> ConstraintSpec:
     """ConstraintSpec from the fields of a JAX ``ConstraintSpec`` (tuples or
     arrays; anchors keep their full precision)."""
@@ -199,3 +231,9 @@ def stepper_params_from_numpy(fields: dict) -> StepperParams:
         walker=walker_params_from_numpy(fields["walker"]),
         stones=stone_params_from_numpy(fields["stones"]),
         **_scalars_from_numpy(StepperParams, fields, skip=("walker", "stones")))
+
+
+def monkey_params_from_numpy(fields: dict) -> MonkeyParams:
+    """MonkeyParams from a JAX ``MonkeyParams``' fields (0-d arrays)."""
+    return MonkeyParams(**_scalars_from_numpy(
+        MonkeyParams, fields, ints=("num_bars", "max_steps", "hold_grace", "progress_timeout")))

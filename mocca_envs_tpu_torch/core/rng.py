@@ -16,6 +16,10 @@ Every control step draws, for ALL slots at once and in this fixed order:
 2. the fresh episode of ``reset`` (joint noise, then target distance, then
    bearing), used by the slots that are done.
 
+Other families draw their own fresh episodes in the same way, in the order
+their ``reset`` documents (the stepper: joint noise, then the stone chain;
+the monkey: joint noise, then the bar chain).
+
 Draws happen whether or not a slot uses them, so a trajectory depends only
 on the seed, the batch size and the actions: same seed ⇒ same episodes.
 """

@@ -14,15 +14,18 @@
 //   K1e  equality rows (constraints there) in front of the others: NP2P
 //        point-to-point rods between two links (Cassie's achilles rods) and
 //        the PLANAR lock of base y, roll and yaw (the 2D families), in
-//        torque or PD mode.
+//        torque or PD mode;
+//   K1d  KB bar capsules per env (num_bars there) and NGRAB maskable grab
+//        rows (ConstraintSpec.num_grabs there): the monkey's handholds and
+//        hands, torque mode.
 //
 // Each llc frame runs NSUB substeps:
 //
-//   FK (quaternion chain) → narrowphase: every sphere vs the plane and vs
-//   every active stone, the deepest feature per sphere → passive torques
-//   → Newton–Euler bias → [substep 0: CRBA about the base + Cholesky]
-//   → free velocity → rows [rods × 3 | planar × 3 | joint limits |
-//   contacts × (n, t1, t2)]
+//   FK (quaternion chain) → narrowphase: every sphere vs the plane, every
+//   active stone and every active bar, the deepest feature per sphere
+//   → passive torques → Newton–Euler bias → [substep 0: CRBA about the base
+//   + Cholesky] → free velocity → rows [rods × 3 | planar × 3 | grabs × 3 |
+//   joint limits | contacts × (n, t1, t2)]
 //   → W = L⁻¹Jᵀ per row → matrix-free block PGS, λ warm-started
 //   → qd' = v_free + L⁻ᵀ(Wλ) → semi-implicit integrate + limit backstop.
 //
@@ -31,13 +34,17 @@
 //
 // Interface (all f32, contiguous, row-major):
 //   q (B,NQ), qd (B,NV), tau (B,NJ), ground_z (B,), friction (B,),
-//   stones (K·11, B) for K > 0 (else unused)
+//   stones (K·11, B) for K > 0, bars (KB·8, B) for KB > 0, grabs (NGRAB·4,
+//   B) for NGRAB > 0 (each unused, and may be null, otherwise)
 //   → q' (B,NQ), qd' (B,NV), depth (B,NS), normal_impulse (B,NS)
 // depth and normal impulse are those of the LAST substep. Row k·11 + c of
 // stones is component c of stone k: center (3), quaternion wxyz (4), half
 // extents (3), active (1). Component-major, so that neighbouring threads
 // read neighbouring addresses; the caller culls the stones to the K
-// nearest the root and packs them once per control step.
+// nearest the root and packs them once per control step. Row k·8 + c of
+// bars is component c of bar k: end a (3), end b (3), radius, active; row
+// g·4 + c of grabs is component c of grab g: active, target (3). Bars are
+// not culled; both are packed once per control step.
 //
 // Stone narrowphase. It follows the plain version (ops/collide.py,
 // terrain/scene.py::sphere_box_depth), not the TPU kernel, where the two
@@ -50,13 +57,27 @@
 // instances keep the constant-folded form for the plane's +z normal
 // (rows z, x, y of the point Jacobian).
 //
+// Bar narrowphase. It follows the plain version (terrain/scene.py::
+// sphere_capsule_depth) where the TPU kernel differs: the distance is the
+// plain norm (the TPU kernel adds 1e-18 under the root), and of equally deep
+// bars the first wins (the TPU kernel averages over ties). A center on the
+// axis (distance ≤ 1e-9) takes the normal +z. Spheres the table marks
+// no_bar (the grabbing palms, which wrap the bar they hold) skip the bars;
+// a bar replaces the plane or a stone only where strictly deeper.
+//
 // Equality rows. A rod's three rows are the difference of the point
 // Jacobians of its two anchors, with the target −(baumgarte/dt)·(xa − xb)
 // clipped to ±max_push_vel; a planar row is a unit row on base column 1, 3
 // or 5 with the drift y, 2(wx+yz) or 2(wz+xy) (sine surrogates of roll and
 // yaw) under the same clipped target. They are always active, unbounded in
 // the sweep, and swept first. The rods come in the packed table behind the
-// ancestry: link a, link b, anchor a, anchor b per rod.
+// ancestry: link a, link b, anchor a, anchor b per rod. A grab's three rows
+// are the point Jacobian of the palm anchor (a world anchor: no second
+// Jacobian), the drift palm − target under the same clipped target; unlike
+// the rods they are masked by the grab's activity, an input constant over
+// the call: an inactive grab's λ is zero in the warm start and after every
+// sweep, as the plain solver's mask makes it. Behind the rods the table holds
+// link and anchor per grab, then (KB > 0) the no_bar flag per sphere.
 //
 // Design. One thread per env: the per-env work is a long serial chain of
 // small dense linear algebra (CRBA, Cholesky, triangular solves, Gauss–
@@ -73,8 +94,9 @@
 // What bounds it on this card. Near contact a K1a call needs ~1.6e5 fp32
 // operations per env (~3.3e5 with every row active, counted by
 // ops/cuda/engine.py::k1_flops) against 0.65 KB of inputs and outputs
-// (0.9 KB with six stones), and a K1e call on Cassie ~6.3e5 (its 20
-// substeps) against 0.47 KB, so the floor is the fp32 rate. This simple
+// (0.9 KB with six stones), a K1e call on Cassie ~6.3e5 (its 20 substeps)
+// against 0.47 KB, and a K1d call on the hanging monkey ~5.9e4 against 0.9
+// KB (the 16 bars are 0.5 KB of it), so the floor is the fp32 rate. This simple
 // design is far from it: the workspace round-trips through L2 on every row
 // of every sweep, one thread per env leaves most of the SMs' warp slots
 // empty at B = 4096, and the serial chain has little instruction-level
@@ -107,12 +129,13 @@ namespace k1 {
 // ---------------------------------------------------------------- layout
 // The packed model table. ops/cuda/engine.py::pack_tables writes exactly
 // this order; the launch checks the size.
-template <int NL, int NS, int NLIM, int NP2P, bool PLANAR>
+template <int NL, int NS, int NLIM, int NP2P, bool PLANAR, int KB, int NGRAB>
 struct Layout {
   static constexpr int NJ = NL - 1;
   static constexpr int NV = NJ + 6;
   static constexpr int NQ = NJ + 7;
-  static constexpr int NE = 3 * NP2P + (PLANAR ? 3 : 0);   // equality rows
+  static constexpr int NE0 = 3 * NP2P + (PLANAR ? 3 : 0);  // always-active equality rows
+  static constexpr int NE = NE0 + 3 * NGRAB;               // ... and the grab rows
   static constexpr int NR = NE + NLIM + 3 * NS;
   // scalars
   static constexpr int DT = 0, GX = 1, GY = 2, GZ = 3, BETA = 4, SLOP = 5,
@@ -139,7 +162,9 @@ struct Layout {
   static constexpr int PDGAIN = LIMIDX + NLIM;    // NJ: actuated · kp (PD mode)
   static constexpr int ANC = PDGAIN + NJ;         // NL × NJ (0/1)
   static constexpr int P2P = ANC + NL * NJ;        // NP2P × 8: link a, link b, anchors a, b
-  static constexpr int SIZE = P2P + NP2P * 8;
+  static constexpr int GRAB = P2P + NP2P * 8;     // NGRAB × 4: link, anchor
+  static constexpr int NOBAR = GRAB + NGRAB * 4;  // NS if KB > 0: 1 = skips bars
+  static constexpr int SIZE = NOBAR + (KB > 0 ? NS : 0);
   // workspace components per env
   static constexpr int NLOW = NV * (NV + 1) / 2;
   static constexpr int WS_L = 0;                  // packed lower factor
@@ -199,18 +224,31 @@ HD inline float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo),
 HD inline float sgn0(float x) { return (float)(x > 0.0f) - (float)(x < 0.0f); }
 
 constexpr int STONE_C = 11;   // floats per stone: center, quaternion, half extents, active
+constexpr int BAR_C = 8;      // floats per bar: end a, end b, radius, active
+constexpr int GRAB_C = 4;     // floats per grab: active, target
+
+// The bars and the grab state of a call. Empty bases where there are none,
+// so that the instances without them keep their stack frames.
+template <int KB>
+struct BarState { float bar[KB][BAR_C]; };
+template <>
+struct BarState<0> {};
+template <int NGRAB>
+struct GrabState { float gact[NGRAB], gtgt[NGRAB][3]; };
+template <>
+struct GrabState<0> {};
 
 // Per-env state of one call, held in local memory.
-template <int NL, int NS, int NLIM, int K, int NP2P, bool PLANAR>
-struct Env {
-  using L = Layout<NL, NS, NLIM, NP2P, PLANAR>;
+template <int NL, int NS, int NLIM, int K, int NP2P, bool PLANAR, int KB, int NGRAB>
+struct Env : BarState<KB>, GrabState<NGRAB> {
+  using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   float q[L::NQ], qd[L::NV], tau[L::NJ];
   float ground, fric;
   // kinematics of the current substep
   float pos[NL][3], quat[NL][4], omega[NL][3], R[NL][9], comw[NL][3], Iw[NL][9];
   float ja[L::NJ][3];
   float depth[NS], cpt[NS][3];
-  float nrm[K > 0 ? NS : 1][3];          // contact normals (K = 0: always +z)
+  float nrm[K > 0 || KB > 0 ? NS : 1][3];  // contact normals (plane only: always +z)
   float stone[K > 0 ? K : 1][STONE_C];
   float bias[L::NV], vfree[L::NV];
   float c[L::NR], act[L::NR], diag[L::NR], finv[NS][3];
@@ -231,11 +269,12 @@ HD inline float& Lget(const WS& ws, int i, int j) {  // i >= j
 }
 
 // ------------------------------------------------------------- substep
-template <int NL, int NS, int NLIM, int ITERS, int K, int NP2P, bool PLANAR>
-HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR>& e, const float* tab, const WS& ws,
-                bool factorize) {
-  using L = Layout<NL, NS, NLIM, NP2P, PLANAR>;
+template <int NL, int NS, int NLIM, int ITERS, int K, int NP2P, bool PLANAR, int KB, int NGRAB>
+HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB>& e, const float* tab,
+                const WS& ws, bool factorize) {
+  using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   constexpr int NJ = L::NJ, NV = L::NV, NR = L::NR, NE = L::NE;
+  constexpr bool GENERAL_NORMALS = K > 0 || KB > 0;
   const float dt = tab[L::DT];
 
   // ---------------- FK along the quaternion chain
@@ -277,7 +316,7 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR>& e, const float* tab, const W
                              e.R[l][3 * a + 2] * IRt[6 + b];
   }
 
-  // ---------------- spheres vs the plane, then vs the stones
+  // ---------------- spheres vs the plane, then vs the stones and the bars
   for (int s = 0; s < NS; ++s) {
     const int l = (int)tab[L::SPHLINK + s];
     const float rad = tab[L::SPHR + s];
@@ -333,6 +372,40 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR>& e, const float* tab, const W
         qrot(st + 3, bp, pw);
         e.depth[s] = best;
         for (int a = 0; a < 3; ++a) e.cpt[s][a] = st[a] + pw[a];
+      }
+    }
+    if constexpr (KB > 0) {
+      if constexpr (K == 0) { e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f; }
+      if (!(tab[L::NOBAR + s] > 0.5f)) {
+        // deepest active bar (the first of equals): its closest axis point,
+        // the offset to the center and its length
+        float best = -1e9f, bc[3] = {0.0f, 0.0f, 0.0f}, bd[3] = {0.0f, 0.0f, 0.0f}, bdist = 0.0f;
+        int bk = -1;
+        for (int k = 0; k < KB; ++k) {
+          const float* br = e.bar[k];
+          if (!(br[7] > 0.5f)) continue;
+          const float ab[3] = {br[3] - br[0], br[4] - br[1], br[5] - br[2]};
+          const float rel[3] = {cx - br[0], cy - br[1], cz - br[2]};
+          const float tp = clampf(dot3(rel, ab) / fmaxf(dot3(ab, ab), 1e-12f), 0.0f, 1.0f);
+          float cl[3], dl[3];
+          for (int a = 0; a < 3; ++a) cl[a] = br[a] + tp * ab[a];
+          dl[0] = cx - cl[0]; dl[1] = cy - cl[1]; dl[2] = cz - cl[2];
+          const float dist = sqrtf(dot3(dl, dl));
+          const float dk = rad + br[6] - dist;
+          if (dk > best) {
+            best = dk; bk = k; bdist = dist;
+            for (int a = 0; a < 3; ++a) { bc[a] = cl[a]; bd[a] = dl[a]; }
+          }
+        }
+        if (bk >= 0 && best > e.depth[s]) {    // strictly deeper than the plane or a stone
+          const float rb = e.bar[bk][6];
+          const float inv = 1.0f / fmaxf(bdist, 1e-9f);
+          for (int a = 0; a < 3; ++a) {
+            e.nrm[s][a] = bdist > 1e-9f ? bd[a] * inv : (a == 2 ? 1.0f : 0.0f);
+            e.cpt[s][a] = bc[a] + e.nrm[s][a] * rb;
+          }
+          e.depth[s] = best;
+        }
       }
     }
   }
@@ -562,6 +635,29 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR>& e, const float* tab, const W
       e.act[r] = 1.0f;
     }
   }
+  if constexpr (NGRAB > 0)
+    for (int g = 0; g < NGRAB; ++g) {
+      const float* gr = tab + L::GRAB + 4 * g;
+      const int lg = (int)gr[0];
+      float xg[3], Jg[3][NV];
+      matvec3(e.R[lg], gr + 1, xg);
+      for (int d = 0; d < 3; ++d) xg[d] += e.pos[lg][d];
+      point_jacobian(lg, xg, Jg);
+      for (int d = 0; d < 3; ++d) {
+        const int r = L::NE0 + 3 * g + d;
+        float y[NV];
+        float cv = 0.0f;
+        for (int i = 0; i < NV; ++i) {
+          y[i] = Jg[d][i];
+          cv += y[i] * e.vfree[i];
+        }
+        fwd(y, 0);
+        for (int i = 0; i < NV; ++i) ws(L::WS_W + r * NV + i) = y[i];
+        e.start[r] = 0;
+        e.c[r] = cv - eq_target(xg[d] - e.gtgt[g][d]);
+        e.act[r] = e.gact[g];
+      }
+    }
   for (int lr = 0; lr < NLIM; ++lr) {
     const int r = NE + lr;
     const int j = (int)tab[L::LIMIDX + lr];
@@ -593,7 +689,7 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR>& e, const float* tab, const W
     // and its branchless tangent basis, projected onto Jc.
     const int comp[3] = {2, 0, 1};
     float dirs[3][3];
-    if constexpr (K > 0) {
+    if constexpr (GENERAL_NORMALS) {
       const float nx = e.nrm[s][0], ny = e.nrm[s][1], nz = e.nrm[s][2];
       const float sg = nz >= 0.0f ? 1.0f : -1.0f;
       const float ka = -1.0f / (sg + nz), kb = nx * ny * ka;
@@ -606,7 +702,7 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR>& e, const float* tab, const W
       float y[NV];
       float cv = 0.0f;
       for (int i = 0; i < NV; ++i) {
-        if constexpr (K > 0)
+        if constexpr (GENERAL_NORMALS)
           y[i] = dirs[m][0] * Jc[0][i] + dirs[m][1] * Jc[1][i] + dirs[m][2] * Jc[2][i];
         else
           y[i] = Jc[comp[m]][i];
@@ -656,7 +752,10 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR>& e, const float* tab, const W
     for (int i = e.start[r]; i < NV; ++i) ws(L::WS_Z + i) += ws(L::WS_W + r * NV + i) * d;
   };
   for (int it = 0; it < ITERS; ++it) {
-    for (int r = 0; r < NE; ++r) apply(r, ws(L::WS_LAM + r) - res(r) / e.diag[r]);
+    for (int r = 0; r < L::NE0; ++r) apply(r, ws(L::WS_LAM + r) - res(r) / e.diag[r]);
+    if constexpr (NGRAB > 0)   // grab rows: unbounded, masked by the grab's activity
+      for (int r = L::NE0; r < NE; ++r)
+        apply(r, (ws(L::WS_LAM + r) - res(r) / e.diag[r]) * e.act[r]);
     for (int r = NE; r < NE + NLIM; ++r)
       apply(r, fmaxf(0.0f, ws(L::WS_LAM + r) - res(r) / e.diag[r]) * e.act[r]);
     for (int s = 0; s < NS; ++s) {
@@ -715,14 +814,14 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR>& e, const float* tab, const W
 // the start. PD: ``tau`` holds joint targets and each frame's torque is
 // gain·(target − q) at the frame's start; else the torques are held.
 template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
-          bool PLANAR>
+          bool PLANAR, int KB, int NGRAB>
 KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const float* gz,
-                      const float* fric, const float* stones, float* q_out, float* qd_out,
-                      float* depth_out, float* nimp_out, const float* tab, float* ws_base,
-                      int B, int t) {
-  using L = Layout<NL, NS, NLIM, NP2P, PLANAR>;
+                      const float* fric, const float* stones, const float* bars,
+                      const float* grabs, float* q_out, float* qd_out, float* depth_out,
+                      float* nimp_out, const float* tab, float* ws_base, int B, int t) {
+  using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   static_assert(PD || NLLC == 1, "torque mode is launched once per llc frame");
-  Env<NL, NS, NLIM, K, NP2P, PLANAR> e;
+  Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB> e;
   const WS ws{ws_base, B, t};
   float target[PD ? L::NJ : 1];
   for (int i = 0; i < L::NQ; ++i) e.q[i] = q[(long long)t * L::NQ + i];
@@ -737,13 +836,22 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
     for (int k = 0; k < K; ++k)
       for (int c = 0; c < STONE_C; ++c)
         e.stone[k][c] = stones[(long long)(k * STONE_C + c) * B + t];
+  if constexpr (KB > 0)
+    for (int k = 0; k < KB; ++k)
+      for (int c = 0; c < BAR_C; ++c)
+        e.bar[k][c] = bars[(long long)(k * BAR_C + c) * B + t];
+  if constexpr (NGRAB > 0)
+    for (int g = 0; g < NGRAB; ++g) {
+      e.gact[g] = grabs[(long long)(g * GRAB_C) * B + t];
+      for (int d = 0; d < 3; ++d) e.gtgt[g][d] = grabs[(long long)(g * GRAB_C + 1 + d) * B + t];
+    }
   for (int r = 0; r < L::NR; ++r) ws(L::WS_LAM + r) = 0.0f;
   for (int llc = 0; llc < NLLC; ++llc) {
     if constexpr (PD)
       for (int j = 0; j < L::NJ; ++j)
         e.tau[j] = tab[L::PDGAIN + j] * (target[j] - e.q[7 + j]);
     for (int sub = 0; sub < NSUB; ++sub)
-      substep<NL, NS, NLIM, ITERS, K, NP2P, PLANAR>(e, tab, ws, sub == 0);
+      substep<NL, NS, NLIM, ITERS, K, NP2P, PLANAR, KB, NGRAB>(e, tab, ws, sub == 0);
   }
   for (int i = 0; i < L::NQ; ++i) q_out[(long long)t * L::NQ + i] = e.q[i];
   for (int i = 0; i < L::NV; ++i) qd_out[(long long)t * L::NV + i] = e.qd[i];
@@ -757,36 +865,40 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
 constexpr int kThreads = 32;   // one warp per block: B = 4096 spreads over 128 SMs
 
 template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
-          bool PLANAR>
+          bool PLANAR, int KB, int NGRAB>
 __global__ void __launch_bounds__(kThreads)
 k1_kernel(const float* __restrict__ q, const float* __restrict__ qd,
           const float* __restrict__ tau, const float* __restrict__ gz,
           const float* __restrict__ fric, const float* __restrict__ stones,
+          const float* __restrict__ bars, const float* __restrict__ grabs,
           float* __restrict__ q_out, float* __restrict__ qd_out,
           float* __restrict__ depth_out, float* __restrict__ nimp_out,
           const float* __restrict__ table, float* __restrict__ ws, int B) {
-  using L = Layout<NL, NS, NLIM, NP2P, PLANAR>;
+  using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   __shared__ float tab[L::SIZE];
   for (int i = threadIdx.x; i < L::SIZE; i += blockDim.x) tab[i] = table[i];
   __syncthreads();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= B) return;
-  frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR>(
-      q, qd, tau, gz, fric, stones, q_out, qd_out, depth_out, nimp_out, tab, ws, B, t);
+  frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB>(
+      q, qd, tau, gz, fric, stones, bars, grabs, q_out, qd_out, depth_out, nimp_out, tab, ws,
+      B, t);
 }
 
 template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
-          bool PLANAR>
+          bool PLANAR, int KB, int NGRAB>
 int launch(const float* q, const float* qd, const float* tau, const float* gz, const float* fric,
-           const float* stones, float* q_out, float* qd_out, float* depth, float* nimp,
-           const float* table, int table_size, float* ws, int B, void* stream) {
-  using L = Layout<NL, NS, NLIM, NP2P, PLANAR>;
-  if (table_size != L::SIZE || B <= 0 || (K > 0 && stones == nullptr))
+           const float* stones, const float* bars, const float* grabs, float* q_out,
+           float* qd_out, float* depth, float* nimp, const float* table, int table_size,
+           float* ws, int B, void* stream) {
+  using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
+  if (table_size != L::SIZE || B <= 0 || (K > 0 && stones == nullptr) ||
+      (KB > 0 && bars == nullptr) || (NGRAB > 0 && grabs == nullptr))
     return (int)cudaErrorInvalidValue;
   const int blocks = (B + kThreads - 1) / kThreads;
-  k1_kernel<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR>
+  k1_kernel<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB>
       <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-          q, qd, tau, gz, fric, stones, q_out, qd_out, depth, nimp, table, ws, B);
+          q, qd, tau, gz, fric, stones, bars, grabs, q_out, qd_out, depth, nimp, table, ws, B);
   return (int)cudaGetLastError();
 }
 #endif
@@ -795,71 +907,80 @@ int launch(const float* q, const float* qd, const float* tau, const float* gz, c
 
 // ------------------------------------------------------------ C interface
 // One entry per instance: (NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P,
-// PLANAR). ops/cuda/engine.py::INSTANTIATIONS lists the same names and
-// numbers.
-#define K1_INSTANCE(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR)             \
-  extern "C" int NAME##_layout(int* table_size, int* ws_per_env) {                         \
-    *table_size = k1::Layout<NL, NS, NLIM, NP2P, PLANAR>::SIZE;                             \
-    *ws_per_env = k1::Layout<NL, NS, NLIM, NP2P, PLANAR>::WS_SIZE;                          \
-    return 0;                                                                               \
-  }                                                                                         \
-  K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR)
+// PLANAR, KB, NGRAB). ops/cuda/engine.py::INSTANTIATIONS lists the same names
+// and numbers.
+#define K1_INSTANCE(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB)  \
+  extern "C" int NAME##_layout(int* table_size, int* ws_per_env) {                          \
+    *table_size = k1::Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>::SIZE;                   \
+    *ws_per_env = k1::Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>::WS_SIZE;                \
+    return 0;                                                                                \
+  }                                                                                          \
+  K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB)
 
 #ifndef K1_HOST_CHECK
-#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR)                \
-  extern "C" int NAME##_launch(const float* q, const float* qd, const float* tau,          \
-                               const float* gz, const float* fric, const float* stones,    \
-                               float* q_out, float* qd_out, float* depth, float* nimp,     \
-                               const float* table, int table_size, float* ws, int B,       \
-                               void* stream) {                                             \
-    return k1::launch<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR>(                \
-        q, qd, tau, gz, fric, stones, q_out, qd_out, depth, nimp, table, table_size, ws,   \
-        B, stream);                                                                        \
+#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB)     \
+  extern "C" int NAME##_launch(const float* q, const float* qd, const float* tau,           \
+                               const float* gz, const float* fric, const float* stones,     \
+                               const float* bars, const float* grabs, float* q_out,         \
+                               float* qd_out, float* depth, float* nimp,                    \
+                               const float* table, int table_size, float* ws, int B,        \
+                               void* stream) {                                              \
+    return k1::launch<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB>(     \
+        q, qd, tau, gz, fric, stones, bars, grabs, q_out, qd_out, depth, nimp, table,       \
+        table_size, ws, B, stream);                                                         \
   }
 #else
 // host check: the same per-env code as a plain loop over envs
-#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR)                \
-  extern "C" int NAME##_host(const float* q, const float* qd, const float* tau,            \
-                             const float* gz, const float* fric, const float* stones,      \
-                             float* q_out, float* qd_out, float* depth, float* nimp,       \
-                             const float* table, int table_size, float* ws, int B) {       \
-    if (table_size != k1::Layout<NL, NS, NLIM, NP2P, PLANAR>::SIZE || B <= 0) return 1;     \
-    for (int t = 0; t < B; ++t)                                                             \
-      k1::frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR>(                      \
-          q, qd, tau, gz, fric, stones, q_out, qd_out, depth, nimp, table, ws, B, t);      \
-    return 0;                                                                               \
+#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB)     \
+  extern "C" int NAME##_host(const float* q, const float* qd, const float* tau,             \
+                             const float* gz, const float* fric, const float* stones,       \
+                             const float* bars, const float* grabs, float* q_out,           \
+                             float* qd_out, float* depth, float* nimp, const float* table,  \
+                             int table_size, float* ws, int B) {                            \
+    if (table_size != k1::Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>::SIZE || B <= 0)     \
+      return 1;                                                                              \
+    for (int t = 0; t < B; ++t)                                                              \
+      k1::frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB>(            \
+          q, qd, tau, gz, fric, stones, bars, grabs, q_out, qd_out, depth, nimp, table, ws,  \
+          B, t);                                                                             \
+    return 0;                                                                                \
   }
 #endif
 
 // Walker3D / Child3D at the shipped EngineConfig: 22 links, 14 spheres, 21
 // limit rows, 4 substeps, 4 sweeps.
 #if !defined(K1_ONLY) || K1_ONLY == 0
-K1_INSTANCE(k1a_nl22_ns14_nlim21_sub4_it4, 22, 14, 21, 4, 4, 0, false, 1, 0, false)
+K1_INSTANCE(k1a_nl22_ns14_nlim21_sub4_it4, 22, 14, 21, 4, 4, 0, false, 1, 0, false, 0, 0)
 #endif
 // ... over the 6 culled stones of the stepping-stone env
 #if !defined(K1_ONLY) || K1_ONLY == 1
-K1_INSTANCE(k1c_nl22_ns14_nlim21_sub4_it4_k6, 22, 14, 21, 4, 4, 6, false, 1, 0, false)
+K1_INSTANCE(k1c_nl22_ns14_nlim21_sub4_it4_k6, 22, 14, 21, 4, 4, 6, false, 1, 0, false, 0, 0)
 #endif
 // ... PD-servoed, one llc frame per control step (the PD walkers)
 #if !defined(K1_ONLY) || K1_ONLY == 2
-K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc1, 22, 14, 21, 4, 4, 0, true, 1, 0, false)
+K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc1, 22, 14, 21, 4, 4, 0, true, 1, 0, false, 0, 0)
 #endif
 // ... PD-servoed, two llc frames per control step (λ carried across them)
 #if !defined(K1_ONLY) || K1_ONLY == 3
-K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc2, 22, 14, 21, 4, 4, 0, true, 2, 0, false)
+K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc2, 22, 14, 21, 4, 4, 0, true, 2, 0, false, 0, 0)
 #endif
 // Cassie at its three-rate configuration: 17 links, 5 spheres, 16 limit
 // rows, PD-servoed, 10 llc frames of 2 substeps at 600 Hz per control step,
 // the two achilles rods (37 rows)
 #if !defined(K1_ONLY) || K1_ONLY == 4
-K1_INSTANCE(k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2, 17, 5, 16, 2, 4, 0, true, 10, 2, false)
+K1_INSTANCE(k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2, 17, 5, 16, 2, 4, 0, true, 10, 2, false, 0, 0)
 #endif
 // ... locked to the sagittal plane (40 rows)
 #if !defined(K1_ONLY) || K1_ONLY == 5
-K1_INSTANCE(k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar, 17, 5, 16, 2, 4, 0, true, 10, 2, true)
+K1_INSTANCE(k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar, 17, 5, 16, 2, 4, 0, true, 10, 2, true, 0, 0)
 #endif
 // Walker2D / Crab2D at the shipped EngineConfig: 7 links, 5 spheres, 6 limit
 // rows, torque mode, the planar lock (24 rows)
 #if !defined(K1_ONLY) || K1_ONLY == 6
-K1_INSTANCE(k1e_nl7_ns5_nlim6_sub4_it4_planar, 7, 5, 6, 4, 4, 0, false, 1, 0, true)
+K1_INSTANCE(k1e_nl7_ns5_nlim6_sub4_it4_planar, 7, 5, 6, 4, 4, 0, false, 1, 0, true, 0, 0)
+#endif
+// Monkey3D at the shipped EngineConfig: 11 links, 5 spheres, 8 limit rows,
+// torque mode, 16 bars, two grabs (6 + 8 + 15 = 29 rows)
+#if !defined(K1_ONLY) || K1_ONLY == 7
+K1_INSTANCE(k1d_nl11_ns5_nlim8_sub4_it4_kb16_ng2, 11, 5, 8, 4, 4, 0, false, 1, 0, false, 16, 2)
 #endif

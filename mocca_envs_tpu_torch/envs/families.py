@@ -2,8 +2,8 @@
 
 Counterpart of ``mocca_envs_tpu/envs/families.py`` for the walk-to-target
 walkers (torque and PD, adult and child, and the planar Walker2D / Crab2D),
-the stepping-stone walker and the Cassie families; the other families come
-with later slices.
+the stepping-stone walker, the Cassie families and the brachiating monkey;
+the other families come with later slices.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import functools
 
 from mocca_envs_tpu_torch.envs.registry import register
 from mocca_envs_tpu_torch.tasks.cassie_task import make_cassie
+from mocca_envs_tpu_torch.tasks.monkey_stepper import make_monkey3d_stepper
 from mocca_envs_tpu_torch.tasks.walker_custom import WalkerParams, make_walker3d_custom
 from mocca_envs_tpu_torch.tasks.walker_stepper import make_walker3d_stepper
 
@@ -110,3 +111,4 @@ def _make_crab2d_custom(**kw):
 
 register("Walker2DCustomEnv", _make_walker2d_custom)
 register("Crab2DCustomEnv", _make_crab2d_custom)
+register("Monkey3DStepperEnv", make_monkey3d_stepper)

@@ -1,8 +1,8 @@
-"""Narrowphase: robot collision spheres vs the scene (plane and stones).
+"""Narrowphase: robot collision spheres vs the scene (plane, stones, bars).
 
-Counterpart of ``mocca_envs_tpu/ops/collide.py`` for the plane and the
-oriented stone boxes. One candidate contact per sphere (the deepest across
-the scene's features), so the contact count is static.
+Counterpart of ``mocca_envs_tpu/ops/collide.py`` for the plane, the
+oriented stone boxes and the bar capsules. One candidate contact per sphere
+(the deepest across the scene's features), so the contact count is static.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import torch
 
 from mocca_envs_tpu_torch.models.schema import RobotModel
 from mocca_envs_tpu_torch.ops.kinematics import FrameData
-from mocca_envs_tpu_torch.terrain.scene import Scene, sphere_box_depth
+from mocca_envs_tpu_torch.terrain.scene import Scene, sphere_box_depth, sphere_capsule_depth
 
 
 @dataclasses.dataclass
@@ -43,21 +43,34 @@ def collide(model: RobotModel, fd: FrameData, scene: Scene, margin: float) -> Co
     pos = centers.clone()
     pos[..., 2] = pos[..., 2] - (centers[..., 2] - gz)
 
-    if scene.has_stones:
-        # every sphere against every stone; the deepest active stone per
-        # sphere (the first of equals) replaces the plane where strictly deeper
-        d, n, p = sphere_box_depth(
-            centers[:, :, None, :], model.sph_radius[None, :, None],
-            scene.stone_pos[:, None], scene.stone_quat[:, None], scene.stone_half[:, None],
-        )                                                       # (B, ns, K[, 3])
-        d = torch.where(scene.stone_active[:, None, :] > 0.5, d, torch.full_like(d, -1e9))
+    def merge(d, n, p, active, exclude=None):
+        # the deepest active feature per sphere (the first of equals)
+        # replaces the contact so far where strictly deeper
+        nonlocal depth, normal, pos
+        d = torch.where(active[:, None, :] > 0.5, d, torch.full_like(d, -1e9))
         k = torch.argmax(d, dim=2, keepdim=True)
         k3 = k[..., None].expand(-1, -1, -1, 3)
         d_k = torch.gather(d, 2, k)[..., 0]
         take = d_k > depth
+        if exclude is not None:
+            take = take & ~exclude
         depth = torch.where(take, d_k, depth)
         normal = torch.where(take[..., None], torch.gather(n, 2, k3)[:, :, 0], normal)
         pos = torch.where(take[..., None], torch.gather(p, 2, k3)[:, :, 0], pos)
+
+    if scene.has_stones:
+        # every sphere against every stone: (B, ns, K[, 3])
+        merge(*sphere_box_depth(
+            centers[:, :, None, :], model.sph_radius[None, :, None],
+            scene.stone_pos[:, None], scene.stone_quat[:, None], scene.stone_half[:, None],
+        ), scene.stone_active)
+    if scene.has_bars:
+        # every sphere against every bar; the palms are left out, since a
+        # grabbing hand wraps the bar it holds
+        merge(*sphere_capsule_depth(
+            centers[:, :, None, :], model.sph_radius[None, :, None],
+            scene.bar_a[:, None], scene.bar_b[:, None], scene.bar_r[:, None],
+        ), scene.bar_active, exclude=model.sph_no_bar > 0.5)
 
     return Contacts(
         pos=pos, normal=normal, depth=depth, link=model.sph_link,

@@ -1,26 +1,27 @@
 """K1: the fused engine kernel on Hopper, its wrappers and its plain version.
 
 Counterpart of ``mocca_envs_tpu/ops/pallas/engine.py::make_pallas_substep``
-for floating all-revolute models at the shipped EngineConfig, in four
+for floating all-revolute models at the shipped EngineConfig, in five
 variants: K1a (plane, torque mode), K1c (K1a plus ``stone_window`` oriented
 stone boxes), K1b (PD mode: the whole control step, joint targets in the
-``tau`` input) and K1e (the equality rows of a ``ConstraintSpec`` in front
+``tau`` input), K1e (the equality rows of a ``ConstraintSpec`` in front
 of the others: point-to-point rods and the planar base lock, in torque or PD
-mode). The kernel is CUDA C++ in ``csrc/engine_k1.cu``, one source for all
+mode) and K1d (bar capsules and the maskable grab rows, torque mode). The
+kernel is CUDA C++ in ``csrc/engine_k1.cu``, one source for all
 variants. At first use every instantiation is built with ``nvcc``
 for ``sm_90a`` into ``build/``, one compiler process per instantiation, all
 started together, and called through a plain C interface with ``ctypes``.
 
-- :class:`K1a`, :class:`K1c`, :class:`K1b`, :class:`K1e` wrap one (model,
-  config):
+- :class:`K1a`, :class:`K1c`, :class:`K1b`, :class:`K1e`, :class:`K1d` wrap
+  one (model, config):
   ``launch`` launches the kernel on CUDA tensors and raises on anything
   else. The choice by device is made once, in
   ``ops/step.py::_make_llc_unit``; there is no fallback from one path to
   the other.
 - ``plain`` is the plain PyTorch version: the port's ``ops/step.py`` path
   run for the same unit, on any device.
-- ``LAUNCHES["k1a" | "k1b" | "k1c" | "k1e"]`` counts kernel launches (plain
-  runs do not count).
+- ``LAUNCHES["k1a" | "k1b" | "k1c" | "k1e" | "k1d"]`` counts kernel launches
+  (plain runs do not count).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from mocca_envs_tpu_torch.ops.integrate import LIMIT_SLOP, MAX_VEL
 from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics, joint_q
 from mocca_envs_tpu_torch.ops.step import (
     ConstraintSpec, limited_joints, make_plain_llc, make_substep)
-from mocca_envs_tpu_torch.terrain.scene import STONE_FIELDS, Scene
+from mocca_envs_tpu_torch.terrain.scene import BAR_FIELDS, STONE_FIELDS, Scene
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "engine_k1.cu"
@@ -52,6 +53,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 STONE_FLOATS = 11   # center (3), quaternion (4), half extents (3), active (1)
+BAR_FLOATS = 8      # end a (3), end b (3), radius (1), active (1)
+GRAB_FLOATS = 4     # active (1), target (3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,20 +66,28 @@ class Instance:
 
 
 # (nl, ns, nlim, sim_substeps, solver_iters, stones, pd_mode, llc frames per
-# launch, rods, planar lock) → instantiation; torque mode launches once per
-# llc frame
+# launch, rods, planar lock, bars, grabs) → instantiation; torque mode
+# launches once per llc frame
 INSTANTIATIONS = {
-    (22, 14, 21, 4, 4, 0, False, 1, 0, False): Instance("k1a_nl22_ns14_nlim21_sub4_it4", 0),
-    (22, 14, 21, 4, 4, 6, False, 1, 0, False): Instance("k1c_nl22_ns14_nlim21_sub4_it4_k6", 1),
-    (22, 14, 21, 4, 4, 0, True, 1, 0, False): Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc1", 2),
-    (22, 14, 21, 4, 4, 0, True, 2, 0, False): Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc2", 3),
+    (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0):
+        Instance("k1a_nl22_ns14_nlim21_sub4_it4", 0),
+    (22, 14, 21, 4, 4, 6, False, 1, 0, False, 0, 0):
+        Instance("k1c_nl22_ns14_nlim21_sub4_it4_k6", 1),
+    (22, 14, 21, 4, 4, 0, True, 1, 0, False, 0, 0):
+        Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc1", 2),
+    (22, 14, 21, 4, 4, 0, True, 2, 0, False, 0, 0):
+        Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc2", 3),
     # Cassie and Cassie2D: the whole control step, 10 llc frames × 2 substeps
-    (17, 5, 16, 2, 4, 0, True, 10, 2, False):
+    (17, 5, 16, 2, 4, 0, True, 10, 2, False, 0, 0):
         Instance("k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 4),
-    (17, 5, 16, 2, 4, 0, True, 10, 2, True):
+    (17, 5, 16, 2, 4, 0, True, 10, 2, True, 0, 0):
         Instance("k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar", 5),
     # Walker2D and Crab2D
-    (7, 5, 6, 4, 4, 0, False, 1, 0, True): Instance("k1e_nl7_ns5_nlim6_sub4_it4_planar", 6),
+    (7, 5, 6, 4, 4, 0, False, 1, 0, True, 0, 0):
+        Instance("k1e_nl7_ns5_nlim6_sub4_it4_planar", 6),
+    # Monkey3D: 16 bars, two grabs
+    (11, 5, 8, 4, 4, 0, False, 1, 0, False, 16, 2):
+        Instance("k1d_nl11_ns5_nlim8_sub4_it4_kb16_ng2", 7),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -143,7 +154,7 @@ def build() -> dict:
         getattr(lib, inst.symbol + "_layout").argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
         getattr(lib, inst.symbol + "_layout").restype = _I
         fn = getattr(lib, inst.symbol + "_launch")
-        fn.argtypes = [_P] * 11 + [_I, _P, _I, _P]
+        fn.argtypes = [_P] * 13 + [_I, _P, _I, _P]
         fn.restype = _I
         handles[inst.symbol] = lib
     _Library.handles = handles
@@ -157,7 +168,7 @@ def layout(lib, name: str) -> tuple[int, int]:
     return table.value, ws.value
 
 
-def _check_supported(model: RobotModel, config: EngineConfig, num_stones: int,
+def _check_supported(model: RobotModel, config: EngineConfig, num_stones: int, num_bars: int,
                      pd_mode: bool, constraints: ConstraintSpec) -> Instance:
     if not model.floating or any(t != REVOLUTE for t in model.jtype):
         raise NotImplementedError("K1 covers floating-base all-revolute models")
@@ -166,29 +177,30 @@ def _check_supported(model: RobotModel, config: EngineConfig, num_stones: int,
     off = {k: getattr(config, k) for k, v in options.items() if getattr(config, k) != v}
     if off:
         raise NotImplementedError(f"K1 runs the shipped solver options; got {off}")
-    if constraints.num_grabs:
-        raise NotImplementedError("no K1 instantiation with grab rows (variant K1d) yet")
     key = (model.nl, model.ns, len(limited_joints(model)), config.sim_substeps,
            config.solver_iters, num_stones, pd_mode, config.llc_frames if pd_mode else 1,
-           constraints.num_p2p, constraints.planar)
+           constraints.num_p2p, constraints.planar, num_bars, constraints.num_grabs)
     if key not in INSTANTIATIONS:
         raise NotImplementedError(
             "no K1 instantiation for (nl, ns, nlim, substeps, iters, stones, pd_mode, "
-            f"llc frames, rods, planar) = {key}; built: {sorted(INSTANTIATIONS)}"
+            f"llc frames, rods, planar, bars, grabs) = {key}; built: {sorted(INSTANTIATIONS)}"
         )
     return INSTANTIATIONS[key]
 
 
 def pack_tables(model: RobotModel, config: EngineConfig, extra_damping=None,
-                constraints: ConstraintSpec = ConstraintSpec()) -> np.ndarray:
+                constraints: ConstraintSpec = ConstraintSpec(), num_bars: int = 0) -> np.ndarray:
     """The packed f32 model table, in the order of ``Layout`` in the source.
     ``extra_damping`` (nj,) joins the passive damping, and so the implicit
     diagonal ``dt·(c + dt·k) + armature`` too. The rods of ``constraints``
-    come last: link a, link b, anchor a, anchor b each."""
+    come behind the ancestry (link a, link b, anchor a, anchor b each), then
+    its grabs (link, palm anchor each) and, with bars, each sphere's no_bar
+    flag."""
     m = {k: getattr(model, k).detach().cpu().numpy().astype(np.float64) for k in (
         "joint_quat", "joint_axis", "joint_pos", "com", "mass", "inertia",
         "sph_link", "sph_pos", "sph_radius", "damping", "stiffness",
-        "spring_ref", "armature", "limit_lo", "limit_hi", "actuated", "kp", "anc")}
+        "spring_ref", "armature", "limit_lo", "limit_hi", "actuated", "kp", "anc",
+        "sph_no_bar")}
     dt = config.dt
     scalars = [dt, *config.gravity, config.baumgarte / dt, config.slop,
                config.max_push_vel, config.cfm, config.contact_margin,
@@ -206,99 +218,160 @@ def pack_tables(model: RobotModel, config: EngineConfig, extra_damping=None,
         *([la, lb, *aa, *ab] for la, lb, aa, ab in zip(
             constraints.p2p_link_a, constraints.p2p_link_b,
             constraints.p2p_anchor_a, constraints.p2p_anchor_b)),
+        *([lg, *ag] for lg, ag in zip(constraints.grab_links, constraints.grab_anchors)),
+        m["sph_no_bar"] if num_bars else [],
     ]
     return np.concatenate([np.asarray(p, dtype=np.float64).ravel() for p in parts]).astype(
         np.float32
     )
 
 
+def _pack(rows: torch.Tensor) -> torch.Tensor:
+    """(B, n, c) rows → the kernel's component-major ``(n·c, B)`` layout."""
+    return rows.reshape(rows.shape[0], -1).t().contiguous()
+
+
 def pack_stones(scene: Scene) -> torch.Tensor:
     """The scene's (culled) stones in the kernel's layout, ``(K·11, B)``:
     row ``k·11 + c`` is component c of stone k (center, quaternion, half
     extents, active). One concatenation and one transposed copy."""
-    rows = torch.cat([scene.stone_pos, scene.stone_quat, scene.stone_half,
-                      scene.stone_active[..., None]], dim=2)            # (B, K, 11)
-    return rows.reshape(rows.shape[0], -1).t().contiguous()
+    return _pack(torch.cat([scene.stone_pos, scene.stone_quat, scene.stone_half,
+                            scene.stone_active[..., None]], dim=2))
+
+
+def pack_bars(scene: Scene) -> torch.Tensor:
+    """The scene's bars in the kernel's layout, ``(KB·8, B)``: row ``k·8 + c``
+    is component c of bar k (end a, end b, radius, active)."""
+    return _pack(torch.cat([scene.bar_a, scene.bar_b, scene.bar_r[..., None],
+                            scene.bar_active[..., None]], dim=2))
+
+
+def pack_grabs(grab_active: torch.Tensor, grab_target: torch.Tensor) -> torch.Tensor:
+    """Grab activity (B, ng) and targets (B, ng, 3) in the kernel's layout,
+    ``(ng·4, B)``: row ``g·4 + c`` is component c of grab g (active, target)."""
+    return _pack(torch.cat([grab_active[..., None], grab_target], dim=2))
+
+
+def _unpack(packed: torch.Tensor, fields, widths) -> dict:
+    rows = packed.t().reshape(packed.shape[1], -1, sum(widths))
+    parts = [p[..., 0] if p.shape[-1] == 1 else p for p in rows.split(widths, dim=2)]
+    return dict(zip(fields, parts))
 
 
 def unpack_stones(stones: torch.Tensor) -> dict:
     """Inverse of :func:`pack_stones`: the four stone fields of a Scene."""
-    rows = stones.t().reshape(stones.shape[1], -1, STONE_FLOATS)
-    pos, quat, half, active = rows.split((3, 4, 3, 1), dim=2)
-    return dict(zip(STONE_FIELDS, (pos, quat, half, active[..., 0])))
+    return _unpack(stones, STONE_FIELDS, (3, 4, 3, 1))
 
 
-def make_scene(ground_z, friction, stones=None) -> Scene:
+def unpack_bars(bars: torch.Tensor) -> dict:
+    """Inverse of :func:`pack_bars`: the four bar fields of a Scene."""
+    return _unpack(bars, BAR_FIELDS, (3, 3, 1, 1))
+
+
+def make_scene(ground_z, friction, stones=None, bars=None) -> Scene:
     """The Scene a kernel call's scene arguments describe."""
-    scene = Scene(ground_z=ground_z, friction=friction)
-    return scene if stones is None else dataclasses.replace(scene, **unpack_stones(stones))
+    fields = {**(unpack_stones(stones) if stones is not None else {}),
+              **(unpack_bars(bars) if bars is not None else {})}
+    return Scene(ground_z=ground_z, friction=friction, **fields)
+
+
+def unpack_grabs(grabs: torch.Tensor):
+    """Inverse of :func:`pack_grabs`: ``(grab_active (B, ng), grab_target
+    (B, ng, 3))``."""
+    g = _unpack(grabs, ("active", "target"), (1, 3))
+    return g["active"], g["target"]
 
 
 class EngineKernel:
     """One launch unit of one (model, config, variant) on a batch:
 
     ``launch`` / ``plain``: ``(q (B,nq), qd (B,nv), tau (B,nj), ground_z (B,),
-    friction (B,)[, stones (K·11,B)]) → (q', qd', depth (B,ns),
-    normal_impulse (B,ns))``, all f32. In PD mode ``tau`` holds the joint
-    targets and the unit is the whole control step; else it is one llc frame.
-    ``plain_unit`` is the plain unit to compare against (built here when
-    not given).
+    friction (B,), *scene_inputs) → (q', qd', depth (B,ns), normal_impulse
+    (B,ns))``, all f32. ``scene_inputs`` are the variant's packed inputs
+    named in ``inputs``: none on the plane, ``stones (K·11,B)`` for K1c,
+    ``bars (KB·8,B), grabs (ng·4,B)`` for K1d; :meth:`pack` makes them from a
+    Scene and the grab state. In PD mode ``tau`` holds the joint targets and
+    the unit is the whole control step; else it is one llc frame.
+    ``plain_unit`` is the plain unit to compare against (built here when not
+    given).
     """
 
     variant = "k1"
 
     def __init__(self, model: RobotModel, config: EngineConfig, *, num_stones: int = 0,
-                 pd_mode: bool = False, extra_damping=None, plain_unit=None,
-                 constraints: ConstraintSpec = ConstraintSpec()):
-        self.instance = _check_supported(model, config, num_stones, pd_mode, constraints)
+                 num_bars: int = 0, pd_mode: bool = False, extra_damping=None,
+                 plain_unit=None, constraints: ConstraintSpec = ConstraintSpec()):
+        self.instance = _check_supported(model, config, num_stones, num_bars, pd_mode,
+                                         constraints)
         self.name = self.instance.symbol
         self.model = model
         self.config = config
         self.num_stones = num_stones
+        self.num_bars = num_bars
         self.pd_mode = pd_mode
         self.extra_damping = extra_damping
         self.constraints = constraints
-        self.table_host = pack_tables(model, config, extra_damping, constraints)
+        self.inputs = (("stones",) if num_stones else ()) + (
+            ("bars", "grabs") if num_bars else ())
+        self.table_host = pack_tables(model, config, extra_damping, constraints, num_bars)
         self._plain_unit = plain_unit
         self._table: torch.Tensor | None = None
         self._ws: torch.Tensor | None = None
 
-    def plain(self, q, qd, tau, ground_z, friction, stones=None):
+    def pack(self, scene: Scene, grab_active=None, grab_target=None) -> tuple:
+        """This variant's scene inputs for ``scene`` and the grab state."""
+        packed = {"stones": lambda: pack_stones(scene), "bars": lambda: pack_bars(scene),
+                  "grabs": lambda: pack_grabs(grab_active, grab_target)}
+        return tuple(packed[name]() for name in self.inputs)
+
+    def unpack(self, ground_z, friction, *scene_inputs):
+        """``(Scene, grab_active, grab_target)`` of a call's inputs (no grabs:
+        ``None, None``)."""
+        named = dict(zip(self.inputs, scene_inputs))
+        grabs = named.pop("grabs", None)
+        scene = make_scene(ground_z, friction, **named)
+        return (scene, *(unpack_grabs(grabs) if grabs is not None else (None, None)))
+
+    def plain(self, q, qd, tau, ground_z, friction, *scene_inputs):
         """The plain PyTorch version on any device (never counted)."""
         if self._plain_unit is None:
             substep = make_substep(self.model, self.config, self.constraints,
                                    extra_damping=self.extra_damping)
             self._plain_unit = make_plain_llc(self.model, self.config, substep, self.pd_mode)
-        qq, dd, info = self._plain_unit(q, qd, tau, make_scene(ground_z, friction, stones))
+        qq, dd, info = self._plain_unit(q, qd, tau,
+                                        *self.unpack(ground_z, friction, *scene_inputs))
         return qq, dd, info.contacts.depth, info.normal_impulse
 
-    def _check_inputs(self, q, qd, tau, ground_z, friction, stones) -> int:
+    def _check_inputs(self, q, qd, tau, ground_z, friction, scene_inputs) -> int:
         B = q.shape[0]
         m = self.model
         want = {"q": (q, (B, m.nq)), "qd": (qd, (B, m.nv)), "tau": (tau, (B, m.nj)),
                 "ground_z": (ground_z, (B,)), "friction": (friction, (B,))}
-        if self.num_stones:
-            if stones is None:
-                raise ValueError(f"{self.variant}: needs the packed stones of the scene")
-            want["stones"] = (stones, (self.num_stones * STONE_FLOATS, B))
-        elif stones is not None:
-            raise ValueError(f"{self.variant}: this variant takes no stones")
+        if len(scene_inputs) != len(self.inputs):
+            raise ValueError(f"{self.variant}: takes the scene inputs {self.inputs}, "
+                             f"got {len(scene_inputs)} of them")
+        rows = {"stones": self.num_stones * STONE_FLOATS, "bars": self.num_bars * BAR_FLOATS,
+                "grabs": self.constraints.num_grabs * GRAB_FLOATS}
+        for name, x in zip(self.inputs, scene_inputs):
+            want[name] = (x, (rows[name], B))
+        # shapes and dtypes of every input first, then where they live
         for name, (x, shape) in want.items():
-            if x.device.type != "cuda" or x.device != q.device:
-                raise ValueError(
-                    f"{self.variant}: {name} must be on {q.device} (CUDA), got {x.device}")
-            if x.dtype != torch.float32:
-                raise TypeError(f"{self.variant}: {name} must be float32, got {x.dtype}")
             if tuple(x.shape) != shape:
                 raise ValueError(
                     f"{self.variant}: {name} has shape {tuple(x.shape)}, want {shape}")
+            if x.dtype != torch.float32:
+                raise TypeError(f"{self.variant}: {name} must be float32, got {x.dtype}")
+        for name, (x, _) in want.items():
+            if x.device.type != "cuda" or x.device != q.device:
+                raise ValueError(
+                    f"{self.variant}: {name} must be on {q.device} (CUDA), got {x.device}")
             if not x.is_contiguous():
                 raise ValueError(f"{self.variant}: {name} must be contiguous")
         return B
 
-    def launch(self, q, qd, tau, ground_z, friction, stones=None):
+    def launch(self, q, qd, tau, ground_z, friction, *scene_inputs):
         """Launch the kernel on the current stream; raises on any failure."""
-        B = self._check_inputs(q, qd, tau, ground_z, friction, stones)
+        B = self._check_inputs(q, qd, tau, ground_z, friction, scene_inputs)
         lib = build()[self.name]
         table_size, ws_per_env = layout(lib, self.name)
         if table_size != self.table_host.size:
@@ -316,11 +389,13 @@ class EngineKernel:
         qd_out = torch.empty_like(qd)
         depth = torch.empty((B, m.ns), dtype=torch.float32, device=dev)
         nimp = torch.empty((B, m.ns), dtype=torch.float32, device=dev)
+        named = dict(zip(self.inputs, scene_inputs))
+        ptr = lambda name: named[name].data_ptr() if name in named else None  # noqa: E731
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             err = getattr(lib, self.name + "_launch")(
                 q.data_ptr(), qd.data_ptr(), tau.data_ptr(), ground_z.data_ptr(),
-                friction.data_ptr(), stones.data_ptr() if self.num_stones else None,
+                friction.data_ptr(), ptr("stones"), ptr("bars"), ptr("grabs"),
                 q_out.data_ptr(), qd_out.data_ptr(), depth.data_ptr(), nimp.data_ptr(),
                 self._table.data_ptr(), table_size, self._ws.data_ptr(), B, stream,
             )
@@ -375,17 +450,35 @@ class K1e(EngineKernel):
                          plain_unit=plain_unit, constraints=constraints)
 
 
-def make_kernel(model, config, *, num_stones=0, pd_mode=False, extra_damping=None,
+class K1d(EngineKernel):
+    """One llc frame over ``num_bars`` bar capsules with the maskable grab
+    rows of ``constraints``, torque mode; the scene inputs are the packed
+    bars and grabs (:func:`pack_bars`, :func:`pack_grabs`)."""
+
+    variant = "k1d"
+
+    def __init__(self, model, config, constraints: ConstraintSpec, num_bars: int,
+                 plain_unit=None):
+        super().__init__(model, config, num_bars=num_bars, plain_unit=plain_unit,
+                         constraints=constraints)
+
+
+def make_kernel(model, config, *, num_stones=0, num_bars=0, pd_mode=False, extra_damping=None,
                 plain_unit=None, constraints: ConstraintSpec = ConstraintSpec()) -> EngineKernel:
-    """The variant for a scene with ``num_stones`` (culled) stones, the
-    actuation mode and the equality rows; combinations without an
-    instantiation raise."""
+    """The variant for a scene with ``num_stones`` (culled) stones and
+    ``num_bars`` bars, the actuation mode and the equality rows;
+    combinations without an instantiation raise."""
     if pd_mode and num_stones:
         raise NotImplementedError("no K1 instantiation for PD mode over stones")
     if constraints.ne and num_stones:
         raise NotImplementedError("no K1 instantiation for equality rows over stones")
     if extra_damping is not None and not pd_mode:
         raise NotImplementedError("no K1 instantiation for extra damping in torque mode")
+    if num_bars or constraints.num_grabs:
+        if pd_mode or num_stones:
+            raise NotImplementedError("no K1 instantiation for bars or grabs in PD mode "
+                                      "or over stones")
+        return K1d(model, config, constraints, num_bars, plain_unit)
     if constraints.ne:
         return K1e(model, config, constraints, pd_mode, extra_damping, plain_unit)
     if pd_mode:
@@ -395,18 +488,19 @@ def make_kernel(model, config, *, num_stones=0, pd_mode=False, extra_damping=Non
     return K1a(model, config, plain_unit)
 
 
-def k1_activity(kernel: EngineKernel, q, qd, tau, ground_z, friction, stones=None):
+def k1_activity(kernel: EngineKernel, q, qd, tau, ground_z, friction, *scene_inputs):
     """Which rows each substep of one call of ``kernel`` needs, on these
     inputs: limit rows within the limit margin and spheres within the contact
     margin, at each substep's start state, taken from the plain version's
-    run of the unit (equality rows are always active and have no mask).
+    run of the unit (rods and the planar lock are always active, a grab's
+    rows as its input says for the whole call: neither has a mask here).
     Returns bool masks ``(limits (S,B,nlim), contacts (S,B,ns))`` over the
     S = llc frames × substeps of the call."""
     model, config = kernel.model, kernel.config
     substep = make_substep(model, config, kernel.constraints,
                            extra_damping=kernel.extra_damping)
     lim = torch.as_tensor(limited_joints(model), dtype=torch.long, device=q.device)
-    scene = make_scene(ground_z, friction, stones)
+    scene, grab_active, grab_target = kernel.unpack(ground_z, friction, *scene_inputs)
     gain = model.actuated * model.kp
     lam = q.new_zeros(q.shape[0], substep.num_rows)
     lim_act, con_act = [], []
@@ -417,15 +511,16 @@ def k1_activity(kernel: EngineKernel, q, qd, tau, ground_z, friction, stones=Non
             qj = joint_q(model, q)[:, lim]
             gap = torch.minimum(qj - model.limit_lo[lim], model.limit_hi[lim] - qj)
             lim_act.append(gap < config.limit_margin)
-            q, qd, info, lam = substep(q, qd, tau_j, scene, Minv_in=Minv0, lam_in=lam)
+            q, qd, info, lam = substep(q, qd, tau_j, scene, grab_active, grab_target,
+                                       Minv_in=Minv0, lam_in=lam)
             con_act.append(info.contacts.active > 0.5)
     return torch.stack(lim_act), torch.stack(con_act)
 
 
-def k1_flops(kernel: EngineKernel, lim_act, con_act, stones=None) -> int:
+def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs) -> int:
     """fp32 operations one call of ``kernel`` needs, summed over the batch,
     given the activity masks of :func:`k1_activity` and the call's packed
-    stones (a multiply-add counts 2).
+    scene inputs (stones; bars, grabs), a multiply-add counting 2.
 
     Every substep needs FK, the narrowphase, RNEA, the free velocity and the
     integration; each llc frame needs CRBA and the Cholesky factor once.
@@ -436,14 +531,19 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, stones=None) -> int:
     stones, every sphere is tested against every active stone of the window
     each substep (a narrowphase has to test a pair to know its depth), each
     sphere's deepest stone is carried to the world frame, and every active
-    contact projects its Jacobian onto its own normal and tangents. PD mode
-    adds the torque per llc frame. Equality rows are needed every substep: a
-    rod takes its two anchors to the world frame, two point Jacobians over
-    the anchors' ancestor joints, their difference, three dense W rows with
+    contact projects its Jacobian onto its own normal and tangents. With
+    bars, every sphere that may touch them (not the palms) is tested against
+    every active bar each substep, its deepest bar's normal and point made
+    once, and active contacts project as over stones. PD mode adds the torque
+    per llc frame. Rods and the planar lock are needed every substep: a rod
+    takes its two anchors to the world frame, two point Jacobians over the
+    anchors' ancestor joints, their difference, three dense W rows with
     their diagonals, targets, sweeps and (from the second substep of the
-    call on) warm starts; a planar row is a unit row like a limit row. The
-    kernel today runs every row whether or not it is active, so it does more
-    work than this count, even with masks of all ones."""
+    call on) warm starts; a planar row is a unit row like a limit row. A
+    grab is needed only where it is attached: its palm to the world frame,
+    one point Jacobian, three dense rows like a rod's. The kernel today runs
+    every row whether or not it is active, so it does more work than this
+    count, even with masks of all ones."""
     model, config = kernel.model, kernel.config
     nl, nj, nv, ns = model.nl, model.nj, model.nv, model.ns
     lim = limited_joints(model)
@@ -486,16 +586,30 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, stones=None) -> int:
     total = S * B * per_sub + frames * B * (crba + chol)
     total += float((la * lim_row).sum() + (ca * con_row).sum())
     total += float((la[1:] * la[:-1] * lim_warm).sum() + (ca[1:] * ca[:-1] * con_warm).sum())
-    any_act = (lim_act.any(dim=2) | con_act.any(dim=2)).sum()
-    total += float(any_act) * (nv * nv)
-    if stones is not None:
+    named = dict(zip(kernel.inputs, scene_inputs))
+    grab_on = unpack_grabs(named["grabs"])[0].cpu() > 0.5 if "grabs" in named else None
+    any_act = lim_act.cpu().any(dim=2) | con_act.cpu().any(dim=2)
+    if grab_on is not None:
+        any_act = any_act | grab_on.any(dim=1)
+    total += float(any_act.sum()) * (nv * nv)
+    if "stones" in named:
         # per (sphere, active stone): into the box frame (33), clamp and
         # distance (20), depth and compare (2); per sphere: its deepest
         # stone's normal and point into the world frame (2 × 30 + 3) and the
-        # merge with the plane; per active contact: the tangent basis (15)
-        # and three projections of the 3 × nv point Jacobian (5 each)
-        n_active = (unpack_stones(stones)["stone_active"] > 0.5).double().sum()
+        # merge with the plane
+        n_active = (unpack_stones(named["stones"])["stone_active"] > 0.5).double().sum()
         total += S * ns * (55.0 * float(n_active) + B * 64.0)
+    if "bars" in named:
+        # per (sphere, active bar): the segment parameter (two dots, a
+        # divide, a clamp: 17), the closest point (6), distance (9), depth
+        # and compare (3); per sphere: its deepest bar's normal and point
+        # (11) and the merge with the plane
+        n_active = (unpack_bars(named["bars"])["bar_active"] > 0.5).double().sum()
+        n_sph = float((model.sph_no_bar < 0.5).sum())
+        total += S * n_sph * (35.0 * float(n_active) + B * 11.0)
+    if named:
+        # per active contact: the tangent basis (15) and three projections of
+        # the 3 × nv point Jacobian (5 each)
         total += float(ca.sum()) * (15 + 3 * nv * 5)
     if kernel.pd_mode:
         total += frames * B * nj * 3
@@ -513,14 +627,20 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, stones=None) -> int:
             eq_warm += 2 * span
         eq_sub += 6                                                # the two sine surrogates
     total += B * (S * eq_sub + (S - 1) * eq_warm)
+    if grab_on is not None:
+        attached = grab_on.double().sum(dim=0)                      # (ng,)
+        for g, lg in enumerate(spec.grab_links):
+            grab_sub = 18 + anc[lg].sum() * 12 + 9 + 3 * nv + 3 * (dense_row + 6)
+            total += float(attached[g]) * (S * grab_sub + (S - 1) * 3 * 2 * nv)
     return int(round(total))
 
 
 def k1_bytes_per_env(kernel: EngineKernel) -> int:
     """Bytes one env must move: each input read once, each output written
-    once (q, qd, tau, ground_z, friction and the window's stones in; q', qd',
-    depth, impulse out)."""
+    once (q, qd, tau, ground_z, friction, the window's stones, the bars and
+    the grabs in; q', qd', depth, impulse out)."""
     model = kernel.model
-    inputs = model.nq + model.nv + model.nj + 2 + kernel.num_stones * STONE_FLOATS
+    inputs = (model.nq + model.nv + model.nj + 2 + kernel.num_stones * STONE_FLOATS
+              + kernel.num_bars * BAR_FLOATS + kernel.constraints.num_grabs * GRAB_FLOATS)
     outputs = model.nq + model.nv + 2 * model.ns
     return 4 * (inputs + outputs)

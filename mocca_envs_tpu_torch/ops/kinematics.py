@@ -94,6 +94,42 @@ def forward_kinematics(model: RobotModel, q: torch.Tensor, qd: torch.Tensor) -> 
     )
 
 
+def make_link_poses(model: RobotModel, links: tuple):
+    """Build ``poses(q) → (origins (B, K, 3), orientations (B, K, 3, 3))`` of
+    the links ``links`` (static indices), for task-side queries of a few
+    points, where the whole :func:`forward_kinematics` would issue more
+    small launches than the rest of a step. The chain is walked over the
+    links' ancestors only, positions and rotation matrices alone: a joint's
+    rotation is its fixed frame times Rodrigues' ``I + sin θ K + (1 − cos θ)
+    K²`` about its axis, which agrees with the quaternion chain of the full
+    FK up to rounding."""
+    need = set()
+    for link in links:
+        while link > 0 and link not in need:
+            need.add(link)
+            link = model.parent[link]
+    order = sorted(need)
+    # per-joint constants, made once
+    frame = quat_ops.to_matrix(model.joint_quat)           # (nj, 3, 3)
+    K = skew(model.joint_axis)
+    K2 = K @ K
+    eye = torch.eye(3, dtype=K.dtype, device=K.device)
+
+    def poses(q: torch.Tensor):
+        qj = joint_q(model, q)
+        bp, bq, _, _ = _base_state(model, q, q[:, :0])
+        pos, rot = {0: bp}, {0: quat_ops.to_matrix(bq)}
+        for i in order:
+            j, p = i - 1, model.parent[i]
+            s, c = torch.sin(qj[:, j, None, None]), torch.cos(qj[:, j, None, None])
+            pos[i] = pos[p] + rot[p] @ model.joint_pos[j]
+            rot[i] = rot[p] @ frame[j] @ (eye + s * K[j] + (1.0 - c) * K2[j])
+        return (torch.stack([pos[k] for k in links], dim=1),
+                torch.stack([rot[k] for k in links], dim=1))
+
+    return poses
+
+
 def point_jacobian(model: RobotModel, fd: FrameData, link: torch.Tensor,
                    point: torch.Tensor) -> torch.Tensor:
     """Translational Jacobians (B, K, 3, nv) of K world points ``point``

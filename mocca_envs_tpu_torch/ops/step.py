@@ -1,9 +1,10 @@
 """The assembled physics step, batch-first.
 
 Counterpart of ``mocca_envs_tpu/ops/step.py`` for floating-base models over
-the plane and the stone boxes, with torque or PD actuation and the
-permanent equality rows of a :class:`ConstraintSpec` (point-to-point rods,
-the planar base lock; grab rows are not ported yet).
+the plane, the stone boxes and the bar capsules, with torque or PD actuation
+and the equality rows of a :class:`ConstraintSpec` (point-to-point rods, the
+planar base lock, and the maskable grab rows whose activity and anchor are
+per-env data: ``grab_active (B, ng)``, ``grab_target (B, ng, 3)``).
 
     control step
       └─ llc frame × llc_frames:   actuation (torques held over the frame,
@@ -17,9 +18,10 @@ A launch unit is one llc frame in torque mode (λ starts at zero each frame)
 and the whole control step in PD mode (λ carried across its llc frames). On
 CPU tensors a unit runs this plain PyTorch path. On CUDA tensors it runs as
 ONE launch of the hand-written engine kernel (ops/cuda/engine.py: K1a on the
-plane, K1c over stones, K1b in PD mode, K1e with equality rows), which
-computes the same unit; there is no fallback between the two. Stones are
-culled to ``config.stone_window`` once per unit, before either path.
+plane, K1c over stones, K1b in PD mode, K1e with equality rows, K1d over bars
+with grab rows), which computes the same unit; there is no fallback between
+the two. Stones are culled to ``config.stone_window`` once per unit, before
+either path; bars are never culled.
 """
 
 from __future__ import annotations
@@ -53,8 +55,8 @@ class ConstraintSpec:
       (Cassie's achilles rods closing the leg four-bars);
     - ``planar``: locks base y-translation, roll and yaw (the 2D variants);
     - ``num_grabs``: world-anchor constraints whose activation and anchor
-      are runtime data (monkey-bar grabs). The fields are carried, the rows
-      are not ported yet: a spec with grabs raises where a step is built.
+      are runtime data (monkey-bar grabs): the point ``grab_anchors[g]`` of
+      link ``grab_links[g]`` is pulled onto its target while active.
     """
 
     p2p_link_a: tuple = ()
@@ -100,8 +102,10 @@ class StepInfo:
 def make_substep(model: RobotModel, config: EngineConfig,
                  constraints: ConstraintSpec = ConstraintSpec(),
                  extra_damping: torch.Tensor | None = None):
-    """Build ``substep(q, qd, tau_joint, scene, Minv_in=None, lam_in=None)
-    → (q', qd', StepInfo, λ)`` over a batch (B, ·).
+    """Build ``substep(q, qd, tau_joint, scene, grab_active=None,
+    grab_target=None, Minv_in=None, lam_in=None) → (q', qd', StepInfo, λ)``
+    over a batch (B, ·). A spec with grabs needs ``grab_active (B, ng)`` and
+    ``grab_target (B, ng, 3)``.
 
     ``extra_damping`` (nj,) adds per-joint viscous damping handled
     implicitly every substep: the home of a PD servo's −k_d·q̇ term. An
@@ -110,13 +114,11 @@ def make_substep(model: RobotModel, config: EngineConfig,
     violates at any practical rate; in the system matrix it is stable."""
     if config.split_impulse:
         raise NotImplementedError("split_impulse is not ported yet")
-    if constraints.num_grabs > 0:
-        raise NotImplementedError(
-            "grab rows are not ported yet: they come with the bar-capsule kernel variant K1d")
     dt = config.dt
     ns = model.ns
     ne = constraints.ne
     num_p2p = constraints.num_p2p
+    num_grabs = constraints.num_grabs
     lim_idx = limited_joints(model)
     nlim = len(lim_idx)
     base_off = 6 if model.floating else 0
@@ -129,6 +131,10 @@ def make_substep(model: RobotModel, config: EngineConfig,
         p2p_lb = torch.as_tensor(constraints.p2p_link_b, dtype=torch.long, device=dev)
         p2p_aa = torch.as_tensor(constraints.p2p_anchor_a, dtype=torch.float32, device=dev)
         p2p_ab = torch.as_tensor(constraints.p2p_anchor_b, dtype=torch.float32, device=dev)
+    if num_grabs:
+        dev = model.device
+        grab_l = torch.as_tensor(constraints.grab_links, dtype=torch.long, device=dev)
+        grab_anc = torch.as_tensor(constraints.grab_anchors, dtype=torch.float32, device=dev)
     if constraints.planar:
         # base linear y, angular x (roll rate), angular z (yaw rate)
         planar_J = torch.zeros(3, model.nv, device=model.device)
@@ -150,7 +156,8 @@ def make_substep(model: RobotModel, config: EngineConfig,
         jd = torch.cat([joint_diag.new_zeros(6), joint_diag]) if model.floating else joint_diag
         return linalg.chol_inverse(linalg.chol_factor(M + torch.diag(jd)))
 
-    def substep(q, qd, tau_joint, scene: Scene, Minv_in=None, lam_in=None):
+    def substep(q, qd, tau_joint, scene: Scene, grab_active=None, grab_target=None,
+                Minv_in=None, lam_in=None):
         B = q.shape[0]
         fd = forward_kinematics(model, q, qd)
         contacts = collide_mod.collide(model, fd, scene, config.contact_margin)
@@ -190,6 +197,13 @@ def make_substep(model: RobotModel, config: EngineConfig,
             rows_J.append(planar_J.expand(B, 3, -1))
             rows_tgt.append(eq_target(err))
             rows_act.append(q.new_ones(B, 3))
+        # grab rows: a world-anchor point Jacobian per hand, the palm pulled
+        # onto its target, all three rows masked by the hand's activity
+        if num_grabs:
+            xg = fd.pos[:, grab_l] + torch.einsum("bkij,kj->bki", fd.rot[:, grab_l], grab_anc)
+            rows_J.append(point_jacobian(model, fd, grab_l, xg).reshape(B, 3 * num_grabs, -1))
+            rows_tgt.append(eq_target(xg - grab_target).reshape(B, -1))
+            rows_act.append(grab_active.repeat_interleave(3, dim=1))
         # joint-limit rows: unilateral, signed toward the nearer bound
         if nlim:
             d_lo = qj[:, li] - model.limit_lo[li]
@@ -264,14 +278,15 @@ def make_plain_llc(model: RobotModel, config: EngineConfig, substep=None,
     frames = config.llc_frames if pd_mode else 1
     pd_gain = model.actuated * model.kp
 
-    def plain_unit(q, qd, tau_or_targets, scene: Scene):
+    def plain_unit(q, qd, tau_or_targets, scene: Scene, grab_active=None, grab_target=None):
         reuse = config.reuse_factor and config.sim_substeps > 1
         lam = q.new_zeros(q.shape[0], substep.num_rows) if config.warm_start else None
         for _ in range(frames):
             tau_j = pd_gain * (tau_or_targets - joint_q(model, q)) if pd_mode else tau_or_targets
             Minv0 = substep.minv_of(forward_kinematics(model, q, qd)) if reuse else None
             for _ in range(config.sim_substeps):
-                q, qd, info, lam_out = substep(q, qd, tau_j, scene, Minv_in=Minv0, lam_in=lam)
+                q, qd, info, lam_out = substep(q, qd, tau_j, scene, grab_active, grab_target,
+                                               Minv_in=Minv0, lam_in=lam)
                 lam = lam_out if config.warm_start else None
         return q, qd, info
 
@@ -303,25 +318,28 @@ def _make_llc_unit(model: RobotModel, config: EngineConfig, substep,
     """One launch unit (see :func:`make_plain_llc`). Stones are culled to the
     window first, on both paths. CPU tensors then take the plain path; any
     other device launches the engine kernel of the scene's, the actuation's
-    and the constraints' variant, which raises where it cannot run."""
+    and the constraints' variant, which raises where it cannot run. The
+    kernel's scene inputs (stones; bars and grabs) are packed per unit."""
     plain_unit = make_plain_llc(model, config, substep, pd_mode)
     kernels: dict = {}
 
-    def llc_unit(q, qd, tau_or_targets, scene: Scene):
+    def llc_unit(q, qd, tau_or_targets, scene: Scene, grab_active=None, grab_target=None):
         scene = cull_stones(scene, q[:, 0:2], config.stone_window)
         if q.device.type == "cpu":
-            return plain_unit(q, qd, tau_or_targets, scene)
+            return plain_unit(q, qd, tau_or_targets, scene, grab_active, grab_target)
         from mocca_envs_tpu_torch.ops.cuda import engine as cuda_engine
 
-        num_stones = scene.stone_pos.shape[1] if scene.has_stones else 0
-        if num_stones not in kernels:
-            kernels[num_stones] = cuda_engine.make_kernel(
-                model, config, num_stones=num_stones, pd_mode=pd_mode,
+        key = (scene.stone_pos.shape[1] if scene.has_stones else 0,
+               scene.bar_a.shape[1] if scene.has_bars else 0)
+        if key not in kernels:
+            kernels[key] = cuda_engine.make_kernel(
+                model, config, num_stones=key[0], num_bars=key[1], pd_mode=pd_mode,
                 extra_damping=extra_damping, plain_unit=plain_unit,
                 constraints=constraints)
-        stones = (cuda_engine.pack_stones(scene),) if num_stones else ()
-        qq, dd, depth, nimp = kernels[num_stones].launch(
-            q, qd, tau_or_targets, scene.ground_z, scene.friction, *stones)
+        kernel = kernels[key]
+        qq, dd, depth, nimp = kernel.launch(
+            q, qd, tau_or_targets, scene.ground_z, scene.friction,
+            *kernel.pack(scene, grab_active, grab_target))
         return qq, dd, info_from_kernel(model, config, depth, nimp)
 
     return llc_unit
@@ -332,7 +350,9 @@ def make_control_step(model: RobotModel, config: EngineConfig,
                       actuation: Callable | None = None,
                       extra_damping: torch.Tensor | None = None,
                       pd_targets: Callable | None = None):
-    """Control-rate step ``(q, qd, action, scene) → (q', qd', StepInfo)``.
+    """Control-rate step ``(q, qd, action, scene, grab_active=None,
+    grab_target=None) → (q', qd', StepInfo)``; the grab arguments are needed
+    when ``constraints`` has grabs and are held over the control step.
 
     Torque families: ``actuation(q, qd, action) → tau_joint`` runs once per
     llc frame. PD families give ``pd_targets(action) → joint targets``; the
@@ -343,8 +363,8 @@ def make_control_step(model: RobotModel, config: EngineConfig,
         pd_unit = _make_llc_unit(model, config, substep, constraints, extra_damping,
                                  pd_mode=True)
 
-        def pd_control_step(q, qd, action, scene: Scene):
-            return pd_unit(q, qd, pd_targets(action), scene)
+        def pd_control_step(q, qd, action, scene: Scene, grab_active=None, grab_target=None):
+            return pd_unit(q, qd, pd_targets(action), scene, grab_active, grab_target)
 
         return pd_control_step
 
@@ -352,10 +372,11 @@ def make_control_step(model: RobotModel, config: EngineConfig,
         actuation = lambda q, qd, a: a  # noqa: E731 - raw joint torques
     llc_unit = _make_llc_unit(model, config, substep, constraints, extra_damping)
 
-    def control_step(q, qd, action, scene: Scene):
+    def control_step(q, qd, action, scene: Scene, grab_active=None, grab_target=None):
         info = None
         for _ in range(config.llc_frames):
-            q, qd, info = llc_unit(q, qd, actuation(q, qd, action), scene)
+            q, qd, info = llc_unit(q, qd, actuation(q, qd, action), scene, grab_active,
+                                   grab_target)
         return q, qd, info
 
     return control_step

@@ -1,10 +1,12 @@
 """Scene: the world geometry the robot collides with, batch-first.
 
-Counterpart of ``mocca_envs_tpu/terrain/scene.py`` for the plane and the
-oriented stone boxes: one infinite plane per env with its friction
-coefficient and, for stepping-stone scenes, ``K`` boxes per env with the
-sphere-vs-box narrowphase and the per-control-step culling of the stones
-nearest the root. Heightfields, bars and meshes come with later slices.
+Counterpart of ``mocca_envs_tpu/terrain/scene.py`` for the plane, the
+oriented stone boxes and the bar capsules: one infinite plane per env with
+its friction coefficient; for stepping-stone scenes ``K`` boxes per env with
+the sphere-vs-box narrowphase and the per-control-step culling of the stones
+nearest the root; for monkey-bar scenes ``KB`` capsules per env (handholds)
+with the sphere-vs-capsule narrowphase, never culled. Heightfields and
+meshes come with later slices.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from mocca_envs_tpu_torch.core import quat as quat_ops
 
 STONE_FIELDS = ("stone_pos", "stone_quat", "stone_half", "stone_active")
+BAR_FIELDS = ("bar_a", "bar_b", "bar_r", "bar_active")
 
 
 @dataclasses.dataclass
@@ -27,10 +30,19 @@ class Scene:
     stone_quat: torch.Tensor | None = None     # (B, K, 4) wxyz
     stone_half: torch.Tensor | None = None     # (B, K, 3) half extents
     stone_active: torch.Tensor | None = None   # (B, K) 1.0 = solid
+    # bar capsules (handholds); all four are None in a scene without bars
+    bar_a: torch.Tensor | None = None          # (B, KB, 3) segment start
+    bar_b: torch.Tensor | None = None          # (B, KB, 3) segment end
+    bar_r: torch.Tensor | None = None          # (B, KB) capsule radius
+    bar_active: torch.Tensor | None = None     # (B, KB) 1.0 = solid
 
     @property
     def has_stones(self) -> bool:
         return self.stone_pos is not None
+
+    @property
+    def has_bars(self) -> bool:
+        return self.bar_a is not None
 
 
 def flat(batch: int, device="cpu", ground_z: float = 0.0, friction: float = 0.8) -> Scene:
@@ -51,6 +63,18 @@ def with_stones(stone_pos, stone_quat, stone_half, stone_active=None,
     base = flat(B, stone_pos.device, ground_z, friction)
     return dataclasses.replace(base, stone_pos=stone_pos, stone_quat=stone_quat,
                                stone_half=stone_half, stone_active=stone_active)
+
+
+def with_bars(bar_a, bar_b, bar_r, bar_active=None, ground_z: float = -8.0,
+              friction: float = 0.8) -> Scene:
+    """Monkey-bar world: capsules (B, KB, ·) over a plane far below, which
+    ends the episode of a body that falls."""
+    B, KB = bar_a.shape[:2]
+    if bar_active is None:
+        bar_active = bar_a.new_ones(B, KB)
+    base = flat(B, bar_a.device, ground_z, friction)
+    return dataclasses.replace(base, bar_a=bar_a, bar_b=bar_b, bar_r=bar_r,
+                               bar_active=bar_active)
 
 
 def cull_stones(scene: Scene, root_xy: torch.Tensor, window: int) -> Scene:
@@ -99,3 +123,22 @@ def sphere_box_depth(center, radius, box_pos, box_quat, box_half):
     n_world = quat_ops.rotate(box_quat, n_local)
     p_world = box_pos + quat_ops.rotate(box_quat, surf_local)
     return depth, n_world, p_world
+
+
+def sphere_capsule_depth(center, radius, seg_a, seg_b, cap_r):
+    """Sphere vs capsule: ``(depth, normal, contact_point)``; every argument
+    broadcasts over leading dimensions (vectors on the last one).
+
+    The closest point of the segment to the center; the depth is measured to
+    the capsule's surface. A center on the axis (distance ≤ 1e-9) takes the
+    normal +z, so that its row stays solvable."""
+    ab = seg_b - seg_a
+    t = ((center - seg_a) * ab).sum(-1) / torch.clamp((ab * ab).sum(-1), min=1e-12)
+    closest = seg_a + torch.clamp(t, 0.0, 1.0)[..., None] * ab
+    delta = center - closest
+    dist = torch.linalg.vector_norm(delta, dim=-1)
+    up = torch.zeros_like(delta)
+    up[..., 2] = 1.0
+    n = torch.where((dist > 1e-9)[..., None], delta / torch.clamp(dist, min=1e-9)[..., None], up)
+    depth = radius + cap_r - dist
+    return depth, n, closest + n * cap_r[..., None]

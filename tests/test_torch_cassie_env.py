@@ -12,8 +12,9 @@ at most one foot flag apart per step, ``phase`` and ``prev_action`` equal,
 the metrics within 2e-2; auto-reset fires on the same steps (one slot
 runs into the step cap, one starts below the fall height) and a fresh
 episode has the spawn height, zeroed counters and joints within the noise
-band of the stand pose. The JAX side steps one env at a time (the unit runs
-slower per env under ``vmap`` on the CPU backend).
+band of the stand pose. The JAX side steps one env per call (the unit runs
+slower per env under ``vmap`` on the CPU backend), the calls side by side on
+threads.
 
 Port only: ``obs_dim`` is 8 + 2·16 + 2 (+ 2 with the phase clock);
 ``reset_obs="zero"`` and ``"exact"`` give the same step but for the foot
@@ -36,6 +37,8 @@ from mocca_envs_tpu_torch import convert
 from mocca_envs_tpu_torch.core import rng as trng
 from mocca_envs_tpu_torch.models import cassie as tcassie
 from mocca_envs_tpu_torch.tasks.cassie_task import CassieParams, make_cassie
+
+from tests.test_torch_cassie_step import run_per_env
 
 
 def _stack(states, get):
@@ -74,7 +77,7 @@ def test_cassie_env_matches_jax_step_by_step(env_id, slots, steps):
     js[1] = js[1].replace(steps=jnp.asarray(998, jnp.int32),
                           task=js[1].task.replace(phase=jnp.asarray(38.0)))
     js[2] = js[2].replace(q=js[2].q.at[2].set(0.6))
-    jstep = jax.jit(jenv.step)
+    jstep = jax.jit(jenv.step).lower(js[0], jnp.zeros(jenv.act_dim, jnp.float32)).compile()
     gen = trng.generator(0, "cpu")
     rng = np.random.default_rng(2)
     resets = 0
@@ -82,7 +85,7 @@ def test_cassie_env_matches_jax_step_by_step(env_id, slots, steps):
         a = rng.uniform(-0.1, 0.1, (slots, jenv.act_dim)).astype(np.float32)
         a[0, :2] = (1.5, -1.2)     # beyond the ±1 clip of the targets
         ps = states_to_port(js)
-        jtrs = [jstep(js[i], jnp.asarray(a[i])) for i in range(slots)]
+        jtrs = run_per_env(jstep, js, jnp.asarray(a))
         ptr = penv.step(ps, torch.as_tensor(a), gen)
         jdone = _stack(jtrs, lambda tr: tr.done)
         np.testing.assert_array_equal(ptr.done.numpy(), jdone, err_msg=f"step {t}")

@@ -9,7 +9,10 @@
   rows) and normal impulse 5e-3, the largest single env within ten times;
 - the rows do what they are for: the rod's gap and the out-of-plane drift
   shrink over the frame;
-- a spec with grabs raises (those rows come with the bar-capsule variant).
+- the grab rows: the hopper with the rod, the lock and one grab of
+  tests/test_pallas_engine.py, half of the envs attached, over 4 substeps,
+  at the same gates; the attached feet are pulled toward the target, the
+  others are not.
 """
 
 import dataclasses
@@ -159,10 +162,53 @@ def test_hopper_frame_with_equality_rows_matches_jax(case):
 
 
 def test_grab_rows_raise_until_their_variant_is_ported():
-    tm = _port_model(hopper())
-    spec = TSpec(num_grabs=1, grab_links=(LEG,), grab_anchors=((0.0, 0.0, -0.5),))
-    assert spec.ne == 3
-    with pytest.raises(NotImplementedError, match="K1d"):
-        tsubstep(tm, TConfig(), spec)
-    with pytest.raises(NotImplementedError, match="K1d"):
-        tcontrol(tm, TConfig(), constraints=spec)
+    """Grab rows were refused until their kernel variant (K1d) came; now
+    they run on the plain path and agree with the JAX package: the spec of
+    tests/test_pallas_engine.py's equality-row case (rod, planar lock, one
+    grab of the leg's foot point onto a fixed target), half of the envs
+    attached, one llc frame of 4 substeps with λ and the frame-start factor
+    threaded on both sides, B = 32."""
+    jm = hopper()
+    tm = _port_model(jm)
+    jspec = JSpec(**ROD, planar=True, num_grabs=1, grab_links=(LEG,),
+                  grab_anchors=((0.0, 0.0, -0.5),))
+    tspec = spec_to_port(jspec)
+    assert dataclasses.asdict(tspec) == dataclasses.asdict(jspec) and tspec.ne == 9
+    jcfg, tcfg = JConfig(), TConfig()
+    B = 32
+    q, qd, tau = _hopper_states(B, 9)
+    ga = (np.arange(B) % 2).astype(np.float32)[:, None]            # half attached
+    gt = np.tile(np.array([[[0.1, 0.0, 0.2]]], np.float32), (B, 1, 1))
+    nr = jspec.ne + len(jlimited(jm)) + 3 * jm.ns
+    sub = jsubstep(jm, jcfg, constraints=jspec)
+    scene = jscene.flat()
+
+    def jax_path(q1, qd1, t1, ga1, gt1):
+        qq, dd = q1, qd1
+        lam = jnp.zeros(nr)
+        Minv0 = sub.minv_of(jkin.forward_kinematics(jm, qq, dd))
+        for _ in range(jcfg.sim_substeps):
+            qq, dd, info, lam = sub(qq, dd, t1, scene, ga1, gt1, Minv_in=Minv0, lam_in=lam)
+        return qq, dd, info.contacts.depth, info.normal_impulse
+
+    want = jax.jit(jax.vmap(jax_path))(q, qd, tau, ga, gt)
+    unit = make_plain_llc(tm, tcfg, tsubstep(tm, tcfg, tspec))
+    tq, tqd, info = unit(*map(torch.as_tensor, (q, qd, tau)), tscene.flat(B),
+                         torch.as_tensor(ga), torch.as_tensor(gt))
+    for name, g, w in zip(("q", "qd", "depth", "nimp"),
+                          (tq, tqd, info.contacts.depth, info.normal_impulse), want):
+        _gate(name, g.numpy(), w)
+    # the whole control step takes the grab state too
+    step = tcontrol(tm, tcfg, constraints=tspec)
+    sq, sqd, _ = step(*map(torch.as_tensor, (q, qd, tau)), tscene.flat(B),
+                      torch.as_tensor(ga), torch.as_tensor(gt))
+    torch.testing.assert_close(sq, tq, atol=0, rtol=0)
+    # the attached feet close on the target more than the free ones do
+    def gap(qq):
+        fd = tkin.forward_kinematics(tm, qq, torch.zeros(B, tm.nv))
+        foot = fd.pos[:, LEG] + fd.rot[:, LEG] @ torch.tensor([0.0, 0.0, -0.5])
+        return torch.linalg.vector_norm(foot - torch.as_tensor(gt[:, 0]), dim=1)
+
+    closer = gap(tq) - gap(torch.as_tensor(q))
+    on = torch.as_tensor(ga[:, 0]) > 0.5
+    assert float(closer[on].mean()) < float(closer[~on].mean())

@@ -11,7 +11,9 @@
   with the plain version, for every instantiation (K1a, K1c over stones,
   K1b in PD mode at one and two llc frames, K1e with Cassie's rods, with
   the planar lock added, and with the planar lock alone on Walker2D and
-  Crab2D), and the packed table has the size the source lays out;
+  Crab2D; K1d over the monkey's bars with its grab rows, both hands, one,
+  none, bars in contact and not), and the packed table has the size the
+  source lays out;
 - on a card: each kernel agrees with its plain version (skips elsewhere).
 
 The kernel cases take their inputs from chip_smoke.py's state generators, at
@@ -33,9 +35,10 @@ import torch
 
 import chip_smoke
 import mocca_envs_tpu_torch
-from mocca_envs_tpu_torch.models import cassie, walker2d, walker3d
+from mocca_envs_tpu_torch.models import cassie, monkey, walker2d, walker3d
 from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.ops.step import ConstraintSpec
+from mocca_envs_tpu_torch.tasks import monkey_stepper as tasks_monkey
 from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
@@ -43,6 +46,7 @@ REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mocca_envs_tpu"}
 TOL = {"q": 2e-4, "qd": 5e-3, "depth": 2e-4, "nimp": 5e-3}
 TOL_EQ = chip_smoke.TOL_EQ   # over equality rows: q 5e-4, qd 2e-2, depth 5e-4
+TOL_GRAB = chip_smoke.TOL_GRAB   # over bars and grab rows: impulse 1e-2
 
 
 def _near_contact(B, seed):
@@ -55,8 +59,13 @@ def _kernel_case(case, B, seed, device="cpu"):
     targets, the walker's PD gains and implicit derivative gain), k1e_cassie
     / k1e_cassie2d (the whole PD control step with the rods, and the planar
     lock), k1e_planar / k1e_crab (one torque frame of Walker2D / Crab2D,
-    which share an instantiation)."""
+    which share an instantiation), k1d* (one torque frame of the monkey
+    hanging from its bars, the hands attached as :data:`K1D_CASES` says)."""
     rng = np.random.default_rng(seed)
+    if case in K1D_CASES:
+        model = monkey.make_model(device)
+        return (engine.K1d(model, EngineConfig(), monkey.constraints(), 16),
+                chip_smoke.monkey_states(model, rng, B, **K1D_CASES[case]))
     if case in ("k1e_cassie", "k1e_cassie2d"):
         model = cassie.make_model(device)
         spec = dataclasses.replace(cassie.constraints(), planar=case == "k1e_cassie2d")
@@ -85,6 +94,11 @@ def _kernel_case(case, B, seed, device="cpu"):
 
 KERNEL_CASES = ["k1a", "k1c", "k1b", "k1b_llc2"]
 K1E_CASES = ["k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1e_crab"]
+# the right hand always and the left in half of the envs (the main path's
+# mix), both hands, none (a free body: every grab row masked), and no bar
+# near the feet or the torso
+K1D_CASES = {"k1d": {}, "k1d_both_hands": {"left": 1.0},
+             "k1d_no_hands": {"left": 0.0, "right": 0.0}, "k1d_no_bar_contact": {"near_bar": 0.0}}
 
 
 def _gate_medians(got, want, tol=TOL, tail="max"):
@@ -112,7 +126,7 @@ for name in P.registered_envs():
     batch = P.BatchedEnv(env, 2, seed=0, device="cpu")
     tr = batch.step(batch.init(), torch.zeros(2, env.act_dim))
     assert tr.obs.shape == (2, env.obs_dim) and bool(torch.isfinite(tr.obs).all()), name
-assert len(P.registered_envs()) == 11
+assert len(P.registered_envs()) == 12
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "mocca_envs_tpu")]
 assert not loaded, loaded
@@ -141,7 +155,7 @@ def test_sources_import_no_jax():
 FAMILIES = ["Walker3DCustomEnv-v0", "Walker3DStepperEnv-v0", "Walker3DPDCustomEnv-v0",
             "Child3DCustomEnv-v0", "Child3DPDCustomEnv-v0", "CassieEnv-v0", "Cassie2DEnv-v0",
             "CassiePhaseEnv-v0", "CassiePhase2DEnv-v0", "Walker2DCustomEnv-v0",
-            "Crab2DCustomEnv-v0"]
+            "Crab2DCustomEnv-v0", "Monkey3DStepperEnv-v0"]
 
 
 @pytest.mark.parametrize("env_id", FAMILIES)
@@ -169,7 +183,7 @@ def test_cpu_path_never_launches_the_kernel(env_id):
     assert sum(engine.LAUNCHES.values()) == 0
 
 
-@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES)
+@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + ["k1d"])
 def test_launch_refuses_cpu_tensors(case):
     """No silent CPU path: the kernel's launch refuses CPU tensors; the
     plain version runs on them, uncounted."""
@@ -216,6 +230,8 @@ def test_k1_variants_refuse_what_they_have_no_instantiation_for(build):
     lambda: engine.K1e(walker3d.make_model(), EngineConfig(), walker2d.planar_spec()),
     lambda: engine.make_kernel(walker2d.make_walker2d(), EngineConfig(), num_stones=6,
                                constraints=walker2d.planar_spec()),
+    # grabs with the planar lock on Walker2D: the grab rows have an instance
+    # on the monkey only
     lambda: engine.make_kernel(
         walker2d.make_walker2d(), EngineConfig(),
         constraints=ConstraintSpec(planar=True, num_grabs=1, grab_links=(1,),
@@ -223,7 +239,7 @@ def test_k1_variants_refuse_what_they_have_no_instantiation_for(build):
 ], ids=["cassie_lock_without_rods", "cassie_torque_mode", "cassie_llc5", "walker2d_pd",
         "walker2d_rods", "walker3d_planar", "planar_over_stones", "grabs"])
 def test_k1e_refuses_what_it_has_no_instantiation_for(build):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="no K1 instantiation"):
         build()
 
 
@@ -370,8 +386,9 @@ def _run_on_host(lib, kernel, inputs):
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
     fn = getattr(lib, kernel.name + "_host")
     fn.restype = ctypes.c_int
-    stones = ptr(inputs[5]) if kernel.num_stones else None
-    err = fn(*map(ptr, inputs[:5]), stones, *map(ptr, outs), ptr(kernel.table_host),
+    named = dict(zip(kernel.inputs, inputs[5:]))
+    scene = [ptr(named[k]) if k in named else None for k in ("stones", "bars", "grabs")]
+    err = fn(*map(ptr, inputs[:5]), *scene, *map(ptr, outs), ptr(kernel.table_host),
              ctypes.c_int(table_size), ptr(ws), ctypes.c_int(B))
     assert err == 0
     return outs
@@ -434,7 +451,115 @@ def test_k1e_source_arithmetic_on_host(host_library, case):
         assert np.abs(outs[0][:, 7:] - inputs[0][:, 7:]).max() > 0.01
 
 
-@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES)
+@pytest.mark.parametrize("case", list(K1D_CASES))
+def test_k1d_source_arithmetic_on_host(host_library, case):
+    """The bar-capsule and grab-row instance (one torque frame of the monkey
+    hanging from its bars) against its plain version, at the tolerances of
+    the bar and grab rows: per-env medians within q 5e-4, qd 2e-2, depth
+    5e-4, impulse 1e-2, the largest env within ten times."""
+    kernel, arrays = _kernel_case(case, 64, 5)
+    inputs = [np.ascontiguousarray(x) for x in arrays]
+    outs = _run_on_host(host_library, kernel, inputs)
+    want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
+    assert all(np.isfinite(o).all() for o in outs)
+    _gate_medians(outs, want, TOL_GRAB)
+    attached = engine.unpack_grabs(torch.as_tensor(inputs[6]))[0].numpy() > 0.5
+    near = (want[2] > -EngineConfig().contact_margin).any(axis=1)
+    if case == "k1d_no_bar_contact":
+        assert not near.any() and (want[3] == 0).all()    # nothing touches a bar
+    else:
+        assert near.mean() > 0.3 and (want[3] > 0).mean() > 0.02   # bars carry load
+    assert attached[:, 0].all() != (case == "k1d_no_hands")
+    assert attached[:, 1].mean() == pytest.approx(
+        {"k1d_both_hands": 1.0, "k1d_no_hands": 0.0}.get(case, 0.5), abs=0.2)
+    # the grab rows hold the palms: an attached palm ends the frame near its
+    # anchor, a free one falls with the body
+    palms = tasks_monkey.make_palm_positions(kernel.model, kernel.constraints)(
+        torch.as_tensor(outs[0]))
+    target = engine.unpack_grabs(torch.as_tensor(inputs[6]))[1]
+    gap = torch.linalg.vector_norm(palms - target, dim=2).numpy()
+    if attached.any():
+        assert np.median(gap[attached]) < 0.01
+    if (~attached).any():
+        assert np.median(gap[~attached]) > 0.015
+
+
+def test_k1d_is_picked_by_bars_and_grabs():
+    model, spec = monkey.make_model(), monkey.constraints()
+    kernel = engine.make_kernel(model, EngineConfig(), num_bars=16, constraints=spec)
+    assert isinstance(kernel, engine.K1d) and kernel.variant == "k1d"
+    assert kernel.inputs == ("bars", "grabs") and kernel.name.startswith("k1d_")
+    # other bar counts, bars without the grabs, PD mode: no instance
+    for build in (lambda: engine.make_kernel(model, EngineConfig(), num_bars=8, constraints=spec),
+                  lambda: engine.make_kernel(model, EngineConfig(), num_bars=16),
+                  lambda: engine.make_kernel(model, EngineConfig(), num_bars=16, pd_mode=True,
+                                             constraints=spec),
+                  lambda: engine.make_kernel(model, EngineConfig(sim_substeps=2), num_bars=16,
+                                             constraints=spec)):
+        with pytest.raises(NotImplementedError, match="no K1 instantiation"):
+            build()
+
+
+@pytest.mark.parametrize("bad", ["bars_rows", "grabs_batch", "missing_grabs", "grabs_dtype",
+                                 "cpu"])
+def test_k1d_check_inputs_refuses(bad):
+    """Wrong shapes, a missing scene input, a wrong dtype and host tensors
+    are refused before anything launches."""
+    kernel, arrays = _kernel_case("k1d", 8, 1)
+    args = [torch.as_tensor(x) for x in arrays]
+    want = {"bars_rows": (ValueError, "bars has shape"), "grabs_batch": (ValueError, "grabs has"),
+            "missing_grabs": (ValueError, "scene inputs"), "grabs_dtype": (TypeError, "float32"),
+            "cpu": (ValueError, "CUDA")}[bad]
+    if bad == "bars_rows":
+        args[5] = args[5][:-8]
+    elif bad == "grabs_batch":
+        args[6] = args[6][:, :-1]
+    elif bad == "missing_grabs":
+        args = args[:6]
+    elif bad == "grabs_dtype":
+        args[6] = args[6].double()
+    engine.LAUNCHES.clear()
+    with pytest.raises(want[0], match=want[1]):
+        kernel.launch(*args)
+    assert sum(engine.LAUNCHES.values()) == 0
+
+
+def test_bars_and_grabs_count_their_own_work():
+    """K1d counts a capsule test per (sphere that may touch a bar, active
+    bar) and substep, the general-normal projection per active contact, and
+    a grab's rows only where it is attached; bars and grabs are inputs."""
+    B = 8
+    kernel, arrays = _kernel_case("k1d", B, 2)
+    args = [torch.as_tensor(x) for x in arrays]
+    lim_act, con_act = engine.k1_activity(kernel, *args)
+    assert lim_act.shape == (4, B, 8) and con_act.shape == (4, B, 5)
+    bars, grabs = args[5], args[6]
+    flops = engine.k1_flops(kernel, lim_act, con_act, bars, grabs)
+    # an inactive bar is not tested by the three spheres that may touch bars
+    fewer = bars.clone()
+    fewer[7] = 0.0                                    # bar 0's active flag
+    assert engine.k1_flops(kernel, lim_act, con_act, fewer, grabs) == pytest.approx(
+        flops - 4 * 3 * 35 * B)
+    # a released grab takes its rows out of the count
+    free = grabs.clone()
+    free[4] = 0.0                                     # the left hand lets go everywhere
+    attached_left = int((grabs[4] > 0.5).sum())
+    assert 0 < attached_left < B
+    assert engine.k1_flops(kernel, lim_act, con_act, bars, free) < flops
+    none = grabs.clone()
+    none[0] = none[4] = 0.0
+    assert engine.k1_flops(kernel, lim_act, con_act, bars, none) \
+        < engine.k1_flops(kernel, lim_act, con_act, bars, free)
+    assert engine.k1_bytes_per_env(kernel) == 4 * (17 + 16 + 10 + 2 + 16 * 8 + 2 * 4
+                                                   + 17 + 16 + 2 * 5)
+    # bars and grabs round-trip through the packed layouts
+    scene, active, target = kernel.unpack(args[3], args[4], bars, grabs)
+    assert scene.bar_a.shape == (B, 16, 3) and active.shape == (B, 2)
+    torch.testing.assert_close(engine.pack_bars(scene), bars, atol=0, rtol=0)
+    torch.testing.assert_close(engine.pack_grabs(active, target), grabs, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + ["k1d"])
 def test_pack_tables_size_matches_source_layout(host_library, case):
     kernel, _ = _kernel_case(case, 2, 0)
     table_size, ws_per_env = engine.layout(host_library, kernel.name)
@@ -449,10 +574,15 @@ def test_pack_tables_size_matches_source_layout(host_library, case):
         np.testing.assert_array_equal(tail[:, 0], spec.p2p_link_a)
         np.testing.assert_array_equal(tail[:, 1], spec.p2p_link_b)
         np.testing.assert_allclose(tail[:, 5:], spec.p2p_anchor_b, rtol=1e-6)
+    # the grabs, then the no_bar flags, close the monkey's
+    if kernel.num_bars:
+        tail = kernel.table_host[-(4 * spec.num_grabs + m.ns):]
+        np.testing.assert_array_equal(tail[0:8:4], spec.grab_links)
+        np.testing.assert_array_equal(tail[-m.ns:], m.sph_no_bar.numpy())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES)
+@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + list(K1D_CASES))
 def test_k1a_kernel_matches_plain_on_cuda(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
@@ -464,7 +594,7 @@ def test_k1a_kernel_matches_plain_on_cuda(case):
     assert engine.LAUNCHES[kernel.variant] == before + 1
     want = kernel.plain(*args)
     _gate_medians([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want],
-                  TOL_EQ if case in K1E_CASES else TOL,
+                  TOL_GRAB if case in K1D_CASES else TOL_EQ if case in K1E_CASES else TOL,
                   tail="p99" if "cassie" in case else "max")
     with pytest.raises(ValueError, match="contiguous"):
         kernel.launch(args[0].t().contiguous().t(), *args[1:])
