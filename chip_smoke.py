@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases, in order; any failure exits non-zero before the result lines:
 
 1. print the card's name and power limit; build every instantiation of the
-   engine kernel from ``mocca_envs_tpu_torch/csrc/engine_k1.cu`` (one nvcc
-   process each, side by side);
+   engine kernel from ``mocca_envs_tpu_torch/csrc/engine_k1.cu`` and the
+   raycast kernel K2 from ``csrc/raycast_k2.cu`` (one nvcc process each,
+   side by side), and print each one's ptxas registers and stack frame;
 2. each kernel vs its plain PyTorch version at B = 4096: K1a on walker
    states near contact, K1c on stepper states (stones at stages 0–9, feet
    in or near contact with tilted stone tops, some envs over a gap), K1b on
@@ -19,7 +20,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    Walker2D states; K1d on monkey states hanging from bars drawn by the
    port's sampler at stages 0–9 (the right hand attached, the left in half
    of the envs, anchors at the palms ±1 cm, bars moved next to the feet and
-   the torso in half of the envs, random torques). Per-env median and p99
+   the torso in half of the envs, random torques); K1f on walker states
+   over the terrain families' grids (the lowest foot within ±2 cm of the
+   surface under it, on the grid's slopes, a tenth of the roots within
+   0.5 m of its edge, the window around the root packed as the main path
+   packs it), and a grid smaller than the window must raise on the card.
+   Per-env median and p99
    of |Δq|, |Δqd|, |Δdepth|, |Δimpulse|; the medians must stay within q
    2e-4, qd 5e-3, depth 2e-4, impulse 5e-3 (K1e: q 5e-4, qd 2e-2, depth
    5e-4, impulse 5e-3, the tolerances the JAX package holds its own kernel
@@ -31,7 +37,13 @@ Phases, in order; any failure exits non-zero before the result lines:
    the 20 stiff substeps of one call (a 0.15 kg toe under k_d = 5, springs
    of 1500 N·m/rad) two roundings of one iteration part by more than any
    pointwise tolerance in a few envs of a thousand, the plain path against
-   the JAX oracle on the CPU as well (tests/test_torch_cassie_step.py);
+   the JAX oracle on the CPU as well (tests/test_torch_cassie_step.py).
+   K1f is held to the JAX package's heightfield gate: medians within q
+   2e-4, qd 1e-2, depth 5e-4, impulse 1e-2, the largest env within ten
+   times. K2 on 32,768 rays (4096 envs × 8) over a 129² fractal grid, 64
+   steps to ``max_t`` 10: t equal to the plain version's on at least 99.9%
+   of the rays, any other ray one march step apart, h within 1e-5 where t
+   agrees;
 3. the main paths through ``BatchedEnv(make(id), 4096).step`` with uniform
    random actions, the launch counts set to 0 just before each and read
    just after: ``Walker3DCustomEnv-v0`` for 600 control steps (K1a),
@@ -39,7 +51,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    200 (K1b), ``Child3DCustomEnv-v0`` for 100 (K1a), ``CassieEnv-v0`` for
    300, ``Cassie2DEnv-v0`` for 100, ``Walker2DCustomEnv-v0`` for 200 and
    ``Crab2DCustomEnv-v0`` for 100 (K1e), ``Monkey3DStepperEnv-v0`` for 300
-   (K1d, grab signals included in the random actions). The path's kernel
+   (K1d, grab signals included in the random actions),
+   ``Walker3DTerrainEnv-v0`` for 600 and ``Walker3DTerrainLidarEnv-v0`` for
+   200 (K1f), and K2's own entry point ``make_raycaster`` for 10 calls of
+   32,768 rays with the origins moved between calls. The path's kernel
    must launch exactly once per step and no other kernel at all, the state
    stay finite and auto-reset fire; resets forced by a non-finite state are
    counted and printed; of the 2D families the median env must end in its
@@ -48,14 +63,18 @@ Phases, in order; any failure exits non-zero before the result lines:
    and the falls are printed, and then 50 steps of zero torques with both
    grab signals on from fresh episodes must hang the body: the median
    palm-to-anchor distance under 2 cm, the median base height within 0.5 m
-   of its start, fewer than 1% of the envs falling;
+   of its start, fewer than 1% of the envs falling; of the terrain
+   families the falls and the base's height above the local surface are
+   printed, its median between 0.3 and 1.5 m;
 4. per-call times of each kernel and its plain version (CUDA events), the
    bound from the operations and bytes these inputs need, and the time of
    the stepper's cull of 20 stones to the window plus their packing (env
    layer, once per control step, outside the kernel's time), and the
    stepper's step split into the step proper and the fresh episodes of
-   auto-reset; the step time outside the kernel of Cassie, the planar
-   walkers and the monkey;
+   auto-reset; K2's time and bound (the march steps these rays need);
+   the terrain step's window cut and packing; the step time outside the
+   kernel of Cassie, the planar walkers, the monkey and the terrain
+   families;
 5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.
@@ -81,12 +100,16 @@ TOL_EQ = {"q": 5e-4, "qd": 2e-2, "depth": 5e-4, "nimp": 5e-3}
 # over bars and grab rows: the looser of the JAX package's two gates for
 # what K1d combines (equality rows with grabs, and bars)
 TOL_GRAB = {"q": 5e-4, "qd": 2e-2, "depth": 5e-4, "nimp": 1e-2}
+# over a heightfield: the JAX package's gate for its heightfield kernel
+TOL_HF = {"q": 2e-4, "qd": 1e-2, "depth": 5e-4, "nimp": 1e-2}
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 SOURCE = "mocca_envs_tpu_torch/csrc/engine_k1.cu"
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
+RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
+RAYCAST_REPLACES = "mocca_envs_tpu/ops/pallas/raycast.py:91"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -247,6 +270,76 @@ def monkey_states(model, rng, batch=B, left: float = 0.5, right: float = 1.0,
                        torch.as_tensor(target, dtype=torch.float32))
     return (q, qd, tau, scene.ground_z.numpy(), scene.friction.numpy(),
             pack_bars(scene).numpy(), grabs.numpy())
+
+
+def terrain_states(model, rng, batch=B, border: float = 0.1):
+    """Walker states over the terrain families' grids: each slot over one
+    grid of the bank, the root anywhere on it and in a ``border`` share of
+    the slots within 0.5 m of an edge, the lowest foot sphere placed within
+    ±2 cm of the surface under it (in contact or within the margin), on
+    whatever slope the grid has there; uniform random torques. Returns numpy
+    ``(q, qd, tau, ground_z, friction, hf (batch, 16·16 + 3))``: the window
+    around the root, packed as K1f reads it."""
+    from mocca_envs_tpu_torch.ops.collide import sphere_centers
+    from mocca_envs_tpu_torch.ops.cuda.engine import pack_hf
+    from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics
+    from mocca_envs_tpu_torch.tasks.walker_terrain import terrain_bank
+    from mocca_envs_tpu_torch.terrain import scene as scene_mod
+    from mocca_envs_tpu_torch.terrain.heightfield import with_heightfield
+
+    model = model.to("cpu")
+    bank = terrain_bank()
+    scene = with_heightfield(torch.as_tensor(bank[rng.integers(0, len(bank), batch)]))
+    q, qd, tau, _, fric = near_contact_states(model, rng, batch)
+    q[:, 0:2] = rng.uniform(-9.5, 9.5, (batch, 2))
+    edge = np.flatnonzero(rng.random(batch) < border)
+    q[edge, rng.integers(0, 2, len(edge))] = rng.choice([-1.0, 1.0], len(edge)) * rng.uniform(
+        9.5, 10.0, len(edge))
+    feet = np.flatnonzero(model.sph_foot.sum(1).numpy() > 0)
+    centers = sphere_centers(model, forward_kinematics(
+        model, torch.as_tensor(q), torch.zeros(batch, model.nv)))[:, feet]
+    gap = (centers[..., 2] - model.sph_radius[feet]
+           - scene_mod.hf_sample(scene, centers[..., :2])).amin(dim=1).numpy()
+    q[:, 2] -= gap + rng.uniform(-0.02, 0.02, batch)
+    window = scene_mod.extract_patch(scene, torch.as_tensor(q[:, 0:2]))
+    return (q, qd, tau, window.ground_z.numpy(), fric, pack_hf(window).numpy())
+
+
+def raycast_inputs(rng, batch: int, n: int = 129):
+    """Rays over a fractal ``n × n`` grid 20 m wide (the terrain families'
+    extent): origins 0.5–2.5 m above it, over it and up to 2 m past its
+    edges, directions pitched 5–85° down in any heading, one in sixteen
+    pointing up. Numpy ``(origins, directions, grid, xy0, cell)``."""
+    from mocca_envs_tpu_torch.terrain.heightfield import fractal_heightfield
+
+    hf = fractal_heightfield(n, amplitude=0.5, seed=int(rng.integers(0, 2**31)))
+    origins = np.stack([rng.uniform(-12.0, 12.0, batch), rng.uniform(-12.0, 12.0, batch),
+                        rng.uniform(0.5, 2.5, batch)], axis=1).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, batch)
+    pitch = rng.uniform(np.deg2rad(5.0), np.deg2rad(85.0), batch)
+    pitch[rng.random(batch) < 1 / 16] *= -1.0
+    d = np.stack([np.cos(pitch) * np.cos(yaw), np.cos(pitch) * np.sin(yaw), -np.sin(pitch)],
+                 axis=1).astype(np.float32)
+    return (origins, d, hf, np.array([-10.0, -10.0], np.float32),
+            np.array(20.0 / (n - 1), np.float32))
+
+
+def check_rays(t, h, want_t, want_h, dt: float) -> tuple:
+    """K2's gate against its plain version (numpy arrays): t equal on at
+    least 99.9% of the rays, any other ray one march step ``dt`` apart (a
+    march point within an ulp of the surface), h within 1e-5 where t
+    agrees. Returns (share of equal t, largest |Δt|, largest |Δh| where t
+    agrees)."""
+    same = t == want_t
+    share = float(same.mean())
+    dt_err = float(np.abs(t - want_t).max())
+    h_err = float(np.abs(h - want_h)[same].max()) if same.any() else 0.0
+    check(share >= 0.999, f"k2: t equal on only {share:.5f} of the rays")
+    step_apart = np.abs(np.abs(t - want_t)[~same] - dt) <= 1e-5 * max(1.0, dt)
+    check(bool(step_apart.all()), f"k2: {int((~step_apart).sum())} rays part by more than a "
+          f"march step (largest |dt| {dt_err:.3e})")
+    check(h_err <= 1e-5, f"k2: h differs by {h_err:.3e} where t agrees")
+    return share, dt_err, h_err
 
 
 def compare(kernel, args, label: str | None = None, tol=TOL, tail: str = "max") -> float:
@@ -435,6 +528,97 @@ def stepper_env_layer_times(card, batch, state) -> None:
           f"{reset_ms:.3f} ms")
 
 
+def small_grid_raises(model, config) -> None:
+    """On the card a heightfield smaller than the K1f window has no
+    instance: the physics step must raise, naming it, not fall back."""
+    from mocca_envs_tpu_torch.ops.step import make_control_step
+    from mocca_envs_tpu_torch.terrain.heightfield import with_heightfield
+
+    step = make_control_step(model, config)
+    scene = with_heightfield(torch.zeros(4, 12, 12, device="cuda"), extent=3.0)
+    q = torch.zeros(4, model.nq, device="cuda")
+    q[:, 2], q[:, 3] = 0.95, 1.0
+    try:
+        step(q, torch.zeros(4, model.nv, device="cuda"), torch.zeros(4, model.nj, device="cuda"),
+             scene)
+    except NotImplementedError as e:
+        check("smaller than the window" in str(e), f"small grid: unexpected message {e}")
+        print(f"[compare] k1f: a 12×12 grid on the card raises: {e}")
+        return
+    check(False, "a grid smaller than the K1f window ran on the card")
+
+
+def terrain_readings(env_id: str, state, sums: dict) -> None:
+    """The terrain main path's outcome: falls over the run and the base's
+    height above the local surface at the end."""
+    from mocca_envs_tpu_torch.terrain.scene import hf_sample
+
+    above = state.q[:, 2] - hf_sample(state.scene, state.q[:, 0:2])
+    print(f"[main] {env_id}: falls over the run {sums['fallen']:.0f}, base height above the "
+          f"local surface at the end mean {float(above.mean()):.4f} m (median "
+          f"{float(above.median()):.4f}, min {float(above.min()):.4f})")
+    check(0.3 < float(above.median()) < 1.5, f"{env_id}: bodies not over the terrain")
+
+
+def raycast_main_path(engine, card, rng, sweeps: int = 10):
+    """K2's entry point, ``make_raycaster``, driven as a LIDAR sweep would:
+    ``sweeps`` calls of 32,768 rays (4096 envs × 8 rays) over one 129² grid,
+    the origins moved between calls, counts set to 0 just before. Returns
+    (launches, the last call's inputs)."""
+    from mocca_envs_tpu_torch.ops.raycast import make_raycaster
+
+    o, d, hf, xy0, cell = (torch.as_tensor(x, device="cuda")
+                           for x in raycast_inputs(rng, 8 * B))
+    raycast = make_raycaster(tuple(hf.shape), max_t=10.0, num_steps=64)
+    shift = torch.tensor([0.05, -0.03, 0.0], device="cuda")
+    hits = torch.zeros((), device="cuda")
+    torch.cuda.synchronize()
+    engine.LAUNCHES.clear()
+    for i in range(sweeps):
+        t, h = raycast(o + i * shift, d, hf, xy0, cell)
+        hits += (t < 10.0).sum()
+    torch.cuda.synchronize()
+    counts = dict(engine.LAUNCHES)
+    print(f"[main] make_raycaster: {sweeps} calls × {8 * B} rays on {card}; launches {counts}; "
+          f"hits {int(hits)} of {sweeps * 8 * B}")
+    check(counts == {"k2": sweeps}, f"make_raycaster: expected {sweeps} k2 launches, got {counts}")
+    check(bool(torch.isfinite(t).all() and (t > 0).all() and (t <= 10.0).all()),
+          "make_raycaster: t out of range")
+    check(0 < int(hits) < sweeps * 8 * B, "make_raycaster: no hits, or no misses")
+    return counts["k2"], (o, d, hf, xy0, cell), raycast
+
+
+def raycast_time_and_bound(card, raycast, args, max_abs: float) -> dict:
+    """K2's per-call time (50 calls) against its plain version's (3), and
+    the bound from the march steps these rays need and the bytes moved."""
+    from mocca_envs_tpu_torch.ops.raycast import (
+        K2_OPS_PER_STEP, k2_bytes, k2_flops, raycast_reference)
+
+    ms = time_call(raycast, args, 50)
+    plain_ms = time_call(lambda *a: raycast_reference(*a, 10.0, 64), args, 3)
+    t, _ = raycast(*args)
+    flops, nbytes = k2_flops(t, 10.0, 64), k2_bytes(args[0].shape[0], tuple(args[2].shape))
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"[bound] k2: {flops} fp32 ops needed ({flops / args[0].shape[0]:.1f} per ray, "
+          f"{flops / args[0].shape[0] / K2_OPS_PER_STEP:.2f} march steps), {nbytes} bytes")
+    print(f"[time] k2 {ms:.4f} ms/call, plain {plain_ms:.3f} ms/call at {args[0].shape[0]} rays "
+          f"on {card}; bound {bound_ms:.6f} ms by {bound_by} (ops {t_ops:.6f} ms, bytes "
+          f"{t_bytes:.6f} ms); kernel at {bound_ms / ms:.2%} of it; max |err| {max_abs:.3e}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def window_and_pack_time(engine, card, state) -> None:
+    """The terrain step's pass in front of K1f: cut the 16×16 window around
+    each root from its 65² grid and pack it for the kernel."""
+    from mocca_envs_tpu_torch.terrain import scene as scene_mod
+
+    root_xy = state.q[:, 0:2].contiguous()
+    ms = time_call(lambda: engine.pack_hf(scene_mod.extract_patch(state.scene, root_xy)), (), 50)
+    print(f"[time] terrain window cut 65² → 16² + pack: {ms:.4f} ms/call at B={B} on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -442,7 +626,9 @@ def main() -> int:
     import mocca_envs_tpu_torch as port
     from mocca_envs_tpu_torch.models import cassie, monkey, walker2d, walker3d
     from mocca_envs_tpu_torch.ops.cuda import engine
+    from mocca_envs_tpu_torch.ops.raycast import make_raycaster, raycast_reference
     from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
+    from mocca_envs_tpu_torch.terrain.scene import HF_PATCH, hf_normal
     from mocca_envs_tpu_torch.utils.config import EngineConfig
     from mocca_envs_tpu_torch.utils.device import pin_fp32
 
@@ -457,7 +643,7 @@ def main() -> int:
     # ---- phase 1: build
     t0 = time.perf_counter()
     engine.build()
-    print(f"[build] {len(engine.INSTANTIATIONS)} K1 instantiations built in "
+    print(f"[build] {len(engine.INSTANTIATIONS)} K1 instantiations and K2 built in "
           f"{time.perf_counter() - t0:.1f} s")
     for symbol, log in engine._Library.logs.items():
         for line in log.splitlines():
@@ -501,6 +687,27 @@ def main() -> int:
     held = (engine.unpack_grabs(kernels["k1d"][1][6])[0] > 0.5).sum(0).tolist()
     print(f"[compare] k1d: grabs attached (right, left) {held} of {B} envs")
     max_abs["k1d"] = compare(*kernels["k1d"], "k1d", TOL_GRAB, tail="p99")
+    kernels["k1f"] = (engine.K1f(model, config, HF_PATCH), cuda(terrain_states(model, rng)))
+    window = engine.unpack_hf(kernels["k1f"][1][5])
+    lo, cell = window["hf_xy0"], window["hf_cell"][:, None]
+    pinned = ((lo - (-10.0)).abs() < 1e-4) | ((lo + (HF_PATCH - 1) * cell - 10.0).abs() < 1e-4)
+    wscene = engine.make_scene(kernels["k1f"][1][3], kernels["k1f"][1][4], hf=kernels["k1f"][1][5])
+    slope = hf_normal(wscene, kernels["k1f"][1][0][:, 0:2])[:, 2]
+    print(f"[compare] k1f: windows pinned to a grid edge in {int(pinned.any(1).sum())} of {B} "
+          f"envs; surface under the root steeper than 10° in {int((slope < 0.9848).sum())}, "
+          f"steepest {float(torch.rad2deg(torch.arccos(slope.min()))):.1f}°")
+    max_abs["k1f"] = compare(*kernels["k1f"], "k1f", TOL_HF)
+    small_grid_raises(model, config)
+    ray_args = cuda(raycast_inputs(rng, 8 * B))
+    ray_t, ray_h = make_raycaster((129, 129))(*ray_args)
+    torch.cuda.synchronize()
+    want_t, want_h = raycast_reference(*ray_args)
+    share, dt_err, h_err = check_rays(*(x.cpu().numpy() for x in (ray_t, ray_h, want_t, want_h)),
+                                      10.0 / 64)
+    max_abs["k2"] = max(dt_err, h_err)
+    print(f"[compare] k2: {8 * B} rays over a 129² grid, t equal on {share:.5f} of them, largest "
+          f"|Δt| {dt_err:.4e} (one march step is {10.0 / 64:.4f}), largest |Δh| where t agrees "
+          f"{h_err:.3e}; {float((want_t < 10.0).float().mean()):.4f} of the rays hit")
 
     # ---- phase 3: the main paths through the user entry points
     launches, step_ms = {}, {}
@@ -541,6 +748,13 @@ def main() -> int:
           f"{float((tr.metrics['holding'] > 1).float().mean()):.4f}; over the run falls "
           f"{sums['fell']:.0f}, bar hits {sums['bar_hit']:.0f}")
     hang_check(monkey_batch, monkey.constraints(), card)
+    launches["k1f"], terrain_state, _, _, step_ms["k1f"], sums = drive(
+        port, engine, card, "Walker3DTerrainEnv-v0", 600, "k1f", sums=("fallen",))
+    terrain_readings("Walker3DTerrainEnv-v0", terrain_state, sums)
+    _, state, _, _, step_ms["k1f_lidar"], sums = drive(
+        port, engine, card, "Walker3DTerrainLidarEnv-v0", 200, "k1f", sums=("fallen",))
+    terrain_readings("Walker3DTerrainLidarEnv-v0", state, sums)
+    launches["k2"], ray_main, raycaster = raycast_main_path(engine, card, rng)
 
     # ---- phase 4: per-call times at B = 4096
     times = {v: time_and_bound(engine, card, kernel, args)
@@ -548,20 +762,24 @@ def main() -> int:
 
     cull_and_pack_time(engine, card, model, config)
     stepper_env_layer_times(card, stepper, stepper_state)
-    for v in ("k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d"):
-        print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {times[v]['ms']:.4f} "
-              f"ms/call, so {step_ms[v] - times[v]['ms']:.3f} ms/step outside the kernel "
+    times["k2"] = raycast_time_and_bound(card, raycaster, ray_main, max_abs["k2"])
+    window_and_pack_time(engine, card, terrain_state)
+    for v in ("k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d", "k1f", "k1f_lidar"):
+        kernel_ms = times[v.removesuffix("_lidar")]["ms"]
+        print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {kernel_ms:.4f} "
+              f"ms/call, so {step_ms[v] - kernel_ms:.3f} ms/step outside the kernel "
               f"(env layer) at B={B} on {card}")
 
     names = {"k1a": "k1a_engine_frame", "k1c": "k1c_engine_frame_stones",
              "k1b": "k1b_engine_step_pd", "k1e_cassie": "k1e_engine_step_pd_rods",
              "k1e_cassie2d": "k1e_engine_step_pd_rods_planar",
-             "k1e_planar": "k1e_engine_frame_planar", "k1d": "k1d_engine_frame_bars_grabs"}
+             "k1e_planar": "k1e_engine_frame_planar", "k1d": "k1d_engine_frame_bars_grabs",
+             "k1f": "k1f_engine_frame_heightfield", "k2": "k2_raycast"}
     print(json.dumps({"kernels": [{
         "name": names[v],
         "route": "cuda",
-        "source": SOURCE,
-        "replaces": REPLACES,
+        "source": RAYCAST_SOURCE if v == "k2" else SOURCE,
+        "replaces": RAYCAST_REPLACES if v == "k2" else REPLACES,
         "launches": launches[v],
         "max_abs_err": max_abs[v],
         **times[v],

@@ -20,7 +20,7 @@ from mocca_envs_tpu_torch.tasks.cassie_task import CassieParams, CassieTaskState
 from mocca_envs_tpu_torch.tasks.monkey_stepper import MonkeyParams, MonkeyTaskState
 from mocca_envs_tpu_torch.tasks.walker_custom import WalkerParams, WalkerTaskState
 from mocca_envs_tpu_torch.tasks.walker_stepper import StepperParams, StepperTaskState
-from mocca_envs_tpu_torch.terrain.scene import Scene
+from mocca_envs_tpu_torch.terrain.scene import NO_GROUND_Z, Scene
 from mocca_envs_tpu_torch.terrain.stones import StoneParams
 
 
@@ -44,10 +44,16 @@ def _n(x):
 
 def scene_from_numpy(batch: int, ground_z=0.0, friction=0.8, stone_pos=None, stone_quat=None,
                      stone_half=None, stone_active=None, bar_a=None, bar_b=None, bar_r=None,
-                     bar_active=None, device="cpu") -> Scene:
+                     bar_active=None, hf_height=None, hf_xy0=None, hf_cell=None,
+                     has_ground=True, device="cpu") -> Scene:
     """Scene for ``batch`` envs: the plane (scalars or (B,)) and, when
-    ``stone_pos`` / ``bar_a`` is given, the stone boxes / bar capsules
-    (B, K, ·) of a JAX ``Scene``."""
+    ``stone_pos`` / ``bar_a`` / ``hf_height`` is given, the stone boxes /
+    bar capsules (B, K, ·) / heightfield (B, H, W), (B, 2), (B,) of a JAX
+    ``Scene``. A JAX scene with ``has_ground=False`` (a terrain scene) keeps
+    ``ground_z = 0`` and evaluates no plane; the port always evaluates one,
+    so there it sinks to ``NO_GROUND_Z``."""
+    if not has_ground:
+        ground_z = NO_GROUND_Z
     scene = Scene(ground_z=_f32(np.broadcast_to(ground_z, (batch,)), device),
                   friction=_f32(np.broadcast_to(friction, (batch,)), device))
     if stone_pos is not None:
@@ -58,6 +64,10 @@ def scene_from_numpy(batch: int, ground_z=0.0, friction=0.8, stone_pos=None, sto
         scene = dataclasses.replace(
             scene, bar_a=_f32(bar_a, device), bar_b=_f32(bar_b, device),
             bar_r=_f32(bar_r, device), bar_active=_f32(bar_active, device))
+    if hf_height is not None:
+        scene = dataclasses.replace(
+            scene, hf_height=_f32(hf_height, device), hf_xy0=_f32(hf_xy0, device),
+            hf_cell=_f32(hf_cell, device))
     return scene
 
 
@@ -83,14 +93,19 @@ def _core_to_numpy(state: EnvState) -> dict:
 
 
 def env_state_from_numpy(*, q, qd, steps, reset_count, done, blowup_count, target,
-                         potential, ground_z=0.0, friction=0.8, device="cpu") -> EnvState:
+                         potential, ground_z=0.0, friction=0.8, hf_height=None, hf_xy0=None,
+                         hf_cell=None, has_ground=True, device="cpu") -> EnvState:
     """Batched walker EnvState from numpy arrays with a leading batch axis
     (q (B, nq), qd (B, nv), target (B, 3), the rest (B,)); the scene is the
-    flat plane at ``ground_z`` with ``friction`` (scalars or (B,))."""
+    plane at ``ground_z`` with ``friction`` (scalars or (B,)) and, for the
+    terrain families, each slot's heightfield (``hf_height`` (B, H, W),
+    ``hf_xy0`` (B, 2), ``hf_cell`` (B,); a JAX terrain state has
+    ``has_ground=False``, see :func:`scene_from_numpy`)."""
     B = np.asarray(q).shape[0]
     return _env_state(
         WalkerTaskState(target=_f32(target, device), potential=_f32(potential, device)),
-        scene_from_numpy(B, ground_z, friction, device=device),
+        scene_from_numpy(B, ground_z, friction, hf_height=hf_height, hf_xy0=hf_xy0,
+                         hf_cell=hf_cell, has_ground=has_ground, device=device),
         q=q, qd=qd, steps=steps, reset_count=reset_count, done=done,
         blowup_count=blowup_count, device=device)
 

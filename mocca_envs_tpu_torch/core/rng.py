@@ -18,7 +18,9 @@ Every control step draws, for ALL slots at once and in this fixed order:
 
 Other families draw their own fresh episodes in the same way, in the order
 their ``reset`` documents (the stepper: joint noise, then the stone chain;
-the monkey: joint noise, then the bar chain).
+the monkey: joint noise, then the bar chain; the terrain families: the
+walker's draws, then, at init only, each slot's pick of a grid from the
+family's bank — fresh episodes keep their slot's grid and draw no pick).
 
 Draws happen whether or not a slot uses them, so a trajectory depends only
 on the seed, the batch size and the actions: same seed ⇒ same episodes.

@@ -17,12 +17,16 @@
 //        torque or PD mode;
 //   K1d  KB bar capsules per env (num_bars there) and NGRAB maskable grab
 //        rows (ConstraintSpec.num_grabs there): the monkey's handholds and
-//        hands, torque mode.
+//        hands, torque mode;
+//   K1f  K1a plus a PHF × PHF heightfield window per env (hf_patch there):
+//        the terrain families, whose scene has no plane (its height sunk to
+//        -1e9).
 //
 // Each llc frame runs NSUB substeps:
 //
-//   FK (quaternion chain) → narrowphase: every sphere vs the plane, every
-//   active stone and every active bar, the deepest feature per sphere
+//   FK (quaternion chain) → narrowphase: every sphere vs the plane, the
+//   heightfield, every active stone and every active bar, the deepest
+//   feature per sphere
 //   → passive torques → Newton–Euler bias → [substep 0: CRBA about the base
 //   + Cholesky] → free velocity → rows [rods × 3 | planar × 3 | grabs × 3 |
 //   joint limits | contacts × (n, t1, t2)]
@@ -35,7 +39,8 @@
 // Interface (all f32, contiguous, row-major):
 //   q (B,NQ), qd (B,NV), tau (B,NJ), ground_z (B,), friction (B,),
 //   stones (K·11, B) for K > 0, bars (KB·8, B) for KB > 0, grabs (NGRAB·4,
-//   B) for NGRAB > 0 (each unused, and may be null, otherwise)
+//   B) for NGRAB > 0, hf (B, PHF·PHF + 3) for PHF > 0 (each unused, and may
+//   be null, otherwise)
 //   → q' (B,NQ), qd' (B,NV), depth (B,NS), normal_impulse (B,NS)
 // depth and normal impulse are those of the LAST substep. Row k·11 + c of
 // stones is component c of stone k: center (3), quaternion wxyz (4), half
@@ -44,7 +49,13 @@
 // nearest the root and packs them once per control step. Row k·8 + c of
 // bars is component c of bar k: end a (3), end b (3), radius, active; row
 // g·4 + c of grabs is component c of grab g: active, target (3). Bars are
-// not culled; both are packed once per control step.
+// not culled; both are packed once per control step. Row b of hf is env b's
+// window, its PHF × PHF heights row-major, then the world x0, y0 of its
+// corner cell and the cell size; the caller cuts it from the env's grid
+// around the root once per control step. Unlike the other scene inputs it
+// is env-major: a thread reads its own window, four corners per sphere at
+// data-dependent cells, and env-major keeps each pair of corners in one
+// 32-byte sector, where component-major would spread them B floats apart.
 //
 // Stone narrowphase. It follows the plain version (ops/collide.py,
 // terrain/scene.py::sphere_box_depth), not the TPU kernel, where the two
@@ -64,6 +75,18 @@
 // axis (distance ≤ 1e-9) takes the normal +z. Spheres the table marks
 // no_bar (the grabbing palms, which wrap the bar they hold) skip the bars;
 // a bar replaces the plane or a stone only where strictly deeper.
+//
+// Heightfield narrowphase. It computes what the plain version computes
+// (terrain/scene.py::hf_corners, hf_sample, hf_normal and the heightfield
+// branch of ops/collide.py): the cell of the center's xy clamped to
+// [0, PHF − 1.001], the four corner heights read by index from the env's
+// window in global memory through the read-only path, the bilinear height,
+// its analytic gradient, the unit normal (−∂h/∂x, −∂h/∂y, 1) divided by its
+// norm (a division, as the plain path divides, not rsqrtf), the depth
+// r − (c_z − h)·n_z and the contact point (c_x, c_y, h). It comes after the
+// plane and replaces it only where strictly deeper. The TPU kernel samples
+// the window by one-hot contractions (Mosaic has no vector gather); a
+// direct read selects the same four values.
 //
 // Equality rows. A rod's three rows are the difference of the point
 // Jacobians of its two anchors, with the target −(baumgarte/dt)·(xa − xb)
@@ -89,14 +112,19 @@
 // and the per-sphere normals live in local memory. The model (sizes are
 // template constants) comes as one packed f32 table, staged into shared
 // memory once per block. The kernel launches on the caller's stream and
-// allocates nothing.
+// allocates nothing. A heightfield window is not staged: at 1 KB per env it
+// would double a frame of ~8 KB of local memory, and its four corner reads
+// per sphere and substep go to L1 / L2 (the windows of B = 4096 envs take
+// 4.2 MB of the 50 MB L2).
 //
 // What bounds it on this card. Near contact a K1a call needs ~1.6e5 fp32
 // operations per env (~3.3e5 with every row active, counted by
 // ops/cuda/engine.py::k1_flops) against 0.65 KB of inputs and outputs
-// (0.9 KB with six stones), a K1e call on Cassie ~6.3e5 (its 20 substeps)
-// against 0.47 KB, and a K1d call on the hanging monkey ~5.9e4 against 0.9
-// KB (the 16 bars are 0.5 KB of it), so the floor is the fp32 rate. This simple
+// (0.9 KB with six stones, 1.7 KB with a heightfield window, whose
+// narrowphase adds ~2.8e3 operations), a K1e call on Cassie ~6.3e5 (its 20
+// substeps) against 0.47 KB, and a K1d call on the hanging monkey ~5.9e4
+// against 0.9 KB (the 16 bars are 0.5 KB of it), so the floor is the fp32
+// rate. This simple
 // design is far from it: the workspace round-trips through L2 on every row
 // of every sweep, one thread per env leaves most of the SMs' warp slots
 // empty at B = 4096, and the serial chain has little instruction-level
@@ -117,11 +145,13 @@
 #define KERNEL_DEV inline
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 static inline void sincosf_(float x, float* s, float* c) { *s = sinf(x); *c = cosf(x); }
+static inline float ldg_(const float* p) { return *p; }
 #else
 #include <cuda_runtime.h>
 #define HD __device__
 #define KERNEL_DEV __device__ __forceinline__
 static __device__ __forceinline__ void sincosf_(float x, float* s, float* c) { sincosf(x, s, c); }
+static __device__ __forceinline__ float ldg_(const float* p) { return __ldg(p); }
 #endif
 
 namespace k1 {
@@ -237,10 +267,16 @@ template <int NGRAB>
 struct GrabState { float gact[NGRAB], gtgt[NGRAB][3]; };
 template <>
 struct GrabState<0> {};
+// The heightfield window of a call: where the env's heights start in global
+// memory, and the world x0, y0 of its corner cell and the cell size.
+template <int PHF>
+struct HfState { const float* hp; float hx0, hy0, hcell; };
+template <>
+struct HfState<0> {};
 
 // Per-env state of one call, held in local memory.
-template <int NL, int NS, int NLIM, int K, int NP2P, bool PLANAR, int KB, int NGRAB>
-struct Env : BarState<KB>, GrabState<NGRAB> {
+template <int NL, int NS, int NLIM, int K, int NP2P, bool PLANAR, int KB, int NGRAB, int PHF>
+struct Env : BarState<KB>, GrabState<NGRAB>, HfState<PHF> {
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   float q[L::NQ], qd[L::NV], tau[L::NJ];
   float ground, fric;
@@ -248,7 +284,7 @@ struct Env : BarState<KB>, GrabState<NGRAB> {
   float pos[NL][3], quat[NL][4], omega[NL][3], R[NL][9], comw[NL][3], Iw[NL][9];
   float ja[L::NJ][3];
   float depth[NS], cpt[NS][3];
-  float nrm[K > 0 || KB > 0 ? NS : 1][3];  // contact normals (plane only: always +z)
+  float nrm[K > 0 || KB > 0 || PHF > 0 ? NS : 1][3];  // contact normals (plane only: always +z)
   float stone[K > 0 ? K : 1][STONE_C];
   float bias[L::NV], vfree[L::NV];
   float c[L::NR], act[L::NR], diag[L::NR], finv[NS][3];
@@ -269,12 +305,16 @@ HD inline float& Lget(const WS& ws, int i, int j) {  // i >= j
 }
 
 // ------------------------------------------------------------- substep
-template <int NL, int NS, int NLIM, int ITERS, int K, int NP2P, bool PLANAR, int KB, int NGRAB>
-HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB>& e, const float* tab,
+template <int NL, int NS, int NLIM, int ITERS, int K, int NP2P, bool PLANAR, int KB, int NGRAB,
+          int PHF>
+HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF>& e, const float* tab,
                 const WS& ws, bool factorize) {
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   constexpr int NJ = L::NJ, NV = L::NV, NR = L::NR, NE = L::NE;
-  constexpr bool GENERAL_NORMALS = K > 0 || KB > 0;
+  constexpr bool GENERAL_NORMALS = K > 0 || KB > 0 || PHF > 0;
+  // the stone and bar branches set the plane's normal themselves
+  static_assert(PHF == 0 || (K == 0 && KB == 0), "no instance combines a heightfield with "
+                "stones or bars");
   const float dt = tab[L::DT];
 
   // ---------------- FK along the quaternion chain
@@ -316,7 +356,8 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB>& e, const float* t
                              e.R[l][3 * a + 2] * IRt[6 + b];
   }
 
-  // ---------------- spheres vs the plane, then vs the stones and the bars
+  // ---------------- spheres vs the plane, then vs the heightfield, the
+  // stones and the bars
   for (int s = 0; s < NS; ++s) {
     const int l = (int)tab[L::SPHLINK + s];
     const float rad = tab[L::SPHR + s];
@@ -325,6 +366,28 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB>& e, const float* t
     const float cx = e.pos[l][0] + cw[0], cy = e.pos[l][1] + cw[1], cz = e.pos[l][2] + cw[2];
     e.depth[s] = rad - (cz - e.ground);
     e.cpt[s][0] = cx; e.cpt[s][1] = cy; e.cpt[s][2] = e.ground;
+    if constexpr (PHF > 0) {
+      const float umax = (float)(PHF - 1.001);
+      const float u = clampf((cx - e.hx0) / e.hcell, 0.0f, umax);
+      const float v = clampf((cy - e.hy0) / e.hcell, 0.0f, umax);
+      const float fi = floorf(u), fj = floorf(v);
+      const float fu = u - fi, fv = v - fj, gu = 1.0f - fu, gv = 1.0f - fv;
+      const float* h0 = e.hp + (int)fi * PHF + (int)fj;
+      const float h00 = ldg_(h0), h01 = ldg_(h0 + 1), h10 = ldg_(h0 + PHF),
+                  h11 = ldg_(h0 + PHF + 1);
+      const float hgt = h00 * gu * gv + h10 * fu * gv + h01 * gu * fv + h11 * fu * fv;
+      const float gx = -(((h10 - h00) * gv + (h11 - h01) * fv) / e.hcell);
+      const float gy = -(((h01 - h00) * gu + (h11 - h10) * fu) / e.hcell);
+      const float nn = sqrtf(gx * gx + gy * gy + 1.0f);
+      const float nz = 1.0f / nn;
+      const float dh = rad - (cz - hgt) * nz;
+      e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f;
+      if (dh > e.depth[s]) {                    // strictly deeper than the plane
+        e.depth[s] = dh;
+        e.nrm[s][0] = gx / nn; e.nrm[s][1] = gy / nn; e.nrm[s][2] = nz;
+        e.cpt[s][2] = hgt;
+      }
+    }
     if constexpr (K > 0) {
       // deepest active stone (the first of equals), kept in its box frame
       float best = -1e9f, bn[3] = {0.0f, 0.0f, 1.0f}, bp[3] = {0.0f, 0.0f, 0.0f};
@@ -814,14 +877,15 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB>& e, const float* t
 // the start. PD: ``tau`` holds joint targets and each frame's torque is
 // gain·(target − q) at the frame's start; else the torques are held.
 template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
-          bool PLANAR, int KB, int NGRAB>
+          bool PLANAR, int KB, int NGRAB, int PHF>
 KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const float* gz,
                       const float* fric, const float* stones, const float* bars,
-                      const float* grabs, float* q_out, float* qd_out, float* depth_out,
-                      float* nimp_out, const float* tab, float* ws_base, int B, int t) {
+                      const float* grabs, const float* hf, float* q_out, float* qd_out,
+                      float* depth_out, float* nimp_out, const float* tab, float* ws_base, int B,
+                      int t) {
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   static_assert(PD || NLLC == 1, "torque mode is launched once per llc frame");
-  Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB> e;
+  Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF> e;
   const WS ws{ws_base, B, t};
   float target[PD ? L::NJ : 1];
   for (int i = 0; i < L::NQ; ++i) e.q[i] = q[(long long)t * L::NQ + i];
@@ -845,13 +909,19 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
       e.gact[g] = grabs[(long long)(g * GRAB_C) * B + t];
       for (int d = 0; d < 3; ++d) e.gtgt[g][d] = grabs[(long long)(g * GRAB_C + 1 + d) * B + t];
     }
+  if constexpr (PHF > 0) {
+    e.hp = hf + (long long)t * (PHF * PHF + 3);
+    e.hx0 = e.hp[PHF * PHF];
+    e.hy0 = e.hp[PHF * PHF + 1];
+    e.hcell = e.hp[PHF * PHF + 2];
+  }
   for (int r = 0; r < L::NR; ++r) ws(L::WS_LAM + r) = 0.0f;
   for (int llc = 0; llc < NLLC; ++llc) {
     if constexpr (PD)
       for (int j = 0; j < L::NJ; ++j)
         e.tau[j] = tab[L::PDGAIN + j] * (target[j] - e.q[7 + j]);
     for (int sub = 0; sub < NSUB; ++sub)
-      substep<NL, NS, NLIM, ITERS, K, NP2P, PLANAR, KB, NGRAB>(e, tab, ws, sub == 0);
+      substep<NL, NS, NLIM, ITERS, K, NP2P, PLANAR, KB, NGRAB, PHF>(e, tab, ws, sub == 0);
   }
   for (int i = 0; i < L::NQ; ++i) q_out[(long long)t * L::NQ + i] = e.q[i];
   for (int i = 0; i < L::NV; ++i) qd_out[(long long)t * L::NV + i] = e.qd[i];
@@ -865,13 +935,13 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
 constexpr int kThreads = 32;   // one warp per block: B = 4096 spreads over 128 SMs
 
 template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
-          bool PLANAR, int KB, int NGRAB>
+          bool PLANAR, int KB, int NGRAB, int PHF>
 __global__ void __launch_bounds__(kThreads)
 k1_kernel(const float* __restrict__ q, const float* __restrict__ qd,
           const float* __restrict__ tau, const float* __restrict__ gz,
           const float* __restrict__ fric, const float* __restrict__ stones,
           const float* __restrict__ bars, const float* __restrict__ grabs,
-          float* __restrict__ q_out, float* __restrict__ qd_out,
+          const float* __restrict__ hf, float* __restrict__ q_out, float* __restrict__ qd_out,
           float* __restrict__ depth_out, float* __restrict__ nimp_out,
           const float* __restrict__ table, float* __restrict__ ws, int B) {
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
@@ -880,25 +950,27 @@ k1_kernel(const float* __restrict__ q, const float* __restrict__ qd,
   __syncthreads();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= B) return;
-  frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB>(
-      q, qd, tau, gz, fric, stones, bars, grabs, q_out, qd_out, depth_out, nimp_out, tab, ws,
+  frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF>(
+      q, qd, tau, gz, fric, stones, bars, grabs, hf, q_out, qd_out, depth_out, nimp_out, tab, ws,
       B, t);
 }
 
 template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
-          bool PLANAR, int KB, int NGRAB>
+          bool PLANAR, int KB, int NGRAB, int PHF>
 int launch(const float* q, const float* qd, const float* tau, const float* gz, const float* fric,
-           const float* stones, const float* bars, const float* grabs, float* q_out,
-           float* qd_out, float* depth, float* nimp, const float* table, int table_size,
-           float* ws, int B, void* stream) {
+           const float* stones, const float* bars, const float* grabs, const float* hf,
+           float* q_out, float* qd_out, float* depth, float* nimp, const float* table,
+           int table_size, float* ws, int B, void* stream) {
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   if (table_size != L::SIZE || B <= 0 || (K > 0 && stones == nullptr) ||
-      (KB > 0 && bars == nullptr) || (NGRAB > 0 && grabs == nullptr))
+      (KB > 0 && bars == nullptr) || (NGRAB > 0 && grabs == nullptr) ||
+      (PHF > 0 && hf == nullptr))
     return (int)cudaErrorInvalidValue;
   const int blocks = (B + kThreads - 1) / kThreads;
-  k1_kernel<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB>
+  k1_kernel<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF>
       <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-          q, qd, tau, gz, fric, stones, bars, grabs, q_out, qd_out, depth, nimp, table, ws, B);
+          q, qd, tau, gz, fric, stones, bars, grabs, hf, q_out, qd_out, depth, nimp, table, ws,
+          B);
   return (int)cudaGetLastError();
 }
 #endif
@@ -907,42 +979,43 @@ int launch(const float* q, const float* qd, const float* tau, const float* gz, c
 
 // ------------------------------------------------------------ C interface
 // One entry per instance: (NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P,
-// PLANAR, KB, NGRAB). ops/cuda/engine.py::INSTANTIATIONS lists the same names
-// and numbers.
-#define K1_INSTANCE(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB)  \
+// PLANAR, KB, NGRAB, PHF). ops/cuda/engine.py::INSTANTIATIONS lists the same
+// names and numbers.
+#define K1_INSTANCE(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB,   \
+                    PHF)                                                                     \
   extern "C" int NAME##_layout(int* table_size, int* ws_per_env) {                          \
     *table_size = k1::Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>::SIZE;                   \
     *ws_per_env = k1::Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>::WS_SIZE;                \
     return 0;                                                                                \
   }                                                                                          \
-  K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB)
+  K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF)
 
 #ifndef K1_HOST_CHECK
-#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB)     \
+#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF) \
   extern "C" int NAME##_launch(const float* q, const float* qd, const float* tau,           \
                                const float* gz, const float* fric, const float* stones,     \
-                               const float* bars, const float* grabs, float* q_out,         \
-                               float* qd_out, float* depth, float* nimp,                    \
+                               const float* bars, const float* grabs, const float* hf,      \
+                               float* q_out, float* qd_out, float* depth, float* nimp,      \
                                const float* table, int table_size, float* ws, int B,        \
                                void* stream) {                                              \
-    return k1::launch<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB>(     \
-        q, qd, tau, gz, fric, stones, bars, grabs, q_out, qd_out, depth, nimp, table,       \
+    return k1::launch<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF>( \
+        q, qd, tau, gz, fric, stones, bars, grabs, hf, q_out, qd_out, depth, nimp, table,   \
         table_size, ws, B, stream);                                                         \
   }
 #else
 // host check: the same per-env code as a plain loop over envs
-#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB)     \
+#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF) \
   extern "C" int NAME##_host(const float* q, const float* qd, const float* tau,             \
                              const float* gz, const float* fric, const float* stones,       \
-                             const float* bars, const float* grabs, float* q_out,           \
-                             float* qd_out, float* depth, float* nimp, const float* table,  \
-                             int table_size, float* ws, int B) {                            \
+                             const float* bars, const float* grabs, const float* hf,        \
+                             float* q_out, float* qd_out, float* depth, float* nimp,        \
+                             const float* table, int table_size, float* ws, int B) {        \
     if (table_size != k1::Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>::SIZE || B <= 0)     \
       return 1;                                                                              \
     for (int t = 0; t < B; ++t)                                                              \
-      k1::frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB>(            \
-          q, qd, tau, gz, fric, stones, bars, grabs, q_out, qd_out, depth, nimp, table, ws,  \
-          B, t);                                                                             \
+      k1::frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF>(       \
+          q, qd, tau, gz, fric, stones, bars, grabs, hf, q_out, qd_out, depth, nimp, table,  \
+          ws, B, t);                                                                         \
     return 0;                                                                                \
   }
 #endif
@@ -950,37 +1023,42 @@ int launch(const float* q, const float* qd, const float* tau, const float* gz, c
 // Walker3D / Child3D at the shipped EngineConfig: 22 links, 14 spheres, 21
 // limit rows, 4 substeps, 4 sweeps.
 #if !defined(K1_ONLY) || K1_ONLY == 0
-K1_INSTANCE(k1a_nl22_ns14_nlim21_sub4_it4, 22, 14, 21, 4, 4, 0, false, 1, 0, false, 0, 0)
+K1_INSTANCE(k1a_nl22_ns14_nlim21_sub4_it4, 22, 14, 21, 4, 4, 0, false, 1, 0, false, 0, 0, 0)
 #endif
 // ... over the 6 culled stones of the stepping-stone env
 #if !defined(K1_ONLY) || K1_ONLY == 1
-K1_INSTANCE(k1c_nl22_ns14_nlim21_sub4_it4_k6, 22, 14, 21, 4, 4, 6, false, 1, 0, false, 0, 0)
+K1_INSTANCE(k1c_nl22_ns14_nlim21_sub4_it4_k6, 22, 14, 21, 4, 4, 6, false, 1, 0, false, 0, 0, 0)
 #endif
 // ... PD-servoed, one llc frame per control step (the PD walkers)
 #if !defined(K1_ONLY) || K1_ONLY == 2
-K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc1, 22, 14, 21, 4, 4, 0, true, 1, 0, false, 0, 0)
+K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc1, 22, 14, 21, 4, 4, 0, true, 1, 0, false, 0, 0, 0)
 #endif
 // ... PD-servoed, two llc frames per control step (λ carried across them)
 #if !defined(K1_ONLY) || K1_ONLY == 3
-K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc2, 22, 14, 21, 4, 4, 0, true, 2, 0, false, 0, 0)
+K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc2, 22, 14, 21, 4, 4, 0, true, 2, 0, false, 0, 0, 0)
 #endif
 // Cassie at its three-rate configuration: 17 links, 5 spheres, 16 limit
 // rows, PD-servoed, 10 llc frames of 2 substeps at 600 Hz per control step,
 // the two achilles rods (37 rows)
 #if !defined(K1_ONLY) || K1_ONLY == 4
-K1_INSTANCE(k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2, 17, 5, 16, 2, 4, 0, true, 10, 2, false, 0, 0)
+K1_INSTANCE(k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2, 17, 5, 16, 2, 4, 0, true, 10, 2, false, 0, 0, 0)
 #endif
 // ... locked to the sagittal plane (40 rows)
 #if !defined(K1_ONLY) || K1_ONLY == 5
-K1_INSTANCE(k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar, 17, 5, 16, 2, 4, 0, true, 10, 2, true, 0, 0)
+K1_INSTANCE(k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar, 17, 5, 16, 2, 4, 0, true, 10, 2, true, 0, 0, 0)
 #endif
 // Walker2D / Crab2D at the shipped EngineConfig: 7 links, 5 spheres, 6 limit
 // rows, torque mode, the planar lock (24 rows)
 #if !defined(K1_ONLY) || K1_ONLY == 6
-K1_INSTANCE(k1e_nl7_ns5_nlim6_sub4_it4_planar, 7, 5, 6, 4, 4, 0, false, 1, 0, true, 0, 0)
+K1_INSTANCE(k1e_nl7_ns5_nlim6_sub4_it4_planar, 7, 5, 6, 4, 4, 0, false, 1, 0, true, 0, 0, 0)
 #endif
 // Monkey3D at the shipped EngineConfig: 11 links, 5 spheres, 8 limit rows,
 // torque mode, 16 bars, two grabs (6 + 8 + 15 = 29 rows)
 #if !defined(K1_ONLY) || K1_ONLY == 7
-K1_INSTANCE(k1d_nl11_ns5_nlim8_sub4_it4_kb16_ng2, 11, 5, 8, 4, 4, 0, false, 1, 0, false, 16, 2)
+K1_INSTANCE(k1d_nl11_ns5_nlim8_sub4_it4_kb16_ng2, 11, 5, 8, 4, 4, 0, false, 1, 0, false, 16, 2, 0)
+#endif
+// Walker3D at the shipped EngineConfig over a 16 × 16 heightfield window (the
+// terrain families), torque mode
+#if !defined(K1_ONLY) || K1_ONLY == 8
+K1_INSTANCE(k1f_nl22_ns14_nlim21_sub4_it4_hf16, 22, 14, 21, 4, 4, 0, false, 1, 0, false, 0, 0, 16)
 #endif

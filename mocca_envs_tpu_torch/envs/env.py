@@ -73,9 +73,11 @@ class FnEnv:
 def tree_where(mask: torch.Tensor, a, b):
     """Per-slot select over a state tree (dataclasses of tensors, with
     ``None`` for an absent field): ``a`` where ``mask`` (B,) is true, else
-    ``b``."""
-    if a is None and b is None:
-        return None
+    ``b``. A leaf the two trees share is returned as it is, uncopied: the
+    terrain families carry each slot's grid (4096 × 65² floats) into its
+    fresh episodes, and a select would copy all of it every step."""
+    if a is b:
+        return a
     if isinstance(a, torch.Tensor):
         m = mask.reshape(mask.shape + (1,) * (a.dim() - 1))
         return torch.where(m, a, b)

@@ -2,8 +2,9 @@
 
 Counterpart of ``mocca_envs_tpu/envs/families.py`` for the walk-to-target
 walkers (torque and PD, adult and child, and the planar Walker2D / Crab2D),
-the stepping-stone walker, the Cassie families and the brachiating monkey;
-the other families come with later slices.
+the stepping-stone walker, the Cassie families, the brachiating monkey and
+the walkers over fractal terrain (with and without the LIDAR fan); the other
+families come with later slices.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from mocca_envs_tpu_torch.tasks.cassie_task import make_cassie
 from mocca_envs_tpu_torch.tasks.monkey_stepper import make_monkey3d_stepper
 from mocca_envs_tpu_torch.tasks.walker_custom import WalkerParams, make_walker3d_custom
 from mocca_envs_tpu_torch.tasks.walker_stepper import make_walker3d_stepper
+from mocca_envs_tpu_torch.tasks.walker_terrain import make_walker3d_terrain
 
 register("Walker3DCustomEnv", make_walker3d_custom)
 # the PD-servoed walker: actions are joint-angle targets
@@ -112,3 +114,8 @@ def _make_crab2d_custom(**kw):
 register("Walker2DCustomEnv", _make_walker2d_custom)
 register("Crab2DCustomEnv", _make_crab2d_custom)
 register("Monkey3DStepperEnv", make_monkey3d_stepper)
+register("Walker3DTerrainEnv", make_walker3d_terrain)
+register(
+    "Walker3DTerrainLidarEnv",
+    functools.partial(make_walker3d_terrain, name="Walker3DTerrainLidarEnv", lidar=True),
+)

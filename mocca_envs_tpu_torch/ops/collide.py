@@ -1,8 +1,11 @@
-"""Narrowphase: robot collision spheres vs the scene (plane, stones, bars).
+"""Narrowphase: robot collision spheres vs the scene (plane, heightfield,
+stones, bars).
 
 Counterpart of ``mocca_envs_tpu/ops/collide.py`` for the plane, the
-oriented stone boxes and the bar capsules. One candidate contact per sphere
-(the deepest across the scene's features), so the contact count is static.
+heightfield, the oriented stone boxes and the bar capsules. One candidate
+contact per sphere (the deepest across the scene's features, merged in that
+order, each taking over only where strictly deeper), so the contact count
+is static.
 """
 
 from __future__ import annotations
@@ -13,7 +16,13 @@ import torch
 
 from mocca_envs_tpu_torch.models.schema import RobotModel
 from mocca_envs_tpu_torch.ops.kinematics import FrameData
-from mocca_envs_tpu_torch.terrain.scene import Scene, sphere_box_depth, sphere_capsule_depth
+from mocca_envs_tpu_torch.terrain.scene import (
+    Scene,
+    hf_normal,
+    hf_sample,
+    sphere_box_depth,
+    sphere_capsule_depth,
+)
 
 
 @dataclasses.dataclass
@@ -58,6 +67,17 @@ def collide(model: RobotModel, fd: FrameData, scene: Scene, margin: float) -> Co
         normal = torch.where(take[..., None], torch.gather(n, 2, k3)[:, :, 0], normal)
         pos = torch.where(take[..., None], torch.gather(p, 2, k3)[:, :, 0], pos)
 
+    if scene.has_hf:
+        # the surface point under the center; the depth along the surface
+        # normal there
+        xy = centers[..., :2]
+        h = hf_sample(scene, xy)
+        n = hf_normal(scene, xy)
+        d = model.sph_radius - (centers[..., 2] - h) * n[..., 2]
+        take = d > depth
+        depth = torch.where(take, d, depth)
+        normal = torch.where(take[..., None], n, normal)
+        pos = torch.where(take[..., None], torch.cat([xy, h[..., None]], dim=-1), pos)
     if scene.has_stones:
         # every sphere against every stone: (B, ns, K[, 3])
         merge(*sphere_box_depth(

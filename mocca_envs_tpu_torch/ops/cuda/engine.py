@@ -1,27 +1,30 @@
 """K1: the fused engine kernel on Hopper, its wrappers and its plain version.
 
 Counterpart of ``mocca_envs_tpu/ops/pallas/engine.py::make_pallas_substep``
-for floating all-revolute models at the shipped EngineConfig, in five
+for floating all-revolute models at the shipped EngineConfig, in six
 variants: K1a (plane, torque mode), K1c (K1a plus ``stone_window`` oriented
 stone boxes), K1b (PD mode: the whole control step, joint targets in the
 ``tau`` input), K1e (the equality rows of a ``ConstraintSpec`` in front
 of the others: point-to-point rods and the planar base lock, in torque or PD
-mode) and K1d (bar capsules and the maskable grab rows, torque mode). The
+mode), K1d (bar capsules and the maskable grab rows, torque mode) and K1f
+(K1a plus a per-env ``HF_PATCH × HF_PATCH`` heightfield window). The
 kernel is CUDA C++ in ``csrc/engine_k1.cu``, one source for all
 variants. At first use every instantiation is built with ``nvcc``
 for ``sm_90a`` into ``build/``, one compiler process per instantiation, all
-started together, and called through a plain C interface with ``ctypes``.
+started together (with the raycast kernel K2 of ``csrc/raycast_k2.cu``, whose
+wrapper is ``ops/raycast.py``), and called through a plain C interface with
+``ctypes``.
 
-- :class:`K1a`, :class:`K1c`, :class:`K1b`, :class:`K1e`, :class:`K1d` wrap
-  one (model, config):
+- :class:`K1a`, :class:`K1c`, :class:`K1b`, :class:`K1e`, :class:`K1d`,
+  :class:`K1f` wrap one (model, config):
   ``launch`` launches the kernel on CUDA tensors and raises on anything
   else. The choice by device is made once, in
   ``ops/step.py::_make_llc_unit``; there is no fallback from one path to
   the other.
 - ``plain`` is the plain PyTorch version: the port's ``ops/step.py`` path
   run for the same unit, on any device.
-- ``LAUNCHES["k1a" | "k1b" | "k1c" | "k1e" | "k1d"]`` counts kernel launches
-  (plain runs do not count).
+- ``LAUNCHES["k1a" | "k1b" | "k1c" | "k1e" | "k1d" | "k1f" | "k2"]`` counts
+  kernel launches (plain runs do not count).
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ from mocca_envs_tpu_torch.terrain.scene import BAR_FIELDS, STONE_FIELDS, Scene
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "engine_k1.cu"
+RAYCAST_SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "raycast_k2.cu"
+RAYCAST_SYMBOL = "k2_raycast"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,6 +60,7 @@ NVCC_FLAGS = (
 STONE_FLOATS = 11   # center (3), quaternion (4), half extents (3), active (1)
 BAR_FLOATS = 8      # end a (3), end b (3), radius (1), active (1)
 GRAB_FLOATS = 4     # active (1), target (3)
+HF_META = 3         # behind a heightfield window's P·P heights: x0, y0, cell
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,28 +72,31 @@ class Instance:
 
 
 # (nl, ns, nlim, sim_substeps, solver_iters, stones, pd_mode, llc frames per
-# launch, rods, planar lock, bars, grabs) → instantiation; torque mode
-# launches once per llc frame
+# launch, rods, planar lock, bars, grabs, heightfield window side) →
+# instantiation; torque mode launches once per llc frame
 INSTANTIATIONS = {
-    (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0):
+    (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0, 0):
         Instance("k1a_nl22_ns14_nlim21_sub4_it4", 0),
-    (22, 14, 21, 4, 4, 6, False, 1, 0, False, 0, 0):
+    (22, 14, 21, 4, 4, 6, False, 1, 0, False, 0, 0, 0):
         Instance("k1c_nl22_ns14_nlim21_sub4_it4_k6", 1),
-    (22, 14, 21, 4, 4, 0, True, 1, 0, False, 0, 0):
+    (22, 14, 21, 4, 4, 0, True, 1, 0, False, 0, 0, 0):
         Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc1", 2),
-    (22, 14, 21, 4, 4, 0, True, 2, 0, False, 0, 0):
+    (22, 14, 21, 4, 4, 0, True, 2, 0, False, 0, 0, 0):
         Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc2", 3),
     # Cassie and Cassie2D: the whole control step, 10 llc frames × 2 substeps
-    (17, 5, 16, 2, 4, 0, True, 10, 2, False, 0, 0):
+    (17, 5, 16, 2, 4, 0, True, 10, 2, False, 0, 0, 0):
         Instance("k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 4),
-    (17, 5, 16, 2, 4, 0, True, 10, 2, True, 0, 0):
+    (17, 5, 16, 2, 4, 0, True, 10, 2, True, 0, 0, 0):
         Instance("k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar", 5),
     # Walker2D and Crab2D
-    (7, 5, 6, 4, 4, 0, False, 1, 0, True, 0, 0):
+    (7, 5, 6, 4, 4, 0, False, 1, 0, True, 0, 0, 0):
         Instance("k1e_nl7_ns5_nlim6_sub4_it4_planar", 6),
     # Monkey3D: 16 bars, two grabs
-    (11, 5, 8, 4, 4, 0, False, 1, 0, False, 16, 2):
+    (11, 5, 8, 4, 4, 0, False, 1, 0, False, 16, 2, 0):
         Instance("k1d_nl11_ns5_nlim8_sub4_it4_kb16_ng2", 7),
+    # Walker3D over a 16 × 16 heightfield window (the terrain families)
+    (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0, 16):
+        Instance("k1f_nl22_ns14_nlim21_sub4_it4_hf16", 8),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -120,32 +129,35 @@ def library_path(inst: Instance) -> Path:
 
 
 def build() -> dict:
-    """Compile every instantiation of ``csrc/engine_k1.cu`` whose library is
-    missing or older than the source, all compilers started together, and
-    load them: ``{symbol: CDLL}``. A failed build raises with nvcc's output;
-    ``_Library.logs`` keeps nvcc's report per symbol."""
+    """Compile every instantiation of ``csrc/engine_k1.cu`` and the raycast
+    kernel of ``csrc/raycast_k2.cu`` whose library is missing or older than
+    its source, all compilers started together, and load them: ``{symbol:
+    CDLL}``. A failed build raises with nvcc's output; ``_Library.logs``
+    keeps nvcc's report per symbol."""
     if _Library.handles:
         return _Library.handles
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = []
-    for inst in INSTANTIATIONS.values():
-        lib = library_path(inst)
-        if lib.exists() and lib.stat().st_mtime >= SOURCE.stat().st_mtime:
+    jobs = [(inst.symbol, SOURCE, [f"-DK1_ONLY={inst.index}"])
+            for inst in INSTANTIATIONS.values()] + [(RAYCAST_SYMBOL, RAYCAST_SOURCE, [])]
+    for symbol, source, flags in jobs:
+        lib = BUILD_DIR / f"lib{symbol}.so"
+        if lib.exists() and lib.stat().st_mtime >= source.stat().st_mtime:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, f"-DK1_ONLY={inst.index}", "-o", tmp, str(SOURCE)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", tmp, str(source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running.append((inst, tmp, proc))
+        running.append((symbol, lib, tmp, proc))
     failed = []
-    for inst, tmp, proc in running:
+    for symbol, lib, tmp, proc in running:
         log = proc.communicate()[0]
-        _Library.logs[inst.symbol] = log
+        _Library.logs[symbol] = log
         if proc.returncode != 0:
             os.unlink(tmp)
-            failed.append(f"{inst.symbol}: nvcc failed ({proc.returncode}):\n{log}")
+            failed.append(f"{symbol}: nvcc failed ({proc.returncode}):\n{log}")
         else:
-            os.replace(tmp, library_path(inst))
+            os.replace(tmp, lib)
     if failed:
         raise RuntimeError("\n".join(failed))
     handles = {}
@@ -154,9 +166,17 @@ def build() -> dict:
         getattr(lib, inst.symbol + "_layout").argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
         getattr(lib, inst.symbol + "_layout").restype = _I
         fn = getattr(lib, inst.symbol + "_launch")
-        fn.argtypes = [_P] * 13 + [_I, _P, _I, _P]
+        fn.argtypes = [_P] * 14 + [_I, _P, _I, _P]
         fn.restype = _I
         handles[inst.symbol] = lib
+    lib = ctypes.CDLL(str(BUILD_DIR / f"lib{RAYCAST_SYMBOL}.so"))
+    fn = getattr(lib, RAYCAST_SYMBOL + "_launch")
+    # origins, directions, grid, H, W, xy0, cell, max_t, dt, steps, t out,
+    # h out, B, stream
+    fn.argtypes = [_P, _P, _P, _I, _I, _P, _P, ctypes.c_float, ctypes.c_float, _I, _P, _P, _I,
+                   _P]
+    fn.restype = _I
+    handles[RAYCAST_SYMBOL] = lib
     _Library.handles = handles
     return handles
 
@@ -169,7 +189,7 @@ def layout(lib, name: str) -> tuple[int, int]:
 
 
 def _check_supported(model: RobotModel, config: EngineConfig, num_stones: int, num_bars: int,
-                     pd_mode: bool, constraints: ConstraintSpec) -> Instance:
+                     pd_mode: bool, constraints: ConstraintSpec, hf_patch: int) -> Instance:
     if not model.floating or any(t != REVOLUTE for t in model.jtype):
         raise NotImplementedError("K1 covers floating-base all-revolute models")
     options = dict(block_pgs=True, matfree_pgs=True, warm_start=True,
@@ -179,11 +199,12 @@ def _check_supported(model: RobotModel, config: EngineConfig, num_stones: int, n
         raise NotImplementedError(f"K1 runs the shipped solver options; got {off}")
     key = (model.nl, model.ns, len(limited_joints(model)), config.sim_substeps,
            config.solver_iters, num_stones, pd_mode, config.llc_frames if pd_mode else 1,
-           constraints.num_p2p, constraints.planar, num_bars, constraints.num_grabs)
+           constraints.num_p2p, constraints.planar, num_bars, constraints.num_grabs, hf_patch)
     if key not in INSTANTIATIONS:
         raise NotImplementedError(
             "no K1 instantiation for (nl, ns, nlim, substeps, iters, stones, pd_mode, "
-            f"llc frames, rods, planar, bars, grabs) = {key}; built: {sorted(INSTANTIATIONS)}"
+            f"llc frames, rods, planar, bars, grabs, hf window) = {key}; built: "
+            f"{sorted(INSTANTIATIONS)}"
         )
     return INSTANTIATIONS[key]
 
@@ -252,6 +273,23 @@ def pack_grabs(grab_active: torch.Tensor, grab_target: torch.Tensor) -> torch.Te
     return _pack(torch.cat([grab_active[..., None], grab_target], dim=2))
 
 
+def pack_hf(scene: Scene) -> torch.Tensor:
+    """The scene's heightfield window in the kernel's layout, ``(B, P·P + 3)``:
+    env-major (row b is env b's P×P heights row-major, then x0, y0, cell),
+    so that the four corners one thread reads lie close together."""
+    B = scene.hf_height.shape[0]
+    return torch.cat([scene.hf_height.reshape(B, -1), scene.hf_xy0,
+                      scene.hf_cell[:, None]], dim=1).contiguous()
+
+
+def unpack_hf(hf: torch.Tensor) -> dict:
+    """Inverse of :func:`pack_hf`: the three heightfield fields of a Scene."""
+    B, C = hf.shape
+    P = int(round((C - HF_META) ** 0.5))
+    return {"hf_height": hf[:, :P * P].reshape(B, P, P), "hf_xy0": hf[:, P * P:P * P + 2],
+            "hf_cell": hf[:, P * P + 2]}
+
+
 def _unpack(packed: torch.Tensor, fields, widths) -> dict:
     rows = packed.t().reshape(packed.shape[1], -1, sum(widths))
     parts = [p[..., 0] if p.shape[-1] == 1 else p for p in rows.split(widths, dim=2)]
@@ -268,10 +306,11 @@ def unpack_bars(bars: torch.Tensor) -> dict:
     return _unpack(bars, BAR_FIELDS, (3, 3, 1, 1))
 
 
-def make_scene(ground_z, friction, stones=None, bars=None) -> Scene:
+def make_scene(ground_z, friction, stones=None, bars=None, hf=None) -> Scene:
     """The Scene a kernel call's scene arguments describe."""
     fields = {**(unpack_stones(stones) if stones is not None else {}),
-              **(unpack_bars(bars) if bars is not None else {})}
+              **(unpack_bars(bars) if bars is not None else {}),
+              **(unpack_hf(hf) if hf is not None else {})}
     return Scene(ground_z=ground_z, friction=friction, **fields)
 
 
@@ -289,8 +328,8 @@ class EngineKernel:
     friction (B,), *scene_inputs) → (q', qd', depth (B,ns), normal_impulse
     (B,ns))``, all f32. ``scene_inputs`` are the variant's packed inputs
     named in ``inputs``: none on the plane, ``stones (K·11,B)`` for K1c,
-    ``bars (KB·8,B), grabs (ng·4,B)`` for K1d; :meth:`pack` makes them from a
-    Scene and the grab state. In PD mode ``tau`` holds the joint targets and
+    ``bars (KB·8,B), grabs (ng·4,B)`` for K1d, ``hf (B,P·P+3)`` for K1f;
+    :meth:`pack` makes them from a Scene and the grab state. In PD mode ``tau`` holds the joint targets and
     the unit is the whole control step; else it is one llc frame.
     ``plain_unit`` is the plain unit to compare against (built here when not
     given).
@@ -299,20 +338,22 @@ class EngineKernel:
     variant = "k1"
 
     def __init__(self, model: RobotModel, config: EngineConfig, *, num_stones: int = 0,
-                 num_bars: int = 0, pd_mode: bool = False, extra_damping=None,
-                 plain_unit=None, constraints: ConstraintSpec = ConstraintSpec()):
+                 num_bars: int = 0, hf_patch: int = 0, pd_mode: bool = False,
+                 extra_damping=None, plain_unit=None,
+                 constraints: ConstraintSpec = ConstraintSpec()):
         self.instance = _check_supported(model, config, num_stones, num_bars, pd_mode,
-                                         constraints)
+                                         constraints, hf_patch)
         self.name = self.instance.symbol
         self.model = model
         self.config = config
         self.num_stones = num_stones
         self.num_bars = num_bars
+        self.hf_patch = hf_patch
         self.pd_mode = pd_mode
         self.extra_damping = extra_damping
         self.constraints = constraints
         self.inputs = (("stones",) if num_stones else ()) + (
-            ("bars", "grabs") if num_bars else ())
+            ("bars", "grabs") if num_bars else ()) + (("hf",) if hf_patch else ())
         self.table_host = pack_tables(model, config, extra_damping, constraints, num_bars)
         self._plain_unit = plain_unit
         self._table: torch.Tensor | None = None
@@ -321,7 +362,8 @@ class EngineKernel:
     def pack(self, scene: Scene, grab_active=None, grab_target=None) -> tuple:
         """This variant's scene inputs for ``scene`` and the grab state."""
         packed = {"stones": lambda: pack_stones(scene), "bars": lambda: pack_bars(scene),
-                  "grabs": lambda: pack_grabs(grab_active, grab_target)}
+                  "grabs": lambda: pack_grabs(grab_active, grab_target),
+                  "hf": lambda: pack_hf(scene)}
         return tuple(packed[name]() for name in self.inputs)
 
     def unpack(self, ground_z, friction, *scene_inputs):
@@ -350,10 +392,12 @@ class EngineKernel:
         if len(scene_inputs) != len(self.inputs):
             raise ValueError(f"{self.variant}: takes the scene inputs {self.inputs}, "
                              f"got {len(scene_inputs)} of them")
-        rows = {"stones": self.num_stones * STONE_FLOATS, "bars": self.num_bars * BAR_FLOATS,
-                "grabs": self.constraints.num_grabs * GRAB_FLOATS}
+        shapes = {"stones": (self.num_stones * STONE_FLOATS, B),
+                  "bars": (self.num_bars * BAR_FLOATS, B),
+                  "grabs": (self.constraints.num_grabs * GRAB_FLOATS, B),
+                  "hf": (B, self.hf_patch ** 2 + HF_META)}
         for name, x in zip(self.inputs, scene_inputs):
-            want[name] = (x, (rows[name], B))
+            want[name] = (x, shapes[name])
         # shapes and dtypes of every input first, then where they live
         for name, (x, shape) in want.items():
             if tuple(x.shape) != shape:
@@ -395,7 +439,7 @@ class EngineKernel:
         with torch.cuda.device(dev):
             err = getattr(lib, self.name + "_launch")(
                 q.data_ptr(), qd.data_ptr(), tau.data_ptr(), ground_z.data_ptr(),
-                friction.data_ptr(), ptr("stones"), ptr("bars"), ptr("grabs"),
+                friction.data_ptr(), ptr("stones"), ptr("bars"), ptr("grabs"), ptr("hf"),
                 q_out.data_ptr(), qd_out.data_ptr(), depth.data_ptr(), nimp.data_ptr(),
                 self._table.data_ptr(), table_size, self._ws.data_ptr(), B, stream,
             )
@@ -463,11 +507,30 @@ class K1d(EngineKernel):
                          constraints=constraints)
 
 
-def make_kernel(model, config, *, num_stones=0, num_bars=0, pd_mode=False, extra_damping=None,
-                plain_unit=None, constraints: ConstraintSpec = ConstraintSpec()) -> EngineKernel:
-    """The variant for a scene with ``num_stones`` (culled) stones and
-    ``num_bars`` bars, the actuation mode and the equality rows;
-    combinations without an instantiation raise."""
+class K1f(EngineKernel):
+    """One llc frame over a per-env ``hf_patch × hf_patch`` heightfield
+    window, torque mode; the scene input is the packed window
+    (:func:`pack_hf`). The scene has no plane: its ``ground_z`` is
+    ``terrain.scene.NO_GROUND_Z``."""
+
+    variant = "k1f"
+
+    def __init__(self, model, config, hf_patch: int, plain_unit=None):
+        super().__init__(model, config, hf_patch=hf_patch, plain_unit=plain_unit)
+
+
+def make_kernel(model, config, *, num_stones=0, num_bars=0, hf_patch=0, pd_mode=False,
+                extra_damping=None, plain_unit=None,
+                constraints: ConstraintSpec = ConstraintSpec()) -> EngineKernel:
+    """The variant for a scene with ``num_stones`` (culled) stones,
+    ``num_bars`` bars and a ``hf_patch``-sided heightfield window (0: none),
+    the actuation mode and the equality rows; combinations without an
+    instantiation raise."""
+    if hf_patch:
+        if pd_mode or num_stones or num_bars or constraints.ne or extra_damping is not None:
+            raise NotImplementedError("no K1 instantiation for a heightfield with PD mode, "
+                                      "stones, bars or equality rows")
+        return K1f(model, config, hf_patch, plain_unit)
     if pd_mode and num_stones:
         raise NotImplementedError("no K1 instantiation for PD mode over stones")
     if constraints.ne and num_stones:
@@ -534,7 +597,10 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs) -> int:
     contact projects its Jacobian onto its own normal and tangents. With
     bars, every sphere that may touch them (not the palms) is tested against
     every active bar each substep, its deepest bar's normal and point made
-    once, and active contacts project as over stones. PD mode adds the torque
+    once, and active contacts project as over stones. With a heightfield
+    window, every sphere samples it each substep (its cell, four corners, the
+    bilinear height, the gradient, the normal, the depth and the merge with
+    the plane) and active contacts project as over stones. PD mode adds the torque
     per llc frame. Rods and the planar lock are needed every substep: a rod
     takes its two anchors to the world frame, two point Jacobians over the
     anchors' ancestor joints, their difference, three dense W rows with
@@ -607,6 +673,12 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs) -> int:
         n_active = (unpack_bars(named["bars"])["bar_active"] > 0.5).double().sum()
         n_sph = float((model.sph_no_bar < 0.5).sum())
         total += S * n_sph * (35.0 * float(n_active) + B * 11.0)
+    if "hf" in named:
+        # per sphere: (u, v) (2 subtractions, 2 divisions, 4 clamps), two
+        # floors and the fractions (4), 1 − f (2), the bilinear height (11),
+        # the gradient (10) over the cell (2), the normal (3 products, 2 sums,
+        # a root, 3 divisions: 9), the depth (3) and the compare (1)
+        total += S * B * ns * 50.0
     if named:
         # per active contact: the tangent basis (15) and three projections of
         # the 3 × nv point Jacobian (5 each)
@@ -637,10 +709,11 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs) -> int:
 
 def k1_bytes_per_env(kernel: EngineKernel) -> int:
     """Bytes one env must move: each input read once, each output written
-    once (q, qd, tau, ground_z, friction, the window's stones, the bars and
-    the grabs in; q', qd', depth, impulse out)."""
+    once (q, qd, tau, ground_z, friction, the window's stones, the bars, the
+    grabs and the heightfield window in; q', qd', depth, impulse out)."""
     model = kernel.model
     inputs = (model.nq + model.nv + model.nj + 2 + kernel.num_stones * STONE_FLOATS
-              + kernel.num_bars * BAR_FLOATS + kernel.constraints.num_grabs * GRAB_FLOATS)
+              + kernel.num_bars * BAR_FLOATS + kernel.constraints.num_grabs * GRAB_FLOATS
+              + (kernel.hf_patch ** 2 + HF_META if kernel.hf_patch else 0))
     outputs = model.nq + model.nv + 2 * model.ns
     return 4 * (inputs + outputs)

@@ -1,7 +1,8 @@
 """The assembled physics step, batch-first.
 
 Counterpart of ``mocca_envs_tpu/ops/step.py`` for floating-base models over
-the plane, the stone boxes and the bar capsules, with torque or PD actuation
+the plane, the stone boxes, the bar capsules and heightfields, with torque or
+PD actuation
 and the equality rows of a :class:`ConstraintSpec` (point-to-point rods, the
 planar base lock, and the maskable grab rows whose activity and anchor are
 per-env data: ``grab_active (B, ng)``, ``grab_target (B, ng, 3)``).
@@ -19,9 +20,10 @@ and the whole control step in PD mode (λ carried across its llc frames). On
 CPU tensors a unit runs this plain PyTorch path. On CUDA tensors it runs as
 ONE launch of the hand-written engine kernel (ops/cuda/engine.py: K1a on the
 plane, K1c over stones, K1b in PD mode, K1e with equality rows, K1d over bars
-with grab rows), which computes the same unit; there is no fallback between
-the two. Stones are culled to ``config.stone_window`` once per unit, before
-either path; bars are never culled.
+with grab rows, K1f over a heightfield), which computes the same unit; there
+is no fallback between the two. Stones are culled to ``config.stone_window``
+and a heightfield grid is cut to its ``HF_PATCH × HF_PATCH`` window around
+the root once per unit, before either path; bars are never culled.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from mocca_envs_tpu_torch.ops.kinematics import (
     point_jacobian,
 )
 from mocca_envs_tpu_torch.ops.solver import delassus, pgs_solve, tangent_basis
-from mocca_envs_tpu_torch.terrain.scene import Scene, cull_stones
+from mocca_envs_tpu_torch.terrain.scene import HF_PATCH, Scene, cull_stones, extract_patch
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
 
@@ -316,25 +318,36 @@ def _make_llc_unit(model: RobotModel, config: EngineConfig, substep,
                    constraints: ConstraintSpec = ConstraintSpec(),
                    extra_damping=None, pd_mode: bool = False):
     """One launch unit (see :func:`make_plain_llc`). Stones are culled to the
-    window first, on both paths. CPU tensors then take the plain path; any
+    window first, and a heightfield grid larger than ``HF_PATCH`` is cut to
+    the window around the root (a grid that is one already passes through),
+    on both paths. CPU tensors then take the plain path, on any grid; any
     other device launches the engine kernel of the scene's, the actuation's
-    and the constraints' variant, which raises where it cannot run. The
-    kernel's scene inputs (stones; bars and grabs) are packed per unit."""
+    and the constraints' variant, which raises where it cannot run, a grid
+    smaller than the window included. The kernel's scene inputs (stones;
+    bars and grabs; the heightfield window) are packed per unit."""
     plain_unit = make_plain_llc(model, config, substep, pd_mode)
     kernels: dict = {}
 
     def llc_unit(q, qd, tau_or_targets, scene: Scene, grab_active=None, grab_target=None):
         scene = cull_stones(scene, q[:, 0:2], config.stone_window)
+        hf_patch = 0
+        if scene.has_hf and min(scene.hf_height.shape[1:]) >= HF_PATCH:
+            scene = extract_patch(scene, q[:, 0:2], HF_PATCH)
+            hf_patch = HF_PATCH
         if q.device.type == "cpu":
             return plain_unit(q, qd, tau_or_targets, scene, grab_active, grab_target)
+        if scene.has_hf and not hf_patch:
+            raise NotImplementedError(
+                f"K1f samples a {HF_PATCH}×{HF_PATCH} heightfield window; this grid is "
+                f"{tuple(scene.hf_height.shape[1:])}, smaller than the window")
         from mocca_envs_tpu_torch.ops.cuda import engine as cuda_engine
 
         key = (scene.stone_pos.shape[1] if scene.has_stones else 0,
-               scene.bar_a.shape[1] if scene.has_bars else 0)
+               scene.bar_a.shape[1] if scene.has_bars else 0, hf_patch)
         if key not in kernels:
             kernels[key] = cuda_engine.make_kernel(
-                model, config, num_stones=key[0], num_bars=key[1], pd_mode=pd_mode,
-                extra_damping=extra_damping, plain_unit=plain_unit,
+                model, config, num_stones=key[0], num_bars=key[1], hf_patch=hf_patch,
+                pd_mode=pd_mode, extra_damping=extra_damping, plain_unit=plain_unit,
                 constraints=constraints)
         kernel = kernels[key]
         qq, dd, depth, nimp = kernel.launch(

@@ -4,7 +4,10 @@ Counterpart of ``mocca_envs_tpu/tasks/walker_custom.py`` with torque or PD
 actuation (``pd_control``), ``reset_obs="zero"`` and the flat scene; it also
 carries the scaled-model variants (``Child3DCustomEnv``) and, through a
 ``constraints`` spec with the planar rows, the 2D variants
-(``Walker2DCustomEnv``, ``Crab2DCustomEnv``).
+(``Walker2DCustomEnv``, ``Crab2DCustomEnv``). Its step also serves the
+terrain families (tasks/walker_terrain.py): over a scene with a heightfield
+the fall test measures the base's height above the surface under it, and a
+resampled target is set on that surface.
 
 Episode flow:
 - reset: base at (0, 0, initial_z + 0.02), uniform joint-angle noise clipped
@@ -175,6 +178,13 @@ def make_walker3d_custom(
             blowup_count=zeros_i.clone(),
         )
 
+    def surface_z(scene, xy):
+        # the ground under ``xy``: the heightfield where the scene has one
+        # (the terrain families reuse this step), else the plane
+        if scene.has_hf:
+            return scene_mod.hf_sample(scene, xy)
+        return scene.ground_z
+
     def raw_step(state: EnvState, action: torch.Tensor, gen: torch.Generator) -> Transition:
         q, qd, info = control(state.q, state.qd, action, state.scene)
 
@@ -182,12 +192,18 @@ def make_walker3d_custom(
         potential = -dist / config.control_dt
         progress = params.w_progress * (potential - state.task.potential)
 
-        tall = q[:, 2] - state.scene.ground_z > params.terminal_height
+        # height above the LOCAL surface: a raw q[2] test over a heightfield
+        # would end episodes in valleys and miss falls on hills
+        tall = q[:, 2] - surface_z(state.scene, q[:, 0:2]) > params.terminal_height
         body_touch = info.link_contact[:, terminal_links].amax(dim=1)
         fallen = (~tall) | (body_touch > 0.5)
 
         reached = dist < params.target_reach_radius
         new_target = sample_target(gen, q[:, 0:2], T.heading_yaw(q))
+        if state.scene.has_hf:
+            # a resampled target sits on the terrain (reset does the same in
+            # tasks/walker_terrain.py)
+            new_target[:, 2] = scene_mod.hf_sample(state.scene, new_target[:, :2])
         target = torch.where(reached[:, None], new_target, state.task.target)
         dist_after = torch.linalg.vector_norm(target[:, :2] - q[:, 0:2], dim=1)
         potential = -dist_after / config.control_dt

@@ -1,12 +1,19 @@
 """Scene: the world geometry the robot collides with, batch-first.
 
 Counterpart of ``mocca_envs_tpu/terrain/scene.py`` for the plane, the
-oriented stone boxes and the bar capsules: one infinite plane per env with
-its friction coefficient; for stepping-stone scenes ``K`` boxes per env with
-the sphere-vs-box narrowphase and the per-control-step culling of the stones
-nearest the root; for monkey-bar scenes ``KB`` capsules per env (handholds)
-with the sphere-vs-capsule narrowphase, never culled. Heightfields and
-meshes come with later slices.
+oriented stone boxes, the bar capsules and the heightfields: one infinite
+plane per env with its friction coefficient; for stepping-stone scenes
+``K`` boxes per env with the sphere-vs-box narrowphase and the
+per-control-step culling of the stones nearest the root; for monkey-bar
+scenes ``KB`` capsules per env (handholds) with the sphere-vs-capsule
+narrowphase, never culled; for terrain scenes an ``H×W`` height grid per env
+with its bilinear sample, analytic normal and the ``P×P`` window around the
+root that the physics and the observations read once per control step.
+Meshes come with a later slice.
+
+The JAX package switches the plane off with a static ``has_ground=False``;
+here the plane is always evaluated, so a scene without one sinks it to
+``NO_GROUND_Z``, where it never wins a contact.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from mocca_envs_tpu_torch.core import quat as quat_ops
 
 STONE_FIELDS = ("stone_pos", "stone_quat", "stone_half", "stone_active")
 BAR_FIELDS = ("bar_a", "bar_b", "bar_r", "bar_active")
+NO_GROUND_Z = -1e9   # the plane's height in a scene without one
+HF_PATCH = 16        # side (cells) of the per-env heightfield window
 
 
 @dataclasses.dataclass
@@ -35,6 +44,10 @@ class Scene:
     bar_b: torch.Tensor | None = None          # (B, KB, 3) segment end
     bar_r: torch.Tensor | None = None          # (B, KB) capsule radius
     bar_active: torch.Tensor | None = None     # (B, KB) 1.0 = solid
+    # heightfield grid; all three are None in a scene without one
+    hf_height: torch.Tensor | None = None      # (B, H, W) heights, row-major
+    hf_xy0: torch.Tensor | None = None         # (B, 2) world xy of grid[0, 0]
+    hf_cell: torch.Tensor | None = None        # (B,) cell size [m]
 
     @property
     def has_stones(self) -> bool:
@@ -43,6 +56,10 @@ class Scene:
     @property
     def has_bars(self) -> bool:
         return self.bar_a is not None
+
+    @property
+    def has_hf(self) -> bool:
+        return self.hf_height is not None
 
 
 def flat(batch: int, device="cpu", ground_z: float = 0.0, friction: float = 0.8) -> Scene:
@@ -142,3 +159,76 @@ def sphere_capsule_depth(center, radius, seg_a, seg_b, cap_r):
     n = torch.where((dist > 1e-9)[..., None], delta / torch.clamp(dist, min=1e-9)[..., None], up)
     depth = radius + cap_r - dist
     return depth, n, closest + n * cap_r[..., None]
+
+
+def _cells(scene: Scene, xy: torch.Tensor):
+    """Grid coordinates of world points ``xy (B, ..., 2)``: the fractional
+    (u, v), clamped inside the grid as the JAX package clamps them."""
+    H, W = scene.hf_height.shape[1:]
+    extra = (1,) * (xy.dim() - 2)
+    xy0 = scene.hf_xy0.reshape(-1, *extra, 2)
+    cell = scene.hf_cell.reshape(-1, *extra, 1)
+    uv = (xy - xy0) / cell
+    return uv, torch.clamp(uv[..., 0], 0.0, H - 1.001), torch.clamp(uv[..., 1], 0.0, W - 1.001)
+
+
+def _gather(grid: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``grid (B, H, W)`` at flat indices ``index (B, ...)``."""
+    flat = grid.reshape(grid.shape[0], -1)
+    return torch.gather(flat, 1, index.reshape(index.shape[0], -1)).reshape(index.shape)
+
+
+def hf_corners(scene: Scene, xy: torch.Tensor):
+    """Bilinear cell lookup at world ``xy (B, ..., 2)``: the four corner
+    heights and the in-cell fractions ``(h00, h10, h01, h11, fu, fv)``, each
+    (B, ...); clamped at the borders. Direct gathers (the JAX package's
+    one-hot contractions select the same values). The cell indices are
+    clamped into the grid too, which changes nothing for a finite point and
+    keeps a non-finite one (a blown-up state) from indexing out of it."""
+    H, W = scene.hf_height.shape[1:]
+    _, u, v = _cells(scene, xy)
+    i0f, j0f = torch.floor(u), torch.floor(v)
+    i0 = i0f.long().clamp(0, H - 2)
+    j0 = j0f.long().clamp(0, W - 2)
+    fu, fv = u - i0f, v - j0f
+    k = i0 * W + j0
+    grid = scene.hf_height
+    return (_gather(grid, k), _gather(grid, k + W), _gather(grid, k + 1),
+            _gather(grid, k + W + 1), fu, fv)
+
+
+def hf_sample(scene: Scene, xy: torch.Tensor) -> torch.Tensor:
+    """Bilinear height at world ``xy (B, ..., 2)`` → (B, ...)."""
+    h00, h10, h01, h11, fu, fv = hf_corners(scene, xy)
+    return h00 * (1 - fu) * (1 - fv) + h10 * fu * (1 - fv) + h01 * (1 - fu) * fv + h11 * fu * fv
+
+
+def hf_normal(scene: Scene, xy: torch.Tensor) -> torch.Tensor:
+    """Unit surface normal at ``xy (B, ..., 2)`` → (B, ..., 3): the exact
+    in-cell gradient of :func:`hf_sample` (not a finite difference)."""
+    h00, h10, h01, h11, fu, fv = hf_corners(scene, xy)
+    cell = scene.hf_cell.reshape(-1, *(1,) * (fu.dim() - 1))
+    dhdx = ((h10 - h00) * (1 - fv) + (h11 - h01) * fv) / cell
+    dhdy = ((h01 - h00) * (1 - fu) + (h11 - h10) * fu) / cell
+    n = torch.stack([-dhdx, -dhdy, torch.ones_like(dhdx)], dim=-1)
+    return n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+
+
+def extract_patch(scene: Scene, xy: torch.Tensor, P: int = HF_PATCH) -> Scene:
+    """The ``P×P`` window of each env's grid around world ``xy (B, 2)``, as a
+    Scene. Its corner cell is ``clip(floor(uv) − P/2, 0, H − P)``, so the
+    window is pinned to the grid's edge exactly when the point is near it,
+    and samples of the window equal samples of the grid for points within
+    ``(P/2 − 2)·cell`` of ``xy``. A grid no larger than the window passes
+    through unchanged."""
+    H, W = scene.hf_height.shape[1:]
+    if H <= P and W <= P:
+        return scene
+    uv, _, _ = _cells(scene, xy)
+    base = torch.floor(uv).long() - P // 2
+    si = base[:, 0].clamp(0, H - P)
+    sj = base[:, 1].clamp(0, W - P)
+    ar = torch.arange(P, device=xy.device)
+    index = (si[:, None, None] + ar[None, :, None]) * W + (sj[:, None, None] + ar[None, None, :])
+    xy0 = scene.hf_xy0 + torch.stack([si, sj], dim=1).to(xy.dtype) * scene.hf_cell[:, None]
+    return dataclasses.replace(scene, hf_height=_gather(scene.hf_height, index), hf_xy0=xy0)

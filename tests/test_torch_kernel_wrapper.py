@@ -12,8 +12,10 @@
   K1b in PD mode at one and two llc frames, K1e with Cassie's rods, with
   the planar lock added, and with the planar lock alone on Walker2D and
   Crab2D; K1d over the monkey's bars with its grab rows, both hands, one,
-  none, bars in contact and not), and the packed table has the size the
-  source lays out;
+  none, bars in contact and not; K1f over the terrain families' windows,
+  the grid's border included), and the packed table has the size the
+  source lays out; so does the raycast kernel K2's per-ray code against
+  ops/raycast.py's plain version;
 - on a card: each kernel agrees with its plain version (skips elsewhere).
 
 The kernel cases take their inputs from chip_smoke.py's state generators, at
@@ -40,6 +42,7 @@ from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.ops.step import ConstraintSpec
 from mocca_envs_tpu_torch.tasks import monkey_stepper as tasks_monkey
 from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
+from mocca_envs_tpu_torch.terrain.scene import HF_PATCH, NO_GROUND_Z
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
 REPO = Path(__file__).resolve().parents[1]
@@ -47,6 +50,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mocca_envs_tpu"}
 TOL = {"q": 2e-4, "qd": 5e-3, "depth": 2e-4, "nimp": 5e-3}
 TOL_EQ = chip_smoke.TOL_EQ   # over equality rows: q 5e-4, qd 2e-2, depth 5e-4
 TOL_GRAB = chip_smoke.TOL_GRAB   # over bars and grab rows: impulse 1e-2
+TOL_HF = chip_smoke.TOL_HF   # over a heightfield: qd 1e-2, depth 5e-4, impulse 1e-2
 
 
 def _near_contact(B, seed):
@@ -60,8 +64,14 @@ def _kernel_case(case, B, seed, device="cpu"):
     / k1e_cassie2d (the whole PD control step with the rods, and the planar
     lock), k1e_planar / k1e_crab (one torque frame of Walker2D / Crab2D,
     which share an instantiation), k1d* (one torque frame of the monkey
-    hanging from its bars, the hands attached as :data:`K1D_CASES` says)."""
+    hanging from its bars, the hands attached as :data:`K1D_CASES` says),
+    k1f* (one torque frame of the walker over a terrain window, as
+    :data:`K1F_CASES` says)."""
     rng = np.random.default_rng(seed)
+    if case in K1F_CASES:
+        model = walker3d.make_model(device)
+        return (engine.K1f(model, EngineConfig(), HF_PATCH),
+                chip_smoke.terrain_states(model, rng, B, **K1F_CASES[case]))
     if case in K1D_CASES:
         model = monkey.make_model(device)
         return (engine.K1d(model, EngineConfig(), monkey.constraints(), 16),
@@ -99,6 +109,8 @@ K1E_CASES = ["k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1e_crab"]
 # near the feet or the torso
 K1D_CASES = {"k1d": {}, "k1d_both_hands": {"left": 1.0},
              "k1d_no_hands": {"left": 0.0, "right": 0.0}, "k1d_no_bar_contact": {"near_bar": 0.0}}
+# a tenth of the roots by the grid's edge (the main path's mix), and all
+K1F_CASES = {"k1f": {}, "k1f_border": {"border": 1.0}}
 
 
 def _gate_medians(got, want, tol=TOL, tail="max"):
@@ -126,7 +138,7 @@ for name in P.registered_envs():
     batch = P.BatchedEnv(env, 2, seed=0, device="cpu")
     tr = batch.step(batch.init(), torch.zeros(2, env.act_dim))
     assert tr.obs.shape == (2, env.obs_dim) and bool(torch.isfinite(tr.obs).all()), name
-assert len(P.registered_envs()) == 12
+assert len(P.registered_envs()) == 14
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "mocca_envs_tpu")]
 assert not loaded, loaded
@@ -155,7 +167,8 @@ def test_sources_import_no_jax():
 FAMILIES = ["Walker3DCustomEnv-v0", "Walker3DStepperEnv-v0", "Walker3DPDCustomEnv-v0",
             "Child3DCustomEnv-v0", "Child3DPDCustomEnv-v0", "CassieEnv-v0", "Cassie2DEnv-v0",
             "CassiePhaseEnv-v0", "CassiePhase2DEnv-v0", "Walker2DCustomEnv-v0",
-            "Crab2DCustomEnv-v0", "Monkey3DStepperEnv-v0"]
+            "Crab2DCustomEnv-v0", "Monkey3DStepperEnv-v0", "Walker3DTerrainEnv-v0",
+            "Walker3DTerrainLidarEnv-v0"]
 
 
 @pytest.mark.parametrize("env_id", FAMILIES)
@@ -183,7 +196,7 @@ def test_cpu_path_never_launches_the_kernel(env_id):
     assert sum(engine.LAUNCHES.values()) == 0
 
 
-@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + ["k1d"])
+@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + ["k1d", "k1f"])
 def test_launch_refuses_cpu_tensors(case):
     """No silent CPU path: the kernel's launch refuses CPU tensors; the
     plain version runs on them, uncounted."""
@@ -387,7 +400,7 @@ def _run_on_host(lib, kernel, inputs):
     fn = getattr(lib, kernel.name + "_host")
     fn.restype = ctypes.c_int
     named = dict(zip(kernel.inputs, inputs[5:]))
-    scene = [ptr(named[k]) if k in named else None for k in ("stones", "bars", "grabs")]
+    scene = [ptr(named[k]) if k in named else None for k in ("stones", "bars", "grabs", "hf")]
     err = fn(*map(ptr, inputs[:5]), *scene, *map(ptr, outs), ptr(kernel.table_host),
              ctypes.c_int(table_size), ptr(ws), ctypes.c_int(B))
     assert err == 0
@@ -559,7 +572,7 @@ def test_bars_and_grabs_count_their_own_work():
     torch.testing.assert_close(engine.pack_grabs(active, target), grabs, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + ["k1d"])
+@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + ["k1d", "k1f"])
 def test_pack_tables_size_matches_source_layout(host_library, case):
     kernel, _ = _kernel_case(case, 2, 0)
     table_size, ws_per_env = engine.layout(host_library, kernel.name)
@@ -582,7 +595,7 @@ def test_pack_tables_size_matches_source_layout(host_library, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + list(K1D_CASES))
+@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + list(K1D_CASES) + list(K1F_CASES))
 def test_k1a_kernel_matches_plain_on_cuda(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
@@ -594,9 +607,128 @@ def test_k1a_kernel_matches_plain_on_cuda(case):
     assert engine.LAUNCHES[kernel.variant] == before + 1
     want = kernel.plain(*args)
     _gate_medians([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want],
-                  TOL_GRAB if case in K1D_CASES else TOL_EQ if case in K1E_CASES else TOL,
+                  TOL_GRAB if case in K1D_CASES else TOL_EQ if case in K1E_CASES
+                  else TOL_HF if case in K1F_CASES else TOL,
                   tail="p99" if "cassie" in case else "max")
     with pytest.raises(ValueError, match="contiguous"):
         kernel.launch(args[0].t().contiguous().t(), *args[1:])
     with pytest.raises(ValueError, match="CUDA"):
         kernel.launch(args[0], args[1].cpu(), *args[2:])
+
+
+@pytest.mark.parametrize("case", list(K1F_CASES))
+def test_k1f_source_arithmetic_on_host(host_library, case):
+    """The heightfield instance (one torque frame of the walker over the
+    window around its root, no plane) against its plain version, at the
+    JAX package's heightfield gates: per-env medians within q 2e-4, qd
+    1e-2, depth 5e-4, impulse 1e-2, the largest env within ten times."""
+    kernel, arrays = _kernel_case(case, 64, 5)
+    inputs = [np.ascontiguousarray(x) for x in arrays]
+    outs = _run_on_host(host_library, kernel, inputs)
+    want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
+    assert all(np.isfinite(o).all() for o in outs)
+    _gate_medians(outs, want, TOL_HF)
+    assert (want[3] > 0).mean() > 0.05 and (inputs[3] == NO_GROUND_Z).all()
+    # windows lie inside the 20 m grid, pinned to its edge by a root near it
+    lo = inputs[5][:, HF_PATCH ** 2:HF_PATCH ** 2 + 2]
+    hi = lo + (HF_PATCH - 1) * inputs[5][:, -1:]
+    assert lo.min() >= -10.0 - 1e-5 and hi.max() <= 10.0 + 1e-5
+    pinned = (np.isclose(lo, -10.0) | np.isclose(hi, 10.0)).any(axis=1)
+    assert pinned.all() if case == "k1f_border" else 0.05 < pinned.mean() < 0.5
+
+
+def test_k1f_is_picked_by_a_heightfield_and_counts_its_work():
+    """make_kernel picks K1f for a window and nothing else combines with it;
+    the narrowphase is charged per sphere and substep; the window's 259
+    floats are an input; the window round-trips through the packed layout;
+    a malformed window is refused before anything launches."""
+    model, config = walker3d.make_model(), EngineConfig()
+    kernel = engine.make_kernel(model, config, hf_patch=HF_PATCH)
+    assert isinstance(kernel, engine.K1f) and kernel.inputs == ("hf",)
+    assert kernel.name == "k1f_nl22_ns14_nlim21_sub4_it4_hf16"
+    for build in (lambda: engine.make_kernel(model, config, hf_patch=8),
+                  lambda: engine.make_kernel(model, config, hf_patch=HF_PATCH, num_stones=6),
+                  lambda: engine.make_kernel(model, config, hf_patch=HF_PATCH, pd_mode=True),
+                  lambda: engine.make_kernel(walker2d.make_walker2d(), config, hf_patch=HF_PATCH,
+                                             constraints=walker2d.planar_spec())):
+        with pytest.raises(NotImplementedError, match="no K1 instantiation"):
+            build()
+    B = 8
+    k1a, _ = _kernel_case("k1a", B, 2)
+    _, arrays = _kernel_case("k1f", B, 2)
+    args = [torch.as_tensor(x) for x in arrays]
+    lim_act, con_act = engine.k1_activity(kernel, *args)
+    hf = args[5]
+    assert engine.k1_flops(kernel, lim_act, con_act, hf) \
+        - engine.k1_flops(k1a, lim_act, con_act) \
+        == pytest.approx(4 * 14 * 50 * B + float(con_act.sum()) * (15 + 15 * 27))
+    assert engine.k1_bytes_per_env(kernel) == engine.k1_bytes_per_env(k1a) + 4 * (16 * 16 + 3)
+    scene, _, _ = kernel.unpack(args[3], args[4], hf)
+    assert scene.hf_height.shape == (B, HF_PATCH, HF_PATCH) and scene.hf_xy0.shape == (B, 2)
+    torch.testing.assert_close(engine.pack_hf(scene), hf, atol=0, rtol=0)
+    for bad, want in (((hf[:, :-1],), (ValueError, "hf has shape")),
+                      ((hf.double(),), (TypeError, "float32")), ((), (ValueError, "scene inputs"))):
+        engine.LAUNCHES.clear()
+        with pytest.raises(want[0], match=want[1]):
+            kernel.launch(*args[:5], *bad)
+        assert sum(engine.LAUNCHES.values()) == 0
+
+
+@pytest.fixture(scope="module")
+def k2_host_library(tmp_path_factory):
+    """The raycast kernel's source (csrc/raycast_k2.cu) built by the host C++
+    compiler: its per-ray code as a loop over rays."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the kernel source's host check")
+    lib_path = tmp_path_factory.mktemp("k2_host") / "k2_host.so"
+    subprocess.run([cxx, "-O2", "-std=c++17", "-x", "c++", "-DK2_HOST_CHECK", "-shared",
+                    "-fPIC", "-o", str(lib_path), str(engine.RAYCAST_SOURCE)], check=True,
+                   timeout=120)
+    return ctypes.CDLL(str(lib_path))
+
+
+@pytest.mark.parametrize("n, max_t, steps, rays", [(129, 10.0, 64, 4096), (65, 2.2, 16, 1000),
+                                                   (17, 4.0, 37, 333)])
+def test_k2_source_arithmetic_on_host(k2_host_library, n, max_t, steps, rays):
+    """K2's per-ray march, built for the host, against the plain version at
+    chip_smoke.py's gate: t equal on at least 99.9% of the rays and one
+    march step apart on the others, h within 1e-5 where t agrees."""
+    o, d, hf, xy0, cell = chip_smoke.raycast_inputs(np.random.default_rng(n), rays, n)
+    t = np.zeros(rays, np.float32)
+    h = np.zeros(rays, np.float32)
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
+    fn = k2_host_library.k2_raycast_host
+    fn.restype = ctypes.c_int
+    cell_arr = np.ascontiguousarray(cell.reshape(1))
+    err = fn(ptr(o), ptr(d), ptr(hf), ctypes.c_int(n), ctypes.c_int(n), ptr(xy0), ptr(cell_arr),
+             ctypes.c_float(max_t), ctypes.c_float(max_t / steps), ctypes.c_int(steps), ptr(t),
+             ptr(h), ctypes.c_int(rays))
+    assert err == 0
+    from mocca_envs_tpu_torch.ops.raycast import raycast_reference
+
+    want_t, want_h = (x.numpy() for x in raycast_reference(
+        *map(torch.as_tensor, (o, d, hf, xy0, cell)), max_t, steps))
+    chip_smoke.check_rays(t, h, want_t, want_h, max_t / steps)
+    assert 0.3 < (want_t < max_t).mean() < 1.0
+
+
+@pytest.mark.cuda
+def test_k2_matches_plain_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K2 kernel has no CPU mode")
+    from mocca_envs_tpu_torch.ops.raycast import make_raycaster, raycast_reference
+
+    args = [torch.as_tensor(x, device="cuda")
+            for x in chip_smoke.raycast_inputs(np.random.default_rng(3), 5000)]
+    raycast = make_raycaster((129, 129))
+    before = engine.LAUNCHES["k2"]
+    t, h = raycast(*args)
+    torch.cuda.synchronize()
+    assert engine.LAUNCHES["k2"] == before + 1
+    want_t, want_h = raycast_reference(*args)
+    chip_smoke.check_rays(*(x.cpu().numpy() for x in (t, h, want_t, want_h)), 10.0 / 64)
+    with pytest.raises(ValueError, match="shape"):
+        raycast(args[0], args[1], args[2][:-1], *args[3:])
+    with pytest.raises(ValueError, match="CUDA"):
+        raycast(args[0], args[1].cpu(), *args[2:])
