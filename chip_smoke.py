@@ -24,8 +24,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    over the terrain families' grids (the lowest foot within ±2 cm of the
    surface under it, on the grid's slopes, a tenth of the roots within
    0.5 m of its edge, the window around the root packed as the main path
-   packs it), and a grid smaller than the window must raise on the card.
-   Per-env median and p99
+   packs it), and a grid smaller than the window must raise on the card;
+   K1g on walker states on the stairs' staircase (a third each with the
+   feet over treads, the lowest foot sphere at a nosing edge, the foremost
+   against a riser; the 16 nearest of the 24 faces packed as the main path
+   packs them); K1h-si on the K1a states with split impulse. Per-env median and p99
    of |Δq|, |Δqd|, |Δdepth|, |Δimpulse|; the medians must stay within q
    2e-4, qd 5e-3, depth 2e-4, impulse 5e-3 (K1e: q 5e-4, qd 2e-2, depth
    5e-4, impulse 5e-3, the tolerances the JAX package holds its own kernel
@@ -40,7 +43,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    the JAX oracle on the CPU as well (tests/test_torch_cassie_step.py).
    K1f is held to the JAX package's heightfield gate: medians within q
    2e-4, qd 1e-2, depth 5e-4, impulse 1e-2, the largest env within ten
-   times. K2 on 32,768 rays (4096 envs × 8) over a 129² fractal grid, 64
+   times. K1g's ten-times gate holds the 99th percentile of the envs with
+   no contact on a vertical face (:func:`vertical_contacts` says why; the
+   others beyond it are counted), and at least 97% of its q entries must
+   lie within 1e-3 of the plain version's (the JAX package's mesh gate).
+   K2 on 32,768 rays (4096 envs × 8) over a 129² fractal grid, 64
    steps to ``max_t`` 10: t equal to the plain version's on at least 99.9%
    of the rays, any other ray one march step apart, h within 1e-5 where t
    agrees;
@@ -53,7 +60,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``Crab2DCustomEnv-v0`` for 100 (K1e), ``Monkey3DStepperEnv-v0`` for 300
    (K1d, grab signals included in the random actions),
    ``Walker3DTerrainEnv-v0`` for 600 and ``Walker3DTerrainLidarEnv-v0`` for
-   200 (K1f), and K2's own entry point ``make_raycaster`` for 10 calls of
+   200 (K1f), ``Walker3DStairsEnv-v0`` for 600 (K1g),
+   ``Walker3DCustomEnv-v0`` made with ``EngineConfig(split_impulse=True)``
+   for 200 (K1h-si), and K2's own entry point ``make_raycaster`` for 10 calls of
    32,768 rays with the origins moved between calls. The path's kernel
    must launch exactly once per step and no other kernel at all, the state
    stay finite and auto-reset fire; resets forced by a non-finite state are
@@ -65,7 +74,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    palm-to-anchor distance under 2 cm, the median base height within 0.5 m
    of its start, fewer than 1% of the envs falling; of the terrain
    families the falls and the base's height above the local surface are
-   printed, its median between 0.3 and 1.5 m;
+   printed, its median between 0.3 and 1.5 m; of the stairs the same over
+   the mesh's support surface, and the slots whose root was over a tread;
 4. per-call times of each kernel and its plain version (CUDA events), the
    bound from the operations and bytes these inputs need, and the time of
    the stepper's cull of 20 stones to the window plus their packing (env
@@ -73,8 +83,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    stepper's step split into the step proper and the fresh episodes of
    auto-reset; K2's time and bound (the march steps these rays need);
    the terrain step's window cut and packing; the step time outside the
-   kernel of Cassie, the planar walkers, the monkey and the terrain
-   families;
+   kernel of Cassie, the planar walkers, the monkey, the terrain families,
+   the stairs and the split-impulse walker;
 5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.
@@ -305,6 +315,56 @@ def terrain_states(model, rng, batch=B, border: float = 0.1):
     return (q, qd, tau, window.ground_z.numpy(), fric, pack_hf(window).numpy())
 
 
+def stairs_states(model, rng, batch=B):
+    """Walker states on the stairs family's staircase (6 steps of 0.12 m by
+    0.35 m from x = 0.6 m, 4 m wide), a third each with the feet over the
+    treads (the root anywhere from 0.3 to 2.9 m), with the lowest foot
+    sphere's center within ±3 cm of a nosing edge in x, and with the
+    foremost foot sphere against a riser (its center one radius in front of
+    the riser face, give or take 2 cm); the root's y within ±1.5 m. The body
+    is then lowered until the lowest foot sphere is within ±2 cm of the
+    support surface under it, which keeps every sphere out of the steps'
+    solid. Uniform random torques. Returns numpy ``(q, qd, tau, ground_z,
+    friction, tris (16·10, batch))``: the 24 faces culled to the 16 nearest
+    the root and packed, as the main path packs them."""
+    from mocca_envs_tpu_torch.ops.collide import sphere_centers
+    from mocca_envs_tpu_torch.ops.cuda.engine import pack_tris
+    from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics
+    from mocca_envs_tpu_torch.terrain import scene as scene_mod
+
+    model = model.to("cpu")
+    rise, run, start = 0.12, 0.35, 0.6
+    scene = scene_mod.broadcast_scene(scene_mod.stairs_trimesh(
+        n_steps=6, rise=rise, run=run, width=4.0, start_x=start), batch)
+    q, qd, tau, _, fric = near_contact_states(model, rng, batch)
+    feet = np.flatnonzero(model.sph_foot.sum(1).numpy() > 0)
+    radius = model.sph_radius[feet].numpy()
+
+    def foot_centers():
+        return sphere_centers(model, forward_kinematics(
+            model, torch.as_tensor(q), torch.zeros(batch, model.nv)))[:, feet].numpy()
+
+    q[:, 0:3] = 0.0
+    c = foot_centers()
+    rows = np.arange(batch)
+    feature = np.arange(batch) % 3
+    x0 = start + run * rng.integers(0, 6, batch)
+    low, front = c[..., 2].argmin(axis=1), c[..., 0].argmax(axis=1)
+    x_root = np.select(
+        [feature == 0, feature == 1],
+        [rng.uniform(0.3, 2.9, batch), x0 + rng.uniform(-0.03, 0.03, batch) - c[rows, low, 0]],
+        x0 - radius[front] + rng.uniform(-0.02, 0.02, batch) - c[rows, front, 0])
+    q[:, 0] = x_root
+    q[:, 1] = rng.uniform(-1.5, 1.5, batch)
+    c = foot_centers()
+    support = np.stack([scene_mod.tri_surface_z(scene, torch.as_tensor(c[:, i, :2])).numpy()
+                        for i in range(len(feet))], axis=1)
+    clearance = (c[..., 2] - radius - support).min(axis=1)
+    q[:, 2] -= clearance + rng.uniform(-0.02, 0.02, batch)
+    culled = scene_mod.cull_tris(scene, torch.as_tensor(q[:, 0:2]), 16)
+    return (q, qd, tau, culled.ground_z.numpy(), fric, pack_tris(culled).numpy())
+
+
 def raycast_inputs(rng, batch: int, n: int = 129):
     """Rays over a fractal ``n × n`` grid 20 m wide (the terrain families'
     extent): origins 0.5–2.5 m above it, over it and up to 2 m past its
@@ -342,43 +402,84 @@ def check_rays(t, h, want_t, want_h, dt: float) -> tuple:
     return share, dt_err, h_err
 
 
-def compare(kernel, args, label: str | None = None, tol=TOL, tail: str = "max") -> float:
+def vertical_contacts(kernel, args) -> torch.Tensor:
+    """Envs (bool (B,)) with an active contact on a vertical face (|n_z| <
+    1e-3) at any substep of the plain version's run of one call. There the
+    branchless tangent basis (ops/solver.py::tangent_basis) switches the sign
+    of its first tangent with the sign of n_z, which rounding decides, while
+    the warm-started friction impulse keeps the previous substep's sign: two
+    roundings of one state can part by O(1) within a call (the JAX package's
+    oracle and kernel part the same way; its mesh gate is 97% of q within
+    1e-3)."""
+    from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics
+    from mocca_envs_tpu_torch.ops.step import make_substep
+
+    model, config = kernel.model, kernel.config
+    substep = make_substep(model, config)
+    q, qd, tau, gz, fric = args[:5]
+    scene, _, _ = kernel.unpack(gz, fric, *args[5:])
+    lam = q.new_zeros(q.shape[0], substep.num_rows)
+    Minv0 = substep.minv_of(forward_kinematics(model, q, qd))
+    vertical = torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
+    for _ in range(config.sim_substeps):
+        q, qd, info, lam = substep(q, qd, tau, scene, Minv_in=Minv0, lam_in=lam)
+        c = info.contacts
+        vertical |= ((c.normal[..., 2].abs() < 1e-3) & (c.active > 0.5)).any(dim=1)
+    return vertical
+
+
+def compare(kernel, args, label: str | None = None, tol=TOL, tail: str = "max",
+            tail_envs=None) -> float:
     """Launch ``kernel`` once on ``args`` and hold it against its plain
     version: per-env medians within ``tol``, and ten times ``tol`` for the
     largest env (``tail="max"``) or the 99th percentile (``tail="p99"``, with
-    the envs beyond counted). Returns the largest absolute error over all
-    outputs."""
+    the envs beyond counted); ``tail_envs`` (bool (B,)) limits the tail gate
+    to those envs, the others beyond it counted. Returns the largest absolute
+    error over all outputs."""
     label = label or kernel.variant
     out = kernel.launch(*args)
     torch.cuda.synchronize()
     ref = kernel.plain(*args)
     torch.cuda.synchronize()
     max_abs = 0.0
+    held = np.ones(args[0].shape[0], bool) if tail_envs is None else tail_envs.cpu().numpy()
     for name, a, b in zip(("q", "qd", "depth", "nimp"), out, ref):
         check(bool(torch.isfinite(a).all()), f"{label} output {name} not finite")
         per_env = (a - b).abs().amax(dim=1).cpu().numpy()
         med, p99 = float(np.median(per_env)), float(np.quantile(per_env, 0.99))
         max_abs = max(max_abs, float(per_env.max()))
-        beyond = int((per_env > 10 * tol[name]).sum())
+        beyond = per_env > 10 * tol[name]
+        worst = (float(np.quantile(per_env[held], 0.99)) if tail == "p99"
+                 else float(per_env[held].max()))
         print(f"[compare] {label} {name}: per-env median {med:.3e} p99 {p99:.3e} "
               f"max {per_env.max():.3e} (median tol {tol[name]:g}, {tail} tol "
-              f"{10 * tol[name]:g}, {beyond} of {len(per_env)} envs beyond it)")
+              f"{10 * tol[name]:g}, {int(beyond.sum())} of {len(per_env)} envs beyond it"
+              + ("" if tail_envs is None else
+                 f"; over the {int(held.sum())} gated envs {tail} {worst:.3e}, "
+                 f"{int((beyond & ~held).sum())} of the {int((~held).sum())} others beyond")
+              + ")")
         check(med <= tol[name], f"{label} {name} median {med:.3e} > {tol[name]:g}")
-        worst = p99 if tail == "p99" else float(per_env.max())
         check(worst <= 10 * tol[name], f"{label} {name} {tail} {worst:.3e} > {10 * tol[name]:g}")
     active = float((ref[2] > -kernel.config.contact_margin).float().sum(1).mean())
     print(f"[compare] {label}: {active:.3f} active contacts per env at the last substep, "
           f"{float((ref[3] > 0).float().mean()):.3f} of the spheres loaded")
     check(float((ref[3] > 0).float().mean()) > 0.02, f"{label}: contacts carry no load")
+    if kernel.num_tris:
+        # the JAX package's own gate for its mesh kernel
+        share = float(((out[0] - ref[0]).abs() < 1e-3).float().mean())
+        print(f"[compare] {label}: {share:.5f} of the q entries within 1e-3 (JAX mesh gate 0.97)")
+        check(share >= 0.97, f"{label}: only {share:.4f} of q within 1e-3")
     return max_abs
 
 
-def drive(port, engine, card, env_id: str, steps: int, variant: str, sums=()):
+def drive(port, engine, card, env_id: str, steps: int, variant: str, sums=(), watch=None,
+          **make_kw):
     """One main path: ``steps`` control steps of uniform random actions
-    through the entry points. Returns (launches, final state, last
+    through the entry points (``make(env_id, **make_kw)``); ``watch`` is
+    called on every transition. Returns (launches, final state, last
     transition, the batched env, ms per step, the sums over the run of the
     metrics named in ``sums``)."""
-    env = port.make(env_id)
+    env = port.make(env_id, **make_kw)
     batch = port.BatchedEnv(env, B, seed=SEED)
     state = batch.init()
     gen = torch.Generator(device="cuda")
@@ -395,6 +496,8 @@ def drive(port, engine, card, env_id: str, steps: int, variant: str, sums=()):
         dones += tr.done.sum()
         for k in sums:
             totals[k] += tr.metrics[k].sum()
+        if watch is not None:
+            watch(tr)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(engine.LAUNCHES)
@@ -463,10 +566,10 @@ def time_and_bound(engine, card, kernel, args) -> dict:
     plain_ms = time_call(kernel.plain, args, 3)
     scene_inputs = args[5:]
     stones = args[5] if kernel.num_stones else None
-    lim_act, con_act = engine.k1_activity(kernel, *args)
-    flops = engine.k1_flops(kernel, lim_act, con_act, *scene_inputs)
+    lim_act, con_act, walk = engine.k1_activity(kernel, *args)
+    flops = engine.k1_flops(kernel, lim_act, con_act, *scene_inputs, tri_walk=walk)
     flops_all = engine.k1_flops(kernel, torch.ones_like(lim_act), torch.ones_like(con_act),
-                                *scene_inputs)
+                                *scene_inputs, tri_walk=walk)
     nbytes = engine.k1_bytes_per_env(kernel) * B
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     bound_ms = max(t_ops, t_bytes)
@@ -479,6 +582,11 @@ def time_and_bound(engine, card, kernel, args) -> dict:
     if kernel.num_bars:
         held = float((engine.unpack_grabs(args[6])[0] > 0.5).float().sum(1).mean())
         scene_activity = f", attached grabs {held:.3f} of {kernel.constraints.num_grabs}"
+    if kernel.num_tris:
+        n_act = float((engine.unpack_tris(args[5])["tri_active"] > 0.5).float().sum(1).mean())
+        per_pair = float(walk.double().sum()) / (walk.numel() * kernel.model.ns * n_act)
+        scene_activity = (f", active faces {n_act:.3f} of {kernel.num_tris}, walk "
+                          f"{per_pair:.2f} ops per sphere and face")
     print(f"[bound] {v} active per env and substep: limit rows "
           f"{float(lim_act.float().sum(2).mean()):.3f} of {lim_act.shape[2]}, contacts "
           f"{float(con_act.float().sum(2).mean()):.3f} of {con_act.shape[2]}{scene_activity}; "
@@ -558,6 +666,21 @@ def terrain_readings(env_id: str, state, sums: dict) -> None:
           f"local surface at the end mean {float(above.mean()):.4f} m (median "
           f"{float(above.median()):.4f}, min {float(above.min()):.4f})")
     check(0.3 < float(above.median()) < 1.5, f"{env_id}: bodies not over the terrain")
+
+
+def stairs_readings(state, sums: dict, on_stairs) -> None:
+    """The stairs main path's outcome: falls over the run, the slots whose
+    root was over a tread at some step (x from 0.6 to 2.7 m, |y| ≤ 2 m), and
+    the base's height above the support surface under it at the end."""
+    from mocca_envs_tpu_torch.terrain.scene import tri_surface_z
+
+    above = state.q[:, 2] - tri_surface_z(state.scene, state.q[:, 0:2])
+    print(f"[main] Walker3DStairsEnv-v0: falls over the run {sums['fallen']:.0f}; slots whose "
+          f"root was over a tread at some step {int(on_stairs.sum())} of {B}; base height above "
+          f"the support surface at the end mean {float(above.mean()):.4f} m (median "
+          f"{float(above.median()):.4f}, min {float(above.min()):.4f})")
+    check(0.3 < float(above.median()) < 1.5, "Walker3DStairsEnv-v0: bodies not over the stairs")
+    check(state.scene.tri_a.shape == (B, 24, 3), "Walker3DStairsEnv-v0: the mesh is not carried")
 
 
 def raycast_main_path(engine, card, rng, sweeps: int = 10):
@@ -698,6 +821,14 @@ def main() -> int:
           f"steepest {float(torch.rad2deg(torch.arccos(slope.min()))):.1f}°")
     max_abs["k1f"] = compare(*kernels["k1f"], "k1f", TOL_HF)
     small_grid_raises(model, config)
+    kernels["k1g"] = (engine.K1g(model, config), cuda(stairs_states(model, rng)))
+    vertical = vertical_contacts(*kernels["k1g"])
+    print(f"[compare] k1g: {int(vertical.sum())} of {B} envs touch a vertical face in the plain "
+          "run; the tail gate holds the others")
+    max_abs["k1g"] = compare(*kernels["k1g"], "k1g", TOL, tail="p99", tail_envs=~vertical)
+    kernels["k1h_si"] = (engine.K1hSi(model, EngineConfig(split_impulse=True)),
+                         kernels["k1a"][1])
+    max_abs["k1h_si"] = compare(*kernels["k1h_si"], "k1h_si")
     ray_args = cuda(raycast_inputs(rng, 8 * B))
     ray_t, ray_h = make_raycaster((129, 129))(*ray_args)
     torch.cuda.synchronize()
@@ -754,6 +885,22 @@ def main() -> int:
     _, state, _, _, step_ms["k1f_lidar"], sums = drive(
         port, engine, card, "Walker3DTerrainLidarEnv-v0", 200, "k1f", sums=("fallen",))
     terrain_readings("Walker3DTerrainLidarEnv-v0", state, sums)
+    on_stairs = torch.zeros(B, dtype=torch.bool, device="cuda")
+
+    def over_a_tread(tr):
+        x, y = tr.state.q[:, 0], tr.state.q[:, 1]
+        on_stairs.logical_or_((x >= 0.6) & (x <= 2.7) & (y.abs() <= 2.0))
+
+    launches["k1g"], state, _, _, step_ms["k1g"], sums = drive(
+        port, engine, card, "Walker3DStairsEnv-v0", 600, "k1g", sums=("fallen",),
+        watch=over_a_tread)
+    stairs_readings(state, sums, on_stairs)
+    launches["k1h_si"], state, _, _, step_ms["k1h_si"], sums = drive(
+        port, engine, card, "Walker3DCustomEnv-v0", 200, "k1h_si", sums=("fallen",),
+        config=EngineConfig(split_impulse=True))
+    print(f"[main] Walker3DCustomEnv-v0 with split impulse: falls over the run "
+          f"{sums['fallen']:.0f}, base height at the end median {float(state.q[:, 2].median()):.4f}"
+          f" m")
     launches["k2"], ray_main, raycaster = raycast_main_path(engine, card, rng)
 
     # ---- phase 4: per-call times at B = 4096
@@ -764,7 +911,8 @@ def main() -> int:
     stepper_env_layer_times(card, stepper, stepper_state)
     times["k2"] = raycast_time_and_bound(card, raycaster, ray_main, max_abs["k2"])
     window_and_pack_time(engine, card, terrain_state)
-    for v in ("k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d", "k1f", "k1f_lidar"):
+    for v in ("k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d", "k1f", "k1f_lidar", "k1g",
+              "k1h_si"):
         kernel_ms = times[v.removesuffix("_lidar")]["ms"]
         print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {kernel_ms:.4f} "
               f"ms/call, so {step_ms[v] - kernel_ms:.3f} ms/step outside the kernel "
@@ -774,7 +922,8 @@ def main() -> int:
              "k1b": "k1b_engine_step_pd", "k1e_cassie": "k1e_engine_step_pd_rods",
              "k1e_cassie2d": "k1e_engine_step_pd_rods_planar",
              "k1e_planar": "k1e_engine_frame_planar", "k1d": "k1d_engine_frame_bars_grabs",
-             "k1f": "k1f_engine_frame_heightfield", "k2": "k2_raycast"}
+             "k1f": "k1f_engine_frame_heightfield", "k1g": "k1g_engine_frame_trimesh",
+             "k1h_si": "k1h_engine_frame_split_impulse", "k2": "k2_raycast"}
     print(json.dumps({"kernels": [{
         "name": names[v],
         "route": "cuda",

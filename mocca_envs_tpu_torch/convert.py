@@ -45,11 +45,12 @@ def _n(x):
 def scene_from_numpy(batch: int, ground_z=0.0, friction=0.8, stone_pos=None, stone_quat=None,
                      stone_half=None, stone_active=None, bar_a=None, bar_b=None, bar_r=None,
                      bar_active=None, hf_height=None, hf_xy0=None, hf_cell=None,
+                     tri_a=None, tri_b=None, tri_c=None, tri_active=None,
                      has_ground=True, device="cpu") -> Scene:
     """Scene for ``batch`` envs: the plane (scalars or (B,)) and, when
-    ``stone_pos`` / ``bar_a`` / ``hf_height`` is given, the stone boxes /
-    bar capsules (B, K, ·) / heightfield (B, H, W), (B, 2), (B,) of a JAX
-    ``Scene``. A JAX scene with ``has_ground=False`` (a terrain scene) keeps
+    ``stone_pos`` / ``bar_a`` / ``hf_height`` / ``tri_a`` is given, the
+    stone boxes / bar capsules (B, K, ·) / heightfield (B, H, W), (B, 2),
+    (B,) / mesh faces (B, Kt, ·) of a JAX ``Scene``. A JAX scene with ``has_ground=False`` (a terrain scene) keeps
     ``ground_z = 0`` and evaluates no plane; the port always evaluates one,
     so there it sinks to ``NO_GROUND_Z``."""
     if not has_ground:
@@ -68,6 +69,10 @@ def scene_from_numpy(batch: int, ground_z=0.0, friction=0.8, stone_pos=None, sto
         scene = dataclasses.replace(
             scene, hf_height=_f32(hf_height, device), hf_xy0=_f32(hf_xy0, device),
             hf_cell=_f32(hf_cell, device))
+    if tri_a is not None:
+        scene = dataclasses.replace(
+            scene, tri_a=_f32(tri_a, device), tri_b=_f32(tri_b, device),
+            tri_c=_f32(tri_c, device), tri_active=_f32(tri_active, device))
     return scene
 
 
@@ -94,18 +99,22 @@ def _core_to_numpy(state: EnvState) -> dict:
 
 def env_state_from_numpy(*, q, qd, steps, reset_count, done, blowup_count, target,
                          potential, ground_z=0.0, friction=0.8, hf_height=None, hf_xy0=None,
-                         hf_cell=None, has_ground=True, device="cpu") -> EnvState:
+                         hf_cell=None, tri_a=None, tri_b=None, tri_c=None, tri_active=None,
+                         has_ground=True, device="cpu") -> EnvState:
     """Batched walker EnvState from numpy arrays with a leading batch axis
     (q (B, nq), qd (B, nv), target (B, 3), the rest (B,)); the scene is the
     plane at ``ground_z`` with ``friction`` (scalars or (B,)) and, for the
     terrain families, each slot's heightfield (``hf_height`` (B, H, W),
     ``hf_xy0`` (B, 2), ``hf_cell`` (B,); a JAX terrain state has
-    ``has_ground=False``, see :func:`scene_from_numpy`)."""
+    ``has_ground=False``, see :func:`scene_from_numpy`), and for the stairs
+    each slot's mesh faces (``tri_a``, ``tri_b``, ``tri_c`` (B, Kt, 3),
+    ``tri_active`` (B, Kt))."""
     B = np.asarray(q).shape[0]
     return _env_state(
         WalkerTaskState(target=_f32(target, device), potential=_f32(potential, device)),
         scene_from_numpy(B, ground_z, friction, hf_height=hf_height, hf_xy0=hf_xy0,
-                         hf_cell=hf_cell, has_ground=has_ground, device=device),
+                         hf_cell=hf_cell, tri_a=tri_a, tri_b=tri_b, tri_c=tri_c,
+                         tri_active=tri_active, has_ground=has_ground, device=device),
         q=q, qd=qd, steps=steps, reset_count=reset_count, done=done,
         blowup_count=blowup_count, device=device)
 

@@ -4,7 +4,7 @@
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
 // make_pallas_substep for floating all-revolute models at the shipped
 // EngineConfig (block PGS, matrix-free PGS, warm start, frame-start factor
-// reuse; split impulse off):
+// reuse; split impulse off but in K1h-si):
 //
 //   K1a  plane, torque mode: one llc frame per call;
 //   K1c  K1a plus K oriented stone boxes per env (num_stones = K there);
@@ -20,17 +20,23 @@
 //        hands, torque mode;
 //   K1f  K1a plus a PHF × PHF heightfield window per env (hf_patch there):
 //        the terrain families, whose scene has no plane (its height sunk to
-//        -1e9).
+//        -1e9);
+//   K1g  K1a plus KT triangle-mesh faces per env (num_tris there): the
+//        stairs, culled to the faces nearest the root;
+//   K1h-si  K1a with split impulse (split_impulse there, SPLIT here): the
+//        push-out bias kept out of the velocity rows and solved in a
+//        position pass whose pseudo-velocity advances the positions only.
 //
 // Each llc frame runs NSUB substeps:
 //
 //   FK (quaternion chain) → narrowphase: every sphere vs the plane, the
-//   heightfield, every active stone and every active bar, the deepest
-//   feature per sphere
+//   heightfield, every active stone, every active face and every active
+//   bar, the deepest feature per sphere
 //   → passive torques → Newton–Euler bias → [substep 0: CRBA about the base
 //   + Cholesky] → free velocity → rows [rods × 3 | planar × 3 | grabs × 3 |
 //   joint limits | contacts × (n, t1, t2)]
 //   → W = L⁻¹Jᵀ per row → matrix-free block PGS, λ warm-started
+//   → [SPLIT: position pass over the limit and normal rows]
 //   → qd' = v_free + L⁻ᵀ(Wλ) → semi-implicit integrate + limit backstop.
 //
 // λ is zeroed once per call, so it is carried across the llc frames of a
@@ -39,8 +45,8 @@
 // Interface (all f32, contiguous, row-major):
 //   q (B,NQ), qd (B,NV), tau (B,NJ), ground_z (B,), friction (B,),
 //   stones (K·11, B) for K > 0, bars (KB·8, B) for KB > 0, grabs (NGRAB·4,
-//   B) for NGRAB > 0, hf (B, PHF·PHF + 3) for PHF > 0 (each unused, and may
-//   be null, otherwise)
+//   B) for NGRAB > 0, hf (B, PHF·PHF + 3) for PHF > 0, tris (KT·10, B) for
+//   KT > 0 (each unused, and may be null, otherwise)
 //   → q' (B,NQ), qd' (B,NV), depth (B,NS), normal_impulse (B,NS)
 // depth and normal impulse are those of the LAST substep. Row k·11 + c of
 // stones is component c of stone k: center (3), quaternion wxyz (4), half
@@ -56,6 +62,9 @@
 // is env-major: a thread reads its own window, four corners per sphere at
 // data-dependent cells, and env-major keeps each pair of corners in one
 // 32-byte sector, where component-major would spread them B floats apart.
+// Row k·10 + c of tris is component c of face k: vertex a (3), b (3), c
+// (3), active (1); the caller culls the faces to the KT nearest the root
+// and packs them once per control step.
 //
 // Stone narrowphase. It follows the plain version (ops/collide.py,
 // terrain/scene.py::sphere_box_depth), not the TPU kernel, where the two
@@ -87,6 +96,34 @@
 // plane and replaces it only where strictly deeper. The TPU kernel samples
 // the window by one-hot contractions (Mosaic has no vector gather); a
 // direct read selects the same four values.
+//
+// Mesh narrowphase. It follows the plain version (terrain/scene.py::
+// sphere_triangle_depth and the mesh branch of ops/collide.py), not the TPU
+// kernel, where the two differ: the closest point by Ericson's region walk
+// (the first region that holds the center wins; here the walk stops there,
+// where the plain version selects among all regions' points), the distance
+// the plain norm (the TPU kernel: 1e-18 under the root), the normal the
+// offset over the distance or, for a center on the face (distance ≤ 1e-9),
+// the face normal turned to the center's side (the TPU kernel: an rsqrt
+// with 1e-24 under it), and of equally deep faces the first wins (the TPU
+// kernel averages over ties): tread and riser share the nosing edge, a
+// quad's two triangles their diagonal. It comes after the plane and
+// replaces it only where strictly deeper. The faces are read from the
+// component-major input through the read-only path, not staged: 640 bytes
+// per env would grow a ~8.3 KB frame by 8%, and neighbouring threads read
+// neighbouring addresses, so each read of a face component is one 128-byte
+// line per warp, from L1 / L2 (the faces of B = 4096 envs take 2.6 MB).
+//
+// Split impulse. It follows the plain version (ops/step.py): the limit and
+// contact-normal rows take the target −max(−gap, 0)/dt (no approach past
+// the surface) and keep their push-out bias aside; after the velocity
+// sweeps a scalar PGS from λ_pos = 0 over those NLIM + NS rows alone
+// (equality rows masked, friction rows bounded to [0, 0] by μ = 0, so
+// neither moves), against −bias, with the same W, diagonals and activity,
+// carrying z_pos = Wλ_pos; L⁻ᵀz_pos is the pseudo-velocity, added to the
+// clamped velocity for the position advance only. The limit backstop
+// clamps the advanced position and zeroes only the real outward velocity.
+// λ_pos, z_pos and the biases sit in an empty base (SplitState<false>).
 //
 // Equality rows. A rod's three rows are the difference of the point
 // Jacobians of its two anchors, with the target −(baumgarte/dt)·(xa − xb)
@@ -120,11 +157,12 @@
 // What bounds it on this card. Near contact a K1a call needs ~1.6e5 fp32
 // operations per env (~3.3e5 with every row active, counted by
 // ops/cuda/engine.py::k1_flops) against 0.65 KB of inputs and outputs
-// (0.9 KB with six stones, 1.7 KB with a heightfield window, whose
-// narrowphase adds ~2.8e3 operations), a K1e call on Cassie ~6.3e5 (its 20
-// substeps) against 0.47 KB, and a K1d call on the hanging monkey ~5.9e4
-// against 0.9 KB (the 16 bars are 0.5 KB of it), so the floor is the fp32
-// rate. This simple
+// (0.9 KB with six stones; 1.7 KB with a heightfield window, whose
+// narrowphase adds ~2.8e3 operations; 1.3 KB with 16 faces, whose 896
+// sphere-face walks add ~7e4; split impulse's position pass adds ~1.5e4), a
+// K1e call on Cassie ~6.3e5 (its 20 substeps) against 0.47 KB, and a K1d
+// call on the hanging monkey ~5.9e4 against 0.9 KB (the 16 bars are 0.5 KB
+// of it), so the floor is the fp32 rate. This simple
 // design is far from it: the workspace round-trips through L2 on every row
 // of every sweep, one thread per env leaves most of the SMs' warp slots
 // empty at B = 4096, and the serial chain has little instruction-level
@@ -253,9 +291,51 @@ HD inline float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo),
 
 HD inline float sgn0(float x) { return (float)(x > 0.0f) - (float)(x < 0.0f); }
 
+// Closest point o of triangle (a, b, c) to p: Ericson's barycentric region
+// walk, the first region that holds p winning (vertex a, b, c, edge ab, ac,
+// bc, else the interior), with the plain version's 1e-12 guards on every
+// denominator.
+HD inline void closest_on_triangle(const float* p, const float* a, const float* b,
+                                   const float* c, float* o) {
+  const float eps = 1e-12f;
+  float ab[3], ac[3], ap[3], bp[3], cp[3];
+  for (int i = 0; i < 3; ++i) {
+    ab[i] = b[i] - a[i]; ac[i] = c[i] - a[i]; ap[i] = p[i] - a[i];
+    bp[i] = p[i] - b[i]; cp[i] = p[i] - c[i];
+  }
+  const float d1 = dot3(ab, ap), d2 = dot3(ac, ap);
+  if (d1 <= 0.0f && d2 <= 0.0f) { for (int i = 0; i < 3; ++i) o[i] = a[i]; return; }
+  const float d3 = dot3(ab, bp), d4 = dot3(ac, bp);
+  if (d3 >= 0.0f && d4 <= d3) { for (int i = 0; i < 3; ++i) o[i] = b[i]; return; }
+  const float d5 = dot3(ab, cp), d6 = dot3(ac, cp);
+  if (d6 >= 0.0f && d5 <= d6) { for (int i = 0; i < 3; ++i) o[i] = c[i]; return; }
+  const float vc = d1 * d4 - d3 * d2;
+  if (vc <= 0.0f && d1 >= 0.0f && d3 <= 0.0f) {
+    const float v = d1 / fmaxf(d1 - d3, eps);
+    for (int i = 0; i < 3; ++i) o[i] = a[i] + v * ab[i];
+    return;
+  }
+  const float vb = d5 * d2 - d1 * d6;
+  if (vb <= 0.0f && d2 >= 0.0f && d6 <= 0.0f) {
+    const float w = d2 / fmaxf(d2 - d6, eps);
+    for (int i = 0; i < 3; ++i) o[i] = a[i] + w * ac[i];
+    return;
+  }
+  const float va = d3 * d6 - d5 * d4;
+  if (va <= 0.0f && d4 - d3 >= 0.0f && d5 - d6 >= 0.0f) {
+    const float w = (d4 - d3) / fmaxf((d4 - d3) + (d5 - d6), eps);
+    for (int i = 0; i < 3; ++i) o[i] = b[i] + w * (c[i] - b[i]);
+    return;
+  }
+  const float denom = 1.0f / fmaxf(va + vb + vc, eps);
+  const float v = vb * denom, w = vc * denom;
+  for (int i = 0; i < 3; ++i) o[i] = a[i] + ab[i] * v + ac[i] * w;
+}
+
 constexpr int STONE_C = 11;   // floats per stone: center, quaternion, half extents, active
 constexpr int BAR_C = 8;      // floats per bar: end a, end b, radius, active
 constexpr int GRAB_C = 4;     // floats per grab: active, target
+constexpr int TRI_C = 10;     // floats per mesh face: vertices a, b, c, active
 
 // The bars and the grab state of a call. Empty bases where there are none,
 // so that the instances without them keep their stack frames.
@@ -273,10 +353,25 @@ template <int PHF>
 struct HfState { const float* hp; float hx0, hy0, hcell; };
 template <>
 struct HfState<0> {};
+// The mesh faces of a call: where the env's first component starts in the
+// component-major input, and the stride between components (B).
+template <int KT>
+struct TriState { const float* tp; int tstride; };
+template <>
+struct TriState<0> {};
+// Split impulse: the push-out bias of the NP limit and contact-normal rows,
+// their pseudo-impulses and z_pos = Wλ_pos (NV), which the impulse map turns
+// into the pseudo-velocity in place.
+template <bool SPLIT, int NP, int NV>
+struct SplitState { float bpos[NP], lpos[NP], zpos[NV]; };
+template <int NP, int NV>
+struct SplitState<false, NP, NV> {};
 
 // Per-env state of one call, held in local memory.
-template <int NL, int NS, int NLIM, int K, int NP2P, bool PLANAR, int KB, int NGRAB, int PHF>
-struct Env : BarState<KB>, GrabState<NGRAB>, HfState<PHF> {
+template <int NL, int NS, int NLIM, int K, int NP2P, bool PLANAR, int KB, int NGRAB, int PHF,
+          int KT, bool SPLIT>
+struct Env : BarState<KB>, GrabState<NGRAB>, HfState<PHF>, TriState<KT>,
+             SplitState<SPLIT, NLIM + NS, NL + 5> {
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   float q[L::NQ], qd[L::NV], tau[L::NJ];
   float ground, fric;
@@ -284,7 +379,7 @@ struct Env : BarState<KB>, GrabState<NGRAB>, HfState<PHF> {
   float pos[NL][3], quat[NL][4], omega[NL][3], R[NL][9], comw[NL][3], Iw[NL][9];
   float ja[L::NJ][3];
   float depth[NS], cpt[NS][3];
-  float nrm[K > 0 || KB > 0 || PHF > 0 ? NS : 1][3];  // contact normals (plane only: always +z)
+  float nrm[K > 0 || KB > 0 || PHF > 0 || KT > 0 ? NS : 1][3];  // contact normals (plane only: +z)
   float stone[K > 0 ? K : 1][STONE_C];
   float bias[L::NV], vfree[L::NV];
   float c[L::NR], act[L::NR], diag[L::NR], finv[NS][3];
@@ -306,15 +401,17 @@ HD inline float& Lget(const WS& ws, int i, int j) {  // i >= j
 
 // ------------------------------------------------------------- substep
 template <int NL, int NS, int NLIM, int ITERS, int K, int NP2P, bool PLANAR, int KB, int NGRAB,
-          int PHF>
-HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF>& e, const float* tab,
+          int PHF, int KT, bool SPLIT>
+HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>& e, const float* tab,
                 const WS& ws, bool factorize) {
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   constexpr int NJ = L::NJ, NV = L::NV, NR = L::NR, NE = L::NE;
-  constexpr bool GENERAL_NORMALS = K > 0 || KB > 0 || PHF > 0;
+  constexpr bool GENERAL_NORMALS = K > 0 || KB > 0 || PHF > 0 || KT > 0;
   // the stone and bar branches set the plane's normal themselves
   static_assert(PHF == 0 || (K == 0 && KB == 0), "no instance combines a heightfield with "
                 "stones or bars");
+  static_assert(KT == 0 || (K == 0 && KB == 0 && PHF == 0), "no instance combines a mesh with "
+                "stones, bars or a heightfield");
   const float dt = tab[L::DT];
 
   // ---------------- FK along the quaternion chain
@@ -435,6 +532,53 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF>& e, const flo
         qrot(st + 3, bp, pw);
         e.depth[s] = best;
         for (int a = 0; a < 3; ++a) e.cpt[s][a] = st[a] + pw[a];
+      }
+    }
+    if constexpr (KT > 0) {
+      // deepest active face (the first of equals): its closest point and
+      // the offset from it to the center, read from the component-major
+      // input through the read-only path
+      const float cc[3] = {cx, cy, cz};
+      auto ld = [&](int k, int comp) {
+        return ldg_(e.tp + (long long)(k * TRI_C + comp) * e.tstride);
+      };
+      float best = -1e9f, bp[3] = {0.0f, 0.0f, 0.0f}, bd[3] = {0.0f, 0.0f, 0.0f}, bdist = 0.0f;
+      int bk = -1;
+      for (int k = 0; k < KT; ++k) {
+        if (!(ld(k, 9) > 0.5f)) continue;
+        const float a[3] = {ld(k, 0), ld(k, 1), ld(k, 2)};
+        const float b[3] = {ld(k, 3), ld(k, 4), ld(k, 5)};
+        const float c[3] = {ld(k, 6), ld(k, 7), ld(k, 8)};
+        float p[3], dl[3];
+        closest_on_triangle(cc, a, b, c, p);
+        for (int i = 0; i < 3; ++i) dl[i] = cc[i] - p[i];
+        const float dist = sqrtf(dot3(dl, dl));
+        const float dk = rad - dist;
+        if (dk > best) {
+          best = dk; bk = k; bdist = dist;
+          for (int i = 0; i < 3; ++i) { bp[i] = p[i]; bd[i] = dl[i]; }
+        }
+      }
+      e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f;
+      if (bk >= 0 && best > e.depth[s]) {       // strictly deeper than the plane
+        if (bdist > 1e-9f) {
+          const float inv = 1.0f / fmaxf(bdist, 1e-9f);
+          for (int i = 0; i < 3; ++i) e.nrm[s][i] = bd[i] * inv;
+        } else {                                // center on the face: its normal,
+          float ab[3], ac[3], ap[3], fn[3];     // turned toward the center's side
+          for (int i = 0; i < 3; ++i) {
+            ab[i] = ld(bk, 3 + i) - ld(bk, i);
+            ac[i] = ld(bk, 6 + i) - ld(bk, i);
+            ap[i] = cc[i] - ld(bk, i);
+          }
+          cross3(ab, ac, fn);
+          const float fm = fmaxf(sqrtf(dot3(fn, fn)), 1e-12f);
+          for (int i = 0; i < 3; ++i) fn[i] /= fm;
+          const float side = dot3(ap, fn) >= 0.0f ? 1.0f : -1.0f;
+          for (int i = 0; i < 3; ++i) e.nrm[s][i] = side * fn[i];
+        }
+        e.depth[s] = best;
+        for (int i = 0; i < 3; ++i) e.cpt[s][i] = bp[i];
       }
     }
     if constexpr (KB > 0) {
@@ -736,7 +880,12 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF>& e, const flo
     fwd(y, col);
     for (int i = 0; i < NV; ++i) ws(L::WS_W + r * NV + i) = y[i];
     e.start[r] = col;
-    e.c[r] = sgn * e.vfree[col] - (b_l - fmaxf(-viol, 0.0f) / dt);
+    if constexpr (SPLIT) {       // the push-out goes to the position pass
+      e.c[r] = sgn * e.vfree[col] + fmaxf(-viol, 0.0f) / dt;
+      e.bpos[lr] = b_l;
+    } else {
+      e.c[r] = sgn * e.vfree[col] - (b_l - fmaxf(-viol, 0.0f) / dt);
+    }
     e.act[r] = gap < tab[L::LIMMARGIN] ? 1.0f : 0.0f;
   }
   for (int s = 0; s < NS; ++s) {
@@ -745,7 +894,13 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF>& e, const flo
     point_jacobian(l, e.cpt[s], Jc);
     const float dep = e.depth[s];
     const float b_n = fminf(beta * fmaxf(dep - tab[L::SLOP], 0.0f), maxpush);
-    const float push = b_n - fmaxf(-dep, 0.0f) / dt;
+    float push;
+    if constexpr (SPLIT) {       // the push-out goes to the position pass
+      push = -fmaxf(-dep, 0.0f) / dt;
+      e.bpos[NLIM + s] = b_n;
+    } else {
+      push = b_n - fmaxf(-dep, 0.0f) / dt;
+    }
     const float a = dep > -tab[L::MARGIN] ? 1.0f : 0.0f;
     // rows n, t1, t2. K = 0: the normal is +z and the tangent basis x, y,
     // so the rows are z, x, y of Jc. With stones: the sphere's own normal
@@ -840,16 +995,43 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF>& e, const flo
   }
   for (int s = 0; s < NS; ++s) e.nimp[s] = ws(L::WS_LAM + NE + NLIM + 3 * s);
 
+  // ---------------- split impulse: the position pass. Scalar PGS over the
+  // limit rows and the contact normals only (the equality rows are masked,
+  // the friction rows bounded to [0, 0] by μ = 0), from λ_pos = 0 against
+  // −bias, with the same W, diagonals and activity; z_pos = Wλ_pos carried.
+  if constexpr (SPLIT) {
+    constexpr int NP = NLIM + NS;
+    for (int i = 0; i < NV; ++i) e.zpos[i] = 0.0f;
+    for (int k = 0; k < NP; ++k) e.lpos[k] = 0.0f;
+    for (int it = 0; it < ITERS; ++it)
+      for (int k = 0; k < NP; ++k) {
+        const int r = k < NLIM ? NE + k : NE + NLIM + 3 * (k - NLIM);
+        float res_p = cfm * e.lpos[k] - e.bpos[k];
+        for (int i = e.start[r]; i < NV; ++i) res_p += ws(L::WS_W + r * NV + i) * e.zpos[i];
+        const float nw = fmaxf(0.0f, e.lpos[k] - res_p / e.diag[r]) * e.act[r];
+        const float d = nw - e.lpos[k];
+        e.lpos[k] = nw;
+        for (int i = e.start[r]; i < NV; ++i) e.zpos[i] += ws(L::WS_W + r * NV + i) * d;
+      }
+  }
+
   // ---------------- impulse map and integration
   float qdn[NV];
   for (int i = 0; i < NV; ++i) qdn[i] = ws(L::WS_Z + i);
   bwd(qdn);
   const float maxvel = tab[L::MAXVEL];
   for (int i = 0; i < NV; ++i) qdn[i] = clampf(e.vfree[i] + qdn[i], -maxvel, maxvel);
+  // the velocity that advances the positions: with split impulse the
+  // pseudo-velocity L⁻ᵀz_pos joins the real one here and nowhere else
+  if constexpr (SPLIT) bwd(e.zpos);
+  auto qi = [&](int i) {
+    if constexpr (SPLIT) return qdn[i] + e.zpos[i];
+    else return qdn[i];
+  };
 
-  for (int k = 0; k < 3; ++k) e.q[k] += dt * qdn[k];
+  for (int k = 0; k < 3; ++k) e.q[k] += dt * qi(k);
   {
-    const float hx = qdn[3] * (0.5f * dt), hy = qdn[4] * (0.5f * dt), hz = qdn[5] * (0.5f * dt);
+    const float hx = qi(3) * (0.5f * dt), hy = qi(4) * (0.5f * dt), hz = qi(5) * (0.5f * dt);
     const float theta = sqrtf(hx * hx + hy * hy + hz * hz + 1e-24f);
     float sn, cs;
     sincosf_(theta, &sn, &cs);
@@ -862,7 +1044,7 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF>& e, const flo
   }
   const float limslop = tab[L::LIMSLOP];
   for (int j = 0; j < NJ; ++j) {
-    const float raw = e.q[7 + j] + dt * qdn[6 + j];
+    const float raw = e.q[7 + j] + dt * qi(6 + j);
     const float lo = tab[L::LIMLO + j] - limslop, hi = tab[L::LIMHI + j] + limslop;
     float v = qdn[6 + j];
     if (raw > hi && v > 0.0f) v = 0.0f;
@@ -877,15 +1059,16 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF>& e, const flo
 // the start. PD: ``tau`` holds joint targets and each frame's torque is
 // gain·(target − q) at the frame's start; else the torques are held.
 template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
-          bool PLANAR, int KB, int NGRAB, int PHF>
+          bool PLANAR, int KB, int NGRAB, int PHF, int KT, bool SPLIT>
 KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const float* gz,
                       const float* fric, const float* stones, const float* bars,
-                      const float* grabs, const float* hf, float* q_out, float* qd_out,
+                      const float* grabs, const float* hf, const float* tris, float* q_out,
+                      float* qd_out,
                       float* depth_out, float* nimp_out, const float* tab, float* ws_base, int B,
                       int t) {
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   static_assert(PD || NLLC == 1, "torque mode is launched once per llc frame");
-  Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF> e;
+  Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT> e;
   const WS ws{ws_base, B, t};
   float target[PD ? L::NJ : 1];
   for (int i = 0; i < L::NQ; ++i) e.q[i] = q[(long long)t * L::NQ + i];
@@ -915,13 +1098,18 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
     e.hy0 = e.hp[PHF * PHF + 1];
     e.hcell = e.hp[PHF * PHF + 2];
   }
+  if constexpr (KT > 0) {
+    e.tp = tris + t;
+    e.tstride = B;
+  }
   for (int r = 0; r < L::NR; ++r) ws(L::WS_LAM + r) = 0.0f;
   for (int llc = 0; llc < NLLC; ++llc) {
     if constexpr (PD)
       for (int j = 0; j < L::NJ; ++j)
         e.tau[j] = tab[L::PDGAIN + j] * (target[j] - e.q[7 + j]);
     for (int sub = 0; sub < NSUB; ++sub)
-      substep<NL, NS, NLIM, ITERS, K, NP2P, PLANAR, KB, NGRAB, PHF>(e, tab, ws, sub == 0);
+      substep<NL, NS, NLIM, ITERS, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>(e, tab, ws,
+                                                                              sub == 0);
   }
   for (int i = 0; i < L::NQ; ++i) q_out[(long long)t * L::NQ + i] = e.q[i];
   for (int i = 0; i < L::NV; ++i) qd_out[(long long)t * L::NV + i] = e.qd[i];
@@ -935,13 +1123,14 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
 constexpr int kThreads = 32;   // one warp per block: B = 4096 spreads over 128 SMs
 
 template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
-          bool PLANAR, int KB, int NGRAB, int PHF>
+          bool PLANAR, int KB, int NGRAB, int PHF, int KT, bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
 k1_kernel(const float* __restrict__ q, const float* __restrict__ qd,
           const float* __restrict__ tau, const float* __restrict__ gz,
           const float* __restrict__ fric, const float* __restrict__ stones,
           const float* __restrict__ bars, const float* __restrict__ grabs,
-          const float* __restrict__ hf, float* __restrict__ q_out, float* __restrict__ qd_out,
+          const float* __restrict__ hf, const float* __restrict__ tris,
+          float* __restrict__ q_out, float* __restrict__ qd_out,
           float* __restrict__ depth_out, float* __restrict__ nimp_out,
           const float* __restrict__ table, float* __restrict__ ws, int B) {
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
@@ -950,27 +1139,27 @@ k1_kernel(const float* __restrict__ q, const float* __restrict__ qd,
   __syncthreads();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= B) return;
-  frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF>(
-      q, qd, tau, gz, fric, stones, bars, grabs, hf, q_out, qd_out, depth_out, nimp_out, tab, ws,
-      B, t);
+  frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>(
+      q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out, depth_out, nimp_out, tab,
+      ws, B, t);
 }
 
 template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
-          bool PLANAR, int KB, int NGRAB, int PHF>
+          bool PLANAR, int KB, int NGRAB, int PHF, int KT, bool SPLIT>
 int launch(const float* q, const float* qd, const float* tau, const float* gz, const float* fric,
            const float* stones, const float* bars, const float* grabs, const float* hf,
-           float* q_out, float* qd_out, float* depth, float* nimp, const float* table,
-           int table_size, float* ws, int B, void* stream) {
+           const float* tris, float* q_out, float* qd_out, float* depth, float* nimp,
+           const float* table, int table_size, float* ws, int B, void* stream) {
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   if (table_size != L::SIZE || B <= 0 || (K > 0 && stones == nullptr) ||
       (KB > 0 && bars == nullptr) || (NGRAB > 0 && grabs == nullptr) ||
-      (PHF > 0 && hf == nullptr))
+      (PHF > 0 && hf == nullptr) || (KT > 0 && tris == nullptr))
     return (int)cudaErrorInvalidValue;
   const int blocks = (B + kThreads - 1) / kThreads;
-  k1_kernel<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF>
+  k1_kernel<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>
       <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-          q, qd, tau, gz, fric, stones, bars, grabs, hf, q_out, qd_out, depth, nimp, table, ws,
-          B);
+          q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out, depth, nimp, table,
+          ws, B);
   return (int)cudaGetLastError();
 }
 #endif
@@ -979,43 +1168,47 @@ int launch(const float* q, const float* qd, const float* tau, const float* gz, c
 
 // ------------------------------------------------------------ C interface
 // One entry per instance: (NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P,
-// PLANAR, KB, NGRAB, PHF). ops/cuda/engine.py::INSTANTIATIONS lists the same
-// names and numbers.
+// PLANAR, KB, NGRAB, PHF, KT, SPLIT). ops/cuda/engine.py::INSTANTIATIONS
+// lists the same names and numbers.
 #define K1_INSTANCE(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB,   \
-                    PHF)                                                                     \
+                    PHF, KT, SPLIT)                                                          \
   extern "C" int NAME##_layout(int* table_size, int* ws_per_env) {                          \
     *table_size = k1::Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>::SIZE;                   \
     *ws_per_env = k1::Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>::WS_SIZE;                \
     return 0;                                                                                \
   }                                                                                          \
-  K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF)
+  K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF, KT,   \
+           SPLIT)
 
 #ifndef K1_HOST_CHECK
-#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF) \
+#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF,  \
+                 KT, SPLIT)                                                                  \
   extern "C" int NAME##_launch(const float* q, const float* qd, const float* tau,           \
                                const float* gz, const float* fric, const float* stones,     \
                                const float* bars, const float* grabs, const float* hf,      \
-                               float* q_out, float* qd_out, float* depth, float* nimp,      \
-                               const float* table, int table_size, float* ws, int B,        \
-                               void* stream) {                                              \
-    return k1::launch<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF>( \
-        q, qd, tau, gz, fric, stones, bars, grabs, hf, q_out, qd_out, depth, nimp, table,   \
-        table_size, ws, B, stream);                                                         \
+                               const float* tris, float* q_out, float* qd_out,              \
+                               float* depth, float* nimp, const float* table,               \
+                               int table_size, float* ws, int B, void* stream) {            \
+    return k1::launch<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF,  \
+                      KT, SPLIT>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, \
+                                 qd_out, depth, nimp, table, table_size, ws, B, stream);    \
   }
 #else
 // host check: the same per-env code as a plain loop over envs
-#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF) \
+#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF,  \
+                 KT, SPLIT)                                                                  \
   extern "C" int NAME##_host(const float* q, const float* qd, const float* tau,             \
                              const float* gz, const float* fric, const float* stones,       \
                              const float* bars, const float* grabs, const float* hf,        \
-                             float* q_out, float* qd_out, float* depth, float* nimp,        \
-                             const float* table, int table_size, float* ws, int B) {        \
+                             const float* tris, float* q_out, float* qd_out, float* depth,  \
+                             float* nimp, const float* table, int table_size, float* ws,    \
+                             int B) {                                                        \
     if (table_size != k1::Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>::SIZE || B <= 0)     \
       return 1;                                                                              \
     for (int t = 0; t < B; ++t)                                                              \
-      k1::frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF>(       \
-          q, qd, tau, gz, fric, stones, bars, grabs, hf, q_out, qd_out, depth, nimp, table,  \
-          ws, B, t);                                                                         \
+      k1::frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF, KT,    \
+                SPLIT>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out,   \
+                       depth, nimp, table, ws, B, t);                                        \
     return 0;                                                                                \
   }
 #endif
@@ -1023,42 +1216,52 @@ int launch(const float* q, const float* qd, const float* tau, const float* gz, c
 // Walker3D / Child3D at the shipped EngineConfig: 22 links, 14 spheres, 21
 // limit rows, 4 substeps, 4 sweeps.
 #if !defined(K1_ONLY) || K1_ONLY == 0
-K1_INSTANCE(k1a_nl22_ns14_nlim21_sub4_it4, 22, 14, 21, 4, 4, 0, false, 1, 0, false, 0, 0, 0)
+K1_INSTANCE(k1a_nl22_ns14_nlim21_sub4_it4, 22, 14, 21, 4, 4, 0, false, 1, 0, false, 0, 0, 0, 0, false)
 #endif
 // ... over the 6 culled stones of the stepping-stone env
 #if !defined(K1_ONLY) || K1_ONLY == 1
-K1_INSTANCE(k1c_nl22_ns14_nlim21_sub4_it4_k6, 22, 14, 21, 4, 4, 6, false, 1, 0, false, 0, 0, 0)
+K1_INSTANCE(k1c_nl22_ns14_nlim21_sub4_it4_k6, 22, 14, 21, 4, 4, 6, false, 1, 0, false, 0, 0, 0, 0, false)
 #endif
 // ... PD-servoed, one llc frame per control step (the PD walkers)
 #if !defined(K1_ONLY) || K1_ONLY == 2
-K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc1, 22, 14, 21, 4, 4, 0, true, 1, 0, false, 0, 0, 0)
+K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc1, 22, 14, 21, 4, 4, 0, true, 1, 0, false, 0, 0, 0, 0, false)
 #endif
 // ... PD-servoed, two llc frames per control step (λ carried across them)
 #if !defined(K1_ONLY) || K1_ONLY == 3
-K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc2, 22, 14, 21, 4, 4, 0, true, 2, 0, false, 0, 0, 0)
+K1_INSTANCE(k1b_nl22_ns14_nlim21_sub4_it4_llc2, 22, 14, 21, 4, 4, 0, true, 2, 0, false, 0, 0, 0, 0, false)
 #endif
 // Cassie at its three-rate configuration: 17 links, 5 spheres, 16 limit
 // rows, PD-servoed, 10 llc frames of 2 substeps at 600 Hz per control step,
 // the two achilles rods (37 rows)
 #if !defined(K1_ONLY) || K1_ONLY == 4
-K1_INSTANCE(k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2, 17, 5, 16, 2, 4, 0, true, 10, 2, false, 0, 0, 0)
+K1_INSTANCE(k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2, 17, 5, 16, 2, 4, 0, true, 10, 2, false, 0, 0, 0, 0, false)
 #endif
 // ... locked to the sagittal plane (40 rows)
 #if !defined(K1_ONLY) || K1_ONLY == 5
-K1_INSTANCE(k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar, 17, 5, 16, 2, 4, 0, true, 10, 2, true, 0, 0, 0)
+K1_INSTANCE(k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar, 17, 5, 16, 2, 4, 0, true, 10, 2, true, 0, 0, 0, 0, false)
 #endif
 // Walker2D / Crab2D at the shipped EngineConfig: 7 links, 5 spheres, 6 limit
 // rows, torque mode, the planar lock (24 rows)
 #if !defined(K1_ONLY) || K1_ONLY == 6
-K1_INSTANCE(k1e_nl7_ns5_nlim6_sub4_it4_planar, 7, 5, 6, 4, 4, 0, false, 1, 0, true, 0, 0, 0)
+K1_INSTANCE(k1e_nl7_ns5_nlim6_sub4_it4_planar, 7, 5, 6, 4, 4, 0, false, 1, 0, true, 0, 0, 0, 0, false)
 #endif
 // Monkey3D at the shipped EngineConfig: 11 links, 5 spheres, 8 limit rows,
 // torque mode, 16 bars, two grabs (6 + 8 + 15 = 29 rows)
 #if !defined(K1_ONLY) || K1_ONLY == 7
-K1_INSTANCE(k1d_nl11_ns5_nlim8_sub4_it4_kb16_ng2, 11, 5, 8, 4, 4, 0, false, 1, 0, false, 16, 2, 0)
+K1_INSTANCE(k1d_nl11_ns5_nlim8_sub4_it4_kb16_ng2, 11, 5, 8, 4, 4, 0, false, 1, 0, false, 16, 2, 0, 0, false)
 #endif
 // Walker3D at the shipped EngineConfig over a 16 × 16 heightfield window (the
 // terrain families), torque mode
 #if !defined(K1_ONLY) || K1_ONLY == 8
-K1_INSTANCE(k1f_nl22_ns14_nlim21_sub4_it4_hf16, 22, 14, 21, 4, 4, 0, false, 1, 0, false, 0, 0, 16)
+K1_INSTANCE(k1f_nl22_ns14_nlim21_sub4_it4_hf16, 22, 14, 21, 4, 4, 0, false, 1, 0, false, 0, 0, 16, 0, false)
+#endif
+// Walker3D at the shipped EngineConfig over the 16 faces of a culled
+// triangle mesh (the stairs), torque mode
+#if !defined(K1_ONLY) || K1_ONLY == 9
+K1_INSTANCE(k1g_nl22_ns14_nlim21_sub4_it4_kt16, 22, 14, 21, 4, 4, 0, false, 1, 0, false, 0, 0, 0, 16, false)
+#endif
+// Walker3D on the plane at the shipped EngineConfig with split impulse on,
+// torque mode
+#if !defined(K1_ONLY) || K1_ONLY == 10
+K1_INSTANCE(k1h_nl22_ns14_nlim21_sub4_it4_si, 22, 14, 21, 4, 4, 0, false, 1, 0, false, 0, 0, 0, 0, true)
 #endif

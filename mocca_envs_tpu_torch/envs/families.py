@@ -1,10 +1,10 @@
-"""Env family registration: the families this port carries so far.
+"""Env family registration: the fifteen families of the JAX package.
 
-Counterpart of ``mocca_envs_tpu/envs/families.py`` for the walk-to-target
+Counterpart of ``mocca_envs_tpu/envs/families.py``: the walk-to-target
 walkers (torque and PD, adult and child, and the planar Walker2D / Crab2D),
-the stepping-stone walker, the Cassie families, the brachiating monkey and
-the walkers over fractal terrain (with and without the LIDAR fan); the other
-families come with later slices.
+the stepping-stone walker, the Cassie families, the brachiating monkey, the
+walkers over fractal terrain (with and without the LIDAR fan) and the walker
+over a triangle-mesh staircase.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from mocca_envs_tpu_torch.tasks.monkey_stepper import make_monkey3d_stepper
 from mocca_envs_tpu_torch.tasks.walker_custom import WalkerParams, make_walker3d_custom
 from mocca_envs_tpu_torch.tasks.walker_stepper import make_walker3d_stepper
 from mocca_envs_tpu_torch.tasks.walker_terrain import make_walker3d_terrain
+from mocca_envs_tpu_torch.terrain.scene import stairs_trimesh
 
 register("Walker3DCustomEnv", make_walker3d_custom)
 # the PD-servoed walker: actions are joint-angle targets
@@ -119,3 +120,22 @@ register(
     "Walker3DTerrainLidarEnv",
     functools.partial(make_walker3d_terrain, name="Walker3DTerrainLidarEnv", lidar=True),
 )
+
+
+def _make_walker3d_stairs(**kw):
+    """The walker walking to a target over a triangle-mesh staircase in
+    front of its start: 6 steps of rise 0.12 m and run 0.35 m, 4 m wide,
+    from x = 0.6 m (24 faces, culled to ``tri_window`` per control step),
+    over the plane z = 0; targets 1–2.5 m away."""
+    params = kw.pop("params", None) or dataclasses.replace(
+        WalkerParams.default(), target_dist_lo=1.0, target_dist_hi=2.5)
+    return make_walker3d_custom(
+        name="Walker3DStairsEnv",
+        params=params,
+        scene_builder=lambda device: stairs_trimesh(
+            n_steps=6, rise=0.12, run=0.35, width=4.0, start_x=0.6, device=device),
+        **kw,
+    )
+
+
+register("Walker3DStairsEnv", _make_walker3d_stairs)

@@ -1,8 +1,7 @@
 """Narrowphase: robot collision spheres vs the scene (plane, heightfield,
-stones, bars).
+stones, mesh triangles, bars).
 
-Counterpart of ``mocca_envs_tpu/ops/collide.py`` for the plane, the
-heightfield, the oriented stone boxes and the bar capsules. One candidate
+Counterpart of ``mocca_envs_tpu/ops/collide.py``. One candidate
 contact per sphere (the deepest across the scene's features, merged in that
 order, each taking over only where strictly deeper), so the contact count
 is static.
@@ -22,6 +21,7 @@ from mocca_envs_tpu_torch.terrain.scene import (
     hf_sample,
     sphere_box_depth,
     sphere_capsule_depth,
+    sphere_triangle_depth,
 )
 
 
@@ -84,6 +84,14 @@ def collide(model: RobotModel, fd: FrameData, scene: Scene, margin: float) -> Co
             centers[:, :, None, :], model.sph_radius[None, :, None],
             scene.stone_pos[:, None], scene.stone_quat[:, None], scene.stone_half[:, None],
         ), scene.stone_active)
+    if scene.has_tris:
+        # every sphere against every face; of equally deep faces the first
+        # wins (tread and riser share the nosing edge, a quad's two
+        # triangles its diagonal)
+        merge(*sphere_triangle_depth(
+            centers[:, :, None, :], model.sph_radius[None, :, None],
+            scene.tri_a[:, None], scene.tri_b[:, None], scene.tri_c[:, None],
+        ), scene.tri_active)
     if scene.has_bars:
         # every sphere against every bar; the palms are left out, since a
         # grabbing hand wraps the bar it holds

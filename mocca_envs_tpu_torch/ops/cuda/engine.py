@@ -1,13 +1,15 @@
 """K1: the fused engine kernel on Hopper, its wrappers and its plain version.
 
 Counterpart of ``mocca_envs_tpu/ops/pallas/engine.py::make_pallas_substep``
-for floating all-revolute models at the shipped EngineConfig, in six
+for floating all-revolute models at the shipped EngineConfig, in eight
 variants: K1a (plane, torque mode), K1c (K1a plus ``stone_window`` oriented
 stone boxes), K1b (PD mode: the whole control step, joint targets in the
 ``tau`` input), K1e (the equality rows of a ``ConstraintSpec`` in front
 of the others: point-to-point rods and the planar base lock, in torque or PD
-mode), K1d (bar capsules and the maskable grab rows, torque mode) and K1f
-(K1a plus a per-env ``HF_PATCH × HF_PATCH`` heightfield window). The
+mode), K1d (bar capsules and the maskable grab rows, torque mode), K1f
+(K1a plus a per-env ``HF_PATCH × HF_PATCH`` heightfield window), K1g (K1a
+plus ``tri_window`` triangle-mesh faces) and K1h-si (K1a with
+``split_impulse``: the bias split and the position pass). The
 kernel is CUDA C++ in ``csrc/engine_k1.cu``, one source for all
 variants. At first use every instantiation is built with ``nvcc``
 for ``sm_90a`` into ``build/``, one compiler process per instantiation, all
@@ -16,15 +18,15 @@ wrapper is ``ops/raycast.py``), and called through a plain C interface with
 ``ctypes``.
 
 - :class:`K1a`, :class:`K1c`, :class:`K1b`, :class:`K1e`, :class:`K1d`,
-  :class:`K1f` wrap one (model, config):
+  :class:`K1f`, :class:`K1g`, :class:`K1hSi` wrap one (model, config):
   ``launch`` launches the kernel on CUDA tensors and raises on anything
   else. The choice by device is made once, in
   ``ops/step.py::_make_llc_unit``; there is no fallback from one path to
   the other.
 - ``plain`` is the plain PyTorch version: the port's ``ops/step.py`` path
   run for the same unit, on any device.
-- ``LAUNCHES["k1a" | "k1b" | "k1c" | "k1e" | "k1d" | "k1f" | "k2"]`` counts
-  kernel launches (plain runs do not count).
+- ``LAUNCHES["k1a" | "k1b" | "k1c" | "k1e" | "k1d" | "k1f" | "k1g" |
+  "k1h_si" | "k2"]`` counts kernel launches (plain runs do not count).
 """
 
 from __future__ import annotations
@@ -42,11 +44,12 @@ import numpy as np
 import torch
 
 from mocca_envs_tpu_torch.models.schema import REVOLUTE, RobotModel
+from mocca_envs_tpu_torch.ops.collide import sphere_centers
 from mocca_envs_tpu_torch.ops.integrate import LIMIT_SLOP, MAX_VEL
 from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics, joint_q
 from mocca_envs_tpu_torch.ops.step import (
     ConstraintSpec, limited_joints, make_plain_llc, make_substep)
-from mocca_envs_tpu_torch.terrain.scene import BAR_FIELDS, STONE_FIELDS, Scene
+from mocca_envs_tpu_torch.terrain.scene import BAR_FIELDS, STONE_FIELDS, TRI_FIELDS, Scene
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "engine_k1.cu"
@@ -61,6 +64,7 @@ STONE_FLOATS = 11   # center (3), quaternion (4), half extents (3), active (1)
 BAR_FLOATS = 8      # end a (3), end b (3), radius (1), active (1)
 GRAB_FLOATS = 4     # active (1), target (3)
 HF_META = 3         # behind a heightfield window's P·P heights: x0, y0, cell
+TRI_FLOATS = 10     # vertices a, b, c (3 each), active (1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,31 +76,38 @@ class Instance:
 
 
 # (nl, ns, nlim, sim_substeps, solver_iters, stones, pd_mode, llc frames per
-# launch, rods, planar lock, bars, grabs, heightfield window side) →
-# instantiation; torque mode launches once per llc frame
+# launch, rods, planar lock, bars, grabs, heightfield window side, mesh face
+# window, split impulse) → instantiation; torque mode launches once per llc
+# frame
 INSTANTIATIONS = {
-    (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0, 0):
+    (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0, 0, 0, False):
         Instance("k1a_nl22_ns14_nlim21_sub4_it4", 0),
-    (22, 14, 21, 4, 4, 6, False, 1, 0, False, 0, 0, 0):
+    (22, 14, 21, 4, 4, 6, False, 1, 0, False, 0, 0, 0, 0, False):
         Instance("k1c_nl22_ns14_nlim21_sub4_it4_k6", 1),
-    (22, 14, 21, 4, 4, 0, True, 1, 0, False, 0, 0, 0):
+    (22, 14, 21, 4, 4, 0, True, 1, 0, False, 0, 0, 0, 0, False):
         Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc1", 2),
-    (22, 14, 21, 4, 4, 0, True, 2, 0, False, 0, 0, 0):
+    (22, 14, 21, 4, 4, 0, True, 2, 0, False, 0, 0, 0, 0, False):
         Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc2", 3),
     # Cassie and Cassie2D: the whole control step, 10 llc frames × 2 substeps
-    (17, 5, 16, 2, 4, 0, True, 10, 2, False, 0, 0, 0):
+    (17, 5, 16, 2, 4, 0, True, 10, 2, False, 0, 0, 0, 0, False):
         Instance("k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 4),
-    (17, 5, 16, 2, 4, 0, True, 10, 2, True, 0, 0, 0):
+    (17, 5, 16, 2, 4, 0, True, 10, 2, True, 0, 0, 0, 0, False):
         Instance("k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar", 5),
     # Walker2D and Crab2D
-    (7, 5, 6, 4, 4, 0, False, 1, 0, True, 0, 0, 0):
+    (7, 5, 6, 4, 4, 0, False, 1, 0, True, 0, 0, 0, 0, False):
         Instance("k1e_nl7_ns5_nlim6_sub4_it4_planar", 6),
     # Monkey3D: 16 bars, two grabs
-    (11, 5, 8, 4, 4, 0, False, 1, 0, False, 16, 2, 0):
+    (11, 5, 8, 4, 4, 0, False, 1, 0, False, 16, 2, 0, 0, False):
         Instance("k1d_nl11_ns5_nlim8_sub4_it4_kb16_ng2", 7),
     # Walker3D over a 16 × 16 heightfield window (the terrain families)
-    (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0, 16):
+    (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0, 16, 0, False):
         Instance("k1f_nl22_ns14_nlim21_sub4_it4_hf16", 8),
+    # Walker3D over 16 culled mesh faces (the stairs)
+    (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0, 0, 16, False):
+        Instance("k1g_nl22_ns14_nlim21_sub4_it4_kt16", 9),
+    # Walker3D on the plane with split impulse
+    (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0, 0, 0, True):
+        Instance("k1h_nl22_ns14_nlim21_sub4_it4_si", 10),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -166,7 +177,7 @@ def build() -> dict:
         getattr(lib, inst.symbol + "_layout").argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
         getattr(lib, inst.symbol + "_layout").restype = _I
         fn = getattr(lib, inst.symbol + "_launch")
-        fn.argtypes = [_P] * 14 + [_I, _P, _I, _P]
+        fn.argtypes = [_P] * 15 + [_I, _P, _I, _P]
         fn.restype = _I
         handles[inst.symbol] = lib
     lib = ctypes.CDLL(str(BUILD_DIR / f"lib{RAYCAST_SYMBOL}.so"))
@@ -189,22 +200,25 @@ def layout(lib, name: str) -> tuple[int, int]:
 
 
 def _check_supported(model: RobotModel, config: EngineConfig, num_stones: int, num_bars: int,
-                     pd_mode: bool, constraints: ConstraintSpec, hf_patch: int) -> Instance:
+                     pd_mode: bool, constraints: ConstraintSpec, hf_patch: int,
+                     num_tris: int) -> Instance:
     if not model.floating or any(t != REVOLUTE for t in model.jtype):
         raise NotImplementedError("K1 covers floating-base all-revolute models")
-    options = dict(block_pgs=True, matfree_pgs=True, warm_start=True,
-                   reuse_factor=True, split_impulse=False)
+    options = dict(block_pgs=True, matfree_pgs=True, warm_start=True, reuse_factor=True)
     off = {k: getattr(config, k) for k, v in options.items() if getattr(config, k) != v}
     if off:
         raise NotImplementedError(f"K1 runs the shipped solver options; got {off}")
     key = (model.nl, model.ns, len(limited_joints(model)), config.sim_substeps,
            config.solver_iters, num_stones, pd_mode, config.llc_frames if pd_mode else 1,
-           constraints.num_p2p, constraints.planar, num_bars, constraints.num_grabs, hf_patch)
+           constraints.num_p2p, constraints.planar, num_bars, constraints.num_grabs, hf_patch,
+           num_tris, config.split_impulse)
     if key not in INSTANTIATIONS:
+        split = (" with split impulse (built for the walker on the plane in torque mode only)"
+                 if config.split_impulse else "")
         raise NotImplementedError(
-            "no K1 instantiation for (nl, ns, nlim, substeps, iters, stones, pd_mode, "
-            f"llc frames, rods, planar, bars, grabs, hf window) = {key}; built: "
-            f"{sorted(INSTANTIATIONS)}"
+            f"no K1 instantiation{split} for (nl, ns, nlim, substeps, iters, stones, pd_mode, "
+            f"llc frames, rods, planar, bars, grabs, hf window, mesh faces, split) = {key}; "
+            f"built: {sorted(INSTANTIATIONS)}"
         )
     return INSTANTIATIONS[key]
 
@@ -282,6 +296,15 @@ def pack_hf(scene: Scene) -> torch.Tensor:
                       scene.hf_cell[:, None]], dim=1).contiguous()
 
 
+def pack_tris(scene: Scene) -> torch.Tensor:
+    """The scene's (culled) mesh faces in the kernel's layout, ``(Kt·10, B)``:
+    row ``k·10 + c`` is component c of face k (vertex a, b, c, active),
+    component-major like the stones, so that neighbouring threads read
+    neighbouring addresses."""
+    return _pack(torch.cat([scene.tri_a, scene.tri_b, scene.tri_c,
+                            scene.tri_active[..., None]], dim=2))
+
+
 def unpack_hf(hf: torch.Tensor) -> dict:
     """Inverse of :func:`pack_hf`: the three heightfield fields of a Scene."""
     B, C = hf.shape
@@ -306,11 +329,17 @@ def unpack_bars(bars: torch.Tensor) -> dict:
     return _unpack(bars, BAR_FIELDS, (3, 3, 1, 1))
 
 
-def make_scene(ground_z, friction, stones=None, bars=None, hf=None) -> Scene:
+def unpack_tris(tris: torch.Tensor) -> dict:
+    """Inverse of :func:`pack_tris`: the four face fields of a Scene."""
+    return _unpack(tris, TRI_FIELDS, (3, 3, 3, 1))
+
+
+def make_scene(ground_z, friction, stones=None, bars=None, hf=None, tris=None) -> Scene:
     """The Scene a kernel call's scene arguments describe."""
     fields = {**(unpack_stones(stones) if stones is not None else {}),
               **(unpack_bars(bars) if bars is not None else {}),
-              **(unpack_hf(hf) if hf is not None else {})}
+              **(unpack_hf(hf) if hf is not None else {}),
+              **(unpack_tris(tris) if tris is not None else {})}
     return Scene(ground_z=ground_z, friction=friction, **fields)
 
 
@@ -328,32 +357,40 @@ class EngineKernel:
     friction (B,), *scene_inputs) → (q', qd', depth (B,ns), normal_impulse
     (B,ns))``, all f32. ``scene_inputs`` are the variant's packed inputs
     named in ``inputs``: none on the plane, ``stones (K·11,B)`` for K1c,
-    ``bars (KB·8,B), grabs (ng·4,B)`` for K1d, ``hf (B,P·P+3)`` for K1f;
-    :meth:`pack` makes them from a Scene and the grab state. In PD mode ``tau`` holds the joint targets and
-    the unit is the whole control step; else it is one llc frame.
-    ``plain_unit`` is the plain unit to compare against (built here when not
-    given).
+    ``bars (KB·8,B), grabs (ng·4,B)`` for K1d, ``hf (B,P·P+3)`` for K1f,
+    ``tris (Kt·10,B)`` for K1g; :meth:`pack` makes them from a Scene and the
+    grab state. In PD mode ``tau`` holds the joint targets and the unit is
+    the whole control step; else it is one llc frame. ``plain_unit`` is the
+    plain unit to compare against (built here when not given). A variant
+    runs split impulse when its ``split`` says so, and only then.
     """
 
     variant = "k1"
+    split = False
 
     def __init__(self, model: RobotModel, config: EngineConfig, *, num_stones: int = 0,
-                 num_bars: int = 0, hf_patch: int = 0, pd_mode: bool = False,
+                 num_bars: int = 0, hf_patch: int = 0, num_tris: int = 0, pd_mode: bool = False,
                  extra_damping=None, plain_unit=None,
                  constraints: ConstraintSpec = ConstraintSpec()):
+        if config.split_impulse != self.split:
+            raise NotImplementedError(
+                f"{self.variant} runs with split_impulse={self.split}; the split-impulse "
+                "instance is K1hSi")
         self.instance = _check_supported(model, config, num_stones, num_bars, pd_mode,
-                                         constraints, hf_patch)
+                                         constraints, hf_patch, num_tris)
         self.name = self.instance.symbol
         self.model = model
         self.config = config
         self.num_stones = num_stones
         self.num_bars = num_bars
         self.hf_patch = hf_patch
+        self.num_tris = num_tris
         self.pd_mode = pd_mode
         self.extra_damping = extra_damping
         self.constraints = constraints
         self.inputs = (("stones",) if num_stones else ()) + (
-            ("bars", "grabs") if num_bars else ()) + (("hf",) if hf_patch else ())
+            ("bars", "grabs") if num_bars else ()) + (("hf",) if hf_patch else ()) + (
+            ("tris",) if num_tris else ())
         self.table_host = pack_tables(model, config, extra_damping, constraints, num_bars)
         self._plain_unit = plain_unit
         self._table: torch.Tensor | None = None
@@ -363,7 +400,7 @@ class EngineKernel:
         """This variant's scene inputs for ``scene`` and the grab state."""
         packed = {"stones": lambda: pack_stones(scene), "bars": lambda: pack_bars(scene),
                   "grabs": lambda: pack_grabs(grab_active, grab_target),
-                  "hf": lambda: pack_hf(scene)}
+                  "hf": lambda: pack_hf(scene), "tris": lambda: pack_tris(scene)}
         return tuple(packed[name]() for name in self.inputs)
 
     def unpack(self, ground_z, friction, *scene_inputs):
@@ -395,7 +432,8 @@ class EngineKernel:
         shapes = {"stones": (self.num_stones * STONE_FLOATS, B),
                   "bars": (self.num_bars * BAR_FLOATS, B),
                   "grabs": (self.constraints.num_grabs * GRAB_FLOATS, B),
-                  "hf": (B, self.hf_patch ** 2 + HF_META)}
+                  "hf": (B, self.hf_patch ** 2 + HF_META),
+                  "tris": (self.num_tris * TRI_FLOATS, B)}
         for name, x in zip(self.inputs, scene_inputs):
             want[name] = (x, shapes[name])
         # shapes and dtypes of every input first, then where they live
@@ -440,8 +478,9 @@ class EngineKernel:
             err = getattr(lib, self.name + "_launch")(
                 q.data_ptr(), qd.data_ptr(), tau.data_ptr(), ground_z.data_ptr(),
                 friction.data_ptr(), ptr("stones"), ptr("bars"), ptr("grabs"), ptr("hf"),
-                q_out.data_ptr(), qd_out.data_ptr(), depth.data_ptr(), nimp.data_ptr(),
-                self._table.data_ptr(), table_size, self._ws.data_ptr(), B, stream,
+                ptr("tris"), q_out.data_ptr(), qd_out.data_ptr(), depth.data_ptr(),
+                nimp.data_ptr(), self._table.data_ptr(), table_size, self._ws.data_ptr(), B,
+                stream,
             )
         if err != 0:
             raise RuntimeError(f"{self.variant} launch failed: cudaError {err}")
@@ -519,13 +558,51 @@ class K1f(EngineKernel):
         super().__init__(model, config, hf_patch=hf_patch, plain_unit=plain_unit)
 
 
-def make_kernel(model, config, *, num_stones=0, num_bars=0, hf_patch=0, pd_mode=False,
-                extra_damping=None, plain_unit=None,
+class K1g(EngineKernel):
+    """One llc frame over ``num_tris`` culled triangle-mesh faces, torque
+    mode; the scene input is the packed faces (:func:`pack_tris`)."""
+
+    variant = "k1g"
+
+    def __init__(self, model, config, num_tris: int | None = None, plain_unit=None):
+        super().__init__(model, config, plain_unit=plain_unit,
+                         num_tris=config.tri_window if num_tris is None else num_tris)
+
+
+class K1hSi(EngineKernel):
+    """One llc frame on the plane, torque mode, with split impulse: the
+    push-out bias kept out of the velocity rows and solved in a position
+    pass whose pseudo-velocity advances the positions only."""
+
+    variant = "k1h_si"
+    split = True
+
+    def __init__(self, model, config, plain_unit=None):
+        super().__init__(model, config, plain_unit=plain_unit)
+
+
+def make_kernel(model, config, *, num_stones=0, num_bars=0, hf_patch=0, num_tris=0,
+                pd_mode=False, extra_damping=None, plain_unit=None,
                 constraints: ConstraintSpec = ConstraintSpec()) -> EngineKernel:
     """The variant for a scene with ``num_stones`` (culled) stones,
-    ``num_bars`` bars and a ``hf_patch``-sided heightfield window (0: none),
-    the actuation mode and the equality rows; combinations without an
+    ``num_bars`` bars, a ``hf_patch``-sided heightfield window and
+    ``num_tris`` (culled) mesh faces (0: none), the actuation mode, the
+    equality rows and the solver's split impulse; combinations without an
     instantiation raise."""
+    if config.split_impulse:
+        if num_stones or num_bars or hf_patch or num_tris or pd_mode or constraints.ne \
+                or extra_damping is not None:
+            raise NotImplementedError(
+                "no K1 instantiation for split impulse with stones, bars, a heightfield, a "
+                "mesh, PD mode or equality rows: split impulse is built for the walker on "
+                "the plane in torque mode only")
+        return K1hSi(model, config, plain_unit)
+    if num_tris:
+        if pd_mode or num_stones or num_bars or hf_patch or constraints.ne \
+                or extra_damping is not None:
+            raise NotImplementedError("no K1 instantiation for a mesh with PD mode, stones, "
+                                      "bars, a heightfield or equality rows")
+        return K1g(model, config, num_tris, plain_unit)
     if hf_patch:
         if pd_mode or num_stones or num_bars or constraints.ne or extra_damping is not None:
             raise NotImplementedError("no K1 instantiation for a heightfield with PD mode, "
@@ -551,6 +628,34 @@ def make_kernel(model, config, *, num_stones=0, num_bars=0, hf_patch=0, pd_mode=
     return K1a(model, config, plain_unit)
 
 
+# fp32 operations of the kernel's mesh narrowphase per (sphere, active face),
+# by the region its walk (csrc/engine_k1.cu::closest_on_triangle) ends in:
+# vertex a, b, c, edge ab, ac, bc, the interior; then the offset to the
+# center, its length, the depth and the compare (TRI_TAIL_OPS)
+TRI_WALK_OPS = (27, 39, 51, 66, 72, 83, 89)
+TRI_TAIL_OPS = 12
+
+
+def tri_walk_ops(center, a, b, c) -> torch.Tensor:
+    """Operations the kernel's sphere-vs-triangle test takes for these
+    centers and faces (broadcast as :func:`terrain.scene.
+    sphere_triangle_depth` takes them): the walk stops at the first region
+    that holds the center."""
+    ab, ac = b - a, c - a
+    dot = lambda x, y: (x * y).sum(-1)  # noqa: E731
+    d1, d2 = dot(ab, center - a), dot(ac, center - a)
+    d3, d4 = dot(ab, center - b), dot(ac, center - b)
+    d5, d6 = dot(ab, center - c), dot(ac, center - c)
+    va, vb, vc = d3 * d6 - d5 * d4, d5 * d2 - d1 * d6, d1 * d4 - d3 * d2
+    regions = [(d1 <= 0) & (d2 <= 0), (d3 >= 0) & (d4 <= d3), (d6 >= 0) & (d5 <= d6),
+               (vc <= 0) & (d1 >= 0) & (d3 <= 0), (vb <= 0) & (d2 >= 0) & (d6 <= 0),
+               (va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0)]
+    ops = torch.full_like(d1, float(TRI_WALK_OPS[-1]))
+    for cond, n in reversed(list(zip(regions, TRI_WALK_OPS))):
+        ops = torch.where(cond, torch.full_like(ops, float(n)), ops)
+    return ops + TRI_TAIL_OPS
+
+
 def k1_activity(kernel: EngineKernel, q, qd, tau, ground_z, friction, *scene_inputs):
     """Which rows each substep of one call of ``kernel`` needs, on these
     inputs: limit rows within the limit margin and spheres within the contact
@@ -558,7 +663,9 @@ def k1_activity(kernel: EngineKernel, q, qd, tau, ground_z, friction, *scene_inp
     run of the unit (rods and the planar lock are always active, a grab's
     rows as its input says for the whole call: neither has a mask here).
     Returns bool masks ``(limits (S,B,nlim), contacts (S,B,ns))`` over the
-    S = llc frames × substeps of the call."""
+    S = llc frames × substeps of the call, and the operations of the mesh
+    narrowphase per substep and env ``(S, B)`` (its walks over the active
+    faces, :func:`tri_walk_ops`; zeros without a mesh)."""
     model, config = kernel.model, kernel.config
     substep = make_substep(model, config, kernel.constraints,
                            extra_damping=kernel.extra_damping)
@@ -566,7 +673,7 @@ def k1_activity(kernel: EngineKernel, q, qd, tau, ground_z, friction, *scene_inp
     scene, grab_active, grab_target = kernel.unpack(ground_z, friction, *scene_inputs)
     gain = model.actuated * model.kp
     lam = q.new_zeros(q.shape[0], substep.num_rows)
-    lim_act, con_act = [], []
+    lim_act, con_act, walks = [], [], []
     for _ in range(config.llc_frames if kernel.pd_mode else 1):
         tau_j = gain * (tau - joint_q(model, q)) if kernel.pd_mode else tau
         Minv0 = substep.minv_of(forward_kinematics(model, q, qd))
@@ -574,16 +681,24 @@ def k1_activity(kernel: EngineKernel, q, qd, tau, ground_z, friction, *scene_inp
             qj = joint_q(model, q)[:, lim]
             gap = torch.minimum(qj - model.limit_lo[lim], model.limit_hi[lim] - qj)
             lim_act.append(gap < config.limit_margin)
+            if scene.has_tris:
+                centers = sphere_centers(model, forward_kinematics(model, q, qd))[:, :, None]
+                ops = tri_walk_ops(centers, *(getattr(scene, f)[:, None] for f in TRI_FIELDS[:3]))
+                walks.append((ops * (scene.tri_active[:, None] > 0.5)).sum(dim=(1, 2)))
+            else:
+                walks.append(q.new_zeros(q.shape[0]))
             q, qd, info, lam = substep(q, qd, tau_j, scene, grab_active, grab_target,
                                        Minv_in=Minv0, lam_in=lam)
             con_act.append(info.contacts.active > 0.5)
-    return torch.stack(lim_act), torch.stack(con_act)
+    return torch.stack(lim_act), torch.stack(con_act), torch.stack(walks)
 
 
-def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs) -> int:
+def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs, tri_walk=None) -> int:
     """fp32 operations one call of ``kernel`` needs, summed over the batch,
     given the activity masks of :func:`k1_activity` and the call's packed
-    scene inputs (stones; bars, grabs), a multiply-add counting 2.
+    scene inputs (stones; bars, grabs; the heightfield window; the faces), a
+    multiply-add counting 2. A mesh call also needs ``tri_walk``, the
+    narrowphase's operations per substep and env from :func:`k1_activity`.
 
     Every substep needs FK, the narrowphase, RNEA, the free velocity and the
     integration; each llc frame needs CRBA and the Cholesky factor once.
@@ -600,9 +715,16 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs) -> int:
     once, and active contacts project as over stones. With a heightfield
     window, every sphere samples it each substep (its cell, four corners, the
     bilinear height, the gradient, the normal, the depth and the merge with
-    the plane) and active contacts project as over stones. PD mode adds the torque
-    per llc frame. Rods and the planar lock are needed every substep: a rod
-    takes its two anchors to the world frame, two point Jacobians over the
+    the plane) and active contacts project as over stones. With mesh faces,
+    every sphere walks every active face each substep (as far as the region
+    that holds its center: ``tri_walk``), its deepest face's normal is made
+    once, and active contacts project as over stones. Split impulse adds the
+    position pass: per substep, for each active limit row and contact normal
+    its sweeps (residual and apply, over the row's span), and where any is
+    active the back substitution of z_pos and its addition to the velocity
+    that advances the positions. PD mode adds the torque per llc frame.
+    Rods and the planar lock are needed every substep: a rod takes its two
+    anchors to the world frame, two point Jacobians over the
     anchors' ancestor joints, their difference, three dense W rows with
     their diagonals, targets, sweeps and (from the second substep of the
     call on) warm starts; a planar row is a unit row like a limit row. A
@@ -679,12 +801,25 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs) -> int:
         # the gradient (10) over the cell (2), the normal (3 products, 2 sums,
         # a root, 3 divisions: 9), the depth (3) and the compare (1)
         total += S * B * ns * 50.0
+    if "tris" in named:
+        if tri_walk is None:
+            raise ValueError("k1_flops: a mesh call needs tri_walk from k1_activity")
+        # the walks, and per sphere the winner's normal (5) and the merge (1)
+        total += float(tri_walk.double().sum()) + S * B * ns * 6.0
     if named:
         # per active contact: the tangent basis (15) and three projections of
         # the 3 × nv point Jacobian (5 each)
         total += float(ca.sum()) * (15 + 3 * nv * 5)
     if kernel.pd_mode:
         total += frames * B * nj * 3
+    if kernel.split:
+        # position pass: residual and apply of each active limit row (over
+        # its span) and contact normal (dense) per sweep; L⁻ᵀ z_pos and the
+        # addition where any of them is active
+        total += float((la * (iters * (4 * span + 7))).sum()) + float(ca.sum()) * iters * (
+            4 * nv + 7)
+        any_pos = lim_act.cpu().any(dim=2) | con_act.cpu().any(dim=2)
+        total += float(any_pos.sum()) * (nv * nv + nv)
     spec = kernel.constraints
     dense_row = nv * nv + 2 * nv + 2 * nv + iters * (4 * nv + 6)   # W row, c, diagonal, sweeps
     eq_sub, eq_warm = 0.0, 0.0
@@ -710,10 +845,12 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs) -> int:
 def k1_bytes_per_env(kernel: EngineKernel) -> int:
     """Bytes one env must move: each input read once, each output written
     once (q, qd, tau, ground_z, friction, the window's stones, the bars, the
-    grabs and the heightfield window in; q', qd', depth, impulse out)."""
+    grabs, the heightfield window and the window's faces in; q', qd', depth,
+    impulse out)."""
     model = kernel.model
     inputs = (model.nq + model.nv + model.nj + 2 + kernel.num_stones * STONE_FLOATS
               + kernel.num_bars * BAR_FLOATS + kernel.constraints.num_grabs * GRAB_FLOATS
-              + (kernel.hf_patch ** 2 + HF_META if kernel.hf_patch else 0))
+              + (kernel.hf_patch ** 2 + HF_META if kernel.hf_patch else 0)
+              + kernel.num_tris * TRI_FLOATS)
     outputs = model.nq + model.nv + 2 * model.ns
     return 4 * (inputs + outputs)

@@ -27,13 +27,20 @@ def _limit_backstop(model: RobotModel, joints: torch.Tensor, qd_j: torch.Tensor)
     return clamped, qd_out
 
 
-def integrate(model: RobotModel, q: torch.Tensor, qd_new: torch.Tensor, dt: float):
+def integrate(model: RobotModel, q: torch.Tensor, qd_new: torch.Tensor, dt: float,
+              qd_pos: torch.Tensor | None = None):
     """Advance positions (B, nq) with updated velocities (B, nv), capped at
-    ±MAX_VEL, then apply the backstop. Returns ``(q', qd')``."""
+    ±MAX_VEL, then apply the backstop. Returns ``(q', qd')``.
+
+    ``qd_pos`` (B, nv) is split impulse's pseudo-velocity: it is added to
+    the capped velocity for the position advance only and never enters the
+    returned velocity; the backstop clamps the advanced position and zeroes
+    only the real outward velocity."""
     qd_new = torch.clamp(qd_new, -MAX_VEL, MAX_VEL)
+    qd_int = qd_new if qd_pos is None else qd_new + qd_pos
     if not model.floating:
-        return _limit_backstop(model, q + dt * qd_new, qd_new)
-    pos = q[:, 0:3] + dt * qd_new[:, 0:3]
-    quat = quat_ops.integrate(q[:, 3:7], qd_new[:, 3:6], dt)
-    clamped, qd_j = _limit_backstop(model, q[:, 7:] + dt * qd_new[:, 6:], qd_new[:, 6:])
+        return _limit_backstop(model, q + dt * qd_int, qd_new)
+    pos = q[:, 0:3] + dt * qd_int[:, 0:3]
+    quat = quat_ops.integrate(q[:, 3:7], qd_int[:, 3:6], dt)
+    clamped, qd_j = _limit_backstop(model, q[:, 7:] + dt * qd_int[:, 6:], qd_new[:, 6:])
     return torch.cat([pos, quat, clamped], dim=1), torch.cat([qd_new[:, :6], qd_j], dim=1)

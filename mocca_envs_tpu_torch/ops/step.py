@@ -1,11 +1,12 @@
 """The assembled physics step, batch-first.
 
 Counterpart of ``mocca_envs_tpu/ops/step.py`` for floating-base models over
-the plane, the stone boxes, the bar capsules and heightfields, with torque or
-PD actuation
-and the equality rows of a :class:`ConstraintSpec` (point-to-point rods, the
-planar base lock, and the maskable grab rows whose activity and anchor are
-per-env data: ``grab_active (B, ng)``, ``grab_target (B, ng, 3)``).
+the plane, the stone boxes, the bar capsules, heightfields and triangle
+meshes, with torque or PD actuation, the optional split-impulse position
+pass, and the equality rows of a :class:`ConstraintSpec` (point-to-point
+rods, the planar base lock, and the maskable grab rows whose activity and
+anchor are per-env data: ``grab_active (B, ng)``, ``grab_target (B, ng,
+3)``).
 
     control step
       └─ llc frame × llc_frames:   actuation (torques held over the frame,
@@ -20,10 +21,12 @@ and the whole control step in PD mode (λ carried across its llc frames). On
 CPU tensors a unit runs this plain PyTorch path. On CUDA tensors it runs as
 ONE launch of the hand-written engine kernel (ops/cuda/engine.py: K1a on the
 plane, K1c over stones, K1b in PD mode, K1e with equality rows, K1d over bars
-with grab rows, K1f over a heightfield), which computes the same unit; there
-is no fallback between the two. Stones are culled to ``config.stone_window``
-and a heightfield grid is cut to its ``HF_PATCH × HF_PATCH`` window around
-the root once per unit, before either path; bars are never culled.
+with grab rows, K1f over a heightfield, K1g over mesh triangles, K1h-si with
+split impulse), which computes the same unit; there is no fallback between
+the two. Stones are culled to ``config.stone_window``, mesh faces to
+``config.tri_window``, and a heightfield grid is cut to its ``HF_PATCH ×
+HF_PATCH`` window around the root once per unit, before either path; bars
+are never culled.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ from mocca_envs_tpu_torch.ops.kinematics import (
     point_jacobian,
 )
 from mocca_envs_tpu_torch.ops.solver import delassus, pgs_solve, tangent_basis
-from mocca_envs_tpu_torch.terrain.scene import HF_PATCH, Scene, cull_stones, extract_patch
+from mocca_envs_tpu_torch.terrain.scene import (
+    HF_PATCH, Scene, cull_stones, cull_tris, extract_patch)
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
 
@@ -113,9 +117,13 @@ def make_substep(model: RobotModel, config: EngineConfig,
     implicitly every substep: the home of a PD servo's −k_d·q̇ term. An
     explicit k_d·q̇ held over a substep is unstable whenever ``dt >
     2·I_joint / k_d``, which Cassie's toe (k_d = 5, I ≈ 5·10⁻⁴ kg·m²)
-    violates at any practical rate; in the system matrix it is stable."""
-    if config.split_impulse:
-        raise NotImplementedError("split_impulse is not ported yet")
+    violates at any practical rate; in the system matrix it is stable.
+
+    ``config.split_impulse`` keeps the push-out bias of the limit and
+    contact-normal rows out of the velocity solve; a second PGS over those
+    rows alone (μ = 0, no block, from λ = 0, the same Delassus operator)
+    turns the bias into a pseudo-velocity that advances the positions only
+    (:func:`~mocca_envs_tpu_torch.ops.integrate.integrate`)."""
     dt = config.dt
     ns = model.ns
     ne = constraints.ne
@@ -217,8 +225,13 @@ def make_substep(model: RobotModel, config: EngineConfig,
             viol = -gap
             bias_l = torch.clamp(beta * torch.clamp(viol - LIMIT_SLOP, min=0.0),
                                  max=config.max_push_vel)
+            push_l = bias_l - torch.clamp(-viol, min=0.0) / dt
+            if config.split_impulse:
+                # the push-out moves to the position pass: the velocity
+                # solve only forbids further approach
+                push_l = push_l - bias_l
             rows_J.append(Jl)
-            rows_tgt.append(bias_l - torch.clamp(-viol, min=0.0) / dt)
+            rows_tgt.append(push_l)
             rows_act.append((gap < config.limit_margin).to(q.dtype))
 
         # contact rows, one [normal, t1, t2] block per collision sphere
@@ -233,6 +246,8 @@ def make_substep(model: RobotModel, config: EngineConfig,
             beta * torch.clamp(contacts.depth - config.slop, min=0.0), max=config.max_push_vel
         )
         push = bias_n - torch.clamp(-contacts.depth, min=0.0) / dt
+        if config.split_impulse:
+            push = push - bias_n
         zeros = torch.zeros_like(push)
         rows_J.append(torch.stack([Jn, Jt1, Jt2], dim=2).reshape(B, 3 * ns, -1))
         rows_tgt.append(torch.stack([push, zeros, zeros], dim=2).reshape(B, -1))
@@ -250,7 +265,23 @@ def make_substep(model: RobotModel, config: EngineConfig,
             block=config.block_pgs, lam0=lam_in if config.warm_start else None,
         )
         qd_new = v_free + torch.einsum("bkr,br->bk", MinvJT, lam)
-        q_new, qd_new = integrate(model, q, qd_new, dt)
+
+        qd_pos = None
+        if config.split_impulse:
+            # the position pass: pseudo-impulses against the bias alone, over
+            # the limit and contact-normal rows (the equality rows masked,
+            # the friction rows bounded to [0, 0] by μ = 0); the residual at
+            # λ = 0 is −bias
+            bias = torch.zeros_like(c)
+            if nlim:
+                bias[:, ne:ne + nlim] = bias_l
+            bias[:, ne + nlim::3] = bias_n
+            act_pos = active.clone()
+            act_pos[:, :ne] = 0.0
+            lam_pos = pgs_solve(A, -bias, act_pos, torch.zeros_like(mu), ne, ns,
+                                config.solver_iters, nlim=nlim, block=False)
+            qd_pos = torch.einsum("bkr,br->bk", MinvJT, lam_pos)
+        q_new, qd_new = integrate(model, q, qd_new, dt, qd_pos=qd_pos)
 
         info = StepInfo(
             contacts=contacts,
@@ -317,19 +348,20 @@ def info_from_kernel(model: RobotModel, config: EngineConfig,
 def _make_llc_unit(model: RobotModel, config: EngineConfig, substep,
                    constraints: ConstraintSpec = ConstraintSpec(),
                    extra_damping=None, pd_mode: bool = False):
-    """One launch unit (see :func:`make_plain_llc`). Stones are culled to the
-    window first, and a heightfield grid larger than ``HF_PATCH`` is cut to
-    the window around the root (a grid that is one already passes through),
-    on both paths. CPU tensors then take the plain path, on any grid; any
+    """One launch unit (see :func:`make_plain_llc`). Stones and mesh faces
+    are culled to their windows first, and a heightfield grid larger than
+    ``HF_PATCH`` is cut to the window around the root (a grid that is one
+    already passes through), on both paths. CPU tensors then take the plain path, on any grid; any
     other device launches the engine kernel of the scene's, the actuation's
     and the constraints' variant, which raises where it cannot run, a grid
     smaller than the window included. The kernel's scene inputs (stones;
-    bars and grabs; the heightfield window) are packed per unit."""
+    bars and grabs; the heightfield window; the faces) are packed per unit."""
     plain_unit = make_plain_llc(model, config, substep, pd_mode)
     kernels: dict = {}
 
     def llc_unit(q, qd, tau_or_targets, scene: Scene, grab_active=None, grab_target=None):
         scene = cull_stones(scene, q[:, 0:2], config.stone_window)
+        scene = cull_tris(scene, q[:, 0:2], config.tri_window)
         hf_patch = 0
         if scene.has_hf and min(scene.hf_height.shape[1:]) >= HF_PATCH:
             scene = extract_patch(scene, q[:, 0:2], HF_PATCH)
@@ -343,12 +375,13 @@ def _make_llc_unit(model: RobotModel, config: EngineConfig, substep,
         from mocca_envs_tpu_torch.ops.cuda import engine as cuda_engine
 
         key = (scene.stone_pos.shape[1] if scene.has_stones else 0,
-               scene.bar_a.shape[1] if scene.has_bars else 0, hf_patch)
+               scene.bar_a.shape[1] if scene.has_bars else 0, hf_patch,
+               scene.tri_a.shape[1] if scene.has_tris else 0)
         if key not in kernels:
             kernels[key] = cuda_engine.make_kernel(
                 model, config, num_stones=key[0], num_bars=key[1], hf_patch=hf_patch,
-                pd_mode=pd_mode, extra_damping=extra_damping, plain_unit=plain_unit,
-                constraints=constraints)
+                num_tris=key[3], pd_mode=pd_mode, extra_damping=extra_damping,
+                plain_unit=plain_unit, constraints=constraints)
         kernel = kernels[key]
         qq, dd, depth, nimp = kernel.launch(
             q, qd, tau_or_targets, scene.ground_z, scene.friction,

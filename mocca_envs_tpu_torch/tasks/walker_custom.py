@@ -4,9 +4,11 @@ Counterpart of ``mocca_envs_tpu/tasks/walker_custom.py`` with torque or PD
 actuation (``pd_control``), ``reset_obs="zero"`` and the flat scene; it also
 carries the scaled-model variants (``Child3DCustomEnv``) and, through a
 ``constraints`` spec with the planar rows, the 2D variants
-(``Walker2DCustomEnv``, ``Crab2DCustomEnv``). Its step also serves the
-terrain families (tasks/walker_terrain.py): over a scene with a heightfield
-the fall test measures the base's height above the surface under it, and a
+(``Walker2DCustomEnv``, ``Crab2DCustomEnv``), and, through a
+``scene_builder``, the walker over a static scene (``Walker3DStairsEnv``'s
+triangle-mesh staircase). Its step also serves the terrain families
+(tasks/walker_terrain.py): over a scene with a heightfield or a mesh the
+fall test measures the base's height above the surface under it, and a
 resampled target is set on that surface.
 
 Episode flow:
@@ -85,11 +87,16 @@ def make_walker3d_custom(
     constraints: ConstraintSpec | None = None,
     terminal_link_names: tuple | None = None,
     pd_control: bool = False,
+    scene_builder=None,
 ) -> FnEnv:
     """Build the walk-to-target family on ``device`` (None = the CUDA card).
     ``constraints`` adds equality rows to the physics (the planar lock of the
     2D variants); ``terminal_link_names`` overrides the links whose ground contact ends
-    the episode; ``pd_control`` makes actions joint-angle targets."""
+    the episode; ``pd_control`` makes actions joint-angle targets;
+    ``scene_builder(device)`` makes a one-env static scene in place of the
+    flat plane. That scene is built here, once, on the device: every slot
+    views it, and a fresh episode keeps its slot's scene, so no step copies
+    it or builds it again."""
     device = resolve_device(device)
     model = (model or walker3d.make_model()).to(device)
     config = config or EngineConfig()
@@ -104,6 +111,7 @@ def make_walker3d_custom(
     # over, and wait for the device, every step
     terminal_links = torch.as_tensor(terminal_links, dtype=torch.long, device=device)
     nfeet = len(model.foot_links)
+    static_scene = scene_builder(device) if scene_builder is not None else None
 
     if pd_control:
         # gains scale with the torque variant's power_coef so that both
@@ -173,16 +181,21 @@ def make_walker3d_custom(
             reset_count=reset_count.to(torch.int32),
             steps=zeros_i,
             task=WalkerTaskState(target=target, potential=-dist / config.control_dt),
-            scene=scene_mod.flat(B, device),
+            scene=(scene_mod.flat(B, device) if static_scene is None
+                   else prev.scene if prev is not None
+                   else scene_mod.broadcast_scene(static_scene, B)),
             done=torch.zeros(B, dtype=torch.bool, device=device),
             blowup_count=zeros_i.clone(),
         )
 
     def surface_z(scene, xy):
         # the ground under ``xy``: the heightfield where the scene has one
-        # (the terrain families reuse this step), else the plane
+        # (the terrain families reuse this step), the highest mesh face
+        # over it (the stairs), else the plane
         if scene.has_hf:
             return scene_mod.hf_sample(scene, xy)
+        if scene.has_tris:
+            return scene_mod.tri_surface_z(scene, xy)
         return scene.ground_z
 
     def raw_step(state: EnvState, action: torch.Tensor, gen: torch.Generator) -> Transition:
@@ -204,6 +217,8 @@ def make_walker3d_custom(
             # a resampled target sits on the terrain (reset does the same in
             # tasks/walker_terrain.py)
             new_target[:, 2] = scene_mod.hf_sample(state.scene, new_target[:, :2])
+        elif state.scene.has_tris:
+            new_target[:, 2] = scene_mod.tri_surface_z(state.scene, new_target[:, :2])
         target = torch.where(reached[:, None], new_target, state.task.target)
         dist_after = torch.linalg.vector_norm(target[:, :2] - q[:, 0:2], dim=1)
         potential = -dist_after / config.control_dt

@@ -8,8 +8,10 @@ per-control-step culling of the stones nearest the root; for monkey-bar
 scenes ``KB`` capsules per env (handholds) with the sphere-vs-capsule
 narrowphase, never culled; for terrain scenes an ``H×W`` height grid per env
 with its bilinear sample, analytic normal and the ``P×P`` window around the
-root that the physics and the observations read once per control step.
-Meshes come with a later slice.
+root that the physics and the observations read once per control step; for
+mesh scenes ``Kt`` triangles per env (world-space vertices per face) with
+the sphere-vs-triangle narrowphase, the support height under a point and the
+per-control-step culling of the faces nearest the root.
 
 The JAX package switches the plane off with a static ``has_ground=False``;
 here the plane is always evaluated, so a scene without one sinks it to
@@ -20,12 +22,14 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from mocca_envs_tpu_torch.core import quat as quat_ops
 
 STONE_FIELDS = ("stone_pos", "stone_quat", "stone_half", "stone_active")
 BAR_FIELDS = ("bar_a", "bar_b", "bar_r", "bar_active")
+TRI_FIELDS = ("tri_a", "tri_b", "tri_c", "tri_active")
 NO_GROUND_Z = -1e9   # the plane's height in a scene without one
 HF_PATCH = 16        # side (cells) of the per-env heightfield window
 
@@ -48,6 +52,11 @@ class Scene:
     hf_height: torch.Tensor | None = None      # (B, H, W) heights, row-major
     hf_xy0: torch.Tensor | None = None         # (B, 2) world xy of grid[0, 0]
     hf_cell: torch.Tensor | None = None        # (B,) cell size [m]
+    # triangle mesh, per face; all four are None in a scene without one
+    tri_a: torch.Tensor | None = None          # (B, Kt, 3) vertex 0 per face
+    tri_b: torch.Tensor | None = None          # (B, Kt, 3) vertex 1
+    tri_c: torch.Tensor | None = None          # (B, Kt, 3) vertex 2
+    tri_active: torch.Tensor | None = None     # (B, Kt) 1.0 = solid
 
     @property
     def has_stones(self) -> bool:
@@ -60,6 +69,10 @@ class Scene:
     @property
     def has_hf(self) -> bool:
         return self.hf_height is not None
+
+    @property
+    def has_tris(self) -> bool:
+        return self.tri_a is not None
 
 
 def flat(batch: int, device="cpu", ground_z: float = 0.0, friction: float = 0.8) -> Scene:
@@ -94,6 +107,59 @@ def with_bars(bar_a, bar_b, bar_r, bar_active=None, ground_z: float = -8.0,
                                bar_active=bar_active)
 
 
+def with_trimesh(vertices, faces, ground_z: float = -1e3, friction: float = 0.8,
+                 device="cpu") -> Scene:
+    """Static triangle-mesh world over a plane at ``ground_z``, for one env
+    (:func:`broadcast_scene` lets a batch view it): ``vertices`` (V, 3) in
+    world space, ``faces`` (F, 3) vertex indices, stored per face."""
+    v = torch.as_tensor(np.asarray(vertices, dtype=np.float32), device=device)
+    f = torch.as_tensor(np.asarray(faces, dtype=np.int64), device=device)
+    return dataclasses.replace(
+        flat(1, device, ground_z, friction), tri_a=v[f[:, 0]][None], tri_b=v[f[:, 1]][None],
+        tri_c=v[f[:, 2]][None], tri_active=torch.ones(1, f.shape[0], device=device))
+
+
+def stairs_trimesh(n_steps: int = 6, rise: float = 0.15, run: float = 0.3, width: float = 2.0,
+                   start_x: float = 0.5, ground_z: float = 0.0, friction: float = 0.8,
+                   device="cpu") -> Scene:
+    """A staircase as a triangle mesh over the plane at ``ground_z``, for
+    one env (:func:`with_trimesh`): per step a horizontal tread and a riser
+    facing −x, each an axis-aligned quad split into two triangles along its
+    diagonal (4·n_steps faces). The vertices are computed in double
+    precision and stored as float32, as the JAX package stores them."""
+    verts, faces = [], []
+
+    def quad(p0, p1, p2, p3):
+        i = len(verts)
+        verts.extend([p0, p1, p2, p3])
+        faces.append((i, i + 1, i + 2))
+        faces.append((i, i + 2, i + 3))
+
+    y0, y1 = -width / 2.0, width / 2.0
+    for k in range(n_steps):
+        x0 = start_x + k * run
+        x1 = x0 + run
+        z_top = ground_z + (k + 1) * rise
+        z_bot = ground_z + k * rise
+        quad((x0, y0, z_top), (x1, y0, z_top), (x1, y1, z_top), (x0, y1, z_top))
+        quad((x0, y0, z_bot), (x0, y0, z_top), (x0, y1, z_top), (x0, y1, z_bot))
+    return with_trimesh(np.asarray(verts, dtype=np.float32), np.asarray(faces, dtype=np.int64),
+                        ground_z, friction, device)
+
+
+def broadcast_scene(scene: Scene, batch: int) -> Scene:
+    """A one-env scene for ``batch`` envs: the per-env scalars (plane
+    height, friction) made ``(batch,)``, the geometry expanded along its
+    leading dimension, not copied."""
+    def widen(x):
+        x = x.expand(batch, *x.shape[1:])
+        return x.contiguous() if x.dim() == 1 else x
+
+    return dataclasses.replace(scene, **{
+        f.name: widen(getattr(scene, f.name))
+        for f in dataclasses.fields(scene) if getattr(scene, f.name) is not None})
+
+
 def cull_stones(scene: Scene, root_xy: torch.Tensor, window: int) -> Scene:
     """Keep only the ``window`` stones nearest each root ``(B, 2)``.
 
@@ -115,6 +181,34 @@ def cull_stones(scene: Scene, root_xy: torch.Tensor, window: int) -> Scene:
         return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
     return dataclasses.replace(scene, **{f: take(getattr(scene, f)) for f in STONE_FIELDS})
+
+
+def cull_tris(scene: Scene, root_xy: torch.Tensor, window: int) -> Scene:
+    """Keep only the ``window`` mesh faces nearest each root ``(B, 2)``.
+
+    The score is the xy distance to the face's centroid minus its bounding
+    radius (the farthest vertex from the centroid); inactive faces rank
+    last. As in :func:`cull_stones`, a stable sort keeps the lower index on
+    ties and the kept faces in order of score, which decides which of two
+    equally deep faces the narrowphase takes. Exact whenever every face
+    within contact range of a collision sphere ranks inside the window."""
+    if not scene.has_tris or window <= 0 or window >= scene.tri_a.shape[1]:
+        return scene
+    centroid = (scene.tri_a + scene.tri_b + scene.tri_c) / 3.0
+    d = torch.linalg.vector_norm(centroid[..., :2] - root_xy[:, None, :], dim=-1)
+    bound = torch.maximum(
+        torch.linalg.vector_norm(scene.tri_a - centroid, dim=-1),
+        torch.maximum(torch.linalg.vector_norm(scene.tri_b - centroid, dim=-1),
+                      torch.linalg.vector_norm(scene.tri_c - centroid, dim=-1)))
+    score = torch.where(scene.tri_active > 0.5, d - bound, torch.full_like(d, 1e9))
+    idx = torch.sort(score, dim=1, stable=True).indices[:, :window]          # (B, W)
+
+    def take(x):
+        if x.dim() == 2:
+            return torch.gather(x, 1, idx)
+        return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+    return dataclasses.replace(scene, **{f: take(getattr(scene, f)) for f in TRI_FIELDS})
 
 
 def sphere_box_depth(center, radius, box_pos, box_quat, box_half):
@@ -159,6 +253,74 @@ def sphere_capsule_depth(center, radius, seg_a, seg_b, cap_r):
     n = torch.where((dist > 1e-9)[..., None], delta / torch.clamp(dist, min=1e-9)[..., None], up)
     depth = radius + cap_r - dist
     return depth, n, closest + n * cap_r[..., None]
+
+
+def _dot(x, y):
+    return (x * y).sum(-1)
+
+
+def sphere_triangle_depth(center, radius, a, b, c):
+    """Sphere vs triangle: ``(depth, normal, contact_point)``; every argument
+    broadcasts over leading dimensions (vectors on the last one).
+
+    The closest point of the triangle by Ericson's barycentric region walk
+    (Real-Time Collision Detection §5.1.5), the first listed region winning:
+    vertex a, b, c, edge ab, ac, bc, else the interior. The normal points
+    from the closest point to the center; a center on the face (distance ≤
+    1e-9) takes the face normal turned toward the center's side, so that its
+    row stays solvable."""
+    ab, ac, ap = b - a, c - a, center - a
+    bp, cp = center - b, center - c
+    d1, d2 = _dot(ab, ap), _dot(ac, ap)
+    d3, d4 = _dot(ab, bp), _dot(ac, bp)
+    d5, d6 = _dot(ab, cp), _dot(ac, cp)
+    va = d3 * d6 - d5 * d4
+    vb = d5 * d2 - d1 * d6
+    vc = d1 * d4 - d3 * d2
+    eps = 1e-12
+    p_ab = a + (d1 / torch.clamp(d1 - d3, min=eps))[..., None] * ab
+    p_ac = a + (d2 / torch.clamp(d2 - d6, min=eps))[..., None] * ac
+    w_bc = (d4 - d3) / torch.clamp((d4 - d3) + (d5 - d6), min=eps)
+    p_bc = b + w_bc[..., None] * (c - b)
+    denom = 1.0 / torch.clamp(va + vb + vc, min=eps)
+    p = a + ab * (vb * denom)[..., None] + ac * (vc * denom)[..., None]
+    regions = [
+        ((d1 <= 0.0) & (d2 <= 0.0), a),
+        ((d3 >= 0.0) & (d4 <= d3), b),
+        ((d6 >= 0.0) & (d5 <= d6), c),
+        ((vc <= 0.0) & (d1 >= 0.0) & (d3 <= 0.0), p_ab),
+        ((vb <= 0.0) & (d2 >= 0.0) & (d6 <= 0.0), p_ac),
+        ((va <= 0.0) & (d4 - d3 >= 0.0) & (d5 - d6 >= 0.0), p_bc),
+    ]
+    for cond, cand in reversed(regions):      # applied last to first: the first wins
+        p = torch.where(cond[..., None], cand, p)
+    delta = center - p
+    dist = torch.linalg.vector_norm(delta, dim=-1)
+    face_n = torch.cross(ab, ac, dim=-1)
+    face_n = face_n / torch.clamp(torch.linalg.vector_norm(face_n, dim=-1), min=1e-12)[..., None]
+    side = torch.where(_dot(ap, face_n) >= 0.0, 1.0, -1.0).to(face_n.dtype)
+    n = torch.where((dist > 1e-9)[..., None], delta / torch.clamp(dist, min=1e-9)[..., None],
+                    side[..., None] * face_n)
+    return radius - dist, n, p
+
+
+def tri_surface_z(scene: Scene, xy: torch.Tensor) -> torch.Tensor:
+    """Support height of the mesh under ``xy (B, 2)`` → (B,): the highest
+    active face whose xy projection holds the point (a barycentric test with
+    1e-6 of slack), the plane's height where none does. Vertical faces (a
+    degenerate projection) are left out by the area guard."""
+    a2, b2, c2 = scene.tri_a[..., :2], scene.tri_b[..., :2], scene.tri_c[..., :2]
+    v0, v1 = b2 - a2, c2 - a2
+    p = xy[:, None, :] - a2
+    den = v0[..., 0] * v1[..., 1] - v0[..., 1] * v1[..., 0]
+    ok = den.abs() > 1e-9
+    inv = 1.0 / torch.where(ok, den, torch.ones_like(den))
+    u = (p[..., 0] * v1[..., 1] - p[..., 1] * v1[..., 0]) * inv
+    v = (v0[..., 0] * p[..., 1] - v0[..., 1] * p[..., 0]) * inv
+    inside = ok & (u >= -1e-6) & (v >= -1e-6) & (u + v <= 1.0 + 1e-6) & (scene.tri_active > 0.5)
+    za = scene.tri_a[..., 2]
+    z = za + u * (scene.tri_b[..., 2] - za) + v * (scene.tri_c[..., 2] - za)
+    return torch.where(inside, z, scene.ground_z[:, None].expand_as(z)).amax(dim=1)
 
 
 def _cells(scene: Scene, xy: torch.Tensor):

@@ -41,11 +41,12 @@ class EngineConfig:
     # Seed each substep's impulses with the previous substep's λ (zeros at a
     # control step's first substep).
     warm_start: bool = True
-    # Split-impulse position correction (not in this slice: raises).
+    # Split-impulse position correction: the push-out bias solved in a
+    # position pass that advances the positions only (ops/step.py).
     split_impulse: bool = False
     limit_margin: float = 0.15      # joint-limit rows activate within [rad|m]
-    # Stone / triangle windows of the culled narrowphase (later slices; the
-    # flat scene has nothing to cull).
+    # Stone / triangle windows of the culled narrowphase, re-selected once
+    # per control step around the root.
     stone_window: int = 6
     tri_window: int = 16
     gravity: tuple = (0.0, 0.0, -9.8)

@@ -13,9 +13,10 @@
   the planar lock added, and with the planar lock alone on Walker2D and
   Crab2D; K1d over the monkey's bars with its grab rows, both hands, one,
   none, bars in contact and not; K1f over the terrain families' windows,
-  the grid's border included), and the packed table has the size the
-  source lays out; so does the raycast kernel K2's per-ray code against
-  ops/raycast.py's plain version;
+  the grid's border included; K1g over the stairs' culled faces at treads,
+  nosings and risers; K1h-si, the walker with split impulse), and the
+  packed table has the size the source lays out; so does the raycast
+  kernel K2's per-ray code against ops/raycast.py's plain version;
 - on a card: each kernel agrees with its plain version (skips elsewhere).
 
 The kernel cases take their inputs from chip_smoke.py's state generators, at
@@ -66,8 +67,17 @@ def _kernel_case(case, B, seed, device="cpu"):
     which share an instantiation), k1d* (one torque frame of the monkey
     hanging from its bars, the hands attached as :data:`K1D_CASES` says),
     k1f* (one torque frame of the walker over a terrain window, as
-    :data:`K1F_CASES` says)."""
+    :data:`K1F_CASES` says), k1g (one torque frame of the walker on the
+    stairs' 16 culled faces), k1h_si (one torque frame of the walker near
+    contact with split impulse)."""
     rng = np.random.default_rng(seed)
+    if case == "k1g":
+        model = walker3d.make_model(device)
+        return engine.K1g(model, EngineConfig()), chip_smoke.stairs_states(model, rng, B)
+    if case == "k1h_si":
+        model = walker3d.make_model(device)
+        return (engine.K1hSi(model, EngineConfig(split_impulse=True)),
+                chip_smoke.near_contact_states(model, rng, B))
     if case in K1F_CASES:
         model = walker3d.make_model(device)
         return (engine.K1f(model, EngineConfig(), HF_PATCH),
@@ -111,15 +121,18 @@ K1D_CASES = {"k1d": {}, "k1d_both_hands": {"left": 1.0},
              "k1d_no_hands": {"left": 0.0, "right": 0.0}, "k1d_no_bar_contact": {"near_bar": 0.0}}
 # a tenth of the roots by the grid's edge (the main path's mix), and all
 K1F_CASES = {"k1f": {}, "k1f_border": {"border": 1.0}}
+NEW_CASES = ["k1g", "k1h_si"]
 
 
-def _gate_medians(got, want, tol=TOL, tail="max"):
+def _gate_medians(got, want, tol=TOL, tail="max", tail_envs=None):
     """Per-env medians within ``tol``; ten times ``tol`` for the largest env
     or, with ``tail="p99"`` (the Cassie instances: chip_smoke.py says why),
-    for the 99th percentile."""
+    for the 99th percentile, over the ``tail_envs`` (bool (B,)) if given."""
     for name, g, w in zip(("q", "qd", "depth", "nimp"), got, want):
         per_env = np.abs(np.asarray(g) - np.asarray(w)).max(axis=1)
         assert np.median(per_env) <= tol[name], (name, float(np.median(per_env)))
+        if tail_envs is not None:
+            per_env = per_env[tail_envs]
         worst = np.quantile(per_env, 0.99) if tail == "p99" else per_env.max()
         assert worst <= 10 * tol[name], (name, tail, float(worst))
 
@@ -138,7 +151,7 @@ for name in P.registered_envs():
     batch = P.BatchedEnv(env, 2, seed=0, device="cpu")
     tr = batch.step(batch.init(), torch.zeros(2, env.act_dim))
     assert tr.obs.shape == (2, env.obs_dim) and bool(torch.isfinite(tr.obs).all()), name
-assert len(P.registered_envs()) == 14
+assert len(P.registered_envs()) == 15
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "mocca_envs_tpu")]
 assert not loaded, loaded
@@ -168,7 +181,7 @@ FAMILIES = ["Walker3DCustomEnv-v0", "Walker3DStepperEnv-v0", "Walker3DPDCustomEn
             "Child3DCustomEnv-v0", "Child3DPDCustomEnv-v0", "CassieEnv-v0", "Cassie2DEnv-v0",
             "CassiePhaseEnv-v0", "CassiePhase2DEnv-v0", "Walker2DCustomEnv-v0",
             "Crab2DCustomEnv-v0", "Monkey3DStepperEnv-v0", "Walker3DTerrainEnv-v0",
-            "Walker3DTerrainLidarEnv-v0"]
+            "Walker3DTerrainLidarEnv-v0", "Walker3DStairsEnv-v0"]
 
 
 @pytest.mark.parametrize("env_id", FAMILIES)
@@ -196,7 +209,19 @@ def test_cpu_path_never_launches_the_kernel(env_id):
     assert sum(engine.LAUNCHES.values()) == 0
 
 
-@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + ["k1d", "k1f"])
+def test_split_walker_cpu_path_never_launches_the_kernel():
+    """The walker with split impulse runs the plain path on CPU tensors."""
+    env = mocca_envs_tpu_torch.make("Walker3DCustomEnv-v0", device="cpu",
+                                    config=EngineConfig(split_impulse=True))
+    batch = mocca_envs_tpu_torch.BatchedEnv(env, 3, seed=1, device="cpu")
+    engine.LAUNCHES.clear()
+    state = batch.init()
+    for _ in range(3):
+        state = batch.step(state, torch.rand(3, env.act_dim) * 2 - 1).state
+    assert sum(engine.LAUNCHES.values()) == 0 and bool(torch.isfinite(state.q).all())
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + ["k1d", "k1f"] + NEW_CASES)
 def test_launch_refuses_cpu_tensors(case):
     """No silent CPU path: the kernel's launch refuses CPU tensors; the
     plain version runs on them, uncounted."""
@@ -283,9 +308,10 @@ def test_k1a_flops_counts_only_the_active_rows():
     model, config = walker3d.make_model(), EngineConfig()
     k1a = engine.K1a(model, config)
     args = [torch.as_tensor(x) for x in _near_contact(16, 3)]
-    lim_act, con_act = engine.k1_activity(k1a, *args)
+    lim_act, con_act, walk = engine.k1_activity(k1a, *args)
     S = config.sim_substeps
     assert lim_act.shape == (S, 16, 21) and con_act.shape == (S, 16, 14)
+    assert walk.shape == (S, 16) and not walk.any()  # no mesh, no walk
     # the last substep's contact mask is the one the plain frame reports
     depth = k1a.plain(*args)[2]
     assert torch.equal(con_act[-1], depth > -config.contact_margin)
@@ -311,7 +337,7 @@ def test_variant_counts_add_their_own_work():
     k1a, a_in = _kernel_case("k1a", B, 2)
     k1c, c_in = _kernel_case("k1c", B, 2)
     c_args = [torch.as_tensor(x) for x in c_in]
-    lim_act, con_act = engine.k1_activity(k1c, *c_args)
+    lim_act, con_act, _ = engine.k1_activity(k1c, *c_args)
     stones = c_args[5]
     assert engine.k1_bytes_per_env(k1c) == engine.k1_bytes_per_env(k1a) + 6 * 11 * 4
     with_stones = engine.k1_flops(k1c, lim_act, con_act, stones)
@@ -333,8 +359,8 @@ def test_variant_counts_add_their_own_work():
     k1b, b_in = _kernel_case("k1b", B, 2)
     k1b2, _ = _kernel_case("k1b_llc2", B, 2)
     b_args = [torch.as_tensor(x) for x in b_in]
-    l1, c1 = engine.k1_activity(k1b, *b_args)
-    l2, c2 = engine.k1_activity(k1b2, *b_args)
+    l1, c1, _ = engine.k1_activity(k1b, *b_args)
+    l2, c2, _ = engine.k1_activity(k1b2, *b_args)
     assert l1.shape[0] == 4 and l2.shape[0] == 8
     assert torch.equal(l2[:4], l1) and torch.equal(c2[:4], c1)
     zeros = lambda x: torch.zeros_like(x)  # noqa: E731
@@ -351,7 +377,7 @@ def test_equality_rows_count_their_own_work():
     B = 4
     rods, args = _kernel_case("k1e_cassie", B, 2)
     both, _ = _kernel_case("k1e_cassie2d", B, 2)
-    lim_act, con_act = engine.k1_activity(rods, *map(torch.as_tensor, args))
+    lim_act, con_act, _ = engine.k1_activity(rods, *map(torch.as_tensor, args))
     assert lim_act.shape == (20, B, 16) and con_act.shape == (20, B, 5)
     zeros, ones = torch.zeros_like, torch.ones_like
     lock_needed = engine.k1_flops(both, lim_act, con_act) - engine.k1_flops(rods, lim_act, con_act)
@@ -400,7 +426,8 @@ def _run_on_host(lib, kernel, inputs):
     fn = getattr(lib, kernel.name + "_host")
     fn.restype = ctypes.c_int
     named = dict(zip(kernel.inputs, inputs[5:]))
-    scene = [ptr(named[k]) if k in named else None for k in ("stones", "bars", "grabs", "hf")]
+    scene = [ptr(named[k]) if k in named else None
+             for k in ("stones", "bars", "grabs", "hf", "tris")]
     err = fn(*map(ptr, inputs[:5]), *scene, *map(ptr, outs), ptr(kernel.table_host),
              ctypes.c_int(table_size), ptr(ws), ctypes.c_int(B))
     assert err == 0
@@ -544,7 +571,7 @@ def test_bars_and_grabs_count_their_own_work():
     B = 8
     kernel, arrays = _kernel_case("k1d", B, 2)
     args = [torch.as_tensor(x) for x in arrays]
-    lim_act, con_act = engine.k1_activity(kernel, *args)
+    lim_act, con_act, _ = engine.k1_activity(kernel, *args)
     assert lim_act.shape == (4, B, 8) and con_act.shape == (4, B, 5)
     bars, grabs = args[5], args[6]
     flops = engine.k1_flops(kernel, lim_act, con_act, bars, grabs)
@@ -572,7 +599,7 @@ def test_bars_and_grabs_count_their_own_work():
     torch.testing.assert_close(engine.pack_grabs(active, target), grabs, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + ["k1d", "k1f"])
+@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + ["k1d", "k1f"] + NEW_CASES)
 def test_pack_tables_size_matches_source_layout(host_library, case):
     kernel, _ = _kernel_case(case, 2, 0)
     table_size, ws_per_env = engine.layout(host_library, kernel.name)
@@ -595,7 +622,8 @@ def test_pack_tables_size_matches_source_layout(host_library, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + list(K1D_CASES) + list(K1F_CASES))
+@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + list(K1D_CASES) + list(K1F_CASES)
+                         + NEW_CASES)
 def test_k1a_kernel_matches_plain_on_cuda(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
@@ -606,10 +634,15 @@ def test_k1a_kernel_matches_plain_on_cuda(case):
     torch.cuda.synchronize()
     assert engine.LAUNCHES[kernel.variant] == before + 1
     want = kernel.plain(*args)
+    # K1g: the tail gate holds the envs with no contact on a vertical face
+    # (chip_smoke.py::vertical_contacts says why)
+    tail_envs = (~chip_smoke.vertical_contacts(kernel, args)).cpu().numpy() \
+        if case == "k1g" else None
     _gate_medians([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want],
                   TOL_GRAB if case in K1D_CASES else TOL_EQ if case in K1E_CASES
                   else TOL_HF if case in K1F_CASES else TOL,
-                  tail="p99" if "cassie" in case else "max")
+                  tail="p99" if "cassie" in case or case == "k1g" else "max",
+                  tail_envs=tail_envs)
     with pytest.raises(ValueError, match="contiguous"):
         kernel.launch(args[0].t().contiguous().t(), *args[1:])
     with pytest.raises(ValueError, match="CUDA"):
@@ -657,7 +690,7 @@ def test_k1f_is_picked_by_a_heightfield_and_counts_its_work():
     k1a, _ = _kernel_case("k1a", B, 2)
     _, arrays = _kernel_case("k1f", B, 2)
     args = [torch.as_tensor(x) for x in arrays]
-    lim_act, con_act = engine.k1_activity(kernel, *args)
+    lim_act, con_act, _ = engine.k1_activity(kernel, *args)
     hf = args[5]
     assert engine.k1_flops(kernel, lim_act, con_act, hf) \
         - engine.k1_flops(k1a, lim_act, con_act) \
@@ -732,3 +765,121 @@ def test_k2_matches_plain_on_cuda():
         raycast(args[0], args[1], args[2][:-1], *args[3:])
     with pytest.raises(ValueError, match="CUDA"):
         raycast(args[0], args[1].cpu(), *args[2:])
+
+
+def test_k1g_source_arithmetic_on_host(host_library):
+    """The mesh instance (one torque frame of the walker on the stairs' 16
+    culled faces over the plane, feet at treads, nosings and risers)
+    against its plain version: per-env medians within K1a's gates, the
+    largest env within ten times those over the envs with no contact on a
+    vertical face (chip_smoke.py::vertical_contacts says why), and the JAX
+    package's mesh gate, 97% of the q entries within 1e-3."""
+    kernel, arrays = _kernel_case("k1g", 96, 5)
+    inputs = [np.ascontiguousarray(x) for x in arrays]
+    outs = _run_on_host(host_library, kernel, inputs)
+    args = list(map(torch.as_tensor, inputs))
+    want = [t.numpy() for t in kernel.plain(*args)]
+    assert all(np.isfinite(o).all() for o in outs)
+    vertical = chip_smoke.vertical_contacts(kernel, args).numpy()
+    _gate_medians(outs, want, TOL, tail_envs=~vertical)
+    assert (np.abs(outs[0] - want[0]) < 1e-3).mean() >= 0.97
+    assert 0.1 < vertical.mean() < 0.9 and (want[3] > 0).mean() > 0.05
+    # some feet rest on treads above the plane: the mesh carries them
+    assert (want[3] > 0).any() and (inputs[0][:, 2] > 1.2).any()
+
+
+def test_k1h_si_source_arithmetic_on_host(host_library):
+    """The split-impulse instance (one torque frame of the walker near
+    contact on the plane) against its plain version at K1a's gates; the
+    position pass moves the result away from the unsplit frame's."""
+    kernel, arrays = _kernel_case("k1h_si", 32, 5)
+    inputs = [np.ascontiguousarray(x) for x in arrays]
+    outs = _run_on_host(host_library, kernel, inputs)
+    want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
+    _gate_medians(outs, want)
+    assert (want[3] > 0).mean() > 0.1
+    k1a = engine.K1a(kernel.model, EngineConfig())
+    unsplit = _run_on_host(host_library, k1a, inputs)
+    assert np.abs(unsplit[1] - outs[1]).max() > 0.05
+
+
+def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
+    """make_kernel picks K1g for mesh faces and K1h-si for split impulse on
+    the walker's plane; a mesh with anything else, split impulse anywhere
+    else, and K1a / K1g with split impulse raise, naming what is missing."""
+    model, config = walker3d.make_model(), EngineConfig()
+    split = EngineConfig(split_impulse=True)
+    k1g = engine.make_kernel(model, config, num_tris=16)
+    assert isinstance(k1g, engine.K1g) and k1g.inputs == ("tris",)
+    assert k1g.name == "k1g_nl22_ns14_nlim21_sub4_it4_kt16"
+    si = engine.make_kernel(model, split)
+    assert isinstance(si, engine.K1hSi) and si.inputs == () and si.variant == "k1h_si"
+    for build in (lambda: engine.make_kernel(model, config, num_tris=8),
+                  lambda: engine.make_kernel(model, config, num_tris=16, num_stones=6),
+                  lambda: engine.make_kernel(model, config, num_tris=16, pd_mode=True),
+                  lambda: engine.make_kernel(model, config, num_tris=16, hf_patch=HF_PATCH),
+                  lambda: engine.make_kernel(model, split, num_stones=6),
+                  lambda: engine.make_kernel(model, split, num_tris=16),
+                  lambda: engine.make_kernel(model, split, pd_mode=True),
+                  lambda: engine.make_kernel(walker2d.make_walker2d(), split,
+                                             constraints=walker2d.planar_spec()),
+                  lambda: engine.K1hSi(cassie.make_model(), split)):
+        with pytest.raises(NotImplementedError, match="no K1 instantiation"):
+            build()
+    for build in (lambda: engine.K1g(model, split), lambda: engine.K1a(model, split),
+                  lambda: engine.K1hSi(model, config)):
+        with pytest.raises(NotImplementedError, match="split_impulse"):
+            build()
+    # the other solver options stay unported, split or not
+    with pytest.raises(NotImplementedError, match="shipped solver options"):
+        engine.K1hSi(model, EngineConfig(split_impulse=True, warm_start=False))
+
+
+def test_k1g_and_k1h_si_count_their_own_work():
+    """K1g counts each sphere's walk over each active face, as far as the
+    region that holds its center, plus the winner's normal; its 160 face
+    floats are an input and round-trip through the packed layout, and a
+    malformed window is refused. K1h-si counts the position pass over the
+    active limit rows and contact normals."""
+    B = 8
+    k1a, a_in = _kernel_case("k1a", B, 2)
+    kernel, arrays = _kernel_case("k1g", B, 2)
+    args = [torch.as_tensor(x) for x in arrays]
+    lim_act, con_act, walk = engine.k1_activity(kernel, *args)
+    assert walk.shape == (4, B)
+    per_pair = walk.sum() / (4 * B * 14 * 16)
+    assert engine.TRI_WALK_OPS[0] + engine.TRI_TAIL_OPS <= per_pair \
+        <= engine.TRI_WALK_OPS[-1] + engine.TRI_TAIL_OPS
+    tris = args[5]
+    with_mesh = engine.k1_flops(kernel, lim_act, con_act, tris, tri_walk=walk)
+    assert with_mesh - engine.k1_flops(k1a, lim_act, con_act) == pytest.approx(
+        float(walk.double().sum()) + 4 * B * 14 * 6 + float(con_act.sum()) * (15 + 15 * 27))
+    with pytest.raises(ValueError, match="tri_walk"):
+        engine.k1_flops(kernel, lim_act, con_act, tris)
+    # an inactive face is not walked
+    fewer = tris.clone()
+    fewer[9] = 0.0                                   # face 0's active flag
+    assert float(engine.k1_activity(kernel, *args[:5], fewer)[2].sum()) \
+        < float(walk.sum())
+    assert engine.k1_bytes_per_env(kernel) == engine.k1_bytes_per_env(k1a) + 4 * 16 * 10
+    scene, _, _ = kernel.unpack(args[3], args[4], tris)
+    assert scene.tri_a.shape == (B, 16, 3) and scene.tri_active.shape == (B, 16)
+    torch.testing.assert_close(engine.pack_tris(scene), tris, atol=0, rtol=0)
+    for bad, want in (((tris[:-10],), (ValueError, "tris has shape")),
+                      ((tris.double(),), (TypeError, "float32")), ((), (ValueError, "scene inputs"))):
+        engine.LAUNCHES.clear()
+        with pytest.raises(want[0], match=want[1]):
+            kernel.launch(*args[:5], *bad)
+        assert sum(engine.LAUNCHES.values()) == 0
+
+    si, _ = _kernel_case("k1h_si", B, 2)
+    a_args = [torch.as_tensor(x) for x in a_in]
+    lim_act, con_act, _ = engine.k1_activity(si, *a_args)
+    extra = engine.k1_flops(si, lim_act, con_act) - engine.k1_flops(k1a, lim_act, con_act)
+    span = torch.tensor([27.0 - (6 + j) for j in engine.limited_joints(si.model)],
+                        dtype=torch.float64)
+    any_pos = (lim_act.any(dim=2) | con_act.any(dim=2)).double().sum()
+    assert extra == pytest.approx(float((lim_act.double() * 4 * (4 * span + 7)).sum())
+                                  + float(con_act.sum()) * 4 * (4 * 27 + 7)
+                                  + float(any_pos) * (27 * 27 + 27))
+    assert engine.k1_bytes_per_env(si) == engine.k1_bytes_per_env(k1a)
