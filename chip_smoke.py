@@ -28,7 +28,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    K1g on walker states on the stairs' staircase (a third each with the
    feet over treads, the lowest foot sphere at a nosing edge, the foremost
    against a riser; the 16 nearest of the 24 faces packed as the main path
-   packs them); K1h-si on the K1a states with split impulse. Per-env median and p99
+   packs them); K1h-si on the K1a states with split impulse; its twins
+   K1h-c, K1h-e, K1h-e2d and K1h-d (split impulse over the stones, on
+   Cassie's whole PD step with the rods, with the planar lock added, and
+   over the monkey's bars with its grab rows) on the K1c, Cassie, Cassie2D
+   and K1d states, each held to its twin's gate. Per-env median and p99
    of |Δq|, |Δqd|, |Δdepth|, |Δimpulse|; the medians must stay within q
    2e-4, qd 5e-3, depth 2e-4, impulse 5e-3 (K1e: q 5e-4, qd 2e-2, depth
    5e-4, impulse 5e-3, the tolerances the JAX package holds its own kernel
@@ -76,6 +80,18 @@ Phases, in order; any failure exits non-zero before the result lines:
    families the falls and the base's height above the local surface are
    printed, its median between 0.3 and 1.5 m; of the stairs the same over
    the mesh's support surface, and the slots whose root was over a tread;
+   then the training path, ``python -m mocca_envs_tpu_torch.harness.train
+   --split-impulse`` through its ``main``: ``Walker3DStepperEnv`` with
+   4096 envs, horizon 128, 2 updates with a checkpoint, then the same to 3
+   updates, which must resume from update 2 (exactly 384 ``k1h_c`` launches
+   over both runs and no other kernel); ``CassieEnv`` and ``Cassie2DEnv``
+   (64 ``k1h_e`` launches each: PD launches once per control step) and
+   ``Monkey3DStepperEnv`` (64 ``k1h_d``), 2 updates at horizon 32. Every
+   metric line must be finite but the env channels the learner leaves NaN
+   (no episode ended), and each prints env-steps/s and the seconds of the
+   rollout and of the PPO update per update. ``--split-impulse`` on a
+   family without an instance (the PD walker, Walker2D, terrain, stairs)
+   must raise NotImplementedError, naming it, before any launch;
 4. per-call times of each kernel and its plain version (CUDA events), the
    bound from the operations and bytes these inputs need, and the time of
    the stepper's cull of 20 stones to the window plus their packing (env
@@ -84,7 +100,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    auto-reset; K2's time and bound (the march steps these rays need);
    the terrain step's window cut and packing; the step time outside the
    kernel of Cassie, the planar walkers, the monkey, the terrain families,
-   the stairs and the split-impulse walker;
+   the stairs and the split-impulse walker; the training rollouts' time per
+   env step outside the kernel; a ``torch.profiler`` trace of one stepper
+   update at horizon 16 (``--profile-dir``): the device's busy share and
+   its largest kernels;
 5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.
@@ -92,11 +111,16 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
+import logging
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -742,6 +766,126 @@ def window_and_pack_time(engine, card, state) -> None:
     print(f"[time] terrain window cut 65² → 16² + pack: {ms:.4f} ms/call at B={B} on {card}")
 
 
+class _Records(logging.Handler):
+    """Keeps the messages logged while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages: list[str] = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def train_run(engine, card, env_id: str, updates: int, horizon: int, workdir: Path,
+              expect: dict, resume_updates: int | None = None) -> list:
+    """The training path through the CLI's ``main`` with ``--split-impulse``
+    at 4096 envs, the launch counts set to 0 just before and read just
+    after; with ``resume_updates`` a second run to that many updates from
+    the first's checkpoint, which must say it resumed. The kernel launches
+    must be ``expect``, every metric finite but the NaN env channels the
+    learner allows. Returns the metric lines."""
+    from mocca_envs_tpu_torch.harness import train
+
+    ckpt, metrics = workdir / f"{env_id}_ckpt", workdir / f"{env_id}.jsonl"
+    base = ["--env", env_id, "--split-impulse", "--num-envs", str(B), "--horizon", str(horizon),
+            "--log-every", "1", "--ckpt-dir", str(ckpt), "--metrics", str(metrics)]
+    records = _Records()
+    logging.getLogger().addHandler(records)
+    torch.cuda.synchronize()
+    engine.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    try:
+        state = train.main([*base, "--updates", str(updates)])
+        if resume_updates is not None:
+            state = train.main([*base, "--updates", str(resume_updates)])
+    finally:
+        logging.getLogger().removeHandler(records)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(engine.LAUNCHES)
+    total = resume_updates or updates
+    lines = [json.loads(x) for x in metrics.read_text().splitlines()]
+    print(f"[train] {env_id} --split-impulse: {total} updates of {horizon} steps × {B} envs in "
+          f"{wall:.3f} s on {card}; launches {counts}")
+    for line in lines:
+        print(f"[train] {env_id} update {line['step']}: {line['env_steps_per_s']:.0f} env-steps/s, "
+              f"rollout {line['rollout_s']:.4f} s, PPO update {line['update_s']:.4f} s, reward "
+              f"per step {line['reward_per_step']:.4f}, done rate "
+              f"{line['episode_done_rate']:.4f}, pg loss {line['pg_loss']:.4f}, v loss "
+              f"{line['v_loss']:.4f}")
+    check(counts == expect, f"{env_id} training: expected launches {expect}, got {counts}")
+    check([x["step"] for x in lines] == list(range(1, total + 1)),
+          f"{env_id} training: metric lines for updates {[x['step'] for x in lines]}")
+    if resume_updates is not None:
+        check(f"resumed from update {updates}" in records.messages,
+              f"{env_id} training: the second run did not resume from update {updates}")
+        print(f"[train] {env_id}: the second run logged 'resumed from update {updates}'")
+    for line in lines:
+        bad = [k for k, v in line.items() if not np.isfinite(v)
+               and not k.startswith(("env/", "ep_end/"))]
+        check(not bad, f"{env_id} training: non-finite metrics {bad}")
+    check(state.update_count == total, f"{env_id} training: ended at {state.update_count}")
+    check(all(bool(torch.isfinite(p).all()) for p in state.params.parameters()),
+          f"{env_id} training: non-finite parameters")
+    check(bool(torch.isfinite(state.env_state.q).all()), f"{env_id} training: non-finite state")
+    return lines
+
+
+def split_refused(engine, env_id: str, workdir: Path) -> None:
+    """``--split-impulse`` on a family whose split impulse has no instance
+    raises on the card, naming it, before any kernel launch or update."""
+    from mocca_envs_tpu_torch.harness import train
+
+    metrics = workdir / f"{env_id}_refused.jsonl"
+    engine.LAUNCHES.clear()
+    try:
+        train.main(["--env", env_id, "--split-impulse", "--num-envs", "64", "--horizon", "2",
+                    "--updates", "1", "--minibatches", "1", "--metrics", str(metrics)])
+    except NotImplementedError as e:
+        check("no K1 instantiation" in str(e), f"{env_id}: unexpected refusal {e}")
+        check(sum(engine.LAUNCHES.values()) == 0 and not metrics.read_text(),
+              f"{env_id}: launched or updated before the refusal")
+        print(f"[train] {env_id} --split-impulse raises on the card: {str(e)[:160]}")
+        return
+    check(False, f"{env_id} --split-impulse trained on the card without a kernel instance")
+
+
+def profile_update(card, workdir: Path) -> None:
+    """One stepper update at horizon 16 under ``--profile-dir``: the
+    device's busy share over the traced window and its largest kernels,
+    read from the Chrome trace the CLI writes. Where the trace holds no
+    device events, says so."""
+    from mocca_envs_tpu_torch.harness import train
+    from mocca_envs_tpu_torch.harness.profile import TRACE_FILE
+
+    prof = workdir / "profile"
+    train.main(["--env", "Walker3DStepperEnv", "--split-impulse", "--num-envs", str(B),
+                "--horizon", "16", "--updates", "1", "--profile-dir", str(prof)])
+    events = json.loads((prof / TRACE_FILE).read_text())["traceEvents"]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and "dur" in e]
+    if not dev:
+        print(f"[profile] stepper update: the trace holds no device events on {card}: device "
+              "busy share not measured")
+        return
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    window = spans[-1][1] - spans[0][0]
+    by_name: dict = {}
+    for e in dev:
+        n = e["name"][:60]
+        by_name[n] = (by_name.get(n, (0.0, 0))[0] + float(e["dur"]), by_name.get(n, (0.0, 0))[1] + 1)
+    print(f"[profile] stepper update (16 steps × {B} envs + PPO) on {card}: {len(dev)} device "
+          f"events over {window / 1e3:.3f} ms from the first to the last, busy "
+          f"{busy / 1e3:.3f} ms = {busy / window:.2%}, idle {1 - busy / window:.2%}")
+    for n, (dur, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"[profile]   {dur / 1e3:10.3f} ms  {cnt:6d} calls  {n}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -775,6 +919,7 @@ def main() -> int:
 
     # ---- phase 2: each kernel vs its plain version at the main paths' shapes
     config = EngineConfig()
+    split = lambda cfg: dataclasses.replace(cfg, split_impulse=True)  # noqa: E731
     model = walker3d.make_model("cuda")
     kp = model.power_coef * (model.actuated > 0).to(torch.float32)
     cuda = lambda arrays: [torch.as_tensor(x, device="cuda") for x in arrays]  # noqa: E731
@@ -829,6 +974,18 @@ def main() -> int:
     kernels["k1h_si"] = (engine.K1hSi(model, EngineConfig(split_impulse=True)),
                          kernels["k1a"][1])
     max_abs["k1h_si"] = compare(*kernels["k1h_si"], "k1h_si")
+    # the split-impulse twins of the training path, each on its twin's states
+    # and held to its twin's gate
+    kernels["k1h_c"] = (engine.K1c(model, split(config)), kernels["k1c"][1])
+    max_abs["k1h_c"] = compare(*kernels["k1h_c"], "k1h_c")
+    for v, twin in (("k1h_e", "k1e_cassie"), ("k1h_e2d", "k1e_cassie2d")):
+        kernels[v] = (engine.K1e(cmodel, split(CASSIE_CONFIG), kernels[twin][0].constraints,
+                                 pd_mode=True, extra_damping=cmodel.actuated * cmodel.kd),
+                      kernels[twin][1])
+        max_abs[v] = compare(*kernels[v], v, TOL_EQ, tail="p99")
+    kernels["k1h_d"] = (engine.K1d(mmodel, split(config), monkey.constraints(), 16),
+                        kernels["k1d"][1])
+    max_abs["k1h_d"] = compare(*kernels["k1h_d"], "k1h_d", TOL_GRAB, tail="p99")
     ray_args = cuda(raycast_inputs(rng, 8 * B))
     ray_t, ray_h = make_raycaster((129, 129))(*ray_args)
     torch.cuda.synchronize()
@@ -903,6 +1060,22 @@ def main() -> int:
           f" m")
     launches["k2"], ray_main, raycaster = raycast_main_path(engine, card, rng)
 
+    # ---- phase 3 (training): the PPO trainer's CLI with --split-impulse
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    atexit.register(shutil.rmtree, workdir, True)
+    train_lines = {"k1h_c": train_run(engine, card, "Walker3DStepperEnv", 2, 128, workdir,
+                                      {"k1h_c": 384}, resume_updates=3)}
+    launches["k1h_c"] = 384
+    for v, env_id in (("k1h_e", "CassieEnv"), ("k1h_e2d", "Cassie2DEnv"),
+                      ("k1h_d", "Monkey3DStepperEnv")):
+        variant = "k1h_e" if v == "k1h_e2d" else v
+        train_lines[v] = train_run(engine, card, env_id, 2, 32, workdir, {variant: 64})
+        launches[v] = 64
+    for env_id in ("Walker3DPDCustomEnv", "Walker2DCustomEnv", "Walker3DTerrainEnv",
+                   "Walker3DStairsEnv"):
+        split_refused(engine, env_id, workdir)
+
     # ---- phase 4: per-call times at B = 4096
     times = {v: time_and_bound(engine, card, kernel, args)
              for v, (kernel, args) in kernels.items()}
@@ -917,13 +1090,26 @@ def main() -> int:
         print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {kernel_ms:.4f} "
               f"ms/call, so {step_ms[v] - kernel_ms:.3f} ms/step outside the kernel "
               f"(env layer) at B={B} on {card}")
+    for v, lines in train_lines.items():
+        horizon = 128 if v == "k1h_c" else 32
+        rollout_ms = 1e3 * lines[-1]["rollout_s"] / horizon
+        print(f"[time] {v} training: the last update's rollout {rollout_ms:.3f} ms per env "
+              f"step, kernel {times[v]['ms']:.4f} ms/call, so {rollout_ms - times[v]['ms']:.3f} "
+              f"ms per step outside the kernel (env layer and policy), PPO update "
+              f"{lines[-1]['update_s']:.4f} s, {lines[-1]['env_steps_per_s']:.0f} env-steps/s "
+              f"at B={B} on {card}")
+    profile_update(card, workdir)
 
     names = {"k1a": "k1a_engine_frame", "k1c": "k1c_engine_frame_stones",
              "k1b": "k1b_engine_step_pd", "k1e_cassie": "k1e_engine_step_pd_rods",
              "k1e_cassie2d": "k1e_engine_step_pd_rods_planar",
              "k1e_planar": "k1e_engine_frame_planar", "k1d": "k1d_engine_frame_bars_grabs",
              "k1f": "k1f_engine_frame_heightfield", "k1g": "k1g_engine_frame_trimesh",
-             "k1h_si": "k1h_engine_frame_split_impulse", "k2": "k2_raycast"}
+             "k1h_si": "k1h_engine_frame_split_impulse",
+             "k1h_c": "k1h_engine_frame_stones_split_impulse",
+             "k1h_e": "k1h_engine_step_pd_rods_split_impulse",
+             "k1h_e2d": "k1h_engine_step_pd_rods_planar_split_impulse",
+             "k1h_d": "k1h_engine_frame_bars_grabs_split_impulse", "k2": "k2_raycast"}
     print(json.dumps({"kernels": [{
         "name": names[v],
         "route": "cuda",

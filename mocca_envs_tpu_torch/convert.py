@@ -261,3 +261,82 @@ def monkey_params_from_numpy(fields: dict) -> MonkeyParams:
     """MonkeyParams from a JAX ``MonkeyParams``' fields (0-d arrays)."""
     return MonkeyParams(**_scalars_from_numpy(
         MonkeyParams, fields, ints=("num_bars", "max_steps", "hold_grace", "progress_timeout")))
+
+
+# ---------------------------------------------------------------- learner
+# A flax ``ActorCritic`` names its dense layers in the order it makes them:
+# Dense_0 … Dense_{H−1} the trunk, Dense_H the mean head, Dense_{H+1} the
+# value head; a dense kernel is (in, out), an ``nn.Linear`` weight (out, in).
+
+
+def _dense_names(tree: dict) -> list:
+    hidden = sum(1 for k in tree if k.startswith("Dense_")) - 2
+    return ([(f"Dense_{i}", f"trunk.{i}") for i in range(hidden)]
+            + [(f"Dense_{hidden}", "mean"), (f"Dense_{hidden + 1}", "value")])
+
+
+def actor_critic_from_flax(params: dict, device="cpu") -> dict:
+    """The port's ``ActorCritic`` state dict from flax params (``{"params":
+    {...}}`` or the inner dict, as numpy). Also maps optax's Adam moments,
+    which have the params' structure."""
+    p = params.get("params", params)
+    out = {"log_std": _f32(p["log_std"], device)}
+    for fk, tk in _dense_names(p):
+        out[f"{tk}.weight"] = _f32(np.asarray(p[fk]["kernel"]).T, device)
+        out[f"{tk}.bias"] = _f32(p[fk]["bias"], device)
+    return out
+
+
+def actor_critic_to_flax(state_dict: dict) -> dict:
+    """Inverse of :func:`actor_critic_from_flax`: ``{"params": {...}}`` of
+    numpy arrays."""
+    trunk = sorted({k.split(".")[1] for k in state_dict if k.startswith("trunk.")}, key=int)
+    names = ([(f"Dense_{i}", f"trunk.{i}") for i in range(len(trunk))]
+             + [(f"Dense_{len(trunk)}", "mean"), (f"Dense_{len(trunk) + 1}", "value")])
+    p = {"log_std": _n(state_dict["log_std"])}
+    for fk, tk in names:
+        p[fk] = {"kernel": _n(state_dict[f"{tk}.weight"]).T.copy(),
+                 "bias": _n(state_dict[f"{tk}.bias"])}
+    return {"params": p}
+
+
+def running_norm_from_numpy(mean, var, count, device="cpu"):
+    """The port's RunningNorm from a JAX ``RunningNorm``'s arrays."""
+    from mocca_envs_tpu_torch.harness.ppo import RunningNorm
+
+    return RunningNorm(mean=_f32(mean, device), var=_f32(var, device),
+                       count=_f32(count, device).reshape(()))
+
+
+def running_norm_to_numpy(norm) -> dict:
+    """Inverse of :func:`running_norm_from_numpy`."""
+    return {"mean": _n(norm.mean), "var": _n(norm.var), "count": _n(norm.count)}
+
+
+def adam_state_from_optax(net, opt, mu: dict, nu: dict, count) -> None:
+    """Load optax's ``ScaleByAdamState`` (``mu``, ``nu`` with the flax params'
+    structure, ``count``) into ``opt``, a ``torch.optim.Adam`` over
+    ``net.parameters()``, as its ``exp_avg`` / ``exp_avg_sq`` / ``step``."""
+    means, squares = actor_critic_from_flax(mu), actor_critic_from_flax(nu)
+    names = [name for name, _ in net.named_parameters()]
+    index = {id(p): i for i, p in enumerate(opt.param_groups[0]["params"])}
+    sd = opt.state_dict()
+    sd["state"] = {
+        index[id(p)]: {"step": torch.tensor(float(np.asarray(count))),
+                       "exp_avg": means[name].clone(), "exp_avg_sq": squares[name].clone()}
+        for name, p in zip(names, net.parameters())}
+    opt.load_state_dict(sd)
+
+
+def adam_state_to_optax(net, opt):
+    """Inverse of :func:`adam_state_from_optax`: ``(mu, nu, count)``, the
+    moments as ``{"params": {...}}`` of numpy arrays."""
+    moments = {"exp_avg": {}, "exp_avg_sq": {}}
+    count = 0
+    for name, p in net.named_parameters():
+        st = opt.state[p]
+        count = int(st["step"])
+        for k in moments:
+            moments[k][name] = st[k]
+    return (actor_critic_to_flax(moments["exp_avg"]), actor_critic_to_flax(moments["exp_avg_sq"]),
+            np.asarray(count, np.int32))

@@ -4,7 +4,7 @@
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
 // make_pallas_substep for floating all-revolute models at the shipped
 // EngineConfig (block PGS, matrix-free PGS, warm start, frame-start factor
-// reuse; split impulse off but in K1h-si):
+// reuse; split impulse off but in the K1h instances):
 //
 //   K1a  plane, torque mode: one llc frame per call;
 //   K1c  K1a plus K oriented stone boxes per env (num_stones = K there);
@@ -23,9 +23,11 @@
 //        -1e9);
 //   K1g  K1a plus KT triangle-mesh faces per env (num_tris there): the
 //        stairs, culled to the faces nearest the root;
-//   K1h-si  K1a with split impulse (split_impulse there, SPLIT here): the
-//        push-out bias kept out of the velocity rows and solved in a
-//        position pass whose pseudo-velocity advances the positions only.
+//   K1h  split impulse (split_impulse there, SPLIT here): the push-out
+//        bias kept out of the velocity rows and solved in a position pass
+//        whose pseudo-velocity advances the positions only; on K1a (K1h-si),
+//        K1c (K1h-c), Cassie's K1e with and without the planar lock (K1h-e,
+//        K1h-e2d) and K1d (K1h-d).
 //
 // Each llc frame runs NSUB substeps:
 //
@@ -124,6 +126,11 @@
 // clamped velocity for the position advance only. The limit backstop
 // clamps the advanced position and zeroes only the real outward velocity.
 // λ_pos, z_pos and the biases sit in an empty base (SplitState<false>).
+// The pass indexes its rows from NE, behind the rods, the planar lock and
+// the grab rows, which it never visits (as the JAX reference's static visit
+// list); a contact's bias is taken from its sphere's deepest feature (plane,
+// stone or bar), and λ_pos restarts from zero in every substep of every llc
+// frame, with no warm start.
 //
 // Equality rows. A rod's three rows are the difference of the point
 // Jacobians of its two anchors, with the target −(baumgarte/dt)·(xa − xb)
@@ -1264,4 +1271,20 @@ K1_INSTANCE(k1g_nl22_ns14_nlim21_sub4_it4_kt16, 22, 14, 21, 4, 4, 0, false, 1, 0
 // torque mode
 #if !defined(K1_ONLY) || K1_ONLY == 10
 K1_INSTANCE(k1h_nl22_ns14_nlim21_sub4_it4_si, 22, 14, 21, 4, 4, 0, false, 1, 0, false, 0, 0, 0, 0, true)
+#endif
+// ... over the 6 culled stones of the stepping-stone env with split impulse
+#if !defined(K1_ONLY) || K1_ONLY == 11
+K1_INSTANCE(k1h_nl22_ns14_nlim21_sub4_it4_k6_si, 22, 14, 21, 4, 4, 6, false, 1, 0, false, 0, 0, 0, 0, true)
+#endif
+// Cassie and Cassie2D at CASSIE_CONFIG with split impulse: the position pass
+// in each of the 20 substeps of a control step, after the rods' rows
+#if !defined(K1_ONLY) || K1_ONLY == 12
+K1_INSTANCE(k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si, 17, 5, 16, 2, 4, 0, true, 10, 2, false, 0, 0, 0, 0, true)
+#endif
+#if !defined(K1_ONLY) || K1_ONLY == 13
+K1_INSTANCE(k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si, 17, 5, 16, 2, 4, 0, true, 10, 2, true, 0, 0, 0, 0, true)
+#endif
+// Monkey3D with split impulse: the grab rows stay out of the position pass
+#if !defined(K1_ONLY) || K1_ONLY == 14
+K1_INSTANCE(k1h_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si, 11, 5, 8, 4, 4, 0, false, 1, 0, false, 16, 2, 0, 0, true)
 #endif

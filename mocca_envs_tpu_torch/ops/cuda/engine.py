@@ -8,10 +8,10 @@ stone boxes), K1b (PD mode: the whole control step, joint targets in the
 of the others: point-to-point rods and the planar base lock, in torque or PD
 mode), K1d (bar capsules and the maskable grab rows, torque mode), K1f
 (K1a plus a per-env ``HF_PATCH × HF_PATCH`` heightfield window), K1g (K1a
-plus ``tri_window`` triangle-mesh faces) and K1h-si (K1a with
-``split_impulse``: the bias split and the position pass). The
-kernel is CUDA C++ in ``csrc/engine_k1.cu``, one source for all
-variants. At first use every instantiation is built with ``nvcc``
+plus ``tri_window`` triangle-mesh faces) and K1h (``split_impulse``: the
+bias split and the position pass) on K1a (K1h-si), K1c (K1h-c), Cassie's
+K1e (K1h-e, K1h-e2d) and K1d (K1h-d). The kernel is CUDA C++ in
+``csrc/engine_k1.cu``, one source for all variants. At first use every instantiation is built with ``nvcc``
 for ``sm_90a`` into ``build/``, one compiler process per instantiation, all
 started together (with the raycast kernel K2 of ``csrc/raycast_k2.cu``, whose
 wrapper is ``ops/raycast.py``), and called through a plain C interface with
@@ -26,7 +26,9 @@ wrapper is ``ops/raycast.py``), and called through a plain C interface with
 - ``plain`` is the plain PyTorch version: the port's ``ops/step.py`` path
   run for the same unit, on any device.
 - ``LAUNCHES["k1a" | "k1b" | "k1c" | "k1e" | "k1d" | "k1f" | "k1g" |
-  "k1h_si" | "k2"]`` counts kernel launches (plain runs do not count).
+  "k1h_si" | "k1h_c" | "k1h_e" | "k1h_d" | "k2"]`` counts kernel launches
+  (plain runs do not count); a split-impulse instance counts under its
+  own name.
 """
 
 from __future__ import annotations
@@ -108,6 +110,15 @@ INSTANTIATIONS = {
     # Walker3D on the plane with split impulse
     (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0, 0, 0, True):
         Instance("k1h_nl22_ns14_nlim21_sub4_it4_si", 10),
+    # ... and split impulse on the stepper, Cassie, Cassie2D and the monkey
+    (22, 14, 21, 4, 4, 6, False, 1, 0, False, 0, 0, 0, 0, True):
+        Instance("k1h_nl22_ns14_nlim21_sub4_it4_k6_si", 11),
+    (17, 5, 16, 2, 4, 0, True, 10, 2, False, 0, 0, 0, 0, True):
+        Instance("k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si", 12),
+    (17, 5, 16, 2, 4, 0, True, 10, 2, True, 0, 0, 0, 0, True):
+        Instance("k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si", 13),
+    (11, 5, 8, 4, 4, 0, False, 1, 0, False, 16, 2, 0, 0, True):
+        Instance("k1h_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si", 14),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -213,8 +224,8 @@ def _check_supported(model: RobotModel, config: EngineConfig, num_stones: int, n
            constraints.num_p2p, constraints.planar, num_bars, constraints.num_grabs, hf_patch,
            num_tris, config.split_impulse)
     if key not in INSTANTIATIONS:
-        split = (" with split impulse (built for the walker on the plane in torque mode only)"
-                 if config.split_impulse else "")
+        split = (" with split impulse (built for the walker on the plane and over stones, "
+                 "Cassie, Cassie2D and the monkey)" if config.split_impulse else "")
         raise NotImplementedError(
             f"no K1 instantiation{split} for (nl, ns, nlim, substeps, iters, stones, pd_mode, "
             f"llc frames, rods, planar, bars, grabs, hf window, mesh faces, split) = {key}; "
@@ -362,20 +373,25 @@ class EngineKernel:
     grab state. In PD mode ``tau`` holds the joint targets and the unit is
     the whole control step; else it is one llc frame. ``plain_unit`` is the
     plain unit to compare against (built here when not given). A variant
-    runs split impulse when its ``split`` says so, and only then.
+    with a ``split_variant`` runs split impulse when ``config`` asks for it,
+    counted under that name; ``split`` says whether this one runs it.
     """
 
     variant = "k1"
-    split = False
+    split_variant: str | None = None
 
     def __init__(self, model: RobotModel, config: EngineConfig, *, num_stones: int = 0,
                  num_bars: int = 0, hf_patch: int = 0, num_tris: int = 0, pd_mode: bool = False,
                  extra_damping=None, plain_unit=None,
                  constraints: ConstraintSpec = ConstraintSpec()):
-        if config.split_impulse != self.split:
+        if config.split_impulse and self.split_variant is None:
             raise NotImplementedError(
-                f"{self.variant} runs with split_impulse={self.split}; the split-impulse "
-                "instance is K1hSi")
+                f"no K1 instantiation for split_impulse on {self.variant}"
+                + ("; the walker's split-impulse instance is K1hSi" if self.variant == "k1a"
+                   else ""))
+        self.split = config.split_impulse
+        if self.split:
+            self.variant = self.split_variant
         self.instance = _check_supported(model, config, num_stones, num_bars, pd_mode,
                                          constraints, hf_patch, num_tris)
         self.name = self.instance.symbol
@@ -501,6 +517,7 @@ class K1c(EngineKernel):
     """One llc frame over ``config.stone_window`` stone boxes, torque mode."""
 
     variant = "k1c"
+    split_variant = "k1h_c"
 
     def __init__(self, model, config, num_stones: int | None = None, plain_unit=None):
         super().__init__(model, config, plain_unit=plain_unit,
@@ -524,6 +541,7 @@ class K1e(EngineKernel):
     mode."""
 
     variant = "k1e"
+    split_variant = "k1h_e"
 
     def __init__(self, model, config, constraints: ConstraintSpec, pd_mode: bool = False,
                  extra_damping=None, plain_unit=None):
@@ -539,6 +557,7 @@ class K1d(EngineKernel):
     bars and grabs (:func:`pack_bars`, :func:`pack_grabs`)."""
 
     variant = "k1d"
+    split_variant = "k1h_d"
 
     def __init__(self, model, config, constraints: ConstraintSpec, num_bars: int,
                  plain_unit=None):
@@ -575,9 +594,11 @@ class K1hSi(EngineKernel):
     pass whose pseudo-velocity advances the positions only."""
 
     variant = "k1h_si"
-    split = True
+    split_variant = "k1h_si"
 
     def __init__(self, model, config, plain_unit=None):
+        if not config.split_impulse:
+            raise NotImplementedError("k1h_si runs with split_impulse=True only")
         super().__init__(model, config, plain_unit=plain_unit)
 
 
@@ -587,16 +608,9 @@ def make_kernel(model, config, *, num_stones=0, num_bars=0, hf_patch=0, num_tris
     """The variant for a scene with ``num_stones`` (culled) stones,
     ``num_bars`` bars, a ``hf_patch``-sided heightfield window and
     ``num_tris`` (culled) mesh faces (0: none), the actuation mode, the
-    equality rows and the solver's split impulse; combinations without an
-    instantiation raise."""
-    if config.split_impulse:
-        if num_stones or num_bars or hf_patch or num_tris or pd_mode or constraints.ne \
-                or extra_damping is not None:
-            raise NotImplementedError(
-                "no K1 instantiation for split impulse with stones, bars, a heightfield, a "
-                "mesh, PD mode or equality rows: split impulse is built for the walker on "
-                "the plane in torque mode only")
-        return K1hSi(model, config, plain_unit)
+    equality rows and the solver's split impulse (the same variant, which
+    counts under its split-impulse name); combinations without an
+    instantiation raise, naming what is missing."""
     if num_tris:
         if pd_mode or num_stones or num_bars or hf_patch or constraints.ne \
                 or extra_damping is not None:
@@ -625,7 +639,7 @@ def make_kernel(model, config, *, num_stones=0, num_bars=0, hf_patch=0, num_tris
         return K1b(model, config, extra_damping, plain_unit)
     if num_stones:
         return K1c(model, config, num_stones, plain_unit)
-    return K1a(model, config, plain_unit)
+    return (K1hSi if config.split_impulse else K1a)(model, config, plain_unit)
 
 
 # fp32 operations of the kernel's mesh narrowphase per (sphere, active face),

@@ -14,8 +14,9 @@
   Crab2D; K1d over the monkey's bars with its grab rows, both hands, one,
   none, bars in contact and not; K1f over the terrain families' windows,
   the grid's border included; K1g over the stairs' culled faces at treads,
-  nosings and risers; K1h-si, the walker with split impulse), and the
-  packed table has the size the source lays out; so does the raycast
+  nosings and risers; K1h-si, the walker with split impulse; its split-
+  impulse twins K1h-c, K1h-e, K1h-e2d and K1h-d on the stepper's, Cassie's,
+  Cassie2D's and the monkey's states), and the packed table has the size the source lays out; so does the raycast
   kernel K2's per-ray code against ops/raycast.py's plain version;
 - on a card: each kernel agrees with its plain version (skips elsewhere).
 
@@ -69,7 +70,16 @@ def _kernel_case(case, B, seed, device="cpu"):
     k1f* (one torque frame of the walker over a terrain window, as
     :data:`K1F_CASES` says), k1g (one torque frame of the walker on the
     stairs' 16 culled faces), k1h_si (one torque frame of the walker near
-    contact with split impulse)."""
+    contact with split impulse), and the split-impulse twins of
+    :data:`SPLIT_CASES` (the twin's wrapper and states, ``split_impulse``
+    on)."""
+    if case in SPLIT_CASES:
+        twin, arrays = _kernel_case(SPLIT_CASES[case], B, seed, device)
+        split = dataclasses.replace(twin.config, split_impulse=True)
+        return engine.make_kernel(
+            twin.model, split, num_stones=twin.num_stones, num_bars=twin.num_bars,
+            pd_mode=twin.pd_mode, extra_damping=twin.extra_damping,
+            constraints=twin.constraints), arrays
     rng = np.random.default_rng(seed)
     if case == "k1g":
         model = walker3d.make_model(device)
@@ -122,6 +132,10 @@ K1D_CASES = {"k1d": {}, "k1d_both_hands": {"left": 1.0},
 # a tenth of the roots by the grid's edge (the main path's mix), and all
 K1F_CASES = {"k1f": {}, "k1f_border": {"border": 1.0}}
 NEW_CASES = ["k1g", "k1h_si"]
+# the split-impulse instances of the training path, each on its twin's
+# wrapper and states
+SPLIT_CASES = {"k1h_c": "k1c", "k1h_e": "k1e_cassie", "k1h_e2d": "k1e_cassie2d",
+               "k1h_d": "k1d"}
 
 
 def _gate_medians(got, want, tol=TOL, tail="max", tail_envs=None):
@@ -152,6 +166,11 @@ for name in P.registered_envs():
     tr = batch.step(batch.init(), torch.zeros(2, env.act_dim))
     assert tr.obs.shape == (2, env.obs_dim) and bool(torch.isfinite(tr.obs).all()), name
 assert len(P.registered_envs()) == 15
+from mocca_envs_tpu_torch.harness import (  # noqa: F401
+    checkpoint, metrics, ppo, profile, rollout, train, transfer)
+state = train.main(["--env", "Walker3DStepperEnv", "--split-impulse", "--num-envs", "4",
+                    "--horizon", "2", "--updates", "1", "--minibatches", "1"], device="cpu")
+assert state.update_count == 1
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "mocca_envs_tpu")]
 assert not loaded, loaded
@@ -599,7 +618,8 @@ def test_bars_and_grabs_count_their_own_work():
     torch.testing.assert_close(engine.pack_grabs(active, target), grabs, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + ["k1d", "k1f"] + NEW_CASES)
+@pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + ["k1d", "k1f"] + NEW_CASES
+                         + list(SPLIT_CASES))
 def test_pack_tables_size_matches_source_layout(host_library, case):
     kernel, _ = _kernel_case(case, 2, 0)
     table_size, ws_per_env = engine.layout(host_library, kernel.name)
@@ -623,7 +643,7 @@ def test_pack_tables_size_matches_source_layout(host_library, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", KERNEL_CASES + K1E_CASES + list(K1D_CASES) + list(K1F_CASES)
-                         + NEW_CASES)
+                         + NEW_CASES + list(SPLIT_CASES))
 def test_k1a_kernel_matches_plain_on_cuda(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
@@ -638,10 +658,11 @@ def test_k1a_kernel_matches_plain_on_cuda(case):
     # (chip_smoke.py::vertical_contacts says why)
     tail_envs = (~chip_smoke.vertical_contacts(kernel, args)).cpu().numpy() \
         if case == "k1g" else None
+    twin = SPLIT_CASES.get(case, case)
     _gate_medians([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want],
-                  TOL_GRAB if case in K1D_CASES else TOL_EQ if case in K1E_CASES
-                  else TOL_HF if case in K1F_CASES else TOL,
-                  tail="p99" if "cassie" in case or case == "k1g" else "max",
+                  TOL_GRAB if twin in K1D_CASES else TOL_EQ if twin in K1E_CASES
+                  else TOL_HF if twin in K1F_CASES else TOL,
+                  tail="p99" if "cassie" in twin or twin == "k1g" else "max",
                   tail_envs=tail_envs)
     with pytest.raises(ValueError, match="contiguous"):
         kernel.launch(args[0].t().contiguous().t(), *args[1:])
@@ -805,8 +826,10 @@ def test_k1h_si_source_arithmetic_on_host(host_library):
 
 def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
     """make_kernel picks K1g for mesh faces and K1h-si for split impulse on
-    the walker's plane; a mesh with anything else, split impulse anywhere
-    else, and K1a / K1g with split impulse raise, naming what is missing."""
+    the walker's plane; a mesh with anything else, split impulse on a mesh,
+    in PD mode or on the planar walkers, and K1a / K1g with split impulse
+    raise, naming what is missing (split impulse over stones is K1h-c:
+    test_split_instances_are_picked_and_the_rest_refused)."""
     model, config = walker3d.make_model(), EngineConfig()
     split = EngineConfig(split_impulse=True)
     k1g = engine.make_kernel(model, config, num_tris=16)
@@ -818,7 +841,6 @@ def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
                   lambda: engine.make_kernel(model, config, num_tris=16, num_stones=6),
                   lambda: engine.make_kernel(model, config, num_tris=16, pd_mode=True),
                   lambda: engine.make_kernel(model, config, num_tris=16, hf_patch=HF_PATCH),
-                  lambda: engine.make_kernel(model, split, num_stones=6),
                   lambda: engine.make_kernel(model, split, num_tris=16),
                   lambda: engine.make_kernel(model, split, pd_mode=True),
                   lambda: engine.make_kernel(walker2d.make_walker2d(), split,
@@ -883,3 +905,100 @@ def test_k1g_and_k1h_si_count_their_own_work():
                                   + float(con_act.sum()) * 4 * (4 * 27 + 7)
                                   + float(any_pos) * (27 * 27 + 27))
     assert engine.k1_bytes_per_env(si) == engine.k1_bytes_per_env(k1a)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_instances_source_arithmetic_on_host(host_library, case):
+    """The split-impulse twins of the training path (K1h-c over the
+    stepper's stones, K1h-e / K1h-e2d on Cassie's whole PD control step with
+    the rods and the planar lock, K1h-d on the monkey's bars with its grab
+    rows) against their plain versions, at their twins' gates (K1c: K1a's;
+    Cassie: the equality-row gates, the 99th percentile for the tail; the
+    monkey: the bar and grab gates); and the position pass moves the result
+    away from the unsplit twin's on the same inputs."""
+    kernel, arrays = _kernel_case(case, 32 if case == "k1h_c" else 64, 5)
+    twin, _ = _kernel_case(SPLIT_CASES[case], 2, 0)
+    assert kernel.split and type(kernel) is type(twin)
+    assert kernel.variant == ("k1h_e" if case.startswith("k1h_e") else case)
+    inputs = [np.ascontiguousarray(x) for x in arrays]
+    outs = _run_on_host(host_library, kernel, inputs)
+    want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
+    assert all(np.isfinite(o).all() for o in outs)
+    _gate_medians(outs, want, {"k1h_c": TOL, "k1h_d": TOL_GRAB}.get(case, TOL_EQ),
+                  tail="p99" if case.startswith("k1h_e") else "max")
+    assert (want[3] > 0).mean() > 0.02   # contacts carry load
+    unsplit = _run_on_host(host_library, twin, inputs)
+    assert np.abs(unsplit[1] - outs[1]).max() > 0.05
+    if case == "k1h_d":
+        # the grab rows stay out of the position pass and still hold the
+        # attached palms on their anchors
+        attached = engine.unpack_grabs(torch.as_tensor(inputs[6]))[0].numpy() > 0.5
+        palms = tasks_monkey.make_palm_positions(kernel.model, kernel.constraints)(
+            torch.as_tensor(outs[0]))
+        target = engine.unpack_grabs(torch.as_tensor(inputs[6]))[1]
+        gap = torch.linalg.vector_norm(palms - target, dim=2).numpy()
+        assert np.median(gap[attached]) < 0.01
+
+
+def test_split_instances_are_picked_and_the_rest_refused():
+    """Split impulse takes the variant it would take without it, counted
+    under its split name: K1c over stones (k1h_c), Cassie's and Cassie2D's
+    K1e (k1h_e), the monkey's K1d (k1h_d), K1hSi on the walker's plane; every
+    family without an instance raises NotImplementedError naming it: the PD
+    walker and child (K1b), the torque planar walkers (K1e), a heightfield
+    (K1f) and a mesh (K1g)."""
+    names = {"k1h_c": "k1h_nl22_ns14_nlim21_sub4_it4_k6_si",
+             "k1h_e": "k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si",
+             "k1h_e2d": "k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si",
+             "k1h_d": "k1h_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si"}
+    for case, twin_case in SPLIT_CASES.items():
+        kernel, _ = _kernel_case(case, 2, 0)
+        twin, _ = _kernel_case(twin_case, 2, 0)
+        assert type(kernel) is type(twin) and kernel.split and not twin.split
+        assert kernel.name == names[case] and kernel.variant == ("k1h_e" if "k1h_e" in case
+                                                                 else case)
+        assert kernel.inputs == twin.inputs and kernel.table_host.size == twin.table_host.size
+    model = walker3d.make_model()
+    split = EngineConfig(split_impulse=True)
+    kp = model.power_coef * (model.actuated > 0).float()
+    for build, what in (
+            (lambda: engine.make_kernel(model.replace(kp=kp), split, pd_mode=True,
+                                        extra_damping=kp / 20.0), "k1b"),
+            (lambda: engine.make_kernel(walker3d.make_model(), split, hf_patch=HF_PATCH), "k1f"),
+            (lambda: engine.make_kernel(model, split, num_tris=16), "k1g"),
+            (lambda: engine.make_kernel(walker2d.make_walker2d(), split,
+                                        constraints=walker2d.planar_spec()), "split impulse"),
+            (lambda: engine.make_kernel(walker2d.make_crab2d(), split,
+                                        constraints=walker2d.planar_spec()), "split impulse")):
+        with pytest.raises(NotImplementedError, match="no K1 instantiation") as err:
+            build()
+        assert what in str(err.value)
+    # a split instance is not taken for the unsplit config, nor the reverse
+    with pytest.raises(NotImplementedError, match="split_impulse"):
+        engine.K1hSi(model, EngineConfig())
+    assert not engine.make_kernel(model, EngineConfig(), num_stones=6).split
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_instances_count_the_position_pass(case):
+    """k1_flops of a split instance is its twin's plus the position pass:
+    per substep and sweep, each active limit row over its span and each
+    active contact normal (dense), and where any of them is active the back
+    substitution of z_pos and its addition; equality and grab rows add
+    nothing to it. Both take the same activity (k1_activity of the split
+    unit) and bytes."""
+    kernel, arrays = _kernel_case(case, 8, 2)
+    twin, _ = _kernel_case(SPLIT_CASES[case], 2, 0)
+    args = [torch.as_tensor(x) for x in arrays]
+    lim_act, con_act, _ = engine.k1_activity(kernel, *args)
+    S = kernel.config.sim_substeps * (kernel.config.llc_frames if kernel.pd_mode else 1)
+    assert lim_act.shape[0] == S and con_act.shape[:2] == (S, 8)
+    extra = (engine.k1_flops(kernel, lim_act, con_act, *args[5:])
+             - engine.k1_flops(twin, lim_act, con_act, *args[5:]))
+    m, iters = kernel.model, kernel.config.solver_iters
+    span = torch.tensor([m.nv - (6 + j) for j in engine.limited_joints(m)], dtype=torch.float64)
+    any_pos = (lim_act.any(dim=2) | con_act.any(dim=2)).double().sum()
+    assert extra == pytest.approx(float((lim_act.double() * iters * (4 * span + 7)).sum())
+                                  + float(con_act.sum()) * iters * (4 * m.nv + 7)
+                                  + float(any_pos) * (m.nv * m.nv + m.nv))
+    assert extra > 0 and engine.k1_bytes_per_env(kernel) == engine.k1_bytes_per_env(twin)
