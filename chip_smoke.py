@@ -6,10 +6,14 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 Phases, in order; any failure exits non-zero before the result lines:
 
-1. print the card's name and power limit; build every instantiation of the
-   engine kernel from ``mocca_envs_tpu_torch/csrc/engine_k1.cu`` and the
-   raycast kernel K2 from ``csrc/raycast_k2.cu`` (one nvcc process each,
-   side by side), and print each one's ptxas registers and stack frame;
+1. print the card's name and power limit; build the fifteen named
+   instances of the engine kernel from
+   ``mocca_envs_tpu_torch/csrc/engine_k1.cu``, the generic instance of every
+   key phase 2 adds (split impulse on the PD walker at one and two llc
+   frames, the torque planar walkers, terrain and the stairs; the walker's
+   PGS options of :data:`OPTION_CONFIGS`) and the raycast kernel K2 from
+   ``csrc/raycast_k2.cu`` (one nvcc process each, side by side), and print
+   each one's ptxas registers and stack frame;
 2. each kernel vs its plain PyTorch version at B = 4096: K1a on walker
    states near contact, K1c on stepper states (stones at stages 0–9, feet
    in or near contact with tilted stone tops, some envs over a gap), K1b on
@@ -32,7 +36,19 @@ Phases, in order; any failure exits non-zero before the result lines:
    K1h-c, K1h-e, K1h-e2d and K1h-d (split impulse over the stones, on
    Cassie's whole PD step with the rods, with the planar lock added, and
    over the monkey's bars with its grab rows) on the K1c, Cassie, Cassie2D
-   and K1d states, each held to its twin's gate. Per-env median and p99
+   and K1d states, each held to its twin's gate; K1h-b (split impulse in PD
+   mode, one and two llc frames), the torque planar K1h-e, K1h-f and K1h-g
+   on the K1b, Walker2D, K1f and K1g states, each held to its twin's gate
+   (K1h-g with K1g's riser rule); the walker's PGS options
+   (:data:`OPTION_CONFIGS`: the A-form, scalar friction rows, a cold start,
+   a factor every substep, all four, the A-form with split impulse, and 2
+   substeps × 8 sweeps) on the K1a states at K1a's gate, and each A-form
+   against its matrix-free twin on the same inputs at :data:`TOL_TWIN`
+   (medians, the largest env within ten times); each other option's
+   instance must part from the shipped one (K1a) on the same inputs by more
+   than K1a's gate in the per-env medians of q and qd
+   (:func:`parts_from_shipped`), and each A-form's workspace must hold its
+   NR × NR matrix and residual beside its twin's. Per-env median and p99
    of |Δq|, |Δqd|, |Δdepth|, |Δimpulse|; the medians must stay within q
    2e-4, qd 5e-3, depth 2e-4, impulse 5e-3 (K1e: q 5e-4, qd 2e-2, depth
    5e-4, impulse 5e-3, the tolerances the JAX package holds its own kernel
@@ -66,8 +82,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``Walker3DTerrainEnv-v0`` for 600 and ``Walker3DTerrainLidarEnv-v0`` for
    200 (K1f), ``Walker3DStairsEnv-v0`` for 600 (K1g),
    ``Walker3DCustomEnv-v0`` made with ``EngineConfig(split_impulse=True)``
-   for 200 (K1h-si), and K2's own entry point ``make_raycaster`` for 10 calls of
-   32,768 rays with the origins moved between calls. The path's kernel
+   for 200 (K1h-si) and with each of :data:`OPTION_CONFIGS` for 100 (its own
+   instance, counted under its name and by its symbol in
+   ``engine.INSTANCE_LAUNCHES``), and K2's own entry point
+   ``make_raycaster`` for 10 calls of 32,768 rays with the origins moved
+   between calls. A grid smaller than the K1f window and PD mode over stones
+   must raise on the card before any launch. The path's kernel
    must launch exactly once per step and no other kernel at all, the state
    stay finite and auto-reset fire; resets forced by a non-finite state are
    counted and printed; of the 2D families the median env must end in its
@@ -85,13 +105,13 @@ Phases, in order; any failure exits non-zero before the result lines:
    4096 envs, horizon 128, 2 updates with a checkpoint, then the same to 3
    updates, which must resume from update 2 (exactly 384 ``k1h_c`` launches
    over both runs and no other kernel); ``CassieEnv`` and ``Cassie2DEnv``
-   (64 ``k1h_e`` launches each: PD launches once per control step) and
-   ``Monkey3DStepperEnv`` (64 ``k1h_d``), 2 updates at horizon 32. Every
+   (64 ``k1h_e`` launches each: PD launches once per control step),
+   ``Monkey3DStepperEnv`` (64 ``k1h_d``) and the seven of
+   :data:`SPLIT_FAMILIES` (64 launches each under the name it gives, all by
+   the generic instance phase 1 built for it), 2 updates at horizon 32. Every
    metric line must be finite but the env channels the learner leaves NaN
    (no episode ended), and each prints env-steps/s and the seconds of the
-   rollout and of the PPO update per update. ``--split-impulse`` on a
-   family without an instance (the PD walker, Walker2D, terrain, stairs)
-   must raise NotImplementedError, naming it, before any launch;
+   rollout and of the PPO update per update;
 4. per-call times of each kernel and its plain version (CUDA events), the
    bound from the operations and bytes these inputs need, and the time of
    the stepper's cull of 20 stones to the window plus their packing (env
@@ -101,7 +121,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    the terrain step's window cut and packing; the step time outside the
    kernel of Cassie, the planar walkers, the monkey, the terrain families,
    the stairs and the split-impulse walker; the training rollouts' time per
-   env step outside the kernel; a ``torch.profiler`` trace of one stepper
+   env step outside the kernel; an A-form's bound counts its matrix-free
+   twin's operations on the same activity (the same function in fewer), its
+   own count printed beside it; a ``torch.profiler`` trace of one stepper
    update at horizon 16 (``--profile-dir``): the device's busy share and
    its largest kernels;
 5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
@@ -136,6 +158,29 @@ TOL_EQ = {"q": 5e-4, "qd": 2e-2, "depth": 5e-4, "nimp": 5e-3}
 TOL_GRAB = {"q": 5e-4, "qd": 2e-2, "depth": 5e-4, "nimp": 1e-2}
 # over a heightfield: the JAX package's gate for its heightfield kernel
 TOL_HF = {"q": 2e-4, "qd": 1e-2, "depth": 5e-4, "nimp": 1e-2}
+# an A-form instance against its matrix-free twin on the same inputs: the
+# JAX package's gate between its two PGS forms (tests/test_pallas_engine.py,
+# matfree vs A-form: q 2e-5, qd 5e-4, impulse 5e-4; depth held as q)
+TOL_TWIN = {"q": 2e-5, "qd": 5e-4, "depth": 2e-5, "nimp": 5e-4}
+# the walker's PGS options turned off (each alone, all four, the A-form
+# with split impulse) and a key outside the fifteen named instances: label →
+# EngineConfig fields
+OPTION_CONFIGS = {
+    "k1a_aform": {"matfree_pgs": False},
+    "k1a_scalar": {"block_pgs": False},
+    "k1a_cold": {"warm_start": False},
+    "k1a_refactor": {"reuse_factor": False},
+    "k1a_aform_scalar_cold_refactor": {"matfree_pgs": False, "block_pgs": False,
+                                       "warm_start": False, "reuse_factor": False},
+    "k1h_si_aform": {"matfree_pgs": False, "split_impulse": True},
+    "k1a_sub2_it8": {"sim_substeps": 2, "solver_iters": 8},
+}
+# --split-impulse on the families whose split instances this slice adds:
+# env id → the count its launches go under
+SPLIT_FAMILIES = {"Walker3DPDCustomEnv": "k1h_b", "Child3DPDCustomEnv": "k1h_b",
+                  "Walker2DCustomEnv": "k1h_e", "Crab2DCustomEnv": "k1h_e",
+                  "Walker3DTerrainEnv": "k1h_f", "Walker3DTerrainLidarEnv": "k1h_f",
+                  "Walker3DStairsEnv": "k1h_g"}
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
@@ -496,11 +541,63 @@ def compare(kernel, args, label: str | None = None, tol=TOL, tail: str = "max",
     return max_abs
 
 
+def compare_twins(kernel, twin, args, label: str) -> float:
+    """Launch an A-form ``kernel`` and its matrix-free ``twin`` once each on
+    ``args``: per-env medians within :data:`TOL_TWIN`, the largest env within
+    ten times. Returns the largest absolute difference."""
+    out = kernel.launch(*args)
+    ref = twin.launch(*args)
+    torch.cuda.synchronize()
+    max_abs = 0.0
+    for name, a, b in zip(("q", "qd", "depth", "nimp"), out, ref):
+        per_env = (a - b).abs().amax(dim=1).cpu().numpy()
+        med, worst = float(np.median(per_env)), float(per_env.max())
+        max_abs = max(max_abs, worst)
+        print(f"[compare] {label} vs its matrix-free twin {twin.variant} {name}: per-env median "
+              f"{med:.3e} p99 {float(np.quantile(per_env, 0.99)):.3e} max {worst:.3e} (median "
+              f"tol {TOL_TWIN[name]:g}, max tol {10 * TOL_TWIN[name]:g})")
+        check(med <= TOL_TWIN[name], f"{label} vs twin {name} median {med:.3e}")
+        check(worst <= 10 * TOL_TWIN[name], f"{label} vs twin {name} max {worst:.3e}")
+    return max_abs
+
+
+def parts_from_shipped(kernel, shipped, args, label: str, tol=TOL) -> None:
+    """An option's instance and the ``shipped`` instance, launched once each
+    on ``args``: the per-env medians of |Δq| and |Δqd| between them must
+    exceed ``tol``, the gate the option's instance is held to against its
+    plain version, so that gate would catch a kernel that ignored the
+    option."""
+    out = kernel.launch(*args)
+    ref = shipped.launch(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("q", "qd"), out, ref):
+        per_env = (a - b).abs().amax(dim=1).cpu().numpy()
+        med = float(np.median(per_env))
+        print(f"[compare] {label} vs the shipped instance {shipped.name} {name}: per-env "
+              f"median {med:.3e} p10 {float(np.quantile(per_env, 0.1)):.3e} ({med / tol[name]:.1f}"
+              f"× the gate {tol[name]:g} it is held to)")
+        check(med > tol[name], f"{label} parts from {shipped.name} in {name} by a median of "
+                               f"{med:.3e}, within its gate {tol[name]:g}")
+
+
+def aform_workspace(engine, kernel, twin, label: str) -> None:
+    """An A-form's workspace per env, read from its built library, must be
+    its matrix-free twin's plus the NR × NR matrix A and the NR residuals
+    (a model without equality rows: NR is its limit rows and three rows per
+    contact)."""
+    ws = [engine.layout(engine.build([k.key])[k.name], k.name)[1] for k in (kernel, twin)]
+    nr = kernel.key.nlim + 3 * kernel.key.ns
+    print(f"[compare] {label}: workspace {ws[0]} floats per env, its twin {twin.name} {ws[1]}, "
+          f"A and the residual {nr} × {nr} + {nr}")
+    check(ws[0] - ws[1] == nr * nr + nr, f"{label}: workspace {ws} holds no {nr}² matrix")
+
+
 def drive(port, engine, card, env_id: str, steps: int, variant: str, sums=(), watch=None,
-          **make_kw):
+          instance: str | None = None, **make_kw):
     """One main path: ``steps`` control steps of uniform random actions
     through the entry points (``make(env_id, **make_kw)``); ``watch`` is
-    called on every transition. Returns (launches, final state, last
+    called on every transition. Every launch must be ``variant``'s and, if
+    given, by the K1 ``instance`` of that symbol. Returns (launches, final state, last
     transition, the batched env, ms per step, the sums over the run of the
     metrics named in ``sums``)."""
     env = port.make(env_id, **make_kw)
@@ -512,6 +609,7 @@ def drive(port, engine, card, env_id: str, steps: int, variant: str, sums=(), wa
     totals = {k: torch.zeros((), device="cuda") for k in sums}
     torch.cuda.synchronize()
     engine.LAUNCHES.clear()
+    engine.INSTANCE_LAUNCHES.clear()
     t0 = time.perf_counter()
     for _ in range(steps):
         actions = torch.rand((B, env.act_dim), generator=gen, device="cuda") * 2.0 - 1.0
@@ -524,13 +622,15 @@ def drive(port, engine, card, env_id: str, steps: int, variant: str, sums=(), wa
             watch(tr)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(engine.LAUNCHES)
+    counts, by_instance = dict(engine.LAUNCHES), dict(engine.INSTANCE_LAUNCHES)
     launches, dones = counts.get(variant, 0), int(dones)
     print(f"[main] {env_id}: {steps} steps × {B} envs in {wall:.3f} s "
           f"({1e3 * wall / steps:.3f} ms/step): {steps * B / wall:.0f} env-steps/s on {card}; "
-          f"launches {counts}")
+          f"launches {counts}, by instance {by_instance}")
     check(counts == {variant: steps},
           f"{env_id}: expected {steps} {variant} launches and no other, got {counts}")
+    check(instance is None or by_instance == {instance: steps},
+          f"{env_id}: expected {steps} launches of the instance {instance}, got {by_instance}")
     check(bool(torch.isfinite(state.q).all() and torch.isfinite(state.qd).all()),
           f"{env_id}: final state not finite")
     check(tr.obs.shape == (B, env.obs_dim) and bool(torch.isfinite(tr.obs).all()),
@@ -583,9 +683,12 @@ def time_call(fn, args, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def time_and_bound(engine, card, kernel, args) -> dict:
+def time_and_bound(engine, card, kernel, args, twin=None) -> dict:
     """Per-call times of the kernel (50 calls) and its plain version (3),
-    and the bound from the operations and bytes these inputs need."""
+    and the bound from the operations and bytes these inputs need. With a
+    matrix-free ``twin`` (an A-form computes the same function) the bound
+    takes the fewer of the two counts of operations on this activity; the
+    kernel's own count is printed beside it."""
     ms = time_call(kernel.launch, args, 50)
     plain_ms = time_call(kernel.plain, args, 3)
     scene_inputs = args[5:]
@@ -595,6 +698,9 @@ def time_and_bound(engine, card, kernel, args) -> dict:
     flops_all = engine.k1_flops(kernel, torch.ones_like(lim_act), torch.ones_like(con_act),
                                 *scene_inputs, tri_walk=walk)
     nbytes = engine.k1_bytes_per_env(kernel) * B
+    own_flops = flops
+    if twin is not None:
+        flops = min(flops, engine.k1_flops(twin, lim_act, con_act, *scene_inputs, tri_walk=walk))
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
@@ -616,6 +722,11 @@ def time_and_bound(engine, card, kernel, args) -> dict:
           f"{float(con_act.float().sum(2).mean()):.3f} of {con_act.shape[2]}{scene_activity}; "
           f"{flops} fp32 ops needed ({flops / B:.0f} per env), {flops_all} with every row "
           f"active; {nbytes} bytes")
+    if twin is not None:
+        print(f"[bound] {v}: its matrix-free twin {twin.name} computes the same function in "
+              f"{flops} fp32 ops on this activity, which set the bound; its own form counts "
+              f"{own_flops} ({own_flops / B:.0f} per env, {own_flops / flops:.3f}×): own-form "
+              f"bound {max(own_flops / PEAK_FP32 * 1e3, t_bytes):.5f} ms")
     print(f"[time] {v} {ms:.4f} ms/call, plain {plain_ms:.3f} ms/call at B={B} on {card}; "
           f"bound {bound_ms:.5f} ms by {bound_by} (ops {t_ops:.5f} ms, bytes {t_bytes:.5f} ms); "
           f"kernel at {bound_ms / ms:.2%} of it")
@@ -778,12 +889,14 @@ class _Records(logging.Handler):
 
 
 def train_run(engine, card, env_id: str, updates: int, horizon: int, workdir: Path,
-              expect: dict, resume_updates: int | None = None) -> list:
+              expect: dict, resume_updates: int | None = None, instance: str | None = None
+              ) -> list:
     """The training path through the CLI's ``main`` with ``--split-impulse``
     at 4096 envs, the launch counts set to 0 just before and read just
     after; with ``resume_updates`` a second run to that many updates from
     the first's checkpoint, which must say it resumed. The kernel launches
-    must be ``expect``, every metric finite but the NaN env channels the
+    must be ``expect`` (and, if given, all by the K1 ``instance`` of that
+    symbol), every metric finite but the NaN env channels the
     learner allows. Returns the metric lines."""
     from mocca_envs_tpu_torch.harness import train
 
@@ -794,6 +907,7 @@ def train_run(engine, card, env_id: str, updates: int, horizon: int, workdir: Pa
     logging.getLogger().addHandler(records)
     torch.cuda.synchronize()
     engine.LAUNCHES.clear()
+    engine.INSTANCE_LAUNCHES.clear()
     t0 = time.perf_counter()
     try:
         state = train.main([*base, "--updates", str(updates)])
@@ -803,11 +917,11 @@ def train_run(engine, card, env_id: str, updates: int, horizon: int, workdir: Pa
         logging.getLogger().removeHandler(records)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(engine.LAUNCHES)
+    counts, by_instance = dict(engine.LAUNCHES), dict(engine.INSTANCE_LAUNCHES)
     total = resume_updates or updates
     lines = [json.loads(x) for x in metrics.read_text().splitlines()]
     print(f"[train] {env_id} --split-impulse: {total} updates of {horizon} steps × {B} envs in "
-          f"{wall:.3f} s on {card}; launches {counts}")
+          f"{wall:.3f} s on {card}; launches {counts}, by instance {by_instance}")
     for line in lines:
         print(f"[train] {env_id} update {line['step']}: {line['env_steps_per_s']:.0f} env-steps/s, "
               f"rollout {line['rollout_s']:.4f} s, PPO update {line['update_s']:.4f} s, reward "
@@ -815,6 +929,8 @@ def train_run(engine, card, env_id: str, updates: int, horizon: int, workdir: Pa
               f"{line['episode_done_rate']:.4f}, pg loss {line['pg_loss']:.4f}, v loss "
               f"{line['v_loss']:.4f}")
     check(counts == expect, f"{env_id} training: expected launches {expect}, got {counts}")
+    check(instance is None or by_instance == {instance: sum(expect.values())},
+          f"{env_id} training: expected the instance {instance} alone, got {by_instance}")
     check([x["step"] for x in lines] == list(range(1, total + 1)),
           f"{env_id} training: metric lines for updates {[x['step'] for x in lines]}")
     if resume_updates is not None:
@@ -832,23 +948,29 @@ def train_run(engine, card, env_id: str, updates: int, horizon: int, workdir: Pa
     return lines
 
 
-def split_refused(engine, env_id: str, workdir: Path) -> None:
-    """``--split-impulse`` on a family whose split impulse has no instance
-    raises on the card, naming it, before any kernel launch or update."""
-    from mocca_envs_tpu_torch.harness import train
+def combination_refused(engine, model, config) -> None:
+    """On the card a scene combination the kernel source does not compose
+    (PD mode over stones) must raise, naming it, before any launch."""
+    from mocca_envs_tpu_torch.ops.step import make_control_step
+    from mocca_envs_tpu_torch.terrain import scene as scene_mod
 
-    metrics = workdir / f"{env_id}_refused.jsonl"
+    step = make_control_step(model, config, pd_targets=lambda a: a)
+    n = 4
+    scene = scene_mod.with_stones(torch.zeros(n, 6, 3, device="cuda"),
+                                  torch.tensor([1.0, 0, 0, 0], device="cuda").expand(n, 6, 4),
+                                  torch.full((n, 6, 3), 0.1, device="cuda"))
+    q = torch.zeros(n, model.nq, device="cuda")
+    q[:, 2], q[:, 3] = 0.95, 1.0
     engine.LAUNCHES.clear()
     try:
-        train.main(["--env", env_id, "--split-impulse", "--num-envs", "64", "--horizon", "2",
-                    "--updates", "1", "--minibatches", "1", "--metrics", str(metrics)])
+        step(q, torch.zeros(n, model.nv, device="cuda"), torch.zeros(n, model.nj, device="cuda"),
+             scene)
     except NotImplementedError as e:
-        check("no K1 instantiation" in str(e), f"{env_id}: unexpected refusal {e}")
-        check(sum(engine.LAUNCHES.values()) == 0 and not metrics.read_text(),
-              f"{env_id}: launched or updated before the refusal")
-        print(f"[train] {env_id} --split-impulse raises on the card: {str(e)[:160]}")
+        check("no K1 instantiation" in str(e), f"PD over stones: unexpected message {e}")
+        check(sum(engine.LAUNCHES.values()) == 0, "PD over stones: launched before the refusal")
+        print(f"[main] PD mode over stones on the card raises before any launch: {e}")
         return
-    check(False, f"{env_id} --split-impulse trained on the card without a kernel instance")
+    check(False, "PD mode over stones ran on the card")
 
 
 def profile_update(card, workdir: Path) -> None:
@@ -907,21 +1029,38 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
+    config = EngineConfig()
+    split = lambda cfg: dataclasses.replace(cfg, split_impulse=True)  # noqa: E731
+    model = walker3d.make_model("cuda")
+    kp = model.power_coef * (model.actuated > 0).to(torch.float32)
+    cmodel = cassie.make_model("cuda")
+    wmodel = walker2d.make_walker2d("cuda")
+    # the instances this slice adds: split impulse on the PD walker (one and
+    # two llc frames), the torque planar walkers, terrain and the stairs;
+    # the walker's PGS options (OPTION_CONFIGS)
+    added = {
+        "k1h_b": engine.K1b(model.replace(kp=kp), split(config), extra_damping=kp / 20.0),
+        "k1h_b_llc2": engine.K1b(model.replace(kp=kp), EngineConfig(llc_frames=2,
+                                                                     split_impulse=True),
+                                 extra_damping=kp / 20.0),
+        "k1h_e_planar": engine.K1e(wmodel, split(config), walker2d.planar_spec()),
+        "k1h_f": engine.K1f(model, split(config), HF_PATCH),
+        "k1h_g": engine.K1g(model, split(config)),
+        **{v: engine.make_kernel(model, EngineConfig(**fields))
+           for v, fields in OPTION_CONFIGS.items()},
+    }
+
     # ---- phase 1: build
     t0 = time.perf_counter()
-    engine.build()
-    print(f"[build] {len(engine.INSTANTIATIONS)} K1 instantiations and K2 built in "
-          f"{time.perf_counter() - t0:.1f} s")
+    engine.build([k.key for k in added.values()])
+    print(f"[build] {len(engine.INSTANTIATIONS)} named K1 instances, {len(added)} generic ones "
+          f"and K2 built in {time.perf_counter() - t0:.1f} s")
     for symbol, log in engine._Library.logs.items():
         for line in log.splitlines():
             if "registers" in line or "stack frame" in line:
                 print(f"[build] {symbol}: {line.strip()}")
 
     # ---- phase 2: each kernel vs its plain version at the main paths' shapes
-    config = EngineConfig()
-    split = lambda cfg: dataclasses.replace(cfg, split_impulse=True)  # noqa: E731
-    model = walker3d.make_model("cuda")
-    kp = model.power_coef * (model.actuated > 0).to(torch.float32)
     cuda = lambda arrays: [torch.as_tensor(x, device="cuda") for x in arrays]  # noqa: E731
     rng = np.random.default_rng(SEED)
     kernels = {
@@ -936,7 +1075,6 @@ def main() -> int:
                             extra_damping=kp / 20.0)
     compare(two_frames, kernels["k1b"][1], "k1b (2 llc frames)")
 
-    cmodel = cassie.make_model("cuda")
     rods, stand, stand_z = cassie.constraints(), cassie.stand_q(cmodel), cassie.initial_z()
     for v, spec in (("k1e_cassie", rods),
                     ("k1e_cassie2d", dataclasses.replace(rods, planar=True))):
@@ -945,7 +1083,6 @@ def main() -> int:
                        extra_damping=cmodel.actuated * cmodel.kd),
             cuda(cassie_states(cmodel, stand, stand_z, rng, spec.planar)))
         max_abs[v] = compare(*kernels[v], v, TOL_EQ, tail="p99")
-    wmodel = walker2d.make_walker2d("cuda")
     kernels["k1e_planar"] = (engine.K1e(wmodel, config, walker2d.planar_spec()),
                              cuda(planar_walker_states(wmodel, 1.22, rng)))
     max_abs["k1e_planar"] = compare(*kernels["k1e_planar"], "k1e_planar", TOL_EQ)
@@ -965,7 +1102,6 @@ def main() -> int:
           f"envs; surface under the root steeper than 10° in {int((slope < 0.9848).sum())}, "
           f"steepest {float(torch.rad2deg(torch.arccos(slope.min()))):.1f}°")
     max_abs["k1f"] = compare(*kernels["k1f"], "k1f", TOL_HF)
-    small_grid_raises(model, config)
     kernels["k1g"] = (engine.K1g(model, config), cuda(stairs_states(model, rng)))
     vertical = vertical_contacts(*kernels["k1g"])
     print(f"[compare] k1g: {int(vertical.sum())} of {B} envs touch a vertical face in the plain "
@@ -986,6 +1122,31 @@ def main() -> int:
     kernels["k1h_d"] = (engine.K1d(mmodel, split(config), monkey.constraints(), 16),
                         kernels["k1d"][1])
     max_abs["k1h_d"] = compare(*kernels["k1h_d"], "k1h_d", TOL_GRAB, tail="p99")
+    # this slice's split instances, each on its twin's states and gate (K1g's
+    # riser rule included), and the walker's PGS options on the K1a states
+    # at the walker's gates; each A-form also against its matrix-free twin
+    for v, twin in (("k1h_b", "k1b"), ("k1h_e_planar", "k1e_planar"), ("k1h_f", "k1f"),
+                    ("k1h_g", "k1g")):
+        kernels[v] = (added[v], kernels[twin][1])
+    compare(added["k1h_b_llc2"], kernels["k1b"][1], "k1h_b (2 llc frames)")
+    max_abs["k1h_b"] = compare(*kernels["k1h_b"], "k1h_b")
+    max_abs["k1h_e_planar"] = compare(*kernels["k1h_e_planar"], "k1h_e_planar", TOL_EQ)
+    max_abs["k1h_f"] = compare(*kernels["k1h_f"], "k1h_f", TOL_HF)
+    vertical = vertical_contacts(*kernels["k1h_g"])
+    print(f"[compare] k1h_g: {int(vertical.sum())} of {B} envs touch a vertical face in the "
+          "plain run; the tail gate holds the others")
+    max_abs["k1h_g"] = compare(*kernels["k1h_g"], "k1h_g", TOL, tail="p99", tail_envs=~vertical)
+    for v in OPTION_CONFIGS:
+        kernels[v] = (added[v], kernels["k1a"][1])
+        max_abs[v] = compare(*kernels[v], v)
+    for v, twin in (("k1a_aform", "k1a"), ("k1h_si_aform", "k1h_si")):
+        max_abs[v] = max(max_abs[v], compare_twins(added[v], kernels[twin][0],
+                                                   kernels["k1a"][1], v))
+        aform_workspace(engine, added[v], kernels[twin][0], v)
+    # every other option is another iteration: K1a's gate tells it from K1a
+    for v in ("k1a_scalar", "k1a_cold", "k1a_refactor", "k1a_aform_scalar_cold_refactor",
+              "k1a_sub2_it8"):
+        parts_from_shipped(added[v], kernels["k1a"][0], kernels["k1a"][1], v)
     ray_args = cuda(raycast_inputs(rng, 8 * B))
     ray_t, ray_h = make_raycaster((129, 129))(*ray_args)
     torch.cuda.synchronize()
@@ -1058,6 +1219,13 @@ def main() -> int:
     print(f"[main] Walker3DCustomEnv-v0 with split impulse: falls over the run "
           f"{sums['fallen']:.0f}, base height at the end median {float(state.q[:, 2].median()):.4f}"
           f" m")
+    # the walker made with each PGS option configuration: its own instance
+    for v, fields in OPTION_CONFIGS.items():
+        launches[v], *_ = drive(port, engine, card, "Walker3DCustomEnv-v0", 100,
+                                added[v].variant, instance=added[v].name,
+                                config=EngineConfig(**fields))
+    small_grid_raises(model, config)
+    combination_refused(engine, model, config)
     launches["k2"], ray_main, raycaster = raycast_main_path(engine, card, rng)
 
     # ---- phase 3 (training): the PPO trainer's CLI with --split-impulse
@@ -1072,12 +1240,19 @@ def main() -> int:
         variant = "k1h_e" if v == "k1h_e2d" else v
         train_lines[v] = train_run(engine, card, env_id, 2, 32, workdir, {variant: 64})
         launches[v] = 64
-    for env_id in ("Walker3DPDCustomEnv", "Walker2DCustomEnv", "Walker3DTerrainEnv",
-                   "Walker3DStairsEnv"):
-        split_refused(engine, env_id, workdir)
+    # this slice's split instances: every family trains with --split-impulse
+    for env_id, variant in SPLIT_FAMILIES.items():
+        short = {"k1h_e": "k1h_e_planar"}.get(variant, variant)
+        lines = train_run(engine, card, env_id, 2, 32, workdir, {variant: 64},
+                          instance=added[short].name)
+        train_lines.setdefault(short, lines)
+        launches[short] = 64
 
     # ---- phase 4: per-call times at B = 4096
-    times = {v: time_and_bound(engine, card, kernel, args)
+    twins = {"k1a_aform": kernels["k1a"][0], "k1h_si_aform": kernels["k1h_si"][0],
+             "k1a_aform_scalar_cold_refactor": engine.make_kernel(model, EngineConfig(
+                 block_pgs=False, warm_start=False, reuse_factor=False))}
+    times = {v: time_and_bound(engine, card, kernel, args, twins.get(v))
              for v, (kernel, args) in kernels.items()}
 
     cull_and_pack_time(engine, card, model, config)
@@ -1109,7 +1284,18 @@ def main() -> int:
              "k1h_c": "k1h_engine_frame_stones_split_impulse",
              "k1h_e": "k1h_engine_step_pd_rods_split_impulse",
              "k1h_e2d": "k1h_engine_step_pd_rods_planar_split_impulse",
-             "k1h_d": "k1h_engine_frame_bars_grabs_split_impulse", "k2": "k2_raycast"}
+             "k1h_d": "k1h_engine_frame_bars_grabs_split_impulse",
+             "k1h_b": "k1h_engine_step_pd_split_impulse",
+             "k1h_e_planar": "k1h_engine_frame_planar_split_impulse",
+             "k1h_f": "k1h_engine_frame_heightfield_split_impulse",
+             "k1h_g": "k1h_engine_frame_trimesh_split_impulse",
+             "k1a_aform": "k1a_engine_frame_aform_pgs",
+             "k1a_scalar": "k1a_engine_frame_scalar_friction",
+             "k1a_cold": "k1a_engine_frame_cold_start",
+             "k1a_refactor": "k1a_engine_frame_factor_every_substep",
+             "k1a_aform_scalar_cold_refactor": "k1a_engine_frame_all_options_off",
+             "k1h_si_aform": "k1h_engine_frame_split_impulse_aform_pgs",
+             "k1a_sub2_it8": "k1a_engine_frame_sub2_it8", "k2": "k2_raycast"}
     print(json.dumps({"kernels": [{
         "name": names[v],
         "route": "cuda",

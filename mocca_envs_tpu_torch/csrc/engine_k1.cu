@@ -2,9 +2,8 @@
 // (sm_90a), in the variants this file instantiates.
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
-// make_pallas_substep for floating all-revolute models at the shipped
-// EngineConfig (block PGS, matrix-free PGS, warm start, frame-start factor
-// reuse; split impulse off but in the K1h instances):
+// make_pallas_substep for floating all-revolute models under any
+// EngineConfig (the four PGS options are template flags, below):
 //
 //   K1a  plane, torque mode: one llc frame per call;
 //   K1c  K1a plus K oriented stone boxes per env (num_stones = K there);
@@ -25,9 +24,21 @@
 //        stairs, culled to the faces nearest the root;
 //   K1h  split impulse (split_impulse there, SPLIT here): the push-out
 //        bias kept out of the velocity rows and solved in a position pass
-//        whose pseudo-velocity advances the positions only; on K1a (K1h-si),
-//        K1c (K1h-c), Cassie's K1e with and without the planar lock (K1h-e,
-//        K1h-e2d) and K1d (K1h-d).
+//        whose pseudo-velocity advances the positions only; on every variant
+//        above (K1h-si on K1a, K1h-c, K1h-b, K1h-e, K1h-d, K1h-f, K1h-g).
+//
+// The PGS options, each a template flag whose default is the shipped value:
+//   MATFREE  matfree_pgs: z = Wλ carried, each row's residual on demand;
+//            false: the A-form, A = WWᵀ + cfm·I (NR × NR) built once per
+//            substep in the workspace behind the rest (WsLayout) and the
+//            residual vector carried; the same iteration, the sums in
+//            another order;
+//   BLOCK    block_pgs: each contact's friction pair as one 2×2 step; false:
+//            the two tangent rows visited one at a time, each clamped;
+//   WARM     warm_start: λ from the substep before, masked by this one's
+//            activity; false: λ from zero in every substep;
+//   REUSE    reuse_factor: CRBA and the Cholesky factor at each llc frame's
+//            first substep only; false: at every substep.
 //
 // Each llc frame runs NSUB substeps:
 //
@@ -37,12 +48,14 @@
 //   → passive torques → Newton–Euler bias → [substep 0: CRBA about the base
 //   + Cholesky] → free velocity → rows [rods × 3 | planar × 3 | grabs × 3 |
 //   joint limits | contacts × (n, t1, t2)]
-//   → W = L⁻¹Jᵀ per row → matrix-free block PGS, λ warm-started
+//   → W = L⁻¹Jᵀ per row → PGS (matrix-free or A-form, block or scalar
+//   friction, λ warm-started or cold)
 //   → [SPLIT: position pass over the limit and normal rows]
 //   → qd' = v_free + L⁻ᵀ(Wλ) → semi-implicit integrate + limit backstop.
 //
-// λ is zeroed once per call, so it is carried across the llc frames of a
-// K1b call; the factor is rebuilt at each frame's first substep.
+// λ is zeroed once per call, so with warm start it is carried across the
+// llc frames of a K1b call; the factor is rebuilt at each frame's first
+// substep (every substep without REUSE).
 //
 // Interface (all f32, contiguous, row-major):
 //   q (B,NQ), qd (B,NV), tau (B,NJ), ground_z (B,), friction (B,),
@@ -150,9 +163,10 @@
 // small dense linear algebra (CRBA, Cholesky, triangular solves, Gauss–
 // Seidel sweeps), the counterpart of the TPU kernel's one-env-per-lane
 // tile. Any B is allowed; threads past B return. The factor L (packed lower
-// triangle), the reciprocal diagonal, W (NR×NV), λ and z = Wλ live in a
-// global workspace laid out component-major, (C, B), so neighbouring
-// threads touch neighbouring addresses. Small per-link state, the stones
+// triangle), the reciprocal diagonal, W (NR×NV), λ and z = Wλ (and in the
+// A-form A and the residual) live in a global workspace laid out
+// component-major, (C, B), so neighbouring threads touch neighbouring
+// addresses. Small per-link state, the stones
 // and the per-sphere normals live in local memory. The model (sizes are
 // template constants) comes as one packed f32 table, staged into shared
 // memory once per block. The kernel launches on the caller's stream and
@@ -181,8 +195,11 @@
 // Compiled with the host compiler (K1_HOST_CHECK defined, no CUDA), the
 // same per-env code runs as a plain loop: tests use that to check this
 // file's arithmetic on machines without a card. With K1_ONLY=<n> defined
-// only the n-th instance is compiled, so that one compiler process per
-// instance can build them side by side.
+// only the n-th of the fifteen named instances is compiled, so that one
+// compiler process per instance can build them side by side. With K1_NAME
+// defined only the generic instance is, whose symbol and template arguments
+// K1_NAME, K1_NL, ..., K1_REUSE give (ops/cuda/engine.py::compile_flags):
+// any other key, built at its first use.
 
 #ifdef K1_HOST_CHECK
 #include <math.h>
@@ -248,6 +265,15 @@ struct Layout {
   static constexpr int WS_LAM = WS_W + NR * NV;   // NR
   static constexpr int WS_Z = WS_LAM + NR;        // NV
   static constexpr int WS_SIZE = WS_Z + NV;
+};
+
+// The A-form's workspace behind the matrix-free one: A (NR × NR, row-major)
+// and the residual vector (NR).
+template <class L, bool MATFREE>
+struct WsLayout {
+  static constexpr int WS_A = L::WS_SIZE;
+  static constexpr int WS_RES = WS_A + L::NR * L::NR;
+  static constexpr int SIZE = MATFREE ? L::WS_SIZE : WS_RES + L::NR;
 };
 
 HD inline void cross3(const float* a, const float* b, float* o) {
@@ -408,7 +434,7 @@ HD inline float& Lget(const WS& ws, int i, int j) {  // i >= j
 
 // ------------------------------------------------------------- substep
 template <int NL, int NS, int NLIM, int ITERS, int K, int NP2P, bool PLANAR, int KB, int NGRAB,
-          int PHF, int KT, bool SPLIT>
+          int PHF, int KT, bool SPLIT, bool MATFREE = true, bool BLOCK = true, bool WARM = true>
 HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>& e, const float* tab,
                 const WS& ws, bool factorize) {
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
@@ -941,8 +967,13 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>& e
     }
   }
 
-  // ---------------- matrix-free block PGS: carry z = Wλ, residual of row r
-  // on demand as c_r + W_r·z + cfm λ_r (the same iteration as A = WᵀW + cfm)
+  // ---------------- PGS. Matrix-free (MATFREE): carry z = Wλ, residual of
+  // row r on demand as c_r + W_r·z + cfm λ_r. A-form: A = WWᵀ + cfm I built
+  // once per substep in the workspace, the residual vector carried and
+  // moved by the visited row's column of A; the same iteration, so the two
+  // agree to the order of their sums. BLOCK: each contact's two friction
+  // rows as one coupled 2×2 step, else visited one at a time.
+  using WA = WsLayout<L, MATFREE>;
   const float cfm = tab[L::CFM];
   auto wdot = [&](int r1, int r2) {
     const int from = e.start[r1] > e.start[r2] ? e.start[r1] : e.start[r2];
@@ -950,31 +981,67 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>& e
     for (int i = from; i < NV; ++i) s += ws(L::WS_W + r1 * NV + i) * ws(L::WS_W + r2 * NV + i);
     return s;
   };
-  for (int r = 0; r < NR; ++r) e.diag[r] = fmaxf(wdot(r, r) + cfm, 1e-9f);
-  for (int s = 0; s < NS; ++s) {
-    const int t1 = NE + NLIM + 3 * s + 1, t2 = t1 + 1;
-    const float a11 = fmaxf(wdot(t1, t1) + cfm, 1e-9f);
-    const float a22 = fmaxf(wdot(t2, t2) + cfm, 1e-9f);
-    const float a12 = wdot(t1, t2);
-    const float det = fmaxf(a11 * a22 - a12 * a12, 1e-12f);
-    e.finv[s][0] = a22 / det; e.finv[s][1] = a11 / det; e.finv[s][2] = -a12 / det;
-  }
-  // warm start: the previous substep's λ, masked by this substep's activity
-  for (int i = 0; i < NV; ++i) ws(L::WS_Z + i) = 0.0f;
+  auto Aget = [&](int r1, int r2) -> float& { return ws(WA::WS_A + r1 * NR + r2); };
+  if constexpr (!MATFREE)
+    for (int r1 = 0; r1 < NR; ++r1)
+      for (int r2 = 0; r2 <= r1; ++r2) {
+        const float a = r1 == r2 ? wdot(r1, r1) + cfm : wdot(r1, r2);
+        Aget(r1, r2) = a;
+        Aget(r2, r1) = a;
+      }
+  auto adiag = [&](int r) {
+    if constexpr (MATFREE) return wdot(r, r) + cfm;
+    else return Aget(r, r);
+  };
+  for (int r = 0; r < NR; ++r) e.diag[r] = fmaxf(adiag(r), 1e-9f);
+  if constexpr (BLOCK)
+    for (int s = 0; s < NS; ++s) {
+      const int t1 = NE + NLIM + 3 * s + 1, t2 = t1 + 1;
+      const float a11 = fmaxf(adiag(t1), 1e-9f);
+      const float a22 = fmaxf(adiag(t2), 1e-9f);
+      float a12;
+      if constexpr (MATFREE) a12 = wdot(t1, t2);
+      else a12 = Aget(t1, t2);
+      const float det = fmaxf(a11 * a22 - a12 * a12, 1e-12f);
+      e.finv[s][0] = a22 / det; e.finv[s][1] = a11 / det; e.finv[s][2] = -a12 / det;
+    }
+  // warm start (WARM): the previous substep's λ, masked by this substep's
+  // activity; else λ from zero
+  if constexpr (MATFREE)
+    for (int i = 0; i < NV; ++i) ws(L::WS_Z + i) = 0.0f;
   for (int r = 0; r < NR; ++r) {
-    const float lam = ws(L::WS_LAM + r) * e.act[r];
-    ws(L::WS_LAM + r) = lam;
-    for (int i = e.start[r]; i < NV; ++i) ws(L::WS_Z + i) += ws(L::WS_W + r * NV + i) * lam;
+    if constexpr (WARM) {
+      const float lam = ws(L::WS_LAM + r) * e.act[r];
+      ws(L::WS_LAM + r) = lam;
+      if constexpr (MATFREE)
+        for (int i = e.start[r]; i < NV; ++i) ws(L::WS_Z + i) += ws(L::WS_W + r * NV + i) * lam;
+    } else {
+      ws(L::WS_LAM + r) = 0.0f;
+    }
   }
+  if constexpr (!MATFREE)
+    for (int r = 0; r < NR; ++r) {
+      float s = e.c[r];
+      if constexpr (WARM)
+        for (int j = 0; j < NR; ++j) s += Aget(r, j) * ws(L::WS_LAM + j);
+      ws(WA::WS_RES + r) = s;
+    }
   auto res = [&](int r) {
-    float s = e.c[r] + cfm * ws(L::WS_LAM + r);
-    for (int i = e.start[r]; i < NV; ++i) s += ws(L::WS_W + r * NV + i) * ws(L::WS_Z + i);
-    return s;
+    if constexpr (MATFREE) {
+      float s = e.c[r] + cfm * ws(L::WS_LAM + r);
+      for (int i = e.start[r]; i < NV; ++i) s += ws(L::WS_W + r * NV + i) * ws(L::WS_Z + i);
+      return s;
+    } else {
+      return ws(WA::WS_RES + r);
+    }
   };
   auto apply = [&](int r, float nw) {
     const float d = nw - ws(L::WS_LAM + r);
     ws(L::WS_LAM + r) = nw;
-    for (int i = e.start[r]; i < NV; ++i) ws(L::WS_Z + i) += ws(L::WS_W + r * NV + i) * d;
+    if constexpr (MATFREE)
+      for (int i = e.start[r]; i < NV; ++i) ws(L::WS_Z + i) += ws(L::WS_W + r * NV + i) * d;
+    else
+      for (int i = 0; i < NR; ++i) ws(WA::WS_RES + i) += Aget(i, r) * d;
   };
   for (int it = 0; it < ITERS; ++it) {
     for (int r = 0; r < L::NE0; ++r) apply(r, ws(L::WS_LAM + r) - res(r) / e.diag[r]);
@@ -987,38 +1054,75 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>& e
       const int b0 = NE + NLIM + 3 * s;
       apply(b0, fmaxf(0.0f, ws(L::WS_LAM + b0) - res(b0) / e.diag[b0]) * e.act[b0]);
       const float bound = e.fric * ws(L::WS_LAM + b0);
-      const float r1 = res(b0 + 1), r2 = res(b0 + 2);
-      const float d1 = -(e.finv[s][0] * r1 + e.finv[s][2] * r2);
-      const float d2 = -(e.finv[s][2] * r1 + e.finv[s][1] * r2);
-      const float l1 = ws(L::WS_LAM + b0 + 1), l2 = ws(L::WS_LAM + b0 + 2);
-      const float n1 = clampf(l1 + d1, -bound, bound) * e.act[b0 + 1];
-      const float n2 = clampf(l2 + d2, -bound, bound) * e.act[b0 + 2];
-      const float e1 = n1 - l1, e2 = n2 - l2;
-      ws(L::WS_LAM + b0 + 1) = n1;
-      ws(L::WS_LAM + b0 + 2) = n2;
-      for (int i = 0; i < NV; ++i)
-        ws(L::WS_Z + i) += ws(L::WS_W + (b0 + 1) * NV + i) * e1 + ws(L::WS_W + (b0 + 2) * NV + i) * e2;
+      if constexpr (BLOCK) {
+        const float r1 = res(b0 + 1), r2 = res(b0 + 2);
+        const float d1 = -(e.finv[s][0] * r1 + e.finv[s][2] * r2);
+        const float d2 = -(e.finv[s][2] * r1 + e.finv[s][1] * r2);
+        const float l1 = ws(L::WS_LAM + b0 + 1), l2 = ws(L::WS_LAM + b0 + 2);
+        const float n1 = clampf(l1 + d1, -bound, bound) * e.act[b0 + 1];
+        const float n2 = clampf(l2 + d2, -bound, bound) * e.act[b0 + 2];
+        const float e1 = n1 - l1, e2 = n2 - l2;
+        ws(L::WS_LAM + b0 + 1) = n1;
+        ws(L::WS_LAM + b0 + 2) = n2;
+        if constexpr (MATFREE)
+          for (int i = 0; i < NV; ++i)
+            ws(L::WS_Z + i) +=
+                ws(L::WS_W + (b0 + 1) * NV + i) * e1 + ws(L::WS_W + (b0 + 2) * NV + i) * e2;
+        else
+          for (int i = 0; i < NR; ++i)
+            ws(WA::WS_RES + i) += Aget(i, b0 + 1) * e1 + Aget(i, b0 + 2) * e2;
+      } else {                 // scalar rows, t1 then t2, each box-clamped
+        for (int t = b0 + 1; t <= b0 + 2; ++t)
+          apply(t, clampf(ws(L::WS_LAM + t) - res(t) / e.diag[t], -bound, bound) * e.act[t]);
+      }
     }
   }
   for (int s = 0; s < NS; ++s) e.nimp[s] = ws(L::WS_LAM + NE + NLIM + 3 * s);
+  // A-form: z = Wλ once, after the sweeps
+  if constexpr (!MATFREE) {
+    for (int i = 0; i < NV; ++i) ws(L::WS_Z + i) = 0.0f;
+    for (int r = 0; r < NR; ++r) {
+      const float lam = ws(L::WS_LAM + r);
+      for (int i = e.start[r]; i < NV; ++i) ws(L::WS_Z + i) += ws(L::WS_W + r * NV + i) * lam;
+    }
+  }
 
   // ---------------- split impulse: the position pass. Scalar PGS over the
   // limit rows and the contact normals only (the equality rows are masked,
   // the friction rows bounded to [0, 0] by μ = 0), from λ_pos = 0 against
-  // −bias, with the same W, diagonals and activity; z_pos = Wλ_pos carried.
+  // −bias, with the same W, diagonals and activity; z_pos = Wλ_pos carried
+  // (A-form: the residual carried from −bias through A's columns, z_pos
+  // made once after the sweeps).
   if constexpr (SPLIT) {
     constexpr int NP = NLIM + NS;
+    auto prow = [](int k) { return k < NLIM ? NE + k : NE + NLIM + 3 * (k - NLIM); };
     for (int i = 0; i < NV; ++i) e.zpos[i] = 0.0f;
     for (int k = 0; k < NP; ++k) e.lpos[k] = 0.0f;
+    if constexpr (!MATFREE) {
+      for (int r = 0; r < NR; ++r) ws(WA::WS_RES + r) = 0.0f;
+      for (int k = 0; k < NP; ++k) ws(WA::WS_RES + prow(k)) = -e.bpos[k];
+    }
     for (int it = 0; it < ITERS; ++it)
       for (int k = 0; k < NP; ++k) {
-        const int r = k < NLIM ? NE + k : NE + NLIM + 3 * (k - NLIM);
-        float res_p = cfm * e.lpos[k] - e.bpos[k];
-        for (int i = e.start[r]; i < NV; ++i) res_p += ws(L::WS_W + r * NV + i) * e.zpos[i];
-        const float nw = fmaxf(0.0f, e.lpos[k] - res_p / e.diag[r]) * e.act[r];
-        const float d = nw - e.lpos[k];
-        e.lpos[k] = nw;
-        for (int i = e.start[r]; i < NV; ++i) e.zpos[i] += ws(L::WS_W + r * NV + i) * d;
+        const int r = prow(k);
+        if constexpr (MATFREE) {
+          float res_p = cfm * e.lpos[k] - e.bpos[k];
+          for (int i = e.start[r]; i < NV; ++i) res_p += ws(L::WS_W + r * NV + i) * e.zpos[i];
+          const float nw = fmaxf(0.0f, e.lpos[k] - res_p / e.diag[r]) * e.act[r];
+          const float d = nw - e.lpos[k];
+          e.lpos[k] = nw;
+          for (int i = e.start[r]; i < NV; ++i) e.zpos[i] += ws(L::WS_W + r * NV + i) * d;
+        } else {
+          const float nw = fmaxf(0.0f, e.lpos[k] - ws(WA::WS_RES + r) / e.diag[r]) * e.act[r];
+          const float d = nw - e.lpos[k];
+          e.lpos[k] = nw;
+          for (int i = 0; i < NR; ++i) ws(WA::WS_RES + i) += Aget(i, r) * d;
+        }
+      }
+    if constexpr (!MATFREE)
+      for (int k = 0; k < NP; ++k) {
+        const int r = prow(k);
+        for (int i = e.start[r]; i < NV; ++i) e.zpos[i] += ws(L::WS_W + r * NV + i) * e.lpos[k];
       }
   }
 
@@ -1063,10 +1167,12 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>& e
 }
 
 // One call for env t: NLLC llc frames of NSUB substeps, λ zeroed once at
-// the start. PD: ``tau`` holds joint targets and each frame's torque is
-// gain·(target − q) at the frame's start; else the torques are held.
+// the start (and at every substep without WARM). PD: ``tau`` holds joint
+// targets and each frame's torque is gain·(target − q) at the frame's
+// start; else the torques are held.
 template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
-          bool PLANAR, int KB, int NGRAB, int PHF, int KT, bool SPLIT>
+          bool PLANAR, int KB, int NGRAB, int PHF, int KT, bool SPLIT, bool MATFREE = true,
+          bool BLOCK = true, bool WARM = true, bool REUSE = true>
 KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const float* gz,
                       const float* fric, const float* stones, const float* bars,
                       const float* grabs, const float* hf, const float* tris, float* q_out,
@@ -1114,9 +1220,9 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
     if constexpr (PD)
       for (int j = 0; j < L::NJ; ++j)
         e.tau[j] = tab[L::PDGAIN + j] * (target[j] - e.q[7 + j]);
-    for (int sub = 0; sub < NSUB; ++sub)
-      substep<NL, NS, NLIM, ITERS, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>(e, tab, ws,
-                                                                              sub == 0);
+    for (int sub = 0; sub < NSUB; ++sub)   // REUSE: the factor of each frame's first substep
+      substep<NL, NS, NLIM, ITERS, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT, MATFREE, BLOCK,
+              WARM>(e, tab, ws, sub == 0 || !REUSE);
   }
   for (int i = 0; i < L::NQ; ++i) q_out[(long long)t * L::NQ + i] = e.q[i];
   for (int i = 0; i < L::NV; ++i) qd_out[(long long)t * L::NV + i] = e.qd[i];
@@ -1130,7 +1236,8 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
 constexpr int kThreads = 32;   // one warp per block: B = 4096 spreads over 128 SMs
 
 template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
-          bool PLANAR, int KB, int NGRAB, int PHF, int KT, bool SPLIT>
+          bool PLANAR, int KB, int NGRAB, int PHF, int KT, bool SPLIT, bool MATFREE, bool BLOCK,
+          bool WARM, bool REUSE>
 __global__ void __launch_bounds__(kThreads)
 k1_kernel(const float* __restrict__ q, const float* __restrict__ qd,
           const float* __restrict__ tau, const float* __restrict__ gz,
@@ -1146,13 +1253,15 @@ k1_kernel(const float* __restrict__ q, const float* __restrict__ qd,
   __syncthreads();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= B) return;
-  frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>(
+  frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT, MATFREE,
+        BLOCK, WARM, REUSE>(
       q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out, depth_out, nimp_out, tab,
       ws, B, t);
 }
 
 template <int NL, int NS, int NLIM, int NSUB, int ITERS, int K, bool PD, int NLLC, int NP2P,
-          bool PLANAR, int KB, int NGRAB, int PHF, int KT, bool SPLIT>
+          bool PLANAR, int KB, int NGRAB, int PHF, int KT, bool SPLIT, bool MATFREE, bool BLOCK,
+          bool WARM, bool REUSE>
 int launch(const float* q, const float* qd, const float* tau, const float* gz, const float* fric,
            const float* stones, const float* bars, const float* grabs, const float* hf,
            const float* tris, float* q_out, float* qd_out, float* depth, float* nimp,
@@ -1163,7 +1272,8 @@ int launch(const float* q, const float* qd, const float* tau, const float* gz, c
       (PHF > 0 && hf == nullptr) || (KT > 0 && tris == nullptr))
     return (int)cudaErrorInvalidValue;
   const int blocks = (B + kThreads - 1) / kThreads;
-  k1_kernel<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>
+  k1_kernel<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT, MATFREE,
+            BLOCK, WARM, REUSE>
       <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
           q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out, depth, nimp, table,
           ws, B);
@@ -1175,51 +1285,65 @@ int launch(const float* q, const float* qd, const float* tau, const float* gz, c
 
 // ------------------------------------------------------------ C interface
 // One entry per instance: (NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P,
-// PLANAR, KB, NGRAB, PHF, KT, SPLIT). ops/cuda/engine.py::INSTANTIATIONS
-// lists the same names and numbers.
+// PLANAR, KB, NGRAB, PHF, KT, SPLIT) at the shipped solver options, and
+// K1_INSTANCE_OPT with (MATFREE, BLOCK, WARM, REUSE) behind them.
+// ops/cuda/engine.py::INSTANTIATIONS lists the same names and numbers.
 #define K1_INSTANCE(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB,   \
                     PHF, KT, SPLIT)                                                          \
+  K1_INSTANCE_OPT(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF, \
+                  KT, SPLIT, true, true, true, true)
+#define K1_TARGS(NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF, KT,     \
+                 SPLIT, MATFREE, BLOCK, WARM, REUSE)                                         \
+  NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT, MATFREE,  \
+      BLOCK, WARM, REUSE
+#define K1_INSTANCE_OPT(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, \
+                        PHF, KT, SPLIT, MATFREE, BLOCK, WARM, REUSE)                         \
   extern "C" int NAME##_layout(int* table_size, int* ws_per_env) {                          \
-    *table_size = k1::Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>::SIZE;                   \
-    *ws_per_env = k1::Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>::WS_SIZE;                \
+    using L_ = k1::Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;                            \
+    *table_size = L_::SIZE;                                                                  \
+    *ws_per_env = k1::WsLayout<L_, MATFREE>::SIZE;                                           \
     return 0;                                                                                \
   }                                                                                          \
-  K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF, KT,   \
-           SPLIT)
+  K1_ENTRY(NAME, K1_TARGS(NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB,   \
+                          PHF, KT, SPLIT, MATFREE, BLOCK, WARM, REUSE),                      \
+           (k1::Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>::SIZE))
+// Any other key: one instance whose name and template arguments come from
+// -D macros (ops/cuda/engine.py::compile_flags), built at its first use.
+#define K1_GENERIC(...) K1_INSTANCE_OPT(__VA_ARGS__)
 
 #ifndef K1_HOST_CHECK
-#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF,  \
-                 KT, SPLIT)                                                                  \
+#define K1_ENTRY(NAME, TARGS, TABLE_SIZE)                                                    \
   extern "C" int NAME##_launch(const float* q, const float* qd, const float* tau,           \
                                const float* gz, const float* fric, const float* stones,     \
                                const float* bars, const float* grabs, const float* hf,      \
                                const float* tris, float* q_out, float* qd_out,              \
                                float* depth, float* nimp, const float* table,               \
                                int table_size, float* ws, int B, void* stream) {            \
-    return k1::launch<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF,  \
-                      KT, SPLIT>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, \
-                                 qd_out, depth, nimp, table, table_size, ws, B, stream);    \
+    return k1::launch<TARGS>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out,     \
+                             qd_out, depth, nimp, table, table_size, ws, B, stream);        \
   }
 #else
 // host check: the same per-env code as a plain loop over envs
-#define K1_ENTRY(NAME, NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF,  \
-                 KT, SPLIT)                                                                  \
+#define K1_ENTRY(NAME, TARGS, TABLE_SIZE)                                                    \
   extern "C" int NAME##_host(const float* q, const float* qd, const float* tau,             \
                              const float* gz, const float* fric, const float* stones,       \
                              const float* bars, const float* grabs, const float* hf,        \
                              const float* tris, float* q_out, float* qd_out, float* depth,  \
                              float* nimp, const float* table, int table_size, float* ws,    \
                              int B) {                                                        \
-    if (table_size != k1::Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>::SIZE || B <= 0)     \
-      return 1;                                                                              \
+    if (table_size != TABLE_SIZE || B <= 0) return 1;                                        \
     for (int t = 0; t < B; ++t)                                                              \
-      k1::frame<NL, NS, NLIM, NSUB, ITERS, K, PD, NLLC, NP2P, PLANAR, KB, NGRAB, PHF, KT,    \
-                SPLIT>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out,   \
+      k1::frame<TARGS>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out,   \
                        depth, nimp, table, ws, B, t);                                        \
     return 0;                                                                                \
   }
 #endif
 
+#ifdef K1_NAME
+K1_GENERIC(K1_NAME, K1_NL, K1_NS, K1_NLIM, K1_NSUB, K1_ITERS, K1_K, K1_PD, K1_NLLC, K1_NP2P,
+           K1_PLANAR, K1_KB, K1_NGRAB, K1_PHF, K1_KT, K1_SPLIT, K1_MATFREE, K1_BLOCK, K1_WARM,
+           K1_REUSE)
+#else
 // Walker3D / Child3D at the shipped EngineConfig: 22 links, 14 spheres, 21
 // limit rows, 4 substeps, 4 sweeps.
 #if !defined(K1_ONLY) || K1_ONLY == 0
@@ -1288,3 +1412,4 @@ K1_INSTANCE(k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si, 17, 5, 16, 2, 4, 
 #if !defined(K1_ONLY) || K1_ONLY == 14
 K1_INSTANCE(k1h_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si, 11, 5, 8, 4, 4, 0, false, 1, 0, false, 16, 2, 0, 0, true)
 #endif
+#endif  // K1_NAME

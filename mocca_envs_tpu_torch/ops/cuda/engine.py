@@ -1,20 +1,27 @@
 """K1: the fused engine kernel on Hopper, its wrappers and its plain version.
 
 Counterpart of ``mocca_envs_tpu/ops/pallas/engine.py::make_pallas_substep``
-for floating all-revolute models at the shipped EngineConfig, in eight
-variants: K1a (plane, torque mode), K1c (K1a plus ``stone_window`` oriented
-stone boxes), K1b (PD mode: the whole control step, joint targets in the
-``tau`` input), K1e (the equality rows of a ``ConstraintSpec`` in front
-of the others: point-to-point rods and the planar base lock, in torque or PD
-mode), K1d (bar capsules and the maskable grab rows, torque mode), K1f
-(K1a plus a per-env ``HF_PATCH × HF_PATCH`` heightfield window), K1g (K1a
-plus ``tri_window`` triangle-mesh faces) and K1h (``split_impulse``: the
-bias split and the position pass) on K1a (K1h-si), K1c (K1h-c), Cassie's
-K1e (K1h-e, K1h-e2d) and K1d (K1h-d). The kernel is CUDA C++ in
-``csrc/engine_k1.cu``, one source for all variants. At first use every instantiation is built with ``nvcc``
-for ``sm_90a`` into ``build/``, one compiler process per instantiation, all
-started together (with the raycast kernel K2 of ``csrc/raycast_k2.cu``, whose
-wrapper is ``ops/raycast.py``), and called through a plain C interface with
+for floating all-revolute models, in eight variants: K1a (plane, torque
+mode), K1c (K1a plus ``stone_window`` oriented stone boxes), K1b (PD mode:
+the whole control step, joint targets in the ``tau`` input), K1e (the
+equality rows of a ``ConstraintSpec`` in front of the others: point-to-point
+rods and the planar base lock, in torque or PD mode), K1d (bar capsules and
+the maskable grab rows, torque mode), K1f (K1a plus a per-env ``HF_PATCH ×
+HF_PATCH`` heightfield window), K1g (K1a plus ``tri_window`` triangle-mesh
+faces) and K1h (``split_impulse``: the bias split and the position pass) on
+each of them (K1hSi on the walker's plane), each under any ``EngineConfig``:
+the PGS options ``matfree_pgs`` (else the A-form), ``block_pgs`` (else
+scalar friction rows), ``warm_start`` and ``reuse_factor``, any substeps and
+sweeps. The kernel is CUDA C++ in ``csrc/engine_k1.cu``, one source for all
+of them. An instance is picked by its :class:`Key`: the fifteen the source
+names (:data:`INSTANTIATIONS`, the shipped families at the shipped options)
+and, for any other key, the generic instance whose name
+(:func:`canonical_symbol`) and template arguments come from preprocessor
+flags (:func:`compile_flags`). :func:`build` compiles them with ``nvcc`` for
+``sm_90a`` into ``build/``, one compiler process per instance, all started
+together (with the raycast kernel K2 of ``csrc/raycast_k2.cu``, whose
+wrapper is ``ops/raycast.py``); a generic instance is built at the first
+launch of its key. They are called through a plain C interface with
 ``ctypes``.
 
 - :class:`K1a`, :class:`K1c`, :class:`K1b`, :class:`K1e`, :class:`K1d`,
@@ -26,9 +33,13 @@ wrapper is ``ops/raycast.py``), and called through a plain C interface with
 - ``plain`` is the plain PyTorch version: the port's ``ops/step.py`` path
   run for the same unit, on any device.
 - ``LAUNCHES["k1a" | "k1b" | "k1c" | "k1e" | "k1d" | "k1f" | "k1g" |
-  "k1h_si" | "k1h_c" | "k1h_e" | "k1h_d" | "k2"]`` counts kernel launches
-  (plain runs do not count); a split-impulse instance counts under its
-  own name.
+  "k1h_si" | "k1h_c" | "k1h_b" | "k1h_e" | "k1h_d" | "k1h_f" | "k1h_g" |
+  "k2"]`` counts kernel launches (plain runs do not count); a split-impulse
+  instance counts under its own name, and each PGS option turned off adds
+  its tag (``k1a_aform``, ``k1h_si_aform``, ``k1a_scalar``, ``k1a_cold``,
+  ``k1a_refactor``, ...). ``INSTANCE_LAUNCHES[symbol]`` counts the same K1
+  launches by the instance that ran, which tells apart keys that share a
+  name (the walker at 2 substeps × 8 sweeps counts as ``k1a`` there).
 """
 
 from __future__ import annotations
@@ -70,58 +81,117 @@ TRI_FLOATS = 10     # vertices a, b, c (3 each), active (1)
 
 
 @dataclasses.dataclass(frozen=True)
+class Key:
+    """What picks a K1 instance: the model's sizes, the solver's substeps and
+    sweeps, the scene's windows, the actuation, the equality rows, split
+    impulse and the four PGS options. Torque mode launches once per llc
+    frame (``llc == 1``)."""
+
+    nl: int
+    ns: int
+    nlim: int
+    substeps: int
+    iters: int
+    stones: int = 0
+    pd: bool = False
+    llc: int = 1            # llc frames per launch (PD mode)
+    rods: int = 0
+    planar: bool = False
+    bars: int = 0
+    grabs: int = 0
+    hf: int = 0             # heightfield window side
+    tris: int = 0           # mesh face window
+    split: bool = False
+    matfree: bool = True    # matfree_pgs (else the A-form)
+    block: bool = True      # block_pgs (else scalar friction rows)
+    warm: bool = True       # warm_start (else λ from zero every substep)
+    reuse: bool = True      # reuse_factor (else a factor every substep)
+
+
+@dataclasses.dataclass(frozen=True)
 class Instance:
-    """One instantiation of the kernel template in the source."""
+    """One instantiation of the kernel template in the source: one of the
+    fifteen named there (``index`` is its K1_ONLY number) or, for any other
+    key, the generic one (``index`` None) built from ``compile_flags``."""
 
     symbol: str   # C symbol prefix
-    index: int    # its K1_ONLY number there
+    index: int | None
+    key: Key
 
 
-# (nl, ns, nlim, sim_substeps, solver_iters, stones, pd_mode, llc frames per
-# launch, rods, planar lock, bars, grabs, heightfield window side, mesh face
-# window, split impulse) → instantiation; torque mode launches once per llc
-# frame
-INSTANTIATIONS = {
-    (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0, 0, 0, False):
-        Instance("k1a_nl22_ns14_nlim21_sub4_it4", 0),
-    (22, 14, 21, 4, 4, 6, False, 1, 0, False, 0, 0, 0, 0, False):
-        Instance("k1c_nl22_ns14_nlim21_sub4_it4_k6", 1),
-    (22, 14, 21, 4, 4, 0, True, 1, 0, False, 0, 0, 0, 0, False):
-        Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc1", 2),
-    (22, 14, 21, 4, 4, 0, True, 2, 0, False, 0, 0, 0, 0, False):
-        Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc2", 3),
+_W = dict(nl=22, ns=14, nlim=21, substeps=4, iters=4)         # Walker3D / Child3D
+_C = dict(nl=17, ns=5, nlim=16, substeps=2, iters=4, pd=True, llc=10, rods=2)   # Cassie
+_M = dict(nl=11, ns=5, nlim=8, substeps=4, iters=4, bars=16, grabs=2)           # Monkey3D
+# the fifteen instances the source names, at the shipped solver options
+INSTANTIATIONS = {inst.key: inst for inst in (
+    Instance("k1a_nl22_ns14_nlim21_sub4_it4", 0, Key(**_W)),
+    Instance("k1c_nl22_ns14_nlim21_sub4_it4_k6", 1, Key(**_W, stones=6)),
+    Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc1", 2, Key(**_W, pd=True)),
+    Instance("k1b_nl22_ns14_nlim21_sub4_it4_llc2", 3, Key(**_W, pd=True, llc=2)),
     # Cassie and Cassie2D: the whole control step, 10 llc frames × 2 substeps
-    (17, 5, 16, 2, 4, 0, True, 10, 2, False, 0, 0, 0, 0, False):
-        Instance("k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 4),
-    (17, 5, 16, 2, 4, 0, True, 10, 2, True, 0, 0, 0, 0, False):
-        Instance("k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar", 5),
+    Instance("k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 4, Key(**_C)),
+    Instance("k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar", 5, Key(**_C, planar=True)),
     # Walker2D and Crab2D
-    (7, 5, 6, 4, 4, 0, False, 1, 0, True, 0, 0, 0, 0, False):
-        Instance("k1e_nl7_ns5_nlim6_sub4_it4_planar", 6),
+    Instance("k1e_nl7_ns5_nlim6_sub4_it4_planar", 6,
+             Key(nl=7, ns=5, nlim=6, substeps=4, iters=4, planar=True)),
     # Monkey3D: 16 bars, two grabs
-    (11, 5, 8, 4, 4, 0, False, 1, 0, False, 16, 2, 0, 0, False):
-        Instance("k1d_nl11_ns5_nlim8_sub4_it4_kb16_ng2", 7),
+    Instance("k1d_nl11_ns5_nlim8_sub4_it4_kb16_ng2", 7, Key(**_M)),
     # Walker3D over a 16 × 16 heightfield window (the terrain families)
-    (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0, 16, 0, False):
-        Instance("k1f_nl22_ns14_nlim21_sub4_it4_hf16", 8),
+    Instance("k1f_nl22_ns14_nlim21_sub4_it4_hf16", 8, Key(**_W, hf=16)),
     # Walker3D over 16 culled mesh faces (the stairs)
-    (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0, 0, 16, False):
-        Instance("k1g_nl22_ns14_nlim21_sub4_it4_kt16", 9),
-    # Walker3D on the plane with split impulse
-    (22, 14, 21, 4, 4, 0, False, 1, 0, False, 0, 0, 0, 0, True):
-        Instance("k1h_nl22_ns14_nlim21_sub4_it4_si", 10),
-    # ... and split impulse on the stepper, Cassie, Cassie2D and the monkey
-    (22, 14, 21, 4, 4, 6, False, 1, 0, False, 0, 0, 0, 0, True):
-        Instance("k1h_nl22_ns14_nlim21_sub4_it4_k6_si", 11),
-    (17, 5, 16, 2, 4, 0, True, 10, 2, False, 0, 0, 0, 0, True):
-        Instance("k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si", 12),
-    (17, 5, 16, 2, 4, 0, True, 10, 2, True, 0, 0, 0, 0, True):
-        Instance("k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si", 13),
-    (11, 5, 8, 4, 4, 0, False, 1, 0, False, 16, 2, 0, 0, True):
-        Instance("k1h_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si", 14),
-}
+    Instance("k1g_nl22_ns14_nlim21_sub4_it4_kt16", 9, Key(**_W, tris=16)),
+    # split impulse: the walker on the plane, the stepper, Cassie, Cassie2D,
+    # the monkey
+    Instance("k1h_nl22_ns14_nlim21_sub4_it4_si", 10, Key(**_W, split=True)),
+    Instance("k1h_nl22_ns14_nlim21_sub4_it4_k6_si", 11, Key(**_W, stones=6, split=True)),
+    Instance("k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si", 12, Key(**_C, split=True)),
+    Instance("k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si", 13,
+             Key(**_C, planar=True, split=True)),
+    Instance("k1h_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si", 14, Key(**_M, split=True)),
+)}
+
+
+def canonical_symbol(key: Key) -> str:
+    """The C symbol prefix of the generic instance for ``key``."""
+    parts = [f"k1_nl{key.nl}_ns{key.ns}_nlim{key.nlim}_sub{key.substeps}_it{key.iters}"]
+    for on, tag in ((key.stones, f"k{key.stones}"), (key.pd, f"llc{key.llc}"),
+                    (key.rods, f"p2p{key.rods}"), (key.planar, "planar"),
+                    (key.bars, f"kb{key.bars}"), (key.grabs, f"ng{key.grabs}"),
+                    (key.hf, f"hf{key.hf}"), (key.tris, f"kt{key.tris}"), (key.split, "si"),
+                    (not key.matfree, "aform"), (not key.block, "scalar"),
+                    (not key.warm, "cold"), (not key.reuse, "refactor")):
+        if on:
+            parts.append(tag)
+    return "_".join(parts)
+
+
+def instance_for(key: Key) -> Instance:
+    """The named instance of ``key``, else the generic one."""
+    return INSTANTIATIONS.get(key) or Instance(canonical_symbol(key), None, key)
+
+
+def compile_flags(inst: Instance) -> list:
+    """The preprocessor flags that select ``inst`` from the source, for nvcc
+    and for the host check alike: ``K1_ONLY`` for a named instance, else the
+    generic instance's name and template arguments."""
+    if inst.index is not None:
+        return [f"-DK1_ONLY={inst.index}"]
+    k = inst.key
+    b = lambda x: "true" if x else "false"  # noqa: E731
+    values = {"NAME": inst.symbol, "NL": k.nl, "NS": k.ns, "NLIM": k.nlim, "NSUB": k.substeps,
+              "ITERS": k.iters, "K": k.stones, "PD": b(k.pd), "NLLC": k.llc, "NP2P": k.rods,
+              "PLANAR": b(k.planar), "KB": k.bars, "NGRAB": k.grabs, "PHF": k.hf, "KT": k.tris,
+              "SPLIT": b(k.split), "MATFREE": b(k.matfree), "BLOCK": b(k.block),
+              "WARM": b(k.warm), "REUSE": b(k.reuse)}
+    return [f"-DK1_{name}={v}" for name, v in values.items()]
+
 
 LAUNCHES: collections.Counter = collections.Counter()
+# the same K1 launches by the instance that ran (its symbol)
+INSTANCE_LAUNCHES: collections.Counter = collections.Counter()
+# the tag of each PGS option in a count's name, where the config turns it off
+OPTION_TAGS = {"matfree_pgs": "aform", "block_pgs": "scalar", "warm_start": "cold",
+               "reuse_factor": "refactor"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -139,29 +209,29 @@ def nvcc_path() -> str:
 
 
 class _Library:
-    """The built shared libraries (one per instantiation), loaded once per
-    process, and nvcc's register / spill report of each."""
+    """The built shared libraries (one per instance, and K2's), loaded once
+    per process, and nvcc's register / spill report of each."""
 
     handles: dict = {}
     logs: dict = {}
 
 
-def library_path(inst: Instance) -> Path:
-    return BUILD_DIR / f"lib{inst.symbol}.so"
-
-
-def build() -> dict:
-    """Compile every instantiation of ``csrc/engine_k1.cu`` and the raycast
-    kernel of ``csrc/raycast_k2.cu`` whose library is missing or older than
-    its source, all compilers started together, and load them: ``{symbol:
-    CDLL}``. A failed build raises with nvcc's output; ``_Library.logs``
-    keeps nvcc's report per symbol."""
-    if _Library.handles:
+def build(keys=()) -> dict:
+    """Compile the fifteen named instances of ``csrc/engine_k1.cu``, the
+    generic instance of each of ``keys`` and the raycast kernel of
+    ``csrc/raycast_k2.cu`` whose library is missing or older than its
+    source, all compilers started together, and load them: ``{symbol:
+    CDLL}``. What is loaded already is kept; a failed build raises with
+    nvcc's output; ``_Library.logs`` keeps nvcc's report per symbol."""
+    insts = {i.symbol: i for i in [*INSTANTIATIONS.values(), *map(instance_for, keys)]}
+    if all(sym in _Library.handles for sym in [*insts, RAYCAST_SYMBOL]):
         return _Library.handles
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = [(sym, SOURCE, compile_flags(inst)) for sym, inst in insts.items()
+            if sym not in _Library.handles]
+    if RAYCAST_SYMBOL not in _Library.handles:
+        jobs.append((RAYCAST_SYMBOL, RAYCAST_SOURCE, []))
     running = []
-    jobs = [(inst.symbol, SOURCE, [f"-DK1_ONLY={inst.index}"])
-            for inst in INSTANTIATIONS.values()] + [(RAYCAST_SYMBOL, RAYCAST_SOURCE, [])]
     for symbol, source, flags in jobs:
         lib = BUILD_DIR / f"lib{symbol}.so"
         if lib.exists() and lib.stat().st_mtime >= source.stat().st_mtime:
@@ -182,25 +252,22 @@ def build() -> dict:
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("\n".join(failed))
-    handles = {}
-    for inst in INSTANTIATIONS.values():
-        lib = ctypes.CDLL(str(library_path(inst)))
-        getattr(lib, inst.symbol + "_layout").argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
-        getattr(lib, inst.symbol + "_layout").restype = _I
-        fn = getattr(lib, inst.symbol + "_launch")
-        fn.argtypes = [_P] * 15 + [_I, _P, _I, _P]
+    for symbol, _, _ in jobs:
+        lib = ctypes.CDLL(str(BUILD_DIR / f"lib{symbol}.so"))
+        if symbol == RAYCAST_SYMBOL:
+            fn = getattr(lib, RAYCAST_SYMBOL + "_launch")
+            # origins, directions, grid, H, W, xy0, cell, max_t, dt, steps, t
+            # out, h out, B, stream
+            fn.argtypes = [_P, _P, _P, _I, _I, _P, _P, ctypes.c_float, ctypes.c_float, _I, _P,
+                           _P, _I, _P]
+        else:
+            getattr(lib, symbol + "_layout").argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
+            getattr(lib, symbol + "_layout").restype = _I
+            fn = getattr(lib, symbol + "_launch")
+            fn.argtypes = [_P] * 15 + [_I, _P, _I, _P]
         fn.restype = _I
-        handles[inst.symbol] = lib
-    lib = ctypes.CDLL(str(BUILD_DIR / f"lib{RAYCAST_SYMBOL}.so"))
-    fn = getattr(lib, RAYCAST_SYMBOL + "_launch")
-    # origins, directions, grid, H, W, xy0, cell, max_t, dt, steps, t out,
-    # h out, B, stream
-    fn.argtypes = [_P, _P, _P, _I, _I, _P, _P, ctypes.c_float, ctypes.c_float, _I, _P, _P, _I,
-                   _P]
-    fn.restype = _I
-    handles[RAYCAST_SYMBOL] = lib
-    _Library.handles = handles
-    return handles
+        _Library.handles[symbol] = lib
+    return _Library.handles
 
 
 def layout(lib, name: str) -> tuple[int, int]:
@@ -210,28 +277,17 @@ def layout(lib, name: str) -> tuple[int, int]:
     return table.value, ws.value
 
 
-def _check_supported(model: RobotModel, config: EngineConfig, num_stones: int, num_bars: int,
-                     pd_mode: bool, constraints: ConstraintSpec, hf_patch: int,
-                     num_tris: int) -> Instance:
+def kernel_key(model: RobotModel, config: EngineConfig, num_stones: int, num_bars: int,
+               pd_mode: bool, constraints: ConstraintSpec, hf_patch: int, num_tris: int) -> Key:
+    """The key of one (model, config, scene, actuation, constraints); raises
+    for the models the kernel does not cover."""
     if not model.floating or any(t != REVOLUTE for t in model.jtype):
         raise NotImplementedError("K1 covers floating-base all-revolute models")
-    options = dict(block_pgs=True, matfree_pgs=True, warm_start=True, reuse_factor=True)
-    off = {k: getattr(config, k) for k, v in options.items() if getattr(config, k) != v}
-    if off:
-        raise NotImplementedError(f"K1 runs the shipped solver options; got {off}")
-    key = (model.nl, model.ns, len(limited_joints(model)), config.sim_substeps,
-           config.solver_iters, num_stones, pd_mode, config.llc_frames if pd_mode else 1,
-           constraints.num_p2p, constraints.planar, num_bars, constraints.num_grabs, hf_patch,
-           num_tris, config.split_impulse)
-    if key not in INSTANTIATIONS:
-        split = (" with split impulse (built for the walker on the plane and over stones, "
-                 "Cassie, Cassie2D and the monkey)" if config.split_impulse else "")
-        raise NotImplementedError(
-            f"no K1 instantiation{split} for (nl, ns, nlim, substeps, iters, stones, pd_mode, "
-            f"llc frames, rods, planar, bars, grabs, hf window, mesh faces, split) = {key}; "
-            f"built: {sorted(INSTANTIATIONS)}"
-        )
-    return INSTANTIATIONS[key]
+    return Key(model.nl, model.ns, len(limited_joints(model)), config.sim_substeps,
+               config.solver_iters, num_stones, pd_mode, config.llc_frames if pd_mode else 1,
+               constraints.num_p2p, constraints.planar, num_bars, constraints.num_grabs, hf_patch,
+               num_tris, config.split_impulse, config.matfree_pgs, config.block_pgs,
+               config.warm_start, config.reuse_factor)
 
 
 def pack_tables(model: RobotModel, config: EngineConfig, extra_damping=None,
@@ -374,7 +430,11 @@ class EngineKernel:
     the whole control step; else it is one llc frame. ``plain_unit`` is the
     plain unit to compare against (built here when not given). A variant
     with a ``split_variant`` runs split impulse when ``config`` asks for it,
-    counted under that name; ``split`` says whether this one runs it.
+    counted under that name; ``split`` says whether this one runs it. Each
+    PGS option ``config`` turns off adds its tag to the count's name
+    (:data:`OPTION_TAGS`). The instance is the one of the key
+    (:func:`kernel_key`): a named one, or the generic one built at its first
+    launch.
     """
 
     variant = "k1"
@@ -390,10 +450,15 @@ class EngineKernel:
                 + ("; the walker's split-impulse instance is K1hSi" if self.variant == "k1a"
                    else ""))
         self.split = config.split_impulse
-        if self.split:
-            self.variant = self.split_variant
-        self.instance = _check_supported(model, config, num_stones, num_bars, pd_mode,
-                                         constraints, hf_patch, num_tris)
+        self.variant = (self.split_variant if self.split else self.variant) + "".join(
+            f"_{tag}" for flag, tag in OPTION_TAGS.items() if not getattr(config, flag))
+        for link in (*constraints.p2p_link_a, *constraints.p2p_link_b, *constraints.grab_links):
+            if not 0 <= link < model.nl:
+                raise ValueError(f"{self.variant}: a constraint names link {link} of a model "
+                                 f"with {model.nl} links")
+        self.key = kernel_key(model, config, num_stones, num_bars, pd_mode, constraints,
+                              hf_patch, num_tris)
+        self.instance = instance_for(self.key)
         self.name = self.instance.symbol
         self.model = model
         self.config = config
@@ -404,13 +469,15 @@ class EngineKernel:
         self.pd_mode = pd_mode
         self.extra_damping = extra_damping
         self.constraints = constraints
-        self.inputs = (("stones",) if num_stones else ()) + (
-            ("bars", "grabs") if num_bars else ()) + (("hf",) if hf_patch else ()) + (
+        self.inputs = (("stones",) if num_stones else ()) + (("bars",) if num_bars else ()) + (
+            ("grabs",) if constraints.num_grabs else ()) + (("hf",) if hf_patch else ()) + (
             ("tris",) if num_tris else ())
         self.table_host = pack_tables(model, config, extra_damping, constraints, num_bars)
         self._plain_unit = plain_unit
         self._table: torch.Tensor | None = None
         self._ws: torch.Tensor | None = None
+        self._lib = None   # the instance's library and layout, looked up at the first launch
+        self._layout = (0, 0)
 
     def pack(self, scene: Scene, grab_active=None, grab_target=None) -> tuple:
         """This variant's scene inputs for ``scene`` and the grab state."""
@@ -470,13 +537,16 @@ class EngineKernel:
     def launch(self, q, qd, tau, ground_z, friction, *scene_inputs):
         """Launch the kernel on the current stream; raises on any failure."""
         B = self._check_inputs(q, qd, tau, ground_z, friction, scene_inputs)
-        lib = build()[self.name]
-        table_size, ws_per_env = layout(lib, self.name)
-        if table_size != self.table_host.size:
-            raise RuntimeError(
-                f"{self.variant} table layout mismatch: source wants {table_size}, "
-                f"packed {self.table_host.size}"
-            )
+        if self._lib is None:
+            lib = build([self.key])[self.name]
+            table_size, ws_per_env = layout(lib, self.name)
+            if table_size != self.table_host.size:
+                raise RuntimeError(
+                    f"{self.variant} table layout mismatch: source wants {table_size}, "
+                    f"packed {self.table_host.size}"
+                )
+            self._lib, self._layout = lib, (table_size, ws_per_env)
+        lib, (table_size, ws_per_env) = self._lib, self._layout
         dev = q.device
         if self._table is None or self._table.device != dev:
             self._table = torch.as_tensor(self.table_host, device=dev)
@@ -501,6 +571,7 @@ class EngineKernel:
         if err != 0:
             raise RuntimeError(f"{self.variant} launch failed: cudaError {err}")
         LAUNCHES[self.variant] += 1
+        INSTANCE_LAUNCHES[self.name] += 1
         return q_out, qd_out, depth, nimp
 
 
@@ -529,6 +600,7 @@ class K1b(EngineKernel):
     proportional gains, ``extra_damping`` the implicit derivative gains."""
 
     variant = "k1b"
+    split_variant = "k1h_b"
 
     def __init__(self, model, config, extra_damping=None, plain_unit=None):
         super().__init__(model, config, pd_mode=True, extra_damping=extra_damping,
@@ -572,6 +644,7 @@ class K1f(EngineKernel):
     ``terrain.scene.NO_GROUND_Z``."""
 
     variant = "k1f"
+    split_variant = "k1h_f"
 
     def __init__(self, model, config, hf_patch: int, plain_unit=None):
         super().__init__(model, config, hf_patch=hf_patch, plain_unit=plain_unit)
@@ -582,6 +655,7 @@ class K1g(EngineKernel):
     mode; the scene input is the packed faces (:func:`pack_tris`)."""
 
     variant = "k1g"
+    split_variant = "k1h_g"
 
     def __init__(self, model, config, num_tris: int | None = None, plain_unit=None):
         super().__init__(model, config, plain_unit=plain_unit,
@@ -609,8 +683,8 @@ def make_kernel(model, config, *, num_stones=0, num_bars=0, hf_patch=0, num_tris
     ``num_bars`` bars, a ``hf_patch``-sided heightfield window and
     ``num_tris`` (culled) mesh faces (0: none), the actuation mode, the
     equality rows and the solver's split impulse (the same variant, which
-    counts under its split-impulse name); combinations without an
-    instantiation raise, naming what is missing."""
+    counts under its split-impulse name); the combinations the source does
+    not compose raise, naming what is missing."""
     if num_tris:
         if pd_mode or num_stones or num_bars or hf_patch or constraints.ne \
                 or extra_damping is not None:
@@ -686,11 +760,11 @@ def k1_activity(kernel: EngineKernel, q, qd, tau, ground_z, friction, *scene_inp
     lim = torch.as_tensor(limited_joints(model), dtype=torch.long, device=q.device)
     scene, grab_active, grab_target = kernel.unpack(ground_z, friction, *scene_inputs)
     gain = model.actuated * model.kp
-    lam = q.new_zeros(q.shape[0], substep.num_rows)
+    lam = q.new_zeros(q.shape[0], substep.num_rows) if config.warm_start else None
     lim_act, con_act, walks = [], [], []
     for _ in range(config.llc_frames if kernel.pd_mode else 1):
         tau_j = gain * (tau - joint_q(model, q)) if kernel.pd_mode else tau
-        Minv0 = substep.minv_of(forward_kinematics(model, q, qd))
+        Minv0 = substep.minv_of(forward_kinematics(model, q, qd)) if config.reuse_factor else None
         for _ in range(config.sim_substeps):
             qj = joint_q(model, q)[:, lim]
             gap = torch.minimum(qj - model.limit_lo[lim], model.limit_hi[lim] - qj)
@@ -701,8 +775,9 @@ def k1_activity(kernel: EngineKernel, q, qd, tau, ground_z, friction, *scene_inp
                 walks.append((ops * (scene.tri_active[:, None] > 0.5)).sum(dim=(1, 2)))
             else:
                 walks.append(q.new_zeros(q.shape[0]))
-            q, qd, info, lam = substep(q, qd, tau_j, scene, grab_active, grab_target,
-                                       Minv_in=Minv0, lam_in=lam)
+            q, qd, info, lam_out = substep(q, qd, tau_j, scene, grab_active, grab_target,
+                                           Minv_in=Minv0, lam_in=lam)
+            lam = lam_out if config.warm_start else None
             con_act.append(info.contacts.active > 0.5)
     return torch.stack(lim_act), torch.stack(con_act), torch.stack(walks)
 
@@ -715,10 +790,10 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs, tri_walk=Non
     narrowphase's operations per substep and env from :func:`k1_activity`.
 
     Every substep needs FK, the narrowphase, RNEA, the free velocity and the
-    integration; each llc frame needs CRBA and the Cholesky factor once.
-    Only an active row needs its W = L⁻¹Jᵀ row, its diagonal and its sweeps;
-    only a row active in the substep before as well carries a warm-start λ;
-    the impulse map runs only where some row is active. A contact's Jacobian
+    integration; each llc frame needs CRBA and the Cholesky factor once
+    (every substep without ``reuse_factor``). Only an active row needs its W
+    = L⁻¹Jᵀ row and its share of the solve (:func:`_solver_ops`); the
+    impulse map runs only where some row is active. A contact's Jacobian
     takes a cross product per ancestor joint of its sphere's link. With
     stones, every sphere is tested against every active stone of the window
     each substep (a narrowphase has to test a pair to know its depth), each
@@ -733,24 +808,20 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs, tri_walk=Non
     every sphere walks every active face each substep (as far as the region
     that holds its center: ``tri_walk``), its deepest face's normal is made
     once, and active contacts project as over stones. Split impulse adds the
-    position pass: per substep, for each active limit row and contact normal
-    its sweeps (residual and apply, over the row's span), and where any is
-    active the back substitution of z_pos and its addition to the velocity
+    position pass (:func:`_solver_ops`) and, where any of its rows is
+    active, the back substitution of z_pos and its addition to the velocity
     that advances the positions. PD mode adds the torque per llc frame.
     Rods and the planar lock are needed every substep: a rod takes its two
     anchors to the world frame, two point Jacobians over the
     anchors' ancestor joints, their difference, three dense W rows with
-    their diagonals, targets, sweeps and (from the second substep of the
-    call on) warm starts; a planar row is a unit row like a limit row. A
-    grab is needed only where it is attached: its palm to the world frame,
-    one point Jacobian, three dense rows like a rod's. The kernel today runs
-    every row whether or not it is active, so it does more work than this
-    count, even with masks of all ones."""
+    their targets; a planar row is a unit row like a limit row. A grab is
+    needed only where it is attached: its palm to the world frame, one point
+    Jacobian, three dense rows like a rod's. The kernel today runs every row
+    whether or not it is active, so it does more work than this count, even
+    with masks of all ones."""
     model, config = kernel.model, kernel.config
     nl, nj, nv, ns = model.nl, model.nj, model.nv, model.ns
     lim = limited_joints(model)
-    nlim = len(lim)
-    iters = config.solver_iters
     anc = model.anc.cpu().numpy() > 0.5
     S, B = con_act.shape[:2]
     frames = S // config.sim_substeps
@@ -764,7 +835,7 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs, tri_walk=Non
     free_vel = 2 * nv * nv + nj * 6 + nv * 2
     # every row's gap / sign / depth test and target, the velocity clamp and
     # the integration
-    rows = nlim * 12 + ns * 10
+    rows = len(lim) * 12 + ns * 10
     integ = 2 * nv + 40 + nj * 6
     per_sub = fk + collide + rnea + free_vel + rows + integ
     # CRBA: per-link composite (~40), up-sweep (13), momentum per base axis
@@ -772,22 +843,16 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs, tri_walk=Non
     pairs = 21 + nj * 7 + int(sum(anc[j + 1, :j].sum() for j in range(nj)))
     crba = nl * 40 + (nl - 1) * 13 + (6 + nj) * 39 + pairs * 11
     chol = sum((nv - j) * 2 * j for j in range(nv)) + nv * 4
-    # per active limit row (its W row starts at its column): forward solve,
-    # diagonal, sweeps (residual + apply); its warm start
+    factors = frames if config.reuse_factor else S
+    # per active limit row: its W row, a forward solve from its column
     span = torch.tensor([nv - (6 + j) for j in lim], dtype=torch.float64)
-    lim_row = span * span + 2 * span + iters * (4 * span + 6)
-    lim_warm = 2 * span
     # per active contact: Jacobian over the ancestor joints, three W rows
-    # (dense forward solve and c), the normal diagonal and the tangent 2×2
-    # (four dots + inverse), sweeps (normal, two tangent residuals, one
-    # joint apply, the 2×2 step); its warm start of three rows
+    # (dense forward solve and c)
     n_anc = torch.tensor(anc[model.sph_link.cpu().numpy()].sum(axis=1), dtype=torch.float64)
-    con_row = n_anc * 12 + 9 + 3 * (nv * nv + 2 * nv) + 4 * 2 * nv + 8 + iters * (12 * nv + 22)
-    con_warm = torch.full((ns,), 3.0 * 2 * nv, dtype=torch.float64)
+    con_row = n_anc * 12 + 9 + 3 * (nv * nv + 2 * nv)
     la, ca = lim_act.cpu().double(), con_act.cpu().double()
-    total = S * B * per_sub + frames * B * (crba + chol)
-    total += float((la * lim_row).sum() + (ca * con_row).sum())
-    total += float((la[1:] * la[:-1] * lim_warm).sum() + (ca[1:] * ca[:-1] * con_warm).sum())
+    total = S * B * per_sub + factors * B * (crba + chol)
+    total += float((la * span * span).sum() + (ca * con_row).sum())
     named = dict(zip(kernel.inputs, scene_inputs))
     grab_on = unpack_grabs(named["grabs"])[0].cpu() > 0.5 if "grabs" in named else None
     any_act = lim_act.cpu().any(dim=2) | con_act.cpu().any(dim=2)
@@ -820,40 +885,121 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs, tri_walk=Non
             raise ValueError("k1_flops: a mesh call needs tri_walk from k1_activity")
         # the walks, and per sphere the winner's normal (5) and the merge (1)
         total += float(tri_walk.double().sum()) + S * B * ns * 6.0
-    if named:
+    if named.keys() - {"grabs"}:
         # per active contact: the tangent basis (15) and three projections of
         # the 3 × nv point Jacobian (5 each)
         total += float(ca.sum()) * (15 + 3 * nv * 5)
     if kernel.pd_mode:
         total += frames * B * nj * 3
     if kernel.split:
-        # position pass: residual and apply of each active limit row (over
-        # its span) and contact normal (dense) per sweep; L⁻ᵀ z_pos and the
-        # addition where any of them is active
-        total += float((la * (iters * (4 * span + 7))).sum()) + float(ca.sum()) * iters * (
-            4 * nv + 7)
         any_pos = lim_act.cpu().any(dim=2) | con_act.cpu().any(dim=2)
         total += float(any_pos.sum()) * (nv * nv + nv)
     spec = kernel.constraints
-    dense_row = nv * nv + 2 * nv + 2 * nv + iters * (4 * nv + 6)   # W row, c, diagonal, sweeps
-    eq_sub, eq_warm = 0.0, 0.0
-    for la, lb in zip(spec.p2p_link_a, spec.p2p_link_b):
-        eq_sub += 2 * 18 + (anc[la].sum() + anc[lb].sum()) * 12 + 2 * 9 + 3 * nv
-        eq_sub += 3 * (dense_row + 6)
-        eq_warm += 3 * 2 * nv
+    eq_sub = 0.0
+    for la_, lb_ in zip(spec.p2p_link_a, spec.p2p_link_b):
+        # two anchors, two Jacobians, their difference; three dense W rows
+        # with c and their targets
+        eq_sub += 2 * 18 + (anc[la_].sum() + anc[lb_].sum()) * 12 + 2 * 9 + 3 * nv
+        eq_sub += 3 * (nv * nv + 2 * nv + 6)
     if spec.planar:
         for col in (1, 3, 5):
-            span = nv - col
-            eq_sub += span * span + 2 * span + iters * (4 * span + 6) + 6
-            eq_warm += 2 * span
+            eq_sub += (nv - col) ** 2 + 6
         eq_sub += 6                                                # the two sine surrogates
-    total += B * (S * eq_sub + (S - 1) * eq_warm)
+    total += B * S * eq_sub
     if grab_on is not None:
         attached = grab_on.double().sum(dim=0)                      # (ng,)
         for g, lg in enumerate(spec.grab_links):
-            grab_sub = 18 + anc[lg].sum() * 12 + 9 + 3 * nv + 3 * (dense_row + 6)
-            total += float(attached[g]) * (S * grab_sub + (S - 1) * 3 * 2 * nv)
+            grab_sub = 18 + anc[lg].sum() * 12 + 9 + 3 * nv + 3 * (nv * nv + 2 * nv + 6)
+            total += float(attached[g]) * S * grab_sub
+    total += _solver_ops(kernel, la, ca, grab_on)
     return int(round(total))
+
+
+def _row_table(kernel: EngineKernel, la, ca, grab_on):
+    """Every row of one call in the kernel's order [rods | planar | grabs |
+    limits | contacts × (n, t1, t2)]: its activity per substep and env
+    ``(S, B, NR)`` (float64) and its span, the columns from its first
+    nonzero to nv ``(NR,)``; and the slices of the limit rows, the contacts'
+    normal rows and their two tangent rows."""
+    model, spec = kernel.model, kernel.constraints
+    nv = model.nv
+    S, B = ca.shape[:2]
+    ones = lambda n: torch.ones((S, B, n), dtype=torch.float64)  # noqa: E731
+    acts = [ones(3 * spec.num_p2p)]
+    spans = [nv] * (3 * spec.num_p2p)
+    if spec.planar:
+        acts.append(ones(3))
+        spans += [nv - col for col in (1, 3, 5)]
+    if spec.num_grabs:
+        on = grab_on.double() if grab_on is not None else torch.zeros(B, spec.num_grabs)
+        acts.append(on.repeat_interleave(3, dim=1)[None].expand(S, B, -1))
+        spans += [nv] * (3 * spec.num_grabs)
+    acts += [la, ca.repeat_interleave(3, dim=2)]
+    spans += [nv - (6 + j) for j in limited_joints(model)] + [nv] * (3 * model.ns)
+    ne, nlim = spec.ne, la.shape[2]
+    normals = torch.arange(ne + nlim, ne + nlim + 3 * model.ns, 3)
+    return (torch.cat(acts, dim=2), torch.tensor(spans, dtype=torch.float64),
+            torch.arange(ne, ne + nlim), normals)
+
+
+def _solver_ops(kernel: EngineKernel, la, ca, grab_on) -> float:
+    """fp32 operations of the PGS and the split-impulse position pass of one
+    call, over the active rows: the diagonals (and the contacts' 2×2 friction
+    blocks), ``solver_iters`` sweeps, the warm start from the substep
+    before, and the position pass's sweeps from λ_pos = 0.
+
+    Matrix-free: a row's diagonal is a dot over its span; a sweep visits it
+    with a residual and an update of z = Wλ over its span (4·span + 6; a
+    block friction pair 8·nv + 16 with its 2×2 step, a scalar tangent row
+    4·nv + 6); a warm start adds Wλ over its span; the position pass visits
+    each active limit row and contact normal (4·span + 7). A-form: A = WWᵀ
+    + cfm·I over the active rows (a dot over the shorter span per pair, one
+    add per diagonal), then a row's visit updates the residual of the n
+    active rows (2·n + 6; a block friction pair 4·n + 16), a warm start
+    adds A's column over the active rows (2·n per carried row), z = Wλ is
+    made once after the sweeps (2·span per active row), and the position
+    pass visits as the sweeps do (2·n + 7) and makes z_pos once."""
+    config = kernel.config
+    nv, iters = kernel.model.nv, config.solver_iters
+    act, span, lim_rows, normals = _row_table(kernel, la, ca, grab_on)
+    tangents = torch.cat([normals + 1, normals + 2])
+    unit = torch.ones(act.shape[2], dtype=torch.bool)     # rows swept alone
+    unit[tangents] = not config.block_pgs
+    unit[normals] = True
+    pos = torch.zeros_like(unit)
+    pos[lim_rows] = pos[normals] = True
+    carried = act[1:] * act[:-1]                          # warm-started rows
+    n_con = float(ca.sum())
+    total = 0.0
+    if config.matfree_pgs:
+        # the diagonals: every row's own dot; the contacts' a12 with block
+        total += float((act * 2 * span).sum())
+        if config.block_pgs:
+            total += n_con * (2 * nv + 8)
+        total += iters * float((act[..., unit] * (4 * span[unit] + 6)).sum())
+        if config.block_pgs:
+            total += iters * n_con * (8 * nv + 16)
+        if config.warm_start:
+            total += float((carried * 2 * span).sum())
+        if kernel.split:
+            total += iters * float((act[..., pos] * (4 * span[pos] + 7)).sum())
+        return total
+    n = act.sum(dim=2)                                    # active rows (S, B)
+    shorter = torch.minimum(span[:, None], span[None, :])
+    pairs = torch.triu(2 * shorter) + torch.eye(len(span), dtype=torch.float64)
+    total += float(torch.einsum("sbi,ij,sbj->", act, pairs, act))
+    if config.block_pgs:
+        total += n_con * 8
+    total += iters * float((act[..., unit] * (2 * n[..., None] + 6)).sum())
+    if config.block_pgs:
+        total += iters * float((ca * (4 * n[..., None] + 16)).sum())
+    if config.warm_start:
+        total += float((carried.sum(dim=2) * 2 * n[1:]).sum())
+    total += float((act * 2 * span).sum())
+    if kernel.split:
+        total += iters * float((act[..., pos] * (2 * n[..., None] + 7)).sum())
+        total += float((act[..., pos] * 2 * span[pos]).sum())
+    return total
 
 
 def k1_bytes_per_env(kernel: EngineKernel) -> int:

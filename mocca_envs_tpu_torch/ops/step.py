@@ -21,9 +21,9 @@ and the whole control step in PD mode (λ carried across its llc frames). On
 CPU tensors a unit runs this plain PyTorch path. On CUDA tensors it runs as
 ONE launch of the hand-written engine kernel (ops/cuda/engine.py: K1a on the
 plane, K1c over stones, K1b in PD mode, K1e with equality rows, K1d over bars
-with grab rows, K1f over a heightfield, K1g over mesh triangles, K1h-si with
-split impulse), which computes the same unit; there is no fallback between
-the two. Stones are culled to ``config.stone_window``, mesh faces to
+with grab rows, K1f over a heightfield, K1g over mesh triangles, each also
+with split impulse, under any EngineConfig's solver options), which computes
+the same unit; there is no fallback between the two. Stones are culled to ``config.stone_window``, mesh faces to
 ``config.tri_window``, and a heightfield grid is cut to its ``HF_PATCH ×
 HF_PATCH`` window around the root once per unit, before either path; bars
 are never culled.

@@ -5,7 +5,10 @@
 - ``make()`` / ``BatchedEnv`` with no device mean the CUDA card and raise
   where there is none;
 - the CPU path never launches the kernel; the kernel's launch refuses CPU
-  tensors and configurations it has no instantiation for;
+  tensors; a key outside the fifteen named instances (other options, sizes,
+  windows, split impulse on any variant) gets the generic instance named by
+  the key, and only the scene combinations the source does not compose
+  raise;
 - the bound's operation count follows the rows these inputs make active;
 - the kernel source's per-env arithmetic, compiled for the host, agrees
   with the plain version, for every instantiation (K1a, K1c over stones,
@@ -46,6 +49,8 @@ from mocca_envs_tpu_torch.tasks import monkey_stepper as tasks_monkey
 from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
 from mocca_envs_tpu_torch.terrain.scene import HF_PATCH, NO_GROUND_Z
 from mocca_envs_tpu_torch.utils.config import EngineConfig
+
+from tests.torch_k1_host import build_host, run_on_host
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mocca_envs_tpu"}
@@ -253,51 +258,98 @@ def test_launch_refuses_cpu_tensors(case):
     assert sum(engine.LAUNCHES.values()) == 0
 
 
-@pytest.mark.parametrize("change", [
-    {"warm_start": False}, {"matfree_pgs": False}, {"reuse_factor": False},
-    {"block_pgs": False}, {"split_impulse": True}, {"solver_iters": 8},
-    {"sim_substeps": 2},
-], ids=lambda c: next(iter(c)))
-def test_k1a_refuses_what_it_has_no_instantiation_for(change):
-    with pytest.raises(NotImplementedError):
-        engine.K1a(walker3d.make_model(), EngineConfig(**change))
+def _assert_generic(kernel, symbol, variant=None):
+    """``kernel`` runs the generic instance of its key, named ``symbol``,
+    built from the flags that name it (and counts under ``variant``)."""
+    assert kernel.name == symbol == engine.canonical_symbol(kernel.key)
+    assert kernel.instance.index is None and kernel.key not in engine.INSTANTIATIONS
+    assert f"-DK1_NAME={symbol}" in engine.compile_flags(kernel.instance)
+    if variant is not None:
+        assert kernel.variant == variant
 
 
-@pytest.mark.parametrize("build", [
-    lambda m: engine.K1c(m, EngineConfig(stone_window=8)),
-    lambda m: engine.K1c(m, EngineConfig(), num_stones=20),
-    lambda m: engine.K1b(m, EngineConfig(llc_frames=3)),
-    lambda m: engine.make_kernel(m, EngineConfig(), num_stones=6, pd_mode=True),
-    lambda m: engine.make_kernel(m, EngineConfig(), extra_damping=m.kp),
+W = "k1_nl22_ns14_nlim21"
+
+
+K1A_KEYS = (({"warm_start": False}, f"{W}_sub4_it4_cold", "k1a_cold"),
+            ({"matfree_pgs": False}, f"{W}_sub4_it4_aform", "k1a_aform"),
+            ({"reuse_factor": False}, f"{W}_sub4_it4_refactor", "k1a_refactor"),
+            ({"block_pgs": False}, f"{W}_sub4_it4_scalar", "k1a_scalar"),
+            ({"split_impulse": True}, None, None), ({"solver_iters": 8}, f"{W}_sub4_it8", "k1a"),
+            ({"sim_substeps": 2}, f"{W}_sub2_it4", "k1a"))
+
+
+@pytest.mark.parametrize("change, symbol, variant",
+                         [pytest.param(*c, id=next(iter(c[0]))) for c in K1A_KEYS])
+def test_k1a_refuses_what_it_has_no_instantiation_for(change, symbol, variant):
+    """K1a takes every PGS option and any substeps or sweeps, each on the
+    generic instance of its key, counted under its option's tag; split
+    impulse on the walker's plane stays K1hSi's."""
+    if symbol is None:
+        with pytest.raises(NotImplementedError, match="split_impulse"):
+            engine.K1a(walker3d.make_model(), EngineConfig(**change))
+        return
+    _assert_generic(engine.K1a(walker3d.make_model(), EngineConfig(**change)), symbol, variant)
+
+
+@pytest.mark.parametrize("build, symbol", [
+    (lambda m: engine.K1c(m, EngineConfig(stone_window=8)), f"{W}_sub4_it4_k8"),
+    (lambda m: engine.K1c(m, EngineConfig(), num_stones=20), f"{W}_sub4_it4_k20"),
+    (lambda m: engine.K1b(m, EngineConfig(llc_frames=3)), f"{W}_sub4_it4_llc3"),
+    (lambda m: engine.make_kernel(m, EngineConfig(), num_stones=6, pd_mode=True), None),
+    (lambda m: engine.make_kernel(m, EngineConfig(), extra_damping=m.kp), None),
 ], ids=["window8", "unculled20", "llc3", "pd_over_stones", "damped_torque"])
-def test_k1_variants_refuse_what_they_have_no_instantiation_for(build):
-    with pytest.raises(NotImplementedError):
-        build(walker3d.make_model())
+def test_k1_variants_refuse_what_they_have_no_instantiation_for(build, symbol):
+    """Other stone windows and llc frames are keys of the generic instance;
+    PD mode over stones and extra damping in torque mode stay refused."""
+    if symbol is None:
+        with pytest.raises(NotImplementedError, match="no K1 instantiation"):
+            build(walker3d.make_model())
+        return
+    _assert_generic(build(walker3d.make_model()), symbol)
 
 
-@pytest.mark.parametrize("build", [
-    lambda: engine.K1e(cassie.make_model(), CASSIE_CONFIG, ConstraintSpec(planar=True),
-                       pd_mode=True),
-    lambda: engine.K1e(cassie.make_model(), CASSIE_CONFIG, cassie.constraints()),
-    lambda: engine.K1e(cassie.make_model(), dataclasses.replace(CASSIE_CONFIG, llc_frames=5),
-                       cassie.constraints(), pd_mode=True),
-    lambda: engine.K1e(walker2d.make_walker2d(), EngineConfig(), walker2d.planar_spec(),
-                       pd_mode=True),
-    lambda: engine.K1e(walker2d.make_walker2d(), EngineConfig(), cassie.constraints()),
-    lambda: engine.K1e(walker3d.make_model(), EngineConfig(), walker2d.planar_spec()),
-    lambda: engine.make_kernel(walker2d.make_walker2d(), EngineConfig(), num_stones=6,
-                               constraints=walker2d.planar_spec()),
-    # grabs with the planar lock on Walker2D: the grab rows have an instance
-    # on the monkey only
-    lambda: engine.make_kernel(
-        walker2d.make_walker2d(), EngineConfig(),
-        constraints=ConstraintSpec(planar=True, num_grabs=1, grab_links=(1,),
-                                   grab_anchors=((0.0, 0.0, 0.0),))),
+C = "k1_nl17_ns5_nlim16"
+GRAB_SPEC = ConstraintSpec(planar=True, num_grabs=1, grab_links=(1,),
+                           grab_anchors=((0.0, 0.0, 0.0),))
+
+
+@pytest.mark.parametrize("build, want", [
+    (lambda: engine.K1e(cassie.make_model(), CASSIE_CONFIG, ConstraintSpec(planar=True),
+                        pd_mode=True), f"{C}_sub2_it4_llc10_planar"),
+    (lambda: engine.K1e(cassie.make_model(), CASSIE_CONFIG, cassie.constraints()),
+     f"{C}_sub2_it4_p2p2"),
+    (lambda: engine.K1e(cassie.make_model(), dataclasses.replace(CASSIE_CONFIG, llc_frames=5),
+                        cassie.constraints(), pd_mode=True), f"{C}_sub2_it4_llc5_p2p2"),
+    (lambda: engine.K1e(walker2d.make_walker2d(), EngineConfig(), walker2d.planar_spec(),
+                        pd_mode=True), "k1_nl7_ns5_nlim6_sub4_it4_llc1_planar"),
+    # Cassie's rods name links Walker2D does not have
+    (lambda: engine.K1e(walker2d.make_walker2d(), EngineConfig(), cassie.constraints()),
+     ValueError),
+    (lambda: engine.K1e(walker3d.make_model(), EngineConfig(), walker2d.planar_spec()),
+     f"{W}_sub4_it4_planar"),
+    (lambda: engine.make_kernel(walker2d.make_walker2d(), EngineConfig(), num_stones=6,
+                                constraints=walker2d.planar_spec()), NotImplementedError),
+    # grabs with the planar lock on Walker2D, no bars: the grab rows' input
+    # alone
+    (lambda: engine.make_kernel(walker2d.make_walker2d(), EngineConfig(),
+                                constraints=GRAB_SPEC), "k1_nl7_ns5_nlim6_sub4_it4_planar_ng1"),
 ], ids=["cassie_lock_without_rods", "cassie_torque_mode", "cassie_llc5", "walker2d_pd",
         "walker2d_rods", "walker3d_planar", "planar_over_stones", "grabs"])
-def test_k1e_refuses_what_it_has_no_instantiation_for(build):
-    with pytest.raises(NotImplementedError, match="no K1 instantiation"):
-        build()
+def test_k1e_refuses_what_it_has_no_instantiation_for(build, want):
+    """Other equality-row keys (the lock without the rods, torque mode, other
+    llc frames, PD on Walker2D, the lock on the 3D walker, grabs without
+    bars) are keys of the generic instance; equality rows over stones stay
+    refused, and rods naming links the model lacks are an error."""
+    if isinstance(want, type):
+        with pytest.raises(want, match="no K1 instantiation" if want is NotImplementedError
+                           else "link"):
+            build()
+        return
+    kernel = build()
+    _assert_generic(kernel, want)
+    if kernel.constraints.num_grabs:
+        assert kernel.inputs == ("grabs",)
 
 
 def test_k1e_is_picked_by_the_constraints():
@@ -311,7 +363,11 @@ def test_k1e_is_picked_by_the_constraints():
         engine.K1e(model, EngineConfig(), ConstraintSpec())
 
 
-def test_k1a_refuses_other_model_sizes():
+def test_k1a_refuses_other_model_sizes(tmp_path):
+    """Another model size is a key of the generic instance: a one-legged
+    hopper (2 links, 1 sphere, 1 limit row) at the JAX package's gate
+    configuration, 2 substeps × 8 sweeps, built for the host, against the
+    plain version at K1a's gates."""
     from mocca_envs_tpu_torch.models.schema import ModelBuilder
 
     b = ModelBuilder("hopper", floating=True)
@@ -319,8 +375,24 @@ def test_k1a_refuses_other_model_sizes():
     b.add_link("leg", "base", joint_pos=(0, 0, -0.1), joint_axis=(0, 1, 0), mass=1.0,
                com=(0, 0, -0.25), inertia_diag=(0.02, 0.02, 0.002), limit=(-1.5, 1.5))
     b.add_sphere("leg", (0, 0, -0.5), 0.05, foot="foot")
-    with pytest.raises(NotImplementedError, match="no K1 instantiation"):
-        engine.K1a(b.build(), EngineConfig())
+    model = b.build()
+    kernel = engine.K1a(model, EngineConfig(sim_substeps=2, solver_iters=8))
+    _assert_generic(kernel, "k1_nl2_ns1_nlim1_sub2_it8", "k1a")
+    rng = np.random.default_rng(4)
+    B = 64
+    q = np.zeros((B, model.nq), np.float32)
+    q[:, 3:7] = np.array([1.0, 0.0, 0.0, 0.0]) + 0.02 * rng.standard_normal((B, 4))
+    q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
+    q[:, 7] = rng.uniform(-1.6, 1.6, B)                 # past its limit in some envs
+    # the foot sphere within ±2 cm of the plane (the base nearly upright)
+    q[:, 2] = 0.1 + 0.5 * np.cos(q[:, 7]) + 0.05 + rng.uniform(-0.02, 0.02, B)
+    qd = (0.3 * rng.standard_normal((B, model.nv))).astype(np.float32)
+    tau = rng.uniform(-5.0, 5.0, (B, 1)).astype(np.float32)
+    inputs = [q, qd, tau, np.zeros(B, np.float32), np.full(B, 0.8, np.float32)]
+    outs = run_on_host(build_host([kernel], tmp_path)[kernel.name], kernel, inputs)
+    want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
+    _gate_medians(outs, want)
+    assert (want[3] > 0).mean() > 0.2                 # the foot carries load
 
 
 def test_k1a_flops_counts_only_the_active_rows():
@@ -548,15 +620,19 @@ def test_k1d_is_picked_by_bars_and_grabs():
     kernel = engine.make_kernel(model, EngineConfig(), num_bars=16, constraints=spec)
     assert isinstance(kernel, engine.K1d) and kernel.variant == "k1d"
     assert kernel.inputs == ("bars", "grabs") and kernel.name.startswith("k1d_")
-    # other bar counts, bars without the grabs, PD mode: no instance
-    for build in (lambda: engine.make_kernel(model, EngineConfig(), num_bars=8, constraints=spec),
-                  lambda: engine.make_kernel(model, EngineConfig(), num_bars=16),
-                  lambda: engine.make_kernel(model, EngineConfig(), num_bars=16, pd_mode=True,
-                                             constraints=spec),
-                  lambda: engine.make_kernel(model, EngineConfig(sim_substeps=2), num_bars=16,
-                                             constraints=spec)):
-        with pytest.raises(NotImplementedError, match="no K1 instantiation"):
-            build()
+    # other bar counts, bars without the grabs, other substeps: the generic
+    # instance of their keys; PD mode: refused
+    for build, symbol in (
+            (lambda: engine.make_kernel(model, EngineConfig(), num_bars=8, constraints=spec),
+             "k1_nl11_ns5_nlim8_sub4_it4_kb8_ng2"),
+            (lambda: engine.make_kernel(model, EngineConfig(), num_bars=16),
+             "k1_nl11_ns5_nlim8_sub4_it4_kb16"),
+            (lambda: engine.make_kernel(model, EngineConfig(sim_substeps=2), num_bars=16,
+                                        constraints=spec), "k1_nl11_ns5_nlim8_sub2_it4_kb16_ng2")):
+        _assert_generic(build(), symbol, "k1d")
+    assert engine.make_kernel(model, EngineConfig(), num_bars=16).inputs == ("bars",)
+    with pytest.raises(NotImplementedError, match="no K1 instantiation"):
+        engine.make_kernel(model, EngineConfig(), num_bars=16, pd_mode=True, constraints=spec)
 
 
 @pytest.mark.parametrize("bad", ["bars_rows", "grabs_batch", "missing_grabs", "grabs_dtype",
@@ -670,6 +746,54 @@ def test_k1a_kernel_matches_plain_on_cuda(case):
         kernel.launch(args[0], args[1].cpu(), *args[2:])
 
 
+# the split keys of the generic instance (PD walker at one and two llc
+# frames, Walker2D, Crab2D, terrain, stairs) → (the twin's case, the count it
+# launches under, its gate)
+SPLIT_REST = {"k1h_b": ("k1b", "k1h_b", TOL), "k1h_b_llc2": ("k1b_llc2", "k1h_b", TOL),
+              "k1h_e_planar": ("k1e_planar", "k1h_e", TOL_EQ),
+              "k1h_e_crab": ("k1e_crab", "k1h_e", TOL_EQ), "k1h_f": ("k1f", "k1h_f", TOL_HF),
+              "k1h_g": ("k1g", "k1h_g", TOL)}
+
+
+def _split_kernel(case, B, seed, device="cpu"):
+    """(the split instance of ``case``'s twin, its twin, numpy inputs)."""
+    twin, arrays = _kernel_case(SPLIT_REST[case][0], B, seed, device)
+    kernel = engine.make_kernel(
+        twin.model, dataclasses.replace(twin.config, split_impulse=True),
+        num_stones=twin.num_stones, num_bars=twin.num_bars, hf_patch=twin.hf_patch,
+        num_tris=twin.num_tris, pd_mode=twin.pd_mode, extra_damping=twin.extra_damping,
+        constraints=twin.constraints)
+    return kernel, twin, arrays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SPLIT_REST) + list(chip_smoke.OPTION_CONFIGS))
+def test_new_instances_match_plain_on_cuda(case):
+    """On a card: each split instance on its twin's states and each of the
+    walker's option instances on K1a's, launched once, against the plain
+    version at its gate."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
+    if case in SPLIT_REST:
+        kernel, _, arrays = _split_kernel(case, 1024, 7, "cuda")
+        tol = SPLIT_REST[case][2]
+    else:
+        model = walker3d.make_model("cuda")
+        kernel = engine.make_kernel(model, EngineConfig(**chip_smoke.OPTION_CONFIGS[case]))
+        arrays = chip_smoke.near_contact_states(model, np.random.default_rng(7), 1024)
+        tol = TOL
+    args = [torch.as_tensor(x, device="cuda") for x in arrays]
+    before = engine.LAUNCHES[kernel.variant]
+    got = kernel.launch(*args)
+    torch.cuda.synchronize()
+    assert engine.LAUNCHES[kernel.variant] == before + 1
+    want = kernel.plain(*args)
+    tail = (~chip_smoke.vertical_contacts(kernel, args)).cpu().numpy() if case == "k1h_g" \
+        else None
+    _gate_medians([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want], tol,
+                  tail="p99" if case == "k1h_g" else "max", tail_envs=tail)
+
+
 @pytest.mark.parametrize("case", list(K1F_CASES))
 def test_k1f_source_arithmetic_on_host(host_library, case):
     """The heightfield instance (one torque frame of the walker over the
@@ -700,8 +824,9 @@ def test_k1f_is_picked_by_a_heightfield_and_counts_its_work():
     kernel = engine.make_kernel(model, config, hf_patch=HF_PATCH)
     assert isinstance(kernel, engine.K1f) and kernel.inputs == ("hf",)
     assert kernel.name == "k1f_nl22_ns14_nlim21_sub4_it4_hf16"
-    for build in (lambda: engine.make_kernel(model, config, hf_patch=8),
-                  lambda: engine.make_kernel(model, config, hf_patch=HF_PATCH, num_stones=6),
+    # another window side is a key of the generic instance
+    _assert_generic(engine.make_kernel(model, config, hf_patch=8), f"{W}_sub4_it4_hf8", "k1f")
+    for build in (lambda: engine.make_kernel(model, config, hf_patch=HF_PATCH, num_stones=6),
                   lambda: engine.make_kernel(model, config, hf_patch=HF_PATCH, pd_mode=True),
                   lambda: engine.make_kernel(walker2d.make_walker2d(), config, hf_patch=HF_PATCH,
                                              constraints=walker2d.planar_spec())):
@@ -826,9 +951,11 @@ def test_k1h_si_source_arithmetic_on_host(host_library):
 
 def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
     """make_kernel picks K1g for mesh faces and K1h-si for split impulse on
-    the walker's plane; a mesh with anything else, split impulse on a mesh,
-    in PD mode or on the planar walkers, and K1a / K1g with split impulse
-    raise, naming what is missing (split impulse over stones is K1h-c:
+    the walker's plane; a mesh with anything else raises, naming what is
+    missing; another face window, split impulse on a mesh, in PD mode, on the
+    planar walkers and on Cassie's plane are keys of the generic instance,
+    each counted under its split name; K1a with split impulse and K1hSi
+    without it raise (split impulse over stones is K1h-c:
     test_split_instances_are_picked_and_the_rest_refused)."""
     model, config = walker3d.make_model(), EngineConfig()
     split = EngineConfig(split_impulse=True)
@@ -837,24 +964,30 @@ def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
     assert k1g.name == "k1g_nl22_ns14_nlim21_sub4_it4_kt16"
     si = engine.make_kernel(model, split)
     assert isinstance(si, engine.K1hSi) and si.inputs == () and si.variant == "k1h_si"
-    for build in (lambda: engine.make_kernel(model, config, num_tris=8),
-                  lambda: engine.make_kernel(model, config, num_tris=16, num_stones=6),
+    for build in (lambda: engine.make_kernel(model, config, num_tris=16, num_stones=6),
                   lambda: engine.make_kernel(model, config, num_tris=16, pd_mode=True),
-                  lambda: engine.make_kernel(model, config, num_tris=16, hf_patch=HF_PATCH),
-                  lambda: engine.make_kernel(model, split, num_tris=16),
-                  lambda: engine.make_kernel(model, split, pd_mode=True),
-                  lambda: engine.make_kernel(walker2d.make_walker2d(), split,
-                                             constraints=walker2d.planar_spec()),
-                  lambda: engine.K1hSi(cassie.make_model(), split)):
+                  lambda: engine.make_kernel(model, config, num_tris=16, hf_patch=HF_PATCH)):
         with pytest.raises(NotImplementedError, match="no K1 instantiation"):
             build()
-    for build in (lambda: engine.K1g(model, split), lambda: engine.K1a(model, split),
-                  lambda: engine.K1hSi(model, config)):
+    for build, symbol, variant in (
+            (lambda: engine.make_kernel(model, config, num_tris=8), f"{W}_sub4_it4_kt8", "k1g"),
+            (lambda: engine.make_kernel(model, split, num_tris=16), f"{W}_sub4_it4_kt16_si",
+             "k1h_g"),
+            (lambda: engine.K1g(model, split), f"{W}_sub4_it4_kt16_si", "k1h_g"),
+            (lambda: engine.make_kernel(model, split, pd_mode=True), f"{W}_sub4_it4_llc1_si",
+             "k1h_b"),
+            (lambda: engine.make_kernel(walker2d.make_walker2d(), split,
+                                        constraints=walker2d.planar_spec()),
+             "k1_nl7_ns5_nlim6_sub4_it4_planar_si", "k1h_e"),
+            (lambda: engine.K1hSi(cassie.make_model(), split), "k1_nl17_ns5_nlim16_sub4_it4_si",
+             "k1h_si"),
+            # the other solver options, split or not
+            (lambda: engine.K1hSi(model, EngineConfig(split_impulse=True, warm_start=False)),
+             f"{W}_sub4_it4_si_cold", "k1h_si_cold")):
+        _assert_generic(build(), symbol, variant)
+    for build in (lambda: engine.K1a(model, split), lambda: engine.K1hSi(model, config)):
         with pytest.raises(NotImplementedError, match="split_impulse"):
             build()
-    # the other solver options stay unported, split or not
-    with pytest.raises(NotImplementedError, match="shipped solver options"):
-        engine.K1hSi(model, EngineConfig(split_impulse=True, warm_start=False))
 
 
 def test_k1g_and_k1h_si_count_their_own_work():
@@ -943,10 +1076,10 @@ def test_split_instances_source_arithmetic_on_host(host_library, case):
 def test_split_instances_are_picked_and_the_rest_refused():
     """Split impulse takes the variant it would take without it, counted
     under its split name: K1c over stones (k1h_c), Cassie's and Cassie2D's
-    K1e (k1h_e), the monkey's K1d (k1h_d), K1hSi on the walker's plane; every
-    family without an instance raises NotImplementedError naming it: the PD
-    walker and child (K1b), the torque planar walkers (K1e), a heightfield
-    (K1f) and a mesh (K1g)."""
+    K1e (k1h_e), the monkey's K1d (k1h_d), K1hSi on the walker's plane on
+    named instances; the PD walker and child (K1b: k1h_b), the torque planar
+    walkers (K1e: k1h_e), a heightfield (K1f: k1h_f) and a mesh (K1g: k1h_g)
+    on the generic instance of their keys."""
     names = {"k1h_c": "k1h_nl22_ns14_nlim21_sub4_it4_k6_si",
              "k1h_e": "k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si",
              "k1h_e2d": "k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si",
@@ -961,18 +1094,20 @@ def test_split_instances_are_picked_and_the_rest_refused():
     model = walker3d.make_model()
     split = EngineConfig(split_impulse=True)
     kp = model.power_coef * (model.actuated > 0).float()
-    for build, what in (
+    for build, symbol, variant in (
             (lambda: engine.make_kernel(model.replace(kp=kp), split, pd_mode=True,
-                                        extra_damping=kp / 20.0), "k1b"),
-            (lambda: engine.make_kernel(walker3d.make_model(), split, hf_patch=HF_PATCH), "k1f"),
-            (lambda: engine.make_kernel(model, split, num_tris=16), "k1g"),
+                                        extra_damping=kp / 20.0), f"{W}_sub4_it4_llc1_si", "k1h_b"),
+            (lambda: engine.make_kernel(walker3d.make_model(), split, hf_patch=HF_PATCH),
+             f"{W}_sub4_it4_hf16_si", "k1h_f"),
+            (lambda: engine.make_kernel(model, split, num_tris=16), f"{W}_sub4_it4_kt16_si",
+             "k1h_g"),
             (lambda: engine.make_kernel(walker2d.make_walker2d(), split,
-                                        constraints=walker2d.planar_spec()), "split impulse"),
+                                        constraints=walker2d.planar_spec()),
+             "k1_nl7_ns5_nlim6_sub4_it4_planar_si", "k1h_e"),
             (lambda: engine.make_kernel(walker2d.make_crab2d(), split,
-                                        constraints=walker2d.planar_spec()), "split impulse")):
-        with pytest.raises(NotImplementedError, match="no K1 instantiation") as err:
-            build()
-        assert what in str(err.value)
+                                        constraints=walker2d.planar_spec()),
+             "k1_nl7_ns5_nlim6_sub4_it4_planar_si", "k1h_e")):
+        _assert_generic(build(), symbol, variant)
     # a split instance is not taken for the unsplit config, nor the reverse
     with pytest.raises(NotImplementedError, match="split_impulse"):
         engine.K1hSi(model, EngineConfig())
