@@ -6,16 +6,22 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 Phases, in order; any failure exits non-zero before the result lines:
 
-1. print the card's name and power limit; build the fifteen named
-   instances of the engine kernel from
+1. print the card's name and power limit; build K1a's warp-per-env
+   instance from ``mocca_envs_tpu_torch/csrc/engine_k1w.cu``, the fifteen
+   named instances of the engine kernel from
    ``mocca_envs_tpu_torch/csrc/engine_k1.cu``, the generic instance of every
    key phase 2 adds (split impulse on the PD walker at one and two llc
    frames, the torque planar walkers, terrain and the stairs; the walker's
    PGS options of :data:`OPTION_CONFIGS`) and the raycast kernel K2 from
    ``csrc/raycast_k2.cu`` (one nvcc process each, side by side), and print
-   each one's ptxas registers and stack frame;
+   each one's ptxas registers and stack frame; the fifteen named frames
+   and spills must be :data:`FRAMES`, and the warp-per-env K1a must spill
+   nothing and use no global workspace (its registers, shared memory and
+   envs resident per SM printed);
 2. each kernel vs its plain PyTorch version at B = 4096: K1a on walker
-   states near contact, K1c on stepper states (stones at stages 0–9, feet
+   states near contact, and against the thread-per-env K1a at
+   :data:`TOL_TWIN` on those states and with every base lifted 3 m (no
+   contact: every contact row skipped), K1c on stepper states (stones at stages 0–9, feet
    in or near contact with tilted stone tops, some envs over a gap), K1b on
    the K1a states with random joint targets, and the K1b instance for two
    llc frames (no registered family runs it yet) on the same states; K1e on
@@ -73,7 +79,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    agrees;
 3. the main paths through ``BatchedEnv(make(id), 4096).step`` with uniform
    random actions, the launch counts set to 0 just before each and read
-   just after: ``Walker3DCustomEnv-v0`` for 600 control steps (K1a),
+   just after: ``Walker3DCustomEnv-v0`` for 600 control steps (K1a, by
+   the warp-per-env instance alone, as the child),
    ``Walker3DStepperEnv-v0`` for 600 (K1c), ``Walker3DPDCustomEnv-v0`` for
    200 (K1b), ``Child3DCustomEnv-v0`` for 100 (K1a), ``CassieEnv-v0`` for
    300, ``Cassie2DEnv-v0`` for 100, ``Walker2DCustomEnv-v0`` for 200 and
@@ -113,6 +120,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    (no episode ended), and each prints env-steps/s and the seconds of the
    rollout and of the PPO update per update;
 4. per-call times of each kernel and its plain version (CUDA events), the
+   two K1a designs in turns (old, new, new, old) at each B of
+   :data:`SWEEP` beside their bound, the walker's step against the host's
+   time to enqueue it and the device's busy share over 20 traced steps, the
    bound from the operations and bytes these inputs need, and the time of
    the stepper's cull of 20 stones to the window plus their packing (env
    layer, once per control step, outside the kernel's time), and the
@@ -186,6 +196,29 @@ SPLIT_FAMILIES = {"Walker3DPDCustomEnv": "k1h_b", "Child3DPDCustomEnv": "k1h_b",
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 SOURCE = "mocca_envs_tpu_torch/csrc/engine_k1.cu"
+SOURCE_W = "mocca_envs_tpu_torch/csrc/engine_k1w.cu"   # K1a, one warp per env
+# ptxas's stack frame, spill stores and spill loads (bytes) of the fifteen
+# named engine_k1.cu instances, as every build since they were written has
+# reported them: moving code into csrc/k1_common.cuh must not change them
+FRAMES = {
+    "k1a_nl22_ns14_nlim21_sub4_it4": (8288, 688, 900),
+    "k1c_nl22_ns14_nlim21_sub4_it4_k6": (8584, 608, 912),
+    "k1b_nl22_ns14_nlim21_sub4_it4_llc1": (8280, 680, 888),
+    "k1b_nl22_ns14_nlim21_sub4_it4_llc2": (8376, 776, 1064),
+    "k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2": (6208, 648, 916),
+    "k1e_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar": (6768, 1044, 1320),
+    "k1e_nl7_ns5_nlim6_sub4_it4_planar": (3904, 1240, 1692),
+    "k1d_nl11_ns5_nlim8_sub4_it4_kb16_ng2": (6688, 2776, 3352),
+    "k1f_nl22_ns14_nlim21_sub4_it4_hf16": (8400, 712, 1128),
+    "k1g_nl22_ns14_nlim21_sub4_it4_kt16": (8312, 572, 884),
+    "k1h_nl22_ns14_nlim21_sub4_it4_si": (8128, 48, 48),
+    "k1h_nl22_ns14_nlim21_sub4_it4_k6_si": (8520, 44, 44),
+    "k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si": (6072, 96, 96),
+    "k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si": (6352, 240, 264),
+    "k1h_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si": (6224, 1592, 1608),
+}
+# the batches of the K1a designs' sweep, and the timed calls at each
+SWEEP = {4096: 20, 16384: 10, 65536: 5}
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
 RAYCAST_REPLACES = "mocca_envs_tpu/ops/pallas/raycast.py:91"
@@ -498,13 +531,14 @@ def vertical_contacts(kernel, args) -> torch.Tensor:
 
 
 def compare(kernel, args, label: str | None = None, tol=TOL, tail: str = "max",
-            tail_envs=None) -> float:
+            tail_envs=None, loaded: bool = True) -> float:
     """Launch ``kernel`` once on ``args`` and hold it against its plain
     version: per-env medians within ``tol``, and ten times ``tol`` for the
     largest env (``tail="max"``) or the 99th percentile (``tail="p99"``, with
     the envs beyond counted); ``tail_envs`` (bool (B,)) limits the tail gate
-    to those envs, the others beyond it counted. Returns the largest absolute
-    error over all outputs."""
+    to those envs, the others beyond it counted. Contacts must carry load,
+    or with ``loaded=False`` none may be active. Returns the largest
+    absolute error over all outputs."""
     label = label or kernel.variant
     out = kernel.launch(*args)
     torch.cuda.synchronize()
@@ -532,7 +566,10 @@ def compare(kernel, args, label: str | None = None, tol=TOL, tail: str = "max",
     active = float((ref[2] > -kernel.config.contact_margin).float().sum(1).mean())
     print(f"[compare] {label}: {active:.3f} active contacts per env at the last substep, "
           f"{float((ref[3] > 0).float().mean()):.3f} of the spheres loaded")
-    check(float((ref[3] > 0).float().mean()) > 0.02, f"{label}: contacts carry no load")
+    if loaded:
+        check(float((ref[3] > 0).float().mean()) > 0.02, f"{label}: contacts carry no load")
+    else:
+        check(active == 0.0 and not bool((out[3] != 0).any()), f"{label}: a contact is active")
     if kernel.num_tris:
         # the JAX package's own gate for its mesh kernel
         share = float(((out[0] - ref[0]).abs() < 1e-3).float().mean())
@@ -542,9 +579,11 @@ def compare(kernel, args, label: str | None = None, tol=TOL, tail: str = "max",
 
 
 def compare_twins(kernel, twin, args, label: str) -> float:
-    """Launch an A-form ``kernel`` and its matrix-free ``twin`` once each on
-    ``args``: per-env medians within :data:`TOL_TWIN`, the largest env within
-    ten times. Returns the largest absolute difference."""
+    """Launch ``kernel`` and a ``twin`` that runs the same iteration with its
+    sums in another order (an A-form's matrix-free twin; the warp-per-env
+    K1a's thread-per-env instance) once each on ``args``: per-env medians
+    within :data:`TOL_TWIN`, the largest env within ten times. Returns the
+    largest absolute difference."""
     out = kernel.launch(*args)
     ref = twin.launch(*args)
     torch.cuda.synchronize()
@@ -553,7 +592,7 @@ def compare_twins(kernel, twin, args, label: str) -> float:
         per_env = (a - b).abs().amax(dim=1).cpu().numpy()
         med, worst = float(np.median(per_env)), float(per_env.max())
         max_abs = max(max_abs, worst)
-        print(f"[compare] {label} vs its matrix-free twin {twin.variant} {name}: per-env median "
+        print(f"[compare] {label} vs its twin {twin.name} {name}: per-env median "
               f"{med:.3e} p99 {float(np.quantile(per_env, 0.99)):.3e} max {worst:.3e} (median "
               f"tol {TOL_TWIN[name]:g}, max tol {10 * TOL_TWIN[name]:g})")
         check(med <= TOL_TWIN[name], f"{label} vs twin {name} median {med:.3e}")
@@ -590,6 +629,80 @@ def aform_workspace(engine, kernel, twin, label: str) -> None:
     print(f"[compare] {label}: workspace {ws[0]} floats per env, its twin {twin.name} {ws[1]}, "
           f"A and the residual {nr} × {nr} + {nr}")
     check(ws[0] - ws[1] == nr * nr + nr, f"{label}: workspace {ws} holds no {nr}² matrix")
+
+
+def ptxas(log: str) -> dict:
+    """Registers, static shared memory, stack frame and spills (bytes) of the
+    one kernel in an nvcc ``-Xptxas -v`` report."""
+    import re
+
+    found = {}
+    for key, pattern in (("registers", r"Used (\d+) registers"), ("smem", r"(\d+) bytes smem"),
+                         ("frame", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+        hit = re.search(pattern, log)
+        found[key] = int(hit.group(1)) if hit else None
+    return found
+
+
+def build_report(engine, card) -> None:
+    """Phase 1's readings: the fifteen named frames as :data:`FRAMES` has
+    them; the warp-per-env K1a with no spill, no global workspace, and its
+    envs resident per SM."""
+    logs = engine._Library.logs
+    for symbol, want in FRAMES.items():
+        got = ptxas(logs.get(symbol, ""))
+        check((got["frame"], got["spill_stores"], got["spill_loads"]) == want,
+              f"{symbol}: ptxas frame / spills {got}, want {want}")
+    print(f"[build] the fifteen named engine_k1.cu frames and spills unchanged: "
+          f"{[v[0] for v in FRAMES.values()]}")
+    for inst in engine.WARP_INSTANCES.values():
+        lib = engine.build()[inst.symbol]
+        got = ptxas(logs.get(inst.symbol, ""))
+        occ = engine.occupancy(lib, inst.symbol)
+        ws = engine.layout(lib, inst.symbol)[1]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"[build] {inst.symbol} (warp per env): {got['registers']} registers, "
+              f"{got['smem']} bytes static smem + {occ['smem_per_block']} bytes dynamic smem per "
+              f"block of {occ['envs_per_block']} envs, stack frame {got['frame']} bytes, spill "
+              f"stores {got['spill_stores']} / loads {got['spill_loads']} bytes, global workspace "
+              f"{ws} floats per env; {occ['blocks_per_sm']} blocks = {occ['envs_per_sm']} envs "
+              f"resident per SM, {occ['envs_per_sm'] * sms} on the {sms} SMs of {card}")
+        check(got["spill_stores"] == 0 and got["spill_loads"] == 0,
+              f"{inst.symbol}: ptxas reports spills: {got}")
+        check(ws == 0 and occ["blocks_per_sm"] >= 1, f"{inst.symbol}: workspace {ws}, {occ}")
+
+
+def k1a_sweep(engine, card, new, old, walker_step_ms: float) -> None:
+    """The two K1a designs timed in turns (thread per env, warp per env,
+    warp per env, thread per env; CUDA events) on near-contact states at
+    each B of :data:`SWEEP`, each beside the bound these inputs need, and
+    the walker's step against the kernel."""
+    rng = np.random.default_rng(SEED + 2)
+    occ = engine.occupancy(engine.build()[new.name], new.name)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for batch, calls in SWEEP.items():
+        args = [torch.as_tensor(x, device="cuda")
+                for x in near_contact_states(new.model, rng, batch)]
+        t = [time_call(k.launch, args, calls) for k in (old, new, new, old)]
+        old_ms, new_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        lim_act, con_act, _ = engine.k1_activity(new, *args)
+        t_ops = engine.k1_flops(new, lim_act, con_act) / PEAK_FP32 * 1e3
+        t_bytes = engine.k1_bytes_per_env(new) * batch / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        print(f"[sweep] K1a at B={batch} on {card}: thread per env {t[0]:.4f} / {t[3]:.4f} "
+              f"ms/call, warp per env {t[1]:.4f} / {t[2]:.4f} (in the order old, new, new, old; "
+              f"{calls} calls each); bound {bound:.5f} ms by "
+              f"{'operations' if t_ops >= t_bytes else 'bytes'}; old {old_ms / bound:.1f}× and "
+              f"new {new_ms / bound:.1f}× the bound, new {old_ms / new_ms:.2f}× faster; "
+              f"{batch / (occ['envs_per_sm'] * sms):.2f} waves of {occ['envs_per_sm']} envs per "
+              f"SM; active per env and substep: limit rows "
+              f"{float(lim_act.float().sum(2).mean()):.3f}, contacts "
+              f"{float(con_act.float().sum(2).mean()):.3f}")
+        del args
+    print(f"[sweep] Walker3DCustomEnv-v0 at B={B}: {walker_step_ms:.3f} ms per control step on "
+          f"{card}")
 
 
 def drive(port, engine, card, env_id: str, steps: int, variant: str, sums=(), watch=None,
@@ -973,6 +1086,56 @@ def combination_refused(engine, model, config) -> None:
     check(False, "PD mode over stones ran on the card")
 
 
+def device_busy(events) -> tuple:
+    """(the device events of a Chrome trace, µs in which the device was
+    busy, µs from the first event's start to the last one's end)."""
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and "dur" in e]
+    if not dev:
+        return dev, 0.0, 0.0
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return dev, busy, spans[-1][1] - spans[0][0]
+
+
+def walker_trace(port, card, steps: int = 20) -> None:
+    """Where the walker's control step goes now that K1a is short: the host's
+    time to enqueue ``steps`` steps (no synchronise) against the wall time
+    ended by one, and a ``torch.profiler`` trace of the same steps: the
+    device's busy share and its events per step."""
+    env = port.make("Walker3DCustomEnv-v0")
+    batch = port.BatchedEnv(env, B, seed=SEED)
+    state = batch.init()
+    actions = torch.zeros((B, env.act_dim), device="cuda")
+    for _ in range(5):
+        state = batch.step(state, actions).state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = batch.step(state, actions).state
+    enqueued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            state = batch.step(state, actions).state
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "walker.json"
+        prof.export_chrome_trace(str(path))
+        dev, busy, window = device_busy(json.loads(path.read_text())["traceEvents"])
+    share = f"busy {busy / 1e3:.3f} ms of {window / 1e3:.3f} = {busy / window:.2%}" if dev else \
+        "no device events in the trace: busy share not measured"
+    print(f"[profile] Walker3DCustomEnv-v0, {steps} steps × {B} envs on {card}: the host enqueued "
+          f"them in {1e3 * enqueued / steps:.3f} ms/step, the wall to the synchronise "
+          f"{1e3 * wall / steps:.3f} ms/step; traced: {len(dev) / steps:.0f} device events per "
+          f"step, {share}")
+
+
 def profile_update(card, workdir: Path) -> None:
     """One stepper update at horizon 16 under ``--profile-dir``: the
     device's busy share over the traced window and its largest kernels,
@@ -985,18 +1148,11 @@ def profile_update(card, workdir: Path) -> None:
     train.main(["--env", "Walker3DStepperEnv", "--split-impulse", "--num-envs", str(B),
                 "--horizon", "16", "--updates", "1", "--profile-dir", str(prof)])
     events = json.loads((prof / TRACE_FILE).read_text())["traceEvents"]
-    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-           and "dur" in e]
+    dev, busy, window = device_busy(events)
     if not dev:
         print(f"[profile] stepper update: the trace holds no device events on {card}: device "
               "busy share not measured")
         return
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev)
-    busy, end = 0.0, spans[0][0]
-    for a, b in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    window = spans[-1][1] - spans[0][0]
     by_name: dict = {}
     for e in dev:
         n = e["name"][:60]
@@ -1059,6 +1215,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "stack frame" in line:
                 print(f"[build] {symbol}: {line.strip()}")
+    build_report(engine, card)
 
     # ---- phase 2: each kernel vs its plain version at the main paths' shapes
     cuda = lambda arrays: [torch.as_tensor(x, device="cuda") for x in arrays]  # noqa: E731
@@ -1071,6 +1228,19 @@ def main() -> int:
                 cuda(pd_target_states(model, rng))),
     }
     max_abs = {v: compare(kernel, args) for v, (kernel, args) in kernels.items()}
+    # the warp-per-env K1a against the thread-per-env instance (the same
+    # iteration), near contact and with every base lifted clear of the plane
+    # (every contact row skipped)
+    k1a_thread = engine.K1a(model, config, thread_per_env=True)
+    check(kernels["k1a"][0].instance.source != k1a_thread.instance.source,
+          "K1a: the main path's instance is the thread-per-env one")
+    max_abs["k1a"] = max(max_abs["k1a"], compare_twins(kernels["k1a"][0], k1a_thread,
+                                                       kernels["k1a"][1], "k1a"))
+    lifted = [kernels["k1a"][1][0].clone(), *kernels["k1a"][1][1:]]
+    lifted[0][:, 2] += 3.0
+    max_abs["k1a"] = max(max_abs["k1a"],
+                         compare(kernels["k1a"][0], lifted, "k1a (no contact)", loaded=False),
+                         compare_twins(kernels["k1a"][0], k1a_thread, lifted, "k1a (no contact)"))
     two_frames = engine.K1b(model.replace(kp=kp), EngineConfig(llc_frames=2),
                             extra_damping=kp / 20.0)
     compare(two_frames, kernels["k1b"][1], "k1b (2 llc frames)")
@@ -1142,7 +1312,8 @@ def main() -> int:
     for v, twin in (("k1a_aform", "k1a"), ("k1h_si_aform", "k1h_si")):
         max_abs[v] = max(max_abs[v], compare_twins(added[v], kernels[twin][0],
                                                    kernels["k1a"][1], v))
-        aform_workspace(engine, added[v], kernels[twin][0], v)
+        # the workspace of the thread-per-env twin (the warp-per-env K1a has none)
+        aform_workspace(engine, added[v], k1a_thread if twin == "k1a" else kernels[twin][0], v)
     # every other option is another iteration: K1a's gate tells it from K1a
     for v in ("k1a_scalar", "k1a_cold", "k1a_refactor", "k1a_aform_scalar_cold_refactor",
               "k1a_sub2_it8"):
@@ -1160,7 +1331,8 @@ def main() -> int:
 
     # ---- phase 3: the main paths through the user entry points
     launches, step_ms = {}, {}
-    launches["k1a"], *_ = drive(port, engine, card, "Walker3DCustomEnv-v0", 600, "k1a")
+    launches["k1a"], _, _, _, step_ms["k1a"], _ = drive(
+        port, engine, card, "Walker3DCustomEnv-v0", 600, "k1a", instance=kernels["k1a"][0].name)
     launches["k1c"], stepper_state, tr, stepper, *_ = drive(
         port, engine, card, "Walker3DStepperEnv-v0", 600, "k1c")
     print(f"[main] Walker3DStepperEnv-v0: steps_reached mean "
@@ -1169,7 +1341,7 @@ def main() -> int:
           f"{int(tr.metrics['stone_hit'].sum())}, mean stage "
           f"{float(stepper_state.task.stage.mean()):.4f}")
     launches["k1b"], *_ = drive(port, engine, card, "Walker3DPDCustomEnv-v0", 200, "k1b")
-    drive(port, engine, card, "Child3DCustomEnv-v0", 100, "k1a")
+    drive(port, engine, card, "Child3DCustomEnv-v0", 100, "k1a", instance=kernels["k1a"][0].name)
     for v, env_id, steps in (("k1e_cassie", "CassieEnv-v0", 300),
                              ("k1e_cassie2d", "Cassie2DEnv-v0", 100),
                              ("k1e_planar", "Walker2DCustomEnv-v0", 200),
@@ -1254,6 +1426,8 @@ def main() -> int:
                  block_pgs=False, warm_start=False, reuse_factor=False))}
     times = {v: time_and_bound(engine, card, kernel, args, twins.get(v))
              for v, (kernel, args) in kernels.items()}
+    k1a_sweep(engine, card, kernels["k1a"][0], k1a_thread, step_ms["k1a"])
+    walker_trace(port, card)
 
     cull_and_pack_time(engine, card, model, config)
     stepper_env_layer_times(card, stepper, stepper_state)
@@ -1299,7 +1473,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": names[v],
         "route": "cuda",
-        "source": RAYCAST_SOURCE if v == "k2" else SOURCE,
+        "source": RAYCAST_SOURCE if v == "k2" else SOURCE_W if v == "k1a" else SOURCE,
         "replaces": RAYCAST_REPLACES if v == "k2" else REPLACES,
         "launches": launches[v],
         "max_abs_err": max_abs[v],

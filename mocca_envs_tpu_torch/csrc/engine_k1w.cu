@@ -1,0 +1,788 @@
+// K1a redesigned for Hopper (sm_90a): the fused rigid-body engine kernel of
+// Walker3D / Child3D on the plane in torque mode at the shipped solver
+// options, one warp per env.
+//
+// Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
+// make_pallas_substep (pallas_call at :1441) for that configuration, the
+// one the walker's main path launches once per control step. It computes
+// what engine_k1.cu's thread-per-env K1a instance computes, the same
+// iteration with some sums in another order; that instance stays built for
+// comparison (ops/cuda/engine.py, thread_per_env=True), and every other key
+// keeps its engine_k1.cu instance.
+//
+// Each llc frame runs NSUB substeps of: FK along the quaternion chain →
+// every sphere vs the plane → Newton–Euler bias → [substep 0: CRBA about
+// the base + Cholesky] → free velocity → rows [joint limits | contacts × (n,
+// t1, t2)] → W = L⁻¹Jᵀ per active row → matrix-free block PGS, λ warm-started
+// → qd' = v_free + L⁻ᵀ(Wλ) → semi-implicit integrate + limit backstop.
+//
+// What bounds it. Near contact a call needs ~1.6e5 fp32 operations per env
+// against 0.65 KB of inputs and outputs (ops/cuda/engine.py::k1_flops), so
+// the floor is the fp32 rate, ~0.01 ms at B = 4096. The thread-per-env
+// design ran ~770× above it: one warp of 32 envs per block left the SMs
+// under one warp each at B = 4096, its 255 registers spilled an 8.3 KB
+// frame, the factor, W (NR × NV), λ and z = Wλ round-tripped through a
+// global (C, B) workspace on every row visit, and every row was solved and
+// visited whether or not it was active. This design runs ~49× above the
+// bound on an H100 at B = 4096, ~16× faster than that one (PERF.md §6).
+//
+// Design.
+//   - One warp per env, E = kEnvs warps per block. Every branch on an env's
+//     data (a row's activity, a contact) is warp-uniform.
+//   - Nothing per env in global memory: the state, the link kinematics, the
+//     factor L (packed lower, 378 floats), W (NR × NV row-major, 1,701
+//     floats; the odd stride NV = 27 keeps a lane's row and a lane's column
+//     free of bank conflicts), λ, c, the diagonals and the activity sit in
+//     one EnvW of dynamic shared memory, ~12 KB; the Newton–Euler and CRBA
+//     scratch share W's space, which is written after them. The global
+//     workspace is empty (ws_per_env 0); the model table is staged once per
+//     block.
+//   - Lanes: link i for the FK, the Newton–Euler passes and the CRBA
+//     composites, one tree level at a time (depth 6 for the walker, not a
+//     21-step chain; a parent sums its children in the order the serial
+//     code does); sphere s for the narrowphase and the contact activity;
+//     row r of the factor's trailing update (right-looking, the same
+//     subtractions in the same order as the left-looking code); DOF j for
+//     the free velocity, z = Wλ and q̇, the triangular solves column by
+//     column with the pivot broadcast by a shuffle; one active row per lane
+//     for J_r, W_r = L⁻¹J_rᵀ (a forward solve in place in its row of W, L
+//     read as a broadcast), c_r and the diagonal. 64 registers, no spill:
+//     the row solved in 27 registers instead ran ~15% faster but spilled at
+//     the 128 that four blocks per SM allow.
+//   - Inactive rows are skipped: the active rows are listed once per
+//     substep (a ballot per 32 rows) and only they get a W solve, a
+//     diagonal, a 2×2 friction inverse and a visit. Under warm start an
+//     inactive row's λ is masked to 0 and its update would be 0 (a contact's
+//     friction bound is μ·λ_n = 0), so the iteration is the same.
+//   - A PGS row visit is one warp reduction: lane j forms W[r][j]·z_j, a
+//     __shfl_xor_sync butterfly sums them (every lane ends with the same
+//     bits), the λ update is warp-uniform and lane j then adds W[r][j]·Δλ to
+//     z_j. A contact's friction pair sums its two residuals in one
+//     butterfly.
+//
+// Host check. The per-env code is written against a lane width: loops run
+// `for (j = lane; j < n; j += WIDTH)`, collectives go through wsum /
+// wbcast / wballot / wsync, and a lane's share of a DOF-indexed vector is
+// an array of (n + WIDTH − 1) / WIDTH floats. Compiled with the host
+// compiler under K1W_HOST_CHECK, WIDTH is 1, lane 0 owns everything, the
+// collectives are identities and the envs run as a plain loop: tests check
+// this file's arithmetic there, and the card checks the split across lanes.
+//
+// Interface (all f32, contiguous, row-major), as engine_k1.cu's:
+//   q (B,NQ), qd (B,NV), tau (B,NJ), ground_z (B,), friction (B,), the
+//   scene inputs (unused here, may be null) → q' (B,NQ), qd' (B,NV), depth
+//   (B,NS), normal_impulse (B,NS) of the last substep. <sym>_occupancy
+//   reports the blocks (and so the envs) resident per SM.
+
+#include "k1_common.cuh"
+
+namespace k1w {
+
+using namespace k1;
+
+#ifdef K1W_HOST_CHECK
+constexpr int WIDTH = 1;
+inline float wsum(float x) { return x; }
+inline void wsum2(float&, float&) {}
+inline float wbcast(float x, int) { return x; }
+inline unsigned wballot(bool p) { return p ? 1u : 0u; }
+inline void wsync() {}
+inline int popc(unsigned x) { return __builtin_popcount(x); }
+#else
+constexpr int WIDTH = 32;
+constexpr unsigned kFull = 0xffffffffu;
+__device__ __forceinline__ float wsum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+__device__ __forceinline__ void wsum2(float& a, float& b) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(kFull, a, o);
+    b += __shfl_xor_sync(kFull, b, o);
+  }
+}
+__device__ __forceinline__ float wbcast(float x, int src) { return __shfl_sync(kFull, x, src); }
+__device__ __forceinline__ unsigned wballot(bool p) { return __ballot_sync(kFull, p); }
+__device__ __forceinline__ void wsync() { __syncwarp(); }
+__device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
+#endif
+
+constexpr int kEnvs = 4;   // warps (envs) per block
+
+// component c of a × b
+HD inline float cross_comp(const float* a, const float* b, int c) {
+  return c == 0 ? a[1] * b[2] - a[2] * b[1]
+                : c == 1 ? a[2] * b[0] - a[0] * b[2] : a[0] * b[1] - a[1] * b[0];
+}
+
+// R I Rᵀ of a link from its quaternion and its link-frame inertia
+HD inline void world_inertia(const float* quat, const float* I, float* Iw) {
+  float R[9], IRt[9];
+  qmat(quat, R);
+  for (int a = 0; a < 3; ++a)
+    for (int b = 0; b < 3; ++b)
+      IRt[3 * a + b] = I[3 * a] * R[3 * b] + I[3 * a + 1] * R[3 * b + 1] + I[3 * a + 2] * R[3 * b + 2];
+  for (int a = 0; a < 3; ++a)
+    for (int b = 0; b < 3; ++b)
+      Iw[3 * a + b] = R[3 * a] * IRt[b] + R[3 * a + 1] * IRt[3 + b] + R[3 * a + 2] * IRt[6 + b];
+}
+
+template <int NL>
+struct NeScratch { float alpha[NL][3], acc[NL][3], f[NL][3], n[NL][3]; };
+template <int NL>
+struct CrbaScratch { float cm[NL], chv[NL][3], cI[NL][9]; };
+
+// One env's state in shared memory.
+template <int NL, int NS, int NLIM>
+struct EnvW {
+  using L = Layout<NL, NS, NLIM, 0, false, 0, 0>;
+  float q[L::NQ], qd[L::NV], tau[L::NJ];
+  float ground, fric;
+  float pos[NL][3], quat[NL][4], omega[NL][3], comw[NL][3], ja[L::NJ][3];
+  float depth[NS], cpt[NS][3];
+  float bias[L::NV], vfree[L::NV];
+  float Lf[L::NLOW], dinv[L::NV];
+  float lam[L::NR], c[L::NR], diag[L::NR], act[L::NR], finv[NS][3];
+  int rows[L::NR];
+  union {
+    float W[L::NR * L::NV];
+    NeScratch<NL> ne;    // the Newton–Euler passes, before W is written
+    CrbaScratch<NL> cr;  // the CRBA composites, likewise
+  } u;
+};
+
+// The depth of each link in the tree (root 0) and the largest.
+template <int NL>
+HD inline int tree_depths(const float* parent, int* depth) {
+  int most = 0;
+  for (int l = 0; l < NL; ++l) {
+    int d = 0;
+    for (int p = l; p > 0; p = (int)parent[p]) ++d;
+    depth[l] = d;
+    most = d > most ? d : most;
+  }
+  return most;
+}
+
+template <int NL, int NS, int NLIM, int ITERS>
+HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int maxd, int lane,
+                bool factorize) {
+  using L = Layout<NL, NS, NLIM, 0, false, 0, 0>;
+  constexpr int NJ = L::NJ, NV = L::NV, NR = L::NR, NE = L::NE;
+  constexpr int NVL = (NV + WIDTH - 1) / WIDTH;   // a lane's share of a DOF vector
+  static_assert(NV <= 32, "one lane per velocity DOF");
+  const float dt = tab[L::DT];
+  auto Lx = [&](int i, int j) -> float& { return e.Lf[i * (i + 1) / 2 + j]; };  // i >= j
+
+  // ---------------- FK, one tree level at a time, and each link's COM
+  auto link_com = [&](int l) {
+    float R[9], cw[3];
+    qmat(e.quat[l], R);
+    matvec3(R, tab + L::COM + 3 * l, cw);
+    for (int k = 0; k < 3; ++k) e.comw[l][k] = e.pos[l][k] + cw[k];
+  };
+  if (lane == 0) {
+    for (int k = 0; k < 3; ++k) { e.pos[0][k] = e.q[k]; e.omega[0][k] = e.qd[3 + k]; }
+    for (int k = 0; k < 4; ++k) e.quat[0][k] = e.q[3 + k];
+    link_com(0);
+  }
+  wsync();
+  for (int d = 1; d <= maxd; ++d) {
+    for (int i = lane; i < NL; i += WIDTH) {
+      if (level[i] != d) continue;
+      const int j = i - 1;
+      const int p = (int)tab[L::PARENT + i];
+      const float* axis = tab + L::JAXIS + 3 * j;
+      float qpre[4], aw[3], off[3];
+      qmul(e.quat[p], tab + L::JQUAT + 4 * j, qpre);
+      qrot(qpre, axis, aw);
+      qrot(e.quat[p], tab + L::JPOS + 3 * j, off);
+      float sh, ch;
+      sincosf_(e.q[7 + j] * 0.5f, &sh, &ch);
+      const float dq[4] = {ch, axis[0] * sh, axis[1] * sh, axis[2] * sh};
+      qmul(qpre, dq, e.quat[i]);
+      for (int k = 0; k < 3; ++k) {
+        e.pos[i][k] = e.pos[p][k] + off[k];
+        e.omega[i][k] = e.omega[p][k] + aw[k] * e.qd[6 + j];
+        e.ja[j][k] = aw[k];
+      }
+      link_com(i);
+    }
+    wsync();
+  }
+
+  // ---------------- spheres vs the plane
+  for (int s = lane; s < NS; s += WIDTH) {
+    const int l = (int)tab[L::SPHLINK + s];
+    float R[9], cw[3];
+    qmat(e.quat[l], R);
+    matvec3(R, tab + L::SPHPOS + 3 * s, cw);
+    const float cx = e.pos[l][0] + cw[0], cy = e.pos[l][1] + cw[1], cz = e.pos[l][2] + cw[2];
+    e.depth[s] = tab[L::SPHR + s] - (cz - e.ground);
+    e.cpt[s][0] = cx; e.cpt[s][1] = cy; e.cpt[s][2] = e.ground;
+  }
+
+  // ---------------- Newton–Euler bias (q̈ = 0, base acceleration −g)
+  {
+    auto& ne = e.u.ne;
+    if (lane == 0)
+      for (int k = 0; k < 3; ++k) { ne.alpha[0][k] = 0.0f; ne.acc[0][k] = -tab[L::GX + k]; }
+    wsync();
+    for (int d = 1; d <= maxd; ++d) {
+      for (int i = lane; i < NL; i += WIDTH) {
+        if (level[i] != d) continue;
+        const int j = i - 1, p = (int)tab[L::PARENT + i];
+        float r[3], t1[3], t2[3], t3[3], wq[3];
+        for (int k = 0; k < 3; ++k) r[k] = e.pos[i][k] - e.pos[p][k];
+        cross3(ne.alpha[p], r, t1);
+        cross3(e.omega[p], r, t2);
+        cross3(e.omega[p], t2, t3);
+        for (int k = 0; k < 3; ++k) {
+          ne.acc[i][k] = ne.acc[p][k] + (t1[k] + t3[k]);
+          wq[k] = e.ja[j][k] * e.qd[6 + j];
+        }
+        cross3(e.omega[p], wq, t1);
+        for (int k = 0; k < 3; ++k) ne.alpha[i][k] = ne.alpha[p][k] + t1[k];
+      }
+      wsync();
+    }
+    for (int l = lane; l < NL; l += WIDTH) {
+      const float m = tab[L::MASS + l];
+      float rc[3], t1[3], t2[3], t3[3], Ia[3], Iwv[3], Iw[9];
+      world_inertia(e.quat[l], tab + L::INERTIA + 9 * l, Iw);
+      for (int k = 0; k < 3; ++k) rc[k] = e.comw[l][k] - e.pos[l][k];
+      cross3(ne.alpha[l], rc, t1);
+      cross3(e.omega[l], rc, t2);
+      cross3(e.omega[l], t2, t3);
+      for (int k = 0; k < 3; ++k) ne.f[l][k] = m * (ne.acc[l][k] + (t1[k] + t3[k]));
+      matvec3(Iw, ne.alpha[l], Ia);
+      matvec3(Iw, e.omega[l], Iwv);
+      cross3(e.omega[l], Iwv, t1);
+      cross3(rc, ne.f[l], t2);
+      for (int k = 0; k < 3; ++k) ne.n[l][k] = (Ia[k] + t1[k]) + t2[k];
+    }
+    wsync();
+    // children into their parents, deepest level first; a parent takes its
+    // children from the highest index down, as the serial sweep does
+    for (int d = maxd; d > 0; --d) {
+      for (int p = lane; p < NL; p += WIDTH) {
+        if (level[p] != d - 1) continue;
+        for (int i = NL - 1; i > p; --i) {
+          if ((int)tab[L::PARENT + i] != p) continue;
+          float r[3], t1[3];
+          for (int k = 0; k < 3; ++k) r[k] = e.pos[i][k] - e.pos[p][k];
+          cross3(r, ne.f[i], t1);
+          for (int k = 0; k < 3; ++k) {
+            ne.f[p][k] += ne.f[i][k];
+            ne.n[p][k] += ne.n[i][k] + t1[k];
+          }
+        }
+      }
+      wsync();
+    }
+    for (int i = lane; i < NV; i += WIDTH)
+      e.bias[i] = i < 3 ? ne.f[0][i] : i < 6 ? ne.n[0][i - 3] : dot3(e.ja[i - 6], ne.n[i - 5]);
+    wsync();
+  }
+
+  // ---------------- frame start: CRBA (composites about the base origin)
+  // and the Cholesky factor, held for the frame's other substeps
+  if (factorize) {
+    auto& cr = e.u.cr;
+    const float* O = e.pos[0];
+    for (int l = lane; l < NL; l += WIDTH) {
+      const float m = tab[L::MASS + l];
+      float d[3], Iw[9];
+      world_inertia(e.quat[l], tab + L::INERTIA + 9 * l, Iw);
+      for (int k = 0; k < 3; ++k) d[k] = e.comw[l][k] - O[k];
+      const float dd = dot3(d, d);
+      cr.cm[l] = m;
+      for (int a = 0; a < 3; ++a) {
+        cr.chv[l][a] = m * d[a];
+        for (int b = 0; b < 3; ++b)
+          cr.cI[l][3 * a + b] = Iw[3 * a + b] + m * ((a == b ? dd : 0.0f) - d[a] * d[b]);
+      }
+    }
+    wsync();
+    for (int d = maxd; d > 0; --d) {
+      for (int p = lane; p < NL; p += WIDTH) {
+        if (level[p] != d - 1) continue;
+        for (int i = NL - 1; i > p; --i) {
+          if ((int)tab[L::PARENT + i] != p) continue;
+          cr.cm[p] += cr.cm[i];
+          for (int k = 0; k < 3; ++k) cr.chv[p][k] += cr.chv[i][k];
+          for (int k = 0; k < 9; ++k) cr.cI[p][k] += cr.cI[i][k];
+        }
+      }
+      wsync();
+    }
+    // spatial momentum (Lm about O, P) of composite l moving with (w, v@O)
+    auto momentum = [&](int l, const float* w, const float* v, float* Lm, float* P) {
+      float t1[3], t2[3];
+      matvec3(cr.cI[l], w, Lm);
+      cross3(cr.chv[l], v, t1);
+      cross3(w, cr.chv[l], t2);
+      for (int k = 0; k < 3; ++k) {
+        Lm[k] += t1[k];
+        P[k] = cr.cm[l] * v[k] + t2[k];
+      }
+    };
+    // row `row` of M's lower triangle: a base axis, or a joint's axis
+    for (int row = lane; row < NV; row += WIDTH) {
+      float Lm[3], P[3];
+      if (row < 6) {
+        // constant indices only, so that nothing lands in local memory
+        const float zero3[3] = {0.0f, 0.0f, 0.0f};
+        const float ea[3] = {row % 3 == 0 ? 1.0f : 0.0f, row % 3 == 1 ? 1.0f : 0.0f,
+                             row % 3 == 2 ? 1.0f : 0.0f};
+        if (row < 3) momentum(0, zero3, ea, Lm, P);
+        else momentum(0, ea, zero3, Lm, P);
+        for (int b = 0; b < 6; ++b)
+          if (b <= row) Lx(row, b) = b < 3 ? P[b] : Lm[b - 3];
+        continue;
+      }
+      const int j = row - 6;
+      float sv[3], r[3];
+      for (int k = 0; k < 3; ++k) r[k] = O[k] - e.pos[j + 1][k];
+      cross3(e.ja[j], r, sv);
+      momentum(j + 1, e.ja[j], sv, Lm, P);
+      for (int b = 0; b < 6; ++b) Lx(row, b) = b < 3 ? P[b] : Lm[b - 3];
+      for (int k = 0; k < j; ++k) {
+        float mk = 0.0f;
+        if (tab[L::ANC + (j + 1) * NJ + k] > 0.5f) {
+          float sk[3], rk[3];
+          for (int dd = 0; dd < 3; ++dd) rk[dd] = O[dd] - e.pos[k + 1][dd];
+          cross3(e.ja[k], rk, sk);
+          mk = dot3(e.ja[k], Lm) + dot3(sk, P);
+        }
+        Lx(row, 6 + k) = mk;
+      }
+      Lx(row, row) = dot3(e.ja[j], Lm) + dot3(sv, P) + tab[L::JDIAG + j];
+    }
+    wsync();
+    // right-looking Cholesky in place, lanes over the rows below the pivot;
+    // the diagonal is clamped at 1e-9
+    for (int j = 0; j < NV; ++j) {
+      const float djj = Lx(j, j);
+      const float dinv = rsqrtf(fmaxf(djj, 1e-9f));
+      wsync();
+      if (lane == 0) {
+        e.dinv[j] = dinv;
+        Lx(j, j) = djj * dinv;
+      }
+      for (int i = j + 1 + lane; i < NV; i += WIDTH) Lx(i, j) *= dinv;
+      wsync();
+      for (int i = j + 1 + lane; i < NV; i += WIDTH) {
+        const float lij = Lx(i, j);
+        for (int k = j + 1; k <= i; ++k) Lx(i, k) -= lij * Lx(k, j);
+      }
+      wsync();
+    }
+  }
+
+  // L y = b and Lᵀ x = y on a lane-owned vector (lane j holds DOF j),
+  // column by column, each pivot broadcast from its lane
+  auto fwd_lanes = [&](float* y) {
+    for (int i = 0; i < NV; ++i) {
+      for (int jj = 0; jj < NVL; ++jj)
+        if (lane + jj * WIDTH == i) y[jj] *= e.dinv[i];
+      const float yi = wbcast(y[i / WIDTH], i % WIDTH);
+      for (int jj = 0; jj < NVL; ++jj) {
+        const int k = lane + jj * WIDTH;
+        if (k > i && k < NV) y[jj] -= Lx(k, i) * yi;
+      }
+    }
+  };
+  auto bwd_lanes = [&](float* x) {
+    for (int i = NV - 1; i >= 0; --i) {
+      for (int jj = 0; jj < NVL; ++jj)
+        if (lane + jj * WIDTH == i) x[jj] *= e.dinv[i];
+      const float xi = wbcast(x[i / WIDTH], i % WIDTH);
+      for (int jj = 0; jj < NVL; ++jj) {
+        const int k = lane + jj * WIDTH;
+        if (k < i) x[jj] -= Lx(i, k) * xi;
+      }
+    }
+  };
+
+  // ---------------- free velocity
+  {
+    float y[NVL];
+    for (int jj = 0; jj < NVL; ++jj) {
+      const int i = lane + jj * WIDTH;
+      y[jj] = 0.0f;
+      if (i < 6) {
+        y[jj] = -e.bias[i];
+      } else if (i < NV) {
+        const int j = i - 6;
+        const float qj = e.q[7 + j];
+        const float tj = e.tau[j] + (-tab[L::DAMP + j] * e.qd[6 + j] -
+                                     tab[L::STIFF + j] * (qj - tab[L::SPRREF + j]));
+        y[jj] = tj - e.bias[i];
+      }
+    }
+    fwd_lanes(y);
+    bwd_lanes(y);
+    for (int jj = 0; jj < NVL; ++jj) {
+      const int i = lane + jj * WIDTH;
+      if (i < NV) e.vfree[i] = e.qd[i] + dt * y[jj];
+    }
+    wsync();
+  }
+
+  // ---------------- which rows are active, and their list
+  const float beta = tab[L::BETA], maxpush = tab[L::MAXPUSH];
+  for (int lr = lane; lr < NLIM; lr += WIDTH) {
+    const int j = (int)tab[L::LIMIDX + lr];
+    const float qj = e.q[7 + j];
+    const float gap = fminf(qj - tab[L::LIMLO + j], tab[L::LIMHI + j] - qj);
+    e.act[NE + lr] = gap < tab[L::LIMMARGIN] ? 1.0f : 0.0f;
+  }
+  for (int s = lane; s < NS; s += WIDTH) {
+    const float a = e.depth[s] > -tab[L::MARGIN] ? 1.0f : 0.0f;
+    for (int m = 0; m < 3; ++m) e.act[NE + NLIM + 3 * s + m] = a;
+  }
+  wsync();
+  int nrows = 0;
+  for (int base = 0; base < NR; base += WIDTH) {
+    const int r = base + lane;
+    const bool a = r < NR && e.act[r] > 0.5f;
+    const unsigned mask = wballot(a);
+    if (a) e.rows[nrows + popc(mask & ((1u << lane) - 1u))] = r;
+    nrows += popc(mask);
+  }
+  wsync();
+
+  // ---------------- each active row: J_r, c_r, W_r = L⁻¹J_rᵀ and its
+  // diagonal, one row per lane, solved in place in the row of W
+  const float cfm = tab[L::CFM];
+  for (int t = lane; t < nrows; t += WIDTH) {
+    const int r = e.rows[t];
+    float* y = e.u.W + r * NV;
+    if (r < NE + NLIM) {   // a joint limit: ±1 on its column
+      const int lr = r - NE;
+      const int j = (int)tab[L::LIMIDX + lr];
+      const float qj = e.q[7 + j];
+      const float d_lo = qj - tab[L::LIMLO + j], d_hi = tab[L::LIMHI + j] - qj;
+      const float sgn = d_lo <= d_hi ? 1.0f : -1.0f;
+      const float gap = fminf(d_lo, d_hi), viol = -gap;
+      const float b_l = fminf(beta * fmaxf(viol - tab[L::LIMSLOP], 0.0f), maxpush);
+      const int col = 6 + j;
+      for (int i = 0; i < NV; ++i) y[i] = i == col ? sgn : 0.0f;
+      e.c[r] = sgn * e.vfree[col] - (b_l - fmaxf(-viol, 0.0f) / dt);
+    } else {               // a contact on the plane: rows z, x, y of its point Jacobian
+      const int s = (r - NE - NLIM) / 3, m = (r - NE - NLIM) % 3;
+      const int comp = m == 0 ? 2 : m - 1;
+      const int l = (int)tab[L::SPHLINK + s];
+      const float* x = e.cpt[s];
+      float rel[3];
+      for (int k = 0; k < 3; ++k) rel[k] = x[k] - e.pos[0][k];
+      // component comp of e_k × rel, k = 0, 1, 2
+      const float ang[3] = {comp == 0 ? 0.0f : comp == 1 ? -rel[2] : rel[1],
+                            comp == 0 ? rel[2] : comp == 1 ? 0.0f : -rel[0],
+                            comp == 0 ? -rel[1] : comp == 1 ? rel[0] : 0.0f};
+      float cv = 0.0f;
+      for (int i = 0; i < NV; ++i) {
+        if (i < 3) {
+          y[i] = i == comp ? 1.0f : 0.0f;
+        } else if (i < 6) {
+          y[i] = i == 3 ? ang[0] : i == 4 ? ang[1] : ang[2];
+        } else {
+          const int j = i - 6;
+          y[i] = 0.0f;
+          if (tab[L::ANC + l * NJ + j] > 0.5f) {
+            float dx[3];
+            for (int k = 0; k < 3; ++k) dx[k] = x[k] - e.pos[j + 1][k];
+            y[i] = cross_comp(e.ja[j], dx, comp);
+          }
+        }
+        cv += y[i] * e.vfree[i];
+      }
+      if (m == 0) {
+        const float dep = e.depth[s];
+        const float b_n = fminf(beta * fmaxf(dep - tab[L::SLOP], 0.0f), maxpush);
+        cv -= b_n - fmaxf(-dep, 0.0f) / dt;
+      }
+      e.c[r] = cv;
+    }
+    float dd = 0.0f;
+#pragma unroll 1
+    for (int i = 0; i < NV; ++i) {
+      const float* Li = e.Lf + i * (i + 1) / 2;
+      float s = y[i];
+      for (int k = 0; k < i; ++k) s -= Li[k] * y[k];
+      s *= e.dinv[i];
+      y[i] = s;
+      dd += s * s;
+    }
+    e.diag[r] = fmaxf(dd + cfm, 1e-9f);
+  }
+  wsync();
+  // each active contact's 2×2 friction block, inverted
+  for (int s = lane; s < NS; s += WIDTH) {
+    const int t1 = NE + NLIM + 3 * s + 1, t2 = t1 + 1;
+    if (!(e.act[t1] > 0.5f)) continue;
+    float a12 = 0.0f;
+    for (int i = 0; i < NV; ++i) a12 += e.u.W[t1 * NV + i] * e.u.W[t2 * NV + i];
+    const float a11 = e.diag[t1], a22 = e.diag[t2];
+    const float det = fmaxf(a11 * a22 - a12 * a12, 1e-12f);
+    e.finv[s][0] = a22 / det; e.finv[s][1] = a11 / det; e.finv[s][2] = -a12 / det;
+  }
+  // warm start: the previous substep's λ, masked by this substep's activity
+  for (int r = lane; r < NR; r += WIDTH) e.lam[r] *= e.act[r];
+  wsync();
+  float z[NVL];   // z = Wλ, lane-owned
+  for (int jj = 0; jj < NVL; ++jj) {
+    const int j = lane + jj * WIDTH;
+    z[jj] = 0.0f;
+    if (j < NV)
+      for (int t = 0; t < nrows; ++t) {
+        const int r = e.rows[t];
+        z[jj] += e.u.W[r * NV + j] * e.lam[r];
+      }
+  }
+  // W_r · z, this lane's part
+  auto part = [&](int r) {
+    float p = 0.0f;
+    for (int jj = 0; jj < NVL; ++jj) {
+      const int j = lane + jj * WIDTH;
+      if (j < NV) p += e.u.W[r * NV + j] * z[jj];
+    }
+    return p;
+  };
+  auto move = [&](int r, float d) {
+    for (int jj = 0; jj < NVL; ++jj) {
+      const int j = lane + jj * WIDTH;
+      if (j < NV) z[jj] += e.u.W[r * NV + j] * d;
+    }
+  };
+
+  // ---------------- PGS over the active rows, in the serial order
+  const float fric = e.fric;
+  for (int it = 0; it < ITERS; ++it) {
+    for (int t = 0; t < nrows;) {
+      const int r = e.rows[t];
+      const float l0 = e.lam[r];
+      const float res = e.c[r] + cfm * l0 + wsum(part(r));
+      const float nw = fmaxf(0.0f, l0 - res / e.diag[r]);
+      e.lam[r] = nw;
+      move(r, nw - l0);
+      if (r < NE + NLIM) { ++t; continue; }
+      // a contact's normal row, then its friction pair as one 2×2 step
+      const int s = (r - NE - NLIM) / 3, b1 = r + 1, b2 = r + 2;
+      const float bound = fric * nw;
+      const float l1 = e.lam[b1], l2 = e.lam[b2];
+      float p1 = part(b1), p2 = part(b2);
+      wsum2(p1, p2);
+      const float r1 = e.c[b1] + cfm * l1 + p1, r2 = e.c[b2] + cfm * l2 + p2;
+      const float d1 = -(e.finv[s][0] * r1 + e.finv[s][2] * r2);
+      const float d2 = -(e.finv[s][2] * r1 + e.finv[s][1] * r2);
+      const float n1 = clampf(l1 + d1, -bound, bound), n2 = clampf(l2 + d2, -bound, bound);
+      const float e1 = n1 - l1, e2 = n2 - l2;
+      e.lam[b1] = n1;
+      e.lam[b2] = n2;
+      for (int jj = 0; jj < NVL; ++jj) {
+        const int j = lane + jj * WIDTH;
+        if (j < NV) z[jj] += e.u.W[b1 * NV + j] * e1 + e.u.W[b2 * NV + j] * e2;
+      }
+      t += 3;
+    }
+  }
+
+  // ---------------- impulse map and integration
+  bwd_lanes(z);
+  const float maxvel = tab[L::MAXVEL], limslop = tab[L::LIMSLOP];
+  float qdn[NVL];
+  for (int jj = 0; jj < NVL; ++jj) {
+    const int i = lane + jj * WIDTH;
+    qdn[jj] = i < NV ? clampf(e.vfree[i] + z[jj], -maxvel, maxvel) : 0.0f;
+  }
+  // the base rotation: every lane computes it from the broadcast ω
+  const float hx = wbcast(qdn[3 / WIDTH], 3 % WIDTH) * (0.5f * dt);
+  const float hy = wbcast(qdn[4 / WIDTH], 4 % WIDTH) * (0.5f * dt);
+  const float hz = wbcast(qdn[5 / WIDTH], 5 % WIDTH) * (0.5f * dt);
+  float bq[4];
+  {
+    const float theta = sqrtf(hx * hx + hy * hy + hz * hz + 1e-24f);
+    float sn, cs;
+    sincosf_(theta, &sn, &cs);
+    const float sc = sn / theta;
+    const float dq[4] = {cs, hx * sc, hy * sc, hz * sc};
+    qmul(dq, e.q + 3, bq);
+    const float inv = rsqrtf(bq[0] * bq[0] + bq[1] * bq[1] + bq[2] * bq[2] + bq[3] * bq[3]);
+    for (int k = 0; k < 4; ++k) bq[k] *= inv;
+  }
+  wsync();
+  if (lane == 0)
+    for (int k = 0; k < 4; ++k) e.q[3 + k] = bq[k];
+  for (int jj = 0; jj < NVL; ++jj) {
+    const int i = lane + jj * WIDTH;
+    if (i < 3) {
+      e.q[i] += dt * qdn[jj];
+    } else if (i >= 6 && i < NV) {
+      const int j = i - 6;
+      const float raw = e.q[7 + j] + dt * qdn[jj];
+      const float lo = tab[L::LIMLO + j] - limslop, hi = tab[L::LIMHI + j] + limslop;
+      float v = qdn[jj];
+      if (raw > hi && v > 0.0f) v = 0.0f;
+      if (raw < lo && v < 0.0f) v = 0.0f;
+      e.q[7 + j] = clampf(raw, lo, hi);
+      qdn[jj] = v;
+    }
+    if (i < NV) e.qd[i] = qdn[jj];
+  }
+  wsync();
+}
+
+// One call for env t: NSUB substeps of one llc frame, λ zeroed at the start.
+template <int NL, int NS, int NLIM, int NSUB, int ITERS>
+KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const float* gz,
+                      const float* fric, float* q_out, float* qd_out, float* depth_out,
+                      float* nimp_out, const float* tab, const int* level, int maxd,
+                      EnvW<NL, NS, NLIM>& e, int t, int lane) {
+  using L = Layout<NL, NS, NLIM, 0, false, 0, 0>;
+  for (int i = lane; i < L::NQ; i += WIDTH) e.q[i] = q[(long long)t * L::NQ + i];
+  for (int i = lane; i < L::NV; i += WIDTH) e.qd[i] = qd[(long long)t * L::NV + i];
+  for (int i = lane; i < L::NJ; i += WIDTH) e.tau[i] = tau[(long long)t * L::NJ + i];
+  for (int r = lane; r < L::NR; r += WIDTH) e.lam[r] = 0.0f;
+  if (lane == 0) {
+    e.ground = gz[t];
+    e.fric = fric[t];
+  }
+  wsync();
+  for (int sub = 0; sub < NSUB; ++sub)   // the factor of the frame's first substep
+    substep<NL, NS, NLIM, ITERS>(e, tab, level, maxd, lane, sub == 0);
+  for (int i = lane; i < L::NQ; i += WIDTH) q_out[(long long)t * L::NQ + i] = e.q[i];
+  for (int i = lane; i < L::NV; i += WIDTH) qd_out[(long long)t * L::NV + i] = e.qd[i];
+  for (int s = lane; s < NS; s += WIDTH) {
+    depth_out[(long long)t * NS + s] = e.depth[s];
+    nimp_out[(long long)t * NS + s] = e.lam[L::NE + NLIM + 3 * s];
+  }
+}
+
+#ifndef K1W_HOST_CHECK
+// Dynamic shared memory of a block: the table, the link depths, kEnvs EnvW.
+template <int NL, int NS, int NLIM>
+struct Smem {
+  using L = Layout<NL, NS, NLIM, 0, false, 0, 0>;
+  static constexpr int ENV_OFF = ((L::SIZE + NL) * 4 + 15) / 16 * 16;
+  static constexpr int BYTES = ENV_OFF + kEnvs * (int)sizeof(EnvW<NL, NS, NLIM>);
+};
+
+template <int NL, int NS, int NLIM, int NSUB, int ITERS>
+__global__ void __launch_bounds__(32 * kEnvs, 4)
+k1w_kernel(const float* __restrict__ q, const float* __restrict__ qd,
+           const float* __restrict__ tau, const float* __restrict__ gz,
+           const float* __restrict__ fric, float* __restrict__ q_out,
+           float* __restrict__ qd_out, float* __restrict__ depth_out,
+           float* __restrict__ nimp_out, const float* __restrict__ table, int B) {
+  using L = Layout<NL, NS, NLIM, 0, false, 0, 0>;
+  using S = Smem<NL, NS, NLIM>;
+  extern __shared__ float4 smem[];
+  float* tab = reinterpret_cast<float*>(smem);
+  int* level = reinterpret_cast<int*>(tab + L::SIZE);
+  auto* envs = reinterpret_cast<EnvW<NL, NS, NLIM>*>(reinterpret_cast<char*>(smem) + S::ENV_OFF);
+  for (int i = threadIdx.x; i < L::SIZE; i += blockDim.x) tab[i] = table[i];
+  __syncthreads();
+  if (threadIdx.x == 0) tree_depths<NL>(tab + L::PARENT, level);
+  __syncthreads();
+  int maxd = 0;
+  for (int l = 0; l < NL; ++l) maxd = level[l] > maxd ? level[l] : maxd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kEnvs + warp;
+  if (t >= B) return;   // the whole warp
+  frame<NL, NS, NLIM, NSUB, ITERS>(q, qd, tau, gz, fric, q_out, qd_out, depth_out, nimp_out, tab,
+                                  level, maxd, envs[warp], t, lane);
+}
+
+template <int NL, int NS, int NLIM, int NSUB, int ITERS>
+int prepare() {
+  return (int)cudaFuncSetAttribute(k1w_kernel<NL, NS, NLIM, NSUB, ITERS>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   Smem<NL, NS, NLIM>::BYTES);
+}
+
+template <int NL, int NS, int NLIM, int NSUB, int ITERS>
+int launch(const float* q, const float* qd, const float* tau, const float* gz, const float* fric,
+           float* q_out, float* qd_out, float* depth, float* nimp, const float* table,
+           int table_size, int B, void* stream) {
+  using L = Layout<NL, NS, NLIM, 0, false, 0, 0>;
+  if (table_size != L::SIZE || B <= 0) return (int)cudaErrorInvalidValue;
+  const int err = prepare<NL, NS, NLIM, NSUB, ITERS>();
+  if (err != 0) return err;
+  const int blocks = (B + kEnvs - 1) / kEnvs;
+  k1w_kernel<NL, NS, NLIM, NSUB, ITERS>
+      <<<blocks, 32 * kEnvs, Smem<NL, NS, NLIM>::BYTES, (cudaStream_t)stream>>>(
+          q, qd, tau, gz, fric, q_out, qd_out, depth, nimp, table, B);
+  return (int)cudaGetLastError();
+}
+
+template <int NL, int NS, int NLIM, int NSUB, int ITERS>
+int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
+  const int err = prepare<NL, NS, NLIM, NSUB, ITERS>();
+  if (err != 0) return err;
+  *envs_per_block = kEnvs;
+  *smem_bytes = Smem<NL, NS, NLIM>::BYTES;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, k1w_kernel<NL, NS, NLIM, NSUB, ITERS>, 32 * kEnvs,
+      Smem<NL, NS, NLIM>::BYTES);
+}
+#endif
+
+}  // namespace k1w
+
+// ------------------------------------------------------------ C interface
+// The same entries as engine_k1.cu's instances (the scene inputs and the
+// workspace are taken and unused; the workspace per env is 0), and
+// <sym>_occupancy.
+#define K1W_LAYOUT(NAME, NL, NS, NLIM)                                                      \
+  extern "C" int NAME##_layout(int* table_size, int* ws_per_env) {                          \
+    *table_size = k1::Layout<NL, NS, NLIM, 0, false, 0, 0>::SIZE;                           \
+    *ws_per_env = 0;                                                                         \
+    return 0;                                                                                \
+  }
+#ifndef K1W_HOST_CHECK
+#define K1W_INSTANCE(NAME, NL, NS, NLIM, NSUB, ITERS)                                        \
+  K1W_LAYOUT(NAME, NL, NS, NLIM)                                                            \
+  extern "C" int NAME##_launch(const float* q, const float* qd, const float* tau,           \
+                               const float* gz, const float* fric, const float*,            \
+                               const float*, const float*, const float*, const float*,      \
+                               float* q_out, float* qd_out, float* depth, float* nimp,      \
+                               const float* table, int table_size, float*, int B,           \
+                               void* stream) {                                               \
+    return k1w::launch<NL, NS, NLIM, NSUB, ITERS>(q, qd, tau, gz, fric, q_out, qd_out,      \
+                                                  depth, nimp, table, table_size, B,       \
+                                                  stream);                                  \
+  }                                                                                          \
+  extern "C" int NAME##_occupancy(int* blocks_per_sm, int* envs_per_block,                  \
+                                  int* smem_bytes) {                                        \
+    return k1w::occupancy<NL, NS, NLIM, NSUB, ITERS>(blocks_per_sm, envs_per_block,         \
+                                                     smem_bytes);                           \
+  }
+#else
+// host check: the same per-env code at lane width 1, a plain loop over envs
+#define K1W_INSTANCE(NAME, NL, NS, NLIM, NSUB, ITERS)                                        \
+  K1W_LAYOUT(NAME, NL, NS, NLIM)                                                            \
+  extern "C" int NAME##_host(const float* q, const float* qd, const float* tau,             \
+                             const float* gz, const float* fric, const float*,              \
+                             const float*, const float*, const float*, const float*,        \
+                             float* q_out, float* qd_out, float* depth, float* nimp,        \
+                             const float* table, int table_size, float*, int B) {           \
+    using L_ = k1::Layout<NL, NS, NLIM, 0, false, 0, 0>;                                    \
+    if (table_size != L_::SIZE || B <= 0) return 1;                                          \
+    int dep[NL];                                                                             \
+    const int maxd = k1w::tree_depths<NL>(table + L_::PARENT, dep);                          \
+    auto* e = new k1w::EnvW<NL, NS, NLIM>;                                                   \
+    for (int t = 0; t < B; ++t)                                                              \
+      k1w::frame<NL, NS, NLIM, NSUB, ITERS>(q, qd, tau, gz, fric, q_out, qd_out, depth,     \
+                                            nimp, table, dep, maxd, *e, t, 0);              \
+    delete e;                                                                                \
+    return 0;                                                                                \
+  }
+#endif
+
+// Walker3D / Child3D at the shipped EngineConfig: 22 links, 14 spheres, 21
+// limit rows, 4 substeps, 4 sweeps (K1a)
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4, 22, 14, 21, 4, 4)

@@ -12,16 +12,21 @@ faces) and K1h (``split_impulse``: the bias split and the position pass) on
 each of them (K1hSi on the walker's plane), each under any ``EngineConfig``:
 the PGS options ``matfree_pgs`` (else the A-form), ``block_pgs`` (else
 scalar friction rows), ``warm_start`` and ``reuse_factor``, any substeps and
-sweeps. The kernel is CUDA C++ in ``csrc/engine_k1.cu``, one source for all
-of them. An instance is picked by its :class:`Key`: the fifteen the source
-names (:data:`INSTANTIATIONS`, the shipped families at the shipped options)
-and, for any other key, the generic instance whose name
-(:func:`canonical_symbol`) and template arguments come from preprocessor
-flags (:func:`compile_flags`). :func:`build` compiles them with ``nvcc`` for
-``sm_90a`` into ``build/``, one compiler process per instance, all started
-together (with the raycast kernel K2 of ``csrc/raycast_k2.cu``, whose
-wrapper is ``ops/raycast.py``); a generic instance is built at the first
-launch of its key. They are called through a plain C interface with
+sweeps. The kernel is CUDA C++ in two sources: ``csrc/engine_k1w.cu``, K1a
+redesigned for Hopper (one warp per env, W and the factor in shared memory,
+inactive rows skipped), which the walker's key runs (:data:`WARP_INSTANCES`),
+and ``csrc/engine_k1.cu``, one thread per env, for every other key. An
+instance is picked by its :class:`Key`: the warp-per-env one where there is
+one, else the fifteen ``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the
+shipped families at the shipped options) and, for any other key, the
+generic instance whose name (:func:`canonical_symbol`) and template
+arguments come from preprocessor flags (:func:`compile_flags`). The
+thread-per-env K1a instance stays built; only ``thread_per_env=True`` reaches
+it, to compare the two designs. :func:`build` compiles them with ``nvcc``
+for ``sm_90a`` into ``build/``, one compiler process per instance, all
+started together (with the raycast kernel K2 of ``csrc/raycast_k2.cu``,
+whose wrapper is ``ops/raycast.py``); a generic instance is built at the
+first launch of its key. They are called through a plain C interface with
 ``ctypes``.
 
 - :class:`K1a`, :class:`K1c`, :class:`K1b`, :class:`K1e`, :class:`K1d`,
@@ -66,6 +71,8 @@ from mocca_envs_tpu_torch.terrain.scene import BAR_FIELDS, STONE_FIELDS, TRI_FIE
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "engine_k1.cu"
+SOURCE_W = SOURCE.with_name("engine_k1w.cu")        # K1a, one warp per env
+HEADER = SOURCE.with_name("k1_common.cuh")          # included by both
 RAYCAST_SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "raycast_k2.cu"
 RAYCAST_SYMBOL = "k2_raycast"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -110,13 +117,16 @@ class Key:
 
 @dataclasses.dataclass(frozen=True)
 class Instance:
-    """One instantiation of the kernel template in the source: one of the
-    fifteen named there (``index`` is its K1_ONLY number) or, for any other
-    key, the generic one (``index`` None) built from ``compile_flags``."""
+    """One instantiation of a kernel template in ``source``: one of the
+    fifteen ``engine_k1.cu`` names (``index`` is its K1_ONLY number), the
+    warp-per-env K1a of ``engine_k1w.cu`` (its only instance, ``index`` 0)
+    or, for any other key, the generic one (``index`` None) built from
+    ``compile_flags``."""
 
     symbol: str   # C symbol prefix
     index: int | None
     key: Key
+    source: Path = SOURCE
 
 
 _W = dict(nl=22, ns=14, nlim=21, substeps=4, iters=4)         # Walker3D / Child3D
@@ -149,6 +159,11 @@ INSTANTIATIONS = {inst.key: inst for inst in (
              Key(**_C, planar=True, split=True)),
     Instance("k1h_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si", 14, Key(**_M, split=True)),
 )}
+# the keys the warp-per-env source runs: K1a, the walker and the child on
+# the plane in torque mode at the shipped options
+WARP_INSTANCES = {inst.key: inst for inst in (
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4", 0, Key(**_W), SOURCE_W),
+)}
 
 
 def canonical_symbol(key: Key) -> str:
@@ -165,15 +180,22 @@ def canonical_symbol(key: Key) -> str:
     return "_".join(parts)
 
 
-def instance_for(key: Key) -> Instance:
-    """The named instance of ``key``, else the generic one."""
+def instance_for(key: Key, thread_per_env: bool = False) -> Instance:
+    """The warp-per-env instance of ``key`` where there is one (unless
+    ``thread_per_env``), else its named ``engine_k1.cu`` instance, else the
+    generic one."""
+    if not thread_per_env and key in WARP_INSTANCES:
+        return WARP_INSTANCES[key]
     return INSTANTIATIONS.get(key) or Instance(canonical_symbol(key), None, key)
 
 
 def compile_flags(inst: Instance) -> list:
     """The preprocessor flags that select ``inst`` from the source, for nvcc
     and for the host check alike: ``K1_ONLY`` for a named instance, else the
-    generic instance's name and template arguments."""
+    generic instance's name and template arguments; none for the
+    warp-per-env source, which holds one instance."""
+    if inst.source == SOURCE_W:
+        return []
     if inst.index is not None:
         return [f"-DK1_ONLY={inst.index}"]
     k = inst.key
@@ -217,24 +239,27 @@ class _Library:
 
 
 def build(keys=()) -> dict:
-    """Compile the fifteen named instances of ``csrc/engine_k1.cu``, the
-    generic instance of each of ``keys`` and the raycast kernel of
-    ``csrc/raycast_k2.cu`` whose library is missing or older than its
-    source, all compilers started together, and load them: ``{symbol:
-    CDLL}``. What is loaded already is kept; a failed build raises with
-    nvcc's output; ``_Library.logs`` keeps nvcc's report per symbol."""
-    insts = {i.symbol: i for i in [*INSTANTIATIONS.values(), *map(instance_for, keys)]}
+    """Compile the warp-per-env instance of ``csrc/engine_k1w.cu``, the
+    fifteen named instances of ``csrc/engine_k1.cu``, the generic instance
+    of each of ``keys`` and the raycast kernel of ``csrc/raycast_k2.cu``
+    whose library is missing or older than its sources, all compilers
+    started together, and load them: ``{symbol: CDLL}``. What is loaded
+    already is kept; a failed build raises with nvcc's output;
+    ``_Library.logs`` keeps nvcc's report per symbol."""
+    insts = {i.symbol: i for i in [*WARP_INSTANCES.values(), *INSTANTIATIONS.values(),
+                                   *map(instance_for, keys)]}
     if all(sym in _Library.handles for sym in [*insts, RAYCAST_SYMBOL]):
         return _Library.handles
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = [(sym, SOURCE, compile_flags(inst)) for sym, inst in insts.items()
+    jobs = [(sym, inst.source, compile_flags(inst)) for sym, inst in insts.items()
             if sym not in _Library.handles]
     if RAYCAST_SYMBOL not in _Library.handles:
         jobs.append((RAYCAST_SYMBOL, RAYCAST_SOURCE, []))
     running = []
     for symbol, source, flags in jobs:
         lib = BUILD_DIR / f"lib{symbol}.so"
-        if lib.exists() and lib.stat().st_mtime >= source.stat().st_mtime:
+        newest = max(p.stat().st_mtime for p in (source, HEADER))
+        if lib.exists() and lib.stat().st_mtime >= newest:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -265,6 +290,9 @@ def build(keys=()) -> dict:
             getattr(lib, symbol + "_layout").restype = _I
             fn = getattr(lib, symbol + "_launch")
             fn.argtypes = [_P] * 15 + [_I, _P, _I, _P]
+            if insts[symbol].source == SOURCE_W:
+                getattr(lib, symbol + "_occupancy").argtypes = [ctypes.POINTER(_I)] * 3
+                getattr(lib, symbol + "_occupancy").restype = _I
         fn.restype = _I
         _Library.handles[symbol] = lib
     return _Library.handles
@@ -275,6 +303,19 @@ def layout(lib, name: str) -> tuple[int, int]:
     table, ws = _I(), _I()
     getattr(lib, name + "_layout")(ctypes.byref(table), ctypes.byref(ws))
     return table.value, ws.value
+
+
+def occupancy(lib, name: str) -> dict:
+    """A warp-per-env instance on the current card: blocks resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), envs per block and
+    dynamic shared memory per block in bytes."""
+    blocks, envs, smem = _I(), _I(), _I()
+    err = getattr(lib, name + "_occupancy")(ctypes.byref(blocks), ctypes.byref(envs),
+                                            ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"{name}: occupancy query failed: cudaError {err}")
+    return {"blocks_per_sm": blocks.value, "envs_per_block": envs.value,
+            "envs_per_sm": blocks.value * envs.value, "smem_per_block": smem.value}
 
 
 def kernel_key(model: RobotModel, config: EngineConfig, num_stones: int, num_bars: int,
@@ -433,8 +474,10 @@ class EngineKernel:
     counted under that name; ``split`` says whether this one runs it. Each
     PGS option ``config`` turns off adds its tag to the count's name
     (:data:`OPTION_TAGS`). The instance is the one of the key
-    (:func:`kernel_key`): a named one, or the generic one built at its first
-    launch.
+    (:func:`kernel_key`): the warp-per-env one, a named one, or the generic
+    one built at its first launch; ``thread_per_env`` takes the
+    ``engine_k1.cu`` instance where the key has a warp-per-env one (to
+    compare the two designs; no entry point passes it).
     """
 
     variant = "k1"
@@ -443,7 +486,7 @@ class EngineKernel:
     def __init__(self, model: RobotModel, config: EngineConfig, *, num_stones: int = 0,
                  num_bars: int = 0, hf_patch: int = 0, num_tris: int = 0, pd_mode: bool = False,
                  extra_damping=None, plain_unit=None,
-                 constraints: ConstraintSpec = ConstraintSpec()):
+                 constraints: ConstraintSpec = ConstraintSpec(), thread_per_env: bool = False):
         if config.split_impulse and self.split_variant is None:
             raise NotImplementedError(
                 f"no K1 instantiation for split_impulse on {self.variant}"
@@ -458,7 +501,7 @@ class EngineKernel:
                                  f"with {model.nl} links")
         self.key = kernel_key(model, config, num_stones, num_bars, pd_mode, constraints,
                               hf_patch, num_tris)
-        self.instance = instance_for(self.key)
+        self.instance = instance_for(self.key, thread_per_env)
         self.name = self.instance.symbol
         self.model = model
         self.config = config
@@ -580,8 +623,8 @@ class K1a(EngineKernel):
 
     variant = "k1a"
 
-    def __init__(self, model, config, plain_unit=None):
-        super().__init__(model, config, plain_unit=plain_unit)
+    def __init__(self, model, config, plain_unit=None, thread_per_env: bool = False):
+        super().__init__(model, config, plain_unit=plain_unit, thread_per_env=thread_per_env)
 
 
 class K1c(EngineKernel):
@@ -816,9 +859,10 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs, tri_walk=Non
     anchors' ancestor joints, their difference, three dense W rows with
     their targets; a planar row is a unit row like a limit row. A grab is
     needed only where it is attached: its palm to the world frame, one point
-    Jacobian, three dense rows like a rod's. The kernel today runs every row
-    whether or not it is active, so it does more work than this count, even
-    with masks of all ones."""
+    Jacobian, three dense rows like a rod's. The thread-per-env instances
+    run every row whether or not it is active, so they do more work than
+    this count, even with masks of all ones; the warp-per-env K1a skips the
+    inactive rows."""
     model, config = kernel.model, kernel.config
     nl, nj, nv, ns = model.nl, model.nj, model.nv, model.ns
     lim = limited_joints(model)

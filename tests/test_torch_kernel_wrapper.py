@@ -494,14 +494,16 @@ def test_equality_rows_count_their_own_work():
 
 @pytest.fixture(scope="module")
 def host_library(tmp_path_factory):
-    """The kernel source (csrc/engine_k1.cu) built by the host C++ compiler:
-    every instantiation's per-env code as a loop over envs."""
+    """The kernel sources (csrc/engine_k1.cu, csrc/engine_k1w.cu) built by the
+    host C++ compiler into one library: every instantiation's per-env code as
+    a loop over envs (the warp-per-env K1a at lane width 1)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel source's host check")
     lib_path = tmp_path_factory.mktemp("k1_host") / "k1_host.so"
-    subprocess.run([cxx, "-O2", "-std=c++17", "-x", "c++", "-DK1_HOST_CHECK", "-shared",
-                    "-fPIC", "-o", str(lib_path), str(engine.SOURCE)], check=True, timeout=300)
+    subprocess.run([cxx, "-O2", "-std=c++17", "-x", "c++", "-DK1_HOST_CHECK", "-DK1W_HOST_CHECK",
+                    "-shared", "-fPIC", "-o", str(lib_path), str(engine.SOURCE),
+                    str(engine.SOURCE_W)], check=True, timeout=300)
     return ctypes.CDLL(str(lib_path))
 
 
@@ -527,12 +529,15 @@ def _run_on_host(lib, kernel, inputs):
 
 def test_k1a_source_arithmetic_on_host(host_library):
     """The kernel's per-env code built by the host C++ compiler, run as a
-    loop over envs, against the plain version."""
+    loop over envs, against the plain version: the warp-per-env K1a the
+    walker runs, and the thread-per-env instance kept beside it."""
     k1a = engine.K1a(walker3d.make_model(), EngineConfig())
+    old = engine.K1a(k1a.model, EngineConfig(), thread_per_env=True)
+    assert k1a.instance.source == engine.SOURCE_W and old.instance.source == engine.SOURCE
     inputs = [np.ascontiguousarray(x) for x in _near_contact(32, 5)]
-    outs = _run_on_host(host_library, k1a, inputs)
     want = [t.numpy() for t in k1a.plain(*map(torch.as_tensor, inputs))]
-    _gate_medians(outs, want)
+    for kernel in (k1a, old):
+        _gate_medians(_run_on_host(host_library, kernel, inputs), want)
     assert (want[3] > 0).mean() > 0.1   # contacts carry load
 
 
@@ -703,7 +708,9 @@ def test_pack_tables_size_matches_source_layout(host_library, case):
     m, spec = kernel.model, kernel.constraints
     rows = spec.ne + len(engine.limited_joints(m)) + 3 * m.ns
     nv = m.nv
-    assert ws_per_env == nv * (nv + 1) // 2 + nv + rows * nv + rows + nv
+    # the warp-per-env K1a keeps its workspace in shared memory
+    assert ws_per_env == (0 if kernel.instance.source == engine.SOURCE_W
+                          else nv * (nv + 1) // 2 + nv + rows * nv + rows + nv)
     # the rods close the table: link a, link b, anchor a, anchor b each
     if spec.num_p2p:
         tail = kernel.table_host[-8 * spec.num_p2p:].reshape(-1, 8)
@@ -744,6 +751,33 @@ def test_k1a_kernel_matches_plain_on_cuda(case):
         kernel.launch(args[0].t().contiguous().t(), *args[1:])
     with pytest.raises(ValueError, match="CUDA"):
         kernel.launch(args[0], args[1].cpu(), *args[2:])
+
+
+@pytest.mark.cuda
+def test_k1w_matches_plain_and_thread_per_env_on_cuda():
+    """On a card: the warp-per-env K1a against the plain version at K1a's
+    gates and against the thread-per-env instance at ``TOL_TWIN``, near
+    contact and with every base lifted clear of the plane (every contact
+    row skipped); each launch counted under its own symbol; at least one
+    block of envs resident per SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
+    model = walker3d.make_model("cuda")
+    new = engine.K1a(model, EngineConfig())
+    old = engine.K1a(model, EngineConfig(), thread_per_env=True)
+    args = [torch.as_tensor(x, device="cuda")
+            for x in chip_smoke.near_contact_states(model, np.random.default_rng(7), 1024)]
+    lifted = [args[0].clone(), *args[1:]]
+    lifted[0][:, 2] += 3.0
+    for inputs in (args, lifted):
+        engine.INSTANCE_LAUNCHES.clear()
+        got, ref = new.launch(*inputs), old.launch(*inputs)
+        torch.cuda.synchronize()
+        assert dict(engine.INSTANCE_LAUNCHES) == {new.name: 1, old.name: 1}
+        host = lambda outs: [o.cpu().numpy() for o in outs]  # noqa: E731
+        _gate_medians(host(got), host(new.plain(*inputs)))
+        _gate_medians(host(got), host(ref), chip_smoke.TOL_TWIN)
+    assert engine.occupancy(engine.build()[new.name], new.name)["blocks_per_sm"] >= 1
 
 
 # the split keys of the generic instance (PD walker at one and two llc

@@ -1,7 +1,9 @@
-"""The K1 kernel source built by the host C++ compiler (``-DK1_HOST_CHECK``):
-each instance's per-env code as a plain loop over envs, for the CPU tests.
+"""The K1 kernel sources built by the host C++ compiler (``-DK1_HOST_CHECK``,
+``-DK1W_HOST_CHECK``): each instance's per-env code as a plain loop over
+envs, for the CPU tests.
 
-:func:`build_host` compiles instances of ``csrc/engine_k1.cu`` with the same
+:func:`build_host` compiles instances of ``csrc/engine_k1.cu`` (and the
+warp-per-env K1a of ``csrc/engine_k1w.cu`` at lane width 1) with the same
 preprocessor flags nvcc gets (``ops/cuda/engine.py::compile_flags``: the
 named instances by number, any other key as the generic instance), one
 compiler per instance, all started together; :func:`run_on_host` runs one
@@ -28,9 +30,9 @@ def build_host(kernels, out_dir) -> dict:
     running = []
     for symbol, inst in insts.items():
         path = out_dir / f"lib{symbol}_host.so"
-        cmd = [cxx, "-O2", "-std=c++17", "-x", "c++", "-DK1_HOST_CHECK",
+        cmd = [cxx, "-O2", "-std=c++17", "-x", "c++", "-DK1_HOST_CHECK", "-DK1W_HOST_CHECK",
                *engine.compile_flags(inst), "-shared", "-fPIC", "-o", str(path),
-               str(engine.SOURCE)]
+               str(inst.source)]
         running.append((symbol, path, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                        stderr=subprocess.STDOUT, text=True)))
     libs = {}
