@@ -1,78 +1,109 @@
-// K1a redesigned for Hopper (sm_90a): the fused rigid-body engine kernel of
-// Walker3D / Child3D on the plane in torque mode at the shipped solver
-// options, one warp per env.
+// The fused rigid-body engine kernel redesigned for Hopper (sm_90a), one warp
+// per env, for the keys the busiest families launch:
+//
+//   K1a  Walker3D / Child3D on the plane in torque mode at the shipped solver
+//        options, one llc frame per call;
+//   K1e  Cassie and Cassie2D: PD mode, the whole control step per call (10
+//        llc frames × 2 substeps, the torque gain·(target − q) refreshed at
+//        each frame's start), the two achilles rods as point-to-point
+//        equality rows and, for Cassie2D, the planar lock of base y, roll and
+//        yaw in front of the others.
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
-// make_pallas_substep (pallas_call at :1441) for that configuration, the
-// one the walker's main path launches once per control step. It computes
-// what engine_k1.cu's thread-per-env K1a instance computes, the same
-// iteration with some sums in another order; that instance stays built for
-// comparison (ops/cuda/engine.py, thread_per_env=True), and every other key
-// keeps its engine_k1.cu instance.
+// make_pallas_substep (pallas_call at :1441) for those configurations (with
+// constraints= and pd_mode there: :280-290, :341, :858-886, :1276-1300). It
+// computes what engine_k1.cu's thread-per-env instances of the same keys
+// compute, the same iteration with some sums in another order; those
+// instances stay built for comparison (ops/cuda/engine.py,
+// thread_per_env=True), and every other key keeps its engine_k1.cu instance.
 //
 // Each llc frame runs NSUB substeps of: FK along the quaternion chain →
-// every sphere vs the plane → Newton–Euler bias → [substep 0: CRBA about
-// the base + Cholesky] → free velocity → rows [joint limits | contacts × (n,
-// t1, t2)] → W = L⁻¹Jᵀ per active row → matrix-free block PGS, λ warm-started
-// → qd' = v_free + L⁻ᵀ(Wλ) → semi-implicit integrate + limit backstop.
+// every sphere vs the plane → the rods' anchors → Newton–Euler bias →
+// [substep 0: CRBA about the base + Cholesky] → free velocity → rows [rods ×
+// 3 | planar × 3 | joint limits | contacts × (n, t1, t2)] → W = L⁻¹Jᵀ per
+// active row → matrix-free block PGS, λ warm-started across the call's
+// substeps, the equality rows unclamped → qd' = v_free + L⁻ᵀ(Wλ) →
+// semi-implicit integrate + limit backstop.
 //
-// What bounds it. Near contact a call needs ~1.6e5 fp32 operations per env
-// against 0.65 KB of inputs and outputs (ops/cuda/engine.py::k1_flops), so
-// the floor is the fp32 rate, ~0.01 ms at B = 4096. The thread-per-env
-// design ran ~770× above it: one warp of 32 envs per block left the SMs
-// under one warp each at B = 4096, its 255 registers spilled an 8.3 KB
-// frame, the factor, W (NR × NV), λ and z = Wλ round-tripped through a
-// global (C, B) workspace on every row visit, and every row was solved and
-// visited whether or not it was active. This design runs ~49× above the
-// bound on an H100 at B = 4096, ~16× faster than that one (PERF.md §6).
+// What bounds it. Near contact a K1a call needs ~1.6e5 fp32 operations per
+// env against 0.65 KB of inputs and outputs, a K1e call on Cassie ~6.3e5 (its
+// 20 substeps and 10 factors) against 0.47 KB (ops/cuda/engine.py::
+// k1_flops), so the floor is the fp32 rate: ~0.01 ms (K1a), ~0.04 ms (K1e) at
+// B = 4096. The thread-per-env design ran 300–800× above it: one warp of 32
+// envs per block left the SMs under one warp each at B = 4096, its 255
+// registers spilled a 6–8 KB frame, the factor, W (NR × NV), λ and z = Wλ
+// round-tripped through a global (C, B) workspace on every row visit, and
+// every row was solved and visited whether or not it was active. On an H100
+// at B = 4096 this design runs K1a ~49× above the bound, ~16× faster than
+// that one, and K1e ~43× above it, ~7× faster (PERF.md §6).
 //
 // Design.
-//   - One warp per env, E = kEnvs warps per block. Every branch on an env's
-//     data (a row's activity, a contact) is warp-uniform.
+//   - One warp per env, C::ENVS warps per block, C::BLOCKS blocks per SM.
+//     Every branch on an env's data (a row's kind and activity, a contact) is
+//     warp-uniform.
 //   - Nothing per env in global memory: the state, the link kinematics, the
-//     factor L (packed lower, 378 floats), W (NR × NV row-major, 1,701
-//     floats; the odd stride NV = 27 keeps a lane's row and a lane's column
-//     free of bank conflicts), λ, c, the diagonals and the activity sit in
-//     one EnvW of dynamic shared memory, ~12 KB; the Newton–Euler and CRBA
-//     scratch share W's space, which is written after them. The global
-//     workspace is empty (ws_per_env 0); the model table is staged once per
-//     block.
+//     factor L (packed lower), W (NR rows of stride WS, NV rounded up to an
+//     odd count, so that the 32 rows the lanes solve side by side fall in 32
+//     banks), λ, c, the diagonals and the activity sit in one EnvW of dynamic
+//     shared memory; the Newton–Euler and CRBA scratch share W's space, which
+//     is written after them. The global workspace is empty (ws_per_env 0);
+//     the model table is staged once per block.
+//   - Occupancy. A Cassie env holds 6,232 bytes (Cassie2D 6,568): its link
+//     kinematics (quaternions, ω, COMs, the bias) share W's space too, since
+//     they are dead once W is written, so that 32 envs fit in one block of
+//     1,024 threads and 214 KB, at 64 registers a thread: B = 4096 runs in
+//     one wave on 132 SMs. (On an H100 at B = 4096 the same 32 envs per SM
+//     as 4 blocks of 8 ran 10–15% slower, 24 per SM as 3 blocks of 8 at
+//     68–72 registers ~40%: k1w_launch_shapes.py.)
+//     The walker's EnvW keeps its 12,000 bytes, 4 envs per block, 4 blocks
+//     (16 envs) per SM.
 //   - Lanes: link i for the FK, the Newton–Euler passes and the CRBA
-//     composites, one tree level at a time (depth 6 for the walker, not a
-//     21-step chain; a parent sums its children in the order the serial
-//     code does); sphere s for the narrowphase and the contact activity;
-//     row r of the factor's trailing update (right-looking, the same
-//     subtractions in the same order as the left-looking code); DOF j for
-//     the free velocity, z = Wλ and q̇, the triangular solves column by
-//     column with the pivot broadcast by a shuffle; one active row per lane
-//     for J_r, W_r = L⁻¹J_rᵀ (a forward solve in place in its row of W, L
-//     read as a broadcast), c_r and the diagonal. 64 registers, no spill:
-//     the row solved in 27 registers instead ran ~15% faster but spilled at
-//     the 128 that four blocks per SM allow.
-//   - Inactive rows are skipped: the active rows are listed once per
-//     substep (a ballot per 32 rows) and only they get a W solve, a
-//     diagonal, a 2×2 friction inverse and a visit. Under warm start an
-//     inactive row's λ is masked to 0 and its update would be 0 (a contact's
-//     friction bound is μ·λ_n = 0), so the iteration is the same.
+//     composites, one tree level at a time (depth 6 for the walker, 7 for
+//     Cassie; a parent sums its children in the order the serial code does);
+//     sphere s for the narrowphase and the contact activity; anchor k for the
+//     rods; row r of the factor's trailing update (right-looking, the same
+//     subtractions in the same order as the left-looking code); DOF j for the
+//     free velocity, the PD torque, z = Wλ and q̇, the triangular solves
+//     column by column with the pivot broadcast by a shuffle; one active row
+//     per lane for J_r, W_r = L⁻¹J_rᵀ (a forward solve in place in its row of
+//     W, L read as a broadcast), c_r and the diagonal. The walker's instance:
+//     64 registers, no spill: the row solved in 27 registers instead ran ~15%
+//     faster but spilled at the 128 that four blocks per SM allow.
+//   - Inactive rows are skipped: the active rows are listed once per substep
+//     (a ballot per 32 rows; the equality rows always, first) and only they
+//     get a W solve, a diagonal, a 2×2 friction inverse and a visit. Under
+//     warm start an inactive row's λ is masked to 0 and its update would be 0
+//     (a contact's friction bound is μ·λ_n = 0), so the iteration is the same.
 //   - A PGS row visit is one warp reduction: lane j forms W[r][j]·z_j, a
 //     __shfl_xor_sync butterfly sums them (every lane ends with the same
-//     bits), the λ update is warp-uniform and lane j then adds W[r][j]·Δλ to
-//     z_j. A contact's friction pair sums its two residuals in one
-//     butterfly.
+//     bits), the λ update is warp-uniform (unclamped for an equality row,
+//     clamped at 0 for a limit or a contact normal) and lane j then adds
+//     W[r][j]·Δλ to z_j. A contact's friction pair sums its two residuals in
+//     one butterfly.
+//
+// Equality rows, as engine_k1.cu's. A rod's three rows are the difference of
+// the point Jacobians of its two anchors (each over its link's ancestor
+// joints), with the target −β·(xa − xb) clipped to ±max_push_vel; a planar row
+// is the unit row on base column 1, 3 or 5 with the drift y, 2(wx+yz) or
+// 2(wz+xy) (sine surrogates of roll and yaw) under the same clipped target.
+// They are always active and swept first. The rods come in the packed table
+// behind the ancestry: link a, link b, anchor a, anchor b per rod.
 //
 // Host check. The per-env code is written against a lane width: loops run
-// `for (j = lane; j < n; j += WIDTH)`, collectives go through wsum /
-// wbcast / wballot / wsync, and a lane's share of a DOF-indexed vector is
-// an array of (n + WIDTH − 1) / WIDTH floats. Compiled with the host
-// compiler under K1W_HOST_CHECK, WIDTH is 1, lane 0 owns everything, the
-// collectives are identities and the envs run as a plain loop: tests check
-// this file's arithmetic there, and the card checks the split across lanes.
+// `for (j = lane; j < n; j += WIDTH)`, collectives go through wsum / wbcast /
+// wballot / wsync, and a lane's share of a DOF-indexed vector is an array of
+// (n + WIDTH − 1) / WIDTH floats. Compiled with the host compiler under
+// K1W_HOST_CHECK, WIDTH is 1, lane 0 owns everything, the collectives are
+// identities and the envs run as a plain loop: tests check this file's
+// arithmetic there, and the card checks the split across lanes. With
+// K1W_ONLY=<n> defined only the n-th instance is compiled, so that one
+// compiler process per instance can build them side by side.
 //
 // Interface (all f32, contiguous, row-major), as engine_k1.cu's:
-//   q (B,NQ), qd (B,NV), tau (B,NJ), ground_z (B,), friction (B,), the
-//   scene inputs (unused here, may be null) → q' (B,NQ), qd' (B,NV), depth
-//   (B,NS), normal_impulse (B,NS) of the last substep. <sym>_occupancy
-//   reports the blocks (and so the envs) resident per SM.
+//   q (B,NQ), qd (B,NV), tau (B,NJ) (PD: the joint targets), ground_z (B,),
+//   friction (B,), the scene inputs (unused here, may be null) → q' (B,NQ),
+//   qd' (B,NV), depth (B,NS), normal_impulse (B,NS) of the last substep.
+//   <sym>_occupancy reports the blocks (and so the envs) resident per SM.
 
 #include "k1_common.cuh"
 
@@ -109,7 +140,22 @@ __device__ __forceinline__ void wsync() { __syncwarp(); }
 __device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
 #endif
 
-constexpr int kEnvs = 4;   // warps (envs) per block
+// One instance: the model's sizes, the substeps and sweeps, the actuation
+// (PD: NLLC llc frames per call), the equality rows, and the launch's envs
+// (warps) per block and blocks per SM.
+template <int NL_, int NS_, int NLIM_, int NSUB_, int ITERS_, bool PD_, int NLLC_, int NP2P_,
+          bool PLANAR_, int ENVS_, int BLOCKS_>
+struct Cfg {
+  static constexpr int NL = NL_, NS = NS_, NLIM = NLIM_, NSUB = NSUB_, ITERS = ITERS_;
+  static constexpr bool PD = PD_, PLANAR = PLANAR_;
+  static constexpr int NLLC = NLLC_, NP2P = NP2P_, ENVS = ENVS_, BLOCKS = BLOCKS_;
+  using L = Layout<NL, NS, NLIM, NP2P, PLANAR, 0, 0>;
+  static constexpr int WS = L::NV | 1;   // W's row stride: odd
+  // the equality-row instances hold the link kinematics in W's space
+  static constexpr bool KIN_IN_W = L::NE0 > 0;
+  static_assert(PD || NLLC == 1, "torque mode is launched once per llc frame");
+  static_assert(L::NV <= 32, "one lane per velocity DOF");
+};
 
 // component c of a × b
 HD inline float cross_comp(const float* a, const float* b, int c) {
@@ -129,28 +175,55 @@ HD inline void world_inertia(const float* quat, const float* I, float* Iw) {
       Iw[3 * a + b] = R[3 * a] * IRt[b] + R[3 * a + 1] * IRt[3 + b] + R[3 * a + 2] * IRt[6 + b];
 }
 
+// The link kinematics of a substep and the Newton–Euler bias: written by
+// the FK and the Newton–Euler passes, read until the free velocity.
+template <int NL, int NV>
+struct Kin { float quat[NL][4], omega[NL][3], comw[NL][3], bias[NV]; };
+template <bool ON, int NL, int NV>
+struct KinIn : Kin<NL, NV> {};
+template <int NL, int NV>
+struct KinIn<false, NL, NV> {};
 template <int NL>
 struct NeScratch { float alpha[NL][3], acc[NL][3], f[NL][3], n[NL][3]; };
 template <int NL>
 struct CrbaScratch { float cm[NL], chv[NL][3], cI[NL][9]; };
+// Empty bases where there are none, so that the walker's EnvW keeps its size:
+// the PD targets, and the world anchors a, b of each rod.
+template <bool PD, int NJ>
+struct PdState { float target[NJ]; };
+template <int NJ>
+struct PdState<false, NJ> {};
+template <int NP2P>
+struct RodState { float anchor[NP2P][2][3]; };
+template <>
+struct RodState<0> {};
 
 // One env's state in shared memory.
-template <int NL, int NS, int NLIM>
-struct EnvW {
-  using L = Layout<NL, NS, NLIM, 0, false, 0, 0>;
+template <class C>
+struct EnvW : PdState<C::PD, C::L::NJ>, RodState<C::NP2P>,
+              KinIn<!C::KIN_IN_W, C::NL, C::L::NV> {
+  using L = typename C::L;
   float q[L::NQ], qd[L::NV], tau[L::NJ];
   float ground, fric;
-  float pos[NL][3], quat[NL][4], omega[NL][3], comw[NL][3], ja[L::NJ][3];
-  float depth[NS], cpt[NS][3];
-  float bias[L::NV], vfree[L::NV];
+  float pos[C::NL][3], ja[L::NJ][3];
+  float depth[C::NS], cpt[C::NS][3];
+  float vfree[L::NV];
   float Lf[L::NLOW], dinv[L::NV];
-  float lam[L::NR], c[L::NR], diag[L::NR], act[L::NR], finv[NS][3];
+  float lam[L::NR], c[L::NR], diag[L::NR], act[L::NR], finv[C::NS][3];
   int rows[L::NR];
+  // what a substep writes before W and is done with by then: the link
+  // kinematics (KIN_IN_W), the Newton–Euler or the CRBA scratch
+  struct Pre : KinIn<C::KIN_IN_W, C::NL, L::NV> {
+    union { NeScratch<C::NL> ne; CrbaScratch<C::NL> cr; };
+  };
   union {
-    float W[L::NR * L::NV];
-    NeScratch<NL> ne;    // the Newton–Euler passes, before W is written
-    CrbaScratch<NL> cr;  // the CRBA composites, likewise
+    float W[L::NR * C::WS];
+    Pre pre;
   } u;
+  HD Kin<C::NL, L::NV>& kin() {
+    if constexpr (C::KIN_IN_W) return u.pre;
+    else return *this;
+  }
 };
 
 // The depth of each link in the tree (root 0) and the largest.
@@ -166,26 +239,27 @@ HD inline int tree_depths(const float* parent, int* depth) {
   return most;
 }
 
-template <int NL, int NS, int NLIM, int ITERS>
-HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int maxd, int lane,
+template <class C>
+HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int lane,
                 bool factorize) {
-  using L = Layout<NL, NS, NLIM, 0, false, 0, 0>;
-  constexpr int NJ = L::NJ, NV = L::NV, NR = L::NR, NE = L::NE;
+  using L = typename C::L;
+  constexpr int NL = C::NL, NS = C::NS, NLIM = C::NLIM, WS = C::WS;
+  constexpr int NJ = L::NJ, NV = L::NV, NR = L::NR, NE = L::NE, NE0 = L::NE0;
   constexpr int NVL = (NV + WIDTH - 1) / WIDTH;   // a lane's share of a DOF vector
-  static_assert(NV <= 32, "one lane per velocity DOF");
   const float dt = tab[L::DT];
+  auto& K = e.kin();
   auto Lx = [&](int i, int j) -> float& { return e.Lf[i * (i + 1) / 2 + j]; };  // i >= j
 
   // ---------------- FK, one tree level at a time, and each link's COM
   auto link_com = [&](int l) {
     float R[9], cw[3];
-    qmat(e.quat[l], R);
+    qmat(K.quat[l], R);
     matvec3(R, tab + L::COM + 3 * l, cw);
-    for (int k = 0; k < 3; ++k) e.comw[l][k] = e.pos[l][k] + cw[k];
+    for (int k = 0; k < 3; ++k) K.comw[l][k] = e.pos[l][k] + cw[k];
   };
   if (lane == 0) {
-    for (int k = 0; k < 3; ++k) { e.pos[0][k] = e.q[k]; e.omega[0][k] = e.qd[3 + k]; }
-    for (int k = 0; k < 4; ++k) e.quat[0][k] = e.q[3 + k];
+    for (int k = 0; k < 3; ++k) { e.pos[0][k] = e.q[k]; K.omega[0][k] = e.qd[3 + k]; }
+    for (int k = 0; k < 4; ++k) K.quat[0][k] = e.q[3 + k];
     link_com(0);
   }
   wsync();
@@ -196,16 +270,16 @@ HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int m
       const int p = (int)tab[L::PARENT + i];
       const float* axis = tab + L::JAXIS + 3 * j;
       float qpre[4], aw[3], off[3];
-      qmul(e.quat[p], tab + L::JQUAT + 4 * j, qpre);
+      qmul(K.quat[p], tab + L::JQUAT + 4 * j, qpre);
       qrot(qpre, axis, aw);
-      qrot(e.quat[p], tab + L::JPOS + 3 * j, off);
+      qrot(K.quat[p], tab + L::JPOS + 3 * j, off);
       float sh, ch;
       sincosf_(e.q[7 + j] * 0.5f, &sh, &ch);
       const float dq[4] = {ch, axis[0] * sh, axis[1] * sh, axis[2] * sh};
-      qmul(qpre, dq, e.quat[i]);
+      qmul(qpre, dq, K.quat[i]);
       for (int k = 0; k < 3; ++k) {
         e.pos[i][k] = e.pos[p][k] + off[k];
-        e.omega[i][k] = e.omega[p][k] + aw[k] * e.qd[6 + j];
+        K.omega[i][k] = K.omega[p][k] + aw[k] * e.qd[6 + j];
         e.ja[j][k] = aw[k];
       }
       link_com(i);
@@ -217,16 +291,27 @@ HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int m
   for (int s = lane; s < NS; s += WIDTH) {
     const int l = (int)tab[L::SPHLINK + s];
     float R[9], cw[3];
-    qmat(e.quat[l], R);
+    qmat(K.quat[l], R);
     matvec3(R, tab + L::SPHPOS + 3 * s, cw);
     const float cx = e.pos[l][0] + cw[0], cy = e.pos[l][1] + cw[1], cz = e.pos[l][2] + cw[2];
     e.depth[s] = tab[L::SPHR + s] - (cz - e.ground);
     e.cpt[s][0] = cx; e.cpt[s][1] = cy; e.cpt[s][2] = e.ground;
   }
+  // ---------------- the rods' anchors in the world frame, one per lane
+  if constexpr (C::NP2P > 0)
+    for (int k = lane; k < 2 * C::NP2P; k += WIDTH) {
+      const float* rod = tab + L::P2P + 8 * (k / 2);
+      const int l = (int)rod[k % 2];
+      float R[9];
+      float* x = e.anchor[k / 2][k % 2];
+      qmat(K.quat[l], R);
+      matvec3(R, rod + 2 + 3 * (k % 2), x);
+      for (int d = 0; d < 3; ++d) x[d] += e.pos[l][d];
+    }
 
   // ---------------- Newton–Euler bias (q̈ = 0, base acceleration −g)
   {
-    auto& ne = e.u.ne;
+    auto& ne = e.u.pre.ne;
     if (lane == 0)
       for (int k = 0; k < 3; ++k) { ne.alpha[0][k] = 0.0f; ne.acc[0][k] = -tab[L::GX + k]; }
     wsync();
@@ -237,13 +322,13 @@ HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int m
         float r[3], t1[3], t2[3], t3[3], wq[3];
         for (int k = 0; k < 3; ++k) r[k] = e.pos[i][k] - e.pos[p][k];
         cross3(ne.alpha[p], r, t1);
-        cross3(e.omega[p], r, t2);
-        cross3(e.omega[p], t2, t3);
+        cross3(K.omega[p], r, t2);
+        cross3(K.omega[p], t2, t3);
         for (int k = 0; k < 3; ++k) {
           ne.acc[i][k] = ne.acc[p][k] + (t1[k] + t3[k]);
           wq[k] = e.ja[j][k] * e.qd[6 + j];
         }
-        cross3(e.omega[p], wq, t1);
+        cross3(K.omega[p], wq, t1);
         for (int k = 0; k < 3; ++k) ne.alpha[i][k] = ne.alpha[p][k] + t1[k];
       }
       wsync();
@@ -251,15 +336,15 @@ HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int m
     for (int l = lane; l < NL; l += WIDTH) {
       const float m = tab[L::MASS + l];
       float rc[3], t1[3], t2[3], t3[3], Ia[3], Iwv[3], Iw[9];
-      world_inertia(e.quat[l], tab + L::INERTIA + 9 * l, Iw);
-      for (int k = 0; k < 3; ++k) rc[k] = e.comw[l][k] - e.pos[l][k];
+      world_inertia(K.quat[l], tab + L::INERTIA + 9 * l, Iw);
+      for (int k = 0; k < 3; ++k) rc[k] = K.comw[l][k] - e.pos[l][k];
       cross3(ne.alpha[l], rc, t1);
-      cross3(e.omega[l], rc, t2);
-      cross3(e.omega[l], t2, t3);
+      cross3(K.omega[l], rc, t2);
+      cross3(K.omega[l], t2, t3);
       for (int k = 0; k < 3; ++k) ne.f[l][k] = m * (ne.acc[l][k] + (t1[k] + t3[k]));
       matvec3(Iw, ne.alpha[l], Ia);
-      matvec3(Iw, e.omega[l], Iwv);
-      cross3(e.omega[l], Iwv, t1);
+      matvec3(Iw, K.omega[l], Iwv);
+      cross3(K.omega[l], Iwv, t1);
       cross3(rc, ne.f[l], t2);
       for (int k = 0; k < 3; ++k) ne.n[l][k] = (Ia[k] + t1[k]) + t2[k];
     }
@@ -283,20 +368,20 @@ HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int m
       wsync();
     }
     for (int i = lane; i < NV; i += WIDTH)
-      e.bias[i] = i < 3 ? ne.f[0][i] : i < 6 ? ne.n[0][i - 3] : dot3(e.ja[i - 6], ne.n[i - 5]);
+      K.bias[i] = i < 3 ? ne.f[0][i] : i < 6 ? ne.n[0][i - 3] : dot3(e.ja[i - 6], ne.n[i - 5]);
     wsync();
   }
 
   // ---------------- frame start: CRBA (composites about the base origin)
   // and the Cholesky factor, held for the frame's other substeps
   if (factorize) {
-    auto& cr = e.u.cr;
+    auto& cr = e.u.pre.cr;
     const float* O = e.pos[0];
     for (int l = lane; l < NL; l += WIDTH) {
       const float m = tab[L::MASS + l];
       float d[3], Iw[9];
-      world_inertia(e.quat[l], tab + L::INERTIA + 9 * l, Iw);
-      for (int k = 0; k < 3; ++k) d[k] = e.comw[l][k] - O[k];
+      world_inertia(K.quat[l], tab + L::INERTIA + 9 * l, Iw);
+      for (int k = 0; k < 3; ++k) d[k] = K.comw[l][k] - O[k];
       const float dd = dot3(d, d);
       cr.cm[l] = m;
       for (int a = 0; a < 3; ++a) {
@@ -414,13 +499,13 @@ HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int m
       const int i = lane + jj * WIDTH;
       y[jj] = 0.0f;
       if (i < 6) {
-        y[jj] = -e.bias[i];
+        y[jj] = -K.bias[i];
       } else if (i < NV) {
         const int j = i - 6;
         const float qj = e.q[7 + j];
         const float tj = e.tau[j] + (-tab[L::DAMP + j] * e.qd[6 + j] -
                                      tab[L::STIFF + j] * (qj - tab[L::SPRREF + j]));
-        y[jj] = tj - e.bias[i];
+        y[jj] = tj - K.bias[i];
       }
     }
     fwd_lanes(y);
@@ -432,8 +517,11 @@ HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int m
     wsync();
   }
 
-  // ---------------- which rows are active, and their list
+  // ---------------- which rows are active, and their list: the equality
+  // rows always, first
   const float beta = tab[L::BETA], maxpush = tab[L::MAXPUSH];
+  if constexpr (NE0 > 0)
+    for (int r = lane; r < NE0; r += WIDTH) e.act[r] = 1.0f;
   for (int lr = lane; lr < NLIM; lr += WIDTH) {
     const int j = (int)tab[L::LIMIDX + lr];
     const float qj = e.q[7 + j];
@@ -455,13 +543,59 @@ HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int m
   }
   wsync();
 
+  // entry (comp, i) of the point Jacobian (3 × NV) of world point x fixed to
+  // link l, rel = x − the base origin
+  auto jac = [&](int l, const float* x, const float* rel, int comp, int i) -> float {
+    if (i < 3) return i == comp ? 1.0f : 0.0f;
+    if (i < 6) {   // e_k × rel, k = i − 3
+      return i == 3 ? (comp == 0 ? 0.0f : comp == 1 ? -rel[2] : rel[1])
+           : i == 4 ? (comp == 0 ? rel[2] : comp == 1 ? 0.0f : -rel[0])
+                    : (comp == 0 ? -rel[1] : comp == 1 ? rel[0] : 0.0f);
+    }
+    const int j = i - 6;
+    if (!(tab[L::ANC + l * NJ + j] > 0.5f)) return 0.0f;
+    float dx[3];
+    for (int k = 0; k < 3; ++k) dx[k] = x[k] - e.pos[j + 1][k];
+    return cross_comp(e.ja[j], dx, comp);
+  };
+  // an equality row's target: the drift pulled back at a clipped rate
+  auto eq_target = [&](float err) { return clampf(-beta * err, -maxpush, maxpush); };
+
   // ---------------- each active row: J_r, c_r, W_r = L⁻¹J_rᵀ and its
   // diagonal, one row per lane, solved in place in the row of W
   const float cfm = tab[L::CFM];
   for (int t = lane; t < nrows; t += WIDTH) {
     const int r = e.rows[t];
-    float* y = e.u.W + r * NV;
-    if (r < NE + NLIM) {   // a joint limit: ±1 on its column
+    float* y = e.u.W + r * WS;
+    if (r < NE0) {
+      if constexpr (C::NP2P > 0) {
+        if (r < 3 * C::NP2P) {   // a rod: component d of J_a − J_b
+          const int k = r / 3, d = r % 3;
+          const float* rod = tab + L::P2P + 8 * k;
+          const int la = (int)rod[0], lb = (int)rod[1];
+          const float* xa = e.anchor[k][0];
+          const float* xb = e.anchor[k][1];
+          float ra[3], rb[3];
+          for (int m = 0; m < 3; ++m) { ra[m] = xa[m] - e.pos[0][m]; rb[m] = xb[m] - e.pos[0][m]; }
+          float cv = 0.0f;
+          for (int i = 0; i < NV; ++i) {
+            y[i] = jac(la, xa, ra, d, i) - jac(lb, xb, rb, d, i);
+            cv += y[i] * e.vfree[i];
+          }
+          e.c[r] = cv - eq_target(xa[d] - xb[d]);
+        }
+      }
+      if constexpr (C::PLANAR) {
+        if (r >= 3 * C::NP2P) {  // the lock: base y, roll, yaw
+          const int m = r - 3 * C::NP2P, col = 2 * m + 1;
+          const float w = e.q[3], x = e.q[4], yq = e.q[5], z = e.q[6];
+          const float err = m == 0 ? e.q[1]
+                            : m == 1 ? 2.0f * (w * x + yq * z) : 2.0f * (w * z + x * yq);
+          for (int i = 0; i < NV; ++i) y[i] = i == col ? 1.0f : 0.0f;
+          e.c[r] = e.vfree[col] - eq_target(err);
+        }
+      }
+    } else if (r < NE + NLIM) {   // a joint limit: ±1 on its column
       const int lr = r - NE;
       const int j = (int)tab[L::LIMIDX + lr];
       const float qj = e.q[7 + j];
@@ -479,25 +613,9 @@ HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int m
       const float* x = e.cpt[s];
       float rel[3];
       for (int k = 0; k < 3; ++k) rel[k] = x[k] - e.pos[0][k];
-      // component comp of e_k × rel, k = 0, 1, 2
-      const float ang[3] = {comp == 0 ? 0.0f : comp == 1 ? -rel[2] : rel[1],
-                            comp == 0 ? rel[2] : comp == 1 ? 0.0f : -rel[0],
-                            comp == 0 ? -rel[1] : comp == 1 ? rel[0] : 0.0f};
       float cv = 0.0f;
       for (int i = 0; i < NV; ++i) {
-        if (i < 3) {
-          y[i] = i == comp ? 1.0f : 0.0f;
-        } else if (i < 6) {
-          y[i] = i == 3 ? ang[0] : i == 4 ? ang[1] : ang[2];
-        } else {
-          const int j = i - 6;
-          y[i] = 0.0f;
-          if (tab[L::ANC + l * NJ + j] > 0.5f) {
-            float dx[3];
-            for (int k = 0; k < 3; ++k) dx[k] = x[k] - e.pos[j + 1][k];
-            y[i] = cross_comp(e.ja[j], dx, comp);
-          }
-        }
+        y[i] = jac(l, x, rel, comp, i);
         cv += y[i] * e.vfree[i];
       }
       if (m == 0) {
@@ -525,7 +643,7 @@ HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int m
     const int t1 = NE + NLIM + 3 * s + 1, t2 = t1 + 1;
     if (!(e.act[t1] > 0.5f)) continue;
     float a12 = 0.0f;
-    for (int i = 0; i < NV; ++i) a12 += e.u.W[t1 * NV + i] * e.u.W[t2 * NV + i];
+    for (int i = 0; i < NV; ++i) a12 += e.u.W[t1 * WS + i] * e.u.W[t2 * WS + i];
     const float a11 = e.diag[t1], a22 = e.diag[t2];
     const float det = fmaxf(a11 * a22 - a12 * a12, 1e-12f);
     e.finv[s][0] = a22 / det; e.finv[s][1] = a11 / det; e.finv[s][2] = -a12 / det;
@@ -540,7 +658,7 @@ HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int m
     if (j < NV)
       for (int t = 0; t < nrows; ++t) {
         const int r = e.rows[t];
-        z[jj] += e.u.W[r * NV + j] * e.lam[r];
+        z[jj] += e.u.W[r * WS + j] * e.lam[r];
       }
   }
   // W_r · z, this lane's part
@@ -548,25 +666,27 @@ HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int m
     float p = 0.0f;
     for (int jj = 0; jj < NVL; ++jj) {
       const int j = lane + jj * WIDTH;
-      if (j < NV) p += e.u.W[r * NV + j] * z[jj];
+      if (j < NV) p += e.u.W[r * WS + j] * z[jj];
     }
     return p;
   };
   auto move = [&](int r, float d) {
     for (int jj = 0; jj < NVL; ++jj) {
       const int j = lane + jj * WIDTH;
-      if (j < NV) z[jj] += e.u.W[r * NV + j] * d;
+      if (j < NV) z[jj] += e.u.W[r * WS + j] * d;
     }
   };
 
-  // ---------------- PGS over the active rows, in the serial order
+  // ---------------- PGS over the active rows, in the serial order: the
+  // equality rows unbounded, a limit or a contact normal clamped at 0
   const float fric = e.fric;
-  for (int it = 0; it < ITERS; ++it) {
+  for (int it = 0; it < C::ITERS; ++it) {
     for (int t = 0; t < nrows;) {
       const int r = e.rows[t];
       const float l0 = e.lam[r];
       const float res = e.c[r] + cfm * l0 + wsum(part(r));
-      const float nw = fmaxf(0.0f, l0 - res / e.diag[r]);
+      float nw = l0 - res / e.diag[r];
+      if (!(r < NE0)) nw = fmaxf(0.0f, nw);
       e.lam[r] = nw;
       move(r, nw - l0);
       if (r < NE + NLIM) { ++t; continue; }
@@ -585,7 +705,7 @@ HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int m
       e.lam[b2] = n2;
       for (int jj = 0; jj < NVL; ++jj) {
         const int j = lane + jj * WIDTH;
-        if (j < NV) z[jj] += e.u.W[b1 * NV + j] * e1 + e.u.W[b2 * NV + j] * e2;
+        if (j < NV) z[jj] += e.u.W[b1 * WS + j] * e1 + e.u.W[b2 * WS + j] * e2;
       }
       t += 3;
     }
@@ -636,98 +756,105 @@ HD void substep(EnvW<NL, NS, NLIM>& e, const float* tab, const int* level, int m
   wsync();
 }
 
-// One call for env t: NSUB substeps of one llc frame, λ zeroed at the start.
-template <int NL, int NS, int NLIM, int NSUB, int ITERS>
+// One call for env t: NLLC llc frames of NSUB substeps, λ zeroed once at the
+// start and carried across them. PD: ``tau`` holds joint targets and each
+// frame's torque is gain·(target − q) at the frame's start; else the torques
+// are held.
+template <class C>
 KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const float* gz,
                       const float* fric, float* q_out, float* qd_out, float* depth_out,
-                      float* nimp_out, const float* tab, const int* level, int maxd,
-                      EnvW<NL, NS, NLIM>& e, int t, int lane) {
-  using L = Layout<NL, NS, NLIM, 0, false, 0, 0>;
+                      float* nimp_out, const float* tab, const int* level, int maxd, EnvW<C>& e,
+                      int t, int lane) {
+  using L = typename C::L;
   for (int i = lane; i < L::NQ; i += WIDTH) e.q[i] = q[(long long)t * L::NQ + i];
   for (int i = lane; i < L::NV; i += WIDTH) e.qd[i] = qd[(long long)t * L::NV + i];
-  for (int i = lane; i < L::NJ; i += WIDTH) e.tau[i] = tau[(long long)t * L::NJ + i];
+  for (int i = lane; i < L::NJ; i += WIDTH) {
+    if constexpr (C::PD) e.target[i] = tau[(long long)t * L::NJ + i];
+    else e.tau[i] = tau[(long long)t * L::NJ + i];
+  }
   for (int r = lane; r < L::NR; r += WIDTH) e.lam[r] = 0.0f;
   if (lane == 0) {
     e.ground = gz[t];
     e.fric = fric[t];
   }
   wsync();
-  for (int sub = 0; sub < NSUB; ++sub)   // the factor of the frame's first substep
-    substep<NL, NS, NLIM, ITERS>(e, tab, level, maxd, lane, sub == 0);
+  for (int llc = 0; llc < C::NLLC; ++llc) {
+    if constexpr (C::PD) {
+      for (int j = lane; j < L::NJ; j += WIDTH)
+        e.tau[j] = tab[L::PDGAIN + j] * (e.target[j] - e.q[7 + j]);
+      wsync();
+    }
+    for (int sub = 0; sub < C::NSUB; ++sub)   // the factor of each frame's first substep
+      substep<C>(e, tab, level, maxd, lane, sub == 0);
+  }
   for (int i = lane; i < L::NQ; i += WIDTH) q_out[(long long)t * L::NQ + i] = e.q[i];
   for (int i = lane; i < L::NV; i += WIDTH) qd_out[(long long)t * L::NV + i] = e.qd[i];
-  for (int s = lane; s < NS; s += WIDTH) {
-    depth_out[(long long)t * NS + s] = e.depth[s];
-    nimp_out[(long long)t * NS + s] = e.lam[L::NE + NLIM + 3 * s];
+  for (int s = lane; s < C::NS; s += WIDTH) {
+    depth_out[(long long)t * C::NS + s] = e.depth[s];
+    nimp_out[(long long)t * C::NS + s] = e.lam[L::NE + C::NLIM + 3 * s];
   }
 }
 
 #ifndef K1W_HOST_CHECK
-// Dynamic shared memory of a block: the table, the link depths, kEnvs EnvW.
-template <int NL, int NS, int NLIM>
+// Dynamic shared memory of a block: the table, the link depths, C::ENVS EnvW.
+template <class C>
 struct Smem {
-  using L = Layout<NL, NS, NLIM, 0, false, 0, 0>;
-  static constexpr int ENV_OFF = ((L::SIZE + NL) * 4 + 15) / 16 * 16;
-  static constexpr int BYTES = ENV_OFF + kEnvs * (int)sizeof(EnvW<NL, NS, NLIM>);
+  static constexpr int ENV_OFF = ((C::L::SIZE + C::NL) * 4 + 15) / 16 * 16;
+  static constexpr int BYTES = ENV_OFF + C::ENVS * (int)sizeof(EnvW<C>);
 };
 
-template <int NL, int NS, int NLIM, int NSUB, int ITERS>
-__global__ void __launch_bounds__(32 * kEnvs, 4)
+template <class C>
+__global__ void __launch_bounds__(32 * C::ENVS, C::BLOCKS)
 k1w_kernel(const float* __restrict__ q, const float* __restrict__ qd,
            const float* __restrict__ tau, const float* __restrict__ gz,
            const float* __restrict__ fric, float* __restrict__ q_out,
            float* __restrict__ qd_out, float* __restrict__ depth_out,
            float* __restrict__ nimp_out, const float* __restrict__ table, int B) {
-  using L = Layout<NL, NS, NLIM, 0, false, 0, 0>;
-  using S = Smem<NL, NS, NLIM>;
+  using L = typename C::L;
   extern __shared__ float4 smem[];
   float* tab = reinterpret_cast<float*>(smem);
   int* level = reinterpret_cast<int*>(tab + L::SIZE);
-  auto* envs = reinterpret_cast<EnvW<NL, NS, NLIM>*>(reinterpret_cast<char*>(smem) + S::ENV_OFF);
+  auto* envs = reinterpret_cast<EnvW<C>*>(reinterpret_cast<char*>(smem) + Smem<C>::ENV_OFF);
   for (int i = threadIdx.x; i < L::SIZE; i += blockDim.x) tab[i] = table[i];
   __syncthreads();
-  if (threadIdx.x == 0) tree_depths<NL>(tab + L::PARENT, level);
+  if (threadIdx.x == 0) tree_depths<C::NL>(tab + L::PARENT, level);
   __syncthreads();
   int maxd = 0;
-  for (int l = 0; l < NL; ++l) maxd = level[l] > maxd ? level[l] : maxd;
+  for (int l = 0; l < C::NL; ++l) maxd = level[l] > maxd ? level[l] : maxd;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = blockIdx.x * kEnvs + warp;
+  const int t = blockIdx.x * C::ENVS + warp;
   if (t >= B) return;   // the whole warp
-  frame<NL, NS, NLIM, NSUB, ITERS>(q, qd, tau, gz, fric, q_out, qd_out, depth_out, nimp_out, tab,
-                                  level, maxd, envs[warp], t, lane);
+  frame<C>(q, qd, tau, gz, fric, q_out, qd_out, depth_out, nimp_out, tab, level, maxd, envs[warp],
+           t, lane);
 }
 
-template <int NL, int NS, int NLIM, int NSUB, int ITERS>
+template <class C>
 int prepare() {
-  return (int)cudaFuncSetAttribute(k1w_kernel<NL, NS, NLIM, NSUB, ITERS>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   Smem<NL, NS, NLIM>::BYTES);
+  return (int)cudaFuncSetAttribute(k1w_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   Smem<C>::BYTES);
 }
 
-template <int NL, int NS, int NLIM, int NSUB, int ITERS>
+template <class C>
 int launch(const float* q, const float* qd, const float* tau, const float* gz, const float* fric,
            float* q_out, float* qd_out, float* depth, float* nimp, const float* table,
            int table_size, int B, void* stream) {
-  using L = Layout<NL, NS, NLIM, 0, false, 0, 0>;
-  if (table_size != L::SIZE || B <= 0) return (int)cudaErrorInvalidValue;
-  const int err = prepare<NL, NS, NLIM, NSUB, ITERS>();
+  if (table_size != C::L::SIZE || B <= 0) return (int)cudaErrorInvalidValue;
+  const int err = prepare<C>();
   if (err != 0) return err;
-  const int blocks = (B + kEnvs - 1) / kEnvs;
-  k1w_kernel<NL, NS, NLIM, NSUB, ITERS>
-      <<<blocks, 32 * kEnvs, Smem<NL, NS, NLIM>::BYTES, (cudaStream_t)stream>>>(
-          q, qd, tau, gz, fric, q_out, qd_out, depth, nimp, table, B);
+  const int blocks = (B + C::ENVS - 1) / C::ENVS;
+  k1w_kernel<C><<<blocks, 32 * C::ENVS, Smem<C>::BYTES, (cudaStream_t)stream>>>(
+      q, qd, tau, gz, fric, q_out, qd_out, depth, nimp, table, B);
   return (int)cudaGetLastError();
 }
 
-template <int NL, int NS, int NLIM, int NSUB, int ITERS>
+template <class C>
 int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
-  const int err = prepare<NL, NS, NLIM, NSUB, ITERS>();
+  const int err = prepare<C>();
   if (err != 0) return err;
-  *envs_per_block = kEnvs;
-  *smem_bytes = Smem<NL, NS, NLIM>::BYTES;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, k1w_kernel<NL, NS, NLIM, NSUB, ITERS>, 32 * kEnvs,
-      Smem<NL, NS, NLIM>::BYTES);
+  *envs_per_block = C::ENVS;
+  *smem_bytes = Smem<C>::BYTES;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k1w_kernel<C>,
+                                                            32 * C::ENVS, Smem<C>::BYTES);
 }
 #endif
 
@@ -736,53 +863,70 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
 // ------------------------------------------------------------ C interface
 // The same entries as engine_k1.cu's instances (the scene inputs and the
 // workspace are taken and unused; the workspace per env is 0), and
-// <sym>_occupancy.
-#define K1W_LAYOUT(NAME, NL, NS, NLIM)                                                      \
+// <sym>_occupancy. One entry per instance: (NL, NS, NLIM, NSUB, ITERS, PD,
+// NLLC, NP2P, PLANAR) at the shipped solver options, then envs per block and
+// blocks per SM; ops/cuda/engine.py::WARP_INSTANCES lists the same names and
+// numbers.
+#define K1W_LAYOUT(NAME, ...)                                                                \
+  using NAME##_cfg = k1w::Cfg<__VA_ARGS__>;                                                  \
   extern "C" int NAME##_layout(int* table_size, int* ws_per_env) {                          \
-    *table_size = k1::Layout<NL, NS, NLIM, 0, false, 0, 0>::SIZE;                           \
+    *table_size = NAME##_cfg::L::SIZE;                                                       \
     *ws_per_env = 0;                                                                         \
     return 0;                                                                                \
   }
 #ifndef K1W_HOST_CHECK
-#define K1W_INSTANCE(NAME, NL, NS, NLIM, NSUB, ITERS)                                        \
-  K1W_LAYOUT(NAME, NL, NS, NLIM)                                                            \
+#define K1W_INSTANCE(NAME, ...)                                                              \
+  K1W_LAYOUT(NAME, __VA_ARGS__)                                                              \
   extern "C" int NAME##_launch(const float* q, const float* qd, const float* tau,           \
                                const float* gz, const float* fric, const float*,            \
                                const float*, const float*, const float*, const float*,      \
                                float* q_out, float* qd_out, float* depth, float* nimp,      \
                                const float* table, int table_size, float*, int B,           \
                                void* stream) {                                               \
-    return k1w::launch<NL, NS, NLIM, NSUB, ITERS>(q, qd, tau, gz, fric, q_out, qd_out,      \
-                                                  depth, nimp, table, table_size, B,       \
-                                                  stream);                                  \
+    return k1w::launch<NAME##_cfg>(q, qd, tau, gz, fric, q_out, qd_out, depth, nimp, table,  \
+                                   table_size, B, stream);                                  \
   }                                                                                          \
   extern "C" int NAME##_occupancy(int* blocks_per_sm, int* envs_per_block,                  \
                                   int* smem_bytes) {                                        \
-    return k1w::occupancy<NL, NS, NLIM, NSUB, ITERS>(blocks_per_sm, envs_per_block,         \
-                                                     smem_bytes);                           \
+    return k1w::occupancy<NAME##_cfg>(blocks_per_sm, envs_per_block, smem_bytes);           \
   }
 #else
 // host check: the same per-env code at lane width 1, a plain loop over envs
-#define K1W_INSTANCE(NAME, NL, NS, NLIM, NSUB, ITERS)                                        \
-  K1W_LAYOUT(NAME, NL, NS, NLIM)                                                            \
+#define K1W_INSTANCE(NAME, ...)                                                              \
+  K1W_LAYOUT(NAME, __VA_ARGS__)                                                              \
   extern "C" int NAME##_host(const float* q, const float* qd, const float* tau,             \
                              const float* gz, const float* fric, const float*,              \
                              const float*, const float*, const float*, const float*,        \
                              float* q_out, float* qd_out, float* depth, float* nimp,        \
                              const float* table, int table_size, float*, int B) {           \
-    using L_ = k1::Layout<NL, NS, NLIM, 0, false, 0, 0>;                                    \
-    if (table_size != L_::SIZE || B <= 0) return 1;                                          \
-    int dep[NL];                                                                             \
-    const int maxd = k1w::tree_depths<NL>(table + L_::PARENT, dep);                          \
-    auto* e = new k1w::EnvW<NL, NS, NLIM>;                                                   \
+    using C_ = NAME##_cfg;                                                                   \
+    if (table_size != C_::L::SIZE || B <= 0) return 1;                                       \
+    int dep[C_::NL];                                                                         \
+    const int maxd = k1w::tree_depths<C_::NL>(table + C_::L::PARENT, dep);                   \
+    auto* e = new k1w::EnvW<C_>;                                                             \
     for (int t = 0; t < B; ++t)                                                              \
-      k1w::frame<NL, NS, NLIM, NSUB, ITERS>(q, qd, tau, gz, fric, q_out, qd_out, depth,     \
-                                            nimp, table, dep, maxd, *e, t, 0);              \
+      k1w::frame<C_>(q, qd, tau, gz, fric, q_out, qd_out, depth, nimp, table, dep, maxd, *e, \
+                     t, 0);                                                                  \
     delete e;                                                                                \
     return 0;                                                                                \
   }
 #endif
 
 // Walker3D / Child3D at the shipped EngineConfig: 22 links, 14 spheres, 21
-// limit rows, 4 substeps, 4 sweeps (K1a)
-K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4, 22, 14, 21, 4, 4)
+// limit rows, 4 substeps, 4 sweeps (K1a); 4 envs per block, 4 blocks per SM
+#if !defined(K1W_ONLY) || K1W_ONLY == 0
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4, 22, 14, 21, 4, 4, false, 1, 0, false, 4, 4)
+static_assert(sizeof(k1w::EnvW<k1w_nl22_ns14_nlim21_sub4_it4_cfg>) == 12000,
+              "the walker's per-env state keeps its size");
+#endif
+// Cassie at its three-rate configuration (K1e): 17 links, 5 spheres, 16 limit
+// rows, PD-servoed, 10 llc frames of 2 substeps at 600 Hz per control step,
+// the two achilles rods (37 rows); 32 envs per block, 1 block per SM
+#if !defined(K1W_ONLY) || K1W_ONLY == 1
+K1W_INSTANCE(k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2, 17, 5, 16, 2, 4, true, 10, 2, false, 32, 1)
+#endif
+// ... locked to the sagittal plane (40 rows)
+#if !defined(K1W_ONLY) || K1W_ONLY == 2
+K1W_INSTANCE(k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar, 17, 5, 16, 2, 4, true, 10, 2, true,
+             32, 1)
+#endif

@@ -12,21 +12,22 @@ faces) and K1h (``split_impulse``: the bias split and the position pass) on
 each of them (K1hSi on the walker's plane), each under any ``EngineConfig``:
 the PGS options ``matfree_pgs`` (else the A-form), ``block_pgs`` (else
 scalar friction rows), ``warm_start`` and ``reuse_factor``, any substeps and
-sweeps. The kernel is CUDA C++ in two sources: ``csrc/engine_k1w.cu``, K1a
-redesigned for Hopper (one warp per env, W and the factor in shared memory,
-inactive rows skipped), which the walker's key runs (:data:`WARP_INSTANCES`),
-and ``csrc/engine_k1.cu``, one thread per env, for every other key. An
-instance is picked by its :class:`Key`: the warp-per-env one where there is
-one, else the fifteen ``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the
-shipped families at the shipped options) and, for any other key, the
-generic instance whose name (:func:`canonical_symbol`) and template
-arguments come from preprocessor flags (:func:`compile_flags`). The
-thread-per-env K1a instance stays built; only ``thread_per_env=True`` reaches
-it, to compare the two designs. :func:`build` compiles them with ``nvcc``
-for ``sm_90a`` into ``build/``, one compiler process per instance, all
-started together (with the raycast kernel K2 of ``csrc/raycast_k2.cu``,
-whose wrapper is ``ops/raycast.py``); a generic instance is built at the
-first launch of its key. They are called through a plain C interface with
+sweeps. The kernel is CUDA C++ in two sources: ``csrc/engine_k1w.cu``, one
+warp per env (W and the factor in shared memory, inactive rows skipped),
+which the keys of :data:`WARP_INSTANCES` run (K1a, the walker's and the
+child's; K1e, Cassie's and Cassie2D's), and ``csrc/engine_k1.cu``, one
+thread per env, for every other key. An instance is picked by its
+:class:`Key`: the warp-per-env one where there is one, else the fifteen
+``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the shipped families at the
+shipped options) and, for any other key, the generic instance whose name
+(:func:`canonical_symbol`) and template arguments come from preprocessor
+flags (:func:`compile_flags`). The thread-per-env instances of the warp
+keys stay built; only ``thread_per_env=True`` reaches them, to compare the
+two designs. :func:`build` compiles them with ``nvcc`` for ``sm_90a`` into
+``build/``, one compiler process per instance, all started together (with
+the raycast kernel K2 of ``csrc/raycast_k2.cu``, whose wrapper is
+``ops/raycast.py``); a generic instance is built at the first launch of its
+key. They are called through a plain C interface with
 ``ctypes``.
 
 - :class:`K1a`, :class:`K1c`, :class:`K1b`, :class:`K1e`, :class:`K1d`,
@@ -71,7 +72,7 @@ from mocca_envs_tpu_torch.terrain.scene import BAR_FIELDS, STONE_FIELDS, TRI_FIE
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "engine_k1.cu"
-SOURCE_W = SOURCE.with_name("engine_k1w.cu")        # K1a, one warp per env
+SOURCE_W = SOURCE.with_name("engine_k1w.cu")        # K1a and Cassie's K1e, one warp per env
 HEADER = SOURCE.with_name("k1_common.cuh")          # included by both
 RAYCAST_SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "raycast_k2.cu"
 RAYCAST_SYMBOL = "k2_raycast"
@@ -118,10 +119,10 @@ class Key:
 @dataclasses.dataclass(frozen=True)
 class Instance:
     """One instantiation of a kernel template in ``source``: one of the
-    fifteen ``engine_k1.cu`` names (``index`` is its K1_ONLY number), the
-    warp-per-env K1a of ``engine_k1w.cu`` (its only instance, ``index`` 0)
-    or, for any other key, the generic one (``index`` None) built from
-    ``compile_flags``."""
+    fifteen ``engine_k1.cu`` names (``index`` is its K1_ONLY number), one of
+    the warp-per-env instances of ``engine_k1w.cu`` (``index`` is its
+    K1W_ONLY number) or, for any other key, the generic one (``index`` None)
+    built from ``compile_flags``."""
 
     symbol: str   # C symbol prefix
     index: int | None
@@ -159,10 +160,14 @@ INSTANTIATIONS = {inst.key: inst for inst in (
              Key(**_C, planar=True, split=True)),
     Instance("k1h_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si", 14, Key(**_M, split=True)),
 )}
-# the keys the warp-per-env source runs: K1a, the walker and the child on
-# the plane in torque mode at the shipped options
+# the keys the warp-per-env source runs, at the shipped options: K1a, the
+# walker and the child on the plane in torque mode; K1e, Cassie's and
+# Cassie2D's whole PD control step with the rods (and the planar lock)
 WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4", 0, Key(**_W), SOURCE_W),
+    Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 1, Key(**_C), SOURCE_W),
+    Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar", 2, Key(**_C, planar=True),
+             SOURCE_W),
 )}
 
 
@@ -191,11 +196,11 @@ def instance_for(key: Key, thread_per_env: bool = False) -> Instance:
 
 def compile_flags(inst: Instance) -> list:
     """The preprocessor flags that select ``inst`` from the source, for nvcc
-    and for the host check alike: ``K1_ONLY`` for a named instance, else the
-    generic instance's name and template arguments; none for the
-    warp-per-env source, which holds one instance."""
+    and for the host check alike: ``K1W_ONLY`` for a warp-per-env instance,
+    ``K1_ONLY`` for a named one, else the generic instance's name and
+    template arguments."""
     if inst.source == SOURCE_W:
-        return []
+        return [f"-DK1W_ONLY={inst.index}"]
     if inst.index is not None:
         return [f"-DK1_ONLY={inst.index}"]
     k = inst.key
@@ -239,7 +244,7 @@ class _Library:
 
 
 def build(keys=()) -> dict:
-    """Compile the warp-per-env instance of ``csrc/engine_k1w.cu``, the
+    """Compile the warp-per-env instances of ``csrc/engine_k1w.cu``, the
     fifteen named instances of ``csrc/engine_k1.cu``, the generic instance
     of each of ``keys`` and the raycast kernel of ``csrc/raycast_k2.cu``
     whose library is missing or older than its sources, all compilers
@@ -659,11 +664,12 @@ class K1e(EngineKernel):
     split_variant = "k1h_e"
 
     def __init__(self, model, config, constraints: ConstraintSpec, pd_mode: bool = False,
-                 extra_damping=None, plain_unit=None):
+                 extra_damping=None, plain_unit=None, thread_per_env: bool = False):
         if constraints.ne == 0:
             raise ValueError("K1e needs equality rows; without them the variant is K1a / K1b")
         super().__init__(model, config, pd_mode=pd_mode, extra_damping=extra_damping,
-                         plain_unit=plain_unit, constraints=constraints)
+                         plain_unit=plain_unit, constraints=constraints,
+                         thread_per_env=thread_per_env)
 
 
 class K1d(EngineKernel):
@@ -861,8 +867,8 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs, tri_walk=Non
     needed only where it is attached: its palm to the world frame, one point
     Jacobian, three dense rows like a rod's. The thread-per-env instances
     run every row whether or not it is active, so they do more work than
-    this count, even with masks of all ones; the warp-per-env K1a skips the
-    inactive rows."""
+    this count, even with masks of all ones; the warp-per-env instances skip
+    the inactive rows."""
     model, config = kernel.model, kernel.config
     nl, nj, nv, ns = model.nl, model.nj, model.nv, model.ns
     lim = limited_joints(model)

@@ -86,7 +86,8 @@ def test_walker_key_picks_the_warp_per_env_instance(libs):
     assert new.name == "k1w_nl22_ns14_nlim21_sub4_it4" and new.instance.source == engine.SOURCE_W
     assert old.name == "k1a_nl22_ns14_nlim21_sub4_it4" and old.instance.index == 0
     assert new.key == old.key and new.variant == old.variant == "k1a"
-    assert engine.compile_flags(new.instance) == [] and engine.WARP_INSTANCES[new.key] is new.instance
+    assert engine.compile_flags(new.instance) == ["-DK1W_ONLY=0"]
+    assert engine.WARP_INSTANCES[new.key] is new.instance
     # the entry points' choice: make_kernel takes the warp-per-env instance
     picked = engine.make_kernel(new.model, EngineConfig())
     assert picked.name == new.name and picked.instance.source == engine.SOURCE_W

@@ -69,8 +69,10 @@ def _kernel_case(case, B, seed, device="cpu"):
     states: k1a, k1c (stepper states, 6 culled stones), k1b / k1b_llc2 (PD
     targets, the walker's PD gains and implicit derivative gain), k1e_cassie
     / k1e_cassie2d (the whole PD control step with the rods, and the planar
-    lock), k1e_planar / k1e_crab (one torque frame of Walker2D / Crab2D,
-    which share an instantiation), k1d* (one torque frame of the monkey
+    lock, on the warp-per-env instance the entry points pick; with
+    ``_thread`` on the thread-per-env instance of the same key), k1e_planar
+    / k1e_crab (one torque frame of Walker2D / Crab2D, which share an
+    instantiation), k1d* (one torque frame of the monkey
     hanging from its bars, the hands attached as :data:`K1D_CASES` says),
     k1f* (one torque frame of the walker over a terrain window, as
     :data:`K1F_CASES` says), k1g (one torque frame of the walker on the
@@ -101,11 +103,13 @@ def _kernel_case(case, B, seed, device="cpu"):
         model = monkey.make_model(device)
         return (engine.K1d(model, EngineConfig(), monkey.constraints(), 16),
                 chip_smoke.monkey_states(model, rng, B, **K1D_CASES[case]))
-    if case in ("k1e_cassie", "k1e_cassie2d"):
+    if case.startswith("k1e_cassie"):
         model = cassie.make_model(device)
-        spec = dataclasses.replace(cassie.constraints(), planar=case == "k1e_cassie2d")
+        spec = dataclasses.replace(cassie.constraints(),
+                                   planar=case.startswith("k1e_cassie2d"))
         kernel = engine.K1e(model, CASSIE_CONFIG, spec, pd_mode=True,
-                            extra_damping=model.actuated * model.kd)
+                            extra_damping=model.actuated * model.kd,
+                            thread_per_env=case.endswith("_thread"))
         return kernel, chip_smoke.cassie_states(
             model, cassie.stand_q(model), cassie.initial_z(), rng, spec.planar, B)
     if case in ("k1e_planar", "k1e_crab"):
@@ -128,7 +132,8 @@ def _kernel_case(case, B, seed, device="cpu"):
 
 
 KERNEL_CASES = ["k1a", "k1c", "k1b", "k1b_llc2"]
-K1E_CASES = ["k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1e_crab"]
+K1E_CASES = ["k1e_cassie", "k1e_cassie2d", "k1e_cassie_thread", "k1e_cassie2d_thread",
+             "k1e_planar", "k1e_crab"]
 # the right hand always and the left in half of the envs (the main path's
 # mix), both hands, none (a free body: every grab row masked), and no bar
 # near the feet or the torso
@@ -187,7 +192,8 @@ print("ok")
 
 
 def test_sources_import_no_jax():
-    files = sorted((REPO / "mocca_envs_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "mocca_envs_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "k1w_launch_shapes.py"]
     assert len(files) > 20
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -496,7 +502,7 @@ def test_equality_rows_count_their_own_work():
 def host_library(tmp_path_factory):
     """The kernel sources (csrc/engine_k1.cu, csrc/engine_k1w.cu) built by the
     host C++ compiler into one library: every instantiation's per-env code as
-    a loop over envs (the warp-per-env K1a at lane width 1)."""
+    a loop over envs (the warp-per-env instances at lane width 1)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel source's host check")
@@ -569,10 +575,13 @@ def test_k1_variant_source_arithmetic_on_host(host_library, case):
 def test_k1e_source_arithmetic_on_host(host_library, case):
     """The equality-row instances (Cassie's whole PD control step with the
     rods: 10 llc frames × 2 substeps, λ carried, the factor refreshed per
-    frame; the same with the planar lock; one torque frame of Walker2D and of
+    frame; the same with the planar lock; each by its warp-per-env instance
+    and by its thread-per-env one; one torque frame of Walker2D and of
     Crab2D with the lock) against their plain versions, at the equality-row
     tolerances."""
     kernel, arrays = _kernel_case(case, 64, 5)
+    assert (kernel.instance.source == engine.SOURCE_W) == (
+        case in ("k1e_cassie", "k1e_cassie2d"))
     inputs = [np.ascontiguousarray(x) for x in arrays]
     outs = _run_on_host(host_library, kernel, inputs)
     want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
