@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases, in order; any failure exits non-zero before the result lines:
 
 1. print the card's name and power limit; build the warp-per-env
-   instances of K1a and of Cassie's and Cassie2D's K1e from
+   instances of K1a, of Cassie's and Cassie2D's K1e, of the PD walkers' K1b
+   and of the terrain walkers' K1f from
    ``mocca_envs_tpu_torch/csrc/engine_k1w.cu``, the fifteen
    named instances of the engine kernel from
    ``mocca_envs_tpu_torch/csrc/engine_k1.cu``, the generic instance of every
@@ -17,15 +18,17 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``csrc/raycast_k2.cu`` (one nvcc process each, side by side), and print
    each one's ptxas registers and stack frame; the fifteen named frames
    and spills must be :data:`FRAMES`, and each warp-per-env instance must
-   spill nothing and use no global workspace (its registers, shared memory
-   and envs resident per SM printed);
+   spill nothing, use no global workspace and keep the registers, dynamic
+   shared memory per block and envs resident per SM of :data:`WARP_BUILDS`;
 2. each kernel vs its plain PyTorch version at B = 4096: K1a on walker
    states near contact, and against the thread-per-env K1a at
    :data:`TOL_TWIN` on those states and with every base lifted 3 m (no
    contact: every contact row skipped), K1c on stepper states (stones at stages 0–9, feet
    in or near contact with tilted stone tops, some envs over a gap), K1b on
-   the K1a states with random joint targets, and the K1b instance for two
-   llc frames (no registered family runs it yet) on the same states; K1e on
+   the K1a states with random joint targets, and against the thread-per-env
+   K1b at :data:`TOL_TWIN` on those states and lifted 3 m, and the K1b
+   instance for two llc frames (no registered family runs it yet) on the
+   same states; K1e on
    Cassie and Cassie2D states near the stand pose (feet in or near contact,
    rods slightly open, the planar variant a little out of its plane), by
    their warp-per-env instances, and those against their thread-per-env
@@ -38,7 +41,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    over the terrain families' grids (the lowest foot within ±2 cm of the
    surface under it, on the grid's slopes, a tenth of the roots within
    0.5 m of its edge, the window around the root packed as the main path
-   packs it), and a grid smaller than the window must raise on the card;
+   packs it), and against the thread-per-env K1f at :data:`TOL_TWIN` on
+   those states and lifted 3 m; a grid smaller than the window must raise
+   on the card;
    K1g on walker states on the stairs' staircase (a third each with the
    feet over treads, the lowest foot sphere at a nosing edge, the foremost
    against a riser; the 16 nearest of the 24 faces packed as the main path
@@ -86,13 +91,15 @@ Phases, in order; any failure exits non-zero before the result lines:
    just after: ``Walker3DCustomEnv-v0`` for 600 control steps (K1a, by
    the warp-per-env instance alone, as the child),
    ``Walker3DStepperEnv-v0`` for 600 (K1c), ``Walker3DPDCustomEnv-v0`` for
-   200 (K1b), ``Child3DCustomEnv-v0`` for 100 (K1a), ``CassieEnv-v0`` for
+   200 and ``Child3DPDCustomEnv-v0`` for 100 (K1b, each by its warp-per-env
+   instance alone), ``Child3DCustomEnv-v0`` for 100 (K1a), ``CassieEnv-v0`` for
    300 and ``Cassie2DEnv-v0`` for 100 (K1e, each by its warp-per-env
    instance alone), ``Walker2DCustomEnv-v0`` for 200 and
    ``Crab2DCustomEnv-v0`` for 100 (K1e), ``Monkey3DStepperEnv-v0`` for 300
    (K1d, grab signals included in the random actions),
    ``Walker3DTerrainEnv-v0`` for 600 and ``Walker3DTerrainLidarEnv-v0`` for
-   200 (K1f), ``Walker3DStairsEnv-v0`` for 600 (K1g),
+   200 (K1f, each by its warp-per-env instance alone),
+   ``Walker3DStairsEnv-v0`` for 600 (K1g),
    ``Walker3DCustomEnv-v0`` made with ``EngineConfig(split_impulse=True)``
    for 200 (K1h-si) and with each of :data:`OPTION_CONFIGS` for 100 (its own
    instance, counted under its name and by its symbol in
@@ -127,7 +134,8 @@ Phases, in order; any failure exits non-zero before the result lines:
 4. per-call times of each kernel and its plain version (CUDA events), the
    two K1a designs in turns (old, new, new, old) at each B of
    :data:`SWEEP` beside their bound, the two designs of Cassie's and of
-   Cassie2D's K1e likewise at each B of :data:`CASSIE_SWEEP`, the walker's step against the host's
+   Cassie2D's K1e likewise at each B of :data:`CASSIE_SWEEP`, those of K1b
+   and of K1f at each B of :data:`WALKER_SWEEP`, the walker's step against the host's
    time to enqueue it and the device's busy share over 20 traced steps, the
    bound from the operations and bytes these inputs need, and the time of
    the stepper's cull of 20 stones to the window plus their packing (env
@@ -135,7 +143,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    stepper's step split into the step proper and the fresh episodes of
    auto-reset; K2's time and bound (the march steps these rays need);
    the terrain step's window cut and packing; the step time outside the
-   kernel of Cassie, the planar walkers, the monkey, the terrain families,
+   kernel of the PD walkers, Cassie, the planar walkers, the monkey, the terrain families,
    the stairs and the split-impulse walker; the training rollouts' time per
    env step outside the kernel; an A-form's bound counts its matrix-free
    twin's operations on the same activity (the same function in fewer), its
@@ -228,6 +236,19 @@ FRAMES = {
 # 16,384)
 SWEEP = {4096: 20, 16384: 10, 65536: 5}
 CASSIE_SWEEP = {4096: 10, 16384: 5}
+WALKER_SWEEP = {4096: 20, 16384: 10}   # K1b and K1f
+# ptxas's registers and the dynamic shared memory per block (bytes) of each
+# warp-per-env instance, and the envs each must keep resident per SM: the
+# walker's keys 4 blocks of 4 envs (K1f's registers sized for 8), Cassie's
+# one block of 32; the first three as every build since they were written
+# has reported them
+WARP_BUILDS = {
+    "k1w_nl22_ns14_nlim21_sub4_it4": (64, 53008, 16),
+    "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2": (64, 202896, 32),
+    "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar": (64, 213648, 32),
+    "k1w_nl22_ns14_nlim21_sub4_it4_llc1": (56, 53344, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_hf16": (63, 53776, 16),
+}
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
 RAYCAST_REPLACES = "mocca_envs_tpu/ops/pallas/raycast.py:91"
@@ -616,6 +637,21 @@ def compare_twins(kernel, twin, args, label: str, tol=TOL_TWIN, tail: str = "max
     return max_abs
 
 
+def twin_and_lifted(kernel, twin, args, label: str, lift: float, tol=TOL_TWIN,
+                    plain_tol=TOL, tail: str = "max") -> float:
+    """A warp-per-env ``kernel`` against its thread-per-env ``twin``
+    (:func:`compare_twins` at ``tol``) on ``args`` and with every base raised
+    ``lift`` m (every contact row skipped), and there against its plain
+    version at ``plain_tol`` with no contact active. Returns the largest
+    absolute error."""
+    lifted = [args[0].clone(), *args[1:]]
+    lifted[0][:, 2] += lift
+    return max(compare_twins(kernel, twin, args, label, tol, tail),
+               compare(kernel, lifted, f"{label} (no contact)", plain_tol, tail=tail,
+                       loaded=False),
+               compare_twins(kernel, twin, lifted, f"{label} (no contact)", tol, tail))
+
+
 def parts_from_shipped(kernel, shipped, args, label: str, tol=TOL) -> None:
     """An option's instance and the ``shipped`` instance, launched once each
     on ``args``: the per-env medians of |Δq| and |Δqd| between them must
@@ -664,8 +700,9 @@ def ptxas(log: str) -> dict:
 
 def build_report(engine, card) -> None:
     """Phase 1's readings: the fifteen named frames as :data:`FRAMES` has
-    them; the warp-per-env K1a with no spill, no global workspace, and its
-    envs resident per SM."""
+    them; each warp-per-env instance with no spill, no global workspace,
+    and its registers, shared memory and envs resident per SM as
+    :data:`WARP_BUILDS` has them."""
     logs = engine._Library.logs
     for symbol, want in FRAMES.items():
         got = ptxas(logs.get(symbol, ""))
@@ -688,6 +725,10 @@ def build_report(engine, card) -> None:
         check(got["spill_stores"] == 0 and got["spill_loads"] == 0,
               f"{inst.symbol}: ptxas reports spills: {got}")
         check(ws == 0 and occ["blocks_per_sm"] >= 1, f"{inst.symbol}: workspace {ws}, {occ}")
+        want = WARP_BUILDS[inst.symbol]
+        check((got["registers"], occ["smem_per_block"], occ["envs_per_sm"]) == want,
+              f"{inst.symbol}: registers, shared memory per block, envs per SM "
+              f"{(got['registers'], occ['smem_per_block'], occ['envs_per_sm'])}, want {want}")
 
 
 def design_sweep(engine, card, label: str, new, old, states, sweep) -> None:
@@ -703,8 +744,8 @@ def design_sweep(engine, card, label: str, new, old, states, sweep) -> None:
         args = [torch.as_tensor(x, device="cuda") for x in states(batch, rng)]
         t = [time_call(k.launch, args, calls) for k in (old, new, new, old)]
         old_ms, new_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-        lim_act, con_act, _ = engine.k1_activity(new, *args)
-        t_ops = engine.k1_flops(new, lim_act, con_act) / PEAK_FP32 * 1e3
+        lim_act, con_act, walk = engine.k1_activity(new, *args)
+        t_ops = engine.k1_flops(new, lim_act, con_act, *args[5:], tri_walk=walk) / PEAK_FP32 * 1e3
         t_bytes = engine.k1_bytes_per_env(new) * batch / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         print(f"[sweep] {label} at B={batch} on {card}: thread per env {t[0]:.4f} / {t[3]:.4f} "
@@ -1242,19 +1283,17 @@ def main() -> int:
                 cuda(pd_target_states(model, rng))),
     }
     max_abs = {v: compare(kernel, args) for v, (kernel, args) in kernels.items()}
-    # the warp-per-env K1a against the thread-per-env instance (the same
-    # iteration), near contact and with every base lifted clear of the plane
-    # (every contact row skipped)
+    # the warp-per-env K1a and K1b against their thread-per-env instances (the
+    # same iteration), near contact and with every base lifted clear of the
+    # plane (every contact row skipped)
     k1a_thread = engine.K1a(model, config, thread_per_env=True)
-    check(kernels["k1a"][0].instance.source != k1a_thread.instance.source,
-          "K1a: the main path's instance is the thread-per-env one")
-    max_abs["k1a"] = max(max_abs["k1a"], compare_twins(kernels["k1a"][0], k1a_thread,
-                                                       kernels["k1a"][1], "k1a"))
-    lifted = [kernels["k1a"][1][0].clone(), *kernels["k1a"][1][1:]]
-    lifted[0][:, 2] += 3.0
-    max_abs["k1a"] = max(max_abs["k1a"],
-                         compare(kernels["k1a"][0], lifted, "k1a (no contact)", loaded=False),
-                         compare_twins(kernels["k1a"][0], k1a_thread, lifted, "k1a (no contact)"))
+    k1b_thread = engine.K1b(model.replace(kp=kp), config, extra_damping=kp / 20.0,
+                            thread_per_env=True)
+    for v, thread in (("k1a", k1a_thread), ("k1b", k1b_thread)):
+        check(kernels[v][0].instance.source != thread.instance.source,
+              f"{v}: the main path's instance is the thread-per-env one")
+        max_abs[v] = max(max_abs[v], twin_and_lifted(kernels[v][0], thread, kernels[v][1], v,
+                                                     3.0))
     two_frames = engine.K1b(model.replace(kp=kp), EngineConfig(llc_frames=2),
                             extra_damping=kp / 20.0)
     compare(two_frames, kernels["k1b"][1], "k1b (2 llc frames)")
@@ -1272,14 +1311,8 @@ def main() -> int:
         max_abs[v] = compare(*kernels[v], v, TOL_EQ, tail="p99")
         # against the thread-per-env instance, near the stand and with every
         # foot lifted 1 m (every contact row skipped)
-        lifted = [kernels[v][1][0].clone(), *kernels[v][1][1:]]
-        lifted[0][:, 2] += 1.0
-        max_abs[v] = max(max_abs[v],
-                         compare_twins(new, k1e_thread[v], kernels[v][1], v, TOL_EQ, "p99"),
-                         compare(new, lifted, f"{v} (no contact)", TOL_EQ, tail="p99",
-                                 loaded=False),
-                         compare_twins(new, k1e_thread[v], lifted, f"{v} (no contact)", TOL_EQ,
-                                       "p99"))
+        max_abs[v] = max(max_abs[v], twin_and_lifted(new, k1e_thread[v], kernels[v][1], v, 1.0,
+                                                     TOL_EQ, TOL_EQ, "p99"))
     kernels["k1e_planar"] = (engine.K1e(wmodel, config, walker2d.planar_spec()),
                              cuda(planar_walker_states(wmodel, 1.22, rng)))
     max_abs["k1e_planar"] = compare(*kernels["k1e_planar"], "k1e_planar", TOL_EQ)
@@ -1299,6 +1332,14 @@ def main() -> int:
           f"envs; surface under the root steeper than 10° in {int((slope < 0.9848).sum())}, "
           f"steepest {float(torch.rad2deg(torch.arccos(slope.min()))):.1f}°")
     max_abs["k1f"] = compare(*kernels["k1f"], "k1f", TOL_HF)
+    # the warp-per-env K1f against its thread-per-env instance, over the
+    # terrain and with every base lifted 3 m clear of it
+    k1f_thread = engine.K1f(model, config, HF_PATCH, thread_per_env=True)
+    check(kernels["k1f"][0].instance.source != k1f_thread.instance.source,
+          "k1f: the main path's instance is the thread-per-env one")
+    max_abs["k1f"] = max(max_abs["k1f"], twin_and_lifted(kernels["k1f"][0], k1f_thread,
+                                                         kernels["k1f"][1], "k1f", 3.0,
+                                                         plain_tol=TOL_HF))
     kernels["k1g"] = (engine.K1g(model, config), cuda(stairs_states(model, rng)))
     vertical = vertical_contacts(*kernels["k1g"])
     print(f"[compare] k1g: {int(vertical.sum())} of {B} envs touch a vertical face in the plain "
@@ -1367,7 +1408,10 @@ def main() -> int:
           f"{float(tr.metrics['steps_reached'].max()):.0f}, stone hits on the last step "
           f"{int(tr.metrics['stone_hit'].sum())}, mean stage "
           f"{float(stepper_state.task.stage.mean()):.4f}")
-    launches["k1b"], *_ = drive(port, engine, card, "Walker3DPDCustomEnv-v0", 200, "k1b")
+    launches["k1b"], _, _, _, step_ms["k1b"], _ = drive(
+        port, engine, card, "Walker3DPDCustomEnv-v0", 200, "k1b", instance=kernels["k1b"][0].name)
+    _, _, _, _, step_ms["k1b_child"], _ = drive(
+        port, engine, card, "Child3DPDCustomEnv-v0", 100, "k1b", instance=kernels["k1b"][0].name)
     drive(port, engine, card, "Child3DCustomEnv-v0", 100, "k1a", instance=kernels["k1a"][0].name)
     for v, env_id, steps in (("k1e_cassie", "CassieEnv-v0", 300),
                              ("k1e_cassie2d", "Cassie2DEnv-v0", 100),
@@ -1399,10 +1443,12 @@ def main() -> int:
           f"{sums['fell']:.0f}, bar hits {sums['bar_hit']:.0f}")
     hang_check(monkey_batch, monkey.constraints(), card)
     launches["k1f"], terrain_state, _, _, step_ms["k1f"], sums = drive(
-        port, engine, card, "Walker3DTerrainEnv-v0", 600, "k1f", sums=("fallen",))
+        port, engine, card, "Walker3DTerrainEnv-v0", 600, "k1f", sums=("fallen",),
+        instance=kernels["k1f"][0].name)
     terrain_readings("Walker3DTerrainEnv-v0", terrain_state, sums)
     _, state, _, _, step_ms["k1f_lidar"], sums = drive(
-        port, engine, card, "Walker3DTerrainLidarEnv-v0", 200, "k1f", sums=("fallen",))
+        port, engine, card, "Walker3DTerrainLidarEnv-v0", 200, "k1f", sums=("fallen",),
+        instance=kernels["k1f"][0].name)
     terrain_readings("Walker3DTerrainLidarEnv-v0", state, sums)
     on_stairs = torch.zeros(B, dtype=torch.bool, device="cuda")
 
@@ -1464,15 +1510,23 @@ def main() -> int:
         design_sweep(engine, card, label, kernels[v][0], k1e_thread[v],
                      lambda batch, r, p=planar: cassie_states(cmodel, stand, stand_z, r, p, batch),
                      CASSIE_SWEEP)
+    design_sweep(engine, card, "K1b", kernels["k1b"][0], k1b_thread,
+                 lambda batch, r: pd_target_states(model, r, batch), WALKER_SWEEP)
+    design_sweep(engine, card, "K1f", kernels["k1f"][0], k1f_thread,
+                 lambda batch, r: terrain_states(model, r, batch), WALKER_SWEEP)
+    for v, env_id in (("k1b", "Walker3DPDCustomEnv-v0"), ("k1b_child", "Child3DPDCustomEnv-v0"),
+                      ("k1f", "Walker3DTerrainEnv-v0"),
+                      ("k1f_lidar", "Walker3DTerrainLidarEnv-v0")):
+        print(f"[sweep] {env_id} at B={B}: {step_ms[v]:.3f} ms per control step on {card}")
     walker_trace(port, card)
 
     cull_and_pack_time(engine, card, model, config)
     stepper_env_layer_times(card, stepper, stepper_state)
     times["k2"] = raycast_time_and_bound(card, raycaster, ray_main, max_abs["k2"])
     window_and_pack_time(engine, card, terrain_state)
-    for v in ("k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d", "k1f", "k1f_lidar", "k1g",
-              "k1h_si"):
-        kernel_ms = times[v.removesuffix("_lidar")]["ms"]
+    for v in ("k1b", "k1b_child", "k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d", "k1f",
+              "k1f_lidar", "k1g", "k1h_si"):
+        kernel_ms = times[v.removesuffix("_lidar").removesuffix("_child")]["ms"]
         print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {kernel_ms:.4f} "
               f"ms/call, so {step_ms[v] - kernel_ms:.3f} ms/step outside the kernel "
               f"(env layer) at B={B} on {card}")

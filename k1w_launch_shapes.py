@@ -1,18 +1,19 @@
-"""Launch shapes of the warp-per-env K1e (Cassie, Cassie2D) on one NVIDIA GPU.
+"""Launch shapes of the warp-per-env K1 instances on one NVIDIA GPU: Cassie's
+and Cassie2D's K1e, the PD walkers' K1b and the terrain walkers' K1f.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 k1w_launch_shapes.py
 
-Builds Cassie's and Cassie2D's instances of
-``mocca_envs_tpu_torch/csrc/engine_k1w.cu`` at each launch shape of
-:data:`SHAPES` (envs per block × blocks per SM, the ``__launch_bounds__``
-minimum; the shipped shape first) into ``build/shapes/``, one nvcc process
-each, side by side; prints each one's ptxas registers and spills and the
-blocks resident per SM; holds each shape's outputs to the shipped shape's
-on Cassie states near the stand (the same code: equal up to the
+Builds each instance of :data:`GROUPS` from
+``mocca_envs_tpu_torch/csrc/engine_k1w.cu`` at each launch shape of its
+group (envs per block × the ``__launch_bounds__`` minimum of blocks per SM,
+which caps the registers; the shipped shape first) into ``build/shapes/``,
+one nvcc process each, side by side; prints each one's ptxas registers and
+spills and the blocks resident per SM; holds each shape's outputs to the
+shipped shape's on its group's states (the same code: equal up to the
 compiler's register allocation); and times the shapes in turns (shipped,
-the others, shipped; CUDA events) at B = 4096 and 16,384. It imports
+the others, shipped; CUDA events) at each B of its group. It imports
 nothing of JAX. Exits non-zero without a card or if a shape disagrees.
 """
 
@@ -30,33 +31,45 @@ import torch
 
 import chip_smoke
 
-# (envs per block, blocks per SM): one block of 32 (shipped), two of 16,
-# four of 8 (the same 32 envs per SM), three of 8 (24 per SM)
-SHAPES = [(32, 1), (16, 2), (8, 4), (8, 3)]
-BATCHES = {4096: 10, 16384: 5}
-INSTANCE = re.compile(r"(K1W_INSTANCE\((k1w_nl17\w*),(?:[^,()]*,){9})\s*(\d+),\s*(\d+)\)")
+INSTANCE = re.compile(r"(K1W_INSTANCE\((\w+),(?:[^,()]*,){9})\s*(\d+),\s*(\d+)((?:,\s*\d+)?\))")
+# group → (its symbols' common prefix, its shapes with the shipped one first,
+# timed calls per B). Cassie: one block of 32 (shipped), two of 16, four of 8
+# (the same 32 envs per SM), three of 8 (24 per SM). The walker's keys, at
+# the same 16 envs per SM: blocks of 4 with registers for 4 or for 8 blocks
+# (capped at 64; K1f ships that, K1b the other), two of 8, one of 16
+GROUPS = {
+    "cassie": ("k1w_nl17_", [(32, 1), (16, 2), (8, 4), (8, 3)], {4096: 10, 16384: 5}),
+    "pd": ("k1w_nl22_ns14_nlim21_sub4_it4_llc1", [(4, 4), (4, 8), (8, 2), (16, 1)],
+           {4096: 20, 16384: 10}),
+    "terrain": ("k1w_nl22_ns14_nlim21_sub4_it4_hf16", [(4, 8), (4, 4), (8, 2), (16, 1)],
+                {4096: 20, 16384: 10}),
+}
 
 
 def build_shapes(engine, out: Path) -> dict:
     """``{(envs, blocks, symbol): (CDLL, ptxas report)}`` of every shape of
-    both Cassie instances."""
+    every instance of :data:`GROUPS`."""
     src = engine.SOURCE_W.read_text()
     found = {m.group(2): (int(m.group(3)), int(m.group(4))) for m in INSTANCE.finditer(src)}
-    chip_smoke.check(len(found) == 2 and set(found.values()) == {SHAPES[0]},
-                     f"the source's Cassie instances are not at {SHAPES[0]}: {found}")
     out.mkdir(parents=True, exist_ok=True)
     running = []
-    for envs, blocks in SHAPES:
-        path = out / f"engine_k1w_e{envs}_b{blocks}.cu"
-        path.write_text(INSTANCE.sub(lambda m: f"{m.group(1)} {envs}, {blocks})", src))
-        for inst in engine.WARP_INSTANCES.values():
-            if inst.symbol not in found:
-                continue
-            lib = out / f"lib{inst.symbol}_e{envs}_b{blocks}.so"
-            cmd = [engine.nvcc_path(), *engine.NVCC_FLAGS, f"-I{engine.SOURCE_W.parent}",
-                   *engine.compile_flags(inst), "-o", str(lib), str(path)]
-            running.append(((envs, blocks, inst.symbol), lib, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for prefix, shapes, _ in GROUPS.values():
+        mine = {sym for sym in found if sym.startswith(prefix)}
+        chip_smoke.check(bool(mine) and {found[s] for s in mine} == {shapes[0]},
+                         f"the source's {prefix}* instances are not at {shapes[0]}: {found}")
+        for envs, blocks in shapes:
+            path = out / f"engine_k1w_{prefix}e{envs}_b{blocks}.cu"
+            path.write_text(INSTANCE.sub(
+                lambda m: f"{m.group(1)} {envs}, {blocks}{m.group(5)}" if m.group(2) in mine
+                else m.group(0), src))
+            for inst in engine.WARP_INSTANCES.values():
+                if inst.symbol not in mine:
+                    continue
+                lib = out / f"lib{inst.symbol}_e{envs}_b{blocks}.so"
+                cmd = [engine.nvcc_path(), *engine.NVCC_FLAGS, f"-I{engine.SOURCE_W.parent}",
+                       *engine.compile_flags(inst), "-o", str(lib), str(path)]
+                running.append(((envs, blocks, inst.symbol), lib, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
     for key, lib, proc in running:
         log = proc.communicate()[0]
@@ -73,13 +86,37 @@ def build_shapes(engine, out: Path) -> dict:
     return libs
 
 
+def cases(engine, rng):
+    """``[(group, make a wrapper, states(batch))]``: Cassie and Cassie2D (the
+    whole PD control step near the stand), the PD walker (random targets
+    near contact) and the terrain walker (over the family's grids)."""
+    from mocca_envs_tpu_torch.models import cassie, walker3d
+    from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
+    from mocca_envs_tpu_torch.terrain.scene import HF_PATCH
+    from mocca_envs_tpu_torch.utils.config import EngineConfig
+
+    cmodel, wmodel = cassie.make_model("cuda"), walker3d.make_model("cuda")
+    kp = wmodel.power_coef * (wmodel.actuated > 0).to(torch.float32)
+    out = []
+    for planar in (False, True):
+        spec = dataclasses.replace(cassie.constraints(), planar=planar)
+        out.append(("cassie", lambda spec=spec: engine.K1e(
+            cmodel, CASSIE_CONFIG, spec, pd_mode=True, extra_damping=cmodel.actuated * cmodel.kd),
+            lambda batch, planar=planar: chip_smoke.cassie_states(
+                cmodel, cassie.stand_q(cmodel), cassie.initial_z(), rng, planar, batch)))
+    out.append(("pd", lambda: engine.K1b(wmodel.replace(kp=kp), EngineConfig(),
+                                             extra_damping=kp / 20.0),
+                lambda batch: chip_smoke.pd_target_states(wmodel, rng, batch)))
+    out.append(("terrain", lambda: engine.K1f(wmodel, EngineConfig(), HF_PATCH),
+                lambda batch: chip_smoke.terrain_states(wmodel, rng, batch)))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("k1w_launch_shapes: no CUDA device", file=sys.stderr)
         return 1
-    from mocca_envs_tpu_torch.models import cassie
     from mocca_envs_tpu_torch.ops.cuda import engine
-    from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
     from mocca_envs_tpu_torch.utils.device import pin_fp32
 
     pin_fp32()
@@ -88,14 +125,12 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
     libs = build_shapes(engine, Path("build/shapes"))
-    model = cassie.make_model("cuda")
     rng = np.random.default_rng(chip_smoke.SEED)
-    for planar in (False, True):
-        spec = dataclasses.replace(cassie.constraints(), planar=planar)
+    for group, make, states in cases(engine, rng):
+        _, shapes, batches = GROUPS[group]
         kernels = {}
-        for envs, blocks in SHAPES:
-            k = engine.K1e(model, CASSIE_CONFIG, spec, pd_mode=True,
-                           extra_damping=model.actuated * model.kd)
+        for envs, blocks in shapes:
+            k = make()
             lib, report = libs[(envs, blocks, k.name)]
             # the wrapper launches this shape's library (its checks unchanged)
             k._lib, k._layout = lib, engine.layout(lib, k.name)
@@ -104,12 +139,10 @@ def main() -> int:
                   f"registers, spills {report['spill_stores']} / {report['spill_loads']} bytes; "
                   f"{occ['blocks_per_sm']} blocks = {occ['envs_per_sm']} envs resident per SM, "
                   f"{occ['smem_per_block']} bytes of shared memory per block")
-            chip_smoke.check(report["spill_stores"] == 0, f"{k.name} {envs}×{blocks} spills")
             kernels[(envs, blocks)] = k
-        shipped = kernels[SHAPES[0]]
-        for batch, calls in BATCHES.items():
-            args = [torch.as_tensor(x, device="cuda") for x in chip_smoke.cassie_states(
-                model, cassie.stand_q(model), cassie.initial_z(), rng, planar, batch)]
+        shipped = kernels[shapes[0]]
+        for batch, calls in batches.items():
+            args = [torch.as_tensor(x, device="cuda") for x in states(batch)]
             ref = shipped.launch(*args)
             for shape, k in kernels.items():
                 out = k.launch(*args)
@@ -120,7 +153,7 @@ def main() -> int:
                           f"per-env median {med:.3e}, max {float(per_env.max()):.3e}")
                     chip_smoke.check(med <= chip_smoke.TOL_TWIN[name],
                                      f"{k.name} {shape}: {name} median {med:.3e}")
-            order = [SHAPES[0], *SHAPES[1:], SHAPES[0]]
+            order = [shapes[0], *shapes[1:], shapes[0]]
             t = [chip_smoke.time_call(kernels[s].launch, args, calls) for s in order]
             print(f"[shape] {shipped.name} at B={batch} on {card}: " + ", ".join(
                 f"{s[0]}×{s[1]} {ms:.4f}" for s, ms in zip(order, t)) + f" ms/call ({calls} "

@@ -3,6 +3,13 @@
 //
 //   K1a  Walker3D / Child3D on the plane in torque mode at the shipped solver
 //        options, one llc frame per call;
+//   K1b  Walker3D / Child3D on the plane in PD mode (the PD walker and the PD
+//        child): the whole control step per call, one llc frame, the torque
+//        gain·(target − q) formed at the frame's start, the derivative gain
+//        folded into the table's damping and implicit diagonal;
+//   K1f  Walker3D over a PHF × PHF heightfield window per env, torque mode
+//        (the terrain walker and the LIDAR walker): the scene has no plane
+//        (its height sunk to -1e9), each contact has its own normal;
 //   K1e  Cassie and Cassie2D: PD mode, the whole control step per call (10
 //        llc frames × 2 substeps, the torque gain·(target − q) refreshed at
 //        each frame's start), the two achilles rods as point-to-point
@@ -11,36 +18,41 @@
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
 // make_pallas_substep (pallas_call at :1441) for those configurations (with
-// constraints= and pd_mode there: :280-290, :341, :858-886, :1276-1300). It
-// computes what engine_k1.cu's thread-per-env instances of the same keys
-// compute, the same iteration with some sums in another order; those
-// instances stay built for comparison (ops/cuda/engine.py,
-// thread_per_env=True), and every other key keeps its engine_k1.cu instance.
+// pd_mode, hf_patch and constraints= there: :1276-1352, :371-377, :458-509,
+// :280-290, :341, :858-886). It computes what engine_k1.cu's thread-per-env
+// instances of the same keys compute, the same iteration with some sums in
+// another order; those instances stay built for comparison
+// (ops/cuda/engine.py, thread_per_env=True), and every other key keeps its
+// engine_k1.cu instance.
 //
 // Each llc frame runs NSUB substeps of: FK along the quaternion chain →
-// every sphere vs the plane → the rods' anchors → Newton–Euler bias →
-// [substep 0: CRBA about the base + Cholesky] → free velocity → rows [rods ×
-// 3 | planar × 3 | joint limits | contacts × (n, t1, t2)] → W = L⁻¹Jᵀ per
-// active row → matrix-free block PGS, λ warm-started across the call's
-// substeps, the equality rows unclamped → qd' = v_free + L⁻ᵀ(Wλ) →
-// semi-implicit integrate + limit backstop.
+// every sphere vs the plane [and vs the heightfield window] → the rods'
+// anchors → Newton–Euler bias → [substep 0: CRBA about the base + Cholesky]
+// → free velocity → rows [rods × 3 | planar × 3 | joint limits | contacts ×
+// (n, t1, t2)] → W = L⁻¹Jᵀ per active row → matrix-free block PGS, λ
+// warm-started across the call's substeps, the equality rows unclamped →
+// qd' = v_free + L⁻ᵀ(Wλ) → semi-implicit integrate + limit backstop.
 //
 // What bounds it. Near contact a K1a call needs ~1.6e5 fp32 operations per
-// env against 0.65 KB of inputs and outputs, a K1e call on Cassie ~6.3e5 (its
+// env against 0.65 KB of inputs and outputs (K1b the same and the torque;
+// K1f ~2.8e3 more for the window's narrowphase and the contacts' own normals
+// against 1.7 KB, the window 1 KB of it), a K1e call on Cassie ~6.3e5 (its
 // 20 substeps and 10 factors) against 0.47 KB (ops/cuda/engine.py::
-// k1_flops), so the floor is the fp32 rate: ~0.01 ms (K1a), ~0.04 ms (K1e) at
-// B = 4096. The thread-per-env design ran 300–800× above it: one warp of 32
-// envs per block left the SMs under one warp each at B = 4096, its 255
-// registers spilled a 6–8 KB frame, the factor, W (NR × NV), λ and z = Wλ
-// round-tripped through a global (C, B) workspace on every row visit, and
-// every row was solved and visited whether or not it was active. On an H100
-// at B = 4096 this design runs K1a ~49× above the bound, ~16× faster than
-// that one, and K1e ~43× above it, ~7× faster (PERF.md §6).
+// k1_flops), so the floor is the fp32 rate: ~0.01 ms (K1a, K1b, K1f), ~0.04
+// ms (K1e) at B = 4096. The thread-per-env design ran 300–900× above it:
+// one warp of 32 envs per block left the SMs under one warp each at B =
+// 4096, its 255 registers spilled a 6–8 KB frame, the factor, W (NR × NV),
+// λ and z = Wλ round-tripped through a global (C, B) workspace on every row
+// visit, and every row was solved and visited whether or not it was active.
+// On an H100 at B = 4096 this design runs K1a ~49× above the bound, K1b ~50×
+// and K1f ~58×, each ~16× faster than that one, and K1e ~43× above it, ~7×
+// faster (PERF.md §6).
 //
 // Design.
-//   - One warp per env, C::ENVS warps per block, C::BLOCKS blocks per SM.
-//     Every branch on an env's data (a row's kind and activity, a contact) is
-//     warp-uniform.
+//   - One warp per env, C::ENVS warps per block, registers for C::BLOCKS
+//     blocks per SM (the __launch_bounds__ minimum; shared memory may hold
+//     fewer). Every branch on an env's data (a row's kind and activity, a
+//     contact) is warp-uniform.
 //   - Nothing per env in global memory: the state, the link kinematics, the
 //     factor L (packed lower), W (NR rows of stride WS, NV rounded up to an
 //     odd count, so that the 32 rows the lanes solve side by side fall in 32
@@ -56,7 +68,11 @@
 //     as 4 blocks of 8 ran 10–15% slower, 24 per SM as 3 blocks of 8 at
 //     68–72 registers ~40%: k1w_launch_shapes.py.)
 //     The walker's EnvW keeps its 12,000 bytes, 4 envs per block, 4 blocks
-//     (16 envs) per SM.
+//     (16 envs) per SM; K1b's adds the 84 bytes of its targets, K1f's the
+//     per-sphere normals (168) and where its window lies (24): 4 blocks of 4
+//     still fit. K1f's registers are sized for 8 blocks: 63, no spill, where
+//     sized for 4 it took 95 and ran no faster; blocks of 8 or 16 envs, at
+//     the same 16 per SM, ran within 2% of these (k1w_launch_shapes.py).
 //   - Lanes: link i for the FK, the Newton–Euler passes and the CRBA
 //     composites, one tree level at a time (depth 6 for the walker, 7 for
 //     Cassie; a parent sums its children in the order the serial code does);
@@ -81,6 +97,23 @@
 //     W[r][j]·Δλ to z_j. A contact's friction pair sums its two residuals in
 //     one butterfly.
 //
+// Heightfield narrowphase (K1f), as engine_k1.cu's and the plain version's
+// (terrain/scene.py::hf_corners, hf_sample, hf_normal): one sphere per lane;
+// the cell of the center's xy clamped to [0, PHF − 1.001], the four corner
+// heights read by index from the env's row of the (B, PHF·PHF + 3) input in
+// global memory through the read-only path, the bilinear height, its
+// gradient, the normal (−∂h/∂x, −∂h/∂y, 1) divided by its norm, the depth
+// r − (c_z − h)·n_z; it replaces the plane only where strictly deeper. The
+// window is not staged in shared memory: 1,036 bytes per env would take the
+// SM to 3 blocks of 4 (12 envs), and the four reads per sphere and substep
+// come from L1 / L2 (the windows of B = 4096 envs take 4.2 MB).
+//
+// Contact rows. On the plane (+z) a contact's rows n, t1, t2 are rows z, x,
+// y of its point Jacobian, constant-folded. Where a narrowphase sets a
+// sphere's own normal (Cfg::GENERAL: the heightfield) they are n·Jc, t1·Jc,
+// t2·Jc with the branchless tangent basis of ops/solver.py::tangent_basis,
+// each entry the projection of the entry's three point-Jacobian components.
+//
 // Equality rows, as engine_k1.cu's. A rod's three rows are the difference of
 // the point Jacobians of its two anchors (each over its link's ancestor
 // joints), with the target −β·(xa − xb) clipped to ±max_push_vel; a planar row
@@ -101,9 +134,12 @@
 //
 // Interface (all f32, contiguous, row-major), as engine_k1.cu's:
 //   q (B,NQ), qd (B,NV), tau (B,NJ) (PD: the joint targets), ground_z (B,),
-//   friction (B,), the scene inputs (unused here, may be null) → q' (B,NQ),
-//   qd' (B,NV), depth (B,NS), normal_impulse (B,NS) of the last substep.
-//   <sym>_occupancy reports the blocks (and so the envs) resident per SM.
+//   friction (B,), hf (B, PHF·PHF + 3) for PHF > 0 (env b's heights
+//   row-major, then the world x0, y0 of its corner cell and the cell size;
+//   a null hf is refused), the other scene inputs (unused here, may be null)
+//   → q' (B,NQ), qd' (B,NV), depth (B,NS), normal_impulse (B,NS) of the last
+//   substep. <sym>_occupancy reports the blocks (and so the envs) resident
+//   per SM.
 
 #include "k1_common.cuh"
 
@@ -141,18 +177,22 @@ __device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
 #endif
 
 // One instance: the model's sizes, the substeps and sweeps, the actuation
-// (PD: NLLC llc frames per call), the equality rows, and the launch's envs
-// (warps) per block and blocks per SM.
+// (PD: NLLC llc frames per call), the equality rows, the launch's envs
+// (warps) per block and the blocks per SM its registers are sized for (at
+// most 65,536 / (32 · ENVS · BLOCKS) a thread), and the heightfield window's
+// side (0: none).
 template <int NL_, int NS_, int NLIM_, int NSUB_, int ITERS_, bool PD_, int NLLC_, int NP2P_,
-          bool PLANAR_, int ENVS_, int BLOCKS_>
+          bool PLANAR_, int ENVS_, int BLOCKS_, int PHF_ = 0>
 struct Cfg {
   static constexpr int NL = NL_, NS = NS_, NLIM = NLIM_, NSUB = NSUB_, ITERS = ITERS_;
   static constexpr bool PD = PD_, PLANAR = PLANAR_;
-  static constexpr int NLLC = NLLC_, NP2P = NP2P_, ENVS = ENVS_, BLOCKS = BLOCKS_;
+  static constexpr int NLLC = NLLC_, NP2P = NP2P_, ENVS = ENVS_, BLOCKS = BLOCKS_, PHF = PHF_;
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, 0, 0>;
   static constexpr int WS = L::NV | 1;   // W's row stride: odd
   // the equality-row instances hold the link kinematics in W's space
   static constexpr bool KIN_IN_W = L::NE0 > 0;
+  // each contact has its own normal (else the plane's +z)
+  static constexpr bool GENERAL = PHF > 0;
   static_assert(PD || NLLC == 1, "torque mode is launched once per llc frame");
   static_assert(L::NV <= 32, "one lane per velocity DOF");
 };
@@ -197,11 +237,23 @@ template <int NP2P>
 struct RodState { float anchor[NP2P][2][3]; };
 template <>
 struct RodState<0> {};
+// ... each sphere's contact normal, which the narrowphase sets where
+// contacts have their own normals
+template <bool GENERAL, int NS>
+struct NrmState { float nrm[NS][3]; };
+template <int NS>
+struct NrmState<false, NS> {};
+// ... and where the env's heightfield window lies in global memory, the
+// world x0, y0 of its corner cell and the cell size
+template <int PHF>
+struct HfState { const float* hp; float hx0, hy0, hcell; };
+template <>
+struct HfState<0> {};
 
 // One env's state in shared memory.
 template <class C>
-struct EnvW : PdState<C::PD, C::L::NJ>, RodState<C::NP2P>,
-              KinIn<!C::KIN_IN_W, C::NL, C::L::NV> {
+struct EnvW : PdState<C::PD, C::L::NJ>, RodState<C::NP2P>, NrmState<C::GENERAL, C::NS>,
+              HfState<C::PHF>, KinIn<!C::KIN_IN_W, C::NL, C::L::NV> {
   using L = typename C::L;
   float q[L::NQ], qd[L::NV], tau[L::NJ];
   float ground, fric;
@@ -287,15 +339,38 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     wsync();
   }
 
-  // ---------------- spheres vs the plane
+  // ---------------- spheres vs the plane, then vs the heightfield window
   for (int s = lane; s < NS; s += WIDTH) {
     const int l = (int)tab[L::SPHLINK + s];
+    const float rad = tab[L::SPHR + s];
     float R[9], cw[3];
     qmat(K.quat[l], R);
     matvec3(R, tab + L::SPHPOS + 3 * s, cw);
     const float cx = e.pos[l][0] + cw[0], cy = e.pos[l][1] + cw[1], cz = e.pos[l][2] + cw[2];
-    e.depth[s] = tab[L::SPHR + s] - (cz - e.ground);
+    e.depth[s] = rad - (cz - e.ground);
     e.cpt[s][0] = cx; e.cpt[s][1] = cy; e.cpt[s][2] = e.ground;
+    if constexpr (C::PHF > 0) {
+      constexpr int P = C::PHF;
+      const float umax = (float)(P - 1.001);
+      const float u = clampf((cx - e.hx0) / e.hcell, 0.0f, umax);
+      const float v = clampf((cy - e.hy0) / e.hcell, 0.0f, umax);
+      const float fi = floorf(u), fj = floorf(v);
+      const float fu = u - fi, fv = v - fj, gu = 1.0f - fu, gv = 1.0f - fv;
+      const float* h0 = e.hp + (int)fi * P + (int)fj;
+      const float h00 = ldg_(h0), h01 = ldg_(h0 + 1), h10 = ldg_(h0 + P), h11 = ldg_(h0 + P + 1);
+      const float hgt = h00 * gu * gv + h10 * fu * gv + h01 * gu * fv + h11 * fu * fv;
+      const float gx = -(((h10 - h00) * gv + (h11 - h01) * fv) / e.hcell);
+      const float gy = -(((h01 - h00) * gu + (h11 - h10) * fu) / e.hcell);
+      const float nn = sqrtf(gx * gx + gy * gy + 1.0f);
+      const float nz = 1.0f / nn;
+      const float dh = rad - (cz - hgt) * nz;
+      e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f;
+      if (dh > e.depth[s]) {                    // strictly deeper than the plane
+        e.depth[s] = dh;
+        e.nrm[s][0] = gx / nn; e.nrm[s][1] = gy / nn; e.nrm[s][2] = nz;
+        e.cpt[s][2] = hgt;
+      }
+    }
   }
   // ---------------- the rods' anchors in the world frame, one per lane
   if constexpr (C::NP2P > 0)
@@ -606,17 +681,42 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       const int col = 6 + j;
       for (int i = 0; i < NV; ++i) y[i] = i == col ? sgn : 0.0f;
       e.c[r] = sgn * e.vfree[col] - (b_l - fmaxf(-viol, 0.0f) / dt);
-    } else {               // a contact on the plane: rows z, x, y of its point Jacobian
+    } else {               // a contact: row n, t1 or t2 of its point Jacobian
       const int s = (r - NE - NLIM) / 3, m = (r - NE - NLIM) % 3;
-      const int comp = m == 0 ? 2 : m - 1;
       const int l = (int)tab[L::SPHLINK + s];
       const float* x = e.cpt[s];
       float rel[3];
       for (int k = 0; k < 3; ++k) rel[k] = x[k] - e.pos[0][k];
       float cv = 0.0f;
-      for (int i = 0; i < NV; ++i) {
-        y[i] = jac(l, x, rel, comp, i);
-        cv += y[i] * e.vfree[i];
+      if constexpr (C::GENERAL) {
+        // the sphere's normal and its branchless tangent basis, projected
+        // onto the three components of each entry
+        const float nx = e.nrm[s][0], ny = e.nrm[s][1], nz = e.nrm[s][2];
+        const float sg = nz >= 0.0f ? 1.0f : -1.0f;
+        const float ka = -1.0f / (sg + nz), kb = nx * ny * ka;
+        const float d0 = m == 0 ? nx : m == 1 ? 1.0f + sg * nx * nx * ka : kb;
+        const float d1 = m == 0 ? ny : m == 1 ? sg * kb : sg + ny * ny * ka;
+        const float d2 = m == 0 ? nz : m == 1 ? -sg * nx : -ny;
+        for (int i = 0; i < NV; ++i) {
+          float jc[3];
+          if (i < 6) {
+            for (int k = 0; k < 3; ++k) jc[k] = jac(l, x, rel, k, i);
+          } else if (tab[L::ANC + l * NJ + (i - 6)] > 0.5f) {
+            float dx[3];
+            for (int k = 0; k < 3; ++k) dx[k] = x[k] - e.pos[i - 5][k];
+            cross3(e.ja[i - 6], dx, jc);
+          } else {
+            jc[0] = jc[1] = jc[2] = 0.0f;
+          }
+          y[i] = d0 * jc[0] + d1 * jc[1] + d2 * jc[2];
+          cv += y[i] * e.vfree[i];
+        }
+      } else {             // the plane: rows z, x, y, constant-folded
+        const int comp = m == 0 ? 2 : m - 1;
+        for (int i = 0; i < NV; ++i) {
+          y[i] = jac(l, x, rel, comp, i);
+          cv += y[i] * e.vfree[i];
+        }
       }
       if (m == 0) {
         const float dep = e.depth[s];
@@ -759,12 +859,12 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
 // One call for env t: NLLC llc frames of NSUB substeps, λ zeroed once at the
 // start and carried across them. PD: ``tau`` holds joint targets and each
 // frame's torque is gain·(target − q) at the frame's start; else the torques
-// are held.
+// are held. PHF > 0: ``hf`` row t is the env's heightfield window.
 template <class C>
 KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const float* gz,
-                      const float* fric, float* q_out, float* qd_out, float* depth_out,
-                      float* nimp_out, const float* tab, const int* level, int maxd, EnvW<C>& e,
-                      int t, int lane) {
+                      const float* fric, const float* hf, float* q_out, float* qd_out,
+                      float* depth_out, float* nimp_out, const float* tab, const int* level,
+                      int maxd, EnvW<C>& e, int t, int lane) {
   using L = typename C::L;
   for (int i = lane; i < L::NQ; i += WIDTH) e.q[i] = q[(long long)t * L::NQ + i];
   for (int i = lane; i < L::NV; i += WIDTH) e.qd[i] = qd[(long long)t * L::NV + i];
@@ -776,6 +876,13 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
   if (lane == 0) {
     e.ground = gz[t];
     e.fric = fric[t];
+    if constexpr (C::PHF > 0) {
+      constexpr int P2 = C::PHF * C::PHF;
+      e.hp = hf + (long long)t * (P2 + 3);
+      e.hx0 = ldg_(e.hp + P2);
+      e.hy0 = ldg_(e.hp + P2 + 1);
+      e.hcell = ldg_(e.hp + P2 + 2);
+    }
   }
   wsync();
   for (int llc = 0; llc < C::NLLC; ++llc) {
@@ -807,8 +914,8 @@ template <class C>
 __global__ void __launch_bounds__(32 * C::ENVS, C::BLOCKS)
 k1w_kernel(const float* __restrict__ q, const float* __restrict__ qd,
            const float* __restrict__ tau, const float* __restrict__ gz,
-           const float* __restrict__ fric, float* __restrict__ q_out,
-           float* __restrict__ qd_out, float* __restrict__ depth_out,
+           const float* __restrict__ fric, const float* __restrict__ hf,
+           float* __restrict__ q_out, float* __restrict__ qd_out, float* __restrict__ depth_out,
            float* __restrict__ nimp_out, const float* __restrict__ table, int B) {
   using L = typename C::L;
   extern __shared__ float4 smem[];
@@ -824,8 +931,8 @@ k1w_kernel(const float* __restrict__ q, const float* __restrict__ qd,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = blockIdx.x * C::ENVS + warp;
   if (t >= B) return;   // the whole warp
-  frame<C>(q, qd, tau, gz, fric, q_out, qd_out, depth_out, nimp_out, tab, level, maxd, envs[warp],
-           t, lane);
+  frame<C>(q, qd, tau, gz, fric, hf, q_out, qd_out, depth_out, nimp_out, tab, level, maxd,
+           envs[warp], t, lane);
 }
 
 template <class C>
@@ -836,14 +943,15 @@ int prepare() {
 
 template <class C>
 int launch(const float* q, const float* qd, const float* tau, const float* gz, const float* fric,
-           float* q_out, float* qd_out, float* depth, float* nimp, const float* table,
-           int table_size, int B, void* stream) {
-  if (table_size != C::L::SIZE || B <= 0) return (int)cudaErrorInvalidValue;
+           const float* hf, float* q_out, float* qd_out, float* depth, float* nimp,
+           const float* table, int table_size, int B, void* stream) {
+  if (table_size != C::L::SIZE || B <= 0 || (C::PHF > 0 && hf == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int err = prepare<C>();
   if (err != 0) return err;
   const int blocks = (B + C::ENVS - 1) / C::ENVS;
   k1w_kernel<C><<<blocks, 32 * C::ENVS, Smem<C>::BYTES, (cudaStream_t)stream>>>(
-      q, qd, tau, gz, fric, q_out, qd_out, depth, nimp, table, B);
+      q, qd, tau, gz, fric, hf, q_out, qd_out, depth, nimp, table, B);
   return (int)cudaGetLastError();
 }
 
@@ -861,12 +969,12 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
 }  // namespace k1w
 
 // ------------------------------------------------------------ C interface
-// The same entries as engine_k1.cu's instances (the scene inputs and the
-// workspace are taken and unused; the workspace per env is 0), and
-// <sym>_occupancy. One entry per instance: (NL, NS, NLIM, NSUB, ITERS, PD,
-// NLLC, NP2P, PLANAR) at the shipped solver options, then envs per block and
-// blocks per SM; ops/cuda/engine.py::WARP_INSTANCES lists the same names and
-// numbers.
+// The same entries as engine_k1.cu's instances (the scene inputs but the
+// heightfield window, and the workspace, are taken and unused; the workspace
+// per env is 0), and <sym>_occupancy. One entry per instance: (NL, NS, NLIM,
+// NSUB, ITERS, PD, NLLC, NP2P, PLANAR) at the shipped solver options, then
+// envs per block and blocks per SM, then the window's side where there is
+// one; ops/cuda/engine.py::WARP_INSTANCES lists the same names and numbers.
 #define K1W_LAYOUT(NAME, ...)                                                                \
   using NAME##_cfg = k1w::Cfg<__VA_ARGS__>;                                                  \
   extern "C" int NAME##_layout(int* table_size, int* ws_per_env) {                          \
@@ -879,12 +987,12 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
   K1W_LAYOUT(NAME, __VA_ARGS__)                                                              \
   extern "C" int NAME##_launch(const float* q, const float* qd, const float* tau,           \
                                const float* gz, const float* fric, const float*,            \
-                               const float*, const float*, const float*, const float*,      \
+                               const float*, const float*, const float* hf, const float*,   \
                                float* q_out, float* qd_out, float* depth, float* nimp,      \
                                const float* table, int table_size, float*, int B,           \
                                void* stream) {                                               \
-    return k1w::launch<NAME##_cfg>(q, qd, tau, gz, fric, q_out, qd_out, depth, nimp, table,  \
-                                   table_size, B, stream);                                  \
+    return k1w::launch<NAME##_cfg>(q, qd, tau, gz, fric, hf, q_out, qd_out, depth, nimp,     \
+                                   table, table_size, B, stream);                           \
   }                                                                                          \
   extern "C" int NAME##_occupancy(int* blocks_per_sm, int* envs_per_block,                  \
                                   int* smem_bytes) {                                        \
@@ -896,17 +1004,17 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
   K1W_LAYOUT(NAME, __VA_ARGS__)                                                              \
   extern "C" int NAME##_host(const float* q, const float* qd, const float* tau,             \
                              const float* gz, const float* fric, const float*,              \
-                             const float*, const float*, const float*, const float*,        \
+                             const float*, const float*, const float* hf, const float*,     \
                              float* q_out, float* qd_out, float* depth, float* nimp,        \
                              const float* table, int table_size, float*, int B) {           \
     using C_ = NAME##_cfg;                                                                   \
-    if (table_size != C_::L::SIZE || B <= 0) return 1;                                       \
+    if (table_size != C_::L::SIZE || B <= 0 || (C_::PHF > 0 && hf == nullptr)) return 1;     \
     int dep[C_::NL];                                                                         \
     const int maxd = k1w::tree_depths<C_::NL>(table + C_::L::PARENT, dep);                   \
     auto* e = new k1w::EnvW<C_>;                                                             \
     for (int t = 0; t < B; ++t)                                                              \
-      k1w::frame<C_>(q, qd, tau, gz, fric, q_out, qd_out, depth, nimp, table, dep, maxd, *e, \
-                     t, 0);                                                                  \
+      k1w::frame<C_>(q, qd, tau, gz, fric, hf, q_out, qd_out, depth, nimp, table, dep, maxd, \
+                     *e, t, 0);                                                              \
     delete e;                                                                                \
     return 0;                                                                                \
   }
@@ -929,4 +1037,17 @@ K1W_INSTANCE(k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2, 17, 5, 16, 2, 4, true, 10,
 #if !defined(K1W_ONLY) || K1W_ONLY == 2
 K1W_INSTANCE(k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar, 17, 5, 16, 2, 4, true, 10, 2, true,
              32, 1)
+#endif
+// The PD walker and the PD child at the shipped EngineConfig (K1b): the
+// walker's sizes, PD-servoed, one llc frame per control step; 4 envs per
+// block, 4 blocks per SM
+#if !defined(K1W_ONLY) || K1W_ONLY == 3
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_llc1, 22, 14, 21, 4, 4, true, 1, 0, false, 4, 4)
+#endif
+// The walker over a 16 × 16 heightfield window (K1f: the terrain families),
+// torque mode; 4 envs per block, registers for 8 blocks per SM (63 a thread,
+// no spill; sized for 4 it took 95 and ran no faster), of which shared
+// memory holds 4
+#if !defined(K1W_ONLY) || K1W_ONLY == 4
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_hf16, 22, 14, 21, 4, 4, false, 1, 0, false, 4, 8, 16)
 #endif

@@ -15,7 +15,8 @@ scalar friction rows), ``warm_start`` and ``reuse_factor``, any substeps and
 sweeps. The kernel is CUDA C++ in two sources: ``csrc/engine_k1w.cu``, one
 warp per env (W and the factor in shared memory, inactive rows skipped),
 which the keys of :data:`WARP_INSTANCES` run (K1a, the walker's and the
-child's; K1e, Cassie's and Cassie2D's), and ``csrc/engine_k1.cu``, one
+child's; K1b, the PD walker's and the PD child's; K1f, the terrain
+walkers'; K1e, Cassie's and Cassie2D's), and ``csrc/engine_k1.cu``, one
 thread per env, for every other key. An instance is picked by its
 :class:`Key`: the warp-per-env one where there is one, else the fifteen
 ``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the shipped families at the
@@ -72,7 +73,7 @@ from mocca_envs_tpu_torch.terrain.scene import BAR_FIELDS, STONE_FIELDS, TRI_FIE
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "engine_k1.cu"
-SOURCE_W = SOURCE.with_name("engine_k1w.cu")        # K1a and Cassie's K1e, one warp per env
+SOURCE_W = SOURCE.with_name("engine_k1w.cu")        # the warp-per-env instances
 HEADER = SOURCE.with_name("k1_common.cuh")          # included by both
 RAYCAST_SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "raycast_k2.cu"
 RAYCAST_SYMBOL = "k2_raycast"
@@ -162,12 +163,16 @@ INSTANTIATIONS = {inst.key: inst for inst in (
 )}
 # the keys the warp-per-env source runs, at the shipped options: K1a, the
 # walker and the child on the plane in torque mode; K1e, Cassie's and
-# Cassie2D's whole PD control step with the rods (and the planar lock)
+# Cassie2D's whole PD control step with the rods (and the planar lock); K1b,
+# the PD walker's and the PD child's control step (one llc frame); K1f, the
+# walker over a 16 × 16 heightfield window (the terrain families)
 WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4", 0, Key(**_W), SOURCE_W),
     Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 1, Key(**_C), SOURCE_W),
     Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar", 2, Key(**_C, planar=True),
              SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_llc1", 3, Key(**_W, pd=True), SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_hf16", 4, Key(**_W, hf=16), SOURCE_W),
 )}
 
 
@@ -650,9 +655,10 @@ class K1b(EngineKernel):
     variant = "k1b"
     split_variant = "k1h_b"
 
-    def __init__(self, model, config, extra_damping=None, plain_unit=None):
+    def __init__(self, model, config, extra_damping=None, plain_unit=None,
+                 thread_per_env: bool = False):
         super().__init__(model, config, pd_mode=True, extra_damping=extra_damping,
-                         plain_unit=plain_unit)
+                         plain_unit=plain_unit, thread_per_env=thread_per_env)
 
 
 class K1e(EngineKernel):
@@ -695,8 +701,10 @@ class K1f(EngineKernel):
     variant = "k1f"
     split_variant = "k1h_f"
 
-    def __init__(self, model, config, hf_patch: int, plain_unit=None):
-        super().__init__(model, config, hf_patch=hf_patch, plain_unit=plain_unit)
+    def __init__(self, model, config, hf_patch: int, plain_unit=None,
+                 thread_per_env: bool = False):
+        super().__init__(model, config, hf_patch=hf_patch, plain_unit=plain_unit,
+                         thread_per_env=thread_per_env)
 
 
 class K1g(EngineKernel):

@@ -866,7 +866,10 @@ def test_k1f_is_picked_by_a_heightfield_and_counts_its_work():
     model, config = walker3d.make_model(), EngineConfig()
     kernel = engine.make_kernel(model, config, hf_patch=HF_PATCH)
     assert isinstance(kernel, engine.K1f) and kernel.inputs == ("hf",)
-    assert kernel.name == "k1f_nl22_ns14_nlim21_sub4_it4_hf16"
+    # the warp-per-env instance; the thread-per-env one only when asked for
+    assert kernel.name == "k1w_nl22_ns14_nlim21_sub4_it4_hf16"
+    assert engine.K1f(model, config, HF_PATCH, thread_per_env=True).name \
+        == "k1f_nl22_ns14_nlim21_sub4_it4_hf16"
     # another window side is a key of the generic instance
     _assert_generic(engine.make_kernel(model, config, hf_patch=8), f"{W}_sub4_it4_hf8", "k1f")
     for build in (lambda: engine.make_kernel(model, config, hf_patch=HF_PATCH, num_stones=6),
