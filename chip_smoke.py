@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases, in order; any failure exits non-zero before the result lines:
 
 1. print the card's name and power limit; build the warp-per-env
-   instances of K1a, of Cassie's and Cassie2D's K1e, of the PD walkers' K1b
-   and of the terrain walkers' K1f from
+   instances of K1a, of Cassie's and Cassie2D's K1e, of the PD walkers' K1b,
+   of the terrain walkers' K1f, of the stepper's K1c and of the stairs' K1g
+   from
    ``mocca_envs_tpu_torch/csrc/engine_k1w.cu``, the fifteen
    named instances of the engine kernel from
    ``mocca_envs_tpu_torch/csrc/engine_k1.cu``, the generic instance of every
@@ -24,7 +25,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    states near contact, and against the thread-per-env K1a at
    :data:`TOL_TWIN` on those states and with every base lifted 3 m (no
    contact: every contact row skipped), K1c on stepper states (stones at stages 0–9, feet
-   in or near contact with tilted stone tops, some envs over a gap), K1b on
+   in or near contact with tilted stone tops, some envs over a gap), and
+   against the thread-per-env K1c at :data:`TOL_TWIN` on those states and
+   lifted 3 m, K1b on
    the K1a states with random joint targets, and against the thread-per-env
    K1b at :data:`TOL_TWIN` on those states and lifted 3 m, and the K1b
    instance for two llc frames (no registered family runs it yet) on the
@@ -47,7 +50,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    K1g on walker states on the stairs' staircase (a third each with the
    feet over treads, the lowest foot sphere at a nosing edge, the foremost
    against a riser; the 16 nearest of the 24 faces packed as the main path
-   packs them); K1h-si on the K1a states with split impulse; its twins
+   packs them), and against the thread-per-env K1g at :data:`TOL_TWIN` on
+   those states (the tail gate by K1g's riser rule, the p99 of the envs
+   with no contact on a vertical face, beside the 1e-7 q̇-nudge floor:
+   :func:`rounding_floor`) and lifted 3 m; K1h-si on the K1a states with
+   split impulse; its twins
    K1h-c, K1h-e, K1h-e2d and K1h-d (split impulse over the stones, on
    Cassie's whole PD step with the rods, with the planar lock added, and
    over the monkey's bars with its grab rows) on the K1c, Cassie, Cassie2D
@@ -90,7 +97,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    random actions, the launch counts set to 0 just before each and read
    just after: ``Walker3DCustomEnv-v0`` for 600 control steps (K1a, by
    the warp-per-env instance alone, as the child),
-   ``Walker3DStepperEnv-v0`` for 600 (K1c), ``Walker3DPDCustomEnv-v0`` for
+   ``Walker3DStepperEnv-v0`` for 600 (K1c, by its warp-per-env instance
+   alone), ``Walker3DPDCustomEnv-v0`` for
    200 and ``Child3DPDCustomEnv-v0`` for 100 (K1b, each by its warp-per-env
    instance alone), ``Child3DCustomEnv-v0`` for 100 (K1a), ``CassieEnv-v0`` for
    300 and ``Cassie2DEnv-v0`` for 100 (K1e, each by its warp-per-env
@@ -99,7 +107,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    (K1d, grab signals included in the random actions),
    ``Walker3DTerrainEnv-v0`` for 600 and ``Walker3DTerrainLidarEnv-v0`` for
    200 (K1f, each by its warp-per-env instance alone),
-   ``Walker3DStairsEnv-v0`` for 600 (K1g),
+   ``Walker3DStairsEnv-v0`` for 600 (K1g, by its warp-per-env instance
+   alone),
    ``Walker3DCustomEnv-v0`` made with ``EngineConfig(split_impulse=True)``
    for 200 (K1h-si) and with each of :data:`OPTION_CONFIGS` for 100 (its own
    instance, counted under its name and by its symbol in
@@ -134,8 +143,8 @@ Phases, in order; any failure exits non-zero before the result lines:
 4. per-call times of each kernel and its plain version (CUDA events), the
    two K1a designs in turns (old, new, new, old) at each B of
    :data:`SWEEP` beside their bound, the two designs of Cassie's and of
-   Cassie2D's K1e likewise at each B of :data:`CASSIE_SWEEP`, those of K1b
-   and of K1f at each B of :data:`WALKER_SWEEP`, the walker's step against the host's
+   Cassie2D's K1e likewise at each B of :data:`CASSIE_SWEEP`, those of K1b,
+   K1f, K1c and K1g at each B of :data:`WALKER_SWEEP`, the walker's step against the host's
    time to enqueue it and the device's busy share over 20 traced steps, the
    bound from the operations and bytes these inputs need, and the time of
    the stepper's cull of 20 stones to the window plus their packing (env
@@ -236,18 +245,20 @@ FRAMES = {
 # 16,384)
 SWEEP = {4096: 20, 16384: 10, 65536: 5}
 CASSIE_SWEEP = {4096: 10, 16384: 5}
-WALKER_SWEEP = {4096: 20, 16384: 10}   # K1b and K1f
+WALKER_SWEEP = {4096: 20, 16384: 10}   # K1b, K1f, K1c and K1g
 # ptxas's registers and the dynamic shared memory per block (bytes) of each
 # warp-per-env instance, and the envs each must keep resident per SM: the
-# walker's keys 4 blocks of 4 envs (K1f's registers sized for 8), Cassie's
-# one block of 32; the first three as every build since they were written
-# has reported them
+# walker's keys 4 blocks of 4 envs (K1f's, K1c's and K1g's registers sized
+# for 8), Cassie's one block of 32; each as every build since it was written
+# has reported it
 WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4": (64, 53008, 16),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2": (64, 202896, 32),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar": (64, 213648, 32),
     "k1w_nl22_ns14_nlim21_sub4_it4_llc1": (56, 53344, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_hf16": (63, 53776, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_k6": (64, 54736, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_kt16": (64, 56240, 16),
 }
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
@@ -560,6 +571,22 @@ def vertical_contacts(kernel, args) -> torch.Tensor:
     return vertical
 
 
+def tail_gate(per_env, limit: float, tail: str, tail_envs) -> tuple:
+    """The tail statistic of per-env errors (numpy (B,)): the largest env
+    (``tail="max"``) or the 99th percentile, over ``tail_envs`` (bool (B,))
+    if given; and the note that reports it, with the other envs beyond
+    ``limit`` counted (empty without ``tail_envs``)."""
+    if tail_envs is None:
+        held = np.ones(len(per_env), bool)
+    else:
+        held = tail_envs.cpu().numpy()
+    gated = float(np.quantile(per_env[held], 0.99)) if tail == "p99" else float(per_env[held].max())
+    note = "" if tail_envs is None else (
+        f"; over the {int(held.sum())} gated envs {tail} {gated:.3e}, "
+        f"{int(((per_env > limit) & ~held).sum())} of the {int((~held).sum())} others beyond")
+    return gated, note
+
+
 def compare(kernel, args, label: str | None = None, tol=TOL, tail: str = "max",
             tail_envs=None, loaded: bool = True) -> float:
     """Launch ``kernel`` once on ``args`` and hold it against its plain
@@ -575,22 +602,16 @@ def compare(kernel, args, label: str | None = None, tol=TOL, tail: str = "max",
     ref = kernel.plain(*args)
     torch.cuda.synchronize()
     max_abs = 0.0
-    held = np.ones(args[0].shape[0], bool) if tail_envs is None else tail_envs.cpu().numpy()
     for name, a, b in zip(("q", "qd", "depth", "nimp"), out, ref):
         check(bool(torch.isfinite(a).all()), f"{label} output {name} not finite")
         per_env = (a - b).abs().amax(dim=1).cpu().numpy()
         med, p99 = float(np.median(per_env)), float(np.quantile(per_env, 0.99))
         max_abs = max(max_abs, float(per_env.max()))
-        beyond = per_env > 10 * tol[name]
-        worst = (float(np.quantile(per_env[held], 0.99)) if tail == "p99"
-                 else float(per_env[held].max()))
+        worst, note = tail_gate(per_env, 10 * tol[name], tail, tail_envs)
         print(f"[compare] {label} {name}: per-env median {med:.3e} p99 {p99:.3e} "
               f"max {per_env.max():.3e} (median tol {tol[name]:g}, {tail} tol "
-              f"{10 * tol[name]:g}, {int(beyond.sum())} of {len(per_env)} envs beyond it"
-              + ("" if tail_envs is None else
-                 f"; over the {int(held.sum())} gated envs {tail} {worst:.3e}, "
-                 f"{int((beyond & ~held).sum())} of the {int((~held).sum())} others beyond")
-              + ")")
+              f"{10 * tol[name]:g}, {int((per_env > 10 * tol[name]).sum())} of {len(per_env)} "
+              f"envs beyond it{note})")
         check(med <= tol[name], f"{label} {name} median {med:.3e} > {tol[name]:g}")
         check(worst <= 10 * tol[name], f"{label} {name} {tail} {worst:.3e} > {10 * tol[name]:g}")
     active = float((ref[2] > -kernel.config.contact_margin).float().sum(1).mean())
@@ -608,12 +629,15 @@ def compare(kernel, args, label: str | None = None, tol=TOL, tail: str = "max",
     return max_abs
 
 
-def compare_twins(kernel, twin, args, label: str, tol=TOL_TWIN, tail: str = "max") -> float:
+def compare_twins(kernel, twin, args, label: str, tol=TOL_TWIN, tail: str = "max",
+                  tail_envs=None) -> float:
     """Launch ``kernel`` and a ``twin`` that runs the same iteration with its
     sums in another order (an A-form's matrix-free twin; a warp-per-env
     instance's thread-per-env one) once each on ``args``: per-env medians
     within ``tol`` (:data:`TOL_TWIN`), ten times ``tol`` for the largest env
-    or, with ``tail="p99"``, the 99th percentile. Cassie's warp-per-env
+    or, with ``tail="p99"``, the 99th percentile; ``tail_envs`` (bool (B,))
+    limits the tail gate to those envs, the others beyond it counted (K1g's
+    riser rule, :func:`vertical_contacts`). Cassie's warp-per-env
     instances are held to their twins at :data:`TOL_EQ` with the p99 tail:
     over 20 stiff substeps two orders of the same sums part as far as a 1e-7
     nudge of q̇ parts one order from itself (tests/test_torch_k1w_cassie.py).
@@ -627,29 +651,61 @@ def compare_twins(kernel, twin, args, label: str, tol=TOL_TWIN, tail: str = "max
         med, worst = float(np.median(per_env)), float(per_env.max())
         p99 = float(np.quantile(per_env, 0.99))
         max_abs = max(max_abs, worst)
+        gated, note = tail_gate(per_env, 10 * tol[name], tail, tail_envs)
         print(f"[compare] {label} vs its twin {twin.name} {name}: per-env median "
               f"{med:.3e} p99 {p99:.3e} max {worst:.3e} (median tol {tol[name]:g}, {tail} tol "
               f"{10 * tol[name]:g}, {int((per_env > 10 * tol[name]).sum())} of {len(per_env)} "
-              f"envs beyond it)")
+              f"envs beyond it{note})")
         check(med <= tol[name], f"{label} vs twin {name} median {med:.3e}")
-        gated = p99 if tail == "p99" else worst
         check(gated <= 10 * tol[name], f"{label} vs twin {name} {tail} {gated:.3e}")
     return max_abs
 
 
 def twin_and_lifted(kernel, twin, args, label: str, lift: float, tol=TOL_TWIN,
-                    plain_tol=TOL, tail: str = "max") -> float:
+                    plain_tol=TOL, tail: str = "max", tail_envs=None) -> float:
     """A warp-per-env ``kernel`` against its thread-per-env ``twin``
     (:func:`compare_twins` at ``tol``) on ``args`` and with every base raised
     ``lift`` m (every contact row skipped), and there against its plain
-    version at ``plain_tol`` with no contact active. Returns the largest
-    absolute error."""
+    version at ``plain_tol`` with no contact active. Given ``tail_envs``, the
+    tail gate on ``args`` is the 99th percentile over those envs (K1g's
+    riser rule, as :func:`compare` holds K1g to its plain version;
+    :func:`rounding_floor` says why). Returns the largest absolute error."""
     lifted = [args[0].clone(), *args[1:]]
     lifted[0][:, 2] += lift
-    return max(compare_twins(kernel, twin, args, label, tol, tail),
+    near_tail = tail if tail_envs is None else "p99"
+    return max(compare_twins(kernel, twin, args, label, tol, near_tail, tail_envs),
                compare(kernel, lifted, f"{label} (no contact)", plain_tol, tail=tail,
                        loaded=False),
                compare_twins(kernel, twin, lifted, f"{label} (no contact)", tol, tail))
+
+
+def rounding_floor(kernel, twin, args, label: str, tail_envs) -> None:
+    """The 1e-7 q̇-nudge measurement behind K1g's twin gate. The
+    thread-per-env ``twin`` runs ``args`` and ``args`` with q̇ nudged by 1e-7
+    (relative, numpy seed 0); the per-env |Δq̇| between those two runs is
+    the rounding floor. The two designs' per-env |Δq̇| on ``args`` must lie
+    within three times the floor at the median and at the 99th percentile
+    over ``tail_envs`` (the envs with no contact on a vertical face): the
+    designs part by rounding, amplified where a sphere's nearest face
+    changes, not by another iteration. Over the stairs the nudge alone
+    parts about one env in a few thousand beyond ten times ``TOL_TWIN``'s
+    qd, so the largest env is no gate there; the 99th percentile is."""
+    noise = torch.as_tensor(np.random.default_rng(0).standard_normal(tuple(args[1].shape)),
+                            device=args[1].device)
+    nudged = [args[0], (args[1].double() * (1 + 1e-7 * noise)).float(), *args[2:]]
+    base, ours, moved = twin.launch(*args), kernel.launch(*args), twin.launch(*nudged)
+    torch.cuda.synchronize()
+    held = tail_envs.cpu().numpy()
+    gap = (ours[1] - base[1]).abs().amax(dim=1).cpu().numpy()
+    floor = (moved[1] - base[1]).abs().amax(dim=1).cpu().numpy()
+    stats = [(float(np.median(x)), float(np.quantile(x[held], 0.99)), float(x[held].max()))
+             for x in (gap, floor)]
+    print(f"[compare] {label} vs its twin {twin.name}, qd against the 1e-7 q̇-nudge floor: "
+          f"median {stats[0][0]:.3e} / {stats[1][0]:.3e}, over the {int(held.sum())} gated envs "
+          f"p99 {stats[0][1]:.3e} / {stats[1][1]:.3e}, max {stats[0][2]:.3e} / {stats[1][2]:.3e} "
+          f"(twins / floor)")
+    check(stats[0][0] <= 3 * stats[1][0] and stats[0][1] <= 3 * stats[1][1],
+          f"{label}: the twins part beyond three times the rounding floor: {stats}")
 
 
 def parts_from_shipped(kernel, shipped, args, label: str, tol=TOL) -> None:
@@ -1289,7 +1345,8 @@ def main() -> int:
     k1a_thread = engine.K1a(model, config, thread_per_env=True)
     k1b_thread = engine.K1b(model.replace(kp=kp), config, extra_damping=kp / 20.0,
                             thread_per_env=True)
-    for v, thread in (("k1a", k1a_thread), ("k1b", k1b_thread)):
+    k1c_thread = engine.K1c(model, config, thread_per_env=True)
+    for v, thread in (("k1a", k1a_thread), ("k1b", k1b_thread), ("k1c", k1c_thread)):
         check(kernels[v][0].instance.source != thread.instance.source,
               f"{v}: the main path's instance is the thread-per-env one")
         max_abs[v] = max(max_abs[v], twin_and_lifted(kernels[v][0], thread, kernels[v][1], v,
@@ -1345,6 +1402,16 @@ def main() -> int:
     print(f"[compare] k1g: {int(vertical.sum())} of {B} envs touch a vertical face in the plain "
           "run; the tail gate holds the others")
     max_abs["k1g"] = compare(*kernels["k1g"], "k1g", TOL, tail="p99", tail_envs=~vertical)
+    # the warp-per-env K1g against its thread-per-env instance, on the stairs
+    # (the tail gate by the riser rule, its p99 grounded by the rounding
+    # floor) and with every base lifted 3 m clear
+    k1g_thread = engine.K1g(model, config, thread_per_env=True)
+    check(kernels["k1g"][0].instance.source != k1g_thread.instance.source,
+          "k1g: the main path's instance is the thread-per-env one")
+    rounding_floor(kernels["k1g"][0], k1g_thread, kernels["k1g"][1], "k1g", ~vertical)
+    max_abs["k1g"] = max(max_abs["k1g"], twin_and_lifted(kernels["k1g"][0], k1g_thread,
+                                                         kernels["k1g"][1], "k1g", 3.0,
+                                                         tail_envs=~vertical))
     kernels["k1h_si"] = (engine.K1hSi(model, EngineConfig(split_impulse=True)),
                          kernels["k1a"][1])
     max_abs["k1h_si"] = compare(*kernels["k1h_si"], "k1h_si")
@@ -1401,8 +1468,8 @@ def main() -> int:
     launches, step_ms = {}, {}
     launches["k1a"], _, _, _, step_ms["k1a"], _ = drive(
         port, engine, card, "Walker3DCustomEnv-v0", 600, "k1a", instance=kernels["k1a"][0].name)
-    launches["k1c"], stepper_state, tr, stepper, *_ = drive(
-        port, engine, card, "Walker3DStepperEnv-v0", 600, "k1c")
+    launches["k1c"], stepper_state, tr, stepper, step_ms["k1c"], _ = drive(
+        port, engine, card, "Walker3DStepperEnv-v0", 600, "k1c", instance=kernels["k1c"][0].name)
     print(f"[main] Walker3DStepperEnv-v0: steps_reached mean "
           f"{float(tr.metrics['steps_reached'].mean()):.3f} max "
           f"{float(tr.metrics['steps_reached'].max()):.0f}, stone hits on the last step "
@@ -1458,7 +1525,7 @@ def main() -> int:
 
     launches["k1g"], state, _, _, step_ms["k1g"], sums = drive(
         port, engine, card, "Walker3DStairsEnv-v0", 600, "k1g", sums=("fallen",),
-        watch=over_a_tread)
+        watch=over_a_tread, instance=kernels["k1g"][0].name)
     stairs_readings(state, sums, on_stairs)
     launches["k1h_si"], state, _, _, step_ms["k1h_si"], sums = drive(
         port, engine, card, "Walker3DCustomEnv-v0", 200, "k1h_si", sums=("fallen",),
@@ -1514,9 +1581,15 @@ def main() -> int:
                  lambda batch, r: pd_target_states(model, r, batch), WALKER_SWEEP)
     design_sweep(engine, card, "K1f", kernels["k1f"][0], k1f_thread,
                  lambda batch, r: terrain_states(model, r, batch), WALKER_SWEEP)
+    design_sweep(engine, card, "K1c", kernels["k1c"][0], k1c_thread,
+                 lambda batch, r: stepper_states(model, r, config.stone_window, batch),
+                 WALKER_SWEEP)
+    design_sweep(engine, card, "K1g", kernels["k1g"][0], k1g_thread,
+                 lambda batch, r: stairs_states(model, r, batch), WALKER_SWEEP)
     for v, env_id in (("k1b", "Walker3DPDCustomEnv-v0"), ("k1b_child", "Child3DPDCustomEnv-v0"),
                       ("k1f", "Walker3DTerrainEnv-v0"),
-                      ("k1f_lidar", "Walker3DTerrainLidarEnv-v0")):
+                      ("k1f_lidar", "Walker3DTerrainLidarEnv-v0"),
+                      ("k1c", "Walker3DStepperEnv-v0"), ("k1g", "Walker3DStairsEnv-v0")):
         print(f"[sweep] {env_id} at B={B}: {step_ms[v]:.3f} ms per control step on {card}")
     walker_trace(port, card)
 
@@ -1524,8 +1597,8 @@ def main() -> int:
     stepper_env_layer_times(card, stepper, stepper_state)
     times["k2"] = raycast_time_and_bound(card, raycaster, ray_main, max_abs["k2"])
     window_and_pack_time(engine, card, terrain_state)
-    for v in ("k1b", "k1b_child", "k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d", "k1f",
-              "k1f_lidar", "k1g", "k1h_si"):
+    for v in ("k1b", "k1b_child", "k1c", "k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d",
+              "k1f", "k1f_lidar", "k1g", "k1h_si"):
         kernel_ms = times[v.removesuffix("_lidar").removesuffix("_child")]["ms"]
         print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {kernel_ms:.4f} "
               f"ms/call, so {step_ms[v] - kernel_ms:.3f} ms/step outside the kernel "

@@ -1,5 +1,6 @@
 """Launch shapes of the warp-per-env K1 instances on one NVIDIA GPU: Cassie's
-and Cassie2D's K1e, the PD walkers' K1b and the terrain walkers' K1f.
+and Cassie2D's K1e, the PD walkers' K1b, the terrain walkers' K1f, the
+stepper's K1c and the stairs' K1g.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -31,18 +32,26 @@ import torch
 
 import chip_smoke
 
-INSTANCE = re.compile(r"(K1W_INSTANCE\((\w+),(?:[^,()]*,){9})\s*(\d+),\s*(\d+)((?:,\s*\d+)?\))")
+# an instance's name, its nine model and solver arguments, envs per block,
+# blocks per SM, and the scene's sizes behind them (window side, stones,
+# faces; any of them may be left out)
+INSTANCE = re.compile(r"(K1W_INSTANCE\((\w+),(?:[^,()]*,){9})\s*(\d+),\s*(\d+)((?:,\s*\d+)*\))")
 # group → (its symbols' common prefix, its shapes with the shipped one first,
 # timed calls per B). Cassie: one block of 32 (shipped), two of 16, four of 8
 # (the same 32 envs per SM), three of 8 (24 per SM). The walker's keys, at
 # the same 16 envs per SM: blocks of 4 with registers for 4 or for 8 blocks
-# (capped at 64; K1f ships that, K1b the other), two of 8, one of 16
+# (capped at 64; K1f, K1c and K1g ship that, K1b the other), two of 8, one
+# of 16
 GROUPS = {
     "cassie": ("k1w_nl17_", [(32, 1), (16, 2), (8, 4), (8, 3)], {4096: 10, 16384: 5}),
     "pd": ("k1w_nl22_ns14_nlim21_sub4_it4_llc1", [(4, 4), (4, 8), (8, 2), (16, 1)],
            {4096: 20, 16384: 10}),
     "terrain": ("k1w_nl22_ns14_nlim21_sub4_it4_hf16", [(4, 8), (4, 4), (8, 2), (16, 1)],
                 {4096: 20, 16384: 10}),
+    "stones": ("k1w_nl22_ns14_nlim21_sub4_it4_k6", [(4, 8), (4, 4), (8, 2), (16, 1)],
+               {4096: 20, 16384: 10}),
+    "mesh": ("k1w_nl22_ns14_nlim21_sub4_it4_kt16", [(4, 8), (4, 4), (8, 2), (16, 1)],
+             {4096: 20, 16384: 10}),
 }
 
 
@@ -89,7 +98,8 @@ def build_shapes(engine, out: Path) -> dict:
 def cases(engine, rng):
     """``[(group, make a wrapper, states(batch))]``: Cassie and Cassie2D (the
     whole PD control step near the stand), the PD walker (random targets
-    near contact) and the terrain walker (over the family's grids)."""
+    near contact), the terrain walker (over the family's grids), the stepper
+    (over its culled stones) and the stairs walker (over the culled faces)."""
     from mocca_envs_tpu_torch.models import cassie, walker3d
     from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
     from mocca_envs_tpu_torch.terrain.scene import HF_PATCH
@@ -109,6 +119,11 @@ def cases(engine, rng):
                 lambda batch: chip_smoke.pd_target_states(wmodel, rng, batch)))
     out.append(("terrain", lambda: engine.K1f(wmodel, EngineConfig(), HF_PATCH),
                 lambda batch: chip_smoke.terrain_states(wmodel, rng, batch)))
+    out.append(("stones", lambda: engine.K1c(wmodel, EngineConfig()),
+                lambda batch: chip_smoke.stepper_states(
+                    wmodel, rng, EngineConfig().stone_window, batch)))
+    out.append(("mesh", lambda: engine.K1g(wmodel, EngineConfig()),
+                lambda batch: chip_smoke.stairs_states(wmodel, rng, batch)))
     return out
 
 

@@ -10,6 +10,10 @@
 //   K1f  Walker3D over a PHF × PHF heightfield window per env, torque mode
 //        (the terrain walker and the LIDAR walker): the scene has no plane
 //        (its height sunk to -1e9), each contact has its own normal;
+//   K1c  Walker3D over K oriented stone boxes per env, torque mode (the
+//        stepping-stone env, ALLSTEPS), each contact with its own normal;
+//   K1g  Walker3D over KT triangle-mesh faces per env, torque mode (the
+//        stairs), each contact with its own normal;
 //   K1e  Cassie and Cassie2D: PD mode, the whole control step per call (10
 //        llc frames × 2 substeps, the torque gain·(target − q) refreshed at
 //        each frame's start), the two achilles rods as point-to-point
@@ -18,7 +22,8 @@
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
 // make_pallas_substep (pallas_call at :1441) for those configurations (with
-// pd_mode, hf_patch and constraints= there: :1276-1352, :371-377, :458-509,
+// pd_mode, hf_patch, num_stones, num_tris and constraints= there:
+// :1276-1352, :371-377, :458-509, :363-375, :511-549, :378-382, :551-616,
 // :280-290, :341, :858-886). It computes what engine_k1.cu's thread-per-env
 // instances of the same keys compute, the same iteration with some sums in
 // another order; those instances stay built for comparison
@@ -26,7 +31,8 @@
 // engine_k1.cu instance.
 //
 // Each llc frame runs NSUB substeps of: FK along the quaternion chain →
-// every sphere vs the plane [and vs the heightfield window] → the rods'
+// every sphere vs the plane [and vs the heightfield window, the stones or
+// the mesh faces] → the rods'
 // anchors → Newton–Euler bias → [substep 0: CRBA about the base + Cholesky]
 // → free velocity → rows [rods × 3 | planar × 3 | joint limits | contacts ×
 // (n, t1, t2)] → W = L⁻¹Jᵀ per active row → matrix-free block PGS, λ
@@ -36,10 +42,12 @@
 // What bounds it. Near contact a K1a call needs ~1.6e5 fp32 operations per
 // env against 0.65 KB of inputs and outputs (K1b the same and the torque;
 // K1f ~2.8e3 more for the window's narrowphase and the contacts' own normals
-// against 1.7 KB, the window 1 KB of it), a K1e call on Cassie ~6.3e5 (its
-// 20 substeps and 10 factors) against 0.47 KB (ops/cuda/engine.py::
-// k1_flops), so the floor is the fp32 rate: ~0.01 ms (K1a, K1b, K1f), ~0.04
-// ms (K1e) at B = 4096. The thread-per-env design ran 300–900× above it:
+// against 1.7 KB, the window 1 KB of it; K1c ~1.5e4 more for the six
+// stones' box tests against 0.9 KB; K1g ~7e4 more for the 896 sphere-face
+// walks against 1.3 KB), a K1e call on Cassie ~6.3e5 (its 20 substeps and
+// 10 factors) against 0.47 KB (ops/cuda/engine.py::k1_flops), so the floor
+// is the fp32 rate: ~0.01 ms (K1a, K1b, K1f, K1c, K1g), ~0.04 ms (K1e) at
+// B = 4096. The thread-per-env design ran 300–900× above it:
 // one warp of 32 envs per block left the SMs under one warp each at B =
 // 4096, its 255 registers spilled a 6–8 KB frame, the factor, W (NR × NV),
 // λ and z = Wλ round-tripped through a global (C, B) workspace on every row
@@ -69,10 +77,13 @@
 //     68–72 registers ~40%: k1w_launch_shapes.py.)
 //     The walker's EnvW keeps its 12,000 bytes, 4 envs per block, 4 blocks
 //     (16 envs) per SM; K1b's adds the 84 bytes of its targets, K1f's the
-//     per-sphere normals (168) and where its window lies (24): 4 blocks of 4
-//     still fit. K1f's registers are sized for 8 blocks: 63, no spill, where
-//     sized for 4 it took 95 and ran no faster; blocks of 8 or 16 envs, at
-//     the same 16 per SM, ran within 2% of these (k1w_launch_shapes.py).
+//     per-sphere normals (168) and where its window lies (24), K1c's the
+//     normals and its six stones (264), K1g's the normals and its 16 faces
+//     (640, 56,240 bytes a block): 4 blocks of 4 still fit in the SM's
+//     233,472 bytes with each block's 1 KB reserve. K1f's registers are
+//     sized for 8 blocks: 63, no spill, where sized for 4 it took 95 and ran
+//     no faster; blocks of 8 or 16 envs, at the same 16 per SM, ran within 2%
+//     of these (k1w_launch_shapes.py). K1c and K1g take the same shape.
 //   - Lanes: link i for the FK, the Newton–Euler passes and the CRBA
 //     composites, one tree level at a time (depth 6 for the walker, 7 for
 //     Cassie; a parent sums its children in the order the serial code does);
@@ -108,9 +119,25 @@
 // SM to 3 blocks of 4 (12 envs), and the four reads per sphere and substep
 // come from L1 / L2 (the windows of B = 4096 envs take 4.2 MB).
 //
+// Stone narrowphase (K1c), as engine_k1.cu's: one sphere per lane over the
+// env's stones in index order; the center in the box frame, outside where its
+// distance to the box is above 1e-9 (the closest point), else out through
+// the nearest face (the first of equally near faces); the deepest active
+// stone wins (the first of equals) and replaces the plane only where strictly
+// deeper, its normal and point turned back to the world frame. Mesh
+// narrowphase (K1g), as engine_k1.cu's: one sphere per lane over the env's
+// faces in index order, the closest point by Ericson's region walk
+// (k1_common.cuh::closest_on_triangle), the deepest active face (the first
+// of equals), its normal the offset over the distance or, for a center on
+// the face (distance ≤ 1e-9), the face normal turned to the center's side;
+// it replaces the plane only where strictly deeper. Both scenes are staged
+// in the env's shared memory once per call (66 and 160 floats), read by the
+// lanes as broadcasts: the caller packs them once per control step and they
+// are constant over the call's substeps.
+//
 // Contact rows. On the plane (+z) a contact's rows n, t1, t2 are rows z, x,
 // y of its point Jacobian, constant-folded. Where a narrowphase sets a
-// sphere's own normal (Cfg::GENERAL: the heightfield) they are n·Jc, t1·Jc,
+// sphere's own normal (Cfg::GENERAL: the heightfield, stones, a mesh) they are n·Jc, t1·Jc,
 // t2·Jc with the branchless tangent basis of ops/solver.py::tangent_basis,
 // each entry the projection of the entry's three point-Jacobian components.
 //
@@ -135,8 +162,10 @@
 // Interface (all f32, contiguous, row-major), as engine_k1.cu's:
 //   q (B,NQ), qd (B,NV), tau (B,NJ) (PD: the joint targets), ground_z (B,),
 //   friction (B,), hf (B, PHF·PHF + 3) for PHF > 0 (env b's heights
-//   row-major, then the world x0, y0 of its corner cell and the cell size;
-//   a null hf is refused), the other scene inputs (unused here, may be null)
+//   row-major, then the world x0, y0 of its corner cell and the cell size),
+//   stones (K·11, B) for K > 0 and tris (KT·10, B) for KT > 0 (component-
+//   major, as engine_k1.cu takes them; a null window, stones or tris where
+//   the instance reads it is refused), bars and grabs (unused, may be null)
 //   → q' (B,NQ), qd' (B,NV), depth (B,NS), normal_impulse (B,NS) of the last
 //   substep. <sym>_occupancy reports the blocks (and so the envs) resident
 //   per SM.
@@ -179,21 +208,24 @@ __device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
 // One instance: the model's sizes, the substeps and sweeps, the actuation
 // (PD: NLLC llc frames per call), the equality rows, the launch's envs
 // (warps) per block and the blocks per SM its registers are sized for (at
-// most 65,536 / (32 · ENVS · BLOCKS) a thread), and the heightfield window's
-// side (0: none).
+// most 65,536 / (32 · ENVS · BLOCKS) a thread), the heightfield window's
+// side, the stones and the mesh faces per env (0: none).
 template <int NL_, int NS_, int NLIM_, int NSUB_, int ITERS_, bool PD_, int NLLC_, int NP2P_,
-          bool PLANAR_, int ENVS_, int BLOCKS_, int PHF_ = 0>
+          bool PLANAR_, int ENVS_, int BLOCKS_, int PHF_ = 0, int K_ = 0, int KT_ = 0>
 struct Cfg {
   static constexpr int NL = NL_, NS = NS_, NLIM = NLIM_, NSUB = NSUB_, ITERS = ITERS_;
   static constexpr bool PD = PD_, PLANAR = PLANAR_;
   static constexpr int NLLC = NLLC_, NP2P = NP2P_, ENVS = ENVS_, BLOCKS = BLOCKS_, PHF = PHF_;
+  static constexpr int K = K_, KT = KT_;
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, 0, 0>;
   static constexpr int WS = L::NV | 1;   // W's row stride: odd
   // the equality-row instances hold the link kinematics in W's space
   static constexpr bool KIN_IN_W = L::NE0 > 0;
   // each contact has its own normal (else the plane's +z)
-  static constexpr bool GENERAL = PHF > 0;
+  static constexpr bool GENERAL = PHF > 0 || K > 0 || KT > 0;
   static_assert(PD || NLLC == 1, "torque mode is launched once per llc frame");
+  static_assert((PHF > 0) + (K > 0) + (KT > 0) <= 1,
+                "no instance combines a heightfield, stones and a mesh");
   static_assert(L::NV <= 32, "one lane per velocity DOF");
 };
 
@@ -249,11 +281,23 @@ template <int PHF>
 struct HfState { const float* hp; float hx0, hy0, hcell; };
 template <>
 struct HfState<0> {};
+// ... the env's stones and its mesh faces, staged from the packed inputs
+// once per call (center, quaternion, half extents, active; vertices a, b,
+// c, active)
+template <int K>
+struct StoneState { float stone[K][STONE_C]; };
+template <>
+struct StoneState<0> {};
+template <int KT>
+struct TriState { float tri[KT][TRI_C]; };
+template <>
+struct TriState<0> {};
 
 // One env's state in shared memory.
 template <class C>
 struct EnvW : PdState<C::PD, C::L::NJ>, RodState<C::NP2P>, NrmState<C::GENERAL, C::NS>,
-              HfState<C::PHF>, KinIn<!C::KIN_IN_W, C::NL, C::L::NV> {
+              HfState<C::PHF>, StoneState<C::K>, TriState<C::KT>,
+              KinIn<!C::KIN_IN_W, C::NL, C::L::NV> {
   using L = typename C::L;
   float q[L::NQ], qd[L::NV], tau[L::NJ];
   float ground, fric;
@@ -339,7 +383,8 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     wsync();
   }
 
-  // ---------------- spheres vs the plane, then vs the heightfield window
+  // ---------------- spheres vs the plane, then vs the heightfield window,
+  // the stones or the mesh faces
   for (int s = lane; s < NS; s += WIDTH) {
     const int l = (int)tab[L::SPHLINK + s];
     const float rad = tab[L::SPHR + s];
@@ -369,6 +414,99 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
         e.depth[s] = dh;
         e.nrm[s][0] = gx / nn; e.nrm[s][1] = gy / nn; e.nrm[s][2] = nz;
         e.cpt[s][2] = hgt;
+      }
+    }
+    if constexpr (C::K > 0) {
+      // the deepest active stone (the first of equals), kept in its box frame
+      float best = -1e9f, bn[3] = {0.0f, 0.0f, 1.0f}, bp[3] = {0.0f, 0.0f, 0.0f};
+      int bk = -1;
+#pragma unroll 1
+      for (int k = 0; k < C::K; ++k) {
+        const float* st = e.stone[k];
+        if (!(st[10] > 0.5f)) continue;
+        const float rel[3] = {cx - st[0], cy - st[1], cz - st[2]};
+        const float qc[4] = {st[3], -st[4], -st[5], -st[6]};
+        float d[3], closest[3], delta[3];
+        qrot(qc, rel, d);                       // center in the box frame
+        for (int a = 0; a < 3; ++a) {
+          closest[a] = clampf(d[a], -st[7 + a], st[7 + a]);
+          delta[a] = d[a] - closest[a];
+        }
+        const float dist = sqrtf(dot3(delta, delta));
+        float dk, nl[3], sl[3];
+        if (dist > 1e-9f) {                     // outside: closest point
+          const float inv = 1.0f / fmaxf(dist, 1e-9f);
+          dk = rad - dist;
+          for (int a = 0; a < 3; ++a) { nl[a] = delta[a] * inv; sl[a] = closest[a]; }
+        } else {                                // inside: out through the nearest face
+          int kk = 0;
+          float fmin = st[7] - fabsf(d[0]);
+          for (int a = 1; a < 3; ++a) {
+            const float fa = st[7 + a] - fabsf(d[a]);
+            if (fa < fmin) { fmin = fa; kk = a; }
+          }
+          dk = rad + fmin;
+          for (int a = 0; a < 3; ++a) {
+            nl[a] = a == kk ? sgn0(d[a]) : 0.0f;
+            sl[a] = d[a] + nl[a] * fmin;
+          }
+        }
+        if (dk > best) {
+          best = dk; bk = k;
+          for (int a = 0; a < 3; ++a) { bn[a] = nl[a]; bp[a] = sl[a]; }
+        }
+      }
+      e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f;
+      if (bk >= 0 && best > e.depth[s]) {       // strictly deeper than the plane
+        const float* st = e.stone[bk];
+        float pw[3];
+        qrot(st + 3, bn, e.nrm[s]);
+        qrot(st + 3, bp, pw);
+        e.depth[s] = best;
+        for (int a = 0; a < 3; ++a) e.cpt[s][a] = st[a] + pw[a];
+      }
+    }
+    if constexpr (C::KT > 0) {
+      // the deepest active face (the first of equals): its closest point and
+      // the offset from it to the center
+      const float cc[3] = {cx, cy, cz};
+      float best = -1e9f, bp[3] = {0.0f, 0.0f, 0.0f}, bd[3] = {0.0f, 0.0f, 0.0f}, bdist = 0.0f;
+      int bk = -1;
+#pragma unroll 1
+      for (int k = 0; k < C::KT; ++k) {
+        const float* f = e.tri[k];
+        if (!(f[9] > 0.5f)) continue;
+        float p[3], dl[3];
+        closest_on_triangle(cc, f, f + 3, f + 6, p);
+        for (int i = 0; i < 3; ++i) dl[i] = cc[i] - p[i];
+        const float dist = sqrtf(dot3(dl, dl));
+        const float dk = rad - dist;
+        if (dk > best) {
+          best = dk; bk = k; bdist = dist;
+          for (int i = 0; i < 3; ++i) { bp[i] = p[i]; bd[i] = dl[i]; }
+        }
+      }
+      e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f;
+      if (bk >= 0 && best > e.depth[s]) {       // strictly deeper than the plane
+        if (bdist > 1e-9f) {
+          const float inv = 1.0f / fmaxf(bdist, 1e-9f);
+          for (int i = 0; i < 3; ++i) e.nrm[s][i] = bd[i] * inv;
+        } else {                                // center on the face: its normal,
+          const float* f = e.tri[bk];           // turned toward the center's side
+          float ab[3], ac[3], ap[3], fn[3];
+          for (int i = 0; i < 3; ++i) {
+            ab[i] = f[3 + i] - f[i];
+            ac[i] = f[6 + i] - f[i];
+            ap[i] = cc[i] - f[i];
+          }
+          cross3(ab, ac, fn);
+          const float fm = fmaxf(sqrtf(dot3(fn, fn)), 1e-12f);
+          for (int i = 0; i < 3; ++i) fn[i] /= fm;
+          const float side = dot3(ap, fn) >= 0.0f ? 1.0f : -1.0f;
+          for (int i = 0; i < 3; ++i) e.nrm[s][i] = side * fn[i];
+        }
+        e.depth[s] = best;
+        for (int i = 0; i < 3; ++i) e.cpt[s][i] = bp[i];
       }
     }
   }
@@ -859,12 +997,15 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
 // One call for env t: NLLC llc frames of NSUB substeps, λ zeroed once at the
 // start and carried across them. PD: ``tau`` holds joint targets and each
 // frame's torque is gain·(target − q) at the frame's start; else the torques
-// are held. PHF > 0: ``hf`` row t is the env's heightfield window.
+// are held. PHF > 0: ``hf`` row t is the env's heightfield window. K > 0 /
+// KT > 0: column t of the component-major ``stones`` (K·11, B) / ``tris``
+// (KT·10, B) holds the env's stones / faces, staged here once for the call.
 template <class C>
 KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const float* gz,
-                      const float* fric, const float* hf, float* q_out, float* qd_out,
-                      float* depth_out, float* nimp_out, const float* tab, const int* level,
-                      int maxd, EnvW<C>& e, int t, int lane) {
+                      const float* fric, const float* stones, const float* hf,
+                      const float* tris, float* q_out, float* qd_out, float* depth_out,
+                      float* nimp_out, const float* tab, const int* level, int maxd, EnvW<C>& e,
+                      int B, int t, int lane) {
   using L = typename C::L;
   for (int i = lane; i < L::NQ; i += WIDTH) e.q[i] = q[(long long)t * L::NQ + i];
   for (int i = lane; i < L::NV; i += WIDTH) e.qd[i] = qd[(long long)t * L::NV + i];
@@ -873,6 +1014,12 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
     else e.tau[i] = tau[(long long)t * L::NJ + i];
   }
   for (int r = lane; r < L::NR; r += WIDTH) e.lam[r] = 0.0f;
+  if constexpr (C::K > 0)
+    for (int i = lane; i < C::K * STONE_C; i += WIDTH)
+      e.stone[i / STONE_C][i % STONE_C] = ldg_(stones + (long long)i * B + t);
+  if constexpr (C::KT > 0)
+    for (int i = lane; i < C::KT * TRI_C; i += WIDTH)
+      e.tri[i / TRI_C][i % TRI_C] = ldg_(tris + (long long)i * B + t);
   if (lane == 0) {
     e.ground = gz[t];
     e.fric = fric[t];
@@ -902,6 +1049,14 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
   }
 }
 
+// Whether the scene inputs the instance reads are given: the heightfield
+// window, the stones, the mesh faces.
+template <class C>
+inline bool scene_given(const float* stones, const float* hf, const float* tris) {
+  return !(C::PHF > 0 && hf == nullptr) && !(C::K > 0 && stones == nullptr) &&
+         !(C::KT > 0 && tris == nullptr);
+}
+
 #ifndef K1W_HOST_CHECK
 // Dynamic shared memory of a block: the table, the link depths, C::ENVS EnvW.
 template <class C>
@@ -914,7 +1069,8 @@ template <class C>
 __global__ void __launch_bounds__(32 * C::ENVS, C::BLOCKS)
 k1w_kernel(const float* __restrict__ q, const float* __restrict__ qd,
            const float* __restrict__ tau, const float* __restrict__ gz,
-           const float* __restrict__ fric, const float* __restrict__ hf,
+           const float* __restrict__ fric, const float* __restrict__ stones,
+           const float* __restrict__ hf, const float* __restrict__ tris,
            float* __restrict__ q_out, float* __restrict__ qd_out, float* __restrict__ depth_out,
            float* __restrict__ nimp_out, const float* __restrict__ table, int B) {
   using L = typename C::L;
@@ -931,8 +1087,8 @@ k1w_kernel(const float* __restrict__ q, const float* __restrict__ qd,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = blockIdx.x * C::ENVS + warp;
   if (t >= B) return;   // the whole warp
-  frame<C>(q, qd, tau, gz, fric, hf, q_out, qd_out, depth_out, nimp_out, tab, level, maxd,
-           envs[warp], t, lane);
+  frame<C>(q, qd, tau, gz, fric, stones, hf, tris, q_out, qd_out, depth_out, nimp_out, tab, level,
+           maxd, envs[warp], B, t, lane);
 }
 
 template <class C>
@@ -943,15 +1099,15 @@ int prepare() {
 
 template <class C>
 int launch(const float* q, const float* qd, const float* tau, const float* gz, const float* fric,
-           const float* hf, float* q_out, float* qd_out, float* depth, float* nimp,
-           const float* table, int table_size, int B, void* stream) {
-  if (table_size != C::L::SIZE || B <= 0 || (C::PHF > 0 && hf == nullptr))
+           const float* stones, const float* hf, const float* tris, float* q_out, float* qd_out,
+           float* depth, float* nimp, const float* table, int table_size, int B, void* stream) {
+  if (table_size != C::L::SIZE || B <= 0 || !scene_given<C>(stones, hf, tris))
     return (int)cudaErrorInvalidValue;
   const int err = prepare<C>();
   if (err != 0) return err;
   const int blocks = (B + C::ENVS - 1) / C::ENVS;
   k1w_kernel<C><<<blocks, 32 * C::ENVS, Smem<C>::BYTES, (cudaStream_t)stream>>>(
-      q, qd, tau, gz, fric, hf, q_out, qd_out, depth, nimp, table, B);
+      q, qd, tau, gz, fric, stones, hf, tris, q_out, qd_out, depth, nimp, table, B);
   return (int)cudaGetLastError();
 }
 
@@ -969,12 +1125,13 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
 }  // namespace k1w
 
 // ------------------------------------------------------------ C interface
-// The same entries as engine_k1.cu's instances (the scene inputs but the
-// heightfield window, and the workspace, are taken and unused; the workspace
-// per env is 0), and <sym>_occupancy. One entry per instance: (NL, NS, NLIM,
-// NSUB, ITERS, PD, NLLC, NP2P, PLANAR) at the shipped solver options, then
-// envs per block and blocks per SM, then the window's side where there is
-// one; ops/cuda/engine.py::WARP_INSTANCES lists the same names and numbers.
+// The same entries as engine_k1.cu's instances (the bars, the grabs and the
+// workspace are taken and unused; the workspace per env is 0), and
+// <sym>_occupancy. One entry per instance: (NL, NS, NLIM, NSUB, ITERS, PD,
+// NLLC, NP2P, PLANAR) at the shipped solver options, then envs per block and
+// blocks per SM, then the window's side, the stones and the faces where
+// there are any; ops/cuda/engine.py::WARP_INSTANCES lists the same names and
+// numbers.
 #define K1W_LAYOUT(NAME, ...)                                                                \
   using NAME##_cfg = k1w::Cfg<__VA_ARGS__>;                                                  \
   extern "C" int NAME##_layout(int* table_size, int* ws_per_env) {                          \
@@ -986,13 +1143,13 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
 #define K1W_INSTANCE(NAME, ...)                                                              \
   K1W_LAYOUT(NAME, __VA_ARGS__)                                                              \
   extern "C" int NAME##_launch(const float* q, const float* qd, const float* tau,           \
-                               const float* gz, const float* fric, const float*,            \
-                               const float*, const float*, const float* hf, const float*,   \
-                               float* q_out, float* qd_out, float* depth, float* nimp,      \
-                               const float* table, int table_size, float*, int B,           \
-                               void* stream) {                                               \
-    return k1w::launch<NAME##_cfg>(q, qd, tau, gz, fric, hf, q_out, qd_out, depth, nimp,     \
-                                   table, table_size, B, stream);                           \
+                               const float* gz, const float* fric, const float* stones,     \
+                               const float*, const float*, const float* hf,                 \
+                               const float* tris, float* q_out, float* qd_out,              \
+                               float* depth, float* nimp, const float* table,               \
+                               int table_size, float*, int B, void* stream) {               \
+    return k1w::launch<NAME##_cfg>(q, qd, tau, gz, fric, stones, hf, tris, q_out, qd_out,    \
+                                   depth, nimp, table, table_size, B, stream);              \
   }                                                                                          \
   extern "C" int NAME##_occupancy(int* blocks_per_sm, int* envs_per_block,                  \
                                   int* smem_bytes) {                                        \
@@ -1003,18 +1160,20 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
 #define K1W_INSTANCE(NAME, ...)                                                              \
   K1W_LAYOUT(NAME, __VA_ARGS__)                                                              \
   extern "C" int NAME##_host(const float* q, const float* qd, const float* tau,             \
-                             const float* gz, const float* fric, const float*,              \
-                             const float*, const float*, const float* hf, const float*,     \
-                             float* q_out, float* qd_out, float* depth, float* nimp,        \
-                             const float* table, int table_size, float*, int B) {           \
+                             const float* gz, const float* fric, const float* stones,       \
+                             const float*, const float*, const float* hf,                   \
+                             const float* tris, float* q_out, float* qd_out, float* depth,  \
+                             float* nimp, const float* table, int table_size, float*,       \
+                             int B) {                                                        \
     using C_ = NAME##_cfg;                                                                   \
-    if (table_size != C_::L::SIZE || B <= 0 || (C_::PHF > 0 && hf == nullptr)) return 1;     \
+    if (table_size != C_::L::SIZE || B <= 0 || !k1w::scene_given<C_>(stones, hf, tris))      \
+      return 1;                                                                              \
     int dep[C_::NL];                                                                         \
     const int maxd = k1w::tree_depths<C_::NL>(table + C_::L::PARENT, dep);                   \
     auto* e = new k1w::EnvW<C_>;                                                             \
     for (int t = 0; t < B; ++t)                                                              \
-      k1w::frame<C_>(q, qd, tau, gz, fric, hf, q_out, qd_out, depth, nimp, table, dep, maxd, \
-                     *e, t, 0);                                                              \
+      k1w::frame<C_>(q, qd, tau, gz, fric, stones, hf, tris, q_out, qd_out, depth, nimp,     \
+                     table, dep, maxd, *e, B, t, 0);                                         \
     delete e;                                                                                \
     return 0;                                                                                \
   }
@@ -1050,4 +1209,16 @@ K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_llc1, 22, 14, 21, 4, 4, true, 1, 0, f
 // memory holds 4
 #if !defined(K1W_ONLY) || K1W_ONLY == 4
 K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_hf16, 22, 14, 21, 4, 4, false, 1, 0, false, 4, 8, 16)
+#endif
+// The walker over the 6 culled stones of the stepping-stone env (K1c), torque
+// mode; 4 envs per block, registers for 8 blocks per SM, of which shared
+// memory holds 4
+#if !defined(K1W_ONLY) || K1W_ONLY == 5
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_k6, 22, 14, 21, 4, 4, false, 1, 0, false, 4, 8, 0, 6)
+#endif
+// The walker over the 16 culled faces of a triangle mesh (K1g: the stairs),
+// torque mode; the same launch shape
+#if !defined(K1W_ONLY) || K1W_ONLY == 6
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_kt16, 22, 14, 21, 4, 4, false, 1, 0, false, 4, 8, 0, 0,
+             16)
 #endif

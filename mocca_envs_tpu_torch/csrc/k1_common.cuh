@@ -1,6 +1,7 @@
 // Shared by the K1 kernel sources (engine_k1.cu, engine_k1w.cu): the host
-// check's stand-ins for the CUDA built-ins, the packed model table's layout
-// and the small vector and quaternion helpers.
+// check's stand-ins for the CUDA built-ins, the packed model table's layout,
+// the small vector and quaternion helpers, the floats per stone and per mesh
+// face of the packed scene inputs, and the closest point on a triangle.
 
 #ifndef K1_COMMON_CUH
 #define K1_COMMON_CUH
@@ -118,6 +119,50 @@ HD inline void matvec3(const float* R, const float* v, float* o) {
 HD inline float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
 
 HD inline float sgn0(float x) { return (float)(x > 0.0f) - (float)(x < 0.0f); }
+
+constexpr int STONE_C = 11;   // floats per stone: center, quaternion, half extents, active
+constexpr int TRI_C = 10;     // floats per mesh face: vertices a, b, c, active
+
+// Closest point o of triangle (a, b, c) to p: Ericson's barycentric region
+// walk, the first region that holds p winning (vertex a, b, c, edge ab, ac,
+// bc, else the interior), with the plain version's 1e-12 guards on every
+// denominator.
+HD inline void closest_on_triangle(const float* p, const float* a, const float* b,
+                                   const float* c, float* o) {
+  const float eps = 1e-12f;
+  float ab[3], ac[3], ap[3], bp[3], cp[3];
+  for (int i = 0; i < 3; ++i) {
+    ab[i] = b[i] - a[i]; ac[i] = c[i] - a[i]; ap[i] = p[i] - a[i];
+    bp[i] = p[i] - b[i]; cp[i] = p[i] - c[i];
+  }
+  const float d1 = dot3(ab, ap), d2 = dot3(ac, ap);
+  if (d1 <= 0.0f && d2 <= 0.0f) { for (int i = 0; i < 3; ++i) o[i] = a[i]; return; }
+  const float d3 = dot3(ab, bp), d4 = dot3(ac, bp);
+  if (d3 >= 0.0f && d4 <= d3) { for (int i = 0; i < 3; ++i) o[i] = b[i]; return; }
+  const float d5 = dot3(ab, cp), d6 = dot3(ac, cp);
+  if (d6 >= 0.0f && d5 <= d6) { for (int i = 0; i < 3; ++i) o[i] = c[i]; return; }
+  const float vc = d1 * d4 - d3 * d2;
+  if (vc <= 0.0f && d1 >= 0.0f && d3 <= 0.0f) {
+    const float v = d1 / fmaxf(d1 - d3, eps);
+    for (int i = 0; i < 3; ++i) o[i] = a[i] + v * ab[i];
+    return;
+  }
+  const float vb = d5 * d2 - d1 * d6;
+  if (vb <= 0.0f && d2 >= 0.0f && d6 <= 0.0f) {
+    const float w = d2 / fmaxf(d2 - d6, eps);
+    for (int i = 0; i < 3; ++i) o[i] = a[i] + w * ac[i];
+    return;
+  }
+  const float va = d3 * d6 - d5 * d4;
+  if (va <= 0.0f && d4 - d3 >= 0.0f && d5 - d6 >= 0.0f) {
+    const float w = (d4 - d3) / fmaxf((d4 - d3) + (d5 - d6), eps);
+    for (int i = 0; i < 3; ++i) o[i] = b[i] + w * (c[i] - b[i]);
+    return;
+  }
+  const float denom = 1.0f / fmaxf(va + vb + vc, eps);
+  const float v = vb * denom, w = vc * denom;
+  for (int i = 0; i < 3; ++i) o[i] = a[i] + ab[i] * v + ac[i] * w;
+}
 
 }  // namespace k1
 

@@ -16,7 +16,8 @@ sweeps. The kernel is CUDA C++ in two sources: ``csrc/engine_k1w.cu``, one
 warp per env (W and the factor in shared memory, inactive rows skipped),
 which the keys of :data:`WARP_INSTANCES` run (K1a, the walker's and the
 child's; K1b, the PD walker's and the PD child's; K1f, the terrain
-walkers'; K1e, Cassie's and Cassie2D's), and ``csrc/engine_k1.cu``, one
+walkers'; K1c, the stepper's; K1g, the stairs'; K1e, Cassie's and
+Cassie2D's), and ``csrc/engine_k1.cu``, one
 thread per env, for every other key. An instance is picked by its
 :class:`Key`: the warp-per-env one where there is one, else the fifteen
 ``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the shipped families at the
@@ -165,7 +166,9 @@ INSTANTIATIONS = {inst.key: inst for inst in (
 # walker and the child on the plane in torque mode; K1e, Cassie's and
 # Cassie2D's whole PD control step with the rods (and the planar lock); K1b,
 # the PD walker's and the PD child's control step (one llc frame); K1f, the
-# walker over a 16 × 16 heightfield window (the terrain families)
+# walker over a 16 × 16 heightfield window (the terrain families); K1c, the
+# walker over the stepper's 6 culled stones; K1g, the walker over the
+# stairs' 16 culled mesh faces
 WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4", 0, Key(**_W), SOURCE_W),
     Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 1, Key(**_C), SOURCE_W),
@@ -173,6 +176,8 @@ WARP_INSTANCES = {inst.key: inst for inst in (
              SOURCE_W),
     Instance("k1w_nl22_ns14_nlim21_sub4_it4_llc1", 3, Key(**_W, pd=True), SOURCE_W),
     Instance("k1w_nl22_ns14_nlim21_sub4_it4_hf16", 4, Key(**_W, hf=16), SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_k6", 5, Key(**_W, stones=6), SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_kt16", 6, Key(**_W, tris=16), SOURCE_W),
 )}
 
 
@@ -643,9 +648,11 @@ class K1c(EngineKernel):
     variant = "k1c"
     split_variant = "k1h_c"
 
-    def __init__(self, model, config, num_stones: int | None = None, plain_unit=None):
+    def __init__(self, model, config, num_stones: int | None = None, plain_unit=None,
+                 thread_per_env: bool = False):
         super().__init__(model, config, plain_unit=plain_unit,
-                         num_stones=config.stone_window if num_stones is None else num_stones)
+                         num_stones=config.stone_window if num_stones is None else num_stones,
+                         thread_per_env=thread_per_env)
 
 
 class K1b(EngineKernel):
@@ -714,9 +721,11 @@ class K1g(EngineKernel):
     variant = "k1g"
     split_variant = "k1h_g"
 
-    def __init__(self, model, config, num_tris: int | None = None, plain_unit=None):
+    def __init__(self, model, config, num_tris: int | None = None, plain_unit=None,
+                 thread_per_env: bool = False):
         super().__init__(model, config, plain_unit=plain_unit,
-                         num_tris=config.tri_window if num_tris is None else num_tris)
+                         num_tris=config.tri_window if num_tris is None else num_tris,
+                         thread_per_env=thread_per_env)
 
 
 class K1hSi(EngineKernel):
@@ -774,7 +783,7 @@ def make_kernel(model, config, *, num_stones=0, num_bars=0, hf_patch=0, num_tris
 
 
 # fp32 operations of the kernel's mesh narrowphase per (sphere, active face),
-# by the region its walk (csrc/engine_k1.cu::closest_on_triangle) ends in:
+# by the region its walk (csrc/k1_common.cuh::closest_on_triangle) ends in:
 # vertex a, b, c, edge ab, ac, bc, the interior; then the offset to the
 # center, its length, the depth and the compare (TRI_TAIL_OPS)
 TRI_WALK_OPS = (27, 39, 51, 66, 72, 83, 89)

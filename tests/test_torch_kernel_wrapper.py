@@ -1007,7 +1007,10 @@ def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
     split = EngineConfig(split_impulse=True)
     k1g = engine.make_kernel(model, config, num_tris=16)
     assert isinstance(k1g, engine.K1g) and k1g.inputs == ("tris",)
-    assert k1g.name == "k1g_nl22_ns14_nlim21_sub4_it4_kt16"
+    # the warp-per-env instance; the thread-per-env one only when asked for
+    assert k1g.name == "k1w_nl22_ns14_nlim21_sub4_it4_kt16"
+    assert engine.K1g(model, config, thread_per_env=True).name \
+        == "k1g_nl22_ns14_nlim21_sub4_it4_kt16"
     si = engine.make_kernel(model, split)
     assert isinstance(si, engine.K1hSi) and si.inputs == () and si.variant == "k1h_si"
     for build in (lambda: engine.make_kernel(model, config, num_tris=16, num_stones=6),
@@ -1157,7 +1160,10 @@ def test_split_instances_are_picked_and_the_rest_refused():
     # a split instance is not taken for the unsplit config, nor the reverse
     with pytest.raises(NotImplementedError, match="split_impulse"):
         engine.K1hSi(model, EngineConfig())
-    assert not engine.make_kernel(model, EngineConfig(), num_stones=6).split
+    stepper = engine.make_kernel(model, EngineConfig(), num_stones=6)
+    assert not stepper.split and stepper.name == "k1w_nl22_ns14_nlim21_sub4_it4_k6"
+    assert engine.K1c(model, EngineConfig(), thread_per_env=True).name \
+        == "k1c_nl22_ns14_nlim21_sub4_it4_k6"
 
 
 @pytest.mark.parametrize("case", list(SPLIT_CASES))
