@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases, in order; any failure exits non-zero before the result lines:
 
 1. print the card's name and power limit; build the warp-per-env
-   instances of K1a, of Cassie's and Cassie2D's K1e, of the PD walkers' K1b,
+   instances of K1a, of Cassie's and Cassie2D's K1e and of their split
+   twins K1h-e and K1h-e2d, of the PD walkers' K1b,
    of the terrain walkers' K1f, of the stepper's K1c and of the stairs' K1g
    from
    ``mocca_envs_tpu_torch/csrc/engine_k1w.cu``, the fifteen
@@ -58,7 +59,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    K1h-c, K1h-e, K1h-e2d and K1h-d (split impulse over the stones, on
    Cassie's whole PD step with the rods, with the planar lock added, and
    over the monkey's bars with its grab rows) on the K1c, Cassie, Cassie2D
-   and K1d states, each held to its twin's gate; K1h-b (split impulse in PD
+   and K1d states, each held to its twin's gate; K1h-e and K1h-e2d by their
+   warp-per-env instances, and those against their thread-per-env twins by
+   K1e's rule (:data:`TOL_EQ` with the p99 tail) on those states and with
+   every foot lifted 1 m, grounded by the 1e-7 q̇-nudge floor over all envs
+   (:func:`rounding_floor`); K1h-b (split impulse in PD
    mode, one and two llc frames), the torque planar K1h-e, K1h-f and K1h-g
    on the K1b, Walker2D, K1f and K1g states, each held to its twin's gate
    (K1h-g with K1g's riser rule); the walker's PGS options
@@ -133,7 +138,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    4096 envs, horizon 128, 2 updates with a checkpoint, then the same to 3
    updates, which must resume from update 2 (exactly 384 ``k1h_c`` launches
    over both runs and no other kernel); ``CassieEnv`` and ``Cassie2DEnv``
-   (64 ``k1h_e`` launches each: PD launches once per control step),
+   (64 ``k1h_e`` launches each, all by the warp-per-env instance: PD
+   launches once per control step),
    ``Monkey3DStepperEnv`` (64 ``k1h_d``) and the seven of
    :data:`SPLIT_FAMILIES` (64 launches each under the name it gives, all by
    the generic instance phase 1 built for it), 2 updates at horizon 32. Every
@@ -143,7 +149,8 @@ Phases, in order; any failure exits non-zero before the result lines:
 4. per-call times of each kernel and its plain version (CUDA events), the
    two K1a designs in turns (old, new, new, old) at each B of
    :data:`SWEEP` beside their bound, the two designs of Cassie's and of
-   Cassie2D's K1e likewise at each B of :data:`CASSIE_SWEEP`, those of K1b,
+   Cassie2D's K1e and of their split twins K1h-e and K1h-e2d likewise at
+   each B of :data:`CASSIE_SWEEP`, those of K1b,
    K1f, K1c and K1g at each B of :data:`WALKER_SWEEP`, the walker's step against the host's
    time to enqueue it and the device's busy share over 20 traced steps, the
    bound from the operations and bytes these inputs need, and the time of
@@ -241,16 +248,16 @@ FRAMES = {
     "k1h_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si": (6224, 1592, 1608),
 }
 # the batches of the two designs' sweeps, and the timed calls at each: K1a,
-# and Cassie's and Cassie2D's K1e (the thread-per-env one ~35 ms a call at
-# 16,384)
+# and Cassie's and Cassie2D's K1e, K1h-e and K1h-e2d (the thread-per-env one
+# ~35–45 ms a call at 16,384)
 SWEEP = {4096: 20, 16384: 10, 65536: 5}
 CASSIE_SWEEP = {4096: 10, 16384: 5}
 WALKER_SWEEP = {4096: 20, 16384: 10}   # K1b, K1f, K1c and K1g
 # ptxas's registers and the dynamic shared memory per block (bytes) of each
 # warp-per-env instance, and the envs each must keep resident per SM: the
 # walker's keys 4 blocks of 4 envs (K1f's, K1c's and K1g's registers sized
-# for 8), Cassie's one block of 32; each as every build since it was written
-# has reported it
+# for 8), Cassie's one block of 32 (and its split twins'); each as every
+# build since it was written has reported it
 WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4": (64, 53008, 16),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2": (64, 202896, 32),
@@ -259,6 +266,8 @@ WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4_hf16": (63, 53776, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_k6": (64, 54736, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_kt16": (64, 56240, 16),
+    "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si": (64, 208272, 32),
+    "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si": (64, 219024, 32),
 }
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
@@ -680,7 +689,8 @@ def twin_and_lifted(kernel, twin, args, label: str, lift: float, tol=TOL_TWIN,
 
 
 def rounding_floor(kernel, twin, args, label: str, tail_envs) -> None:
-    """The 1e-7 q̇-nudge measurement behind K1g's twin gate. The
+    """The 1e-7 q̇-nudge measurement behind K1g's twin gate (and behind
+    K1h-e's and K1h-e2d's, over all envs: ``tail_envs`` all true). The
     thread-per-env ``twin`` runs ``args`` and ``args`` with q̇ nudged by 1e-7
     (relative, numpy seed 0); the per-env |Δq̇| between those two runs is
     the rounding floor. The two designs' per-env |Δq̇| on ``args`` must lie
@@ -1419,11 +1429,25 @@ def main() -> int:
     # and held to its twin's gate
     kernels["k1h_c"] = (engine.K1c(model, split(config)), kernels["k1c"][1])
     max_abs["k1h_c"] = compare(*kernels["k1h_c"], "k1h_c")
+    # Cassie's and Cassie2D's split keys by their warp-per-env instances, and
+    # those against their thread-per-env twins by K1e's rule (TOL_EQ, p99),
+    # near the stand (grounded by the 1e-7 q̇-nudge floor over all envs) and
+    # with every foot lifted 1 m
+    k1h_thread = {}
     for v, twin in (("k1h_e", "k1e_cassie"), ("k1h_e2d", "k1e_cassie2d")):
-        kernels[v] = (engine.K1e(cmodel, split(CASSIE_CONFIG), kernels[twin][0].constraints,
-                                 pd_mode=True, extra_damping=cmodel.actuated * cmodel.kd),
-                      kernels[twin][1])
+        new, k1h_thread[v] = (engine.K1e(cmodel, split(CASSIE_CONFIG),
+                                         kernels[twin][0].constraints, pd_mode=True,
+                                         extra_damping=cmodel.actuated * cmodel.kd,
+                                         thread_per_env=tpe) for tpe in (False, True))
+        kernels[v] = (new, kernels[twin][1])
+        check(new.instance.source == engine.SOURCE_W
+              and k1h_thread[v].instance.source == engine.SOURCE,
+              f"{v}: the main path's instance {new.name} is not the warp-per-env one")
         max_abs[v] = compare(*kernels[v], v, TOL_EQ, tail="p99")
+        rounding_floor(new, k1h_thread[v], kernels[v][1], v,
+                       torch.ones(B, dtype=torch.bool, device="cuda"))
+        max_abs[v] = max(max_abs[v], twin_and_lifted(new, k1h_thread[v], kernels[v][1], v, 1.0,
+                                                     TOL_EQ, TOL_EQ, "p99"))
     kernels["k1h_d"] = (engine.K1d(mmodel, split(config), monkey.constraints(), 16),
                         kernels["k1d"][1])
     max_abs["k1h_d"] = compare(*kernels["k1h_d"], "k1h_d", TOL_GRAB, tail="p99")
@@ -1552,7 +1576,8 @@ def main() -> int:
     for v, env_id in (("k1h_e", "CassieEnv"), ("k1h_e2d", "Cassie2DEnv"),
                       ("k1h_d", "Monkey3DStepperEnv")):
         variant = "k1h_e" if v == "k1h_e2d" else v
-        train_lines[v] = train_run(engine, card, env_id, 2, 32, workdir, {variant: 64})
+        train_lines[v] = train_run(engine, card, env_id, 2, 32, workdir, {variant: 64},
+                                   instance=None if v == "k1h_d" else kernels[v][0].name)
         launches[v] = 64
     # this slice's split instances: every family trains with --split-impulse
     for env_id, variant in SPLIT_FAMILIES.items():
@@ -1572,9 +1597,10 @@ def main() -> int:
                  lambda batch, r: near_contact_states(model, r, batch), SWEEP)
     print(f"[sweep] Walker3DCustomEnv-v0 at B={B}: {step_ms['k1a']:.3f} ms per control step on "
           f"{card}")
-    for v, label in (("k1e_cassie", "K1e Cassie"), ("k1e_cassie2d", "K1e Cassie2D")):
+    for v, label in (("k1e_cassie", "K1e Cassie"), ("k1e_cassie2d", "K1e Cassie2D"),
+                     ("k1h_e", "K1h-e Cassie"), ("k1h_e2d", "K1h-e2d Cassie2D")):
         planar = kernels[v][0].constraints.planar
-        design_sweep(engine, card, label, kernels[v][0], k1e_thread[v],
+        design_sweep(engine, card, label, kernels[v][0], {**k1e_thread, **k1h_thread}[v],
                      lambda batch, r, p=planar: cassie_states(cmodel, stand, stand_z, r, p, batch),
                      CASSIE_SWEEP)
     design_sweep(engine, card, "K1b", kernels["k1b"][0], k1b_thread,

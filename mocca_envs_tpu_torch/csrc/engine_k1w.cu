@@ -18,13 +18,17 @@
 //        llc frames × 2 substeps, the torque gain·(target − q) refreshed at
 //        each frame's start), the two achilles rods as point-to-point
 //        equality rows and, for Cassie2D, the planar lock of base y, roll and
-//        yaw in front of the others.
+//        yaw in front of the others;
+//   K1h-e, K1h-e2d  the same two keys with split impulse (the training CLI's
+//        --split-impulse): the push-out bias out of the velocity rows and
+//        the position pass after the velocity sweeps.
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
 // make_pallas_substep (pallas_call at :1441) for those configurations (with
-// pd_mode, hf_patch, num_stones, num_tris and constraints= there:
-// :1276-1352, :371-377, :458-509, :363-375, :511-549, :378-382, :551-616,
-// :280-290, :341, :858-886). It computes what engine_k1.cu's thread-per-env
+// pd_mode, hf_patch, num_stones, num_tris, constraints= and split_impulse
+// there: :1276-1352, :371-377, :458-509, :363-375, :511-549, :378-382,
+// :551-616, :280-290, :341, :858-886; split impulse :898-932, :1077-1111,
+// :1236-1262). It computes what engine_k1.cu's thread-per-env
 // instances of the same keys compute, the same iteration with some sums in
 // another order; those instances stay built for comparison
 // (ops/cuda/engine.py, thread_per_env=True), and every other key keeps its
@@ -37,7 +41,8 @@
 // → free velocity → rows [rods × 3 | planar × 3 | joint limits | contacts ×
 // (n, t1, t2)] → W = L⁻¹Jᵀ per active row → matrix-free block PGS, λ
 // warm-started across the call's substeps, the equality rows unclamped →
-// qd' = v_free + L⁻ᵀ(Wλ) → semi-implicit integrate + limit backstop.
+// [split impulse: the position pass] → qd' = v_free + L⁻ᵀ(Wλ) →
+// semi-implicit integrate + limit backstop.
 //
 // What bounds it. Near contact a K1a call needs ~1.6e5 fp32 operations per
 // env against 0.65 KB of inputs and outputs (K1b the same and the torque;
@@ -54,7 +59,8 @@
 // visit, and every row was solved and visited whether or not it was active.
 // On an H100 at B = 4096 this design runs K1a ~49× above the bound, K1b ~50×
 // and K1f ~58×, each ~16× faster than that one, and K1e ~43× above it, ~7×
-// faster (PERF.md §6).
+// faster; with split impulse (the position pass, ~6% more operations) K1h-e
+// and K1h-e2d run ~48× above theirs, ~6.7× faster (PERF.md §6).
 //
 // Design.
 //   - One warp per env, C::ENVS warps per block, registers for C::BLOCKS
@@ -149,6 +155,25 @@
 // They are always active and swept first. The rods come in the packed table
 // behind the ancestry: link a, link b, anchor a, anchor b per rod.
 //
+// Split impulse (Cfg::SPLIT), as engine_k1.cu's and the plain version's
+// (ops/step.py): a limit row and a contact's normal row take the velocity
+// target −max(−gap, 0)/dt (no approach past the surface) and keep their
+// push-out b = min(β·max(viol − slop, 0), maxpush) aside in bpos (a
+// contact's from its sphere's deepest feature). After the velocity sweeps,
+// a scalar PGS from λ_pos = 0 in every substep of every llc frame, ITERS
+// sweeps over the active limit rows and contact normal rows in the serial
+// order (the JAX reference's static visit list: no rod, planar or
+// friction row), against −bpos with the same W, diagonals and activity.
+// Each visit is one butterfly: res = cfm·λ_pos − b + W_r·z_pos, λ_pos' =
+// max(0, λ_pos − res/diag_r), z_pos += W_r·Δλ_pos, z_pos lane-owned as z
+// is. An inactive row is skipped: its λ_pos starts at 0 and its update is
+// max(0, ·)·act = 0, so the iteration is the same. L⁻ᵀz_pos is the
+// pseudo-velocity, added to the clamped velocity for the position advance
+// alone (the base translation, the base rotation's ω and the joints); the
+// limit backstop clamps the advanced joint and zeroes only the real
+// outward velocity, and qd' is the real velocity. bpos and λ_pos sit in an
+// empty base (SplitState), 168 bytes for Cassie.
+//
 // Host check. The per-env code is written against a lane width: loops run
 // `for (j = lane; j < n; j += WIDTH)`, collectives go through wsum / wbcast /
 // wballot / wsync, and a lane's share of a DOF-indexed vector is an array of
@@ -209,12 +234,13 @@ __device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
 // (PD: NLLC llc frames per call), the equality rows, the launch's envs
 // (warps) per block and the blocks per SM its registers are sized for (at
 // most 65,536 / (32 · ENVS · BLOCKS) a thread), the heightfield window's
-// side, the stones and the mesh faces per env (0: none).
+// side, the stones and the mesh faces per env (0: none), split impulse.
 template <int NL_, int NS_, int NLIM_, int NSUB_, int ITERS_, bool PD_, int NLLC_, int NP2P_,
-          bool PLANAR_, int ENVS_, int BLOCKS_, int PHF_ = 0, int K_ = 0, int KT_ = 0>
+          bool PLANAR_, int ENVS_, int BLOCKS_, int PHF_ = 0, int K_ = 0, int KT_ = 0,
+          bool SPLIT_ = false>
 struct Cfg {
   static constexpr int NL = NL_, NS = NS_, NLIM = NLIM_, NSUB = NSUB_, ITERS = ITERS_;
-  static constexpr bool PD = PD_, PLANAR = PLANAR_;
+  static constexpr bool PD = PD_, PLANAR = PLANAR_, SPLIT = SPLIT_;
   static constexpr int NLLC = NLLC_, NP2P = NP2P_, ENVS = ENVS_, BLOCKS = BLOCKS_, PHF = PHF_;
   static constexpr int K = K_, KT = KT_;
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, 0, 0>;
@@ -292,12 +318,18 @@ template <int KT>
 struct TriState { float tri[KT][TRI_C]; };
 template <>
 struct TriState<0> {};
+// ... and split impulse's push-out bias and pseudo-impulse of the NP limit
+// and contact-normal rows
+template <bool SPLIT, int NP>
+struct SplitState { float bpos[NP], lpos[NP]; };
+template <int NP>
+struct SplitState<false, NP> {};
 
 // One env's state in shared memory.
 template <class C>
 struct EnvW : PdState<C::PD, C::L::NJ>, RodState<C::NP2P>, NrmState<C::GENERAL, C::NS>,
               HfState<C::PHF>, StoneState<C::K>, TriState<C::KT>,
-              KinIn<!C::KIN_IN_W, C::NL, C::L::NV> {
+              SplitState<C::SPLIT, C::NLIM + C::NS>, KinIn<!C::KIN_IN_W, C::NL, C::L::NV> {
   using L = typename C::L;
   float q[L::NQ], qd[L::NV], tau[L::NJ];
   float ground, fric;
@@ -818,7 +850,10 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       const float b_l = fminf(beta * fmaxf(viol - tab[L::LIMSLOP], 0.0f), maxpush);
       const int col = 6 + j;
       for (int i = 0; i < NV; ++i) y[i] = i == col ? sgn : 0.0f;
-      e.c[r] = sgn * e.vfree[col] - (b_l - fmaxf(-viol, 0.0f) / dt);
+      // split impulse: the push-out goes to the position pass
+      if constexpr (C::SPLIT) e.bpos[lr] = b_l;
+      const float bv = C::SPLIT ? 0.0f : b_l;
+      e.c[r] = sgn * e.vfree[col] - (bv - fmaxf(-viol, 0.0f) / dt);
     } else {               // a contact: row n, t1 or t2 of its point Jacobian
       const int s = (r - NE - NLIM) / 3, m = (r - NE - NLIM) % 3;
       const int l = (int)tab[L::SPHLINK + s];
@@ -859,7 +894,9 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       if (m == 0) {
         const float dep = e.depth[s];
         const float b_n = fminf(beta * fmaxf(dep - tab[L::SLOP], 0.0f), maxpush);
-        cv -= b_n - fmaxf(-dep, 0.0f) / dt;
+        if constexpr (C::SPLIT) e.bpos[NLIM + s] = b_n;
+        const float bv = C::SPLIT ? 0.0f : b_n;
+        cv -= bv - fmaxf(-dep, 0.0f) / dt;
       }
       e.c[r] = cv;
     }
@@ -899,19 +936,19 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
         z[jj] += e.u.W[r * WS + j] * e.lam[r];
       }
   }
-  // W_r · z, this lane's part
-  auto part = [&](int r) {
+  // W_r · v, this lane's part, and v += W_r·d, for a lane-owned v (z, z_pos)
+  auto part = [&](int r, const float* v) {
     float p = 0.0f;
     for (int jj = 0; jj < NVL; ++jj) {
       const int j = lane + jj * WIDTH;
-      if (j < NV) p += e.u.W[r * WS + j] * z[jj];
+      if (j < NV) p += e.u.W[r * WS + j] * v[jj];
     }
     return p;
   };
-  auto move = [&](int r, float d) {
+  auto move = [&](int r, float d, float* v) {
     for (int jj = 0; jj < NVL; ++jj) {
       const int j = lane + jj * WIDTH;
-      if (j < NV) z[jj] += e.u.W[r * WS + j] * d;
+      if (j < NV) v[jj] += e.u.W[r * WS + j] * d;
     }
   };
 
@@ -922,17 +959,17 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     for (int t = 0; t < nrows;) {
       const int r = e.rows[t];
       const float l0 = e.lam[r];
-      const float res = e.c[r] + cfm * l0 + wsum(part(r));
+      const float res = e.c[r] + cfm * l0 + wsum(part(r, z));
       float nw = l0 - res / e.diag[r];
       if (!(r < NE0)) nw = fmaxf(0.0f, nw);
       e.lam[r] = nw;
-      move(r, nw - l0);
+      move(r, nw - l0, z);
       if (r < NE + NLIM) { ++t; continue; }
       // a contact's normal row, then its friction pair as one 2×2 step
       const int s = (r - NE - NLIM) / 3, b1 = r + 1, b2 = r + 2;
       const float bound = fric * nw;
       const float l1 = e.lam[b1], l2 = e.lam[b2];
-      float p1 = part(b1), p2 = part(b2);
+      float p1 = part(b1, z), p2 = part(b2, z);
       wsum2(p1, p2);
       const float r1 = e.c[b1] + cfm * l1 + p1, r2 = e.c[b2] + cfm * l2 + p2;
       const float d1 = -(e.finv[s][0] * r1 + e.finv[s][2] * r2);
@@ -949,6 +986,31 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     }
   }
 
+  // ---------------- split impulse: the position pass. Scalar PGS from
+  // λ_pos = 0 over the active limit rows and contact normal rows (behind
+  // the NE0 equality rows in the list; a contact's normal row is followed
+  // by its friction pair), against −bpos; z_pos = Wλ_pos, lane-owned
+  float zp[C::SPLIT ? NVL : 1];
+  if constexpr (C::SPLIT) {
+    static_assert(NE == NE0, "no grab rows in this source");
+    for (int jj = 0; jj < NVL; ++jj) zp[jj] = 0.0f;
+    for (int k = lane; k < NLIM + NS; k += WIDTH) e.lpos[k] = 0.0f;
+    wsync();
+    for (int it = 0; it < C::ITERS; ++it) {
+      for (int t = NE0; t < nrows;) {
+        const int r = e.rows[t];
+        const bool lim = r < NE + NLIM;
+        const int k = lim ? r - NE : NLIM + (r - NE - NLIM) / 3;
+        const float l0 = e.lpos[k];
+        const float res = cfm * l0 - e.bpos[k] + wsum(part(r, zp));
+        const float nw = fmaxf(0.0f, l0 - res / e.diag[r]) * e.act[r];
+        e.lpos[k] = nw;
+        move(r, nw - l0, zp);
+        t += lim ? 1 : 3;
+      }
+    }
+  }
+
   // ---------------- impulse map and integration
   bwd_lanes(z);
   const float maxvel = tab[L::MAXVEL], limslop = tab[L::LIMSLOP];
@@ -957,10 +1019,17 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     const int i = lane + jj * WIDTH;
     qdn[jj] = i < NV ? clampf(e.vfree[i] + z[jj], -maxvel, maxvel) : 0.0f;
   }
+  // the velocity that advances the positions: with split impulse the
+  // pseudo-velocity L⁻ᵀz_pos joins the real one here and nowhere else
+  if constexpr (C::SPLIT) bwd_lanes(zp);
+  auto adv = [&](int jj) -> float {
+    if constexpr (C::SPLIT) return qdn[jj] + zp[jj];
+    else return qdn[jj];
+  };
   // the base rotation: every lane computes it from the broadcast ω
-  const float hx = wbcast(qdn[3 / WIDTH], 3 % WIDTH) * (0.5f * dt);
-  const float hy = wbcast(qdn[4 / WIDTH], 4 % WIDTH) * (0.5f * dt);
-  const float hz = wbcast(qdn[5 / WIDTH], 5 % WIDTH) * (0.5f * dt);
+  const float hx = wbcast(adv(3 / WIDTH), 3 % WIDTH) * (0.5f * dt);
+  const float hy = wbcast(adv(4 / WIDTH), 4 % WIDTH) * (0.5f * dt);
+  const float hz = wbcast(adv(5 / WIDTH), 5 % WIDTH) * (0.5f * dt);
   float bq[4];
   {
     const float theta = sqrtf(hx * hx + hy * hy + hz * hz + 1e-24f);
@@ -978,10 +1047,10 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
   for (int jj = 0; jj < NVL; ++jj) {
     const int i = lane + jj * WIDTH;
     if (i < 3) {
-      e.q[i] += dt * qdn[jj];
+      e.q[i] += dt * adv(jj);
     } else if (i >= 6 && i < NV) {
       const int j = i - 6;
-      const float raw = e.q[7 + j] + dt * qdn[jj];
+      const float raw = e.q[7 + j] + dt * adv(jj);
       const float lo = tab[L::LIMLO + j] - limslop, hi = tab[L::LIMHI + j] + limslop;
       float v = qdn[jj];
       if (raw > hi && v > 0.0f) v = 0.0f;
@@ -1221,4 +1290,15 @@ K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_k6, 22, 14, 21, 4, 4, false, 1, 0, fa
 #if !defined(K1W_ONLY) || K1W_ONLY == 6
 K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_kt16, 22, 14, 21, 4, 4, false, 1, 0, false, 4, 8, 0, 0,
              16)
+#endif
+// Cassie and Cassie2D with split impulse (K1h-e, K1h-e2d): the position pass
+// in each of the 20 substeps of a control step; the launch shape of their
+// unsplit twins, 32 envs in one block per SM
+#if !defined(K1W_ONLY) || K1W_ONLY == 7
+K1W_INSTANCE(k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si, 17, 5, 16, 2, 4, true, 10, 2, false, 32,
+             1, 0, 0, 0, true)
+#endif
+#if !defined(K1W_ONLY) || K1W_ONLY == 8
+K1W_INSTANCE(k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si, 17, 5, 16, 2, 4, true, 10, 2, true,
+             32, 1, 0, 0, 0, true)
 #endif

@@ -17,8 +17,8 @@ warp per env (W and the factor in shared memory, inactive rows skipped),
 which the keys of :data:`WARP_INSTANCES` run (K1a, the walker's and the
 child's; K1b, the PD walker's and the PD child's; K1f, the terrain
 walkers'; K1c, the stepper's; K1g, the stairs'; K1e, Cassie's and
-Cassie2D's), and ``csrc/engine_k1.cu``, one
-thread per env, for every other key. An instance is picked by its
+Cassie2D's, and their split twins K1h-e, K1h-e2d), and
+``csrc/engine_k1.cu``, one thread per env, for every other key. An instance is picked by its
 :class:`Key`: the warp-per-env one where there is one, else the fifteen
 ``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the shipped families at the
 shipped options) and, for any other key, the generic instance whose name
@@ -168,7 +168,8 @@ INSTANTIATIONS = {inst.key: inst for inst in (
 # the PD walker's and the PD child's control step (one llc frame); K1f, the
 # walker over a 16 × 16 heightfield window (the terrain families); K1c, the
 # walker over the stepper's 6 culled stones; K1g, the walker over the
-# stairs' 16 culled mesh faces
+# stairs' 16 culled mesh faces; K1h-e and K1h-e2d, Cassie's and Cassie2D's
+# control step with split impulse
 WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4", 0, Key(**_W), SOURCE_W),
     Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 1, Key(**_C), SOURCE_W),
@@ -178,6 +179,9 @@ WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4_hf16", 4, Key(**_W, hf=16), SOURCE_W),
     Instance("k1w_nl22_ns14_nlim21_sub4_it4_k6", 5, Key(**_W, stones=6), SOURCE_W),
     Instance("k1w_nl22_ns14_nlim21_sub4_it4_kt16", 6, Key(**_W, tris=16), SOURCE_W),
+    Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si", 7, Key(**_C, split=True), SOURCE_W),
+    Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si", 8,
+             Key(**_C, planar=True, split=True), SOURCE_W),
 )}
 
 

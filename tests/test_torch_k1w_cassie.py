@@ -108,10 +108,12 @@ def test_cassie_keys_pick_the_warp_per_env_instance(libs, planar):
     picked = engine.make_kernel(model, CASSIE_CONFIG, pd_mode=True, constraints=new.constraints,
                                 extra_damping=model.actuated * model.kd)
     assert isinstance(picked, engine.K1e) and picked.name == new.name
-    # the split twin keeps its engine_k1.cu instance
+    # the split key has its own warp-per-env instance
+    # (tests/test_torch_k1w_split_cassie.py)
     split = engine.K1e(model, dataclasses.replace(CASSIE_CONFIG, split_impulse=True),
                        new.constraints, pd_mode=True, extra_damping=model.actuated * model.kd)
-    assert split.instance.source == engine.SOURCE and split.name.startswith("k1h_")
+    assert split.instance.source == engine.SOURCE_W and split.name == f"{new.name}_si"
+    assert split.variant == "k1h_e" and split.key != new.key
     # the same table; no global workspace
     assert engine.layout(libs[new.name], new.name) == (new.table_host.size, 0)
     assert engine.layout(libs[old.name], old.name)[1] > 0

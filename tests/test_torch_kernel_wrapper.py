@@ -1093,8 +1093,8 @@ def test_k1g_and_k1h_si_count_their_own_work():
 def test_split_instances_source_arithmetic_on_host(host_library, case):
     """The split-impulse twins of the training path (K1h-c over the
     stepper's stones, K1h-e / K1h-e2d on Cassie's whole PD control step with
-    the rods and the planar lock, K1h-d on the monkey's bars with its grab
-    rows) against their plain versions, at their twins' gates (K1c: K1a's;
+    the rods and the planar lock, by their warp-per-env instances, K1h-d on
+    the monkey's bars with its grab rows) against their plain versions, at their twins' gates (K1c: K1a's;
     Cassie: the equality-row gates, the 99th percentile for the tail; the
     monkey: the bar and grab gates); and the position pass moves the result
     away from the unsplit twin's on the same inputs."""
@@ -1125,13 +1125,13 @@ def test_split_instances_source_arithmetic_on_host(host_library, case):
 def test_split_instances_are_picked_and_the_rest_refused():
     """Split impulse takes the variant it would take without it, counted
     under its split name: K1c over stones (k1h_c), Cassie's and Cassie2D's
-    K1e (k1h_e), the monkey's K1d (k1h_d), K1hSi on the walker's plane on
-    named instances; the PD walker and child (K1b: k1h_b), the torque planar
+    K1e (k1h_e, on their warp-per-env instances), the monkey's K1d (k1h_d),
+    K1hSi on the walker's plane on named instances; the PD walker and child (K1b: k1h_b), the torque planar
     walkers (K1e: k1h_e), a heightfield (K1f: k1h_f) and a mesh (K1g: k1h_g)
     on the generic instance of their keys."""
     names = {"k1h_c": "k1h_nl22_ns14_nlim21_sub4_it4_k6_si",
-             "k1h_e": "k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si",
-             "k1h_e2d": "k1h_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si",
+             "k1h_e": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si",
+             "k1h_e2d": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si",
              "k1h_d": "k1h_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si"}
     for case, twin_case in SPLIT_CASES.items():
         kernel, _ = _kernel_case(case, 2, 0)

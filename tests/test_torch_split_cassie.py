@@ -10,7 +10,11 @@ side one env per call on threads (tests/test_torch_cassie_step.py's
 ``run_per_env``), on chip_smoke.py's states near the stand pose. The gates
 of the non-split step test: per-env medians within q 2e-4, qd 5e-3, depth
 2e-4, normal impulse 5e-3, the largest env within twenty times. The split
-step must part from the unsplit one on the same inputs.
+step must part from the unsplit one on the same inputs. The kernel the
+card runs for this key, the warp-per-env instance of
+``csrc/engine_k1w.cu`` (K1h-e, K1h-e2d), built by g++ under
+``-DK1W_HOST_CHECK`` (tests/torch_k1_host.py), is held to the same JAX
+outputs at the same gates.
 """
 
 import dataclasses
@@ -28,23 +32,41 @@ from mocca_envs_tpu.tasks.cassie_task import CASSIE_CONFIG as JCASSIE_CONFIG
 from mocca_envs_tpu.terrain import scene as jscene
 from mocca_envs_tpu_torch import convert
 from mocca_envs_tpu_torch.models import cassie as tcassie
+from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.ops.step import make_control_step as tcontrol
 from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG as TCASSIE_CONFIG
 from mocca_envs_tpu_torch.terrain import scene as tscene
 
 from tests.test_torch_cassie_step import run_per_env
 from tests.test_torch_split_families import TOL, T, _gate, _parts
+from tests.torch_k1_host import build_host, run_on_host
+
+
+def _warp_unit(planar):
+    """The split K1e unit of Cassie (Cassie2D with the lock) that the card
+    runs: its warp-per-env instance."""
+    tm = tcassie.make_model()
+    spec = dataclasses.replace(tcassie.constraints(), planar=planar)
+    return engine.K1e(tm, dataclasses.replace(TCASSIE_CONFIG, split_impulse=True), spec,
+                      pd_mode=True, extra_damping=tm.actuated * tm.kd)
+
+
+@pytest.fixture(scope="module")
+def warp_libs(tmp_path_factory):
+    """The two warp-per-env split instances built by g++, side by side."""
+    return build_host([_warp_unit(planar) for planar in (False, True)],
+                      tmp_path_factory.mktemp("k1w_split_cassie_jax_host"))
 
 
 @pytest.mark.parametrize("planar", [False, True], ids=["CassieEnv", "Cassie2DEnv"])
-def test_cassie_split_control_step_matches_jax(planar):
+def test_cassie_split_control_step_matches_jax(warp_libs, planar):
     B = 4
     jm, tm = jcassie.make_model(), tcassie.make_model()
     jspec = jcassie.constraints()
     if planar:
         jspec = JSpec(**{**dataclasses.asdict(jspec), "planar": True})
     tspec = convert.constraint_spec_from_numpy(dataclasses.asdict(jspec))
-    q, qd, targets, _, _ = chip_smoke.cassie_states(
+    q, qd, targets, gz, fric = chip_smoke.cassie_states(
         tm, tcassie.stand_q(tm), tcassie.initial_z(), np.random.default_rng(41 + planar),
         planar, B)
     jstep = jcontrol(jm, dataclasses.replace(JCASSIE_CONFIG, split_impulse=True),
@@ -59,5 +81,8 @@ def test_cassie_split_control_step_matches_jax(planar):
         pd_targets=lambda a: a, extra_damping=tm.actuated * tm.kd)(
         *map(T, (q, qd, targets)), tscene.flat(B))) for split in (True, False))
     _gate(got, want, TOL, 20)
+    unit = _warp_unit(planar)
+    assert unit.instance.source == engine.SOURCE_W
+    _gate(run_on_host(warp_libs[unit.name], unit, [q, qd, targets, gz, fric]), want, TOL, 20)
     assert (want[3] > 0).mean() > 0.1                        # the feet carry load
     assert np.abs(got[0] - unsplit[0]).max() > 1e-4          # the position pass moves q
