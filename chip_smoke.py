@@ -9,19 +9,23 @@ Phases, in order; any failure exits non-zero before the result lines:
 1. print the card's name and power limit; build the warp-per-env
    instances of K1a, of Cassie's and Cassie2D's K1e and of their split
    twins K1h-e and K1h-e2d, of the PD walkers' K1b,
-   of the terrain walkers' K1f, of the stepper's K1c and of the stairs' K1g
+   of the terrain walkers' K1f, of the stepper's K1c, of the stairs' K1g
+   and of the stairs' and the terrain walkers' split twins K1h-g and K1h-f
    from
    ``mocca_envs_tpu_torch/csrc/engine_k1w.cu``, the fifteen
    named instances of the engine kernel from
    ``mocca_envs_tpu_torch/csrc/engine_k1.cu``, the generic instance of every
    key phase 2 adds (split impulse on the PD walker at one and two llc
-   frames, the torque planar walkers, terrain and the stairs; the walker's
-   PGS options of :data:`OPTION_CONFIGS`) and the raycast kernel K2 from
+   frames, the torque planar walkers, and the thread-per-env twins of
+   terrain and the stairs; the walker's PGS options of
+   :data:`OPTION_CONFIGS`) and the raycast kernel K2 from
    ``csrc/raycast_k2.cu`` (one nvcc process each, side by side), and print
    each one's ptxas registers and stack frame; the fifteen named frames
    and spills must be :data:`FRAMES`, and each warp-per-env instance must
    spill nothing, use no global workspace and keep the registers, dynamic
-   shared memory per block and envs resident per SM of :data:`WARP_BUILDS`;
+   shared memory per block and envs resident per SM of :data:`WARP_BUILDS`,
+   its resident blocks fitting the card's shared memory per SM (read from
+   the card, with the runtime's reserve per block);
 2. each kernel vs its plain PyTorch version at B = 4096: K1a on walker
    states near contact, and against the thread-per-env K1a at
    :data:`TOL_TWIN` on those states and with every base lifted 3 m (no
@@ -64,9 +68,15 @@ Phases, in order; any failure exits non-zero before the result lines:
    K1e's rule (:data:`TOL_EQ` with the p99 tail) on those states and with
    every foot lifted 1 m, grounded by the 1e-7 q̇-nudge floor over all envs
    (:func:`rounding_floor`); K1h-b (split impulse in PD
-   mode, one and two llc frames), the torque planar K1h-e, K1h-f and K1h-g
-   on the K1b, Walker2D, K1f and K1g states, each held to its twin's gate
-   (K1h-g with K1g's riser rule); the walker's PGS options
+   mode, one and two llc frames) and the torque planar K1h-e on the K1b and
+   Walker2D states, each held to its twin's gate; K1h-f and K1h-g by their
+   warp-per-env instances on the K1f and K1g states, held to their twins'
+   gates (K1h-g by K1g's riser rule), against their thread-per-env twins
+   as K1f's and K1g's are (:func:`twin_and_lifted`, :func:`rounding_floor`;
+   K1h-g off risers), and against their unsplit warp-per-env twins
+   (:func:`split_against_unsplit`: bit for bit with every base lifted 3 m
+   and every joint inside its limits, parting by more than the plain gate
+   near contact); the walker's PGS options
    (:data:`OPTION_CONFIGS`: the A-form, scalar friction rows, a cold start,
    a factor every substep, all four, the A-form with split impulse, and 2
    substeps × 8 sweeps) on the K1a states at K1a's gate, and each A-form
@@ -115,7 +125,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``Walker3DStairsEnv-v0`` for 600 (K1g, by its warp-per-env instance
    alone),
    ``Walker3DCustomEnv-v0`` made with ``EngineConfig(split_impulse=True)``
-   for 200 (K1h-si) and with each of :data:`OPTION_CONFIGS` for 100 (its own
+   for 200 (K1h-si), ``Walker3DStairsEnv-v0``, ``Walker3DTerrainEnv-v0``
+   and ``Walker3DTerrainLidarEnv-v0`` made with it for 200 each (K1h-g,
+   K1h-f, each by its warp-per-env instance alone), the walker with each
+   of :data:`OPTION_CONFIGS` for 100 (its own
    instance, counted under its name and by its symbol in
    ``engine.INSTANCE_LAUNCHES``), and K2's own entry point
    ``make_raycaster`` for 10 calls of 32,768 rays with the origins moved
@@ -142,7 +155,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    launches once per control step),
    ``Monkey3DStepperEnv`` (64 ``k1h_d``) and the seven of
    :data:`SPLIT_FAMILIES` (64 launches each under the name it gives, all by
-   the generic instance phase 1 built for it), 2 updates at horizon 32. Every
+   the instance phase 1 built for it: the warp-per-env K1h-f for the two
+   terrain families and K1h-g for the stairs, the generic one for the
+   others), 2 updates at horizon 32. Every
    metric line must be finite but the env channels the learner leaves NaN
    (no episode ended), and each prints env-steps/s and the seconds of the
    rollout and of the PPO update per update;
@@ -151,7 +166,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    :data:`SWEEP` beside their bound, the two designs of Cassie's and of
    Cassie2D's K1e and of their split twins K1h-e and K1h-e2d likewise at
    each B of :data:`CASSIE_SWEEP`, those of K1b,
-   K1f, K1c and K1g at each B of :data:`WALKER_SWEEP`, the walker's step against the host's
+   K1f, K1c, K1g, K1h-g and K1h-f at each B of :data:`WALKER_SWEEP`, the
+   walker's step against the host's
    time to enqueue it and the device's busy share over 20 traced steps, the
    bound from the operations and bytes these inputs need, and the time of
    the stepper's cull of 20 stones to the window plus their packing (env
@@ -252,12 +268,13 @@ FRAMES = {
 # ~35–45 ms a call at 16,384)
 SWEEP = {4096: 20, 16384: 10, 65536: 5}
 CASSIE_SWEEP = {4096: 10, 16384: 5}
-WALKER_SWEEP = {4096: 20, 16384: 10}   # K1b, K1f, K1c and K1g
+WALKER_SWEEP = {4096: 20, 16384: 10}   # K1b, K1f, K1c, K1g, K1h-g and K1h-f
 # ptxas's registers and the dynamic shared memory per block (bytes) of each
 # warp-per-env instance, and the envs each must keep resident per SM: the
-# walker's keys 4 blocks of 4 envs (K1f's, K1c's and K1g's registers sized
-# for 8), Cassie's one block of 32 (and its split twins'); each as every
-# build since it was written has reported it
+# walker's keys 4 blocks of 4 envs (K1f's, K1c's, K1g's and K1h-f's
+# registers sized for 8), K1h-g's one block of 16, Cassie's one block of 32
+# (and its split twins'); each as every build since it was written has
+# reported it
 WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4": (64, 53008, 16),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2": (64, 202896, 32),
@@ -268,6 +285,8 @@ WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4_kt16": (64, 56240, 16),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si": (64, 208272, 32),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si": (64, 219024, 32),
+    "k1w_nl22_ns14_nlim21_sub4_it4_kt16_si": (92, 214416, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_hf16_si": (61, 54896, 16),
 }
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
@@ -689,8 +708,9 @@ def twin_and_lifted(kernel, twin, args, label: str, lift: float, tol=TOL_TWIN,
 
 
 def rounding_floor(kernel, twin, args, label: str, tail_envs) -> None:
-    """The 1e-7 q̇-nudge measurement behind K1g's twin gate (and behind
-    K1h-e's and K1h-e2d's, over all envs: ``tail_envs`` all true). The
+    """The 1e-7 q̇-nudge measurement behind K1g's and K1h-g's twin gate
+    (and behind K1h-e's, K1h-e2d's and K1h-f's, over all envs: ``tail_envs``
+    all true). The
     thread-per-env ``twin`` runs ``args`` and ``args`` with q̇ nudged by 1e-7
     (relative, numpy seed 0); the per-env |Δq̇| between those two runs is
     the rounding floor. The two designs' per-env |Δq̇| on ``args`` must lie
@@ -718,6 +738,29 @@ def rounding_floor(kernel, twin, args, label: str, tail_envs) -> None:
           f"{label}: the twins part beyond three times the rounding floor: {stats}")
 
 
+def split_against_unsplit(kernel, unsplit, args, label: str, tol) -> None:
+    """A split-impulse instance against its unsplit twin of the same design:
+    with every base lifted 3 m and every joint 0.05 rad inside its limits
+    (no contact, every push-out bias 0) the two must agree bit for bit;
+    on ``args`` (near contact) they must part by more than ``tol``, the gate
+    the split instance is held to against its plain version, in the per-env
+    medians of q and qd (:func:`parts_from_shipped`), so that gate would
+    catch a kernel that ignored the position pass."""
+    model = kernel.model
+    lifted = [args[0].clone(), *args[1:]]
+    lifted[0][:, 2] += 3.0
+    lifted[0][:, 7:] = torch.minimum(torch.maximum(lifted[0][:, 7:], model.limit_lo + 0.05),
+                                     model.limit_hi - 0.05)
+    out, ref = kernel.launch(*lifted), unsplit.launch(*lifted)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(out, ref)]
+    print(f"[compare] {label} vs its unsplit twin {unsplit.name}, every base lifted 3 m and every "
+          f"joint inside its limits: bit-equal q, qd, depth, impulse {same}")
+    check(all(same) and not bool((out[3] != 0).any()),
+          f"{label}: parts from its unsplit twin where every bias is 0: {same}")
+    parts_from_shipped(kernel, unsplit, args, label, tol)
+
+
 def parts_from_shipped(kernel, shipped, args, label: str, tol=TOL) -> None:
     """An option's instance and the ``shipped`` instance, launched once each
     on ``args``: the per-env medians of |Δq| and |Δqd| between them must
@@ -742,7 +785,7 @@ def aform_workspace(engine, kernel, twin, label: str) -> None:
     its matrix-free twin's plus the NR × NR matrix A and the NR residuals
     (a model without equality rows: NR is its limit rows and three rows per
     contact)."""
-    ws = [engine.layout(engine.build([k.key])[k.name], k.name)[1] for k in (kernel, twin)]
+    ws = [engine.layout(engine.build([k.instance])[k.name], k.name)[1] for k in (kernel, twin)]
     nr = kernel.key.nlim + 3 * kernel.key.ns
     print(f"[compare] {label}: workspace {ws[0]} floats per env, its twin {twin.name} {ws[1]}, "
           f"A and the residual {nr} × {nr} + {nr}")
@@ -768,7 +811,8 @@ def build_report(engine, card) -> None:
     """Phase 1's readings: the fifteen named frames as :data:`FRAMES` has
     them; each warp-per-env instance with no spill, no global workspace,
     and its registers, shared memory and envs resident per SM as
-    :data:`WARP_BUILDS` has them."""
+    :data:`WARP_BUILDS` has them, and the shared memory its resident blocks
+    and their reserves hold beside the card's per SM."""
     logs = engine._Library.logs
     for symbol, want in FRAMES.items():
         got = ptxas(logs.get(symbol, ""))
@@ -776,6 +820,9 @@ def build_report(engine, card) -> None:
               f"{symbol}: ptxas frame / spills {got}, want {want}")
     print(f"[build] the fifteen named engine_k1.cu frames and spills unchanged: "
           f"{[v[0] for v in FRAMES.values()]}")
+    smem = engine.smem_limits(engine.build()[next(iter(engine.WARP_INSTANCES.values())).symbol])
+    print(f"[build] {card}: {smem['per_sm']} bytes of shared memory per SM, {smem['per_block']} "
+          f"per block (opt-in), {smem['reserved_per_block']} reserved per resident block")
     for inst in engine.WARP_INSTANCES.values():
         lib = engine.build()[inst.symbol]
         got = ptxas(logs.get(inst.symbol, ""))
@@ -791,6 +838,10 @@ def build_report(engine, card) -> None:
         check(got["spill_stores"] == 0 and got["spill_loads"] == 0,
               f"{inst.symbol}: ptxas reports spills: {got}")
         check(ws == 0 and occ["blocks_per_sm"] >= 1, f"{inst.symbol}: workspace {ws}, {occ}")
+        held = occ["blocks_per_sm"] * (occ["smem_per_block"] + smem["reserved_per_block"])
+        print(f"[build] {inst.symbol}: {occ['blocks_per_sm']} × ({occ['smem_per_block']} + "
+              f"{smem['reserved_per_block']}) = {held} of the SM's {smem['per_sm']} bytes; one "
+              f"more block would need {held + occ['smem_per_block'] + smem['reserved_per_block']}")
         want = WARP_BUILDS[inst.symbol]
         check((got["registers"], occ["smem_per_block"], occ["envs_per_sm"]) == want,
               f"{inst.symbol}: registers, shared memory per block, envs per SM "
@@ -1312,9 +1363,9 @@ def main() -> int:
     kp = model.power_coef * (model.actuated > 0).to(torch.float32)
     cmodel = cassie.make_model("cuda")
     wmodel = walker2d.make_walker2d("cuda")
-    # the instances this slice adds: split impulse on the PD walker (one and
-    # two llc frames), the torque planar walkers, terrain and the stairs;
-    # the walker's PGS options (OPTION_CONFIGS)
+    # split impulse on the PD walker (one and two llc frames), the torque
+    # planar walkers, terrain and the stairs (K1h-f and K1h-g by their
+    # warp-per-env instances); the walker's PGS options (OPTION_CONFIGS)
     added = {
         "k1h_b": engine.K1b(model.replace(kp=kp), split(config), extra_damping=kp / 20.0),
         "k1h_b_llc2": engine.K1b(model.replace(kp=kp), EngineConfig(llc_frames=2,
@@ -1326,12 +1377,18 @@ def main() -> int:
         **{v: engine.make_kernel(model, EngineConfig(**fields))
            for v, fields in OPTION_CONFIGS.items()},
     }
+    # K1h-f's and K1h-g's thread-per-env twins: the generic engine_k1.cu
+    # instances of their keys
+    split_twins = {"k1h_f": engine.K1f(model, split(config), HF_PATCH, thread_per_env=True),
+                   "k1h_g": engine.K1g(model, split(config), thread_per_env=True)}
 
     # ---- phase 1: build
     t0 = time.perf_counter()
-    engine.build([k.key for k in added.values()])
-    print(f"[build] {len(engine.INSTANTIATIONS)} named K1 instances, {len(added)} generic ones "
-          f"and K2 built in {time.perf_counter() - t0:.1f} s")
+    engine.build([k.instance for k in [*added.values(), *split_twins.values()]])
+    generic = sum(k.instance.index is None for k in [*added.values(), *split_twins.values()])
+    print(f"[build] {len(engine.WARP_INSTANCES)} warp-per-env K1 instances, "
+          f"{len(engine.INSTANTIATIONS)} named ones, {generic} generic ones and K2 built in "
+          f"{time.perf_counter() - t0:.1f} s")
     for symbol, log in engine._Library.logs.items():
         for line in log.splitlines():
             if "registers" in line or "stack frame" in line:
@@ -1465,6 +1522,22 @@ def main() -> int:
     print(f"[compare] k1h_g: {int(vertical.sum())} of {B} envs touch a vertical face in the "
           "plain run; the tail gate holds the others")
     max_abs["k1h_g"] = compare(*kernels["k1h_g"], "k1h_g", TOL, tail="p99", tail_envs=~vertical)
+    # K1h-f and K1h-g by their warp-per-env instances: against their
+    # thread-per-env twins as K1f's and K1g's are (K1h-g by the riser rule),
+    # each within the rounding floor (K1h-f over all envs, K1h-g off risers),
+    # on the states and with every base lifted 3 m; and against their unsplit
+    # warp-per-env twins
+    for v, unsplit, plain_tol, tail_envs in (("k1h_f", "k1f", TOL_HF, None),
+                                             ("k1h_g", "k1g", TOL, ~vertical)):
+        new, twin = kernels[v][0], split_twins[v]
+        check(new.instance.source == engine.SOURCE_W and twin.instance.source == engine.SOURCE,
+              f"{v}: the main path's instance {new.name} is not the warp-per-env one")
+        rounding_floor(new, twin, kernels[v][1], v,
+                       torch.ones(B, dtype=torch.bool, device="cuda") if tail_envs is None
+                       else tail_envs)
+        max_abs[v] = max(max_abs[v], twin_and_lifted(new, twin, kernels[v][1], v, 3.0,
+                                                     plain_tol=plain_tol, tail_envs=tail_envs))
+        split_against_unsplit(new, kernels[unsplit][0], kernels[v][1], v, plain_tol)
     for v in OPTION_CONFIGS:
         kernels[v] = (added[v], kernels["k1a"][1])
         max_abs[v] = compare(*kernels[v], v)
@@ -1557,6 +1630,20 @@ def main() -> int:
     print(f"[main] Walker3DCustomEnv-v0 with split impulse: falls over the run "
           f"{sums['fallen']:.0f}, base height at the end median {float(state.q[:, 2].median()):.4f}"
           f" m")
+    # the stairs and the terrain walkers made with split impulse: K1h-g and
+    # K1h-f, each by its warp-per-env instance alone
+    on_stairs.zero_()
+    for v, env_id in (("k1h_g", "Walker3DStairsEnv-v0"), ("k1h_f", "Walker3DTerrainEnv-v0"),
+                      ("k1h_f_lidar", "Walker3DTerrainLidarEnv-v0")):
+        variant = v.removesuffix("_lidar")
+        _, state, _, _, step_ms[v], sums = drive(
+            port, engine, card, env_id, 200, variant, sums=("fallen",),
+            watch=over_a_tread if variant == "k1h_g" else None,
+            instance=kernels[variant][0].name, config=EngineConfig(split_impulse=True))
+        if variant == "k1h_g":
+            stairs_readings(state, sums, on_stairs)
+        else:
+            terrain_readings(env_id, state, sums)
     # the walker made with each PGS option configuration: its own instance
     for v, fields in OPTION_CONFIGS.items():
         launches[v], *_ = drive(port, engine, card, "Walker3DCustomEnv-v0", 100,
@@ -1582,6 +1669,8 @@ def main() -> int:
     # this slice's split instances: every family trains with --split-impulse
     for env_id, variant in SPLIT_FAMILIES.items():
         short = {"k1h_e": "k1h_e_planar"}.get(variant, variant)
+        check(variant not in split_twins or added[short].instance.source == engine.SOURCE_W,
+              f"{env_id} training: {variant} is not on its warp-per-env instance")
         lines = train_run(engine, card, env_id, 2, 32, workdir, {variant: 64},
                           instance=added[short].name)
         train_lines.setdefault(short, lines)
@@ -1612,6 +1701,10 @@ def main() -> int:
                  WALKER_SWEEP)
     design_sweep(engine, card, "K1g", kernels["k1g"][0], k1g_thread,
                  lambda batch, r: stairs_states(model, r, batch), WALKER_SWEEP)
+    design_sweep(engine, card, "K1h-g", kernels["k1h_g"][0], split_twins["k1h_g"],
+                 lambda batch, r: stairs_states(model, r, batch), WALKER_SWEEP)
+    design_sweep(engine, card, "K1h-f", kernels["k1h_f"][0], split_twins["k1h_f"],
+                 lambda batch, r: terrain_states(model, r, batch), WALKER_SWEEP)
     for v, env_id in (("k1b", "Walker3DPDCustomEnv-v0"), ("k1b_child", "Child3DPDCustomEnv-v0"),
                       ("k1f", "Walker3DTerrainEnv-v0"),
                       ("k1f_lidar", "Walker3DTerrainLidarEnv-v0"),
@@ -1624,7 +1717,7 @@ def main() -> int:
     times["k2"] = raycast_time_and_bound(card, raycaster, ray_main, max_abs["k2"])
     window_and_pack_time(engine, card, terrain_state)
     for v in ("k1b", "k1b_child", "k1c", "k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d",
-              "k1f", "k1f_lidar", "k1g", "k1h_si"):
+              "k1f", "k1f_lidar", "k1g", "k1h_si", "k1h_g", "k1h_f", "k1h_f_lidar"):
         kernel_ms = times[v.removesuffix("_lidar").removesuffix("_child")]["ms"]
         print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {kernel_ms:.4f} "
               f"ms/call, so {step_ms[v] - kernel_ms:.3f} ms/step outside the kernel "

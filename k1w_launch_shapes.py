@@ -1,12 +1,14 @@
 """Launch shapes of the warp-per-env K1 instances on one NVIDIA GPU: Cassie's
 and Cassie2D's K1e, the PD walkers' K1b, the terrain walkers' K1f, the
-stepper's K1c and the stairs' K1g.
+stepper's K1c, the stairs' K1g, and the stairs' and the terrain walkers'
+split twins K1h-g and K1h-f.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python3 k1w_launch_shapes.py
+    python3 k1w_launch_shapes.py [group ...]
 
-Builds each instance of :data:`GROUPS` from
+(no group: every group of :data:`GROUPS`). Prints the card's shared memory
+per SM, then builds each instance of the groups from
 ``mocca_envs_tpu_torch/csrc/engine_k1w.cu`` at each launch shape of its
 group (envs per block × the ``__launch_bounds__`` minimum of blocks per SM,
 which caps the registers; the shipped shape first) into ``build/shapes/``,
@@ -33,41 +35,45 @@ import torch
 import chip_smoke
 
 # an instance's name, its nine model and solver arguments, envs per block,
-# blocks per SM, and the scene's sizes behind them (window side, stones,
-# faces; any of them may be left out)
-INSTANCE = re.compile(r"(K1W_INSTANCE\((\w+),(?:[^,()]*,){9})\s*(\d+),\s*(\d+)((?:,\s*\d+)*\))")
-# group → (its symbols' common prefix, its shapes with the shipped one first,
-# timed calls per B). Cassie: one block of 32 (shipped), two of 16, four of 8
-# (the same 32 envs per SM), three of 8 (24 per SM). The walker's keys, at
-# the same 16 envs per SM: blocks of 4 with registers for 4 or for 8 blocks
-# (capped at 64; K1f, K1c and K1g ship that, K1b the other), two of 8, one
-# of 16
+# blocks per SM, and the arguments behind them (window side, stones, faces,
+# split impulse; any of them may be left out)
+INSTANCE = re.compile(r"(K1W_INSTANCE\((\w+),(?:[^,()]*,){9})\s*(\d+),\s*(\d+)((?:,\s*\w+)*\))")
+W = "k1w_nl22_ns14_nlim21_sub4_it4"
+# group → (its symbols, its shapes with the shipped one first, timed calls
+# per B). Cassie: one block of 32 (shipped), two of 16, four of 8 (the same
+# 32 envs per SM), three of 8 (24 per SM). The walker's keys, at the same
+# 16 envs per SM where shared memory allows: blocks of 4 with registers for
+# 4 or for 8 blocks (capped at 64; K1f, K1c, K1g and K1h-f ship that, K1b
+# the other), two of 8, one of 16 (K1h-g ships that: four blocks of its 4
+# envs overrun the SM's shared memory, so its blocks of 4 hold 12 per SM)
 GROUPS = {
-    "cassie": ("k1w_nl17_", [(32, 1), (16, 2), (8, 4), (8, 3)], {4096: 10, 16384: 5}),
-    "pd": ("k1w_nl22_ns14_nlim21_sub4_it4_llc1", [(4, 4), (4, 8), (8, 2), (16, 1)],
-           {4096: 20, 16384: 10}),
-    "terrain": ("k1w_nl22_ns14_nlim21_sub4_it4_hf16", [(4, 8), (4, 4), (8, 2), (16, 1)],
-                {4096: 20, 16384: 10}),
-    "stones": ("k1w_nl22_ns14_nlim21_sub4_it4_k6", [(4, 8), (4, 4), (8, 2), (16, 1)],
-               {4096: 20, 16384: 10}),
-    "mesh": ("k1w_nl22_ns14_nlim21_sub4_it4_kt16", [(4, 8), (4, 4), (8, 2), (16, 1)],
-             {4096: 20, 16384: 10}),
+    "cassie": (("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2",
+                "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar"),
+               [(32, 1), (16, 2), (8, 4), (8, 3)], {4096: 10, 16384: 5}),
+    "pd": ((f"{W}_llc1",), [(4, 4), (4, 8), (8, 2), (16, 1)], {4096: 20, 16384: 10}),
+    "terrain": ((f"{W}_hf16",), [(4, 8), (4, 4), (8, 2), (16, 1)], {4096: 20, 16384: 10}),
+    "stones": ((f"{W}_k6",), [(4, 8), (4, 4), (8, 2), (16, 1)], {4096: 20, 16384: 10}),
+    "mesh": ((f"{W}_kt16",), [(4, 8), (4, 4), (8, 2), (16, 1)], {4096: 20, 16384: 10}),
+    "mesh_split": ((f"{W}_kt16_si",), [(16, 1), (4, 8), (4, 4), (8, 2)],
+                   {4096: 20, 16384: 10}),
+    "terrain_split": ((f"{W}_hf16_si",), [(4, 8), (4, 4), (8, 2), (16, 1)],
+                      {4096: 20, 16384: 10}),
 }
 
 
-def build_shapes(engine, out: Path) -> dict:
+def build_shapes(engine, out: Path, groups) -> dict:
     """``{(envs, blocks, symbol): (CDLL, ptxas report)}`` of every shape of
-    every instance of :data:`GROUPS`."""
+    every instance of ``groups``."""
     src = engine.SOURCE_W.read_text()
     found = {m.group(2): (int(m.group(3)), int(m.group(4))) for m in INSTANCE.finditer(src)}
     out.mkdir(parents=True, exist_ok=True)
     running = []
-    for prefix, shapes, _ in GROUPS.values():
-        mine = {sym for sym in found if sym.startswith(prefix)}
-        chip_smoke.check(bool(mine) and {found[s] for s in mine} == {shapes[0]},
-                         f"the source's {prefix}* instances are not at {shapes[0]}: {found}")
+    for group in groups:
+        mine, shapes, _ = GROUPS[group]
+        chip_smoke.check({found.get(s) for s in mine} == {shapes[0]},
+                         f"the source's {group} instances are not at {shapes[0]}: {found}")
         for envs, blocks in shapes:
-            path = out / f"engine_k1w_{prefix}e{envs}_b{blocks}.cu"
+            path = out / f"engine_k1w_{group}_e{envs}_b{blocks}.cu"
             path.write_text(INSTANCE.sub(
                 lambda m: f"{m.group(1)} {envs}, {blocks}{m.group(5)}" if m.group(2) in mine
                 else m.group(0), src))
@@ -99,7 +105,8 @@ def cases(engine, rng):
     """``[(group, make a wrapper, states(batch))]``: Cassie and Cassie2D (the
     whole PD control step near the stand), the PD walker (random targets
     near contact), the terrain walker (over the family's grids), the stepper
-    (over its culled stones) and the stairs walker (over the culled faces)."""
+    (over its culled stones) and the stairs walker (over the culled faces);
+    the stairs walker and the terrain walker also with split impulse."""
     from mocca_envs_tpu_torch.models import cassie, walker3d
     from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
     from mocca_envs_tpu_torch.terrain.scene import HF_PATCH
@@ -124,10 +131,21 @@ def cases(engine, rng):
                     wmodel, rng, EngineConfig().stone_window, batch)))
     out.append(("mesh", lambda: engine.K1g(wmodel, EngineConfig()),
                 lambda batch: chip_smoke.stairs_states(wmodel, rng, batch)))
+    split = EngineConfig(split_impulse=True)
+    out.append(("mesh_split", lambda: engine.K1g(wmodel, split),
+                lambda batch: chip_smoke.stairs_states(wmodel, rng, batch)))
+    out.append(("terrain_split", lambda: engine.K1f(wmodel, split, HF_PATCH),
+                lambda batch: chip_smoke.terrain_states(wmodel, rng, batch)))
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    groups = list(sys.argv[1:] if argv is None else argv) or list(GROUPS)
+    unknown = [g for g in groups if g not in GROUPS]
+    if unknown:
+        print(f"k1w_launch_shapes: unknown groups {unknown}; the groups are {list(GROUPS)}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("k1w_launch_shapes: no CUDA device", file=sys.stderr)
         return 1
@@ -139,9 +157,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
-    libs = build_shapes(engine, Path("build/shapes"))
+    libs = build_shapes(engine, Path("build/shapes"), groups)
+    smem = engine.smem_limits(next(iter(libs.values()))[0])
+    print(f"[shape] {card}: {smem['per_sm']} bytes of shared memory per SM, {smem['per_block']} "
+          f"per block (opt-in), {smem['reserved_per_block']} reserved per resident block")
     rng = np.random.default_rng(chip_smoke.SEED)
     for group, make, states in cases(engine, rng):
+        if group not in groups:
+            continue
         _, shapes, batches = GROUPS[group]
         kernels = {}
         for envs, blocks in shapes:

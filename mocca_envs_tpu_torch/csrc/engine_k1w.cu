@@ -21,7 +21,9 @@
 //        yaw in front of the others;
 //   K1h-e, K1h-e2d  the same two keys with split impulse (the training CLI's
 //        --split-impulse): the push-out bias out of the velocity rows and
-//        the position pass after the velocity sweeps.
+//        the position pass after the velocity sweeps;
+//   K1h-g, K1h-f  K1g's and K1f's keys with split impulse: the same pass
+//        over the contacts' own normals (mesh faces, heightfield window).
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
 // make_pallas_substep (pallas_call at :1441) for those configurations (with
@@ -60,7 +62,8 @@
 // On an H100 at B = 4096 this design runs K1a ~49× above the bound, K1b ~50×
 // and K1f ~58×, each ~16× faster than that one, and K1e ~43× above it, ~7×
 // faster; with split impulse (the position pass, ~6% more operations) K1h-e
-// and K1h-e2d run ~48× above theirs, ~6.7× faster (PERF.md §6).
+// and K1h-e2d run ~48× above theirs, ~6.7× faster, K1h-g ~48× and K1h-f
+// ~67×, ~12.5× and ~13× faster (PERF.md §6).
 //
 // Design.
 //   - One warp per env, C::ENVS warps per block, registers for C::BLOCKS
@@ -89,7 +92,12 @@
 //     233,472 bytes with each block's 1 KB reserve. K1f's registers are
 //     sized for 8 blocks: 63, no spill, where sized for 4 it took 95 and ran
 //     no faster; blocks of 8 or 16 envs, at the same 16 per SM, ran within 2%
-//     of these (k1w_launch_shapes.py). K1c and K1g take the same shape.
+//     of these (k1w_launch_shapes.py). K1c and K1g take the same shape, and
+//     K1h-f (EnvW 12,472: split impulse's 280 bytes; 61 registers). K1h-g's
+//     13,088 bytes would take four blocks of 4 to 4 × (57,360 + 1,024) =
+//     233,536, 64 over the SM: at 3 blocks (12 envs per SM) it ran 23%
+//     slower at B = 4096; as one block of 16 envs (214,416 bytes, registers
+//     for one block: 92, no spill) it ran fastest, two blocks of 8 3% slower.
 //   - Lanes: link i for the FK, the Newton–Euler passes and the CRBA
 //     composites, one tree level at a time (depth 6 for the walker, 7 for
 //     Cassie; a parent sums its children in the order the serial code does);
@@ -172,7 +180,10 @@
 // alone (the base translation, the base rotation's ω and the joints); the
 // limit backstop clamps the advanced joint and zeroes only the real
 // outward velocity, and qd' is the real velocity. bpos and λ_pos sit in an
-// empty base (SplitState), 168 bytes for Cassie.
+// empty base (SplitState), 168 bytes for Cassie, 280 for the walker. Where
+// contacts have their own normals (Cfg::GENERAL) a contact's normal row is
+// its n·Jc row and its bias comes from the sphere's deepest feature, so the
+// pass pushes out along that normal (sideways off a riser).
 //
 // Host check. The per-env code is written against a lane width: loops run
 // `for (j = lane; j < n; j += WIDTH)`, collectives go through wsum / wbcast /
@@ -1199,8 +1210,9 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
 // <sym>_occupancy. One entry per instance: (NL, NS, NLIM, NSUB, ITERS, PD,
 // NLLC, NP2P, PLANAR) at the shipped solver options, then envs per block and
 // blocks per SM, then the window's side, the stones and the faces where
-// there are any; ops/cuda/engine.py::WARP_INSTANCES lists the same names and
-// numbers.
+// there are any, and split impulse; ops/cuda/engine.py::WARP_INSTANCES lists
+// the same names and numbers. Each library also exports k1w_smem_limits,
+// the card's shared memory per SM, per block and reserved per block.
 #define K1W_LAYOUT(NAME, ...)                                                                \
   using NAME##_cfg = k1w::Cfg<__VA_ARGS__>;                                                  \
   extern "C" int NAME##_layout(int* table_size, int* ws_per_env) {                          \
@@ -1224,6 +1236,19 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
                                   int* smem_bytes) {                                        \
     return k1w::occupancy<NAME##_cfg>(blocks_per_sm, envs_per_block, smem_bytes);           \
   }
+// The current card's shared memory: per SM, per block (opt-in) and the
+// reserve the runtime keeps per resident block (bytes)
+extern "C" int k1w_smem_limits(int* per_sm, int* per_block, int* reserved) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err == 0)
+    err = (int)cudaDeviceGetAttribute(per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == 0)
+    err = (int)cudaDeviceGetAttribute(per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == 0)
+    err = (int)cudaDeviceGetAttribute(reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  return err;
+}
 #else
 // host check: the same per-env code at lane width 1, a plain loop over envs
 #define K1W_INSTANCE(NAME, ...)                                                              \
@@ -1301,4 +1326,17 @@ K1W_INSTANCE(k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si, 17, 5, 16, 2, 4, true, 
 #if !defined(K1W_ONLY) || K1W_ONLY == 8
 K1W_INSTANCE(k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si, 17, 5, 16, 2, 4, true, 10, 2, true,
              32, 1, 0, 0, 0, true)
+#endif
+// The stairs' and the terrain walkers' keys with split impulse (K1h-g,
+// K1h-f): the position pass over the contacts' own normals. K1h-g's EnvW
+// (13,088 bytes) puts four blocks of 4 envs 64 bytes over the SM's shared
+// memory, so its 16 envs per SM run as one block of 16 (registers for one
+// block); K1h-f keeps K1f's shape
+#if !defined(K1W_ONLY) || K1W_ONLY == 9
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_kt16_si, 22, 14, 21, 4, 4, false, 1, 0, false, 16, 1, 0,
+             0, 16, true)
+#endif
+#if !defined(K1W_ONLY) || K1W_ONLY == 10
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_hf16_si, 22, 14, 21, 4, 4, false, 1, 0, false, 4, 8, 16,
+             0, 0, true)
 #endif

@@ -17,7 +17,7 @@ warp per env (W and the factor in shared memory, inactive rows skipped),
 which the keys of :data:`WARP_INSTANCES` run (K1a, the walker's and the
 child's; K1b, the PD walker's and the PD child's; K1f, the terrain
 walkers'; K1c, the stepper's; K1g, the stairs'; K1e, Cassie's and
-Cassie2D's, and their split twins K1h-e, K1h-e2d), and
+Cassie2D's, and the split twins K1h-e, K1h-e2d, K1h-g, K1h-f), and
 ``csrc/engine_k1.cu``, one thread per env, for every other key. An instance is picked by its
 :class:`Key`: the warp-per-env one where there is one, else the fifteen
 ``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the shipped families at the
@@ -169,7 +169,8 @@ INSTANTIATIONS = {inst.key: inst for inst in (
 # walker over a 16 × 16 heightfield window (the terrain families); K1c, the
 # walker over the stepper's 6 culled stones; K1g, the walker over the
 # stairs' 16 culled mesh faces; K1h-e and K1h-e2d, Cassie's and Cassie2D's
-# control step with split impulse
+# control step with split impulse; K1h-g and K1h-f, the stairs' and the
+# terrain walkers' frame with split impulse
 WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4", 0, Key(**_W), SOURCE_W),
     Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 1, Key(**_C), SOURCE_W),
@@ -182,6 +183,10 @@ WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si", 7, Key(**_C, split=True), SOURCE_W),
     Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si", 8,
              Key(**_C, planar=True, split=True), SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_kt16_si", 9, Key(**_W, tris=16, split=True),
+             SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_hf16_si", 10, Key(**_W, hf=16, split=True),
+             SOURCE_W),
 )}
 
 
@@ -257,16 +262,17 @@ class _Library:
     logs: dict = {}
 
 
-def build(keys=()) -> dict:
+def build(instances=()) -> dict:
     """Compile the warp-per-env instances of ``csrc/engine_k1w.cu``, the
-    fifteen named instances of ``csrc/engine_k1.cu``, the generic instance
-    of each of ``keys`` and the raycast kernel of ``csrc/raycast_k2.cu``
-    whose library is missing or older than its sources, all compilers
-    started together, and load them: ``{symbol: CDLL}``. What is loaded
-    already is kept; a failed build raises with nvcc's output;
-    ``_Library.logs`` keeps nvcc's report per symbol."""
+    fifteen named instances of ``csrc/engine_k1.cu``, each of ``instances``
+    (a generic thread-per-env one included) and the raycast kernel of
+    ``csrc/raycast_k2.cu`` whose library is missing or older than its
+    sources, all compilers started together, and load them:
+    ``{symbol: CDLL}``. What is loaded already is kept; a
+    failed build raises with nvcc's output; ``_Library.logs`` keeps nvcc's
+    report per symbol."""
     insts = {i.symbol: i for i in [*WARP_INSTANCES.values(), *INSTANTIATIONS.values(),
-                                   *map(instance_for, keys)]}
+                                   *instances]}
     if all(sym in _Library.handles for sym in [*insts, RAYCAST_SYMBOL]):
         return _Library.handles
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -335,6 +341,21 @@ def occupancy(lib, name: str) -> dict:
         raise RuntimeError(f"{name}: occupancy query failed: cudaError {err}")
     return {"blocks_per_sm": blocks.value, "envs_per_block": envs.value,
             "envs_per_sm": blocks.value * envs.value, "smem_per_block": smem.value}
+
+
+def smem_limits(lib) -> dict:
+    """The current card's shared memory in bytes, read through a
+    warp-per-env instance's library (``cudaDeviceGetAttribute``): per SM, per
+    block (opt-in) and the reserve the runtime keeps per resident block."""
+    per_sm, per_block, reserved = _I(), _I(), _I()
+    lib.k1w_smem_limits.argtypes = [ctypes.POINTER(_I)] * 3
+    lib.k1w_smem_limits.restype = _I
+    err = lib.k1w_smem_limits(ctypes.byref(per_sm), ctypes.byref(per_block),
+                              ctypes.byref(reserved))
+    if err != 0:
+        raise RuntimeError(f"shared memory query failed: cudaError {err}")
+    return {"per_sm": per_sm.value, "per_block": per_block.value,
+            "reserved_per_block": reserved.value}
 
 
 def kernel_key(model: RobotModel, config: EngineConfig, num_stones: int, num_bars: int,
@@ -600,7 +621,7 @@ class EngineKernel:
         """Launch the kernel on the current stream; raises on any failure."""
         B = self._check_inputs(q, qd, tau, ground_z, friction, scene_inputs)
         if self._lib is None:
-            lib = build([self.key])[self.name]
+            lib = build([self.instance])[self.name]
             table_size, ws_per_env = layout(lib, self.name)
             if table_size != self.table_host.size:
                 raise RuntimeError(

@@ -998,9 +998,11 @@ def test_k1h_si_source_arithmetic_on_host(host_library):
 def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
     """make_kernel picks K1g for mesh faces and K1h-si for split impulse on
     the walker's plane; a mesh with anything else raises, naming what is
-    missing; another face window, split impulse on a mesh, in PD mode, on the
-    planar walkers and on Cassie's plane are keys of the generic instance,
-    each counted under its split name; K1a with split impulse and K1hSi
+    missing; another face window, split impulse on another face window, in
+    PD mode, on the planar walkers and on Cassie's plane are keys of the
+    generic instance, each counted under its split name; split impulse on
+    the 16-face mesh is K1h-g's warp-per-env instance (its generic one only
+    with ``thread_per_env=True``); K1a with split impulse and K1hSi
     without it raise (split impulse over stones is K1h-c:
     test_split_instances_are_picked_and_the_rest_refused)."""
     model, config = walker3d.make_model(), EngineConfig()
@@ -1013,6 +1015,14 @@ def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
         == "k1g_nl22_ns14_nlim21_sub4_it4_kt16"
     si = engine.make_kernel(model, split)
     assert isinstance(si, engine.K1hSi) and si.inputs == () and si.variant == "k1h_si"
+    for build in (lambda: engine.make_kernel(model, split, num_tris=16),
+                  lambda: engine.K1g(model, split)):
+        k1h_g = build()
+        assert isinstance(k1h_g, engine.K1g) and k1h_g.variant == "k1h_g"
+        assert k1h_g.name == "k1w_nl22_ns14_nlim21_sub4_it4_kt16_si"
+        assert k1h_g.instance.source == engine.SOURCE_W
+    _assert_generic(engine.K1g(model, split, thread_per_env=True), f"{W}_sub4_it4_kt16_si",
+                    "k1h_g")
     for build in (lambda: engine.make_kernel(model, config, num_tris=16, num_stones=6),
                   lambda: engine.make_kernel(model, config, num_tris=16, pd_mode=True),
                   lambda: engine.make_kernel(model, config, num_tris=16, hf_patch=HF_PATCH)):
@@ -1020,9 +1030,8 @@ def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
             build()
     for build, symbol, variant in (
             (lambda: engine.make_kernel(model, config, num_tris=8), f"{W}_sub4_it4_kt8", "k1g"),
-            (lambda: engine.make_kernel(model, split, num_tris=16), f"{W}_sub4_it4_kt16_si",
+            (lambda: engine.make_kernel(model, split, num_tris=8), f"{W}_sub4_it4_kt8_si",
              "k1h_g"),
-            (lambda: engine.K1g(model, split), f"{W}_sub4_it4_kt16_si", "k1h_g"),
             (lambda: engine.make_kernel(model, split, pd_mode=True), f"{W}_sub4_it4_llc1_si",
              "k1h_b"),
             (lambda: engine.make_kernel(walker2d.make_walker2d(), split,
@@ -1126,9 +1135,11 @@ def test_split_instances_are_picked_and_the_rest_refused():
     """Split impulse takes the variant it would take without it, counted
     under its split name: K1c over stones (k1h_c), Cassie's and Cassie2D's
     K1e (k1h_e, on their warp-per-env instances), the monkey's K1d (k1h_d),
-    K1hSi on the walker's plane on named instances; the PD walker and child (K1b: k1h_b), the torque planar
-    walkers (K1e: k1h_e), a heightfield (K1f: k1h_f) and a mesh (K1g: k1h_g)
-    on the generic instance of their keys."""
+    K1hSi on the walker's plane on named instances; a heightfield (K1f:
+    k1h_f) and a mesh (K1g: k1h_g) on their warp-per-env instances, their
+    generic ones only with ``thread_per_env=True``; the PD walker and child
+    (K1b: k1h_b) and the torque planar walkers (K1e: k1h_e) on the generic
+    instance of their keys."""
     names = {"k1h_c": "k1h_nl22_ns14_nlim21_sub4_it4_k6_si",
              "k1h_e": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si",
              "k1h_e2d": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si",
@@ -1146,9 +1157,9 @@ def test_split_instances_are_picked_and_the_rest_refused():
     for build, symbol, variant in (
             (lambda: engine.make_kernel(model.replace(kp=kp), split, pd_mode=True,
                                         extra_damping=kp / 20.0), f"{W}_sub4_it4_llc1_si", "k1h_b"),
-            (lambda: engine.make_kernel(walker3d.make_model(), split, hf_patch=HF_PATCH),
+            (lambda: engine.K1f(model, split, HF_PATCH, thread_per_env=True),
              f"{W}_sub4_it4_hf16_si", "k1h_f"),
-            (lambda: engine.make_kernel(model, split, num_tris=16), f"{W}_sub4_it4_kt16_si",
+            (lambda: engine.K1g(model, split, thread_per_env=True), f"{W}_sub4_it4_kt16_si",
              "k1h_g"),
             (lambda: engine.make_kernel(walker2d.make_walker2d(), split,
                                         constraints=walker2d.planar_spec()),
@@ -1157,6 +1168,11 @@ def test_split_instances_are_picked_and_the_rest_refused():
                                         constraints=walker2d.planar_spec()),
              "k1_nl7_ns5_nlim6_sub4_it4_planar_si", "k1h_e")):
         _assert_generic(build(), symbol, variant)
+    for picked, symbol, index in (
+            (engine.make_kernel(model, split, hf_patch=HF_PATCH), "hf16_si", 10),
+            (engine.make_kernel(model, split, num_tris=16), "kt16_si", 9)):
+        assert picked.name == f"k1w_nl22_ns14_nlim21_sub4_it4_{symbol}"
+        assert engine.compile_flags(picked.instance) == [f"-DK1W_ONLY={index}"]
     # a split instance is not taken for the unsplit config, nor the reverse
     with pytest.raises(NotImplementedError, match="split_impulse"):
         engine.K1hSi(model, EngineConfig())

@@ -3,9 +3,10 @@ stairs (CPU): the JAX package, the port's plain path and the K1 kernel
 source.
 
 ``python -m mocca_envs_tpu_torch.harness.train --split-impulse`` builds each
-family's ``EngineConfig()`` with the flag on; on the card those families
-run the generic K1 instances of their split keys (K1h-b, the planar K1h-e,
-K1h-f, K1h-g).
+family's ``EngineConfig()`` with the flag on; on the card the PD walkers
+and the torque planar walkers run the generic K1 instances of their split
+keys (K1h-b, the planar K1h-e), the terrain walkers and the stairs the
+warp-per-env instances of ``csrc/engine_k1w.cu`` (K1h-f, K1h-g).
 
 - One control step of each through the port's plain path and the JAX
   package's ``make_control_step`` (its XLA path) on the same numpy states,
@@ -17,9 +18,14 @@ K1h-f, K1h-g).
   heightfield gates: q 2e-4, qd 1e-2, depth 5e-4, impulse 1e-2) and the
   stairs (K1a's gates; the tail over the envs with no riser contact, and
   the JAX mesh gate, 97% of q within 1e-3). The JAX steps compile side by
-  side on a thread pool. Each checks that the position pass has work.
-- The generic instance of each split key, built for the host
-  (``-DK1_HOST_CHECK``), against the port's plain version on
+  side on a thread pool. Each checks that the position pass has work. For
+  the terrain walker and the stairs the warp-per-env instance's host build
+  (``-DK1W_HOST_CHECK``) runs the same step (one llc frame) on the window
+  and the culled faces the port's step packs, and is held to the same JAX
+  outputs at the same gates.
+- The instance of each split key, built for the host (the generic one,
+  ``-DK1_HOST_CHECK``; K1h-f's and K1h-g's warp-per-env one,
+  ``-DK1W_HOST_CHECK``), against the port's plain version on
   chip_smoke.py's states at its twin's gates (the PD walker at one and two
   llc frames, Walker2D and Crab2D, the terrain walker, the stairs).
 
@@ -47,6 +53,7 @@ from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.ops.step import make_control_step as tcontrol
 from mocca_envs_tpu_torch.terrain import scene as tscene
 from mocca_envs_tpu_torch.terrain.heightfield import with_heightfield
+from mocca_envs_tpu_torch.terrain.scene import HF_PATCH
 from mocca_envs_tpu_torch.utils.config import EngineConfig as TConfig
 
 from tests.test_torch_kernel_wrapper import SPLIT_REST, _split_kernel
@@ -102,7 +109,7 @@ def _pd_walker():
         qq, dd, info = jstep(a, b, c, jscene.flat())
         return qq, dd, info.contacts.depth, info.normal_impulse
 
-    return one, (q, qd, action), port, TOL, None
+    return one, (q, qd, action), port, TOL, None, None
 
 
 def _walker2d():
@@ -125,7 +132,20 @@ def _walker2d():
         qq, dd, info = jstep(a, b, c, jscene.flat())
         return qq, dd, info.contacts.depth, info.normal_impulse
 
-    return one, (q, qd, action), port, TOL_EQ, None
+    return one, (q, qd, action), port, TOL_EQ, None, None
+
+
+def _kernel_inputs(q, qd, tau, scene):
+    """Numpy K1 inputs of one llc frame over ``scene`` as the port's step
+    packs them: the faces culled to the window nearest the root, the
+    heightfield cut to the window around it."""
+    q, config = T(q), TConfig()
+    scene = tscene.cull_tris(scene, q[:, 0:2], config.tri_window)
+    if scene.has_hf:
+        scene = tscene.extract_patch(scene, q[:, 0:2], HF_PATCH)
+    packed = engine.pack_hf(scene) if scene.has_hf else engine.pack_tris(scene)
+    return [np.ascontiguousarray(x.numpy()) for x in (
+        q, T(qd), tau, scene.ground_z, scene.friction, packed)]
 
 
 def _terrain():
@@ -143,6 +163,9 @@ def _terrain():
         step = tcontrol(tm, TConfig(split_impulse=split), actuation=tact)
         return _parts(step(T(q), T(qd), T(action), with_heightfield(T(heights), extent=EXTENT)))
 
+    host = _kernel_inputs(q, qd, tact(None, None, T(action)),
+                          with_heightfield(T(heights), extent=EXTENT))
+
     def one(a, b, c, h):
         sc = jscene.Scene(has_ground=False, has_hf=True, hf_height=h,
                           hf_xy0=jnp.full(2, -EXTENT / 2), hf_cell=jnp.asarray(cell),
@@ -150,7 +173,7 @@ def _terrain():
         qq, dd, info = jstep(a, b, c, jscene.extract_patch(sc, a[0:2], tscene.HF_PATCH))
         return qq, dd, info.contacts.depth, info.normal_impulse
 
-    return one, (q, qd, action, heights), port, TOL_HF, None
+    return one, (q, qd, action, heights), port, TOL_HF, None, host
 
 
 def _stairs():
@@ -179,7 +202,9 @@ def _stairs():
     kernel_args[2] = T(gain) * torch.clamp(T(action), -1, 1)
     vertical = chip_smoke.vertical_contacts(engine.K1g(tm, TConfig(split_impulse=True)),
                                             kernel_args).numpy()
-    return one, (q, qd, action), port, TOL, ~vertical
+    host = _kernel_inputs(q, qd, kernel_args[2],
+                          tscene.broadcast_scene(tscene.stairs_trimesh(**STAIRS), B))
+    return one, (q, qd, action), port, TOL, ~vertical, host
 
 
 FAMILIES = {"pd_walker": _pd_walker, "walker2d": _walker2d, "terrain": _terrain,
@@ -189,7 +214,8 @@ FAMILIES = {"pd_walker": _pd_walker, "walker2d": _walker2d, "terrain": _terrain,
 @pytest.fixture(scope="module")
 def jax_steps():
     """Per family: (JAX outputs, the port's step with and without split
-    impulse, its gate, the envs its tail gate holds)."""
+    impulse, its gate, the envs its tail gate holds, the warp-per-env
+    instance's inputs or None)."""
     cases = {name: make() for name, make in FAMILIES.items()}
 
     def run(case):
@@ -202,11 +228,17 @@ def jax_steps():
     return {name: (want[name], *case[2:]) for name, case in cases.items()}
 
 
+# the split key whose warp-per-env instance runs a family's step on the card
+WARP_CASE = {"terrain": "k1h_f", "stairs": "k1h_g"}
+
+
 @pytest.mark.parametrize("family", list(FAMILIES))
-def test_split_control_step_matches_jax(jax_steps, family):
+def test_split_control_step_matches_jax(jax_steps, request, family):
     """One control step with split impulse, port against JAX, at the
-    family's gate; the split step parts from the unsplit one."""
-    want, port, tol, tail_envs = jax_steps[family]
+    family's gate; the split step parts from the unsplit one. The terrain
+    walker's and the stairs' warp-per-env instance, built for the host, is
+    held to the same JAX outputs at the same gates."""
+    want, port, tol, tail_envs, host = jax_steps[family]
     got, unsplit = port(True), port(False)
     _gate(got, want, tol, tail_envs)
     assert (want[3] > 0).mean() > 0.03                      # contacts carry load
@@ -214,6 +246,15 @@ def test_split_control_step_matches_jax(jax_steps, family):
     if family == "stairs":
         assert (np.abs(got[0] - want[0]) < 1e-3).mean() >= 0.97
         assert 0.1 < (~tail_envs).mean() < 0.9
+    if family in WARP_CASE:
+        cases, libs = request.getfixturevalue("host_split")
+        kernel = cases[WARP_CASE[family]][0]
+        assert kernel.instance.source == engine.SOURCE_W
+        outs = run_on_host(libs[kernel.name], kernel, host)
+        assert all(np.isfinite(o).all() for o in outs)
+        _gate(outs, want, tol, tail_envs)
+        if family == "stairs":
+            assert (np.abs(outs[0] - want[0]) < 1e-3).mean() >= 0.97
 
 
 @pytest.fixture(scope="module")
@@ -226,13 +267,18 @@ def host_split(tmp_path_factory):
 
 @pytest.mark.parametrize("case", list(SPLIT_REST))
 def test_split_rest_source_arithmetic_on_host(host_split, case):
-    """Each split key's generic instance, built for the host, against the
-    plain version at its twin's gate, counted under its split name; the
-    position pass moves the result away from the unsplit twin's."""
+    """Each split key's instance (the generic one; K1h-f's and K1h-g's
+    warp-per-env one), built for the host, against the plain version at its
+    twin's gate, counted under its split name; the position pass moves the
+    result away from the unsplit twin's."""
     cases, libs = host_split
     kernel, twin, arrays = cases[case]
     assert kernel.split and type(kernel) is type(twin) and kernel.variant == SPLIT_REST[case][1]
-    assert kernel.name == engine.canonical_symbol(kernel.key) and kernel.instance.index is None
+    if case in WARP_CASE.values():
+        assert kernel.instance is engine.WARP_INSTANCES[kernel.key]
+    else:
+        assert kernel.name == engine.canonical_symbol(kernel.key)
+        assert kernel.instance.index is None
     inputs = [np.ascontiguousarray(x) for x in arrays]
     outs = run_on_host(libs[kernel.name], kernel, inputs)
     args = list(map(T, inputs))
