@@ -10,14 +10,14 @@ Phases, in order; any failure exits non-zero before the result lines:
    instances of K1a, of Cassie's and Cassie2D's K1e and of their split
    twins K1h-e and K1h-e2d, of the PD walkers' K1b,
    of the terrain walkers' K1f, of the stepper's K1c, of the stairs' K1g
-   and of the stairs' and the terrain walkers' split twins K1h-g and K1h-f
-   from
+   and of the split twins of the stairs, the terrain walkers, the stepper
+   and the PD walkers, K1h-g, K1h-f, K1h-c and K1h-b, from
    ``mocca_envs_tpu_torch/csrc/engine_k1w.cu``, the fifteen
    named instances of the engine kernel from
    ``mocca_envs_tpu_torch/csrc/engine_k1.cu``, the generic instance of every
-   key phase 2 adds (split impulse on the PD walker at one and two llc
-   frames, the torque planar walkers, and the thread-per-env twins of
-   terrain and the stairs; the walker's PGS options of
+   key phase 2 adds (split impulse on the PD walker at two llc frames,
+   the torque planar walkers, and the thread-per-env twins of terrain, the
+   stairs and the PD walker at one llc frame; the walker's PGS options of
    :data:`OPTION_CONFIGS`) and the raycast kernel K2 from
    ``csrc/raycast_k2.cu`` (one nvcc process each, side by side), and print
    each one's ptxas registers and stack frame; the fifteen named frames
@@ -63,17 +63,19 @@ Phases, in order; any failure exits non-zero before the result lines:
    K1h-c, K1h-e, K1h-e2d and K1h-d (split impulse over the stones, on
    Cassie's whole PD step with the rods, with the planar lock added, and
    over the monkey's bars with its grab rows) on the K1c, Cassie, Cassie2D
-   and K1d states, each held to its twin's gate; K1h-e and K1h-e2d by their
+   and K1d states, each held to its twin's gate; K1h-c by its warp-per-env
+   instance, and that as K1h-f is below; K1h-e and K1h-e2d by their
    warp-per-env instances, and those against their thread-per-env twins by
    K1e's rule (:data:`TOL_EQ` with the p99 tail) on those states and with
    every foot lifted 1 m, grounded by the 1e-7 q̇-nudge floor over all envs
    (:func:`rounding_floor`); K1h-b (split impulse in PD
    mode, one and two llc frames) and the torque planar K1h-e on the K1b and
-   Walker2D states, each held to its twin's gate; K1h-f and K1h-g by their
-   warp-per-env instances on the K1f and K1g states, held to their twins'
-   gates (K1h-g by K1g's riser rule), against their thread-per-env twins
-   as K1f's and K1g's are (:func:`twin_and_lifted`, :func:`rounding_floor`;
-   K1h-g off risers), and against their unsplit warp-per-env twins
+   Walker2D states, each held to its twin's gate; K1h-f, K1h-g and K1h-b
+   (one llc frame) by their warp-per-env instances on the K1f, K1g and K1b
+   states, held to their twins' gates (K1h-g by K1g's riser rule); K1h-c,
+   K1h-b, K1h-f and K1h-g against their thread-per-env twins as K1f's and
+   K1g's are (:func:`twin_and_lifted`, :func:`rounding_floor`; K1h-g off
+   risers), and against their unsplit warp-per-env twins
    (:func:`split_against_unsplit`: bit for bit with every base lifted 3 m
    and every joint inside its limits, parting by more than the plain gate
    near contact); the walker's PGS options
@@ -127,7 +129,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``Walker3DCustomEnv-v0`` made with ``EngineConfig(split_impulse=True)``
    for 200 (K1h-si), ``Walker3DStairsEnv-v0``, ``Walker3DTerrainEnv-v0``
    and ``Walker3DTerrainLidarEnv-v0`` made with it for 200 each (K1h-g,
-   K1h-f, each by its warp-per-env instance alone), the walker with each
+   K1h-f, each by its warp-per-env instance alone),
+   ``Walker3DStepperEnv-v0`` and ``Walker3DPDCustomEnv-v0`` made with it
+   for 200 each and ``Child3DPDCustomEnv-v0`` for 100 (K1h-c, K1h-b, each
+   by its warp-per-env instance alone), the walker with each
    of :data:`OPTION_CONFIGS` for 100 (its own
    instance, counted under its name and by its symbol in
    ``engine.INSTANCE_LAUNCHES``), and K2's own entry point
@@ -150,14 +155,16 @@ Phases, in order; any failure exits non-zero before the result lines:
    --split-impulse`` through its ``main``: ``Walker3DStepperEnv`` with
    4096 envs, horizon 128, 2 updates with a checkpoint, then the same to 3
    updates, which must resume from update 2 (exactly 384 ``k1h_c`` launches
-   over both runs and no other kernel); ``CassieEnv`` and ``Cassie2DEnv``
+   over both runs, all by the warp-per-env instance, and no other kernel);
+   ``CassieEnv`` and ``Cassie2DEnv``
    (64 ``k1h_e`` launches each, all by the warp-per-env instance: PD
    launches once per control step),
    ``Monkey3DStepperEnv`` (64 ``k1h_d``) and the seven of
    :data:`SPLIT_FAMILIES` (64 launches each under the name it gives, all by
-   the instance phase 1 built for it: the warp-per-env K1h-f for the two
-   terrain families and K1h-g for the stairs, the generic one for the
-   others), 2 updates at horizon 32. Every
+   the instance phase 1 built for it: the warp-per-env K1h-b for the PD
+   walker and the PD child, K1h-f for the two terrain families and K1h-g
+   for the stairs, the generic one for the planar walkers), 2 updates at
+   horizon 32. Every
    metric line must be finite but the env channels the learner leaves NaN
    (no episode ended), and each prints env-steps/s and the seconds of the
    rollout and of the PPO update per update;
@@ -166,7 +173,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    :data:`SWEEP` beside their bound, the two designs of Cassie's and of
    Cassie2D's K1e and of their split twins K1h-e and K1h-e2d likewise at
    each B of :data:`CASSIE_SWEEP`, those of K1b,
-   K1f, K1c, K1g, K1h-g and K1h-f at each B of :data:`WALKER_SWEEP`, the
+   K1f, K1c, K1g, K1h-g, K1h-f, K1h-c and K1h-b at each B of
+   :data:`WALKER_SWEEP`, the
    walker's step against the host's
    time to enqueue it and the device's busy share over 20 traced steps, the
    bound from the operations and bytes these inputs need, and the time of
@@ -176,7 +184,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    auto-reset; K2's time and bound (the march steps these rays need);
    the terrain step's window cut and packing; the step time outside the
    kernel of the PD walkers, Cassie, the planar walkers, the monkey, the terrain families,
-   the stairs and the split-impulse walker; the training rollouts' time per
+   the stairs, the split-impulse walker and the split stairs, terrain,
+   stepper and PD walkers; the training rollouts' time per
    env step outside the kernel; an A-form's bound counts its matrix-free
    twin's operations on the same activity (the same function in fewer), its
    own count printed beside it; a ``torch.profiler`` trace of one stepper
@@ -268,13 +277,14 @@ FRAMES = {
 # ~35–45 ms a call at 16,384)
 SWEEP = {4096: 20, 16384: 10, 65536: 5}
 CASSIE_SWEEP = {4096: 10, 16384: 5}
-WALKER_SWEEP = {4096: 20, 16384: 10}   # K1b, K1f, K1c, K1g, K1h-g and K1h-f
+# K1b, K1f, K1c, K1g, K1h-g, K1h-f, K1h-c and K1h-b
+WALKER_SWEEP = {4096: 20, 16384: 10}
 # ptxas's registers and the dynamic shared memory per block (bytes) of each
 # warp-per-env instance, and the envs each must keep resident per SM: the
 # walker's keys 4 blocks of 4 envs (K1f's, K1c's, K1g's and K1h-f's
-# registers sized for 8), K1h-g's one block of 16, Cassie's one block of 32
-# (and its split twins'); each as every build since it was written has
-# reported it
+# registers sized for 8), K1h-g's, K1h-c's and K1h-b's one block of 16,
+# Cassie's one block of 32 (and its split twins'); each as every build
+# since it was written has reported it
 WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4": (64, 53008, 16),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2": (64, 202896, 32),
@@ -287,6 +297,8 @@ WARP_BUILDS = {
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si": (64, 219024, 32),
     "k1w_nl22_ns14_nlim21_sub4_it4_kt16_si": (92, 214416, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_hf16_si": (61, 54896, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_k6_si": (92, 208400, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_llc1_si": (56, 202832, 16),
 }
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
@@ -1364,8 +1376,9 @@ def main() -> int:
     cmodel = cassie.make_model("cuda")
     wmodel = walker2d.make_walker2d("cuda")
     # split impulse on the PD walker (one and two llc frames), the torque
-    # planar walkers, terrain and the stairs (K1h-f and K1h-g by their
-    # warp-per-env instances); the walker's PGS options (OPTION_CONFIGS)
+    # planar walkers, terrain and the stairs (K1h-b at one llc frame, K1h-f
+    # and K1h-g by their warp-per-env instances); the walker's PGS options
+    # (OPTION_CONFIGS)
     added = {
         "k1h_b": engine.K1b(model.replace(kp=kp), split(config), extra_damping=kp / 20.0),
         "k1h_b_llc2": engine.K1b(model.replace(kp=kp), EngineConfig(llc_frames=2,
@@ -1377,10 +1390,13 @@ def main() -> int:
         **{v: engine.make_kernel(model, EngineConfig(**fields))
            for v, fields in OPTION_CONFIGS.items()},
     }
-    # K1h-f's and K1h-g's thread-per-env twins: the generic engine_k1.cu
-    # instances of their keys
+    # the thread-per-env twins of K1h-f, K1h-g, K1h-c and K1h-b: the generic
+    # engine_k1.cu instances of their keys (K1h-c's the named k1h_..._k6_si)
     split_twins = {"k1h_f": engine.K1f(model, split(config), HF_PATCH, thread_per_env=True),
-                   "k1h_g": engine.K1g(model, split(config), thread_per_env=True)}
+                   "k1h_g": engine.K1g(model, split(config), thread_per_env=True),
+                   "k1h_c": engine.K1c(model, split(config), thread_per_env=True),
+                   "k1h_b": engine.K1b(model.replace(kp=kp), split(config),
+                                       extra_damping=kp / 20.0, thread_per_env=True)}
 
     # ---- phase 1: build
     t0 = time.perf_counter()
@@ -1522,13 +1538,15 @@ def main() -> int:
     print(f"[compare] k1h_g: {int(vertical.sum())} of {B} envs touch a vertical face in the "
           "plain run; the tail gate holds the others")
     max_abs["k1h_g"] = compare(*kernels["k1h_g"], "k1h_g", TOL, tail="p99", tail_envs=~vertical)
-    # K1h-f and K1h-g by their warp-per-env instances: against their
-    # thread-per-env twins as K1f's and K1g's are (K1h-g by the riser rule),
-    # each within the rounding floor (K1h-f over all envs, K1h-g off risers),
-    # on the states and with every base lifted 3 m; and against their unsplit
-    # warp-per-env twins
+    # K1h-f, K1h-g, K1h-c and K1h-b by their warp-per-env instances: against
+    # their thread-per-env twins as K1f's and K1g's are (K1h-g by the riser
+    # rule), each within the rounding floor (K1h-g off risers, the others
+    # over all envs), on the states and with every base lifted 3 m; and
+    # against their unsplit warp-per-env twins
     for v, unsplit, plain_tol, tail_envs in (("k1h_f", "k1f", TOL_HF, None),
-                                             ("k1h_g", "k1g", TOL, ~vertical)):
+                                             ("k1h_g", "k1g", TOL, ~vertical),
+                                             ("k1h_c", "k1c", TOL, None),
+                                             ("k1h_b", "k1b", TOL, None)):
         new, twin = kernels[v][0], split_twins[v]
         check(new.instance.source == engine.SOURCE_W and twin.instance.source == engine.SOURCE,
               f"{v}: the main path's instance {new.name} is not the warp-per-env one")
@@ -1630,20 +1648,29 @@ def main() -> int:
     print(f"[main] Walker3DCustomEnv-v0 with split impulse: falls over the run "
           f"{sums['fallen']:.0f}, base height at the end median {float(state.q[:, 2].median()):.4f}"
           f" m")
-    # the stairs and the terrain walkers made with split impulse: K1h-g and
-    # K1h-f, each by its warp-per-env instance alone
+    # the stairs, the terrain walkers, the stepper and the PD walkers made
+    # with split impulse: K1h-g, K1h-f, K1h-c and K1h-b, each by its
+    # warp-per-env instance alone
     on_stairs.zero_()
-    for v, env_id in (("k1h_g", "Walker3DStairsEnv-v0"), ("k1h_f", "Walker3DTerrainEnv-v0"),
-                      ("k1h_f_lidar", "Walker3DTerrainLidarEnv-v0")):
-        variant = v.removesuffix("_lidar")
+    for v, env_id, steps in (("k1h_g", "Walker3DStairsEnv-v0", 200),
+                             ("k1h_f", "Walker3DTerrainEnv-v0", 200),
+                             ("k1h_f_lidar", "Walker3DTerrainLidarEnv-v0", 200),
+                             ("k1h_c", "Walker3DStepperEnv-v0", 200),
+                             ("k1h_b", "Walker3DPDCustomEnv-v0", 200),
+                             ("k1h_b_child", "Child3DPDCustomEnv-v0", 100)):
+        variant = v.removesuffix("_lidar").removesuffix("_child")
         _, state, _, _, step_ms[v], sums = drive(
-            port, engine, card, env_id, 200, variant, sums=("fallen",),
+            port, engine, card, env_id, steps, variant, sums=("fallen",),
             watch=over_a_tread if variant == "k1h_g" else None,
             instance=kernels[variant][0].name, config=EngineConfig(split_impulse=True))
         if variant == "k1h_g":
             stairs_readings(state, sums, on_stairs)
-        else:
+        elif variant == "k1h_f":
             terrain_readings(env_id, state, sums)
+        else:
+            print(f"[main] {env_id} with split impulse: falls over the run "
+                  f"{sums['fallen']:.0f}, base height at the end median "
+                  f"{float(state.q[:, 2].median()):.4f} m")
     # the walker made with each PGS option configuration: its own instance
     for v, fields in OPTION_CONFIGS.items():
         launches[v], *_ = drive(port, engine, card, "Walker3DCustomEnv-v0", 100,
@@ -1658,7 +1685,8 @@ def main() -> int:
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     atexit.register(shutil.rmtree, workdir, True)
     train_lines = {"k1h_c": train_run(engine, card, "Walker3DStepperEnv", 2, 128, workdir,
-                                      {"k1h_c": 384}, resume_updates=3)}
+                                      {"k1h_c": 384}, resume_updates=3,
+                                      instance=kernels["k1h_c"][0].name)}
     launches["k1h_c"] = 384
     for v, env_id in (("k1h_e", "CassieEnv"), ("k1h_e2d", "Cassie2DEnv"),
                       ("k1h_d", "Monkey3DStepperEnv")):
@@ -1705,6 +1733,11 @@ def main() -> int:
                  lambda batch, r: stairs_states(model, r, batch), WALKER_SWEEP)
     design_sweep(engine, card, "K1h-f", kernels["k1h_f"][0], split_twins["k1h_f"],
                  lambda batch, r: terrain_states(model, r, batch), WALKER_SWEEP)
+    design_sweep(engine, card, "K1h-c", kernels["k1h_c"][0], split_twins["k1h_c"],
+                 lambda batch, r: stepper_states(model, r, config.stone_window, batch),
+                 WALKER_SWEEP)
+    design_sweep(engine, card, "K1h-b", kernels["k1h_b"][0], split_twins["k1h_b"],
+                 lambda batch, r: pd_target_states(model, r, batch), WALKER_SWEEP)
     for v, env_id in (("k1b", "Walker3DPDCustomEnv-v0"), ("k1b_child", "Child3DPDCustomEnv-v0"),
                       ("k1f", "Walker3DTerrainEnv-v0"),
                       ("k1f_lidar", "Walker3DTerrainLidarEnv-v0"),
@@ -1717,7 +1750,8 @@ def main() -> int:
     times["k2"] = raycast_time_and_bound(card, raycaster, ray_main, max_abs["k2"])
     window_and_pack_time(engine, card, terrain_state)
     for v in ("k1b", "k1b_child", "k1c", "k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d",
-              "k1f", "k1f_lidar", "k1g", "k1h_si", "k1h_g", "k1h_f", "k1h_f_lidar"):
+              "k1f", "k1f_lidar", "k1g", "k1h_si", "k1h_g", "k1h_f", "k1h_f_lidar", "k1h_c",
+              "k1h_b", "k1h_b_child"):
         kernel_ms = times[v.removesuffix("_lidar").removesuffix("_child")]["ms"]
         print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {kernel_ms:.4f} "
               f"ms/call, so {step_ms[v] - kernel_ms:.3f} ms/step outside the kernel "

@@ -1,7 +1,8 @@
 """Launch shapes of the warp-per-env K1 instances on one NVIDIA GPU: Cassie's
 and Cassie2D's K1e, the PD walkers' K1b, the terrain walkers' K1f, the
-stepper's K1c, the stairs' K1g, and the stairs' and the terrain walkers'
-split twins K1h-g and K1h-f.
+stepper's K1c, the stairs' K1g, and the split twins of the stairs, the
+terrain walkers, the stepper and the PD walkers, K1h-g, K1h-f, K1h-c and
+K1h-b.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -45,7 +46,8 @@ W = "k1w_nl22_ns14_nlim21_sub4_it4"
 # 16 envs per SM where shared memory allows: blocks of 4 with registers for
 # 4 or for 8 blocks (capped at 64; K1f, K1c, K1g and K1h-f ship that, K1b
 # the other), two of 8, one of 16 (K1h-g ships that: four blocks of its 4
-# envs overrun the SM's shared memory, so its blocks of 4 hold 12 per SM)
+# envs overrun the SM's shared memory, so its blocks of 4 hold 12 per SM;
+# K1h-c and K1h-b too: it ran 3–5% faster than their twins' shapes)
 GROUPS = {
     "cassie": (("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2",
                 "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar"),
@@ -58,6 +60,9 @@ GROUPS = {
                    {4096: 20, 16384: 10}),
     "terrain_split": ((f"{W}_hf16_si",), [(4, 8), (4, 4), (8, 2), (16, 1)],
                       {4096: 20, 16384: 10}),
+    "stones_split": ((f"{W}_k6_si",), [(16, 1), (4, 8), (4, 4), (8, 2)],
+                     {4096: 20, 16384: 10}),
+    "pd_split": ((f"{W}_llc1_si",), [(16, 1), (4, 4), (4, 8), (8, 2)], {4096: 20, 16384: 10}),
 }
 
 
@@ -106,7 +111,8 @@ def cases(engine, rng):
     whole PD control step near the stand), the PD walker (random targets
     near contact), the terrain walker (over the family's grids), the stepper
     (over its culled stones) and the stairs walker (over the culled faces);
-    the stairs walker and the terrain walker also with split impulse."""
+    the stairs walker, the terrain walker, the stepper and the PD walker
+    also with split impulse."""
     from mocca_envs_tpu_torch.models import cassie, walker3d
     from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
     from mocca_envs_tpu_torch.terrain.scene import HF_PATCH
@@ -136,6 +142,11 @@ def cases(engine, rng):
                 lambda batch: chip_smoke.stairs_states(wmodel, rng, batch)))
     out.append(("terrain_split", lambda: engine.K1f(wmodel, split, HF_PATCH),
                 lambda batch: chip_smoke.terrain_states(wmodel, rng, batch)))
+    out.append(("stones_split", lambda: engine.K1c(wmodel, split),
+                lambda batch: chip_smoke.stepper_states(wmodel, rng, split.stone_window, batch)))
+    out.append(("pd_split", lambda: engine.K1b(wmodel.replace(kp=kp), split,
+                                                   extra_damping=kp / 20.0),
+                lambda batch: chip_smoke.pd_target_states(wmodel, rng, batch)))
     return out
 
 

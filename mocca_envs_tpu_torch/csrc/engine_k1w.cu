@@ -23,7 +23,9 @@
 //        --split-impulse): the push-out bias out of the velocity rows and
 //        the position pass after the velocity sweeps;
 //   K1h-g, K1h-f  K1g's and K1f's keys with split impulse: the same pass
-//        over the contacts' own normals (mesh faces, heightfield window).
+//        over the contacts' own normals (mesh faces, heightfield window);
+//   K1h-c, K1h-b  K1c's and K1b's keys with split impulse: the pass over the
+//        stones' own normals, and in PD mode.
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
 // make_pallas_substep (pallas_call at :1441) for those configurations (with
@@ -63,7 +65,8 @@
 // and K1f ~58×, each ~16× faster than that one, and K1e ~43× above it, ~7×
 // faster; with split impulse (the position pass, ~6% more operations) K1h-e
 // and K1h-e2d run ~48× above theirs, ~6.7× faster, K1h-g ~48× and K1h-f
-// ~67×, ~12.5× and ~13× faster (PERF.md §6).
+// ~67×, ~12.5× and ~13× faster, K1h-c ~57× and K1h-b ~54×, ~13× and ~14×
+// faster (PERF.md §6).
 //
 // Design.
 //   - One warp per env, C::ENVS warps per block, registers for C::BLOCKS
@@ -98,6 +101,11 @@
 //     233,536, 64 over the SM: at 3 blocks (12 envs per SM) it ran 23%
 //     slower at B = 4096; as one block of 16 envs (214,416 bytes, registers
 //     for one block: 92, no spill) it ran fastest, two blocks of 8 3% slower.
+//     K1h-c (EnvW 12,712) and K1h-b (12,364) would fit four blocks of 4
+//     (4 × (55,856 + 1,024) = 227,520 bytes for K1h-c), but as one block of
+//     16 envs (208,400 / 202,832 bytes, registers for one block: 92 / 56, no
+//     spill) they ran 3.0% / 3.7% faster at B = 4096 than at K1c's 4 × 8
+//     and K1b's 4 × 4, 4.7% / 4.0% at 16,384; two blocks of 8 fell between.
 //   - Lanes: link i for the FK, the Newton–Euler passes and the CRBA
 //     composites, one tree level at a time (depth 6 for the walker, 7 for
 //     Cassie; a parent sums its children in the order the serial code does);
@@ -183,7 +191,10 @@
 // empty base (SplitState), 168 bytes for Cassie, 280 for the walker. Where
 // contacts have their own normals (Cfg::GENERAL) a contact's normal row is
 // its n·Jc row and its bias comes from the sphere's deepest feature, so the
-// pass pushes out along that normal (sideways off a riser).
+// pass pushes out along that normal (sideways off a riser; off a stone's
+// side face). In PD mode the derivative gain's implicit damping sits on the
+// factor's joint diagonal (the table's JDIAG), so the pass's W, diagonals
+// and L⁻ᵀz_pos carry it as the velocity rows do.
 //
 // Host check. The per-env code is written against a lane width: loops run
 // `for (j = lane; j < n; j += WIDTH)`, collectives go through wsum / wbcast /
@@ -1338,5 +1349,18 @@ K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_kt16_si, 22, 14, 21, 4, 4, false, 1, 
 #endif
 #if !defined(K1W_ONLY) || K1W_ONLY == 10
 K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_hf16_si, 22, 14, 21, 4, 4, false, 1, 0, false, 4, 8, 16,
+             0, 0, true)
+#endif
+// The stepper's and the PD walkers' keys with split impulse (K1h-c, K1h-b):
+// the position pass over the stones' own normals, and in PD mode (the
+// derivative gain's implicit damping in the factor and so in W). Four blocks
+// of 4 envs would fit (4 × (55,856 + 1,024) bytes for K1h-c), but one block
+// of 16 envs per SM (registers for one block: 92 and 56) ran 3–5% faster
+#if !defined(K1W_ONLY) || K1W_ONLY == 11
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_k6_si, 22, 14, 21, 4, 4, false, 1, 0, false, 16, 1, 0, 6,
+             0, true)
+#endif
+#if !defined(K1W_ONLY) || K1W_ONLY == 12
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_llc1_si, 22, 14, 21, 4, 4, true, 1, 0, false, 16, 1, 0,
              0, 0, true)
 #endif

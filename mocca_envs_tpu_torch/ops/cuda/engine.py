@@ -17,7 +17,8 @@ warp per env (W and the factor in shared memory, inactive rows skipped),
 which the keys of :data:`WARP_INSTANCES` run (K1a, the walker's and the
 child's; K1b, the PD walker's and the PD child's; K1f, the terrain
 walkers'; K1c, the stepper's; K1g, the stairs'; K1e, Cassie's and
-Cassie2D's, and the split twins K1h-e, K1h-e2d, K1h-g, K1h-f), and
+Cassie2D's, and the split twins K1h-e, K1h-e2d, K1h-g, K1h-f, K1h-c,
+K1h-b), and
 ``csrc/engine_k1.cu``, one thread per env, for every other key. An instance is picked by its
 :class:`Key`: the warp-per-env one where there is one, else the fifteen
 ``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the shipped families at the
@@ -170,7 +171,10 @@ INSTANTIATIONS = {inst.key: inst for inst in (
 # walker over the stepper's 6 culled stones; K1g, the walker over the
 # stairs' 16 culled mesh faces; K1h-e and K1h-e2d, Cassie's and Cassie2D's
 # control step with split impulse; K1h-g and K1h-f, the stairs' and the
-# terrain walkers' frame with split impulse
+# terrain walkers' frame with split impulse; K1h-c and K1h-b, the stepper's
+# frame and the PD walkers' control step with split impulse (their
+# thread-per-env twins: the named k1h_..._k6_si and the generic
+# k1_..._llc1_si; K1b at two llc frames, split or not, stays on engine_k1.cu)
 WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4", 0, Key(**_W), SOURCE_W),
     Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 1, Key(**_C), SOURCE_W),
@@ -186,6 +190,10 @@ WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4_kt16_si", 9, Key(**_W, tris=16, split=True),
              SOURCE_W),
     Instance("k1w_nl22_ns14_nlim21_sub4_it4_hf16_si", 10, Key(**_W, hf=16, split=True),
+             SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_k6_si", 11, Key(**_W, stones=6, split=True),
+             SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_llc1_si", 12, Key(**_W, pd=True, split=True),
              SOURCE_W),
 )}
 

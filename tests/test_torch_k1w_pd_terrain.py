@@ -9,10 +9,10 @@ loop over envs, beside the thread-per-env instances of the same keys
   ``terrain``: the terrain walkers' key (one torque frame over the 16 × 16
   heightfield window);
 - the four families' keys pick the warp-per-env instance; only
-  ``thread_per_env=True`` reaches the ``engine_k1.cu`` twin; the PD
-  walkers' split twin and K1b at two llc frames keep their ``engine_k1.cu``
-  instances, the terrain walkers' split twin runs one warp per env too; the
-  global workspace is empty;
+  ``thread_per_env=True`` reaches the ``engine_k1.cu`` twin; K1b at two
+  llc frames keeps its ``engine_k1.cu`` instance, the PD walkers' and the
+  terrain walkers' split twins run one warp per env too; the global
+  workspace is empty;
 - at B = 64 on chip_smoke.py's PD-target and terrain states each agrees with
   the port's plain unit at its chip gate (K1b ``TOL``: q 2e-4, qd 5e-3,
   depth 2e-4, impulse 5e-3; K1f ``TOL_HF``: q 2e-4, qd 1e-2, depth 5e-4,
@@ -126,14 +126,11 @@ def test_families_pick_the_warp_per_env_instance(libs, kind):
         else:
             picked = engine.make_kernel(model, EngineConfig(), hf_patch=HF_PATCH)
         assert picked.name == new.name and type(picked) is type(new), env_id
-    # the PD walkers' split twin, and K1b at two llc frames, keep their
-    # engine_k1.cu instances; the terrain walkers' split twin runs one warp
-    # per env too (tests/test_torch_k1w_split_mesh_terrain.py)
+    # K1b at two llc frames keeps its engine_k1.cu instance; the PD
+    # walkers' and the terrain walkers' split twins run one warp per env too
+    # (tests/test_torch_k1w_split_stones_pd.py, _split_mesh_terrain.py)
     split = _kernel(kind, split_impulse=True)
-    if kind == "pd":
-        assert split.instance.source == engine.SOURCE and split.name.startswith("k1_")
-    else:
-        assert split.instance.source == engine.SOURCE_W and split.name == f"k1w_{SYMBOL[kind]}_si"
+    assert split.instance.source == engine.SOURCE_W and split.name == f"k1w_{SYMBOL[kind]}_si"
     if kind == "pd":
         assert _kernel(kind, llc_frames=2).instance.source == engine.SOURCE
     # the same table; no global workspace

@@ -9,8 +9,8 @@ loop over envs, beside the thread-per-env instances of the same keys
   faces of the staircase, above the plane z = 0);
 - the two families' keys pick the warp-per-env instance; only
   ``thread_per_env=True`` reaches the ``engine_k1.cu`` twin; the stepper's
-  split twin keeps its ``engine_k1.cu`` instance, the stairs' runs one warp
-  per env too; the global workspace is empty;
+  and the stairs' split twins run one warp per env too; the global
+  workspace is empty;
 - at B = 64 on chip_smoke.py's stepper and stairs states each agrees with
   the port's plain unit at ``TOL`` (q 2e-4, qd 5e-3, depth 2e-4, impulse
   5e-3) on the per-env medians, the largest env within ten times; over the
@@ -122,13 +122,12 @@ def test_families_pick_the_warp_per_env_instance(libs, kind):
               else {"num_tris": config.tri_window})
     picked = engine.make_kernel(model, config, **window)
     assert picked.name == new.name and type(picked) is type(new)
-    # the stepper's split twin keeps its engine_k1.cu instance; the stairs'
-    # runs one warp per env too (tests/test_torch_k1w_split_mesh_terrain.py)
+    # the stepper's and the stairs' split twins run one warp per env too
+    # (tests/test_torch_k1w_split_stones_pd.py, _split_mesh_terrain.py)
     split = _kernel(kind, split_impulse=True)
     assert split.variant == ("k1h_c" if kind == "stones" else "k1h_g")
-    assert split.instance.source == (engine.SOURCE if kind == "stones" else engine.SOURCE_W)
-    assert split.name == ("k1h_nl22_ns14_nlim21_sub4_it4_k6_si" if kind == "stones"
-                          else "k1w_nl22_ns14_nlim21_sub4_it4_kt16_si")
+    assert split.instance.source == engine.SOURCE_W
+    assert split.name == f"k1w_{SYMBOL[kind]}_si"
     # the same table; no global workspace
     assert engine.layout(libs[new.name], new.name) == (new.table_host.size, 0)
     assert engine.layout(libs[old.name], old.name)[1] > 0

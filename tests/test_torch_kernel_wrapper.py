@@ -146,6 +146,28 @@ NEW_CASES = ["k1g", "k1h_si"]
 # wrapper and states
 SPLIT_CASES = {"k1h_c": "k1c", "k1h_e": "k1e_cassie", "k1h_e2d": "k1e_cassie2d",
                "k1h_d": "k1d"}
+# the split cases (here and in SPLIT_REST) that run a warp-per-env instance
+# of csrc/engine_k1w.cu, by its symbol
+SPLIT_WARP = {"k1h_c": "k1w_nl22_ns14_nlim21_sub4_it4_k6_si",
+              "k1h_e": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si",
+              "k1h_e2d": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si",
+              "k1h_b": "k1w_nl22_ns14_nlim21_sub4_it4_llc1_si",
+              "k1h_f": "k1w_nl22_ns14_nlim21_sub4_it4_hf16_si",
+              "k1h_g": "k1w_nl22_ns14_nlim21_sub4_it4_kt16_si"}
+
+
+def _launch_counted(kernel, case, args):
+    """``kernel.launch(*args)``, synchronised, counted once under its variant
+    and its symbol; a case of :data:`SPLIT_WARP` by its warp-per-env
+    instance."""
+    if case in SPLIT_WARP:
+        assert kernel.instance.source == engine.SOURCE_W and kernel.name == SPLIT_WARP[case]
+    before = engine.LAUNCHES[kernel.variant], engine.INSTANCE_LAUNCHES[kernel.name]
+    got = kernel.launch(*args)
+    torch.cuda.synchronize()
+    assert (engine.LAUNCHES[kernel.variant], engine.INSTANCE_LAUNCHES[kernel.name]) \
+        == (before[0] + 1, before[1] + 1)
+    return got
 
 
 def _gate_medians(got, want, tol=TOL, tail="max", tail_envs=None):
@@ -741,10 +763,7 @@ def test_k1a_kernel_matches_plain_on_cuda(case):
         pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
     kernel, arrays = _kernel_case(case, 1024, 7, device="cuda")
     args = [torch.as_tensor(x, device="cuda") for x in arrays]
-    before = engine.LAUNCHES[kernel.variant]
-    got = kernel.launch(*args)
-    torch.cuda.synchronize()
-    assert engine.LAUNCHES[kernel.variant] == before + 1
+    got = _launch_counted(kernel, case, args)
     want = kernel.plain(*args)
     # K1g: the tail gate holds the envs with no contact on a vertical face
     # (chip_smoke.py::vertical_contacts says why)
@@ -789,9 +808,10 @@ def test_k1w_matches_plain_and_thread_per_env_on_cuda():
     assert engine.occupancy(engine.build()[new.name], new.name)["blocks_per_sm"] >= 1
 
 
-# the split keys of the generic instance (PD walker at one and two llc
-# frames, Walker2D, Crab2D, terrain, stairs) → (the twin's case, the count it
-# launches under, its gate)
+# the split keys of the PD walker at one and two llc frames, Walker2D,
+# Crab2D, terrain and the stairs → (the twin's case, the count it launches
+# under, its gate); K1h-b at one llc frame, K1h-f and K1h-g run their
+# warp-per-env instances (SPLIT_WARP), the others the generic one
 SPLIT_REST = {"k1h_b": ("k1b", "k1h_b", TOL), "k1h_b_llc2": ("k1b_llc2", "k1h_b", TOL),
               "k1h_e_planar": ("k1e_planar", "k1h_e", TOL_EQ),
               "k1h_e_crab": ("k1e_crab", "k1h_e", TOL_EQ), "k1h_f": ("k1f", "k1h_f", TOL_HF),
@@ -812,9 +832,10 @@ def _split_kernel(case, B, seed, device="cpu"):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(SPLIT_REST) + list(chip_smoke.OPTION_CONFIGS))
 def test_new_instances_match_plain_on_cuda(case):
-    """On a card: each split instance on its twin's states and each of the
-    walker's option instances on K1a's, launched once, against the plain
-    version at its gate."""
+    """On a card: each split instance on its twin's states (K1h-b at one
+    llc frame, K1h-f and K1h-g by their warp-per-env instances) and each of
+    the walker's option instances on K1a's, launched once, against the
+    plain version at its gate."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
     if case in SPLIT_REST:
@@ -826,10 +847,7 @@ def test_new_instances_match_plain_on_cuda(case):
         arrays = chip_smoke.near_contact_states(model, np.random.default_rng(7), 1024)
         tol = TOL
     args = [torch.as_tensor(x, device="cuda") for x in arrays]
-    before = engine.LAUNCHES[kernel.variant]
-    got = kernel.launch(*args)
-    torch.cuda.synchronize()
-    assert engine.LAUNCHES[kernel.variant] == before + 1
+    got = _launch_counted(kernel, case, args)
     want = kernel.plain(*args)
     tail = (~chip_smoke.vertical_contacts(kernel, args)).cpu().numpy() if case == "k1h_g" \
         else None
@@ -998,11 +1016,12 @@ def test_k1h_si_source_arithmetic_on_host(host_library):
 def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
     """make_kernel picks K1g for mesh faces and K1h-si for split impulse on
     the walker's plane; a mesh with anything else raises, naming what is
-    missing; another face window, split impulse on another face window, in
-    PD mode, on the planar walkers and on Cassie's plane are keys of the
-    generic instance, each counted under its split name; split impulse on
-    the 16-face mesh is K1h-g's warp-per-env instance (its generic one only
-    with ``thread_per_env=True``); K1a with split impulse and K1hSi
+    missing; another face window, split impulse on another face window, on
+    the planar walkers and on Cassie's plane are keys of the generic
+    instance, each counted under its split name; split impulse on the
+    16-face mesh and in PD mode are K1h-g's and K1h-b's warp-per-env
+    instances (their generic ones only with ``thread_per_env=True``); K1a
+    with split impulse and K1hSi
     without it raise (split impulse over stones is K1h-c:
     test_split_instances_are_picked_and_the_rest_refused)."""
     model, config = walker3d.make_model(), EngineConfig()
@@ -1032,7 +1051,7 @@ def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
             (lambda: engine.make_kernel(model, config, num_tris=8), f"{W}_sub4_it4_kt8", "k1g"),
             (lambda: engine.make_kernel(model, split, num_tris=8), f"{W}_sub4_it4_kt8_si",
              "k1h_g"),
-            (lambda: engine.make_kernel(model, split, pd_mode=True), f"{W}_sub4_it4_llc1_si",
+            (lambda: engine.K1b(model, split, thread_per_env=True), f"{W}_sub4_it4_llc1_si",
              "k1h_b"),
             (lambda: engine.make_kernel(walker2d.make_walker2d(), split,
                                         constraints=walker2d.planar_spec()),
@@ -1134,13 +1153,14 @@ def test_split_instances_source_arithmetic_on_host(host_library, case):
 def test_split_instances_are_picked_and_the_rest_refused():
     """Split impulse takes the variant it would take without it, counted
     under its split name: K1c over stones (k1h_c), Cassie's and Cassie2D's
-    K1e (k1h_e, on their warp-per-env instances), the monkey's K1d (k1h_d),
-    K1hSi on the walker's plane on named instances; a heightfield (K1f:
-    k1h_f) and a mesh (K1g: k1h_g) on their warp-per-env instances, their
-    generic ones only with ``thread_per_env=True``; the PD walker and child
-    (K1b: k1h_b) and the torque planar walkers (K1e: k1h_e) on the generic
-    instance of their keys."""
-    names = {"k1h_c": "k1h_nl22_ns14_nlim21_sub4_it4_k6_si",
+    K1e (k1h_e) on their warp-per-env instances, the stepper's named twin
+    only with ``thread_per_env=True``; the monkey's K1d (k1h_d) and K1hSi on
+    the walker's plane on named instances; a heightfield (K1f: k1h_f), a
+    mesh (K1g: k1h_g) and the PD walker and child (K1b: k1h_b) on their
+    warp-per-env instances, their generic ones only with
+    ``thread_per_env=True``; the torque planar walkers (K1e: k1h_e) on the
+    generic instance of their key."""
+    names = {"k1h_c": "k1w_nl22_ns14_nlim21_sub4_it4_k6_si",
              "k1h_e": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si",
              "k1h_e2d": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si",
              "k1h_d": "k1h_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si"}
@@ -1155,8 +1175,8 @@ def test_split_instances_are_picked_and_the_rest_refused():
     split = EngineConfig(split_impulse=True)
     kp = model.power_coef * (model.actuated > 0).float()
     for build, symbol, variant in (
-            (lambda: engine.make_kernel(model.replace(kp=kp), split, pd_mode=True,
-                                        extra_damping=kp / 20.0), f"{W}_sub4_it4_llc1_si", "k1h_b"),
+            (lambda: engine.K1b(model.replace(kp=kp), split, extra_damping=kp / 20.0,
+                                thread_per_env=True), f"{W}_sub4_it4_llc1_si", "k1h_b"),
             (lambda: engine.K1f(model, split, HF_PATCH, thread_per_env=True),
              f"{W}_sub4_it4_hf16_si", "k1h_f"),
             (lambda: engine.K1g(model, split, thread_per_env=True), f"{W}_sub4_it4_kt16_si",
@@ -1170,9 +1190,15 @@ def test_split_instances_are_picked_and_the_rest_refused():
         _assert_generic(build(), symbol, variant)
     for picked, symbol, index in (
             (engine.make_kernel(model, split, hf_patch=HF_PATCH), "hf16_si", 10),
-            (engine.make_kernel(model, split, num_tris=16), "kt16_si", 9)):
+            (engine.make_kernel(model, split, num_tris=16), "kt16_si", 9),
+            (engine.make_kernel(model, split, num_stones=6), "k6_si", 11),
+            (engine.make_kernel(model.replace(kp=kp), split, pd_mode=True,
+                                extra_damping=kp / 20.0), "llc1_si", 12)):
         assert picked.name == f"k1w_nl22_ns14_nlim21_sub4_it4_{symbol}"
         assert engine.compile_flags(picked.instance) == [f"-DK1W_ONLY={index}"]
+    # the stepper's thread-per-env twin is the named engine_k1.cu instance
+    twin = engine.K1c(model, split, thread_per_env=True)
+    assert twin.name == "k1h_nl22_ns14_nlim21_sub4_it4_k6_si" and twin.instance.index == 11
     # a split instance is not taken for the unsplit config, nor the reverse
     with pytest.raises(NotImplementedError, match="split_impulse"):
         engine.K1hSi(model, EngineConfig())

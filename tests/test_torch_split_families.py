@@ -18,7 +18,11 @@ are in tests/test_torch_split_cassie.py):
   1e-2, the largest env within ten times), B = 16.
 
 Each also checks that the position pass has work: the split step parts
-from the unsplit one on the same inputs.
+from the unsplit one on the same inputs. On the card the stepper's split
+step runs the warp-per-env K1h-c of ``csrc/engine_k1w.cu``: its host build
+(``-DK1W_HOST_CHECK``) runs the same step (one llc frame) on the stones the
+port's step culls and packs, and is held to the same JAX outputs at the
+same gates.
 """
 
 import jax
@@ -40,6 +44,7 @@ from mocca_envs_tpu_torch.terrain import scene as tscene
 from mocca_envs_tpu_torch.utils.config import EngineConfig as TConfig
 
 from tests.test_torch_stones import _walker_over_stones
+from tests.torch_k1_host import build_host, run_on_host
 
 TOL = {"q": 2e-4, "qd": 5e-3, "depth": 2e-4, "nimp": 5e-3}
 T = torch.as_tensor
@@ -57,7 +62,7 @@ def _parts(step_out):
     return [x.numpy() for x in (q, qd, info.contacts.depth, info.normal_impulse)]
 
 
-def test_stepper_split_control_step_matches_jax():
+def test_stepper_split_control_step_matches_jax(tmp_path):
     jm, tm = jwalker.make_model(), twalker.make_model()
     B = 32
     q, qd, (center, quat, half, active) = _walker_over_stones(B, 21)
@@ -79,6 +84,18 @@ def test_stepper_split_control_step_matches_jax():
     _gate(got, want, TOL, 10)
     assert (got[3] > 0).mean() > 0.05                        # stones carry load
     assert np.abs(got[1] - unsplit[1]).max() > 0.05          # the position pass has work
+    # the warp-per-env K1h-c, built for the host, on the window the step
+    # culls and packs
+    config = TConfig(split_impulse=True)
+    kernel = engine.K1c(tm, config)
+    assert kernel.instance.source == engine.SOURCE_W and kernel.variant == "k1h_c"
+    culled = tscene.cull_stones(scene, T(q)[:, 0:2], config.stone_window)
+    host = [np.ascontiguousarray(x.numpy()) for x in (
+        T(q), T(qd), tgain * torch.clamp(T(action), -1, 1), culled.ground_z, culled.friction,
+        engine.pack_stones(culled))]
+    outs = run_on_host(build_host([kernel], tmp_path)[kernel.name], kernel, host)
+    assert all(np.isfinite(o).all() for o in outs)
+    _gate(outs, want, TOL, 10)
 
 
 def test_monkey_split_control_step_matches_jax():

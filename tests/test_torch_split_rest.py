@@ -3,10 +3,10 @@ stairs (CPU): the JAX package, the port's plain path and the K1 kernel
 source.
 
 ``python -m mocca_envs_tpu_torch.harness.train --split-impulse`` builds each
-family's ``EngineConfig()`` with the flag on; on the card the PD walkers
-and the torque planar walkers run the generic K1 instances of their split
-keys (K1h-b, the planar K1h-e), the terrain walkers and the stairs the
-warp-per-env instances of ``csrc/engine_k1w.cu`` (K1h-f, K1h-g).
+family's ``EngineConfig()`` with the flag on; on the card the torque
+planar walkers run the generic K1 instance of their split key (the planar
+K1h-e), the PD walkers, the terrain walkers and the stairs the
+warp-per-env instances of ``csrc/engine_k1w.cu`` (K1h-b, K1h-f, K1h-g).
 
 - One control step of each through the port's plain path and the JAX
   package's ``make_control_step`` (its XLA path) on the same numpy states,
@@ -19,12 +19,12 @@ warp-per-env instances of ``csrc/engine_k1w.cu`` (K1h-f, K1h-g).
   stairs (K1a's gates; the tail over the envs with no riser contact, and
   the JAX mesh gate, 97% of q within 1e-3). The JAX steps compile side by
   side on a thread pool. Each checks that the position pass has work. For
-  the terrain walker and the stairs the warp-per-env instance's host build
-  (``-DK1W_HOST_CHECK``) runs the same step (one llc frame) on the window
-  and the culled faces the port's step packs, and is held to the same JAX
-  outputs at the same gates.
+  the PD walker, the terrain walker and the stairs the warp-per-env
+  instance's host build (``-DK1W_HOST_CHECK``) runs the same step (one llc
+  frame) on the targets, the window and the culled faces the port's step
+  packs, and is held to the same JAX outputs at the same gates.
 - The instance of each split key, built for the host (the generic one,
-  ``-DK1_HOST_CHECK``; K1h-f's and K1h-g's warp-per-env one,
+  ``-DK1_HOST_CHECK``; K1h-b's, K1h-f's and K1h-g's warp-per-env one,
   ``-DK1W_HOST_CHECK``), against the port's plain version on
   chip_smoke.py's states at its twin's gates (the PD walker at one and two
   llc frames, Walker2D and Crab2D, the terrain walker, the stairs).
@@ -109,7 +109,11 @@ def _pd_walker():
         qq, dd, info = jstep(a, b, c, jscene.flat())
         return qq, dd, info.contacts.depth, info.normal_impulse
 
-    return one, (q, qd, action), port, TOL, None, None
+    flat = tscene.flat(B)
+    targets = T(mid) + T(amp) * torch.clamp(T(action), -1, 1)
+    host = [np.ascontiguousarray(x.numpy()) for x in (
+        T(q), T(qd), targets, flat.ground_z, flat.friction)]
+    return one, (q, qd, action), port, TOL, None, host
 
 
 def _walker2d():
@@ -229,15 +233,15 @@ def jax_steps():
 
 
 # the split key whose warp-per-env instance runs a family's step on the card
-WARP_CASE = {"terrain": "k1h_f", "stairs": "k1h_g"}
+WARP_CASE = {"pd_walker": "k1h_b", "terrain": "k1h_f", "stairs": "k1h_g"}
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_split_control_step_matches_jax(jax_steps, request, family):
     """One control step with split impulse, port against JAX, at the
-    family's gate; the split step parts from the unsplit one. The terrain
-    walker's and the stairs' warp-per-env instance, built for the host, is
-    held to the same JAX outputs at the same gates."""
+    family's gate; the split step parts from the unsplit one. The PD
+    walker's, the terrain walker's and the stairs' warp-per-env instance,
+    built for the host, is held to the same JAX outputs at the same gates."""
     want, port, tol, tail_envs, host = jax_steps[family]
     got, unsplit = port(True), port(False)
     _gate(got, want, tol, tail_envs)
@@ -267,10 +271,10 @@ def host_split(tmp_path_factory):
 
 @pytest.mark.parametrize("case", list(SPLIT_REST))
 def test_split_rest_source_arithmetic_on_host(host_split, case):
-    """Each split key's instance (the generic one; K1h-f's and K1h-g's
-    warp-per-env one), built for the host, against the plain version at its
-    twin's gate, counted under its split name; the position pass moves the
-    result away from the unsplit twin's."""
+    """Each split key's instance (the generic one; K1h-b's, K1h-f's and
+    K1h-g's warp-per-env one), built for the host, against the plain
+    version at its twin's gate, counted under its split name; the position
+    pass moves the result away from the unsplit twin's."""
     cases, libs = host_split
     kernel, twin, arrays = cases[case]
     assert kernel.split and type(kernel) is type(twin) and kernel.variant == SPLIT_REST[case][1]
