@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero before the result lines:
 1. print the card's name and power limit; build the warp-per-env
    instances of K1a, of Cassie's and Cassie2D's K1e and of their split
    twins K1h-e and K1h-e2d, of the PD walkers' K1b,
-   of the terrain walkers' K1f, of the stepper's K1c, of the stairs' K1g
-   and of the split twins of the stairs, the terrain walkers, the stepper
-   and the PD walkers, K1h-g, K1h-f, K1h-c and K1h-b, from
+   of the terrain walkers' K1f, of the stepper's K1c, of the stairs' K1g,
+   of the split twins of the stairs, the terrain walkers, the stepper,
+   the PD walkers and the walker on the plane, K1h-g, K1h-f, K1h-c, K1h-b
+   and K1h-si, and of the monkey's K1d, from
    ``mocca_envs_tpu_torch/csrc/engine_k1w.cu``, the fifteen
    named instances of the engine kernel from
    ``mocca_envs_tpu_torch/csrc/engine_k1.cu``, the generic instance of every
@@ -45,7 +46,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    skipped); K1e on Walker2D states; K1d on monkey states hanging from bars drawn by the
    port's sampler at stages 0–9 (the right hand attached, the left in half
    of the envs, anchors at the palms ±1 cm, bars moved next to the feet and
-   the torso in half of the envs, random torques); K1f on walker states
+   the torso in half of the envs, random torques) by its warp-per-env
+   instance, and against the thread-per-env K1d (:func:`twin_and_lifted`,
+   :func:`rounding_floor` over all envs) on those states and with every
+   base lifted 3 m; K1f on walker states
    over the terrain families' grids (the lowest foot within ±2 cm of the
    surface under it, on the grid's slopes, a tenth of the roots within
    0.5 m of its edge, the window around the root packed as the main path
@@ -59,7 +63,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    those states (the tail gate by K1g's riser rule, the p99 of the envs
    with no contact on a vertical face, beside the 1e-7 q̇-nudge floor:
    :func:`rounding_floor`) and lifted 3 m; K1h-si on the K1a states with
-   split impulse; its twins
+   split impulse by its warp-per-env instance, held as K1h-c is below (its
+   unsplit warp-per-env twin K1a's); its twins
    K1h-c, K1h-e, K1h-e2d and K1h-d (split impulse over the stones, on
    Cassie's whole PD step with the rods, with the planar lock added, and
    over the monkey's bars with its grab rows) on the K1c, Cassie, Cassie2D
@@ -73,7 +78,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    Walker2D states, each held to its twin's gate; K1h-f, K1h-g and K1h-b
    (one llc frame) by their warp-per-env instances on the K1f, K1g and K1b
    states, held to their twins' gates (K1h-g by K1g's riser rule); K1h-c,
-   K1h-b, K1h-f and K1h-g against their thread-per-env twins as K1f's and
+   K1h-b, K1h-f, K1h-g and K1h-si against their thread-per-env twins as K1f's and
    K1g's are (:func:`twin_and_lifted`, :func:`rounding_floor`; K1h-g off
    risers), and against their unsplit warp-per-env twins
    (:func:`split_against_unsplit`: bit for bit with every base lifted 3 m
@@ -121,13 +126,15 @@ Phases, in order; any failure exits non-zero before the result lines:
    300 and ``Cassie2DEnv-v0`` for 100 (K1e, each by its warp-per-env
    instance alone), ``Walker2DCustomEnv-v0`` for 200 and
    ``Crab2DCustomEnv-v0`` for 100 (K1e), ``Monkey3DStepperEnv-v0`` for 300
-   (K1d, grab signals included in the random actions),
+   (K1d, by its warp-per-env instance alone, grab signals included in the
+   random actions),
    ``Walker3DTerrainEnv-v0`` for 600 and ``Walker3DTerrainLidarEnv-v0`` for
    200 (K1f, each by its warp-per-env instance alone),
    ``Walker3DStairsEnv-v0`` for 600 (K1g, by its warp-per-env instance
    alone),
    ``Walker3DCustomEnv-v0`` made with ``EngineConfig(split_impulse=True)``
-   for 200 (K1h-si), ``Walker3DStairsEnv-v0``, ``Walker3DTerrainEnv-v0``
+   for 200 (K1h-si, by its warp-per-env instance alone),
+   ``Walker3DStairsEnv-v0``, ``Walker3DTerrainEnv-v0``
    and ``Walker3DTerrainLidarEnv-v0`` made with it for 200 each (K1h-g,
    K1h-f, each by its warp-per-env instance alone),
    ``Walker3DStepperEnv-v0`` and ``Walker3DPDCustomEnv-v0`` made with it
@@ -145,7 +152,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    plane (|y| < 0.02 m, the lock's roll and yaw measures < 0.05), the worst
    is printed; of the monkey the bars reached, the share of envs holding on
    and the falls are printed, and then 50 steps of zero torques with both
-   grab signals on from fresh episodes must hang the body: the median
+   grab signals on from fresh episodes, by the warp-per-env K1d alone,
+   must hang the body: the median
    palm-to-anchor distance under 2 cm, the median base height within 0.5 m
    of its start, fewer than 1% of the envs falling; of the terrain
    families the falls and the base's height above the local surface are
@@ -173,7 +181,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    :data:`SWEEP` beside their bound, the two designs of Cassie's and of
    Cassie2D's K1e and of their split twins K1h-e and K1h-e2d likewise at
    each B of :data:`CASSIE_SWEEP`, those of K1b,
-   K1f, K1c, K1g, K1h-g, K1h-f, K1h-c and K1h-b at each B of
+   K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si and K1d at each B of
    :data:`WALKER_SWEEP`, the
    walker's step against the host's
    time to enqueue it and the device's busy share over 20 traced steps, the
@@ -277,14 +285,14 @@ FRAMES = {
 # ~35–45 ms a call at 16,384)
 SWEEP = {4096: 20, 16384: 10, 65536: 5}
 CASSIE_SWEEP = {4096: 10, 16384: 5}
-# K1b, K1f, K1c, K1g, K1h-g, K1h-f, K1h-c and K1h-b
+# K1b, K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si and K1d
 WALKER_SWEEP = {4096: 20, 16384: 10}
 # ptxas's registers and the dynamic shared memory per block (bytes) of each
 # warp-per-env instance, and the envs each must keep resident per SM: the
 # walker's keys 4 blocks of 4 envs (K1f's, K1c's, K1g's and K1h-f's
-# registers sized for 8), K1h-g's, K1h-c's and K1h-b's one block of 16,
-# Cassie's one block of 32 (and its split twins'); each as every build
-# since it was written has reported it
+# registers sized for 8), K1h-g's, K1h-c's, K1h-b's and K1h-si's one block
+# of 16, Cassie's one block of 32 (and its split twins'), the monkey's one
+# block of 32; each as every build since it was written has reported it
 WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4": (64, 53008, 16),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2": (64, 202896, 32),
@@ -299,6 +307,8 @@ WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4_hf16_si": (61, 54896, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_k6_si": (92, 208400, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_llc1_si": (56, 202832, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_si": (64, 201488, 16),
+    "k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2": (64, 159712, 32),
 }
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
@@ -939,9 +949,10 @@ def drive(port, engine, card, env_id: str, steps: int, variant: str, sums=(), wa
     return launches, state, tr, batch, 1e3 * wall / steps, {k: float(v) for k, v in totals.items()}
 
 
-def hang_check(batch, spec, card) -> None:
+def hang_check(engine, batch, spec, card, instance: str) -> None:
     """50 control steps of zero torques with both grab signals on, from
-    fresh episodes, without auto-reset: the body must hang from its bar."""
+    fresh episodes, without auto-reset: the body must hang from its bar, by
+    the K1 ``instance`` of that symbol alone (one launch per step)."""
     from mocca_envs_tpu_torch.tasks.monkey_stepper import make_palm_positions
 
     env = batch.env
@@ -950,10 +961,17 @@ def hang_check(batch, spec, card) -> None:
     actions = torch.zeros((B, env.act_dim), device="cuda")
     actions[:, -2:] = 1.0
     fell = torch.zeros(B, dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    engine.INSTANCE_LAUNCHES.clear()
     for _ in range(50):
         tr = env.step_no_reset(state, actions, batch.generator)
         state = tr.state
         fell |= tr.metrics["fell"] > 0.5
+    torch.cuda.synchronize()
+    by_instance = dict(engine.INSTANCE_LAUNCHES)
+    print(f"[main] Monkey3DStepperEnv-v0 hang: launches by instance {by_instance}")
+    check(by_instance == {instance: 50}, f"hang: expected 50 launches of {instance}, got "
+                                         f"{by_instance}")
     palms = make_palm_positions(env.model, spec)(state.q)
     gap = torch.linalg.vector_norm(palms - state.task.anchor, dim=2)[state.task.attached > 0.5]
     sag = (z0 - state.q[:, 2]).abs()
@@ -1390,13 +1408,15 @@ def main() -> int:
         **{v: engine.make_kernel(model, EngineConfig(**fields))
            for v, fields in OPTION_CONFIGS.items()},
     }
-    # the thread-per-env twins of K1h-f, K1h-g, K1h-c and K1h-b: the generic
-    # engine_k1.cu instances of their keys (K1h-c's the named k1h_..._k6_si)
+    # the thread-per-env twins of K1h-f, K1h-g, K1h-c, K1h-b and K1h-si: the
+    # generic engine_k1.cu instances of their keys (K1h-c's and K1h-si's the
+    # named k1h_..._k6_si and k1h_..._si)
     split_twins = {"k1h_f": engine.K1f(model, split(config), HF_PATCH, thread_per_env=True),
                    "k1h_g": engine.K1g(model, split(config), thread_per_env=True),
                    "k1h_c": engine.K1c(model, split(config), thread_per_env=True),
                    "k1h_b": engine.K1b(model.replace(kp=kp), split(config),
-                                       extra_damping=kp / 20.0, thread_per_env=True)}
+                                       extra_damping=kp / 20.0, thread_per_env=True),
+                   "k1h_si": engine.K1hSi(model, split(config), thread_per_env=True)}
 
     # ---- phase 1: build
     t0 = time.perf_counter()
@@ -1462,6 +1482,18 @@ def main() -> int:
     held = (engine.unpack_grabs(kernels["k1d"][1][6])[0] > 0.5).sum(0).tolist()
     print(f"[compare] k1d: grabs attached (right, left) {held} of {B} envs")
     max_abs["k1d"] = compare(*kernels["k1d"], "k1d", TOL_GRAB, tail="p99")
+    # the warp-per-env K1d against its thread-per-env instance, hanging from
+    # the bars (within the rounding floor over all envs) and with every base
+    # lifted 3 m clear of them
+    k1d_thread = engine.K1d(mmodel, config, monkey.constraints(), 16, thread_per_env=True)
+    check(kernels["k1d"][0].instance.source == engine.SOURCE_W
+          and k1d_thread.instance.source == engine.SOURCE,
+          f"k1d: the main path's instance {kernels['k1d'][0].name} is not the warp-per-env one")
+    rounding_floor(kernels["k1d"][0], k1d_thread, kernels["k1d"][1], "k1d",
+                   torch.ones(B, dtype=torch.bool, device="cuda"))
+    max_abs["k1d"] = max(max_abs["k1d"], twin_and_lifted(kernels["k1d"][0], k1d_thread,
+                                                         kernels["k1d"][1], "k1d", 3.0,
+                                                         plain_tol=TOL_GRAB))
     kernels["k1f"] = (engine.K1f(model, config, HF_PATCH), cuda(terrain_states(model, rng)))
     window = engine.unpack_hf(kernels["k1f"][1][5])
     lo, cell = window["hf_xy0"], window["hf_cell"][:, None]
@@ -1538,15 +1570,16 @@ def main() -> int:
     print(f"[compare] k1h_g: {int(vertical.sum())} of {B} envs touch a vertical face in the "
           "plain run; the tail gate holds the others")
     max_abs["k1h_g"] = compare(*kernels["k1h_g"], "k1h_g", TOL, tail="p99", tail_envs=~vertical)
-    # K1h-f, K1h-g, K1h-c and K1h-b by their warp-per-env instances: against
-    # their thread-per-env twins as K1f's and K1g's are (K1h-g by the riser
-    # rule), each within the rounding floor (K1h-g off risers, the others
-    # over all envs), on the states and with every base lifted 3 m; and
-    # against their unsplit warp-per-env twins
+    # K1h-f, K1h-g, K1h-c, K1h-b and K1h-si by their warp-per-env instances:
+    # against their thread-per-env twins as K1f's and K1g's are (K1h-g by
+    # the riser rule), each within the rounding floor (K1h-g off risers, the
+    # others over all envs), on the states and with every base lifted 3 m;
+    # and against their unsplit warp-per-env twins
     for v, unsplit, plain_tol, tail_envs in (("k1h_f", "k1f", TOL_HF, None),
                                              ("k1h_g", "k1g", TOL, ~vertical),
                                              ("k1h_c", "k1c", TOL, None),
-                                             ("k1h_b", "k1b", TOL, None)):
+                                             ("k1h_b", "k1b", TOL, None),
+                                             ("k1h_si", "k1a", TOL, None)):
         new, twin = kernels[v][0], split_twins[v]
         check(new.instance.source == engine.SOURCE_W and twin.instance.source == engine.SOURCE,
               f"{v}: the main path's instance {new.name} is not the warp-per-env one")
@@ -1562,8 +1595,9 @@ def main() -> int:
     for v, twin in (("k1a_aform", "k1a"), ("k1h_si_aform", "k1h_si")):
         max_abs[v] = max(max_abs[v], compare_twins(added[v], kernels[twin][0],
                                                    kernels["k1a"][1], v))
-        # the workspace of the thread-per-env twin (the warp-per-env K1a has none)
-        aform_workspace(engine, added[v], k1a_thread if twin == "k1a" else kernels[twin][0], v)
+        # the workspace of the thread-per-env twin (the warp-per-env ones have none)
+        thread = {"k1a": k1a_thread, "k1h_si": split_twins["k1h_si"]}[twin]
+        aform_workspace(engine, added[v], thread, v)
     # every other option is another iteration: K1a's gate tells it from K1a
     for v in ("k1a_scalar", "k1a_cold", "k1a_refactor", "k1a_aform_scalar_cold_refactor",
               "k1a_sub2_it8"):
@@ -1616,14 +1650,15 @@ def main() -> int:
             check(med[0] < 0.02 and med[1] < 0.05 and med[2] < 0.05,
                   f"{env_id}: the median env left its plane: {med}")
     launches["k1d"], state, tr, monkey_batch, step_ms["k1d"], sums = drive(
-        port, engine, card, "Monkey3DStepperEnv-v0", 300, "k1d", sums=("fell", "bar_hit"))
+        port, engine, card, "Monkey3DStepperEnv-v0", 300, "k1d", sums=("fell", "bar_hit"),
+        instance=kernels["k1d"][0].name)
     print(f"[main] Monkey3DStepperEnv-v0: bars_reached mean "
           f"{float(tr.metrics['bars_reached'].mean()):.4f} max "
           f"{float(tr.metrics['bars_reached'].max()):.0f}; holding on at the end "
           f"{float((tr.metrics['holding'] > 0).float().mean()):.4f} of the envs, both hands "
           f"{float((tr.metrics['holding'] > 1).float().mean()):.4f}; over the run falls "
           f"{sums['fell']:.0f}, bar hits {sums['bar_hit']:.0f}")
-    hang_check(monkey_batch, monkey.constraints(), card)
+    hang_check(engine, monkey_batch, monkey.constraints(), card, kernels["k1d"][0].name)
     launches["k1f"], terrain_state, _, _, step_ms["k1f"], sums = drive(
         port, engine, card, "Walker3DTerrainEnv-v0", 600, "k1f", sums=("fallen",),
         instance=kernels["k1f"][0].name)
@@ -1644,7 +1679,7 @@ def main() -> int:
     stairs_readings(state, sums, on_stairs)
     launches["k1h_si"], state, _, _, step_ms["k1h_si"], sums = drive(
         port, engine, card, "Walker3DCustomEnv-v0", 200, "k1h_si", sums=("fallen",),
-        config=EngineConfig(split_impulse=True))
+        instance=kernels["k1h_si"][0].name, config=EngineConfig(split_impulse=True))
     print(f"[main] Walker3DCustomEnv-v0 with split impulse: falls over the run "
           f"{sums['fallen']:.0f}, base height at the end median {float(state.q[:, 2].median()):.4f}"
           f" m")
@@ -1738,6 +1773,10 @@ def main() -> int:
                  WALKER_SWEEP)
     design_sweep(engine, card, "K1h-b", kernels["k1h_b"][0], split_twins["k1h_b"],
                  lambda batch, r: pd_target_states(model, r, batch), WALKER_SWEEP)
+    design_sweep(engine, card, "K1h-si", kernels["k1h_si"][0], split_twins["k1h_si"],
+                 lambda batch, r: near_contact_states(model, r, batch), WALKER_SWEEP)
+    design_sweep(engine, card, "K1d", kernels["k1d"][0], k1d_thread,
+                 lambda batch, r: monkey_states(mmodel, r, batch), WALKER_SWEEP)
     for v, env_id in (("k1b", "Walker3DPDCustomEnv-v0"), ("k1b_child", "Child3DPDCustomEnv-v0"),
                       ("k1f", "Walker3DTerrainEnv-v0"),
                       ("k1f_lidar", "Walker3DTerrainLidarEnv-v0"),

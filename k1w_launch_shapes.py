@@ -1,8 +1,8 @@
 """Launch shapes of the warp-per-env K1 instances on one NVIDIA GPU: Cassie's
 and Cassie2D's K1e, the PD walkers' K1b, the terrain walkers' K1f, the
-stepper's K1c, the stairs' K1g, and the split twins of the stairs, the
-terrain walkers, the stepper and the PD walkers, K1h-g, K1h-f, K1h-c and
-K1h-b.
+stepper's K1c, the stairs' K1g, the split twins of the stairs, the terrain
+walkers, the stepper, the PD walkers and the walker on the plane, K1h-g,
+K1h-f, K1h-c, K1h-b and K1h-si, and the monkey's K1d.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -37,7 +37,7 @@ import chip_smoke
 
 # an instance's name, its nine model and solver arguments, envs per block,
 # blocks per SM, and the arguments behind them (window side, stones, faces,
-# split impulse; any of them may be left out)
+# split impulse, bars, grabs; any of them may be left out)
 INSTANCE = re.compile(r"(K1W_INSTANCE\((\w+),(?:[^,()]*,){9})\s*(\d+),\s*(\d+)((?:,\s*\w+)*\))")
 W = "k1w_nl22_ns14_nlim21_sub4_it4"
 # group → (its symbols, its shapes with the shipped one first, timed calls
@@ -47,7 +47,9 @@ W = "k1w_nl22_ns14_nlim21_sub4_it4"
 # 4 or for 8 blocks (capped at 64; K1f, K1c, K1g and K1h-f ship that, K1b
 # the other), two of 8, one of 16 (K1h-g ships that: four blocks of its 4
 # envs overrun the SM's shared memory, so its blocks of 4 hold 12 per SM;
-# K1h-c and K1h-b too: it ran 3–5% faster than their twins' shapes)
+# K1h-c and K1h-b too: it ran 3–5% faster than their twins' shapes; and
+# K1h-si, 3–4% faster than K1a's 4 × 4). The monkey: 32 envs per SM as one
+# block of 32, two of 16 or four of 8
 GROUPS = {
     "cassie": (("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2",
                 "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar"),
@@ -63,6 +65,9 @@ GROUPS = {
     "stones_split": ((f"{W}_k6_si",), [(16, 1), (4, 8), (4, 4), (8, 2)],
                      {4096: 20, 16384: 10}),
     "pd_split": ((f"{W}_llc1_si",), [(16, 1), (4, 4), (4, 8), (8, 2)], {4096: 20, 16384: 10}),
+    "walker_split": ((f"{W}_si",), [(16, 1), (4, 4), (4, 8), (8, 2)], {4096: 20, 16384: 10}),
+    "monkey": (("k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2",), [(32, 1), (16, 2), (8, 4)],
+               {4096: 20, 16384: 10}),
 }
 
 
@@ -111,9 +116,10 @@ def cases(engine, rng):
     whole PD control step near the stand), the PD walker (random targets
     near contact), the terrain walker (over the family's grids), the stepper
     (over its culled stones) and the stairs walker (over the culled faces);
-    the stairs walker, the terrain walker, the stepper and the PD walker
-    also with split impulse."""
-    from mocca_envs_tpu_torch.models import cassie, walker3d
+    the stairs walker, the terrain walker, the stepper, the PD walker and
+    the walker on the plane (near contact) also with split impulse; the
+    monkey (hanging from its bars)."""
+    from mocca_envs_tpu_torch.models import cassie, monkey, walker3d
     from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
     from mocca_envs_tpu_torch.terrain.scene import HF_PATCH
     from mocca_envs_tpu_torch.utils.config import EngineConfig
@@ -147,6 +153,11 @@ def cases(engine, rng):
     out.append(("pd_split", lambda: engine.K1b(wmodel.replace(kp=kp), split,
                                                    extra_damping=kp / 20.0),
                 lambda batch: chip_smoke.pd_target_states(wmodel, rng, batch)))
+    out.append(("walker_split", lambda: engine.K1hSi(wmodel, split),
+                lambda batch: chip_smoke.near_contact_states(wmodel, rng, batch)))
+    mmodel = monkey.make_model("cuda")
+    out.append(("monkey", lambda: engine.K1d(mmodel, EngineConfig(), monkey.constraints(), 16),
+                lambda batch: chip_smoke.monkey_states(mmodel, rng, batch)))
     return out
 
 

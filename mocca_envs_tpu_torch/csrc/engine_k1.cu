@@ -214,9 +214,6 @@ struct WsLayout {
   static constexpr int SIZE = MATFREE ? L::WS_SIZE : WS_RES + L::NR;
 };
 
-constexpr int BAR_C = 8;      // floats per bar: end a, end b, radius, active
-constexpr int GRAB_C = 4;     // floats per grab: active, target
-
 // The bars and the grab state of a call. Empty bases where there are none,
 // so that the instances without them keep their stack frames.
 template <int KB>

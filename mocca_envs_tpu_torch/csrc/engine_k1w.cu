@@ -25,25 +25,30 @@
 //   K1h-g, K1h-f  K1g's and K1f's keys with split impulse: the same pass
 //        over the contacts' own normals (mesh faces, heightfield window);
 //   K1h-c, K1h-b  K1c's and K1b's keys with split impulse: the pass over the
-//        stones' own normals, and in PD mode.
+//        stones' own normals, and in PD mode;
+//   K1h-si  K1a's key with split impulse: the pass over the plane's
+//        constant-folded contact rows;
+//   K1d  Monkey3D: torque mode over KB bar capsules per env, each contact
+//        with its own normal, and NGRAB maskable grab rows (a palm point
+//        pulled onto its target while the grab is attached).
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
 // make_pallas_substep (pallas_call at :1441) for those configurations (with
-// pd_mode, hf_patch, num_stones, num_tris, constraints= and split_impulse
-// there: :1276-1352, :371-377, :458-509, :363-375, :511-549, :378-382,
-// :551-616, :280-290, :341, :858-886; split impulse :898-932, :1077-1111,
-// :1236-1262). It computes what engine_k1.cu's thread-per-env
+// pd_mode, hf_patch, num_stones, num_tris, num_bars, constraints= and
+// split_impulse there: :1276-1352, :371-377, :458-509, :363-375, :511-549,
+// :378-382, :551-616, :618-651, :280-290, :341, :858-894; split impulse
+// :898-932, :1077-1111, :1236-1262). It computes what engine_k1.cu's thread-per-env
 // instances of the same keys compute, the same iteration with some sums in
 // another order; those instances stay built for comparison
 // (ops/cuda/engine.py, thread_per_env=True), and every other key keeps its
 // engine_k1.cu instance.
 //
 // Each llc frame runs NSUB substeps of: FK along the quaternion chain →
-// every sphere vs the plane [and vs the heightfield window, the stones or
-// the mesh faces] → the rods'
-// anchors → Newton–Euler bias → [substep 0: CRBA about the base + Cholesky]
-// → free velocity → rows [rods × 3 | planar × 3 | joint limits | contacts ×
-// (n, t1, t2)] → W = L⁻¹Jᵀ per active row → matrix-free block PGS, λ
+// every sphere vs the plane [and vs the heightfield window, the stones, the
+// mesh faces or the bars] → the rods' and the grabs' anchors → Newton–Euler
+// bias → [substep 0: CRBA about the base + Cholesky] → free velocity → rows
+// [rods × 3 | planar × 3 | grabs × 3 | joint limits | contacts × (n, t1,
+// t2)] → W = L⁻¹Jᵀ per active row → matrix-free block PGS, λ
 // warm-started across the call's substeps, the equality rows unclamped →
 // [split impulse: the position pass] → qd' = v_free + L⁻ᵀ(Wλ) →
 // semi-implicit integrate + limit backstop.
@@ -53,10 +58,12 @@
 // K1f ~2.8e3 more for the window's narrowphase and the contacts' own normals
 // against 1.7 KB, the window 1 KB of it; K1c ~1.5e4 more for the six
 // stones' box tests against 0.9 KB; K1g ~7e4 more for the 896 sphere-face
-// walks against 1.3 KB), a K1e call on Cassie ~6.3e5 (its 20 substeps and
-// 10 factors) against 0.47 KB (ops/cuda/engine.py::k1_flops), so the floor
-// is the fp32 rate: ~0.01 ms (K1a, K1b, K1f, K1c, K1g), ~0.04 ms (K1e) at
-// B = 4096. The thread-per-env design ran 300–900× above it:
+// walks against 1.3 KB; K1h-si ~1.5e4 more for the position pass), a K1e
+// call on Cassie ~6.3e5 (its 20 substeps and 10 factors) against 0.47 KB, a
+// K1d call on the hanging monkey ~5.9e4 against 0.9 KB (the 16 bars 0.5 KB
+// of it) (ops/cuda/engine.py::k1_flops), so the floor is the fp32 rate:
+// ~0.01 ms (K1a, K1b, K1f, K1c, K1g, K1h-si), ~0.04 ms (K1e), ~0.004 ms
+// (K1d) at B = 4096. The thread-per-env design ran 300–900× above it:
 // one warp of 32 envs per block left the SMs under one warp each at B =
 // 4096, its 255 registers spilled a 6–8 KB frame, the factor, W (NR × NV),
 // λ and z = Wλ round-tripped through a global (C, B) workspace on every row
@@ -66,7 +73,8 @@
 // faster; with split impulse (the position pass, ~6% more operations) K1h-e
 // and K1h-e2d run ~48× above theirs, ~6.7× faster, K1h-g ~48× and K1h-f
 // ~67×, ~12.5× and ~13× faster, K1h-c ~57× and K1h-b ~54×, ~13× and ~14×
-// faster (PERF.md §6).
+// faster, K1h-si ~54× and K1d ~59×, ~14× and ~6.5× faster (PERF.md §6).
+// The monkey's NV = 16 leaves half the lanes idle in the DOF loops.
 //
 // Design.
 //   - One warp per env, C::ENVS warps per block, registers for C::BLOCKS
@@ -106,6 +114,12 @@
 //     16 envs (208,400 / 202,832 bytes, registers for one block: 92 / 56, no
 //     spill) they ran 3.0% / 3.7% faster at B = 4096 than at K1c's 4 × 8
 //     and K1b's 4 × 4, 4.7% / 4.0% at 16,384; two blocks of 8 fell between.
+//     K1h-si (EnvW 12,280) likewise: one block of 16 (201,488 bytes, 64
+//     registers) 3.2% / 4.2% faster than K1a's 4 × 4. The monkey's EnvW
+//     (4,928 bytes, its bars and grab state in empty bases) takes 32 envs
+//     in one block of 1,024 threads, 159,712 bytes, 64 registers: B = 4096
+//     in one wave on 132 SMs; two blocks of 16 or four of 8 ran 7% / 11%
+//     slower. Its link kinematics stay out of W's space: it fits without.
 //   - Lanes: link i for the FK, the Newton–Euler passes and the CRBA
 //     composites, one tree level at a time (depth 6 for the walker, 7 for
 //     Cassie; a parent sums its children in the order the serial code does);
@@ -157,6 +171,24 @@
 // lanes as broadcasts: the caller packs them once per control step and they
 // are constant over the call's substeps.
 //
+// Bar narrowphase (K1d), as engine_k1.cu's and the plain version's
+// (terrain/scene.py::sphere_capsule_depth): the closest point on each bar's
+// axis (the segment parameter clamped to [0, 1], its denominator guarded at
+// 1e-12), the plain norm of the offset, the depth r_s + r_b − distance; of
+// equally deep active bars the first wins; spheres the table marks no_bar
+// (the grabbing palms, which wrap the bar they hold) skip the bars; the
+// deepest bar replaces the plane only where strictly deeper, its normal the
+// offset over the distance (+z for a center on the axis, distance ≤ 1e-9),
+// its point on the bar's surface. The 80 sphere-bar pairs of the monkey are
+// spread over the lanes: each sphere's center is written to a scratch in the
+// Newton–Euler pass's space, each lane takes its pairs'
+// depths, and each sphere's lane then picks its deepest active bar in index
+// order (the first of equals, as the serial loop) and takes its point and
+// normal again from the same function, so the bits are the serial loop's.
+// One sphere per lane over the 16 bars, as K1c over its stones, left 27
+// lanes idle and ran 7% slower (k1w_launch_shapes.py monkey). The bars are
+// staged in the env's shared memory once per call (128 floats).
+//
 // Contact rows. On the plane (+z) a contact's rows n, t1, t2 are rows z, x,
 // y of its point Jacobian, constant-folded. Where a narrowphase sets a
 // sphere's own normal (Cfg::GENERAL: the heightfield, stones, a mesh) they are n·Jc, t1·Jc,
@@ -169,7 +201,16 @@
 // is the unit row on base column 1, 3 or 5 with the drift y, 2(wx+yz) or
 // 2(wz+xy) (sine surrogates of roll and yaw) under the same clipped target.
 // They are always active and swept first. The rods come in the packed table
-// behind the ancestry: link a, link b, anchor a, anchor b per rod.
+// behind the ancestry: link a, link b, anchor a, anchor b per rod. A grab's
+// three rows (behind the rods and the lock; link and palm anchor per grab
+// in the table behind the rods, then the no_bar flag per sphere) are the
+// point Jacobian of its palm's world anchor, the drift palm − target under
+// the same clipped target. They are masked by the grab's activity, an input
+// constant over the call: a grab's rows are listed where its activity is
+// not 0 (the monkey's is 0 or 1), its λ is multiplied by it in the warm
+// start and after each visit, and an unlisted row's λ stays 0, as the plain
+// solver's mask makes it. The grabs' activity and targets are staged once
+// per call, the palm anchors formed per substep, one grab per lane.
 //
 // Split impulse (Cfg::SPLIT), as engine_k1.cu's and the plain version's
 // (ops/step.py): a limit row and a contact's normal row take the velocity
@@ -211,8 +252,10 @@
 //   friction (B,), hf (B, PHF·PHF + 3) for PHF > 0 (env b's heights
 //   row-major, then the world x0, y0 of its corner cell and the cell size),
 //   stones (K·11, B) for K > 0 and tris (KT·10, B) for KT > 0 (component-
-//   major, as engine_k1.cu takes them; a null window, stones or tris where
-//   the instance reads it is refused), bars and grabs (unused, may be null)
+//   major, as engine_k1.cu takes them), bars (KB·8, B) for KB > 0 and
+//   grabs (NGRAB·4, B) for NGRAB > 0 (component-major: end a, end b, radius,
+//   active per bar; active, target per grab; a null window, stones, tris,
+//   bars or grabs where the instance reads it is refused)
 //   → q' (B,NQ), qd' (B,NV), depth (B,NS), normal_impulse (B,NS) of the last
 //   substep. <sym>_occupancy reports the blocks (and so the envs) resident
 //   per SM.
@@ -256,24 +299,27 @@ __device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
 // (PD: NLLC llc frames per call), the equality rows, the launch's envs
 // (warps) per block and the blocks per SM its registers are sized for (at
 // most 65,536 / (32 · ENVS · BLOCKS) a thread), the heightfield window's
-// side, the stones and the mesh faces per env (0: none), split impulse.
+// side, the stones and the mesh faces per env (0: none), split impulse, and
+// the bar capsules and the grabs per env (0: none).
 template <int NL_, int NS_, int NLIM_, int NSUB_, int ITERS_, bool PD_, int NLLC_, int NP2P_,
           bool PLANAR_, int ENVS_, int BLOCKS_, int PHF_ = 0, int K_ = 0, int KT_ = 0,
-          bool SPLIT_ = false>
+          bool SPLIT_ = false, int KB_ = 0, int NGRAB_ = 0>
 struct Cfg {
   static constexpr int NL = NL_, NS = NS_, NLIM = NLIM_, NSUB = NSUB_, ITERS = ITERS_;
   static constexpr bool PD = PD_, PLANAR = PLANAR_, SPLIT = SPLIT_;
   static constexpr int NLLC = NLLC_, NP2P = NP2P_, ENVS = ENVS_, BLOCKS = BLOCKS_, PHF = PHF_;
-  static constexpr int K = K_, KT = KT_;
-  using L = Layout<NL, NS, NLIM, NP2P, PLANAR, 0, 0>;
+  static constexpr int K = K_, KT = KT_, KB = KB_, NGRAB = NGRAB_;
+  using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   static constexpr int WS = L::NV | 1;   // W's row stride: odd
-  // the equality-row instances hold the link kinematics in W's space
+  // the rod and planar instances hold the link kinematics in W's space
+  // (Cassie's 32 envs per block need it); the monkey's EnvW fits 32 envs in
+  // one block without it
   static constexpr bool KIN_IN_W = L::NE0 > 0;
   // each contact has its own normal (else the plane's +z)
-  static constexpr bool GENERAL = PHF > 0 || K > 0 || KT > 0;
+  static constexpr bool GENERAL = PHF > 0 || K > 0 || KT > 0 || KB > 0;
   static_assert(PD || NLLC == 1, "torque mode is launched once per llc frame");
-  static_assert((PHF > 0) + (K > 0) + (KT > 0) <= 1,
-                "no instance combines a heightfield, stones and a mesh");
+  static_assert((PHF > 0) + (K > 0) + (KT > 0) + (KB > 0) <= 1,
+                "no instance combines a heightfield, stones, a mesh and bars");
   static_assert(L::NV <= 32, "one lane per velocity DOF");
 };
 
@@ -293,6 +339,37 @@ HD inline void world_inertia(const float* quat, const float* I, float* Iw) {
   for (int a = 0; a < 3; ++a)
     for (int b = 0; b < 3; ++b)
       Iw[3 * a + b] = R[3 * a] * IRt[b] + R[3 * a + 1] * IRt[3 + b] + R[3 * a + 2] * IRt[6 + b];
+}
+
+// Sphere (center c, radius rad) against bar br: its depth rad + r − |c −
+// cl|, the closest point cl on the bar's axis and the offset dl = c − cl
+// and its length, as engine_k1.cu's bar narrowphase computes them
+HD inline float bar_depth(const float* br, const float* c, float rad, float* cl, float* dl,
+                          float* dist) {
+  const float ab[3] = {br[3] - br[0], br[4] - br[1], br[5] - br[2]};
+  const float rel[3] = {c[0] - br[0], c[1] - br[1], c[2] - br[2]};
+  const float tp = clampf(dot3(rel, ab) / fmaxf(dot3(ab, ab), 1e-12f), 0.0f, 1.0f);
+  for (int a = 0; a < 3; ++a) cl[a] = br[a] + tp * ab[a];
+  for (int a = 0; a < 3; ++a) dl[a] = c[a] - cl[a];
+  *dist = sqrtf(dot3(dl, dl));
+  return rad + br[6] - *dist;
+}
+
+// ... and sphere s's deepest bar bk (its depth best, closest axis point bc,
+// offset bd of length bdist) replaces the plane where strictly deeper: the
+// normal the offset over the distance (+z for a center on the axis), the
+// point on the bar's surface
+template <class E>
+HD inline void take_bar(E& e, int s, int bk, float best, const float* bc, const float* bd,
+                        float bdist) {
+  if (!(bk >= 0 && best > e.depth[s])) return;
+  const float rb = e.bar[bk][6];
+  const float inv = 1.0f / fmaxf(bdist, 1e-9f);
+  for (int a = 0; a < 3; ++a) {
+    e.nrm[s][a] = bdist > 1e-9f ? bd[a] * inv : (a == 2 ? 1.0f : 0.0f);
+    e.cpt[s][a] = bc[a] + e.nrm[s][a] * rb;
+  }
+  e.depth[s] = best;
 }
 
 // The link kinematics of a substep and the Newton–Euler bias: written by
@@ -346,12 +423,31 @@ template <bool SPLIT, int NP>
 struct SplitState { float bpos[NP], lpos[NP]; };
 template <int NP>
 struct SplitState<false, NP> {};
+// ... the env's bars (end a, end b, radius, active), staged once per call,
+// and each grab's activity and target (constant over the call) and its palm
+// anchor in the world frame (per substep)
+template <int KB>
+struct BarState { float bar[KB][BAR_C]; };
+template <>
+struct BarState<0> {};
+template <int NGRAB>
+struct GrabState { float gact[NGRAB], gtgt[NGRAB][3], gx[NGRAB][3]; };
+template <>
+struct GrabState<0> {};
+// The bar narrowphase's pairs: each sphere's center, then the depth of each
+// sphere-bar pair; written and read before the Newton–Euler pass, so they
+// share its space
+template <int NS, int KB>
+struct BarScratch { float ctr[NS][3], dk[NS][KB]; };
+template <int NS>
+struct BarScratch<NS, 0> {};
 
 // One env's state in shared memory.
 template <class C>
 struct EnvW : PdState<C::PD, C::L::NJ>, RodState<C::NP2P>, NrmState<C::GENERAL, C::NS>,
               HfState<C::PHF>, StoneState<C::K>, TriState<C::KT>,
-              SplitState<C::SPLIT, C::NLIM + C::NS>, KinIn<!C::KIN_IN_W, C::NL, C::L::NV> {
+              SplitState<C::SPLIT, C::NLIM + C::NS>, BarState<C::KB>, GrabState<C::NGRAB>,
+              KinIn<!C::KIN_IN_W, C::NL, C::L::NV> {
   using L = typename C::L;
   float q[L::NQ], qd[L::NV], tau[L::NJ];
   float ground, fric;
@@ -362,9 +458,14 @@ struct EnvW : PdState<C::PD, C::L::NJ>, RodState<C::NP2P>, NrmState<C::GENERAL, 
   float lam[L::NR], c[L::NR], diag[L::NR], act[L::NR], finv[C::NS][3];
   int rows[L::NR];
   // what a substep writes before W and is done with by then: the link
-  // kinematics (KIN_IN_W), the Newton–Euler or the CRBA scratch
+  // kinematics (KIN_IN_W), the bar pairs, the Newton–Euler or the CRBA
+  // scratch
   struct Pre : KinIn<C::KIN_IN_W, C::NL, L::NV> {
-    union { NeScratch<C::NL> ne; CrbaScratch<C::NL> cr; };
+    union {
+      BarScratch<C::NS, C::KB> bs;
+      NeScratch<C::NL> ne;
+      CrbaScratch<C::NL> cr;
+    };
   };
   union {
     float W[L::NR * C::WS];
@@ -438,7 +539,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
   }
 
   // ---------------- spheres vs the plane, then vs the heightfield window,
-  // the stones or the mesh faces
+  // the stones, the mesh faces or the bars
   for (int s = lane; s < NS; s += WIDTH) {
     const int l = (int)tab[L::SPHLINK + s];
     const float rad = tab[L::SPHR + s];
@@ -563,6 +664,34 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
         for (int i = 0; i < 3; ++i) e.cpt[s][i] = bp[i];
       }
     }
+    if constexpr (C::KB > 0) {
+      e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f;
+      e.u.pre.bs.ctr[s][0] = cx; e.u.pre.bs.ctr[s][1] = cy; e.u.pre.bs.ctr[s][2] = cz;
+    }
+  }
+  if constexpr (C::KB > 0) {
+    // the NS × KB sphere-bar pairs over the lanes, then each sphere's
+    // deepest active bar (the first of equals) by its lane, in index order
+    auto& bs = e.u.pre.bs;
+    wsync();
+    for (int p = lane; p < NS * C::KB; p += WIDTH) {
+      const int s = p / C::KB, k = p % C::KB;
+      float cl[3], dl[3], dist;
+      bs.dk[s][k] = bar_depth(e.bar[k], bs.ctr[s], tab[L::SPHR + s], cl, dl, &dist);
+    }
+    wsync();
+    for (int s = lane; s < NS; s += WIDTH) {
+      if (tab[L::NOBAR + s] > 0.5f) continue;
+      float best = -1e9f;
+      int bk = -1;
+      for (int k = 0; k < C::KB; ++k)
+        if (e.bar[k][7] > 0.5f && bs.dk[s][k] > best) { best = bs.dk[s][k]; bk = k; }
+      if (bk < 0) continue;
+      float bc[3], bd[3], bdist;
+      bar_depth(e.bar[bk], bs.ctr[s], tab[L::SPHR + s], bc, bd, &bdist);
+      take_bar(e, s, bk, best, bc, bd, bdist);
+    }
+    wsync();   // the pairs' space is the Newton–Euler pass's next
   }
   // ---------------- the rods' anchors in the world frame, one per lane
   if constexpr (C::NP2P > 0)
@@ -574,6 +703,16 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       qmat(K.quat[l], R);
       matvec3(R, rod + 2 + 3 * (k % 2), x);
       for (int d = 0; d < 3; ++d) x[d] += e.pos[l][d];
+    }
+  // ---------------- each grab's palm anchor in the world frame, one per lane
+  if constexpr (C::NGRAB > 0)
+    for (int g = lane; g < C::NGRAB; g += WIDTH) {
+      const float* gr = tab + L::GRAB + 4 * g;
+      const int l = (int)gr[0];
+      float R[9];
+      qmat(K.quat[l], R);
+      matvec3(R, gr + 1, e.gx[g]);
+      for (int d = 0; d < 3; ++d) e.gx[g][d] += e.pos[l][d];
     }
 
   // ---------------- Newton–Euler bias (q̈ = 0, base acceleration −g)
@@ -784,11 +923,13 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     wsync();
   }
 
-  // ---------------- which rows are active, and their list: the equality
-  // rows always, first
+  // ---------------- which rows are active, and their list: the rods and
+  // the planar lock always, a grab's rows where it is attached, first
   const float beta = tab[L::BETA], maxpush = tab[L::MAXPUSH];
   if constexpr (NE0 > 0)
     for (int r = lane; r < NE0; r += WIDTH) e.act[r] = 1.0f;
+  if constexpr (NE > NE0)
+    for (int r = NE0 + lane; r < NE; r += WIDTH) e.act[r] = e.gact[(r - NE0) / 3];
   for (int lr = lane; lr < NLIM; lr += WIDTH) {
     const int j = (int)tab[L::LIMIDX + lr];
     const float qj = e.q[7 + j];
@@ -803,7 +944,9 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
   int nrows = 0;
   for (int base = 0; base < NR; base += WIDTH) {
     const int r = base + lane;
-    const bool a = r < NR && e.act[r] > 0.5f;
+    bool a = r < NR && e.act[r] > 0.5f;
+    if constexpr (NE > NE0)   // a grab's rows wherever its activity is not 0
+      if (r >= NE0 && r < NE) a = e.act[r] != 0.0f;
     const unsigned mask = wballot(a);
     if (a) e.rows[nrows + popc(mask & ((1u << lane) - 1u))] = r;
     nrows += popc(mask);
@@ -861,6 +1004,20 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
           for (int i = 0; i < NV; ++i) y[i] = i == col ? 1.0f : 0.0f;
           e.c[r] = e.vfree[col] - eq_target(err);
         }
+      }
+    } else if (r < NE) {   // a grab: component d of its palm's point Jacobian
+      if constexpr (C::NGRAB > 0) {
+        const int g = (r - NE0) / 3, d = (r - NE0) % 3;
+        const int lg = (int)tab[L::GRAB + 4 * g];
+        const float* xg = e.gx[g];
+        float rel[3];
+        for (int m = 0; m < 3; ++m) rel[m] = xg[m] - e.pos[0][m];
+        float cv = 0.0f;
+        for (int i = 0; i < NV; ++i) {
+          y[i] = jac(lg, xg, rel, d, i);
+          cv += y[i] * e.vfree[i];
+        }
+        e.c[r] = cv - eq_target(xg[d] - e.gtgt[g][d]);
       }
     } else if (r < NE + NLIM) {   // a joint limit: ±1 on its column
       const int lr = r - NE;
@@ -975,7 +1132,8 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
   };
 
   // ---------------- PGS over the active rows, in the serial order: the
-  // equality rows unbounded, a limit or a contact normal clamped at 0
+  // equality rows unbounded (a grab's masked by its activity), a limit or a
+  // contact normal clamped at 0
   const float fric = e.fric;
   for (int it = 0; it < C::ITERS; ++it) {
     for (int t = 0; t < nrows;) {
@@ -983,7 +1141,10 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       const float l0 = e.lam[r];
       const float res = e.c[r] + cfm * l0 + wsum(part(r, z));
       float nw = l0 - res / e.diag[r];
-      if (!(r < NE0)) nw = fmaxf(0.0f, nw);
+      if (!(r < NE)) nw = fmaxf(0.0f, nw);
+      else if constexpr (NE > NE0) {
+        if (r >= NE0) nw *= e.act[r];
+      }
       e.lam[r] = nw;
       move(r, nw - l0, z);
       if (r < NE + NLIM) { ++t; continue; }
@@ -1089,11 +1250,14 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
 // start and carried across them. PD: ``tau`` holds joint targets and each
 // frame's torque is gain·(target − q) at the frame's start; else the torques
 // are held. PHF > 0: ``hf`` row t is the env's heightfield window. K > 0 /
-// KT > 0: column t of the component-major ``stones`` (K·11, B) / ``tris``
-// (KT·10, B) holds the env's stones / faces, staged here once for the call.
+// KT > 0 / KB > 0 / NGRAB > 0: column t of the component-major ``stones``
+// (K·11, B) / ``tris`` (KT·10, B) / ``bars`` (KB·8, B) / ``grabs`` (NGRAB·4,
+// B) holds the env's stones / faces / bars / grab state, staged here once
+// for the call.
 template <class C>
 KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const float* gz,
-                      const float* fric, const float* stones, const float* hf,
+                      const float* fric, const float* stones, const float* bars,
+                      const float* grabs, const float* hf,
                       const float* tris, float* q_out, float* qd_out, float* depth_out,
                       float* nimp_out, const float* tab, const int* level, int maxd, EnvW<C>& e,
                       int B, int t, int lane) {
@@ -1111,6 +1275,15 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
   if constexpr (C::KT > 0)
     for (int i = lane; i < C::KT * TRI_C; i += WIDTH)
       e.tri[i / TRI_C][i % TRI_C] = ldg_(tris + (long long)i * B + t);
+  if constexpr (C::KB > 0)
+    for (int i = lane; i < C::KB * BAR_C; i += WIDTH)
+      e.bar[i / BAR_C][i % BAR_C] = ldg_(bars + (long long)i * B + t);
+  if constexpr (C::NGRAB > 0)
+    for (int i = lane; i < C::NGRAB * GRAB_C; i += WIDTH) {
+      const float v = ldg_(grabs + (long long)i * B + t);
+      if (i % GRAB_C == 0) e.gact[i / GRAB_C] = v;
+      else e.gtgt[i / GRAB_C][i % GRAB_C - 1] = v;
+    }
   if (lane == 0) {
     e.ground = gz[t];
     e.fric = fric[t];
@@ -1140,11 +1313,13 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
   }
 }
 
-// Whether the scene inputs the instance reads are given: the heightfield
-// window, the stones, the mesh faces.
+// Whether the scene inputs the instance reads are given: the stones, the
+// bars, the grabs, the heightfield window, the mesh faces.
 template <class C>
-inline bool scene_given(const float* stones, const float* hf, const float* tris) {
-  return !(C::PHF > 0 && hf == nullptr) && !(C::K > 0 && stones == nullptr) &&
+inline bool scene_given(const float* stones, const float* bars, const float* grabs,
+                        const float* hf, const float* tris) {
+  return !(C::K > 0 && stones == nullptr) && !(C::KB > 0 && bars == nullptr) &&
+         !(C::NGRAB > 0 && grabs == nullptr) && !(C::PHF > 0 && hf == nullptr) &&
          !(C::KT > 0 && tris == nullptr);
 }
 
@@ -1161,6 +1336,7 @@ __global__ void __launch_bounds__(32 * C::ENVS, C::BLOCKS)
 k1w_kernel(const float* __restrict__ q, const float* __restrict__ qd,
            const float* __restrict__ tau, const float* __restrict__ gz,
            const float* __restrict__ fric, const float* __restrict__ stones,
+           const float* __restrict__ bars, const float* __restrict__ grabs,
            const float* __restrict__ hf, const float* __restrict__ tris,
            float* __restrict__ q_out, float* __restrict__ qd_out, float* __restrict__ depth_out,
            float* __restrict__ nimp_out, const float* __restrict__ table, int B) {
@@ -1178,8 +1354,8 @@ k1w_kernel(const float* __restrict__ q, const float* __restrict__ qd,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = blockIdx.x * C::ENVS + warp;
   if (t >= B) return;   // the whole warp
-  frame<C>(q, qd, tau, gz, fric, stones, hf, tris, q_out, qd_out, depth_out, nimp_out, tab, level,
-           maxd, envs[warp], B, t, lane);
+  frame<C>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out, depth_out,
+           nimp_out, tab, level, maxd, envs[warp], B, t, lane);
 }
 
 template <class C>
@@ -1190,15 +1366,16 @@ int prepare() {
 
 template <class C>
 int launch(const float* q, const float* qd, const float* tau, const float* gz, const float* fric,
-           const float* stones, const float* hf, const float* tris, float* q_out, float* qd_out,
-           float* depth, float* nimp, const float* table, int table_size, int B, void* stream) {
-  if (table_size != C::L::SIZE || B <= 0 || !scene_given<C>(stones, hf, tris))
+           const float* stones, const float* bars, const float* grabs, const float* hf,
+           const float* tris, float* q_out, float* qd_out, float* depth, float* nimp,
+           const float* table, int table_size, int B, void* stream) {
+  if (table_size != C::L::SIZE || B <= 0 || !scene_given<C>(stones, bars, grabs, hf, tris))
     return (int)cudaErrorInvalidValue;
   const int err = prepare<C>();
   if (err != 0) return err;
   const int blocks = (B + C::ENVS - 1) / C::ENVS;
   k1w_kernel<C><<<blocks, 32 * C::ENVS, Smem<C>::BYTES, (cudaStream_t)stream>>>(
-      q, qd, tau, gz, fric, stones, hf, tris, q_out, qd_out, depth, nimp, table, B);
+      q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out, depth, nimp, table, B);
   return (int)cudaGetLastError();
 }
 
@@ -1216,13 +1393,13 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
 }  // namespace k1w
 
 // ------------------------------------------------------------ C interface
-// The same entries as engine_k1.cu's instances (the bars, the grabs and the
-// workspace are taken and unused; the workspace per env is 0), and
-// <sym>_occupancy. One entry per instance: (NL, NS, NLIM, NSUB, ITERS, PD,
-// NLLC, NP2P, PLANAR) at the shipped solver options, then envs per block and
-// blocks per SM, then the window's side, the stones and the faces where
-// there are any, and split impulse; ops/cuda/engine.py::WARP_INSTANCES lists
-// the same names and numbers. Each library also exports k1w_smem_limits,
+// The same entries as engine_k1.cu's instances (the workspace is taken and
+// unused; the workspace per env is 0), and <sym>_occupancy. One entry per
+// instance: (NL, NS, NLIM, NSUB, ITERS, PD, NLLC, NP2P, PLANAR) at the
+// shipped solver options, then envs per block and blocks per SM, then the
+// window's side, the stones and the faces where there are any, split
+// impulse, the bars and the grabs, and the bar narrowphase's layout;
+// ops/cuda/engine.py::WARP_INSTANCES lists the same names and numbers. Each library also exports k1w_smem_limits,
 // the card's shared memory per SM, per block and reserved per block.
 #define K1W_LAYOUT(NAME, ...)                                                                \
   using NAME##_cfg = k1w::Cfg<__VA_ARGS__>;                                                  \
@@ -1236,12 +1413,13 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
   K1W_LAYOUT(NAME, __VA_ARGS__)                                                              \
   extern "C" int NAME##_launch(const float* q, const float* qd, const float* tau,           \
                                const float* gz, const float* fric, const float* stones,     \
-                               const float*, const float*, const float* hf,                 \
+                               const float* bars, const float* grabs, const float* hf,      \
                                const float* tris, float* q_out, float* qd_out,              \
                                float* depth, float* nimp, const float* table,               \
                                int table_size, float*, int B, void* stream) {               \
-    return k1w::launch<NAME##_cfg>(q, qd, tau, gz, fric, stones, hf, tris, q_out, qd_out,    \
-                                   depth, nimp, table, table_size, B, stream);              \
+    return k1w::launch<NAME##_cfg>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris,      \
+                                   q_out, qd_out, depth, nimp, table, table_size, B,        \
+                                   stream);                                                 \
   }                                                                                          \
   extern "C" int NAME##_occupancy(int* blocks_per_sm, int* envs_per_block,                  \
                                   int* smem_bytes) {                                        \
@@ -1266,19 +1444,20 @@ extern "C" int k1w_smem_limits(int* per_sm, int* per_block, int* reserved) {
   K1W_LAYOUT(NAME, __VA_ARGS__)                                                              \
   extern "C" int NAME##_host(const float* q, const float* qd, const float* tau,             \
                              const float* gz, const float* fric, const float* stones,       \
-                             const float*, const float*, const float* hf,                   \
+                             const float* bars, const float* grabs, const float* hf,        \
                              const float* tris, float* q_out, float* qd_out, float* depth,  \
                              float* nimp, const float* table, int table_size, float*,       \
                              int B) {                                                        \
     using C_ = NAME##_cfg;                                                                   \
-    if (table_size != C_::L::SIZE || B <= 0 || !k1w::scene_given<C_>(stones, hf, tris))      \
+    if (table_size != C_::L::SIZE || B <= 0 ||                                               \
+        !k1w::scene_given<C_>(stones, bars, grabs, hf, tris))                                \
       return 1;                                                                              \
     int dep[C_::NL];                                                                         \
     const int maxd = k1w::tree_depths<C_::NL>(table + C_::L::PARENT, dep);                   \
     auto* e = new k1w::EnvW<C_>;                                                             \
     for (int t = 0; t < B; ++t)                                                              \
-      k1w::frame<C_>(q, qd, tau, gz, fric, stones, hf, tris, q_out, qd_out, depth, nimp,     \
-                     table, dep, maxd, *e, B, t, 0);                                         \
+      k1w::frame<C_>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out,     \
+                     depth, nimp, table, dep, maxd, *e, B, t, 0);                            \
     delete e;                                                                                \
     return 0;                                                                                \
   }
@@ -1363,4 +1542,22 @@ K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_k6_si, 22, 14, 21, 4, 4, false, 1, 0,
 #if !defined(K1W_ONLY) || K1W_ONLY == 12
 K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_llc1_si, 22, 14, 21, 4, 4, true, 1, 0, false, 16, 1, 0,
              0, 0, true)
+#endif
+// The walker on the plane with split impulse (K1h-si): K1a's key with the
+// position pass over the plane's constant-folded contact rows. Four blocks
+// of 4 envs fit (4 × (54,128 + 1,024) bytes), but one block of 16 envs per
+// SM (201,488 bytes, registers for one block: 64) ran 3–4% faster
+#if !defined(K1W_ONLY) || K1W_ONLY == 13
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_si, 22, 14, 21, 4, 4, false, 1, 0, false, 16, 1, 0, 0,
+             0, true)
+#endif
+// Monkey3D at the shipped EngineConfig (K1d): 11 links, 5 spheres, 8 limit
+// rows, 4 substeps, 4 sweeps, 16 bars, two grabs (6 + 8 + 15 = 29 rows),
+// torque mode; EnvW 4,928 bytes, 32 envs per block of 1,024 threads (159,712
+// bytes), one block per SM: B = 4096 in one wave on 132 SMs; the 80
+// sphere-bar pairs over the lanes (one sphere per lane ran 7% slower; two
+// blocks of 16 or four of 8 envs 3–11% slower)
+#if !defined(K1W_ONLY) || K1W_ONLY == 14
+K1W_INSTANCE(k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2, 11, 5, 8, 4, 4, false, 1, 0, false, 32, 1, 0, 0,
+             0, false, 16, 2)
 #endif

@@ -1,7 +1,8 @@
 // Shared by the K1 kernel sources (engine_k1.cu, engine_k1w.cu): the host
 // check's stand-ins for the CUDA built-ins, the packed model table's layout,
-// the small vector and quaternion helpers, the floats per stone and per mesh
-// face of the packed scene inputs, and the closest point on a triangle.
+// the small vector and quaternion helpers, the floats per stone, mesh face,
+// bar and grab of the packed scene inputs, and the closest point on a
+// triangle.
 
 #ifndef K1_COMMON_CUH
 #define K1_COMMON_CUH
@@ -122,6 +123,8 @@ HD inline float sgn0(float x) { return (float)(x > 0.0f) - (float)(x < 0.0f); }
 
 constexpr int STONE_C = 11;   // floats per stone: center, quaternion, half extents, active
 constexpr int TRI_C = 10;     // floats per mesh face: vertices a, b, c, active
+constexpr int BAR_C = 8;      // floats per bar: end a, end b, radius, active
+constexpr int GRAB_C = 4;     // floats per grab: active, target
 
 // Closest point o of triangle (a, b, c) to p: Ericson's barycentric region
 // walk, the first region that holds p winning (vertex a, b, c, edge ab, ac,

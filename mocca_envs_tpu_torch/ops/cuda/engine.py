@@ -17,8 +17,8 @@ warp per env (W and the factor in shared memory, inactive rows skipped),
 which the keys of :data:`WARP_INSTANCES` run (K1a, the walker's and the
 child's; K1b, the PD walker's and the PD child's; K1f, the terrain
 walkers'; K1c, the stepper's; K1g, the stairs'; K1e, Cassie's and
-Cassie2D's, and the split twins K1h-e, K1h-e2d, K1h-g, K1h-f, K1h-c,
-K1h-b), and
+Cassie2D's; K1d, the monkey's; and the split twins K1h-e, K1h-e2d, K1h-g,
+K1h-f, K1h-c, K1h-b and K1h-si, the walker's on the plane), and
 ``csrc/engine_k1.cu``, one thread per env, for every other key. An instance is picked by its
 :class:`Key`: the warp-per-env one where there is one, else the fifteen
 ``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the shipped families at the
@@ -174,7 +174,11 @@ INSTANTIATIONS = {inst.key: inst for inst in (
 # terrain walkers' frame with split impulse; K1h-c and K1h-b, the stepper's
 # frame and the PD walkers' control step with split impulse (their
 # thread-per-env twins: the named k1h_..._k6_si and the generic
-# k1_..._llc1_si; K1b at two llc frames, split or not, stays on engine_k1.cu)
+# k1_..._llc1_si; K1b at two llc frames, split or not, stays on engine_k1.cu);
+# K1h-si, the walker's frame on the plane with split impulse, and K1d, the
+# monkey's frame over its 16 bars with its two grab rows (their twins: the
+# named k1h_..._si and k1d_..._kb16_ng2; the monkey's split key K1h-d stays on
+# engine_k1.cu)
 WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4", 0, Key(**_W), SOURCE_W),
     Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 1, Key(**_C), SOURCE_W),
@@ -195,6 +199,8 @@ WARP_INSTANCES = {inst.key: inst for inst in (
              SOURCE_W),
     Instance("k1w_nl22_ns14_nlim21_sub4_it4_llc1_si", 12, Key(**_W, pd=True, split=True),
              SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_si", 13, Key(**_W, split=True), SOURCE_W),
+    Instance("k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2", 14, Key(**_M), SOURCE_W),
 )}
 
 
@@ -727,9 +733,9 @@ class K1d(EngineKernel):
     split_variant = "k1h_d"
 
     def __init__(self, model, config, constraints: ConstraintSpec, num_bars: int,
-                 plain_unit=None):
+                 plain_unit=None, thread_per_env: bool = False):
         super().__init__(model, config, num_bars=num_bars, plain_unit=plain_unit,
-                         constraints=constraints)
+                         constraints=constraints, thread_per_env=thread_per_env)
 
 
 class K1f(EngineKernel):
@@ -769,10 +775,10 @@ class K1hSi(EngineKernel):
     variant = "k1h_si"
     split_variant = "k1h_si"
 
-    def __init__(self, model, config, plain_unit=None):
+    def __init__(self, model, config, plain_unit=None, thread_per_env: bool = False):
         if not config.split_impulse:
             raise NotImplementedError("k1h_si runs with split_impulse=True only")
-        super().__init__(model, config, plain_unit=plain_unit)
+        super().__init__(model, config, plain_unit=plain_unit, thread_per_env=thread_per_env)
 
 
 def make_kernel(model, config, *, num_stones=0, num_bars=0, hf_patch=0, num_tris=0,

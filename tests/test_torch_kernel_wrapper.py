@@ -73,7 +73,8 @@ def _kernel_case(case, B, seed, device="cpu"):
     ``_thread`` on the thread-per-env instance of the same key), k1e_planar
     / k1e_crab (one torque frame of Walker2D / Crab2D, which share an
     instantiation), k1d* (one torque frame of the monkey
-    hanging from its bars, the hands attached as :data:`K1D_CASES` says),
+    hanging from its bars, the hands attached as :data:`K1D_CASES` says, on
+    the thread-per-env instance),
     k1f* (one torque frame of the walker over a terrain window, as
     :data:`K1F_CASES` says), k1g (one torque frame of the walker on the
     stairs' 16 culled faces), k1h_si (one torque frame of the walker near
@@ -100,8 +101,10 @@ def _kernel_case(case, B, seed, device="cpu"):
         return (engine.K1f(model, EngineConfig(), HF_PATCH),
                 chip_smoke.terrain_states(model, rng, B, **K1F_CASES[case]))
     if case in K1D_CASES:
+        # the thread-per-env instance (the warp-per-env one the entry points
+        # pick is held in tests/test_torch_k1w_split_walker_monkey.py)
         model = monkey.make_model(device)
-        return (engine.K1d(model, EngineConfig(), monkey.constraints(), 16),
+        return (engine.K1d(model, EngineConfig(), monkey.constraints(), 16, thread_per_env=True),
                 chip_smoke.monkey_states(model, rng, B, **K1D_CASES[case]))
     if case.startswith("k1e_cassie"):
         model = cassie.make_model(device)
@@ -655,7 +658,11 @@ def test_k1d_is_picked_by_bars_and_grabs():
     model, spec = monkey.make_model(), monkey.constraints()
     kernel = engine.make_kernel(model, EngineConfig(), num_bars=16, constraints=spec)
     assert isinstance(kernel, engine.K1d) and kernel.variant == "k1d"
-    assert kernel.inputs == ("bars", "grabs") and kernel.name.startswith("k1d_")
+    # the warp-per-env instance; the thread-per-env one only when asked for
+    assert kernel.inputs == ("bars", "grabs")
+    assert kernel.name == "k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2"
+    assert engine.K1d(model, EngineConfig(), spec, 16, thread_per_env=True).name \
+        == "k1d_nl11_ns5_nlim8_sub4_it4_kb16_ng2"
     # other bar counts, bars without the grabs, other substeps: the generic
     # instance of their keys; PD mode: refused
     for build, symbol in (
@@ -1020,7 +1027,8 @@ def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
     the planar walkers and on Cassie's plane are keys of the generic
     instance, each counted under its split name; split impulse on the
     16-face mesh and in PD mode are K1h-g's and K1h-b's warp-per-env
-    instances (their generic ones only with ``thread_per_env=True``); K1a
+    instances (their generic ones only with ``thread_per_env=True``), and
+    K1h-si's (its named one only with ``thread_per_env=True``); K1a
     with split impulse and K1hSi
     without it raise (split impulse over stones is K1h-c:
     test_split_instances_are_picked_and_the_rest_refused)."""
@@ -1034,6 +1042,9 @@ def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
         == "k1g_nl22_ns14_nlim21_sub4_it4_kt16"
     si = engine.make_kernel(model, split)
     assert isinstance(si, engine.K1hSi) and si.inputs == () and si.variant == "k1h_si"
+    assert si.name == "k1w_nl22_ns14_nlim21_sub4_it4_si"
+    assert engine.K1hSi(model, split, thread_per_env=True).name \
+        == "k1h_nl22_ns14_nlim21_sub4_it4_si"
     for build in (lambda: engine.make_kernel(model, split, num_tris=16),
                   lambda: engine.K1g(model, split)):
         k1h_g = build()
@@ -1154,8 +1165,8 @@ def test_split_instances_are_picked_and_the_rest_refused():
     """Split impulse takes the variant it would take without it, counted
     under its split name: K1c over stones (k1h_c), Cassie's and Cassie2D's
     K1e (k1h_e) on their warp-per-env instances, the stepper's named twin
-    only with ``thread_per_env=True``; the monkey's K1d (k1h_d) and K1hSi on
-    the walker's plane on named instances; a heightfield (K1f: k1h_f), a
+    only with ``thread_per_env=True``; the monkey's K1d (k1h_d) on its named
+    instance; a heightfield (K1f: k1h_f), a
     mesh (K1g: k1h_g) and the PD walker and child (K1b: k1h_b) on their
     warp-per-env instances, their generic ones only with
     ``thread_per_env=True``; the torque planar walkers (K1e: k1h_e) on the

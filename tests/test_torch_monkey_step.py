@@ -12,6 +12,10 @@ depth 5e-4, normal impulse 1e-2 (the looser of the JAX package's two gates
 for what K1d combines: equality rows with grabs, and bars), the largest env
 within ten times.
 
+The warp-per-env K1d (``csrc/engine_k1w.cu``, the instance the monkey's
+main path launches on the card), built by g++ under ``-DK1W_HOST_CHECK``
+once per module, is held to the same JAX outputs at the same gates.
+
 The hang test is the port's counterpart of
 tests/test_monkey.py::test_grab_holds_against_gravity, through the env.
 """
@@ -33,6 +37,8 @@ from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.ops.step import make_control_step as tcontrol
 from mocca_envs_tpu_torch.tasks import monkey_stepper as ttask
 from mocca_envs_tpu_torch.utils.config import EngineConfig as TConfig
+
+from tests.torch_k1_host import build_host, run_on_host
 
 B = 16
 TOL = chip_smoke.TOL_GRAB
@@ -61,8 +67,16 @@ def jax_step():
     return jax.jit(jax.vmap(one))
 
 
+@pytest.fixture(scope="module")
+def k1w_host(tmp_path_factory):
+    """The warp-per-env K1d built by g++ (lane width 1)."""
+    kernel = engine.K1d(tmonkey.make_model(), TConfig(), tmonkey.constraints(), 16)
+    assert kernel.instance.source == engine.SOURCE_W
+    return build_host([kernel], tmp_path_factory.mktemp("k1d_warp_host"))[kernel.name]
+
+
 @pytest.mark.parametrize("case", list(CASES))
-def test_monkey_control_step_matches_jax(jax_step, case):
+def test_monkey_control_step_matches_jax(jax_step, k1w_host, case):
     seed, mix = CASES[case]
     tm = tmonkey.make_model()
     arrays = chip_smoke.monkey_states(tm, np.random.default_rng(seed), B, **mix)
@@ -83,6 +97,10 @@ def test_monkey_control_step_matches_jax(jax_step, case):
     unit = kernel.plain(*map(T, arrays))
     for g, u in zip(got, unit):
         torch.testing.assert_close(u, g, atol=0, rtol=0)
+    # the warp-per-env K1d's per-env code on the same arrays
+    outs = run_on_host(k1w_host, kernel, [np.ascontiguousarray(x) for x in arrays])
+    for name, g, w in zip(("q", "qd", "depth", "nimp"), outs, want):
+        _gate(name, g, w)
     # the gate means something: bars carry load, and the grab rows hold the
     # palms on their anchors while the free hands fall with the body
     assert (want[3] > 0).mean() > 0.05
