@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    of the terrain walkers' K1f, of the stepper's K1c, of the stairs' K1g,
    of the split twins of the stairs, the terrain walkers, the stepper,
    the PD walkers and the walker on the plane, K1h-g, K1h-f, K1h-c, K1h-b
-   and K1h-si, and of the monkey's K1d, from
+   and K1h-si, of the monkey's K1d and its split twin K1h-d, and of the
+   planar walkers' K1e, from
    ``mocca_envs_tpu_torch/csrc/engine_k1w.cu``, the fifteen
    named instances of the engine kernel from
    ``mocca_envs_tpu_torch/csrc/engine_k1.cu``, the generic instance of every
@@ -43,7 +44,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    their warp-per-env instances, and those against their thread-per-env
    twins at :data:`TOL_EQ` with the p99 tail (:func:`compare_twins` says
    why) on those states and with every foot lifted 1 m (every contact row
-   skipped); K1e on Walker2D states; K1d on monkey states hanging from bars drawn by the
+   skipped); K1e on Walker2D states by its warp-per-env instance, and
+   against its thread-per-env twin (:func:`twin_and_lifted`,
+   :func:`rounding_floor` over all envs) on those states and with every base
+   lifted 3 m; K1d on monkey states hanging from bars drawn by the
    port's sampler at stages 0–9 (the right hand attached, the left in half
    of the envs, anchors at the palms ±1 cm, bars moved next to the feet and
    the torso in half of the envs, random torques) by its warp-per-env
@@ -68,7 +72,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    K1h-c, K1h-e, K1h-e2d and K1h-d (split impulse over the stones, on
    Cassie's whole PD step with the rods, with the planar lock added, and
    over the monkey's bars with its grab rows) on the K1c, Cassie, Cassie2D
-   and K1d states, each held to its twin's gate; K1h-c by its warp-per-env
+   and K1d states, each held to its twin's gate; K1h-d by its warp-per-env
+   instance, and that against its thread-per-env twin as K1d is and against
+   K1d's warp-per-env instance (:func:`split_against_unsplit`, parting on
+   monkey states with a bar by each foot and the torso in every env); K1h-c
+   by its warp-per-env
    instance, and that as K1h-f is below; K1h-e and K1h-e2d by their
    warp-per-env instances, and those against their thread-per-env twins by
    K1e's rule (:data:`TOL_EQ` with the p99 tail) on those states and with
@@ -125,7 +133,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    instance alone), ``Child3DCustomEnv-v0`` for 100 (K1a), ``CassieEnv-v0`` for
    300 and ``Cassie2DEnv-v0`` for 100 (K1e, each by its warp-per-env
    instance alone), ``Walker2DCustomEnv-v0`` for 200 and
-   ``Crab2DCustomEnv-v0`` for 100 (K1e), ``Monkey3DStepperEnv-v0`` for 300
+   ``Crab2DCustomEnv-v0`` for 100 (K1e, each by its warp-per-env instance
+   alone), ``Monkey3DStepperEnv-v0`` for 300
    (K1d, by its warp-per-env instance alone, grab signals included in the
    random actions),
    ``Walker3DTerrainEnv-v0`` for 600 and ``Walker3DTerrainLidarEnv-v0`` for
@@ -139,7 +148,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    K1h-f, each by its warp-per-env instance alone),
    ``Walker3DStepperEnv-v0`` and ``Walker3DPDCustomEnv-v0`` made with it
    for 200 each and ``Child3DPDCustomEnv-v0`` for 100 (K1h-c, K1h-b, each
-   by its warp-per-env instance alone), the walker with each
+   by its warp-per-env instance alone), ``Monkey3DStepperEnv-v0`` made with
+   it for 200 (K1h-d, by its warp-per-env instance alone), the walker with
+   each
    of :data:`OPTION_CONFIGS` for 100 (its own
    instance, counted under its name and by its symbol in
    ``engine.INSTANCE_LAUNCHES``), and K2's own entry point
@@ -167,7 +178,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``CassieEnv`` and ``Cassie2DEnv``
    (64 ``k1h_e`` launches each, all by the warp-per-env instance: PD
    launches once per control step),
-   ``Monkey3DStepperEnv`` (64 ``k1h_d``) and the seven of
+   ``Monkey3DStepperEnv`` (64 ``k1h_d``, all by the warp-per-env instance)
+   and the seven of
    :data:`SPLIT_FAMILIES` (64 launches each under the name it gives, all by
    the instance phase 1 built for it: the warp-per-env K1h-b for the PD
    walker and the PD child, K1h-f for the two terrain families and K1h-g
@@ -181,8 +193,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    :data:`SWEEP` beside their bound, the two designs of Cassie's and of
    Cassie2D's K1e and of their split twins K1h-e and K1h-e2d likewise at
    each B of :data:`CASSIE_SWEEP`, those of K1b,
-   K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si and K1d at each B of
-   :data:`WALKER_SWEEP`, the
+   K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, K1d, K1h-d and the
+   planar K1e at each B of :data:`WALKER_SWEEP`, the
    walker's step against the host's
    time to enqueue it and the device's busy share over 20 traced steps, the
    bound from the operations and bytes these inputs need, and the time of
@@ -193,7 +205,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    the terrain step's window cut and packing; the step time outside the
    kernel of the PD walkers, Cassie, the planar walkers, the monkey, the terrain families,
    the stairs, the split-impulse walker and the split stairs, terrain,
-   stepper and PD walkers; the training rollouts' time per
+   stepper, PD walkers and monkey; the training rollouts' time per
    env step outside the kernel; an A-form's bound counts its matrix-free
    twin's operations on the same activity (the same function in fewer), its
    own count printed beside it; a ``torch.profiler`` trace of one stepper
@@ -285,14 +297,16 @@ FRAMES = {
 # ~35–45 ms a call at 16,384)
 SWEEP = {4096: 20, 16384: 10, 65536: 5}
 CASSIE_SWEEP = {4096: 10, 16384: 5}
-# K1b, K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si and K1d
+# K1b, K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, K1d, K1h-d and the
+# planar K1e
 WALKER_SWEEP = {4096: 20, 16384: 10}
 # ptxas's registers and the dynamic shared memory per block (bytes) of each
 # warp-per-env instance, and the envs each must keep resident per SM: the
 # walker's keys 4 blocks of 4 envs (K1f's, K1c's, K1g's and K1h-f's
 # registers sized for 8), K1h-g's, K1h-c's, K1h-b's and K1h-si's one block
 # of 16, Cassie's one block of 32 (and its split twins'), the monkey's one
-# block of 32; each as every build since it was written has reported it
+# block of 32 (and its split twin's), the planar walkers' one block of 32;
+# each as every build since it was written has reported it
 WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4": (64, 53008, 16),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2": (64, 202896, 32),
@@ -309,6 +323,8 @@ WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4_llc1_si": (56, 202832, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_si": (64, 201488, 16),
     "k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2": (64, 159712, 32),
+    "k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si": (63, 163040, 32),
+    "k1w_nl7_ns5_nlim6_sub4_it4_planar": (58, 83216, 32),
 }
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
@@ -1476,6 +1492,19 @@ def main() -> int:
     kernels["k1e_planar"] = (engine.K1e(wmodel, config, walker2d.planar_spec()),
                              cuda(planar_walker_states(wmodel, 1.22, rng)))
     max_abs["k1e_planar"] = compare(*kernels["k1e_planar"], "k1e_planar", TOL_EQ)
+    # the warp-per-env planar K1e against its thread-per-env instance, near
+    # contact (within the rounding floor over all envs) and with every base
+    # lifted 3 m clear of the plane
+    k1e_planar_thread = engine.K1e(wmodel, config, walker2d.planar_spec(), thread_per_env=True)
+    check(kernels["k1e_planar"][0].instance.source == engine.SOURCE_W
+          and k1e_planar_thread.instance.source == engine.SOURCE,
+          f"k1e_planar: the main path's instance {kernels['k1e_planar'][0].name} is not the "
+          "warp-per-env one")
+    rounding_floor(kernels["k1e_planar"][0], k1e_planar_thread, kernels["k1e_planar"][1],
+                   "k1e_planar", torch.ones(B, dtype=torch.bool, device="cuda"))
+    max_abs["k1e_planar"] = max(max_abs["k1e_planar"], twin_and_lifted(
+        kernels["k1e_planar"][0], k1e_planar_thread, kernels["k1e_planar"][1], "k1e_planar", 3.0,
+        plain_tol=TOL_EQ))
     mmodel = monkey.make_model("cuda")
     kernels["k1d"] = (engine.K1d(mmodel, config, monkey.constraints(), 16),
                       cuda(monkey_states(mmodel, rng)))
@@ -1556,6 +1585,24 @@ def main() -> int:
     kernels["k1h_d"] = (engine.K1d(mmodel, split(config), monkey.constraints(), 16),
                         kernels["k1d"][1])
     max_abs["k1h_d"] = compare(*kernels["k1h_d"], "k1h_d", TOL_GRAB, tail="p99")
+    # K1h-d by its warp-per-env instance: against its thread-per-env twin as
+    # K1d is (within the rounding floor over all envs, and with every base
+    # lifted 3 m clear of the bars), and against K1d's warp-per-env instance,
+    # bit for bit where every bias is 0 (lifted, the grabs as drawn) and
+    # parting on states with a bar by each foot and the torso in every env
+    k1h_d_thread = engine.K1d(mmodel, split(config), monkey.constraints(), 16,
+                              thread_per_env=True)
+    check(kernels["k1h_d"][0].instance.source == engine.SOURCE_W
+          and k1h_d_thread.instance.source == engine.SOURCE,
+          f"k1h_d: the main path's instance {kernels['k1h_d'][0].name} is not the warp-per-env one")
+    rounding_floor(kernels["k1h_d"][0], k1h_d_thread, kernels["k1h_d"][1], "k1h_d",
+                   torch.ones(B, dtype=torch.bool, device="cuda"))
+    max_abs["k1h_d"] = max(max_abs["k1h_d"], twin_and_lifted(
+        kernels["k1h_d"][0], k1h_d_thread, kernels["k1h_d"][1], "k1h_d", 3.0,
+        plain_tol=TOL_GRAB))
+    split_against_unsplit(kernels["k1h_d"][0], kernels["k1d"][0],
+                          cuda(monkey_states(mmodel, np.random.default_rng(SEED + 3),
+                                             near_bar=1.0)), "k1h_d", TOL_GRAB)
     # this slice's split instances, each on its twin's states and gate (K1g's
     # riser rule included), and the walker's PGS options on the K1a states
     # at the walker's gates; each A-form also against its matrix-free twin
@@ -1706,6 +1753,14 @@ def main() -> int:
             print(f"[main] {env_id} with split impulse: falls over the run "
                   f"{sums['fallen']:.0f}, base height at the end median "
                   f"{float(state.q[:, 2].median()):.4f} m")
+    # the monkey made with split impulse: K1h-d by its warp-per-env instance
+    # alone, grab signals included in the random actions
+    _, state, tr, _, step_ms["k1h_d"], sums = drive(
+        port, engine, card, "Monkey3DStepperEnv-v0", 200, "k1h_d", sums=("fell", "bar_hit"),
+        instance=kernels["k1h_d"][0].name, config=EngineConfig(split_impulse=True))
+    print(f"[main] Monkey3DStepperEnv-v0 with split impulse: holding on at the end "
+          f"{float((tr.metrics['holding'] > 0).float().mean()):.4f} of the envs; over the run "
+          f"falls {sums['fell']:.0f}, bar hits {sums['bar_hit']:.0f}")
     # the walker made with each PGS option configuration: its own instance
     for v, fields in OPTION_CONFIGS.items():
         launches[v], *_ = drive(port, engine, card, "Walker3DCustomEnv-v0", 100,
@@ -1727,7 +1782,7 @@ def main() -> int:
                       ("k1h_d", "Monkey3DStepperEnv")):
         variant = "k1h_e" if v == "k1h_e2d" else v
         train_lines[v] = train_run(engine, card, env_id, 2, 32, workdir, {variant: 64},
-                                   instance=None if v == "k1h_d" else kernels[v][0].name)
+                                   instance=kernels[v][0].name)
         launches[v] = 64
     # this slice's split instances: every family trains with --split-impulse
     for env_id, variant in SPLIT_FAMILIES.items():
@@ -1777,6 +1832,10 @@ def main() -> int:
                  lambda batch, r: near_contact_states(model, r, batch), WALKER_SWEEP)
     design_sweep(engine, card, "K1d", kernels["k1d"][0], k1d_thread,
                  lambda batch, r: monkey_states(mmodel, r, batch), WALKER_SWEEP)
+    design_sweep(engine, card, "K1h-d", kernels["k1h_d"][0], k1h_d_thread,
+                 lambda batch, r: monkey_states(mmodel, r, batch), WALKER_SWEEP)
+    design_sweep(engine, card, "K1e planar", kernels["k1e_planar"][0], k1e_planar_thread,
+                 lambda batch, r: planar_walker_states(wmodel, 1.22, r, batch), WALKER_SWEEP)
     for v, env_id in (("k1b", "Walker3DPDCustomEnv-v0"), ("k1b_child", "Child3DPDCustomEnv-v0"),
                       ("k1f", "Walker3DTerrainEnv-v0"),
                       ("k1f_lidar", "Walker3DTerrainLidarEnv-v0"),
@@ -1790,7 +1849,7 @@ def main() -> int:
     window_and_pack_time(engine, card, terrain_state)
     for v in ("k1b", "k1b_child", "k1c", "k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d",
               "k1f", "k1f_lidar", "k1g", "k1h_si", "k1h_g", "k1h_f", "k1h_f_lidar", "k1h_c",
-              "k1h_b", "k1h_b_child"):
+              "k1h_b", "k1h_b_child", "k1h_d"):
         kernel_ms = times[v.removesuffix("_lidar").removesuffix("_child")]["ms"]
         print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {kernel_ms:.4f} "
               f"ms/call, so {step_ms[v] - kernel_ms:.3f} ms/step outside the kernel "

@@ -2,7 +2,8 @@
 and Cassie2D's K1e, the PD walkers' K1b, the terrain walkers' K1f, the
 stepper's K1c, the stairs' K1g, the split twins of the stairs, the terrain
 walkers, the stepper, the PD walkers and the walker on the plane, K1h-g,
-K1h-f, K1h-c, K1h-b and K1h-si, and the monkey's K1d.
+K1h-f, K1h-c, K1h-b and K1h-si, the monkey's K1d and its split twin K1h-d,
+and the planar walkers' K1e.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -48,8 +49,8 @@ W = "k1w_nl22_ns14_nlim21_sub4_it4"
 # the other), two of 8, one of 16 (K1h-g ships that: four blocks of its 4
 # envs overrun the SM's shared memory, so its blocks of 4 hold 12 per SM;
 # K1h-c and K1h-b too: it ran 3–5% faster than their twins' shapes; and
-# K1h-si, 3–4% faster than K1a's 4 × 4). The monkey: 32 envs per SM as one
-# block of 32, two of 16 or four of 8
+# K1h-si, 3–4% faster than K1a's 4 × 4). The monkey, its split twin and the
+# planar walkers: 32 envs per SM as one block of 32, two of 16 or four of 8
 GROUPS = {
     "cassie": (("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2",
                 "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar"),
@@ -67,6 +68,10 @@ GROUPS = {
     "pd_split": ((f"{W}_llc1_si",), [(16, 1), (4, 4), (4, 8), (8, 2)], {4096: 20, 16384: 10}),
     "walker_split": ((f"{W}_si",), [(16, 1), (4, 4), (4, 8), (8, 2)], {4096: 20, 16384: 10}),
     "monkey": (("k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2",), [(32, 1), (16, 2), (8, 4)],
+               {4096: 20, 16384: 10}),
+    "monkey_split": (("k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si",), [(32, 1), (16, 2), (8, 4)],
+                     {4096: 20, 16384: 10}),
+    "planar": (("k1w_nl7_ns5_nlim6_sub4_it4_planar",), [(32, 1), (16, 2), (8, 4)],
                {4096: 20, 16384: 10}),
 }
 
@@ -118,8 +123,9 @@ def cases(engine, rng):
     (over its culled stones) and the stairs walker (over the culled faces);
     the stairs walker, the terrain walker, the stepper, the PD walker and
     the walker on the plane (near contact) also with split impulse; the
-    monkey (hanging from its bars)."""
-    from mocca_envs_tpu_torch.models import cassie, monkey, walker3d
+    monkey (hanging from its bars), also with split impulse; Walker2D (near
+    contact, a little out of its plane)."""
+    from mocca_envs_tpu_torch.models import cassie, monkey, walker2d, walker3d
     from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
     from mocca_envs_tpu_torch.terrain.scene import HF_PATCH
     from mocca_envs_tpu_torch.utils.config import EngineConfig
@@ -158,6 +164,11 @@ def cases(engine, rng):
     mmodel = monkey.make_model("cuda")
     out.append(("monkey", lambda: engine.K1d(mmodel, EngineConfig(), monkey.constraints(), 16),
                 lambda batch: chip_smoke.monkey_states(mmodel, rng, batch)))
+    out.append(("monkey_split", lambda: engine.K1d(mmodel, split, monkey.constraints(), 16),
+                lambda batch: chip_smoke.monkey_states(mmodel, rng, batch)))
+    pmodel = walker2d.make_walker2d("cuda")
+    out.append(("planar", lambda: engine.K1e(pmodel, EngineConfig(), walker2d.planar_spec()),
+                lambda batch: chip_smoke.planar_walker_states(pmodel, 1.22, rng, batch)))
     return out
 
 

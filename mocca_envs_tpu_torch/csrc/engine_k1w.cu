@@ -18,7 +18,8 @@
 //        llc frames × 2 substeps, the torque gain·(target − q) refreshed at
 //        each frame's start), the two achilles rods as point-to-point
 //        equality rows and, for Cassie2D, the planar lock of base y, roll and
-//        yaw in front of the others;
+//        yaw in front of the others; and Walker2D / Crab2D: torque mode, one
+//        llc frame per call, the planar lock alone;
 //   K1h-e, K1h-e2d  the same two keys with split impulse (the training CLI's
 //        --split-impulse): the push-out bias out of the velocity rows and
 //        the position pass after the velocity sweeps;
@@ -30,7 +31,9 @@
 //        constant-folded contact rows;
 //   K1d  Monkey3D: torque mode over KB bar capsules per env, each contact
 //        with its own normal, and NGRAB maskable grab rows (a palm point
-//        pulled onto its target while the grab is attached).
+//        pulled onto its target while the grab is attached);
+//   K1h-d  K1d's key with split impulse: the position pass behind the
+//        attached grabs' rows.
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
 // make_pallas_substep (pallas_call at :1441) for those configurations (with
@@ -73,8 +76,10 @@
 // faster; with split impulse (the position pass, ~6% more operations) K1h-e
 // and K1h-e2d run ~48× above theirs, ~6.7× faster, K1h-g ~48× and K1h-f
 // ~67×, ~12.5× and ~13× faster, K1h-c ~57× and K1h-b ~54×, ~13× and ~14×
-// faster, K1h-si ~54× and K1d ~59×, ~14× and ~6.5× faster (PERF.md §6).
-// The monkey's NV = 16 leaves half the lanes idle in the DOF loops.
+// faster, K1h-si ~54× and K1d ~59×, ~14× and ~6.5× faster, K1h-d ~68× and
+// the planar K1e ~70×, ~5.9× and ~3.5× faster (PERF.md §6). The monkey's
+// NV = 16 leaves half the lanes idle in the DOF loops, the planar walkers'
+// NV = 12 twenty of 32.
 //
 // Design.
 //   - One warp per env, C::ENVS warps per block, registers for C::BLOCKS
@@ -120,6 +125,11 @@
 //     in one block of 1,024 threads, 159,712 bytes, 64 registers: B = 4096
 //     in one wave on 132 SMs; two blocks of 16 or four of 8 ran 7% / 11%
 //     slower. Its link kinematics stay out of W's space: it fits without.
+//     K1h-d (5,032 bytes: bpos and λ_pos of 13 rows; 163,040 a block, 63
+//     registers) and the planar walkers' K1e (2,564 bytes, its kinematics
+//     in W's space; 83,216 a block, 58 registers: registers, not shared
+//     memory, hold it to one block per SM) take the same one block of 32;
+//     two of 16 or four of 8 ran 2–10% slower (k1w_launch_shapes.py).
 //   - Lanes: link i for the FK, the Newton–Euler passes and the CRBA
 //     composites, one tree level at a time (depth 6 for the walker, 7 for
 //     Cassie; a parent sums its children in the order the serial code does);
@@ -219,7 +229,7 @@
 // contact's from its sphere's deepest feature). After the velocity sweeps,
 // a scalar PGS from λ_pos = 0 in every substep of every llc frame, ITERS
 // sweeps over the active limit rows and contact normal rows in the serial
-// order (the JAX reference's static visit list: no rod, planar or
+// order (the JAX reference's static visit list: no rod, planar, grab or
 // friction row), against −bpos with the same W, diagonals and activity.
 // Each visit is one butterfly: res = cfm·λ_pos − b + W_r·z_pos, λ_pos' =
 // max(0, λ_pos − res/diag_r), z_pos += W_r·Δλ_pos, z_pos lane-owned as z
@@ -941,7 +951,10 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     for (int m = 0; m < 3; ++m) e.act[NE + NLIM + 3 * s + m] = a;
   }
   wsync();
+  // neq: the equality rows listed, NE0 and 3 per attached grab (the split
+  // pass starts behind them), counted by the predicate that lists them
   int nrows = 0;
+  [[maybe_unused]] int neq = NE0;
   for (int base = 0; base < NR; base += WIDTH) {
     const int r = base + lane;
     bool a = r < NR && e.act[r] > 0.5f;
@@ -950,6 +963,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     const unsigned mask = wballot(a);
     if (a) e.rows[nrows + popc(mask & ((1u << lane) - 1u))] = r;
     nrows += popc(mask);
+    if constexpr (C::SPLIT && NE > NE0) neq += popc(wballot(a && r >= NE0 && r < NE));
   }
   wsync();
 
@@ -1171,16 +1185,16 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
 
   // ---------------- split impulse: the position pass. Scalar PGS from
   // λ_pos = 0 over the active limit rows and contact normal rows (behind
-  // the NE0 equality rows in the list; a contact's normal row is followed
-  // by its friction pair), against −bpos; z_pos = Wλ_pos, lane-owned
+  // the neq listed equality rows: the rods, the lock and the attached
+  // grabs; a contact's normal row is followed by its friction pair),
+  // against −bpos; z_pos = Wλ_pos, lane-owned
   float zp[C::SPLIT ? NVL : 1];
   if constexpr (C::SPLIT) {
-    static_assert(NE == NE0, "no grab rows in this source");
     for (int jj = 0; jj < NVL; ++jj) zp[jj] = 0.0f;
     for (int k = lane; k < NLIM + NS; k += WIDTH) e.lpos[k] = 0.0f;
     wsync();
     for (int it = 0; it < C::ITERS; ++it) {
-      for (int t = NE0; t < nrows;) {
+      for (int t = neq; t < nrows;) {
         const int r = e.rows[t];
         const bool lim = r < NE + NLIM;
         const int k = lim ? r - NE : NLIM + (r - NE - NLIM) / 3;
@@ -1560,4 +1574,18 @@ K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_si, 22, 14, 21, 4, 4, false, 1, 0, fa
 #if !defined(K1W_ONLY) || K1W_ONLY == 14
 K1W_INSTANCE(k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2, 11, 5, 8, 4, 4, false, 1, 0, false, 32, 1, 0, 0,
              0, false, 16, 2)
+#endif
+// The monkey's key with split impulse (K1h-d): K1d's with the position pass
+// over the limit rows and the bars' contact normal rows, which starts behind
+// the listed equality rows (3 per attached grab); bpos and λ_pos of 13 rows
+// take EnvW to 5,032 bytes, 32 envs per block of 1,024 threads
+#if !defined(K1W_ONLY) || K1W_ONLY == 15
+K1W_INSTANCE(k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si, 11, 5, 8, 4, 4, false, 1, 0, false, 32, 1, 0,
+             0, 0, true, 16, 2)
+#endif
+// Walker2D and Crab2D at the shipped EngineConfig (K1e planar): 7 links, 5
+// spheres, 6 limit rows, 4 substeps, 4 sweeps, the planar lock's 3 rows in
+// front (3 + 6 + 15 = 24 rows), torque mode; the link kinematics in W's space
+#if !defined(K1W_ONLY) || K1W_ONLY == 16
+K1W_INSTANCE(k1w_nl7_ns5_nlim6_sub4_it4_planar, 7, 5, 6, 4, 4, false, 1, 0, true, 32, 1)
 #endif

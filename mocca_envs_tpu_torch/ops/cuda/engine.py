@@ -16,9 +16,10 @@ sweeps. The kernel is CUDA C++ in two sources: ``csrc/engine_k1w.cu``, one
 warp per env (W and the factor in shared memory, inactive rows skipped),
 which the keys of :data:`WARP_INSTANCES` run (K1a, the walker's and the
 child's; K1b, the PD walker's and the PD child's; K1f, the terrain
-walkers'; K1c, the stepper's; K1g, the stairs'; K1e, Cassie's and
-Cassie2D's; K1d, the monkey's; and the split twins K1h-e, K1h-e2d, K1h-g,
-K1h-f, K1h-c, K1h-b and K1h-si, the walker's on the plane), and
+walkers'; K1c, the stepper's; K1g, the stairs'; K1e, Cassie's, Cassie2D's
+and the planar walkers'; K1d, the monkey's; and the split twins K1h-e,
+K1h-e2d, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, the walker's on the plane, and
+K1h-d, the monkey's), and
 ``csrc/engine_k1.cu``, one thread per env, for every other key. An instance is picked by its
 :class:`Key`: the warp-per-env one where there is one, else the fifteen
 ``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the shipped families at the
@@ -177,8 +178,11 @@ INSTANTIATIONS = {inst.key: inst for inst in (
 # k1_..._llc1_si; K1b at two llc frames, split or not, stays on engine_k1.cu);
 # K1h-si, the walker's frame on the plane with split impulse, and K1d, the
 # monkey's frame over its 16 bars with its two grab rows (their twins: the
-# named k1h_..._si and k1d_..._kb16_ng2; the monkey's split key K1h-d stays on
-# engine_k1.cu)
+# named k1h_..._si and k1d_..._kb16_ng2); K1h-d, the monkey's frame with
+# split impulse, and K1e planar, Walker2D's and Crab2D's torque frame with
+# the planar lock (their twins: the named k1h_..._kb16_ng2_si and
+# k1e_nl7_..._planar; the planar split key stays on engine_k1.cu's generic
+# k1_nl7_..._planar_si)
 WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4", 0, Key(**_W), SOURCE_W),
     Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 1, Key(**_C), SOURCE_W),
@@ -201,6 +205,9 @@ WARP_INSTANCES = {inst.key: inst for inst in (
              SOURCE_W),
     Instance("k1w_nl22_ns14_nlim21_sub4_it4_si", 13, Key(**_W, split=True), SOURCE_W),
     Instance("k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2", 14, Key(**_M), SOURCE_W),
+    Instance("k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si", 15, Key(**_M, split=True), SOURCE_W),
+    Instance("k1w_nl7_ns5_nlim6_sub4_it4_planar", 16,
+             Key(nl=7, ns=5, nlim=6, substeps=4, iters=4, planar=True), SOURCE_W),
 )}
 
 

@@ -38,6 +38,7 @@ from mocca_envs_tpu_torch.core import rng as trng
 from mocca_envs_tpu_torch.models import cassie as tcassie
 from mocca_envs_tpu_torch.tasks.cassie_task import CassieParams, make_cassie
 
+from tests import torch_workers  # noqa: F401
 from tests.test_torch_cassie_step import run_per_env
 
 

@@ -37,6 +37,8 @@ from mocca_envs_tpu_torch.ops.step import make_substep as tsubstep
 from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG as TCASSIE_CONFIG
 from mocca_envs_tpu_torch.terrain import scene as tscene
 
+from tests import torch_workers  # noqa: F401
+
 MODELS = {
     "cassie": (jcassie.make_model, tcassie.make_model, (17, 5, 16)),
     "walker2d": (jwalker2d.make_walker2d, twalker2d.make_walker2d, (7, 5, 6)),

@@ -41,6 +41,8 @@ from mocca_envs_tpu_torch.ops.step import make_control_step as tcontrol
 from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG as TCASSIE_CONFIG
 from mocca_envs_tpu_torch.terrain import scene as tscene
 
+from tests import torch_workers  # noqa: F401
+
 TOL = {"q": 2e-4, "qd": 5e-3, "depth": 2e-4, "nimp": 5e-3}
 B = 16
 

@@ -13,6 +13,7 @@ observation would carry four times the contact solver's fp-order noise.
 
 import pytest
 
+from tests import torch_workers  # noqa: F401
 from tests.test_torch_pd_child import check_family_step_by_step
 
 

@@ -40,6 +40,7 @@ from mocca_envs_tpu_torch.ops.step import make_substep as tsubstep
 from mocca_envs_tpu_torch.terrain import scene as tscene
 from mocca_envs_tpu_torch.utils.config import EngineConfig as TConfig
 
+from tests import torch_workers  # noqa: F401
 from tests.models_util import hopper
 
 TOL = {"q": 5e-4, "qd": 2e-2, "depth": 5e-4, "nimp": 5e-3}

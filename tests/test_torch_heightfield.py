@@ -25,6 +25,8 @@ from mocca_envs_tpu_torch.ops import kinematics as tkin
 from mocca_envs_tpu_torch.terrain import heightfield as thf
 from mocca_envs_tpu_torch.terrain import scene as tscene
 
+from tests import torch_workers  # noqa: F401
+
 T = torch.as_tensor
 EXTENT = 20.0
 

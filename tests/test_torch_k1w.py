@@ -37,6 +37,7 @@ from mocca_envs_tpu_torch.models import walker3d
 from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
+from tests import torch_workers  # noqa: F401
 from tests.torch_k1_host import build_host, run_on_host
 
 TOL = chip_smoke.TOL
@@ -72,9 +73,9 @@ def _pair(**config):
 
 
 @pytest.fixture(scope="module")
-def libs(tmp_path_factory):
+def libs():
     """The two K1a instances built by g++, side by side."""
-    return build_host(_pair(), tmp_path_factory.mktemp("k1w_host"))
+    return build_host(_pair())
 
 
 def _run(libs, kernel, inputs):

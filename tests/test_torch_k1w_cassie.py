@@ -46,6 +46,7 @@ from mocca_envs_tpu_torch.models import cassie
 from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
 
+from tests import torch_workers  # noqa: F401
 from tests.test_torch_cassie_step import run_per_env
 from tests.torch_k1_host import build_host, run_on_host
 
@@ -68,10 +69,9 @@ def _pair(planar, **config):
 
 
 @pytest.fixture(scope="module")
-def libs(tmp_path_factory):
+def libs():
     """The four instances built by g++, side by side."""
-    return build_host([k for planar in (False, True) for k in _pair(planar)],
-                      tmp_path_factory.mktemp("k1w_cassie_host"))
+    return build_host([k for planar in (False, True) for k in _pair(planar)])
 
 
 def _states(planar, batch=B, lifted=False):

@@ -48,6 +48,7 @@ from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.terrain.scene import HF_PATCH, NO_GROUND_Z
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
+from tests import torch_workers  # noqa: F401
 from tests.torch_k1_host import build_host, run_on_host
 
 TOL = {"pd": chip_smoke.TOL, "terrain": chip_smoke.TOL_HF}
@@ -81,10 +82,9 @@ def _pair(kind, **config):
 
 
 @pytest.fixture(scope="module")
-def libs(tmp_path_factory):
+def libs():
     """The four instances built by g++, side by side."""
-    return build_host([k for kind in ("pd", "terrain") for k in _pair(kind)],
-                      tmp_path_factory.mktemp("k1w_pd_terrain_host"))
+    return build_host([k for kind in ("pd", "terrain") for k in _pair(kind)])
 
 
 def _states(kind, batch=B, lifted=False):

@@ -41,6 +41,7 @@ from mocca_envs_tpu_torch.models import cassie
 from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
 
+from tests import torch_workers  # noqa: F401
 from tests.torch_k1_host import build_host, run_on_host
 
 TOL_EQ = chip_smoke.TOL_EQ
@@ -65,10 +66,9 @@ def _kernels(planar):
 
 
 @pytest.fixture(scope="module")
-def libs(tmp_path_factory):
+def libs():
     """The six instances built by g++, side by side."""
-    return build_host([k for planar in (False, True) for k in _kernels(planar)],
-                      tmp_path_factory.mktemp("k1w_split_cassie_host"))
+    return build_host([k for planar in (False, True) for k in _kernels(planar)])
 
 
 def _states(planar, lifted=False):

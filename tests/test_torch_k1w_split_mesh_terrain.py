@@ -53,6 +53,7 @@ from mocca_envs_tpu_torch.ops.integrate import LIMIT_SLOP
 from mocca_envs_tpu_torch.terrain.scene import HF_PATCH
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
+from tests import torch_workers  # noqa: F401
 from tests.torch_k1_host import build_host, run_on_host
 
 TOL = {"mesh": chip_smoke.TOL, "terrain": chip_smoke.TOL_HF}
@@ -80,10 +81,9 @@ def _kernels(kind):
 
 
 @pytest.fixture(scope="module")
-def libs(tmp_path_factory):
+def libs():
     """The six instances built by g++, side by side."""
-    return build_host([k for kind in ("mesh", "terrain") for k in _kernels(kind)],
-                      tmp_path_factory.mktemp("k1w_split_mesh_terrain_host"))
+    return build_host([k for kind in ("mesh", "terrain") for k in _kernels(kind)])
 
 
 def _states(kind, batch=B, lifted=False):

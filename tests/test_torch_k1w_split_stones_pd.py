@@ -52,6 +52,7 @@ from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.ops.integrate import LIMIT_SLOP
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
+from tests import torch_workers  # noqa: F401
 from tests.torch_k1_host import build_host, run_on_host
 
 TOL = chip_smoke.TOL
@@ -89,10 +90,9 @@ def _kernels(kind):
 
 
 @pytest.fixture(scope="module")
-def libs(tmp_path_factory):
+def libs():
     """The six instances built by g++, side by side."""
-    return build_host([k for kind in ("stones", "pd") for k in _kernels(kind)],
-                      tmp_path_factory.mktemp("k1w_split_stones_pd_host"))
+    return build_host([k for kind in ("stones", "pd") for k in _kernels(kind)])
 
 
 def _states(kind, batch=B, lifted=False):

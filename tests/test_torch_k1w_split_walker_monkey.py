@@ -10,7 +10,8 @@ K1a's warp-per-env instance, the five built side by side once per module.
 - The keys pick the warp-per-env instances (``K1W_ONLY`` 13 / 14), as
   ``make`` builds them for the walker and the child with split impulse and
   for the monkey; ``thread_per_env=True`` picks the twin. The monkey's split
-  key K1h-d stays on its named ``engine_k1.cu`` instance.
+  key K1h-d picks its own warp-per-env instance (``K1W_ONLY`` 15,
+  tests/test_torch_k1w_split_monkey_planar.py).
 - At B = 16 on chip_smoke.py's states (the walker near contact; the monkey
   hanging from its bars in the four mixes of
   tests/test_torch_kernel_wrapper.py::K1D_CASES: the main path's, both
@@ -51,6 +52,7 @@ from mocca_envs_tpu_torch.models import monkey, walker3d
 from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
+from tests import torch_workers  # noqa: F401
 from tests.torch_k1_host import build_host, run_on_host
 
 TOL = chip_smoke.TOL
@@ -78,12 +80,12 @@ def _kernel(kind, thread_per_env=False):
 
 
 @pytest.fixture(scope="module")
-def libs(tmp_path_factory):
+def libs():
     """The two warp-per-env instances, their twins and K1a's warp-per-env
     instance built by g++, side by side."""
     kernels = [_kernel(kind, tpe) for kind in SYMBOL for tpe in (False, True)]
     kernels.append(engine.K1a(walker3d.make_model(), EngineConfig()))
-    return build_host(kernels, tmp_path_factory.mktemp("k1w_split_walker_monkey_host"))
+    return build_host(kernels)
 
 
 def _states(kind, mix="main_mix", batch=B, lifted=False):
@@ -137,11 +139,11 @@ def test_keys_pick_the_warp_per_env_instance(libs, kind):
         picked = engine.make_kernel(model, EngineConfig(), num_bars=16,
                                     constraints=monkey.constraints())
         assert type(picked) is engine.K1d and picked.name == new.name
-        # the monkey's split key stays on its named engine_k1.cu instance
+        # the monkey's split key picks its own warp-per-env instance
         split = engine.make_kernel(model, SPLIT, num_bars=16, constraints=monkey.constraints())
-        assert split.variant == "k1h_d" and split.instance.source == engine.SOURCE
-        assert (split.name, split.instance.index) == ("k1h_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si",
-                                                      14)
+        assert split.variant == "k1h_d" and split.instance.source == engine.SOURCE_W
+        assert (split.name, split.instance.index) == ("k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si",
+                                                      15)
     # the same table; no global workspace
     assert engine.layout(libs[new.name], new.name) == (new.table_host.size, 0)
     assert new.table_host.size == old.table_host.size

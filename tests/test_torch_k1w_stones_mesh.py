@@ -48,6 +48,7 @@ from mocca_envs_tpu_torch.models import walker3d
 from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
+from tests import torch_workers  # noqa: F401
 from tests.torch_k1_host import build_host, run_on_host
 
 TOL, TOL_TWIN = chip_smoke.TOL, chip_smoke.TOL_TWIN
@@ -70,10 +71,9 @@ def _pair(kind, **config):
 
 
 @pytest.fixture(scope="module")
-def libs(tmp_path_factory):
+def libs():
     """The four instances built by g++, side by side."""
-    return build_host([k for kind in ("stones", "mesh") for k in _pair(kind)],
-                      tmp_path_factory.mktemp("k1w_stones_mesh_host"))
+    return build_host([k for kind in ("stones", "mesh") for k in _pair(kind)])
 
 
 def _states(kind, batch=B, lifted=False):

@@ -50,7 +50,8 @@ from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
 from mocca_envs_tpu_torch.terrain.scene import HF_PATCH, NO_GROUND_Z
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
-from tests.torch_k1_host import build_host, run_on_host
+from tests import torch_workers  # noqa: F401
+from tests.torch_k1_host import HostLibrary, build_host, run_on_host
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mocca_envs_tpu"}
@@ -156,7 +157,8 @@ SPLIT_WARP = {"k1h_c": "k1w_nl22_ns14_nlim21_sub4_it4_k6_si",
               "k1h_e2d": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si",
               "k1h_b": "k1w_nl22_ns14_nlim21_sub4_it4_llc1_si",
               "k1h_f": "k1w_nl22_ns14_nlim21_sub4_it4_hf16_si",
-              "k1h_g": "k1w_nl22_ns14_nlim21_sub4_it4_kt16_si"}
+              "k1h_g": "k1w_nl22_ns14_nlim21_sub4_it4_kt16_si",
+              "k1h_d": "k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si"}
 
 
 def _launch_counted(kernel, case, args):
@@ -192,6 +194,7 @@ import sys
 for m in ("jax", "jaxlib", "flax", "optax", "orbax", "mocca_envs_tpu"):
     sys.modules[m] = None
 import torch
+torch.set_num_threads(1)   # as tests/torch_workers.py sets it for the test processes
 import mocca_envs_tpu_torch as P
 from mocca_envs_tpu_torch import convert  # noqa: F401
 from mocca_envs_tpu_torch.ops.cuda import engine  # noqa: F401
@@ -394,7 +397,7 @@ def test_k1e_is_picked_by_the_constraints():
         engine.K1e(model, EngineConfig(), ConstraintSpec())
 
 
-def test_k1a_refuses_other_model_sizes(tmp_path):
+def test_k1a_refuses_other_model_sizes():
     """Another model size is a key of the generic instance: a one-legged
     hopper (2 links, 1 sphere, 1 limit row) at the JAX package's gate
     configuration, 2 substeps × 8 sweeps, built for the host, against the
@@ -420,7 +423,7 @@ def test_k1a_refuses_other_model_sizes(tmp_path):
     qd = (0.3 * rng.standard_normal((B, model.nv))).astype(np.float32)
     tau = rng.uniform(-5.0, 5.0, (B, 1)).astype(np.float32)
     inputs = [q, qd, tau, np.zeros(B, np.float32), np.full(B, 0.8, np.float32)]
-    outs = run_on_host(build_host([kernel], tmp_path)[kernel.name], kernel, inputs)
+    outs = run_on_host(build_host([kernel])[kernel.name], kernel, inputs)
     want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
     _gate_medians(outs, want)
     assert (want[3] > 0).mean() > 0.2                 # the foot carries load
@@ -524,38 +527,14 @@ def test_equality_rows_count_their_own_work():
 
 
 @pytest.fixture(scope="module")
-def host_library(tmp_path_factory):
+def host_library():
     """The kernel sources (csrc/engine_k1.cu, csrc/engine_k1w.cu) built by the
-    host C++ compiler into one library: every instantiation's per-env code as
-    a loop over envs (the warp-per-env instances at lane width 1)."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler to build the kernel source's host check")
-    lib_path = tmp_path_factory.mktemp("k1_host") / "k1_host.so"
-    subprocess.run([cxx, "-O2", "-std=c++17", "-x", "c++", "-DK1_HOST_CHECK", "-DK1W_HOST_CHECK",
-                    "-shared", "-fPIC", "-o", str(lib_path), str(engine.SOURCE),
-                    str(engine.SOURCE_W)], check=True, timeout=300)
-    return ctypes.CDLL(str(lib_path))
+    host C++ compiler: each instantiation's per-env code as a loop over envs
+    (the warp-per-env instances at lane width 1), each instance built at the
+    first lookup of its symbol, or taken from the build cache that every
+    file and worker shares (tests/torch_k1_host.py)."""
+    return HostLibrary()
 
-
-def _run_on_host(lib, kernel, inputs):
-    B = inputs[0].shape[0]
-    table_size, ws_per_env = engine.layout(lib, kernel.name)
-    assert table_size == kernel.table_host.size
-    m = kernel.model
-    outs = [np.zeros((B, m.nq), np.float32), np.zeros((B, m.nv), np.float32),
-            np.zeros((B, m.ns), np.float32), np.zeros((B, m.ns), np.float32)]
-    ws = np.zeros(ws_per_env * B, np.float32)
-    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
-    fn = getattr(lib, kernel.name + "_host")
-    fn.restype = ctypes.c_int
-    named = dict(zip(kernel.inputs, inputs[5:]))
-    scene = [ptr(named[k]) if k in named else None
-             for k in ("stones", "bars", "grabs", "hf", "tris")]
-    err = fn(*map(ptr, inputs[:5]), *scene, *map(ptr, outs), ptr(kernel.table_host),
-             ctypes.c_int(table_size), ptr(ws), ctypes.c_int(B))
-    assert err == 0
-    return outs
 
 
 def test_k1a_source_arithmetic_on_host(host_library):
@@ -568,7 +547,7 @@ def test_k1a_source_arithmetic_on_host(host_library):
     inputs = [np.ascontiguousarray(x) for x in _near_contact(32, 5)]
     want = [t.numpy() for t in k1a.plain(*map(torch.as_tensor, inputs))]
     for kernel in (k1a, old):
-        _gate_medians(_run_on_host(host_library, kernel, inputs), want)
+        _gate_medians(run_on_host(host_library, kernel, inputs), want)
     assert (want[3] > 0).mean() > 0.1   # contacts carry load
 
 
@@ -579,7 +558,7 @@ def test_k1_variant_source_arithmetic_on_host(host_library, case):
     versions, at the same gates."""
     kernel, arrays = _kernel_case(case, 32, 5)
     inputs = [np.ascontiguousarray(x) for x in arrays]
-    outs = _run_on_host(host_library, kernel, inputs)
+    outs = run_on_host(host_library, kernel, inputs)
     want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
     _gate_medians(outs, want)
     assert (want[3] > 0).mean() > 0.02   # contacts carry load
@@ -602,13 +581,12 @@ def test_k1e_source_arithmetic_on_host(host_library, case):
     rods: 10 llc frames × 2 substeps, λ carried, the factor refreshed per
     frame; the same with the planar lock; each by its warp-per-env instance
     and by its thread-per-env one; one torque frame of Walker2D and of
-    Crab2D with the lock) against their plain versions, at the equality-row
-    tolerances."""
+    Crab2D with the lock, by their warp-per-env instance) against their
+    plain versions, at the equality-row tolerances."""
     kernel, arrays = _kernel_case(case, 64, 5)
-    assert (kernel.instance.source == engine.SOURCE_W) == (
-        case in ("k1e_cassie", "k1e_cassie2d"))
+    assert (kernel.instance.source == engine.SOURCE_W) == (not case.endswith("_thread"))
     inputs = [np.ascontiguousarray(x) for x in arrays]
-    outs = _run_on_host(host_library, kernel, inputs)
+    outs = run_on_host(host_library, kernel, inputs)
     want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
     assert all(np.isfinite(o).all() for o in outs)
     _gate_medians(outs, want, TOL_EQ, tail="p99" if "cassie" in case else "max")
@@ -629,7 +607,7 @@ def test_k1d_source_arithmetic_on_host(host_library, case):
     5e-4, impulse 1e-2, the largest env within ten times."""
     kernel, arrays = _kernel_case(case, 64, 5)
     inputs = [np.ascontiguousarray(x) for x in arrays]
-    outs = _run_on_host(host_library, kernel, inputs)
+    outs = run_on_host(host_library, kernel, inputs)
     want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
     assert all(np.isfinite(o).all() for o in outs)
     _gate_medians(outs, want, TOL_GRAB)
@@ -870,7 +848,7 @@ def test_k1f_source_arithmetic_on_host(host_library, case):
     1e-2, depth 5e-4, impulse 1e-2, the largest env within ten times."""
     kernel, arrays = _kernel_case(case, 64, 5)
     inputs = [np.ascontiguousarray(x) for x in arrays]
-    outs = _run_on_host(host_library, kernel, inputs)
+    outs = run_on_host(host_library, kernel, inputs)
     want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
     assert all(np.isfinite(o).all() for o in outs)
     _gate_medians(outs, want, TOL_HF)
@@ -993,7 +971,7 @@ def test_k1g_source_arithmetic_on_host(host_library):
     package's mesh gate, 97% of the q entries within 1e-3."""
     kernel, arrays = _kernel_case("k1g", 96, 5)
     inputs = [np.ascontiguousarray(x) for x in arrays]
-    outs = _run_on_host(host_library, kernel, inputs)
+    outs = run_on_host(host_library, kernel, inputs)
     args = list(map(torch.as_tensor, inputs))
     want = [t.numpy() for t in kernel.plain(*args)]
     assert all(np.isfinite(o).all() for o in outs)
@@ -1011,12 +989,12 @@ def test_k1h_si_source_arithmetic_on_host(host_library):
     position pass moves the result away from the unsplit frame's."""
     kernel, arrays = _kernel_case("k1h_si", 32, 5)
     inputs = [np.ascontiguousarray(x) for x in arrays]
-    outs = _run_on_host(host_library, kernel, inputs)
+    outs = run_on_host(host_library, kernel, inputs)
     want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
     _gate_medians(outs, want)
     assert (want[3] > 0).mean() > 0.1
     k1a = engine.K1a(kernel.model, EngineConfig())
-    unsplit = _run_on_host(host_library, k1a, inputs)
+    unsplit = run_on_host(host_library, k1a, inputs)
     assert np.abs(unsplit[1] - outs[1]).max() > 0.05
 
 
@@ -1142,13 +1120,13 @@ def test_split_instances_source_arithmetic_on_host(host_library, case):
     assert kernel.split and type(kernel) is type(twin)
     assert kernel.variant == ("k1h_e" if case.startswith("k1h_e") else case)
     inputs = [np.ascontiguousarray(x) for x in arrays]
-    outs = _run_on_host(host_library, kernel, inputs)
+    outs = run_on_host(host_library, kernel, inputs)
     want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
     assert all(np.isfinite(o).all() for o in outs)
     _gate_medians(outs, want, {"k1h_c": TOL, "k1h_d": TOL_GRAB}.get(case, TOL_EQ),
                   tail="p99" if case.startswith("k1h_e") else "max")
     assert (want[3] > 0).mean() > 0.02   # contacts carry load
-    unsplit = _run_on_host(host_library, twin, inputs)
+    unsplit = run_on_host(host_library, twin, inputs)
     assert np.abs(unsplit[1] - outs[1]).max() > 0.05
     if case == "k1h_d":
         # the grab rows stay out of the position pass and still hold the
@@ -1165,8 +1143,8 @@ def test_split_instances_are_picked_and_the_rest_refused():
     """Split impulse takes the variant it would take without it, counted
     under its split name: K1c over stones (k1h_c), Cassie's and Cassie2D's
     K1e (k1h_e) on their warp-per-env instances, the stepper's named twin
-    only with ``thread_per_env=True``; the monkey's K1d (k1h_d) on its named
-    instance; a heightfield (K1f: k1h_f), a
+    only with ``thread_per_env=True``; the monkey's K1d (k1h_d) on its
+    warp-per-env instance; a heightfield (K1f: k1h_f), a
     mesh (K1g: k1h_g) and the PD walker and child (K1b: k1h_b) on their
     warp-per-env instances, their generic ones only with
     ``thread_per_env=True``; the torque planar walkers (K1e: k1h_e) on the
@@ -1174,7 +1152,7 @@ def test_split_instances_are_picked_and_the_rest_refused():
     names = {"k1h_c": "k1w_nl22_ns14_nlim21_sub4_it4_k6_si",
              "k1h_e": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si",
              "k1h_e2d": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si",
-             "k1h_d": "k1h_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si"}
+             "k1h_d": "k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si"}
     for case, twin_case in SPLIT_CASES.items():
         kernel, _ = _kernel_case(case, 2, 0)
         twin, _ = _kernel_case(twin_case, 2, 0)

@@ -25,6 +25,8 @@ from mocca_envs_tpu_torch.models.schema import FIXED as TFIXED
 from mocca_envs_tpu_torch.models.schema import ModelBuilder as TBuilder
 from mocca_envs_tpu_torch.utils.config import EngineConfig as TConfig
 
+from tests import torch_workers  # noqa: F401
+
 N = 16
 
 

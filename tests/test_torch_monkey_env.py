@@ -30,6 +30,8 @@ from mocca_envs_tpu_torch.core import rng as trng
 from mocca_envs_tpu_torch.models import monkey as tmonkey
 from mocca_envs_tpu_torch.tasks import monkey_stepper as ttask
 
+from tests import torch_workers  # noqa: F401
+
 B = 8
 STEPS = 30
 T = torch.as_tensor

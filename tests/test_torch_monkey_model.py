@@ -37,6 +37,8 @@ from mocca_envs_tpu_torch.ops.step import limited_joints
 from mocca_envs_tpu_torch.tasks import monkey_stepper as ttask
 from mocca_envs_tpu_torch.terrain import scene as tscene
 
+from tests import torch_workers  # noqa: F401
+
 T = torch.as_tensor
 
 

@@ -38,6 +38,7 @@ from mocca_envs_tpu_torch.ops.step import make_control_step as tcontrol
 from mocca_envs_tpu_torch.tasks import monkey_stepper as ttask
 from mocca_envs_tpu_torch.utils.config import EngineConfig as TConfig
 
+from tests import torch_workers  # noqa: F401
 from tests.torch_k1_host import build_host, run_on_host
 
 B = 16
@@ -68,11 +69,11 @@ def jax_step():
 
 
 @pytest.fixture(scope="module")
-def k1w_host(tmp_path_factory):
+def k1w_host():
     """The warp-per-env K1d built by g++ (lane width 1)."""
     kernel = engine.K1d(tmonkey.make_model(), TConfig(), tmonkey.constraints(), 16)
     assert kernel.instance.source == engine.SOURCE_W
-    return build_host([kernel], tmp_path_factory.mktemp("k1d_warp_host"))[kernel.name]
+    return build_host([kernel])[kernel.name]
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -25,6 +25,7 @@ from mocca_envs_tpu_torch.ops import kinematics as tkin
 from mocca_envs_tpu_torch.ops import linalg as tlinalg
 from mocca_envs_tpu_torch.ops import solver as tsolver
 
+from tests import torch_workers  # noqa: F401
 from tests.test_torch_physics import _states
 
 

@@ -36,6 +36,7 @@ from mocca_envs_tpu_torch.ops.step import make_plain_llc, make_substep as tsubst
 from mocca_envs_tpu_torch.terrain import scene as tscene
 from mocca_envs_tpu_torch.utils.config import EngineConfig as TConfig
 
+from tests import torch_workers  # noqa: F401
 from tests.models_util import hopper
 
 TOL = {"q": 2e-4, "qd": 5e-3, "depth": 2e-4, "nimp": 5e-3}

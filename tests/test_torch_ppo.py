@@ -43,6 +43,8 @@ from mocca_envs_tpu_torch.harness import ppo
 from mocca_envs_tpu_torch.harness.rollout import Trajectory
 from mocca_envs_tpu_torch.harness.transfer import embed_pytree, transfer_train_state
 
+from tests import torch_workers  # noqa: F401
+
 T = torch.as_tensor
 HIDDEN = (32, 32)
 

@@ -19,6 +19,8 @@ from mocca_envs_tpu_torch.ops import raycast as traycast
 from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.terrain.heightfield import fractal_heightfield
 
+from tests import torch_workers  # noqa: F401
+
 T = torch.as_tensor
 
 

@@ -11,8 +11,8 @@ rows), ``warm_start=False`` (λ from zero every substep) and
   package's ``make_control_step`` (its XLA path) on the same numpy states
   and actions, B = 8, at tests/test_pallas_engine.py's kernel gates: per-env
   medians within q 2e-4, qd 5e-3, depth 2e-4, normal impulse 5e-3, the
-  largest env within ten times. The JAX steps are compiled side by side on
-  a thread pool.
+  largest env within ten times. Each case compiles its own JAX step, once
+  per process.
 - The kernel source's generic instance of each of those keys, and of the
   walker at the JAX gates' 2 substeps × 8 sweeps, built for the host
   (``-DK1_HOST_CHECK``), against the port's plain version at the same gates;
@@ -21,7 +21,7 @@ rows), ``warm_start=False`` (λ from zero every substep) and
   2e-5, impulse 5e-4, the largest env within ten times.
 """
 
-import concurrent.futures
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +40,7 @@ from mocca_envs_tpu_torch.ops.step import make_control_step as tcontrol
 from mocca_envs_tpu_torch.terrain import scene as tscene
 from mocca_envs_tpu_torch.utils.config import EngineConfig as TConfig
 
+from tests import torch_workers  # noqa: F401
 from tests.torch_k1_host import build_host, run_on_host
 
 TOL = chip_smoke.TOL            # q 2e-4, qd 5e-3, depth 2e-4, impulse 5e-3
@@ -55,54 +56,56 @@ def _gate(got, want, tol):
         assert per_env.max() <= 10 * tol[name], (name, float(per_env.max()))
 
 
-@pytest.fixture(scope="module")
-def jax_steps():
-    """One walker control step of the JAX package per option configuration
-    (label → numpy outputs) on B = 8 near-contact states with uniform random
-    actions, and those inputs."""
+@functools.lru_cache(maxsize=None)
+def _inputs():
+    """B = 8 near-contact walker states with uniform random actions, and the
+    walker's torque gains: ``(q, qd, action, gain)``."""
     jm = jwalker.make_model()
     B = 8
     q, qd, _, _, _ = chip_smoke.near_contact_states(twalker.make_model(),
                                                     np.random.default_rng(31), B)
     action = np.random.default_rng(32).uniform(-1, 1, (B, jm.nj)).astype(np.float32)
     gain = np.array(jm.power_coef * jm.actuated)
+    return q, qd, action, gain
 
-    def compiled(fields):
-        step = jcontrol(jm, JConfig(**fields),
-                        actuation=lambda q_, qd_, a: gain * jnp.clip(a, -1, 1))
 
-        def one(a, b, c):
-            qq, dd, info = step(a, b, c, jscene.flat())
-            return qq, dd, info.contacts.depth, info.normal_impulse
+@functools.lru_cache(maxsize=None)
+def _jax_step(label):
+    """The JAX package's walker control step under the option configuration
+    ``label`` on :func:`_inputs` (numpy outputs), compiled once per
+    process."""
+    q, qd, action, gain = _inputs()
+    step = jcontrol(jwalker.make_model(), JConfig(**OPTIONS[label]),
+                    actuation=lambda q_, qd_, a: gain * jnp.clip(a, -1, 1))
 
-        return jax.jit(jax.vmap(one)).lower(q, qd, action).compile()
+    def one(a, b, c):
+        qq, dd, info = step(a, b, c, jscene.flat())
+        return qq, dd, info.contacts.depth, info.normal_impulse
 
-    with concurrent.futures.ThreadPoolExecutor(len(OPTIONS)) as pool:
-        steps = dict(zip(OPTIONS, pool.map(compiled, OPTIONS.values())))
-    want = {v: [np.asarray(x) for x in fn(q, qd, action)] for v, fn in steps.items()}
-    return want, (q, qd, action, gain)
+    return [np.asarray(x) for x in jax.jit(jax.vmap(one))(q, qd, action)]
 
 
 @pytest.mark.parametrize("label", list(OPTIONS))
-def test_walker_option_control_step_matches_jax(jax_steps, label):
+def test_walker_option_control_step_matches_jax(label):
     """The port's plain control step under one option configuration against
     the JAX package's on the same inputs."""
-    want, (q, qd, action, gain) = jax_steps
+    q, qd, action, gain = _inputs()
+    want = _jax_step(label)
     tgain = T(gain)
     step = tcontrol(twalker.make_model(), TConfig(**OPTIONS[label]),
                     actuation=lambda q_, qd_, a: tgain * torch.clamp(a, -1, 1))
     tq, tqd, info = step(T(q), T(qd), T(action), tscene.flat(len(q)))
     got = [x.numpy() for x in (tq, tqd, info.contacts.depth, info.normal_impulse)]
-    _gate(got, want[label], TOL)
-    assert (want[label][3] > 0).mean() > 0.05           # contacts carry load
+    _gate(got, want, TOL)
+    assert (want[3] > 0).mean() > 0.05                  # contacts carry load
 
 
-def test_options_change_the_step(jax_steps):
+def test_options_change_the_step():
     """Each option but the A-form is a different iteration: the port's step
     under it parts from the port's shipped step on the same inputs by more
     than the gate it is held to (per-env medians of q and qd), so that gate
     tells the two apart; the A-form parts only by the order of its sums."""
-    _, (q, qd, action, gain) = jax_steps
+    q, qd, action, gain = _inputs()
     tgain = T(gain)
 
     def port_step(fields):
@@ -118,7 +121,7 @@ def test_options_change_the_step(jax_steps):
 
 
 @pytest.fixture(scope="module")
-def host_cases(tmp_path_factory):
+def host_cases():
     """(kernel wrapper, numpy inputs, host library) per option configuration
     and the walker at 2 substeps × 8 sweeps, on chip_smoke.py's near-contact
     states at B = 64, with the matrix-free twins of the two A-forms."""
@@ -129,7 +132,7 @@ def host_cases(tmp_path_factory):
                for v, f in chip_smoke.OPTION_CONFIGS.items()}
     kernels["k1a"] = engine.K1a(model, TConfig())
     kernels["k1h_si"] = engine.K1hSi(model, TConfig(split_impulse=True))
-    libs = build_host(kernels.values(), tmp_path_factory.mktemp("k1_options"))
+    libs = build_host(kernels.values())
     return {v: (k, inputs, libs[k.name]) for v, k in kernels.items()}
 
 

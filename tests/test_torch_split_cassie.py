@@ -37,6 +37,7 @@ from mocca_envs_tpu_torch.ops.step import make_control_step as tcontrol
 from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG as TCASSIE_CONFIG
 from mocca_envs_tpu_torch.terrain import scene as tscene
 
+from tests import torch_workers  # noqa: F401
 from tests.test_torch_cassie_step import run_per_env
 from tests.test_torch_split_families import TOL, T, _gate, _parts
 from tests.torch_k1_host import build_host, run_on_host
@@ -52,10 +53,9 @@ def _warp_unit(planar):
 
 
 @pytest.fixture(scope="module")
-def warp_libs(tmp_path_factory):
+def warp_libs():
     """The two warp-per-env split instances built by g++, side by side."""
-    return build_host([_warp_unit(planar) for planar in (False, True)],
-                      tmp_path_factory.mktemp("k1w_split_cassie_jax_host"))
+    return build_host([_warp_unit(planar) for planar in (False, True)])
 
 
 @pytest.mark.parametrize("planar", [False, True], ids=["CassieEnv", "Cassie2DEnv"])

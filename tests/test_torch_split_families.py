@@ -22,7 +22,7 @@ from the unsplit one on the same inputs. On the card the stepper's split
 step runs the warp-per-env K1h-c of ``csrc/engine_k1w.cu``: its host build
 (``-DK1W_HOST_CHECK``) runs the same step (one llc frame) on the stones the
 port's step culls and packs, and is held to the same JAX outputs at the
-same gates.
+same gates; so is the monkey's warp-per-env K1h-d, on the same arrays.
 """
 
 import jax
@@ -43,6 +43,7 @@ from mocca_envs_tpu_torch.ops.step import make_control_step as tcontrol
 from mocca_envs_tpu_torch.terrain import scene as tscene
 from mocca_envs_tpu_torch.utils.config import EngineConfig as TConfig
 
+from tests import torch_workers  # noqa: F401
 from tests.test_torch_stones import _walker_over_stones
 from tests.torch_k1_host import build_host, run_on_host
 
@@ -62,7 +63,7 @@ def _parts(step_out):
     return [x.numpy() for x in (q, qd, info.contacts.depth, info.normal_impulse)]
 
 
-def test_stepper_split_control_step_matches_jax(tmp_path):
+def test_stepper_split_control_step_matches_jax():
     jm, tm = jwalker.make_model(), twalker.make_model()
     B = 32
     q, qd, (center, quat, half, active) = _walker_over_stones(B, 21)
@@ -93,7 +94,7 @@ def test_stepper_split_control_step_matches_jax(tmp_path):
     host = [np.ascontiguousarray(x.numpy()) for x in (
         T(q), T(qd), tgain * torch.clamp(T(action), -1, 1), culled.ground_z, culled.friction,
         engine.pack_stones(culled))]
-    outs = run_on_host(build_host([kernel], tmp_path)[kernel.name], kernel, host)
+    outs = run_on_host(build_host([kernel])[kernel.name], kernel, host)
     assert all(np.isfinite(o).all() for o in outs)
     _gate(outs, want, TOL, 10)
 
@@ -126,3 +127,9 @@ def test_monkey_split_control_step_matches_jax():
         np.testing.assert_array_equal(u.numpy(), g)
     assert (want[3] > 0).mean() > 0.05                       # bars carry load
     assert np.abs(got[1] - unsplit[1]).max() > 0.05
+    # the warp-per-env K1h-d's per-env code on the same arrays
+    assert kernel.instance.source == engine.SOURCE_W
+    outs = run_on_host(build_host([kernel])[kernel.name], kernel,
+                       [np.ascontiguousarray(x) for x in arrays])
+    assert all(np.isfinite(o).all() for o in outs)
+    _gate(outs, want, chip_smoke.TOL_GRAB, 10)

@@ -17,8 +17,8 @@ warp-per-env instances of ``csrc/engine_k1w.cu`` (K1h-b, K1h-f, K1h-g).
   impulse 5e-3), the terrain walker over its 16 × 16 window (the
   heightfield gates: q 2e-4, qd 1e-2, depth 5e-4, impulse 1e-2) and the
   stairs (K1a's gates; the tail over the envs with no riser contact, and
-  the JAX mesh gate, 97% of q within 1e-3). The JAX steps compile side by
-  side on a thread pool. Each checks that the position pass has work. For
+  the JAX mesh gate, 97% of q within 1e-3). Each family compiles its own
+  JAX step, once per process. Each checks that the position pass has work. For
   the PD walker, the terrain walker and the stairs the warp-per-env
   instance's host build (``-DK1W_HOST_CHECK``) runs the same step (one llc
   frame) on the targets, the window and the culled faces the port's step
@@ -33,7 +33,7 @@ The card-only comparisons of these instances are in
 tests/test_torch_kernel_wrapper.py (``-m cuda``), which imports no JAX.
 """
 
-import concurrent.futures
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +56,7 @@ from mocca_envs_tpu_torch.terrain.heightfield import with_heightfield
 from mocca_envs_tpu_torch.terrain.scene import HF_PATCH
 from mocca_envs_tpu_torch.utils.config import EngineConfig as TConfig
 
+from tests import torch_workers  # noqa: F401
 from tests.test_torch_kernel_wrapper import SPLIT_REST, _split_kernel
 from tests.test_torch_terrain_step import EXTENT, walker_over_terrain
 from tests.test_torch_trimesh import STAIRS
@@ -215,21 +216,13 @@ FAMILIES = {"pd_walker": _pd_walker, "walker2d": _walker2d, "terrain": _terrain,
             "stairs": _stairs}
 
 
-@pytest.fixture(scope="module")
-def jax_steps():
-    """Per family: (JAX outputs, the port's step with and without split
+@functools.lru_cache(maxsize=None)
+def _jax_step(family):
+    """One family's (JAX outputs, the port's step with and without split
     impulse, its gate, the envs its tail gate holds, the warp-per-env
-    instance's inputs or None)."""
-    cases = {name: make() for name, make in FAMILIES.items()}
-
-    def run(case):
-        one, inputs = case[0], case[1]
-        fn = jax.jit(jax.vmap(one)).lower(*inputs).compile()
-        return [np.asarray(x) for x in fn(*inputs)]
-
-    with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:
-        want = dict(zip(cases, pool.map(run, cases.values())))
-    return {name: (want[name], *case[2:]) for name, case in cases.items()}
+    instance's inputs or None), its JAX step compiled once per process."""
+    one, inputs, *rest = FAMILIES[family]()
+    return ([np.asarray(x) for x in jax.jit(jax.vmap(one))(*inputs)], *rest)
 
 
 # the split key whose warp-per-env instance runs a family's step on the card
@@ -237,12 +230,12 @@ WARP_CASE = {"pd_walker": "k1h_b", "terrain": "k1h_f", "stairs": "k1h_g"}
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
-def test_split_control_step_matches_jax(jax_steps, request, family):
+def test_split_control_step_matches_jax(request, family):
     """One control step with split impulse, port against JAX, at the
     family's gate; the split step parts from the unsplit one. The PD
     walker's, the terrain walker's and the stairs' warp-per-env instance,
     built for the host, is held to the same JAX outputs at the same gates."""
-    want, port, tol, tail_envs, host = jax_steps[family]
+    want, port, tol, tail_envs, host = _jax_step(family)
     got, unsplit = port(True), port(False)
     _gate(got, want, tol, tail_envs)
     assert (want[3] > 0).mean() > 0.03                      # contacts carry load
@@ -262,10 +255,9 @@ def test_split_control_step_matches_jax(jax_steps, request, family):
 
 
 @pytest.fixture(scope="module")
-def host_split(tmp_path_factory):
+def host_split():
     cases = {case: _split_kernel(case, 96 if case == "k1h_g" else 48, 5) for case in SPLIT_REST}
-    libs = build_host([k for kernel, twin, _ in cases.values() for k in (kernel, twin)],
-                      tmp_path_factory.mktemp("k1_split_rest"))
+    libs = build_host([k for kernel, twin, _ in cases.values() for k in (kernel, twin)])
     return cases, libs
 
 

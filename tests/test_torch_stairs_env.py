@@ -37,6 +37,8 @@ from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.terrain.scene import TRI_FIELDS, cull_tris, tri_surface_z
 from mocca_envs_tpu_torch.utils.config import EngineConfig
 
+from tests import torch_workers  # noqa: F401
+
 B = 8
 STEPS = 30
 AHEAD = 3.0

@@ -26,6 +26,8 @@ from mocca_envs_tpu_torch import convert
 from mocca_envs_tpu_torch.core import rng as trng
 from mocca_envs_tpu_torch.tasks import walker_stepper as tstepper
 
+from tests import torch_workers  # noqa: F401
+
 B = 8
 STEPS = 30
 T = torch.as_tensor

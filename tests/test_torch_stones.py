@@ -34,6 +34,8 @@ from mocca_envs_tpu_torch.terrain import scene as tscene
 from mocca_envs_tpu_torch.terrain import stones as tstones
 from mocca_envs_tpu_torch.utils.config import EngineConfig as TConfig
 
+from tests import torch_workers  # noqa: F401
+
 TOL = {"q": 2e-4, "qd": 5e-3, "depth": 2e-4, "nimp": 5e-3}
 T = torch.as_tensor
 

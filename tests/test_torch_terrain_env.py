@@ -32,6 +32,8 @@ from mocca_envs_tpu_torch.core import rng as trng
 from mocca_envs_tpu_torch.tasks import walker_terrain as tterrain
 from mocca_envs_tpu_torch.terrain.scene import NO_GROUND_Z, hf_sample
 
+from tests import torch_workers  # noqa: F401
+
 B = 8
 STEPS = 30
 AHEAD = 3.0

@@ -26,6 +26,8 @@ from mocca_envs_tpu_torch.terrain import scene as tscene
 from mocca_envs_tpu_torch.terrain.heightfield import with_heightfield
 from mocca_envs_tpu_torch.utils.config import EngineConfig as TConfig
 
+from tests import torch_workers  # noqa: F401
+
 TOL_HF = {"q": 2e-4, "qd": 1e-2, "depth": 5e-4, "nimp": 1e-2}
 T = torch.as_tensor
 EXTENT = 20.0

@@ -43,6 +43,8 @@ from mocca_envs_tpu_torch.harness.profile import TRACE_FILE
 from mocca_envs_tpu_torch.harness.rollout import random_rollout
 from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG as TCASSIE_CONFIG
 
+from tests import torch_workers  # noqa: F401
+
 SMALL = ["--num-envs", "8", "--horizon", "4", "--minibatches", "2", "--epochs", "2",
          "--log-every", "1"]
 CLI_KEYS = {"step", "wall_s", "env_steps_per_s", "rollout_s", "update_s"}

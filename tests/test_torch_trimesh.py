@@ -35,6 +35,7 @@ from mocca_envs_tpu_torch.ops.step import make_substep as tsubstep
 from mocca_envs_tpu_torch.terrain import scene as tscene
 from mocca_envs_tpu_torch.utils.config import EngineConfig as TConfig
 
+from tests import torch_workers  # noqa: F401
 from tests.models_util import ball, free_q, free_qd
 
 TOL = {"q": 2e-4, "qd": 5e-3, "depth": 2e-4, "nimp": 5e-3}

@@ -24,6 +24,8 @@ from mocca_envs_tpu.core import rng as jrng
 from mocca_envs_tpu_torch import convert
 from mocca_envs_tpu_torch.core import rng as trng
 
+from tests import torch_workers  # noqa: F401
+
 B = 8
 STEPS = 30
 AHEAD = 3.0  # target [m] ahead of the start: out of reach within the horizon

@@ -2,45 +2,102 @@
 ``-DK1W_HOST_CHECK``): each instance's per-env code as a plain loop over
 envs, for the CPU tests.
 
-:func:`build_host` compiles instances of ``csrc/engine_k1.cu`` (and the
-warp-per-env K1a of ``csrc/engine_k1w.cu`` at lane width 1) with the same
+:func:`build_host` compiles instances of ``csrc/engine_k1.cu`` and of
+``csrc/engine_k1w.cu`` (the warp-per-env ones at lane width 1) with the same
 preprocessor flags nvcc gets (``ops/cuda/engine.py::compile_flags``: the
 named instances by number, any other key as the generic instance), one
-compiler per instance, all started together; :func:`run_on_host` runs one
-kernel wrapper's instance on numpy inputs.
+compiler per instance, all started together, into one cache directory
+(``build/host_check/``, which git ignores): each library is named by its
+symbol and a hash of the sources, the compiler and the flags, and written by
+an atomic rename, so that every test file and every test worker reuses what
+another built. :class:`HostLibrary` builds an instance at the first lookup
+of one of its symbols. :func:`run_on_host` runs one kernel wrapper's
+instance on numpy inputs.
 """
 
 import ctypes
+import hashlib
+import os
 import shutil
 import subprocess
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 from mocca_envs_tpu_torch.ops.cuda import engine
 
+CACHE = Path(__file__).resolve().parents[1] / "build" / "host_check"
+CXX_FLAGS = ("-O2", "-std=c++17", "-x", "c++", "-DK1_HOST_CHECK", "-DK1W_HOST_CHECK",
+             "-shared", "-fPIC")
 
-def build_host(kernels, out_dir) -> dict:
-    """``{symbol: CDLL}`` of the instances of ``kernels`` (wrappers), built
-    into ``out_dir``; skips the test where no host compiler exists."""
+
+def _compiler() -> str:
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel source's host check")
-    insts = {k.instance.symbol: k.instance for k in kernels}
+    return cxx
+
+
+def _cached_path(cxx: str, inst) -> Path:
+    """Where ``inst``'s host library lies in the cache: its symbol and a hash
+    of its source, the shared header, the compiler and the flags."""
+    digest = hashlib.sha256()
+    for part in (inst.source, engine.HEADER):
+        digest.update(part.read_bytes())
+    digest.update(" ".join([cxx, *CXX_FLAGS, *engine.compile_flags(inst)]).encode())
+    return CACHE / f"lib{inst.symbol}_{digest.hexdigest()[:16]}.so"
+
+
+def build_instances(instances) -> dict:
+    """``{symbol: CDLL}`` of ``instances`` (``engine.Instance``), each built
+    unless the cache holds it, the compilers side by side; skips the test
+    where no host compiler exists."""
+    cxx = _compiler()
+    CACHE.mkdir(parents=True, exist_ok=True)
+    insts = {inst.symbol: inst for inst in instances}
+    paths = {symbol: _cached_path(cxx, inst) for symbol, inst in insts.items()}
     running = []
     for symbol, inst in insts.items():
-        path = out_dir / f"lib{symbol}_host.so"
-        cmd = [cxx, "-O2", "-std=c++17", "-x", "c++", "-DK1_HOST_CHECK", "-DK1W_HOST_CHECK",
-               *engine.compile_flags(inst), "-shared", "-fPIC", "-o", str(path),
-               str(inst.source)]
-        running.append((symbol, path, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                       stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for symbol, path, proc in running:
+        if paths[symbol].exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=CACHE)
+        os.close(fd)
+        cmd = [cxx, *CXX_FLAGS, *engine.compile_flags(inst), "-o", tmp, str(inst.source)]
+        running.append((symbol, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                      stderr=subprocess.STDOUT, text=True)))
+    for symbol, tmp, proc in running:
         log = proc.communicate(timeout=300)[0]
+        if proc.returncode != 0:
+            os.unlink(tmp)
         assert proc.returncode == 0, f"{symbol}: host build failed:\n{log}"
-        libs[symbol] = ctypes.CDLL(str(path))
-    return libs
+        os.replace(tmp, paths[symbol])
+    return {symbol: ctypes.CDLL(str(path)) for symbol, path in paths.items()}
+
+
+def build_host(kernels) -> dict:
+    """``{symbol: CDLL}`` of the instances of ``kernels`` (wrappers)."""
+    return build_instances(k.instance for k in kernels)
+
+
+class HostLibrary:
+    """Every named and warp-per-env instance behind one handle: looking up
+    ``<symbol>_host`` or ``<symbol>_layout`` builds (or takes from the cache)
+    that instance's library alone."""
+
+    def __init__(self):
+        self._insts = {inst.symbol: inst for inst in (*engine.WARP_INSTANCES.values(),
+                                                       *engine.INSTANTIATIONS.values())}
+        self._libs = {}
+
+    def __getattr__(self, name):
+        symbol = name.rpartition("_")[0]
+        if symbol not in self._insts:
+            raise AttributeError(name)
+        if symbol not in self._libs:
+            self._libs.update(build_instances([self._insts[symbol]]))
+        return getattr(self._libs[symbol], name)
 
 
 def run_on_host(lib, kernel, inputs):
