@@ -12,15 +12,17 @@ Phases, in order; any failure exits non-zero before the result lines:
    of the terrain walkers' K1f, of the stepper's K1c, of the stairs' K1g,
    of the split twins of the stairs, the terrain walkers, the stepper,
    the PD walkers and the walker on the plane, K1h-g, K1h-f, K1h-c, K1h-b
-   and K1h-si, of the monkey's K1d and its split twin K1h-d, and of the
-   planar walkers' K1e, from
+   and K1h-si, of the monkey's K1d and its split twin K1h-d, of the
+   planar walkers' K1e and its split twin, the planar K1h-e, and of the
+   walker's split key in the A-form (``matfree_pgs=False``), from
    ``mocca_envs_tpu_torch/csrc/engine_k1w.cu``, the fifteen
    named instances of the engine kernel from
    ``mocca_envs_tpu_torch/csrc/engine_k1.cu``, the generic instance of every
    key phase 2 adds (split impulse on the PD walker at two llc frames,
-   the torque planar walkers, and the thread-per-env twins of terrain, the
-   stairs and the PD walker at one llc frame; the walker's PGS options of
-   :data:`OPTION_CONFIGS`) and the raycast kernel K2 from
+   and the thread-per-env twins of terrain, the stairs, the PD walker at
+   one llc frame, the torque planar walkers and the split A-form; the
+   walker's PGS options of :data:`OPTION_CONFIGS`) and the raycast kernel
+   K2 from
    ``csrc/raycast_k2.cu`` (one nvcc process each, side by side), and print
    each one's ptxas registers and stack frame; the fifteen named frames
    and spills must be :data:`FRAMES`, and each warp-per-env instance must
@@ -83,10 +85,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    every foot lifted 1 m, grounded by the 1e-7 q̇-nudge floor over all envs
    (:func:`rounding_floor`); K1h-b (split impulse in PD
    mode, one and two llc frames) and the torque planar K1h-e on the K1b and
-   Walker2D states, each held to its twin's gate; K1h-f, K1h-g and K1h-b
-   (one llc frame) by their warp-per-env instances on the K1f, K1g and K1b
-   states, held to their twins' gates (K1h-g by K1g's riser rule); K1h-c,
-   K1h-b, K1h-f, K1h-g and K1h-si against their thread-per-env twins as K1f's and
+   Walker2D states, each held to its twin's gate; K1h-f, K1h-g, K1h-b
+   (one llc frame) and the planar K1h-e by their warp-per-env instances on
+   the K1f, K1g, K1b and Walker2D states, held to their twins' gates (K1h-g
+   by K1g's riser rule); K1h-c, K1h-b, K1h-f, K1h-g, K1h-si and the planar
+   K1h-e against their thread-per-env twins as K1f's and
    K1g's are (:func:`twin_and_lifted`, :func:`rounding_floor`; K1h-g off
    risers), and against their unsplit warp-per-env twins
    (:func:`split_against_unsplit`: bit for bit with every base lifted 3 m
@@ -96,11 +99,14 @@ Phases, in order; any failure exits non-zero before the result lines:
    a factor every substep, all four, the A-form with split impulse, and 2
    substeps × 8 sweeps) on the K1a states at K1a's gate, and each A-form
    against its matrix-free twin on the same inputs at :data:`TOL_TWIN`
-   (medians, the largest env within ten times); each other option's
+   (medians, the largest env within ten times); the split A-form by its
+   warp-per-env instance, and that against its thread-per-env twin
+   (:func:`twin_and_lifted`); each other option's
    instance must part from the shipped one (K1a) on the same inputs by more
    than K1a's gate in the per-env medians of q and qd
-   (:func:`parts_from_shipped`), and each A-form's workspace must hold its
-   NR × NR matrix and residual beside its twin's. Per-env median and p99
+   (:func:`parts_from_shipped`), and each thread-per-env A-form's workspace
+   must hold its NR × NR matrix and residual beside its matrix-free
+   twin's. Per-env median and p99
    of |Δq|, |Δqd|, |Δdepth|, |Δimpulse|; the medians must stay within q
    2e-4, qd 5e-3, depth 2e-4, impulse 5e-3 (K1e: q 5e-4, qd 2e-2, depth
    5e-4, impulse 5e-3, the tolerances the JAX package holds its own kernel
@@ -183,7 +189,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    :data:`SPLIT_FAMILIES` (64 launches each under the name it gives, all by
    the instance phase 1 built for it: the warp-per-env K1h-b for the PD
    walker and the PD child, K1h-f for the two terrain families and K1h-g
-   for the stairs, the generic one for the planar walkers), 2 updates at
+   for the stairs, the planar K1h-e for the planar walkers), 2 updates at
    horizon 32. Every
    metric line must be finite but the env channels the learner leaves NaN
    (no episode ended), and each prints env-steps/s and the seconds of the
@@ -193,8 +199,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    :data:`SWEEP` beside their bound, the two designs of Cassie's and of
    Cassie2D's K1e and of their split twins K1h-e and K1h-e2d likewise at
    each B of :data:`CASSIE_SWEEP`, those of K1b,
-   K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, K1d, K1h-d and the
-   planar K1e at each B of :data:`WALKER_SWEEP`, the
+   K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, K1d, K1h-d, the
+   planar K1e, the planar K1h-e and the split A-form at each B of
+   :data:`WALKER_SWEEP` (the A-form's bound on K1h-si's count), the
    walker's step against the host's
    time to enqueue it and the device's busy share over 20 traced steps, the
    bound from the operations and bytes these inputs need, and the time of
@@ -260,8 +267,8 @@ OPTION_CONFIGS = {
     "k1h_si_aform": {"matfree_pgs": False, "split_impulse": True},
     "k1a_sub2_it8": {"sim_substeps": 2, "solver_iters": 8},
 }
-# --split-impulse on the families whose split instances this slice adds:
-# env id → the count its launches go under
+# --split-impulse on the PD walkers, the planar walkers, terrain and the
+# stairs: env id → the count its launches go under
 SPLIT_FAMILIES = {"Walker3DPDCustomEnv": "k1h_b", "Child3DPDCustomEnv": "k1h_b",
                   "Walker2DCustomEnv": "k1h_e", "Crab2DCustomEnv": "k1h_e",
                   "Walker3DTerrainEnv": "k1h_f", "Walker3DTerrainLidarEnv": "k1h_f",
@@ -297,16 +304,17 @@ FRAMES = {
 # ~35–45 ms a call at 16,384)
 SWEEP = {4096: 20, 16384: 10, 65536: 5}
 CASSIE_SWEEP = {4096: 10, 16384: 5}
-# K1b, K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, K1d, K1h-d and the
-# planar K1e
+# K1b, K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, K1d, K1h-d, the
+# planar K1e, the planar K1h-e and the split A-form
 WALKER_SWEEP = {4096: 20, 16384: 10}
 # ptxas's registers and the dynamic shared memory per block (bytes) of each
 # warp-per-env instance, and the envs each must keep resident per SM: the
 # walker's keys 4 blocks of 4 envs (K1f's, K1c's, K1g's and K1h-f's
 # registers sized for 8), K1h-g's, K1h-c's, K1h-b's and K1h-si's one block
 # of 16, Cassie's one block of 32 (and its split twins'), the monkey's one
-# block of 32 (and its split twin's), the planar walkers' one block of 32;
-# each as every build since it was written has reported it
+# block of 32 (and its split twin's), the planar walkers' one block of 32
+# (and their split twin's), the split A-form's one block of 11; each as
+# every build since it was written has reported it
 WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4": (64, 53008, 16),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2": (64, 202896, 32),
@@ -325,6 +333,8 @@ WARP_BUILDS = {
     "k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2": (64, 159712, 32),
     "k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si": (63, 163040, 32),
     "k1w_nl7_ns5_nlim6_sub4_it4_planar": (58, 83216, 32),
+    "k1w_nl7_ns5_nlim6_sub4_it4_planar_si": (58, 86032, 32),
+    "k1w_nl22_ns14_nlim21_sub4_it4_si_aform": (108, 228792, 11),
 }
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
@@ -886,12 +896,14 @@ def build_report(engine, card) -> None:
               f"{(got['registers'], occ['smem_per_block'], occ['envs_per_sm'])}, want {want}")
 
 
-def design_sweep(engine, card, label: str, new, old, states, sweep) -> None:
+def design_sweep(engine, card, label: str, new, old, states, sweep, matfree=None) -> None:
     """The two designs of one key timed in turns (thread per env, warp per
     env, warp per env, thread per env; CUDA events) on ``states(batch,
     rng)`` (numpy inputs) at each B of ``sweep`` ({B: timed calls}), each
-    beside the bound these inputs need and the waves of the warp-per-env
-    design's envs resident per SM."""
+    beside the bound these inputs need (an A-form's on the fewer operations
+    of its own count and its ``matfree`` twin's, as :func:`time_and_bound`
+    takes it) and the waves of the warp-per-env design's envs resident per
+    SM."""
     rng = np.random.default_rng(SEED + 2)
     occ = engine.occupancy(engine.build()[new.name], new.name)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -900,7 +912,11 @@ def design_sweep(engine, card, label: str, new, old, states, sweep) -> None:
         t = [time_call(k.launch, args, calls) for k in (old, new, new, old)]
         old_ms, new_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         lim_act, con_act, walk = engine.k1_activity(new, *args)
-        t_ops = engine.k1_flops(new, lim_act, con_act, *args[5:], tri_walk=walk) / PEAK_FP32 * 1e3
+        flops = engine.k1_flops(new, lim_act, con_act, *args[5:], tri_walk=walk)
+        if matfree is not None:
+            flops = min(flops, engine.k1_flops(matfree, lim_act, con_act, *args[5:],
+                                               tri_walk=walk))
+        t_ops = flops / PEAK_FP32 * 1e3
         t_bytes = engine.k1_bytes_per_env(new) * batch / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         print(f"[sweep] {label} at B={batch} on {card}: thread per env {t[0]:.4f} / {t[3]:.4f} "
@@ -1410,9 +1426,10 @@ def main() -> int:
     cmodel = cassie.make_model("cuda")
     wmodel = walker2d.make_walker2d("cuda")
     # split impulse on the PD walker (one and two llc frames), the torque
-    # planar walkers, terrain and the stairs (K1h-b at one llc frame, K1h-f
-    # and K1h-g by their warp-per-env instances); the walker's PGS options
-    # (OPTION_CONFIGS)
+    # planar walkers, terrain and the stairs (K1h-b at one llc frame, the
+    # planar K1h-e, K1h-f and K1h-g by their warp-per-env instances); the
+    # walker's PGS options (OPTION_CONFIGS; the split A-form by its
+    # warp-per-env instance)
     added = {
         "k1h_b": engine.K1b(model.replace(kp=kp), split(config), extra_damping=kp / 20.0),
         "k1h_b_llc2": engine.K1b(model.replace(kp=kp), EngineConfig(llc_frames=2,
@@ -1424,15 +1441,20 @@ def main() -> int:
         **{v: engine.make_kernel(model, EngineConfig(**fields))
            for v, fields in OPTION_CONFIGS.items()},
     }
-    # the thread-per-env twins of K1h-f, K1h-g, K1h-c, K1h-b and K1h-si: the
-    # generic engine_k1.cu instances of their keys (K1h-c's and K1h-si's the
-    # named k1h_..._k6_si and k1h_..._si)
+    # the thread-per-env twins of K1h-f, K1h-g, K1h-c, K1h-b, K1h-si, the
+    # planar K1h-e and the split A-form: the generic engine_k1.cu instances
+    # of their keys (K1h-c's and K1h-si's the named k1h_..._k6_si and
+    # k1h_..._si)
     split_twins = {"k1h_f": engine.K1f(model, split(config), HF_PATCH, thread_per_env=True),
                    "k1h_g": engine.K1g(model, split(config), thread_per_env=True),
                    "k1h_c": engine.K1c(model, split(config), thread_per_env=True),
                    "k1h_b": engine.K1b(model.replace(kp=kp), split(config),
                                        extra_damping=kp / 20.0, thread_per_env=True),
-                   "k1h_si": engine.K1hSi(model, split(config), thread_per_env=True)}
+                   "k1h_si": engine.K1hSi(model, split(config), thread_per_env=True),
+                   "k1h_e_planar": engine.K1e(wmodel, split(config), walker2d.planar_spec(),
+                                              thread_per_env=True),
+                   "k1h_si_aform": engine.K1hSi(model, EngineConfig(
+                       **OPTION_CONFIGS["k1h_si_aform"]), thread_per_env=True)}
 
     # ---- phase 1: build
     t0 = time.perf_counter()
@@ -1617,16 +1639,17 @@ def main() -> int:
     print(f"[compare] k1h_g: {int(vertical.sum())} of {B} envs touch a vertical face in the "
           "plain run; the tail gate holds the others")
     max_abs["k1h_g"] = compare(*kernels["k1h_g"], "k1h_g", TOL, tail="p99", tail_envs=~vertical)
-    # K1h-f, K1h-g, K1h-c, K1h-b and K1h-si by their warp-per-env instances:
-    # against their thread-per-env twins as K1f's and K1g's are (K1h-g by
-    # the riser rule), each within the rounding floor (K1h-g off risers, the
-    # others over all envs), on the states and with every base lifted 3 m;
-    # and against their unsplit warp-per-env twins
+    # K1h-f, K1h-g, K1h-c, K1h-b, K1h-si and the planar K1h-e by their
+    # warp-per-env instances: against their thread-per-env twins as K1f's and
+    # K1g's are (K1h-g by the riser rule), each within the rounding floor
+    # (K1h-g off risers, the others over all envs), on the states and with
+    # every base lifted 3 m; and against their unsplit warp-per-env twins
     for v, unsplit, plain_tol, tail_envs in (("k1h_f", "k1f", TOL_HF, None),
                                              ("k1h_g", "k1g", TOL, ~vertical),
                                              ("k1h_c", "k1c", TOL, None),
                                              ("k1h_b", "k1b", TOL, None),
-                                             ("k1h_si", "k1a", TOL, None)):
+                                             ("k1h_si", "k1a", TOL, None),
+                                             ("k1h_e_planar", "k1e_planar", TOL_EQ, None)):
         new, twin = kernels[v][0], split_twins[v]
         check(new.instance.source == engine.SOURCE_W and twin.instance.source == engine.SOURCE,
               f"{v}: the main path's instance {new.name} is not the warp-per-env one")
@@ -1642,9 +1665,20 @@ def main() -> int:
     for v, twin in (("k1a_aform", "k1a"), ("k1h_si_aform", "k1h_si")):
         max_abs[v] = max(max_abs[v], compare_twins(added[v], kernels[twin][0],
                                                    kernels["k1a"][1], v))
-        # the workspace of the thread-per-env twin (the warp-per-env ones have none)
+        # the workspaces of the thread-per-env pair (the warp-per-env
+        # instances have none)
+        aform = split_twins[v] if v in split_twins else added[v]
         thread = {"k1a": k1a_thread, "k1h_si": split_twins["k1h_si"]}[twin]
-        aform_workspace(engine, added[v], thread, v)
+        aform_workspace(engine, aform, thread, v)
+    # the split A-form by its warp-per-env instance against its
+    # thread-per-env twin, near contact and with every base lifted 3 m
+    check(added["k1h_si_aform"].instance.source == engine.SOURCE_W
+          and split_twins["k1h_si_aform"].instance.source == engine.SOURCE,
+          f"k1h_si_aform: the main path's instance {added['k1h_si_aform'].name} is not the "
+          "warp-per-env one")
+    max_abs["k1h_si_aform"] = max(max_abs["k1h_si_aform"], twin_and_lifted(
+        added["k1h_si_aform"], split_twins["k1h_si_aform"], kernels["k1a"][1], "k1h_si_aform",
+        3.0))
     # every other option is another iteration: K1a's gate tells it from K1a
     for v in ("k1a_scalar", "k1a_cold", "k1a_refactor", "k1a_aform_scalar_cold_refactor",
               "k1a_sub2_it8"):
@@ -1763,9 +1797,9 @@ def main() -> int:
           f"falls {sums['fell']:.0f}, bar hits {sums['bar_hit']:.0f}")
     # the walker made with each PGS option configuration: its own instance
     for v, fields in OPTION_CONFIGS.items():
-        launches[v], *_ = drive(port, engine, card, "Walker3DCustomEnv-v0", 100,
-                                added[v].variant, instance=added[v].name,
-                                config=EngineConfig(**fields))
+        launches[v], _, _, _, step_ms[v], _ = drive(
+            port, engine, card, "Walker3DCustomEnv-v0", 100, added[v].variant,
+            instance=added[v].name, config=EngineConfig(**fields))
     small_grid_raises(model, config)
     combination_refused(engine, model, config)
     launches["k2"], ray_main, raycaster = raycast_main_path(engine, card, rng)
@@ -1787,7 +1821,7 @@ def main() -> int:
     # this slice's split instances: every family trains with --split-impulse
     for env_id, variant in SPLIT_FAMILIES.items():
         short = {"k1h_e": "k1h_e_planar"}.get(variant, variant)
-        check(variant not in split_twins or added[short].instance.source == engine.SOURCE_W,
+        check(added[short].instance.source == engine.SOURCE_W,
               f"{env_id} training: {variant} is not on its warp-per-env instance")
         lines = train_run(engine, card, env_id, 2, 32, workdir, {variant: 64},
                           instance=added[short].name)
@@ -1836,6 +1870,12 @@ def main() -> int:
                  lambda batch, r: monkey_states(mmodel, r, batch), WALKER_SWEEP)
     design_sweep(engine, card, "K1e planar", kernels["k1e_planar"][0], k1e_planar_thread,
                  lambda batch, r: planar_walker_states(wmodel, 1.22, r, batch), WALKER_SWEEP)
+    design_sweep(engine, card, "K1h-e planar", kernels["k1h_e_planar"][0],
+                 split_twins["k1h_e_planar"],
+                 lambda batch, r: planar_walker_states(wmodel, 1.22, r, batch), WALKER_SWEEP)
+    design_sweep(engine, card, "K1h A-form", added["k1h_si_aform"], split_twins["k1h_si_aform"],
+                 lambda batch, r: near_contact_states(model, r, batch), WALKER_SWEEP,
+                 matfree=kernels["k1h_si"][0])
     for v, env_id in (("k1b", "Walker3DPDCustomEnv-v0"), ("k1b_child", "Child3DPDCustomEnv-v0"),
                       ("k1f", "Walker3DTerrainEnv-v0"),
                       ("k1f_lidar", "Walker3DTerrainLidarEnv-v0"),
@@ -1849,7 +1889,7 @@ def main() -> int:
     window_and_pack_time(engine, card, terrain_state)
     for v in ("k1b", "k1b_child", "k1c", "k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d",
               "k1f", "k1f_lidar", "k1g", "k1h_si", "k1h_g", "k1h_f", "k1h_f_lidar", "k1h_c",
-              "k1h_b", "k1h_b_child", "k1h_d"):
+              "k1h_b", "k1h_b_child", "k1h_d", "k1h_si_aform"):
         kernel_ms = times[v.removesuffix("_lidar").removesuffix("_child")]["ms"]
         print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {kernel_ms:.4f} "
               f"ms/call, so {step_ms[v] - kernel_ms:.3f} ms/step outside the kernel "

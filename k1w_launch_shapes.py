@@ -3,7 +3,8 @@ and Cassie2D's K1e, the PD walkers' K1b, the terrain walkers' K1f, the
 stepper's K1c, the stairs' K1g, the split twins of the stairs, the terrain
 walkers, the stepper, the PD walkers and the walker on the plane, K1h-g,
 K1h-f, K1h-c, K1h-b and K1h-si, the monkey's K1d and its split twin K1h-d,
-and the planar walkers' K1e.
+the planar walkers' K1e and its split twin, the planar K1h-e, and the
+walker's split key in the A-form.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -17,9 +18,10 @@ which caps the registers; the shipped shape first) into ``build/shapes/``,
 one nvcc process each, side by side; prints each one's ptxas registers and
 spills and the blocks resident per SM; holds each shape's outputs to the
 shipped shape's on its group's states (the same code: equal up to the
-compiler's register allocation); and times the shapes in turns (shipped,
-the others, shipped; CUDA events) at each B of its group. It imports
-nothing of JAX. Exits non-zero without a card or if a shape disagrees.
+compiler's register allocation; whether the bits agree is printed); and
+times the shapes in turns (shipped, the others, shipped; CUDA events) at
+each B of its group. It imports nothing of JAX. Exits non-zero without a
+card or if a shape disagrees.
 """
 
 from __future__ import annotations
@@ -49,8 +51,11 @@ W = "k1w_nl22_ns14_nlim21_sub4_it4"
 # the other), two of 8, one of 16 (K1h-g ships that: four blocks of its 4
 # envs overrun the SM's shared memory, so its blocks of 4 hold 12 per SM;
 # K1h-c and K1h-b too: it ran 3–5% faster than their twins' shapes; and
-# K1h-si, 3–4% faster than K1a's 4 × 4). The monkey, its split twin and the
-# planar walkers: 32 envs per SM as one block of 32, two of 16 or four of 8
+# K1h-si, 3–4% faster than K1a's 4 × 4). The monkey, its split twin, the
+# planar walkers and their split twin: 32 envs per SM as one block of 32,
+# two of 16 or four of 8. The split A-form, whose packed A fills most of
+# an env's shared memory: one block of 11 envs (the most the SM holds), one
+# of 8, or two blocks of 5
 GROUPS = {
     "cassie": (("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2",
                 "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar"),
@@ -73,6 +78,9 @@ GROUPS = {
                      {4096: 20, 16384: 10}),
     "planar": (("k1w_nl7_ns5_nlim6_sub4_it4_planar",), [(32, 1), (16, 2), (8, 4)],
                {4096: 20, 16384: 10}),
+    "planar_split": (("k1w_nl7_ns5_nlim6_sub4_it4_planar_si",), [(32, 1), (16, 2), (8, 4)],
+                     {4096: 20, 16384: 10}),
+    "aform_split": ((f"{W}_si_aform",), [(11, 1), (8, 1), (5, 2)], {4096: 10, 16384: 5}),
 }
 
 
@@ -124,7 +132,8 @@ def cases(engine, rng):
     the stairs walker, the terrain walker, the stepper, the PD walker and
     the walker on the plane (near contact) also with split impulse; the
     monkey (hanging from its bars), also with split impulse; Walker2D (near
-    contact, a little out of its plane)."""
+    contact, a little out of its plane), also with split impulse; the walker
+    with split impulse in the A-form (near contact)."""
     from mocca_envs_tpu_torch.models import cassie, monkey, walker2d, walker3d
     from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
     from mocca_envs_tpu_torch.terrain.scene import HF_PATCH
@@ -169,6 +178,11 @@ def cases(engine, rng):
     pmodel = walker2d.make_walker2d("cuda")
     out.append(("planar", lambda: engine.K1e(pmodel, EngineConfig(), walker2d.planar_spec()),
                 lambda batch: chip_smoke.planar_walker_states(pmodel, 1.22, rng, batch)))
+    out.append(("planar_split", lambda: engine.K1e(pmodel, split, walker2d.planar_spec()),
+                lambda batch: chip_smoke.planar_walker_states(pmodel, 1.22, rng, batch)))
+    aform = EngineConfig(**chip_smoke.OPTION_CONFIGS["k1h_si_aform"])
+    out.append(("aform_split", lambda: engine.K1hSi(wmodel, aform),
+                lambda batch: chip_smoke.near_contact_states(wmodel, rng, batch)))
     return out
 
 
@@ -224,6 +238,8 @@ def main(argv=None) -> int:
                           f"per-env median {med:.3e}, max {float(per_env.max()):.3e}")
                     chip_smoke.check(med <= chip_smoke.TOL_TWIN[name],
                                      f"{k.name} {shape}: {name} median {med:.3e}")
+                print(f"[shape] {k.name} {shape[0]}×{shape[1]} at B={batch}: the same bits as the "
+                      f"shipped shape: {all(bool(torch.equal(a, b)) for a, b in zip(out, ref))}")
             order = [shapes[0], *shapes[1:], shapes[0]]
             t = [chip_smoke.time_call(kernels[s].launch, args, calls) for s in order]
             print(f"[shape] {shipped.name} at B={batch} on {card}: " + ", ".join(

@@ -33,14 +33,20 @@
 //        with its own normal, and NGRAB maskable grab rows (a palm point
 //        pulled onto its target while the grab is attached);
 //   K1h-d  K1d's key with split impulse: the position pass behind the
-//        attached grabs' rows.
+//        attached grabs' rows;
+//   the planar K1h-e  the planar walkers' K1e key with split impulse: the
+//        position pass behind the lock's 3 rows;
+//   the K1h A-form  K1h-si's key in the A-form (matfree_pgs off, Cfg::
+//        MATFREE false): A = WWᵀ + cfm·I over the active rows, the residual
+//        carried instead of z = Wλ.
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
 // make_pallas_substep (pallas_call at :1441) for those configurations (with
 // pd_mode, hf_patch, num_stones, num_tris, num_bars, constraints= and
 // split_impulse there: :1276-1352, :371-377, :458-509, :363-375, :511-549,
 // :378-382, :551-616, :618-651, :280-290, :341, :858-894; split impulse
-// :898-932, :1077-1111, :1236-1262). It computes what engine_k1.cu's thread-per-env
+// :898-932, :1077-1111, :1236-1262; the A-form :1112-1235). It computes what
+// engine_k1.cu's thread-per-env
 // instances of the same keys compute, the same iteration with some sums in
 // another order; those instances stay built for comparison
 // (ops/cuda/engine.py, thread_per_env=True), and every other key keeps its
@@ -77,9 +83,11 @@
 // and K1h-e2d run ~48× above theirs, ~6.7× faster, K1h-g ~48× and K1h-f
 // ~67×, ~12.5× and ~13× faster, K1h-c ~57× and K1h-b ~54×, ~13× and ~14×
 // faster, K1h-si ~54× and K1d ~59×, ~14× and ~6.5× faster, K1h-d ~68× and
-// the planar K1e ~70×, ~5.9× and ~3.5× faster (PERF.md §6). The monkey's
-// NV = 16 leaves half the lanes idle in the DOF loops, the planar walkers'
-// NV = 12 twenty of 32.
+// the planar K1e ~70×, ~5.9× and ~3.5× faster, the planar K1h-e ~83×, ~3.2×
+// faster, and the split A-form ~78× (against K1h-si's count), ~58× faster
+// than its thread-per-env twin and 1.46× K1h-si's time (PERF.md §6). The
+// monkey's NV = 16 leaves half the lanes idle in the DOF loops, the planar
+// walkers' NV = 12 twenty of 32.
 //
 // Design.
 //   - One warp per env, C::ENVS warps per block, registers for C::BLOCKS
@@ -128,8 +136,14 @@
 //     K1h-d (5,032 bytes: bpos and λ_pos of 13 rows; 163,040 a block, 63
 //     registers) and the planar walkers' K1e (2,564 bytes, its kinematics
 //     in W's space; 83,216 a block, 58 registers: registers, not shared
-//     memory, hold it to one block per SM) take the same one block of 32;
-//     two of 16 or four of 8 ran 2–10% slower (k1w_launch_shapes.py).
+//     memory, hold it to one block per SM) and its split twin, the planar
+//     K1h-e (2,652 bytes; 86,032 a block, 58 registers), take the same one
+//     block of 32; two of 16 or four of 8 ran 2–10% slower
+//     (k1w_launch_shapes.py). The split A-form's EnvW holds A as its
+//     packed lower triangle (2,016 floats): 20,344 bytes, 11 envs in one
+//     block of 352 threads (228,792 bytes, 108 registers); in full rows of
+//     stride 63 (28,156 bytes) the SM held 8, which ran 17% slower on an
+//     H100 at B = 4096 (PERF.md §6).
 //   - Lanes: link i for the FK, the Newton–Euler passes and the CRBA
 //     composites, one tree level at a time (depth 6 for the walker, 7 for
 //     Cassie; a parent sums its children in the order the serial code does);
@@ -153,6 +167,21 @@
 //     clamped at 0 for a limit or a contact normal) and lane j then adds
 //     W[r][j]·Δλ to z_j. A contact's friction pair sums its two residuals in
 //     one butterfly.
+//   - The A-form (Cfg::MATFREE false), as engine_k1.cu's and the JAX
+//     A-form: once the active rows' W is solved, A(t1, t2) = W_r1·W_r2 (+
+//     cfm on the diagonal) over the list positions t of the active rows,
+//     each dot over j in engine_k1.cu's order; lane ℓ keeps the W rows of
+//     positions ℓ and ℓ + 32 in registers and forms their columns of A
+//     against each row broadcast in turn. A sits in the env's shared memory
+//     as its packed lower triangle. The residual c + Aλ is lane-owned
+//     (positions ℓ, ℓ + 32), started under warm start from the masked λ in
+//     the serial order; a visit takes its row's residual from its lane by
+//     one shuffle, updates λ as the matrix-free visit does, and each lane
+//     moves its own residuals by A's row t (the triangle's row t up to the
+//     diagonal, contiguous, then its column t). z = Wλ is formed once after
+//     the sweeps. The position pass starts its residual at −bpos on the
+//     limit and contact-normal rows (0 elsewhere), visits them as the
+//     sweeps do and forms z_pos = Wλ_pos once at its end.
 //
 // Heightfield narrowphase (K1f), as engine_k1.cu's and the plain version's
 // (terrain/scene.py::hf_corners, hf_sample, hf_normal): one sphere per lane;
@@ -309,18 +338,22 @@ __device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
 // (PD: NLLC llc frames per call), the equality rows, the launch's envs
 // (warps) per block and the blocks per SM its registers are sized for (at
 // most 65,536 / (32 · ENVS · BLOCKS) a thread), the heightfield window's
-// side, the stones and the mesh faces per env (0: none), split impulse, and
-// the bar capsules and the grabs per env (0: none).
+// side, the stones and the mesh faces per env (0: none), split impulse, the
+// bar capsules and the grabs per env (0: none) and the PGS form
+// (matrix-free, else the A-form).
 template <int NL_, int NS_, int NLIM_, int NSUB_, int ITERS_, bool PD_, int NLLC_, int NP2P_,
           bool PLANAR_, int ENVS_, int BLOCKS_, int PHF_ = 0, int K_ = 0, int KT_ = 0,
-          bool SPLIT_ = false, int KB_ = 0, int NGRAB_ = 0>
+          bool SPLIT_ = false, int KB_ = 0, int NGRAB_ = 0, bool MATFREE_ = true>
 struct Cfg {
   static constexpr int NL = NL_, NS = NS_, NLIM = NLIM_, NSUB = NSUB_, ITERS = ITERS_;
-  static constexpr bool PD = PD_, PLANAR = PLANAR_, SPLIT = SPLIT_;
+  static constexpr bool PD = PD_, PLANAR = PLANAR_, SPLIT = SPLIT_, MATFREE = MATFREE_;
   static constexpr int NLLC = NLLC_, NP2P = NP2P_, ENVS = ENVS_, BLOCKS = BLOCKS_, PHF = PHF_;
   static constexpr int K = K_, KT = KT_, KB = KB_, NGRAB = NGRAB_;
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   static constexpr int WS = L::NV | 1;   // W's row stride: odd
+  // the A-form's A over the active-row list: its lower triangle packed row
+  // after row
+  static constexpr int ASIZE = MATFREE ? 0 : L::NR * (L::NR + 1) / 2;
   // the rod and planar instances hold the link kinematics in W's space
   // (Cassie's 32 envs per block need it); the monkey's EnvW fits 32 envs in
   // one block without it
@@ -451,13 +484,18 @@ template <int NS, int KB>
 struct BarScratch { float ctr[NS][3], dk[NS][KB]; };
 template <int NS>
 struct BarScratch<NS, 0> {};
+// ... and the A-form's A = WWᵀ + cfm·I over the active rows, by list position
+template <int ASIZE>
+struct AformState { float A[ASIZE]; };
+template <>
+struct AformState<0> {};
 
 // One env's state in shared memory.
 template <class C>
 struct EnvW : PdState<C::PD, C::L::NJ>, RodState<C::NP2P>, NrmState<C::GENERAL, C::NS>,
               HfState<C::PHF>, StoneState<C::K>, TriState<C::KT>,
               SplitState<C::SPLIT, C::NLIM + C::NS>, BarState<C::KB>, GrabState<C::NGRAB>,
-              KinIn<!C::KIN_IN_W, C::NL, C::L::NV> {
+              AformState<C::ASIZE>, KinIn<!C::KIN_IN_W, C::NL, C::L::NV> {
   using L = typename C::L;
   float q[L::NQ], qd[L::NV], tau[L::NJ];
   float ground, fric;
@@ -486,6 +524,27 @@ struct EnvW : PdState<C::PD, C::L::NJ>, RodState<C::NP2P>, NrmState<C::GENERAL, 
     else return *this;
   }
 };
+
+// Where entry (t1, t2) of the A-form's A lies: in the packed lower
+// triangle's row of the larger of the two (A is symmetric)
+HD inline int aidx(int t1, int t2) {
+  return t1 >= t2 ? t1 * (t1 + 1) / 2 + t2 : t2 * (t2 + 1) / 2 + t1;
+}
+
+// ... and its value (0 where the instance is matrix-free and keeps no A)
+template <class C>
+HD inline float aget(const EnvW<C>& e, int t1, int t2) {
+  if constexpr (C::MATFREE) return 0.0f;
+  else return e.A[aidx(t1, t2)];
+}
+
+// v[i] of a lane-owned array, selected without indexing registers
+template <int N>
+HD inline float owned(const float (&v)[N], int i) {
+  float x = v[0];
+  for (int k = 1; k < N; ++k) x = k == i ? v[k] : x;
+  return x;
+}
 
 // The depth of each link in the tree (root 0) and the largest.
 template <int NL>
@@ -1103,32 +1162,111 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       y[i] = s;
       dd += s * s;
     }
-    e.diag[r] = fmaxf(dd + cfm, 1e-9f);
+    if constexpr (C::MATFREE) e.diag[r] = fmaxf(dd + cfm, 1e-9f);
   }
   wsync();
+  // the A-form: A(t1, t2) = W_r1·W_r2 (+ cfm where t1 = t2) over the list
+  // positions of the active rows, each dot in engine_k1.cu's order. Lane ℓ
+  // holds the W rows of positions ℓ and ℓ + 32 and forms A's entries in
+  // their columns against each row broadcast in turn; a row's diagonal and
+  // each contact's 2×2 friction block come from A
+  constexpr int NRL = (NR + WIDTH - 1) / WIDTH;   // a lane's share of a row vector
+  if constexpr (!C::MATFREE) {
+    float wc[NRL][NV];   // in registers: the loops over jj and j unrolled
+#pragma unroll
+    for (int jj = 0; jj < NRL; ++jj) {
+      const int p = lane + jj * WIDTH;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) wc[jj][j] = p < nrows ? e.u.W[e.rows[p] * WS + j] : 0.0f;
+    }
+    for (int t1 = 0; t1 < nrows; ++t1) {
+      const float* w1 = e.u.W + e.rows[t1] * WS;
+      float acc[NRL];
+#pragma unroll
+      for (int jj = 0; jj < NRL; ++jj) acc[jj] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const float x = w1[j];
+#pragma unroll
+        for (int jj = 0; jj < NRL; ++jj) acc[jj] += x * wc[jj][j];
+      }
+      for (int jj = 0; jj < NRL; ++jj) {
+        const int p = lane + jj * WIDTH;
+        if (p <= t1) e.A[aidx(t1, p)] = t1 == p ? acc[jj] + cfm : acc[jj];
+      }
+    }
+    wsync();
+    for (int t = lane; t < nrows; t += WIDTH) e.diag[e.rows[t]] = fmaxf(aget(e, t, t), 1e-9f);
+  }
   // each active contact's 2×2 friction block, inverted
-  for (int s = lane; s < NS; s += WIDTH) {
-    const int t1 = NE + NLIM + 3 * s + 1, t2 = t1 + 1;
-    if (!(e.act[t1] > 0.5f)) continue;
-    float a12 = 0.0f;
-    for (int i = 0; i < NV; ++i) a12 += e.u.W[t1 * WS + i] * e.u.W[t2 * WS + i];
-    const float a11 = e.diag[t1], a22 = e.diag[t2];
-    const float det = fmaxf(a11 * a22 - a12 * a12, 1e-12f);
-    e.finv[s][0] = a22 / det; e.finv[s][1] = a11 / det; e.finv[s][2] = -a12 / det;
+  if constexpr (C::MATFREE) {
+    for (int s = lane; s < NS; s += WIDTH) {
+      const int t1 = NE + NLIM + 3 * s + 1, t2 = t1 + 1;
+      if (!(e.act[t1] > 0.5f)) continue;
+      float a12 = 0.0f;
+      for (int i = 0; i < NV; ++i) a12 += e.u.W[t1 * WS + i] * e.u.W[t2 * WS + i];
+      const float a11 = e.diag[t1], a22 = e.diag[t2];
+      const float det = fmaxf(a11 * a22 - a12 * a12, 1e-12f);
+      e.finv[s][0] = a22 / det; e.finv[s][1] = a11 / det; e.finv[s][2] = -a12 / det;
+    }
+  } else {
+    // a contact's normal row at position t, its friction pair at t + 1, t + 2
+    for (int t = lane; t < nrows; t += WIDTH) {
+      const int r = e.rows[t];
+      if (r < NE + NLIM || (r - NE - NLIM) % 3 != 0) continue;
+      const int s = (r - NE - NLIM) / 3;
+      const float a11 = fmaxf(aget(e, t + 1, t + 1), 1e-9f);
+      const float a22 = fmaxf(aget(e, t + 2, t + 2), 1e-9f);
+      const float a12 = aget(e, t + 1, t + 2);
+      const float det = fmaxf(a11 * a22 - a12 * a12, 1e-12f);
+      e.finv[s][0] = a22 / det; e.finv[s][1] = a11 / det; e.finv[s][2] = -a12 / det;
+    }
   }
   // warm start: the previous substep's λ, masked by this substep's activity
   for (int r = lane; r < NR; r += WIDTH) e.lam[r] *= e.act[r];
   wsync();
+  // v_j = Σ_t W_{r_t}[j]·coef(t) over the list positions t from t0 in order
+  // (a contact's normal row alone where `normals`, its friction pair
+  // skipped), lanes over DOF j
+  auto w_times = [&](float* v, int t0, bool normals, auto coef) {
+    for (int jj = 0; jj < NVL; ++jj) {
+      const int j = lane + jj * WIDTH;
+      v[jj] = 0.0f;
+      if (j < NV)
+        for (int t = t0; t < nrows;) {
+          const int r = e.rows[t];
+          v[jj] += e.u.W[r * WS + j] * coef(t, r);
+          t += normals && r >= NE + NLIM ? 3 : 1;
+        }
+    }
+  };
+  auto lam_of = [&](int, int r) { return e.lam[r]; };
   float z[NVL];   // z = Wλ, lane-owned
-  for (int jj = 0; jj < NVL; ++jj) {
-    const int j = lane + jj * WIDTH;
-    z[jj] = 0.0f;
-    if (j < NV)
-      for (int t = 0; t < nrows; ++t) {
-        const int r = e.rows[t];
-        z[jj] += e.u.W[r * WS + j] * e.lam[r];
+  // the A-form's residual c + Aλ, lane-owned: lane ℓ holds list positions ℓ
+  // and ℓ + 32
+  float res[C::MATFREE ? 1 : NRL];
+  if constexpr (C::MATFREE) {
+    w_times(z, 0, false, lam_of);
+  } else {
+    for (int jj = 0; jj < NRL; ++jj) {
+      const int p = lane + jj * WIDTH;
+      res[jj] = 0.0f;
+      if (p < nrows) {
+        float sum = e.c[e.rows[p]];
+        for (int k = 0; k < nrows; ++k) sum += aget(e, k, p) * e.lam[e.rows[k]];
+        res[jj] = sum;
       }
+    }
   }
+  // the A-form's residual of position t, broadcast from its lane, and the
+  // lane's residuals moved by A's row t times d
+  auto res_at = [&](int t) { return wbcast(owned(res, t / WIDTH), t % WIDTH); };
+  auto res_move = [&](int t, float d) {
+    for (int jj = 0; jj < NRL; ++jj) {
+      const int p = lane + jj * WIDTH;
+      if (p < nrows) res[jj] += aget(e, t, p) * d;
+    }
+  };
   // W_r · v, this lane's part, and v += W_r·d, for a lane-owned v (z, z_pos)
   auto part = [&](int r, const float* v) {
     float p = 0.0f;
@@ -1153,59 +1291,95 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     for (int t = 0; t < nrows;) {
       const int r = e.rows[t];
       const float l0 = e.lam[r];
-      const float res = e.c[r] + cfm * l0 + wsum(part(r, z));
-      float nw = l0 - res / e.diag[r];
+      float rr;
+      if constexpr (C::MATFREE) rr = e.c[r] + cfm * l0 + wsum(part(r, z));
+      else rr = res_at(t);
+      float nw = l0 - rr / e.diag[r];
       if (!(r < NE)) nw = fmaxf(0.0f, nw);
       else if constexpr (NE > NE0) {
         if (r >= NE0) nw *= e.act[r];
       }
       e.lam[r] = nw;
-      move(r, nw - l0, z);
+      if constexpr (C::MATFREE) move(r, nw - l0, z);
+      else res_move(t, nw - l0);
       if (r < NE + NLIM) { ++t; continue; }
       // a contact's normal row, then its friction pair as one 2×2 step
       const int s = (r - NE - NLIM) / 3, b1 = r + 1, b2 = r + 2;
       const float bound = fric * nw;
       const float l1 = e.lam[b1], l2 = e.lam[b2];
-      float p1 = part(b1, z), p2 = part(b2, z);
-      wsum2(p1, p2);
-      const float r1 = e.c[b1] + cfm * l1 + p1, r2 = e.c[b2] + cfm * l2 + p2;
+      float r1, r2;
+      if constexpr (C::MATFREE) {
+        float p1 = part(b1, z), p2 = part(b2, z);
+        wsum2(p1, p2);
+        r1 = e.c[b1] + cfm * l1 + p1;
+        r2 = e.c[b2] + cfm * l2 + p2;
+      } else {
+        r1 = res_at(t + 1);
+        r2 = res_at(t + 2);
+      }
       const float d1 = -(e.finv[s][0] * r1 + e.finv[s][2] * r2);
       const float d2 = -(e.finv[s][2] * r1 + e.finv[s][1] * r2);
       const float n1 = clampf(l1 + d1, -bound, bound), n2 = clampf(l2 + d2, -bound, bound);
       const float e1 = n1 - l1, e2 = n2 - l2;
       e.lam[b1] = n1;
       e.lam[b2] = n2;
-      for (int jj = 0; jj < NVL; ++jj) {
-        const int j = lane + jj * WIDTH;
-        if (j < NV) z[jj] += e.u.W[b1 * WS + j] * e1 + e.u.W[b2 * WS + j] * e2;
+      if constexpr (C::MATFREE) {
+        for (int jj = 0; jj < NVL; ++jj) {
+          const int j = lane + jj * WIDTH;
+          if (j < NV) z[jj] += e.u.W[b1 * WS + j] * e1 + e.u.W[b2 * WS + j] * e2;
+        }
+      } else {
+        for (int jj = 0; jj < NRL; ++jj) {
+          const int p = lane + jj * WIDTH;
+          if (p < nrows) res[jj] += aget(e, t + 1, p) * e1 + aget(e, t + 2, p) * e2;
+        }
       }
       t += 3;
     }
   }
+  // the A-form: z = Wλ once, after the sweeps
+  if constexpr (!C::MATFREE) w_times(z, 0, false, lam_of);
 
   // ---------------- split impulse: the position pass. Scalar PGS from
   // λ_pos = 0 over the active limit rows and contact normal rows (behind
   // the neq listed equality rows: the rods, the lock and the attached
   // grabs; a contact's normal row is followed by its friction pair),
   // against −bpos; z_pos = Wλ_pos, lane-owned
+  // (A-form: the residual from −bpos on those rows and 0 elsewhere, moved by
+  // A's rows; z_pos made once after the sweeps)
   float zp[C::SPLIT ? NVL : 1];
   if constexpr (C::SPLIT) {
+    // a pass row's index into bpos and λ_pos
+    auto kpos = [&](int r) { return r < NE + NLIM ? r - NE : NLIM + (r - NE - NLIM) / 3; };
     for (int jj = 0; jj < NVL; ++jj) zp[jj] = 0.0f;
     for (int k = lane; k < NLIM + NS; k += WIDTH) e.lpos[k] = 0.0f;
+    if constexpr (!C::MATFREE)
+      for (int jj = 0; jj < NRL; ++jj) {
+        const int p = lane + jj * WIDTH;
+        res[jj] = 0.0f;
+        if (p >= neq && p < nrows) {
+          const int r = e.rows[p];
+          if (r < NE + NLIM || (r - NE - NLIM) % 3 == 0) res[jj] = -e.bpos[kpos(r)];
+        }
+      }
     wsync();
     for (int it = 0; it < C::ITERS; ++it) {
       for (int t = neq; t < nrows;) {
         const int r = e.rows[t];
-        const bool lim = r < NE + NLIM;
-        const int k = lim ? r - NE : NLIM + (r - NE - NLIM) / 3;
+        const int k = kpos(r);
         const float l0 = e.lpos[k];
-        const float res = cfm * l0 - e.bpos[k] + wsum(part(r, zp));
-        const float nw = fmaxf(0.0f, l0 - res / e.diag[r]) * e.act[r];
+        float rr;
+        if constexpr (C::MATFREE) rr = cfm * l0 - e.bpos[k] + wsum(part(r, zp));
+        else rr = res_at(t);
+        const float nw = fmaxf(0.0f, l0 - rr / e.diag[r]) * e.act[r];
         e.lpos[k] = nw;
-        move(r, nw - l0, zp);
-        t += lim ? 1 : 3;
+        if constexpr (C::MATFREE) move(r, nw - l0, zp);
+        else res_move(t, nw - l0);
+        t += r < NE + NLIM ? 1 : 3;
       }
     }
+    if constexpr (!C::MATFREE)
+      w_times(zp, neq, true, [&](int, int r) { return e.lpos[kpos(r)]; });
   }
 
   // ---------------- impulse map and integration
@@ -1412,7 +1586,7 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
 // instance: (NL, NS, NLIM, NSUB, ITERS, PD, NLLC, NP2P, PLANAR) at the
 // shipped solver options, then envs per block and blocks per SM, then the
 // window's side, the stones and the faces where there are any, split
-// impulse, the bars and the grabs, and the bar narrowphase's layout;
+// impulse, the bars and the grabs, and the PGS form;
 // ops/cuda/engine.py::WARP_INSTANCES lists the same names and numbers. Each library also exports k1w_smem_limits,
 // the card's shared memory per SM, per block and reserved per block.
 #define K1W_LAYOUT(NAME, ...)                                                                \
@@ -1588,4 +1762,20 @@ K1W_INSTANCE(k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si, 11, 5, 8, 4, 4, false, 1, 
 // front (3 + 6 + 15 = 24 rows), torque mode; the link kinematics in W's space
 #if !defined(K1W_ONLY) || K1W_ONLY == 16
 K1W_INSTANCE(k1w_nl7_ns5_nlim6_sub4_it4_planar, 7, 5, 6, 4, 4, false, 1, 0, true, 32, 1)
+#endif
+// Walker2D's and Crab2D's key with split impulse (the planar K1h-e): the
+// planar K1e's with the position pass behind the lock's 3 rows; bpos and
+// λ_pos of 11 rows take EnvW to 2,652 bytes, 32 envs per block of 1,024
+// threads
+#if !defined(K1W_ONLY) || K1W_ONLY == 17
+K1W_INSTANCE(k1w_nl7_ns5_nlim6_sub4_it4_planar_si, 7, 5, 6, 4, 4, false, 1, 0, true, 32, 1, 0, 0, 0,
+             true)
+#endif
+// The walker on the plane with split impulse in the A-form (matfree_pgs
+// off): K1h-si's key with A = WWᵀ + cfm·I over the active rows in the env's
+// shared memory as its packed lower triangle (8,064 bytes: EnvW 20,344), 11
+// envs in one block per SM (228,792 bytes, 108 registers)
+#if !defined(K1W_ONLY) || K1W_ONLY == 18
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_si_aform, 22, 14, 21, 4, 4, false, 1, 0, false, 11, 1,
+             0, 0, 0, true, 0, 0, false)
 #endif

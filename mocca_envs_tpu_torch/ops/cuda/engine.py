@@ -17,9 +17,10 @@ warp per env (W and the factor in shared memory, inactive rows skipped),
 which the keys of :data:`WARP_INSTANCES` run (K1a, the walker's and the
 child's; K1b, the PD walker's and the PD child's; K1f, the terrain
 walkers'; K1c, the stepper's; K1g, the stairs'; K1e, Cassie's, Cassie2D's
-and the planar walkers'; K1d, the monkey's; and the split twins K1h-e,
-K1h-e2d, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, the walker's on the plane, and
-K1h-d, the monkey's), and
+and the planar walkers'; K1d, the monkey's; the split twins K1h-e,
+K1h-e2d, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, the walker's on the plane,
+K1h-d, the monkey's, and the planar K1h-e, the planar walkers'; and the
+walker's split key in the A-form), and
 ``csrc/engine_k1.cu``, one thread per env, for every other key. An instance is picked by its
 :class:`Key`: the warp-per-env one where there is one, else the fifteen
 ``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the shipped families at the
@@ -181,8 +182,12 @@ INSTANTIATIONS = {inst.key: inst for inst in (
 # named k1h_..._si and k1d_..._kb16_ng2); K1h-d, the monkey's frame with
 # split impulse, and K1e planar, Walker2D's and Crab2D's torque frame with
 # the planar lock (their twins: the named k1h_..._kb16_ng2_si and
-# k1e_nl7_..._planar; the planar split key stays on engine_k1.cu's generic
-# k1_nl7_..._planar_si)
+# k1e_nl7_..._planar); the planar K1h-e, Walker2D's and Crab2D's frame with
+# split impulse (32 envs in one block of 1,024 threads, as the planar K1e),
+# and the walker's frame with split impulse in the A-form (matfree_pgs
+# off: A over the active rows, packed lower, in the env's shared memory,
+# 11 envs in one block per SM) (their twins: the generic
+# k1_nl7_..._planar_si and k1_nl22_..._si_aform)
 WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4", 0, Key(**_W), SOURCE_W),
     Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 1, Key(**_C), SOURCE_W),
@@ -208,6 +213,10 @@ WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si", 15, Key(**_M, split=True), SOURCE_W),
     Instance("k1w_nl7_ns5_nlim6_sub4_it4_planar", 16,
              Key(nl=7, ns=5, nlim=6, substeps=4, iters=4, planar=True), SOURCE_W),
+    Instance("k1w_nl7_ns5_nlim6_sub4_it4_planar_si", 17,
+             Key(nl=7, ns=5, nlim=6, substeps=4, iters=4, planar=True, split=True), SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_si_aform", 18, Key(**_W, split=True, matfree=False),
+             SOURCE_W),
 )}
 
 

@@ -145,9 +145,10 @@ def test_keys_pick_the_warp_per_env_instance(libs, kind):
             model = mocca_envs_tpu_torch.make(env_id, device="cpu").model
             picked = engine.make_kernel(model, EngineConfig(), constraints=walker2d.planar_spec())
             assert type(picked) is engine.K1e and picked.name == new.name, env_id
-        # the planar split key stays on engine_k1.cu's generic instance
+        # the planar split key runs its own warp-per-env instance
         split = engine.K1e(walker2d.make_walker2d(), SPLIT, walker2d.planar_spec())
-        assert split.instance.source == engine.SOURCE and split.instance.index is None
+        assert split.instance is engine.WARP_INSTANCES[split.key]
+        assert split.name == "k1w_nl7_ns5_nlim6_sub4_it4_planar_si"
     # the same table; no global workspace
     assert engine.layout(libs[new.name], new.name) == (new.table_host.size, 0)
     assert new.table_host.size == old.table_host.size

@@ -150,15 +150,19 @@ NEW_CASES = ["k1g", "k1h_si"]
 # wrapper and states
 SPLIT_CASES = {"k1h_c": "k1c", "k1h_e": "k1e_cassie", "k1h_e2d": "k1e_cassie2d",
                "k1h_d": "k1d"}
-# the split cases (here and in SPLIT_REST) that run a warp-per-env instance
-# of csrc/engine_k1w.cu, by its symbol
+# the split cases (here, in SPLIT_REST and the A-form with split impulse of
+# chip_smoke.OPTION_CONFIGS) that run a warp-per-env instance of
+# csrc/engine_k1w.cu, by its symbol
 SPLIT_WARP = {"k1h_c": "k1w_nl22_ns14_nlim21_sub4_it4_k6_si",
               "k1h_e": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si",
               "k1h_e2d": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si",
               "k1h_b": "k1w_nl22_ns14_nlim21_sub4_it4_llc1_si",
               "k1h_f": "k1w_nl22_ns14_nlim21_sub4_it4_hf16_si",
               "k1h_g": "k1w_nl22_ns14_nlim21_sub4_it4_kt16_si",
-              "k1h_d": "k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si"}
+              "k1h_d": "k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si",
+              "k1h_e_planar": "k1w_nl7_ns5_nlim6_sub4_it4_planar_si",
+              "k1h_e_crab": "k1w_nl7_ns5_nlim6_sub4_it4_planar_si",
+              "k1h_si_aform": "k1w_nl22_ns14_nlim21_sub4_it4_si_aform"}
 
 
 def _launch_counted(kernel, case, args):
@@ -1001,10 +1005,10 @@ def test_k1h_si_source_arithmetic_on_host(host_library):
 def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
     """make_kernel picks K1g for mesh faces and K1h-si for split impulse on
     the walker's plane; a mesh with anything else raises, naming what is
-    missing; another face window, split impulse on another face window, on
-    the planar walkers and on Cassie's plane are keys of the generic
-    instance, each counted under its split name; split impulse on the
-    16-face mesh and in PD mode are K1h-g's and K1h-b's warp-per-env
+    missing; another face window, split impulse on another face window and
+    on Cassie's plane are keys of the generic instance, each counted under
+    its split name; split impulse on the 16-face mesh, in PD mode and on the
+    planar walkers are K1h-g's, K1h-b's and the planar K1h-e's warp-per-env
     instances (their generic ones only with ``thread_per_env=True``), and
     K1h-si's (its named one only with ``thread_per_env=True``); K1a
     with split impulse and K1hSi
@@ -1042,8 +1046,8 @@ def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
              "k1h_g"),
             (lambda: engine.K1b(model, split, thread_per_env=True), f"{W}_sub4_it4_llc1_si",
              "k1h_b"),
-            (lambda: engine.make_kernel(walker2d.make_walker2d(), split,
-                                        constraints=walker2d.planar_spec()),
+            (lambda: engine.K1e(walker2d.make_walker2d(), split, walker2d.planar_spec(),
+                                thread_per_env=True),
              "k1_nl7_ns5_nlim6_sub4_it4_planar_si", "k1h_e"),
             (lambda: engine.K1hSi(cassie.make_model(), split), "k1_nl17_ns5_nlim16_sub4_it4_si",
              "k1h_si"),
@@ -1147,8 +1151,9 @@ def test_split_instances_are_picked_and_the_rest_refused():
     warp-per-env instance; a heightfield (K1f: k1h_f), a
     mesh (K1g: k1h_g) and the PD walker and child (K1b: k1h_b) on their
     warp-per-env instances, their generic ones only with
-    ``thread_per_env=True``; the torque planar walkers (K1e: k1h_e) on the
-    generic instance of their key."""
+    ``thread_per_env=True``; the torque planar walkers (K1e: k1h_e) on
+    their warp-per-env instance, the generic one only with
+    ``thread_per_env=True``."""
     names = {"k1h_c": "k1w_nl22_ns14_nlim21_sub4_it4_k6_si",
              "k1h_e": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si",
              "k1h_e2d": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si",
@@ -1170,11 +1175,11 @@ def test_split_instances_are_picked_and_the_rest_refused():
              f"{W}_sub4_it4_hf16_si", "k1h_f"),
             (lambda: engine.K1g(model, split, thread_per_env=True), f"{W}_sub4_it4_kt16_si",
              "k1h_g"),
-            (lambda: engine.make_kernel(walker2d.make_walker2d(), split,
-                                        constraints=walker2d.planar_spec()),
+            (lambda: engine.K1e(walker2d.make_walker2d(), split, walker2d.planar_spec(),
+                                thread_per_env=True),
              "k1_nl7_ns5_nlim6_sub4_it4_planar_si", "k1h_e"),
-            (lambda: engine.make_kernel(walker2d.make_crab2d(), split,
-                                        constraints=walker2d.planar_spec()),
+            (lambda: engine.K1e(walker2d.make_crab2d(), split, walker2d.planar_spec(),
+                                thread_per_env=True),
              "k1_nl7_ns5_nlim6_sub4_it4_planar_si", "k1h_e")):
         _assert_generic(build(), symbol, variant)
     for picked, symbol, index in (
@@ -1185,6 +1190,12 @@ def test_split_instances_are_picked_and_the_rest_refused():
                                 extra_damping=kp / 20.0), "llc1_si", 12)):
         assert picked.name == f"k1w_nl22_ns14_nlim21_sub4_it4_{symbol}"
         assert engine.compile_flags(picked.instance) == [f"-DK1W_ONLY={index}"]
+    # the torque planar walkers' split key on its warp-per-env instance
+    for planar in (walker2d.make_walker2d(), walker2d.make_crab2d()):
+        picked = engine.make_kernel(planar, split, constraints=walker2d.planar_spec())
+        assert type(picked) is engine.K1e and picked.variant == "k1h_e"
+        assert picked.name == "k1w_nl7_ns5_nlim6_sub4_it4_planar_si"
+        assert engine.compile_flags(picked.instance) == ["-DK1W_ONLY=17"]
     # the stepper's thread-per-env twin is the named engine_k1.cu instance
     twin = engine.K1c(model, split, thread_per_env=True)
     assert twin.name == "k1h_nl22_ns14_nlim21_sub4_it4_k6_si" and twin.instance.index == 11

@@ -18,7 +18,11 @@ rows), ``warm_start=False`` (λ from zero every substep) and
   (``-DK1_HOST_CHECK``), against the port's plain version at the same gates;
   each A-form against its matrix-free twin at the JAX package's gate
   between the two forms: per-env medians within q 2e-5, qd 5e-4, depth
-  2e-5, impulse 5e-4, the largest env within ten times.
+  2e-5, impulse 5e-4, the largest env within ten times. The A-form with
+  split impulse runs the warp-per-env instance of ``csrc/engine_k1w.cu``
+  (``-DK1W_HOST_CHECK``), held so beside its generic twin, to its
+  matrix-free twin K1h-si's warp-per-env instance, and to the JAX package's
+  control step on the same inputs at the same gates.
 """
 
 import functools
@@ -98,6 +102,16 @@ def test_walker_option_control_step_matches_jax(label):
     got = [x.numpy() for x in (tq, tqd, info.contacts.depth, info.normal_impulse)]
     _gate(got, want, TOL)
     assert (want[3] > 0).mean() > 0.05                  # contacts carry load
+    kernel = engine.make_kernel(twalker.make_model(), TConfig(**OPTIONS[label]))
+    if kernel.key in engine.WARP_INSTANCES:
+        # its warp-per-env instance, built for the host, on the same torques
+        # (one llc frame is the walker's control step)
+        flat = tscene.flat(len(q))
+        host = [np.ascontiguousarray(x.numpy()) for x in (
+            T(q), T(qd), tgain * torch.clamp(T(action), -1, 1), flat.ground_z, flat.friction)]
+        outs = run_on_host(build_host([kernel])[kernel.name], kernel, host)
+        assert all(np.isfinite(o).all() for o in outs)
+        _gate(outs, want, TOL)
 
 
 def test_options_change_the_step():
@@ -132,26 +146,45 @@ def host_cases():
                for v, f in chip_smoke.OPTION_CONFIGS.items()}
     kernels["k1a"] = engine.K1a(model, TConfig())
     kernels["k1h_si"] = engine.K1hSi(model, TConfig(split_impulse=True))
+    # the split A-form's generic twin (its key runs one warp per env)
+    kernels["k1h_si_aform_thread"] = engine.K1hSi(
+        model, TConfig(**chip_smoke.OPTION_CONFIGS["k1h_si_aform"]), thread_per_env=True)
+    kernels["k1h_si_thread"] = engine.K1hSi(model, TConfig(split_impulse=True),
+                                            thread_per_env=True)
     libs = build_host(kernels.values())
     return {v: (k, inputs, libs[k.name]) for v, k in kernels.items()}
 
 
 @pytest.mark.parametrize("label", list(chip_smoke.OPTION_CONFIGS))
 def test_option_instance_source_arithmetic_on_host(host_cases, label):
-    """The generic instance of each option key, built for the host, against
-    the port's plain version at K1a's gates; its workspace holds the A-form's
-    NR × NR matrix and residual where the A-form runs."""
+    """The generic instance of each option key (the split A-form's
+    warp-per-env instance, and beside it its generic twin), built for the
+    host, against the port's plain version at K1a's gates; the generic
+    workspace holds the A-form's NR × NR matrix and residual where the A-form
+    runs, the warp-per-env instance has none."""
     kernel, inputs, lib = host_cases[label]
-    assert kernel.name == engine.canonical_symbol(kernel.key) and kernel.instance.index is None
-    outs = run_on_host(lib, kernel, inputs)
-    want = [t.numpy() for t in kernel.plain(*map(T, inputs))]
-    assert all(np.isfinite(o).all() for o in outs)
-    _gate(outs, want, TOL)
-    assert (want[3] > 0).mean() > 0.05
-    nv, nr = 27, 21 + 3 * 14
-    ws = nv * (nv + 1) // 2 + nv + nr * nv + nr + nv
-    assert engine.layout(lib, kernel.name) == (
-        kernel.table_host.size, ws + (0 if kernel.config.matfree_pgs else nr * nr + nr))
+    held = [(kernel, lib)]
+    if label == "k1h_si_aform":
+        assert kernel.instance is engine.WARP_INSTANCES[kernel.key]
+        assert engine.layout(lib, kernel.name) == (kernel.table_host.size, 0)
+        twin, _, twin_lib = host_cases["k1h_si_aform_thread"]
+        assert twin.key == kernel.key
+        held = [(twin, twin_lib)]
+        outs = run_on_host(lib, kernel, inputs)
+        assert all(np.isfinite(o).all() for o in outs)
+        _gate(outs, [t.numpy() for t in kernel.plain(*map(T, inputs))], TOL)
+    for kernel, lib in held:
+        assert kernel.name == engine.canonical_symbol(kernel.key)
+        assert kernel.instance.index is None
+        outs = run_on_host(lib, kernel, inputs)
+        want = [t.numpy() for t in kernel.plain(*map(T, inputs))]
+        assert all(np.isfinite(o).all() for o in outs)
+        _gate(outs, want, TOL)
+        assert (want[3] > 0).mean() > 0.05
+        nv, nr = 27, 21 + 3 * 14
+        ws = nv * (nv + 1) // 2 + nv + nr * nv + nr + nv
+        assert engine.layout(lib, kernel.name) == (
+            kernel.table_host.size, ws + (0 if kernel.config.matfree_pgs else nr * nr + nr))
 
 
 @pytest.mark.parametrize("label", ["k1a_scalar", "k1a_cold", "k1a_refactor",
@@ -168,10 +201,12 @@ def test_option_instance_parts_from_the_shipped_one_on_host(host_cases, label):
         assert np.median(np.abs(got - want).max(axis=1)) > TOL[name], name
 
 
-@pytest.mark.parametrize("label, twin", [("k1a_aform", "k1a"), ("k1h_si_aform", "k1h_si")])
+@pytest.mark.parametrize("label, twin", [("k1a_aform", "k1a"), ("k1h_si_aform", "k1h_si"),
+                                         ("k1h_si_aform_thread", "k1h_si_thread")])
 def test_aform_matches_its_matrix_free_twin_on_host(host_cases, label, twin):
     """The A-form and the matrix-free form are the same iteration: on the
-    same inputs they part only by the order of their sums."""
+    same inputs they part only by the order of their sums (the split pair
+    in each design: one warp per env, one thread per env)."""
     kernel, inputs, lib = host_cases[label]
     other, _, other_lib = host_cases[twin]
     _gate(run_on_host(lib, kernel, inputs), run_on_host(other_lib, other, inputs), TOL_TWIN)

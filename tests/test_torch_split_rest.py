@@ -3,10 +3,10 @@ stairs (CPU): the JAX package, the port's plain path and the K1 kernel
 source.
 
 ``python -m mocca_envs_tpu_torch.harness.train --split-impulse`` builds each
-family's ``EngineConfig()`` with the flag on; on the card the torque
-planar walkers run the generic K1 instance of their split key (the planar
-K1h-e), the PD walkers, the terrain walkers and the stairs the
-warp-per-env instances of ``csrc/engine_k1w.cu`` (K1h-b, K1h-f, K1h-g).
+family's ``EngineConfig()`` with the flag on; on the card the PD walkers,
+the torque planar walkers, the terrain walkers and the stairs run the
+warp-per-env instances of ``csrc/engine_k1w.cu`` (K1h-b, the planar K1h-e,
+K1h-f, K1h-g).
 
 - One control step of each through the port's plain path and the JAX
   package's ``make_control_step`` (its XLA path) on the same numpy states,
@@ -19,13 +19,13 @@ warp-per-env instances of ``csrc/engine_k1w.cu`` (K1h-b, K1h-f, K1h-g).
   stairs (K1a's gates; the tail over the envs with no riser contact, and
   the JAX mesh gate, 97% of q within 1e-3). Each family compiles its own
   JAX step, once per process. Each checks that the position pass has work. For
-  the PD walker, the terrain walker and the stairs the warp-per-env
-  instance's host build (``-DK1W_HOST_CHECK``) runs the same step (one llc
-  frame) on the targets, the window and the culled faces the port's step
-  packs, and is held to the same JAX outputs at the same gates.
+  each family the warp-per-env instance's host build (``-DK1W_HOST_CHECK``)
+  runs the same step (one llc frame) on the targets, the torques, the
+  window and the culled faces the port's step packs, and is held to the
+  same JAX outputs at the same gates.
 - The instance of each split key, built for the host (the generic one,
-  ``-DK1_HOST_CHECK``; K1h-b's, K1h-f's and K1h-g's warp-per-env one,
-  ``-DK1W_HOST_CHECK``), against the port's plain version on
+  ``-DK1_HOST_CHECK``, for the PD walker at two llc frames; the others'
+  warp-per-env one, ``-DK1W_HOST_CHECK``), against the port's plain version on
   chip_smoke.py's states at its twin's gates (the PD walker at one and two
   llc frames, Walker2D and Crab2D, the terrain walker, the stairs).
 
@@ -137,7 +137,10 @@ def _walker2d():
         qq, dd, info = jstep(a, b, c, jscene.flat())
         return qq, dd, info.contacts.depth, info.normal_impulse
 
-    return one, (q, qd, action), port, TOL_EQ, None, None
+    flat = tscene.flat(B)
+    host = [np.ascontiguousarray(x.numpy()) for x in (
+        T(q), T(qd), tact(None, None, T(action)), flat.ground_z, flat.friction)]
+    return one, (q, qd, action), port, TOL_EQ, None, host
 
 
 def _kernel_inputs(q, qd, tau, scene):
@@ -226,15 +229,19 @@ def _jax_step(family):
 
 
 # the split key whose warp-per-env instance runs a family's step on the card
-WARP_CASE = {"pd_walker": "k1h_b", "terrain": "k1h_f", "stairs": "k1h_g"}
+WARP_CASE = {"pd_walker": "k1h_b", "walker2d": "k1h_e_planar", "terrain": "k1h_f",
+             "stairs": "k1h_g"}
+# the split cases on a warp-per-env instance: those and Crab2D's
+WARP_SPLIT = {*WARP_CASE.values(), "k1h_e_crab"}
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_split_control_step_matches_jax(request, family):
     """One control step with split impulse, port against JAX, at the
     family's gate; the split step parts from the unsplit one. The PD
-    walker's, the terrain walker's and the stairs' warp-per-env instance,
-    built for the host, is held to the same JAX outputs at the same gates."""
+    walker's, Walker2D's, the terrain walker's and the stairs' warp-per-env
+    instance, built for the host, is held to the same JAX outputs at the
+    same gates."""
     want, port, tol, tail_envs, host = _jax_step(family)
     got, unsplit = port(True), port(False)
     _gate(got, want, tol, tail_envs)
@@ -263,14 +270,15 @@ def host_split():
 
 @pytest.mark.parametrize("case", list(SPLIT_REST))
 def test_split_rest_source_arithmetic_on_host(host_split, case):
-    """Each split key's instance (the generic one; K1h-b's, K1h-f's and
-    K1h-g's warp-per-env one), built for the host, against the plain
+    """Each split key's instance (the generic one at two llc frames; the
+    warp-per-env one of K1h-b, the planar K1h-e, K1h-f and K1h-g), built
+    for the host, against the plain
     version at its twin's gate, counted under its split name; the position
     pass moves the result away from the unsplit twin's."""
     cases, libs = host_split
     kernel, twin, arrays = cases[case]
     assert kernel.split and type(kernel) is type(twin) and kernel.variant == SPLIT_REST[case][1]
-    if case in WARP_CASE.values():
+    if case in WARP_SPLIT:
         assert kernel.instance is engine.WARP_INSTANCES[kernel.key]
     else:
         assert kernel.name == engine.canonical_symbol(kernel.key)
