@@ -13,15 +13,17 @@ Phases, in order; any failure exits non-zero before the result lines:
    of the split twins of the stairs, the terrain walkers, the stepper,
    the PD walkers and the walker on the plane, K1h-g, K1h-f, K1h-c, K1h-b
    and K1h-si, of the monkey's K1d and its split twin K1h-d, of the
-   planar walkers' K1e and its split twin, the planar K1h-e, and of the
-   walker's split key in the A-form (``matfree_pgs=False``), from
+   planar walkers' K1e and its split twin, the planar K1h-e, of the
+   walker's split key in the A-form (``matfree_pgs=False``) and of its key
+   in the A-form, alone and with all four PGS options off, from
    ``mocca_envs_tpu_torch/csrc/engine_k1w.cu``, the fifteen
    named instances of the engine kernel from
    ``mocca_envs_tpu_torch/csrc/engine_k1.cu``, the generic instance of every
    key phase 2 adds (split impulse on the PD walker at two llc frames,
    and the thread-per-env twins of terrain, the stairs, the PD walker at
-   one llc frame, the torque planar walkers and the split A-form; the
-   walker's PGS options of :data:`OPTION_CONFIGS`) and the raycast kernel
+   one llc frame, the torque planar walkers and the walker's three A-form
+   keys; the walker's PGS options of :data:`OPTION_CONFIGS`, and the
+   all-off key's matrix-free form) and the raycast kernel
    K2 from
    ``csrc/raycast_k2.cu`` (one nvcc process each, side by side), and print
    each one's ptxas registers and stack frame; the fifteen named frames
@@ -98,10 +100,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    (:data:`OPTION_CONFIGS`: the A-form, scalar friction rows, a cold start,
    a factor every substep, all four, the A-form with split impulse, and 2
    substeps × 8 sweeps) on the K1a states at K1a's gate, and each A-form
-   against its matrix-free twin on the same inputs at :data:`TOL_TWIN`
-   (medians, the largest env within ten times); the split A-form by its
-   warp-per-env instance, and that against its thread-per-env twin
-   (:func:`twin_and_lifted`); each other option's
+   (:data:`AFORMS`: alone, with split impulse, with all four options off)
+   by its warp-per-env instance against its matrix-free twin on the same
+   inputs at :data:`TOL_TWIN` (medians, the largest env within ten times)
+   and against its thread-per-env twin (:func:`twin_and_lifted`); each
+   other option's
    instance must part from the shipped one (K1a) on the same inputs by more
    than K1a's gate in the per-env medians of q and qd
    (:func:`parts_from_shipped`), and each thread-per-env A-form's workspace
@@ -200,8 +203,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    Cassie2D's K1e and of their split twins K1h-e and K1h-e2d likewise at
    each B of :data:`CASSIE_SWEEP`, those of K1b,
    K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, K1d, K1h-d, the
-   planar K1e, the planar K1h-e and the split A-form at each B of
-   :data:`WALKER_SWEEP` (the A-form's bound on K1h-si's count), the
+   planar K1e, the planar K1h-e and the three A-forms at each B of
+   :data:`WALKER_SWEEP` (an A-form's bound on its matrix-free twin's
+   count), K1b at two llc frames and its split twin (no family launches
+   them: their time and bound alone), the
    walker's step against the host's
    time to enqueue it and the device's busy share over 20 traced steps, the
    bound from the operations and bytes these inputs need, and the time of
@@ -267,6 +272,8 @@ OPTION_CONFIGS = {
     "k1h_si_aform": {"matfree_pgs": False, "split_impulse": True},
     "k1a_sub2_it8": {"sim_substeps": 2, "solver_iters": 8},
 }
+# the option configurations in the A-form, each on a warp-per-env instance
+AFORMS = ("k1a_aform", "k1h_si_aform", "k1a_aform_scalar_cold_refactor")
 # --split-impulse on the PD walkers, the planar walkers, terrain and the
 # stairs: env id → the count its launches go under
 SPLIT_FAMILIES = {"Walker3DPDCustomEnv": "k1h_b", "Child3DPDCustomEnv": "k1h_b",
@@ -305,7 +312,7 @@ FRAMES = {
 SWEEP = {4096: 20, 16384: 10, 65536: 5}
 CASSIE_SWEEP = {4096: 10, 16384: 5}
 # K1b, K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, K1d, K1h-d, the
-# planar K1e, the planar K1h-e and the split A-form
+# planar K1e, the planar K1h-e and the three A-forms
 WALKER_SWEEP = {4096: 20, 16384: 10}
 # ptxas's registers and the dynamic shared memory per block (bytes) of each
 # warp-per-env instance, and the envs each must keep resident per SM: the
@@ -313,8 +320,8 @@ WALKER_SWEEP = {4096: 20, 16384: 10}
 # registers sized for 8), K1h-g's, K1h-c's, K1h-b's and K1h-si's one block
 # of 16, Cassie's one block of 32 (and its split twins'), the monkey's one
 # block of 32 (and its split twin's), the planar walkers' one block of 32
-# (and their split twin's), the split A-form's one block of 11; each as
-# every build since it was written has reported it
+# (and their split twin's), the A-forms' one block of 11; each as every
+# build since it was written has reported it
 WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4": (64, 53008, 16),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2": (64, 202896, 32),
@@ -335,6 +342,8 @@ WARP_BUILDS = {
     "k1w_nl7_ns5_nlim6_sub4_it4_planar": (58, 83216, 32),
     "k1w_nl7_ns5_nlim6_sub4_it4_planar_si": (58, 86032, 32),
     "k1w_nl22_ns14_nlim21_sub4_it4_si_aform": (108, 228792, 11),
+    "k1w_nl22_ns14_nlim21_sub4_it4_aform": (107, 225712, 11),
+    "k1w_nl22_ns14_nlim21_sub4_it4_aform_scalar_cold_refactor": (108, 225712, 11),
 }
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
@@ -1428,8 +1437,8 @@ def main() -> int:
     # split impulse on the PD walker (one and two llc frames), the torque
     # planar walkers, terrain and the stairs (K1h-b at one llc frame, the
     # planar K1h-e, K1h-f and K1h-g by their warp-per-env instances); the
-    # walker's PGS options (OPTION_CONFIGS; the split A-form by its
-    # warp-per-env instance)
+    # walker's PGS options (OPTION_CONFIGS; the A-forms of AFORMS by their
+    # warp-per-env instances)
     added = {
         "k1h_b": engine.K1b(model.replace(kp=kp), split(config), extra_damping=kp / 20.0),
         "k1h_b_llc2": engine.K1b(model.replace(kp=kp), EngineConfig(llc_frames=2,
@@ -1442,24 +1451,30 @@ def main() -> int:
            for v, fields in OPTION_CONFIGS.items()},
     }
     # the thread-per-env twins of K1h-f, K1h-g, K1h-c, K1h-b, K1h-si, the
-    # planar K1h-e and the split A-form: the generic engine_k1.cu instances
-    # of their keys (K1h-c's and K1h-si's the named k1h_..._k6_si and
-    # k1h_..._si)
-    split_twins = {"k1h_f": engine.K1f(model, split(config), HF_PATCH, thread_per_env=True),
-                   "k1h_g": engine.K1g(model, split(config), thread_per_env=True),
-                   "k1h_c": engine.K1c(model, split(config), thread_per_env=True),
-                   "k1h_b": engine.K1b(model.replace(kp=kp), split(config),
-                                       extra_damping=kp / 20.0, thread_per_env=True),
-                   "k1h_si": engine.K1hSi(model, split(config), thread_per_env=True),
-                   "k1h_e_planar": engine.K1e(wmodel, split(config), walker2d.planar_spec(),
-                                              thread_per_env=True),
-                   "k1h_si_aform": engine.K1hSi(model, EngineConfig(
-                       **OPTION_CONFIGS["k1h_si_aform"]), thread_per_env=True)}
+    # planar K1h-e and the walker's three A-form keys (with split impulse,
+    # alone and with all four options off): the generic engine_k1.cu
+    # instances of their keys (K1h-c's and K1h-si's the named
+    # k1h_..._k6_si and k1h_..._si)
+    thread_twins = {"k1h_f": engine.K1f(model, split(config), HF_PATCH, thread_per_env=True),
+                    "k1h_g": engine.K1g(model, split(config), thread_per_env=True),
+                    "k1h_c": engine.K1c(model, split(config), thread_per_env=True),
+                    "k1h_b": engine.K1b(model.replace(kp=kp), split(config),
+                                        extra_damping=kp / 20.0, thread_per_env=True),
+                    "k1h_si": engine.K1hSi(model, split(config), thread_per_env=True),
+                    "k1h_e_planar": engine.K1e(wmodel, split(config), walker2d.planar_spec(),
+                                               thread_per_env=True),
+                    **{v: type(added[v])(model, EngineConfig(**OPTION_CONFIGS[v]),
+                                        thread_per_env=True) for v in AFORMS}}
+    # the all-off key's matrix-free form (the same function): the generic
+    # instance of its other three options
+    matfree_off = engine.make_kernel(model, EngineConfig(block_pgs=False, warm_start=False,
+                                                         reuse_factor=False))
 
     # ---- phase 1: build
     t0 = time.perf_counter()
-    engine.build([k.instance for k in [*added.values(), *split_twins.values()]])
-    generic = sum(k.instance.index is None for k in [*added.values(), *split_twins.values()])
+    extra = [*added.values(), *thread_twins.values(), matfree_off]
+    engine.build([k.instance for k in extra])
+    generic = sum(k.instance.index is None for k in extra)
     print(f"[build] {len(engine.WARP_INSTANCES)} warp-per-env K1 instances, "
           f"{len(engine.INSTANTIATIONS)} named ones, {generic} generic ones and K2 built in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1650,7 +1665,7 @@ def main() -> int:
                                              ("k1h_b", "k1b", TOL, None),
                                              ("k1h_si", "k1a", TOL, None),
                                              ("k1h_e_planar", "k1e_planar", TOL_EQ, None)):
-        new, twin = kernels[v][0], split_twins[v]
+        new, twin = kernels[v][0], thread_twins[v]
         check(new.instance.source == engine.SOURCE_W and twin.instance.source == engine.SOURCE,
               f"{v}: the main path's instance {new.name} is not the warp-per-env one")
         rounding_floor(new, twin, kernels[v][1], v,
@@ -1662,23 +1677,22 @@ def main() -> int:
     for v in OPTION_CONFIGS:
         kernels[v] = (added[v], kernels["k1a"][1])
         max_abs[v] = compare(*kernels[v], v)
-    for v, twin in (("k1a_aform", "k1a"), ("k1h_si_aform", "k1h_si")):
-        max_abs[v] = max(max_abs[v], compare_twins(added[v], kernels[twin][0],
-                                                   kernels["k1a"][1], v))
-        # the workspaces of the thread-per-env pair (the warp-per-env
-        # instances have none)
-        aform = split_twins[v] if v in split_twins else added[v]
-        thread = {"k1a": k1a_thread, "k1h_si": split_twins["k1h_si"]}[twin]
-        aform_workspace(engine, aform, thread, v)
-    # the split A-form by its warp-per-env instance against its
-    # thread-per-env twin, near contact and with every base lifted 3 m
-    check(added["k1h_si_aform"].instance.source == engine.SOURCE_W
-          and split_twins["k1h_si_aform"].instance.source == engine.SOURCE,
-          f"k1h_si_aform: the main path's instance {added['k1h_si_aform'].name} is not the "
-          "warp-per-env one")
-    max_abs["k1h_si_aform"] = max(max_abs["k1h_si_aform"], twin_and_lifted(
-        added["k1h_si_aform"], split_twins["k1h_si_aform"], kernels["k1a"][1], "k1h_si_aform",
-        3.0))
+    # each A-form against its matrix-free form; the workspaces of its
+    # thread-per-env pair (the warp-per-env instances have none); and by its
+    # warp-per-env instance against its thread-per-env twin, near contact and
+    # with every base lifted 3 m
+    matfree = {"k1a_aform": kernels["k1a"][0], "k1h_si_aform": kernels["k1h_si"][0],
+               "k1a_aform_scalar_cold_refactor": matfree_off}
+    matfree_thread = {"k1a_aform": k1a_thread, "k1h_si_aform": thread_twins["k1h_si"],
+                      "k1a_aform_scalar_cold_refactor": matfree_off}
+    for v in AFORMS:
+        max_abs[v] = max(max_abs[v], compare_twins(added[v], matfree[v], kernels["k1a"][1], v))
+        aform_workspace(engine, thread_twins[v], matfree_thread[v], v)
+        check(added[v].instance.source == engine.SOURCE_W
+              and thread_twins[v].instance.source == engine.SOURCE,
+              f"{v}: the main path's instance {added[v].name} is not the warp-per-env one")
+        max_abs[v] = max(max_abs[v], twin_and_lifted(added[v], thread_twins[v],
+                                                     kernels["k1a"][1], v, 3.0))
     # every other option is another iteration: K1a's gate tells it from K1a
     for v in ("k1a_scalar", "k1a_cold", "k1a_refactor", "k1a_aform_scalar_cold_refactor",
               "k1a_sub2_it8"):
@@ -1829,11 +1843,12 @@ def main() -> int:
         launches[short] = 64
 
     # ---- phase 4: per-call times at B = 4096
-    twins = {"k1a_aform": kernels["k1a"][0], "k1h_si_aform": kernels["k1h_si"][0],
-             "k1a_aform_scalar_cold_refactor": engine.make_kernel(model, EngineConfig(
-                 block_pgs=False, warm_start=False, reuse_factor=False))}
-    times = {v: time_and_bound(engine, card, kernel, args, twins.get(v))
+    times = {v: time_and_bound(engine, card, kernel, args, matfree.get(v))
              for v, (kernel, args) in kernels.items()}
+    # K1b at two llc frames and its split twin (no family launches them): the
+    # named engine_k1.cu instance and the generic one
+    for kernel in (two_frames, added["k1h_b_llc2"]):
+        time_and_bound(engine, card, kernel, kernels["k1b"][1])
     design_sweep(engine, card, "K1a", kernels["k1a"][0], k1a_thread,
                  lambda batch, r: near_contact_states(model, r, batch), SWEEP)
     print(f"[sweep] Walker3DCustomEnv-v0 at B={B}: {step_ms['k1a']:.3f} ms per control step on "
@@ -1853,16 +1868,16 @@ def main() -> int:
                  WALKER_SWEEP)
     design_sweep(engine, card, "K1g", kernels["k1g"][0], k1g_thread,
                  lambda batch, r: stairs_states(model, r, batch), WALKER_SWEEP)
-    design_sweep(engine, card, "K1h-g", kernels["k1h_g"][0], split_twins["k1h_g"],
+    design_sweep(engine, card, "K1h-g", kernels["k1h_g"][0], thread_twins["k1h_g"],
                  lambda batch, r: stairs_states(model, r, batch), WALKER_SWEEP)
-    design_sweep(engine, card, "K1h-f", kernels["k1h_f"][0], split_twins["k1h_f"],
+    design_sweep(engine, card, "K1h-f", kernels["k1h_f"][0], thread_twins["k1h_f"],
                  lambda batch, r: terrain_states(model, r, batch), WALKER_SWEEP)
-    design_sweep(engine, card, "K1h-c", kernels["k1h_c"][0], split_twins["k1h_c"],
+    design_sweep(engine, card, "K1h-c", kernels["k1h_c"][0], thread_twins["k1h_c"],
                  lambda batch, r: stepper_states(model, r, config.stone_window, batch),
                  WALKER_SWEEP)
-    design_sweep(engine, card, "K1h-b", kernels["k1h_b"][0], split_twins["k1h_b"],
+    design_sweep(engine, card, "K1h-b", kernels["k1h_b"][0], thread_twins["k1h_b"],
                  lambda batch, r: pd_target_states(model, r, batch), WALKER_SWEEP)
-    design_sweep(engine, card, "K1h-si", kernels["k1h_si"][0], split_twins["k1h_si"],
+    design_sweep(engine, card, "K1h-si", kernels["k1h_si"][0], thread_twins["k1h_si"],
                  lambda batch, r: near_contact_states(model, r, batch), WALKER_SWEEP)
     design_sweep(engine, card, "K1d", kernels["k1d"][0], k1d_thread,
                  lambda batch, r: monkey_states(mmodel, r, batch), WALKER_SWEEP)
@@ -1871,11 +1886,13 @@ def main() -> int:
     design_sweep(engine, card, "K1e planar", kernels["k1e_planar"][0], k1e_planar_thread,
                  lambda batch, r: planar_walker_states(wmodel, 1.22, r, batch), WALKER_SWEEP)
     design_sweep(engine, card, "K1h-e planar", kernels["k1h_e_planar"][0],
-                 split_twins["k1h_e_planar"],
+                 thread_twins["k1h_e_planar"],
                  lambda batch, r: planar_walker_states(wmodel, 1.22, r, batch), WALKER_SWEEP)
-    design_sweep(engine, card, "K1h A-form", added["k1h_si_aform"], split_twins["k1h_si_aform"],
-                 lambda batch, r: near_contact_states(model, r, batch), WALKER_SWEEP,
-                 matfree=kernels["k1h_si"][0])
+    for v, label in (("k1h_si_aform", "K1h A-form"), ("k1a_aform", "K1 A-form"),
+                     ("k1a_aform_scalar_cold_refactor", "K1 all off")):
+        design_sweep(engine, card, label, added[v], thread_twins[v],
+                     lambda batch, r: near_contact_states(model, r, batch), WALKER_SWEEP,
+                     matfree=matfree[v])
     for v, env_id in (("k1b", "Walker3DPDCustomEnv-v0"), ("k1b_child", "Child3DPDCustomEnv-v0"),
                       ("k1f", "Walker3DTerrainEnv-v0"),
                       ("k1f_lidar", "Walker3DTerrainLidarEnv-v0"),
@@ -1889,7 +1906,7 @@ def main() -> int:
     window_and_pack_time(engine, card, terrain_state)
     for v in ("k1b", "k1b_child", "k1c", "k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d",
               "k1f", "k1f_lidar", "k1g", "k1h_si", "k1h_g", "k1h_f", "k1h_f_lidar", "k1h_c",
-              "k1h_b", "k1h_b_child", "k1h_d", "k1h_si_aform"):
+              "k1h_b", "k1h_b_child", "k1h_d", *AFORMS):
         kernel_ms = times[v.removesuffix("_lidar").removesuffix("_child")]["ms"]
         print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {kernel_ms:.4f} "
               f"ms/call, so {step_ms[v] - kernel_ms:.3f} ms/step outside the kernel "

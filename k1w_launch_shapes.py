@@ -3,8 +3,9 @@ and Cassie2D's K1e, the PD walkers' K1b, the terrain walkers' K1f, the
 stepper's K1c, the stairs' K1g, the split twins of the stairs, the terrain
 walkers, the stepper, the PD walkers and the walker on the plane, K1h-g,
 K1h-f, K1h-c, K1h-b and K1h-si, the monkey's K1d and its split twin K1h-d,
-the planar walkers' K1e and its split twin, the planar K1h-e, and the
-walker's split key in the A-form.
+the planar walkers' K1e and its split twin, the planar K1h-e, the walker's
+split key in the A-form, and the walker's key in the A-form, alone and with
+all four PGS options off.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -53,9 +54,10 @@ W = "k1w_nl22_ns14_nlim21_sub4_it4"
 # K1h-c and K1h-b too: it ran 3–5% faster than their twins' shapes; and
 # K1h-si, 3–4% faster than K1a's 4 × 4). The monkey, its split twin, the
 # planar walkers and their split twin: 32 envs per SM as one block of 32,
-# two of 16 or four of 8. The split A-form, whose packed A fills most of
-# an env's shared memory: one block of 11 envs (the most the SM holds), one
-# of 8, or two blocks of 5
+# two of 16 or four of 8. The A-forms (with split impulse, alone, and with
+# all four PGS options off), whose packed A fills most of an env's shared
+# memory: one block of 11 envs (the most the SM holds), one of 8, or two
+# blocks of 5
 GROUPS = {
     "cassie": (("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2",
                 "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar"),
@@ -81,6 +83,9 @@ GROUPS = {
     "planar_split": (("k1w_nl7_ns5_nlim6_sub4_it4_planar_si",), [(32, 1), (16, 2), (8, 4)],
                      {4096: 20, 16384: 10}),
     "aform_split": ((f"{W}_si_aform",), [(11, 1), (8, 1), (5, 2)], {4096: 10, 16384: 5}),
+    "aform": ((f"{W}_aform",), [(11, 1), (8, 1), (5, 2)], {4096: 10, 16384: 5}),
+    "aform_off": ((f"{W}_aform_scalar_cold_refactor",), [(11, 1), (8, 1), (5, 2)],
+                  {4096: 10, 16384: 5}),
 }
 
 
@@ -133,7 +138,8 @@ def cases(engine, rng):
     the walker on the plane (near contact) also with split impulse; the
     monkey (hanging from its bars), also with split impulse; Walker2D (near
     contact, a little out of its plane), also with split impulse; the walker
-    with split impulse in the A-form (near contact)."""
+    in the A-form with split impulse, alone and with all four PGS options off
+    (near contact)."""
     from mocca_envs_tpu_torch.models import cassie, monkey, walker2d, walker3d
     from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
     from mocca_envs_tpu_torch.terrain.scene import HF_PATCH
@@ -183,6 +189,10 @@ def cases(engine, rng):
     aform = EngineConfig(**chip_smoke.OPTION_CONFIGS["k1h_si_aform"])
     out.append(("aform_split", lambda: engine.K1hSi(wmodel, aform),
                 lambda batch: chip_smoke.near_contact_states(wmodel, rng, batch)))
+    for group, label in (("aform", "k1a_aform"), ("aform_off", "k1a_aform_scalar_cold_refactor")):
+        config = EngineConfig(**chip_smoke.OPTION_CONFIGS[label])
+        out.append((group, lambda config=config: engine.K1a(wmodel, config),
+                    lambda batch: chip_smoke.near_contact_states(wmodel, rng, batch)))
     return out
 
 

@@ -38,14 +38,20 @@
 //        position pass behind the lock's 3 rows;
 //   the K1h A-form  K1h-si's key in the A-form (matfree_pgs off, Cfg::
 //        MATFREE false): A = WWᵀ + cfm·I over the active rows, the residual
-//        carried instead of z = Wλ.
+//        carried instead of z = Wλ;
+//   the K1 A-form  K1a's key in the A-form, and the all-off key: the A-form
+//        with scalar friction rows, λ from zero in every substep and a
+//        factor in every substep (block_pgs, warm_start, reuse_factor off:
+//        Cfg::BLOCK, WARM, REUSE false).
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
 // make_pallas_substep (pallas_call at :1441) for those configurations (with
 // pd_mode, hf_patch, num_stones, num_tris, num_bars, constraints= and
 // split_impulse there: :1276-1352, :371-377, :458-509, :363-375, :511-549,
 // :378-382, :551-616, :618-651, :280-290, :341, :858-894; split impulse
-// :898-932, :1077-1111, :1236-1262; the A-form :1112-1235). It computes what
+// :898-932, :1077-1111, :1236-1262; the A-form :1112-1235; block_pgs :301,
+// :996, :1035, :1138, :1174; warm_start :303, :976-981, :1295; reuse_factor
+// :711, :1288). It computes what
 // engine_k1.cu's thread-per-env
 // instances of the same keys compute, the same iteration with some sums in
 // another order; those instances stay built for comparison
@@ -55,10 +61,11 @@
 // Each llc frame runs NSUB substeps of: FK along the quaternion chain →
 // every sphere vs the plane [and vs the heightfield window, the stones, the
 // mesh faces or the bars] → the rods' and the grabs' anchors → Newton–Euler
-// bias → [substep 0: CRBA about the base + Cholesky] → free velocity → rows
-// [rods × 3 | planar × 3 | grabs × 3 | joint limits | contacts × (n, t1,
-// t2)] → W = L⁻¹Jᵀ per active row → matrix-free block PGS, λ
-// warm-started across the call's substeps, the equality rows unclamped →
+// bias → [substep 0 (every substep without REUSE): CRBA about the base +
+// Cholesky] → free velocity → rows [rods × 3 | planar × 3 | grabs × 3 |
+// joint limits | contacts × (n, t1, t2)] → W = L⁻¹Jᵀ per active row →
+// matrix-free (or A-form) block (or scalar) PGS, λ warm-started across the
+// call's substeps (or from zero in each), the equality rows unclamped →
 // [split impulse: the position pass] → qd' = v_free + L⁻ᵀ(Wλ) →
 // semi-implicit integrate + limit backstop.
 //
@@ -84,10 +91,12 @@
 // ~67×, ~12.5× and ~13× faster, K1h-c ~57× and K1h-b ~54×, ~13× and ~14×
 // faster, K1h-si ~54× and K1d ~59×, ~14× and ~6.5× faster, K1h-d ~68× and
 // the planar K1e ~70×, ~5.9× and ~3.5× faster, the planar K1h-e ~83×, ~3.2×
-// faster, and the split A-form ~78× (against K1h-si's count), ~58× faster
-// than its thread-per-env twin and 1.46× K1h-si's time (PERF.md §6). The
-// monkey's NV = 16 leaves half the lanes idle in the DOF loops, the planar
-// walkers' NV = 12 twenty of 32.
+// faster, the split A-form ~78× (against K1h-si's count), ~58× faster
+// than its thread-per-env twin and 1.46× K1h-si's time, the A-form ~73×
+// (against K1a's count), ~48× faster and 1.49× K1a's time, and the all-off
+// key ~82× (against its matrix-free form's count), ~41× faster (PERF.md
+// §6). The monkey's NV = 16 leaves half the lanes idle in the DOF loops,
+// the planar walkers' NV = 12 twenty of 32.
 //
 // Design.
 //   - One warp per env, C::ENVS warps per block, registers for C::BLOCKS
@@ -143,7 +152,10 @@
 //     packed lower triangle (2,016 floats): 20,344 bytes, 11 envs in one
 //     block of 352 threads (228,792 bytes, 108 registers); in full rows of
 //     stride 63 (28,156 bytes) the SM held 8, which ran 17% slower on an
-//     H100 at B = 4096 (PERF.md §6).
+//     H100 at B = 4096 (PERF.md §6). The A-form and the all-off key take
+//     the same A without the split state: 20,064 bytes, 11 envs in one
+//     block (225,712 bytes, 107 / 108 registers); one block of 8 or two of
+//     5 ran 21–29% slower at B = 4096 (k1w_launch_shapes.py).
 //   - Lanes: link i for the FK, the Newton–Euler passes and the CRBA
 //     composites, one tree level at a time (depth 6 for the walker, 7 for
 //     Cassie; a parent sums its children in the order the serial code does);
@@ -181,7 +193,12 @@
 //     diagonal, contiguous, then its column t). z = Wλ is formed once after
 //     the sweeps. The position pass starts its residual at −bpos on the
 //     limit and contact-normal rows (0 elsewhere), visits them as the
-//     sweeps do and forms z_pos = Wλ_pos once at its end.
+//     sweeps do and forms z_pos = Wλ_pos once at its end. Without BLOCK a
+//     contact's t1 and t2 rows are visited one after the other, each
+//     clamped to ±μ·λ_n and moving the residuals by its own row of A (no
+//     2×2 inverse is formed); without WARM every λ starts each substep at
+//     0, so the residual starts at c; without REUSE the CRBA and the factor
+//     run in every substep.
 //
 // Heightfield narrowphase (K1f), as engine_k1.cu's and the plain version's
 // (terrain/scene.py::hf_corners, hf_sample, hf_normal): one sphere per lane;
@@ -339,14 +356,19 @@ __device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
 // (warps) per block and the blocks per SM its registers are sized for (at
 // most 65,536 / (32 · ENVS · BLOCKS) a thread), the heightfield window's
 // side, the stones and the mesh faces per env (0: none), split impulse, the
-// bar capsules and the grabs per env (0: none) and the PGS form
-// (matrix-free, else the A-form).
+// bar capsules and the grabs per env (0: none), the PGS form (matrix-free,
+// else the A-form) and the other PGS options, each false as engine_k1.cu's
+// flag of the same name: BLOCK (else a contact's friction rows one at a time,
+// written for the A-form), WARM (else λ from zero every substep), REUSE (else
+// a factor every substep).
 template <int NL_, int NS_, int NLIM_, int NSUB_, int ITERS_, bool PD_, int NLLC_, int NP2P_,
           bool PLANAR_, int ENVS_, int BLOCKS_, int PHF_ = 0, int K_ = 0, int KT_ = 0,
-          bool SPLIT_ = false, int KB_ = 0, int NGRAB_ = 0, bool MATFREE_ = true>
+          bool SPLIT_ = false, int KB_ = 0, int NGRAB_ = 0, bool MATFREE_ = true,
+          bool BLOCK_ = true, bool WARM_ = true, bool REUSE_ = true>
 struct Cfg {
   static constexpr int NL = NL_, NS = NS_, NLIM = NLIM_, NSUB = NSUB_, ITERS = ITERS_;
   static constexpr bool PD = PD_, PLANAR = PLANAR_, SPLIT = SPLIT_, MATFREE = MATFREE_;
+  static constexpr bool BLOCK = BLOCK_, WARM = WARM_, REUSE = REUSE_;
   static constexpr int NLLC = NLLC_, NP2P = NP2P_, ENVS = ENVS_, BLOCKS = BLOCKS_, PHF = PHF_;
   static constexpr int K = K_, KT = KT_, KB = KB_, NGRAB = NGRAB_;
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
@@ -364,6 +386,7 @@ struct Cfg {
   static_assert((PHF > 0) + (K > 0) + (KT > 0) + (KB > 0) <= 1,
                 "no instance combines a heightfield, stones, a mesh and bars");
   static_assert(L::NV <= 32, "one lane per velocity DOF");
+  static_assert(BLOCK || !MATFREE, "scalar friction rows are written for the A-form only");
 };
 
 // component c of a × b
@@ -1209,7 +1232,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       const float det = fmaxf(a11 * a22 - a12 * a12, 1e-12f);
       e.finv[s][0] = a22 / det; e.finv[s][1] = a11 / det; e.finv[s][2] = -a12 / det;
     }
-  } else {
+  } else if constexpr (C::BLOCK) {
     // a contact's normal row at position t, its friction pair at t + 1, t + 2
     for (int t = lane; t < nrows; t += WIDTH) {
       const int r = e.rows[t];
@@ -1222,8 +1245,9 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       e.finv[s][0] = a22 / det; e.finv[s][1] = a11 / det; e.finv[s][2] = -a12 / det;
     }
   }
-  // warm start: the previous substep's λ, masked by this substep's activity
-  for (int r = lane; r < NR; r += WIDTH) e.lam[r] *= e.act[r];
+  // warm start: the previous substep's λ, masked by this substep's activity;
+  // else λ from zero
+  for (int r = lane; r < NR; r += WIDTH) e.lam[r] = C::WARM ? e.lam[r] * e.act[r] : 0.0f;
   wsync();
   // v_j = Σ_t W_{r_t}[j]·coef(t) over the list positions t from t0 in order
   // (a contact's normal row alone where `normals`, its friction pair
@@ -1253,7 +1277,8 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       res[jj] = 0.0f;
       if (p < nrows) {
         float sum = e.c[e.rows[p]];
-        for (int k = 0; k < nrows; ++k) sum += aget(e, k, p) * e.lam[e.rows[k]];
+        if constexpr (C::WARM)
+          for (int k = 0; k < nrows; ++k) sum += aget(e, k, p) * e.lam[e.rows[k]];
         res[jj] = sum;
       }
     }
@@ -1303,9 +1328,20 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       if constexpr (C::MATFREE) move(r, nw - l0, z);
       else res_move(t, nw - l0);
       if (r < NE + NLIM) { ++t; continue; }
-      // a contact's normal row, then its friction pair as one 2×2 step
+      // a contact's normal row, then its friction pair as one 2×2 step or
+      // (scalar friction, the A-form) t1 then t2, each box-clamped alone
       const int s = (r - NE - NLIM) / 3, b1 = r + 1, b2 = r + 2;
       const float bound = fric * nw;
+      if constexpr (!C::BLOCK) {
+        for (int m = 1; m <= 2; ++m) {
+          const float lb = e.lam[r + m];
+          const float nb = clampf(lb - res_at(t + m) / e.diag[r + m], -bound, bound);
+          e.lam[r + m] = nb;
+          res_move(t + m, nb - lb);
+        }
+        t += 3;
+        continue;
+      }
       const float l1 = e.lam[b1], l2 = e.lam[b2];
       float r1, r2;
       if constexpr (C::MATFREE) {
@@ -1435,9 +1471,9 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
 }
 
 // One call for env t: NLLC llc frames of NSUB substeps, λ zeroed once at the
-// start and carried across them. PD: ``tau`` holds joint targets and each
-// frame's torque is gain·(target − q) at the frame's start; else the torques
-// are held. PHF > 0: ``hf`` row t is the env's heightfield window. K > 0 /
+// start and carried across them (WARM; else zeroed in every substep). PD:
+// ``tau`` holds joint targets and each frame's torque is gain·(target − q) at
+// the frame's start; else the torques are held. PHF > 0: ``hf`` row t is the env's heightfield window. K > 0 /
 // KT > 0 / KB > 0 / NGRAB > 0: column t of the component-major ``stones``
 // (K·11, B) / ``tris`` (KT·10, B) / ``bars`` (KB·8, B) / ``grabs`` (NGRAB·4,
 // B) holds the env's stones / faces / bars / grab state, staged here once
@@ -1490,8 +1526,8 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
         e.tau[j] = tab[L::PDGAIN + j] * (e.target[j] - e.q[7 + j]);
       wsync();
     }
-    for (int sub = 0; sub < C::NSUB; ++sub)   // the factor of each frame's first substep
-      substep<C>(e, tab, level, maxd, lane, sub == 0);
+    for (int sub = 0; sub < C::NSUB; ++sub)   // REUSE: the factor of each frame's first substep
+      substep<C>(e, tab, level, maxd, lane, sub == 0 || !C::REUSE);
   }
   for (int i = lane; i < L::NQ; i += WIDTH) q_out[(long long)t * L::NQ + i] = e.q[i];
   for (int i = lane; i < L::NV; i += WIDTH) qd_out[(long long)t * L::NV + i] = e.qd[i];
@@ -1586,7 +1622,7 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
 // instance: (NL, NS, NLIM, NSUB, ITERS, PD, NLLC, NP2P, PLANAR) at the
 // shipped solver options, then envs per block and blocks per SM, then the
 // window's side, the stones and the faces where there are any, split
-// impulse, the bars and the grabs, and the PGS form;
+// impulse, the bars and the grabs, and the PGS form and options;
 // ops/cuda/engine.py::WARP_INSTANCES lists the same names and numbers. Each library also exports k1w_smem_limits,
 // the card's shared memory per SM, per block and reserved per block.
 #define K1W_LAYOUT(NAME, ...)                                                                \
@@ -1778,4 +1814,18 @@ K1W_INSTANCE(k1w_nl7_ns5_nlim6_sub4_it4_planar_si, 7, 5, 6, 4, 4, false, 1, 0, t
 #if !defined(K1W_ONLY) || K1W_ONLY == 18
 K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_si_aform, 22, 14, 21, 4, 4, false, 1, 0, false, 11, 1,
              0, 0, 0, true, 0, 0, false)
+#endif
+// The walker on the plane in the A-form (matfree_pgs off): K1a's key with A
+// packed lower in the env's shared memory as the split A-form's (8,064
+// bytes: EnvW 20,064), 11 envs in one block per SM (225,712 bytes)
+#if !defined(K1W_ONLY) || K1W_ONLY == 19
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_aform, 22, 14, 21, 4, 4, false, 1, 0, false, 11, 1, 0,
+             0, 0, false, 0, 0, false)
+#endif
+// ... and with the other three PGS options off too (block_pgs, warm_start,
+// reuse_factor): scalar friction rows, λ from zero and a factor in every
+// substep; the same shape
+#if !defined(K1W_ONLY) || K1W_ONLY == 20
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_aform_scalar_cold_refactor, 22, 14, 21, 4, 4, false, 1,
+             0, false, 11, 1, 0, 0, 0, false, 0, 0, false, false, false, false)
 #endif

@@ -19,8 +19,9 @@ child's; K1b, the PD walker's and the PD child's; K1f, the terrain
 walkers'; K1c, the stepper's; K1g, the stairs'; K1e, Cassie's, Cassie2D's
 and the planar walkers'; K1d, the monkey's; the split twins K1h-e,
 K1h-e2d, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, the walker's on the plane,
-K1h-d, the monkey's, and the planar K1h-e, the planar walkers'; and the
-walker's split key in the A-form), and
+K1h-d, the monkey's, and the planar K1h-e, the planar walkers'; the
+walker's split key in the A-form; and the walker's key in the A-form, alone
+and with the other three PGS options off), and
 ``csrc/engine_k1.cu``, one thread per env, for every other key. An instance is picked by its
 :class:`Key`: the warp-per-env one where there is one, else the fifteen
 ``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the shipped families at the
@@ -187,7 +188,11 @@ INSTANTIATIONS = {inst.key: inst for inst in (
 # and the walker's frame with split impulse in the A-form (matfree_pgs
 # off: A over the active rows, packed lower, in the env's shared memory,
 # 11 envs in one block per SM) (their twins: the generic
-# k1_nl7_..._planar_si and k1_nl22_..._si_aform)
+# k1_nl7_..._planar_si and k1_nl22_..._si_aform); the walker's frame in the
+# A-form, and with all four PGS options off (scalar friction rows, λ from
+# zero and a factor in every substep), each the split A-form's shape
+# (their twins: the generic k1_nl22_..._aform and
+# k1_nl22_..._aform_scalar_cold_refactor)
 WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4", 0, Key(**_W), SOURCE_W),
     Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 1, Key(**_C), SOURCE_W),
@@ -217,6 +222,9 @@ WARP_INSTANCES = {inst.key: inst for inst in (
              Key(nl=7, ns=5, nlim=6, substeps=4, iters=4, planar=True, split=True), SOURCE_W),
     Instance("k1w_nl22_ns14_nlim21_sub4_it4_si_aform", 18, Key(**_W, split=True, matfree=False),
              SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_aform", 19, Key(**_W, matfree=False), SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_aform_scalar_cold_refactor", 20,
+             Key(**_W, matfree=False, block=False, warm=False, reuse=False), SOURCE_W),
 )}
 
 

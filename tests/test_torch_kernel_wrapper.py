@@ -151,8 +151,8 @@ NEW_CASES = ["k1g", "k1h_si"]
 SPLIT_CASES = {"k1h_c": "k1c", "k1h_e": "k1e_cassie", "k1h_e2d": "k1e_cassie2d",
                "k1h_d": "k1d"}
 # the split cases (here, in SPLIT_REST and the A-form with split impulse of
-# chip_smoke.OPTION_CONFIGS) that run a warp-per-env instance of
-# csrc/engine_k1w.cu, by its symbol
+# chip_smoke.OPTION_CONFIGS) and the walker's other A-form keys there that
+# run a warp-per-env instance of csrc/engine_k1w.cu, by its symbol
 SPLIT_WARP = {"k1h_c": "k1w_nl22_ns14_nlim21_sub4_it4_k6_si",
               "k1h_e": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si",
               "k1h_e2d": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si",
@@ -162,7 +162,10 @@ SPLIT_WARP = {"k1h_c": "k1w_nl22_ns14_nlim21_sub4_it4_k6_si",
               "k1h_d": "k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si",
               "k1h_e_planar": "k1w_nl7_ns5_nlim6_sub4_it4_planar_si",
               "k1h_e_crab": "k1w_nl7_ns5_nlim6_sub4_it4_planar_si",
-              "k1h_si_aform": "k1w_nl22_ns14_nlim21_sub4_it4_si_aform"}
+              "k1h_si_aform": "k1w_nl22_ns14_nlim21_sub4_it4_si_aform",
+              "k1a_aform": "k1w_nl22_ns14_nlim21_sub4_it4_aform",
+              "k1a_aform_scalar_cold_refactor":
+                  "k1w_nl22_ns14_nlim21_sub4_it4_aform_scalar_cold_refactor"}
 
 
 def _launch_counted(kernel, case, args):
@@ -321,13 +324,19 @@ K1A_KEYS = (({"warm_start": False}, f"{W}_sub4_it4_cold", "k1a_cold"),
                          [pytest.param(*c, id=next(iter(c[0]))) for c in K1A_KEYS])
 def test_k1a_refuses_what_it_has_no_instantiation_for(change, symbol, variant):
     """K1a takes every PGS option and any substeps or sweeps, each on the
-    generic instance of its key, counted under its option's tag; split
-    impulse on the walker's plane stays K1hSi's."""
+    generic instance of its key (the A-form on its warp-per-env instance, the
+    generic one its twin), counted under its option's tag; split impulse on
+    the walker's plane stays K1hSi's."""
     if symbol is None:
         with pytest.raises(NotImplementedError, match="split_impulse"):
             engine.K1a(walker3d.make_model(), EngineConfig(**change))
         return
-    _assert_generic(engine.K1a(walker3d.make_model(), EngineConfig(**change)), symbol, variant)
+    kernel = engine.K1a(walker3d.make_model(), EngineConfig(**change))
+    if kernel.key in engine.WARP_INSTANCES:
+        assert kernel.instance is engine.WARP_INSTANCES[kernel.key]
+        assert kernel.name == "k1w" + symbol.removeprefix("k1") and kernel.variant == variant
+        kernel = engine.K1a(walker3d.make_model(), EngineConfig(**change), thread_per_env=True)
+    _assert_generic(kernel, symbol, variant)
 
 
 @pytest.mark.parametrize("build, symbol", [

@@ -18,11 +18,12 @@ rows), ``warm_start=False`` (λ from zero every substep) and
   (``-DK1_HOST_CHECK``), against the port's plain version at the same gates;
   each A-form against its matrix-free twin at the JAX package's gate
   between the two forms: per-env medians within q 2e-5, qd 5e-4, depth
-  2e-5, impulse 5e-4, the largest env within ten times. The A-form with
-  split impulse runs the warp-per-env instance of ``csrc/engine_k1w.cu``
-  (``-DK1W_HOST_CHECK``), held so beside its generic twin, to its
-  matrix-free twin K1h-si's warp-per-env instance, and to the JAX package's
-  control step on the same inputs at the same gates.
+  2e-5, impulse 5e-4, the largest env within ten times. The A-form, alone,
+  with split impulse and with all four options off, runs a warp-per-env
+  instance of ``csrc/engine_k1w.cu`` (``-DK1W_HOST_CHECK``), held so beside
+  its generic twin, to its matrix-free twin (the A-form's and the split
+  A-form's: K1a's and K1h-si's warp-per-env instances), and to the JAX
+  package's control step on the same inputs at the same gates.
 """
 
 import functools
@@ -138,7 +139,9 @@ def test_options_change_the_step():
 def host_cases():
     """(kernel wrapper, numpy inputs, host library) per option configuration
     and the walker at 2 substeps × 8 sweeps, on chip_smoke.py's near-contact
-    states at B = 64, with the matrix-free twins of the two A-forms."""
+    states at B = 64, with the shipped K1a and K1h-si (the matrix-free twins
+    of the A-forms) and the thread-per-env twin of each key that runs one
+    warp per env."""
     model = twalker.make_model()
     inputs = [np.ascontiguousarray(x) for x in chip_smoke.near_contact_states(
         model, np.random.default_rng(5), 64)]
@@ -146,28 +149,29 @@ def host_cases():
                for v, f in chip_smoke.OPTION_CONFIGS.items()}
     kernels["k1a"] = engine.K1a(model, TConfig())
     kernels["k1h_si"] = engine.K1hSi(model, TConfig(split_impulse=True))
-    # the split A-form's generic twin (its key runs one warp per env)
-    kernels["k1h_si_aform_thread"] = engine.K1hSi(
-        model, TConfig(**chip_smoke.OPTION_CONFIGS["k1h_si_aform"]), thread_per_env=True)
-    kernels["k1h_si_thread"] = engine.K1hSi(model, TConfig(split_impulse=True),
-                                            thread_per_env=True)
+    # the thread-per-env twins of the keys that run one warp per env (the
+    # A-forms': generic; K1a's and K1h-si's: named)
+    for v, kernel in list(kernels.items()):
+        if kernel.key in engine.WARP_INSTANCES:
+            kernels[f"{v}_thread"] = type(kernel)(model, kernel.config, thread_per_env=True)
     libs = build_host(kernels.values())
     return {v: (k, inputs, libs[k.name]) for v, k in kernels.items()}
 
 
 @pytest.mark.parametrize("label", list(chip_smoke.OPTION_CONFIGS))
 def test_option_instance_source_arithmetic_on_host(host_cases, label):
-    """The generic instance of each option key (the split A-form's
-    warp-per-env instance, and beside it its generic twin), built for the
-    host, against the port's plain version at K1a's gates; the generic
-    workspace holds the A-form's NR × NR matrix and residual where the A-form
-    runs, the warp-per-env instance has none."""
+    """The generic instance of each option key (an A-form's warp-per-env
+    instance, and beside it its generic twin), built for the host, against
+    the port's plain version at K1a's gates; the generic workspace holds the
+    A-form's NR × NR matrix and residual where the A-form runs, the
+    warp-per-env instance has none."""
     kernel, inputs, lib = host_cases[label]
     held = [(kernel, lib)]
-    if label == "k1h_si_aform":
+    if kernel.key in engine.WARP_INSTANCES:
+        assert not kernel.config.matfree_pgs
         assert kernel.instance is engine.WARP_INSTANCES[kernel.key]
         assert engine.layout(lib, kernel.name) == (kernel.table_host.size, 0)
-        twin, _, twin_lib = host_cases["k1h_si_aform_thread"]
+        twin, _, twin_lib = host_cases[f"{label}_thread"]
         assert twin.key == kernel.key
         held = [(twin, twin_lib)]
         outs = run_on_host(lib, kernel, inputs)
@@ -202,6 +206,7 @@ def test_option_instance_parts_from_the_shipped_one_on_host(host_cases, label):
 
 
 @pytest.mark.parametrize("label, twin", [("k1a_aform", "k1a"), ("k1h_si_aform", "k1h_si"),
+                                         ("k1a_aform_thread", "k1a_thread"),
                                          ("k1h_si_aform_thread", "k1h_si_thread")])
 def test_aform_matches_its_matrix_free_twin_on_host(host_cases, label, twin):
     """The A-form and the matrix-free form are the same iteration: on the
