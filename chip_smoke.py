@@ -14,16 +14,18 @@ Phases, in order; any failure exits non-zero before the result lines:
    the PD walkers and the walker on the plane, K1h-g, K1h-f, K1h-c, K1h-b
    and K1h-si, of the monkey's K1d and its split twin K1h-d, of the
    planar walkers' K1e and its split twin, the planar K1h-e, of the
-   walker's split key in the A-form (``matfree_pgs=False``) and of its key
-   in the A-form, alone and with all four PGS options off, from
+   walker's split key in the A-form (``matfree_pgs=False``), of its key
+   in the A-form, alone and with all four PGS options off, and of its key
+   with scalar friction rows and with a factor every substep, from
    ``mocca_envs_tpu_torch/csrc/engine_k1w.cu``, the fifteen
    named instances of the engine kernel from
    ``mocca_envs_tpu_torch/csrc/engine_k1.cu``, the generic instance of every
    key phase 2 adds (split impulse on the PD walker at two llc frames,
    and the thread-per-env twins of terrain, the stairs, the PD walker at
-   one llc frame, the torque planar walkers and the walker's three A-form
-   keys; the walker's PGS options of :data:`OPTION_CONFIGS`, and the
-   all-off key's matrix-free form) and the raycast kernel
+   one llc frame, the torque planar walkers, the walker's three A-form
+   keys and its scalar friction and factor-every-substep keys; the walker's
+   PGS options of :data:`OPTION_CONFIGS`, the all-off key's matrix-free
+   form and the A-form twins of :data:`MATFREE_OPTIONS`) and the raycast kernel
    K2 from
    ``csrc/raycast_k2.cu`` (one nvcc process each, side by side), and print
    each one's ptxas registers and stack frame; the fifteen named frames
@@ -103,8 +105,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    (:data:`AFORMS`: alone, with split impulse, with all four options off)
    by its warp-per-env instance against its matrix-free twin on the same
    inputs at :data:`TOL_TWIN` (medians, the largest env within ten times)
-   and against its thread-per-env twin (:func:`twin_and_lifted`); each
-   other option's
+   and against its thread-per-env twin (:func:`twin_and_lifted`); scalar
+   friction and a factor every substep (:data:`MATFREE_OPTIONS`) by their
+   warp-per-env instances against their thread-per-env twins
+   (:func:`twin_and_lifted`) and against their A-form twins at
+   :data:`TOL_TWIN`; each other option's
    instance must part from the shipped one (K1a) on the same inputs by more
    than K1a's gate in the per-env medians of q and qd
    (:func:`parts_from_shipped`), and each thread-per-env A-form's workspace
@@ -203,7 +208,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    Cassie2D's K1e and of their split twins K1h-e and K1h-e2d likewise at
    each B of :data:`CASSIE_SWEEP`, those of K1b,
    K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, K1d, K1h-d, the
-   planar K1e, the planar K1h-e and the three A-forms at each B of
+   planar K1e, the planar K1h-e, the three A-forms, scalar friction and a
+   factor every substep at each B of
    :data:`WALKER_SWEEP` (an A-form's bound on its matrix-free twin's
    count), K1b at two llc frames and its split twin (no family launches
    them: their time and bound alone), the
@@ -217,7 +223,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    the terrain step's window cut and packing; the step time outside the
    kernel of the PD walkers, Cassie, the planar walkers, the monkey, the terrain families,
    the stairs, the split-impulse walker and the split stairs, terrain,
-   stepper, PD walkers and monkey; the training rollouts' time per
+   stepper, PD walkers and monkey, the A-forms and the walker under
+   :data:`MATFREE_OPTIONS`; the training rollouts' time per
    env step outside the kernel; an A-form's bound counts its matrix-free
    twin's operations on the same activity (the same function in fewer), its
    own count printed beside it; a ``torch.profiler`` trace of one stepper
@@ -274,6 +281,9 @@ OPTION_CONFIGS = {
 }
 # the option configurations in the A-form, each on a warp-per-env instance
 AFORMS = ("k1a_aform", "k1h_si_aform", "k1a_aform_scalar_cold_refactor")
+# single options in the matrix-free form on a warp-per-env instance (scalar
+# friction rows, a factor every substep), each with its A-form twin
+MATFREE_OPTIONS = ("k1a_scalar", "k1a_refactor")
 # --split-impulse on the PD walkers, the planar walkers, terrain and the
 # stairs: env id → the count its launches go under
 SPLIT_FAMILIES = {"Walker3DPDCustomEnv": "k1h_b", "Child3DPDCustomEnv": "k1h_b",
@@ -312,16 +322,18 @@ FRAMES = {
 SWEEP = {4096: 20, 16384: 10, 65536: 5}
 CASSIE_SWEEP = {4096: 10, 16384: 5}
 # K1b, K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, K1d, K1h-d, the
-# planar K1e, the planar K1h-e and the three A-forms
+# planar K1e, the planar K1h-e, the three A-forms, scalar friction and a
+# factor every substep
 WALKER_SWEEP = {4096: 20, 16384: 10}
 # ptxas's registers and the dynamic shared memory per block (bytes) of each
 # warp-per-env instance, and the envs each must keep resident per SM: the
 # walker's keys 4 blocks of 4 envs (K1f's, K1c's, K1g's and K1h-f's
-# registers sized for 8), K1h-g's, K1h-c's, K1h-b's and K1h-si's one block
-# of 16, Cassie's one block of 32 (and its split twins'), the monkey's one
-# block of 32 (and its split twin's), the planar walkers' one block of 32
-# (and their split twin's), the A-forms' one block of 11; each as every
-# build since it was written has reported it
+# registers sized for 8), K1h-g's, K1h-c's, K1h-b's, K1h-si's, scalar
+# friction's and a factor every substep's one block of 16, Cassie's one
+# block of 32 (and its split twins'), the monkey's one block of 32 (and its
+# split twin's), the planar walkers' one block of 32 (and their split
+# twin's), the A-forms' one block of 11; each as every build since it was
+# written has reported it
 WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4": (64, 53008, 16),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2": (64, 202896, 32),
@@ -344,6 +356,8 @@ WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4_si_aform": (108, 228792, 11),
     "k1w_nl22_ns14_nlim21_sub4_it4_aform": (107, 225712, 11),
     "k1w_nl22_ns14_nlim21_sub4_it4_aform_scalar_cold_refactor": (108, 225712, 11),
+    "k1w_nl22_ns14_nlim21_sub4_it4_scalar": (64, 197008, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_refactor": (96, 197008, 16),
 }
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
@@ -1451,10 +1465,10 @@ def main() -> int:
            for v, fields in OPTION_CONFIGS.items()},
     }
     # the thread-per-env twins of K1h-f, K1h-g, K1h-c, K1h-b, K1h-si, the
-    # planar K1h-e and the walker's three A-form keys (with split impulse,
-    # alone and with all four options off): the generic engine_k1.cu
-    # instances of their keys (K1h-c's and K1h-si's the named
-    # k1h_..._k6_si and k1h_..._si)
+    # planar K1h-e, the walker's three A-form keys (with split impulse,
+    # alone and with all four options off) and its scalar friction and
+    # factor-every-substep keys: the generic engine_k1.cu instances of their
+    # keys (K1h-c's and K1h-si's the named k1h_..._k6_si and k1h_..._si)
     thread_twins = {"k1h_f": engine.K1f(model, split(config), HF_PATCH, thread_per_env=True),
                     "k1h_g": engine.K1g(model, split(config), thread_per_env=True),
                     "k1h_c": engine.K1c(model, split(config), thread_per_env=True),
@@ -1464,15 +1478,20 @@ def main() -> int:
                     "k1h_e_planar": engine.K1e(wmodel, split(config), walker2d.planar_spec(),
                                                thread_per_env=True),
                     **{v: type(added[v])(model, EngineConfig(**OPTION_CONFIGS[v]),
-                                        thread_per_env=True) for v in AFORMS}}
+                                        thread_per_env=True) for v in (*AFORMS, *MATFREE_OPTIONS)}}
     # the all-off key's matrix-free form (the same function): the generic
     # instance of its other three options
     matfree_off = engine.make_kernel(model, EngineConfig(block_pgs=False, warm_start=False,
                                                          reuse_factor=False))
+    # the A-form twins of scalar friction and of a factor every substep (the
+    # same function, written independently): the generic instances
+    aform_twins = {v: engine.make_kernel(model, EngineConfig(**OPTION_CONFIGS[v],
+                                                             matfree_pgs=False))
+                   for v in MATFREE_OPTIONS}
 
     # ---- phase 1: build
     t0 = time.perf_counter()
-    extra = [*added.values(), *thread_twins.values(), matfree_off]
+    extra = [*added.values(), *thread_twins.values(), matfree_off, *aform_twins.values()]
     engine.build([k.instance for k in extra])
     generic = sum(k.instance.index is None for k in extra)
     print(f"[build] {len(engine.WARP_INSTANCES)} warp-per-env K1 instances, "
@@ -1693,6 +1712,17 @@ def main() -> int:
               f"{v}: the main path's instance {added[v].name} is not the warp-per-env one")
         max_abs[v] = max(max_abs[v], twin_and_lifted(added[v], thread_twins[v],
                                                      kernels["k1a"][1], v, 3.0))
+    # scalar friction and a factor every substep by their warp-per-env
+    # instances: against their thread-per-env twins, near contact and with
+    # every base lifted 3 m, and against their A-form twins
+    for v in MATFREE_OPTIONS:
+        check(added[v].instance.source == engine.SOURCE_W
+              and thread_twins[v].instance.source == engine.SOURCE
+              and aform_twins[v].instance.source == engine.SOURCE,
+              f"{v}: the main path's instance {added[v].name} is not the warp-per-env one")
+        max_abs[v] = max(max_abs[v], twin_and_lifted(added[v], thread_twins[v],
+                                                     kernels["k1a"][1], v, 3.0),
+                         compare_twins(added[v], aform_twins[v], kernels["k1a"][1], v))
     # every other option is another iteration: K1a's gate tells it from K1a
     for v in ("k1a_scalar", "k1a_cold", "k1a_refactor", "k1a_aform_scalar_cold_refactor",
               "k1a_sub2_it8"):
@@ -1889,10 +1919,11 @@ def main() -> int:
                  thread_twins["k1h_e_planar"],
                  lambda batch, r: planar_walker_states(wmodel, 1.22, r, batch), WALKER_SWEEP)
     for v, label in (("k1h_si_aform", "K1h A-form"), ("k1a_aform", "K1 A-form"),
-                     ("k1a_aform_scalar_cold_refactor", "K1 all off")):
+                     ("k1a_aform_scalar_cold_refactor", "K1 all off"),
+                     ("k1a_scalar", "K1 scalar"), ("k1a_refactor", "K1 refactor")):
         design_sweep(engine, card, label, added[v], thread_twins[v],
                      lambda batch, r: near_contact_states(model, r, batch), WALKER_SWEEP,
-                     matfree=matfree[v])
+                     matfree=matfree.get(v))
     for v, env_id in (("k1b", "Walker3DPDCustomEnv-v0"), ("k1b_child", "Child3DPDCustomEnv-v0"),
                       ("k1f", "Walker3DTerrainEnv-v0"),
                       ("k1f_lidar", "Walker3DTerrainLidarEnv-v0"),
@@ -1906,7 +1937,7 @@ def main() -> int:
     window_and_pack_time(engine, card, terrain_state)
     for v in ("k1b", "k1b_child", "k1c", "k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d",
               "k1f", "k1f_lidar", "k1g", "k1h_si", "k1h_g", "k1h_f", "k1h_f_lidar", "k1h_c",
-              "k1h_b", "k1h_b_child", "k1h_d", *AFORMS):
+              "k1h_b", "k1h_b_child", "k1h_d", *AFORMS, *MATFREE_OPTIONS):
         kernel_ms = times[v.removesuffix("_lidar").removesuffix("_child")]["ms"]
         print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {kernel_ms:.4f} "
               f"ms/call, so {step_ms[v] - kernel_ms:.3f} ms/step outside the kernel "

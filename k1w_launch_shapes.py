@@ -4,8 +4,9 @@ stepper's K1c, the stairs' K1g, the split twins of the stairs, the terrain
 walkers, the stepper, the PD walkers and the walker on the plane, K1h-g,
 K1h-f, K1h-c, K1h-b and K1h-si, the monkey's K1d and its split twin K1h-d,
 the planar walkers' K1e and its split twin, the planar K1h-e, the walker's
-split key in the A-form, and the walker's key in the A-form, alone and with
-all four PGS options off.
+split key in the A-form, the walker's key in the A-form, alone and with
+all four PGS options off, and the walker's key with scalar friction rows and
+with a factor every substep.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -57,7 +58,8 @@ W = "k1w_nl22_ns14_nlim21_sub4_it4"
 # two of 16 or four of 8. The A-forms (with split impulse, alone, and with
 # all four PGS options off), whose packed A fills most of an env's shared
 # memory: one block of 11 envs (the most the SM holds), one of 8, or two
-# blocks of 5
+# blocks of 5. Scalar friction and a factor every substep, K1a's EnvW: one
+# block of 16 (shipped: 1–3% faster at B = 4096), four of 4 (K1a's), two of 8
 GROUPS = {
     "cassie": (("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2",
                 "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar"),
@@ -86,6 +88,8 @@ GROUPS = {
     "aform": ((f"{W}_aform",), [(11, 1), (8, 1), (5, 2)], {4096: 10, 16384: 5}),
     "aform_off": ((f"{W}_aform_scalar_cold_refactor",), [(11, 1), (8, 1), (5, 2)],
                   {4096: 10, 16384: 5}),
+    "scalar_refactor": ((f"{W}_scalar", f"{W}_refactor"), [(16, 1), (4, 4), (8, 2)],
+                        {4096: 20, 16384: 10}),
 }
 
 
@@ -138,8 +142,9 @@ def cases(engine, rng):
     the walker on the plane (near contact) also with split impulse; the
     monkey (hanging from its bars), also with split impulse; Walker2D (near
     contact, a little out of its plane), also with split impulse; the walker
-    in the A-form with split impulse, alone and with all four PGS options off
-    (near contact)."""
+    in the A-form with split impulse, alone and with all four PGS options off,
+    and with scalar friction rows and with a factor every substep (near
+    contact)."""
     from mocca_envs_tpu_torch.models import cassie, monkey, walker2d, walker3d
     from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
     from mocca_envs_tpu_torch.terrain.scene import HF_PATCH
@@ -192,6 +197,10 @@ def cases(engine, rng):
     for group, label in (("aform", "k1a_aform"), ("aform_off", "k1a_aform_scalar_cold_refactor")):
         config = EngineConfig(**chip_smoke.OPTION_CONFIGS[label])
         out.append((group, lambda config=config: engine.K1a(wmodel, config),
+                    lambda batch: chip_smoke.near_contact_states(wmodel, rng, batch)))
+    for label in chip_smoke.MATFREE_OPTIONS:
+        config = EngineConfig(**chip_smoke.OPTION_CONFIGS[label])
+        out.append(("scalar_refactor", lambda config=config: engine.K1a(wmodel, config),
                     lambda batch: chip_smoke.near_contact_states(wmodel, rng, batch)))
     return out
 

@@ -42,7 +42,11 @@
 //   the K1 A-form  K1a's key in the A-form, and the all-off key: the A-form
 //        with scalar friction rows, λ from zero in every substep and a
 //        factor in every substep (block_pgs, warm_start, reuse_factor off:
-//        Cfg::BLOCK, WARM, REUSE false).
+//        Cfg::BLOCK, WARM, REUSE false);
+//   K1 scalar, K1 refactor  K1a's key in the matrix-free form with scalar
+//        friction rows (block_pgs off: a contact's t1 then t2 row, each
+//        clamped alone, a butterfly each), and with a CRBA and factor in
+//        every substep (reuse_factor off), each K1a's shape.
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
 // make_pallas_substep (pallas_call at :1441) for those configurations (with
@@ -93,10 +97,12 @@
 // the planar K1e ~70×, ~5.9× and ~3.5× faster, the planar K1h-e ~83×, ~3.2×
 // faster, the split A-form ~78× (against K1h-si's count), ~58× faster
 // than its thread-per-env twin and 1.46× K1h-si's time, the A-form ~73×
-// (against K1a's count), ~48× faster and 1.49× K1a's time, and the all-off
-// key ~82× (against its matrix-free form's count), ~41× faster (PERF.md
-// §6). The monkey's NV = 16 leaves half the lanes idle in the DOF loops,
-// the planar walkers' NV = 12 twenty of 32.
+// (against K1a's count), ~48× faster and 1.49× K1a's time, the all-off
+// key ~82× (against its matrix-free form's count), ~41× faster, scalar
+// friction ~52×, ~16× faster and 1.04× K1a's time, and a factor every
+// substep ~49×, ~13× faster and 1.21× K1a's time (PERF.md §6). The
+// monkey's NV = 16 leaves half the lanes idle in the DOF loops, the planar
+// walkers' NV = 12 twenty of 32.
 //
 // Design.
 //   - One warp per env, C::ENVS warps per block, registers for C::BLOCKS
@@ -155,13 +161,18 @@
 //     H100 at B = 4096 (PERF.md §6). The A-form and the all-off key take
 //     the same A without the split state: 20,064 bytes, 11 envs in one
 //     block (225,712 bytes, 107 / 108 registers); one block of 8 or two of
-//     5 ran 21–29% slower at B = 4096 (k1w_launch_shapes.py).
+//     5 ran 21–29% slower at B = 4096 (k1w_launch_shapes.py). Scalar
+//     friction and a factor every substep keep K1a's EnvW and run as one
+//     block of 16 (197,008 bytes; 64 / 96 registers): four blocks of 4 ran
+//     1% / 7.5% slower at B = 4096.
 //   - Lanes: link i for the FK, the Newton–Euler passes and the CRBA
 //     composites, one tree level at a time (depth 6 for the walker, 7 for
 //     Cassie; a parent sums its children in the order the serial code does);
 //     sphere s for the narrowphase and the contact activity; anchor k for the
 //     rods; row r of the factor's trailing update (right-looking, the same
-//     subtractions in the same order as the left-looking code); DOF j for the
+//     subtractions in the same order as the left-looking code; REGCHOL:
+//     row r in the lane's registers, the pivot column by shuffles, no
+//     barrier per pivot, 12% off the refactor key); DOF j for the
 //     free velocity, the PD torque, z = Wλ and q̇, the triangular solves
 //     column by column with the pivot broadcast by a shuffle; one active row
 //     per lane for J_r, W_r = L⁻¹J_rᵀ (a forward solve in place in its row of
@@ -195,8 +206,10 @@
 //     limit and contact-normal rows (0 elsewhere), visits them as the
 //     sweeps do and forms z_pos = Wλ_pos once at its end. Without BLOCK a
 //     contact's t1 and t2 rows are visited one after the other, each
-//     clamped to ±μ·λ_n and moving the residuals by its own row of A (no
-//     2×2 inverse is formed); without WARM every λ starts each substep at
+//     clamped to ±μ·λ_n and moving the residuals by its own row of A (the
+//     A-form) or z by its own W row (the matrix-free form: t2's butterfly
+//     reads z after t1's move, as engine_k1.cu's loop); no 2×2 inverse is
+//     formed; without WARM every λ starts each substep at
 //     0, so the residual starts at c; without REUSE the CRBA and the factor
 //     run in every substep.
 //
@@ -358,17 +371,18 @@ __device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
 // side, the stones and the mesh faces per env (0: none), split impulse, the
 // bar capsules and the grabs per env (0: none), the PGS form (matrix-free,
 // else the A-form) and the other PGS options, each false as engine_k1.cu's
-// flag of the same name: BLOCK (else a contact's friction rows one at a time,
-// written for the A-form), WARM (else λ from zero every substep), REUSE (else
-// a factor every substep).
+// flag of the same name: BLOCK (else a contact's friction rows one at a time),
+// WARM (else λ from zero every substep), REUSE (else a factor every substep);
+// and REGCHOL, the Cholesky factor with each lane's rows in registers (the
+// same arithmetic, no barrier per pivot).
 template <int NL_, int NS_, int NLIM_, int NSUB_, int ITERS_, bool PD_, int NLLC_, int NP2P_,
           bool PLANAR_, int ENVS_, int BLOCKS_, int PHF_ = 0, int K_ = 0, int KT_ = 0,
           bool SPLIT_ = false, int KB_ = 0, int NGRAB_ = 0, bool MATFREE_ = true,
-          bool BLOCK_ = true, bool WARM_ = true, bool REUSE_ = true>
+          bool BLOCK_ = true, bool WARM_ = true, bool REUSE_ = true, bool REGCHOL_ = false>
 struct Cfg {
   static constexpr int NL = NL_, NS = NS_, NLIM = NLIM_, NSUB = NSUB_, ITERS = ITERS_;
   static constexpr bool PD = PD_, PLANAR = PLANAR_, SPLIT = SPLIT_, MATFREE = MATFREE_;
-  static constexpr bool BLOCK = BLOCK_, WARM = WARM_, REUSE = REUSE_;
+  static constexpr bool BLOCK = BLOCK_, WARM = WARM_, REUSE = REUSE_, REGCHOL = REGCHOL_;
   static constexpr int NLLC = NLLC_, NP2P = NP2P_, ENVS = ENVS_, BLOCKS = BLOCKS_, PHF = PHF_;
   static constexpr int K = K_, KT = KT_, KB = KB_, NGRAB = NGRAB_;
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
@@ -386,7 +400,6 @@ struct Cfg {
   static_assert((PHF > 0) + (K > 0) + (KT > 0) + (KB > 0) <= 1,
                 "no instance combines a heightfield, stones, a mesh and bars");
   static_assert(L::NV <= 32, "one lane per velocity DOF");
-  static_assert(BLOCK || !MATFREE, "scalar friction rows are written for the A-form only");
 };
 
 // component c of a × b
@@ -946,22 +959,63 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     }
     wsync();
     // right-looking Cholesky in place, lanes over the rows below the pivot;
-    // the diagonal is clamped at 1e-9
-    for (int j = 0; j < NV; ++j) {
-      const float djj = Lx(j, j);
-      const float dinv = rsqrtf(fmaxf(djj, 1e-9f));
-      wsync();
-      if (lane == 0) {
-        e.dinv[j] = dinv;
-        Lx(j, j) = djj * dinv;
+    // the diagonal is clamped at 1e-9. REGCHOL: lane i holds row i in
+    // registers and takes column j of the rows above it by shuffles, each
+    // entry's subtractions in the same order, so the bits are the same
+    if constexpr (C::REGCHOL) {
+      float rw[NVL][NV];
+#pragma unroll
+      for (int jj = 0; jj < NVL; ++jj) {
+        const int i = lane + jj * WIDTH;
+#pragma unroll
+        for (int k = 0; k < NV; ++k) rw[jj][k] = i < NV && k <= i ? Lx(i, k) : 0.0f;
       }
-      for (int i = j + 1 + lane; i < NV; i += WIDTH) Lx(i, j) *= dinv;
-      wsync();
-      for (int i = j + 1 + lane; i < NV; i += WIDTH) {
-        const float lij = Lx(i, j);
-        for (int k = j + 1; k <= i; ++k) Lx(i, k) -= lij * Lx(k, j);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const float djj = wbcast(rw[j / WIDTH][j], j % WIDTH);
+        const float dinv = rsqrtf(fmaxf(djj, 1e-9f));
+        if (lane == 0) e.dinv[j] = dinv;
+#pragma unroll
+        for (int jj = 0; jj < NVL; ++jj) {
+          const int i = lane + jj * WIDTH;
+          if (i == j) rw[jj][j] = djj * dinv;
+          else if (i > j) rw[jj][j] *= dinv;
+        }
+#pragma unroll
+        for (int k = j + 1; k < NV; ++k) {
+          const float lkj = wbcast(rw[k / WIDTH][j], k % WIDTH);
+#pragma unroll
+          for (int jj = 0; jj < NVL; ++jj) {
+            const int i = lane + jj * WIDTH;
+            if (i >= k && i < NV) rw[jj][k] -= rw[jj][j] * lkj;
+          }
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < NVL; ++jj) {
+        const int i = lane + jj * WIDTH;
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+          if (i < NV && k <= i) Lx(i, k) = rw[jj][k];
       }
       wsync();
+    } else {
+      for (int j = 0; j < NV; ++j) {
+        const float djj = Lx(j, j);
+        const float dinv = rsqrtf(fmaxf(djj, 1e-9f));
+        wsync();
+        if (lane == 0) {
+          e.dinv[j] = dinv;
+          Lx(j, j) = djj * dinv;
+        }
+        for (int i = j + 1 + lane; i < NV; i += WIDTH) Lx(i, j) *= dinv;
+        wsync();
+        for (int i = j + 1 + lane; i < NV; i += WIDTH) {
+          const float lij = Lx(i, j);
+          for (int k = j + 1; k <= i; ++k) Lx(i, k) -= lij * Lx(k, j);
+        }
+        wsync();
+      }
     }
   }
 
@@ -1221,8 +1275,9 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     wsync();
     for (int t = lane; t < nrows; t += WIDTH) e.diag[e.rows[t]] = fmaxf(aget(e, t, t), 1e-9f);
   }
-  // each active contact's 2×2 friction block, inverted
-  if constexpr (C::MATFREE) {
+  // each active contact's 2×2 friction block, inverted (scalar friction
+  // rows use none)
+  if constexpr (C::MATFREE && C::BLOCK) {
     for (int s = lane; s < NS; s += WIDTH) {
       const int t1 = NE + NLIM + 3 * s + 1, t2 = t1 + 1;
       if (!(e.act[t1] > 0.5f)) continue;
@@ -1232,7 +1287,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       const float det = fmaxf(a11 * a22 - a12 * a12, 1e-12f);
       e.finv[s][0] = a22 / det; e.finv[s][1] = a11 / det; e.finv[s][2] = -a12 / det;
     }
-  } else if constexpr (C::BLOCK) {
+  } else if constexpr (!C::MATFREE && C::BLOCK) {
     // a contact's normal row at position t, its friction pair at t + 1, t + 2
     for (int t = lane; t < nrows; t += WIDTH) {
       const int r = e.rows[t];
@@ -1329,15 +1384,21 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       else res_move(t, nw - l0);
       if (r < NE + NLIM) { ++t; continue; }
       // a contact's normal row, then its friction pair as one 2×2 step or
-      // (scalar friction, the A-form) t1 then t2, each box-clamped alone
+      // (scalar friction) t1 then t2, each box-clamped alone: t2's residual
+      // read after t1's move, a butterfly each in the matrix-free form
       const int s = (r - NE - NLIM) / 3, b1 = r + 1, b2 = r + 2;
       const float bound = fric * nw;
       if constexpr (!C::BLOCK) {
         for (int m = 1; m <= 2; ++m) {
-          const float lb = e.lam[r + m];
-          const float nb = clampf(lb - res_at(t + m) / e.diag[r + m], -bound, bound);
-          e.lam[r + m] = nb;
-          res_move(t + m, nb - lb);
+          const int b = r + m;
+          const float lb = e.lam[b];
+          float rb;
+          if constexpr (C::MATFREE) rb = e.c[b] + cfm * lb + wsum(part(b, z));
+          else rb = res_at(t + m);
+          const float nb = clampf(lb - rb / e.diag[b], -bound, bound);
+          e.lam[b] = nb;
+          if constexpr (C::MATFREE) move(b, nb - lb, z);
+          else res_move(t + m, nb - lb);
         }
         t += 3;
         continue;
@@ -1828,4 +1889,22 @@ K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_aform, 22, 14, 21, 4, 4, false, 1, 0,
 #if !defined(K1W_ONLY) || K1W_ONLY == 20
 K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_aform_scalar_cold_refactor, 22, 14, 21, 4, 4, false, 1,
              0, false, 11, 1, 0, 0, 0, false, 0, 0, false, false, false, false)
+#endif
+// The walker on the plane with scalar friction rows (block_pgs off, the
+// matrix-free form): K1a's key, a contact's t1 then t2 row each clamped
+// alone, a butterfly each; no 2×2 inverse formed. Four blocks of 4 envs fit
+// (K1a's shape), but one block of 16 envs per SM (197,008 bytes, registers
+// for one block: 64) ran 1% faster at B = 4096
+#if !defined(K1W_ONLY) || K1W_ONLY == 21
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_scalar, 22, 14, 21, 4, 4, false, 1, 0, false, 16, 1, 0,
+             0, 0, false, 0, 0, true, false)
+#endif
+// ... and with a CRBA and factor in every substep (reuse_factor off, the
+// matrix-free form): K1a's key, the factor's rows in registers (REGCHOL:
+// 12% faster than the shared-memory factor at B = 4096, 96 registers, no
+// spill), one block of 16 envs per SM (8% faster than four of 4 at B =
+// 4096, 10% at 16,384)
+#if !defined(K1W_ONLY) || K1W_ONLY == 22
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_refactor, 22, 14, 21, 4, 4, false, 1, 0, false, 16, 1,
+             0, 0, 0, false, 0, 0, true, true, true, false, true)
 #endif

@@ -20,8 +20,9 @@ walkers'; K1c, the stepper's; K1g, the stairs'; K1e, Cassie's, Cassie2D's
 and the planar walkers'; K1d, the monkey's; the split twins K1h-e,
 K1h-e2d, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, the walker's on the plane,
 K1h-d, the monkey's, and the planar K1h-e, the planar walkers'; the
-walker's split key in the A-form; and the walker's key in the A-form, alone
-and with the other three PGS options off), and
+walker's split key in the A-form; the walker's key in the A-form, alone
+and with the other three PGS options off; and the walker's key with scalar
+friction rows, and with a factor in every substep), and
 ``csrc/engine_k1.cu``, one thread per env, for every other key. An instance is picked by its
 :class:`Key`: the warp-per-env one where there is one, else the fifteen
 ``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the shipped families at the
@@ -192,7 +193,11 @@ INSTANTIATIONS = {inst.key: inst for inst in (
 # A-form, and with all four PGS options off (scalar friction rows, λ from
 # zero and a factor in every substep), each the split A-form's shape
 # (their twins: the generic k1_nl22_..._aform and
-# k1_nl22_..._aform_scalar_cold_refactor)
+# k1_nl22_..._aform_scalar_cold_refactor); the walker's frame with scalar
+# friction rows (block_pgs off: a contact's t1 then t2 row, each clamped
+# alone, a butterfly each) and with a factor in every substep (reuse_factor
+# off), each K1a's shape (their twins: the generic k1_nl22_..._scalar and
+# k1_nl22_..._refactor)
 WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4", 0, Key(**_W), SOURCE_W),
     Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 1, Key(**_C), SOURCE_W),
@@ -225,6 +230,8 @@ WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4_aform", 19, Key(**_W, matfree=False), SOURCE_W),
     Instance("k1w_nl22_ns14_nlim21_sub4_it4_aform_scalar_cold_refactor", 20,
              Key(**_W, matfree=False, block=False, warm=False, reuse=False), SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_scalar", 21, Key(**_W, block=False), SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_refactor", 22, Key(**_W, reuse=False), SOURCE_W),
 )}
 
 

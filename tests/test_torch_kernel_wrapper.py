@@ -151,8 +151,9 @@ NEW_CASES = ["k1g", "k1h_si"]
 SPLIT_CASES = {"k1h_c": "k1c", "k1h_e": "k1e_cassie", "k1h_e2d": "k1e_cassie2d",
                "k1h_d": "k1d"}
 # the split cases (here, in SPLIT_REST and the A-form with split impulse of
-# chip_smoke.OPTION_CONFIGS) and the walker's other A-form keys there that
-# run a warp-per-env instance of csrc/engine_k1w.cu, by its symbol
+# chip_smoke.OPTION_CONFIGS) and the walker's other A-form keys, its scalar
+# friction key and its factor-every-substep key there that run a
+# warp-per-env instance of csrc/engine_k1w.cu, by its symbol
 SPLIT_WARP = {"k1h_c": "k1w_nl22_ns14_nlim21_sub4_it4_k6_si",
               "k1h_e": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si",
               "k1h_e2d": "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si",
@@ -165,7 +166,9 @@ SPLIT_WARP = {"k1h_c": "k1w_nl22_ns14_nlim21_sub4_it4_k6_si",
               "k1h_si_aform": "k1w_nl22_ns14_nlim21_sub4_it4_si_aform",
               "k1a_aform": "k1w_nl22_ns14_nlim21_sub4_it4_aform",
               "k1a_aform_scalar_cold_refactor":
-                  "k1w_nl22_ns14_nlim21_sub4_it4_aform_scalar_cold_refactor"}
+                  "k1w_nl22_ns14_nlim21_sub4_it4_aform_scalar_cold_refactor",
+              "k1a_scalar": "k1w_nl22_ns14_nlim21_sub4_it4_scalar",
+              "k1a_refactor": "k1w_nl22_ns14_nlim21_sub4_it4_refactor"}
 
 
 def _launch_counted(kernel, case, args):
@@ -1197,6 +1200,14 @@ def test_split_instances_are_picked_and_the_rest_refused():
             (engine.make_kernel(model, split, num_stones=6), "k6_si", 11),
             (engine.make_kernel(model.replace(kp=kp), split, pd_mode=True,
                                 extra_damping=kp / 20.0), "llc1_si", 12)):
+        assert picked.name == f"k1w_nl22_ns14_nlim21_sub4_it4_{symbol}"
+        assert engine.compile_flags(picked.instance) == [f"-DK1W_ONLY={index}"]
+    # the walker's scalar friction key and its factor-every-substep key (no
+    # split impulse) on their warp-per-env instances too
+    for picked, symbol, index in (
+            (engine.make_kernel(model, EngineConfig(block_pgs=False)), "scalar", 21),
+            (engine.make_kernel(model, EngineConfig(reuse_factor=False)), "refactor", 22)):
+        assert type(picked) is engine.K1a and picked.variant == f"k1a_{symbol}"
         assert picked.name == f"k1w_nl22_ns14_nlim21_sub4_it4_{symbol}"
         assert engine.compile_flags(picked.instance) == [f"-DK1W_ONLY={index}"]
     # the torque planar walkers' split key on its warp-per-env instance

@@ -23,7 +23,10 @@ rows), ``warm_start=False`` (λ from zero every substep) and
   instance of ``csrc/engine_k1w.cu`` (``-DK1W_HOST_CHECK``), held so beside
   its generic twin, to its matrix-free twin (the A-form's and the split
   A-form's: K1a's and K1h-si's warp-per-env instances), and to the JAX
-  package's control step on the same inputs at the same gates.
+  package's control step on the same inputs at the same gates; so do scalar
+  friction rows alone and a factor every substep alone, in the matrix-free
+  form, each held beside its generic twin and to the JAX package's control
+  step.
 """
 
 import functools
@@ -160,15 +163,16 @@ def host_cases():
 
 @pytest.mark.parametrize("label", list(chip_smoke.OPTION_CONFIGS))
 def test_option_instance_source_arithmetic_on_host(host_cases, label):
-    """The generic instance of each option key (an A-form's warp-per-env
-    instance, and beside it its generic twin), built for the host, against
-    the port's plain version at K1a's gates; the generic workspace holds the
-    A-form's NR × NR matrix and residual where the A-form runs, the
-    warp-per-env instance has none."""
+    """The generic instance of each option key (a warp-per-env instance
+    where the key has one: the A-forms', scalar friction's and a factor
+    every substep's; and beside it its generic twin), built for the host,
+    against the port's plain version at K1a's gates; the generic workspace
+    holds the A-form's NR × NR matrix and residual where the A-form runs,
+    the warp-per-env instance has none."""
     kernel, inputs, lib = host_cases[label]
     held = [(kernel, lib)]
     if kernel.key in engine.WARP_INSTANCES:
-        assert not kernel.config.matfree_pgs
+        assert kernel.name == "k1w" + engine.canonical_symbol(kernel.key).removeprefix("k1")
         assert kernel.instance is engine.WARP_INSTANCES[kernel.key]
         assert engine.layout(lib, kernel.name) == (kernel.table_host.size, 0)
         twin, _, twin_lib = host_cases[f"{label}_thread"]
