@@ -16,16 +16,20 @@ Phases, in order; any failure exits non-zero before the result lines:
    planar walkers' K1e and its split twin, the planar K1h-e, of the
    walker's split key in the A-form (``matfree_pgs=False``), of its key
    in the A-form, alone and with all four PGS options off, and of its key
-   with scalar friction rows and with a factor every substep, from
+   with scalar friction rows, with a factor every substep and with a cold
+   start, from
    ``mocca_envs_tpu_torch/csrc/engine_k1w.cu``, the fifteen
    named instances of the engine kernel from
    ``mocca_envs_tpu_torch/csrc/engine_k1.cu``, the generic instance of every
-   key phase 2 adds (split impulse on the PD walker at two llc frames,
+   key phase 2 adds (one warp per env from ``-DK1W_*`` flags: the walker
+   and the stepper at 2 substeps × 8 sweeps; one thread per env: split
+   impulse on the PD walker at two llc frames,
    and the thread-per-env twins of terrain, the stairs, the PD walker at
    one llc frame, the torque planar walkers, the walker's three A-form
-   keys and its scalar friction and factor-every-substep keys; the walker's
-   PGS options of :data:`OPTION_CONFIGS`, the all-off key's matrix-free
-   form and the A-form twins of :data:`MATFREE_OPTIONS`) and the raycast kernel
+   keys, its scalar friction, factor-every-substep and cold-start keys and
+   the two 2 × 8 keys; the all-off key's matrix-free
+   form and the A-form twins of :data:`MATFREE_OPTIONS` and of the cold
+   start) and the raycast kernel
    K2 from
    ``csrc/raycast_k2.cu`` (one nvcc process each, side by side), and print
    each one's ptxas registers and stack frame; the fifteen named frames
@@ -33,7 +37,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    spill nothing, use no global workspace and keep the registers, dynamic
    shared memory per block and envs resident per SM of :data:`WARP_BUILDS`,
    its resident blocks fitting the card's shared memory per SM (read from
-   the card, with the runtime's reserve per block);
+   the card, with the runtime's reserve per block, and equal to the sm_90
+   figures the host picks generic launch shapes from); each generic
+   warp-per-env instance must spill nothing, use no global workspace, hold
+   the envs per block the host picked and keep at least one block resident
+   per SM;
 2. each kernel vs its plain PyTorch version at B = 4096: K1a on walker
    states near contact, and against the thread-per-env K1a at
    :data:`TOL_TWIN` on those states and with every base lifted 3 m (no
@@ -109,9 +117,15 @@ Phases, in order; any failure exits non-zero before the result lines:
    friction and a factor every substep (:data:`MATFREE_OPTIONS`) by their
    warp-per-env instances against their thread-per-env twins
    (:func:`twin_and_lifted`) and against their A-form twins at
+   :data:`TOL_TWIN`; the stepper at 2 × 8 on the K1c states at K1c's gate;
+   the cold start (its named warp-per-env instance) and the walker and the
+   stepper at 2 × 8 (the generic warp-per-env instances of their keys,
+   :data:`NEW_WARP`) against their thread-per-env twins
+   (:func:`twin_and_lifted`), the cold start also against its A-form twin at
    :data:`TOL_TWIN`; each other option's
-   instance must part from the shipped one (K1a) on the same inputs by more
-   than K1a's gate in the per-env medians of q and qd
+   instance (and the stepper at 2 × 8) must part from the shipped one (K1a;
+   K1c) on the same inputs by more
+   than that gate in the per-env medians of q and qd
    (:func:`parts_from_shipped`), and each thread-per-env A-form's workspace
    must hold its NR × NR matrix and residual beside its matrix-free
    twin's. Per-env median and p99
@@ -167,7 +181,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    each
    of :data:`OPTION_CONFIGS` for 100 (its own
    instance, counted under its name and by its symbol in
-   ``engine.INSTANCE_LAUNCHES``), and K2's own entry point
+   ``engine.INSTANCE_LAUNCHES``), ``Walker3DStepperEnv-v0`` made with 2
+   substeps × 8 sweeps for 100 (the generic warp-per-env instance of its
+   key), and K2's own entry point
    ``make_raycaster`` for 10 calls of 32,768 rays with the origins moved
    between calls. A grid smaller than the K1f window and PD mode over stones
    must raise on the card before any launch. The path's kernel
@@ -208,8 +224,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    Cassie2D's K1e and of their split twins K1h-e and K1h-e2d likewise at
    each B of :data:`CASSIE_SWEEP`, those of K1b,
    K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, K1d, K1h-d, the
-   planar K1e, the planar K1h-e, the three A-forms, scalar friction and a
-   factor every substep at each B of
+   planar K1e, the planar K1h-e, the three A-forms, scalar friction, a
+   factor every substep, a cold start and the walker and the stepper at
+   2 × 8 at each B of
    :data:`WALKER_SWEEP` (an A-form's bound on its matrix-free twin's
    count), K1b at two llc frames and its split twin (no family launches
    them: their time and bound alone), the
@@ -223,8 +240,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    the terrain step's window cut and packing; the step time outside the
    kernel of the PD walkers, Cassie, the planar walkers, the monkey, the terrain families,
    the stairs, the split-impulse walker and the split stairs, terrain,
-   stepper, PD walkers and monkey, the A-forms and the walker under
-   :data:`MATFREE_OPTIONS`; the training rollouts' time per
+   stepper, PD walkers and monkey, the A-forms, the walker under
+   :data:`MATFREE_OPTIONS`, with a cold start and at 2 × 8, and the stepper
+   at 2 × 8; the training rollouts' time per
    env step outside the kernel; an A-form's bound counts its matrix-free
    twin's operations on the same activity (the same function in fewer), its
    own count printed beside it; a ``torch.profiler`` trace of one stepper
@@ -284,6 +302,13 @@ AFORMS = ("k1a_aform", "k1h_si_aform", "k1a_aform_scalar_cold_refactor")
 # single options in the matrix-free form on a warp-per-env instance (scalar
 # friction rows, a factor every substep), each with its A-form twin
 MATFREE_OPTIONS = ("k1a_scalar", "k1a_refactor")
+# the stepper at 2 substeps × 8 sweeps: a key over a scene geometry that the
+# generic warp-per-env instance runs, built from -DK1W_* flags
+STEPPER_2X8 = {"sim_substeps": 2, "solver_iters": 8}
+# the keys moved onto one warp per env last: the cold start (named), the
+# walker and the stepper at 2 × 8 (generic), each held to its thread-per-env
+# twin
+NEW_WARP = ("k1a_cold", "k1a_sub2_it8", "k1c_sub2_it8")
 # --split-impulse on the PD walkers, the planar walkers, terrain and the
 # stairs: env id → the count its launches go under
 SPLIT_FAMILIES = {"Walker3DPDCustomEnv": "k1h_b", "Child3DPDCustomEnv": "k1h_b",
@@ -358,6 +383,7 @@ WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4_aform_scalar_cold_refactor": (108, 225712, 11),
     "k1w_nl22_ns14_nlim21_sub4_it4_scalar": (64, 197008, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_refactor": (96, 197008, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_cold": (64, 197008, 16),
 }
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
@@ -878,12 +904,15 @@ def ptxas(log: str) -> dict:
     return found
 
 
-def build_report(engine, card) -> None:
+def build_report(engine, card, generic=()) -> None:
     """Phase 1's readings: the fifteen named frames as :data:`FRAMES` has
     them; each warp-per-env instance with no spill, no global workspace,
-    and its registers, shared memory and envs resident per SM as
-    :data:`WARP_BUILDS` has them, and the shared memory its resident blocks
-    and their reserves hold beside the card's per SM."""
+    at least one block resident per SM, and its registers, shared memory
+    and envs resident per SM as :data:`WARP_BUILDS` has them (each of the
+    ``generic`` warp-per-env instances: the envs per block the host picked,
+    from the card's shared memory, which must be the sm_90 figures the pick
+    assumes), and the shared memory its resident blocks and their reserves
+    hold beside the card's per SM."""
     logs = engine._Library.logs
     for symbol, want in FRAMES.items():
         got = ptxas(logs.get(symbol, ""))
@@ -894,7 +923,9 @@ def build_report(engine, card) -> None:
     smem = engine.smem_limits(engine.build()[next(iter(engine.WARP_INSTANCES.values())).symbol])
     print(f"[build] {card}: {smem['per_sm']} bytes of shared memory per SM, {smem['per_block']} "
           f"per block (opt-in), {smem['reserved_per_block']} reserved per resident block")
-    for inst in engine.WARP_INSTANCES.values():
+    check(smem == engine.SM90_SMEM, f"the card's shared memory {smem} is not the "
+                                    f"{engine.SM90_SMEM} the generic launch shapes are picked for")
+    for inst in [*engine.WARP_INSTANCES.values(), *generic]:
         lib = engine.build()[inst.symbol]
         got = ptxas(logs.get(inst.symbol, ""))
         occ = engine.occupancy(lib, inst.symbol)
@@ -913,6 +944,12 @@ def build_report(engine, card) -> None:
         print(f"[build] {inst.symbol}: {occ['blocks_per_sm']} × ({occ['smem_per_block']} + "
               f"{smem['reserved_per_block']}) = {held} of the SM's {smem['per_sm']} bytes; one "
               f"more block would need {held + occ['smem_per_block'] + smem['reserved_per_block']}")
+        if inst.index is None:
+            print(f"[build] {inst.symbol} (generic): the host picked {inst.envs} envs × "
+                  f"{inst.blocks} block of {engine.warp_env_bytes(inst.key)} bytes each")
+            check(occ["envs_per_block"] == inst.envs, f"{inst.symbol}: {occ}, the host picked "
+                                                      f"{inst.envs} envs per block")
+            continue
         want = WARP_BUILDS[inst.symbol]
         check((got["registers"], occ["smem_per_block"], occ["envs_per_sm"]) == want,
               f"{inst.symbol}: registers, shared memory per block, envs per SM "
@@ -1454,6 +1491,7 @@ def main() -> int:
     # walker's PGS options (OPTION_CONFIGS; the A-forms of AFORMS by their
     # warp-per-env instances)
     added = {
+        "k1c_sub2_it8": engine.K1c(model, EngineConfig(**STEPPER_2X8)),
         "k1h_b": engine.K1b(model.replace(kp=kp), split(config), extra_damping=kp / 20.0),
         "k1h_b_llc2": engine.K1b(model.replace(kp=kp), EngineConfig(llc_frames=2,
                                                                      split_impulse=True),
@@ -1466,9 +1504,10 @@ def main() -> int:
     }
     # the thread-per-env twins of K1h-f, K1h-g, K1h-c, K1h-b, K1h-si, the
     # planar K1h-e, the walker's three A-form keys (with split impulse,
-    # alone and with all four options off) and its scalar friction and
-    # factor-every-substep keys: the generic engine_k1.cu instances of their
-    # keys (K1h-c's and K1h-si's the named k1h_..._k6_si and k1h_..._si)
+    # alone and with all four options off), its scalar friction,
+    # factor-every-substep and cold-start keys and the walker and the
+    # stepper at 2 × 8: the generic engine_k1.cu instances of their keys
+    # (K1h-c's and K1h-si's the named k1h_..._k6_si and k1h_..._si)
     thread_twins = {"k1h_f": engine.K1f(model, split(config), HF_PATCH, thread_per_env=True),
                     "k1h_g": engine.K1g(model, split(config), thread_per_env=True),
                     "k1h_c": engine.K1c(model, split(config), thread_per_env=True),
@@ -1477,17 +1516,17 @@ def main() -> int:
                     "k1h_si": engine.K1hSi(model, split(config), thread_per_env=True),
                     "k1h_e_planar": engine.K1e(wmodel, split(config), walker2d.planar_spec(),
                                                thread_per_env=True),
-                    **{v: type(added[v])(model, EngineConfig(**OPTION_CONFIGS[v]),
-                                        thread_per_env=True) for v in (*AFORMS, *MATFREE_OPTIONS)}}
+                    **{v: type(added[v])(model, added[v].config, thread_per_env=True)
+                       for v in (*AFORMS, *MATFREE_OPTIONS, *NEW_WARP)}}
     # the all-off key's matrix-free form (the same function): the generic
-    # instance of its other three options
-    matfree_off = engine.make_kernel(model, EngineConfig(block_pgs=False, warm_start=False,
-                                                         reuse_factor=False))
-    # the A-form twins of scalar friction and of a factor every substep (the
-    # same function, written independently): the generic instances
-    aform_twins = {v: engine.make_kernel(model, EngineConfig(**OPTION_CONFIGS[v],
-                                                             matfree_pgs=False))
-                   for v in MATFREE_OPTIONS}
+    # engine_k1.cu instance of its other three options
+    matfree_off = engine.K1a(model, EngineConfig(block_pgs=False, warm_start=False,
+                                                 reuse_factor=False), thread_per_env=True)
+    # the A-form twins of scalar friction, of a factor every substep and of a
+    # cold start (the same function, written independently): the generic
+    # engine_k1.cu instances
+    aform_twins = {v: engine.K1a(model, EngineConfig(**OPTION_CONFIGS[v], matfree_pgs=False),
+                                 thread_per_env=True) for v in (*MATFREE_OPTIONS, "k1a_cold")}
 
     # ---- phase 1: build
     t0 = time.perf_counter()
@@ -1501,7 +1540,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "stack frame" in line:
                 print(f"[build] {symbol}: {line.strip()}")
-    build_report(engine, card)
+    build_report(engine, card, [k.instance for k in extra if k.instance.source == engine.SOURCE_W
+                                and k.instance.index is None])
 
     # ---- phase 2: each kernel vs its plain version at the main paths' shapes
     cuda = lambda arrays: [torch.as_tensor(x, device="cuda") for x in arrays]  # noqa: E731
@@ -1723,10 +1763,27 @@ def main() -> int:
         max_abs[v] = max(max_abs[v], twin_and_lifted(added[v], thread_twins[v],
                                                      kernels["k1a"][1], v, 3.0),
                          compare_twins(added[v], aform_twins[v], kernels["k1a"][1], v))
-    # every other option is another iteration: K1a's gate tells it from K1a
+    # the cold start by its warp-per-env instance, the walker and the stepper
+    # at 2 × 8 by the generic warp-per-env instances of their keys: against
+    # their thread-per-env twins, near contact and with every base lifted
+    # 3 m; the cold start also against its A-form twin
+    kernels["k1c_sub2_it8"] = (added["k1c_sub2_it8"], kernels["k1c"][1])
+    max_abs["k1c_sub2_it8"] = compare(*kernels["k1c_sub2_it8"], "k1c_sub2_it8")
+    for v in NEW_WARP:
+        new, twin = added[v], thread_twins[v]
+        check(new.instance.source == engine.SOURCE_W and twin.instance.source == engine.SOURCE
+              and (new.instance.index is None) == (v != "k1a_cold"),
+              f"{v}: the main path's instance {new.name} is not its warp-per-env one")
+        max_abs[v] = max(max_abs[v], twin_and_lifted(new, twin, kernels[v][1], v, 3.0))
+    max_abs["k1a_cold"] = max(max_abs["k1a_cold"], compare_twins(
+        added["k1a_cold"], aform_twins["k1a_cold"], kernels["k1a"][1], "k1a_cold"))
+    # every other option is another iteration: the shipped key's gate tells
+    # it from the shipped key
     for v in ("k1a_scalar", "k1a_cold", "k1a_refactor", "k1a_aform_scalar_cold_refactor",
               "k1a_sub2_it8"):
         parts_from_shipped(added[v], kernels["k1a"][0], kernels["k1a"][1], v)
+    parts_from_shipped(added["k1c_sub2_it8"], kernels["k1c"][0], kernels["k1c"][1],
+                       "k1c_sub2_it8")
     ray_args = cuda(raycast_inputs(rng, 8 * B))
     ray_t, ray_h = make_raycaster((129, 129))(*ray_args)
     torch.cuda.synchronize()
@@ -1839,11 +1896,15 @@ def main() -> int:
     print(f"[main] Monkey3DStepperEnv-v0 with split impulse: holding on at the end "
           f"{float((tr.metrics['holding'] > 0).float().mean()):.4f} of the envs; over the run "
           f"falls {sums['fell']:.0f}, bar hits {sums['bar_hit']:.0f}")
-    # the walker made with each PGS option configuration: its own instance
+    # the walker made with each PGS option configuration, and the stepper at
+    # 2 × 8: its own instance
     for v, fields in OPTION_CONFIGS.items():
         launches[v], _, _, _, step_ms[v], _ = drive(
             port, engine, card, "Walker3DCustomEnv-v0", 100, added[v].variant,
             instance=added[v].name, config=EngineConfig(**fields))
+    launches["k1c_sub2_it8"], _, _, _, step_ms["k1c_sub2_it8"], _ = drive(
+        port, engine, card, "Walker3DStepperEnv-v0", 100, "k1c",
+        instance=added["k1c_sub2_it8"].name, config=EngineConfig(**STEPPER_2X8))
     small_grid_raises(model, config)
     combination_refused(engine, model, config)
     launches["k2"], ray_main, raycaster = raycast_main_path(engine, card, rng)
@@ -1920,10 +1981,15 @@ def main() -> int:
                  lambda batch, r: planar_walker_states(wmodel, 1.22, r, batch), WALKER_SWEEP)
     for v, label in (("k1h_si_aform", "K1h A-form"), ("k1a_aform", "K1 A-form"),
                      ("k1a_aform_scalar_cold_refactor", "K1 all off"),
-                     ("k1a_scalar", "K1 scalar"), ("k1a_refactor", "K1 refactor")):
+                     ("k1a_scalar", "K1 scalar"), ("k1a_refactor", "K1 refactor"),
+                     ("k1a_cold", "K1 cold"), ("k1a_sub2_it8", "K1 walker 2x8")):
         design_sweep(engine, card, label, added[v], thread_twins[v],
                      lambda batch, r: near_contact_states(model, r, batch), WALKER_SWEEP,
                      matfree=matfree.get(v))
+    design_sweep(engine, card, "K1 stepper 2x8", added["k1c_sub2_it8"],
+                 thread_twins["k1c_sub2_it8"],
+                 lambda batch, r: stepper_states(model, r, config.stone_window, batch),
+                 WALKER_SWEEP)
     for v, env_id in (("k1b", "Walker3DPDCustomEnv-v0"), ("k1b_child", "Child3DPDCustomEnv-v0"),
                       ("k1f", "Walker3DTerrainEnv-v0"),
                       ("k1f_lidar", "Walker3DTerrainLidarEnv-v0"),
@@ -1937,7 +2003,7 @@ def main() -> int:
     window_and_pack_time(engine, card, terrain_state)
     for v in ("k1b", "k1b_child", "k1c", "k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d",
               "k1f", "k1f_lidar", "k1g", "k1h_si", "k1h_g", "k1h_f", "k1h_f_lidar", "k1h_c",
-              "k1h_b", "k1h_b_child", "k1h_d", *AFORMS, *MATFREE_OPTIONS):
+              "k1h_b", "k1h_b_child", "k1h_d", *AFORMS, *MATFREE_OPTIONS, *NEW_WARP):
         kernel_ms = times[v.removesuffix("_lidar").removesuffix("_child")]["ms"]
         print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {kernel_ms:.4f} "
               f"ms/call, so {step_ms[v] - kernel_ms:.3f} ms/step outside the kernel "
@@ -1972,7 +2038,8 @@ def main() -> int:
              "k1a_refactor": "k1a_engine_frame_factor_every_substep",
              "k1a_aform_scalar_cold_refactor": "k1a_engine_frame_all_options_off",
              "k1h_si_aform": "k1h_engine_frame_split_impulse_aform_pgs",
-             "k1a_sub2_it8": "k1a_engine_frame_sub2_it8", "k2": "k2_raycast"}
+             "k1a_sub2_it8": "k1a_engine_frame_sub2_it8",
+             "k1c_sub2_it8": "k1c_engine_frame_stones_sub2_it8", "k2": "k2_raycast"}
     print(json.dumps({"kernels": [{
         "name": names[v],
         "route": "cuda",

@@ -5,8 +5,9 @@ walkers, the stepper, the PD walkers and the walker on the plane, K1h-g,
 K1h-f, K1h-c, K1h-b and K1h-si, the monkey's K1d and its split twin K1h-d,
 the planar walkers' K1e and its split twin, the planar K1h-e, the walker's
 split key in the A-form, the walker's key in the A-form, alone and with
-all four PGS options off, and the walker's key with scalar friction rows and
-with a factor every substep.
+all four PGS options off, the walker's key with scalar friction rows, with
+a factor every substep and with a cold start, and the generic warp-per-env
+instance of the walker at 2 substeps × 8 sweeps.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -16,7 +17,8 @@ Run from the root of a checkout on a machine with a CUDA card:
 per SM, then builds each instance of the groups from
 ``mocca_envs_tpu_torch/csrc/engine_k1w.cu`` at each launch shape of its
 group (envs per block × the ``__launch_bounds__`` minimum of blocks per SM,
-which caps the registers; the shipped shape first) into ``build/shapes/``,
+which caps the registers; the shipped shape first; the generic instance's
+from its ``-DK1W_*`` flags, the host's pick first) into ``build/shapes/``,
 one nvcc process each, side by side; prints each one's ptxas registers and
 spills and the blocks resident per SM; holds each shape's outputs to the
 shipped shape's on its group's states (the same code: equal up to the
@@ -58,8 +60,11 @@ W = "k1w_nl22_ns14_nlim21_sub4_it4"
 # two of 16 or four of 8. The A-forms (with split impulse, alone, and with
 # all four PGS options off), whose packed A fills most of an env's shared
 # memory: one block of 11 envs (the most the SM holds), one of 8, or two
-# blocks of 5. Scalar friction and a factor every substep, K1a's EnvW: one
-# block of 16 (shipped: 1–3% faster at B = 4096), four of 4 (K1a's), two of 8
+# blocks of 5. Scalar friction, a factor every substep and a cold start,
+# K1a's EnvW: one block of 16 (shipped: 1–3% faster at B = 4096), four of 4
+# (K1a's), two of 8. The generic instance of the walker at 2 × 8 (no
+# symbols: built from flags, :data:`GENERIC`): the host's pick
+# (``engine.warp_shape``, None here), four blocks of 4, two of 8
 GROUPS = {
     "cassie": (("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2",
                 "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar"),
@@ -90,17 +95,44 @@ GROUPS = {
                   {4096: 10, 16384: 5}),
     "scalar_refactor": ((f"{W}_scalar", f"{W}_refactor"), [(16, 1), (4, 4), (8, 2)],
                         {4096: 20, 16384: 10}),
+    "cold": ((f"{W}_cold",), [(16, 1), (4, 4), (8, 2)], {4096: 20, 16384: 10}),
+    "generic": ((), [None, (4, 4), (8, 2)], {4096: 20, 16384: 10}),
 }
+# group → the engine.Key fields of its generic warp-per-env instance
+GENERIC = {"generic": dict(nl=22, ns=14, nlim=21, substeps=2, iters=8)}
+
+
+def shapes_of(engine, group) -> list:
+    """``group``'s launch shapes, the host's pick in place of None."""
+    picked = engine.warp_shape(engine.Key(**GENERIC[group])) if group in GENERIC else None
+    return [picked if shape is None else shape for shape in GROUPS[group][1]]
+
+
+def _compile(engine, inst, path: Path, lib: Path):
+    cmd = [engine.nvcc_path(), *engine.NVCC_FLAGS, f"-I{engine.SOURCE_W.parent}",
+           *engine.compile_flags(inst), "-o", str(lib), str(path)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def build_shapes(engine, out: Path, groups) -> dict:
-    """``{(envs, blocks, symbol): (CDLL, ptxas report)}`` of every shape of
-    every instance of ``groups``."""
+    """``{(envs, blocks, symbol): (CDLL, ptxas report, the library's
+    symbol)}`` of every shape of every instance of ``groups`` (a generic
+    instance under its host-picked symbol, each shape's library under its
+    own)."""
     src = engine.SOURCE_W.read_text()
     found = {m.group(2): (int(m.group(3)), int(m.group(4))) for m in INSTANCE.finditer(src)}
     out.mkdir(parents=True, exist_ok=True)
     running = []
     for group in groups:
+        if group in GENERIC:
+            key = engine.Key(**GENERIC[group])
+            picked = engine.warp_instance(key)
+            for envs, blocks in shapes_of(engine, group):
+                inst = engine.warp_instance(key, envs, blocks)
+                lib = out / f"lib{inst.symbol}.so"
+                running.append(((envs, blocks, picked.symbol), inst.symbol, lib,
+                                _compile(engine, inst, engine.SOURCE_W, lib)))
+            continue
         mine, shapes, _ = GROUPS[group]
         chip_smoke.check({found.get(s) for s in mine} == {shapes[0]},
                          f"the source's {group} instances are not at {shapes[0]}: {found}")
@@ -113,23 +145,20 @@ def build_shapes(engine, out: Path, groups) -> dict:
                 if inst.symbol not in mine:
                     continue
                 lib = out / f"lib{inst.symbol}_e{envs}_b{blocks}.so"
-                cmd = [engine.nvcc_path(), *engine.NVCC_FLAGS, f"-I{engine.SOURCE_W.parent}",
-                       *engine.compile_flags(inst), "-o", str(lib), str(path)]
-                running.append(((envs, blocks, inst.symbol), lib, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+                running.append(((envs, blocks, inst.symbol), inst.symbol, lib,
+                                _compile(engine, inst, path, lib)))
     libs = {}
-    for key, lib, proc in running:
+    for key, sym, lib, proc in running:
         log = proc.communicate()[0]
         chip_smoke.check(proc.returncode == 0, f"{key}: nvcc failed:\n{log}")
         handle = ctypes.CDLL(str(lib.resolve()))
-        sym = key[2]
         getattr(handle, sym + "_launch").argtypes = [ctypes.c_void_p] * 15 + [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         getattr(handle, sym + "_launch").restype = ctypes.c_int
         getattr(handle, sym + "_layout").argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
         getattr(handle, sym + "_occupancy").argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
         getattr(handle, sym + "_occupancy").restype = ctypes.c_int
-        libs[key] = (handle, chip_smoke.ptxas(log))
+        libs[key] = (handle, chip_smoke.ptxas(log), sym)
     return libs
 
 
@@ -143,8 +172,8 @@ def cases(engine, rng):
     monkey (hanging from its bars), also with split impulse; Walker2D (near
     contact, a little out of its plane), also with split impulse; the walker
     in the A-form with split impulse, alone and with all four PGS options off,
-    and with scalar friction rows and with a factor every substep (near
-    contact)."""
+    with scalar friction rows, with a factor every substep and with a cold
+    start, and at 2 substeps × 8 sweeps (near contact)."""
     from mocca_envs_tpu_torch.models import cassie, monkey, walker2d, walker3d
     from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
     from mocca_envs_tpu_torch.terrain.scene import HF_PATCH
@@ -198,9 +227,10 @@ def cases(engine, rng):
         config = EngineConfig(**chip_smoke.OPTION_CONFIGS[label])
         out.append((group, lambda config=config: engine.K1a(wmodel, config),
                     lambda batch: chip_smoke.near_contact_states(wmodel, rng, batch)))
-    for label in chip_smoke.MATFREE_OPTIONS:
+    for group, label in [*(("scalar_refactor", v) for v in chip_smoke.MATFREE_OPTIONS),
+                         ("cold", "k1a_cold"), ("generic", "k1a_sub2_it8")]:
         config = EngineConfig(**chip_smoke.OPTION_CONFIGS[label])
-        out.append(("scalar_refactor", lambda config=config: engine.K1a(wmodel, config),
+        out.append((group, lambda config=config: engine.K1a(wmodel, config),
                     lambda batch: chip_smoke.near_contact_states(wmodel, rng, batch)))
     return out
 
@@ -231,11 +261,11 @@ def main(argv=None) -> int:
     for group, make, states in cases(engine, rng):
         if group not in groups:
             continue
-        _, shapes, batches = GROUPS[group]
+        shapes, batches = shapes_of(engine, group), GROUPS[group][2]
         kernels = {}
         for envs, blocks in shapes:
             k = make()
-            lib, report = libs[(envs, blocks, k.name)]
+            lib, report, k.name = libs[(envs, blocks, k.name)]
             # the wrapper launches this shape's library (its checks unchanged)
             k._lib, k._layout = lib, engine.layout(lib, k.name)
             occ = engine.occupancy(lib, k.name)

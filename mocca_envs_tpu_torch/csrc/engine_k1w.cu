@@ -46,7 +46,14 @@
 //   K1 scalar, K1 refactor  K1a's key in the matrix-free form with scalar
 //        friction rows (block_pgs off: a contact's t1 then t2 row, each
 //        clamped alone, a butterfly each), and with a CRBA and factor in
-//        every substep (reuse_factor off), each K1a's shape.
+//        every substep (reuse_factor off), each K1a's shape;
+//   K1 cold  K1a's key with a cold start (warm_start off: Cfg::WARM false);
+//   and any other key this source holds (NV <= 32, at most one of a
+//        heightfield, stones, a mesh and bars, one llc frame per call: other
+//        substeps and sweeps, model sizes, windows, option mixes), as one
+//        instance built from -DK1W_* flags (K1W_NAME and the Cfg arguments;
+//        ops/cuda/engine.py::warp_instance picks its launch shape: as many
+//        envs per block as an SM's shared memory holds, one block per SM).
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
 // make_pallas_substep (pallas_call at :1441) for those configurations (with
@@ -314,7 +321,10 @@
 // identities and the envs run as a plain loop: tests check this file's
 // arithmetic there, and the card checks the split across lanes. With
 // K1W_ONLY=<n> defined only the n-th instance is compiled, so that one
-// compiler process per instance can build them side by side.
+// compiler process per instance can build them side by side; with K1W_NAME
+// defined, only the generic instance of the -DK1W_* flags. Each instance
+// exports <sym>_env_bytes, sizeof(EnvW), which the host's pick of a generic
+// launch shape is checked against.
 //
 // Interface (all f32, contiguous, row-major), as engine_k1.cu's:
 //   q (B,NQ), qd (B,NV), tau (B,NJ) (PD: the joint targets), ground_z (B,),
@@ -1692,7 +1702,8 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
     *table_size = NAME##_cfg::L::SIZE;                                                       \
     *ws_per_env = 0;                                                                         \
     return 0;                                                                                \
-  }
+  }                                                                                          \
+  extern "C" int NAME##_env_bytes() { return (int)sizeof(k1w::EnvW<NAME##_cfg>); }
 #ifndef K1W_HOST_CHECK
 #define K1W_INSTANCE(NAME, ...)                                                              \
   K1W_LAYOUT(NAME, __VA_ARGS__)                                                              \
@@ -1748,6 +1759,18 @@ extern "C" int k1w_smem_limits(int* per_sm, int* per_block, int* reserved) {
   }
 #endif
 
+#ifdef K1W_NAME
+// Any other key the source holds (NV <= 32, at most one of a heightfield,
+// stones, a mesh and bars, one llc frame per call): one instance whose name,
+// Cfg arguments and launch shape come from -D macros (ops/cuda/engine.py::
+// compile_flags), built at its first use; REGCHOL where a factor is made in
+// every substep of the matrix-free form, as the refactor key ships it. (One
+// more expansion, so that the name is substituted before it is pasted.)
+#define K1W_GENERIC(...) K1W_INSTANCE(__VA_ARGS__)
+K1W_GENERIC(K1W_NAME, K1W_NL, K1W_NS, K1W_NLIM, K1W_NSUB, K1W_ITERS, K1W_PD, K1W_NLLC, K1W_NP2P,
+            K1W_PLANAR, K1W_ENVS, K1W_BLOCKS, K1W_PHF, K1W_K, K1W_KT, K1W_SPLIT, K1W_KB,
+            K1W_NGRAB, K1W_MATFREE, K1W_BLOCK, K1W_WARM, K1W_REUSE, K1W_MATFREE && !K1W_REUSE)
+#else
 // Walker3D / Child3D at the shipped EngineConfig: 22 links, 14 spheres, 21
 // limit rows, 4 substeps, 4 sweeps (K1a); 4 envs per block, 4 blocks per SM
 #if !defined(K1W_ONLY) || K1W_ONLY == 0
@@ -1908,3 +1931,11 @@ K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_scalar, 22, 14, 21, 4, 4, false, 1, 0
 K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_refactor, 22, 14, 21, 4, 4, false, 1, 0, false, 16, 1,
              0, 0, 0, false, 0, 0, true, true, true, false, true)
 #endif
+// K1a's key with a cold start (warm_start off): λ from zero in every
+// substep, nothing carried across substeps or calls; one block of 16 envs
+// per SM
+#if !defined(K1W_ONLY) || K1W_ONLY == 23
+K1W_INSTANCE(k1w_nl22_ns14_nlim21_sub4_it4_cold, 22, 14, 21, 4, 4, false, 1, 0, false, 16, 1, 0, 0,
+             0, false, 0, 0, true, true, false)
+#endif
+#endif  // K1W_NAME

@@ -22,20 +22,26 @@ K1h-e2d, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, the walker's on the plane,
 K1h-d, the monkey's, and the planar K1h-e, the planar walkers'; the
 walker's split key in the A-form; the walker's key in the A-form, alone
 and with the other three PGS options off; and the walker's key with scalar
-friction rows, and with a factor in every substep), and
-``csrc/engine_k1.cu``, one thread per env, for every other key. An instance is picked by its
-:class:`Key`: the warp-per-env one where there is one, else the fifteen
+friction rows, with a factor in every substep and with a cold start), and
+any other key it holds (:func:`warp_holds`) on a generic warp-per-env
+instance; and ``csrc/engine_k1.cu``, one thread per env, for the keys it
+cannot hold (more than 27 links, two scene geometries, PD at several llc
+frames per launch). An instance is picked by its :class:`Key`
+(:func:`instance_for`): the named warp-per-env one where there is one, else
+the generic warp-per-env one where the source holds the key, whose name,
+template arguments and launch shape come from ``-DK1W_*`` preprocessor
+flags (:func:`warp_instance`, :func:`compile_flags`; as many envs per
+block as an SM's shared memory holds, one block per SM), else the fifteen
 ``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the shipped families at the
-shipped options) and, for any other key, the generic instance whose name
-(:func:`canonical_symbol`) and template arguments come from preprocessor
-flags (:func:`compile_flags`). The thread-per-env instances of the warp
-keys stay built; only ``thread_per_env=True`` reaches them, to compare the
-two designs. :func:`build` compiles them with ``nvcc`` for ``sm_90a`` into
-``build/``, one compiler process per instance, all started together (with
-the raycast kernel K2 of ``csrc/raycast_k2.cu``, whose wrapper is
-``ops/raycast.py``); a generic instance is built at the first launch of its
-key. They are called through a plain C interface with
-``ctypes``.
+shipped options), else the generic ``engine_k1.cu`` instance
+(:func:`canonical_symbol`, ``-DK1_*`` flags). The thread-per-env instances
+of the warp keys stay built; only ``thread_per_env=True`` reaches them, to
+compare the two designs. :func:`build` compiles them with ``nvcc`` for
+``sm_90a`` into ``build/``, one compiler process per instance, all started
+together (with the raycast kernel K2 of ``csrc/raycast_k2.cu``, whose
+wrapper is ``ops/raycast.py``), each library named by its symbol and its
+flags; a generic instance is built at the first launch of its key. They
+are called through a plain C interface with ``ctypes``.
 
 - :class:`K1a`, :class:`K1c`, :class:`K1b`, :class:`K1e`, :class:`K1d`,
   :class:`K1f`, :class:`K1g`, :class:`K1hSi` wrap one (model, config):
@@ -60,6 +66,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import hashlib
 import os
 import shutil
 import subprocess
@@ -128,13 +135,17 @@ class Instance:
     """One instantiation of a kernel template in ``source``: one of the
     fifteen ``engine_k1.cu`` names (``index`` is its K1_ONLY number), one of
     the warp-per-env instances of ``engine_k1w.cu`` (``index`` is its
-    K1W_ONLY number) or, for any other key, the generic one (``index`` None)
-    built from ``compile_flags``."""
+    K1W_ONLY number) or, for any other key, a generic one (``index`` None)
+    built from ``compile_flags``: of ``engine_k1w.cu`` where that source
+    holds the key (:func:`warp_holds`; ``envs`` envs per block, registers
+    for ``blocks`` blocks per SM), else of ``engine_k1.cu``."""
 
     symbol: str   # C symbol prefix
     index: int | None
     key: Key
     source: Path = SOURCE
+    envs: int = 0
+    blocks: int = 0
 
 
 _W = dict(nl=22, ns=14, nlim=21, substeps=4, iters=4)         # Walker3D / Child3D
@@ -197,7 +208,10 @@ INSTANTIATIONS = {inst.key: inst for inst in (
 # friction rows (block_pgs off: a contact's t1 then t2 row, each clamped
 # alone, a butterfly each) and with a factor in every substep (reuse_factor
 # off), each K1a's shape (their twins: the generic k1_nl22_..._scalar and
-# k1_nl22_..._refactor)
+# k1_nl22_..._refactor); and the walker's frame with a cold start (warm_start
+# off: λ from zero in every substep), K1a's Cfg with WARM false (its twin:
+# the generic k1_nl22_..._cold). Any other key the source holds runs its
+# generic warp-per-env instance (warp_instance), built at its first launch
 WARP_INSTANCES = {inst.key: inst for inst in (
     Instance("k1w_nl22_ns14_nlim21_sub4_it4", 0, Key(**_W), SOURCE_W),
     Instance("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2", 1, Key(**_C), SOURCE_W),
@@ -232,6 +246,7 @@ WARP_INSTANCES = {inst.key: inst for inst in (
              Key(**_W, matfree=False, block=False, warm=False, reuse=False), SOURCE_W),
     Instance("k1w_nl22_ns14_nlim21_sub4_it4_scalar", 21, Key(**_W, block=False), SOURCE_W),
     Instance("k1w_nl22_ns14_nlim21_sub4_it4_refactor", 22, Key(**_W, reuse=False), SOURCE_W),
+    Instance("k1w_nl22_ns14_nlim21_sub4_it4_cold", 23, Key(**_W, warm=False), SOURCE_W),
 )}
 
 
@@ -249,24 +264,105 @@ def canonical_symbol(key: Key) -> str:
     return "_".join(parts)
 
 
+# the shared memory of the cards the sm_90a build runs on (compute
+# capability 9.0: H100, H200, GH200), in bytes: per SM, per block (opt-in)
+# and the reserve the runtime keeps per resident block
+SM90_SMEM = {"per_sm": 233472, "per_block": 232448, "reserved_per_block": 1024}
+WARP_MAX_ENVS = 32   # a block of 1,024 threads
+
+
+def warp_holds(key: Key) -> bool:
+    """Whether ``csrc/engine_k1w.cu`` holds ``key``, from the key alone: one
+    lane per velocity DOF (NV = NL + 5 <= 32), at most one of stones, a
+    heightfield window, mesh faces and bars, and one llc frame per launch."""
+    scenes = (key.stones > 0) + (key.hf > 0) + (key.tris > 0) + (key.bars > 0)
+    return key.nl + 5 <= 32 and scenes <= 1 and key.llc == 1
+
+
+def table_floats(key: Key) -> int:
+    """Floats of the packed model table of ``key`` (``Layout::SIZE`` in
+    ``csrc/k1_common.cuh``)."""
+    nl, nj, ns = key.nl, key.nl - 1, key.ns
+    return (12 + nl + nj * 10 + nl * 13 + ns * 5 + nj * 7 + key.nlim + nl * nj
+            + 8 * key.rods + 4 * key.grabs + (ns if key.bars else 0))
+
+
+def warp_env_bytes(key: Key) -> int:
+    """Bytes of one env's state in ``csrc/engine_k1w.cu`` (``sizeof(EnvW)``
+    of the key's ``Cfg``), counted from its members in their order: the
+    non-empty bases, then the members and the union of W with the scratch
+    written before it. All are 4-byte floats and ints but the heightfield
+    window's pointer, which aligns its base and the whole to 8 bytes. The
+    source exports the same number (``<sym>_env_bytes``); :func:`build`
+    holds every warp-per-env library to it."""
+    nl, nj, ns, nlim = key.nl, key.nl - 1, key.ns, key.nlim
+    nv, nq = nj + 6, nj + 7
+    ne0 = 3 * key.rods + (3 if key.planar else 0)
+    nr = ne0 + 3 * key.grabs + nlim + 3 * ns
+    general = key.hf or key.stones or key.tris or key.bars
+    kin = 10 * nl + nv                     # quaternions, ω, COMs, the bias
+    kin_in_w = ne0 > 0
+    before_hf = 4 * ((nj if key.pd else 0) + 6 * key.rods + (3 * ns if general else 0))
+    size = (before_hf + 7) // 8 * 8 + 24 if key.hf else before_hf
+    size += 4 * (11 * key.stones + 10 * key.tris + (2 * (nlim + ns) if key.split else 0)
+                 + 8 * key.bars + 7 * key.grabs
+                 + (0 if key.matfree else nr * (nr + 1) // 2) + (0 if kin_in_w else kin))
+    members = (nq + nv + nj + 2 + 3 * nl + 3 * nj + 4 * ns + nv + nv * (nv + 1) // 2 + nv
+               + 5 * nr + 3 * ns)
+    scratch = max(ns * (3 + key.bars) if key.bars else 0, 12 * nl, 13 * nl)
+    w = max(nr * (nv | 1), (kin if kin_in_w else 0) + scratch)
+    size += 4 * (members + w)
+    return (size + 7) // 8 * 8 if key.hf else size
+
+
+def warp_shape(key: Key) -> tuple[int, int]:
+    """The launch shape of the generic warp-per-env instance of ``key``:
+    (envs per block, blocks per SM). As many envs per block as one SM's
+    shared memory holds beside the block's model table, less the runtime's
+    reserve, at most 32; one block per SM, so that the registers may take
+    up to 65,536 / (32 · envs). 0 envs where not one env fits: :func:`build`
+    refuses that instance, naming the key and the bytes."""
+    table = ((table_floats(key) + key.nl) * 4 + 15) // 16 * 16
+    room = min(SM90_SMEM["per_sm"] - SM90_SMEM["reserved_per_block"],
+               SM90_SMEM["per_block"]) - table
+    return max(0, min(WARP_MAX_ENVS, room // warp_env_bytes(key))), 1
+
+
+def warp_instance(key: Key, envs: int | None = None, blocks: int | None = None) -> Instance:
+    """The generic warp-per-env instance of ``key`` at the launch shape of
+    :func:`warp_shape` (or at ``envs`` × ``blocks``): its symbol is ``k1w``,
+    :func:`canonical_symbol`'s tags, then the shape, so that it never
+    collides with the ``engine_k1.cu`` twin of its key."""
+    if envs is None or blocks is None:
+        envs, blocks = warp_shape(key)
+    symbol = "k1w" + canonical_symbol(key).removeprefix("k1") + f"_{envs}x{blocks}"
+    return Instance(symbol, None, key, SOURCE_W, envs, blocks)
+
+
 def instance_for(key: Key, thread_per_env: bool = False) -> Instance:
-    """The warp-per-env instance of ``key`` where there is one (unless
-    ``thread_per_env``), else its named ``engine_k1.cu`` instance, else the
-    generic one."""
-    if not thread_per_env and key in WARP_INSTANCES:
-        return WARP_INSTANCES[key]
+    """The instance that runs ``key``, in this order: its named warp-per-env
+    instance; else, where ``csrc/engine_k1w.cu`` holds the key
+    (:func:`warp_holds`, a rule on the key alone), the generic warp-per-env
+    one (:func:`warp_instance`); else its named ``engine_k1.cu`` instance;
+    else the generic ``engine_k1.cu`` one. ``thread_per_env`` skips the
+    first two: the named ``engine_k1.cu`` instance, or the generic one."""
+    if not thread_per_env:
+        if key in WARP_INSTANCES:
+            return WARP_INSTANCES[key]
+        if warp_holds(key):
+            return warp_instance(key)
     return INSTANTIATIONS.get(key) or Instance(canonical_symbol(key), None, key)
 
 
 def compile_flags(inst: Instance) -> list:
     """The preprocessor flags that select ``inst`` from the source, for nvcc
-    and for the host check alike: ``K1W_ONLY`` for a warp-per-env instance,
-    ``K1_ONLY`` for a named one, else the generic instance's name and
-    template arguments."""
-    if inst.source == SOURCE_W:
-        return [f"-DK1W_ONLY={inst.index}"]
+    and for the host check alike: ``K1W_ONLY`` for a named warp-per-env
+    instance, ``K1_ONLY`` for a named one, else the generic instance's name,
+    template arguments and (one warp per env) launch shape, as
+    ``-DK1W_*`` or ``-DK1_*``."""
     if inst.index is not None:
-        return [f"-DK1_ONLY={inst.index}"]
+        return [f"-DK1W_ONLY={inst.index}" if inst.source == SOURCE_W
+                else f"-DK1_ONLY={inst.index}"]
     k = inst.key
     b = lambda x: "true" if x else "false"  # noqa: E731
     values = {"NAME": inst.symbol, "NL": k.nl, "NS": k.ns, "NLIM": k.nlim, "NSUB": k.substeps,
@@ -274,6 +370,9 @@ def compile_flags(inst: Instance) -> list:
               "PLANAR": b(k.planar), "KB": k.bars, "NGRAB": k.grabs, "PHF": k.hf, "KT": k.tris,
               "SPLIT": b(k.split), "MATFREE": b(k.matfree), "BLOCK": b(k.block),
               "WARM": b(k.warm), "REUSE": b(k.reuse)}
+    if inst.source == SOURCE_W:
+        values.update(ENVS=inst.envs, BLOCKS=inst.blocks)
+        return [f"-DK1W_{name}={v}" for name, v in values.items()]
     return [f"-DK1_{name}={v}" for name, v in values.items()]
 
 
@@ -307,19 +406,38 @@ class _Library:
     logs: dict = {}
 
 
+def library_path(symbol: str, flags) -> Path:
+    """Where the library of ``symbol`` built with the preprocessor ``flags``
+    lies in ``build/``: named by the symbol and a hash of nvcc's flags and
+    these, so that a library built with other flags (another launch shape,
+    other template arguments) is never taken for it."""
+    digest = hashlib.sha256(" ".join([*NVCC_FLAGS, *flags]).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{symbol}-{digest}.so"
+
+
 def build(instances=()) -> dict:
     """Compile the warp-per-env instances of ``csrc/engine_k1w.cu``, the
     fifteen named instances of ``csrc/engine_k1.cu``, each of ``instances``
-    (a generic thread-per-env one included) and the raycast kernel of
-    ``csrc/raycast_k2.cu`` whose library is missing or older than its
-    sources, all compilers started together, and load them:
-    ``{symbol: CDLL}``. What is loaded already is kept; a
-    failed build raises with nvcc's output; ``_Library.logs`` keeps nvcc's
-    report per symbol."""
+    (a generic one of either source included) and the raycast kernel of
+    ``csrc/raycast_k2.cu`` whose library (:func:`library_path`) is missing
+    or older than its sources, all compilers started together, and load
+    them: ``{symbol: CDLL}``. What is loaded already is kept; a failed
+    build raises with nvcc's output, and so does a generic warp-per-env
+    instance that holds no whole env in an SM's shared memory, or a
+    warp-per-env library that counts another env size than
+    :func:`warp_env_bytes`;
+    ``_Library.logs`` keeps nvcc's report per symbol."""
     insts = {i.symbol: i for i in [*WARP_INSTANCES.values(), *INSTANTIATIONS.values(),
                                    *instances]}
     if all(sym in _Library.handles for sym in [*insts, RAYCAST_SYMBOL]):
         return _Library.handles
+    for inst in insts.values():
+        if inst.source == SOURCE_W and inst.index is None and inst.envs < 1:
+            raise RuntimeError(
+                f"{inst.key}: one env's state takes {warp_env_bytes(inst.key)} bytes of shared "
+                f"memory "
+                f"beside a model table of {table_floats(inst.key) * 4} bytes; an SM holds "
+                f"{SM90_SMEM['per_sm'] - SM90_SMEM['reserved_per_block']} bytes for a block")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = [(sym, inst.source, compile_flags(inst)) for sym, inst in insts.items()
             if sym not in _Library.handles]
@@ -327,7 +445,7 @@ def build(instances=()) -> dict:
         jobs.append((RAYCAST_SYMBOL, RAYCAST_SOURCE, []))
     running = []
     for symbol, source, flags in jobs:
-        lib = BUILD_DIR / f"lib{symbol}.so"
+        lib = library_path(symbol, flags)
         newest = max(p.stat().st_mtime for p in (source, HEADER))
         if lib.exists() and lib.stat().st_mtime >= newest:
             continue
@@ -347,8 +465,8 @@ def build(instances=()) -> dict:
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("\n".join(failed))
-    for symbol, _, _ in jobs:
-        lib = ctypes.CDLL(str(BUILD_DIR / f"lib{symbol}.so"))
+    for symbol, _, flags in jobs:
+        lib = ctypes.CDLL(str(library_path(symbol, flags)))
         if symbol == RAYCAST_SYMBOL:
             fn = getattr(lib, RAYCAST_SYMBOL + "_launch")
             # origins, directions, grid, H, W, xy0, cell, max_t, dt, steps, t
@@ -363,6 +481,11 @@ def build(instances=()) -> dict:
             if insts[symbol].source == SOURCE_W:
                 getattr(lib, symbol + "_occupancy").argtypes = [ctypes.POINTER(_I)] * 3
                 getattr(lib, symbol + "_occupancy").restype = _I
+                getattr(lib, symbol + "_env_bytes").restype = _I
+                got, want = getattr(lib, symbol + "_env_bytes")(), warp_env_bytes(insts[symbol].key)
+                if got != want:
+                    raise RuntimeError(f"{symbol}: the source's env takes {got} bytes, the host "
+                                       f"counts {want} (warp_env_bytes)")
         fn.restype = _I
         _Library.handles[symbol] = lib
     return _Library.handles
@@ -559,10 +682,11 @@ class EngineKernel:
     counted under that name; ``split`` says whether this one runs it. Each
     PGS option ``config`` turns off adds its tag to the count's name
     (:data:`OPTION_TAGS`). The instance is the one of the key
-    (:func:`kernel_key`): the warp-per-env one, a named one, or the generic
-    one built at its first launch; ``thread_per_env`` takes the
-    ``engine_k1.cu`` instance where the key has a warp-per-env one (to
-    compare the two designs; no entry point passes it).
+    (:func:`kernel_key`, :func:`instance_for`): a named warp-per-env one,
+    the generic warp-per-env one, a named ``engine_k1.cu`` one, or the
+    generic ``engine_k1.cu`` one, each generic one built at its first
+    launch; ``thread_per_env`` takes the ``engine_k1.cu`` instance of the
+    key (to compare the two designs; no entry point passes it).
     """
 
     variant = "k1"

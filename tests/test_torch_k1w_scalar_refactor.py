@@ -62,7 +62,7 @@ def _kernel(kind, thread_per_env=False, model=None):
 
 def _aform(kind, model):
     return engine.K1a(model, EngineConfig(**chip_smoke.OPTION_CONFIGS[LABEL[kind]],
-                                          matfree_pgs=False))
+                                          matfree_pgs=False), thread_per_env=True)
 
 
 @pytest.fixture(scope="module")

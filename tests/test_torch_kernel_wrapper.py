@@ -303,11 +303,24 @@ def test_launch_refuses_cpu_tensors(case):
 
 
 def _assert_generic(kernel, symbol, variant=None):
-    """``kernel`` runs the generic instance of its key, named ``symbol``,
-    built from the flags that name it (and counts under ``variant``)."""
-    assert kernel.name == symbol == engine.canonical_symbol(kernel.key)
-    assert kernel.instance.index is None and kernel.key not in engine.INSTANTIATIONS
-    assert f"-DK1_NAME={symbol}" in engine.compile_flags(kernel.instance)
+    """``kernel`` runs a generic instance of its key, built from the flags
+    that name it (and counts under ``variant``): where ``csrc/engine_k1w.cu``
+    holds the key and ``thread_per_env`` was not asked for, the generic
+    warp-per-env one (``k1w``, ``symbol``'s tags, the launch shape), else
+    the generic ``engine_k1.cu`` one, named ``symbol``, which is the key's
+    thread-per-env twin either way."""
+    twin = engine.instance_for(kernel.key, thread_per_env=True)
+    assert twin.symbol == symbol == engine.canonical_symbol(kernel.key)
+    assert twin.index is None and kernel.key not in engine.INSTANTIATIONS
+    assert f"-DK1_NAME={symbol}" in engine.compile_flags(twin)
+    assert kernel.instance in (engine.instance_for(kernel.key), twin)
+    if kernel.instance.source == engine.SOURCE_W:
+        assert engine.warp_holds(kernel.key) and kernel.key not in engine.WARP_INSTANCES
+        assert kernel.instance == engine.warp_instance(kernel.key) and kernel.instance.envs > 0
+        assert kernel.name.startswith("k1w" + symbol.removeprefix("k1") + "_")
+        assert f"-DK1W_NAME={kernel.name}" in engine.compile_flags(kernel.instance)
+    else:
+        assert kernel.name == symbol
     if variant is not None:
         assert kernel.variant == variant
 
@@ -326,19 +339,23 @@ K1A_KEYS = (({"warm_start": False}, f"{W}_sub4_it4_cold", "k1a_cold"),
 @pytest.mark.parametrize("change, symbol, variant",
                          [pytest.param(*c, id=next(iter(c[0]))) for c in K1A_KEYS])
 def test_k1a_refuses_what_it_has_no_instantiation_for(change, symbol, variant):
-    """K1a takes every PGS option and any substeps or sweeps, each on the
-    generic instance of its key (the A-form on its warp-per-env instance, the
-    generic one its twin), counted under its option's tag; split impulse on
-    the walker's plane stays K1hSi's."""
+    """K1a takes every PGS option and any substeps or sweeps, counted under
+    its option's tag: each PGS option off alone on its named warp-per-env
+    instance, other substeps or sweeps on the generic warp-per-env instance
+    of their key; the generic engine_k1.cu instance is each one's twin;
+    split impulse on the walker's plane stays K1hSi's."""
     if symbol is None:
         with pytest.raises(NotImplementedError, match="split_impulse"):
             engine.K1a(walker3d.make_model(), EngineConfig(**change))
         return
     kernel = engine.K1a(walker3d.make_model(), EngineConfig(**change))
+    assert kernel.instance.source == engine.SOURCE_W
     if kernel.key in engine.WARP_INSTANCES:
         assert kernel.instance is engine.WARP_INSTANCES[kernel.key]
         assert kernel.name == "k1w" + symbol.removeprefix("k1") and kernel.variant == variant
-        kernel = engine.K1a(walker3d.make_model(), EngineConfig(**change), thread_per_env=True)
+    else:
+        _assert_generic(kernel, symbol, variant)
+    kernel = engine.K1a(walker3d.make_model(), EngineConfig(**change), thread_per_env=True)
     _assert_generic(kernel, symbol, variant)
 
 
@@ -414,10 +431,11 @@ def test_k1e_is_picked_by_the_constraints():
 
 
 def test_k1a_refuses_other_model_sizes():
-    """Another model size is a key of the generic instance: a one-legged
+    """Another model size is a key of the generic instances: a one-legged
     hopper (2 links, 1 sphere, 1 limit row) at the JAX package's gate
-    configuration, 2 substeps × 8 sweeps, built for the host, against the
-    plain version at K1a's gates."""
+    configuration, 2 substeps × 8 sweeps, on the generic warp-per-env
+    instance and on its generic engine_k1.cu twin, each built for the host,
+    against the plain version at K1a's gates."""
     from mocca_envs_tpu_torch.models.schema import ModelBuilder
 
     b = ModelBuilder("hopper", floating=True)
@@ -439,9 +457,13 @@ def test_k1a_refuses_other_model_sizes():
     qd = (0.3 * rng.standard_normal((B, model.nv))).astype(np.float32)
     tau = rng.uniform(-5.0, 5.0, (B, 1)).astype(np.float32)
     inputs = [q, qd, tau, np.zeros(B, np.float32), np.full(B, 0.8, np.float32)]
-    outs = run_on_host(build_host([kernel])[kernel.name], kernel, inputs)
+    twin = engine.K1a(model, EngineConfig(sim_substeps=2, solver_iters=8), thread_per_env=True)
+    _assert_generic(twin, "k1_nl2_ns1_nlim1_sub2_it8", "k1a")
+    assert kernel.instance.source == engine.SOURCE_W and twin.instance.source == engine.SOURCE
+    libs = build_host([kernel, twin])
     want = [t.numpy() for t in kernel.plain(*map(torch.as_tensor, inputs))]
-    _gate_medians(outs, want)
+    for k in (kernel, twin):
+        _gate_medians(run_on_host(libs[k.name], k, inputs), want)
     assert (want[3] > 0).mean() > 0.2                 # the foot carries load
 
 

@@ -13,9 +13,10 @@ rows), ``warm_start=False`` (λ from zero every substep) and
   medians within q 2e-4, qd 5e-3, depth 2e-4, normal impulse 5e-3, the
   largest env within ten times. Each case compiles its own JAX step, once
   per process.
-- The kernel source's generic instance of each of those keys, and of the
-  walker at the JAX gates' 2 substeps × 8 sweeps, built for the host
-  (``-DK1_HOST_CHECK``), against the port's plain version at the same gates;
+- The thread-per-env twin (the generic ``engine_k1.cu`` instance) of each
+  of those keys, and of the walker at the JAX gates' 2 substeps × 8 sweeps,
+  built for the host (``-DK1_HOST_CHECK``), against the port's plain
+  version at the same gates;
   each A-form against its matrix-free twin at the JAX package's gate
   between the two forms: per-env medians within q 2e-5, qd 5e-4, depth
   2e-5, impulse 5e-4, the largest env within ten times. The A-form, alone,
@@ -26,7 +27,11 @@ rows), ``warm_start=False`` (λ from zero every substep) and
   package's control step on the same inputs at the same gates; so do scalar
   friction rows alone and a factor every substep alone, in the matrix-free
   form, each held beside its generic twin and to the JAX package's control
-  step.
+  step; and so does a cold start alone, on its named warp-per-env instance,
+  and the walker at 2 × 8 on the generic warp-per-env instance of its key
+  (``-DK1W_*`` flags), each held beside its generic twin to the plain
+  version (the port's plain path at 2 × 8 is held to the JAX package's in
+  tests/test_torch_physics.py).
 """
 
 import functools
@@ -107,7 +112,7 @@ def test_walker_option_control_step_matches_jax(label):
     _gate(got, want, TOL)
     assert (want[3] > 0).mean() > 0.05                  # contacts carry load
     kernel = engine.make_kernel(twalker.make_model(), TConfig(**OPTIONS[label]))
-    if kernel.key in engine.WARP_INSTANCES:
+    if kernel.instance.source == engine.SOURCE_W:
         # its warp-per-env instance, built for the host, on the same torques
         # (one llc frame is the walker's control step)
         flat = tscene.flat(len(q))
@@ -153,9 +158,9 @@ def host_cases():
     kernels["k1a"] = engine.K1a(model, TConfig())
     kernels["k1h_si"] = engine.K1hSi(model, TConfig(split_impulse=True))
     # the thread-per-env twins of the keys that run one warp per env (the
-    # A-forms': generic; K1a's and K1h-si's: named)
+    # options' and 2 × 8's: generic; K1a's and K1h-si's: named)
     for v, kernel in list(kernels.items()):
-        if kernel.key in engine.WARP_INSTANCES:
+        if kernel.instance.source == engine.SOURCE_W:
             kernels[f"{v}_thread"] = type(kernel)(model, kernel.config, thread_per_env=True)
     libs = build_host(kernels.values())
     return {v: (k, inputs, libs[k.name]) for v, k in kernels.items()}
@@ -163,17 +168,23 @@ def host_cases():
 
 @pytest.mark.parametrize("label", list(chip_smoke.OPTION_CONFIGS))
 def test_option_instance_source_arithmetic_on_host(host_cases, label):
-    """The generic instance of each option key (a warp-per-env instance
-    where the key has one: the A-forms', scalar friction's and a factor
-    every substep's; and beside it its generic twin), built for the host,
+    """The instance of each option key, one warp per env (named for each
+    option off alone, the A-form with split impulse and all four off; the
+    generic warp-per-env one for 2 × 8), and beside it its generic
+    thread-per-env twin, built for the host,
     against the port's plain version at K1a's gates; the generic workspace
     holds the A-form's NR × NR matrix and residual where the A-form runs,
     the warp-per-env instance has none."""
     kernel, inputs, lib = host_cases[label]
     held = [(kernel, lib)]
-    if kernel.key in engine.WARP_INSTANCES:
-        assert kernel.name == "k1w" + engine.canonical_symbol(kernel.key).removeprefix("k1")
-        assert kernel.instance is engine.WARP_INSTANCES[kernel.key]
+    if kernel.instance.source == engine.SOURCE_W:
+        # its named warp-per-env instance, or (2 × 8) the generic one
+        named = "k1w" + engine.canonical_symbol(kernel.key).removeprefix("k1")
+        if kernel.key in engine.WARP_INSTANCES:
+            assert kernel.name == named and kernel.instance is engine.WARP_INSTANCES[kernel.key]
+        else:
+            assert kernel.instance == engine.warp_instance(kernel.key)
+            assert kernel.name == f"{named}_{kernel.instance.envs}x{kernel.instance.blocks}"
         assert engine.layout(lib, kernel.name) == (kernel.table_host.size, 0)
         twin, _, twin_lib = host_cases[f"{label}_thread"]
         assert twin.key == kernel.key
