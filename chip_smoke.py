@@ -22,12 +22,14 @@ Phases, in order; any failure exits non-zero before the result lines:
    named instances of the engine kernel from
    ``mocca_envs_tpu_torch/csrc/engine_k1.cu``, the generic instance of every
    key phase 2 adds (one warp per env from ``-DK1W_*`` flags: the walker
-   and the stepper at 2 substeps × 8 sweeps; one thread per env: split
-   impulse on the PD walker at two llc frames,
-   and the thread-per-env twins of terrain, the stairs, the PD walker at
+   and the stepper at 2 substeps × 8 sweeps, and the PD keys of several
+   llc frames of :data:`LLC_KEYS`, K1b and its split twin K1h-b at two llc
+   frames and Cassie's K1e at five; one thread per env: the
+   thread-per-env twins of terrain, the stairs, the PD walker at
    one llc frame, the torque planar walkers, the walker's three A-form
-   keys, its scalar friction, factor-every-substep and cold-start keys and
-   the two 2 × 8 keys; the all-off key's matrix-free
+   keys, its scalar friction, factor-every-substep and cold-start keys,
+   the two 2 × 8 keys, K1h-b at two llc frames and Cassie at five (K1b's
+   at two is the named ``k1b_..._llc2``); the all-off key's matrix-free
    form and the A-form twins of :data:`MATFREE_OPTIONS` and of the cold
    start) and the raycast kernel
    K2 from
@@ -50,9 +52,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    against the thread-per-env K1c at :data:`TOL_TWIN` on those states and
    lifted 3 m, K1b on
    the K1a states with random joint targets, and against the thread-per-env
-   K1b at :data:`TOL_TWIN` on those states and lifted 3 m, and the K1b
-   instance for two llc frames (no registered family runs it yet) on the
-   same states; K1e on
+   K1b at :data:`TOL_TWIN` on those states and lifted 3 m, and K1b at two
+   llc frames (:data:`LLC_KEYS`) on the same states; K1e on
    Cassie and Cassie2D states near the stand pose (feet in or near contact,
    rods slightly open, the planar variant a little out of its plane), by
    their warp-per-env instances, and those against their thread-per-env
@@ -128,7 +129,14 @@ Phases, in order; any failure exits non-zero before the result lines:
    than that gate in the per-env medians of q and qd
    (:func:`parts_from_shipped`), and each thread-per-env A-form's workspace
    must hold its NR × NR matrix and residual beside its matrix-free
-   twin's. Per-env median and p99
+   twin's; Cassie's K1e at five llc frames on the Cassie states at K1e's
+   gate, and the PD keys of several llc frames (:data:`LLC_KEYS`, the
+   generic warp-per-env instances of their keys) against their
+   thread-per-env twins (:func:`twin_and_lifted`: the walker keys at
+   :data:`TOL_TWIN` with the largest env, beside :func:`rounding_floor` over
+   all envs, every base lifted 3 m; Cassie at :data:`TOL_EQ` with the p99,
+   every foot lifted 1 m), K1h-b at two frames also parting from K1b at
+   two near contact. Per-env median and p99
    of |Δq|, |Δqd|, |Δdepth|, |Δimpulse|; the medians must stay within q
    2e-4, qd 5e-3, depth 2e-4, impulse 5e-3 (K1e: q 5e-4, qd 2e-2, depth
    5e-4, impulse 5e-3, the tolerances the JAX package holds its own kernel
@@ -183,7 +191,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    instance, counted under its name and by its symbol in
    ``engine.INSTANCE_LAUNCHES``), ``Walker3DStepperEnv-v0`` made with 2
    substeps × 8 sweeps for 100 (the generic warp-per-env instance of its
-   key), and K2's own entry point
+   key), ``Walker3DPDCustomEnv-v0`` made with ``EngineConfig(llc_frames=2)``
+   for 100, alone and with split impulse, and ``CassieEnv-v0`` made with
+   Cassie's configuration at ``llc_frames=5`` for 200 (the generic
+   warp-per-env instance of each key, one launch per control step; the ms
+   per step printed beside the family's at its shipped llc frames), and
+   K2's own entry point
    ``make_raycaster`` for 10 calls of 32,768 rays with the origins moved
    between calls. A grid smaller than the K1f window and PD mode over stones
    must raise on the card before any launch. The path's kernel
@@ -226,17 +239,19 @@ Phases, in order; any failure exits non-zero before the result lines:
    K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, K1d, K1h-d, the
    planar K1e, the planar K1h-e, the three A-forms, scalar friction, a
    factor every substep, a cold start and the walker and the stepper at
-   2 × 8 at each B of
+   2 × 8, K1b and K1h-b at two llc frames at each B of
    :data:`WALKER_SWEEP` (an A-form's bound on its matrix-free twin's
-   count), K1b at two llc frames and its split twin (no family launches
-   them: their time and bound alone), the
+   count), Cassie's K1e at five llc frames at each B of
+   :data:`CASSIE_SWEEP`, the
    walker's step against the host's
    time to enqueue it and the device's busy share over 20 traced steps, the
    bound from the operations and bytes these inputs need, and the time of
    the stepper's cull of 20 stones to the window plus their packing (env
    layer, once per control step, outside the kernel's time), and the
    stepper's step split into the step proper and the fresh episodes of
-   auto-reset; K2's time and bound (the march steps these rays need);
+   auto-reset; K2's time through its wrapper and of its ctypes launch
+   alone (:func:`raycast_launch_time`) and its bound (the march steps these
+   rays need);
    the terrain step's window cut and packing; the step time outside the
    kernel of the PD walkers, Cassie, the planar walkers, the monkey, the terrain families,
    the stairs, the split-impulse walker and the split stairs, terrain,
@@ -309,6 +324,10 @@ STEPPER_2X8 = {"sim_substeps": 2, "solver_iters": 8}
 # walker and the stepper at 2 × 8 (generic), each held to its thread-per-env
 # twin
 NEW_WARP = ("k1a_cold", "k1a_sub2_it8", "k1c_sub2_it8")
+# PD keys of several llc frames, each on the generic warp-per-env instance
+# of its key and held to its thread-per-env twin: K1b and its split twin
+# K1h-b at two llc frames, Cassie's K1e at five
+LLC_KEYS = ("k1b_llc2", "k1h_b_llc2", "k1e_cassie_llc5")
 # --split-impulse on the PD walkers, the planar walkers, terrain and the
 # stairs: env id → the count its launches go under
 SPLIT_FAMILIES = {"Walker3DPDCustomEnv": "k1h_b", "Child3DPDCustomEnv": "k1h_b",
@@ -1253,13 +1272,40 @@ def raycast_main_path(engine, card, rng, sweeps: int = 10):
     return counts["k2"], (o, d, hf, xy0, cell), raycast
 
 
-def raycast_time_and_bound(card, raycast, args, max_abs: float) -> dict:
-    """K2's per-call time (50 calls) against its plain version's (3), and
+def raycast_launch_time(engine, args, max_t: float = 10.0, num_steps: int = 64) -> float:
+    """K2's own time per call: its ctypes launch alone (the library looked
+    up once, the outputs allocated once, the pointers taken once), 50 calls
+    bracketed by CUDA events, without the wrapper's checks, its build lookup
+    and its allocations. The outputs must equal the wrapper's. Uncounted."""
+    from mocca_envs_tpu_torch.ops.raycast import make_raycaster
+
+    o, d, hf, xy0, cell = args
+    cell = cell.reshape(1)
+    fn = getattr(engine.build()[engine.RAYCAST_SYMBOL], engine.RAYCAST_SYMBOL + "_launch")
+    t_hit = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
+    h_hit = torch.empty_like(t_hit)
+    H, W = hf.shape
+    call = (o.data_ptr(), d.data_ptr(), hf.data_ptr(), H, W, xy0.data_ptr(), cell.data_ptr(),
+            max_t, max_t / num_steps, num_steps, t_hit.data_ptr(), h_hit.data_ptr(), o.shape[0],
+            torch.cuda.current_stream(o.device).cuda_stream)
+    ms = time_call(lambda: fn(*call), (), 50)
+    check(fn(*call) == 0, "k2: the launch failed")
+    want_t, want_h = make_raycaster(tuple(hf.shape), max_t, num_steps)(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(t_hit, want_t) and torch.equal(h_hit, want_h)),
+          "k2: the launch alone gave other outputs than the wrapper")
+    return ms
+
+
+def raycast_time_and_bound(engine, card, raycast, args, max_abs: float) -> dict:
+    """K2's per-call time through its wrapper (50 calls) and of its launch
+    alone (:func:`raycast_launch_time`) against its plain version's (3), and
     the bound from the march steps these rays need and the bytes moved."""
     from mocca_envs_tpu_torch.ops.raycast import (
         K2_OPS_PER_STEP, k2_bytes, k2_flops, raycast_reference)
 
     ms = time_call(raycast, args, 50)
+    launch_ms = raycast_launch_time(engine, args)
     plain_ms = time_call(lambda *a: raycast_reference(*a, 10.0, 64), args, 3)
     t, _ = raycast(*args)
     flops, nbytes = k2_flops(t, 10.0, 64), k2_bytes(args[0].shape[0], tuple(args[2].shape))
@@ -1268,9 +1314,11 @@ def raycast_time_and_bound(card, raycast, args, max_abs: float) -> dict:
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     print(f"[bound] k2: {flops} fp32 ops needed ({flops / args[0].shape[0]:.1f} per ray, "
           f"{flops / args[0].shape[0] / K2_OPS_PER_STEP:.2f} march steps), {nbytes} bytes")
-    print(f"[time] k2 {ms:.4f} ms/call, plain {plain_ms:.3f} ms/call at {args[0].shape[0]} rays "
-          f"on {card}; bound {bound_ms:.6f} ms by {bound_by} (ops {t_ops:.6f} ms, bytes "
-          f"{t_bytes:.6f} ms); kernel at {bound_ms / ms:.2%} of it; max |err| {max_abs:.3e}")
+    print(f"[time] k2 {ms:.4f} ms/call through the wrapper, {launch_ms:.4f} ms/call the launch "
+          f"alone, plain {plain_ms:.3f} ms/call at {args[0].shape[0]} rays on {card}; bound "
+          f"{bound_ms:.6f} ms by {bound_by} (ops {t_ops:.6f} ms, bytes {t_bytes:.6f} ms); the "
+          f"wrapper at {bound_ms / ms:.2%} of it, the launch alone at {bound_ms / launch_ms:.2%}; "
+          f"max |err| {max_abs:.3e}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -1489,13 +1537,19 @@ def main() -> int:
     # planar walkers, terrain and the stairs (K1h-b at one llc frame, the
     # planar K1h-e, K1h-f and K1h-g by their warp-per-env instances); the
     # walker's PGS options (OPTION_CONFIGS; the A-forms of AFORMS by their
-    # warp-per-env instances)
+    # warp-per-env instances); the PD keys of several llc frames (LLC_KEYS,
+    # the generic warp-per-env instances of their keys)
     added = {
         "k1c_sub2_it8": engine.K1c(model, EngineConfig(**STEPPER_2X8)),
         "k1h_b": engine.K1b(model.replace(kp=kp), split(config), extra_damping=kp / 20.0),
+        "k1b_llc2": engine.K1b(model.replace(kp=kp), EngineConfig(llc_frames=2),
+                               extra_damping=kp / 20.0),
         "k1h_b_llc2": engine.K1b(model.replace(kp=kp), EngineConfig(llc_frames=2,
                                                                      split_impulse=True),
                                  extra_damping=kp / 20.0),
+        "k1e_cassie_llc5": engine.K1e(cmodel, dataclasses.replace(CASSIE_CONFIG, llc_frames=5),
+                                      cassie.constraints(), pd_mode=True,
+                                      extra_damping=cmodel.actuated * cmodel.kd),
         "k1h_e_planar": engine.K1e(wmodel, split(config), walker2d.planar_spec()),
         "k1h_f": engine.K1f(model, split(config), HF_PATCH),
         "k1h_g": engine.K1g(model, split(config)),
@@ -1505,9 +1559,11 @@ def main() -> int:
     # the thread-per-env twins of K1h-f, K1h-g, K1h-c, K1h-b, K1h-si, the
     # planar K1h-e, the walker's three A-form keys (with split impulse,
     # alone and with all four options off), its scalar friction,
-    # factor-every-substep and cold-start keys and the walker and the
-    # stepper at 2 × 8: the generic engine_k1.cu instances of their keys
-    # (K1h-c's and K1h-si's the named k1h_..._k6_si and k1h_..._si)
+    # factor-every-substep and cold-start keys, the walker and the stepper
+    # at 2 × 8 and the PD keys of several llc frames: the generic
+    # engine_k1.cu instances of their keys (K1h-c's and K1h-si's the named
+    # k1h_..._k6_si and k1h_..._si, K1b's at two llc frames the named
+    # k1b_..._llc2)
     thread_twins = {"k1h_f": engine.K1f(model, split(config), HF_PATCH, thread_per_env=True),
                     "k1h_g": engine.K1g(model, split(config), thread_per_env=True),
                     "k1h_c": engine.K1c(model, split(config), thread_per_env=True),
@@ -1517,7 +1573,14 @@ def main() -> int:
                     "k1h_e_planar": engine.K1e(wmodel, split(config), walker2d.planar_spec(),
                                                thread_per_env=True),
                     **{v: type(added[v])(model, added[v].config, thread_per_env=True)
-                       for v in (*AFORMS, *MATFREE_OPTIONS, *NEW_WARP)}}
+                       for v in (*AFORMS, *MATFREE_OPTIONS, *NEW_WARP)},
+                    **{v: engine.K1b(model.replace(kp=kp), added[v].config,
+                                     extra_damping=kp / 20.0, thread_per_env=True)
+                       for v in ("k1b_llc2", "k1h_b_llc2")},
+                    "k1e_cassie_llc5": engine.K1e(
+                        cmodel, added["k1e_cassie_llc5"].config, cassie.constraints(),
+                        pd_mode=True, extra_damping=cmodel.actuated * cmodel.kd,
+                        thread_per_env=True)}
     # the all-off key's matrix-free form (the same function): the generic
     # engine_k1.cu instance of its other three options
     matfree_off = engine.K1a(model, EngineConfig(block_pgs=False, warm_start=False,
@@ -1566,9 +1629,9 @@ def main() -> int:
               f"{v}: the main path's instance is the thread-per-env one")
         max_abs[v] = max(max_abs[v], twin_and_lifted(kernels[v][0], thread, kernels[v][1], v,
                                                      3.0))
-    two_frames = engine.K1b(model.replace(kp=kp), EngineConfig(llc_frames=2),
-                            extra_damping=kp / 20.0)
-    compare(two_frames, kernels["k1b"][1], "k1b (2 llc frames)")
+    two_frames = added["k1b_llc2"]
+    kernels["k1b_llc2"] = (two_frames, kernels["k1b"][1])
+    max_abs["k1b_llc2"] = compare(two_frames, kernels["k1b"][1], "k1b (2 llc frames)")
 
     rods, stand, stand_z = cassie.constraints(), cassie.stand_q(cmodel), cassie.initial_z()
     k1e_thread = {}
@@ -1705,7 +1768,9 @@ def main() -> int:
     for v, twin in (("k1h_b", "k1b"), ("k1h_e_planar", "k1e_planar"), ("k1h_f", "k1f"),
                     ("k1h_g", "k1g")):
         kernels[v] = (added[v], kernels[twin][1])
-    compare(added["k1h_b_llc2"], kernels["k1b"][1], "k1h_b (2 llc frames)")
+    kernels["k1h_b_llc2"] = (added["k1h_b_llc2"], kernels["k1b"][1])
+    max_abs["k1h_b_llc2"] = compare(added["k1h_b_llc2"], kernels["k1b"][1],
+                                    "k1h_b (2 llc frames)")
     max_abs["k1h_b"] = compare(*kernels["k1h_b"], "k1h_b")
     max_abs["k1h_e_planar"] = compare(*kernels["k1h_e_planar"], "k1h_e_planar", TOL_EQ)
     max_abs["k1h_f"] = compare(*kernels["k1h_f"], "k1h_f", TOL_HF)
@@ -1784,6 +1849,29 @@ def main() -> int:
         parts_from_shipped(added[v], kernels["k1a"][0], kernels["k1a"][1], v)
     parts_from_shipped(added["k1c_sub2_it8"], kernels["k1c"][0], kernels["k1c"][1],
                        "k1c_sub2_it8")
+    # the PD keys of several llc frames by the generic warp-per-env instances
+    # of their keys (the walker keys above, on the K1b states): Cassie at five
+    # frames on the Cassie states at K1e's gate; each against its
+    # thread-per-env twin near contact and lifted (the walker keys at
+    # TOL_TWIN with the largest env, beside the 1e-7 q̇-nudge floor over all
+    # envs; Cassie by K1e's rule, TOL_EQ with the p99, every foot lifted 1 m);
+    # K1h-b at two frames parts from K1b at two near contact
+    kernels["k1e_cassie_llc5"] = (added["k1e_cassie_llc5"], kernels["k1e_cassie"][1])
+    max_abs["k1e_cassie_llc5"] = compare(*kernels["k1e_cassie_llc5"], "k1e_cassie_llc5",
+                                         TOL_EQ, tail="p99")
+    for v in LLC_KEYS:
+        new, twin = added[v], thread_twins[v]
+        check(new.instance == engine.warp_instance(new.key) and twin.instance.source
+              == engine.SOURCE, f"{v}: the instance {new.name} is not the generic warp-per-env "
+                                "one of its key")
+        if v == "k1e_cassie_llc5":
+            max_abs[v] = max(max_abs[v], twin_and_lifted(new, twin, kernels[v][1], v, 1.0,
+                                                         TOL_EQ, TOL_EQ, "p99"))
+            continue
+        rounding_floor(new, twin, kernels[v][1], v,
+                       torch.ones(B, dtype=torch.bool, device="cuda"))
+        max_abs[v] = max(max_abs[v], twin_and_lifted(new, twin, kernels[v][1], v, 3.0))
+    parts_from_shipped(added["k1h_b_llc2"], two_frames, kernels["k1b"][1], "k1h_b_llc2")
     ray_args = cuda(raycast_inputs(rng, 8 * B))
     ray_t, ray_h = make_raycaster((129, 129))(*ray_args)
     torch.cuda.synchronize()
@@ -1905,6 +1993,19 @@ def main() -> int:
     launches["k1c_sub2_it8"], _, _, _, step_ms["k1c_sub2_it8"], _ = drive(
         port, engine, card, "Walker3DStepperEnv-v0", 100, "k1c",
         instance=added["k1c_sub2_it8"].name, config=EngineConfig(**STEPPER_2X8))
+    # the PD walker made with two llc frames per control step, alone and with
+    # split impulse, and Cassie with five: the generic warp-per-env instance
+    # of each key, one launch per control step
+    for v, env_id, steps, base in (("k1b_llc2", "Walker3DPDCustomEnv-v0", 100, "k1b"),
+                                   ("k1h_b_llc2", "Walker3DPDCustomEnv-v0", 100, "k1h_b"),
+                                   ("k1e_cassie_llc5", "CassieEnv-v0", 200, "k1e_cassie")):
+        launches[v], _, _, _, step_ms[v], _ = drive(
+            port, engine, card, env_id, steps, added[v].variant, instance=added[v].name,
+            config=added[v].config)
+        print(f"[main] {env_id} with {added[v].config.llc_frames} llc frames per control step "
+              f"({added[v].name}): {step_ms[v]:.3f} ms per control step, beside "
+              f"{step_ms[base]:.3f} at its family's shipped llc frames ({base}) in this call, at "
+              f"B={B} on {card}")
     small_grid_raises(model, config)
     combination_refused(engine, model, config)
     launches["k2"], ray_main, raycaster = raycast_main_path(engine, card, rng)
@@ -1936,10 +2037,6 @@ def main() -> int:
     # ---- phase 4: per-call times at B = 4096
     times = {v: time_and_bound(engine, card, kernel, args, matfree.get(v))
              for v, (kernel, args) in kernels.items()}
-    # K1b at two llc frames and its split twin (no family launches them): the
-    # named engine_k1.cu instance and the generic one
-    for kernel in (two_frames, added["k1h_b_llc2"]):
-        time_and_bound(engine, card, kernel, kernels["k1b"][1])
     design_sweep(engine, card, "K1a", kernels["k1a"][0], k1a_thread,
                  lambda batch, r: near_contact_states(model, r, batch), SWEEP)
     print(f"[sweep] Walker3DCustomEnv-v0 at B={B}: {step_ms['k1a']:.3f} ms per control step on "
@@ -1990,6 +2087,13 @@ def main() -> int:
                  thread_twins["k1c_sub2_it8"],
                  lambda batch, r: stepper_states(model, r, config.stone_window, batch),
                  WALKER_SWEEP)
+    for v, label in (("k1b_llc2", "K1b 2 llc"), ("k1h_b_llc2", "K1h-b 2 llc")):
+        design_sweep(engine, card, label, added[v], thread_twins[v],
+                     lambda batch, r: pd_target_states(model, r, batch), WALKER_SWEEP)
+    design_sweep(engine, card, "K1e Cassie 5 llc", added["k1e_cassie_llc5"],
+                 thread_twins["k1e_cassie_llc5"],
+                 lambda batch, r: cassie_states(cmodel, stand, stand_z, r, False, batch),
+                 CASSIE_SWEEP)
     for v, env_id in (("k1b", "Walker3DPDCustomEnv-v0"), ("k1b_child", "Child3DPDCustomEnv-v0"),
                       ("k1f", "Walker3DTerrainEnv-v0"),
                       ("k1f_lidar", "Walker3DTerrainLidarEnv-v0"),
@@ -1999,11 +2103,12 @@ def main() -> int:
 
     cull_and_pack_time(engine, card, model, config)
     stepper_env_layer_times(card, stepper, stepper_state)
-    times["k2"] = raycast_time_and_bound(card, raycaster, ray_main, max_abs["k2"])
+    times["k2"] = raycast_time_and_bound(engine, card, raycaster, ray_main, max_abs["k2"])
     window_and_pack_time(engine, card, terrain_state)
     for v in ("k1b", "k1b_child", "k1c", "k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d",
               "k1f", "k1f_lidar", "k1g", "k1h_si", "k1h_g", "k1h_f", "k1h_f_lidar", "k1h_c",
-              "k1h_b", "k1h_b_child", "k1h_d", *AFORMS, *MATFREE_OPTIONS, *NEW_WARP):
+              "k1h_b", "k1h_b_child", "k1h_d", *AFORMS, *MATFREE_OPTIONS, *NEW_WARP,
+              *LLC_KEYS):
         kernel_ms = times[v.removesuffix("_lidar").removesuffix("_child")]["ms"]
         print(f"[time] {v}: main path {step_ms[v]:.3f} ms/step, kernel {kernel_ms:.4f} "
               f"ms/call, so {step_ms[v] - kernel_ms:.3f} ms/step outside the kernel "
@@ -2039,7 +2144,10 @@ def main() -> int:
              "k1a_aform_scalar_cold_refactor": "k1a_engine_frame_all_options_off",
              "k1h_si_aform": "k1h_engine_frame_split_impulse_aform_pgs",
              "k1a_sub2_it8": "k1a_engine_frame_sub2_it8",
-             "k1c_sub2_it8": "k1c_engine_frame_stones_sub2_it8", "k2": "k2_raycast"}
+             "k1c_sub2_it8": "k1c_engine_frame_stones_sub2_it8",
+             "k1b_llc2": "k1b_engine_step_pd_llc2",
+             "k1h_b_llc2": "k1h_engine_step_pd_split_impulse_llc2",
+             "k1e_cassie_llc5": "k1e_engine_step_pd_rods_llc5", "k2": "k2_raycast"}
     print(json.dumps({"kernels": [{
         "name": names[v],
         "route": "cuda",

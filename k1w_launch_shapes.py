@@ -7,7 +7,8 @@ the planar walkers' K1e and its split twin, the planar K1h-e, the walker's
 split key in the A-form, the walker's key in the A-form, alone and with
 all four PGS options off, the walker's key with scalar friction rows, with
 a factor every substep and with a cold start, and the generic warp-per-env
-instance of the walker at 2 substeps × 8 sweeps.
+instances of the walker at 2 substeps × 8 sweeps, of the PD walker at two
+llc frames (K1b and its split twin K1h-b) and of Cassie at five.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -62,9 +63,11 @@ W = "k1w_nl22_ns14_nlim21_sub4_it4"
 # memory: one block of 11 envs (the most the SM holds), one of 8, or two
 # blocks of 5. Scalar friction, a factor every substep and a cold start,
 # K1a's EnvW: one block of 16 (shipped: 1–3% faster at B = 4096), four of 4
-# (K1a's), two of 8. The generic instance of the walker at 2 × 8 (no
-# symbols: built from flags, :data:`GENERIC`): the host's pick
-# (``engine.warp_shape``, None here), four blocks of 4, two of 8
+# (K1a's), two of 8. The generic instances (no symbols: built from flags,
+# :data:`GENERIC`): the walker at 2 × 8, and K1b and K1h-b at two llc
+# frames, at the host's pick (``engine.warp_shape``, None here), four blocks
+# of 4, two of 8; Cassie at five llc frames at the host's pick and two
+# blocks of 16
 GROUPS = {
     "cassie": (("k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2",
                 "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar"),
@@ -97,15 +100,21 @@ GROUPS = {
                         {4096: 20, 16384: 10}),
     "cold": ((f"{W}_cold",), [(16, 1), (4, 4), (8, 2)], {4096: 20, 16384: 10}),
     "generic": ((), [None, (4, 4), (8, 2)], {4096: 20, 16384: 10}),
+    "llc": ((), [None, (4, 4), (8, 2)], {4096: 20, 16384: 10}),
+    "cassie_llc5": ((), [None, (16, 2)], {4096: 10, 16384: 5}),
 }
-# group → the engine.Key fields of its generic warp-per-env instance
-GENERIC = {"generic": dict(nl=22, ns=14, nlim=21, substeps=2, iters=8)}
+_W = dict(nl=22, ns=14, nlim=21, substeps=4, iters=4)
+# group → the engine.Key fields of each of its generic warp-per-env instances
+GENERIC = {"generic": [dict(nl=22, ns=14, nlim=21, substeps=2, iters=8)],
+           "llc": [dict(_W, pd=True, llc=2), dict(_W, pd=True, llc=2, split=True)],
+           "cassie_llc5": [dict(nl=17, ns=5, nlim=16, substeps=2, iters=4, pd=True, llc=5,
+                                rods=2)]}
 
 
-def shapes_of(engine, group) -> list:
-    """``group``'s launch shapes, the host's pick in place of None."""
-    picked = engine.warp_shape(engine.Key(**GENERIC[group])) if group in GENERIC else None
-    return [picked if shape is None else shape for shape in GROUPS[group][1]]
+def shapes_of(engine, group, key=None) -> list:
+    """``group``'s launch shapes, the host's pick for ``key`` (a generic
+    instance's) in place of None."""
+    return [engine.warp_shape(key) if shape is None else shape for shape in GROUPS[group][1]]
 
 
 def _compile(engine, inst, path: Path, lib: Path):
@@ -125,13 +134,14 @@ def build_shapes(engine, out: Path, groups) -> dict:
     running = []
     for group in groups:
         if group in GENERIC:
-            key = engine.Key(**GENERIC[group])
-            picked = engine.warp_instance(key)
-            for envs, blocks in shapes_of(engine, group):
-                inst = engine.warp_instance(key, envs, blocks)
-                lib = out / f"lib{inst.symbol}.so"
-                running.append(((envs, blocks, picked.symbol), inst.symbol, lib,
-                                _compile(engine, inst, engine.SOURCE_W, lib)))
+            for fields in GENERIC[group]:
+                key = engine.Key(**fields)
+                picked = engine.warp_instance(key)
+                for envs, blocks in shapes_of(engine, group, key):
+                    inst = engine.warp_instance(key, envs, blocks)
+                    lib = out / f"lib{inst.symbol}.so"
+                    running.append(((envs, blocks, picked.symbol), inst.symbol, lib,
+                                    _compile(engine, inst, engine.SOURCE_W, lib)))
             continue
         mine, shapes, _ = GROUPS[group]
         chip_smoke.check({found.get(s) for s in mine} == {shapes[0]},
@@ -173,7 +183,9 @@ def cases(engine, rng):
     contact, a little out of its plane), also with split impulse; the walker
     in the A-form with split impulse, alone and with all four PGS options off,
     with scalar friction rows, with a factor every substep and with a cold
-    start, and at 2 substeps × 8 sweeps (near contact)."""
+    start, and at 2 substeps × 8 sweeps (near contact); the PD walker at two
+    llc frames, alone and with split impulse (random targets near contact),
+    and Cassie at five (near the stand)."""
     from mocca_envs_tpu_torch.models import cassie, monkey, walker2d, walker3d
     from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
     from mocca_envs_tpu_torch.terrain.scene import HF_PATCH
@@ -232,6 +244,15 @@ def cases(engine, rng):
         config = EngineConfig(**chip_smoke.OPTION_CONFIGS[label])
         out.append((group, lambda config=config: engine.K1a(wmodel, config),
                     lambda batch: chip_smoke.near_contact_states(wmodel, rng, batch)))
+    for config in (EngineConfig(llc_frames=2), EngineConfig(llc_frames=2, split_impulse=True)):
+        out.append(("llc", lambda config=config: engine.K1b(wmodel.replace(kp=kp), config,
+                                                            extra_damping=kp / 20.0),
+                    lambda batch: chip_smoke.pd_target_states(wmodel, rng, batch)))
+    out.append(("cassie_llc5", lambda: engine.K1e(
+        cmodel, dataclasses.replace(CASSIE_CONFIG, llc_frames=5), cassie.constraints(),
+        pd_mode=True, extra_damping=cmodel.actuated * cmodel.kd),
+        lambda batch: chip_smoke.cassie_states(cmodel, cassie.stand_q(cmodel),
+                                               cassie.initial_z(), rng, False, batch)))
     return out
 
 
@@ -261,7 +282,7 @@ def main(argv=None) -> int:
     for group, make, states in cases(engine, rng):
         if group not in groups:
             continue
-        shapes, batches = shapes_of(engine, group), GROUPS[group][2]
+        shapes, batches = shapes_of(engine, group, make().key), GROUPS[group][2]
         kernels = {}
         for envs, blocks in shapes:
             k = make()

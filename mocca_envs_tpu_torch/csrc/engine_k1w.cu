@@ -49,8 +49,9 @@
 //        every substep (reuse_factor off), each K1a's shape;
 //   K1 cold  K1a's key with a cold start (warm_start off: Cfg::WARM false);
 //   and any other key this source holds (NV <= 32, at most one of a
-//        heightfield, stones, a mesh and bars, one llc frame per call: other
-//        substeps and sweeps, model sizes, windows, option mixes), as one
+//        heightfield, stones, a mesh and bars, PD mode or one llc frame per
+//        call: other substeps and sweeps, model sizes, windows, option
+//        mixes, PD keys of several llc frames), as one
 //        instance built from -DK1W_* flags (K1W_NAME and the Cfg arguments;
 //        ops/cuda/engine.py::warp_instance picks its launch shape: as many
 //        envs per block as an SM's shared memory holds, one block per SM).
@@ -1761,11 +1762,12 @@ extern "C" int k1w_smem_limits(int* per_sm, int* per_block, int* reserved) {
 
 #ifdef K1W_NAME
 // Any other key the source holds (NV <= 32, at most one of a heightfield,
-// stones, a mesh and bars, one llc frame per call): one instance whose name,
-// Cfg arguments and launch shape come from -D macros (ops/cuda/engine.py::
-// compile_flags), built at its first use; REGCHOL where a factor is made in
-// every substep of the matrix-free form, as the refactor key ships it. (One
-// more expansion, so that the name is substituted before it is pasted.)
+// stones, a mesh and bars, PD mode or one llc frame per call): one instance
+// whose name, Cfg arguments and launch shape come from -D macros
+// (ops/cuda/engine.py::compile_flags), built at its first use; REGCHOL where
+// a factor is made in every substep of the matrix-free form, as the refactor
+// key ships it. (One more expansion, so that the name is substituted before
+// it is pasted.)
 #define K1W_GENERIC(...) K1W_INSTANCE(__VA_ARGS__)
 K1W_GENERIC(K1W_NAME, K1W_NL, K1W_NS, K1W_NLIM, K1W_NSUB, K1W_ITERS, K1W_PD, K1W_NLLC, K1W_NP2P,
             K1W_PLANAR, K1W_ENVS, K1W_BLOCKS, K1W_PHF, K1W_K, K1W_KT, K1W_SPLIT, K1W_KB,

@@ -23,15 +23,16 @@ K1h-d, the monkey's, and the planar K1h-e, the planar walkers'; the
 walker's split key in the A-form; the walker's key in the A-form, alone
 and with the other three PGS options off; and the walker's key with scalar
 friction rows, with a factor in every substep and with a cold start), and
-any other key it holds (:func:`warp_holds`) on a generic warp-per-env
-instance; and ``csrc/engine_k1.cu``, one thread per env, for the keys it
-cannot hold (more than 27 links, two scene geometries, PD at several llc
-frames per launch). An instance is picked by its :class:`Key`
-(:func:`instance_for`): the named warp-per-env one where there is one, else
-the generic warp-per-env one where the source holds the key, whose name,
-template arguments and launch shape come from ``-DK1W_*`` preprocessor
-flags (:func:`warp_instance`, :func:`compile_flags`; as many envs per
-block as an SM's shared memory holds, one block per SM), else the fifteen
+any other key it holds (:func:`warp_holds`: PD at several llc frames per
+launch too) on a generic warp-per-env instance; and ``csrc/engine_k1.cu``,
+one thread per env, for the keys it cannot hold (more than 27 links, two
+scene geometries), and as the thread-per-env twin of every key. An
+instance is picked by its :class:`Key` (:func:`instance_for`): the named
+warp-per-env one where there is one, else the generic warp-per-env one
+where the source holds the key, whose name, template arguments and launch
+shape come from ``-DK1W_*`` preprocessor flags (:func:`warp_instance`,
+:func:`compile_flags`; as many envs per block as an SM's shared memory
+holds, one block per SM), else the fifteen
 ``engine_k1.cu`` names (:data:`INSTANTIATIONS`, the shipped families at the
 shipped options), else the generic ``engine_k1.cu`` instance
 (:func:`canonical_symbol`, ``-DK1_*`` flags). The thread-per-env instances
@@ -189,7 +190,8 @@ INSTANTIATIONS = {inst.key: inst for inst in (
 # terrain walkers' frame with split impulse; K1h-c and K1h-b, the stepper's
 # frame and the PD walkers' control step with split impulse (their
 # thread-per-env twins: the named k1h_..._k6_si and the generic
-# k1_..._llc1_si; K1b at two llc frames, split or not, stays on engine_k1.cu);
+# k1_..._llc1_si; K1b at two llc frames, split or not, and Cassie at other
+# llc counts run the generic warp-per-env instance of their keys);
 # K1h-si, the walker's frame on the plane with split impulse, and K1d, the
 # monkey's frame over its 16 bars with its two grab rows (their twins: the
 # named k1h_..._si and k1d_..._kb16_ng2); K1h-d, the monkey's frame with
@@ -274,9 +276,12 @@ WARP_MAX_ENVS = 32   # a block of 1,024 threads
 def warp_holds(key: Key) -> bool:
     """Whether ``csrc/engine_k1w.cu`` holds ``key``, from the key alone: one
     lane per velocity DOF (NV = NL + 5 <= 32), at most one of stones, a
-    heightfield window, mesh faces and bars, and one llc frame per launch."""
+    heightfield window, mesh faces and bars, and PD mode or one llc frame
+    per launch (the source runs a PD key's llc frames in one call, the
+    torque refreshed at each frame's start; torque mode launches once per
+    frame)."""
     scenes = (key.stones > 0) + (key.hf > 0) + (key.tris > 0) + (key.bars > 0)
-    return key.nl + 5 <= 32 and scenes <= 1 and key.llc == 1
+    return key.nl + 5 <= 32 and scenes <= 1 and (key.pd or key.llc == 1)
 
 
 def table_floats(key: Key) -> int:

@@ -93,15 +93,17 @@ def test_walker_key_picks_the_warp_per_env_instance(libs):
     picked = engine.make_kernel(new.model, EngineConfig())
     assert picked.name == new.name and picked.instance.source == engine.SOURCE_W
     # the child shares the key; its split key is K1h-si's warp-per-env
-    # instance, its A-form key and its cold start have one too; keys the
-    # warp-per-env source cannot hold (PD at two llc frames) keep their
-    # engine_k1.cu instance
+    # instance, its A-form key and its cold start have one too, and so has
+    # PD at two llc frames (the generic one); keys the warp-per-env source
+    # cannot hold (torque mode at two llc frames) keep their engine_k1.cu
+    # instance
     assert engine.instance_for(dataclasses.replace(new.key, split=True)).source == engine.SOURCE_W
     assert engine.instance_for(dataclasses.replace(new.key, matfree=False)).source \
         == engine.SOURCE_W
     assert engine.instance_for(dataclasses.replace(new.key, warm=False)).index == 23
-    assert engine.instance_for(dataclasses.replace(new.key, pd=True, llc=2)).source \
-        == engine.SOURCE
+    two = dataclasses.replace(new.key, pd=True, llc=2)
+    assert engine.instance_for(two) == engine.warp_instance(two)
+    assert engine.instance_for(dataclasses.replace(new.key, llc=2)).source == engine.SOURCE
     # the same table; no global workspace
     assert engine.layout(libs[new.name], new.name) == (new.table_host.size, 0)
     assert engine.layout(libs[old.name], old.name)[1] > 0

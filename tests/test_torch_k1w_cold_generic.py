@@ -13,10 +13,12 @@ instances of the same keys).
   sweeps, a one-legged hopper at 2 × 8 and the stepper over its 6 culled
   stones at 2 × 8 pick the generic warp-per-env instance, named by its
   ``-DK1W_NAME`` flag (``k1w``, the tags of its key, the launch shape: as
-  many envs per block as an SM's shared memory holds, one block per SM);
-  PD keys of several llc frames (Cassie at five, the PD walker at two) and a
-  model of more than 27 links stay on ``engine_k1.cu``;
-  ``thread_per_env=True`` always gives the ``engine_k1.cu`` instance.
+  many envs per block as an SM's shared memory holds, one block per SM),
+  and so do PD keys of several llc frames (Cassie at five, the PD walker at
+  two, split or not); a model of more than 27 links and two scene
+  geometries stay on ``engine_k1.cu``, and so does a torque key of several
+  llc frames; ``thread_per_env=True`` always gives the ``engine_k1.cu``
+  instance.
 - The env size the host picks the launch shape from
   (``engine.warp_env_bytes``) is the source's own ``sizeof`` of the env
   (``<sym>_env_bytes``), for every named warp-per-env instance and the
@@ -200,21 +202,33 @@ def test_make_builds_the_generic_warp_instance(family, config):
      f"k1_{W}_sub4_it4_llc2_si", None),
 ], ids=["cassie_llc5", "k1b_llc2", "k1h_b_llc2"])
 def test_keys_of_several_llc_frames_stay_on_engine_k1(build, symbol, index):
+    """PD keys of several llc frames run the generic warp-per-env instance
+    of their key (tests/test_torch_k1w_llc_frames.py holds its arithmetic);
+    their thread-per-env twins stay on engine_k1.cu: the named ``K1_ONLY`` 3
+    for K1b at two frames, the generic instance for the others."""
     kernel = build()
-    assert kernel.key.llc > 1 and not engine.warp_holds(kernel.key)
-    assert kernel.name == symbol and kernel.instance.index == index
-    assert kernel.instance.source == engine.SOURCE
+    assert kernel.key.llc > 1 and engine.warp_holds(kernel.key)
+    assert kernel.instance == engine.warp_instance(kernel.key)
+    assert kernel.instance.source == engine.SOURCE_W and kernel.instance.index is None
+    envs, blocks = engine.warp_shape(kernel.key)
+    tags = engine.canonical_symbol(kernel.key).removeprefix("k1")
+    assert symbol.endswith(tags) and kernel.name == f"k1w{tags}_{envs}x1" and blocks == 1
+    assert f"-DK1W_NLLC={kernel.key.llc}" in engine.compile_flags(kernel.instance)
+    twin = engine.instance_for(kernel.key, thread_per_env=True)
+    assert twin.symbol == symbol and twin.index == index and twin.source == engine.SOURCE
 
 
 def test_keys_the_warp_source_cannot_hold():
-    """NV = NL + 5 above 32 lanes, two scene geometries or several llc
-    frames take the engine_k1.cu instance; any other key one warp per env."""
+    """NV = NL + 5 above 32 lanes, two scene geometries or a torque key of
+    several llc frames take the engine_k1.cu instance; any other key (a PD
+    key of several llc frames too) one warp per env."""
     base = engine.Key(**engine._W)
     for key, holds in ((dataclasses.replace(base, nl=27, nlim=20), True),
                        (dataclasses.replace(base, nl=28, nlim=20), False),
                        (dataclasses.replace(base, stones=6, hf=16), False),
                        (dataclasses.replace(base, tris=8, bars=4), False),
-                       (dataclasses.replace(base, pd=True, llc=3), False),
+                       (dataclasses.replace(base, pd=True, llc=3), True),
+                       (dataclasses.replace(base, llc=3), False),
                        (dataclasses.replace(base, pd=True, substeps=2, iters=8), True),
                        (dataclasses.replace(base, rods=2, planar=True, split=True), True)):
         assert engine.warp_holds(key) == holds, key

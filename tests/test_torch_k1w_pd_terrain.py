@@ -10,8 +10,9 @@ loop over envs, beside the thread-per-env instances of the same keys
   heightfield window);
 - the four families' keys pick the warp-per-env instance; only
   ``thread_per_env=True`` reaches the ``engine_k1.cu`` twin; K1b at two
-  llc frames keeps its ``engine_k1.cu`` instance, the PD walkers' and the
-  terrain walkers' split twins run one warp per env too; the global
+  llc frames runs the generic warp-per-env instance of its key, the PD
+  walkers' and the terrain walkers' split twins run one warp per env too;
+  the global
   workspace is empty;
 - at B = 64 on chip_smoke.py's PD-target and terrain states each agrees with
   the port's plain unit at its chip gate (K1b ``TOL``: q 2e-4, qd 5e-3,
@@ -126,13 +127,15 @@ def test_families_pick_the_warp_per_env_instance(libs, kind):
         else:
             picked = engine.make_kernel(model, EngineConfig(), hf_patch=HF_PATCH)
         assert picked.name == new.name and type(picked) is type(new), env_id
-    # K1b at two llc frames keeps its engine_k1.cu instance; the PD
-    # walkers' and the terrain walkers' split twins run one warp per env too
+    # K1b at two llc frames runs the generic warp-per-env instance of its key
+    # (tests/test_torch_k1w_llc_frames.py); the PD walkers' and the terrain
+    # walkers' split twins run one warp per env too
     # (tests/test_torch_k1w_split_stones_pd.py, _split_mesh_terrain.py)
     split = _kernel(kind, split_impulse=True)
     assert split.instance.source == engine.SOURCE_W and split.name == f"k1w_{SYMBOL[kind]}_si"
     if kind == "pd":
-        assert _kernel(kind, llc_frames=2).instance.source == engine.SOURCE
+        two = _kernel(kind, llc_frames=2)
+        assert two.instance == engine.warp_instance(two.key) and two.instance.index is None
     # the same table; no global workspace
     assert engine.layout(libs[new.name], new.name) == (new.table_host.size, 0)
     assert engine.layout(libs[old.name], old.name)[1] > 0

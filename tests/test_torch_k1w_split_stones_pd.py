@@ -145,11 +145,14 @@ def test_split_keys_pick_the_warp_per_env_instance(libs, kind):
             picked = engine.make_kernel(model, config, pd_mode=True,
                                         extra_damping=model.kp / 20.0)
         assert picked.name == new.name and type(picked) is type(new), env_id
-    # K1b at two llc frames, split or not, stays on engine_k1.cu
+    # K1b at two llc frames with split impulse runs the generic warp-per-env
+    # instance of its key (tests/test_torch_k1w_llc_frames.py); its twin is
+    # the generic engine_k1.cu one
     if kind == "pd":
         two = _kernel(kind, EngineConfig(llc_frames=2, split_impulse=True))
-        assert two.instance.source == engine.SOURCE
-        assert two.name == "k1_nl22_ns14_nlim21_sub4_it4_llc2_si"
+        assert two.instance == engine.warp_instance(two.key) and two.instance.index is None
+        assert engine.instance_for(two.key, thread_per_env=True).symbol \
+            == "k1_nl22_ns14_nlim21_sub4_it4_llc2_si"
     # the same table; no global workspace
     assert engine.layout(libs[new.name], new.name) == (new.table_host.size, 0)
     assert new.table_host.size == old.table_host.size

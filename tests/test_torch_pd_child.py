@@ -5,7 +5,9 @@
   one and at two llc frames against ``ops/step.py``, gated like the torque
   step (tests/test_torch_physics.py): per-env medians within q 2e-4,
   qd 5e-3, depth 2e-4, normal impulse 5e-3, the largest single-env error
-  within ten times that;
+  within ten times that; at two llc frames the generic warp-per-env K1
+  instance of that key (``csrc/engine_k1w.cu`` built by g++ under
+  ``-DK1W_HOST_CHECK``) on the same states and targets, at the same gate;
 - ``Walker3DPDCustomEnv`` step by step from shared states and actions with
   resync, as tests/test_torch_walker_env.py does for the walker: done flags
   equal, rewards within 1e-4, observations within 1e-4 (median) / 1e-3
@@ -36,11 +38,13 @@ from mocca_envs_tpu_torch.envs import families as tfamilies
 from mocca_envs_tpu_torch.models import child3d as tchild
 from mocca_envs_tpu_torch.models import walker3d as twalker
 from mocca_envs_tpu_torch.models.schema import ARRAY_FIELDS, STATIC_FIELDS
+from mocca_envs_tpu_torch.ops.cuda import engine
 from mocca_envs_tpu_torch.ops.step import make_control_step as tcontrol
 from mocca_envs_tpu_torch.terrain import scene as tscene
 from mocca_envs_tpu_torch.utils.config import EngineConfig as TConfig
 
 from tests import torch_workers  # noqa: F401
+from tests.torch_k1_host import build_host, run_on_host
 
 TOL = {"q": 2e-4, "qd": 5e-3, "depth": 2e-4, "nimp": 5e-3}
 T = torch.as_tensor
@@ -133,7 +137,9 @@ def test_child_model_matches_jax():
 @pytest.mark.parametrize("llc_frames", [1, 2])
 def test_pd_control_step_matches_jax(llc_frames):
     """The whole control step as one PD unit: torque refreshed from the
-    state at each llc frame, λ carried across frames, kp / 20 implicit."""
+    state at each llc frame, λ carried across frames, kp / 20 implicit. At
+    two llc frames the K1b warp-per-env host build runs the same states and
+    targets too."""
     jm, tm = jwalker.make_model(), twalker.make_model()
     B = 32
     rng = np.random.default_rng(20 + llc_frames)
@@ -164,6 +170,16 @@ def test_pd_control_step_matches_jax(llc_frames):
     np.testing.assert_array_equal(tinfo.foot_contact.numpy(), np.asarray(winfo.foot_contact))
     # the servo moved the joints: this is not the zero-torque trajectory
     assert float(np.abs(tq.numpy()[:, 7:] - q[:, 7:]).max()) > 0.02
+    if llc_frames == 2:
+        kernel = engine.K1b(tm.replace(kp=T(kp)), TConfig(llc_frames=2),
+                            extra_damping=T(kp / 20.0))
+        assert kernel.instance == engine.warp_instance(kernel.key)
+        targets = (mid + amp * np.clip(action, -1, 1)).astype(np.float32)
+        inputs = [q, qd, targets, np.zeros(B, np.float32), np.full(B, 0.8, np.float32)]
+        outs = run_on_host(build_host([kernel])[kernel.name], kernel, inputs)
+        for name, got, want in zip(("q", "qd", "depth", "nimp"), outs,
+                                   (wq, wqd, winfo.contacts.depth, winfo.normal_impulse)):
+            _gate(name, got, want)
 
 
 def test_pd_walker_env_matches_jax_step_by_step():

@@ -23,9 +23,9 @@ K1h-f, K1h-g).
   runs the same step (one llc frame) on the targets, the torques, the
   window and the culled faces the port's step packs, and is held to the
   same JAX outputs at the same gates.
-- The instance of each split key, built for the host (the generic one,
-  ``-DK1_HOST_CHECK``, for the PD walker at two llc frames; the others'
-  warp-per-env one, ``-DK1W_HOST_CHECK``), against the port's plain version on
+- The instance of each split key, built for the host (``-DK1W_HOST_CHECK``:
+  the generic warp-per-env one for the PD walker at two llc frames, the
+  others' named warp-per-env one), against the port's plain version on
   chip_smoke.py's states at its twin's gates (the PD walker at one and two
   llc frames, Walker2D and Crab2D, the terrain walker, the stairs).
 
@@ -270,9 +270,9 @@ def host_split():
 
 @pytest.mark.parametrize("case", list(SPLIT_REST))
 def test_split_rest_source_arithmetic_on_host(host_split, case):
-    """Each split key's instance (the generic one at two llc frames; the
-    warp-per-env one of K1h-b, the planar K1h-e, K1h-f and K1h-g), built
-    for the host, against the plain
+    """Each split key's instance (the generic warp-per-env one at two llc
+    frames; the named warp-per-env one of K1h-b, the planar K1h-e, K1h-f and
+    K1h-g), built for the host, against the plain
     version at its twin's gate, counted under its split name; the position
     pass moves the result away from the unsplit twin's."""
     cases, libs = host_split
@@ -281,7 +281,7 @@ def test_split_rest_source_arithmetic_on_host(host_split, case):
     if case in WARP_SPLIT:
         assert kernel.instance is engine.WARP_INSTANCES[kernel.key]
     else:
-        assert kernel.name == engine.canonical_symbol(kernel.key)
+        assert kernel.instance == engine.warp_instance(kernel.key)
         assert kernel.instance.index is None
     inputs = [np.ascontiguousarray(x) for x in arrays]
     outs = run_on_host(libs[kernel.name], kernel, inputs)

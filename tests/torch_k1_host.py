@@ -82,13 +82,15 @@ def build_host(kernels) -> dict:
 
 
 class HostLibrary:
-    """Every named and warp-per-env instance behind one handle: looking up
+    """Every named instance, and the instance that runs each named key (its
+    named or generic warp-per-env one), behind one handle: looking up
     ``<symbol>_host`` or ``<symbol>_layout`` builds (or takes from the cache)
     that instance's library alone."""
 
     def __init__(self):
-        self._insts = {inst.symbol: inst for inst in (*engine.WARP_INSTANCES.values(),
-                                                       *engine.INSTANTIATIONS.values())}
+        self._insts = {inst.symbol: inst for inst in (
+            *engine.WARP_INSTANCES.values(), *engine.INSTANTIATIONS.values(),
+            *map(engine.instance_for, engine.INSTANTIATIONS))}
         self._libs = {}
 
     def __getattr__(self, name):
