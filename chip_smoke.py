@@ -34,7 +34,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    start) and the raycast kernel
    K2 from
    ``csrc/raycast_k2.cu`` (one nvcc process each, side by side), and print
-   each one's ptxas registers and stack frame; the fifteen named frames
+   each one's ptxas registers and stack frame (K2's per kernel: its
+   cooperative march and its one-thread-per-ray twin, their spills and
+   static shared memory, and the cooperative march's lanes per ray, grid
+   placement, blocks resident per SM and shared memory per block over 65²,
+   129² and 257² grids, every grid read through L1); the fifteen named frames
    and spills must be :data:`FRAMES`, and each warp-per-env instance must
    spill nothing, use no global workspace and keep the registers, dynamic
    shared memory per block and envs resident per SM of :data:`WARP_BUILDS`,
@@ -158,7 +162,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    K2 on 32,768 rays (4096 envs × 8) over a 129² fractal grid, 64
    steps to ``max_t`` 10: t equal to the plain version's on at least 99.9%
    of the rays, any other ray one march step apart, h within 1e-5 where t
-   agrees;
+   agrees; its one-thread-per-ray twin the same, and the two designs equal
+   bit for bit on t and h on those rays and on 32,768 over a 65² and a
+   257² grid (:func:`raycast_designs_agree`);
 3. the main paths through ``BatchedEnv(make(id), 4096).step`` with uniform
    random actions, the launch counts set to 0 just before each and read
    just after: ``Walker3DCustomEnv-v0`` for 600 control steps (K1a, by
@@ -198,7 +204,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    per step printed beside the family's at its shipped llc frames), and
    K2's own entry point
    ``make_raycaster`` for 10 calls of 32,768 rays with the origins moved
-   between calls. A grid smaller than the K1f window and PD mode over stones
+   between calls (10 ``k2`` launches of the cooperative march, no other). A grid smaller than the K1f window and PD mode over stones
    must raise on the card before any launch. The path's kernel
    must launch exactly once per step and no other kernel at all, the state
    stay finite and auto-reset fire; resets forced by a non-finite state are
@@ -249,9 +255,13 @@ Phases, in order; any failure exits non-zero before the result lines:
    the stepper's cull of 20 stones to the window plus their packing (env
    layer, once per control step, outside the kernel's time), and the
    stepper's step split into the step proper and the fresh episodes of
-   auto-reset; K2's time through its wrapper and of its ctypes launch
-   alone (:func:`raycast_launch_time`) and its bound (the march steps these
-   rays need);
+   auto-reset; K2's two designs in turns, each kernel's own time on the
+   device (:func:`kernel_times`: the median of 50 launches in a profiler
+   trace), its ctypes launch alone and through its wrapper, at 32,768 rays
+   over 129² (the main path's last call) beside the bound (the march steps
+   these rays need), then at 4,096 and 262,144 rays over 129² and 32,768
+   over 65² and 257² (:func:`raycast_time_and_bound`); K2's ``ms`` in the
+   JSON line is the cooperative march's own device time;
    the terrain step's window cut and packing; the step time outside the
    kernel of the PD walkers, Cassie, the planar walkers, the monkey, the terrain families,
    the stairs, the split-impulse walker and the split stairs, terrain,
@@ -1269,57 +1279,243 @@ def raycast_main_path(engine, card, rng, sweeps: int = 10):
     check(bool(torch.isfinite(t).all() and (t > 0).all() and (t <= 10.0).all()),
           "make_raycaster: t out of range")
     check(0 < int(hits) < sweeps * 8 * B, "make_raycaster: no hits, or no misses")
-    return counts["k2"], (o, d, hf, xy0, cell), raycast
+    return counts["k2"], (o, d, hf, xy0, cell)
 
 
-def raycast_launch_time(engine, args, max_t: float = 10.0, num_steps: int = 64) -> float:
-    """K2's own time per call: its ctypes launch alone (the library looked
-    up once, the outputs allocated once, the pointers taken once), 50 calls
-    bracketed by CUDA events, without the wrapper's checks, its build lookup
-    and its allocations. The outputs must equal the wrapper's. Uncounted."""
+def ptxas_kernels(log: str) -> dict:
+    """:func:`ptxas` of each entry function of an nvcc ``-Xptxas -v`` report
+    that holds several: ``{mangled name: readings}``."""
+    import re
+
+    parts = re.split(r"Compiling entry function '([^']+)'", log)
+    return {parts[j]: ptxas(parts[j + 1]) for j in range(1, len(parts), 2)}
+
+
+def k2_kernel_label(name: str) -> str:
+    """K2's kernels by their design: the cooperative march with its grid
+    staged in shared memory or read through L1, or the thread march."""
+    if "k2_thread_kernel" in name:
+        return "one thread per ray"
+    return "cooperative, grid staged" if "ILb1E" in name else "cooperative, grid through L1"
+
+
+def graph_ms(fn, n: int = 50) -> float:
+    """ms per launch of ``fn``'s kernel: ``n`` launches captured in one CUDA
+    graph, its replays bracketed by CUDA events (no host issue between
+    launches)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * n)
+
+
+def kernel_times(fns, match: str, n: int = 50) -> tuple:
+    """The device's own time of each of ``fns``' kernels (each launches one
+    kernel whose name holds ``match``), ms: the median duration of ``n``
+    launches in a ``torch.profiler`` trace of the card's activity, all of
+    ``fns`` in one trace, in turns as given. Where the trace does not hold
+    them all, each from a replayed CUDA graph (:func:`graph_ms`). Returns
+    (times, "profiler" or "graph")."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for fn in fns:
+            for _ in range(n):
+                fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "kernels.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    mine = sorted((e for e in events if e.get("cat") == "kernel" and match in e.get("name", "")
+                   and "dur" in e), key=lambda e: float(e["ts"]))
+    if len(mine) != n * len(fns):
+        return [graph_ms(fn, n) for fn in fns], "graph"
+    dur = [float(e["dur"]) for e in mine]
+    return [float(np.median(dur[j * n:(j + 1) * n])) / 1e3 for j in range(len(fns))], "profiler"
+
+
+def raycast_build_report(engine, card) -> None:
+    """Phase 1's K2 readings: ptxas's registers, stack frame, spills and
+    static shared memory of each of its kernels, and the cooperative
+    march's lanes per ray, placement (every grid through L1), blocks
+    resident per SM and dynamic shared memory per block at the 65², 129² and
+    257² grids."""
+    lib = engine.build()[engine.RAYCAST_SYMBOL]
+    kernels = ptxas_kernels(engine._Library.logs.get(engine.RAYCAST_SYMBOL, ""))
+    for name, got in kernels.items():
+        print(f"[build] k2 {k2_kernel_label(name)} ({name}): {got['registers']} registers, "
+              f"stack frame {got['frame']} bytes, spill stores {got['spill_stores']} / loads "
+              f"{got['spill_loads']} bytes, static smem {got['smem'] or 0} bytes")
+    check({k2_kernel_label(name) for name in kernels} == {
+        "one thread per ray", "cooperative, grid through L1"},
+        f"k2: the library's kernels are {list(kernels)}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in (65, 129, 257):
+        occ = engine.raycast_occupancy(lib, (n, n))
+        print(f"[build] k2 cooperative march over {n}²: {occ['group']} lanes per ray, grid "
+              f"{'staged in shared memory' if occ['staged'] else 'through L1'}, "
+              f"{occ['blocks_per_sm']} blocks of {occ['threads']} threads resident per SM "
+              f"({occ['blocks_per_sm'] * occ['threads'] // 32} warps, "
+              f"{occ['blocks_per_sm'] * occ['threads'] // 32 * 32 // occ['group']} rays at once "
+              f"per SM, {sms} SMs on {card}), {occ['smem_per_block']} bytes of dynamic shared "
+              "memory per block")
+        check(not occ["staged"], f"k2: the {n}² grid's placement {occ}")
+        check(occ["blocks_per_sm"] >= 1, f"k2: {occ}")
+
+
+def raycast_designs_agree(engine, card, ray_args, rng) -> float:
+    """Phase 2's hold of K2's cooperative march to its one-thread-per-ray
+    twin, bit for bit on t and h, on the main path's 32,768 rays over 129²
+    (``ray_args``) and on 32,768 rays over a 65² and a 257² grid (the latter
+    read through L1), and of the twin to the plain version
+    (:func:`check_rays`). Returns the twin's largest error."""
+    from mocca_envs_tpu_torch.ops.raycast import make_raycaster, raycast_reference
+
+    worst = 0.0
+    for n, args in ((129, ray_args), (65, None), (257, None)):
+        if args is None:
+            args = [torch.as_tensor(x, device="cuda") for x in raycast_inputs(rng, 8 * B, n)]
+        engine.LAUNCHES.clear()
+        t, h = make_raycaster((n, n))(*args)
+        tw, hw = make_raycaster((n, n), thread_per_ray=True)(*args)
+        torch.cuda.synchronize()
+        check(dict(engine.LAUNCHES) == {"k2": 1, "k2_thread": 1},
+              f"k2: the two designs launched {dict(engine.LAUNCHES)}")
+        same = bool(torch.equal(t, tw) and torch.equal(h, hw))
+        print(f"[compare] k2 over {n}²: the cooperative march and the one-thread-per-ray twin "
+              f"on {8 * B} rays: the same bits: {same} ({int((t != tw).sum())} t and "
+              f"{int((h != hw).sum())} h differ)")
+        check(same, f"k2 over {n}²: the cooperative march parts from its twin")
+        want_t, want_h = raycast_reference(*args)
+        share, dt_err, h_err = check_rays(*(x.cpu().numpy() for x in (tw, hw, want_t, want_h)),
+                                          10.0 / 64)
+        worst = max(worst, dt_err, h_err)
+        print(f"[compare] k2 twin over {n}² vs plain: t equal on {share:.5f}, largest |Δt| "
+              f"{dt_err:.4e}, largest |Δh| where t agrees {h_err:.3e}; "
+              f"{float((want_t < 10.0).float().mean()):.4f} of the rays hit, on {card}")
+    return worst
+
+
+def raycast_design_times(engine, args, lib=None, n: int = 50, max_t: float = 10.0,
+                         num_steps: int = 64) -> dict:
+    """K2's two designs on ``args`` in turns (twin, cooperative, cooperative,
+    twin), ms per call: ``device``, the kernel's own time
+    (:func:`kernel_times`); ``launch``, its ctypes launch alone (the library
+    looked up once, the outputs allocated once, the pointers taken once; 50
+    calls bracketed by CUDA events), which times the host's issue where the
+    kernel is shorter; and, with the shipped library (``lib`` None),
+    ``wrapper``, through ``make_raycaster``. Each design's outputs from
+    the launch alone must equal the wrapper's, and the two designs' each
+    other's. Uncounted. ``{"thread": {...}, "group": {...}, "how": ...}``."""
     from mocca_envs_tpu_torch.ops.raycast import make_raycaster
 
     o, d, hf, xy0, cell = args
     cell = cell.reshape(1)
-    fn = getattr(engine.build()[engine.RAYCAST_SYMBOL], engine.RAYCAST_SYMBOL + "_launch")
-    t_hit = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
-    h_hit = torch.empty_like(t_hit)
     H, W = hf.shape
-    call = (o.data_ptr(), d.data_ptr(), hf.data_ptr(), H, W, xy0.data_ptr(), cell.data_ptr(),
-            max_t, max_t / num_steps, num_steps, t_hit.data_ptr(), h_hit.data_ptr(), o.shape[0],
-            torch.cuda.current_stream(o.device).cuda_stream)
-    ms = time_call(lambda: fn(*call), (), 50)
-    check(fn(*call) == 0, "k2: the launch failed")
-    want_t, want_h = make_raycaster(tuple(hf.shape), max_t, num_steps)(*args)
+    shipped = lib is None
+    lib = engine.build()[engine.RAYCAST_SYMBOL] if shipped else lib
+    out = {v: (torch.empty(o.shape[0], dtype=torch.float32, device=o.device),
+               torch.empty(o.shape[0], dtype=torch.float32, device=o.device))
+           for v in ("thread", "group")}
+    calls = {}
+    for v, suffix in (("thread", "_thread_launch"), ("group", "_launch")):
+        fn = getattr(lib, engine.RAYCAST_SYMBOL + suffix)
+        head = (o.data_ptr(), d.data_ptr(), hf.data_ptr(), H, W, xy0.data_ptr(),
+                cell.data_ptr(), max_t, max_t / num_steps, num_steps, out[v][0].data_ptr(),
+                out[v][1].data_ptr(), o.shape[0])
+        calls[v] = lambda fn=fn, head=head: fn(*head, torch.cuda.current_stream().cuda_stream)
+    for v, call in calls.items():
+        check(call() == 0, f"k2 {v}: the launch failed")
     torch.cuda.synchronize()
-    check(bool(torch.equal(t_hit, want_t) and torch.equal(h_hit, want_h)),
-          "k2: the launch alone gave other outputs than the wrapper")
-    return ms
+    check(bool(torch.equal(out["thread"][0], out["group"][0])
+               and torch.equal(out["thread"][1], out["group"][1])),
+          "k2: the two designs' launches gave other bits")
+    order = ("thread", "group", "group", "thread")
+    device, how = kernel_times([calls[v] for v in order], "k2_", n)
+    launch = [time_call(calls[v], (), 50) for v in order]
+    got = {"how": how}
+    for v in ("thread", "group"):
+        got[v] = {"device": (device[order.index(v)] + device[3 - order.index(v)]) / 2,
+                  "launch": (launch[order.index(v)] + launch[3 - order.index(v)]) / 2}
+    if shipped:
+        wrappers = {v: make_raycaster(tuple(hf.shape), max_t, num_steps,
+                                      thread_per_ray=v == "thread") for v in ("thread", "group")}
+        wrapper = [time_call(wrappers[v], args, 50) for v in order]
+        for v in ("thread", "group"):
+            got[v]["wrapper"] = (wrapper[order.index(v)] + wrapper[3 - order.index(v)]) / 2
+            t, h = wrappers[v](*args)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(t, out[v][0]) and torch.equal(h, out[v][1])),
+                  f"k2 {v}: the launch alone gave other outputs than the wrapper")
+    return got
 
 
-def raycast_time_and_bound(engine, card, raycast, args, max_abs: float) -> dict:
-    """K2's per-call time through its wrapper (50 calls) and of its launch
-    alone (:func:`raycast_launch_time`) against its plain version's (3), and
-    the bound from the march steps these rays need and the bytes moved."""
-    from mocca_envs_tpu_torch.ops.raycast import (
-        K2_OPS_PER_STEP, k2_bytes, k2_flops, raycast_reference)
+def raycast_bound(t, args) -> tuple:
+    """(bound ms, its reason, fp32 operations, bytes) of one K2 call whose
+    rays stopped at ``t``: the march steps these rays need, the bytes
+    moved."""
+    from mocca_envs_tpu_torch.ops.raycast import k2_bytes, k2_flops
 
-    ms = time_call(raycast, args, 50)
-    launch_ms = raycast_launch_time(engine, args)
-    plain_ms = time_call(lambda *a: raycast_reference(*a, 10.0, 64), args, 3)
-    t, _ = raycast(*args)
     flops, nbytes = k2_flops(t, 10.0, 64), k2_bytes(args[0].shape[0], tuple(args[2].shape))
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"[bound] k2: {flops} fp32 ops needed ({flops / args[0].shape[0]:.1f} per ray, "
-          f"{flops / args[0].shape[0] / K2_OPS_PER_STEP:.2f} march steps), {nbytes} bytes")
-    print(f"[time] k2 {ms:.4f} ms/call through the wrapper, {launch_ms:.4f} ms/call the launch "
-          f"alone, plain {plain_ms:.3f} ms/call at {args[0].shape[0]} rays on {card}; bound "
-          f"{bound_ms:.6f} ms by {bound_by} (ops {t_ops:.6f} ms, bytes {t_bytes:.6f} ms); the "
-          f"wrapper at {bound_ms / ms:.2%} of it, the launch alone at {bound_ms / launch_ms:.2%}; "
-          f"max |err| {max_abs:.3e}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, nbytes
+
+
+def raycast_time_and_bound(engine, card, args, max_abs: float) -> dict:
+    """K2's per-call times on the main path's 32,768 rays over 129² (its
+    last call's inputs): both designs by :func:`raycast_design_times`, the
+    plain version's (3 calls), and the bound from the march steps these rays
+    need and the bytes moved; then both designs at 4,096 and 262,144 rays
+    over 129² and at 32,768 over 65² and 257². The JSON line's ``ms`` is
+    the cooperative march's own time on the main path's rays."""
+    from mocca_envs_tpu_torch.ops.raycast import (
+        K2_OPS_PER_STEP, make_raycaster, raycast_reference)
+
+    rng = np.random.default_rng(SEED + 23)
+    plain_ms = time_call(lambda *a: raycast_reference(*a, 10.0, 64), args, 3)
+    main = None
+    for rays, n in ((8 * B, 129), (4096, 129), (64 * B, 129), (8 * B, 65), (8 * B, 257)):
+        cur = args if main is None else [torch.as_tensor(x, device="cuda")
+                                          for x in raycast_inputs(rng, rays, n)]
+        got = raycast_design_times(engine, cur)
+        bound_ms, bound_by, flops, nbytes = raycast_bound(make_raycaster((n, n))(*cur)[0], cur)
+        print(f"[bound] k2 {rays} rays over {n}²: {flops} fp32 ops needed "
+              f"({flops / rays:.1f} per ray, {flops / rays / K2_OPS_PER_STEP:.2f} march steps), "
+              f"{nbytes} bytes; bound {bound_ms:.6f} ms by {bound_by}")
+        for v, label in (("group", "cooperative"), ("thread", "thread twin")):
+            r = got[v]
+            print(f"[time] k2 {label} {rays} rays over {n}² on {card}: device {r['device']:.5f} "
+                  f"ms/call ({got['how']}), its ctypes launch alone {r['launch']:.5f}, through "
+                  f"the wrapper {r['wrapper']:.5f}; {r['device'] / bound_ms:.1f}× the bound on "
+                  f"the device, {r['launch'] / bound_ms:.1f}× on the launch alone")
+        print(f"[time] k2 {rays} rays over {n}²: the cooperative march "
+              f"{got['thread']['device'] / got['group']['device']:.2f}× faster than the twin on "
+              "the device")
+        if main is None:
+            main = {"ms": got["group"]["device"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+            print(f"[time] k2 main path: cooperative {main['ms']:.5f} ms/call on the device, "
+                  f"plain {plain_ms:.3f} ms/call at {rays} rays on {card}; bound "
+                  f"{bound_ms:.6f} ms, the kernel at {bound_ms / main['ms']:.2%} of it; max "
+                  f"|err| {max_abs:.3e}")
+    return main
 
 
 def window_and_pack_time(engine, card, state) -> None:
@@ -1605,6 +1801,7 @@ def main() -> int:
                 print(f"[build] {symbol}: {line.strip()}")
     build_report(engine, card, [k.instance for k in extra if k.instance.source == engine.SOURCE_W
                                 and k.instance.index is None])
+    raycast_build_report(engine, card)
 
     # ---- phase 2: each kernel vs its plain version at the main paths' shapes
     cuda = lambda arrays: [torch.as_tensor(x, device="cuda") for x in arrays]  # noqa: E731
@@ -1882,6 +2079,8 @@ def main() -> int:
     print(f"[compare] k2: {8 * B} rays over a 129² grid, t equal on {share:.5f} of them, largest "
           f"|Δt| {dt_err:.4e} (one march step is {10.0 / 64:.4f}), largest |Δh| where t agrees "
           f"{h_err:.3e}; {float((want_t < 10.0).float().mean()):.4f} of the rays hit")
+    max_abs["k2"] = max(max_abs["k2"], raycast_designs_agree(
+        engine, card, ray_args, np.random.default_rng(SEED + 22)))
 
     # ---- phase 3: the main paths through the user entry points
     launches, step_ms = {}, {}
@@ -2008,7 +2207,7 @@ def main() -> int:
               f"B={B} on {card}")
     small_grid_raises(model, config)
     combination_refused(engine, model, config)
-    launches["k2"], ray_main, raycaster = raycast_main_path(engine, card, rng)
+    launches["k2"], ray_main = raycast_main_path(engine, card, rng)
 
     # ---- phase 3 (training): the PPO trainer's CLI with --split-impulse
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
@@ -2103,7 +2302,7 @@ def main() -> int:
 
     cull_and_pack_time(engine, card, model, config)
     stepper_env_layer_times(card, stepper, stepper_state)
-    times["k2"] = raycast_time_and_bound(engine, card, raycaster, ray_main, max_abs["k2"])
+    times["k2"] = raycast_time_and_bound(engine, card, ray_main, max_abs["k2"])
     window_and_pack_time(engine, card, terrain_state)
     for v in ("k1b", "k1b_child", "k1c", "k1e_cassie", "k1e_cassie2d", "k1e_planar", "k1d",
               "k1f", "k1f_lidar", "k1g", "k1h_si", "k1h_g", "k1h_f", "k1h_f_lidar", "k1h_c",

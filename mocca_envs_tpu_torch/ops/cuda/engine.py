@@ -54,7 +54,8 @@ are called through a plain C interface with ``ctypes``.
   run for the same unit, on any device.
 - ``LAUNCHES["k1a" | "k1b" | "k1c" | "k1e" | "k1d" | "k1f" | "k1g" |
   "k1h_si" | "k1h_c" | "k1h_b" | "k1h_e" | "k1h_d" | "k1h_f" | "k1h_g" |
-  "k2"]`` counts kernel launches (plain runs do not count); a split-impulse
+  "k2" | "k2_thread"]`` counts kernel launches (plain runs do not count;
+  ``k2_thread`` is K2's one-thread-per-ray twin); a split-impulse
   instance counts under its own name, and each PGS option turned off adds
   its tag (``k1a_aform``, ``k1h_si_aform``, ``k1a_scalar``, ``k1a_cold``,
   ``k1a_refactor``, ...). ``INSTANCE_LAUNCHES[symbol]`` counts the same K1
@@ -473,11 +474,7 @@ def build(instances=()) -> dict:
     for symbol, _, flags in jobs:
         lib = ctypes.CDLL(str(library_path(symbol, flags)))
         if symbol == RAYCAST_SYMBOL:
-            fn = getattr(lib, RAYCAST_SYMBOL + "_launch")
-            # origins, directions, grid, H, W, xy0, cell, max_t, dt, steps, t
-            # out, h out, B, stream
-            fn.argtypes = [_P, _P, _P, _I, _I, _P, _P, ctypes.c_float, ctypes.c_float, _I, _P,
-                           _P, _I, _P]
+            fn = raycast_signatures(lib)
         else:
             getattr(lib, symbol + "_layout").argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
             getattr(lib, symbol + "_layout").restype = _I
@@ -494,6 +491,42 @@ def build(instances=()) -> dict:
         fn.restype = _I
         _Library.handles[symbol] = lib
     return _Library.handles
+
+
+def raycast_signatures(lib):
+    """Give K2's library (``csrc/raycast_k2.cu``, built with any ``-DK2_*``
+    flags) its argument types: the two launches (the cooperative march
+    ``k2_raycast_launch`` and its one-thread-per-ray twin
+    ``k2_raycast_thread_launch``), the grid placement by size, the lanes per
+    ray and the launch's occupancy. Returns the cooperative launch."""
+    # origins, directions, grid, H, W, xy0, cell, max_t, dt, steps, t out,
+    # h out, B, stream
+    launch = [_P, _P, _P, _I, _I, _P, _P, ctypes.c_float, ctypes.c_float, _I, _P, _P, _I, _P]
+    for name in ("_launch", "_thread_launch"):
+        getattr(lib, RAYCAST_SYMBOL + name).argtypes = launch
+        getattr(lib, RAYCAST_SYMBOL + name).restype = _I
+    getattr(lib, RAYCAST_SYMBOL + "_placement").argtypes = [_I, _I]
+    getattr(lib, RAYCAST_SYMBOL + "_occupancy").argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 3
+    for name in ("_placement", "_group", "_occupancy"):
+        getattr(lib, RAYCAST_SYMBOL + name).restype = _I
+    return getattr(lib, RAYCAST_SYMBOL + "_launch")
+
+
+def raycast_occupancy(lib, hf_shape: tuple) -> dict:
+    """K2's cooperative march on the current card for grids of ``hf_shape``:
+    lanes per ray, the grid's placement (``staged`` in each block's shared
+    memory, else read through L1), blocks resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), threads and dynamic
+    shared memory per block."""
+    H, W = hf_shape
+    blocks, threads, smem = _I(), _I(), _I()
+    err = getattr(lib, RAYCAST_SYMBOL + "_occupancy")(H, W, ctypes.byref(blocks),
+                                                      ctypes.byref(threads), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"k2: occupancy query failed: cudaError {err}")
+    return {"group": getattr(lib, RAYCAST_SYMBOL + "_group")(),
+            "staged": bool(getattr(lib, RAYCAST_SYMBOL + "_placement")(H, W)),
+            "blocks_per_sm": blocks.value, "threads": threads.value, "smem_per_block": smem.value}
 
 
 def layout(lib, name: str) -> tuple[int, int]:

@@ -13,8 +13,11 @@ marches per-env windows through ``terrain/scene.py::hf_sample``.
   on CPU tensors and launches the hand-written CUDA kernel
   (``csrc/raycast_k2.cu``, built with the engine kernels by
   ``ops/cuda/engine.py::build``) on CUDA tensors, raising where it cannot;
-  it takes any number of rays. ``LAUNCHES["k2"]`` of ``ops/cuda/engine.py``
-  counts its launches.
+  it takes any number of rays. The kernel marches each ray with several
+  lanes of a warp at once; ``thread_per_ray=True`` launches its
+  one-thread-per-ray twin instead, which gives the same bits.
+  ``LAUNCHES["k2"]`` (``["k2_thread"]`` for the twin) of
+  ``ops/cuda/engine.py`` counts its launches.
 - :func:`k2_flops` and :func:`k2_bytes` give the work one call needs, for
   its bound.
 """
@@ -50,13 +53,22 @@ def raycast_reference(origins: torch.Tensor, directions: torch.Tensor, hf: torch
     return t_hit, h_hit
 
 
-def make_raycaster(hf_shape: tuple, max_t: float = 10.0, num_steps: int = 64):
+def make_raycaster(hf_shape: tuple, max_t: float = 10.0, num_steps: int = 64,
+                   thread_per_ray: bool = False):
     """Build ``raycast(origins (B,3), directions (B,3), hf (H,W), xy0 (2,),
-    cell ()) → (t_hit (B,), h_hit (B,))`` for grids of ``hf_shape``."""
+    cell ()) → (t_hit (B,), h_hit (B,))`` for grids of ``hf_shape``. On CUDA
+    tensors it launches the cooperative march of ``csrc/raycast_k2.cu``
+    (counted as ``LAUNCHES["k2"]``), or with ``thread_per_ray=True`` its
+    one-thread-per-ray twin (``LAUNCHES["k2_thread"]``), which gives the
+    same bits; the library's launch is looked up once, at the first CUDA
+    call."""
     H, W = hf_shape
     dt = max_t / num_steps
+    suffix, count = (("_thread_launch", "k2_thread") if thread_per_ray else ("_launch", "k2"))
+    launch = None
 
     def raycast(origins, directions, hf, xy0, cell):
+        nonlocal launch
         if origins.device.type == "cpu":
             return raycast_reference(origins, directions, hf, xy0, cell, max_t, num_steps)
         B = origins.shape[0]
@@ -72,18 +84,19 @@ def make_raycaster(hf_shape: tuple, max_t: float = 10.0, num_steps: int = 64):
                 raise ValueError(f"k2: {name} must be on {origins.device} (CUDA), got {x.device}")
             if not x.is_contiguous():
                 raise ValueError(f"k2: {name} must be contiguous")
-        lib = engine.build()[engine.RAYCAST_SYMBOL]
+        if launch is None:
+            launch = getattr(engine.build()[engine.RAYCAST_SYMBOL], engine.RAYCAST_SYMBOL + suffix)
         t_hit = torch.empty(B, dtype=torch.float32, device=origins.device)
         h_hit = torch.empty_like(t_hit)
         stream = torch.cuda.current_stream(origins.device).cuda_stream
         with torch.cuda.device(origins.device):
-            err = getattr(lib, engine.RAYCAST_SYMBOL + "_launch")(
-                origins.data_ptr(), directions.data_ptr(), hf.data_ptr(), H, W, xy0.data_ptr(),
-                cell.data_ptr(), ctypes.c_float(max_t), ctypes.c_float(dt), num_steps,
-                t_hit.data_ptr(), h_hit.data_ptr(), B, stream)
+            err = launch(origins.data_ptr(), directions.data_ptr(), hf.data_ptr(), H, W,
+                         xy0.data_ptr(), cell.data_ptr(), ctypes.c_float(max_t),
+                         ctypes.c_float(dt), num_steps, t_hit.data_ptr(), h_hit.data_ptr(), B,
+                         stream)
         if err != 0:
             raise RuntimeError(f"k2 launch failed: cudaError {err}")
-        engine.LAUNCHES["k2"] += 1
+        engine.LAUNCHES[count] += 1
         return t_hit, h_hit
 
     return raycast

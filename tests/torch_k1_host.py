@@ -1,6 +1,7 @@
-"""The K1 kernel sources built by the host C++ compiler (``-DK1_HOST_CHECK``,
-``-DK1W_HOST_CHECK``): each instance's per-env code as a plain loop over
-envs, for the CPU tests.
+"""The kernel sources built by the host C++ compiler (``-DK1_HOST_CHECK``,
+``-DK1W_HOST_CHECK``, ``-DK2_HOST_CHECK``): each K1 instance's per-env code
+as a plain loop over envs, and K2's two marches as loops over rays, for the
+CPU tests.
 
 :func:`build_host` compiles instances of ``csrc/engine_k1.cu`` and of
 ``csrc/engine_k1w.cu`` (the warp-per-env ones at lane width 1) with the same
@@ -10,7 +11,8 @@ compiler per instance, all started together, into one cache directory
 (``build/host_check/``, which git ignores): each library is named by its
 symbol and a hash of the sources, the compiler and the flags, and written by
 an atomic rename, so that every test file and every test worker reuses what
-another built. :class:`HostLibrary` builds an instance at the first lookup
+another built; :func:`build_raycast` builds K2's source the same way, with
+its ``-DK2_*`` flags. :class:`HostLibrary` builds an instance at the first lookup
 of one of its symbols. :func:`run_on_host` runs one kernel wrapper's
 instance on numpy inputs.
 """
@@ -40,31 +42,36 @@ def _compiler() -> str:
     return cxx
 
 
-def _cached_path(cxx: str, inst) -> Path:
-    """Where ``inst``'s host library lies in the cache: its symbol and a hash
-    of its source, the shared header, the compiler and the flags."""
+def _library_path(cxx: str, symbol: str, source: Path, flags) -> Path:
+    """Where a host library lies in the cache: its symbol and a hash of its
+    source, the shared header, the compiler and the flags."""
     digest = hashlib.sha256()
-    for part in (inst.source, engine.HEADER):
+    for part in (source, engine.HEADER):
         digest.update(part.read_bytes())
-    digest.update(" ".join([cxx, *CXX_FLAGS, *engine.compile_flags(inst)]).encode())
-    return CACHE / f"lib{inst.symbol}_{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join([cxx, *CXX_FLAGS, *flags]).encode())
+    return CACHE / f"lib{symbol}_{digest.hexdigest()[:16]}.so"
 
 
-def build_instances(instances) -> dict:
-    """``{symbol: CDLL}`` of ``instances`` (``engine.Instance``), each built
-    unless the cache holds it, the compilers side by side; skips the test
-    where no host compiler exists."""
+def _cached_path(cxx: str, inst) -> Path:
+    """Where ``inst``'s host library lies in the cache."""
+    return _library_path(cxx, inst.symbol, inst.source, engine.compile_flags(inst))
+
+
+def build_libraries(jobs) -> dict:
+    """``{symbol: CDLL}`` of ``jobs`` (``{symbol: (source, preprocessor
+    flags)}``), each built unless the cache holds it, the compilers side by
+    side; skips the test where no host compiler exists."""
     cxx = _compiler()
     CACHE.mkdir(parents=True, exist_ok=True)
-    insts = {inst.symbol: inst for inst in instances}
-    paths = {symbol: _cached_path(cxx, inst) for symbol, inst in insts.items()}
+    paths = {symbol: _library_path(cxx, symbol, source, flags)
+             for symbol, (source, flags) in jobs.items()}
     running = []
-    for symbol, inst in insts.items():
+    for symbol, (source, flags) in jobs.items():
         if paths[symbol].exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=CACHE)
         os.close(fd)
-        cmd = [cxx, *CXX_FLAGS, *engine.compile_flags(inst), "-o", tmp, str(inst.source)]
+        cmd = [cxx, *CXX_FLAGS, *flags, "-o", tmp, str(source)]
         running.append((symbol, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                       stderr=subprocess.STDOUT, text=True)))
     for symbol, tmp, proc in running:
@@ -74,6 +81,23 @@ def build_instances(instances) -> dict:
         assert proc.returncode == 0, f"{symbol}: host build failed:\n{log}"
         os.replace(tmp, paths[symbol])
     return {symbol: ctypes.CDLL(str(path)) for symbol, path in paths.items()}
+
+
+def build_instances(instances) -> dict:
+    """``{symbol: CDLL}`` of ``instances`` (``engine.Instance``)."""
+    return build_libraries({inst.symbol: (inst.source, engine.compile_flags(inst))
+                            for inst in instances})
+
+
+def build_raycast(flags=()) -> ctypes.CDLL:
+    """The raycast kernel's source (``csrc/raycast_k2.cu``) built for the
+    host (``-DK2_HOST_CHECK``) with ``flags`` (``-DK2_G=<n>``,
+    ``-DK2_PLACE=<0|1>``): its thread march and its cooperative march as
+    loops."""
+    flags = ["-DK2_HOST_CHECK", *flags]
+    symbol = "_".join([engine.RAYCAST_SYMBOL,
+                       *(f.removeprefix("-D").lower().replace("=", "") for f in flags)])
+    return build_libraries({symbol: (engine.RAYCAST_SOURCE, flags)})[symbol]
 
 
 def build_host(kernels) -> dict:
