@@ -236,7 +236,26 @@ Phases, in order; any failure exits non-zero before the result lines:
    horizon 32. Every
    metric line must be finite but the env channels the learner leaves NaN
    (no episode ended), and each prints env-steps/s and the seconds of the
-   rollout and of the PPO update per update;
+   rollout and of the PPO update per update; then the training pipelines
+   at the published widths (4096 envs, (256, 256), horizon 128, 4 epochs),
+   depth cut to 2 updates a phase (:func:`pipelines`): ``run_allsteps`` (32
+   minibatches, mirror_coef 4.0; P1 the walker, exactly 256 ``k1a``; P2 and
+   P3 the stepper and the ladder at stages 0 and 4 of 100 steps each,
+   exactly 712 ``k1c``), ``run_brachiation`` (exactly 712 ``k1d``: two
+   phases, its pinned stage 9 and its adaptive eval row of 100 steps
+   each), each run again on the same root, which must short-circuit every
+   phase, launch only its eval steps (200 ``k1c``; 200 ``k1d``) and give
+   the first run's rows (its state restored from the checkpoints), and
+   the mixed suite through the CLI (``--env
+   Walker3DCustomEnv,CassieEnv,Monkey3DStepperEnv --num-envs 3072
+   --mirror-coef 4.0``): 2 updates (exactly 256 each of ``k1a``, ``k1e``,
+   ``k1d``: Cassie's PD key one launch per control step), then resumed to 3
+   (128 each), which must log that it resumed; every launch by the named
+   warp-per-env instance of its key; every phase finished with its
+   ``PHASE_DONE`` and a finite network in its newest checkpoint, the update
+   rows and metric lines finite, the ladder and eval rows of the JAX
+   package's keys; it prints each phase's env-steps/s and the mixed
+   suite's rollout seconds per family;
 4. per-call times of each kernel and its plain version (CUDA events), the
    two K1a designs in turns (old, new, new, old) at each B of
    :data:`SWEEP` beside their bound, the two designs of Cassie's and of
@@ -1528,6 +1547,19 @@ def window_and_pack_time(engine, card, state) -> None:
     print(f"[time] terrain window cut 65² → 16² + pack: {ms:.4f} ms/call at B={B} on {card}")
 
 
+def counted(engine, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: (its result, the counts by variant, by instance, the wall s)."""
+    torch.cuda.synchronize()
+    engine.LAUNCHES.clear()
+    engine.INSTANCE_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, dict(engine.LAUNCHES), dict(engine.INSTANCE_LAUNCHES),
+            time.perf_counter() - t0)
+
+
 class _Records(logging.Handler):
     """Keeps the messages logged while it is attached."""
 
@@ -1554,21 +1586,18 @@ def train_run(engine, card, env_id: str, updates: int, horizon: int, workdir: Pa
     ckpt, metrics = workdir / f"{env_id}_ckpt", workdir / f"{env_id}.jsonl"
     base = ["--env", env_id, "--split-impulse", "--num-envs", str(B), "--horizon", str(horizon),
             "--log-every", "1", "--ckpt-dir", str(ckpt), "--metrics", str(metrics)]
-    records = _Records()
-    logging.getLogger().addHandler(records)
-    torch.cuda.synchronize()
-    engine.LAUNCHES.clear()
-    engine.INSTANCE_LAUNCHES.clear()
-    t0 = time.perf_counter()
-    try:
+    def run():
         state = train.main([*base, "--updates", str(updates)])
         if resume_updates is not None:
             state = train.main([*base, "--updates", str(resume_updates)])
+        return state
+
+    records = _Records()
+    logging.getLogger().addHandler(records)
+    try:
+        state, counts, by_instance, wall = counted(engine, run)
     finally:
         logging.getLogger().removeHandler(records)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts, by_instance = dict(engine.LAUNCHES), dict(engine.INSTANCE_LAUNCHES)
     total = resume_updates or updates
     lines = [json.loads(x) for x in metrics.read_text().splitlines()]
     print(f"[train] {env_id} --split-impulse: {total} updates of {horizon} steps × {B} envs in "
@@ -1596,6 +1625,191 @@ def train_run(engine, card, env_id: str, updates: int, horizon: int, workdir: Pa
     check(all(bool(torch.isfinite(p).all()) for p in state.params.parameters()),
           f"{env_id} training: non-finite parameters")
     check(bool(torch.isfinite(state.env_state.q).all()), f"{env_id} training: non-finite state")
+    return lines
+
+
+LADDER_KEYS = {"stage", "deterministic", "truncated", "episodes", "ep_end_steps_mean",
+               "ep_end_steps_p50", "ep_end_steps_p90", "frac_ge_4", "frac_ge_8",
+               "frac_complete"}
+BAR_EVAL_KEYS = {"stage", "deterministic", "truncated", "episodes", "ep_end_bars_mean",
+                 "ep_end_bars_p50", "ep_end_bars_p90", "frac_ge_4", "stage_mean"}
+MIXED_IDS = ("Walker3DCustomEnv", "CassieEnv", "Monkey3DStepperEnv")
+
+
+def check_eval_rows(rows, keys: set, label: str) -> None:
+    """Each eval row has the JAX package's keys; a row with episodes has
+    finite statistics and shares in [0, 1], one without has None."""
+    for row in rows:
+        check(set(row) == keys, f"{label}: row keys {sorted(row)}")
+        stats = [k for k in keys if k.startswith(("ep_end", "frac", "stage_mean"))]
+        if row["episodes"] == 0:
+            check(all(row[k] is None for k in stats), f"{label}: a row without episodes {row}")
+        else:
+            check(all(np.isfinite(row[k]) for k in stats), f"{label}: non-finite row {row}")
+            check(all(0.0 <= row[k] <= 1.0 for k in stats if k.startswith("frac")),
+                  f"{label}: a share outside [0, 1] in {row}")
+
+
+def check_phase_rows(emits, phases: dict, label: str, card: str) -> None:
+    """The update rows of each phase (``phases``: tag → updates) are there,
+    finite, and printed with their env-steps/s."""
+    for tag, n in phases.items():
+        rows = [e for e in emits if e.get("phase") == tag and "update" in e]
+        check([e["update"] for e in rows] == list(range(1, n + 1)),
+              f"{label} {tag}: update rows {[e['update'] for e in rows]}")
+        for e in rows:
+            bad = [k for k, v in e.items() if isinstance(v, float) and not np.isfinite(v)]
+            check(not bad, f"{label} {tag}: non-finite {bad} in {e}")
+            print(f"[pipelines] {label} {tag} update {e['update']}: {e['env_steps_per_s']} "
+                  f"env-steps/s, reward per step {e['reward_per_step']:.4f}, pg loss "
+                  f"{e['pg_loss']:.4f}, v loss {e['v_loss']:.4f}, log-std floor "
+                  f"{e['log_std_floor']}, speed {e['speed']}"
+                  + (f", mean stage {e['mean_stage']}" if "mean_stage" in e else "")
+                  + f" at B={B} on {card}")
+
+
+def check_checkpoint(path: Path, label: str) -> None:
+    """The newest checkpoint of a phase: its network's parameters finite."""
+    newest = max(path.glob("ckpt_*.pt"), key=lambda p: int(p.stem.split("_")[1]))
+    module = torch.load(newest, map_location="cpu", weights_only=True)["state"]["fields"][
+        "params"]["module"]
+    check(all(bool(torch.isfinite(v).all()) for v in module.values()),
+          f"{label}: non-finite parameters in {newest.name}")
+
+
+def pipelines(engine, card, workdir: Path, symbols: dict) -> dict:
+    """The three training pipelines at the published widths (4096 envs,
+    (256, 256), horizon 128, 4 epochs), depth cut to 2 updates a phase:
+    ``run_allsteps`` (32 minibatches, mirror_coef 4.0; the ladder at stages 0
+    and 4, 100 steps each), ``run_brachiation`` (its pinned stage 9 and its
+    adaptive row, 100 steps each), each run twice on one root (the second
+    launches only its evaluation steps), and the mixed suite through the
+    CLI, ``--num-envs 3072`` (1024 a family), 2 updates, then resumed to 3.
+    Each run's launches must be exactly the listed counts, each by its named
+    warp-per-env instance (``symbols``). Returns the mixed CLI's metric
+    lines."""
+    from mocca_envs_tpu_torch.harness import allsteps, brachiation, train
+
+    steps = 128
+    emits: list = []
+    hooks = allsteps.RunHooks(emit=lambda **kw: emits.append(kw))
+    # the published widths, spelled out: the configs' defaults
+    widths = dict(num_envs=B, horizon=steps, num_epochs=4, num_minibatches=32,
+                  hidden=(256, 256))
+    cfg = allsteps.AllstepsConfig(**widths, mirror_coef=4.0, seed=SEED,
+                                  ckpt_root=str(workdir / "allsteps"), pretrain_updates=2,
+                                  stepper_updates=2, highstage_updates=2, eval_stages=(0, 4),
+                                  eval_steps=100, log_every=1)
+    ladder, first = 2 * cfg.eval_steps, {}
+    for run in (1, 2):
+        emits.clear()
+        out, counts, by_instance, wall = counted(engine, lambda: allsteps.run_allsteps(cfg, hooks))
+        print(f"[pipelines] run_allsteps, run {run}: {wall:.3f} s on {card}; launches {counts}, "
+              f"by instance {by_instance}")
+        want = ({"k1a": 2 * steps, "k1c": 4 * steps + ladder} if run == 1 else
+                {"k1c": ladder})
+        check(counts == want, f"run_allsteps run {run}: expected launches {want}, got {counts}")
+        check(by_instance == {symbols[v]: n for v, n in
+                              (("k1a", want.get("k1a")), ("k1c", want["k1c"])) if n},
+              f"run_allsteps run {run}: not the named warp instances alone: {by_instance}")
+        check(out["pretrain_finished"] and out["stepper_finished"] and out["highstage_finished"],
+              f"run_allsteps run {run}: a phase did not finish: {out}")
+        check([row["stage"] for row in out["ladder"]] == [0, 4],
+              f"run_allsteps run {run}: ladder {out['ladder']}")
+        check_eval_rows(out["ladder"], LADDER_KEYS, "ladder")
+        for row in out["ladder"]:
+            print(f"[pipelines] ladder run {run}: {row}")
+        if run == 1:
+            check(sum(1 for e in emits if e.get("seeded")) == 2, "run_allsteps: seeded phases")
+            check_phase_rows(emits, {"pretrain": 2, "stepper": 2, "highstage": 2}, "allsteps",
+                             card)
+            for phase in ("pre", "st", "hs"):
+                d = workdir / "allsteps" / f"s{SEED}" / phase
+                check((d / "PHASE_DONE").exists(), f"run_allsteps: no PHASE_DONE in {phase}")
+                check_checkpoint(d, f"run_allsteps {phase}")
+            first["ladder"] = out["ladder"]
+        else:
+            check(sum(1 for e in emits if "already_done_at" in e) == 3
+                  and not any("update" in e for e in emits),
+                  f"run_allsteps run 2 did not short-circuit every phase: {emits}")
+            # the restored state is the trained one: the same ladder
+            check(out["ladder"] == first["ladder"], "run_allsteps run 2: another ladder")
+
+    bcfg = brachiation.BrachiationConfig(**widths, seed=SEED,
+                                         ckpt_root=str(workdir / "brachiation"), main_updates=2,
+                                         ft_updates=2, eval_steps=100, log_every=1)
+    evals = 2 * bcfg.eval_steps
+    for run in (1, 2):
+        emits.clear()
+        out, counts, by_instance, wall = counted(
+            engine, lambda: brachiation.run_brachiation(bcfg, hooks))
+        print(f"[pipelines] run_brachiation, run {run}: {wall:.3f} s on {card}; launches "
+              f"{counts}, by instance {by_instance}")
+        want = 4 * steps + evals if run == 1 else evals
+        check(counts == {"k1d": want},
+              f"run_brachiation run {run}: expected {want} k1d launches, got {counts}")
+        check(by_instance == {symbols["k1d"]: want},
+              f"run_brachiation run {run}: not the named warp instance alone: {by_instance}")
+        check(out["main_finished"] and out["ft_finished"],
+              f"run_brachiation run {run}: a phase did not finish: {out}")
+        check([row["stage"] for row in out["evals"]] == [9.0, None],
+              f"run_brachiation run {run}: evals {out['evals']}")
+        check_eval_rows(out["evals"], BAR_EVAL_KEYS, "bar eval")
+        for row in out["evals"]:
+            print(f"[pipelines] bar eval run {run}: {row}")
+        if run == 1:
+            check_phase_rows(emits, {"monkey_main": 2, "monkey_ft": 2}, "brachiation", card)
+            for phase in ("main", "ft"):
+                d = workdir / "brachiation" / f"s{SEED}" / phase
+                check((d / "PHASE_DONE").exists(), f"run_brachiation: no PHASE_DONE in {phase}")
+                check_checkpoint(d, f"run_brachiation {phase}")
+            first["evals"] = out["evals"]
+        else:
+            check(sum(1 for e in emits if "already_done_at" in e) == 2
+                  and not any("update" in e for e in emits),
+                  f"run_brachiation run 2 did not short-circuit every phase: {emits}")
+            check(out["evals"] == first["evals"], "run_brachiation run 2: other eval rows")
+
+    metrics, per_family = workdir / "mixed.jsonl", B // 4
+    base = ["--env", ",".join(MIXED_IDS), "--num-envs", str(3 * per_family), "--horizon",
+            str(steps),
+            "--epochs", "4", "--mirror-coef", "4.0", "--log-every", "1", "--ckpt-dir",
+            str(workdir / "mixed_ckpt"), "--metrics", str(metrics)]
+    records = _Records()
+    logging.getLogger().addHandler(records)
+    try:
+        for run, updates in ((1, 2), (2, 3)):
+            state, counts, by_instance, wall = counted(
+                engine, lambda: train.main([*base, "--updates", str(updates)]))
+            n = steps * (2 if run == 1 else 1)
+            print(f"[pipelines] mixed suite through the CLI, run {run} (to update {updates}): "
+                  f"{wall:.3f} s on {card}; launches {counts}, by instance {by_instance}")
+            check(counts == {"k1a": n, "k1e": n, "k1d": n},
+                  f"mixed run {run}: expected {n} launches of k1a, k1e, k1d, got {counts}")
+            check(by_instance == {symbols[v]: n for v in ("k1a", "k1e_cassie", "k1d")},
+                  f"mixed run {run}: not the named warp instances alone: {by_instance}")
+    finally:
+        logging.getLogger().removeHandler(records)
+    check("resumed from update 2" in records.messages, "mixed: the second run did not resume")
+    print("[pipelines] mixed suite: the second run logged 'resumed from update 2'")
+    lines = [json.loads(x) for x in metrics.read_text().splitlines()]
+    check([x["step"] for x in lines] == [1, 2, 3], f"mixed: metric lines {lines}")
+    for line in lines:
+        bad = [k for k, v in line.items() if not np.isfinite(v)
+               and not k.startswith(("env/", "ep_end/"))]
+        check(not bad, f"mixed: non-finite metrics {bad}")
+        fams = ", ".join(f"{name} {line[f'rollout_s/{name}']:.4f} s" for name in MIXED_IDS)
+        print(f"[pipelines] mixed update {line['step']}: {line['env_steps_per_s']:.0f} "
+              f"env-steps/s, rollout {line['rollout_s']:.4f} s ({fams}), PPO update "
+              f"{line['update_s']:.4f} s, reward per step {line['reward_per_step']:.4f} at "
+              f"B=3 × {per_family} on {card}")
+        check(all(np.isfinite(line[f"env/{name}/blowup"]) for name in MIXED_IDS),
+              f"mixed: a family's channels are missing or not finite: {line}")
+    check(state.update_count == 3, f"mixed: ended at {state.update_count}")
+    check(all(bool(torch.isfinite(p).all()) for p in state.params.parameters()),
+          "mixed: non-finite parameters")
+    check(all(bool(torch.isfinite(s.q).all()) for s in state.env_state),
+          "mixed: non-finite state")
     return lines
 
 
@@ -2232,6 +2446,10 @@ def main() -> int:
                           instance=added[short].name)
         train_lines.setdefault(short, lines)
         launches[short] = 64
+
+    # ---- phase 3 (pipelines): ALLSTEPS, brachiation and the mixed suite
+    pipelines(engine, card, workdir, {v: kernels[v][0].name for v in
+                                      ("k1a", "k1c", "k1d", "k1e_cassie")})
 
     # ---- phase 4: per-call times at B = 4096
     times = {v: time_and_bound(engine, card, kernel, args, matfree.get(v))

@@ -24,13 +24,18 @@ family's bank — fresh episodes keep their slot's grid and draw no pick).
 
 Draws happen whether or not a slot uses them, so a trajectory depends only
 on the seed, the batch size and the actions: same seed ⇒ same episodes.
+
+Where one seed drives several streams (the mixed suite: one generator per
+family), stream i takes the seed :func:`fold_in` ``(s, i)``, numpy's
+``SeedSequence([s, i])``, in place of the JAX package's ``fold_in``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["generator", "uniform"]
+__all__ = ["fold_in", "generator", "uniform"]
 
 
 def generator(seed: int, device) -> torch.Generator:
@@ -38,6 +43,13 @@ def generator(seed: int, device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return gen
+
+
+def fold_in(seed: int, index: int) -> int:
+    """The seed of stream ``index`` under ``seed``: 64 bits of numpy's
+    ``SeedSequence([seed, index])``, so that no two (seed, index) pairs
+    share a stream in practice."""
+    return int(np.random.SeedSequence([int(seed), int(index)]).generate_state(1, np.uint64)[0])
 
 
 def uniform(gen: torch.Generator, shape, lo, hi, dtype=torch.float32) -> torch.Tensor:

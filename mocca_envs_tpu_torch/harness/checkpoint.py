@@ -4,11 +4,14 @@ Counterpart of ``mocca_envs_tpu/harness/checkpoint.py`` (orbax there), with
 the same API. A checkpoint holds a whole train state: the network's and the
 optimizer's state dicts (its step count included), the env state, the
 carried observations, the generators' states, the update count and the
-running norms, so a resume on the same device continues the run exactly.
-The state is written as a tree of dicts, lists, numbers and tensors (no
-pickled objects) and read back with ``weights_only=True`` into a template of
-the same structure (``restore(state_like)``): tensors land on the template's
-device; a template whose structure differs raises :class:`CheckpointMismatch`.
+running norms, so a resume on the same device continues the run exactly;
+a rollout provider's state (the mixed suite's) holds a tuple of each per
+family. The state is written as a tree of dicts, lists, numbers and tensors
+(no pickled objects) and read back with ``weights_only=True`` into a
+template of the same structure (``restore(state_like)``): tensors land on
+the template's device; a template whose structure differs (a field, a
+shape, a dtype, or a tuple of another length) raises
+:class:`CheckpointMismatch`.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ class CheckpointMismatch(ValueError):
 
 def to_tree(x) -> Any:
     """A train state (dataclasses of tensors, modules, optimizers and
-    generators) as a tree of plain containers and tensors."""
+    generators, and tuples of them) as a tree of plain containers and
+    tensors."""
     if x is None or isinstance(x, (bool, int, float, str, torch.Tensor)):
         return x
     if isinstance(x, torch.Generator):
@@ -42,6 +46,8 @@ def to_tree(x) -> Any:
         return {"fields": {f.name: to_tree(getattr(x, f.name)) for f in dataclasses.fields(x)}}
     if isinstance(x, dict):
         return {"dict": {k: to_tree(v) for k, v in x.items()}}
+    if isinstance(x, (tuple, list)):
+        return {"list": [to_tree(v) for v in x]}
     raise TypeError(f"cannot checkpoint a {type(x).__name__}")
 
 
@@ -62,6 +68,14 @@ def from_tree(like, tree, path: str = "state"):
         return tree.to(like.device)
     if isinstance(like, (bool, int, float, str)):
         return type(like)(tree)
+    if isinstance(like, (tuple, list)):
+        if not isinstance(tree, dict) or not isinstance(tree.get("list"), list):
+            raise CheckpointMismatch(f"{path}: the checkpoint holds no list here")
+        if len(tree["list"]) != len(like):
+            raise CheckpointMismatch(f"{path}: the checkpoint has {len(tree['list'])} entries, "
+                                     f"the template {len(like)}")
+        return type(like)(from_tree(a, b, f"{path}[{i}]")
+                          for i, (a, b) in enumerate(zip(like, tree["list"])))
     key = ("generator" if isinstance(like, torch.Generator) else
            "module" if isinstance(like, torch.nn.Module) else
            "optimizer" if isinstance(like, torch.optim.Optimizer) else

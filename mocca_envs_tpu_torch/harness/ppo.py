@@ -9,7 +9,10 @@ clipped by its global norm and applied by Adam. The network is a plain
 ``nn.Module``; the env's draws and the learner's (action noise, shuffles)
 come from two ``torch.Generator`` on the env's device, kept in the state,
 so a run is a function of its seed and a checkpoint resumes it exactly.
-The mesh path (``shard_map`` over devices) is not ported here.
+The env may also be a rollout provider (``harness/mixed.py::MixedSuite``):
+then the env states, observations and env generators are tuples, one entry
+per family, and the learner math is the same. The mesh path (``shard_map``
+over devices) is not ported here.
 """
 
 from __future__ import annotations
@@ -145,14 +148,16 @@ class TrainState:
     """Everything the next update needs. ``params`` and ``opt_state`` are
     the network and its optimizer (their step count is the optimizer's);
     ``key`` draws the learner's noise and shuffles, ``env_key`` the env's.
-    A train step updates the network and optimizer in place."""
+    A train step updates the network and optimizer in place. Under a
+    rollout provider ``env_state``, ``obs`` and ``env_key`` are tuples, one
+    entry per family."""
 
     params: ActorCritic
     opt_state: torch.optim.Adam
     env_state: Any
-    obs: torch.Tensor
+    obs: Any
     key: torch.Generator
-    env_key: torch.Generator
+    env_key: Any
     update_count: int
     obs_norm: RunningNorm
     # only with PPOConfig.normalize_reward
@@ -207,9 +212,14 @@ class PPOLearner:
                  num_envs: int = 1024):
         if mesh is not None:
             raise NotImplementedError(MESH_NOT_PORTED)
-        if hasattr(env, "init_states") and hasattr(env, "make_rollout"):
-            raise NotImplementedError("rollout providers (the mixed suite) are ROADMAP Queue 1 "
-                                      "item 13, not ported yet")
+        # ``env`` may be one FnEnv or a rollout provider (harness/mixed.py's
+        # MixedSuite): anything with obs_dim / act_dim / device and
+        # init_states(seed) → (env states, obs, env generators), tuples per
+        # family, and make_rollout(horizon, policy), whose rollout takes and
+        # returns those tuples. The provider sets the batch size.
+        self._provider = hasattr(env, "init_states") and hasattr(env, "make_rollout")
+        if self._provider:
+            num_envs = env.num_envs
         if num_envs % config.num_minibatches != 0:
             raise ValueError("num_envs must divide into minibatches")
         if config.shuffle_mode not in ("full", "time"):
@@ -235,7 +245,8 @@ class PPOLearner:
         # of them per PPO update
         self._lr_steps = config.lr_anneal_updates * config.num_epochs * config.num_minibatches
         self.timer = StageTimer(self.device)
-        self._rollout = make_batched_rollout(env, config.horizon, self._policy)
+        self._rollout = (env.make_rollout(config.horizon, self._policy) if self._provider else
+                         make_batched_rollout(env, config.horizon, self._policy))
 
     # ------------------------------------------------------------- pieces
     def lr_at(self, opt_step: int) -> float:
@@ -270,8 +281,19 @@ class PPOLearner:
         action, log_prob = gaussian_sample(mean, torch.maximum(log_std, floor), gen)
         return action, log_prob, value
 
-    def _mirror(self, x, which: str):
-        return x[..., self.mirror[f"{which}_perm"]] * self.mirror[f"{which}_sign"]
+    def _mirror(self, x, which: str, tag=None):
+        """``x`` under the mirror map ``which`` ("obs" or "act"): a signed
+        permutation, exact as an index. The mixed suite's family spec maps
+        each row by its family's permutation, selected by the one-hot
+        ``tag`` (B, K) of the row's obs tail: a sum of elementwise products
+        with 1 and 0 (no matmul, which TF32 could round), exact as the JAX
+        learner's one-hot contraction."""
+        if tag is None:
+            return x[..., self.mirror[f"{which}_perm"]] * self.mirror[f"{which}_sign"]
+        m = self.mirror
+        per_family = torch.stack([x[:, perm] * sign for perm, sign in
+                                  zip(m[f"{which}_perms"], m[f"{which}_signs"])])
+        return (tag.t()[:, :, None] * per_family).sum(dim=0)
 
     def loss_fn(self, net, mb, adv_stats, norm, floor):
         """The clipped surrogate, the clipped value loss and (with
@@ -297,10 +319,13 @@ class PPOLearner:
             # π(M_obs(s)) against M_act(π(s)); the mirrored obs take the
             # unmirrored running stats, as in the JAX learner. A signed
             # permutation is exact as an index (the JAX learner's one-hot
-            # matrices at HIGHEST precision compute the same values).
-            m_mean, _, _ = net(self._maybe_norm(norm, self._mirror(obs, "obs")))
+            # matrices at HIGHEST precision compute the same values); the
+            # mixed suite's families without a spec carry the identity
+            tag = (obs[:, -int(self.mirror["num_families"]):] if self.mirror.get("family")
+                   else None)
+            m_mean, _, _ = net(self._maybe_norm(norm, self._mirror(obs, "obs", tag)))
             loss = loss + cfg.mirror_coef * torch.mean(
-                torch.square(m_mean - self._mirror(mean, "act")))
+                torch.square(m_mean - self._mirror(mean, "act", tag)))
         return loss, (pg_loss, v_loss, entropy)
 
     # --------------------------------------------------------------- init
@@ -311,10 +336,14 @@ class PPOLearner:
                           generator=init_gen).to(self.device)
         # optax.adam's defaults
         opt = torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
-        env_key = rng_mod.generator(seed, self.device)
-        env_state = self.env.init(env_key, self.num_envs)
+        if self._provider:
+            env_state, obs, env_key = self.env.init_states(seed)
+        else:
+            env_key = rng_mod.generator(seed, self.device)
+            env_state = self.env.init(env_key, self.num_envs)
+            obs = self.env.obs_fn(env_state)
         return TrainState(
-            params=net, opt_state=opt, env_state=env_state, obs=self.env.obs_fn(env_state),
+            params=net, opt_state=opt, env_state=env_state, obs=obs,
             key=rng_mod.generator(seed + LEARNER_SEED_OFFSET, self.device), env_key=env_key,
             update_count=0, obs_norm=RunningNorm.init(self.env.obs_dim, self.device),
             ret_accum=(torch.zeros(self.num_envs, device=self.device)

@@ -11,11 +11,13 @@ It runs on the CUDA card (``main(argv, device="cpu")`` runs the plain path
 on the CPU; there is no fallback from one to the other). Features:
 checkpointing with resume, the ``--init-from`` transfer, curriculum
 reporting and advancement on the stepper families, split impulse
-(``--split-impulse``: each family's own config with the flag on), metrics
-logging with env-steps/s and the rollout and update seconds per update, and
-an optional profiler trace. The mixed suite (a comma-separated ``--env``)
-and ``--multihost`` are ROADMAP Queue 1 item 13 and raise; ``--no-mesh`` is
-accepted and changes nothing on one device.
+(``--split-impulse``: each family's own config with the flag on), the mixed
+suite on one device (a comma-separated ``--env``: ``harness/mixed.py``,
+``--num-envs`` split evenly over the families), metrics logging with
+env-steps/s and the rollout and update seconds per update (and, for the
+mixed suite, each family's rollout seconds, ``rollout_s/<family>``), and an
+optional profiler trace. ``--multihost`` is ROADMAP Queue 1 item 13 and
+raises; ``--no-mesh`` is accepted and changes nothing on one device.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import dataclasses
 import logging
 import time
 
-MULTI_NOT_PORTED = "is ROADMAP Queue 1 item 13 (multi-device and the mixed suite), not ported yet"
+MULTI_NOT_PORTED = "is ROADMAP Queue 1 item 13 (multi-device), not ported yet"
 
 
 def parse_args(argv=None):
@@ -110,6 +112,8 @@ def restore_compat(ckpt, state, num_envs: int):
     survive the flip: try the template as it is, then the other shape, and
     attach or drop the reward-norm stats accordingly.
     """
+    import torch
+
     from mocca_envs_tpu_torch.harness.checkpoint import CheckpointMismatch
     from mocca_envs_tpu_torch.harness.ppo import RunningNorm
 
@@ -126,8 +130,8 @@ def restore_compat(ckpt, state, num_envs: int):
     # the checkpoint was saved WITH --normalize-reward but this run is
     # flag-off: restore with placeholder stats of the canonical shapes, then
     # drop them
-    device = state.obs.device
-    full = dataclasses.replace(state, ret_accum=state.obs.new_zeros(num_envs),
+    device = state.obs_norm.mean.device
+    full = dataclasses.replace(state, ret_accum=torch.zeros(num_envs, device=device),
                                ret_norm=RunningNorm.init(1, device))
     restored = ckpt.restore(full)
     return dataclasses.replace(restored, ret_accum=None, ret_norm=None)
@@ -152,7 +156,8 @@ def maybe_advance_curriculum(state, metrics: dict, threshold: float | None):
     envs advance themselves (StepperParams.adv_threshold) and the mean stage
     is only reported; with one, every env moves a stage up (at most 9) once
     the batch-mean stones reached clears it. Returns ``(state, mean stage
-    or None)``."""
+    or None)``. The mixed suite's tuple of states has no stage: it passes
+    unchanged."""
     task = getattr(state.env_state, "task", None)
     if task is None or not hasattr(task, "stage"):
         return state, None
@@ -174,8 +179,6 @@ def main(argv=None, device=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     if args.multihost:
         raise NotImplementedError(f"--multihost {MULTI_NOT_PORTED}")
-    if "," in args.env:
-        raise NotImplementedError(f"a comma-separated --env (the mixed suite) {MULTI_NOT_PORTED}")
 
     import mocca_envs_tpu_torch as port
     from mocca_envs_tpu_torch.harness.checkpoint import CheckpointManager
@@ -184,8 +187,19 @@ def main(argv=None, device=None):
     from mocca_envs_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
-    env = (port.make(args.env, device=device, config=split_config(args.env))
-           if args.split_impulse else port.make(args.env, device=device))
+    if "," in args.env:
+        if args.split_impulse:
+            raise SystemExit("--split-impulse is not wired for mixed suites yet; "
+                             "run the families separately")
+        from mocca_envs_tpu_torch.harness.mixed import MixedSuite
+
+        ids = tuple(s.strip() for s in args.env.split(","))
+        env = MixedSuite(ids, (args.num_envs // len(ids),) * len(ids), device=device)
+        args.num_envs = env.num_envs
+    else:
+        env = (port.make(args.env, device=device, config=split_config(args.env))
+               if args.split_impulse else port.make(args.env, device=device))
+    family_timer = getattr(env, "timer", None)
     cfg = PPOConfig(
         horizon=args.horizon,
         num_epochs=args.epochs,
@@ -235,6 +249,7 @@ def main(argv=None, device=None):
 
     t0 = time.time()
     stage_s0 = dict(learner.timer.times)
+    family_s0 = dict(family_timer.times) if family_timer is not None else {}
     for u in range(start_update, args.updates):
         state, metrics = learner.train_step(state)
         if (u + 1) % args.log_every == 0:
@@ -245,6 +260,11 @@ def main(argv=None, device=None):
             for stage in ("rollout", "update"):
                 m[f"{stage}_s"] = (learner.timer.times.get(stage, 0.0)
                                    - stage_s0.get(stage, 0.0)) / args.log_every
+            if family_timer is not None:
+                # the mixed suite: each family's share of the rollout
+                for name, secs in family_timer.times.items():
+                    m[f"rollout_s/{name}"] = (secs - family_s0.get(name, 0.0)) / args.log_every
+                family_s0 = dict(family_timer.times)
             state, stage = maybe_advance_curriculum(state, m, args.curriculum_threshold)
             if stage is not None:
                 m["curriculum_stage"] = stage

@@ -11,8 +11,9 @@ seams, and a toy task with a known optimum.
   --split-impulse`` ends with parameters, optimizer state, env state and
   observations bit-identical to an uninterrupted run;
 - ``restore_compat`` resumes across a ``--normalize-reward`` flip both ways;
-- a comma-separated ``--env`` and ``--multihost`` raise, naming ROADMAP item
-  13; no device means the card, which a CPU-only box does not have;
+- ``--multihost`` and a mesh raise, naming ROADMAP item 13 (the mixed
+  suite, a comma-separated ``--env``, is tested in test_torch_mixed.py); no
+  device means the card, which a CPU-only box does not have;
 - PPO on a one-step toy task (reward −(a − 0.6)²) moves the policy mean
   from 0 to within 0.15 of 0.6 in 15 seeded updates;
 - the checkpoint keeps the newest three and refuses a template of another
@@ -223,8 +224,6 @@ def test_checkpoint_keeps_three_and_refuses_another_structure(tmp_path):
 
 # -------------------------------------------------------------- the CLI
 def test_cli_refuses_what_it_has_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train.main(["--env", "Walker3DCustomEnv,CassieEnv"], device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         train.main(["--multihost"], device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
