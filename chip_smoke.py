@@ -292,7 +292,16 @@ Phases, in order; any failure exits non-zero before the result lines:
    own count printed beside it; a ``torch.profiler`` trace of one stepper
    update at horizon 16 (``--profile-dir``): the device's busy share and
    its largest kernels;
-5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+5. ``surfaces`` (:func:`surfaces`): the host-side surfaces on the card —
+   the six assets loaded from ``mocca_envs_tpu_torch/data/``, four families
+   built on them at B = 4096 (the hand-built families' named instances,
+   each loaded model's kernel against its plain version and the hand-built
+   model's, each family timed on both models back to back), the fixed-base
+   pendulum and the prismatic slider on the plain path with no K1 launch
+   against the CPU (and the CPU against itself from q0 moved by one ulp),
+   ``GymEnv`` at B = 1 (exactly 200 K1a launches), raw and task record /
+   replay (100 steps each), the viewer and the debug tools;
+6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -300,6 +309,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import atexit
+import collections
 import dataclasses
 import json
 import logging
@@ -1040,9 +1050,10 @@ def design_sweep(engine, card, label: str, new, old, states, sweep, matfree=None
 
 
 def drive(port, engine, card, env_id: str, steps: int, variant: str, sums=(), watch=None,
-          instance: str | None = None, **make_kw):
+          instance: str | None = None, warmup: int = 0, **make_kw):
     """One main path: ``steps`` control steps of uniform random actions
-    through the entry points (``make(env_id, **make_kw)``); ``watch`` is
+    through the entry points (``make(env_id, **make_kw)``), after ``warmup``
+    steps that are neither timed nor counted; ``watch`` is
     called on every transition. Every launch must be ``variant``'s and, if
     given, by the K1 ``instance`` of that symbol. Returns (launches, final state, last
     transition, the batched env, ms per step, the sums over the run of the
@@ -1052,6 +1063,9 @@ def drive(port, engine, card, env_id: str, steps: int, variant: str, sums=(), wa
     state = batch.init()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
+    for _ in range(warmup):
+        state = batch.step(state, torch.rand((B, env.act_dim), generator=gen, device="cuda")
+                           * 2.0 - 1.0).state
     dones = torch.zeros((), dtype=torch.int64, device="cuda")
     totals = {k: torch.zeros((), device="cuda") for k in sums}
     torch.cuda.synchronize()
@@ -1916,6 +1930,415 @@ def profile_update(card, workdir: Path) -> None:
         print(f"[profile]   {dur / 1e3:10.3f} ms  {cnt:6d} calls  {n}")
 
 
+# the fixed-base pendulum of tests/test_model_compilers.py, and a floating
+# rig whose first joint is prismatic (a tilted slide, then a knee and an
+# ankle): the models K1 does not cover, which take the plain path on the card
+PENDULUM_URDF = """
+<robot name="pend">
+  <link name="world_base">
+    <inertial><mass value="0"/><origin xyz="0 0 0"/>
+      <inertia ixx="0" iyy="0" izz="0" ixy="0" ixz="0" iyz="0"/></inertial>
+  </link>
+  <link name="rod">
+    <inertial><mass value="1.3"/><origin xyz="0 0 -0.8"/>
+      <inertia ixx="0.01" iyy="0.01" izz="0.001" ixy="0" ixz="0" iyz="0"/></inertial>
+    <collision><origin xyz="0 0 -0.8"/><geometry><sphere radius="0.05"/></geometry></collision>
+  </link>
+  <joint name="hinge" type="revolute">
+    <parent link="world_base"/><child link="rod"/>
+    <origin xyz="0 0 0"/><axis xyz="0 1 0"/>
+    <limit lower="-3" upper="3" effort="50"/>
+    <dynamics damping="0.2"/>
+  </joint>
+</robot>
+"""
+SLIDER_URDF = """
+<robot name="slider">
+  <link name="torso">
+    <inertial><mass value="4"/><origin xyz="0 0 0.05"/>
+      <inertia ixx="0.08" iyy="0.07" izz="0.04" ixy="0.001" ixz="0" iyz="0"/></inertial>
+    <collision><geometry><sphere radius="0.1"/></geometry></collision>
+  </link>
+  <link name="slide">
+    <inertial><mass value="1.5"/><origin xyz="0 0.02 -0.1"/>
+      <inertia ixx="0.01" iyy="0.01" izz="0.004" ixy="0" ixz="0" iyz="0"/></inertial>
+    <collision><origin xyz="0 0 -0.15"/><geometry><sphere radius="0.05"/></geometry></collision>
+  </link>
+  <link name="shin">
+    <inertial><mass value="1"/><origin xyz="0 0 -0.2"/>
+      <inertia ixx="0.01" iyy="0.01" izz="0.002" ixy="0" ixz="0" iyz="0"/></inertial>
+    <collision><origin xyz="0 0 -0.2"/>
+      <geometry><capsule radius="0.04" length="0.3"/></geometry></collision>
+  </link>
+  <link name="foot">
+    <inertial><mass value="0.4"/><origin xyz="0.04 0 0"/>
+      <inertia ixx="0.001" iyy="0.002" izz="0.002" ixy="0" ixz="0" iyz="0"/></inertial>
+    <collision><origin xyz="0.04 0 -0.02"/><geometry><box size="0.18 0.08 0.04"/></geometry></collision>
+  </link>
+  <joint name="lift" type="prismatic">
+    <parent link="torso"/><child link="slide"/>
+    <origin xyz="0 0 -0.1" rpy="0 0.1 0"/><axis xyz="0.3 0 1"/>
+    <limit lower="-0.2" upper="0.2" effort="100"/>
+    <dynamics damping="0.5"/>
+  </joint>
+  <joint name="knee" type="revolute">
+    <parent link="slide"/><child link="shin"/>
+    <origin xyz="0 0 -0.2" rpy="0.1 0 0"/><axis xyz="0 1 0"/>
+    <limit lower="-1.2" upper="1.2" effort="60"/>
+  </joint>
+  <joint name="ankle" type="revolute">
+    <parent link="shin"/><child link="foot"/>
+    <origin xyz="0 0 -0.4"/><axis xyz="1 0 0"/>
+    <limit lower="-0.5" upper="0.5" effort="20"/>
+  </joint>
+</robot>
+"""
+RIG_BATCH = 1024   # envs of each rig on the plain path, on the card and the CPU
+
+
+def rig_states(model, rng, batch: int):
+    """Seeded rig states: the pendulum swung ±1 rad with ±1 rad/s; the
+    slider's base 0.8 m over the plane (its foot within a few cm of it),
+    tilted a little, joints inside their limits. Numpy ``(q, qd)``."""
+    lo, hi = model.limit_lo.cpu().numpy(), model.limit_hi.cpu().numpy()
+    q = np.zeros((batch, model.nq), np.float32)
+    qd = np.zeros((batch, model.nv), np.float32)
+    if not model.floating:
+        q[:] = rng.uniform(-1.0, 1.0, (batch, model.nq))
+        qd[:] = rng.uniform(-1.0, 1.0, (batch, model.nv))
+        return q, qd
+    q[:, 2] = 0.8 + 0.03 * rng.standard_normal(batch)
+    q[:, 3:7] = np.array([1.0, 0.0, 0.0, 0.0]) + 0.02 * rng.standard_normal((batch, 4))
+    q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
+    q[:, 7:] = np.clip(0.1 * rng.standard_normal((batch, model.nj)), lo, hi)
+    qd[:] = 0.1 * rng.standard_normal((batch, model.nv))
+    return q, qd
+
+
+def rig_runs(engine, card, config, rng) -> None:
+    """The two rigs K1 does not cover (``engine.supports``): 50 control
+    steps of each through ``make_control_step`` at :data:`RIG_BATCH` envs on
+    the card, with no K1 launch, against the same steps on the CPU; the
+    pendulum under seeded torques, the slider under none (it settles on its
+    foot). After the first control step every env must agree within
+    :data:`TOL`. Over 50 steps with contacts rounding is amplified, so the
+    CPU also runs from q0 moved by one ulp (``np.nextafter``) as the
+    witness: the card's per-env median stays within :data:`TOL`, and its
+    99th percentile and largest env within ten times :data:`TOL` or three
+    times the one-ulp run's, whichever is larger."""
+    from mocca_envs_tpu_torch.models.urdf import parse_urdf
+    from mocca_envs_tpu_torch.ops.cuda.engine import supports
+    from mocca_envs_tpu_torch.ops.step import make_control_step
+    from mocca_envs_tpu_torch.terrain import scene as scene_mod
+
+    for label, text, floating, torque_scale, ground_z in (
+            ("pendulum", PENDULUM_URDF, False, 0.3, -2.0),
+            ("slider", SLIDER_URDF, True, 0.0, 0.0)):
+        host = parse_urdf(text, floating=floating)
+        q0, qd0 = rig_states(host, rng, RIG_BATCH)
+        gain = host.power_coef.numpy()
+        taus = (torque_scale * gain * rng.uniform(-1.0, 1.0, (50, RIG_BATCH, len(gain)))).astype(
+            np.float32)
+        firsts, ends = {}, {}
+        for run_name, dev, start in (("cuda", "cuda", q0), ("cpu", "cpu", q0),
+                                     ("cpu_ulp", "cpu", np.nextafter(q0, np.float32(np.inf)))):
+            model = parse_urdf(text, floating=floating, device=dev)
+            check(not supports(model), f"{label}: K1 claims to cover the rig")
+            ctrl = make_control_step(model, config)
+            scene = scene_mod.flat(RIG_BATCH, dev, ground_z=ground_z)
+            q, qd = torch.as_tensor(start, device=dev), torch.as_tensor(qd0, device=dev)
+            tau = torch.as_tensor(taus, device=dev)
+
+            def run(q=q, qd=qd, ctrl=ctrl, scene=scene, tau=tau, run_name=run_name):
+                for t in range(50):
+                    q, qd, info = ctrl(q, qd, tau[t], scene)
+                    if t == 0:
+                        firsts[run_name] = (q.cpu(), qd.cpu())
+                return q, qd, info
+
+            (q, qd, info), counts, by_instance, wall = counted(engine, run)
+            print(f"[surfaces] {label} ({'floating' if floating else 'fixed'} base, joints "
+                  f"{model.jtype}): 50 control steps × {RIG_BATCH} envs on the {run_name} in "
+                  f"{wall:.3f} s ({1e3 * wall / 50:.3f} ms/step, the plain path) beside "
+                  f"{card}; K1 launches {counts}")
+            if dev == "cuda":
+                check(not counts and not by_instance, f"{label}: K1 launched {counts}")
+                active = float(info.contacts.active.sum(1).float().mean())
+                print(f"[surfaces] {label}: {active:.3f} active contacts per env at the end")
+            check(bool(torch.isfinite(q).all() and torch.isfinite(qd).all()),
+                  f"{label} on {run_name}: state not finite")
+            ends[run_name] = (q.cpu(), qd.cpu())
+        for name, k in (("q", 0), ("qd", 1)):
+            first = float((firsts["cuda"][k] - firsts["cpu"][k]).abs().max())
+            first_ulp = float((firsts["cpu_ulp"][k] - firsts["cpu"][k]).abs().max())
+            print(f"[surfaces] {label} card vs CPU {name} after 1 control step: largest env "
+                  f"{first:.3e} (tol {TOL[name]:g}; CPU vs CPU from q0 + 1 ulp {first_ulp:.3e})")
+            check(first <= TOL[name],
+                  f"{label}: card and CPU part in {name} after one control step: {first:.3e}")
+            stats = {}
+            for other in ("cuda", "cpu_ulp"):
+                per_env = (ends[other][k] - ends["cpu"][k]).abs().amax(dim=1).numpy()
+                beyond = per_env > 10 * TOL[name]
+                stats[other] = (float(np.median(per_env)), float(np.quantile(per_env, 0.99)),
+                                float(per_env.max()), set(np.flatnonzero(beyond).tolist()))
+            (med, p99, top, far), (_, p99_ulp, top_ulp, far_ulp) = stats["cuda"], stats["cpu_ulp"]
+            print(f"[surfaces] {label} card vs CPU {name} after 50 steps: per-env median "
+                  f"{med:.3e} p99 {p99:.3e} max {top:.3e}, {len(far)} of {RIG_BATCH} envs "
+                  f"beyond {10 * TOL[name]:g}; CPU vs CPU from q0 + 1 ulp: median "
+                  f"{stats['cpu_ulp'][0]:.3e} p99 {p99_ulp:.3e} max {top_ulp:.3e}, "
+                  f"{len(far_ulp)} envs beyond, {len(far & far_ulp)} of them the card's")
+            check(med <= TOL[name]
+                  and p99 <= max(10 * TOL[name], 3 * p99_ulp)
+                  and top <= max(10 * TOL[name], 3 * top_ulp),
+                  f"{label}: card and CPU part in {name} beyond the one-ulp witness: median "
+                  f"{med:.3e}, p99 {p99:.3e} (ulp {p99_ulp:.3e}), max {top:.3e} "
+                  f"(ulp {top_ulp:.3e})")
+
+
+def host_ops(batch, state) -> collections.Counter:
+    """The aten ops one control step of ``batch`` from ``state`` (zero
+    actions) dispatches on the host, by name: a ``TorchDispatchMode`` count
+    (the K1 launch, through ctypes, is not an aten op)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    actions = torch.zeros((state.q.shape[0], batch.env.act_dim), device=state.q.device)
+    with Count() as count:
+        batch.step(state, actions)
+    torch.cuda.synchronize()
+    return count.ops
+
+
+def embedded_doc(path: Path) -> dict:
+    """The replay document a viewer page embeds."""
+    import re
+
+    m = re.search(r"const DOC = (\{.*?\});\n", path.read_text(), re.S)
+    check(m is not None, f"{path}: no embedded document")
+    return json.loads(m.group(1))
+
+
+def surfaces(port, engine, card, kernels: dict, config, workdir: Path) -> dict:
+    """The host-side surfaces on the card (phase ``surfaces``): the six
+    shipped assets loaded from ``mocca_envs_tpu_torch/data/``; the walker,
+    Cassie, the monkey and Walker2D built on them and on their hand-built
+    models at B = 4096, back to back (three runs of each, 100 timed
+    control steps each after 5 untimed; the same named warp-per-env
+    instance, one launch per step; the same host ops per step), and one
+    unit of each loaded
+    model's kernel against its plain version and against the hand-built
+    model's kernel on the hand-built phase-2 inputs (``kernels[v]``); the
+    rigs K1 does not cover (:func:`rig_runs`); ``GymEnv`` on the walker:
+    200 steps at B = 1 (100 of zero actions, 100 seeded random), exactly 200
+    K1a launches by the named instance, the 4-tuple's types, ``render``
+    ("state"; "human" each step, the page written by ``close`` embedding
+    every frame); the parity recorder: the walker's raw physics recorded
+    for 100 steps, saved, loaded and replayed, and the task env under a
+    standing PD policy recorded and replayed for 100 steps in as many
+    episodes as that takes (each stops at its first done), each ``ok``;
+    the viewer on the stairs (80 steps); the debug tools. Returns the
+    launches of each path by variant."""
+    from mocca_envs_tpu_torch.envs.gym_wrapper import GymEnv
+    from mocca_envs_tpu_torch.harness import parity, viewer
+    from mocca_envs_tpu_torch.models import assets, cassie, monkey, walker2d, walker3d
+    from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG
+    from mocca_envs_tpu_torch.utils import debug
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    loaded = {name: assets.load(name) for name in assets.names()}
+    print(f"[surfaces] loaded {len(loaded)} assets from {assets.DATA_DIR} onto the card in "
+          f"{time.perf_counter() - t0:.3f} s: "
+          + ", ".join(f"{n} nl={m.nl} nj={m.nj} ns={m.ns}" for n, m in loaded.items()))
+    for name, m in loaded.items():
+        check(m.device.type == "cuda", f"{name}: loaded onto {m.device}")
+    # each family on its loaded model: the hand-built kernel's named
+    # instance, once per control step
+    hand = {"walker3d": walker3d.make_model("cuda"), "cassie": cassie.make_model("cuda"),
+            "monkey3d": monkey.make_model("cuda"), "walker2d": walker2d.make_walker2d("cuda")}
+    units = {
+        "walker3d": ("k1a", "Walker3DCustomEnv-v0", lambda m: engine.K1a(m, config), TOL, "max"),
+        "cassie": ("k1e_cassie", "CassieEnv-v0", lambda m: engine.K1e(
+            m, CASSIE_CONFIG, cassie.constraints(), pd_mode=True,
+            extra_damping=m.actuated * m.kd), TOL_EQ, "p99"),
+        "monkey3d": ("k1d", "Monkey3DStepperEnv-v0",
+                     lambda m: engine.K1d(m, config, monkey.constraints(), 16), TOL_GRAB, "p99"),
+        "walker2d": ("k1e_planar", "Walker2DCustomEnv-v0",
+                     lambda m: engine.K1e(m, config, walker2d.planar_spec()), TOL_EQ, "max"),
+    }
+    for name, (v, env_id, make_unit, tol, tail) in units.items():
+        shipped, args = kernels[v]
+        unit = make_unit(loaded[name])
+        check(unit.name == shipped.name and unit.instance.source == engine.SOURCE_W,
+              f"{name}: the loaded model's kernel {unit.name} is not the hand-built "
+              f"{shipped.name}")
+        diffs = {f: float((getattr(loaded[name], f).double() - getattr(hand[name], f).double())
+                          .abs().max()) for f in ("joint_pos", "joint_quat", "mass", "inertia",
+                                                   "sph_pos", "power_coef")}
+        print(f"[surfaces] {name}: loaded model vs hand-built, largest field difference "
+              f"{max(diffs.values()):.3e} ({max(diffs, key=diffs.get)})")
+        compare(unit, args, f"{v} (loaded {name})", tol, tail=tail)
+        compare_twins(unit, shipped, args, f"{v} (loaded {name}) vs the hand-built model's",
+                      tol, tail)
+        # the family on its hand-built and its loaded model back to back
+        # (hand, loaded, loaded, hand, hand, loaded: 100 timed steps each
+        # after 5 untimed), and the host ops one control step dispatches on
+        # each model, which must be the same
+        ms, ops = {"hand": [], "loaded": []}, {}
+        for which in ("hand", "loaded", "loaded", "hand", "hand", "loaded"):
+            kw = {"model": loaded[name]} if which == "loaded" else {}
+            n, last, _, batch, t, _ = drive(port, engine, card, env_id, 100, shipped.variant,
+                                            instance=shipped.name, warmup=5, **kw)
+            ms[which].append(t)
+            if which == "loaded":
+                out[v], state = n, last
+            if which not in ops:
+                ops[which] = host_ops(batch, last)
+        print(f"[surfaces] {env_id} hand-built / loaded {name}, back to back: ms per control "
+              f"step at B={B} hand {ms['hand']} loaded {ms['loaded']} (medians "
+              f"{float(np.median(ms['hand'])):.3f} / {float(np.median(ms['loaded'])):.3f}, ratio "
+              f"{float(np.median(ms['loaded']) / np.median(ms['hand'])):.3f}) on {card}; host ops "
+              f"per control step {sum(ops['hand'].values())} / {sum(ops['loaded'].values())}")
+        check(ops["hand"] == ops["loaded"],
+              f"{name}: the loaded model dispatches other host ops than the hand-built one: "
+              f"{(ops['hand'] - ops['loaded']) + (ops['loaded'] - ops['hand'])}")
+        if name == "walker3d":
+            frac = float(debug.finite_fraction(state))
+            print(f"[surfaces] finite_fraction of the stepped walker state: {frac}")
+            check(frac == 1.0, f"finite_fraction {frac}")
+            poisoned = dataclasses.replace(state, qd=state.qd.clone())
+            poisoned.qd[7, 3] = float("nan")
+            try:
+                debug.validate_state(poisoned)
+                check(False, "validate_state passed a NaN")
+            except FloatingPointError as e:
+                print(f"[surfaces] validate_state raised: {e}")
+                check("state.qd" in str(e), f"validate_state named another field: {e}")
+            check(debug.validate_state(state) is state, "validate_state refused a finite state")
+    rig_runs(engine, card, config, np.random.default_rng(SEED + 7))
+
+    # GymEnv at B = 1 on the card
+    env = port.make("Walker3DCustomEnv-v0")
+    gym = GymEnv(env, seed=SEED)
+    gym._human_path = str(workdir / "walker_human.html")
+    rng = np.random.default_rng(SEED + 3)
+    actions = np.concatenate([np.zeros((100, env.act_dim), np.float32),
+                              rng.uniform(-1.0, 1.0, (100, env.act_dim)).astype(np.float32)])
+
+    def gym_run():
+        obs, rows = gym.reset(), []
+        for a in actions:
+            obs, r, done, info = gym.step(a)
+            gym.render("human")
+            rows.append((obs, r, done, info))
+            if done:
+                gym.reset()
+        return rows
+
+    gym.reset()   # first calls: the allocator warms
+    for a in actions[:10]:
+        gym.step(a)
+    gym.seed(SEED)
+    rows, counts, by_instance, wall = counted(engine, gym_run)
+    k1a = kernels["k1a"][0]
+    print(f"[surfaces] GymEnv Walker3DCustomEnv-v0: 200 steps at B=1 in {wall:.3f} s, "
+          f"{200 / wall:.1f} steps/s (render('human') each step, one read back per step) on "
+          f"{card}; launches {counts}, by instance {by_instance}; episodes "
+          f"{gym._reset_count}")
+    check(counts == {"k1a": 200} and by_instance == {k1a.name: 200},
+          f"GymEnv: expected 200 launches of {k1a.name}, got {by_instance}")
+    out["gym_k1a"] = 200
+    for obs, r, done, info in rows:
+        check(isinstance(obs, np.ndarray) and obs.shape == (env.obs_dim,)
+              and obs.dtype == np.float32 and bool(np.isfinite(obs).all()),
+              "GymEnv: observation malformed")
+        check(type(r) is float and type(done) is bool and isinstance(info, dict)
+              and all(type(x) is float for x in info.values()), "GymEnv: 4-tuple types")
+    st = gym.render("state")
+    check(st["q"].shape == (env.model.nq,) and st["qd"].shape == (env.model.nv,),
+          "GymEnv: render('state') malformed")
+    gym.close()
+    doc = embedded_doc(Path(gym._human_path))
+    print(f"[surfaces] GymEnv render('human') + close(): {gym._human_path}, "
+          f"{len(doc['frames'])} frames embedded")
+    check(len(doc["frames"]) == 200, f"GymEnv human render embeds {len(doc['frames'])} frames")
+
+    # parity record / replay on the card
+    model = walker3d.make_model("cuda")
+    q0 = np.zeros(model.nq, np.float32)
+    q0[2], q0[3] = walker3d.INITIAL_Z + 0.02, 1.0
+    raw, counts, _, wall = counted(engine, lambda: parity.record_raw(model, config, SEED, 100, q0))
+    raw.save(str(workdir / "walker_raw.npz"))
+    raw = parity.Recording.load(str(workdir / "walker_raw.npz"))
+    rep, counts2, _, wall2 = counted(engine, lambda: parity.replay_check_raw(model, config, raw))
+    print(f"[surfaces] record_raw walker 100 steps in {wall:.3f} s (launches {counts}), "
+          f"replay_check_raw in {wall2:.3f} s (launches {counts2}): {rep}")
+    check(rep["ok"] and counts == counts2 == {"k1a": 100 * config.llc_frames},
+          f"raw replay on the card: {rep}, launches {counts} / {counts2}")
+    check(raw.meta["model_hash"] == parity.model_hash(walker3d.make_model()),
+          "model_hash differs between the card's model and the CPU's")
+    out["raw_k1a"] = counts["k1a"] + counts2["k1a"]
+    # the task env under a joint-space PD toward the zero pose, episodes
+    # recorded and replayed until 100 steps are (each stops at its first done)
+    nj = env.model.nj
+    lo, hi = env.model.limit_lo.cpu().numpy(), env.model.limit_hi.cpu().numpy()
+    zero_pose = -(lo + hi) / np.maximum(hi - lo, 1e-6)   # joint angle 0, scaled as in the obs
+
+    def stand(obs, t):
+        return np.clip(2.0 * (zero_pose - obs[8:8 + nj]) - 0.2 * obs[8 + nj:8 + 2 * nj],
+                       -1.0, 1.0)
+
+    task_steps, episode = 0, 0
+    task_counts = {"k1a": 0}
+    while task_steps < 100:
+        rec, counts, _, wall = counted(engine, lambda: parity.record(
+            env, env.model, SEED + episode, 100 - task_steps, policy=stand,
+            env_id="Walker3DCustomEnv-v0"))
+        rep, counts2, _, wall2 = counted(engine, lambda: parity.replay_check(env, env.model, rec))
+        print(f"[surfaces] record Walker3DCustomEnv-v0 episode {episode} (seed {SEED + episode}):"
+              f" {rec.action.shape[0]} steps in {wall:.3f} s (launches {counts}), replay_check "
+              f"in {wall2:.3f} s (launches {counts2}): {rep}")
+        check(rep["ok"] and rep["steps"] == rec.action.shape[0]
+              and counts == counts2 == {"k1a": rec.action.shape[0]},
+              f"task replay on the card: {rep}, launches {counts} / {counts2}")
+        task_steps += rec.action.shape[0]
+        task_counts["k1a"] += counts["k1a"] + counts2["k1a"]
+        episode += 1
+    check(task_steps == 100, f"task record: {task_steps} steps")
+    out["task_k1a"] = task_counts["k1a"]
+
+    # the viewer on the stairs
+    (vdoc, counts, _, wall) = counted(engine, lambda: viewer.record_rollout_doc(
+        "Walker3DStairsEnv", steps=80))
+    page = Path(viewer.export_html(vdoc, str(workdir / "stairs.html")))
+    back = embedded_doc(page)
+    print(f"[surfaces] viewer: Walker3DStairsEnv 80 steps at B=1 in {wall:.3f} s (launches "
+          f"{counts}), {len(back['frames'])} frames, {len(back['scene'].get('tris', {}).get('a', []))}"
+          f" faces, page {page.stat().st_size} bytes")
+    check(len(back["frames"]) == 81 and len(back["scene"]["tris"]["a"]) == 24
+          and counts == {"k1g": 80}, f"viewer doc malformed or launches {counts}")
+    out["viewer_k1g"] = 80
+
+    # nan_debug on a CUDA op that makes a NaN, then off again
+    z = torch.zeros(4, device="cuda")
+    try:
+        with debug.nan_debug():
+            z / z
+        check(False, "nan_debug let a NaN through")
+    except FloatingPointError as e:
+        print(f"[surfaces] nan_debug raised: {e}")
+    check(bool(torch.isnan(z / z).all()), "nan_debug stayed on after its block")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2539,6 +2962,12 @@ def main() -> int:
               f"{lines[-1]['update_s']:.4f} s, {lines[-1]['env_steps_per_s']:.0f} env-steps/s "
               f"at B={B} on {card}")
     profile_update(card, workdir)
+
+    # ---- phase surfaces: loaders, GymEnv, parity, viewer and debug on the card
+    t0 = time.perf_counter()
+    surfaced = surfaces(port, engine, card, kernels, config, workdir)
+    print(f"[surfaces] phase done in {time.perf_counter() - t0:.1f} s; K1 launches by path "
+          f"{surfaced} on {card}")
 
     names = {"k1a": "k1a_engine_frame", "k1c": "k1c_engine_frame_stones",
              "k1b": "k1b_engine_step_pd", "k1e_cassie": "k1e_engine_step_pd_rods",

@@ -84,7 +84,7 @@ def _make_walker2d_custom(**kw):
     from mocca_envs_tpu_torch.models import walker2d
 
     return make_walker3d_custom(
-        model=walker2d.make_walker2d(),
+        model=kw.pop("model", None) or walker2d.make_walker2d(),
         name="Walker2DCustomEnv",
         initial_z=walker2d.WALKER2D_INITIAL_Z,
         constraints=walker2d.planar_spec(),
@@ -102,7 +102,7 @@ def _make_crab2d_custom(**kw):
     params = kw.pop("params", None) or dataclasses.replace(
         WalkerParams.default(), terminal_height=0.2)
     return make_walker3d_custom(
-        model=walker2d.make_crab2d(),
+        model=kw.pop("model", None) or walker2d.make_crab2d(),
         name="Crab2DCustomEnv",
         initial_z=walker2d.CRAB2D_INITIAL_Z,
         params=params,

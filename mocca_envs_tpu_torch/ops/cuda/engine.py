@@ -564,11 +564,18 @@ def smem_limits(lib) -> dict:
             "reserved_per_block": reserved.value}
 
 
+def supports(model: RobotModel) -> bool:
+    """Whether the engine kernel covers this model: a floating base and
+    revolute joints alone (``mocca_envs_tpu/ops/pallas/engine.py::supports``;
+    every scene, actuation and constraint of the families is covered)."""
+    return model.floating and all(t == REVOLUTE for t in model.jtype)
+
+
 def kernel_key(model: RobotModel, config: EngineConfig, num_stones: int, num_bars: int,
                pd_mode: bool, constraints: ConstraintSpec, hf_patch: int, num_tris: int) -> Key:
     """The key of one (model, config, scene, actuation, constraints); raises
-    for the models the kernel does not cover."""
-    if not model.floating or any(t != REVOLUTE for t in model.jtype):
+    for the models the kernel does not cover (:func:`supports`)."""
+    if not supports(model):
         raise NotImplementedError("K1 covers floating-base all-revolute models")
     return Key(model.nl, model.ns, len(limited_joints(model)), config.sim_substeps,
                config.solver_iters, num_stones, pd_mode, config.llc_frames if pd_mode else 1,

@@ -5,7 +5,8 @@ Counterpart of ``mocca_envs_tpu/ops/dynamics.py``:
 - ``mass_matrix``: CRBA through per-link COM Jacobians,
   ``M = Σ_l m_l Jv_lᵀ Jv_l + Jw_lᵀ I_l Jw_l + diag(armature)``;
 - ``bias_forces``: world-frame recursive Newton–Euler with ``q̈ = 0`` and the
-  base carrying ``−g``, giving ``C(q, q̇)q̇ + g(q)``.
+  base carrying ``−g``, giving ``C(q, q̇)q̇ + g(q)``; a revolute joint takes
+  the moment about its axis, a prismatic one the force along it.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from mocca_envs_tpu_torch.core.spatial import cross
-from mocca_envs_tpu_torch.models.schema import RobotModel
+from mocca_envs_tpu_torch.models.schema import PRISMATIC, RobotModel
 from mocca_envs_tpu_torch.ops import linalg
 from mocca_envs_tpu_torch.ops.kinematics import FrameData, joint_qd, link_jacobians
 
@@ -52,8 +53,13 @@ def bias_forces(model: RobotModel, fd: FrameData, qd: torch.Tensor,
         r = fd.pos[:, i] - fd.pos[:, p]
         wp = fd.omega[:, p]
         conv = acc[p] + cross(alpha[p], r) + cross(wp, cross(wp, r))
-        alpha.append(alpha[p] + cross(wp, fd.ja[:, j] * qdj[:, j:j + 1]))
-        acc.append(conv)
+        if model.jtype[j] == PRISMATIC:
+            # the Coriolis term of a link sliding in a turning frame
+            alpha.append(alpha[p])
+            acc.append(conv + 2.0 * cross(wp, fd.ja[:, j] * qdj[:, j:j + 1]))
+        else:
+            alpha.append(alpha[p] + cross(wp, fd.ja[:, j] * qdj[:, j:j + 1]))
+            acc.append(conv)
 
     # per-link inertial wrench about its COM, then up the tree
     f, n = [], []
@@ -73,7 +79,8 @@ def bias_forces(model: RobotModel, fd: FrameData, qd: torch.Tensor,
         f[p] = f[p] + f[i]
         n[p] = n[p] + n[i] + cross(fd.pos[:, i] - fd.pos[:, p], f[i])
 
-    tau = [(fd.ja[:, j] * n[j + 1]).sum(-1) for j in range(model.nj)]
+    tau = [(fd.ja[:, j] * (f if model.jtype[j] == PRISMATIC else n)[j + 1]).sum(-1)
+           for j in range(model.nj)]
     tau = torch.stack(tau, dim=1) if tau else qd.new_zeros(B, 0)
     if not model.floating:
         return tau

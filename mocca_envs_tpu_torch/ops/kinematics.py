@@ -2,7 +2,8 @@
 
 Counterpart of ``mocca_envs_tpu/ops/kinematics.py``. Every function takes a
 batch of envs: ``q`` (B, nq), ``qd`` (B, nv). The link loop runs in Python
-over the static topology.
+over the static topology; a joint is revolute or prismatic (a prismatic
+joint slides its link along the axis and leaves its rotation alone).
 
 Generalized coordinates (floating base):
     q  = [base_pos(3), base_quat_wxyz(4), joint_q(nj)]
@@ -17,7 +18,7 @@ import torch
 
 from mocca_envs_tpu_torch.core import quat as quat_ops
 from mocca_envs_tpu_torch.core.spatial import cross, skew
-from mocca_envs_tpu_torch.models.schema import REVOLUTE, RobotModel
+from mocca_envs_tpu_torch.models.schema import PRISMATIC, RobotModel
 
 
 @dataclasses.dataclass
@@ -53,8 +54,6 @@ def _base_state(model: RobotModel, q: torch.Tensor, qd: torch.Tensor):
 def forward_kinematics(model: RobotModel, q: torch.Tensor, qd: torch.Tensor) -> FrameData:
     """World-frame link states; the parent→child chain carries quaternions,
     rotation matrices are formed once for all links at the end."""
-    if any(t != REVOLUTE for t in model.jtype):
-        raise NotImplementedError("prismatic joints are not ported yet")
     qj = joint_q(model, q)
     qdj = joint_qd(model, qd)
     bp, bq, bv, bw = _base_state(model, q, qd)
@@ -69,11 +68,18 @@ def forward_kinematics(model: RobotModel, q: torch.Tensor, qd: torch.Tensor) -> 
         q_pre = quat_ops.mul(qp, model.joint_quat[j].expand_as(qp))
         a_w = quat_ops.rotate(q_pre, axis)
         anchor = pp + quat_ops.rotate(qp, model.joint_pos[j])
-        q_i = quat_ops.mul(q_pre, quat_ops.from_axis_angle(axis, qj[:, j]))
-        pos.append(anchor)
-        quats.append(q_i)
-        omega.append(wp + a_w * qdj[:, j:j + 1])
-        vel.append(vp + cross(wp, anchor - pp))
+        if model.jtype[j] == PRISMATIC:
+            p_i = anchor + a_w * qj[:, j:j + 1]
+            pos.append(p_i)
+            quats.append(q_pre)
+            omega.append(wp)
+            vel.append(vp + cross(wp, p_i - pp) + a_w * qdj[:, j:j + 1])
+        else:
+            q_i = quat_ops.mul(q_pre, quat_ops.from_axis_angle(axis, qj[:, j]))
+            pos.append(anchor)
+            quats.append(q_i)
+            omega.append(wp + a_w * qdj[:, j:j + 1])
+            vel.append(vp + cross(wp, anchor - pp))
         jp_list.append(anchor)
         ja_list.append(a_w)
 
@@ -99,10 +105,11 @@ def make_link_poses(model: RobotModel, links: tuple):
     the links ``links`` (static indices), for task-side queries of a few
     points, where the whole :func:`forward_kinematics` would issue more
     small launches than the rest of a step. The chain is walked over the
-    links' ancestors only, positions and rotation matrices alone: a joint's
-    rotation is its fixed frame times Rodrigues' ``I + sin θ K + (1 − cos θ)
-    K²`` about its axis, which agrees with the quaternion chain of the full
-    FK up to rounding."""
+    links' ancestors only, positions and rotation matrices alone: a revolute
+    joint's rotation is its fixed frame times Rodrigues' ``I + sin θ K + (1 −
+    cos θ) K²`` about its axis, which agrees with the quaternion chain of the
+    full FK up to rounding; a prismatic joint's is its fixed frame, and it
+    moves its link by ``q`` along the rotated axis."""
     need = set()
     for link in links:
         while link > 0 and link not in need:
@@ -121,8 +128,12 @@ def make_link_poses(model: RobotModel, links: tuple):
         pos, rot = {0: bp}, {0: quat_ops.to_matrix(bq)}
         for i in order:
             j, p = i - 1, model.parent[i]
-            s, c = torch.sin(qj[:, j, None, None]), torch.cos(qj[:, j, None, None])
             pos[i] = pos[p] + rot[p] @ model.joint_pos[j]
+            if model.jtype[j] == PRISMATIC:
+                rot[i] = rot[p] @ frame[j]
+                pos[i] = pos[i] + (rot[i] @ model.joint_axis[j]) * qj[:, j, None]
+                continue
+            s, c = torch.sin(qj[:, j, None, None]), torch.cos(qj[:, j, None, None])
             rot[i] = rot[p] @ frame[j] @ (eye + s * K[j] + (1.0 - c) * K2[j])
         return (torch.stack([pos[k] for k in links], dim=1),
                 torch.stack([rot[k] for k in links], dim=1))
@@ -130,12 +141,25 @@ def make_link_poses(model: RobotModel, links: tuple):
     return poses
 
 
+def _prismatic(model: RobotModel):
+    """(nj, 1) bool mask of the prismatic joints, or None where there are
+    none (the all-revolute models keep the revolute columns alone)."""
+    if PRISMATIC not in model.jtype:
+        return None
+    mask = [t == PRISMATIC for t in model.jtype]
+    return torch.tensor(mask, device=model.device)[:, None]
+
+
 def point_jacobian(model: RobotModel, fd: FrameData, link: torch.Tensor,
                    point: torch.Tensor) -> torch.Tensor:
     """Translational Jacobians (B, K, 3, nv) of K world points ``point``
-    (B, K, 3), point k fixed to link ``link[k]`` (a static (K,) index)."""
+    (B, K, 3), point k fixed to link ``link[k]`` (a static (K,) index). A
+    revolute joint's column is ``a × (p − anchor)``, a prismatic one's ``a``."""
     anc_rows = model.anc[link]                                   # (K, nj)
     rev = cross(fd.ja[:, None], point[:, :, None] - fd.jp[:, None])   # (B,K,nj,3)
+    prism = _prismatic(model)
+    if prism is not None:
+        rev = torch.where(prism, fd.ja[:, None], rev)
     Jj = (anc_rows[None, :, :, None] * rev).transpose(-1, -2)    # (B,K,3,nj)
     if not model.floating:
         return Jj
@@ -146,12 +170,18 @@ def point_jacobian(model: RobotModel, fd: FrameData, link: torch.Tensor,
 
 
 def link_jacobians(model: RobotModel, fd: FrameData):
-    """COM translational + angular Jacobians of every link: (B, nl, 3, nv)."""
+    """COM translational + angular Jacobians of every link: (B, nl, 3, nv);
+    a prismatic joint moves a link without turning it."""
     diff = fd.com_w[:, :, None] - fd.jp[:, None]                  # (B,nl,nj,3)
     rev = cross(fd.ja[:, None], diff)
+    ja = fd.ja[:, None]
+    prism = _prismatic(model)
+    if prism is not None:
+        rev = torch.where(prism, ja, rev)
+        ja = torch.where(prism, torch.zeros_like(ja), ja)
     anc = model.anc[None, :, :, None]
     Jvj = (anc * rev).transpose(-1, -2)                           # (B,nl,3,nj)
-    Jwj = (anc * fd.ja[:, None]).transpose(-1, -2)
+    Jwj = (anc * ja).transpose(-1, -2)
     if not model.floating:
         return Jvj, Jwj
     B, nl = fd.pos.shape[:2]

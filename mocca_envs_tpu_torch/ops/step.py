@@ -1,7 +1,7 @@
 """The assembled physics step, batch-first.
 
-Counterpart of ``mocca_envs_tpu/ops/step.py`` for floating-base models over
-the plane, the stone boxes, the bar capsules, heightfields and triangle
+Counterpart of ``mocca_envs_tpu/ops/step.py`` for floating-base and
+fixed-base models, with revolute and prismatic joints, over the plane, the stone boxes, the bar capsules, heightfields and triangle
 meshes, with torque or PD actuation, the optional split-impulse position
 pass, and the equality rows of a :class:`ConstraintSpec` (point-to-point
 rods, the planar base lock, and the maskable grab rows whose activity and
@@ -23,7 +23,11 @@ ONE launch of the hand-written engine kernel (ops/cuda/engine.py: K1a on the
 plane, K1c over stones, K1b in PD mode, K1e with equality rows, K1d over bars
 with grab rows, K1f over a heightfield, K1g over mesh triangles, each also
 with split impulse, under any EngineConfig's solver options), which computes
-the same unit; there is no fallback between the two. Stones are culled to ``config.stone_window``, mesh faces to
+the same unit; there is no fallback between the two. A model the kernel
+does not cover (``ops/cuda/engine.py::supports``: a fixed base, or a
+prismatic joint) takes the plain path on every device, as the JAX package
+sends it to its XLA path; its structure decides that once, when the unit is
+built. Stones are culled to ``config.stone_window``, mesh faces to
 ``config.tri_window``, and a heightfield grid is cut to its ``HF_PATCH ×
 HF_PATCH`` window around the root once per unit, before either path; bars
 are never culled.
@@ -354,9 +358,14 @@ def _make_llc_unit(model: RobotModel, config: EngineConfig, substep,
     already passes through), on both paths. CPU tensors then take the plain path, on any grid; any
     other device launches the engine kernel of the scene's, the actuation's
     and the constraints' variant, which raises where it cannot run, a grid
-    smaller than the window included. The kernel's scene inputs (stones;
-    bars and grabs; the heightfield window; the faces) are packed per unit."""
+    smaller than the window included. A model the kernel does not cover
+    (``engine.supports``) takes the plain path on every device. The kernel's
+    scene inputs (stones; bars and grabs; the heightfield window; the faces)
+    are packed per unit."""
+    from mocca_envs_tpu_torch.ops.cuda import engine as cuda_engine
+
     plain_unit = make_plain_llc(model, config, substep, pd_mode)
+    kernel_covers = cuda_engine.supports(model)
     kernels: dict = {}
 
     def llc_unit(q, qd, tau_or_targets, scene: Scene, grab_active=None, grab_target=None):
@@ -366,14 +375,12 @@ def _make_llc_unit(model: RobotModel, config: EngineConfig, substep,
         if scene.has_hf and min(scene.hf_height.shape[1:]) >= HF_PATCH:
             scene = extract_patch(scene, q[:, 0:2], HF_PATCH)
             hf_patch = HF_PATCH
-        if q.device.type == "cpu":
+        if q.device.type == "cpu" or not kernel_covers:
             return plain_unit(q, qd, tau_or_targets, scene, grab_active, grab_target)
         if scene.has_hf and not hf_patch:
             raise NotImplementedError(
                 f"K1f samples a {HF_PATCH}×{HF_PATCH} heightfield window; this grid is "
                 f"{tuple(scene.hf_height.shape[1:])}, smaller than the window")
-        from mocca_envs_tpu_torch.ops.cuda import engine as cuda_engine
-
         key = (scene.stone_pos.shape[1] if scene.has_stones else 0,
                scene.bar_a.shape[1] if scene.has_bars else 0, hf_patch,
                scene.tri_a.shape[1] if scene.has_tris else 0)

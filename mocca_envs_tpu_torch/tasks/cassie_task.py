@@ -78,15 +78,18 @@ def make_cassie(
     phase_obs: bool = False,
     ref_gait=None,
     reset_obs: str = "zero",
+    model=None,
 ) -> FnEnv:
-    """Build a Cassie family on ``device`` (None = the CUDA card).
+    """Build a Cassie family on ``device`` (None = the CUDA card), on the
+    hand-built Cassie or on ``model`` (the same robot, e.g. loaded from its
+    URDF by ``models/assets.load``).
     ``ref_gait`` (``models/cassie_gait.py::GaitTable``) turns a phase variant
     into a reference-motion tracking env: the phase indexes the table, the
     reward adds motor-space tracking of its row and a contact clock that
     follows its stance pattern. ``reset_obs`` picks the foot flags of a fresh
     episode's observation: "zero", or "exact" from the narrowphase."""
     device = resolve_device(device)
-    model = cassie.make_model(device)
+    model = (model or cassie.make_model()).to(device)
     initial_z = cassie.initial_z()
     config = config or CASSIE_CONFIG
     params = params or CassieParams.default()

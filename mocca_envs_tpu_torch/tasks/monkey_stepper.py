@@ -203,10 +203,13 @@ def make_monkey3d_stepper(
     params: MonkeyParams | None = None,
     device=None,
     name: str = "Monkey3DStepperEnv",
+    model=None,
 ) -> FnEnv:
-    """Build the brachiation family on ``device`` (None = the CUDA card)."""
+    """Build the brachiation family on ``device`` (None = the CUDA card), on
+    the hand-built monkey or on ``model`` (the same robot, e.g. loaded from
+    its URDF by ``models/assets.load``)."""
     device = resolve_device(device)
-    model = monkey.make_model(device)
+    model = (model or monkey.make_model()).to(device)
     config = config or EngineConfig()
     params = params or MonkeyParams()
     spec = monkey.constraints()
