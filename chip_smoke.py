@@ -77,8 +77,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    surface under it, on the grid's slopes, a tenth of the roots within
    0.5 m of its edge, the window around the root packed as the main path
    packs it), and against the thread-per-env K1f at :data:`TOL_TWIN` on
-   those states and lifted 3 m; a grid smaller than the window must raise
-   on the card;
+   those states and lifted 3 m;
    K1g on walker states on the stairs' staircase (a third each with the
    feet over treads, the lowest foot sphere at a nosing edge, the foremost
    against a riser; the 16 nearest of the 24 faces packed as the main path
@@ -204,8 +203,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    per step printed beside the family's at its shipped llc frames), and
    K2's own entry point
    ``make_raycaster`` for 10 calls of 32,768 rays with the origins moved
-   between calls (10 ``k2`` launches of the cooperative march, no other). A grid smaller than the K1f window and PD mode over stones
-   must raise on the card before any launch. The path's kernel
+   between calls (10 ``k2`` launches of the cooperative march, no other).
+   PD mode over stones must raise on the card before any launch; a
+   terrain env over 12 × 12 grids, smaller than the K1f window, must step
+   on the card with no K1 launch (the plain path) and agree with the CPU
+   within :data:`TOL` in the per-env medians after one control step
+   (:func:`small_grid_plain`). The path's kernel
    must launch exactly once per step and no other kernel at all, the state
    stay finite and auto-reset fire; resets forced by a non-finite state are
    counted and printed; of the 2D families the median env must end in its
@@ -301,7 +304,18 @@ Phases, in order; any failure exits non-zero before the result lines:
    against the CPU (and the CPU against itself from q0 moved by one ulp),
    ``GymEnv`` at B = 1 (exactly 200 K1a launches), raw and task record /
    replay (100 steps each), the viewer and the debug tools;
-6. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+6. ``parallel`` (:func:`parallel_phase`): the ``env`` mesh over
+   ``torch.distributed`` on the one card — NCCL at world size 1 (the
+   walker sharded over it bit for bit ``BatchedEnv``, one K1a launch a
+   step; a learner update on it bit for bit the one without), two NCCL
+   ranks on the card (printing what NCCL says), and two gloo ranks on the
+   card started with ``torch.multiprocessing`` over a free localhost port
+   (their halves of 4096 walker states bit for bit the one-process step;
+   the mixed trio, 1024 slots a family a rank, 2 updates into one learner,
+   launches counted per rank, replica fingerprints equal), each rank's ms
+   per control step beside the one-process step, the update seconds and
+   one all-reduce's; then the script's own time;
+7. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -1240,24 +1254,63 @@ def stepper_env_layer_times(card, batch, state) -> None:
           f"{reset_ms:.3f} ms")
 
 
-def small_grid_raises(model, config) -> None:
-    """On the card a heightfield smaller than the K1f window has no
-    instance: the physics step must raise, naming it, not fall back."""
-    from mocca_envs_tpu_torch.ops.step import make_control_step
+def small_grid_plain(port, engine, card, model, batch: int = 256) -> None:
+    """A terrain env over 12 × 12 grids, smaller than K1f's 16 × 16 window,
+    steps on the card by the plain path (``ops/step.py::unit_route``, as the
+    JAX package decides at trace time): no K1 launch, and after one control
+    step (``step_no_reset`` from the same states on both devices) the
+    per-env medians of q and q̇ agree with the CPU's within :data:`TOL`."""
+    from mocca_envs_tpu_torch.core import rng as rng_mod
+    from mocca_envs_tpu_torch.ops.collide import sphere_centers
+    from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics
+    from mocca_envs_tpu_torch.tasks.walker_terrain import terrain_bank
     from mocca_envs_tpu_torch.terrain.heightfield import with_heightfield
+    from mocca_envs_tpu_torch.terrain.scene import hf_sample
 
-    step = make_control_step(model, config)
-    scene = with_heightfield(torch.zeros(4, 12, 12, device="cuda"), extent=3.0)
-    q = torch.zeros(4, model.nq, device="cuda")
-    q[:, 2], q[:, 3] = 0.95, 1.0
-    try:
-        step(q, torch.zeros(4, model.nv, device="cuda"), torch.zeros(4, model.nj, device="cuda"),
-             scene)
-    except NotImplementedError as e:
-        check("smaller than the window" in str(e), f"small grid: unexpected message {e}")
-        print(f"[compare] k1f: a 12×12 grid on the card raises: {e}")
-        return
-    check(False, "a grid smaller than the K1f window ran on the card")
+    rng = np.random.default_rng(SEED + 12)
+    model = model.to("cpu")
+    bank = terrain_bank()
+    # the bank's cell (20 m over 64 cells) over the 12 × 12 middle of each grid
+    heights = torch.as_tensor(bank[rng.integers(0, len(bank), batch)][:, 26:38, 26:38])
+    scene = with_heightfield(heights, extent=11 * 20.0 / 64)
+    q, qd, _, _, _ = near_contact_states(model, rng, batch)
+    q[:, 0:2] = rng.uniform(-1.0, 1.0, (batch, 2))
+    feet = np.flatnonzero(model.sph_foot.sum(1).numpy() > 0)
+    centers = sphere_centers(model, forward_kinematics(
+        model, torch.as_tensor(q), torch.zeros(batch, model.nv)))[:, feet]
+    gap = (centers[..., 2] - model.sph_radius[feet]
+           - hf_sample(scene, centers[..., :2])).amin(dim=1).numpy()
+    q[:, 2] -= gap + rng.uniform(-0.02, 0.02, batch)
+    actions = rng.uniform(-1.0, 1.0, (batch, model.nj)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        env = port.make("Walker3DTerrainEnv-v0", device=dev)
+        gen = rng_mod.generator(SEED, dev)
+        state = dataclasses.replace(
+            env.init(gen, batch), q=torch.as_tensor(q, device=dev),
+            qd=torch.as_tensor(qd, device=dev),
+            scene=dataclasses.replace(scene, **{f.name: getattr(scene, f.name).to(dev)
+                                                for f in dataclasses.fields(scene)
+                                                if getattr(scene, f.name) is not None}))
+        step = lambda: env.step_no_reset(state, torch.as_tensor(actions, device=dev), gen)  # noqa: E731,B023
+        if dev == "cuda":
+            tr, counts, by_instance, _ = counted(engine, step)
+            check(not counts and not by_instance,
+                  f"a 12×12 grid launched K1 on the card: {counts} {by_instance}")
+        else:
+            tr = step()
+        out[dev] = tr.state
+    meds = {}
+    for name in ("q", "qd"):
+        per_env = (getattr(out["cuda"], name).cpu() - getattr(out["cpu"], name)).abs().amax(dim=1)
+        meds[name] = (float(per_env.median()), float(per_env.max()))
+        check(bool(torch.isfinite(per_env).all()) and meds[name][0] <= TOL[name],
+              f"a 12×12 grid on the card: {name} per-env median {meds[name][0]:.3e} against the "
+              f"CPU, over {TOL[name]}")
+    print(f"[compare] a 12×12 grid (smaller than the K1f window) on the card: the plain path, no "
+          f"K1 launch; against the CPU after one control step at B={batch}, per-env median / "
+          f"largest |Δq| {meds['q'][0]:.3e} / {meds['q'][1]:.3e}, |Δq̇| {meds['qd'][0]:.3e} / "
+          f"{meds['qd'][1]:.3e} on {card}")
 
 
 def terrain_readings(env_id: str, state, sums: dict) -> None:
@@ -2339,10 +2392,289 @@ def surfaces(port, engine, card, kernels: dict, config, workdir: Path) -> dict:
     return out
 
 
+PARALLEL_STEPS = 100     # control steps of the walker over a mesh of one
+PARALLEL_HORIZON = 16    # the mixed trio's horizon over two ranks
+PER_FAMILY = 1024        # the mixed trio's slots per family per rank
+
+
+def nccl_probe_rank(rank: int, world: int, port: int, workdir: str) -> None:
+    """One of two NCCL ranks on the one card: joins, all-reduces one number
+    and writes what NCCL said (``workdir/nccl_probe<rank>.txt``)."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                                rank=rank, timeout=datetime.timedelta(seconds=60))
+        x = torch.ones(1, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        said = f"all_reduce gave {float(x)}"
+    except Exception as e:  # noqa: BLE001 - the probe reports whatever NCCL raised
+        Path(workdir, f"nccl_probe{rank}.txt").write_text(f"{type(e).__name__}: {e}")
+        os._exit(0)   # a failed communicator is not torn down: leave at once
+    Path(workdir, f"nccl_probe{rank}.txt").write_text(said)
+    dist.destroy_process_group()
+
+
+def parallel_rank(rank: int, world: int, port: int, workdir: str) -> None:
+    """One of two ranks of phase ``parallel`` on the one card over gloo:
+    steps its half of the given walker states (without and with auto-reset,
+    then 50 timed steps, both ranks at once), then trains the mixed trio 2
+    updates into one learner, and writes what it saw to
+    ``workdir/parallel_rank<rank>.pt``."""
+    import torch.distributed as dist
+
+    import mocca_envs_tpu_torch as port_pkg
+    from mocca_envs_tpu_torch.harness.mixed import MixedSuite
+    from mocca_envs_tpu_torch.harness.ppo import PPOConfig, PPOLearner
+    from mocca_envs_tpu_torch.ops.cuda import engine
+    from mocca_envs_tpu_torch.parallel import multihost
+    from mocca_envs_tpu_torch.parallel.mesh import env_mesh, env_sharding
+    from mocca_envs_tpu_torch.parallel.sharded import sharded_env
+    from mocca_envs_tpu_torch.utils.device import pin_fp32
+
+    pin_fp32()
+    # gloo: NCCL refuses two ranks on one card (phase parallel's probe)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank)
+    try:
+        mesh = env_mesh(world)
+        inputs = torch.load(Path(workdir) / "parallel_inputs.pt", map_location=mesh.device,
+                            weights_only=False)
+        env = port_pkg.make("Walker3DCustomEnv-v0", device=mesh.device)
+        shard = env_sharding(mesh)
+        state, actions = shard.local(inputs["state"]), shard.local(inputs["actions"])
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(SEED + 100 + rank)
+        step = sharded_env(env, mesh)
+        dist.barrier()
+        raw, raw_counts, _, _ = counted(engine, lambda: env.step_no_reset(state, actions, gen))
+        tr, step_counts, _, _ = counted(engine, lambda: step(state, actions, gen))
+        host = lambda t: {k: getattr(t, k).cpu() for k in ("obs", "reward", "done")} | {  # noqa: E731
+            k: getattr(t.state, k).cpu() for k in ("q", "qd")}
+        out = {"raw": host(raw), "step": host(tr), "counts": (raw_counts, step_counts)}
+        timed = [torch.rand(actions.shape, generator=gen, device=mesh.device) * 2.0 - 1.0
+                 for _ in range(50)]
+
+        def timed_run():
+            s = state
+            for a in timed:
+                s = step(s, a, gen).state
+            return s
+
+        dist.barrier()
+        s, counts, by_instance, wall = counted(engine, timed_run)
+        out["timed"] = (1e3 * wall / len(timed), counts, by_instance, bool(
+            torch.isfinite(s.q).all()))
+
+        suite = MixedSuite(MixedSuite.DEFAULT, (world * PER_FAMILY,) * 3, device=mesh.device)
+        learner = PPOLearner(suite, PPOConfig(horizon=PARALLEL_HORIZON, mirror_coef=4.0),
+                             mesh=mesh)
+        ts = learner.init(seed=SEED)
+        dist.barrier()
+
+        def train():
+            nonlocal ts
+            lines = []
+            for _ in range(2):
+                before = dict(learner.timer.times)
+                ts, metrics = learner.train_step(ts)
+                lines.append({k: float(v) for k, v in metrics.items()} | {
+                    f"{k}_s": v - before.get(k, 0.0) for k, v in learner.timer.times.items()})
+            return lines
+
+        lines, counts, by_instance, wall = counted(engine, train)
+        out["mixed"] = {
+            "lines": lines, "counts": counts, "by_instance": by_instance, "wall": wall,
+            "times": dict(learner.timer.times), "family_times": dict(suite.timer.times),
+            "fingerprint": multihost.fingerprint(ts.params),
+            "same": multihost.check_replica_divergence(ts.params, mesh),
+            "local_envs": [int(x.q.shape[0]) for x in ts.env_state],
+            "finite": all(bool(torch.isfinite(p).all()) for p in ts.params.parameters())}
+        # one all-reduce of the learner's gradients, as the update makes it
+        # (a CUDA tensor through gloo), and of the same numbers on the host
+        grads = sum(p.numel() for p in ts.params.parameters())
+        for where in ("cuda", "cpu"):
+            x = torch.ones(grads, device=mesh.device if where == "cuda" else "cpu")
+            for _ in range(3):
+                dist.all_reduce(x, group=mesh.group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                dist.all_reduce(x, group=mesh.group)
+            torch.cuda.synchronize()
+            out[f"all_reduce_ms_{where}"] = 1e3 * (time.perf_counter() - t0) / 20
+        out["grads"] = grads
+        torch.save(out, Path(workdir) / f"parallel_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(port, engine, card, workdir: Path, symbols: dict) -> None:
+    """Phase ``parallel``: the ``env`` mesh over ``torch.distributed`` on the
+    card. (a) NCCL at world size 1: the walker at B = 4096 through
+    ``sharded_init`` / ``sharded_env`` for :data:`PARALLEL_STEPS` steps,
+    bit for bit ``BatchedEnv`` at the same seed, one K1a launch per step by
+    its warp-per-env instance; a ``PPOLearner`` update on the mesh bit for
+    bit the one without. (b) Two NCCL ranks on the one card, to record what
+    NCCL says. (c) Two gloo ranks on the one card (:func:`parallel_rank`):
+    their halves of 4096 walker states stepped through K1a equal the
+    one-process step bit for bit per env (``step_no_reset`` everywhere,
+    ``step`` on the slots that did not reset), each rank's ms per control
+    step beside the one-process step's; then the mixed trio, 1024 slots a
+    family a rank, 2 updates into one learner: every launch counted per
+    rank, the replica fingerprints equal."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from mocca_envs_tpu_torch.graft_entry import free_port, join
+    from mocca_envs_tpu_torch.harness.ppo import PPOConfig, PPOLearner
+    from mocca_envs_tpu_torch.parallel import multihost
+    from mocca_envs_tpu_torch.parallel.mesh import env_mesh
+    from mocca_envs_tpu_torch.parallel.sharded import sharded_env, sharded_init
+
+    # ---- (a) a mesh of one over NCCL
+    mesh = env_mesh()
+    check(mesh.size == 1 and dist.get_backend(mesh.group) == "nccl",
+          f"the mesh of one: size {mesh.size}, backend {dist.get_backend(mesh.group)}")
+    env = port.make("Walker3DCustomEnv-v0")
+    gen_a = torch.Generator(device="cuda")
+    gen_a.manual_seed(SEED + 1)
+    actions = [torch.rand((B, env.act_dim), generator=gen_a, device="cuda") * 2.0 - 1.0
+               for _ in range(PARALLEL_STEPS)]
+    fields = lambda tr: (tr.state.q, tr.state.qd, tr.obs, tr.reward, tr.done)  # noqa: E731
+
+    def sharded_run():
+        state, gen = sharded_init(env, mesh, B, seed=SEED)
+        step, seen = sharded_env(env, mesh), []
+        for a in actions:
+            tr = step(state, a, gen)
+            state = tr.state
+            seen.append(fields(tr))
+        return state, seen
+
+    (state, seen), counts, by_instance, _ = counted(engine, sharded_run)
+    check(counts == {"k1a": PARALLEL_STEPS} and by_instance == {symbols["k1a"]: PARALLEL_STEPS},
+          f"the sharded walker: expected {PARALLEL_STEPS} k1a launches by {symbols['k1a']}, got "
+          f"{counts} {by_instance}")
+    batch = port.BatchedEnv(env, B, seed=SEED)
+    want = batch.init()
+    for t, a in enumerate(actions):
+        tr = batch.step(want, a)
+        want = tr.state
+        check(all(torch.equal(x, y) for x, y in zip(fields(tr), seen[t])),
+              f"the sharded walker parts from BatchedEnv at step {t}")
+    resets = int(state.reset_count.sum())
+    check(resets > 0, "the sharded walker: auto-reset never fired")
+    print(f"[parallel] (a) NCCL mesh of one: Walker3DCustomEnv-v0 through sharded_init / "
+          f"sharded_env, {PARALLEL_STEPS} steps × {B} envs bit for bit BatchedEnv at seed {SEED} "
+          f"({resets} resets), launches {counts} on {card}")
+    runs = []
+    for m in (None, mesh):
+        learner = PPOLearner(env, PPOConfig(horizon=PARALLEL_HORIZON), mesh=m, num_envs=B)
+        ts, metrics = learner.train_step(learner.init(seed=SEED))
+        runs.append(({k: v.clone() for k, v in ts.params.state_dict().items()},
+                     multihost.fingerprint(ts.opt_state), {k: float(v) for k, v in
+                                                          metrics.items()}))
+    (pa, oa, ma), (pb, ob, mb) = runs
+    check(all(torch.equal(pa[k], pb[k]) for k in pa) and oa.tolist() == ob.tolist()
+          and np.array_equal(list(ma.values()), list(mb.values()), equal_nan=True),
+          "a PPOLearner update on the mesh of one parts from the one without a mesh")
+    print(f"[parallel] (a) a PPOLearner update (walker, B={B}, horizon {PARALLEL_HORIZON}, "
+          f"(256, 256)) on the NCCL mesh of one is bit for bit the one without a mesh "
+          f"(pg loss {ma['pg_loss']:.6f}) on {card}")
+    dist.destroy_process_group()
+
+    # ---- (b) two NCCL ranks on the one card
+    ctx = mp.start_processes(nccl_probe_rank, args=(2, free_port(), str(workdir)), nprocs=2,
+                             join=False, start_method="spawn")
+    try:
+        join(ctx, 120)
+        said = [Path(workdir, f"nccl_probe{r}.txt").read_text() for r in range(2)]
+    except TimeoutError:
+        said = ["did not finish in 120 s"] * 2
+    for r, text in enumerate(said):
+        print(f"[parallel] (b) NCCL, two ranks on the one card, rank {r}: {text[:600]}")
+
+    # ---- (c) two gloo ranks on the one card
+    a = torch.rand((B, env.act_dim), generator=gen_a, device="cuda") * 2.0 - 1.0
+    torch.save({"state": state, "actions": a}, workdir / "parallel_inputs.pt")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 100)
+    raw, tr = env.step_no_reset(state, a, gen), env.step(state, a, gen)
+    timed = [torch.rand((B, env.act_dim), generator=gen_a, device="cuda") * 2.0 - 1.0
+             for _ in range(50)]
+
+    def one_process():
+        s = state
+        for x in timed:
+            s = env.step(s, x, gen).state
+        return s
+
+    _, counts, _, wall = counted(engine, one_process)
+    one_ms = 1e3 * wall / len(timed)
+    check(counts == {"k1a": len(timed)}, f"the one-process timed steps launched {counts}")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(parallel_rank, args=(2, free_port(), str(workdir)), nprocs=2,
+                             join=False, start_method="spawn")
+    join(ctx, 400)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(workdir / f"parallel_rank{r}.pt", weights_only=False) for r in range(2)]
+    cat = lambda part, k: torch.cat([r[part][k] for r in ranks])  # noqa: E731
+    for k, want_k in (("q", raw.state.q), ("qd", raw.state.qd), ("obs", raw.obs),
+                      ("reward", raw.reward), ("done", raw.done)):
+        check(torch.equal(cat("raw", k), want_k.cpu()),
+              f"two gloo ranks: step_no_reset's {k} parts from the one-process step")
+    live = ~tr.done.cpu()
+    check(torch.equal(cat("step", "done"), tr.done.cpu()), "two gloo ranks: done flags differ")
+    for k, want_k in (("q", tr.state.q), ("qd", tr.state.qd), ("obs", tr.obs),
+                      ("reward", tr.reward)):
+        check(torch.equal(cat("step", k)[live], want_k.cpu()[live]),
+              f"two gloo ranks: step's {k} parts from the one-process step off the resets")
+    for r, out in enumerate(ranks):
+        check(out["counts"] == ({"k1a": 1}, {"k1a": 1}),
+              f"rank {r}: one K1a launch per step expected, got {out['counts']}")
+        ms, counts, by_instance, finite = out["timed"]
+        check(counts == {"k1a": 50} and by_instance == {symbols["k1a"]: 50} and finite,
+              f"rank {r}: the timed steps launched {counts} {by_instance}, finite {finite}")
+        mixed = out["mixed"]
+        n = 2 * PARALLEL_HORIZON
+        check(mixed["counts"] == {"k1a": n, "k1e": n, "k1d": n}
+              and mixed["by_instance"] == {symbols[v]: n for v in ("k1a", "k1e_cassie", "k1d")},
+              f"rank {r}: the mixed trio launched {mixed['counts']} {mixed['by_instance']}")
+        check(mixed["same"] and mixed["finite"] and mixed["local_envs"] == [PER_FAMILY] * 3,
+              f"rank {r}: replicas parted or the state is malformed: {mixed['local_envs']}")
+        bad = [k for line in mixed["lines"] for k, v in line.items()
+               if not np.isfinite(v) and not k.startswith(("env/", "ep_end/"))]
+        check(not bad, f"rank {r}: non-finite metrics {bad}")
+        fams = ", ".join(f"{k} {v:.3f} s" for k, v in mixed["family_times"].items())
+        per_update = ", ".join(f"{x['rollout_s']:.3f} / {x['update_s']:.3f}" for x in mixed["lines"])
+        print(f"[parallel] (c) gloo rank {r}: {ms:.3f} ms per control step of its {B // 2} "
+              f"walker slots (both ranks stepping at once), beside {one_ms:.3f} ms of the "
+              f"one-process step at B={B}; the mixed trio, {PER_FAMILY} slots a family, 2 updates "
+              f"of horizon {PARALLEL_HORIZON} in {mixed['wall']:.3f} s: rollout "
+              f"{mixed['times']['rollout']:.3f} s ({fams}), PPO update "
+              f"{mixed['times']['update']:.3f} s (rollout / update s per update: {per_update}), "
+              f"launches {mixed['counts']}; one gloo all-reduce of the {out['grads']} gradient "
+              f"floats {out['all_reduce_ms_cuda']:.3f} ms on the card, "
+              f"{out['all_reduce_ms_cpu']:.3f} ms from the host, on {card}")
+    fps = [r["mixed"]["fingerprint"].tolist() for r in ranks]
+    check(fps[0] == fps[1], f"two gloo ranks: the replica fingerprints differ: {fps}")
+    print(f"[parallel] (c) two gloo ranks on the one card: their halves of {B} walker states "
+          f"bit for bit the one-process step (step_no_reset; step off the {int((~live).sum())} "
+          f"resets); mixed-trio replica fingerprints equal {fps[0]}; the ranks' processes took "
+          f"{wall:.1f} s on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     import mocca_envs_tpu_torch as port
     from mocca_envs_tpu_torch.models import cassie, monkey, walker2d, walker3d
     from mocca_envs_tpu_torch.ops.cuda import engine
@@ -2842,7 +3174,7 @@ def main() -> int:
               f"({added[v].name}): {step_ms[v]:.3f} ms per control step, beside "
               f"{step_ms[base]:.3f} at its family's shipped llc frames ({base}) in this call, at "
               f"B={B} on {card}")
-    small_grid_raises(model, config)
+    small_grid_plain(port, engine, card, model)
     combination_refused(engine, model, config)
     launches["k2"], ray_main = raycast_main_path(engine, card, rng)
 
@@ -2968,6 +3300,13 @@ def main() -> int:
     surfaced = surfaces(port, engine, card, kernels, config, workdir)
     print(f"[surfaces] phase done in {time.perf_counter() - t0:.1f} s; K1 launches by path "
           f"{surfaced} on {card}")
+
+    # ---- phase parallel: the env mesh over torch.distributed on the card
+    t0 = time.perf_counter()
+    parallel_phase(port, engine, card, workdir, {v: kernels[v][0].name for v in
+                                                 ("k1a", "k1e_cassie", "k1d")})
+    print(f"[parallel] phase done in {time.perf_counter() - t0:.1f} s on {card}")
+    print(f"[done] chip_smoke.py took {time.perf_counter() - started:.1f} s on {card}")
 
     names = {"k1a": "k1a_engine_frame", "k1c": "k1c_engine_frame_stones",
              "k1b": "k1b_engine_step_pd", "k1e_cassie": "k1e_engine_step_pd_rods",

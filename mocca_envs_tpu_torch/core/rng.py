@@ -28,6 +28,16 @@ on the seed, the batch size and the actions: same seed ⇒ same episodes.
 Where one seed drives several streams (the mixed suite: one generator per
 family), stream i takes the seed :func:`fold_in` ``(s, i)``, numpy's
 ``SeedSequence([s, i])``, in place of the JAX package's ``fold_in``.
+
+Over a mesh (``parallel/``: one process per device, rank r of W holding
+its own shard of every batch) each stream takes :func:`rank_seed`: rank 0
+keeps the single-device seed (the env's ``s``, the learner's ``s +
+LEARNER_SEED_OFFSET``, family f's ``fold_in(s, f)``), rank r ≥ 1 takes
+``fold_in(·, r)`` of it. The JAX learner does the same: its unsharded
+step consumes ``fold_in(key, 0)`` to mirror the mesh path, so a mesh of one
+device is bit for bit the run without a mesh. The network's initial
+parameters come from the seed itself on every rank, and the learner checks
+that they agree across ranks (``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["fold_in", "generator", "uniform"]
+__all__ = ["fold_in", "generator", "rank_seed", "uniform"]
 
 
 def generator(seed: int, device) -> torch.Generator:
@@ -50,6 +60,12 @@ def fold_in(seed: int, index: int) -> int:
     ``SeedSequence([seed, index])``, so that no two (seed, index) pairs
     share a stream in practice."""
     return int(np.random.SeedSequence([int(seed), int(index)]).generate_state(1, np.uint64)[0])
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of a stream on mesh rank ``rank``: ``seed`` itself on rank
+    0, ``fold_in(seed, rank)`` on every other rank."""
+    return int(seed) if rank == 0 else fold_in(seed, rank)
 
 
 def uniform(gen: torch.Generator, shape, lo, hi, dtype=torch.float32) -> torch.Tensor:

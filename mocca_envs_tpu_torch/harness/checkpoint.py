@@ -12,6 +12,12 @@ template of the same structure (``restore(state_like)``): tensors land on
 the template's device; a template whose structure differs (a field, a
 shape, a dtype, or a tuple of another length) raises
 :class:`CheckpointMismatch`.
+
+Over a mesh (``parallel/mesh.py``) every rank holds its own env shard and
+generators: a save gathers each rank's state to rank 0, which writes them
+all in one file with the world size, and a restore gives each rank its own.
+A checkpoint restores only at the world size that wrote it (a plain one at
+one device); another raises :class:`CheckpointMismatch` naming both.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import re
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -104,14 +111,27 @@ def _describe(x) -> str:
     return type(x).__name__
 
 
+def _to_cpu(tree):
+    """A :func:`to_tree` tree with every tensor on the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
 class CheckpointManager:
     """Numbered checkpoints in one directory, the newest ``max_to_keep``
     kept. Saves are written to a temporary file and renamed, so a cut save
-    leaves the previous checkpoint whole."""
+    leaves the previous checkpoint whole. With a ``mesh`` every rank calls
+    :meth:`save` and :meth:`restore`; the directory is shared."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, mesh=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -122,8 +142,20 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any) -> None:
         """Save a train state (e.g. ``harness/ppo.TrainState``) at ``step``."""
+        if self.mesh is None:
+            self._write(step, {"step": step, "state": to_tree(state)})
+            return
+        group, world = self.mesh.group, self.mesh.size
+        trees = [None] * world if self.mesh.rank == 0 else None
+        dist.gather_object(_to_cpu(to_tree(state)), trees, dst=dist.get_global_rank(group, 0),
+                           group=group)
+        if self.mesh.rank == 0:
+            self._write(step, {"step": step, "world": world, "ranks": trees})
+        dist.barrier(group=group)
+
+    def _write(self, step: int, payload: dict) -> None:
         tmp = self._path(step) + ".tmp"
-        torch.save({"step": step, "state": to_tree(state)}, tmp)
+        torch.save(payload, tmp)
         os.replace(tmp, self._path(step))
         for old in self.steps()[:-self.max_to_keep]:
             os.unlink(self._path(old))
@@ -134,7 +166,14 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         saved = torch.load(self._path(step), map_location="cpu", weights_only=True)
-        return from_tree(state_like, saved["state"])
+        world = saved.get("world", 1)
+        want = 1 if self.mesh is None else self.mesh.size
+        if world != want:
+            raise CheckpointMismatch(f"the checkpoint was written at world size {world}, this "
+                                     f"run has world size {want}")
+        tree = saved["state"] if "state" in saved else saved["ranks"][
+            0 if self.mesh is None else self.mesh.rank]
+        return from_tree(state_like, tree)
 
     def latest_step(self) -> int | None:
         steps = self.steps()

@@ -1,4 +1,4 @@
-"""Mixed multi-family suite: BASELINE.json config 5's env side, on one device.
+"""Mixed multi-family suite: BASELINE.json config 5's env side.
 
 Counterpart of ``mocca_envs_tpu/harness/mixed.py``. Each family steps as its
 own sub-batch (through its own kernel: the walker's K1a, Cassie's K1e, the
@@ -13,8 +13,9 @@ shared learner:
 (``obs_dim`` / ``act_dim`` / ``device`` / ``init_states`` /
 ``make_rollout``), so the update (GAE, the minibatched clipped-surrogate
 epochs) is the single-family one: the per-family trajectories are
-concatenated along the batch axis before learning. The multi-device path
-(the JAX package's mesh) is not ported here.
+concatenated along the batch axis before learning. Over a mesh
+(``parallel/mesh.py``) each family's count is global and every rank steps
+its ``count // world`` slots of each family into the one learner.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ import torch
 
 from mocca_envs_tpu_torch.core import rng as rng_mod
 from mocca_envs_tpu_torch.envs.env import FnEnv, Transition
-from mocca_envs_tpu_torch.harness.ppo import MESH_NOT_PORTED
 from mocca_envs_tpu_torch.harness.profile import StageTimer
 from mocca_envs_tpu_torch.harness.rollout import Trajectory, make_batched_rollout
 from mocca_envs_tpu_torch.utils.device import resolve_device
@@ -144,14 +144,19 @@ class MixedSuite:
         return cls(cls.DEFAULT, (envs_per_family,) * len(cls.DEFAULT), device)
 
     def init_states(self, seed: int, mesh=None):
-        """Per-family env states, padded obs and env generators, as tuples.
-        Family f draws from the generator seeded ``rng.fold_in(seed, f)``."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+        """Per-family env states, padded obs and env generators, as tuples:
+        this rank's ``count // world`` slots of each family under a
+        ``mesh``. Family f draws from the generator seeded
+        ``rng.rank_seed(rng.fold_in(seed, f), rank)``: ``fold_in(seed, f)``
+        on one device and on rank 0."""
+        world, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
         states, obss, gens = [], [], []
         for f, env in enumerate(self.envs):
-            gen = rng_mod.generator(rng_mod.fold_in(seed, f), self.device)
-            st = env.init(gen, self.counts[f])
+            if self.counts[f] % world != 0:
+                raise ValueError(f"family count {self.counts[f]} must divide over {world} devices")
+            gen = rng_mod.generator(rng_mod.rank_seed(rng_mod.fold_in(seed, f), rank),
+                                    self.device)
+            st = env.init(gen, self.counts[f] // world)
             states.append(st)
             obss.append(env.obs_fn(st))
             gens.append(gen)

@@ -1,4 +1,4 @@
-"""PPO learner over a batched env on one device.
+"""PPO learner over a batched env, on one device or over a mesh.
 
 Counterpart of ``mocca_envs_tpu/harness/ppo.py`` (the JAX package's one
 jitted program per update): ``train_step(state) → (state, metrics)`` runs
@@ -11,8 +11,15 @@ come from two ``torch.Generator`` on the env's device, kept in the state,
 so a run is a function of its seed and a checkpoint resumes it exactly.
 The env may also be a rollout provider (``harness/mixed.py::MixedSuite``):
 then the env states, observations and env generators are tuples, one entry
-per family, and the learner math is the same. The mesh path (``shard_map``
-over devices) is not ported here.
+per family, and the learner math is the same.
+
+Over a mesh (``parallel/mesh.py``: one process per device) every rank holds
+``num_envs // world`` slots of the batch and its own generators, and a copy
+of the network and optimizer. The JAX learner's ``shard_map`` averages
+(``pmean``) the reward and return statistics, the obs-norm and advantage
+moments, each minibatch's gradients and the metrics over the devices; here
+each of those is an all-reduce over the group at the same place, so the
+copies stay equal. A mesh of one is bit for bit the run without one.
 """
 
 from __future__ import annotations
@@ -23,19 +30,19 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from mocca_envs_tpu_torch.core import rng as rng_mod
 from mocca_envs_tpu_torch.envs.env import FnEnv
 from mocca_envs_tpu_torch.harness.profile import StageTimer
 from mocca_envs_tpu_torch.harness.rollout import Trajectory, make_batched_rollout
+from mocca_envs_tpu_torch.parallel.multihost import check_replica_divergence
 
 LOG_2PI = math.log(2 * math.pi)
 # the learner's generator is seeded apart from the env's (which takes the
 # seed itself, as BatchedEnv does), so that the two streams never coincide
 LEARNER_SEED_OFFSET = 2 ** 31
-MESH_NOT_PORTED = ("the mesh path (training sharded over several devices) is ROADMAP Queue 1 "
-                   "item 13, not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,15 +210,16 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
 
 
 class PPOLearner:
-    """PPO on one device: ``init(seed) → TrainState``, ``train_step(state)
-    → (state, metrics)``. ``metrics`` are 0-d tensors under the JAX
-    learner's names. ``timer`` sums the wall seconds of the rollouts and of
-    the updates apart (each ends with a synchronise on a card)."""
+    """PPO: ``init(seed) → TrainState``, ``train_step(state) → (state,
+    metrics)``, and its learner half ``update(state, traj)``. ``metrics``
+    are 0-d tensors under the JAX learner's names. ``timer`` sums the wall
+    seconds of the rollouts and of the updates apart (each ends with a
+    synchronise on a card). With a ``mesh`` (``parallel/mesh.py``)
+    ``num_envs`` stays the global batch, and this rank steps and learns on
+    its ``num_envs // mesh.size`` slots."""
 
     def __init__(self, env: FnEnv, config: PPOConfig = PPOConfig(), mesh=None,
                  num_envs: int = 1024):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         # ``env`` may be one FnEnv or a rollout provider (harness/mixed.py's
         # MixedSuite): anything with obs_dim / act_dim / device and
         # init_states(seed) → (env states, obs, env generators), tuples per
@@ -228,6 +236,16 @@ class PPOLearner:
             raise ValueError(
                 "shuffle_mode='time' slices minibatches along the horizon — "
                 f"horizon {config.horizon} must divide into {config.num_minibatches} minibatches")
+        if mesh is not None and num_envs % (mesh.size * config.num_minibatches) != 0:
+            raise ValueError("num_envs must divide over devices × minibatches")
+        if self._provider and mesh is not None:
+            for c in env.counts:
+                if c % mesh.size != 0:
+                    raise ValueError(f"family count {c} must divide over {mesh.size} devices")
+        self.mesh = mesh
+        self.world = 1 if mesh is None else mesh.size
+        self.rank = 0 if mesh is None else mesh.rank
+        self.local_envs = num_envs // self.world
         self.env = env
         self.config = config
         self.num_envs = num_envs
@@ -271,6 +289,16 @@ class PPOLearner:
                        np.float32(0.0), np.float32(1.0))
         return float(np.float32(cfg.log_std_min)
                      + frac * np.float32(cfg.log_std_min_final - cfg.log_std_min))
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the mesh's ranks (``x`` itself without a
+        mesh): an all-reduce of the sum, divided by the world size, since
+        gloo has no average. Every rank gets the same bits."""
+        if self.mesh is None:
+            return x
+        x = x.clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.mesh.group)
+        return x / self.world
 
     def _maybe_norm(self, norm: RunningNorm, obs):
         return norm.normalize(obs) if self.config.normalize_obs else obs
@@ -336,17 +364,23 @@ class PPOLearner:
                           generator=init_gen).to(self.device)
         # optax.adam's defaults
         opt = torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+        # the same seed on every rank draws the same network: checked
+        if self.mesh is not None and not check_replica_divergence(net, self.mesh):
+            raise RuntimeError("the initial parameters differ across the mesh's ranks")
+        # rank 0 keeps the single-device streams, rank r ≥ 1 folds r in
+        # (core/rng.py)
         if self._provider:
-            env_state, obs, env_key = self.env.init_states(seed)
+            env_state, obs, env_key = self.env.init_states(seed, self.mesh)
         else:
-            env_key = rng_mod.generator(seed, self.device)
-            env_state = self.env.init(env_key, self.num_envs)
+            env_key = rng_mod.generator(rng_mod.rank_seed(seed, self.rank), self.device)
+            env_state = self.env.init(env_key, self.local_envs)
             obs = self.env.obs_fn(env_state)
+        key = rng_mod.generator(rng_mod.rank_seed(seed + LEARNER_SEED_OFFSET, self.rank),
+                                self.device)
         return TrainState(
-            params=net, opt_state=opt, env_state=env_state, obs=obs,
-            key=rng_mod.generator(seed + LEARNER_SEED_OFFSET, self.device), env_key=env_key,
+            params=net, opt_state=opt, env_state=env_state, obs=obs, key=key, env_key=env_key,
             update_count=0, obs_norm=RunningNorm.init(self.env.obs_dim, self.device),
-            ret_accum=(torch.zeros(self.num_envs, device=self.device)
+            ret_accum=(torch.zeros(self.local_envs, device=self.device)
                        if cfg.normalize_reward else None),
             ret_norm=RunningNorm.init(1, self.device) if cfg.normalize_reward else None,
         )
@@ -358,110 +392,156 @@ class PPOLearner:
         return int(state["step"]) if state else 0
 
     def update_minibatch(self, net, opt, mb, adv_stats, norm, floor) -> torch.Tensor:
-        """One optimizer step on one minibatch: the loss's gradient, clipped
-        by its global norm, then Adam at the scheduled learning rate. Returns
-        the detached ``(pg_loss, v_loss, entropy)`` as one tensor."""
+        """One optimizer step on one minibatch: the loss's gradient,
+        averaged over the mesh, clipped by its global norm, then Adam at the
+        scheduled learning rate. Returns the detached ``(pg_loss, v_loss,
+        entropy)`` as one tensor."""
         opt.zero_grad(set_to_none=False)
         loss, aux = self.loss_fn(net, mb, adv_stats, norm, floor)
         loss.backward()
-        clip_by_global_norm_([p.grad for p in net.parameters()], self.config.max_grad_norm)
+        grads = [p.grad for p in net.parameters()]
+        if self.mesh is not None:
+            # one all-reduce over the gradients laid end to end
+            flat = self.pmean(torch.cat([g.reshape(-1) for g in grads]))
+            for g, part in zip(grads, torch.split(flat, [g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
+        clip_by_global_norm_(grads, self.config.max_grad_norm)
         for group in opt.param_groups:
             group["lr"] = self.lr_at(self._opt_step_count(opt))
         opt.step()
         return torch.stack([a.detach() for a in aux])
 
+    def _floor(self, update_count: int) -> torch.Tensor:
+        # a fill, not a host-to-device copy
+        return torch.full((), self.floor_of(update_count), device=self.device)
+
     def train_step(self, state: TrainState):
+        """One PPO update: a rollout from the state's envs, then
+        :meth:`update` on its trajectory."""
+        with self.timer.stage("rollout"):
+            env_state, obs, traj = self._rollout(
+                (state.params, state.obs_norm, self._floor(state.update_count)),
+                state.env_state, state.obs, state.key, state.env_key)
+        with self.timer.stage("update"):
+            return self.update(dataclasses.replace(state, env_state=env_state, obs=obs), traj)
+
+    def update(self, state: TrainState, traj: Trajectory):
+        """The learner's half of a train step on a given trajectory (this
+        rank's (T, B/W) slice under a mesh): the reward processing, GAE, the
+        running norms and the minibatched clipped-surrogate epochs, which
+        train the state's network and optimizer in place. Returns the state
+        with its norms updated and ``update_count`` one up, and the
+        metrics."""
         cfg = self.config
         net, opt, norm = state.params, state.opt_state, state.obs_norm
-        # a fill, not a host-to-device copy
-        floor = torch.full((), self.floor_of(state.update_count), device=self.device)
-        with self.timer.stage("rollout"):
-            env_state, obs, traj = self._rollout((net, norm, floor), state.env_state, state.obs,
-                                                 state.key, state.env_key)
-        with self.timer.stage("update"):
-            ret_accum, ret_norm = state.ret_accum, state.ret_norm
-            n = cfg.horizon * self.num_envs
-            with torch.no_grad():
-                last_value = net(self._maybe_norm(norm, traj.last_obs))[2]
-                raw_reward_mean = torch.mean(traj.reward)
-                reward = traj.reward
-                if cfg.reward_scale != 1.0:
-                    reward = reward * cfg.reward_scale
-                if cfg.normalize_reward:
-                    rets, ret_accum = discounted_return_scan(reward, traj.done, ret_accum,
-                                                             cfg.gamma)
-                    rmean = torch.mean(rets)
-                    rvar = torch.mean(torch.square(rets - rmean))
-                    ret_norm = ret_norm.update(rmean[None], rvar[None], float(np.float32(n)))
-                    # scale only, no mean shift: the reward's sign survives
-                    rstd = torch.sqrt(ret_norm.var[0] + 1e-8)
-                    reward = torch.clamp(reward / rstd, -10.0, 10.0)
-                traj = dataclasses.replace(traj, reward=reward)
-                adv, ret = gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
-                new_norm = norm
-                if cfg.normalize_obs:
-                    flat_obs = traj.obs.reshape(-1, traj.obs.shape[-1])
-                    bmean = torch.mean(flat_obs, dim=0)
-                    bvar = torch.mean(torch.square(flat_obs - bmean), dim=0)
-                    new_norm = norm.update(bmean, bvar, float(np.float32(n)))
-                adv_mean = torch.mean(adv)
-                adv_sq = torch.mean(torch.square(adv))
-                adv_std = torch.sqrt(torch.clamp(adv_sq - torch.square(adv_mean), min=1e-12))
-            flat = [x.reshape((n,) + tuple(x.shape[2:])) for x in
-                    (traj.obs, traj.action, traj.log_prob, traj.value, adv, ret)]
-            mb_size = n // cfg.num_minibatches
-            auxs = []
-            for _ in range(cfg.num_epochs):
-                if cfg.shuffle_mode == "time":
-                    # whole timesteps: a minibatch is horizon/num_minibatches
-                    # timesteps × all envs
-                    perm_t = torch.randperm(cfg.horizon, generator=state.key, device=self.device)
-                    shuffled = [x.reshape((cfg.horizon, self.num_envs) + tuple(x.shape[1:]))[
-                        perm_t].reshape(x.shape) for x in flat]
-                else:
-                    perm = torch.randperm(n, generator=state.key, device=self.device)
-                    shuffled = [x[perm] for x in flat]
-                for i in range(cfg.num_minibatches):
-                    mb = [x[i * mb_size:(i + 1) * mb_size] for x in shuffled]
-                    auxs.append(self.update_minibatch(net, opt, mb, (adv_mean, adv_std), norm,
-                                                      floor))
-            pg_loss, v_loss, entropy = torch.stack(auxs).mean(dim=0)
-            with torch.no_grad():
-                metrics = {
-                    # the raw env reward, before reward_scale / normalization
-                    "reward_per_step": raw_reward_mean,
-                    "episode_done_rate": torch.mean(traj.done.to(torch.float32)),
-                    "pg_loss": pg_loss,
-                    "v_loss": v_loss,
-                    "entropy": entropy,
-                    "adv_std": adv_std,
-                    "log_std_floor": floor,
-                }
-                if cfg.normalize_reward:
-                    metrics["reward_norm_std"] = torch.sqrt(ret_norm.var[0] + 1e-8)
-                if traj.env_metrics is not None:
-                    metrics.update(env_metric_channels(traj.env_metrics, traj.done))
+        floor = self._floor(state.update_count)
+        pmean = self.pmean
+        ret_accum, ret_norm = state.ret_accum, state.ret_norm
+        # samples on this rank, and over the mesh (the running norms' count)
+        n = cfg.horizon * self.local_envs
+        n_all = float(np.float32(cfg.horizon * self.num_envs))
+        with torch.no_grad():
+            last_value = net(self._maybe_norm(norm, traj.last_obs))[2]
+            raw_reward_mean = pmean(torch.mean(traj.reward))
+            reward = traj.reward
+            if cfg.reward_scale != 1.0:
+                reward = reward * cfg.reward_scale
+            if cfg.normalize_reward:
+                rets, ret_accum = discounted_return_scan(reward, traj.done, ret_accum, cfg.gamma)
+                rmean = pmean(torch.mean(rets))
+                rvar = pmean(torch.mean(torch.square(rets - rmean)))
+                ret_norm = ret_norm.update(rmean[None], rvar[None], n_all)
+                # scale only, no mean shift: the reward's sign survives
+                rstd = torch.sqrt(ret_norm.var[0] + 1e-8)
+                reward = torch.clamp(reward / rstd, -10.0, 10.0)
+            traj = dataclasses.replace(traj, reward=reward)
+            adv, ret = gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
+            new_norm = norm
+            if cfg.normalize_obs:
+                flat_obs = traj.obs.reshape(-1, traj.obs.shape[-1])
+                # the deviations about the mean over the whole mesh
+                bmean = pmean(torch.mean(flat_obs, dim=0))
+                bvar = pmean(torch.mean(torch.square(flat_obs - bmean), dim=0))
+                new_norm = norm.update(bmean, bvar, n_all)
+            adv_mean, adv_sq = pmean(torch.stack([torch.mean(adv),
+                                                  torch.mean(torch.square(adv))]))
+            adv_std = torch.sqrt(torch.clamp(adv_sq - torch.square(adv_mean), min=1e-12))
+        flat = [x.reshape((n,) + tuple(x.shape[2:])) for x in
+                (traj.obs, traj.action, traj.log_prob, traj.value, adv, ret)]
+        mb_size = n // cfg.num_minibatches
+        auxs = []
+        for _ in range(cfg.num_epochs):
+            if cfg.shuffle_mode == "time":
+                # whole timesteps: a minibatch is horizon/num_minibatches
+                # timesteps × all of this rank's envs
+                perm_t = torch.randperm(cfg.horizon, generator=state.key, device=self.device)
+                shuffled = [x.reshape((cfg.horizon, self.local_envs) + tuple(x.shape[1:]))[
+                    perm_t].reshape(x.shape) for x in flat]
+            else:
+                perm = torch.randperm(n, generator=state.key, device=self.device)
+                shuffled = [x[perm] for x in flat]
+            for i in range(cfg.num_minibatches):
+                mb = [x[i * mb_size:(i + 1) * mb_size] for x in shuffled]
+                auxs.append(self.update_minibatch(net, opt, mb, (adv_mean, adv_std), norm,
+                                                  floor))
+        pg_loss, v_loss, entropy = torch.stack(auxs).mean(dim=0)
+        with torch.no_grad():
+            done_rate, pg_loss, v_loss = pmean(torch.stack(
+                [torch.mean(traj.done.to(torch.float32)), pg_loss, v_loss]))
+            metrics = {
+                # the raw env reward, before reward_scale / normalization
+                "reward_per_step": raw_reward_mean,
+                "episode_done_rate": done_rate,
+                "pg_loss": pg_loss,
+                "v_loss": v_loss,
+                "entropy": entropy,
+                "adv_std": adv_std,
+                "log_std_floor": floor,
+            }
+            if cfg.normalize_reward:
+                metrics["reward_norm_std"] = torch.sqrt(ret_norm.var[0] + 1e-8)
+            if traj.env_metrics is not None:
+                metrics.update(env_metric_channels(traj.env_metrics, traj.done, pmean))
         return dataclasses.replace(
-            state, env_state=env_state, obs=obs, update_count=state.update_count + 1,
-            obs_norm=new_norm, ret_accum=ret_accum, ret_norm=ret_norm), metrics
+            state, update_count=state.update_count + 1, obs_norm=new_norm, ret_accum=ret_accum,
+            ret_norm=ret_norm), metrics
 
 
-def env_metric_channels(env_metrics: dict, done: torch.Tensor) -> dict:
+def env_metric_channels(env_metrics: dict, done: torch.Tensor, pmean=None) -> dict:
     """Per env metric channel, its mean over the finite entries
     (``env/<name>``) and over the finite entries of the steps that ended an
     episode (``ep_end/<name>``): NaN where there are none (no episode ended,
-    or the channel is NaN everywhere), never a fabricated 0."""
-    out = {}
+    or the channel is NaN everywhere), never a fabricated 0. Under a mesh
+    ``pmean`` averages each rank's sums and rates before the ratio is
+    taken (a ratio of means, never a mean of ratios), all channels in one
+    reduction."""
     dmask = done.to(torch.float32)
-    for k, v in env_metrics.items():
+    local = []
+    for v in env_metrics.values():
         v = v.to(torch.float32)
         valid = torch.isfinite(v).to(torch.float32)
         vz = torch.where(valid > 0.0, v, torch.zeros_like(v))
-        vrate = torch.mean(valid)
+        local += [torch.mean(valid), torch.mean(vz), torch.mean(dmask * valid),
+                  torch.mean(vz * dmask)]
+    if not local:
+        return {}
+    means = torch.stack(local)
+    if pmean is not None:
+        means = pmean(means)
+    out = {}
+    for k, (vrate, vsum, dv_rate, dvsum) in zip(env_metrics, means.view(-1, 4)):
         nan = torch.full_like(vrate, float("nan"))
-        out["env/" + k] = torch.where(vrate > 0.0, torch.mean(vz) / torch.clamp(vrate, min=1e-9),
-                                      nan)
-        dv_rate = torch.mean(dmask * valid)
-        out["ep_end/" + k] = torch.where(
-            dv_rate > 0.0, torch.mean(vz * dmask) / torch.clamp(dv_rate, min=1e-9), nan)
+        out["env/" + k] = torch.where(vrate > 0.0, vsum / torch.clamp(vrate, min=1e-9), nan)
+        out["ep_end/" + k] = torch.where(dv_rate > 0.0, dvsum / torch.clamp(dv_rate, min=1e-9),
+                                         nan)
     return out
+
+
+def dryrun_train_step(env: FnEnv, mesh, num_envs: int) -> None:
+    """A full training step over the mesh at tiny shapes: part of the
+    multi-device dry run (``mocca_envs_tpu_torch/graft_entry.py``)."""
+    cfg = PPOConfig(horizon=4, num_epochs=1, num_minibatches=1, hidden=(32, 32))
+    learner = PPOLearner(env, cfg, mesh=mesh, num_envs=num_envs)
+    state, _ = learner.train_step(learner.init(seed=0))
+    if learner.device.type == "cuda":
+        torch.cuda.synchronize(learner.device)

@@ -1,4 +1,4 @@
-"""Training CLI: PPO over a batched env on one device.
+"""Training CLI: PPO over a batched env, on one device or over a mesh.
 
 Counterpart of ``mocca_envs_tpu/harness/train.py``, with its flags and
 defaults:
@@ -15,9 +15,19 @@ reporting and advancement on the stepper families, split impulse
 suite on one device (a comma-separated ``--env``: ``harness/mixed.py``,
 ``--num-envs`` split evenly over the families), metrics logging with
 env-steps/s and the rollout and update seconds per update (and, for the
-mixed suite, each family's rollout seconds, ``rollout_s/<family>``), and an
-optional profiler trace. ``--multihost`` is ROADMAP Queue 1 item 13 and
-raises; ``--no-mesh`` is accepted and changes nothing on one device.
+mixed suite, each family's rollout seconds, ``rollout_s/<family>``), an
+optional profiler trace, and multi-device runs: ``--multihost`` joins the
+process group (``parallel/multihost.py``: ``--coordinator host:port
+--num-processes N --process-id r``, or a ``torchrun`` launch), and a group
+of more than one process trains over the ``env`` mesh (one process per
+device, ``--num-envs`` the global batch) unless ``--no-mesh`` is given.
+Only the group's rank 0 logs metrics and prints. Under the mesh the
+checkpoint holds every rank's shard and restores at the same number of
+processes; under ``--no-mesh`` each rank trains on its own and rank 0
+alone writes the checkpoint.
+
+    torchrun --nproc-per-node 4 -m mocca_envs_tpu_torch.harness.train \\
+        --multihost --env Walker3DCustomEnv,CassieEnv,Monkey3DStepperEnv
 """
 
 from __future__ import annotations
@@ -26,8 +36,6 @@ import argparse
 import dataclasses
 import logging
 import time
-
-MULTI_NOT_PORTED = "is ROADMAP Queue 1 item 13 (multi-device), not ported yet"
 
 
 def parse_args(argv=None):
@@ -94,9 +102,9 @@ def parse_args(argv=None):
                    help="split-impulse position correction in the engine "
                         "(Bullet m_splitImpulse; EngineConfig.split_impulse)")
     p.add_argument("--multihost", action="store_true",
-                   help="initialize jax.distributed before building the mesh")
+                   help="join the torch.distributed process group before building the mesh")
     p.add_argument("--coordinator", default=None,
-                   help="host:port of process 0 (omit on TPU pods)")
+                   help="host:port of process 0 (omit under torchrun)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     return p.parse_args(argv)
@@ -110,7 +118,8 @@ def restore_compat(ckpt, state, num_envs: int):
     saved on one side of the flag does not fit a template built on the
     other. Both the ``--ckpt-dir`` resume and the ``--init-from`` transfer
     survive the flip: try the template as it is, then the other shape, and
-    attach or drop the reward-norm stats accordingly.
+    attach or drop the reward-norm stats accordingly. ``num_envs`` is this
+    process's batch (its shard under a mesh).
     """
     import torch
 
@@ -150,26 +159,29 @@ def split_config(env_id: str):
     return dataclasses.replace(EngineConfig(), split_impulse=True)
 
 
-def maybe_advance_curriculum(state, metrics: dict, threshold: float | None):
+def maybe_advance_curriculum(state, metrics: dict, threshold: float | None,
+                             pmean=lambda x: x):
     """Curriculum report and (with a ``threshold``) host-side advance: the
     stepper families' states carry a per-env stage. Without a threshold the
     envs advance themselves (StepperParams.adv_threshold) and the mean stage
     is only reported; with one, every env moves a stage up (at most 9) once
     the batch-mean stones reached clears it. Returns ``(state, mean stage
-    or None)``. The mixed suite's tuple of states has no stage: it passes
+    or None)``. Under a mesh every rank calls it and ``pmean`` (the
+    learner's) makes the mean stage the whole batch's, not this rank's
+    shard's. The mixed suite's tuple of states has no stage: it passes
     unchanged."""
     task = getattr(state.env_state, "task", None)
     if task is None or not hasattr(task, "stage"):
         return state, None
     reached = metrics.get("env/steps_reached", metrics.get("steps_reached"))
     if threshold is None or reached is None or float(reached) < threshold:
-        return state, float(task.stage.mean())
+        return state, float(pmean(task.stage.mean()))
     import torch
 
     new_stage = torch.clamp(task.stage + 1.0, max=9.0)
     env_state = dataclasses.replace(state.env_state,
                                     task=dataclasses.replace(task, stage=new_stage))
-    return dataclasses.replace(state, env_state=env_state), float(new_stage.mean())
+    return dataclasses.replace(state, env_state=env_state), float(pmean(new_stage.mean()))
 
 
 def main(argv=None, device=None):
@@ -178,15 +190,32 @@ def main(argv=None, device=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     if args.multihost:
-        raise NotImplementedError(f"--multihost {MULTI_NOT_PORTED}")
+        # before anything touches the CUDA card
+        from mocca_envs_tpu_torch.parallel import multihost
+
+        multihost.initialize(coordinator_address=args.coordinator,
+                             num_processes=args.num_processes, process_id=args.process_id,
+                             device=device)
+
+    import torch.distributed as dist
 
     import mocca_envs_tpu_torch as port
     from mocca_envs_tpu_torch.harness.checkpoint import CheckpointManager
     from mocca_envs_tpu_torch.harness.metrics import MetricsLogger
     from mocca_envs_tpu_torch.harness.ppo import PPOConfig, PPOLearner
+    from mocca_envs_tpu_torch.parallel.mesh import env_mesh
     from mocca_envs_tpu_torch.utils.device import resolve_device
 
+    mesh = None
+    if not args.no_mesh and dist.is_initialized() and dist.get_world_size() > 1:
+        mesh = env_mesh(device=device)
+        device = mesh.device
     device = resolve_device(device)
+    # the process group's rank 0, with or without a mesh: under --no-mesh
+    # every rank trains on its own and rank 0 alone logs and checkpoints
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    if mesh is not None and rank0:
+        logging.info("mesh over %d devices (%d processes)", mesh.size, dist.get_world_size())
     if "," in args.env:
         if args.split_impulse:
             raise SystemExit("--split-impulse is not wired for mixed suites yet; "
@@ -215,7 +244,7 @@ def main(argv=None, device=None):
         normalize_reward=args.normalize_reward,
         shuffle_mode=args.shuffle_mode,
     )
-    learner = PPOLearner(env, cfg, num_envs=args.num_envs)
+    learner = PPOLearner(env, cfg, mesh=mesh, num_envs=args.num_envs)
     state = learner.init(seed=args.seed)
 
     if args.init_from:
@@ -224,21 +253,30 @@ def main(argv=None, device=None):
         from mocca_envs_tpu_torch.harness.transfer import transfer_train_state
 
         src_env = port.make(args.init_env or args.env, device=device)
-        src_learner = PPOLearner(src_env, dataclasses.replace(cfg, mirror_coef=0.0),
+        src_learner = PPOLearner(src_env, dataclasses.replace(cfg, mirror_coef=0.0), mesh=mesh,
                                  num_envs=args.num_envs)
-        src_state = restore_compat(CheckpointManager(args.init_from),
-                                   src_learner.init(seed=args.seed), args.num_envs)
+        src_state = restore_compat(CheckpointManager(args.init_from, mesh=mesh),
+                                   src_learner.init(seed=args.seed), learner.local_envs)
         state = transfer_train_state(src_state, state, reset_log_std=args.reset_log_std)
-        logging.info("transferred pretrained policy from %s (%s)", args.init_from, src_env.name)
+        if rank0:
+            logging.info("transferred pretrained policy from %s (%s)", args.init_from,
+                         src_env.name)
 
-    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    ckpt = CheckpointManager(args.ckpt_dir, mesh=mesh) if args.ckpt_dir else None
+    # a mesh's checkpoint is written by every rank together; without one
+    # only rank 0 writes, and every rank reads it back
+    save = ckpt is not None and (mesh is not None or rank0)
     start_update = 0
     if ckpt is not None and ckpt.latest_step() is not None:
-        state = restore_compat(ckpt, state, args.num_envs)
+        state = restore_compat(ckpt, state, learner.local_envs)
         start_update = int(state.update_count)
-        logging.info("resumed from update %d", start_update)
+        if rank0:
+            logging.info("resumed from update %d", start_update)
+    if ckpt is not None and mesh is None and dist.is_initialized():
+        # rank 0 writes only once every rank has looked for a checkpoint
+        dist.barrier()
 
-    mlog = MetricsLogger(jsonl_path=args.metrics)
+    mlog = MetricsLogger(jsonl_path=args.metrics) if rank0 else None
     steps_per_update = args.num_envs * args.horizon
     prof_ctx = None
     if args.profile_dir:
@@ -265,22 +303,25 @@ def main(argv=None, device=None):
                 for name, secs in family_timer.times.items():
                     m[f"rollout_s/{name}"] = (secs - family_s0.get(name, 0.0)) / args.log_every
                 family_s0 = dict(family_timer.times)
-            state, stage = maybe_advance_curriculum(state, m, args.curriculum_threshold)
+            state, stage = maybe_advance_curriculum(state, m, args.curriculum_threshold,
+                                                    learner.pmean)
             if stage is not None:
                 m["curriculum_stage"] = stage
             t0 = time.time()
             stage_s0 = dict(learner.timer.times)
-            mlog.log(u + 1, m)
-        if ckpt is not None and (u + 1) % args.ckpt_every == 0:
+            if mlog is not None:
+                mlog.log(u + 1, m)
+        if save and (u + 1) % args.ckpt_every == 0:
             ckpt.save(u + 1, state)
 
     if prof_ctx is not None:
         prof_ctx.__exit__(None, None, None)
-    if ckpt is not None:
+    if save:
         ckpt.save(args.updates, state)
         ckpt.wait()
         ckpt.close()
-    mlog.close()
+    if mlog is not None:
+        mlog.close()
     return state
 
 

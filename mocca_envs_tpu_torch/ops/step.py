@@ -349,19 +349,32 @@ def info_from_kernel(model: RobotModel, config: EngineConfig,
     )
 
 
+def unit_route(device: torch.device, kernel_covers: bool, hf_shape=None) -> str:
+    """Where a launch unit runs: ``"plain"`` on CPU tensors, for a model
+    the kernel does not cover (``engine.supports``) and for a heightfield
+    grid (``hf_shape``, its static (H, W)) smaller than the ``HF_PATCH``
+    window, as the JAX package decides at trace time; else ``"kernel"``,
+    the engine kernel of the scene's variant (K1f over a grid)."""
+    if device.type == "cpu" or not kernel_covers:
+        return "plain"
+    if hf_shape is not None and min(hf_shape) < HF_PATCH:
+        return "plain"
+    return "kernel"
+
+
 def _make_llc_unit(model: RobotModel, config: EngineConfig, substep,
                    constraints: ConstraintSpec = ConstraintSpec(),
                    extra_damping=None, pd_mode: bool = False):
     """One launch unit (see :func:`make_plain_llc`). Stones and mesh faces
     are culled to their windows first, and a heightfield grid larger than
     ``HF_PATCH`` is cut to the window around the root (a grid that is one
-    already passes through), on both paths. CPU tensors then take the plain path, on any grid; any
-    other device launches the engine kernel of the scene's, the actuation's
-    and the constraints' variant, which raises where it cannot run, a grid
-    smaller than the window included. A model the kernel does not cover
-    (``engine.supports``) takes the plain path on every device. The kernel's
-    scene inputs (stones; bars and grabs; the heightfield window; the faces)
-    are packed per unit."""
+    already passes through), on both paths. :func:`unit_route` then picks
+    the path: the plain one on CPU tensors, for a model the kernel does
+    not cover and for a grid smaller than the window, on any device; else
+    the engine kernel of the scene's, the actuation's and the constraints'
+    variant, which raises where it cannot run. The kernel's scene inputs
+    (stones; bars and grabs; the heightfield window; the faces) are packed
+    per unit."""
     from mocca_envs_tpu_torch.ops.cuda import engine as cuda_engine
 
     plain_unit = make_plain_llc(model, config, substep, pd_mode)
@@ -371,16 +384,12 @@ def _make_llc_unit(model: RobotModel, config: EngineConfig, substep,
     def llc_unit(q, qd, tau_or_targets, scene: Scene, grab_active=None, grab_target=None):
         scene = cull_stones(scene, q[:, 0:2], config.stone_window)
         scene = cull_tris(scene, q[:, 0:2], config.tri_window)
-        hf_patch = 0
-        if scene.has_hf and min(scene.hf_height.shape[1:]) >= HF_PATCH:
+        hf_shape = tuple(scene.hf_height.shape[1:]) if scene.has_hf else None
+        if hf_shape is not None and min(hf_shape) >= HF_PATCH:
             scene = extract_patch(scene, q[:, 0:2], HF_PATCH)
-            hf_patch = HF_PATCH
-        if q.device.type == "cpu" or not kernel_covers:
+        if unit_route(q.device, kernel_covers, hf_shape) == "plain":
             return plain_unit(q, qd, tau_or_targets, scene, grab_active, grab_target)
-        if scene.has_hf and not hf_patch:
-            raise NotImplementedError(
-                f"K1f samples a {HF_PATCH}×{HF_PATCH} heightfield window; this grid is "
-                f"{tuple(scene.hf_height.shape[1:])}, smaller than the window")
+        hf_patch = HF_PATCH if hf_shape is not None else 0
         key = (scene.stone_pos.shape[1] if scene.has_stones else 0,
                scene.bar_a.shape[1] if scene.has_bars else 0, hf_patch,
                scene.tri_a.shape[1] if scene.has_tris else 0)

@@ -98,9 +98,9 @@ def test_walker_control_step_over_terrain_matches_jax():
 
 
 def test_small_grid_runs_the_plain_path_on_the_cpu():
-    """A grid smaller than the window takes no window; on the CPU the plain
-    path samples it whole (on the card it raises: K1f has no instance for
-    it, chip_smoke.py checks that)."""
+    """A grid smaller than the window takes no window; the plain path
+    samples it whole (on the card too: ``unit_route``, below, and
+    chip_smoke.py's ``small_grid_plain``)."""
     B = 4
     tm = twalker.make_model()
     q, qd, heights = walker_over_terrain(B, 5)
@@ -115,3 +115,23 @@ def test_small_grid_runs_the_plain_path_on_the_cpu():
     step = tcontrol(tm, TConfig())
     tq, tqd, info = step(T(q), T(qd), torch.zeros(B, 21), scene)
     assert bool(torch.isfinite(tq).all()) and bool((info.normal_impulse > 0).any())
+
+
+def test_unit_route_sends_a_small_grid_to_the_plain_path():
+    """On the card a grid smaller than the 16 × 16 window takes the plain
+    path, as the JAX package decides at trace time; the family's 65² grid
+    takes K1f; CPU tensors and a model the kernel does not cover take the
+    plain path on any grid."""
+    from mocca_envs_tpu_torch.ops.cuda import engine
+    from mocca_envs_tpu_torch.ops.step import unit_route
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert unit_route(cuda, True, (12, 12)) == "plain"
+    assert unit_route(cuda, True, (tscene.HF_PATCH - 1, 65)) == "plain"
+    assert unit_route(cuda, True, (65, 65)) == "kernel"
+    assert unit_route(cuda, True, (tscene.HF_PATCH,) * 2) == "kernel"
+    assert unit_route(cuda, True) == "kernel"
+    assert unit_route(cpu, True, (65, 65)) == "plain"
+    assert unit_route(cuda, False, (65, 65)) == "plain"
+    kernel = engine.make_kernel(twalker.make_model(), TConfig(), hf_patch=tscene.HF_PATCH)
+    assert kernel.variant == "k1f" and kernel.inputs == ("hf",)

@@ -11,9 +11,13 @@ seams, and a toy task with a known optimum.
   --split-impulse`` ends with parameters, optimizer state, env state and
   observations bit-identical to an uninterrupted run;
 - ``restore_compat`` resumes across a ``--normalize-reward`` flip both ways;
-- ``--multihost`` and a mesh raise, naming ROADMAP item 13 (the mixed
-  suite, a comma-separated ``--env``, is tested in test_torch_mixed.py); no
-  device means the card, which a CPU-only box does not have;
+- ``--multihost --num-processes 1`` trains (a single process joins no
+  group) and a learner builds on a mesh of one, while a join with neither a
+  coordinator nor a launcher raises (the mesh path itself is tested in
+  test_torch_parallel.py and test_torch_multihost_spawn.py, the mixed
+  suite, a comma-separated ``--env``, in test_torch_mixed.py); no device
+  means the card, which a CPU-only box does not have; the curriculum stage
+  reported under a mesh is the learner's mean over the ranks;
 - PPO on a one-step toy task (reward −(a − 0.6)²) moves the policy mean
   from 0 to within 0.15 of 0.6 in 15 seeded updates;
 - the checkpoint keeps the newest three and refuses a template of another
@@ -223,11 +227,57 @@ def test_checkpoint_keeps_three_and_refuses_another_structure(tmp_path):
 
 
 # -------------------------------------------------------------- the CLI
-def test_cli_refuses_what_it_has_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train.main(["--multihost"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ppo.PPOLearner(_port_toy(), mesh=object(), num_envs=8)
+def test_cli_refuses_what_it_has_not_ported(tmp_path, monkeypatch):
+    """The multi-device paths run (``--multihost`` with one process, a
+    learner on a mesh of one); what is left to refuse is a join that names
+    no coordinator and runs under no launcher."""
+    import torch.distributed as dist
+
+    from mocca_envs_tpu_torch.parallel import multihost
+    from mocca_envs_tpu_torch.parallel.mesh import env_mesh
+
+    for k in multihost.LAUNCHER_ENV:
+        monkeypatch.delenv(k, raising=False)
+    state = train.main(["--multihost", "--num-processes", "1", "--env", "Walker3DCustomEnv",
+                        "--num-envs", "4", "--horizon", "2", "--updates", "1",
+                        "--minibatches", "1", "--epochs", "1", "--log-every", "1", "--metrics",
+                        str(tmp_path / "m.jsonl")], device="cpu")
+    assert state.update_count == 1 and (tmp_path / "m.jsonl").read_text().count("\n") == 1
+    started = not dist.is_initialized()
+    try:
+        learner = ppo.PPOLearner(_port_toy(), ppo.PPOConfig(horizon=2, hidden=(4,)),
+                                 mesh=env_mesh(device="cpu"), num_envs=8)
+        assert (learner.world, learner.rank, learner.local_envs) == (1, 0, 8)
+        learner.train_step(learner.init(seed=0))
+    finally:
+        if started:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        with pytest.raises(ValueError, match="coordinator address or a launcher"):
+            train.main(["--multihost", "--num-processes", "2"], device="cpu")
+
+
+@dataclasses.dataclass
+class _EnvOnly:
+    env_state: object
+
+
+@pytest.mark.parametrize("threshold", [None, 0.0])
+def test_curriculum_stage_is_the_whole_batchs(threshold):
+    """Under a mesh the reported stage goes through the learner's ``pmean``:
+    here a stand-in for a group of two whose other rank's mean stage is 5."""
+    import mocca_envs_tpu_torch as port
+    from mocca_envs_tpu_torch.core import rng as trng
+
+    env = port.make("Walker3DStepperEnv", device="cpu")
+    es = env.init(trng.generator(0, "cpu"), 4)
+    es = dataclasses.replace(es, task=dataclasses.replace(es.task, stage=torch.arange(4.0)))
+    state = _EnvOnly(env_state=es)
+    new, stage = train.maybe_advance_curriculum(state, {"env/steps_reached": 1.0}, threshold,
+                                                lambda x: (x + 5.0) / 2)
+    shard = 1.5 if threshold is None else 2.5
+    assert stage == (shard + 5.0) / 2
+    assert torch.equal(new.env_state.task.stage, torch.arange(4.0) + (threshold is not None))
 
 
 def test_no_device_means_the_card():
