@@ -29,7 +29,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    one llc frame, the torque planar walkers, the walker's three A-form
    keys, its scalar friction, factor-every-substep and cold-start keys,
    the two 2 × 8 keys, K1h-b at two llc frames and Cassie at five (K1b's
-   at two is the named ``k1b_..._llc2``); the all-off key's matrix-free
+   at two is the named ``k1b_..._llc2``); both designs of every scene
+   combination of phase ``combinations``; the all-off key's matrix-free
    form and the A-form twins of :data:`MATFREE_OPTIONS` and of the cold
    start) and the raycast kernel
    K2 from
@@ -166,9 +167,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    257² grid (:func:`raycast_designs_agree`);
 3. the main paths through ``BatchedEnv(make(id), 4096).step`` with uniform
    random actions, the launch counts set to 0 just before each and read
-   just after: ``Walker3DCustomEnv-v0`` for 600 control steps (K1a, by
+   just after: ``Walker3DCustomEnv-v0`` for 300 control steps (K1a, by
    the warp-per-env instance alone, as the child),
-   ``Walker3DStepperEnv-v0`` for 600 (K1c, by its warp-per-env instance
+   ``Walker3DStepperEnv-v0`` for 300 (K1c, by its warp-per-env instance
    alone), ``Walker3DPDCustomEnv-v0`` for
    200 and ``Child3DPDCustomEnv-v0`` for 100 (K1b, each by its warp-per-env
    instance alone), ``Child3DCustomEnv-v0`` for 100 (K1a), ``CassieEnv-v0`` for
@@ -178,9 +179,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    alone), ``Monkey3DStepperEnv-v0`` for 300
    (K1d, by its warp-per-env instance alone, grab signals included in the
    random actions),
-   ``Walker3DTerrainEnv-v0`` for 600 and ``Walker3DTerrainLidarEnv-v0`` for
+   ``Walker3DTerrainEnv-v0`` for 300 and ``Walker3DTerrainLidarEnv-v0`` for
    200 (K1f, each by its warp-per-env instance alone),
-   ``Walker3DStairsEnv-v0`` for 600 (K1g, by its warp-per-env instance
+   ``Walker3DStairsEnv-v0`` for 300 (K1g, by its warp-per-env instance
    alone),
    ``Walker3DCustomEnv-v0`` made with ``EngineConfig(split_impulse=True)``
    for 200 (K1h-si, by its warp-per-env instance alone),
@@ -204,11 +205,30 @@ Phases, in order; any failure exits non-zero before the result lines:
    K2's own entry point
    ``make_raycaster`` for 10 calls of 32,768 rays with the origins moved
    between calls (10 ``k2`` launches of the cooperative march, no other).
-   PD mode over stones must raise on the card before any launch; a
-   terrain env over 12 × 12 grids, smaller than the K1f window, must step
+   A terrain env over 12 × 12 grids, smaller than the K1f window, must step
    on the card with no K1 launch (the plain path) and agree with the CPU
    within :data:`TOL` in the per-env medians after one control step
-   (:func:`small_grid_plain`). The path's kernel
+   (:func:`small_grid_plain`). Then phase ``combinations``
+   (:func:`combinations`): every scene combination the TPU kernel composes
+   that no family ships (:data:`COMBINATIONS`, keys a–m: PD mode over mesh
+   faces, a heightfield, stones, the monkey's bars and grabs; Walker2D's
+   planar lock over stones, faces, a heightfield; extra damping in torque
+   mode; stones beside faces, a heightfield beside stones or faces or both,
+   stones beside the monkey's bars; and key a with split impulse), each by
+   the instance ``make_kernel`` picks (the generic warp-per-env one of its
+   key; the damped torque key K1a's named one) on its states (tilted boxes
+   and tiles seated under the feet, where an earlier geometry often wins on
+   a slope or a tilted face beside a later, shallower candidate), against
+   its plain version at its gate (the mesh keys' tail by K1g's riser rule,
+   the monkey's at the p99), against its thread-per-env twin at
+   :data:`TOL_TWIN` (a p99 tail grounded by :func:`rounding_floor`),
+   through ``make_control_step`` for :data:`COMBINATION_STEPS` control
+   steps (one launch of the instance a step) and timed beside its bound;
+   then ``Walker3DStairsEnv-v0`` made with ``pd_control=True`` for 200
+   steps, and with split impulse for 100, ``Walker2DCustomEnv-v0`` over the
+   staircase (a ``scene_builder``) for 100 and ``Walker3DCustomEnv-v0`` over
+   the staircase and six tilted boxes for 100 (:data:`COMBINATION_DRIVES`),
+   each one launch a step by its key's instance. The path's kernel
    must launch exactly once per step and no other kernel at all, the state
    stay finite and auto-reset fire; resets forced by a non-finite state are
    counted and printed; of the 2D families the median env must end in its
@@ -417,11 +437,11 @@ FRAMES = {
 # and Cassie's and Cassie2D's K1e, K1h-e and K1h-e2d (the thread-per-env one
 # ~35–45 ms a call at 16,384)
 SWEEP = {4096: 20, 16384: 10, 65536: 5}
-CASSIE_SWEEP = {4096: 10, 16384: 5}
+CASSIE_SWEEP = {4096: 5, 16384: 3}
 # K1b, K1f, K1c, K1g, K1h-g, K1h-f, K1h-c, K1h-b, K1h-si, K1d, K1h-d, the
 # planar K1e, the planar K1h-e, the three A-forms, scalar friction and a
 # factor every substep
-WALKER_SWEEP = {4096: 20, 16384: 10}
+WALKER_SWEEP = {4096: 10, 16384: 5}
 # ptxas's registers and the dynamic shared memory per block (bytes) of each
 # warp-per-env instance, and the envs each must keep resident per SM: the
 # walker's keys 4 blocks of 4 envs (K1f's, K1c's, K1g's and K1h-f's
@@ -456,6 +476,21 @@ WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4_scalar": (64, 197008, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_refactor": (96, 197008, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_cold": (64, 197008, 16),
+    # the generic instances of the scene combinations (COMBINATIONS), each
+    # one block per SM at the host's shape, as PR 27's builds reported them
+    "k1w_nl22_ns14_nlim21_sub4_it4_llc1_kt16_17x1": (91, 224172, 17),
+    "k1w_nl22_ns14_nlim21_sub4_it4_llc1_kt16_si_17x1": (91, 228932, 17),
+    "k1w_nl22_ns14_nlim21_sub4_it4_llc1_hf16_18x1": (91, 226048, 18),
+    "k1w_nl22_ns14_nlim21_sub4_it4_k6_llc1_18x1": (91, 230296, 18),
+    "k1w_nl11_ns5_nlim8_sub4_it4_llc1_kb16_ng2_32x1": (63, 160992, 32),
+    "k1w_nl7_ns5_nlim6_sub4_it4_k6_planar_32x1": (63, 93584, 32),
+    "k1w_nl7_ns5_nlim6_sub4_it4_planar_kt16_32x1": (61, 105616, 32),
+    "k1w_nl7_ns5_nlim6_sub4_it4_planar_hf16_32x1": (59, 86160, 32),
+    "k1w_nl22_ns14_nlim21_sub4_it4_k6_kt16_17x1": (91, 227232, 17),
+    "k1w_nl22_ns14_nlim21_sub4_it4_k6_hf16_18x1": (93, 229216, 18),
+    "k1w_nl22_ns14_nlim21_sub4_it4_hf16_kt16_17x1": (91, 223152, 17),
+    "k1w_nl11_ns5_nlim8_sub4_it4_k6_kb16_ng2_32x1": (63, 168160, 32),
+    "k1w_nl22_ns14_nlim21_sub4_it4_k6_hf16_kt16_17x1": (94, 227640, 17),
 }
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
@@ -622,12 +657,15 @@ def monkey_states(model, rng, batch=B, left: float = 0.5, right: float = 1.0,
             pack_bars(scene).numpy(), grabs.numpy())
 
 
-def terrain_states(model, rng, batch=B, border: float = 0.1):
+def terrain_states(model, rng, batch=B, border: float = 0.1, base=near_contact_states,
+                   planar: bool = False):
     """Walker states over the terrain families' grids: each slot over one
     grid of the bank, the root anywhere on it and in a ``border`` share of
     the slots within 0.5 m of an edge, the lowest foot sphere placed within
     ±2 cm of the surface under it (in contact or within the margin), on
-    whatever slope the grid has there; uniform random torques. Returns numpy
+    whatever slope the grid has there; uniform random torques. ``base``
+    makes the states before they are moved (``planar``: a 2D walker's,
+    whose root keeps its small drift out of the plane y = 0). Returns numpy
     ``(q, qd, tau, ground_z, friction, hf (batch, 16·16 + 3))``: the window
     around the root, packed as K1f reads it."""
     from mocca_envs_tpu_torch.ops.collide import sphere_centers
@@ -640,11 +678,14 @@ def terrain_states(model, rng, batch=B, border: float = 0.1):
     model = model.to("cpu")
     bank = terrain_bank()
     scene = with_heightfield(torch.as_tensor(bank[rng.integers(0, len(bank), batch)]))
-    q, qd, tau, _, fric = near_contact_states(model, rng, batch)
+    q, qd, tau, _, fric = base(model, rng, batch)
+    drift = q[:, 1].copy()
     q[:, 0:2] = rng.uniform(-9.5, 9.5, (batch, 2))
     edge = np.flatnonzero(rng.random(batch) < border)
     q[edge, rng.integers(0, 2, len(edge))] = rng.choice([-1.0, 1.0], len(edge)) * rng.uniform(
         9.5, 10.0, len(edge))
+    if planar:
+        q[:, 1] = drift
     feet = np.flatnonzero(model.sph_foot.sum(1).numpy() > 0)
     centers = sphere_centers(model, forward_kinematics(
         model, torch.as_tensor(q), torch.zeros(batch, model.nv)))[:, feet]
@@ -655,13 +696,14 @@ def terrain_states(model, rng, batch=B, border: float = 0.1):
     return (q, qd, tau, window.ground_z.numpy(), fric, pack_hf(window).numpy())
 
 
-def stairs_states(model, rng, batch=B):
+def stairs_states(model, rng, batch=B, base=near_contact_states, y_spread: float = 1.5):
     """Walker states on the stairs family's staircase (6 steps of 0.12 m by
     0.35 m from x = 0.6 m, 4 m wide), a third each with the feet over the
     treads (the root anywhere from 0.3 to 2.9 m), with the lowest foot
     sphere's center within ±3 cm of a nosing edge in x, and with the
     foremost foot sphere against a riser (its center one radius in front of
-    the riser face, give or take 2 cm); the root's y within ±1.5 m. The body
+    the riser face, give or take 2 cm); the root's y within ±``y_spread`` m
+    (``base`` makes the states before they are moved). The body
     is then lowered until the lowest foot sphere is within ±2 cm of the
     support surface under it, which keeps every sphere out of the steps'
     solid. Uniform random torques. Returns numpy ``(q, qd, tau, ground_z,
@@ -676,7 +718,7 @@ def stairs_states(model, rng, batch=B):
     rise, run, start = 0.12, 0.35, 0.6
     scene = scene_mod.broadcast_scene(scene_mod.stairs_trimesh(
         n_steps=6, rise=rise, run=run, width=4.0, start_x=start), batch)
-    q, qd, tau, _, fric = near_contact_states(model, rng, batch)
+    q, qd, tau, _, fric = base(model, rng, batch)
     feet = np.flatnonzero(model.sph_foot.sum(1).numpy() > 0)
     radius = model.sph_radius[feet].numpy()
 
@@ -695,7 +737,7 @@ def stairs_states(model, rng, batch=B):
         [rng.uniform(0.3, 2.9, batch), x0 + rng.uniform(-0.03, 0.03, batch) - c[rows, low, 0]],
         x0 - radius[front] + rng.uniform(-0.02, 0.02, batch) - c[rows, front, 0])
     q[:, 0] = x_root
-    q[:, 1] = rng.uniform(-1.5, 1.5, batch)
+    q[:, 1] = rng.uniform(-y_spread, y_spread, batch)
     c = foot_centers()
     support = np.stack([scene_mod.tri_surface_z(scene, torch.as_tensor(c[:, i, :2])).numpy()
                         for i in range(len(feet))], axis=1)
@@ -703,6 +745,239 @@ def stairs_states(model, rng, batch=B):
     q[:, 2] -= clearance + rng.uniform(-0.02, 0.02, batch)
     culled = scene_mod.cull_tris(scene, torch.as_tensor(q[:, 0:2]), 16)
     return (q, qd, tau, culled.ground_z.numpy(), fric, pack_tris(culled).numpy())
+
+
+def _sphere_depths(model, q, scene):
+    """Every collision sphere of each env against ``scene`` at ``q`` (the
+    plain narrowphase, numpy q): centers ``(B, ns, 3)``, radii ``(ns,)``,
+    depths ``(B, ns)``, and each env's two deepest spheres ``(B, 2)``."""
+    from mocca_envs_tpu_torch.ops.collide import collide, sphere_centers
+    from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics
+
+    q = torch.as_tensor(q)
+    fd = forward_kinematics(model, q, torch.zeros(q.shape[0], model.nv))
+    depth = collide(model, fd, scene, 0.02).depth
+    top = torch.argsort(depth, dim=1, descending=True, stable=True)[:, :2]
+    return (sphere_centers(model, fd).numpy(), model.sph_radius.numpy(), depth.numpy(),
+            top.numpy())
+
+
+def _tilted(rng, batch: int, lo: float, hi: float):
+    """A tilt by U(lo, hi) rad about a random horizontal axis a: its unit
+    quaternion ``(B, 4)``, the tilted up-axis n ``(B, 3)``, and a and n × a,
+    which span the tilted plane ``(B, 3)`` each."""
+    phi, th = rng.uniform(0.0, 2 * np.pi, batch), rng.uniform(lo, hi, batch)
+    a = np.stack([np.cos(phi), np.sin(phi), np.zeros(batch)], axis=1)
+    quat = np.concatenate([np.cos(th / 2)[:, None], a * np.sin(th / 2)[:, None]], axis=1)
+    n = np.stack([a[:, 1] * np.sin(th), -a[:, 0] * np.sin(th), np.cos(th)], axis=1)
+    return quat, n, a, np.cross(n, a)
+
+
+def _features(rng, model, q, scene, count: int, half):
+    """Where ``count`` tilted planar features (a stone's top face, a tile)
+    of half widths ``half (B, count, 2)`` lie for each env: feature 0 tilted
+    0.1–0.4 rad under the env's deepest sphere, whose contact so far it
+    beats by 2–15 mm in half of the envs and misses by as much in the other
+    half (an earlier winner, often on a slope or a tilted face, beside an
+    active, shallower candidate), held within −1.5 to +3 cm; feature 1
+    steep (0.7–1.2 rad: a side face against the foot) under the second
+    deepest sphere, within −1 to +1.5 cm; the others 5–40 cm under the
+    deepest sphere, tilted up to 0.2 rad, out of reach. Each of the first
+    two is seated: moved along its normal until the deepest sphere over its
+    face sits at that depth, so that no sphere reaches through it. Returns
+    the face centers ``(B, count, 3)``, the quaternions ``(B, count, 4)``
+    and the normals and in-plane axes ``(B, count, 3)`` each."""
+    batch = q.shape[0]
+    centers, radii, depths, top = _sphere_depths(model, q, scene)
+    rows = np.arange(batch)
+    mid, quat = np.zeros((batch, count, 3)), np.zeros((batch, count, 4))
+    n, u, v = (np.zeros((batch, count, 3)) for _ in range(3))
+    step = rng.uniform(0.002, 0.015, batch) * np.where(rng.random(batch) < 0.5, 1.0, -1.0)
+    for k in range(count):
+        s = top[:, 1 if k == 1 else 0]
+        if k == 0:
+            tilt, depth = (0.1, 0.4), np.clip(depths[rows, s] + step, -0.015, 0.03)
+        elif k == 1:
+            tilt, depth = (0.7, 1.2), rng.uniform(-0.01, 0.015, batch)
+        else:
+            tilt, depth = (0.0, 0.2), -rng.uniform(0.05, 0.4, batch)
+        quat[:, k], n[:, k], u[:, k], v[:, k] = _tilted(rng, batch, *tilt)
+        foot = centers[rows, s]
+        if k > 1:
+            foot = foot + rng.uniform(-0.5, 0.5, (batch, 3)) * [1.0, 1.0, 0.0]
+        mid[:, k] = foot - n[:, k] * (radii[s] - depth)[:, None]
+        if k < 2:
+            rel = centers - mid[:, k, None]
+            over = ((np.abs((rel * u[:, k, None]).sum(2)) <= half[:, k, None, 0] + radii)
+                    & (np.abs((rel * v[:, k, None]).sum(2)) <= half[:, k, None, 1] + radii))
+            reach = np.where(over, radii - (rel * n[:, k, None]).sum(2), -np.inf).max(axis=1)
+            mid[:, k] -= n[:, k] * np.maximum(reach - depth, 0.0)[:, None]
+    return mid, quat, n, u, v
+
+
+def tilted_boxes(model, q, scene, rng, count: int = 6):
+    """``scene`` with ``count`` stone boxes per env beside what it has, their
+    top faces placed by :func:`_features` (0.12–0.24 m wide, 0.1 m high),
+    the last inactive in half of the envs. The plane stays."""
+    import dataclasses as dc
+
+    batch = q.shape[0]
+    half = np.empty((batch, count, 3))
+    half[..., :2] = rng.uniform(0.06, 0.12, (batch, count, 2))
+    half[..., 2] = 0.05
+    top, quat, n, _, _ = _features(rng, model, q, scene, count, half[..., :2])
+    active = np.ones((batch, count))
+    active[:, -1] = rng.random(batch) < 0.5
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32)  # noqa: E731
+    return dc.replace(scene, stone_pos=f(top - n * half[..., 2:]), stone_quat=f(quat),
+                      stone_half=f(half), stone_active=f(active))
+
+
+def tilted_tiles(model, q, scene, rng, quads: int = 8):
+    """``scene`` with ``2·quads`` mesh faces per env beside what it has:
+    square tiles 0.2 m wide, each two triangles, placed by :func:`_features`
+    with the sphere's foot point off the tile's diagonal, the last inactive
+    in half of the envs."""
+    import dataclasses as dc
+
+    batch = q.shape[0]
+    mid, _, _, u, v = _features(rng, model, q, scene, quads, np.full((batch, quads, 2), 0.1))
+    mid = mid - 0.03 * u + 0.05 * v
+    corners = [mid + 0.1 * (i * u + j * v) for i, j in ((-1, -1), (1, -1), (1, 1), (-1, 1))]
+    tris = np.stack([np.stack([corners[0], corners[1], corners[2]], axis=2),
+                     np.stack([corners[0], corners[2], corners[3]], axis=2)],
+                    axis=2).reshape(batch, 2 * quads, 3, 3)
+    active = np.ones((batch, 2 * quads))
+    active[:, -2:] = (rng.random(batch) < 0.5)[:, None]
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32)  # noqa: E731
+    return dc.replace(scene, tri_a=f(tris[:, :, 0]), tri_b=f(tris[:, :, 1]),
+                      tri_c=f(tris[:, :, 2]), tri_active=f(active))
+
+
+def pd_gains(model):
+    """The PD walkers' gains on ``model``: kp = power_coef on the actuated
+    joints, the derivative gain kp / 20 as extra damping
+    (tasks/walker_custom.py)."""
+    kp = model.power_coef * (model.actuated > 0).to(model.power_coef.dtype)
+    return model.replace(kp=kp), kp / 20.0
+
+
+# The scene combinations the TPU kernel composes that no shipped family runs
+# (make_kernel's K1x): label → (model, stones, bars, heightfield window,
+# mesh faces, PD mode, equality rows, extra damping in torque mode, the
+# gate against the plain version). The mesh keys' tails follow K1g's riser
+# rule (vertical_contacts)
+TOL_EQ_HF = {k: max(TOL_EQ[k], TOL_HF[k]) for k in TOL}
+COMBINATIONS = {
+    "a_mesh_pd": ("walker", 0, 0, 0, 16, True, False, False, TOL),
+    "b_hf_pd": ("walker", 0, 0, 16, 0, True, False, False, TOL_HF),
+    "c_stones_pd": ("walker", 6, 0, 0, 0, True, False, False, TOL),
+    "d_bars_pd": ("monkey", 0, 16, 0, 0, True, True, False, TOL_GRAB),
+    "e_planar_stones": ("walker2d", 6, 0, 0, 0, False, True, False, TOL_EQ),
+    "f_planar_mesh": ("walker2d", 0, 0, 0, 16, False, True, False, TOL_EQ),
+    "g_planar_hf": ("walker2d", 0, 0, 16, 0, False, True, False, TOL_EQ_HF),
+    "h_damped_torque": ("walker", 0, 0, 0, 0, False, False, True, TOL),
+    "i_stones_mesh": ("walker", 6, 0, 0, 16, False, False, False, TOL),
+    "j_hf_stones": ("walker", 6, 0, 16, 0, False, False, False, TOL_HF),
+    "k_hf_mesh": ("walker", 0, 0, 16, 16, False, False, False, TOL_HF),
+    "l_bars_stones": ("monkey", 6, 16, 0, 0, False, True, False, TOL_GRAB),
+    "m_hf_stones_mesh": ("walker", 6, 0, 16, 16, False, False, False, TOL_HF),
+}
+
+
+# the combinations' names in the kernels line
+COMBINATION_NAMES = {
+    "a_mesh_pd": "k1x_engine_step_pd_trimesh",
+    "b_hf_pd": "k1x_engine_step_pd_heightfield",
+    "c_stones_pd": "k1x_engine_step_pd_stones",
+    "d_bars_pd": "k1x_engine_step_pd_bars_grabs",
+    "e_planar_stones": "k1x_engine_frame_planar_stones",
+    "f_planar_mesh": "k1x_engine_frame_planar_trimesh",
+    "g_planar_hf": "k1x_engine_frame_planar_heightfield",
+    "h_damped_torque": "k1x_engine_frame_extra_damping",
+    "i_stones_mesh": "k1x_engine_frame_stones_trimesh",
+    "j_hf_stones": "k1x_engine_frame_heightfield_stones",
+    "k_hf_mesh": "k1x_engine_frame_heightfield_trimesh",
+    "l_bars_stones": "k1x_engine_frame_stones_bars_grabs",
+    "m_hf_stones_mesh": "k1x_engine_frame_heightfield_stones_trimesh",
+    "a_mesh_pd_si": "k1x_engine_step_pd_trimesh_split_impulse",
+}
+
+
+def combination_models(device):
+    """The models the combinations run on ``device``: the walker,
+    Walker2D and the monkey, each with its PD gains (:func:`pd_gains`)."""
+    from mocca_envs_tpu_torch.models import monkey, walker2d, walker3d
+
+    return {name: pd_gains(make(device)) for name, make in (
+        ("walker", walker3d.make_model), ("walker2d", walker2d.make_walker2d),
+        ("monkey", monkey.make_model))}
+
+
+def combination_kernel(engine, label: str, models, config, thread_per_env: bool = False):
+    """The kernel of one combination (:data:`COMBINATIONS`) on ``models``
+    (:func:`combination_models`), as ``make_kernel`` picks it for the entry
+    points, or its thread-per-env twin."""
+    from mocca_envs_tpu_torch.models import monkey, walker2d
+
+    name, stones, bars, hf, tris, pd, eq, damped, _ = COMBINATIONS[label]
+    model, damping = models[name]
+    spec = {"walker": None, "walker2d": walker2d.planar_spec(),
+            "monkey": monkey.constraints()}[name] if eq else None
+    kw = dict(num_stones=stones, num_bars=bars, hf_patch=hf, num_tris=tris, pd_mode=pd,
+              extra_damping=damping if pd or damped else None)
+    if spec is not None:
+        kw["constraints"] = spec
+    if thread_per_env:
+        return engine.K1x(model, config, thread_per_env=True, **kw)
+    return engine.make_kernel(model, config, **kw)
+
+
+def combination_states(kernel, label: str, rng, batch=B):
+    """Numpy inputs of one combination's unit, packed as the main path
+    packs them: the walker keys from the stairs' (mesh keys without a
+    heightfield), the terrain families' (heightfield keys), the stepper's
+    (stones in PD mode) or the near-contact states, with tilted boxes
+    (:func:`tilted_boxes`) and tiles (:func:`tilted_tiles`) added where the
+    key has a geometry those states lack; Walker2D's from its own states on
+    the plane, the stairs or the grids; the monkey's hanging from its bars
+    (with tilted boxes). PD keys take uniform random joint targets inside
+    the limits in the torque slot."""
+    from mocca_envs_tpu_torch.ops.cuda import engine
+
+    name, stones, bars, hf, tris, pd, _, _, _ = COMBINATIONS[label]
+    model = kernel.model.to("cpu")
+    base = near_contact_states
+    if name == "walker2d":
+        base = lambda m, r, b: planar_walker_states(m, 1.22, r, b)  # noqa: E731
+    grabs = (None, None)
+    if name == "monkey":
+        args = list(monkey_states(model, rng, batch))
+        have = {"bars": args[5]}
+        grabs = engine.unpack_grabs(torch.as_tensor(args[6]))
+    elif hf:
+        args = list(terrain_states(model, rng, batch, base=base, planar=name == "walker2d"))
+        have = {"hf": args[5]}
+    elif tris:
+        args = list(stairs_states(model, rng, batch, base=base,
+                                  y_spread=0.0 if name == "walker2d" else 1.5))
+        have = {"tris": args[5]}
+    elif stones and pd:
+        args = list(stepper_states(model, rng, stones, batch))
+        have = {"stones": args[5]}
+    else:
+        args, have = list(base(model, rng, batch)), {}
+    q = args[0]
+    scene = engine.make_scene(torch.as_tensor(args[3]), torch.as_tensor(args[4]),
+                              **{k: torch.as_tensor(v) for k, v in have.items()})
+    if stones and not scene.has_stones:
+        scene = tilted_boxes(model, q, scene, rng, stones)
+    if tris and not scene.has_tris:
+        scene = tilted_tiles(model, q, scene, rng, tris // 2)
+    if pd:
+        lo, hi = model.limit_lo.numpy(), model.limit_hi.numpy()
+        args[2] = rng.uniform(lo, hi, (batch, model.nj)).astype(np.float32)
+    return (*args[:5], *(x.numpy() for x in kernel.pack(scene, *grabs)))
 
 
 def raycast_inputs(rng, batch: int, n: int = 129):
@@ -750,21 +1025,25 @@ def vertical_contacts(kernel, args) -> torch.Tensor:
     the warm-started friction impulse keeps the previous substep's sign: two
     roundings of one state can part by O(1) within a call (the JAX package's
     oracle and kernel part the same way; its mesh gate is 97% of q within
-    1e-3)."""
-    from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics
+    1e-3). A PD unit runs its llc frames, the torque refreshed at each
+    frame's start, with the unit's equality rows and extra damping."""
+    from mocca_envs_tpu_torch.ops.kinematics import forward_kinematics, joint_q
     from mocca_envs_tpu_torch.ops.step import make_substep
 
     model, config = kernel.model, kernel.config
-    substep = make_substep(model, config)
+    substep = make_substep(model, config, kernel.constraints, extra_damping=kernel.extra_damping)
     q, qd, tau, gz, fric = args[:5]
-    scene, _, _ = kernel.unpack(gz, fric, *args[5:])
+    scene, grab_active, grab_target = kernel.unpack(gz, fric, *args[5:])
     lam = q.new_zeros(q.shape[0], substep.num_rows)
-    Minv0 = substep.minv_of(forward_kinematics(model, q, qd))
     vertical = torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
-    for _ in range(config.sim_substeps):
-        q, qd, info, lam = substep(q, qd, tau, scene, Minv_in=Minv0, lam_in=lam)
-        c = info.contacts
-        vertical |= ((c.normal[..., 2].abs() < 1e-3) & (c.active > 0.5)).any(dim=1)
+    for _ in range(config.llc_frames if kernel.pd_mode else 1):
+        tau_j = model.actuated * model.kp * (tau - joint_q(model, q)) if kernel.pd_mode else tau
+        Minv0 = substep.minv_of(forward_kinematics(model, q, qd))
+        for _ in range(config.sim_substeps):
+            q, qd, info, lam = substep(q, qd, tau_j, scene, grab_active, grab_target,
+                                       Minv_in=Minv0, lam_in=lam)
+            c = info.contacts
+            vertical |= ((c.normal[..., 2].abs() < 1e-3) & (c.active > 0.5)).any(dim=1)
     return vertical
 
 
@@ -984,7 +1263,8 @@ def build_report(engine, card, generic=()) -> None:
     ``generic`` warp-per-env instances: the envs per block the host picked,
     from the card's shared memory, which must be the sm_90 figures the pick
     assumes), and the shared memory its resident blocks and their reserves
-    hold beside the card's per SM."""
+    hold beside the card's per SM. A generic instance that :data:`WARP_BUILDS`
+    lists (the scene combinations') is held to its row as well."""
     logs = engine._Library.logs
     for symbol, want in FRAMES.items():
         got = ptxas(logs.get(symbol, ""))
@@ -1021,7 +1301,8 @@ def build_report(engine, card, generic=()) -> None:
                   f"{inst.blocks} block of {engine.warp_env_bytes(inst.key)} bytes each")
             check(occ["envs_per_block"] == inst.envs, f"{inst.symbol}: {occ}, the host picked "
                                                       f"{inst.envs} envs per block")
-            continue
+            if inst.symbol not in WARP_BUILDS:
+                continue
         want = WARP_BUILDS[inst.symbol]
         check((got["registers"], occ["smem_per_block"], occ["envs_per_sm"]) == want,
               f"{inst.symbol}: registers, shared memory per block, envs per SM "
@@ -1152,9 +1433,9 @@ def hang_check(engine, batch, spec, card, instance: str) -> None:
     check(falls < 0.01, f"hang: {falls:.2%} of the envs fell")
 
 
-def time_call(fn, args, n: int) -> float:
-    """Mean ms per call over ``n`` calls after two warm-up calls."""
-    for _ in range(2):
+def time_call(fn, args, n: int, warmup: int = 2) -> float:
+    """Mean ms per call over ``n`` calls after ``warmup`` warm-up calls."""
+    for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1167,15 +1448,18 @@ def time_call(fn, args, n: int) -> float:
 
 
 def time_and_bound(engine, card, kernel, args, twin=None) -> dict:
-    """Per-call times of the kernel (50 calls) and its plain version (3),
+    """Per-call times of the kernel (50 calls) and its plain version (one
+    call, warm from phase 2's comparisons: a correctness yardstick, 0.1–0.6
+    s a call),
     and the bound from the operations and bytes these inputs need. With a
     matrix-free ``twin`` (an A-form computes the same function) the bound
     takes the fewer of the two counts of operations on this activity; the
     kernel's own count is printed beside it."""
     ms = time_call(kernel.launch, args, 50)
-    plain_ms = time_call(kernel.plain, args, 3)
+    plain_ms = time_call(kernel.plain, args, 1, warmup=0)
     scene_inputs = args[5:]
-    stones = args[5] if kernel.num_stones else None
+    named = dict(zip(kernel.inputs, scene_inputs))
+    stones = named.get("stones")
     lim_act, con_act, walk = engine.k1_activity(kernel, *args)
     flops = engine.k1_flops(kernel, lim_act, con_act, *scene_inputs, tri_walk=walk)
     flops_all = engine.k1_flops(kernel, torch.ones_like(lim_act), torch.ones_like(con_act),
@@ -1192,14 +1476,15 @@ def time_and_bound(engine, card, kernel, args, twin=None) -> dict:
     if stones is not None:
         n_act = float((engine.unpack_stones(stones)["stone_active"] > 0.5).float().sum(1).mean())
         scene_activity = f", active stones {n_act:.3f} of {kernel.num_stones}"
-    if kernel.num_bars:
-        held = float((engine.unpack_grabs(args[6])[0] > 0.5).float().sum(1).mean())
-        scene_activity = f", attached grabs {held:.3f} of {kernel.constraints.num_grabs}"
+    if "grabs" in named:
+        held = float((engine.unpack_grabs(named["grabs"])[0] > 0.5).float().sum(1).mean())
+        scene_activity += f", attached grabs {held:.3f} of {kernel.constraints.num_grabs}"
     if kernel.num_tris:
-        n_act = float((engine.unpack_tris(args[5])["tri_active"] > 0.5).float().sum(1).mean())
+        n_act = float((engine.unpack_tris(named["tris"])["tri_active"] > 0.5).float().sum(1)
+                      .mean())
         per_pair = float(walk.double().sum()) / (walk.numel() * kernel.model.ns * n_act)
-        scene_activity = (f", active faces {n_act:.3f} of {kernel.num_tris}, walk "
-                          f"{per_pair:.2f} ops per sphere and face")
+        scene_activity += (f", active faces {n_act:.3f} of {kernel.num_tris}, walk "
+                           f"{per_pair:.2f} ops per sphere and face")
     print(f"[bound] {v} active per env and substep: limit rows "
           f"{float(lim_act.float().sum(2).mean()):.3f} of {lim_act.shape[2]}, contacts "
           f"{float(con_act.float().sum(2).mean()):.3f} of {con_act.shape[2]}{scene_activity}; "
@@ -1880,29 +2165,140 @@ def pipelines(engine, card, workdir: Path, symbols: dict) -> dict:
     return lines
 
 
-def combination_refused(engine, model, config) -> None:
-    """On the card a scene combination the kernel source does not compose
-    (PD mode over stones) must raise, naming it, before any launch."""
-    from mocca_envs_tpu_torch.ops.step import make_control_step
+COMBINATION_STEPS = 20   # control steps of each combination through make_control_step
+# the combinations the entry points reach through make(): label → (env id,
+# control steps, the keyword arguments make takes)
+COMBINATION_DRIVES = {
+    "a_mesh_pd": ("Walker3DStairsEnv-v0", 200, {"pd_control": True}),
+    "a_mesh_pd_si": ("Walker3DStairsEnv-v0", 100, {"pd_control": True}),
+    "f_planar_mesh": ("Walker2DCustomEnv-v0", 100, {"scene_builder": "stairs"}),
+    "i_stones_mesh": ("Walker3DCustomEnv-v0", 100, {"scene_builder": "stairs_and_boxes"}),
+}
+
+
+def stairs_scene(device, boxes: bool = False):
+    """The stairs family's staircase (6 steps of 0.12 m by 0.35 m from x =
+    0.6 m, 4 m wide) over the plane z = 0, for one env; with ``boxes``, six
+    tilted stone boxes beside it (0.3 × 0.2 × 0.1 m, tilted 0.15–0.3 rad):
+    two under the start, one behind it, one in front of the first riser,
+    one on each side of the flight."""
+    import dataclasses as dc
+
     from mocca_envs_tpu_torch.terrain import scene as scene_mod
 
-    step = make_control_step(model, config, pd_targets=lambda a: a)
-    n = 4
-    scene = scene_mod.with_stones(torch.zeros(n, 6, 3, device="cuda"),
-                                  torch.tensor([1.0, 0, 0, 0], device="cuda").expand(n, 6, 4),
-                                  torch.full((n, 6, 3), 0.1, device="cuda"))
-    q = torch.zeros(n, model.nq, device="cuda")
-    q[:, 2], q[:, 3] = 0.95, 1.0
+    scene = scene_mod.stairs_trimesh(n_steps=6, rise=0.12, run=0.35, width=4.0, start_x=0.6,
+                                     device=device)
+    if not boxes:
+        return scene
+    # x, y of the top face's center, heading of the tilt axis, tilt
+    spec = np.array([(0.15, 0.12, 0.0, 0.2), (0.15, -0.12, np.pi / 2, 0.2),
+                     (-0.25, 0.0, np.pi / 4, 0.25), (0.45, 0.0, 0.0, 0.15),
+                     (1.0, 2.25, 0.0, 0.3), (1.0, -2.25, np.pi / 2, 0.3)])
+    phi, th = spec[:, 2], spec[:, 3]
+    quat = np.stack([np.cos(th / 2), np.cos(phi) * np.sin(th / 2), np.sin(phi) * np.sin(th / 2),
+                     np.zeros(6)], axis=1)
+    n = np.stack([np.sin(phi) * np.sin(th), -np.cos(phi) * np.sin(th), np.cos(th)], axis=1)
+    half = np.tile([0.15, 0.1, 0.05], (6, 1))
+    top = np.stack([spec[:, 0], spec[:, 1], np.full(6, 0.03)], axis=1)
+    f = lambda x: torch.as_tensor(x[None], dtype=torch.float32, device=device)  # noqa: E731
+    return dc.replace(scene, stone_pos=f(top - n * 0.05), stone_quat=f(quat), stone_half=f(half),
+                      stone_active=torch.ones(1, 6, device=device))
+
+
+def combination_path(engine, kernel, args, steps: int = COMBINATION_STEPS) -> int:
+    """``steps`` control steps of ``kernel``'s key through the entry point
+    ``ops/step.py::make_control_step`` (PD targets or raw torques, the key's
+    equality rows and extra damping) over the scene of ``args``, the counts
+    set to 0 just before and read just after: one launch of the kernel's
+    instance per control step, under its name, and no other; the state
+    stays finite. Returns the launches."""
+    from mocca_envs_tpu_torch.ops.step import make_control_step
+
+    model, config = kernel.model, kernel.config
+    scene, grab_active, grab_target = kernel.unpack(args[3], args[4], *args[5:])
+    ident = lambda *a: a[-1]  # noqa: E731
+    step = make_control_step(model, config, kernel.constraints,
+                             actuation=None if kernel.pd_mode else ident,
+                             extra_damping=kernel.extra_damping,
+                             pd_targets=ident if kernel.pd_mode else None)
+    q, qd = args[0], args[1]
+    torch.cuda.synchronize()
     engine.LAUNCHES.clear()
-    try:
-        step(q, torch.zeros(n, model.nv, device="cuda"), torch.zeros(n, model.nj, device="cuda"),
-             scene)
-    except NotImplementedError as e:
-        check("no K1 instantiation" in str(e), f"PD over stones: unexpected message {e}")
-        check(sum(engine.LAUNCHES.values()) == 0, "PD over stones: launched before the refusal")
-        print(f"[main] PD mode over stones on the card raises before any launch: {e}")
-        return
-    check(False, "PD mode over stones ran on the card")
+    engine.INSTANCE_LAUNCHES.clear()
+    for _ in range(steps):
+        q, qd, _ = step(q, qd, args[2], scene, grab_active, grab_target)
+    torch.cuda.synchronize()
+    counts, by_instance = dict(engine.LAUNCHES), dict(engine.INSTANCE_LAUNCHES)
+    print(f"[main] {kernel.variant} through make_control_step: {steps} control steps × {B} envs, "
+          f"launches {counts}, by instance {by_instance}")
+    check(counts == {kernel.variant: steps} and by_instance == {kernel.name: steps},
+          f"{kernel.variant}: expected {steps} launches of {kernel.name}, got {counts} "
+          f"{by_instance}")
+    check(bool(torch.isfinite(q).all() and torch.isfinite(qd).all()),
+          f"{kernel.variant}: state not finite after {steps} control steps")
+    return steps
+
+
+def combinations(port, engine, card, combos: dict, rng) -> dict:
+    """Phase ``combinations``: each scene combination of :data:`COMBINATIONS`
+    (and key a with split impulse) at B = 4096 on its states
+    (:func:`combination_states`): against its plain version at its gate
+    (:func:`compare`; mesh keys' tail by the riser rule, the monkey's at the
+    p99 as K1d's), against its thread-per-env twin at :data:`TOL_TWIN`
+    (:func:`compare_twins`; where the tail is a p99, grounded by
+    :func:`rounding_floor`), through ``make_control_step`` for
+    :data:`COMBINATION_STEPS` control steps (:func:`combination_path`), and
+    timed beside its bound (:func:`time_and_bound`); then the entry paths of
+    :data:`COMBINATION_DRIVES` through ``make`` (:func:`drive`), one launch
+    per control step by the key's instance. ``combos``: label → (kernel,
+    twin). Returns label → {kernel, max_abs, times, launches}."""
+    cuda = lambda arrays: [torch.as_tensor(x, device="cuda") for x in arrays]  # noqa: E731
+    out = {}
+    for label, (kernel, twin) in combos.items():
+        base = label.removesuffix("_si")
+        name, _, _, _, _, _, _, _, tol = COMBINATIONS[base]
+        check(kernel.instance.source == engine.SOURCE_W and twin.instance.source == engine.SOURCE,
+              f"{label}: {kernel.name} is not the warp-per-env instance, or {twin.name} not its "
+              f"thread-per-env twin")
+        args = cuda(combination_states(kernel, base, rng))
+        tail, held = ("p99", None) if name == "monkey" else ("max", None)
+        if kernel.num_tris:
+            vertical = vertical_contacts(kernel, args)
+            tail, held = "p99", ~vertical
+            print(f"[compare] {label}: {int(vertical.sum())} of {B} envs touch a vertical face in "
+                  f"the plain run; the tail gates hold the others")
+        print(f"[compare] {label} ({kernel.variant}): {kernel.name}, {kernel.instance.envs} envs "
+              f"× {kernel.instance.blocks} block of {engine.warp_env_bytes(kernel.key)} bytes "
+              f"(generic: {kernel.instance.index is None}); twin {twin.name}")
+        max_abs = compare(kernel, args, label, tol, tail=tail, tail_envs=held)
+        if held is not None or name != "walker":
+            rounding_floor(kernel, twin, args, label,
+                           held if held is not None
+                           else torch.ones(B, dtype=torch.bool, device="cuda"))
+        max_abs = max(max_abs, compare_twins(kernel, twin, args, label, TOL_TWIN, tail, held))
+        launches = combination_path(engine, kernel, args)
+        times = time_and_bound(engine, card, kernel, args)
+        out[label] = {"kernel": kernel, "max_abs": max_abs, "times": times,
+                      "launches": launches}
+        del args
+    for label, (env_id, steps, make_kw) in COMBINATION_DRIVES.items():
+        kernel = combos[label][0]
+        kw = dict(make_kw)
+        if "scene_builder" in kw:
+            boxes = kw["scene_builder"] == "stairs_and_boxes"
+            kw["scene_builder"] = lambda device, b=boxes: stairs_scene(device, b)
+        if kernel.split:
+            kw["config"] = kernel.config
+        launches, state, _, _, step_ms, sums = drive(
+            port, engine, card, env_id, steps, kernel.variant, sums=("fallen",),
+            instance=kernel.name, **kw)
+        out[label]["launches"] = launches
+        made = sorted(make_kw) + (["split impulse"] if kernel.split else [])
+        print(f"[main] {env_id} made with {made}: {kernel.variant} by {kernel.name}, "
+              f"{step_ms:.3f} ms per control step, falls {sums['fallen']:.0f}, base height at "
+              f"the end median "
+              f"{float(state.q[:, 2].median()):.4f} m, at B={B} on {card}")
+    return out
 
 
 def device_busy(events) -> tuple:
@@ -2691,6 +3087,11 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    laps = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        laps.append(time.perf_counter())
+        print(f"[phase] {name}: {laps[-1] - laps[-2]:.1f} s on {card}")
 
     config = EngineConfig()
     split = lambda cfg: dataclasses.replace(cfg, split_impulse=True)  # noqa: E731
@@ -2756,9 +3157,19 @@ def main() -> int:
     aform_twins = {v: engine.K1a(model, EngineConfig(**OPTION_CONFIGS[v], matfree_pgs=False),
                                  thread_per_env=True) for v in (*MATFREE_OPTIONS, "k1a_cold")}
 
+    # every scene combination the TPU kernel composes that no family ships
+    # (COMBINATIONS, and key a with split impulse): its kernel as
+    # make_kernel picks it, and its thread-per-env twin
+    cmodels = combination_models("cuda")
+    combos = {label: tuple(combination_kernel(engine, label.removesuffix("_si"), cmodels,
+                                              split(config) if label.endswith("_si") else config,
+                                              thread_per_env=tpe) for tpe in (False, True))
+              for label in (*COMBINATIONS, "a_mesh_pd_si")}
+
     # ---- phase 1: build
     t0 = time.perf_counter()
-    extra = [*added.values(), *thread_twins.values(), matfree_off, *aform_twins.values()]
+    extra = [*added.values(), *thread_twins.values(), matfree_off, *aform_twins.values(),
+             *(k for pair in combos.values() for k in pair)]
     engine.build([k.instance for k in extra])
     generic = sum(k.instance.index is None for k in extra)
     print(f"[build] {len(engine.WARP_INSTANCES)} warp-per-env K1 instances, "
@@ -2771,6 +3182,8 @@ def main() -> int:
     build_report(engine, card, [k.instance for k in extra if k.instance.source == engine.SOURCE_W
                                 and k.instance.index is None])
     raycast_build_report(engine, card)
+
+    lap("1 (setup, build and reports)")
 
     # ---- phase 2: each kernel vs its plain version at the main paths' shapes
     cuda = lambda arrays: [torch.as_tensor(x, device="cuda") for x in arrays]  # noqa: E731
@@ -3051,12 +3464,14 @@ def main() -> int:
     max_abs["k2"] = max(max_abs["k2"], raycast_designs_agree(
         engine, card, ray_args, np.random.default_rng(SEED + 22)))
 
+    lap("2 (against the plain versions and the twins)")
+
     # ---- phase 3: the main paths through the user entry points
     launches, step_ms = {}, {}
     launches["k1a"], _, _, _, step_ms["k1a"], _ = drive(
-        port, engine, card, "Walker3DCustomEnv-v0", 600, "k1a", instance=kernels["k1a"][0].name)
+        port, engine, card, "Walker3DCustomEnv-v0", 300, "k1a", instance=kernels["k1a"][0].name)
     launches["k1c"], stepper_state, tr, stepper, step_ms["k1c"], _ = drive(
-        port, engine, card, "Walker3DStepperEnv-v0", 600, "k1c", instance=kernels["k1c"][0].name)
+        port, engine, card, "Walker3DStepperEnv-v0", 300, "k1c", instance=kernels["k1c"][0].name)
     print(f"[main] Walker3DStepperEnv-v0: steps_reached mean "
           f"{float(tr.metrics['steps_reached'].mean()):.3f} max "
           f"{float(tr.metrics['steps_reached'].max()):.0f}, stone hits on the last step "
@@ -3098,7 +3513,7 @@ def main() -> int:
           f"{sums['fell']:.0f}, bar hits {sums['bar_hit']:.0f}")
     hang_check(engine, monkey_batch, monkey.constraints(), card, kernels["k1d"][0].name)
     launches["k1f"], terrain_state, _, _, step_ms["k1f"], sums = drive(
-        port, engine, card, "Walker3DTerrainEnv-v0", 600, "k1f", sums=("fallen",),
+        port, engine, card, "Walker3DTerrainEnv-v0", 300, "k1f", sums=("fallen",),
         instance=kernels["k1f"][0].name)
     terrain_readings("Walker3DTerrainEnv-v0", terrain_state, sums)
     _, state, _, _, step_ms["k1f_lidar"], sums = drive(
@@ -3112,7 +3527,7 @@ def main() -> int:
         on_stairs.logical_or_((x >= 0.6) & (x <= 2.7) & (y.abs() <= 2.0))
 
     launches["k1g"], state, _, _, step_ms["k1g"], sums = drive(
-        port, engine, card, "Walker3DStairsEnv-v0", 600, "k1g", sums=("fallen",),
+        port, engine, card, "Walker3DStairsEnv-v0", 300, "k1g", sums=("fallen",),
         watch=over_a_tread, instance=kernels["k1g"][0].name)
     stairs_readings(state, sums, on_stairs)
     launches["k1h_si"], state, _, _, step_ms["k1h_si"], sums = drive(
@@ -3175,8 +3590,16 @@ def main() -> int:
               f"{step_ms[base]:.3f} at its family's shipped llc frames ({base}) in this call, at "
               f"B={B} on {card}")
     small_grid_plain(port, engine, card, model)
-    combination_refused(engine, model, config)
+
+    lap("3 (main paths)")
+
+    # ---- phase combinations: every scene combination the TPU kernel composes
+    t0 = time.perf_counter()
+    combined = combinations(port, engine, card, combos, np.random.default_rng(SEED + 27))
+    print(f"[combinations] phase done in {time.perf_counter() - t0:.1f} s on {card}")
     launches["k2"], ray_main = raycast_main_path(engine, card, rng)
+
+    lap("combinations")
 
     # ---- phase 3 (training): the PPO trainer's CLI with --split-impulse
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
@@ -3202,9 +3625,13 @@ def main() -> int:
         train_lines.setdefault(short, lines)
         launches[short] = 64
 
+    lap("3 (training)")
+
     # ---- phase 3 (pipelines): ALLSTEPS, brachiation and the mixed suite
     pipelines(engine, card, workdir, {v: kernels[v][0].name for v in
                                       ("k1a", "k1c", "k1d", "k1e_cassie")})
+
+    lap("3 (pipelines)")
 
     # ---- phase 4: per-call times at B = 4096
     times = {v: time_and_bound(engine, card, kernel, args, matfree.get(v))
@@ -3295,6 +3722,8 @@ def main() -> int:
               f"at B={B} on {card}")
     profile_update(card, workdir)
 
+    lap("4 (times, sweeps and traces)")
+
     # ---- phase surfaces: loaders, GymEnv, parity, viewer and debug on the card
     t0 = time.perf_counter()
     surfaced = surfaces(port, engine, card, kernels, config, workdir)
@@ -3343,7 +3772,16 @@ def main() -> int:
         "max_abs_err": max_abs[v],
         **times[v],
         "library_ms": None,
-    } for v in names]}))
+    } for v in names] + [{
+        "name": COMBINATION_NAMES[label],
+        "route": "cuda",
+        "source": SOURCE_W,
+        "replaces": REPLACES,
+        "launches": got["launches"],
+        "max_abs_err": got["max_abs"],
+        **got["times"],
+        "library_ms": None,
+    } for label, got in combined.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

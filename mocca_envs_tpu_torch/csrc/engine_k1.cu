@@ -284,11 +284,10 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>& e
   using L = Layout<NL, NS, NLIM, NP2P, PLANAR, KB, NGRAB>;
   constexpr int NJ = L::NJ, NV = L::NV, NR = L::NR, NE = L::NE;
   constexpr bool GENERAL_NORMALS = K > 0 || KB > 0 || PHF > 0 || KT > 0;
-  // the stone and bar branches set the plane's normal themselves
-  static_assert(PHF == 0 || (K == 0 && KB == 0), "no instance combines a heightfield with "
-                "stones or bars");
-  static_assert(KT == 0 || (K == 0 && KB == 0 && PHF == 0), "no instance combines a mesh with "
-                "stones, bars or a heightfield");
+  // the first geometry in the merge order (heightfield, stones, mesh, bars)
+  // resets each sphere's normal to the plane's, once
+  constexpr bool FIRST_K = PHF == 0, FIRST_KT = FIRST_K && K == 0;
+  constexpr bool FIRST_KB = FIRST_KT && KT == 0;
   const float dt = tab[L::DT];
 
   // ---------------- FK along the quaternion chain
@@ -331,7 +330,10 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>& e
   }
 
   // ---------------- spheres vs the plane, then vs the heightfield, the
-  // stones and the bars
+  // stones, the mesh faces and the bars, in ops/collide.py's order: the
+  // plane's normal +z is set once, by the first geometry before its test,
+  // and each geometry takes a sphere's contact only where strictly deeper
+  // than the one so far
   for (int s = 0; s < NS; ++s) {
     const int l = (int)tab[L::SPHLINK + s];
     const float rad = tab[L::SPHR + s];
@@ -401,8 +403,8 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>& e
           for (int a = 0; a < 3; ++a) { bn[a] = nl[a]; bp[a] = sl[a]; }
         }
       }
-      e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f;
-      if (bk >= 0 && best > e.depth[s]) {       // strictly deeper than the plane
+      if constexpr (FIRST_K) { e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f; }
+      if (bk >= 0 && best > e.depth[s]) {       // strictly deeper than what came before
         const float* st = e.stone[bk];
         float pw[3];
         qrot(st + 3, bn, e.nrm[s]);
@@ -436,8 +438,8 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>& e
           for (int i = 0; i < 3; ++i) { bp[i] = p[i]; bd[i] = dl[i]; }
         }
       }
-      e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f;
-      if (bk >= 0 && best > e.depth[s]) {       // strictly deeper than the plane
+      if constexpr (FIRST_KT) { e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f; }
+      if (bk >= 0 && best > e.depth[s]) {       // strictly deeper than what came before
         if (bdist > 1e-9f) {
           const float inv = 1.0f / fmaxf(bdist, 1e-9f);
           for (int i = 0; i < 3; ++i) e.nrm[s][i] = bd[i] * inv;
@@ -459,7 +461,7 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>& e
       }
     }
     if constexpr (KB > 0) {
-      if constexpr (K == 0) { e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f; }
+      if constexpr (FIRST_KB) { e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f; }
       if (!(tab[L::NOBAR + s] > 0.5f)) {
         // deepest active bar (the first of equals): its closest axis point,
         // the offset to the center and its length
@@ -481,7 +483,7 @@ HD void substep(Env<NL, NS, NLIM, K, NP2P, PLANAR, KB, NGRAB, PHF, KT, SPLIT>& e
             for (int a = 0; a < 3; ++a) { bc[a] = cl[a]; bd[a] = dl[a]; }
           }
         }
-        if (bk >= 0 && best > e.depth[s]) {    // strictly deeper than the plane or a stone
+        if (bk >= 0 && best > e.depth[s]) {    // strictly deeper than what came before
           const float rb = e.bar[bk][6];
           const float inv = 1.0f / fmaxf(bdist, 1e-9f);
           for (int a = 0; a < 3; ++a) {

@@ -48,10 +48,11 @@
 //        clamped alone, a butterfly each), and with a CRBA and factor in
 //        every substep (reuse_factor off), each K1a's shape;
 //   K1 cold  K1a's key with a cold start (warm_start off: Cfg::WARM false);
-//   and any other key this source holds (NV <= 32, at most one of a
-//        heightfield, stones, a mesh and bars, PD mode or one llc frame per
-//        call: other substeps and sweeps, model sizes, windows, option
-//        mixes, PD keys of several llc frames), as one
+//   and any other key this source holds (NV <= 32, PD mode or one llc
+//        frame per call: other substeps and sweeps, model sizes, windows,
+//        option mixes, PD keys of several llc frames, and any mix of a
+//        heightfield, stones, a mesh and bars beside PD mode, equality rows
+//        and extra damping, as the TPU kernel composes them), as one
 //        instance built from -DK1W_* flags (K1W_NAME and the Cfg arguments;
 //        ops/cuda/engine.py::warp_instance picks its launch shape: as many
 //        envs per block as an SM's shared memory holds, one block per SM).
@@ -266,6 +267,19 @@
 // lanes idle and ran 7% slower (k1w_launch_shapes.py monkey). The bars are
 // staged in the env's shared memory once per call (128 floats).
 //
+// Several geometries in one instance (any mix of a window, stones, faces and
+// bars beside PD mode, equality rows and extra damping: ops/cuda/engine.py's
+// K1x), as the TPU kernel composes them: each sphere's contact is merged in
+// ops/collide.py's order, the plane, the heightfield, the stones, the faces,
+// the bars, each geometry taking it only where strictly deeper than the one
+// so far; the normal is set to the plane's +z once, by the instance's first
+// geometry (Cfg::FIRST_K, FIRST_KT, FIRST_KB), so that a later geometry with
+// a shallower candidate leaves an earlier winner's normal alone. Each
+// geometry's state sits in its own base of EnvW (HfState, StoneState,
+// TriState, BarState), and the bars' center scratch in the Newton–Euler
+// pass's space: the walker over a window, 6 stones and 16 faces holds
+// 13,096 bytes, 17 envs in one block per SM.
+//
 // Contact rows. On the plane (+z) a contact's rows n, t1, t2 are rows z, x,
 // y of its point Jacobian, constant-folded. Where a narrowphase sets a
 // sphere's own normal (Cfg::GENERAL: the heightfield, stones, a mesh) they are n·Jc, t1·Jc,
@@ -408,8 +422,10 @@ struct Cfg {
   // each contact has its own normal (else the plane's +z)
   static constexpr bool GENERAL = PHF > 0 || K > 0 || KT > 0 || KB > 0;
   static_assert(PD || NLLC == 1, "torque mode is launched once per llc frame");
-  static_assert((PHF > 0) + (K > 0) + (KT > 0) + (KB > 0) <= 1,
-                "no instance combines a heightfield, stones, a mesh and bars");
+  // the first of the instance's geometries in the merge order (heightfield,
+  // stones, mesh, bars), which resets each sphere's normal to the plane's
+  static constexpr bool FIRST_K = PHF == 0, FIRST_KT = FIRST_K && K == 0;
+  static constexpr bool FIRST_KB = FIRST_KT && KT == 0;
   static_assert(L::NV <= 32, "one lane per velocity DOF");
 };
 
@@ -655,7 +671,11 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
   }
 
   // ---------------- spheres vs the plane, then vs the heightfield window,
-  // the stones, the mesh faces or the bars
+  // the stones, the mesh faces and the bars, in that order (ops/collide.py's):
+  // the plane's normal +z is set once, by the instance's first geometry
+  // before its test, and each geometry takes a sphere's contact (depth,
+  // point, normal) only where it is strictly deeper than the one so far, so
+  // that a later, shallower candidate leaves an earlier winner's normal alone
   for (int s = lane; s < NS; s += WIDTH) {
     const int l = (int)tab[L::SPHLINK + s];
     const float rad = tab[L::SPHR + s];
@@ -680,7 +700,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       const float nn = sqrtf(gx * gx + gy * gy + 1.0f);
       const float nz = 1.0f / nn;
       const float dh = rad - (cz - hgt) * nz;
-      e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f;
+      e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f;   // the plane's, once
       if (dh > e.depth[s]) {                    // strictly deeper than the plane
         e.depth[s] = dh;
         e.nrm[s][0] = gx / nn; e.nrm[s][1] = gy / nn; e.nrm[s][2] = nz;
@@ -727,8 +747,8 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
           for (int a = 0; a < 3; ++a) { bn[a] = nl[a]; bp[a] = sl[a]; }
         }
       }
-      e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f;
-      if (bk >= 0 && best > e.depth[s]) {       // strictly deeper than the plane
+      if constexpr (C::FIRST_K) { e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f; }
+      if (bk >= 0 && best > e.depth[s]) {       // strictly deeper than what came before
         const float* st = e.stone[bk];
         float pw[3];
         qrot(st + 3, bn, e.nrm[s]);
@@ -757,8 +777,8 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
           for (int i = 0; i < 3; ++i) { bp[i] = p[i]; bd[i] = dl[i]; }
         }
       }
-      e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f;
-      if (bk >= 0 && best > e.depth[s]) {       // strictly deeper than the plane
+      if constexpr (C::FIRST_KT) { e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f; }
+      if (bk >= 0 && best > e.depth[s]) {       // strictly deeper than what came before
         if (bdist > 1e-9f) {
           const float inv = 1.0f / fmaxf(bdist, 1e-9f);
           for (int i = 0; i < 3; ++i) e.nrm[s][i] = bd[i] * inv;
@@ -781,7 +801,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       }
     }
     if constexpr (C::KB > 0) {
-      e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f;
+      if constexpr (C::FIRST_KB) { e.nrm[s][0] = 0.0f; e.nrm[s][1] = 0.0f; e.nrm[s][2] = 1.0f; }
       e.u.pre.bs.ctr[s][0] = cx; e.u.pre.bs.ctr[s][1] = cy; e.u.pre.bs.ctr[s][2] = cz;
     }
   }
@@ -1761,8 +1781,8 @@ extern "C" int k1w_smem_limits(int* per_sm, int* per_block, int* reserved) {
 #endif
 
 #ifdef K1W_NAME
-// Any other key the source holds (NV <= 32, at most one of a heightfield,
-// stones, a mesh and bars, PD mode or one llc frame per call): one instance
+// Any other key the source holds (NV <= 32, PD mode or one llc frame per
+// call; any mix of a heightfield, stones, a mesh and bars): one instance
 // whose name, Cfg arguments and launch shape come from -D macros
 // (ops/cuda/engine.py::compile_flags), built at its first use; REGCHOL where
 // a factor is made in every substep of the matrix-free form, as the refactor

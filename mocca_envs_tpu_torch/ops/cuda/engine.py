@@ -25,8 +25,11 @@ and with the other three PGS options off; and the walker's key with scalar
 friction rows, with a factor in every substep and with a cold start), and
 any other key it holds (:func:`warp_holds`: PD at several llc frames per
 launch too) on a generic warp-per-env instance; and ``csrc/engine_k1.cu``,
-one thread per env, for the keys it cannot hold (more than 27 links, two
-scene geometries), and as the thread-per-env twin of every key. An
+one thread per env, for the keys it cannot hold (more than 27 links), and
+as the thread-per-env twin of every key. Any scene combination the TPU
+kernel composes (several geometries in one instance, PD mode, equality rows
+or extra damping beside any of them) is a key of both sources, wrapped by
+:class:`K1x` where no shipped family runs it. An
 instance is picked by its :class:`Key` (:func:`instance_for`): the named
 warp-per-env one where there is one, else the generic warp-per-env one
 where the source holds the key, whose name, template arguments and launch
@@ -58,7 +61,10 @@ are called through a plain C interface with ``ctypes``.
   ``k2_thread`` is K2's one-thread-per-ray twin); a split-impulse
   instance counts under its own name, and each PGS option turned off adds
   its tag (``k1a_aform``, ``k1h_si_aform``, ``k1a_scalar``, ``k1a_cold``,
-  ``k1a_refactor``, ...). ``INSTANCE_LAUNCHES[symbol]`` counts the same K1
+  ``k1a_refactor``, ...); a :class:`K1x` combination counts under
+  ``k1_`` (``k1h_`` with split impulse) and its :func:`scene_tags`
+  (``k1_llc1_kt16``, ``k1_k6_kt16``, ``k1_damped`` for extra damping in
+  torque mode, ...). ``INSTANCE_LAUNCHES[symbol]`` counts the same K1
   launches by the instance that ran, which tells apart keys that share a
   name (the walker at 2 substeps × 8 sweeps counts as ``k1a`` there).
 """
@@ -253,14 +259,21 @@ WARP_INSTANCES = {inst.key: inst for inst in (
 )}
 
 
+def scene_tags(key: Key) -> list:
+    """The tags of what ``key`` composes beside the model and the solver: its
+    stones, actuation (PD: its llc frames), rods, planar lock, bars, grabs,
+    heightfield window and mesh faces, in :func:`canonical_symbol`'s order."""
+    return [tag for on, tag in (
+        (key.stones, f"k{key.stones}"), (key.pd, f"llc{key.llc}"), (key.rods, f"p2p{key.rods}"),
+        (key.planar, "planar"), (key.bars, f"kb{key.bars}"), (key.grabs, f"ng{key.grabs}"),
+        (key.hf, f"hf{key.hf}"), (key.tris, f"kt{key.tris}")) if on]
+
+
 def canonical_symbol(key: Key) -> str:
     """The C symbol prefix of the generic instance for ``key``."""
-    parts = [f"k1_nl{key.nl}_ns{key.ns}_nlim{key.nlim}_sub{key.substeps}_it{key.iters}"]
-    for on, tag in ((key.stones, f"k{key.stones}"), (key.pd, f"llc{key.llc}"),
-                    (key.rods, f"p2p{key.rods}"), (key.planar, "planar"),
-                    (key.bars, f"kb{key.bars}"), (key.grabs, f"ng{key.grabs}"),
-                    (key.hf, f"hf{key.hf}"), (key.tris, f"kt{key.tris}"), (key.split, "si"),
-                    (not key.matfree, "aform"), (not key.block, "scalar"),
+    parts = [f"k1_nl{key.nl}_ns{key.ns}_nlim{key.nlim}_sub{key.substeps}_it{key.iters}",
+             *scene_tags(key)]
+    for on, tag in ((key.split, "si"), (not key.matfree, "aform"), (not key.block, "scalar"),
                     (not key.warm, "cold"), (not key.reuse, "refactor")):
         if on:
             parts.append(tag)
@@ -276,13 +289,12 @@ WARP_MAX_ENVS = 32   # a block of 1,024 threads
 
 def warp_holds(key: Key) -> bool:
     """Whether ``csrc/engine_k1w.cu`` holds ``key``, from the key alone: one
-    lane per velocity DOF (NV = NL + 5 <= 32), at most one of stones, a
-    heightfield window, mesh faces and bars, and PD mode or one llc frame
+    lane per velocity DOF (NV = NL + 5 <= 32) and PD mode or one llc frame
     per launch (the source runs a PD key's llc frames in one call, the
     torque refreshed at each frame's start; torque mode launches once per
-    frame)."""
-    scenes = (key.stones > 0) + (key.hf > 0) + (key.tris > 0) + (key.bars > 0)
-    return key.nl + 5 <= 32 and scenes <= 1 and (key.pd or key.llc == 1)
+    frame). Any mix of stones, a heightfield window, mesh faces and bars is
+    held (:func:`warp_env_bytes` counts each one's state)."""
+    return key.nl + 5 <= 32 and (key.pd or key.llc == 1)
 
 
 def table_floats(key: Key) -> int:
@@ -981,6 +993,30 @@ class K1hSi(EngineKernel):
         super().__init__(model, config, plain_unit=plain_unit, thread_per_env=thread_per_env)
 
 
+class K1x(EngineKernel):
+    """A unit of any other scene combination the TPU kernel composes: several
+    of stones, bars (with or without grabs), a heightfield window and mesh
+    faces in one instance, or one of them with PD mode or equality rows, or
+    extra damping in torque mode. It runs the instance of its key like any
+    other variant and counts under ``k1_`` (``k1h_`` with split impulse) and
+    the key's :func:`scene_tags`, ``_damped`` added for extra damping in
+    torque mode (which the key does not show: the damping is the table's)."""
+
+    def __init__(self, model, config, *, num_stones: int = 0, num_bars: int = 0,
+                 hf_patch: int = 0, num_tris: int = 0, pd_mode: bool = False,
+                 extra_damping=None, plain_unit=None,
+                 constraints: ConstraintSpec = ConstraintSpec(), thread_per_env: bool = False):
+        tags = scene_tags(kernel_key(model, config, num_stones, num_bars, pd_mode, constraints,
+                                     hf_patch, num_tris))
+        if extra_damping is not None and not pd_mode:
+            tags.append("damped")
+        self.variant, self.split_variant = ("_".join([head, *tags]) for head in ("k1", "k1h"))
+        super().__init__(model, config, num_stones=num_stones, num_bars=num_bars,
+                         hf_patch=hf_patch, num_tris=num_tris, pd_mode=pd_mode,
+                         extra_damping=extra_damping, plain_unit=plain_unit,
+                         constraints=constraints, thread_per_env=thread_per_env)
+
+
 def make_kernel(model, config, *, num_stones=0, num_bars=0, hf_patch=0, num_tris=0,
                 pd_mode=False, extra_damping=None, plain_unit=None,
                 constraints: ConstraintSpec = ConstraintSpec()) -> EngineKernel:
@@ -988,29 +1024,22 @@ def make_kernel(model, config, *, num_stones=0, num_bars=0, hf_patch=0, num_tris
     ``num_bars`` bars, a ``hf_patch``-sided heightfield window and
     ``num_tris`` (culled) mesh faces (0: none), the actuation mode, the
     equality rows and the solver's split impulse (the same variant, which
-    counts under its split-impulse name); the combinations the source does
-    not compose raise, naming what is missing."""
+    counts under its split-impulse name): the shipped families' variants,
+    and :class:`K1x` for every other combination, as the TPU kernel takes
+    them all."""
+    geometries = sum(bool(n) for n in (num_stones, num_bars or constraints.num_grabs, hf_patch,
+                                       num_tris))
+    if geometries > 1 or (extra_damping is not None and not pd_mode) or (
+            (num_stones or hf_patch or num_tris) and (pd_mode or constraints.ne)) or (
+            (num_bars or constraints.num_grabs) and pd_mode):
+        return K1x(model, config, num_stones=num_stones, num_bars=num_bars, hf_patch=hf_patch,
+                   num_tris=num_tris, pd_mode=pd_mode, extra_damping=extra_damping,
+                   plain_unit=plain_unit, constraints=constraints)
     if num_tris:
-        if pd_mode or num_stones or num_bars or hf_patch or constraints.ne \
-                or extra_damping is not None:
-            raise NotImplementedError("no K1 instantiation for a mesh with PD mode, stones, "
-                                      "bars, a heightfield or equality rows")
         return K1g(model, config, num_tris, plain_unit)
     if hf_patch:
-        if pd_mode or num_stones or num_bars or constraints.ne or extra_damping is not None:
-            raise NotImplementedError("no K1 instantiation for a heightfield with PD mode, "
-                                      "stones, bars or equality rows")
         return K1f(model, config, hf_patch, plain_unit)
-    if pd_mode and num_stones:
-        raise NotImplementedError("no K1 instantiation for PD mode over stones")
-    if constraints.ne and num_stones:
-        raise NotImplementedError("no K1 instantiation for equality rows over stones")
-    if extra_damping is not None and not pd_mode:
-        raise NotImplementedError("no K1 instantiation for extra damping in torque mode")
     if num_bars or constraints.num_grabs:
-        if pd_mode or num_stones:
-            raise NotImplementedError("no K1 instantiation for bars or grabs in PD mode "
-                                      "or over stones")
         return K1d(model, config, constraints, num_bars, plain_unit)
     if constraints.ne:
         return K1e(model, config, constraints, pd_mode, extra_damping, plain_unit)
@@ -1115,7 +1144,10 @@ def k1_flops(kernel: EngineKernel, lim_act, con_act, *scene_inputs, tri_walk=Non
     once, and active contacts project as over stones. Split impulse adds the
     position pass (:func:`_solver_ops`) and, where any of its rows is
     active, the back substitution of z_pos and its addition to the velocity
-    that advances the positions. PD mode adds the torque per llc frame.
+    that advances the positions. PD mode adds the torque per llc frame. A
+    unit over several geometries counts each one's narrowphase, and its
+    active contacts project once. Extra damping, in either mode, rides the
+    table's damping and implicit diagonal: it adds no operation.
     Rods and the planar lock are needed every substep: a rod takes its two
     anchors to the world frame, two point Jacobians over the
     anchors' ancestor joints, their difference, three dense W rows with

@@ -372,7 +372,8 @@ def _make_llc_unit(model: RobotModel, config: EngineConfig, substep,
     the path: the plain one on CPU tensors, for a model the kernel does
     not cover and for a grid smaller than the window, on any device; else
     the engine kernel of the scene's, the actuation's and the constraints'
-    variant, which raises where it cannot run. The kernel's scene inputs
+    variant (any combination the TPU kernel composes: several geometries,
+    PD mode, equality rows, extra damping). The kernel's scene inputs
     (stones; bars and grabs; the heightfield window; the faces) are packed
     per unit."""
     from mocca_envs_tpu_torch.ops.cuda import engine as cuda_engine

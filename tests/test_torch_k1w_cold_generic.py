@@ -219,14 +219,15 @@ def test_keys_of_several_llc_frames_stay_on_engine_k1(build, symbol, index):
 
 
 def test_keys_the_warp_source_cannot_hold():
-    """NV = NL + 5 above 32 lanes, two scene geometries or a torque key of
-    several llc frames take the engine_k1.cu instance; any other key (a PD
-    key of several llc frames too) one warp per env."""
+    """NV = NL + 5 above 32 lanes or a torque key of several llc frames take
+    the engine_k1.cu instance; any other key (a PD key of several llc frames
+    too, and several scene geometries in one instance) one warp per env."""
     base = engine.Key(**engine._W)
     for key, holds in ((dataclasses.replace(base, nl=27, nlim=20), True),
                        (dataclasses.replace(base, nl=28, nlim=20), False),
-                       (dataclasses.replace(base, stones=6, hf=16), False),
-                       (dataclasses.replace(base, tris=8, bars=4), False),
+                       (dataclasses.replace(base, stones=6, hf=16), True),
+                       (dataclasses.replace(base, tris=8, bars=4), True),
+                       (dataclasses.replace(base, nl=28, nlim=20, stones=6, tris=8), False),
                        (dataclasses.replace(base, pd=True, llc=3), True),
                        (dataclasses.replace(base, llc=3), False),
                        (dataclasses.replace(base, pd=True, substeps=2, iters=8), True),

@@ -6,9 +6,10 @@
   where there is none;
 - the CPU path never launches the kernel; the kernel's launch refuses CPU
   tensors; a key outside the fifteen named instances (other options, sizes,
-  windows, split impulse on any variant) gets the generic instance named by
-  the key, and only the scene combinations the source does not compose
-  raise;
+  windows, split impulse on any variant, and every scene combination the
+  TPU kernel composes: PD mode, equality rows or extra damping over any
+  geometry, several geometries in one instance) gets the generic instance
+  named by the key (a combination no family runs wrapped by ``K1x``);
 - the bound's operation count follows the rows these inputs make active;
 - the kernel source's per-env arithmetic, compiled for the host, agrees
   with the plain version, for every instantiation (K1a, K1c over stones,
@@ -363,17 +364,32 @@ def test_k1a_refuses_what_it_has_no_instantiation_for(change, symbol, variant):
     (lambda m: engine.K1c(m, EngineConfig(stone_window=8)), f"{W}_sub4_it4_k8"),
     (lambda m: engine.K1c(m, EngineConfig(), num_stones=20), f"{W}_sub4_it4_k20"),
     (lambda m: engine.K1b(m, EngineConfig(llc_frames=3)), f"{W}_sub4_it4_llc3"),
-    (lambda m: engine.make_kernel(m, EngineConfig(), num_stones=6, pd_mode=True), None),
-    (lambda m: engine.make_kernel(m, EngineConfig(), extra_damping=m.kp), None),
+    (lambda m: engine.make_kernel(m, EngineConfig(), num_stones=6, pd_mode=True),
+     f"{W}_sub4_it4_k6_llc1"),
+    (lambda m: engine.make_kernel(m, EngineConfig(), extra_damping=m.power_coef / 20), None),
 ], ids=["window8", "unculled20", "llc3", "pd_over_stones", "damped_torque"])
 def test_k1_variants_refuse_what_they_have_no_instantiation_for(build, symbol):
     """Other stone windows and llc frames are keys of the generic instance;
-    PD mode over stones and extra damping in torque mode stay refused."""
+    so is PD mode over stones, a K1x counted under its tags; extra damping
+    in torque mode is K1a's key with the damping in the table, on K1a's
+    named instances, counted as ``k1_damped``."""
+    kernel = build(walker3d.make_model())
     if symbol is None:
-        with pytest.raises(NotImplementedError, match="no K1 instantiation"):
-            build(walker3d.make_model())
+        assert isinstance(kernel, engine.K1x) and kernel.variant == "k1_damped"
+        assert kernel.instance is engine.WARP_INSTANCES[engine.K1a(kernel.model,
+                                                                  EngineConfig()).key]
+        assert engine.instance_for(kernel.key, thread_per_env=True).symbol \
+            == "k1a_nl22_ns14_nlim21_sub4_it4"
+        # the damping rides the table: K1a's table with it added
+        np.testing.assert_array_equal(
+            kernel.table_host, engine.pack_tables(kernel.model, EngineConfig(),
+                                                  kernel.extra_damping))
+        assert not np.array_equal(kernel.table_host,
+                                  engine.pack_tables(kernel.model, EngineConfig()))
         return
-    _assert_generic(build(walker3d.make_model()), symbol)
+    _assert_generic(kernel, symbol)
+    if kernel.num_stones and kernel.pd_mode:
+        assert isinstance(kernel, engine.K1x) and kernel.variant == "k1_k6_llc1"
 
 
 C = "k1_nl17_ns5_nlim16"
@@ -396,7 +412,8 @@ GRAB_SPEC = ConstraintSpec(planar=True, num_grabs=1, grab_links=(1,),
     (lambda: engine.K1e(walker3d.make_model(), EngineConfig(), walker2d.planar_spec()),
      f"{W}_sub4_it4_planar"),
     (lambda: engine.make_kernel(walker2d.make_walker2d(), EngineConfig(), num_stones=6,
-                                constraints=walker2d.planar_spec()), NotImplementedError),
+                                constraints=walker2d.planar_spec()),
+     "k1_nl7_ns5_nlim6_sub4_it4_k6_planar"),
     # grabs with the planar lock on Walker2D, no bars: the grab rows' input
     # alone
     (lambda: engine.make_kernel(walker2d.make_walker2d(), EngineConfig(),
@@ -406,15 +423,16 @@ GRAB_SPEC = ConstraintSpec(planar=True, num_grabs=1, grab_links=(1,),
 def test_k1e_refuses_what_it_has_no_instantiation_for(build, want):
     """Other equality-row keys (the lock without the rods, torque mode, other
     llc frames, PD on Walker2D, the lock on the 3D walker, grabs without
-    bars) are keys of the generic instance; equality rows over stones stay
-    refused, and rods naming links the model lacks are an error."""
+    bars, equality rows over stones) are keys of the generic instance; rods
+    naming links the model lacks are an error."""
     if isinstance(want, type):
-        with pytest.raises(want, match="no K1 instantiation" if want is NotImplementedError
-                           else "link"):
+        with pytest.raises(want, match="link"):
             build()
         return
     kernel = build()
     _assert_generic(kernel, want)
+    if kernel.num_stones:
+        assert isinstance(kernel, engine.K1x) and kernel.variant == "k1_k6_planar"
     if kernel.constraints.num_grabs:
         assert kernel.inputs == ("grabs",)
 
@@ -680,7 +698,7 @@ def test_k1d_is_picked_by_bars_and_grabs():
     assert engine.K1d(model, EngineConfig(), spec, 16, thread_per_env=True).name \
         == "k1d_nl11_ns5_nlim8_sub4_it4_kb16_ng2"
     # other bar counts, bars without the grabs, other substeps: the generic
-    # instance of their keys; PD mode: refused
+    # instance of their keys; PD mode: a K1x (below)
     for build, symbol in (
             (lambda: engine.make_kernel(model, EngineConfig(), num_bars=8, constraints=spec),
              "k1_nl11_ns5_nlim8_sub4_it4_kb8_ng2"),
@@ -690,8 +708,10 @@ def test_k1d_is_picked_by_bars_and_grabs():
                                         constraints=spec), "k1_nl11_ns5_nlim8_sub2_it4_kb16_ng2")):
         _assert_generic(build(), symbol, "k1d")
     assert engine.make_kernel(model, EngineConfig(), num_bars=16).inputs == ("bars",)
-    with pytest.raises(NotImplementedError, match="no K1 instantiation"):
-        engine.make_kernel(model, EngineConfig(), num_bars=16, pd_mode=True, constraints=spec)
+    # PD mode: a K1x on the generic instance of its key
+    pd = engine.make_kernel(model, EngineConfig(), num_bars=16, pd_mode=True, constraints=spec)
+    assert isinstance(pd, engine.K1x) and pd.inputs == ("bars", "grabs")
+    _assert_generic(pd, "k1_nl11_ns5_nlim8_sub4_it4_llc1_kb16_ng2", "k1_llc1_kb16_ng2")
 
 
 @pytest.mark.parametrize("bad", ["bars_rows", "grabs_batch", "missing_grabs", "grabs_dtype",
@@ -900,7 +920,8 @@ def test_k1f_source_arithmetic_on_host(host_library, case):
 
 
 def test_k1f_is_picked_by_a_heightfield_and_counts_its_work():
-    """make_kernel picks K1f for a window and nothing else combines with it;
+    """make_kernel picks K1f for a window alone, and a K1x for a window beside
+    stones, PD mode or the planar lock;
     the narrowphase is charged per sphere and substep; the window's 259
     floats are an input; the window round-trips through the packed layout;
     a malformed window is refused before anything launches."""
@@ -913,12 +934,19 @@ def test_k1f_is_picked_by_a_heightfield_and_counts_its_work():
         == "k1f_nl22_ns14_nlim21_sub4_it4_hf16"
     # another window side is a key of the generic instance
     _assert_generic(engine.make_kernel(model, config, hf_patch=8), f"{W}_sub4_it4_hf8", "k1f")
-    for build in (lambda: engine.make_kernel(model, config, hf_patch=HF_PATCH, num_stones=6),
-                  lambda: engine.make_kernel(model, config, hf_patch=HF_PATCH, pd_mode=True),
-                  lambda: engine.make_kernel(walker2d.make_walker2d(), config, hf_patch=HF_PATCH,
-                                             constraints=walker2d.planar_spec())):
-        with pytest.raises(NotImplementedError, match="no K1 instantiation"):
-            build()
+    # beside stones, in PD mode and under the planar lock: a K1x on the
+    # generic instance of its key
+    for build, symbol, variant in (
+            (lambda: engine.make_kernel(model, config, hf_patch=HF_PATCH, num_stones=6),
+             f"{W}_sub4_it4_k6_hf16", "k1_k6_hf16"),
+            (lambda: engine.make_kernel(model, config, hf_patch=HF_PATCH, pd_mode=True),
+             f"{W}_sub4_it4_llc1_hf16", "k1_llc1_hf16"),
+            (lambda: engine.make_kernel(walker2d.make_walker2d(), config, hf_patch=HF_PATCH,
+                                        constraints=walker2d.planar_spec()),
+             "k1_nl7_ns5_nlim6_sub4_it4_planar_hf16", "k1_planar_hf16")):
+        mixed = build()
+        assert isinstance(mixed, engine.K1x) and "hf" in mixed.inputs
+        _assert_generic(mixed, symbol, variant)
     B = 8
     k1a, _ = _kernel_case("k1a", B, 2)
     _, arrays = _kernel_case("k1f", B, 2)
@@ -1038,9 +1066,10 @@ def test_k1h_si_source_arithmetic_on_host(host_library):
 
 def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
     """make_kernel picks K1g for mesh faces and K1h-si for split impulse on
-    the walker's plane; a mesh with anything else raises, naming what is
-    missing; another face window, split impulse on another face window and
-    on Cassie's plane are keys of the generic instance, each counted under
+    the walker's plane; a mesh beside stones, PD mode or a heightfield is a
+    K1x on the generic instance of its key; another face window, split
+    impulse on another face window and on Cassie's plane are keys of the
+    generic instance, each counted under
     its split name; split impulse on the 16-face mesh, in PD mode and on the
     planar walkers are K1h-g's, K1h-b's and the planar K1h-e's warp-per-env
     instances (their generic ones only with ``thread_per_env=True``), and
@@ -1069,11 +1098,16 @@ def test_k1g_and_k1h_si_are_picked_and_refuse_the_rest():
         assert k1h_g.instance.source == engine.SOURCE_W
     _assert_generic(engine.K1g(model, split, thread_per_env=True), f"{W}_sub4_it4_kt16_si",
                     "k1h_g")
-    for build in (lambda: engine.make_kernel(model, config, num_tris=16, num_stones=6),
-                  lambda: engine.make_kernel(model, config, num_tris=16, pd_mode=True),
-                  lambda: engine.make_kernel(model, config, num_tris=16, hf_patch=HF_PATCH)):
-        with pytest.raises(NotImplementedError, match="no K1 instantiation"):
-            build()
+    for build, symbol, variant in (
+            (lambda: engine.make_kernel(model, config, num_tris=16, num_stones=6),
+             f"{W}_sub4_it4_k6_kt16", "k1_k6_kt16"),
+            (lambda: engine.make_kernel(model, config, num_tris=16, pd_mode=True),
+             f"{W}_sub4_it4_llc1_kt16", "k1_llc1_kt16"),
+            (lambda: engine.make_kernel(model, config, num_tris=16, hf_patch=HF_PATCH),
+             f"{W}_sub4_it4_hf16_kt16", "k1_hf16_kt16")):
+        mixed = build()
+        assert isinstance(mixed, engine.K1x) and mixed.inputs[-1] == "tris"
+        _assert_generic(mixed, symbol, variant)
     for build, symbol, variant in (
             (lambda: engine.make_kernel(model, config, num_tris=8), f"{W}_sub4_it4_kt8", "k1g"),
             (lambda: engine.make_kernel(model, split, num_tris=8), f"{W}_sub4_it4_kt8_si",
