@@ -30,7 +30,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    keys, its scalar friction, factor-every-substep and cold-start keys,
    the two 2 × 8 keys, K1h-b at two llc frames and Cassie at five (K1b's
    at two is the named ``k1b_..._llc2``); both designs of every scene
-   combination of phase ``combinations``; the all-off key's matrix-free
+   combination of phase ``combinations`` and of the keys past 32 velocity
+   DOFs of phase ``wide`` (H35's torque and PD keys, R64's); the all-off
+   key's matrix-free
    form and the A-form twins of :data:`MATFREE_OPTIONS` and of the cold
    start) and the raycast kernel
    K2 from
@@ -228,7 +230,21 @@ Phases, in order; any failure exits non-zero before the result lines:
    steps, and with split impulse for 100, ``Walker2DCustomEnv-v0`` over the
    staircase (a ``scene_builder``) for 100 and ``Walker3DCustomEnv-v0`` over
    the staircase and six tilted boxes for 100 (:data:`COMBINATION_DRIVES`),
-   each one launch a step by its key's instance. The path's kernel
+   each one launch a step by its key's instance. Then phase ``wide``
+   (:func:`wide`): K1 past 32 velocity DOFs, one warp per env, a lane
+   holding two DOFs — H35 (:data:`H35_URDF`, Walker3D with a neck and
+   split forearms: NV 35) in torque and PD mode and R64
+   (:func:`r64_model`: NV 64, 34 spheres), each by the generic warp-per-env
+   instance of its key (``k1w_nl30_ns15_nlim29_sub4_it4_12x1``,
+   ``..._llc1_12x1``, ``k1w_nl59_ns34_nlim58_sub4_it4_3x1``), against its
+   plain version at :data:`TOL` and its ``engine_k1.cu`` twin at
+   :data:`TOL_TWIN` (per-env medians; the largest env within ten times,
+   R64's 99th percentile, :func:`worst_env`) and the 1e-7 q̇-nudge floor;
+   ``make("Walker3DCustomEnv-v0", model=H35)`` for 300 steps and
+   ``make("Walker3DPDCustomEnv-v0", model=H35)`` for 100 (one launch a
+   step), R64 through ``make_control_step`` for 20; each timed beside its
+   bound and its twin, with ptxas's registers and spills and the envs per
+   SM. The path's kernel
    must launch exactly once per step and no other kernel at all, the state
    stay finite and auto-reset fire; resets forced by a non-finite state are
    counted and printed; of the 2D families the median env must end in its
@@ -491,6 +507,11 @@ WARP_BUILDS = {
     "k1w_nl22_ns14_nlim21_sub4_it4_hf16_kt16_17x1": (91, 223152, 17),
     "k1w_nl11_ns5_nlim8_sub4_it4_k6_kb16_ng2_32x1": (63, 168160, 32),
     "k1w_nl22_ns14_nlim21_sub4_it4_k6_hf16_kt16_17x1": (94, 227640, 17),
+    # the generic instances past 32 velocity DOFs (phase wide): H35's torque
+    # and PD keys and R64's, as their first builds on an H100 reported them
+    "k1w_nl30_ns15_nlim29_sub4_it4_12x1": (71, 217920, 12),
+    "k1w_nl30_ns15_nlim29_sub4_it4_llc1_12x1": (71, 219312, 12),
+    "k1w_nl59_ns34_nlim58_sub4_it4_3x1": (128, 200224, 3),
 }
 REPLACES = "mocca_envs_tpu/ops/pallas/engine.py:216"
 RAYCAST_SOURCE = "mocca_envs_tpu_torch/csrc/raycast_k2.cu"
@@ -2301,6 +2322,391 @@ def combinations(port, engine, card, combos: dict, rng) -> dict:
     return out
 
 
+# ---- phase wide: K1 past 32 velocity DOFs on the warp-per-env design (a
+# lane holds ⌈NV / 32⌉ of them)
+# H35, a humanoid of 35 velocity DOFs: Walker3D with a neck (neck_z, neck_y;
+# a head sphere on neck_y) and each forearm split (forearm_z, wrist_y,
+# wrist_x; the hand sphere moved to wrist_x): 30 links, 15 spheres, 29 limit
+# rows. The walker's foot, link and joint names stay, so that the walker
+# task's feet, terminal links and mirror spec apply
+H35_URDF = """
+<robot name="h35">
+  <link name="base"><inertial><mass value="8"/>
+    <inertia ixx="0.05" iyy="0.04" izz="0.05"/></inertial>
+    <collision mocca_order="12">
+      <geometry><sphere radius="0.11"/></geometry></collision></link>
+  <link name="abdomen_z"><inertial><mass value="0.5"/>
+    <inertia ixx="0.001" iyy="0.001" izz="0.001"/></inertial></link>
+  <link name="abdomen_y"><inertial><mass value="0.5"/>
+    <inertia ixx="0.001" iyy="0.001" izz="0.001"/></inertial></link>
+  <link name="abdomen_x"><inertial><origin xyz="0 0 0.17"/><mass value="14"/>
+    <inertia ixx="0.18" iyy="0.16" izz="0.08"/></inertial>
+    <collision mocca_order="13"><origin xyz="0 0 0.2"/>
+      <geometry><sphere radius="0.12"/></geometry></collision></link>
+  <link name="right_hip_x"><inertial><mass value="0.5"/>
+    <inertia ixx="0.001" iyy="0.001" izz="0.001"/></inertial></link>
+  <link name="right_hip_z"><inertial><mass value="0.5"/>
+    <inertia ixx="0.001" iyy="0.001" izz="0.001"/></inertial></link>
+  <link name="right_hip_y"><inertial><origin xyz="0 0 -0.2"/><mass value="4.5"/>
+    <inertia ixx="0.06" iyy="0.06" izz="0.012"/></inertial></link>
+  <link name="right_knee"><inertial><origin xyz="0 0 -0.19"/><mass value="2.8"/>
+    <inertia ixx="0.035" iyy="0.035" izz="0.006"/></inertial>
+    <collision mocca_order="5"><origin xyz="0 0 -0.2"/>
+      <geometry><sphere radius="0.05"/></geometry></collision></link>
+  <link name="right_ankle_y"><inertial><mass value="0.2"/>
+    <inertia ixx="0.0005" iyy="0.0005" izz="0.0005"/></inertial></link>
+  <link name="right_ankle_x"><inertial><origin xyz="0.05 0 -0.04"/><mass value="1"/>
+    <inertia ixx="0.002" iyy="0.004" izz="0.004"/></inertial>
+    <collision mocca_order="0" mocca_foot="right_foot"><origin xyz="-0.05 -0.025 -0.05"/>
+      <geometry><sphere radius="0.042"/></geometry></collision>
+    <collision mocca_order="1" mocca_foot="right_foot"><origin xyz="-0.05 0.025 -0.05"/>
+      <geometry><sphere radius="0.042"/></geometry></collision>
+    <collision mocca_order="2" mocca_foot="right_foot"><origin xyz="0.12 -0.025 -0.05"/>
+      <geometry><sphere radius="0.042"/></geometry></collision>
+    <collision mocca_order="3" mocca_foot="right_foot"><origin xyz="0.12 0.025 -0.05"/>
+      <geometry><sphere radius="0.042"/></geometry></collision></link>
+  <link name="left_hip_x"><inertial><mass value="0.5"/>
+    <inertia ixx="0.001" iyy="0.001" izz="0.001"/></inertial></link>
+  <link name="left_hip_z"><inertial><mass value="0.5"/>
+    <inertia ixx="0.001" iyy="0.001" izz="0.001"/></inertial></link>
+  <link name="left_hip_y"><inertial><origin xyz="0 0 -0.2"/><mass value="4.5"/>
+    <inertia ixx="0.06" iyy="0.06" izz="0.012"/></inertial></link>
+  <link name="left_knee"><inertial><origin xyz="0 0 -0.19"/><mass value="2.8"/>
+    <inertia ixx="0.035" iyy="0.035" izz="0.006"/></inertial>
+    <collision mocca_order="11"><origin xyz="0 0 -0.2"/>
+      <geometry><sphere radius="0.05"/></geometry></collision></link>
+  <link name="left_ankle_y"><inertial><mass value="0.2"/>
+    <inertia ixx="0.0005" iyy="0.0005" izz="0.0005"/></inertial></link>
+  <link name="left_ankle_x"><inertial><origin xyz="0.05 0 -0.04"/><mass value="1"/>
+    <inertia ixx="0.002" iyy="0.004" izz="0.004"/></inertial>
+    <collision mocca_order="6" mocca_foot="left_foot"><origin xyz="-0.05 -0.025 -0.05"/>
+      <geometry><sphere radius="0.042"/></geometry></collision>
+    <collision mocca_order="7" mocca_foot="left_foot"><origin xyz="-0.05 0.025 -0.05"/>
+      <geometry><sphere radius="0.042"/></geometry></collision>
+    <collision mocca_order="8" mocca_foot="left_foot"><origin xyz="0.12 -0.025 -0.05"/>
+      <geometry><sphere radius="0.042"/></geometry></collision>
+    <collision mocca_order="9" mocca_foot="left_foot"><origin xyz="0.12 0.025 -0.05"/>
+      <geometry><sphere radius="0.042"/></geometry></collision></link>
+  <link name="right_shoulder_x"><inertial><mass value="0.3"/>
+    <inertia ixx="0.0005" iyy="0.0005" izz="0.0005"/></inertial></link>
+  <link name="right_shoulder_y"><inertial><origin xyz="0 0 -0.14"/><mass value="1.6"/>
+    <inertia ixx="0.01" iyy="0.01" izz="0.002"/></inertial></link>
+  <link name="right_elbow"><inertial><origin xyz="0 0 -0.07"/><mass value="0.5"/>
+    <inertia ixx="0.003" iyy="0.003" izz="0.0006"/></inertial></link>
+  <link name="left_shoulder_x"><inertial><mass value="0.3"/>
+    <inertia ixx="0.0005" iyy="0.0005" izz="0.0005"/></inertial></link>
+  <link name="left_shoulder_y"><inertial><origin xyz="0 0 -0.14"/><mass value="1.6"/>
+    <inertia ixx="0.01" iyy="0.01" izz="0.002"/></inertial></link>
+  <link name="left_elbow"><inertial><origin xyz="0 0 -0.07"/><mass value="0.5"/>
+    <inertia ixx="0.003" iyy="0.003" izz="0.0006"/></inertial></link>
+  <link name="neck_z"><inertial><mass value="0.3"/>
+    <inertia ixx="0.0005" iyy="0.0005" izz="0.0005"/></inertial></link>
+  <link name="neck_y"><inertial><origin xyz="0 0 0.1"/><mass value="3"/>
+    <inertia ixx="0.015" iyy="0.015" izz="0.012"/></inertial>
+    <collision mocca_order="14"><origin xyz="0 0 0.1"/>
+      <geometry><sphere radius="0.1"/></geometry></collision></link>
+  <link name="right_forearm_z"><inertial><origin xyz="0 0 -0.05"/><mass value="0.3"/>
+    <inertia ixx="0.0015" iyy="0.0015" izz="0.0003"/></inertial></link>
+  <link name="right_wrist_y"><inertial><mass value="0.1"/>
+    <inertia ixx="0.0002" iyy="0.0002" izz="0.0002"/></inertial></link>
+  <link name="right_wrist_x"><inertial><origin xyz="0 0 -0.03"/><mass value="0.3"/>
+    <inertia ixx="0.0004" iyy="0.0004" izz="0.0003"/></inertial>
+    <collision mocca_order="4"><origin xyz="0 0 -0.04"/>
+      <geometry><sphere radius="0.04"/></geometry></collision></link>
+  <link name="left_forearm_z"><inertial><origin xyz="0 0 -0.05"/><mass value="0.3"/>
+    <inertia ixx="0.0015" iyy="0.0015" izz="0.0003"/></inertial></link>
+  <link name="left_wrist_y"><inertial><mass value="0.1"/>
+    <inertia ixx="0.0002" iyy="0.0002" izz="0.0002"/></inertial></link>
+  <link name="left_wrist_x"><inertial><origin xyz="0 0 -0.03"/><mass value="0.3"/>
+    <inertia ixx="0.0004" iyy="0.0004" izz="0.0003"/></inertial>
+    <collision mocca_order="10"><origin xyz="0 0 -0.04"/>
+      <geometry><sphere radius="0.04"/></geometry></collision></link>
+  <joint name="abdomen_z" type="revolute"><parent link="base"/>
+    <child link="abdomen_z"/><origin xyz="0 0 0.1"/><axis xyz="0 0 1"/>
+    <limit lower="-0.79" upper="0.79" effort="60"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="abdomen_y" type="revolute"><parent link="abdomen_z"/>
+    <child link="abdomen_y"/><axis xyz="0 1 0"/>
+    <limit lower="-1.31" upper="0.52" effort="80"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="abdomen_x" type="revolute"><parent link="abdomen_y"/>
+    <child link="abdomen_x"/><axis xyz="1 0 0"/>
+    <limit lower="-0.61" upper="0.61" effort="60"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="right_hip_x" type="revolute"><parent link="base"/>
+    <child link="right_hip_x"/><origin xyz="0 -0.08 -0.04"/><axis xyz="1 0 0"/>
+    <limit lower="-0.44" upper="0.61" effort="80"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="right_hip_z" type="revolute"><parent link="right_hip_x"/>
+    <child link="right_hip_z"/><axis xyz="0 0 1"/>
+    <limit lower="-1.05" upper="0.61" effort="60"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="right_hip_y" type="revolute"><parent link="right_hip_z"/>
+    <child link="right_hip_y"/><axis xyz="0 1 0"/>
+    <limit lower="-1.92" upper="0.77" effort="100"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="right_knee" type="revolute"><parent link="right_hip_y"/>
+    <child link="right_knee"/><origin xyz="0 0 -0.4"/><axis xyz="0 1 0"/>
+    <limit lower="-2.79" upper="-0.03" effort="90"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="right_ankle_y" type="revolute"><parent link="right_knee"/>
+    <child link="right_ankle_y"/><origin xyz="0 0 -0.39"/><axis xyz="0 1 0"/>
+    <limit lower="-0.87" upper="0.87" effort="60"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="right_ankle_x" type="revolute"><parent link="right_ankle_y"/>
+    <child link="right_ankle_x"/><axis xyz="1 0 0"/>
+    <limit lower="-0.44" upper="0.44" effort="40"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="left_hip_x" type="revolute"><parent link="base"/>
+    <child link="left_hip_x"/><origin xyz="0 0.08 -0.04"/><axis xyz="1 0 0"/>
+    <limit lower="-0.61" upper="0.44" effort="80"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="left_hip_z" type="revolute"><parent link="left_hip_x"/>
+    <child link="left_hip_z"/><axis xyz="0 0 1"/>
+    <limit lower="-0.61" upper="1.05" effort="60"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="left_hip_y" type="revolute"><parent link="left_hip_z"/>
+    <child link="left_hip_y"/><axis xyz="0 1 0"/>
+    <limit lower="-1.92" upper="0.77" effort="100"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="left_knee" type="revolute"><parent link="left_hip_y"/>
+    <child link="left_knee"/><origin xyz="0 0 -0.4"/><axis xyz="0 1 0"/>
+    <limit lower="-2.79" upper="-0.03" effort="90"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="left_ankle_y" type="revolute"><parent link="left_knee"/>
+    <child link="left_ankle_y"/><origin xyz="0 0 -0.39"/><axis xyz="0 1 0"/>
+    <limit lower="-0.87" upper="0.87" effort="60"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="left_ankle_x" type="revolute"><parent link="left_ankle_y"/>
+    <child link="left_ankle_x"/><axis xyz="1 0 0"/>
+    <limit lower="-0.44" upper="0.44" effort="40"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="right_shoulder_x" type="revolute"><parent link="abdomen_x"/>
+    <child link="right_shoulder_x"/><origin xyz="0 -0.17 0.22"/><axis xyz="1 0 0"/>
+    <limit lower="-1.48" upper="1.05" effort="30"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="right_shoulder_y" type="revolute"><parent link="right_shoulder_x"/>
+    <child link="right_shoulder_y"/><axis xyz="0 1 0"/>
+    <limit lower="-1.57" upper="1.22" effort="30"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="right_elbow" type="revolute"><parent link="right_shoulder_y"/>
+    <child link="right_elbow"/><origin xyz="0 0 -0.27"/><axis xyz="0 1 0"/>
+    <limit lower="-1.57" upper="0" effort="25"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="left_shoulder_x" type="revolute"><parent link="abdomen_x"/>
+    <child link="left_shoulder_x"/><origin xyz="0 0.17 0.22"/><axis xyz="1 0 0"/>
+    <limit lower="-1.05" upper="1.48" effort="30"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="left_shoulder_y" type="revolute"><parent link="left_shoulder_x"/>
+    <child link="left_shoulder_y"/><axis xyz="0 1 0"/>
+    <limit lower="-1.57" upper="1.22" effort="30"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="left_elbow" type="revolute"><parent link="left_shoulder_y"/>
+    <child link="left_elbow"/><origin xyz="0 0 -0.27"/><axis xyz="0 1 0"/>
+    <limit lower="-1.57" upper="0" effort="25"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="neck_z" type="revolute"><parent link="abdomen_x"/>
+    <child link="neck_z"/><origin xyz="0 0 0.4"/><axis xyz="0 0 1"/>
+    <limit lower="-0.79" upper="0.79" effort="20"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="neck_y" type="revolute"><parent link="neck_z"/>
+    <child link="neck_y"/><axis xyz="0 1 0"/>
+    <limit lower="-0.61" upper="0.61" effort="20"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="right_forearm_z" type="revolute"><parent link="right_elbow"/>
+    <child link="right_forearm_z"/><origin xyz="0 0 -0.13"/><axis xyz="0 0 1"/>
+    <limit lower="-1.2" upper="1.2" effort="15"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="right_wrist_y" type="revolute"><parent link="right_forearm_z"/>
+    <child link="right_wrist_y"/><origin xyz="0 0 -0.1"/><axis xyz="0 1 0"/>
+    <limit lower="-1" upper="1" effort="10"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="right_wrist_x" type="revolute"><parent link="right_wrist_y"/>
+    <child link="right_wrist_x"/><axis xyz="1 0 0"/>
+    <limit lower="-0.6" upper="0.6" effort="10"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="left_forearm_z" type="revolute"><parent link="left_elbow"/>
+    <child link="left_forearm_z"/><origin xyz="0 0 -0.13"/><axis xyz="0 0 1"/>
+    <limit lower="-1.2" upper="1.2" effort="15"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="left_wrist_y" type="revolute"><parent link="left_forearm_z"/>
+    <child link="left_wrist_y"/><origin xyz="0 0 -0.1"/><axis xyz="0 1 0"/>
+    <limit lower="-1" upper="1" effort="10"/><mocca_dynamics armature="0.01"/></joint>
+  <joint name="left_wrist_x" type="revolute"><parent link="left_wrist_y"/>
+    <child link="left_wrist_x"/><axis xyz="1 0 0"/>
+    <limit lower="-0.6" upper="0.6" effort="10"/><mocca_dynamics armature="0.01"/></joint>
+</robot>
+"""
+# the two entry paths H35 takes through make(): label → (env id, control steps)
+WIDE_DRIVES = {"h35": ("Walker3DCustomEnv-v0", 300), "h35_pd": ("Walker3DPDCustomEnv-v0", 100)}
+R64_STEPS = 20   # control steps of R64 through make_control_step
+R64_LEGS = 8     # R64's legs, 7 hinges each, around a disc body with a 2-hinge neck
+R64_STAND = 0.585   # R64's base height at which its lowest foot spheres touch z = 0
+WIDE_NAMES = {"h35": "k1a_engine_frame_h35_nv35", "h35_pd": "k1b_engine_step_pd_h35_nv35",
+              "r64": "k1a_engine_frame_r64_nv64"}
+WIDE_TWIN_CALLS = 5   # timed calls of each thread-per-env twin
+# the tail each key's gates hold at ten times the tolerance: H35's largest
+# env; R64's 99th percentile (:func:`worst_env` says why)
+WIDE_TAIL = {"h35": "max", "h35_pd": "max", "r64": "p99"}
+
+
+def h35_model(device):
+    """H35 (:data:`H35_URDF`) parsed by the port's URDF loader on ``device``,
+    the mirror arrays derived from its joint names as the loaded walker's
+    are (``models/assets.py::load``)."""
+    from mocca_envs_tpu_torch.models.urdf import parse_urdf
+    from mocca_envs_tpu_torch.models.walker3d import (
+        _mirror_action_permutation, _mirror_action_signs)
+
+    model = parse_urdf(H35_URDF, foot_link_keywords=(), device=device)
+    names = model.joint_names
+    return model.replace(
+        mirror_act_perm=torch.as_tensor(_mirror_action_permutation(names), device=device),
+        mirror_act_sign=torch.as_tensor(_mirror_action_signs(names), device=device))
+
+
+def r64_model(device):
+    """R64, a rig of 64 velocity DOFs: a floating disc body (12 kg) with a
+    2-hinge neck (a head sphere) and :data:`R64_LEGS` legs of 7 hinges each
+    (hip z, y, x, knee, ankle y, x, toe; each leg turned to its bearing),
+    four foot spheres on each toe: 59 links, 34 spheres, 58 limit rows, so
+    that a DOF vector fills both lane slots and the sphere, limit and row
+    loops take two rounds or more. The legs are added one after another, so
+    that each tree level spans both slots."""
+    from mocca_envs_tpu_torch.models.schema import ModelBuilder
+
+    b = ModelBuilder("r64", floating=True)
+    b.base_inertial(12.0, (0.0, 0.0, 0.0), inertia_diag=(0.3, 0.3, 0.5))
+    kw = dict(armature=0.01, actuated=True)
+    b.add_link("neck_z", "base", joint_pos=(0.3, 0.0, 0.1), joint_axis=(0, 0, 1),
+               limit=(-0.8, 0.8), mass=0.2, inertia_diag=(2e-4,) * 3, power_coef=10.0, **kw)
+    b.add_link("neck_y", "neck_z", joint_axis=(0, 1, 0), limit=(-0.6, 0.6), mass=1.5,
+               com=(0.1, 0.0, 0.0), inertia_diag=(0.006, 0.008, 0.008), power_coef=10.0, **kw)
+    b.add_sphere("neck_y", (0.12, 0.0, 0.0), 0.08)
+    # (joint, parent, position in the parent, axis, limit, mass, com, inertia,
+    # power): the leg in its own frame, x pointing away from the body
+    leg = [("hip_z", None, None, (0, 0, 1), 0.6, 0.2, (0, 0, 0), (2e-4,) * 3, 40.0),
+           ("hip_y", "hip_z", (0, 0, 0), (0, 1, 0), 0.9, 0.2, (0, 0, 0), (2e-4,) * 3, 40.0),
+           ("hip_x", "hip_y", (0, 0, 0), (1, 0, 0), 0.5, 1.0, (0.05, 0.0, -0.1),
+            (0.005, 0.005, 0.001), 40.0),
+           ("knee", "hip_x", (0.1, 0.0, -0.2), (0, 1, 0), 1.2, 0.6, (0.0, 0.0, -0.12),
+            (0.003, 0.003, 6e-4), 30.0),
+           ("ankle_y", "knee", (0.0, 0.0, -0.25), (0, 1, 0), 0.7, 0.1, (0, 0, 0), (1e-4,) * 3,
+            15.0),
+           ("ankle_x", "ankle_y", (0, 0, 0), (1, 0, 0), 0.4, 0.2, (0.02, 0.0, -0.01),
+            (2e-4,) * 3, 15.0),
+           ("toe", "ankle_x", (0.05, 0.0, -0.03), (0, 1, 0), 0.5, 0.2, (0.0, 0.0, -0.02),
+            (2e-4,) * 3, 10.0)]
+    for k in range(R64_LEGS):
+        th = 2.0 * np.pi * (k + 0.5) / R64_LEGS
+        for name, parent, pos, axis, lim, mass, com, inertia, power in leg:
+            at = dict(joint_pos=(0.3 * np.cos(th), 0.3 * np.sin(th), -0.05),
+                      joint_rpy=(0.0, 0.0, th)) if parent is None else dict(joint_pos=pos)
+            b.add_link(f"leg{k}_{name}", "base" if parent is None else f"leg{k}_{parent}",
+                       joint_axis=axis, limit=(-lim, lim), mass=mass, com=com,
+                       inertia_diag=inertia, power_coef=power, **at, **kw)
+        for fx in (-0.03, 0.03):
+            for fy in (-0.02, 0.02):
+                b.add_sphere(f"leg{k}_toe", (fx, fy, -0.03), 0.025, foot=f"leg{k}_foot")
+    b.add_sphere("base", (0.0, 0.0, 0.0), 0.2)
+    return b.build(device=device)
+
+
+def r64_states(model, rng, batch=B):
+    """R64 states near contact: the base at :data:`R64_STAND` ± 2 cm, tilted
+    a little, the joints ±0.1 rad, random velocities and torques (uniform up
+    to each joint's power). Numpy ``(q, qd, tau, ground_z, friction)``."""
+    q, qd, tau, gz, fric = near_contact_states(model, rng, batch)
+    q[:, 2] = R64_STAND + 0.02 * rng.standard_normal(batch)
+    return q, qd, tau, gz, fric
+
+
+def wide_kernels(engine, config, device) -> dict:
+    """The keys past 32 velocity DOFs, each as the entry points pick its
+    instance (the generic warp-per-env one of its key, at the host's shape)
+    with its ``engine_k1.cu`` twin: label → (kernel, twin, the model the
+    drives make the env with). H35's torque key (K1a's variant), its PD key
+    (K1b's: the PD walker's gains, kp = power, derivative kp / 20) and
+    R64's torque key."""
+    h35, r64 = h35_model(device), r64_model(device)
+    kp = h35.power_coef * (h35.actuated > 0).to(torch.float32)
+    pd = lambda tpe: engine.K1b(h35.replace(kp=kp), config, extra_damping=kp / 20.0,  # noqa: E731
+                                thread_per_env=tpe)
+    return {"h35": (engine.make_kernel(h35, config), engine.K1a(h35, config, thread_per_env=True),
+                    h35),
+            "h35_pd": (pd(False), pd(True), h35),
+            "r64": (engine.make_kernel(r64, config), engine.K1a(r64, config, thread_per_env=True),
+                    r64)}
+
+
+def worst_env(engine, kernel, twin, args, label: str) -> None:
+    """Where ``kernel`` parts most from its plain version in q̇, and there:
+    its ``engine_k1.cu`` twin's error (the same iteration, written
+    independently), and how far a 1e-7 nudge of q̇ (relative, numpy seed
+    0) moves the twin's q̇, beside the median env's; and the share of envs
+    in which a limit or a contact enters or leaves its margin within the
+    call (:func:`engine.k1_activity`, the plain run). R64's 34 spheres, 32
+    of them on feet by the ground, do so in most envs, and such an env can
+    amplify rounding hundreds of times over the median env's, so R64's tail
+    gate is the 99th percentile, the envs beyond it counted, as Cassie's
+    and K1d's are."""
+    noise = torch.as_tensor(np.random.default_rng(0).standard_normal(tuple(args[1].shape)),
+                            device=args[1].device)
+    nudged = [args[0], (args[1].double() * (1 + 1e-7 * noise)).float(), *args[2:]]
+    out, base, moved = kernel.launch(*args), twin.launch(*args), twin.launch(*nudged)
+    ref = kernel.plain(*args)
+    torch.cuda.synchronize()
+    ours, theirs = ((a[1] - ref[1]).abs().amax(dim=1) for a in (out, base))
+    floor = (moved[1] - base[1]).abs().amax(dim=1)
+    lim, con, _ = engine.k1_activity(kernel, *args)
+    changing = ((lim != lim[:1]).any(dim=2) | (con != con[:1]).any(dim=2)).any(dim=0)
+    i = int(ours.argmax())
+    print(f"[compare] {label}: its largest q̇ error against the plain version in env {i}, "
+          f"{float(ours[i]):.3e}; its twin {twin.name} there {float(theirs[i]):.3e}, the twin's "
+          f"own largest {float(theirs.max()):.3e} in env {int(theirs.argmax())}; a 1e-7 q̇ "
+          f"nudge moves the twin there by {float(floor[i]):.3e}, "
+          f"{float(floor[i] / floor.median().clamp_min(1e-30)):.1f}× the median env's "
+          f"{float(floor.median()):.3e}; a row's activity changes within the call in "
+          f"{float(changing.float().mean()):.4f} of the envs"
+          f"{' (env %d among them)' % i if bool(changing[i]) else ''}")
+
+
+def wide(port, engine, card, pairs: dict, rng) -> dict:
+    """Phase ``wide``: each key of :func:`wide_kernels` at B = 4096 — its
+    instance one warp per env past 32 velocity DOFs (the generic
+    warp-per-env one, ptxas's registers and spills and the envs per SM
+    printed), against its plain version at :data:`TOL` (per-env medians,
+    the tail of :data:`WIDE_TAIL` within ten times), against its
+    ``engine_k1.cu`` twin at :data:`TOL_TWIN` (the same tail), within three
+    times the 1e-7 q̇-nudge floor over all envs (:func:`rounding_floor`), on
+    H35's walker states near contact (its PD key with random joint targets)
+    and R64's (:func:`worst_env`); then H35 through ``make`` for the drives of
+    :data:`WIDE_DRIVES` (one launch of its instance a control step) and R64
+    through ``make_control_step`` for :data:`R64_STEPS` control steps; each
+    timed beside its bound and its twin. Returns label → {kernel, max_abs,
+    times, launches, twin_ms}."""
+    cuda = lambda arrays: [torch.as_tensor(x, device="cuda") for x in arrays]  # noqa: E731
+    states = {"h35": near_contact_states, "h35_pd": pd_target_states, "r64": r64_states}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, (kernel, twin, model) in pairs.items():
+        inst = kernel.instance
+        check(inst.source == engine.SOURCE_W and inst.index is None and model.nv > 32
+              and twin.instance.source == engine.SOURCE,
+              f"{label}: {kernel.name} is not a generic warp-per-env instance past 32 DOFs, or "
+              f"{twin.name} not its thread-per-env twin")
+        lib = engine.build()[kernel.name]
+        got, occ = ptxas(engine._Library.logs.get(kernel.name, "")), engine.occupancy(lib,
+                                                                                     kernel.name)
+        print(f"[wide] {label} ({kernel.variant}): NL {model.nl}, NV {model.nv} ("
+              f"{-(-model.nv // 32)} DOFs per lane), NS {model.ns}, NLIM {kernel.key.nlim}; "
+              f"{kernel.name}: {got['registers']} registers, spill stores {got['spill_stores']} / "
+              f"loads {got['spill_loads']} bytes, {engine.warp_env_bytes(kernel.key)} bytes an "
+              f"env, {occ['envs_per_block']} envs × {occ['blocks_per_sm']} block = "
+              f"{occ['envs_per_sm']} envs per SM, {occ['envs_per_sm'] * sms} on the {sms} SMs; "
+              f"twin {twin.name} ({ptxas(engine._Library.logs.get(twin.name, ''))})")
+        args = cuda(states[label](model, rng))
+        tail = WIDE_TAIL[label]
+        max_abs = compare(kernel, args, label, TOL, tail=tail)
+        worst_env(engine, kernel, twin, args, label)
+        max_abs = max(max_abs, compare_twins(kernel, twin, args, label, TOL_TWIN, tail))
+        rounding_floor(kernel, twin, args, label, torch.ones(B, dtype=torch.bool, device="cuda"))
+        if label in WIDE_DRIVES:
+            env_id, steps = WIDE_DRIVES[label]
+            launches, state, _, _, step_ms, sums = drive(
+                port, engine, card, env_id, steps, kernel.variant, sums=("fallen",),
+                instance=kernel.name, model=model)
+            print(f"[main] {env_id} made with H35: {kernel.variant} by {kernel.name}, "
+                  f"{step_ms:.3f} ms per control step, falls {sums['fallen']:.0f}, base height "
+                  f"at the end median {float(state.q[:, 2].median()):.4f} m, at B={B} on {card}")
+        else:
+            launches = combination_path(engine, kernel, args, R64_STEPS)
+        times = time_and_bound(engine, card, kernel, args)
+        twin_ms = time_call(twin.launch, args, WIDE_TWIN_CALLS, warmup=1)
+        ratio = times["ms"] / times["bound_ms"]
+        print(f"[time] {label}: {kernel.name} {times['ms']:.4f} ms/call, its twin {twin.name} "
+              f"{twin_ms:.4f} ({twin_ms / times['ms']:.2f}× the warp instance), bound "
+              f"{times['bound_ms']:.5f} by {times['bound_by']} ({ratio:.1f}× it), plain "
+              f"{times['plain_ms']:.3f} ms/call, at B={B} on {card}")
+        out[label] = {"kernel": kernel, "max_abs": max_abs, "times": times,
+                      "launches": launches, "twin_ms": twin_ms}
+        del args
+    return out
+
+
 def device_busy(events) -> tuple:
     """(the device events of a Chrome trace, µs in which the device was
     busy, µs from the first event's start to the last one's end)."""
@@ -3165,11 +3571,15 @@ def main() -> int:
                                               split(config) if label.endswith("_si") else config,
                                               thread_per_env=tpe) for tpe in (False, True))
               for label in (*COMBINATIONS, "a_mesh_pd_si")}
+    # the keys past 32 velocity DOFs (phase wide): H35's torque and PD keys
+    # and R64's, each with its thread-per-env twin
+    wide_pairs = wide_kernels(engine, config, "cuda")
 
     # ---- phase 1: build
     t0 = time.perf_counter()
     extra = [*added.values(), *thread_twins.values(), matfree_off, *aform_twins.values(),
-             *(k for pair in combos.values() for k in pair)]
+             *(k for pair in combos.values() for k in pair),
+             *(k for kernel, twin, _ in wide_pairs.values() for k in (kernel, twin))]
     engine.build([k.instance for k in extra])
     generic = sum(k.instance.index is None for k in extra)
     print(f"[build] {len(engine.WARP_INSTANCES)} warp-per-env K1 instances, "
@@ -3601,6 +4011,13 @@ def main() -> int:
 
     lap("combinations")
 
+    # ---- phase wide: K1 past 32 velocity DOFs, one warp per env
+    t0 = time.perf_counter()
+    widened = wide(port, engine, card, wide_pairs, np.random.default_rng(SEED + 28))
+    print(f"[wide] phase done in {time.perf_counter() - t0:.1f} s on {card}")
+
+    lap("wide")
+
     # ---- phase 3 (training): the PPO trainer's CLI with --split-impulse
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
@@ -3781,7 +4198,16 @@ def main() -> int:
         "max_abs_err": got["max_abs"],
         **got["times"],
         "library_ms": None,
-    } for label, got in combined.items()]}))
+    } for label, got in combined.items()] + [{
+        "name": WIDE_NAMES[label],
+        "route": "cuda",
+        "source": SOURCE_W,
+        "replaces": REPLACES,
+        "launches": got["launches"],
+        "max_abs_err": got["max_abs"],
+        **got["times"],
+        "library_ms": None,
+    } for label, got in widened.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -48,14 +48,17 @@
 //        clamped alone, a butterfly each), and with a CRBA and factor in
 //        every substep (reuse_factor off), each K1a's shape;
 //   K1 cold  K1a's key with a cold start (warm_start off: Cfg::WARM false);
-//   and any other key this source holds (NV <= 32, PD mode or one llc
-//        frame per call: other substeps and sweeps, model sizes, windows,
-//        option mixes, PD keys of several llc frames, and any mix of a
-//        heightfield, stones, a mesh and bars beside PD mode, equality rows
-//        and extra damping, as the TPU kernel composes them), as one
+//   and any other key this source holds (PD mode or one llc frame per
+//        call, and one env beside the model table in an SM's shared memory:
+//        other substeps and sweeps, model sizes past 32 velocity DOFs too,
+//        windows, option mixes, PD keys of several llc frames, and any mix
+//        of a heightfield, stones, a mesh and bars beside PD mode, equality
+//        rows and extra damping, as the TPU kernel composes them), as one
 //        instance built from -DK1W_* flags (K1W_NAME and the Cfg arguments;
 //        ops/cuda/engine.py::warp_instance picks its launch shape: as many
 //        envs per block as an SM's shared memory holds, one block per SM).
+//        A key whose env fits no SM runs its engine_k1.cu instance
+//        (ops/cuda/engine.py::instance_for).
 //
 // Replaces the TPU kernel mocca_envs_tpu/ops/pallas/engine.py::
 // make_pallas_substep (pallas_call at :1441) for those configurations (with
@@ -111,7 +114,10 @@
 // friction ~52×, ~16× faster and 1.04× K1a's time, and a factor every
 // substep ~49×, ~13× faster and 1.21× K1a's time (PERF.md §6). The
 // monkey's NV = 16 leaves half the lanes idle in the DOF loops, the planar
-// walkers' NV = 12 twenty of 32.
+// walkers' NV = 12 twenty of 32. Past 32 DOFs each DOF loop takes two
+// slots a lane: a 35-DOF humanoid runs ~66× its bound at 12 envs per SM,
+// ~16× faster than its thread-per-env twin, a 64-DOF rig ~95× at 3 envs
+// per SM (59 KB an env), ~30× faster (PERF.md §6, "K1 wide").
 //
 // Design.
 //   - One warp per env, C::ENVS warps per block, registers for C::BLOCKS
@@ -121,7 +127,8 @@
 //   - Nothing per env in global memory: the state, the link kinematics, the
 //     factor L (packed lower), W (NR rows of stride WS, NV rounded up to an
 //     odd count, so that the 32 rows the lanes solve side by side fall in 32
-//     banks), λ, c, the diagonals and the activity sit in one EnvW of dynamic
+//     banks, and a DOF vector's two lane slots read rows of consecutive
+//     words), λ, c, the diagonals and the activity sit in one EnvW of dynamic
 //     shared memory; the Newton–Euler and CRBA scratch share W's space, which
 //     is written after them. The global workspace is empty (ws_per_env 0);
 //     the model table is staged once per block.
@@ -188,6 +195,20 @@
 //     W, L read as a broadcast), c_r and the diagonal. The walker's instance:
 //     64 registers, no spill: the row solved in 27 registers instead ran ~15%
 //     faster but spilled at the 128 that four blocks per SM allow.
+//   - Past 32 of anything, lane ℓ takes items ℓ, ℓ + 32, ... in turn: links
+//     (one tree level spans both slots; a link's parent sits a level above,
+//     so the order within a level does not matter), spheres, limit rows,
+//     active rows (the ballot lists them 32 at a time) and DOFs. A DOF
+//     vector is NVL = ⌈NV / 32⌉ floats per lane (DOF j in slot j / 32 of
+//     lane j % 32): a pivot is read from its slot by a select, not an
+//     index, so that the slots stay in registers, and a row's dot with z
+//     sums the lane's slots in slot order before the butterfly. All of it
+//     stays in one warp (no named barrier), and an instance with NV <= 32
+//     (NVL = 1) compiles as before. REGCHOL holds NVL rows of NV floats per
+//     lane: 128 registers at NV = 64, so a generic key sets it only up to
+//     NV = 32. One warp per env against two: two would halve the DOF loops'
+//     serial depth but put a barrier in every triangular solve and PGS visit
+//     (PERF.md §6, "K1 wide").
 //   - Inactive rows are skipped: the active rows are listed once per substep
 //     (a ballot per 32 rows; the equality rows always, first) and only they
 //     get a W solve, a diagonal, a 2×2 friction inverse and a visit. Under
@@ -426,7 +447,6 @@ struct Cfg {
   // stones, mesh, bars), which resets each sphere's normal to the plane's
   static constexpr bool FIRST_K = PHF == 0, FIRST_KT = FIRST_K && K == 0;
   static constexpr bool FIRST_KB = FIRST_KT && KT == 0;
-  static_assert(L::NV <= 32, "one lane per velocity DOF");
 };
 
 // component c of a × b
@@ -607,6 +627,13 @@ HD inline float owned(const float (&v)[N], int i) {
   float x = v[0];
   for (int k = 1; k < N; ++k) x = k == i ? v[k] : x;
   return x;
+}
+
+// entry i of a lane-owned vector (slot i / WIDTH of lane i % WIDTH), to
+// every lane
+template <int N>
+HD inline float bcast_owned(const float (&v)[N], int i) {
+  return wbcast(owned(v, i / WIDTH), i % WIDTH);
 }
 
 // The depth of each link in the tree (root 0) and the largest.
@@ -1050,24 +1077,24 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     }
   }
 
-  // L y = b and Lᵀ x = y on a lane-owned vector (lane j holds DOF j),
-  // column by column, each pivot broadcast from its lane
-  auto fwd_lanes = [&](float* y) {
+  // L y = b and Lᵀ x = y on a lane-owned vector (DOF j in slot j / WIDTH
+  // of lane j % WIDTH), column by column, each pivot broadcast from its lane
+  auto fwd_lanes = [&](float (&y)[NVL]) {
     for (int i = 0; i < NV; ++i) {
       for (int jj = 0; jj < NVL; ++jj)
         if (lane + jj * WIDTH == i) y[jj] *= e.dinv[i];
-      const float yi = wbcast(y[i / WIDTH], i % WIDTH);
+      const float yi = bcast_owned(y, i);
       for (int jj = 0; jj < NVL; ++jj) {
         const int k = lane + jj * WIDTH;
         if (k > i && k < NV) y[jj] -= Lx(k, i) * yi;
       }
     }
   };
-  auto bwd_lanes = [&](float* x) {
+  auto bwd_lanes = [&](float (&x)[NVL]) {
     for (int i = NV - 1; i >= 0; --i) {
       for (int jj = 0; jj < NVL; ++jj)
         if (lane + jj * WIDTH == i) x[jj] *= e.dinv[i];
-      const float xi = wbcast(x[i / WIDTH], i % WIDTH);
+      const float xi = bcast_owned(x, i);
       for (int jj = 0; jj < NVL; ++jj) {
         const int k = lane + jj * WIDTH;
         if (k < i) x[jj] -= Lx(i, k) * xi;
@@ -1371,7 +1398,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
   }
   // the A-form's residual of position t, broadcast from its lane, and the
   // lane's residuals moved by A's row t times d
-  auto res_at = [&](int t) { return wbcast(owned(res, t / WIDTH), t % WIDTH); };
+  auto res_at = [&](int t) { return bcast_owned(res, t); };
   auto res_move = [&](int t, float d) {
     for (int jj = 0; jj < NRL; ++jj) {
       const int p = lane + jj * WIDTH;
@@ -1781,17 +1808,19 @@ extern "C" int k1w_smem_limits(int* per_sm, int* per_block, int* reserved) {
 #endif
 
 #ifdef K1W_NAME
-// Any other key the source holds (NV <= 32, PD mode or one llc frame per
-// call; any mix of a heightfield, stones, a mesh and bars): one instance
-// whose name, Cfg arguments and launch shape come from -D macros
-// (ops/cuda/engine.py::compile_flags), built at its first use; REGCHOL where
-// a factor is made in every substep of the matrix-free form, as the refactor
-// key ships it. (One more expansion, so that the name is substituted before
-// it is pasted.)
+// Any other key the source holds (PD mode or one llc frame per call, one
+// env in an SM; any model size, any mix of a heightfield, stones, a mesh and
+// bars): one instance whose name, Cfg arguments and launch shape come from
+// -D macros (ops/cuda/engine.py::compile_flags), built at its first use;
+// REGCHOL where a factor is made in every substep of the matrix-free form,
+// as the refactor key ships it, up to NV = NL + 5 = 32 (past that its rows
+// take NVL × NV registers a lane: 128 at NV = 64). (One more expansion, so that the
+// name is substituted before it is pasted.)
 #define K1W_GENERIC(...) K1W_INSTANCE(__VA_ARGS__)
 K1W_GENERIC(K1W_NAME, K1W_NL, K1W_NS, K1W_NLIM, K1W_NSUB, K1W_ITERS, K1W_PD, K1W_NLLC, K1W_NP2P,
             K1W_PLANAR, K1W_ENVS, K1W_BLOCKS, K1W_PHF, K1W_K, K1W_KT, K1W_SPLIT, K1W_KB,
-            K1W_NGRAB, K1W_MATFREE, K1W_BLOCK, K1W_WARM, K1W_REUSE, K1W_MATFREE && !K1W_REUSE)
+            K1W_NGRAB, K1W_MATFREE, K1W_BLOCK, K1W_WARM, K1W_REUSE,
+            K1W_MATFREE && !K1W_REUSE && K1W_NL + 5 <= 32)
 #else
 // Walker3D / Child3D at the shipped EngineConfig: 22 links, 14 spheres, 21
 // limit rows, 4 substeps, 4 sweeps (K1a); 4 envs per block, 4 blocks per SM

@@ -24,9 +24,11 @@ walker's split key in the A-form; the walker's key in the A-form, alone
 and with the other three PGS options off; and the walker's key with scalar
 friction rows, with a factor in every substep and with a cold start), and
 any other key it holds (:func:`warp_holds`: PD at several llc frames per
-launch too) on a generic warp-per-env instance; and ``csrc/engine_k1.cu``,
-one thread per env, for the keys it cannot hold (more than 27 links), and
-as the thread-per-env twin of every key. Any scene combination the TPU
+launch too, and models past 32 velocity DOFs, a lane holding ⌈NV / 32⌉ of
+them) on a generic warp-per-env instance; and ``csrc/engine_k1.cu``, one
+thread per env, for the keys it cannot hold (a torque key of several llc
+frames, or one whose env fits no SM's shared memory), and as the
+thread-per-env twin of every key. Any scene combination the TPU
 kernel composes (several geometries in one instance, PD mode, equality rows
 or extra damping beside any of them) is a key of both sources, wrapped by
 :class:`K1x` where no shipped family runs it. An
@@ -288,13 +290,16 @@ WARP_MAX_ENVS = 32   # a block of 1,024 threads
 
 
 def warp_holds(key: Key) -> bool:
-    """Whether ``csrc/engine_k1w.cu`` holds ``key``, from the key alone: one
-    lane per velocity DOF (NV = NL + 5 <= 32) and PD mode or one llc frame
-    per launch (the source runs a PD key's llc frames in one call, the
-    torque refreshed at each frame's start; torque mode launches once per
-    frame). Any mix of stones, a heightfield window, mesh faces and bars is
-    held (:func:`warp_env_bytes` counts each one's state)."""
-    return key.nl + 5 <= 32 and (key.pd or key.llc == 1)
+    """Whether ``csrc/engine_k1w.cu`` holds ``key``, from the key alone: PD
+    mode or one llc frame per launch (the source runs a PD key's llc frames
+    in one call, the torque refreshed at each frame's start; torque mode
+    launches once per frame), and one env beside the block's model table in
+    an SM's shared memory (:func:`warp_shape` gives at least one env per
+    block). Any model size is held: past 32 velocity DOFs a lane holds
+    ⌈NV / 32⌉ of them. Any mix of stones, a heightfield window, mesh faces
+    and bars is held too (:func:`warp_env_bytes` counts each one's
+    state)."""
+    return (key.pd or key.llc == 1) and warp_shape(key)[0] >= 1
 
 
 def table_floats(key: Key) -> int:
@@ -338,8 +343,10 @@ def warp_shape(key: Key) -> tuple[int, int]:
     (envs per block, blocks per SM). As many envs per block as one SM's
     shared memory holds beside the block's model table, less the runtime's
     reserve, at most 32; one block per SM, so that the registers may take
-    up to 65,536 / (32 · envs). 0 envs where not one env fits: :func:`build`
-    refuses that instance, naming the key and the bytes."""
+    up to 65,536 / (32 · envs). 0 envs where not one env fits: such a key
+    runs its ``engine_k1.cu`` instance (:func:`warp_holds`,
+    :func:`instance_for`), and :func:`build` refuses a warp-per-env instance
+    asked for at that shape, naming the key and the bytes."""
     table = ((table_floats(key) + key.nl) * 4 + 15) // 16 * 16
     room = min(SM90_SMEM["per_sm"] - SM90_SMEM["reserved_per_block"],
                SM90_SMEM["per_block"]) - table
@@ -360,10 +367,13 @@ def warp_instance(key: Key, envs: int | None = None, blocks: int | None = None) 
 def instance_for(key: Key, thread_per_env: bool = False) -> Instance:
     """The instance that runs ``key``, in this order: its named warp-per-env
     instance; else, where ``csrc/engine_k1w.cu`` holds the key
-    (:func:`warp_holds`, a rule on the key alone), the generic warp-per-env
-    one (:func:`warp_instance`); else its named ``engine_k1.cu`` instance;
-    else the generic ``engine_k1.cu`` one. ``thread_per_env`` skips the
-    first two: the named ``engine_k1.cu`` instance, or the generic one."""
+    (:func:`warp_holds`, a rule on the key alone: PD mode or one llc frame,
+    and one env fits an SM), the generic warp-per-env one
+    (:func:`warp_instance`); else its named ``engine_k1.cu`` instance; else
+    the generic ``engine_k1.cu`` one (a key whose env fits no SM runs there
+    rather than raise). ``thread_per_env`` skips the first two: the named
+    ``engine_k1.cu`` instance, or the generic one. A build or launch failure
+    of the instance picked raises; nothing falls back."""
     if not thread_per_env:
         if key in WARP_INSTANCES:
             return WARP_INSTANCES[key]
@@ -441,9 +451,10 @@ def build(instances=()) -> dict:
     or older than its sources, all compilers started together, and load
     them: ``{symbol: CDLL}``. What is loaded already is kept; a failed
     build raises with nvcc's output, and so does a generic warp-per-env
-    instance that holds no whole env in an SM's shared memory, or a
-    warp-per-env library that counts another env size than
-    :func:`warp_env_bytes`;
+    instance that holds no whole env in an SM's shared memory (one asked
+    for at an explicit shape: :func:`instance_for` sends such a key to
+    ``engine_k1.cu``), or a warp-per-env library that counts another env
+    size than :func:`warp_env_bytes`;
     ``_Library.logs`` keeps nvcc's report per symbol."""
     insts = {i.symbol: i for i in [*WARP_INSTANCES.values(), *INSTANTIATIONS.values(),
                                    *instances]}

@@ -15,15 +15,18 @@ instances of the same keys).
   ``-DK1W_NAME`` flag (``k1w``, the tags of its key, the launch shape: as
   many envs per block as an SM's shared memory holds, one block per SM),
   and so do PD keys of several llc frames (Cassie at five, the PD walker at
-  two, split or not); a model of more than 27 links and two scene
-  geometries stay on ``engine_k1.cu``, and so does a torque key of several
+  two, split or not), and so do models of more than 27 links and several
+  scene geometries in one instance; a key whose env fits no SM's shared
+  memory stays on ``engine_k1.cu``, and so does a torque key of several
   llc frames; ``thread_per_env=True`` always gives the ``engine_k1.cu``
   instance.
 - The env size the host picks the launch shape from
   (``engine.warp_env_bytes``) is the source's own ``sizeof`` of the env
   (``<sym>_env_bytes``), for every named warp-per-env instance and the
-  generic ones; a key whose env fits no SM raises at build, naming its
-  bytes; a library's identity changes with its flags.
+  generic ones; a key whose env fits no SM runs its ``engine_k1.cu``
+  instance, and its warp-per-env instance, asked for at that shape, is
+  refused at build, naming its bytes; a library's identity changes with its
+  flags.
 - At B = 16 on chip_smoke.py's near-contact walker states and stepper
   states, and with every base lifted 3 m, each new instance agrees with the
   port's plain unit at ``TOL`` and with its thread-per-env twin's host build
@@ -219,15 +222,19 @@ def test_keys_of_several_llc_frames_stay_on_engine_k1(build, symbol, index):
 
 
 def test_keys_the_warp_source_cannot_hold():
-    """NV = NL + 5 above 32 lanes or a torque key of several llc frames take
-    the engine_k1.cu instance; any other key (a PD key of several llc frames
-    too, and several scene geometries in one instance) one warp per env."""
+    """A key whose env fits no SM's shared memory (NV 64 and NS 64 in the
+    A-form: 210,900 bytes) or a torque key of several llc frames takes the
+    engine_k1.cu instance; any other key (more than 32 velocity DOFs, a PD
+    key of several llc frames, several scene geometries in one instance)
+    one warp per env."""
     base = engine.Key(**engine._W)
+    nofit = engine.Key(nl=59, ns=64, nlim=58, substeps=4, iters=4, matfree=False)
     for key, holds in ((dataclasses.replace(base, nl=27, nlim=20), True),
-                       (dataclasses.replace(base, nl=28, nlim=20), False),
+                       (dataclasses.replace(base, nl=28, nlim=20), True),
                        (dataclasses.replace(base, stones=6, hf=16), True),
                        (dataclasses.replace(base, tris=8, bars=4), True),
-                       (dataclasses.replace(base, nl=28, nlim=20, stones=6, tris=8), False),
+                       (dataclasses.replace(base, nl=28, nlim=20, stones=6, tris=8), True),
+                       (nofit, False), (dataclasses.replace(nofit, matfree=True), True),
                        (dataclasses.replace(base, pd=True, llc=3), True),
                        (dataclasses.replace(base, llc=3), False),
                        (dataclasses.replace(base, pd=True, substeps=2, iters=8), True),
@@ -275,15 +282,19 @@ def test_env_bytes_are_the_sources():
 
 
 def test_a_key_whose_env_fits_no_sm_raises_at_build():
-    """A generic warp-per-env instance that holds no whole env in an SM's
-    shared memory is refused at build, naming its bytes, before any
-    compiler runs; it does not take the thread-per-env path."""
+    """A generic warp-per-env instance asked for at a shape that holds no
+    whole env in an SM's shared memory is refused at build, naming its
+    bytes, before any compiler runs; the key itself runs its engine_k1.cu
+    instance (``instance_for``), which is its thread-per-env twin."""
     key = engine.Key(nl=22, ns=120, nlim=21, substeps=2, iters=8, matfree=False)
-    inst = engine.instance_for(key)
+    inst = engine.warp_instance(key)
     assert inst.source == engine.SOURCE_W and inst.envs == 0
     assert engine.warp_env_bytes(key) > engine.SM90_SMEM["per_sm"]
     with pytest.raises(RuntimeError, match=f"{engine.warp_env_bytes(key)} bytes"):
         engine.build([inst])
+    routed = engine.instance_for(key)
+    assert routed.source == engine.SOURCE and routed.symbol == engine.canonical_symbol(key)
+    assert routed == engine.instance_for(key, thread_per_env=True)
 
 
 def test_library_identity_changes_with_its_flags():
