@@ -1,0 +1,9 @@
+"""K1's ms a step in its integrate phase (qd' and the semi-implicit integration
+with its limit backstop): the traced stretch's ``k1_ms`` times the phase's
+share of the clocked kernel's cycles (benchmark/k1_phases.py)."""
+
+from benchmark import k1_phases
+
+
+def read(reading):
+    return k1_phases.phase_ms(reading, "integrate")

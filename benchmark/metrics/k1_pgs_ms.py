@@ -1,0 +1,9 @@
+"""K1's ms a step in its pgs phase (the PGS sweeps, and the split position pass
+where it is on): the traced stretch's ``k1_ms`` times the phase's share of
+the clocked kernel's cycles (benchmark/k1_phases.py)."""
+
+from benchmark import k1_phases
+
+
+def read(reading):
+    return k1_phases.phase_ms(reading, "pgs")

@@ -1263,9 +1263,16 @@ def aform_workspace(engine, kernel, twin, label: str) -> None:
 
 def ptxas(log: str) -> dict:
     """Registers, static shared memory, stack frame and spills (bytes) of the
-    one kernel in an nvcc ``-Xptxas -v`` report."""
+    one kernel in an nvcc ``-Xptxas -v`` report: of a warp-per-env library's
+    two entries the shipped ``k1w_kernel<C, false>``, not its clocked twin
+    ``k1w_kernel<C, true>`` (whose mangled name ends its template arguments
+    in ``Lb1EEEv``)."""
     import re
 
+    parts = re.split(r"Compiling entry function '([^']+)'", log)
+    if len(parts) > 3:
+        log = "".join(parts[j + 1] for j in range(1, len(parts), 2)
+                      if "Lb1EEEv" not in parts[j])
     found = {}
     for key, pattern in (("registers", r"Used (\d+) registers"), ("smem", r"(\d+) bytes smem"),
                          ("frame", r"(\d+) bytes stack frame"),

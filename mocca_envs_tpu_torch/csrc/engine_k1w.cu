@@ -410,6 +410,67 @@ __device__ __forceinline__ void wsync() { __syncwarp(); }
 __device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
 #endif
 
+// The phases of the clocked kernel (k1w_kernel<C, true>, <sym>_launch_phases;
+// <sym>_host_phases on the host), in ops/cuda/engine.py::PHASES's order:
+//   io           the table into shared memory, the env's state and scene in,
+//                and the results out
+//   fk           FK along the chain, and the rods' and grabs' anchors
+//   narrowphase  every sphere against the plane, window, stones, faces or bars
+//   bias         the Newton–Euler bias; in PD mode also the frame's torque
+//   factor       CRBA and Cholesky
+//   rows         free velocity, the rows, and W = L⁻¹Jᵀ (the A-form: and A)
+//   pgs          the sweeps, and the split position pass
+//   integrate    qd' and the semi-implicit integration with its limit backstop
+enum Phase : int { PH_IO, PH_FK, PH_NARROW, PH_BIAS, PH_FACTOR, PH_ROWS, PH_PGS, PH_INTEGRATE,
+                   NPHASE };
+
+// An env's phase clock in the clocked kernel. A stamp, made where the warp
+// has converged, adds the cycles since the previous stamp to one phase and,
+// where it closes a visit, one visit, so that consecutive stamps cover the
+// warp's time from kernel entry to its last store. The call's counts stay in
+// registers (a stamp's phase is a constant where it is inlined), 32 bits
+// each; at the call's end lane 0 adds them into the env's NPHASE (cycles,
+// visits) pairs of a global 64-bit buffer. (On an H100 a global atomic at
+// each stamp cost the walker's K1a 3.0% and these registers 1.7%; another
+// arrangement of the same counts, 2.4–3.0%: the clocked kernel's code is
+// scheduled anew around its stamps.) On the card a stamp reads clock64();
+// under K1W_HOST_CHECK a per-env counter that each stamp advances by one,
+// so that a phase's cycles count the stamps that closed in it. The shipped
+// kernel passes no clock: each stamp is a fold over an empty pack, and its
+// code is what it was.
+struct PhaseClock {
+  unsigned long long* acc;    // the env's NPHASE (cycles, visits) pairs
+  long long t0;               // the previous stamp
+  int lane;
+  unsigned cyc[NPHASE] = {};  // the call's cycles per phase
+  unsigned vis[NPHASE] = {};  // and visits
+  HD void stamp(int p, bool visit = true) {
+    wsync();
+#ifdef K1W_HOST_CHECK
+    const long long t = t0 + 1;
+#else
+    const long long t = clock64();
+#endif
+    cyc[p] += (unsigned)(t - t0);
+    if (visit) vis[p] += 1u;
+    t0 = t;
+  }
+  // the call's counts into the env's pairs
+  HD void flush() {
+    if (lane == 0)
+#pragma unroll
+      for (int p = 0; p < NPHASE; ++p) {
+#ifdef K1W_HOST_CHECK
+        acc[2 * p] += cyc[p];
+        acc[2 * p + 1] += vis[p];
+#else
+        atomicAdd(acc + 2 * p, (unsigned long long)cyc[p]);
+        atomicAdd(acc + 2 * p + 1, (unsigned long long)vis[p]);
+#endif
+      }
+  }
+};
+
 // One instance: the model's sizes, the substeps and sweeps, the actuation
 // (PD: NLLC llc frames per call), the equality rows, the launch's envs
 // (warps) per block and the blocks per SM its registers are sized for (at
@@ -649,9 +710,9 @@ HD inline int tree_depths(const float* parent, int* depth) {
   return most;
 }
 
-template <class C>
+template <class C, class... Ck>
 HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int lane,
-                bool factorize) {
+                bool factorize, Ck&... ck) {
   using L = typename C::L;
   constexpr int NL = C::NL, NS = C::NS, NLIM = C::NLIM, WS = C::WS;
   constexpr int NJ = L::NJ, NV = L::NV, NR = L::NR, NE = L::NE, NE0 = L::NE0;
@@ -696,6 +757,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     }
     wsync();
   }
+  (ck.stamp(PH_FK), ...);
 
   // ---------------- spheres vs the plane, then vs the heightfield window,
   // the stones, the mesh faces and the bars, in that order (ops/collide.py's):
@@ -856,6 +918,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     }
     wsync();   // the pairs' space is the Newton–Euler pass's next
   }
+  (ck.stamp(PH_NARROW), ...);
   // ---------------- the rods' anchors in the world frame, one per lane
   if constexpr (C::NP2P > 0)
     for (int k = lane; k < 2 * C::NP2P; k += WIDTH) {
@@ -877,6 +940,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       matvec3(R, gr + 1, e.gx[g]);
       for (int d = 0; d < 3; ++d) e.gx[g][d] += e.pos[l][d];
     }
+  (ck.stamp(PH_FK, false), ...);
 
   // ---------------- Newton–Euler bias (q̈ = 0, base acceleration −g)
   {
@@ -940,6 +1004,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       K.bias[i] = i < 3 ? ne.f[0][i] : i < 6 ? ne.n[0][i - 3] : dot3(e.ja[i - 6], ne.n[i - 5]);
     wsync();
   }
+  (ck.stamp(PH_BIAS), ...);
 
   // ---------------- frame start: CRBA (composites about the base origin)
   // and the Cholesky factor, held for the frame's other substeps
@@ -1075,6 +1140,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
         wsync();
       }
     }
+    (ck.stamp(PH_FACTOR), ...);
   }
 
   // L y = b and Lᵀ x = y on a lane-owned vector (DOF j in slot j / WIDTH
@@ -1420,6 +1486,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       if (j < NV) v[jj] += e.u.W[r * WS + j] * d;
     }
   };
+  (ck.stamp(PH_ROWS), ...);
 
   // ---------------- PGS over the active rows, in the serial order: the
   // equality rows unbounded (a grab's masked by its activity), a limit or a
@@ -1536,6 +1603,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     if constexpr (!C::MATFREE)
       w_times(zp, neq, true, [&](int, int r) { return e.lpos[kpos(r)]; });
   }
+  (ck.stamp(PH_PGS), ...);
 
   // ---------------- impulse map and integration
   bwd_lanes(z);
@@ -1587,6 +1655,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
     if (i < NV) e.qd[i] = qdn[jj];
   }
   wsync();
+  (ck.stamp(PH_INTEGRATE), ...);
 }
 
 // One call for env t: NLLC llc frames of NSUB substeps, λ zeroed once at the
@@ -1596,14 +1665,15 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
 // KT > 0 / KB > 0 / NGRAB > 0: column t of the component-major ``stones``
 // (K·11, B) / ``tris`` (KT·10, B) / ``bars`` (KB·8, B) / ``grabs`` (NGRAB·4,
 // B) holds the env's stones / faces / bars / grab state, staged here once
-// for the call.
-template <class C>
+// for the call. ``ck``: the clocked kernel's phase clock (none in the
+// shipped kernel).
+template <class C, class... Ck>
 KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const float* gz,
                       const float* fric, const float* stones, const float* bars,
                       const float* grabs, const float* hf,
                       const float* tris, float* q_out, float* qd_out, float* depth_out,
                       float* nimp_out, const float* tab, const int* level, int maxd, EnvW<C>& e,
-                      int B, int t, int lane) {
+                      int B, int t, int lane, Ck&... ck) {
   using L = typename C::L;
   for (int i = lane; i < L::NQ; i += WIDTH) e.q[i] = q[(long long)t * L::NQ + i];
   for (int i = lane; i < L::NV; i += WIDTH) e.qd[i] = qd[(long long)t * L::NV + i];
@@ -1639,14 +1709,16 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
     }
   }
   wsync();
+  (ck.stamp(PH_IO, false), ...);
   for (int llc = 0; llc < C::NLLC; ++llc) {
     if constexpr (C::PD) {
       for (int j = lane; j < L::NJ; j += WIDTH)
         e.tau[j] = tab[L::PDGAIN + j] * (e.target[j] - e.q[7 + j]);
       wsync();
+      (ck.stamp(PH_BIAS, false), ...);
     }
     for (int sub = 0; sub < C::NSUB; ++sub)   // REUSE: the factor of each frame's first substep
-      substep<C>(e, tab, level, maxd, lane, sub == 0 || !C::REUSE);
+      substep<C>(e, tab, level, maxd, lane, sub == 0 || !C::REUSE, ck...);
   }
   for (int i = lane; i < L::NQ; i += WIDTH) q_out[(long long)t * L::NQ + i] = e.q[i];
   for (int i = lane; i < L::NV; i += WIDTH) qd_out[(long long)t * L::NV + i] = e.qd[i];
@@ -1654,6 +1726,8 @@ KERNEL_DEV void frame(const float* q, const float* qd, const float* tau, const f
     depth_out[(long long)t * C::NS + s] = e.depth[s];
     nimp_out[(long long)t * C::NS + s] = e.lam[L::NE + C::NLIM + 3 * s];
   }
+  (ck.stamp(PH_IO), ...);
+  (ck.flush(), ...);
 }
 
 // Whether the scene inputs the instance reads are given: the stones, the
@@ -1674,7 +1748,9 @@ struct Smem {
   static constexpr int BYTES = ENV_OFF + C::ENVS * (int)sizeof(EnvW<C>);
 };
 
-template <class C>
+// The shipped kernel (CLOCKED false) and the clocked one, which adds each
+// env's phase cycles and visits into ``clocks`` (B, NPHASE, 2).
+template <class C, bool CLOCKED>
 __global__ void __launch_bounds__(32 * C::ENVS, C::BLOCKS)
 k1w_kernel(const float* __restrict__ q, const float* __restrict__ qd,
            const float* __restrict__ tau, const float* __restrict__ gz,
@@ -1682,7 +1758,10 @@ k1w_kernel(const float* __restrict__ q, const float* __restrict__ qd,
            const float* __restrict__ bars, const float* __restrict__ grabs,
            const float* __restrict__ hf, const float* __restrict__ tris,
            float* __restrict__ q_out, float* __restrict__ qd_out, float* __restrict__ depth_out,
-           float* __restrict__ nimp_out, const float* __restrict__ table, int B) {
+           float* __restrict__ nimp_out, const float* __restrict__ table, int B,
+           unsigned long long* __restrict__ clocks) {
+  long long t0 = 0;
+  if constexpr (CLOCKED) t0 = clock64();
   using L = typename C::L;
   extern __shared__ float4 smem[];
   float* tab = reinterpret_cast<float*>(smem);
@@ -1697,28 +1776,39 @@ k1w_kernel(const float* __restrict__ q, const float* __restrict__ qd,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = blockIdx.x * C::ENVS + warp;
   if (t >= B) return;   // the whole warp
-  frame<C>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out, depth_out,
-           nimp_out, tab, level, maxd, envs[warp], B, t, lane);
+  if constexpr (CLOCKED) {
+    PhaseClock ck{clocks + (long long)t * 2 * NPHASE, t0, lane};
+    frame<C>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out, depth_out,
+             nimp_out, tab, level, maxd, envs[warp], B, t, lane, ck);
+  } else {
+    frame<C>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out, depth_out,
+             nimp_out, tab, level, maxd, envs[warp], B, t, lane);
+  }
 }
 
-template <class C>
+template <class C, bool CLOCKED = false>
 int prepare() {
-  return (int)cudaFuncSetAttribute(k1w_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   Smem<C>::BYTES);
+  return (int)cudaFuncSetAttribute(k1w_kernel<C, CLOCKED>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<C>::BYTES);
 }
 
-template <class C>
+// The shipped kernel, or (CLOCKED) the clocked one, at the same shape;
+// the clocked one refuses a null ``clocks``.
+template <class C, bool CLOCKED = false>
 int launch(const float* q, const float* qd, const float* tau, const float* gz, const float* fric,
            const float* stones, const float* bars, const float* grabs, const float* hf,
            const float* tris, float* q_out, float* qd_out, float* depth, float* nimp,
-           const float* table, int table_size, int B, void* stream) {
-  if (table_size != C::L::SIZE || B <= 0 || !scene_given<C>(stones, bars, grabs, hf, tris))
+           const float* table, int table_size, int B, void* stream,
+           unsigned long long* clocks = nullptr) {
+  if (table_size != C::L::SIZE || B <= 0 || !scene_given<C>(stones, bars, grabs, hf, tris) ||
+      (CLOCKED && clocks == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int err = prepare<C>();
+  const int err = prepare<C, CLOCKED>();
   if (err != 0) return err;
   const int blocks = (B + C::ENVS - 1) / C::ENVS;
-  k1w_kernel<C><<<blocks, 32 * C::ENVS, Smem<C>::BYTES, (cudaStream_t)stream>>>(
-      q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out, depth, nimp, table, B);
+  k1w_kernel<C, CLOCKED><<<blocks, 32 * C::ENVS, Smem<C>::BYTES, (cudaStream_t)stream>>>(
+      q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out, depth, nimp, table, B,
+      clocks);
   return (int)cudaGetLastError();
 }
 
@@ -1728,8 +1818,35 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
   if (err != 0) return err;
   *envs_per_block = C::ENVS;
   *smem_bytes = Smem<C>::BYTES;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k1w_kernel<C>,
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k1w_kernel<C, false>,
                                                             32 * C::ENVS, Smem<C>::BYTES);
+}
+#else
+// host check: the same per-env code at lane width 1, a plain loop over envs;
+// with ``clocks`` (B, NPHASE, 2) each env's phase clock too
+template <class C>
+int host(const float* q, const float* qd, const float* tau, const float* gz, const float* fric,
+         const float* stones, const float* bars, const float* grabs, const float* hf,
+         const float* tris, float* q_out, float* qd_out, float* depth, float* nimp,
+         const float* table, int table_size, int B, long long* clocks) {
+  if (table_size != C::L::SIZE || B <= 0 || !scene_given<C>(stones, bars, grabs, hf, tris))
+    return 1;
+  int dep[C::NL];
+  const int maxd = tree_depths<C::NL>(table + C::L::PARENT, dep);
+  auto* e = new EnvW<C>;
+  for (int t = 0; t < B; ++t) {
+    if (clocks != nullptr) {
+      PhaseClock ck{reinterpret_cast<unsigned long long*>(clocks) + (long long)t * 2 * NPHASE,
+                    0, 0};
+      frame<C>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out, depth, nimp,
+               table, dep, maxd, *e, B, t, 0, ck);
+    } else {
+      frame<C>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out, depth, nimp,
+               table, dep, maxd, *e, B, t, 0);
+    }
+  }
+  delete e;
+  return 0;
 }
 #endif
 
@@ -1742,8 +1859,12 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
 // shipped solver options, then envs per block and blocks per SM, then the
 // window's side, the stones and the faces where there are any, split
 // impulse, the bars and the grabs, and the PGS form and options;
-// ops/cuda/engine.py::WARP_INSTANCES lists the same names and numbers. Each library also exports k1w_smem_limits,
-// the card's shared memory per SM, per block and reserved per block.
+// ops/cuda/engine.py::WARP_INSTANCES lists the same names and numbers. Each
+// entry has a clocked twin, <sym>_launch_phases (on the host
+// <sym>_host_phases), which takes one more argument: the (B, NPHASE, 2)
+// 64-bit buffer the env's phase cycles and visits are added into. Each
+// library on the card also exports k1w_smem_limits, the card's shared memory
+// per SM, per block and reserved per block.
 #define K1W_LAYOUT(NAME, ...)                                                                \
   using NAME##_cfg = k1w::Cfg<__VA_ARGS__>;                                                  \
   extern "C" int NAME##_layout(int* table_size, int* ws_per_env) {                          \
@@ -1765,6 +1886,18 @@ int occupancy(int* blocks_per_sm, int* envs_per_block, int* smem_bytes) {
                                    q_out, qd_out, depth, nimp, table, table_size, B,        \
                                    stream);                                                 \
   }                                                                                          \
+  extern "C" int NAME##_launch_phases(const float* q, const float* qd, const float* tau,    \
+                                      const float* gz, const float* fric,                   \
+                                      const float* stones, const float* bars,               \
+                                      const float* grabs, const float* hf,                  \
+                                      const float* tris, float* q_out, float* qd_out,       \
+                                      float* depth, float* nimp, const float* table,        \
+                                      int table_size, float*, int B, void* stream,          \
+                                      long long* clocks) {                                  \
+    return k1w::launch<NAME##_cfg, true>(                                                    \
+        q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out, depth, nimp,     \
+        table, table_size, B, stream, reinterpret_cast<unsigned long long*>(clocks));        \
+  }                                                                                          \
   extern "C" int NAME##_occupancy(int* blocks_per_sm, int* envs_per_block,                  \
                                   int* smem_bytes) {                                        \
     return k1w::occupancy<NAME##_cfg>(blocks_per_sm, envs_per_block, smem_bytes);           \
@@ -1783,7 +1916,7 @@ extern "C" int k1w_smem_limits(int* per_sm, int* per_block, int* reserved) {
   return err;
 }
 #else
-// host check: the same per-env code at lane width 1, a plain loop over envs
+// host check: k1w::host, without and with the phase clock
 #define K1W_INSTANCE(NAME, ...)                                                              \
   K1W_LAYOUT(NAME, __VA_ARGS__)                                                              \
   extern "C" int NAME##_host(const float* q, const float* qd, const float* tau,             \
@@ -1792,18 +1925,18 @@ extern "C" int k1w_smem_limits(int* per_sm, int* per_block, int* reserved) {
                              const float* tris, float* q_out, float* qd_out, float* depth,  \
                              float* nimp, const float* table, int table_size, float*,       \
                              int B) {                                                        \
-    using C_ = NAME##_cfg;                                                                   \
-    if (table_size != C_::L::SIZE || B <= 0 ||                                               \
-        !k1w::scene_given<C_>(stones, bars, grabs, hf, tris))                                \
-      return 1;                                                                              \
-    int dep[C_::NL];                                                                         \
-    const int maxd = k1w::tree_depths<C_::NL>(table + C_::L::PARENT, dep);                   \
-    auto* e = new k1w::EnvW<C_>;                                                             \
-    for (int t = 0; t < B; ++t)                                                              \
-      k1w::frame<C_>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, qd_out,     \
-                     depth, nimp, table, dep, maxd, *e, B, t, 0);                            \
-    delete e;                                                                                \
-    return 0;                                                                                \
+    return k1w::host<NAME##_cfg>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, \
+                                 qd_out, depth, nimp, table, table_size, B, nullptr);       \
+  }                                                                                          \
+  extern "C" int NAME##_host_phases(const float* q, const float* qd, const float* tau,      \
+                                    const float* gz, const float* fric, const float* stones, \
+                                    const float* bars, const float* grabs, const float* hf,  \
+                                    const float* tris, float* q_out, float* qd_out,         \
+                                    float* depth, float* nimp, const float* table,          \
+                                    int table_size, float*, int B, long long* clocks) {     \
+    if (clocks == nullptr) return 1;                                                         \
+    return k1w::host<NAME##_cfg>(q, qd, tau, gz, fric, stones, bars, grabs, hf, tris, q_out, \
+                                 qd_out, depth, nimp, table, table_size, B, clocks);        \
   }
 #endif
 

@@ -21,6 +21,7 @@ from typing import Any, Callable
 import torch
 
 from mocca_envs_tpu_torch.core import rng as rng_mod
+from mocca_envs_tpu_torch.harness.profile import span
 from mocca_envs_tpu_torch.utils.device import resolve_device
 
 
@@ -93,29 +94,32 @@ def make_fn_env(*, name: str, obs_dim: int, act_dim: int, reset: Callable,
                 raw_step: Callable, obs_fn: Callable, control_dt: float,
                 device: torch.device, mirror=None, model=None,
                 reset_obs_fn: Callable | None = None) -> FnEnv:
-    """Assemble a family: wrap ``raw_step`` with done / non-finite auto-reset."""
+    """Assemble a family: wrap ``raw_step`` with done / non-finite auto-reset.
+    The step is one ``env.step`` span while a profiler records
+    (``harness/profile.py::span``)."""
     fresh_obs = reset_obs_fn or obs_fn
 
     def step(state: EnvState, action: torch.Tensor, gen: torch.Generator) -> Transition:
-        tr = raw_step(state, action, gen)
-        finite = (
-            torch.isfinite(tr.state.q).all(dim=1)
-            & torch.isfinite(tr.state.qd).all(dim=1)
-            & torch.isfinite(tr.reward)
-        )
-        blowup = ~finite
-        done = tr.done | blowup
-        reward = torch.where(finite, tr.reward, torch.full_like(tr.reward, -1.0))
+        with span("env.step"):
+            tr = raw_step(state, action, gen)
+            finite = (
+                torch.isfinite(tr.state.q).all(dim=1)
+                & torch.isfinite(tr.state.qd).all(dim=1)
+                & torch.isfinite(tr.reward)
+            )
+            blowup = ~finite
+            done = tr.done | blowup
+            reward = torch.where(finite, tr.reward, torch.full_like(tr.reward, -1.0))
 
-        fresh = reset(gen, state.reset_count + 1, tr.state)
-        fresh.blowup_count = state.blowup_count + blowup.to(torch.int32)
-        next_state = tree_where(done, fresh, tr.state)
-        obs = torch.where(done[:, None], fresh_obs(next_state), tr.obs)
-        next_state.done = done
-        return Transition(
-            state=next_state, obs=obs, reward=reward, done=done,
-            metrics={**tr.metrics, "blowup": blowup.to(torch.float32)},
-        )
+            fresh = reset(gen, state.reset_count + 1, tr.state)
+            fresh.blowup_count = state.blowup_count + blowup.to(torch.int32)
+            next_state = tree_where(done, fresh, tr.state)
+            obs = torch.where(done[:, None], fresh_obs(next_state), tr.obs)
+            next_state.done = done
+            return Transition(
+                state=next_state, obs=obs, reward=reward, done=done,
+                metrics={**tr.metrics, "blowup": blowup.to(torch.float32)},
+            )
 
     return FnEnv(
         name=name, obs_dim=obs_dim, act_dim=act_dim, reset=reset, step=step,

@@ -69,6 +69,12 @@ are called through a plain C interface with ``ctypes``.
   torque mode, ...). ``INSTANCE_LAUNCHES[symbol]`` counts the same K1
   launches by the instance that ran, which tells apart keys that share a
   name (the walker at 2 substeps × 8 sweeps counts as ``k1a`` there).
+- While a ``torch.profiler`` records (``harness/profile.py::tracing``), a
+  warp-per-env instance launches its clocked kernel, ``k1w_kernel<C,
+  true>`` (``<symbol>_launch_phases``): the same outputs, counted as the
+  shipped launch, with each env's ``clock64()`` cycles and visits per phase
+  of :data:`PHASES` added into a buffer kept on the card per instance and
+  batch (:func:`phase_clocks`); :func:`k1_phases` sums them.
 """
 
 from __future__ import annotations
@@ -86,6 +92,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from mocca_envs_tpu_torch.harness.profile import tracing
 from mocca_envs_tpu_torch.models.schema import REVOLUTE, RobotModel
 from mocca_envs_tpu_torch.ops.collide import sphere_centers
 from mocca_envs_tpu_torch.ops.integrate import LIMIT_SLOP, MAX_VEL
@@ -407,6 +414,11 @@ def compile_flags(inst: Instance) -> list:
 LAUNCHES: collections.Counter = collections.Counter()
 # the same K1 launches by the instance that ran (its symbol)
 INSTANCE_LAUNCHES: collections.Counter = collections.Counter()
+# the phases of the clocked warp-per-env kernel (csrc/engine_k1w.cu's Phase,
+# in its order), and its buffers: per (symbol, batch, device) the
+# (B, len(PHASES), 2) int64 cycles and visits of every env, on the card
+PHASES = ("io", "fk", "narrowphase", "bias", "factor", "rows", "pgs", "integrate")
+PHASE_CLOCKS: dict = {}
 # the tag of each PGS option in a count's name, where the config turns it off
 OPTION_TAGS = {"matfree_pgs": "aform", "block_pgs": "scalar", "warm_start": "cold",
                "reuse_factor": "refactor"}
@@ -511,9 +523,35 @@ def build(instances=()) -> dict:
                 if got != want:
                     raise RuntimeError(f"{symbol}: the source's env takes {got} bytes, the host "
                                        f"counts {want} (warp_env_bytes)")
+                clocked = getattr(lib, symbol + "_launch_phases")
+                clocked.argtypes = [*fn.argtypes, _P]
+                clocked.restype = _I
         fn.restype = _I
         _Library.handles[symbol] = lib
     return _Library.handles
+
+
+def phase_clocks(symbol: str, B: int, device) -> torch.Tensor:
+    """The clocked launches' buffer of ``symbol`` at batch ``B`` on
+    ``device`` (:data:`PHASE_CLOCKS`), zeroed once where it is first asked
+    for and kept: each clocked launch adds into it."""
+    key = (symbol, B, torch.device(device))
+    if key not in PHASE_CLOCKS:
+        PHASE_CLOCKS[key] = torch.zeros((B, len(PHASES), 2), dtype=torch.int64, device=device)
+    return PHASE_CLOCKS[key]
+
+
+def k1_phases() -> dict:
+    """The clocked K1 launches' totals so far, over every env and batch of
+    each instance: ``{symbol: {phase: (cycles, visits)}}``, empty where no
+    launch was clocked. Synchronises with the card: read it after a stretch
+    of steps, not inside one."""
+    out: dict = {}
+    for (symbol, _, _), buf in PHASE_CLOCKS.items():
+        have = out.setdefault(symbol, dict.fromkeys(PHASES, (0, 0)))
+        for phase, (cycles, visits) in zip(PHASES, buf.sum(dim=0).tolist()):
+            have[phase] = (have[phase][0] + cycles, have[phase][1] + visits)
+    return out
 
 
 def raycast_signatures(lib):
@@ -855,7 +893,12 @@ class EngineKernel:
         return B
 
     def launch(self, q, qd, tau, ground_z, friction, *scene_inputs):
-        """Launch the kernel on the current stream; raises on any failure."""
+        """Launch the kernel on the current stream; raises on any failure.
+        While a torch profiler records (``harness/profile.py::tracing``), a
+        warp-per-env instance launches its clocked kernel
+        (``<symbol>_launch_phases``: the same outputs, each env's phase
+        cycles and visits added into :func:`phase_clocks`), counted as the
+        shipped one."""
         B = self._check_inputs(q, qd, tau, ground_z, friction, scene_inputs)
         if self._lib is None:
             lib = build([self.instance])[self.name]
@@ -880,13 +923,16 @@ class EngineKernel:
         named = dict(zip(self.inputs, scene_inputs))
         ptr = lambda name: named[name].data_ptr() if name in named else None  # noqa: E731
         stream = torch.cuda.current_stream(dev).cuda_stream
+        clocked = self.instance.source == SOURCE_W and tracing()
         with torch.cuda.device(dev):
-            err = getattr(lib, self.name + "_launch")(
+            entry = "_launch_phases" if clocked else "_launch"
+            clocks = (phase_clocks(self.name, B, dev).data_ptr(),) if clocked else ()
+            err = getattr(lib, self.name + entry)(
                 q.data_ptr(), qd.data_ptr(), tau.data_ptr(), ground_z.data_ptr(),
                 friction.data_ptr(), ptr("stones"), ptr("bars"), ptr("grabs"), ptr("hf"),
                 ptr("tris"), q_out.data_ptr(), qd_out.data_ptr(), depth.data_ptr(),
                 nimp.data_ptr(), self._table.data_ptr(), table_size, self._ws.data_ptr(), B,
-                stream,
+                stream, *clocks,
             )
         if err != 0:
             raise RuntimeError(f"{self.variant} launch failed: cudaError {err}")

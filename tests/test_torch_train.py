@@ -22,7 +22,8 @@ seams, and a toy task with a known optimum.
   from 0 to within 0.15 of 0.6 in 15 seeded updates;
 - the checkpoint keeps the newest three and refuses a template of another
   structure; the metrics logger writes the JAX package's JSONL lines and
-  skips a TensorBoard it cannot import; ``--profile-dir`` writes a trace.
+  skips a TensorBoard it cannot import; ``--profile-dir`` writes a trace,
+  with one ``env.step`` span a step, and the K1 phase totals beside it.
 """
 
 import dataclasses
@@ -44,7 +45,7 @@ from mocca_envs_tpu_torch.envs import env as tenv_mod
 from mocca_envs_tpu_torch.harness import ppo, train
 from mocca_envs_tpu_torch.harness.checkpoint import CheckpointManager, CheckpointMismatch
 from mocca_envs_tpu_torch.harness.metrics import MetricsLogger, aggregate, merge_means
-from mocca_envs_tpu_torch.harness.profile import TRACE_FILE
+from mocca_envs_tpu_torch.harness.profile import PHASES_FILE, TRACE_FILE
 from mocca_envs_tpu_torch.harness.rollout import random_rollout
 from mocca_envs_tpu_torch.tasks.cassie_task import CASSIE_CONFIG as TCASSIE_CONFIG
 
@@ -320,6 +321,9 @@ def test_profile_dir_writes_a_trace(tmp_path):
          "--profile-dir", str(tmp_path / "prof"))
     trace = json.loads((tmp_path / "prof" / TRACE_FILE).read_text())
     assert any("aten::" in e.get("name", "") for e in trace["traceEvents"])
+    # each env step is one span; the CPU clocks no K1 launch
+    assert any(e.get("name") == "env.step" for e in trace["traceEvents"])
+    assert json.loads((tmp_path / "prof" / PHASES_FILE).read_text()) == {}
 
 
 def test_aggregate_merge_means_and_random_rollout():

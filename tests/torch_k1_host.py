@@ -14,7 +14,8 @@ an atomic rename, so that every test file and every test worker reuses what
 another built; :func:`build_raycast` builds K2's source the same way, with
 its ``-DK2_*`` flags. :class:`HostLibrary` builds an instance at the first lookup
 of one of its symbols. :func:`run_on_host` runs one kernel wrapper's
-instance on numpy inputs.
+instance on numpy inputs (a warp-per-env instance's clocked entry too,
+given a buffer for its phase counts).
 """
 
 import ctypes
@@ -126,9 +127,12 @@ class HostLibrary:
         return getattr(self._libs[symbol], name)
 
 
-def run_on_host(lib, kernel, inputs):
+def run_on_host(lib, kernel, inputs, clocks=None):
     """``kernel``'s instance in ``lib`` on numpy ``inputs`` (q, qd, tau,
-    ground_z, friction, *scene inputs): ``[q', qd', depth, impulse]``."""
+    ground_z, friction, *scene inputs): ``[q', qd', depth, impulse]``. With
+    ``clocks``, an int64 ``(B, len(engine.PHASES), 2)`` array, the clocked
+    entry (``<symbol>_host_phases``) runs and adds each env's phase counts
+    into it."""
     B = inputs[0].shape[0]
     table_size, ws_per_env = engine.layout(lib, kernel.name)
     assert table_size == kernel.table_host.size
@@ -137,12 +141,16 @@ def run_on_host(lib, kernel, inputs):
             np.zeros((B, m.ns), np.float32), np.zeros((B, m.ns), np.float32)]
     ws = np.zeros(ws_per_env * B, np.float32)
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
-    fn = getattr(lib, kernel.name + "_host")
+    fn = getattr(lib, kernel.name + ("_host" if clocks is None else "_host_phases"))
     fn.restype = ctypes.c_int
     named = dict(zip(kernel.inputs, inputs[5:]))
     scene = [ptr(named[k]) if k in named else None
              for k in ("stones", "bars", "grabs", "hf", "tris")]
+    if clocks is not None:
+        assert clocks.shape == (B, len(engine.PHASES), 2) and clocks.dtype == np.int64
+        assert clocks.flags.c_contiguous
     err = fn(*map(ptr, inputs[:5]), *scene, *map(ptr, outs), ptr(kernel.table_host),
-             ctypes.c_int(table_size), ptr(ws), ctypes.c_int(B))
+             ctypes.c_int(table_size), ptr(ws), ctypes.c_int(B),
+             *(() if clocks is None else (ptr(clocks),)))
     assert err == 0
     return outs
