@@ -466,34 +466,39 @@ WALKER_SWEEP = {4096: 10, 16384: 5}
 # block of 32 (and its split twins'), the monkey's one block of 32 (and its
 # split twin's), the planar walkers' one block of 32 (and their split
 # twin's), the A-forms' one block of 11; each as every build since it was
-# written has reported it
+# written has reported it, or since the instances whose launch shape leaves
+# a thread 128 registers took their active rows into registers (K1a, K1b,
+# K1h-g, K1h-b, K1h-si, the A-forms, scalar friction, the cold start; K1h-c
+# kept its 92)
 WARP_BUILDS = {
-    "k1w_nl22_ns14_nlim21_sub4_it4": (64, 53008, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4": (124, 53008, 16),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2": (64, 202896, 32),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar": (64, 213648, 32),
-    "k1w_nl22_ns14_nlim21_sub4_it4_llc1": (56, 53344, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_llc1": (96, 53344, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_hf16": (63, 53776, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_k6": (64, 54736, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_kt16": (64, 56240, 16),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_si": (64, 208272, 32),
     "k1w_nl17_ns5_nlim16_sub2_it4_llc10_p2p2_planar_si": (64, 219024, 32),
-    "k1w_nl22_ns14_nlim21_sub4_it4_kt16_si": (92, 214416, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_kt16_si": (124, 214416, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_hf16_si": (61, 54896, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_k6_si": (92, 208400, 16),
-    "k1w_nl22_ns14_nlim21_sub4_it4_llc1_si": (56, 202832, 16),
-    "k1w_nl22_ns14_nlim21_sub4_it4_si": (64, 201488, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_llc1_si": (96, 202832, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_si": (92, 201488, 16),
     "k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2": (64, 159712, 32),
     "k1w_nl11_ns5_nlim8_sub4_it4_kb16_ng2_si": (63, 163040, 32),
     "k1w_nl7_ns5_nlim6_sub4_it4_planar": (58, 83216, 32),
     "k1w_nl7_ns5_nlim6_sub4_it4_planar_si": (58, 86032, 32),
-    "k1w_nl22_ns14_nlim21_sub4_it4_si_aform": (108, 228792, 11),
-    "k1w_nl22_ns14_nlim21_sub4_it4_aform": (107, 225712, 11),
-    "k1w_nl22_ns14_nlim21_sub4_it4_aform_scalar_cold_refactor": (108, 225712, 11),
-    "k1w_nl22_ns14_nlim21_sub4_it4_scalar": (64, 197008, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_si_aform": (135, 228792, 11),
+    "k1w_nl22_ns14_nlim21_sub4_it4_aform": (149, 225712, 11),
+    "k1w_nl22_ns14_nlim21_sub4_it4_aform_scalar_cold_refactor": (149, 225712, 11),
+    "k1w_nl22_ns14_nlim21_sub4_it4_scalar": (124, 197008, 16),
     "k1w_nl22_ns14_nlim21_sub4_it4_refactor": (96, 197008, 16),
-    "k1w_nl22_ns14_nlim21_sub4_it4_cold": (64, 197008, 16),
+    "k1w_nl22_ns14_nlim21_sub4_it4_cold": (124, 197008, 16),
     # the generic instances of the scene combinations (COMBINATIONS), each
     # one block per SM at the host's shape, as PR 27's builds reported them
+    # (the planar walker over a window 57 since the rows' code was shared
+    # between its two forms)
     "k1w_nl22_ns14_nlim21_sub4_it4_llc1_kt16_17x1": (91, 224172, 17),
     "k1w_nl22_ns14_nlim21_sub4_it4_llc1_kt16_si_17x1": (91, 228932, 17),
     "k1w_nl22_ns14_nlim21_sub4_it4_llc1_hf16_18x1": (91, 226048, 18),
@@ -501,7 +506,7 @@ WARP_BUILDS = {
     "k1w_nl11_ns5_nlim8_sub4_it4_llc1_kb16_ng2_32x1": (63, 160992, 32),
     "k1w_nl7_ns5_nlim6_sub4_it4_k6_planar_32x1": (63, 93584, 32),
     "k1w_nl7_ns5_nlim6_sub4_it4_planar_kt16_32x1": (61, 105616, 32),
-    "k1w_nl7_ns5_nlim6_sub4_it4_planar_hf16_32x1": (59, 86160, 32),
+    "k1w_nl7_ns5_nlim6_sub4_it4_planar_hf16_32x1": (57, 86160, 32),
     "k1w_nl22_ns14_nlim21_sub4_it4_k6_kt16_17x1": (91, 227232, 17),
     "k1w_nl22_ns14_nlim21_sub4_it4_k6_hf16_18x1": (93, 229216, 18),
     "k1w_nl22_ns14_nlim21_sub4_it4_hf16_kt16_17x1": (91, 223152, 17),

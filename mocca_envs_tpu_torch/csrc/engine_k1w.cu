@@ -191,10 +191,14 @@
 //     barrier per pivot, 12% off the refactor key); DOF j for the
 //     free velocity, the PD torque, z = Wλ and q̇, the triangular solves
 //     column by column with the pivot broadcast by a shuffle; one active row
-//     per lane for J_r, W_r = L⁻¹J_rᵀ (a forward solve in place in its row of
-//     W, L read as a broadcast), c_r and the diagonal. The walker's instance:
-//     64 registers, no spill: the row solved in 27 registers instead ran ~15%
-//     faster but spilled at the 128 that four blocks per SM allow.
+//     per lane for J_r, W_r = L⁻¹J_rᵀ (a forward solve, L read as a
+//     broadcast), c_r and the diagonal. Where the launch shape leaves a
+//     thread 128 registers (K1a, K1b, the instances of one block of 16 envs,
+//     the A-forms; not REGCHOL's) the row is built and solved in the lane's
+//     registers and stored into W once: K1a 124 registers, no spill, 11–12%
+//     faster than the row built and solved in place in its row of W, which
+//     the other instances keep (in registers they spilled at 64 and 96 a
+//     thread).
 //   - Past 32 of anything, lane ℓ takes items ℓ, ℓ + 32, ... in turn: links
 //     (one tree level spans both slots; a link's parent sits a level above,
 //     so the order within a level does not matter), spheres, limit rows,
@@ -697,6 +701,18 @@ HD inline float bcast_owned(const float (&v)[N], int i) {
   return wbcast(owned(v, i / WIDTH), i % WIDTH);
 }
 
+// f(0), f(1), …, f(N − 1) in order: the loop unrolled where UNROLL, so that f
+// may index a register array by i
+template <int N, bool UNROLL, class F>
+HD inline void each(F&& f) {
+  if constexpr (UNROLL) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) f(i);
+  } else {
+    for (int i = 0; i < N; ++i) f(i);
+  }
+}
+
 // The depth of each link in the tree (root 0) and the largest.
 template <int NL>
 HD inline int tree_depths(const float* parent, int* depth) {
@@ -717,6 +733,16 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
   constexpr int NL = C::NL, NS = C::NS, NLIM = C::NLIM, WS = C::WS;
   constexpr int NJ = L::NJ, NV = L::NV, NR = L::NR, NE = L::NE, NE0 = L::NE0;
   constexpr int NVL = (NV + WIDTH - 1) / WIDTH;   // a lane's share of a DOF vector
+  // An active row of W is built and solved in the lane's registers where
+  // one lane of the card holds a DOF vector (NV <= 32, NVL = 1 there; the
+  // host check's one lane runs the same code) and the launch shape leaves a
+  // thread 128 registers or more, 65,536 / (32 · ENVS · BLOCKS), with no
+  // factor row held in registers beside it (REGCHOL); else in place in its
+  // row of W. (On an H100 the row in registers took K1a to 124 registers
+  // without a spill and 11–12% off its time; at 64 and 96 registers a thread,
+  // and beside REGCHOL's row, it spilled in most instances: PERF.md §6.)
+  constexpr int REG_BUDGET = 65536 / (32 * C::ENVS * C::BLOCKS);
+  constexpr bool ROW_REGS = NV <= 32 && REG_BUDGET >= 128 && !C::REGCHOL;
   const float dt = tab[L::DT];
   auto& K = e.kin();
   auto Lx = [&](int i, int j) -> float& { return e.Lf[i * (i + 1) / 2 + j]; };  // i >= j
@@ -1246,11 +1272,12 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
   auto eq_target = [&](float err) { return clampf(-beta * err, -maxpush, maxpush); };
 
   // ---------------- each active row: J_r, c_r, W_r = L⁻¹J_rᵀ and its
-  // diagonal, one row per lane, solved in place in the row of W
+  // diagonal, one row per lane. build_row(r, put) hands entry i of J_r to
+  // put(i, J_r[i]) in the order i = 0, 1, …, NV − 1 and sets c_r; each of its
+  // loops over i is unrolled where ROW_REGS, so that put may keep the entry
+  // in a register of a constant index
   const float cfm = tab[L::CFM];
-  for (int t = lane; t < nrows; t += WIDTH) {
-    const int r = e.rows[t];
-    float* y = e.u.W + r * WS;
+  auto build_row = [&](int r, auto&& put) {
     if (r < NE0) {
       if constexpr (C::NP2P > 0) {
         if (r < 3 * C::NP2P) {   // a rod: component d of J_a − J_b
@@ -1262,10 +1289,11 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
           float ra[3], rb[3];
           for (int m = 0; m < 3; ++m) { ra[m] = xa[m] - e.pos[0][m]; rb[m] = xb[m] - e.pos[0][m]; }
           float cv = 0.0f;
-          for (int i = 0; i < NV; ++i) {
-            y[i] = jac(la, xa, ra, d, i) - jac(lb, xb, rb, d, i);
-            cv += y[i] * e.vfree[i];
-          }
+          each<NV, ROW_REGS>([&](int i) {
+            const float v = jac(la, xa, ra, d, i) - jac(lb, xb, rb, d, i);
+            put(i, v);
+            cv += v * e.vfree[i];
+          });
           e.c[r] = cv - eq_target(xa[d] - xb[d]);
         }
       }
@@ -1275,7 +1303,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
           const float w = e.q[3], x = e.q[4], yq = e.q[5], z = e.q[6];
           const float err = m == 0 ? e.q[1]
                             : m == 1 ? 2.0f * (w * x + yq * z) : 2.0f * (w * z + x * yq);
-          for (int i = 0; i < NV; ++i) y[i] = i == col ? 1.0f : 0.0f;
+          each<NV, ROW_REGS>([&](int i) { put(i, i == col ? 1.0f : 0.0f); });
           e.c[r] = e.vfree[col] - eq_target(err);
         }
       }
@@ -1287,10 +1315,11 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
         float rel[3];
         for (int m = 0; m < 3; ++m) rel[m] = xg[m] - e.pos[0][m];
         float cv = 0.0f;
-        for (int i = 0; i < NV; ++i) {
-          y[i] = jac(lg, xg, rel, d, i);
-          cv += y[i] * e.vfree[i];
-        }
+        each<NV, ROW_REGS>([&](int i) {
+          const float v = jac(lg, xg, rel, d, i);
+          put(i, v);
+          cv += v * e.vfree[i];
+        });
         e.c[r] = cv - eq_target(xg[d] - e.gtgt[g][d]);
       }
     } else if (r < NE + NLIM) {   // a joint limit: ±1 on its column
@@ -1302,7 +1331,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       const float gap = fminf(d_lo, d_hi), viol = -gap;
       const float b_l = fminf(beta * fmaxf(viol - tab[L::LIMSLOP], 0.0f), maxpush);
       const int col = 6 + j;
-      for (int i = 0; i < NV; ++i) y[i] = i == col ? sgn : 0.0f;
+      each<NV, ROW_REGS>([&](int i) { put(i, i == col ? sgn : 0.0f); });
       // split impulse: the push-out goes to the position pass
       if constexpr (C::SPLIT) e.bpos[lr] = b_l;
       const float bv = C::SPLIT ? 0.0f : b_l;
@@ -1323,7 +1352,7 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
         const float d0 = m == 0 ? nx : m == 1 ? 1.0f + sg * nx * nx * ka : kb;
         const float d1 = m == 0 ? ny : m == 1 ? sg * kb : sg + ny * ny * ka;
         const float d2 = m == 0 ? nz : m == 1 ? -sg * nx : -ny;
-        for (int i = 0; i < NV; ++i) {
+        each<NV, ROW_REGS>([&](int i) {
           float jc[3];
           if (i < 6) {
             for (int k = 0; k < 3; ++k) jc[k] = jac(l, x, rel, k, i);
@@ -1334,15 +1363,17 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
           } else {
             jc[0] = jc[1] = jc[2] = 0.0f;
           }
-          y[i] = d0 * jc[0] + d1 * jc[1] + d2 * jc[2];
-          cv += y[i] * e.vfree[i];
-        }
+          const float v = d0 * jc[0] + d1 * jc[1] + d2 * jc[2];
+          put(i, v);
+          cv += v * e.vfree[i];
+        });
       } else {             // the plane: rows z, x, y, constant-folded
         const int comp = m == 0 ? 2 : m - 1;
-        for (int i = 0; i < NV; ++i) {
-          y[i] = jac(l, x, rel, comp, i);
-          cv += y[i] * e.vfree[i];
-        }
+        each<NV, ROW_REGS>([&](int i) {
+          const float v = jac(l, x, rel, comp, i);
+          put(i, v);
+          cv += v * e.vfree[i];
+        });
       }
       if (m == 0) {
         const float dep = e.depth[s];
@@ -1353,17 +1384,49 @@ HD void substep(EnvW<C>& e, const float* tab, const int* level, int maxd, int la
       }
       e.c[r] = cv;
     }
-    float dd = 0.0f;
-#pragma unroll 1
-    for (int i = 0; i < NV; ++i) {
-      const float* Li = e.Lf + i * (i + 1) / 2;
-      float s = y[i];
-      for (int k = 0; k < i; ++k) s -= Li[k] * y[k];
-      s *= e.dinv[i];
-      y[i] = s;
-      dd += s * s;
+  };
+  if constexpr (ROW_REGS) {
+    // the row in the lane's registers: J_r built there, the forward solve
+    // L y = J_rᵀ there (L and 1 / L_ii broadcast from shared memory), then
+    // one store of the row into W
+    for (int t = lane; t < nrows; t += WIDTH) {
+      const int r = e.rows[t];
+      float y[NV];
+      build_row(r, [&](int i, float v) { y[i] = v; });
+      float dd = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const float* Li = e.Lf + i * (i + 1) / 2;
+        float s = y[i];
+#pragma unroll
+        for (int k = 0; k < i; ++k) s -= Li[k] * y[k];
+        s *= e.dinv[i];
+        y[i] = s;
+        dd += s * s;
+      }
+      if constexpr (C::MATFREE) e.diag[r] = fmaxf(dd + cfm, 1e-9f);
+      float* w = e.u.W + r * WS;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) w[i] = y[i];
     }
-    if constexpr (C::MATFREE) e.diag[r] = fmaxf(dd + cfm, 1e-9f);
+  } else {
+    // J_r written into its row of W and solved there in place
+    for (int t = lane; t < nrows; t += WIDTH) {
+      const int r = e.rows[t];
+      float* y = e.u.W + r * WS;
+      build_row(r, [&](int i, float v) { y[i] = v; });
+      float dd = 0.0f;
+#pragma unroll 1
+      for (int i = 0; i < NV; ++i) {
+        const float* Li = e.Lf + i * (i + 1) / 2;
+        float s = y[i];
+        for (int k = 0; k < i; ++k) s -= Li[k] * y[k];
+        s *= e.dinv[i];
+        y[i] = s;
+        dd += s * s;
+      }
+      if constexpr (C::MATFREE) e.diag[r] = fmaxf(dd + cfm, 1e-9f);
+    }
   }
   wsync();
   // the A-form: A(t1, t2) = W_r1·W_r2 (+ cfm where t1 = t2) over the list

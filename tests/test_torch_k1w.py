@@ -14,8 +14,10 @@ CPU: its per-env code built by g++ under ``-DK1W_HOST_CHECK`` (lane width
 - it agrees with the thread-per-env instance's host build at ``TOL_TWIN``
   (q 2e-5, qd 5e-4, depth 2e-5, impulse 5e-4; the JAX package's gate
   between two orders of the same iteration) on that batch, on a batch with
-  no contact (every contact row skipped) and on a batch with every row
-  active (nothing skipped): skipping the inactive rows changes nothing.
+  no contact (every contact row skipped), on that batch with no row active
+  and on a batch with every row active (nothing skipped, a lane's second
+  row solved): skipping the inactive rows changes nothing; off near
+  contact also with the plain path at K1a's gates.
 """
 
 import dataclasses
@@ -46,6 +48,8 @@ B = 64
 # every row active: margins no state reaches (the table carries them, the
 # key and so the instances are the walker's)
 ALL_ROWS = {"contact_margin": 1e3, "limit_margin": 1e3}
+# no row active on a lifted batch: a limit margin no joint reaches
+NO_ROWS = {"limit_margin": -1e3}
 
 
 def _gate(got, want, tol):
@@ -119,23 +123,27 @@ def test_k1w_matches_plain_on_host(libs):
     assert (want[3] > 0).mean() > 0.1   # contacts carry load
 
 
-@pytest.mark.parametrize("case", ["near_contact", "no_contact", "all_rows_active"])
+@pytest.mark.parametrize("case", ["near_contact", "no_contact", "all_rows_active", "no_rows"])
 def test_k1w_matches_thread_per_env_on_host(libs, case):
     """The same iteration as the thread-per-env instance, whether rows are
-    skipped (no contact: all 42 contact rows) or not (every row active)."""
-    new, old = _pair(**(ALL_ROWS if case == "all_rows_active" else {}))
-    inputs = _states("no_contact" if case == "no_contact" else "near_contact")
+    skipped (no contact: all 42 contact rows; no rows: every row) or not
+    (every row active: 63, so that a lane takes a second row); off near
+    contact also the plain path's."""
+    new, old = _pair(**{"all_rows_active": ALL_ROWS, "no_rows": NO_ROWS}.get(case, {}))
+    inputs = _states("no_contact" if case in ("no_contact", "no_rows") else "near_contact")
     outs = _run(libs, new, inputs)
     _gate(outs, _run(libs, old, inputs), TOL_TWIN)
     lim_act, con_act, _ = engine.k1_activity(new, *map(torch.as_tensor, inputs))
-    if case == "no_contact":
+    if case in ("no_contact", "no_rows"):
         assert not con_act.any() and (outs[3] == 0).all()
-        want = [t.numpy() for t in new.plain(*map(torch.as_tensor, inputs))]
-        _gate(outs, want, TOL)
+        assert lim_act.any() == (case == "no_contact")
     elif case == "all_rows_active":
         assert lim_act.all() and con_act.all()
     else:
         assert 0.05 < float(con_act.float().mean()) < 0.95   # some rows skipped, some not
+    if case != "near_contact":   # near contact: test_k1w_matches_plain_on_host
+        want = [t.numpy() for t in new.plain(*map(torch.as_tensor, inputs))]
+        _gate(outs, want, TOL)
 
 
 def test_k1w_matches_jax_llc_frame(libs):

@@ -12,9 +12,10 @@ identities) and run as a loop over envs, for ``planar`` off and on.
   plain unit at K1e's chip gate: ``TOL_EQ`` medians (q 5e-4, qd 2e-2, depth
   5e-4, impulse 5e-3), the 99th percentile within ten times;
 - against the thread-per-env instance's host build on those states, with
-  every foot lifted 1 m (every contact row skipped) and with every row
-  active (margins no state reaches): ``TOL_EQ`` medians, the 99th percentile
-  within ten times. Not ``TOL_TWIN``: over the 20 stiff substeps of a call
+  every foot lifted 1 m (every contact and limit row skipped) and with every
+  row active (margins no state reaches): ``TOL_EQ`` medians, the 99th
+  percentile within ten times; the lifted and the every-row batches also
+  against the plain unit at the same gate. Not ``TOL_TWIN``: over the 20 stiff substeps of a call
   two orders of the same sums part by more (measured medians, Cassie /
   Cassie2D: q 1.3e-6 / 3.8e-6, qd 2.6e-4 / 7.1e-4 near stand; q 7.0e-7 /
   8.4e-6, qd 2.2e-4 / 1.3e-3 lifted; p99 of qd up to 3.4e-2), as far as the
@@ -138,19 +139,24 @@ def test_k1w_cassie_matches_plain_on_host(libs, planar):
 @pytest.mark.parametrize("case", ["near_stand", "lifted", "all_rows_active"])
 def test_k1w_cassie_matches_thread_per_env_on_host(libs, planar, case):
     """The same iteration as the thread-per-env instance, whether rows are
-    skipped (lifted: all 15 contact rows) or not (every row active)."""
+    skipped (lifted: all 15 contact rows and every limit row, the equality
+    rows alone) or not (every row active: 37 or 40, so that a lane takes a
+    second row); off the stand also the plain unit's."""
     config = {"contact_margin": 1e3, "limit_margin": 1e3} if case == "all_rows_active" else {}
     new, old = _pair(planar, **config)
     inputs = _states(planar, lifted=case == "lifted")
     outs = run_on_host(libs[new.name], new, inputs)
     _gate(outs, run_on_host(libs[old.name], old, inputs), TOL_EQ)
     lim_act, con_act, _ = engine.k1_activity(new, *map(torch.as_tensor, inputs))
-    if case == "lifted":
-        assert not con_act.any() and (outs[3] == 0).all()
+    if case == "lifted":   # the equality rows alone
+        assert not con_act.any() and not lim_act.any() and (outs[3] == 0).all()
     elif case == "all_rows_active":
         assert lim_act.all() and con_act.all()
     else:
         assert 0.05 < float(con_act.float().mean()) < 0.95   # some rows skipped, some not
+    if case != "near_stand":   # near the stand: test_k1w_cassie_matches_plain_on_host
+        want = [t.numpy() for t in new.plain(*map(torch.as_tensor, inputs))]
+        _gate(outs, want, TOL_EQ)
 
 
 @PLANAR

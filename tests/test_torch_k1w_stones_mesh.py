@@ -19,7 +19,9 @@ loop over envs, beside the thread-per-env instances of the same keys
 - each agrees with its thread-per-env twin at ``TOL_TWIN`` (q 2e-5, qd
   5e-4, depth 2e-5, impulse 5e-4), the largest env within ten times (over
   the mesh by the riser rule), near contact, lifted 3 m clear (every contact
-  row skipped) and with every row active (nothing skipped); over the mesh
+  row skipped), lifted with no row active and with every row active
+  (nothing skipped), off near contact also with the plain unit at ``TOL``;
+  over the mesh
   the twins' |Δq̇| lies within three times the 1e-7 q̇-nudge floor, the
   measurement behind chip_smoke.py's p99 tail for K1g's twins at B = 4096;
 - at B = 8 each agrees with the JAX package's control step
@@ -157,22 +159,30 @@ def test_k1w_matches_plain_on_host(libs, kind):
 
 
 @KIND
-@pytest.mark.parametrize("case", ["near_contact", "lifted", "all_rows_active"])
+@pytest.mark.parametrize("case", ["near_contact", "lifted", "all_rows_active", "no_rows"])
 def test_k1w_matches_thread_per_env_on_host(libs, kind, case):
     """The same iteration as the thread-per-env instance, whether rows are
-    skipped (lifted: all 42 contact rows) or not (every row active)."""
-    config = {"contact_margin": 1e3, "limit_margin": 1e3} if case == "all_rows_active" else {}
+    skipped (lifted: all 42 contact rows; no rows: lifted, and a limit
+    margin no joint reaches) or not (every row active: 63, so that a lane
+    takes a second row); off near contact also the plain unit's."""
+    config = {"all_rows_active": {"contact_margin": 1e3, "limit_margin": 1e3},
+              "no_rows": {"limit_margin": -1e3}}.get(case, {})
     new, old = _pair(kind, **config)
-    inputs = _states(kind, lifted=case == "lifted")
+    inputs = _states(kind, lifted=case in ("lifted", "no_rows"))
     outs = run_on_host(libs[new.name], new, inputs)
-    _gate(outs, run_on_host(libs[old.name], old, inputs), TOL_TWIN, _tail_envs(new, inputs))
+    held = _tail_envs(new, inputs)
+    _gate(outs, run_on_host(libs[old.name], old, inputs), TOL_TWIN, held)
     lim_act, con_act, _ = engine.k1_activity(new, *map(torch.as_tensor, inputs))
-    if case == "lifted":
+    if case in ("lifted", "no_rows"):
         assert not con_act.any() and (outs[3] == 0).all()
+        assert lim_act.any() == (case == "lifted")
     elif case == "all_rows_active":
         assert lim_act.all() and con_act.all()
     else:
         assert 0.05 < float(con_act.float().mean()) < 0.95   # some rows skipped, some not
+    if case != "near_contact":   # near contact: test_k1w_matches_plain_on_host
+        want = [t.numpy() for t in new.plain(*map(torch.as_tensor, inputs))]
+        _gate(outs, want, TOL, held)
 
 
 def test_the_mesh_twin_gap_is_the_rounding_floor(libs):
